@@ -1,0 +1,294 @@
+"""Wan2.1 video diffusion transformer (T2V), composable non-quantised path.
+
+Ports `turbodiffusion_tpu/models/wan.py`:
+  * `WanSelfAttention`   ← `_self_attention` (:153-169)
+  * `WanCrossAttention`  ← `_cross_attention` (:211-226)
+  * `WanFFN`             ← `_ffn` (:283-284)
+  * `WanAttentionBlock`  ← `wan_block` (:287-335)
+  * `WanHead`            ← `wan_head` (:338-345)
+  * `patchify` / `unpatchify` (:374-384)
+  * `WanModel.forward`   ← `wan_forward` (:387-467); the blocks are an
+    `nn.ModuleList` run by a Python loop where JAX scans stacked params
+  * `init_wan_params`    (:474-575)
+
+Left out with the paths they serve: the fused-SLA branch, the int8 and
+prequantised branches (W8A8 slice), the FFN half-split (a 16 GB-chip memory
+guard), remat (training), sharding constraints (multi-GPU) and `_img_emb`
+(I2V).
+
+fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
+the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
+K2) and attention (K3, K4) dispatch to the CUDA kernels on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from einops import rearrange
+from torch import nn
+
+from turbodiffusion_tpu_torch.config import WanConfig
+from turbodiffusion_tpu_torch.models.layers import (
+    gelu_tanh, layer_norm, rms_norm, sinusoidal_embedding_1d)
+from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
+from turbodiffusion_tpu_torch.ops.attention import attention, dense_attention
+from turbodiffusion_tpu_torch.ops.fused_norm import (
+    modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
+
+
+def _finish(y, gate=None, residual=None):
+    """`residual + y * gate` as linear_maybe_quant's epilogue does it
+    (quant.py:933-938): the gate is cast to y's dtype first."""
+    if gate is not None:
+        y = y * gate.to(y.dtype)
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+class WanSelfAttention(nn.Module):
+    """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O."""
+
+    def __init__(self, cfg: WanConfig, with_proj_l: bool, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, dt = cfg.dim, cfg.dtype
+        kw = dict(device=device, dtype=dt)
+        self.q, self.k = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
+        self.v, self.o = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
+        self.norm_q = nn.Parameter(torch.ones(D, **kw))
+        self.norm_k = nn.Parameter(torch.ones(D, **kw))
+        # zero-init learned linear-branch projection (SLA/core.py:78-81)
+        self.proj_l = (nn.Linear(cfg.head_dim, cfg.head_dim, device=device,
+                                 dtype=torch.float32)
+                       if with_proj_l else None)
+
+    def forward(self, x, rope_cs, gate=None, residual=None):
+        cfg = self.cfg
+        B, Lx, D = x.shape
+        H, Dh = cfg.num_heads, cfg.head_dim
+        cosF, sinF = rope_cs
+        q = rmsnorm_rope(self.q(x), self.norm_q, cosF, sinF, num_heads=H,
+                         eps=cfg.eps)
+        k = rmsnorm_rope(self.k(x), self.norm_k, cosF, sinF, num_heads=H,
+                         eps=cfg.eps)
+        v = self.v(x).reshape(B, Lx, H, Dh)
+        o = attention(q, k, v, cfg.attention, proj_l=self.proj_l)
+        return _finish(self.o(o.reshape(B, Lx, D)), gate, residual)
+
+
+class WanCrossAttention(nn.Module):
+    """Text cross-attention: q-RMSNorm (K2, no RoPE) + dense attention (K4)
+    over the text tokens; the K/V side is plain torch, as in JAX."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D, dt = cfg.dim, cfg.dtype
+        kw = dict(device=device, dtype=dt)
+        self.q, self.k = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
+        self.v, self.o = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
+        self.norm_q = nn.Parameter(torch.ones(D, **kw))
+        self.norm_k = nn.Parameter(torch.ones(D, **kw))
+
+    def forward(self, x, context, residual=None):
+        cfg = self.cfg
+        B, Lx, D = x.shape
+        H, Dh = cfg.num_heads, cfg.head_dim
+        k = rms_norm(self.k(context), self.norm_k, eps=cfg.eps)
+        k = k.reshape(B, -1, H, Dh)
+        v = self.v(context).reshape(B, -1, H, Dh)
+        q = rmsnorm_rope(self.q(x), self.norm_q, num_heads=H, eps=cfg.eps)
+        o = dense_attention(q, k, v)
+        return _finish(self.o(o.reshape(B, Lx, D)), residual=residual)
+
+
+class WanFFN(nn.Module):
+    """Linear -> GELU(tanh) -> Linear, gated residual (wan.py:283-284)."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.fc1 = nn.Linear(cfg.dim, cfg.ffn_dim, **kw)
+        self.fc2 = nn.Linear(cfg.ffn_dim, cfg.dim, **kw)
+
+    def forward(self, x, gate=None, residual=None):
+        return _finish(self.fc2(gelu_tanh(self.fc1(x))), gate, residual)
+
+
+class WanAttentionBlock(nn.Module):
+    """WanAttentionBlock (wan.py:287-335): norm1 + AdaLN (K1) -> self-attn
+    -> norm3 (K1, affine) -> cross-attn -> norm2 + AdaLN (K1) -> FFN."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        use_sla = cfg.attention.backend in ("sla", "sagesla")
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.self_attn = WanSelfAttention(cfg, use_sla, device)
+        self.cross_attn = WanCrossAttention(cfg, device)
+        self.ffn = WanFFN(cfg, device)
+        self.modulation = nn.Parameter(torch.zeros(6, cfg.dim, **kw))
+        if cfg.cross_attn_norm:
+            self.norm3_weight = nn.Parameter(torch.ones(cfg.dim, **kw))
+            self.norm3_bias = nn.Parameter(torch.zeros(cfg.dim, **kw))
+
+    def forward(self, x, e0_B6D, rope_cs, context):
+        eps = self.cfg.eps
+        e = self.modulation.float()[None] + e0_B6D          # (B, 6, D) fp32
+        e0, e1, e2, e3, e4, e5 = [e[:, i:i + 1] for i in range(6)]
+        x = self.self_attn(modulated_layer_norm(x, e1, e0, eps=eps),
+                           rope_cs, gate=e2, residual=x)
+        n3 = x
+        if self.cfg.cross_attn_norm:
+            n3 = modulated_layer_norm(x, weight=self.norm3_weight,
+                                      bias=self.norm3_bias, eps=eps)
+        x = self.cross_attn(n3, context, residual=x)
+        return self.ffn(modulated_layer_norm(x, e4, e3, eps=eps),
+                        gate=e5, residual=x)
+
+
+class WanHead(nn.Module):
+    """Modulated output projection in fp32 (wan.py:338-345)."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        self.eps = cfg.eps
+        out = cfg.out_dim * math.prod(cfg.patch_size)
+        self.head = nn.Linear(cfg.dim, out, device=device, dtype=torch.float32)
+        self.modulation = nn.Parameter(
+            torch.zeros(2, cfg.dim, device=device, dtype=torch.float32))
+
+    def forward(self, x, e_B_D):
+        e = self.modulation.float()[None] + e_B_D[:, None]   # (B, 2, D)
+        e0, e1 = e[:, 0:1], e[:, 1:2]
+        n = layer_norm(x, eps=self.eps).float()
+        return self.head(n * (1 + e1) + e0)
+
+
+def patchify(x_BCTHW, patch_size):
+    """(B,C,T,H,W) -> (B, T*H/kh*W/kw, C*kt*kh*kw) (wan.py:374-378)."""
+    kt, kh, kw = patch_size
+    return rearrange(x_BCTHW, "b c (t kt) (h kh) (w kw) -> b (t h w) (c kt kh kw)",
+                     kt=kt, kh=kh, kw=kw)
+
+
+def unpatchify(x_BLD, T, H, W, patch_size, out_dim):
+    """Inverse of `patchify` for the head output (wan.py:381-384)."""
+    kt, kh, kw = patch_size
+    return rearrange(x_BLD, "b (t h w) (kt kh kw d) -> b d (t kt) (h kh) (w kw)",
+                     t=T, h=H, w=W, kt=kt, kh=kh, kw=kw, d=out_dim)
+
+
+class WanModel(nn.Module):
+    """The Wan DiT; `forward` ports `wan_forward` (wan.py:387-467)."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.dim
+        kw = dict(device=device, dtype=cfg.dtype)
+        f32 = dict(device=device, dtype=torch.float32)
+        self.patch_embedding = nn.Linear(cfg.in_dim * math.prod(cfg.patch_size),
+                                         D, **kw)
+        self.text_embedding = nn.ModuleDict({
+            "fc1": nn.Linear(cfg.text_dim, D, **kw),
+            "fc2": nn.Linear(D, D, **kw)})
+        self.time_embedding = nn.ModuleDict({
+            "fc1": nn.Linear(cfg.freq_dim, D, **f32),
+            "fc2": nn.Linear(D, D, **f32)})
+        self.time_projection = nn.ModuleDict({"fc": nn.Linear(D, 6 * D, **f32)})
+        self.blocks = nn.ModuleList(WanAttentionBlock(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.head = WanHead(cfg, device)
+
+    def forward(self, x_B_C_T_H_W, timesteps_B_T, crossattn_emb):
+        """x: noisy latent (B, C, T, H, W); timesteps (B, 1) in [0, 1000];
+        crossattn_emb: umT5 embedding (B, text_len, text_dim). Returns the
+        fp32 velocity (B, out_dim, T, H, W)."""
+        cfg = self.cfg
+        t_B = timesteps_B_T[:, 0]
+        kt, kh, kw = cfg.patch_size
+        B, _, T_in, H_in, W_in = x_B_C_T_H_W.shape
+        T, H, W = T_in // kt, H_in // kh, W_in // kw
+
+        x = self.patch_embedding(patchify(x_B_C_T_H_W.to(cfg.dtype),
+                                          cfg.patch_size))
+        te = self.time_embedding
+        emb = sinusoidal_embedding_1d(cfg.freq_dim, t_B)
+        e_B_D = te["fc2"](F.silu(te["fc1"](emb)))
+        e0_B6D = self.time_projection["fc"](F.silu(e_B_D)).reshape(B, 6, cfg.dim)
+        txt = self.text_embedding
+        context = txt["fc2"](gelu_tanh(txt["fc1"](crossattn_emb.to(cfg.dtype))))
+        rope_cs = rope_cos_sin_full(rope_freqs_3d(T, H, W, cfg.head_dim,
+                                                  device=x.device))
+        for blk in self.blocks:
+            x = blk(x, e0_B6D, rope_cs, context)
+        out = self.head(x, e_B_D)
+        return unpatchify(out, T, H, W, cfg.patch_size, cfg.out_dim)
+
+
+# ---------------------------------------------------------------------------
+# random init (wan.py:474-575)
+# ---------------------------------------------------------------------------
+
+def _trunc_normal(shape, std, g, device):
+    """Normal truncated to [-2, 2] then scaled by std, drawn by inverse CDF
+    (jax.random.truncated_normal(-2, 2) * std)."""
+    lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+    u = torch.empty(shape, device=device).uniform_(lo, 1 - lo, generator=g)
+    return torch.erfinv(2 * u - 1) * (math.sqrt(2) * std)
+
+
+@torch.no_grad()
+def _init_linear(lin: nn.Linear, g, std: Optional[float] = None,
+                 zero: bool = False):
+    fan_out, fan_in = lin.weight.shape
+    dev = lin.weight.device
+    if zero:
+        lin.weight.zero_()
+    elif std is not None:
+        lin.weight.copy_(_trunc_normal((fan_out, fan_in), std, g, dev))
+    else:                                   # xavier uniform
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        lin.weight.copy_(torch.empty((fan_out, fan_in), device=dev)
+                         .uniform_(-limit, limit, generator=g))
+    if lin.bias is not None:
+        lin.bias.zero_()
+
+
+@torch.no_grad()
+def init_wan_params(cfg: WanConfig, seed: int = 0, device="cpu") -> WanModel:
+    """A WanModel with the reference's random init (trunc-normal attention
+    weights std 1/sqrt(dim), xavier FFN, zero head, zero proj_l), drawn from
+    a torch.Generator seeded with `seed` on `device`."""
+    device = torch.device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = WanModel(cfg, device)
+    std = 1.0 / math.sqrt(cfg.dim)
+    for blk in model.blocks:
+        for attn in (blk.self_attn, blk.cross_attn):
+            for lin in (attn.q, attn.k, attn.v, attn.o):
+                _init_linear(lin, g, std=std)
+            attn.norm_q.fill_(1.0)
+            attn.norm_k.fill_(1.0)
+        if blk.self_attn.proj_l is not None:
+            _init_linear(blk.self_attn.proj_l, g, zero=True)
+        _init_linear(blk.ffn.fc1, g)
+        _init_linear(blk.ffn.fc2, g)
+        blk.modulation.copy_(_trunc_normal(blk.modulation.shape, std, g, device))
+        if cfg.cross_attn_norm:
+            blk.norm3_weight.fill_(1.0)
+            blk.norm3_bias.zero_()
+    _init_linear(model.patch_embedding, g)
+    for lin in (model.text_embedding["fc1"], model.text_embedding["fc2"],
+                model.time_embedding["fc1"], model.time_embedding["fc2"],
+                model.time_projection["fc"]):
+        _init_linear(lin, g, std=0.02)
+    _init_linear(model.head.head, g, zero=True)
+    model.head.modulation.copy_(_trunc_normal((2, cfg.dim), std, g, device))
+    return model
