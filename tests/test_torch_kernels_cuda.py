@@ -9,7 +9,9 @@ installed:
 Inputs are numpy-seeded, in bf16; shapes are small but keep the main path's
 head dim (128), a ragged sequence tail and 512/256 sparse blocks. Tolerance:
 bf16 atol 2e-2 plus rtol 2^-8 (one bf16 step of outputs up to ~8, where the
-kernel and the plain version round an fp32 intermediate differently).
+kernel and the plain version round an fp32 intermediate differently); int8
+outputs within 1 LSB (an fp32 value on a rounding boundary); fp32 sums rtol
+1e-4 (another summation order, CUDA's expf).
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ import torch
 from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
 from turbodiffusion_tpu_torch.ops import flash_attention as fa
 from turbodiffusion_tpu_torch.ops import fused_norm as fn
+from turbodiffusion_tpu_torch.ops import sla_fused as sf
+from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
 from turbodiffusion_tpu_torch.ops.attention import get_block_map
 
 ATOL, RTOL = 2e-2, 2.0 ** -8
@@ -120,3 +124,114 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q64, q64, q64)                # head dim 64
     with pytest.raises(ValueError):
         fn.modulated_layer_norm(_randn(dev, 1, 8, DIM))  # fp32
+
+
+def _int8_close(got, want):
+    assert got.dtype == want.dtype == torch.int8 and got.shape == want.shape
+    assert int((got.int() - want.int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["q", "k", "v"])
+def test_k5_matches_plain(dev, form):
+    """K5's three call forms of the fused path, L = 1000 padded to 1024."""
+    L, Lp = 1000, 1024
+    x = _randn(dev, 1, L, DIM, seed=20).bfloat16()
+    w = (1 + _randn(dev, DIM, seed=21, std=0.1)).bfloat16()
+    cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 20, 26, DH, device=dev))
+    kw = {"q": dict(weight=w, cos_full=cos, sin_full=sin, pool=512,
+                    quant=True, bf16_out=False),
+          "k": dict(weight=w, cos_full=cos, sin_full=sin, pool=256),
+          "v": dict()}[form]
+    before = sf._head_planes_cuda.launches
+    got = sf.head_planes(x, num_heads=HEADS, eps=1e-6, pad_to=Lp, **kw)
+    assert sf._head_planes_cuda.launches == before + 1
+    want = sf.head_planes_plain(x, num_heads=HEADS, eps=1e-6, pad_to=Lp, **kw)
+    assert sorted(got) == sorted(want)
+    for key in got:
+        if key == "i8":
+            _int8_close(got[key], want[key])
+        elif key == "bf16":
+            _close(got[key], want[key])
+        else:
+            torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_kv", [False, True])
+def test_k6_matches_plain(dev, linear_kv):
+    """Two linear-kv partial chunks (L = 3000) and a poisoned K tail that must
+    stay out of the last block's statistic."""
+    L, Lp, bk = 3000, 3072, 256
+    k = _randn(dev, 1, HEADS, Lp, DH, seed=22).bfloat16()
+    k[:, :, L:] = 1e4
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    vi = torch.from_numpy(np.random.RandomState(23).randint(
+        -127, 128, (1, HEADS, Lp, DH)).astype(np.int8)).to(dev)
+    before = sf._subquant_pack_kvt_cuda.launches
+    got = sf.subquant_pack_kvt(k, mu, vi, bk, kv_len=L, linear_kv=linear_kv)
+    assert sf._subquant_pack_kvt_cuda.launches == before + 1
+    want = sf.subquant_pack_kvt_plain(k, mu, vi, bk, L, linear_kv)
+    _int8_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    for g_, w_ in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+def _k7_operands(dev, L, Lp, bq, bk, seed):
+    r = np.random.RandomState(seed)
+    qi, qs = sf._quant_rows(_randn(dev, 1, HEADS, Lp, DH, seed=seed))
+    k = _randn(dev, 1, HEADS, Lp, DH, seed=seed + 1).bfloat16()
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    vi, vcs = si8.quantize_v_per_channel(
+        _randn(dev, 1, HEADS, Lp, DH, seed=seed + 2).bfloat16(), L)
+    kp, vtp, ks, kv, ksum = sf.subquant_pack_kvt_plain(k, mu, vi, bk, L, True)
+    nQ, nK = -(-L // bq), -(-L // bk)
+    sel = max(1, nK // 2)
+    lut = torch.from_numpy(np.stack([r.permutation(nK)[:sel]
+                                     for _ in range(HEADS * nQ)])
+                           .reshape(1, HEADS, nQ, sel).astype(np.int32)).to(dev)
+    lin = dict(lin_kvw=torch.matmul(kv * vcs, _randn(dev, DH, DH, seed=seed + 3,
+                                                      std=0.03)),
+               lin_ks_bias=torch.cat([ksum, _randn(dev, 1, HEADS, 1, DH,
+                                                   seed=seed + 4, std=0.1)], 2))
+    return (qi, qs, kp, vtp, ks, vcs, lut), lin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lin", [False, True])
+@pytest.mark.parametrize("L,Lp,bq,bk", [(1000, 1024, 512, 256),
+                                        (520, 1024, 128, 128)])
+def test_k7_matches_plain(dev, L, Lp, bq, bk, lin):
+    args, lin_kw = _k7_operands(dev, L, Lp, bq, bk, seed=30)
+    kw = dict(block_q=bq, block_k=bk, kv_len=L, **(lin_kw if lin else {}))
+    before = si8._sparse_i8_vt_cuda.launches
+    got = si8.sparse_attention_i8_vt(*args, **kw)
+    assert si8._sparse_i8_vt_cuda.launches == before + 1
+    _close(got, si8.sparse_attention_i8_vt_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_k7_poisoned_tail_cannot_change_live_rows(dev):
+    """int8 K / V rows past kv_len set to +127 change no row before kv_len."""
+    L, Lp, bq, bk = 1000, 1024, 128, 128
+    (qi, qs, kp, vtp, ks, vcs, lut), _ = _k7_operands(dev, L, Lp, bq, bk, 40)
+    lut = torch.arange(Lp // bk, dtype=torch.int32, device=dev).expand(
+        1, HEADS, Lp // bq, Lp // bk).contiguous()
+    kw = dict(block_q=bq, block_k=bk, kv_len=L)
+    clean = si8.sparse_attention_i8_vt(qi, qs, kp, vtp, ks, vcs, lut, **kw)
+    pk, pv = kp.clone(), vtp.clone()
+    pk[:, :, L:] = 127
+    pv[:, :, -1, :, L % bk:] = 127
+    poisoned = si8.sparse_attention_i8_vt(qi, qs, pk, pv, ks, vcs, lut, **kw)
+    assert torch.equal(clean[:, :, :L], poisoned[:, :, :L])
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """No silent fallback: an fp32 or head-dim-64 CUDA tensor raises."""
+    with pytest.raises(ValueError):
+        sf.head_planes(_randn(dev, 1, 64, DIM), num_heads=HEADS)   # fp32
+    with pytest.raises(ValueError):
+        sf.head_planes(_randn(dev, 1, 64, 128).bfloat16(), num_heads=2)

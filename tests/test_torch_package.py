@@ -17,6 +17,8 @@ SLICE_MODULES = [
     "turbodiffusion_tpu_torch.ops._build",
     "turbodiffusion_tpu_torch.ops.fused_norm",
     "turbodiffusion_tpu_torch.ops.flash_attention",
+    "turbodiffusion_tpu_torch.ops.sla_fused",
+    "turbodiffusion_tpu_torch.ops.sparse_i8_attention",
     "turbodiffusion_tpu_torch.ops.attention",
     "turbodiffusion_tpu_torch.pipelines.sampler",
     "turbodiffusion_tpu_torch.pipelines.pipeline",

@@ -183,9 +183,47 @@ def test_cli_runs_the_test_model_on_cpu(tmp_path):
     assert out.exists() or (tmp_path / "o.npz").exists()
 
 
+def test_cli_runs_sagesla_on_cpu(tmp_path):
+    """The CLI default attention on the test model (head dim 24, blocks 8:
+    the composable path, which the CPU runs as JAX does there)."""
+    from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
+    out = tmp_path / "o.mp4"
+    main(["--model", "test", "--device", "cpu", "--random_weights",
+          "--attention_type", "sagesla", "--v_quant", "channel", "--prompt",
+          "a cat", "--num_frames", "5", "--num_steps", "1", "--resolution",
+          "tiny", "--aspect_ratio", "1:1", "--save_path", str(out)])
+    assert out.exists() or (tmp_path / "o.npz").exists()
+
+
+def test_v_quant_reaches_the_config(monkeypatch):
+    """--v_quant goes through the CLI, WanPipeline.create and make_wan_cfg
+    into AttentionConfig.v_quant; "row" is refused naming its kernels."""
+    from turbodiffusion_tpu_torch.inference import wan2_1_t2v
+    from turbodiffusion_tpu_torch.pipelines import pipeline
+    assert pipeline.make_wan_cfg("test", "sagesla").attention.v_quant == "channel"
+    cfg = pipeline.make_wan_cfg("Wan2.1-1.3B", "sagesla", v_quant="channel")
+    assert (cfg.attention.backend, cfg.attention.v_quant) == ("sagesla", "channel")
+    with pytest.raises(NotImplementedError, match="Queue B item 11"):
+        pipeline.make_wan_cfg("test", "sagesla", v_quant="row")
+    with pytest.raises(NotImplementedError, match="Queue B item 11"):
+        pipeline.WanPipeline.create(model="test", v_quant="row", device="cpu")
+    seen = {}
+
+    def create(**kw):
+        seen.update(kw)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(pipeline.WanPipeline, "create", staticmethod(create))
+    with pytest.raises(SystemExit):
+        wan2_1_t2v.main(["--model", "test", "--device", "cpu",
+                         "--random_weights", "--prompt", "x"])
+    assert seen["v_quant"] == "channel"
+    assert seen["attention_type"] == "sagesla"
+
+
 @pytest.mark.parametrize("flag", [["--serve"], ["--mesh", "1,1,2"],
                                   ["--dit_path", "x.pth"], ["--quant_linear"],
-                                  ["--attention_type", "sagesla"]])
+                                  ["--v_quant", "row"]])
 def test_cli_refuses_paths_not_ported(flag):
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
     base = ["--model", "test", "--device", "cpu", "--random_weights",

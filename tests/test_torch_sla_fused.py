@@ -1,0 +1,423 @@
+"""The fused SageSLA path of the PyTorch port against the JAX package.
+
+K5 (head_planes), K6 (subquant_pack_kvt) and K7 (sparse_attention_i8_vt)
+take their plain versions on CPU tensors; the JAX kernels run in interpret
+mode. Inputs are numpy-seeded, at L = 520 (a ragged tail: Lp = 1024) and
+1,024, H = 2, Dh = 128, blocks 128 and 512/256. Tolerances, with reasons:
+  * K5 against the JAX kernel: int8 at most 1 LSB, fp32 scales within one
+    bf16 step (rtol 2^-7), bf16 planes within one bf16 step of the plane's
+    largest value (RoPE sums cancel, so a relative bound is meaningless),
+    pooled means atol 4e-3 on values ~1. In interpret mode on the CPU, XLA's excess precision skips
+    the bf16 rounding of the RMSNorm weight product that the reference
+    chain (`head_planes_ref`, K2) keeps; the port keeps it, so its bf16
+    planes equal `head_planes_ref` exactly;
+  * other int8 outputs: at most 1 LSB; fp32 scales rtol 1e-6 and sums
+    rtol 1e-5 (fp32 sums in another order);
+  * attention outputs: atol 2e-2 on values ~1 (bf16 output and the bf16
+    rounding of p; the plain version keeps the one-pass softmax of JAX);
+  * the whole DiT forward in bf16: atol 2e-2 on velocities up to ~3.5
+    (bf16 GEMMs of two libraries, compounded over two blocks; 0.008 seen).
+LUT rows are compared as sets: `torch.topk` may order ties differently.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from turbodiffusion_tpu.config import AttentionConfig as AttentionConfigJax
+from turbodiffusion_tpu.ops import sla_fused as sf_jax
+from turbodiffusion_tpu.ops.attention import (
+    sla_attention_fused as sla_attention_fused_jax)
+from turbodiffusion_tpu.ops.flash_pallas import (
+    quantize_v_per_channel as quantize_v_jax,
+    sparse_attention_i8_vt as sparse_i8_vt_jax)
+from turbodiffusion_tpu_torch.config import AttentionConfig
+from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
+from turbodiffusion_tpu_torch.ops import sla_fused as sf
+from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+from turbodiffusion_tpu_torch.ops.attention import sla_attention_fused
+from turbodiffusion_tpu_torch.ops.fused_norm import rope_cos_sin_full
+
+H, DH = 2, 128
+HD = H * DH
+EPS = 1e-6
+BF16_RTOL = 2.0 ** -7          # one bf16 step (7 stored mantissa bits)
+
+
+def _rand(shape, seed, std=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * std).astype(np.float32)
+
+
+def _bf16(a):
+    """numpy fp32 -> (jax bf16, torch bf16) holding the same values."""
+    t = torch.from_numpy(a).bfloat16()
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16), t
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32)) if not isinstance(
+        a, torch.Tensor) else a.float().numpy()
+
+
+def _tables(L):
+    """rotate-half tables of a (5, 8, 26) grid (1,040 rows) cut to L rows,
+    and padded to Lp for the JAX kernel (its BlockSpec reads Lp rows)."""
+    cosF, sinF = rope_cos_sin_full(rope_freqs_3d(5, 8, 26, DH))
+    cosF, sinF = cosF[:L], sinF[:L]
+    Lp = -(-L // 512) * 512
+    pad = ((0, Lp - L), (0, 0))
+    return (cosF, sinF), (jnp.asarray(np.pad(cosF.numpy(), pad)),
+                          jnp.asarray(np.pad(sinF.numpy(), pad)))
+
+
+def _int8_close(got, want):
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert d.max() <= 1, d.max()
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+# (name, norm + rope, pool, quant, bf16 plane): the fused path's three calls
+HEAD_PLANES_FORMS = [("q", True, 128, True, False),
+                     ("q", True, 256, True, False),
+                     ("k", True, 256, False, True),
+                     ("k", True, 128, False, True),
+                     ("v", False, 0, False, True),
+                     ("all", True, 128, True, True)]
+
+
+@pytest.mark.parametrize("L", [520, 1024])
+@pytest.mark.parametrize("form,rope,pool,quant,bf16_out", HEAD_PLANES_FORMS)
+def test_k5_plain_matches_jax(L, form, rope, pool, quant, bf16_out):
+    Lp = -(-L // 512) * 512
+    xj, xt = _bf16(_rand((1, L, HD), 1))
+    wj, wt = _bf16(1 + _rand((HD,), 2, 0.1))
+    (ct, st), (cj, sj) = _tables(L)
+    kw = dict(num_heads=H, eps=EPS, pool=pool, quant=quant, bf16_out=bf16_out,
+              pad_to=Lp)
+    want = sf_jax.head_planes(xj, wj if rope else None, cj if rope else None,
+                              sj if rope else None, interpret=True, **kw)
+    got = sf.head_planes(xt, wt if rope else None, ct if rope else None,
+                         st if rope else None, **kw)
+    assert sorted(got) == sorted(want)
+    if bf16_out:
+        assert got["bf16"].shape == (1, H, Lp, DH)
+        w16 = _np(want["bf16"])[:, :, :L]
+        np.testing.assert_allclose(_np(got["bf16"])[:, :, :L], w16, rtol=0,
+                                   atol=BF16_RTOL * np.abs(w16).max())
+        assert not got["bf16"][:, :, L:].any()          # zero tail
+        ref = sf_jax.head_planes_ref(xj, wj if rope else None,
+                                     cj if rope else None,
+                                     sj if rope else None, num_heads=H,
+                                     eps=EPS)["bf16"]
+        np.testing.assert_array_equal(_np(got["bf16"])[:, :, :L], _np(ref))
+    if quant:
+        _int8_close(got["i8"][:, :, :L].numpy(), np.asarray(want["i8"])[:, :, :L])
+        np.testing.assert_allclose(got["scale"][:, :, :L].numpy(),
+                                   np.asarray(want["scale"])[:, :, :L],
+                                   rtol=BF16_RTOL)
+    if pool:
+        assert got["pooled"].shape == (1, H, -(-L // pool), DH)
+        np.testing.assert_allclose(got["pooled"].numpy(),
+                                   np.asarray(want["pooled"]), atol=4e-3)
+
+
+@pytest.mark.parametrize("L", [520, 1024, 1500])
+def test_q_pooled_at_block_q_equals_the_jax_merge(L):
+    """The port pools Q at block_q = 512 directly; JAX pools at 256 and merges
+    pairs weighted by count (attention.py:429-440). The JAX merge, applied
+    to the port's 256-row means (held against the JAX kernel above), equals
+    the port's 512-row means. L = 520 leaves the second 512-block 8 valid
+    rows and an odd number of 256-blocks."""
+    Lp = -(-L // 512) * 512
+    _, xt = _bf16(_rand((1, L, HD), 3))
+    _, wt = _bf16(1 + _rand((HD,), 4, 0.1))
+    (ct, st), _ = _tables(L) if L <= 1040 else _long_tables(L)
+    kw = dict(num_heads=H, eps=EPS, quant=True, bf16_out=False, pad_to=Lp)
+    p256 = jnp.asarray(sf.head_planes(xt, wt, ct, st, pool=256,
+                                      **kw)["pooled"].numpy())
+    # the merge of _sla_attention_fused_impl, block_q 512 over q_pool 256
+    f, nP = 2, p256.shape[2]
+    nPp = -(-nP // f) * f
+    cnt = jnp.clip(L - jnp.arange(nPp) * 256, 0, 256).astype(jnp.float32)
+    pq = jnp.pad(p256, ((0, 0), (0, 0), (0, nPp - nP), (0, 0)))
+    pq = (pq * cnt[None, None, :, None]).reshape(1, H, nPp // f, f, DH).sum(3)
+    merged = pq / jnp.maximum(cnt.reshape(nPp // f, f).sum(1), 1.0)[
+        None, None, :, None]
+    got = sf.head_planes(xt, wt, ct, st, pool=512, **kw)["pooled"]
+    assert got.shape == merged.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(merged), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _long_tables(L):
+    cosF, sinF = rope_cos_sin_full(rope_freqs_3d(5, 20, 30, DH))
+    Lp = -(-L // 512) * 512
+    cosF, sinF = cosF[:L], sinF[:L]
+    pad = ((0, Lp - L), (0, 0))
+    return (cosF, sinF), (jnp.asarray(np.pad(cosF.numpy(), pad)),
+                          jnp.asarray(np.pad(sinF.numpy(), pad)))
+
+
+# ---------------------------------------------------------------------------
+# block map
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,bq,bk,ratio", [(520, 128, 128, 0.5),
+                                           (1024, 512, 256, 0.5),
+                                           (32760, 512, 256, 0.1)])
+def test_block_map_from_pooled_matches_jax(L, bq, bk, ratio):
+    nQ, nK = -(-L // bq), -(-L // bk)
+    pq = _rand((1, H, nQ, DH), 5)
+    pk = _rand((1, H, nK, DH), 6) + _rand((1, H, 1, DH), 7)
+    lut_j, topk_j, mean_j = sf_jax.block_map_from_pooled(
+        jnp.asarray(pq), jnp.asarray(pk), L, bk, ratio)
+    lut_t, topk_t, mean_t = sf.block_map_from_pooled(
+        torch.from_numpy(pq), torch.from_numpy(pk), L, bk, ratio)
+    assert topk_t == topk_j and lut_t.dtype == torch.int32
+    assert lut_t.shape == (1, H, nQ, topk_j)
+    np.testing.assert_array_equal(np.sort(lut_t.numpy(), -1),
+                                  np.sort(np.asarray(lut_j), -1))
+    np.testing.assert_allclose(mean_t.numpy(), np.asarray(mean_j), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K6 and the per-channel V quantisation
+# ---------------------------------------------------------------------------
+
+def _k_and_v(L, Lp, seed):
+    """K planes with a non-zero mean and per-channel int8 V, zero past L (as
+    K5 leaves them)."""
+    k = np.zeros((1, H, Lp, DH), np.float32)
+    k[:, :, :L] = _rand((1, H, L, DH), seed) + _rand((1, H, 1, DH), seed + 1)
+    v = np.zeros((1, H, Lp, DH), np.float32)
+    v[:, :, :L] = _rand((1, H, L, DH), seed + 2)
+    return k, v
+
+
+@pytest.mark.parametrize("L", [520, 1024])
+def test_quantize_v_per_channel_matches_jax(L):
+    Lp = -(-L // 512) * 512
+    _, v = _k_and_v(L, Lp, 8)
+    v[:, :, L:] = 50.0                        # garbage rows stay out of amax
+    vj, vt = _bf16(v)
+    qi_j, sc_j = quantize_v_jax(vj, L)
+    qi_t, sc_t = si8.quantize_v_per_channel(vt, L)
+    np.testing.assert_allclose(sc_t.numpy(), np.asarray(sc_j), rtol=1e-6)
+    _int8_close(qi_t[:, :, :L].numpy(), np.asarray(qi_j)[:, :, :L])
+
+
+@pytest.mark.parametrize("linear_kv", [False, True])
+@pytest.mark.parametrize("L,bk", [(520, 128), (1024, 256), (520, 256)])
+def test_k6_plain_matches_jax(L, bk, linear_kv):
+    Lp = -(-L // 512) * 512
+    k, v = _k_and_v(L, Lp, 9)
+    kj, kt = _bf16(k)
+    mu = (k[:, :, :L].mean(2, keepdims=True)).astype(np.float32)
+    vi_j, _ = quantize_v_jax(jnp.asarray(v, jnp.bfloat16), L)
+    vi = np.asarray(vi_j)
+    want = sf_jax.subquant_pack_kvt(kj, jnp.asarray(mu), vi_j, bk, kv_len=L,
+                                    linear_kv=linear_kv, interpret=True)
+    got = sf.subquant_pack_kvt(kt, torch.from_numpy(mu), torch.from_numpy(vi),
+                               bk, kv_len=L, linear_kv=linear_kv)
+    assert len(got) == len(want) == (5 if linear_kv else 3)
+    _int8_close(got[0][:, :, :L].numpy(), np.asarray(want[0])[:, :, :L])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-6)
+    if linear_kv:
+        np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
+                                   rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(got[4].numpy(), np.asarray(want[4]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+def _k7_inputs(L, bq, bk, ratio, seed, lin):
+    """The operands of the fused path's K7 call, built with the port's
+    plain versions from numpy-seeded planes (as numpy arrays)."""
+    Lp = -(-L // 512) * 512
+    q = np.zeros((1, H, Lp, DH), np.float32)
+    q[:, :, :L] = _rand((1, H, L, DH), seed, 2.0)
+    qi, qs = sf._quant_rows(torch.from_numpy(q))
+    k, v = _k_and_v(L, Lp, seed + 1)
+    kt = torch.from_numpy(k).bfloat16()
+    mu = kt[:, :, :L].float().mean(2, keepdim=True)
+    vi, vcs = si8.quantize_v_per_channel(torch.from_numpy(v).bfloat16(), L)
+    kp, vtp, ks, *lin_sums = sf.subquant_pack_kvt(kt, mu, vi, bk, kv_len=L,
+                                                  linear_kv=lin)
+    nQ, nK = -(-L // bq), -(-L // bk)
+    sel = max(1, min(nK, int(ratio * nK)))
+    r = np.random.RandomState(seed + 5)
+    lut = np.stack([r.permutation(nK)[:sel] for _ in range(H * nQ)]
+                   ).reshape(1, H, nQ, sel).astype(np.int32)
+    args = [qi, qs, kp, vtp, ks, vcs]
+    args = [a.numpy() for a in args] + [lut]
+    kw = {}
+    if lin:
+        w = _rand((DH, DH), seed + 6, 0.3)
+        b = _rand((DH,), seed + 7, 0.1)
+        kv, ksum = lin_sums
+        kvw = (kv * vcs).numpy() @ w                  # w in JAX's (in, out)
+        ksb = np.concatenate([ksum.numpy(), np.broadcast_to(
+            b, ksum.shape)], axis=2).astype(np.float32)
+        kw = dict(lin_kvw=kvw.astype(np.float32), lin_ks_bias=ksb)
+    return args, kw
+
+
+@pytest.mark.parametrize("lin", [False, True])
+@pytest.mark.parametrize("L,bq,bk,ratio", [(520, 128, 128, 0.5),
+                                           (1024, 512, 256, 0.5),
+                                           (1024, 128, 128, 0.3)])
+def test_k7_plain_matches_jax(L, bq, bk, ratio, lin):
+    args, kw = _k7_inputs(L, bq, bk, ratio, 10, lin)
+    want = sparse_i8_vt_jax(*[jnp.asarray(a) for a in args], block_q=bq,
+                            block_k=bk, kv_len=L, interpret=True,
+                            **{n: jnp.asarray(a) for n, a in kw.items()})
+    got = si8.sparse_attention_i8_vt(
+        *[torch.from_numpy(a) for a in args], block_q=bq, block_k=bk,
+        kv_len=L, **{n: torch.from_numpy(a) for n, a in kw.items()})
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = _np(got)[:, :, :L], _np(want)[:, :, :L]
+    assert np.abs(w).max() > 0.1
+    np.testing.assert_allclose(g, w, atol=2e-2, rtol=0)
+
+
+def test_sparse_vt_garbage_tail_cannot_collapse_rows():
+    """The port of tests/test_attention.py::test_sparse_vt_garbage_tail_
+    cannot_collapse_rows: tail rows of the last K block poisoned with +127
+    (the largest int8 dot with an all-positive q) and +127 V change no live
+    output row of K7's plain version (K6 packs the panels)."""
+    B, bq, bk = 1, 128, 128
+    kv_len, Lp = 1000, 1024
+    nK = Lp // bk
+    r = np.random.RandomState(3)
+    q = np.abs(r.randn(B, 1, Lp, DH)).astype(np.float32) * 2.0
+    k = r.randn(B, 1, Lp, DH).astype(np.float32)
+    v = r.randn(B, 1, Lp, DH).astype(np.float32)
+    k[:, :, kv_len:] = 0
+    v[:, :, kv_len:] = 0
+    qmax = np.abs(q).max(-1, keepdims=True)
+    qi = torch.from_numpy(np.round(q / qmax * 127.0).astype(np.int8))
+    qs = torch.from_numpy((qmax / 127.0).astype(np.float32)[..., 0])
+    vi, vcs = si8.quantize_v_per_channel(torch.from_numpy(v).bfloat16(), kv_len)
+    mu = torch.zeros(B, 1, 1, DH)
+    kp, vtp, ksb = sf.subquant_pack_kvt(torch.from_numpy(k).bfloat16(), mu, vi,
+                                        bk, kv_len=kv_len)
+    lut = torch.arange(nK, dtype=torch.int32).expand(B, 1, Lp // bq, nK)
+
+    def run(kp_, vtp_):
+        o = si8.sparse_attention_i8_vt(qi, qs, kp_, vtp_, ksb, vcs, lut,
+                                       block_q=bq, block_k=bk, kv_len=kv_len)
+        return o[:, :, :kv_len].float().numpy()
+
+    clean = run(kp, vtp)
+    pk, pv = kp.clone(), vtp.clone()
+    pk[:, :, kv_len:] = 127
+    pv[:, :, -1, :, kv_len % bk:] = 127
+    assert np.abs(clean).max() > 1e-3
+    np.testing.assert_allclose(run(pk, pv), clean, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# sla_attention_fused and the DiT
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_proj", [False, True])
+@pytest.mark.parametrize("L,bq,bk,topk", [(520, 128, 128, 0.5),
+                                          (1024, 512, 256, 0.5)])
+def test_sla_attention_fused_matches_jax(L, bq, bk, topk, with_proj):
+    xs = [_bf16(_rand((1, L, HD), s)) for s in (11, 12, 13)]
+    wq = _bf16(1 + _rand((HD,), 14, 0.1))
+    wk = _bf16(1 + _rand((HD,), 15, 0.1))
+    (ct, st), _ = _tables(L)
+    w = _rand((DH, DH), 16, 0.3) if with_proj else np.zeros((DH, DH), np.float32)
+    b = _rand((DH,), 17, 0.1) if with_proj else np.zeros((DH,), np.float32)
+    kw = dict(backend="sagesla", sla_topk=topk, block_q=bq, block_k=bk,
+              linear_branch=with_proj, v_quant="channel")
+    want = sla_attention_fused_jax(
+        *[x[0] for x in xs], wq[0], wk[0],
+        (jnp.asarray(ct.numpy()), jnp.asarray(st.numpy())),
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, AttentionConfigJax(**kw),
+        num_heads=H, eps=EPS, interpret=True)
+    proj = torch.nn.Linear(DH, DH)
+    with torch.no_grad():
+        proj.weight.copy_(torch.from_numpy(w.T))
+        proj.bias.copy_(torch.from_numpy(b))
+        got = sla_attention_fused(*[x[1] for x in xs], wq[1], wk[1], (ct, st),
+                                  proj, AttentionConfig(**kw), num_heads=H,
+                                  eps=EPS)
+    assert got.shape == want.shape == (1, H, -(-L // 512) * 512, DH)
+    g, w_ = _np(got)[:, :, :L], _np(want)[:, :, :L]
+    assert np.abs(w_).max() > 0.1
+    np.testing.assert_allclose(g, w_, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("linear_branch", [False, True])
+def test_wan_forward_fused_sagesla_matches_jax(monkeypatch, linear_branch):
+    """The slice: WanModel.forward through the fused SageSLA branch (dim 256,
+    2 heads x 128, 2 layers, blocks 128, L = 520 tokens, bf16) against JAX
+    `wan_forward` made to take its fused branch (`_use_fused_sla` forced
+    True, `sla_attention_fused` in interpret mode: test-only patches)."""
+    import functools
+
+    import turbodiffusion_tpu.models.wan as wan_jax
+    import turbodiffusion_tpu.ops.attention as attention_jax
+    from turbodiffusion_tpu.config import wan_test_config as wan_test_config_jax
+    from turbodiffusion_tpu.models.wan import init_wan_params as init_jax
+    from turbodiffusion_tpu_torch.config import wan_test_config
+    from turbodiffusion_tpu_torch.models.wan import WanModel
+    from turbodiffusion_tpu_torch.ops import attention as attention_port
+    from turbodiffusion_tpu_torch.utils.jax_params import load_jax_params
+
+    monkeypatch.setattr(wan_jax, "_use_fused_sla", lambda p, cfg: True)
+    monkeypatch.setattr(attention_jax, "sla_attention_fused", functools.partial(
+        attention_jax.sla_attention_fused, interpret=True))
+    attn = dict(backend="sagesla", sla_topk=0.5, block_q=128, block_k=128,
+                linear_branch=linear_branch, v_quant="channel")
+    size = dict(dim=256, ffn_dim=512, num_heads=2)
+    cfg_j = wan_test_config_jax(attention=AttentionConfigJax(**attn),
+                                dtype=jnp.bfloat16, **size)
+    cfg_t = wan_test_config(attention=AttentionConfig(**attn),
+                            dtype=torch.bfloat16, **size)
+    params = jax.tree.map(np.array, jax.jit(init_jax, static_argnums=1)(
+        jax.random.PRNGKey(0), cfg_j))
+    r = np.random.RandomState(1)
+    head = params["head"]["head"]
+    head["w"] = (0.05 * r.randn(*head["w"].shape)).astype(np.float32)
+    if linear_branch:
+        pl_ = params["blocks"]["self_attn"]["proj_l"]
+        pl_["w"] = (0.2 * r.randn(*pl_["w"].shape)).astype(np.float32)
+        pl_["b"] = (0.2 * r.randn(*pl_["b"].shape)).astype(np.float32)
+    model = load_jax_params(WanModel(cfg_t), params)
+
+    x = _rand((1, 16, 5, 16, 26), 2)              # 5 x 8 x 13 = 520 tokens
+    t = np.full((1, 1), 537.0, np.float32)
+    ctx = _rand((1, 16, 32), 3)
+    want = np.asarray(wan_jax.wan_forward(
+        jax.tree.map(jnp.asarray, params), cfg_j, jnp.asarray(x),
+        jnp.asarray(t), jnp.asarray(ctx)), np.float32)
+    calls = []
+    monkeypatch.setattr(attention_port, "sparse_attention_i8_vt",
+                        _spy(calls, attention_port.sparse_attention_i8_vt))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), torch.from_numpy(t),
+                    torch.from_numpy(ctx)).float().numpy()
+    assert len(calls) == 2                      # one fused call per block
+    assert got.shape == want.shape == x.shape
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+
+def _spy(calls, fn):
+    def wrapped(*a, **k):
+        calls.append(k.get("lin_kvw") is not None)
+        return fn(*a, **k)
+    return wrapped

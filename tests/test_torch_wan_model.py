@@ -84,6 +84,30 @@ def test_linear_branch_refuses_non_cpu_tensors(monkeypatch):
         attn.sla_attention(q, q, q, torch.nn.Linear(8, 8, device="meta"), cfg)
 
 
+def test_composable_sagesla_refuses_non_cpu_tensors():
+    """sagesla outside the fused geometry needs the composable int8-QK
+    kernels (ROADMAP Queue B item 12): a non-CPU tensor (a meta tensor
+    stands in for a card's) raises instead of running plain torch there;
+    the fused path's wrappers refuse it too."""
+    from turbodiffusion_tpu_torch.ops import attention as attn
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    cfg = AttentionConfig(backend="sagesla", block_q=8, block_k=8)
+    q = torch.zeros(1, 16, 1, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="Queue B item 12"):
+        attn.attention(q, q, q, cfg)
+    x = torch.zeros(1, 16, 256, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sf.head_planes(x, num_heads=2)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sf.subquant_pack_kvt(torch.zeros(1, 2, 512, 128, device="meta"),
+                             None, None, 256)
+    i8 = torch.zeros(1, 2, 512, 128, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        si8.sparse_attention_i8_vt(i8, None, i8, None, None, None, None,
+                                   block_q=512)
+
+
 def test_patchify_and_unpatchify_match_jax():
     from turbodiffusion_tpu.models.wan import patchify as patchify_jax
     from turbodiffusion_tpu.models.wan import unpatchify as unpatchify_jax

@@ -36,10 +36,13 @@ IMAGE_RES_SIZE_INFO: dict[str, dict[str, tuple[int, int]]] = {
 class AttentionConfig:
     """Attention backend selection (config.py:42-79).
 
-    backend: "dense" | "sla" ("sagesla" waits for its kernels).
+    backend: "dense" | "sla" | "sagesla".
     block_q/block_k: block-map granularity of the sparse branch.
     linear_branch: False when every `proj_l` is zero — the linear
     compensation branch then contributes exactly zero and is skipped.
+    v_quant: INT8 V granularity of sagesla: "channel" (per head and
+    channel, the fused path's) or "row" (per token; its kernels are
+    ROADMAP Queue B item 11, so the port refuses it).
     """
 
     backend: str = "dense"
@@ -48,6 +51,7 @@ class AttentionConfig:
     block_k: int = 256
     feature_map: str = "softmax"
     linear_branch: bool = True
+    v_quant: str = "channel"
 
 
 @dataclass(frozen=True)

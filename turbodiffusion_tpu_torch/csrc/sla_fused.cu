@@ -1,0 +1,506 @@
+// K5 and K6: the fused SageSLA front-end for sm_90a.
+//
+// K5 tdx_head_planes replaces the TPU kernel
+//    turbodiffusion_tpu/ops/sla_fused.py:head_planes (body _head_planes_kernel):
+//    one pass over a (B, L, H*128) bf16 projection output that writes any of
+//    the bf16 head planes (B, H, Lp, 128), per-(head, token) int8 planes with
+//    fp32 scales (B, H, Lp), and per-block pooled means (B, H, nP, 128) fp32,
+//    with the full-row RMSNorm and the rotate-half RoPE fused in.
+// K6 tdx_subquant_pack_kvt replaces sla_fused.py:subquant_pack_kvt (body
+//    _subquant_pack_kvt_kernel): smooth-k subtract + per-block int8 K with one
+//    fp32 scale per block_k rows (rows >= kv_len stay out of the statistic),
+//    and the per-block transposed int8 V panel (B, H, nK, 128, block_k) that
+//    K7 stages without a transpose. With the linear branch on, tdx_linear_kv
+//    adds kv = sum softmax_D(k)^T v_i8 (B, H, 128, 128) and ksum = sum
+//    softmax_D(k) over rows < kv_len.
+//
+// What bounds them on an H100: memory. A K5 pass reads the 100.6 MB
+// projection (1.3B, 480p: L = 32,760, H*Dh = 1536) and writes 51-101 MB at
+// a few FLOPs per byte; K6 reads 151 MB of K and V and writes 75 MB. The
+// designs move each byte once:
+//   * K5: one warp per row (8 warps x 8 rows = one 64-row block). A lane
+//     owns whole 8-element chunks and their rotate-half partners (channel i
+//     and i + 64 of one head), so the RoPE needs no shuffle; the row's RMS is
+//     one warp reduction and a head's int8 absmax a reduction over the 8
+//     lanes that hold it. Loads and stores are 16 bytes a lane. The pooled
+//     sums are kept in registers per warp, combined in shared memory in warp
+//     order, written as one partial per 64-row block, and the last block of
+//     each pool window (an atomic counter) sums that window's partials in
+//     order: one launch, deterministic, no fp32 atomics on the data.
+//   * K6: one 256-thread block per (b, h, K block): the block absmax over
+//     valid rows, a second read of the block (an L2 hit) to quantise, and the
+//     V block transposed through shared memory.
+//   * tdx_linear_kv: the kv sum crosses thread blocks, so it is two passes:
+//     per-2048-row partials of softmax_D(k)^T v (fp32 FMAs, 8 x 8 outputs a
+//     thread, 32-row slabs in shared memory), then an ordered sum of the
+//     partials. Deterministic. It re-reads K and V, where the TPU kernel
+//     folds the sums into its K/V walk; the main path (random weights, so
+//     proj_l = 0) does not run it.
+// The arithmetic follows the JAX chain: RMS over the whole row in fp32, a
+// bf16 round, a bf16 product with the weight, fp32 RoPE; the int8 plane and
+// the pooled means come from that fp32 value; scale = max(amax, 1e-8) *
+// (1/127), q = round-half-even(y * (1/scale)) saturated to +-127. Products
+// and sums that the plain version rounds one by one use __fmul_rn /
+// __fadd_rn so nvcc does not contract them into FMAs.
+// A first, simple version: no cp.async or TMA.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kDh = 128;
+constexpr int kHpRows = 64;                    // rows of one K5 block
+constexpr int kHpWarps = 8;
+constexpr int kHpThreads = kHpWarps * 32;
+constexpr int kRowsPerWarp = kHpRows / kHpWarps;
+constexpr int kMaxHeads = 16;
+constexpr float kInvInt8 = 1.0f / 127.0f;
+constexpr int kSqThreads = 256;
+constexpr int kMaxBlockK = 256;
+constexpr int kVTileStride = kDh + 4;          // bytes per row of K6's V tile
+constexpr int kLinRows = 2048;                 // rows of one linear-kv partial
+constexpr int kLinSub = 32;                    // rows of one shared slab
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint4 u;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+// 8 values -> 8 int8: round half to even, saturated to +-127.
+__device__ __forceinline__ uint2 quant8(const float* f, float inv) {
+  uint32_t w[2];
+#pragma unroll
+  for (int hw = 0; hw < 2; ++hw) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int q = __float2int_rn(__fmul_rn(f[4 * hw + i], inv));
+      q = max(-127, min(127, q));
+      acc |= (uint32_t)(q & 0xff) << (8 * i);
+    }
+    w[hw] = acc;
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+
+// NI = pair-chunks per lane = ceil(H * 8 / 32). Pair-chunk p = lane + 32 i
+// is head p / 8, channels (p % 8) * 8 + [0, 8) and the same + 64.
+template <int NI>
+__global__ void __launch_bounds__(kHpThreads)
+head_planes_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   const float* __restrict__ cosF, const float* __restrict__ sinF,
+                   __nv_bfloat16* __restrict__ out_bf, int8_t* __restrict__ out_i8,
+                   float* __restrict__ out_scale, float* __restrict__ partial,
+                   float* __restrict__ pooled, int* __restrict__ counters, int L,
+                   int Lp, int H, int pool, int nP, float eps) {
+  __shared__ float red[kMaxHeads * kDh];
+  __shared__ int s_last;
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int HD = H * kDh, npc = H * 8;
+  const __nv_bfloat16* xb = x + (size_t)b * L * HD;
+
+  float pacc[NI][16];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) pacc[i][e] = 0.f;
+
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = tile * kHpRows + warp * kRowsPerWarp + r;
+    const bool valid = row < L;
+    float y[NI][16];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int p = lane + 32 * i;
+      if (valid && p < npc) {
+        const __nv_bfloat16* src = xb + (size_t)row * HD + (p >> 3) * kDh + (p & 7) * 8;
+        unpack8(*reinterpret_cast<const uint4*>(src), y[i]);
+        unpack8(*reinterpret_cast<const uint4*>(src + 64), y[i] + 8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) y[i][e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) ss += y[i][e] * y[i][e];
+    }
+    if (valid) {
+      if (w != nullptr) {
+        const float rms = 1.f / sqrtf(warp_sum(ss) / HD + eps);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int p = lane + 32 * i;
+          if (p >= npc) continue;
+          const __nv_bfloat16* wp = w + (p >> 3) * kDh + (p & 7) * 8;
+          float wv[16];
+          unpack8(*reinterpret_cast<const uint4*>(wp), wv);
+          unpack8(*reinterpret_cast<const uint4*>(wp + 64), wv + 8);
+          // cast to bf16 BEFORE the bf16 weight product, as WanRMSNorm does
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            y[i][e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(y[i][e], rms)), wv[e]));
+        }
+      }
+      if (cosF != nullptr) {
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int p = lane + 32 * i;
+          if (p >= npc) continue;
+          const int c0 = (p & 7) * 8;
+          const float* cr = cosF + (size_t)row * kDh;
+          const float* sr = sinF + (size_t)row * kDh;
+          float cl[8], ch[8], sl[8], sh[8];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            *reinterpret_cast<float4*>(cl + 4 * q) = *reinterpret_cast<const float4*>(cr + c0 + 4 * q);
+            *reinterpret_cast<float4*>(ch + 4 * q) = *reinterpret_cast<const float4*>(cr + 64 + c0 + 4 * q);
+            *reinterpret_cast<float4*>(sl + 4 * q) = *reinterpret_cast<const float4*>(sr + c0 + 4 * q);
+            *reinterpret_cast<float4*>(sh + 4 * q) = *reinterpret_cast<const float4*>(sr + 64 + c0 + 4 * q);
+          }
+          // out[j] = y[j] cos[j] + y[(j + 64) % 128] sin[j]
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float a = y[i][e], c = y[i][8 + e];
+            y[i][e] = __fadd_rn(__fmul_rn(a, cl[e]), __fmul_rn(c, sl[e]));
+            y[i][8 + e] = __fadd_rn(__fmul_rn(c, ch[e]), __fmul_rn(a, sh[e]));
+          }
+        }
+      }
+      if (pool) {
+#pragma unroll
+        for (int i = 0; i < NI; ++i)
+#pragma unroll
+          for (int e = 0; e < 16; ++e) pacc[i][e] += y[i][e];
+      }
+    }
+    // rows in [L, Lp) are the planes of a zero row
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int p = lane + 32 * i;
+      float inv = 0.f, scale = 0.f;
+      if (out_i8 != nullptr) {
+        float amax = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(y[i][e]));
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+        scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+        inv = 1.f / scale;
+      }
+      if (p >= npc) continue;
+      const int h = p >> 3, c0 = (p & 7) * 8;
+      const size_t off = (((size_t)b * H + h) * Lp + row) * kDh + c0;
+      if (out_bf != nullptr) {
+        *reinterpret_cast<uint4*>(out_bf + off) = pack8(y[i]);
+        *reinterpret_cast<uint4*>(out_bf + off + 64) = pack8(y[i] + 8);
+      }
+      if (out_i8 != nullptr) {
+        *reinterpret_cast<uint2*>(out_i8 + off) = quant8(y[i], inv);
+        *reinterpret_cast<uint2*>(out_i8 + off + 64) = quant8(y[i] + 8, inv);
+        if ((p & 7) == 0) out_scale[((size_t)b * H + h) * Lp + row] = scale;
+      }
+    }
+  }
+
+  if (!pool) return;
+  // this block's pooled sums, warp by warp in order
+  for (int wv = 0; wv < kHpWarps; ++wv) {
+    if (warp == wv) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int p = lane + 32 * i;
+        if (p >= npc) continue;
+        const int base = (p >> 3) * kDh + (p & 7) * 8;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[base + e] = (wv ? red[base + e] : 0.f) + pacc[i][e];
+          red[base + 64 + e] = (wv ? red[base + 64 + e] : 0.f) + pacc[i][8 + e];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int n_tiles = Lp / kHpRows;
+  float* part = partial + ((size_t)b * n_tiles + tile) * HD;
+  for (int c = threadIdx.x; c < HD; c += kHpThreads) part[c] = red[c];
+  __threadfence();
+  __syncthreads();
+  const int per = pool / kHpRows, pb = tile / per;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&counters[b * (Lp / pool) + pb], 1) == per - 1;
+  __syncthreads();
+  if (!s_last || pb >= nP) return;
+  // the last block of this pool window: sum its partials in order
+  __threadfence();
+  const float cnt = (float)min(pool, L - pb * pool);
+  const float* first = partial + ((size_t)b * n_tiles + (size_t)pb * per) * HD;
+  for (int c = threadIdx.x; c < HD; c += kHpThreads) {
+    float s = 0.f;
+    for (int t = 0; t < per; ++t) s += __ldcg(first + (size_t)t * HD + c);
+    pooled[(((size_t)b * H + c / kDh) * nP + pb) * kDh + (c % kDh)] = s / cnt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kSqThreads)
+subquant_pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
+                         const int8_t* __restrict__ v, int8_t* __restrict__ kp,
+                         int8_t* __restrict__ vtp, float* __restrict__ ks, int H,
+                         int Lp, int block_k, int kv_len) {
+  __shared__ __align__(16) int8_t vtile[kMaxBlockK * kVTileStride];
+  __shared__ float red[kSqThreads / 32];
+  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nK = Lp / block_k;
+  const size_t bh = (size_t)b * H + h;
+  const int row0 = kb * block_k;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = threadIdx.x & 15;            // this thread's 8 channels
+  const int r0 = threadIdx.x >> 4;           // rows r0, r0 + 16, ...
+  const __nv_bfloat16* kbase = k + (bh * Lp + row0) * kDh + c * 8;
+
+  float m8[8];
+  *reinterpret_cast<float4*>(m8) = *reinterpret_cast<const float4*>(mu + bh * kDh + c * 8);
+  *reinterpret_cast<float4*>(m8 + 4) = *reinterpret_cast<const float4*>(mu + bh * kDh + c * 8 + 4);
+
+  // the block statistic over rows < kv_len
+  float amax = 0.f;
+  for (int r = r0; r < block_k && row0 + r < kv_len; r += 16) {
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(kbase + (size_t)r * kDh), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(__fsub_rn(f[e], m8[e])));
+  }
+  amax = warp_max(amax);
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSqThreads / 32; ++i) m = fmaxf(m, red[i]);
+  const float scale = __fmul_rn(fmaxf(m, 1e-8f), kInvInt8);
+  const float inv = 1.f / scale;
+  if (threadIdx.x == 0) ks[bh * nK + kb] = scale;
+
+  int8_t* kout = kp + (bh * Lp + row0) * kDh + c * 8;
+  for (int r = r0; r < block_k; r += 16) {
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(kbase + (size_t)r * kDh), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __fsub_rn(f[e], m8[e]);
+    *reinterpret_cast<uint2*>(kout + (size_t)r * kDh) = quant8(f, inv);
+  }
+
+  // V block (block_k, 128) -> (128, block_k) through shared memory
+  const int8_t* vbase = v + (bh * Lp + row0) * kDh;
+  for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
+    const int r = u >> 3, c16 = u & 7;
+    const uint4 val = *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(vtile + r * kVTileStride + c16 * 16);
+    dst[0] = val.x;
+    dst[1] = val.y;
+    dst[2] = val.z;
+    dst[3] = val.w;
+  }
+  __syncthreads();
+  int8_t* vout = vtp + (bh * nK + kb) * (size_t)kDh * block_k;
+  const int nq = block_k / 4;
+  for (int u = threadIdx.x; u < kDh * nq; u += kSqThreads) {
+    const int d = u / nq, jq = u % nq;
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      word |= (uint32_t)(uint8_t)vtile[(jq * 4 + i) * kVTileStride + d] << (8 * i);
+    *reinterpret_cast<uint32_t*>(vout + (size_t)d * block_k + jq * 4) = word;
+  }
+}
+
+// Partial sums of softmax_D(k)^T v and softmax_D(k) over rows
+// [chunk * kLinRows, min(kv_len, (chunk + 1) * kLinRows)): part holds, per
+// (b, h, chunk), 128 rows of kv then one row of ksum.
+__global__ void __launch_bounds__(256)
+linear_kv_partial_kernel(const __nv_bfloat16* __restrict__ k, const int8_t* __restrict__ v,
+                         float* __restrict__ part, int H, int Lp, int kv_len,
+                         int n_chunks) {
+  __shared__ __align__(16) float sphi[kLinSub * kDh];
+  __shared__ __align__(16) float sv[kLinSub * kDh];
+  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int row_begin = chunk * kLinRows;
+  const int row_end = min(kv_len, row_begin + kLinRows);
+
+  float acc[8][8], ksa[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ksa[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (int base = row_begin; base < row_end; base += kLinSub) {
+    // phi = softmax over the 128 channels of the raw k row: 4 rows a warp
+#pragma unroll
+    for (int rr = 0; rr < kLinSub / 8; ++rr) {
+      const int lr = warp * (kLinSub / 8) + rr, row = base + lr;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < row_end) {
+        const uint2 u = *reinterpret_cast<const uint2*>(k + (bh * Lp + row) * kDh + lane * 4);
+        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+        const float2 a = __bfloat1622float2(p2[0]), c2 = __bfloat1622float2(p2[1]);
+        f[0] = a.x; f[1] = a.y; f[2] = c2.x; f[3] = c2.y;
+        const float mx = warp_max(fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3])));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = expf(f[e] - mx);
+        const float s = warp_sum(f[0] + f[1] + f[2] + f[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = f[e] / s;
+      }
+      *reinterpret_cast<float4*>(sphi + lr * kDh + lane * 4) = make_float4(f[0], f[1], f[2], f[3]);
+    }
+    {
+      const int lr = threadIdx.x >> 3, c16 = threadIdx.x & 7, row = base + lr;
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (row < row_end)
+        u = *reinterpret_cast<const uint4*>(v + (bh * Lp + row) * kDh + c16 * 16);
+      const int8_t* q = reinterpret_cast<const int8_t*>(&u);
+      float* dst = sv + lr * kDh + c16 * 16;
+#pragma unroll
+      for (int e = 0; e < 16; e += 4)
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4((float)q[e], (float)q[e + 1], (float)q[e + 2], (float)q[e + 3]);
+    }
+    __syncthreads();
+    for (int rr = 0; rr < kLinSub; ++rr) {
+      float pd[8], vv[8];
+      *reinterpret_cast<float4*>(pd) = *reinterpret_cast<const float4*>(sphi + rr * kDh + ty * 8);
+      *reinterpret_cast<float4*>(pd + 4) = *reinterpret_cast<const float4*>(sphi + rr * kDh + ty * 8 + 4);
+      *reinterpret_cast<float4*>(vv) = *reinterpret_cast<const float4*>(sv + rr * kDh + tx * 8);
+      *reinterpret_cast<float4*>(vv + 4) = *reinterpret_cast<const float4*>(sv + rr * kDh + tx * 8 + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ksa[i] += pd[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pd[i], vv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part + (bh * n_chunks + chunk) * (size_t)(kDh + 1) * kDh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* o = out + (size_t)(ty * 8 + i) * kDh + tx * 8;
+    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[(size_t)kDh * kDh + ty * 8 + i] = ksa[i];
+  }
+}
+
+// kv (B, H, 128, 128) and ksum (B, H, 1, 128): the partials summed in order.
+__global__ void __launch_bounds__(256)
+linear_kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
+                        float* __restrict__ ksum, int n_chunks) {
+  const size_t bh = blockIdx.x;
+  constexpr int kN = (kDh + 1) * kDh;
+  for (int idx = threadIdx.x; idx < kN; idx += 256) {
+    float s = 0.f;
+    for (int c = 0; c < n_chunks; ++c) s += part[(bh * n_chunks + c) * kN + idx];
+    if (idx < kDh * kDh)
+      kv[bh * kDh * kDh + idx] = s;
+    else
+      ksum[bh * kDh + idx - kDh * kDh] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" int tdx_head_planes(const void* x, const void* w, const void* cos_full,
+                               const void* sin_full, void* out_bf, void* out_i8,
+                               void* out_scale, void* partial, void* pooled,
+                               void* counters, int B, int L, int Lp, int H, int pool,
+                               int nP, float eps, void* stream) {
+  const dim3 grid(Lp / kHpRows, B);
+  const int ni = (H * 8 + 31) / 32;
+#define TDX_HP_LAUNCH(NI)                                                            \
+  head_planes_kernel<NI><<<grid, kHpThreads, 0, (cudaStream_t)stream>>>(             \
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)cos_full,      \
+      (const float*)sin_full, (__nv_bfloat16*)out_bf, (int8_t*)out_i8,               \
+      (float*)out_scale, (float*)partial, (float*)pooled, (int*)counters, L, Lp, H,  \
+      pool, nP, eps)
+  switch (ni) {
+    case 1: TDX_HP_LAUNCH(1); break;
+    case 2: TDX_HP_LAUNCH(2); break;
+    case 3: TDX_HP_LAUNCH(3); break;
+    case 4: TDX_HP_LAUNCH(4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TDX_HP_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* v,
+                                     void* kp, void* vtp, void* ks, int B, int H,
+                                     int Lp, int block_k, int kv_len, void* stream) {
+  if (block_k > kMaxBlockK || block_k % 64) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Lp / block_k, H, B);
+  subquant_pack_kvt_kernel<<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kp,
+      (int8_t*)vtp, (float*)ks, H, Lp, block_k, kv_len);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_linear_kv(const void* k, const void* v, void* part, void* kv,
+                             void* ksum, int B, int H, int Lp, int kv_len,
+                             int n_chunks, void* stream) {
+  const dim3 grid(n_chunks, H, B);
+  linear_kv_partial_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const int8_t*)v, (float*)part, H, Lp, kv_len,
+      n_chunks);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  linear_kv_reduce_kernel<<<B * H, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)part, (float*)kv, (float*)ksum, n_chunks);
+  return (int)cudaGetLastError();
+}

@@ -7,7 +7,7 @@ NotImplementedError naming their ROADMAP item.
 
 Usage:
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
-      --attention_type sla --prompt "..." [--num_steps 4]
+      --prompt "..." [--attention_type sagesla|sla|original] [--num_steps 4]
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ _NOT_YET = {
     "serve": "the serve TUI waits for ROADMAP Queue A item 14",
     "mesh": "multi-GPU meshes wait for ROADMAP Queue A item 12",
     "dit_path": "checkpoint loading waits for ROADMAP Queue A item 14",
-    "quant_linear": "W8A8 linears wait for ROADMAP Queue B items 2, 3, 9, 10",
+    "quant_linear": "W8A8 linears wait for ROADMAP Queue B items 1, 2, 3, "
+                    "7-10",
 }
 
 
@@ -76,10 +77,10 @@ def main(argv=None):
     for flag, why in _NOT_YET.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {why}")
-    if args.attention_type == "sagesla":
+    if args.v_quant != "channel":
         raise NotImplementedError(
-            "--attention_type sagesla waits for its kernels (ROADMAP Queue B "
-            "items 1-10); pass --attention_type sla or original")
+            f"--v_quant {args.v_quant}: per-row INT8 V waits for ROADMAP "
+            "Queue B item 11")
     if args.prompt is None:
         raise SystemExit("--prompt is required")
     if not args.random_weights:
@@ -94,7 +95,8 @@ def main(argv=None):
         model=args.model, vae_path=args.vae_path,
         text_encoder_path=args.text_encoder_path,
         attention_type=args.attention_type, sla_topk=args.sla_topk,
-        sla_block=args.sla_block, seed=args.seed, device=args.device)
+        sla_block=args.sla_block, v_quant=args.v_quant, seed=args.seed,
+        device=args.device)
     gen = GenerationConfig(
         num_steps=args.num_steps, sigma_max=args.sigma_max,
         num_frames=args.num_frames, resolution=args.resolution,

@@ -1,7 +1,9 @@
 """Wan2.1 video diffusion transformer (T2V), composable non-quantised path.
 
 Ports `turbodiffusion_tpu/models/wan.py`:
-  * `WanSelfAttention`   ← `_self_attention` (:153-169)
+  * `WanSelfAttention`   ← `_self_attention`: the fused SageSLA branch
+    (:109-151, without Ulysses and the int8 O projection) and the
+    composable path (:153-169)
   * `WanCrossAttention`  ← `_cross_attention` (:211-226)
   * `WanFFN`             ← `_ffn` (:283-284)
   * `WanAttentionBlock`  ← `wan_block` (:287-335)
@@ -11,14 +13,15 @@ Ports `turbodiffusion_tpu/models/wan.py`:
     `nn.ModuleList` run by a Python loop where JAX scans stacked params
   * `init_wan_params`    (:474-575)
 
-Left out with the paths they serve: the fused-SLA branch, the int8 and
+Left out with the paths they serve: the fused-QKV GEMM, the int8 and
 prequantised branches (W8A8 slice), the FFN half-split (a 16 GB-chip memory
-guard), remat (training), sharding constraints (multi-GPU) and `_img_emb`
-(I2V).
+guard), remat (training), sharding constraints and Ulysses (multi-GPU) and
+`_img_emb` (I2V).
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
-K2) and attention (K3, K4) dispatch to the CUDA kernels on the card.
+K2), attention (K3, K4) and the fused SageSLA path (K5-K7) dispatch to the
+CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ from turbodiffusion_tpu_torch.config import WanConfig
 from turbodiffusion_tpu_torch.models.layers import (
     gelu_tanh, layer_norm, rms_norm, sinusoidal_embedding_1d)
 from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
-from turbodiffusion_tpu_torch.ops.attention import attention, dense_attention
+from turbodiffusion_tpu_torch.ops.attention import (
+    attention, dense_attention, fused_sla_geometry, sla_attention_fused)
 from turbodiffusion_tpu_torch.ops.fused_norm import (
     modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
+from turbodiffusion_tpu_torch.ops.sla_fused import unfold_planes
 
 
 def _finish(y, gate=None, residual=None):
@@ -51,7 +56,8 @@ def _finish(y, gate=None, residual=None):
 
 
 class WanSelfAttention(nn.Module):
-    """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O."""
+    """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O; in the fused
+    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O."""
 
     def __init__(self, cfg: WanConfig, with_proj_l: bool, device=None):
         super().__init__()
@@ -72,6 +78,12 @@ class WanSelfAttention(nn.Module):
         B, Lx, D = x.shape
         H, Dh = cfg.num_heads, cfg.head_dim
         cosF, sinF = rope_cs
+        if fused_sla_geometry(cfg.attention, Dh):
+            planes = sla_attention_fused(
+                self.q(x), self.k(x), self.v(x), self.norm_q, self.norm_k,
+                rope_cs, self.proj_l, cfg.attention, num_heads=H, eps=cfg.eps)
+            y = unfold_planes(planes, Lx).to(x.dtype)
+            return _finish(self.o(y), gate, residual)
         q = rmsnorm_rope(self.q(x), self.norm_q, cosF, sinF, num_heads=H,
                          eps=cfg.eps)
         k = rmsnorm_rope(self.k(x), self.norm_k, cosF, sinF, num_heads=H,

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 Every `*.cu` file under `turbodiffusion_tpu_torch/csrc/` is compiled by
-`nvcc` for `sm_90a` into ONE shared library with a plain C interface, loaded
-with `ctypes`. Nothing includes PyTorch's headers, so the build takes seconds.
+`nvcc` for `sm_90a` (one `nvcc` process per source, all started together)
+and linked into ONE shared library with a plain C interface, loaded with
+`ctypes`. Nothing includes PyTorch's headers, so the build takes seconds.
 
 The build happens at first use, into `turbodiffusion_tpu_torch/_build/`
 (listed in `.gitignore`), under a name keyed on a hash of the sources and
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +52,16 @@ SIGNATURES = {
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
+    # x, weight, cos, sin, bf16, i8, scale, partial, pooled, counters,
+    # B, L, Lp, H, pool, nP, eps, stream
+    "tdx_head_planes": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream
+    "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
+    # k, v, partials, kv, ksum, B, H, Lp, kv_len, n_chunks, stream
+    "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_P],
+    # qi, qs, kp, vtp, ks, vch, lut, kvw, ks_bias, out,
+    # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale*log2e, stream
+    "tdx_sparse_attention_i8_vt": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -95,19 +106,32 @@ def load() -> KernelLibrary:
     if so.exists():
         return KernelLibrary(so, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, so)
-    return KernelLibrary(so, seconds, log)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in srcs if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            log += f"[{name}]\n{out}"
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(lib, so)
+    return KernelLibrary(so, time.perf_counter() - t0, log)
 
 
 def check(rc: int, name: str) -> None:

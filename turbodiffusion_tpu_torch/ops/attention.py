@@ -1,8 +1,7 @@
-"""Attention backends: dense and SLA (sparse-linear attention).
+"""Attention backends: dense, SLA and SageSLA (sparse-linear attention).
 
-Ports `turbodiffusion_tpu/ops/attention.py:38-267` and `:507-517` (the
-fully-fused SageSLA path at :270-504 waits for the sagesla slice). Layout is
-(B, L, H, D) throughout.
+Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
+`:507-517`. Layout is (B, L, H, D), except the fused path's head planes.
 
   * dense_attention(q, k, v)            — kernel K4 (ops/flash_attention.py)
   * get_block_map(q, k, ...)            — smooth-k mean-pooled block scores
@@ -10,11 +9,16 @@ fully-fused SageSLA path at :270-504 waits for the sagesla slice). Layout is
   * sla_attention(q, k, v, proj_l, cfg) — kernel K3 over the LUT, plus the
                                           linear compensation branch
   * linear_attention(q, k, v)           — plain torch
+  * sla_attention_fused(q_proj, ...)    — SageSLA from the raw projections:
+                                          kernels K5, K6, K7
 
-The linear branch with a non-zero `proj_l` runs plain torch on the CPU only;
-its kernel (`linear_attention_pallas.linear_attention_projected`) is ROADMAP
-Queue B item 13, so on a CUDA tensor it raises instead of running plain
-torch on the card.
+The linear branch with a non-zero `proj_l` runs plain torch on the CPU only
+on the `sla` path; its kernel (`linear_attention_pallas.
+linear_attention_projected`) is ROADMAP Queue B item 13, so on a CUDA tensor
+it raises instead of running plain torch on the card. The fused SageSLA path
+carries its linear branch in K6 and K7. SageSLA outside the fused geometry
+(the composable int8-QK kernels, Queue B item 12) runs as JAX does on the
+CPU — K3's plain version — and raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ import torch
 from turbodiffusion_tpu_torch.config import AttentionConfig
 from turbodiffusion_tpu_torch.ops.flash_attention import (
     flash_attention, sparse_flash_attention)
+from turbodiffusion_tpu_torch.ops.sla_fused import (
+    block_map_from_pooled, head_planes, subquant_pack_kvt)
+from turbodiffusion_tpu_torch.ops.sparse_i8_attention import (
+    quantize_v_per_channel, sparse_attention_i8_vt)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -115,13 +123,79 @@ def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
     return (o_s + o_l).to(q.dtype)
 
 
+def fused_sla_geometry(cfg: AttentionConfig, head_dim: int) -> bool:
+    """Whether sagesla takes the fused path: `models/wan.py:_use_fused_sla`
+    without its device test, so the CPU runs the same path on the kernels'
+    plain versions."""
+    return (cfg.backend == "sagesla" and head_dim % 128 == 0
+            and cfg.block_q >= 128 and cfg.block_k >= 128
+            and cfg.v_quant == "channel")
+
+
+def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
+                        proj_l: Optional[torch.nn.Linear],
+                        cfg: AttentionConfig, *, num_heads: int,
+                        eps: float = 1e-6):
+    """Fused SageSLA from the raw (B, L, H*Dh) projections
+    (attention.py:336-504, single device, one head group, the VT kernel):
+    RMSNorm-QK, RoPE, the head fold, block pooling and every int8
+    quantisation run in K5 passes; the block map and the per-channel V
+    quantisation in plain torch; K6 packs K and V (and sums the linear
+    branch's kv); K7 attends. Returns (B, H, Lp, Dh) bf16 planes, Lp = L
+    rounded up to 512; feed `unfold_planes` to the O projection.
+
+    Q is pooled at block_q directly, where the TPU pools at 256 and merges
+    pairs weighted by count (attention.py:413-440): the same block means.
+    The linear branch, when on, always rides K6 and K7's epilogue (the
+    TDX_LIN_FUSED=1 default); `TDX_SPARSE_VT` has no counterpart."""
+    B, L, HD = q_proj.shape
+    H = num_heads
+    Lp = -(-L // 512) * 512
+    if not fused_sla_geometry(cfg, HD // H) or Lp % cfg.block_q \
+            or Lp % cfg.block_k:
+        raise ValueError(
+            f"the fused SageSLA path takes v_quant 'channel', head_dim % 128 "
+            f"== 0 and blocks >= 128 dividing 512, got {cfg.v_quant!r}, "
+            f"{HD // H}, {cfg.block_q}/{cfg.block_k}")
+    cosF, sinF = rope_cs
+    lin = cfg.linear_branch and proj_l is not None
+    kw = dict(num_heads=H, eps=eps, pad_to=Lp)
+    Q = head_planes(q_proj, norm_q_w, cosF, sinF, pool=cfg.block_q,
+                    quant=True, bf16_out=False, **kw)
+    K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k, **kw)
+    V = head_planes(v_proj, **kw)
+    lut, _, k_mean = block_map_from_pooled(Q["pooled"], K["pooled"], L,
+                                           cfg.block_k, cfg.sla_topk)
+    vi, vcs = quantize_v_per_channel(V["bf16"], L)
+    packed = subquant_pack_kvt(K["bf16"], k_mean, vi, cfg.block_k, kv_len=L,
+                               linear_kv=lin)
+    kp, vtp, ksb = packed[:3]
+    lin_kvw = lin_ksb = None
+    if lin:
+        kv, ksum = packed[3], packed[4]
+        # fold V's per-channel int8 scale into kv's columns (exact), then
+        # proj_l: kvw = (kv * vcs) @ W^T, W the (out, in) Linear weight
+        lin_kvw = torch.matmul(kv * vcs, proj_l.weight.float().t())
+        bias = proj_l.bias.float().expand(ksum.shape)
+        lin_ksb = torch.cat([ksum, bias], dim=2)              # (B, H, 2, D)
+    return sparse_attention_i8_vt(
+        Q["i8"], Q["scale"], kp, vtp, ksb, vcs, lut, block_q=cfg.block_q,
+        block_k=cfg.block_k, kv_len=L, lin_kvw=lin_kvw, lin_ks_bias=lin_ksb)
+
+
 def attention(q, k, v, cfg: AttentionConfig, proj_l=None):
-    """Backend dispatch mirroring --attention_type (attention.py:507-517)."""
+    """Backend dispatch mirroring --attention_type (attention.py:507-517).
+    sagesla here is the composable path (outside the fused geometry): on
+    the CPU it runs as `sla`, as the JAX package does there."""
     if cfg.backend == "dense":
         return dense_attention(q, k, v)
     if cfg.backend == "sla":
         return sla_attention(q, k, v, proj_l, cfg)
     if cfg.backend == "sagesla":
-        raise NotImplementedError(
-            "sagesla attention waits for its kernels (ROADMAP Queue B 1-10)")
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "sagesla outside the fused geometry (head_dim % 128, blocks "
+                ">= 128, v_quant channel) needs the composable int8-QK "
+                "kernels (ROADMAP Queue B item 12)")
+        return sla_attention(q, k, v, proj_l, cfg)
     raise ValueError(f"Unknown attention backend: {cfg.backend}")

@@ -1,0 +1,314 @@
+"""Fused SageSLA front-end: kernels K5 (head_planes) and K6 (subquant_pack_kvt).
+
+The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
+single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
+  * `head_planes` — K5 `_head_planes_cuda` replaces the TPU kernel
+    `head_planes` (launch :228, body `_head_planes_kernel` :76-137): one pass
+    over a (B, L, H*Dh) projection output giving any of the bf16 head planes
+    (B, H, Lp, Dh), per-(head, token) int8 + fp32 scales, and per-block
+    pooled means, with the full-row RMSNorm and rotate-half RoPE fused in;
+  * `block_map_from_pooled` (:281-298) — plain torch: the smooth-k mean
+    recovered from pooled K, the block scores and the top-k LUT;
+  * `subquant_pack_kvt` — K6 `_subquant_pack_kvt_cuda` replaces
+    `subquant_pack_kvt` (launch :455, body `_subquant_pack_kvt_kernel`
+    :351-409): smooth-k subtract + per-block int8 K, the per-block
+    transposed V panel, and (linear_kv) the SLA linear branch's kv / ksum
+    sums;
+  * `unfold_planes` (:646-649) — plain torch.
+
+Rows in [L, Lp) of the outputs: the JAX kernels leave them unwritten; here
+they are the planes of a zero input row (0, int8 0, scale 1e-8/127) and never
+enter a pooled mean. Consumers still mask them (K6's block statistic and
+linear sums, K7's row max).
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
+`.launches`. The wide (dim > 4096) forms and `subquant_pack_kv` /
+`subquant_planes` / `unfold_quant` wait for ROADMAP Queue B items 7, 11, 16.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from turbodiffusion_tpu_torch.ops import _build
+from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
+
+INT8_MAX = 127.0
+# rows of a K5 thread block: the grain of its pooled partial sums
+_HP_ROWS = 64
+# rows of one linear-kv partial sum (csrc/sla_fused.cu kLinRows)
+_LIN_ROWS = 2048
+
+
+def _quant_rows(yf):
+    """Symmetric int8 over the last dim, as the JAX kernels round it:
+    scale = max(amax, 1e-8) * (1/127), q = round(y * (1/scale)) half to even
+    (saturated, which only matters for rows of garbage)."""
+    scale = yf.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / INT8_MAX)
+    q = torch.round(yf * (1.0 / scale)).clamp_(-INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# K5: head_planes
+# ---------------------------------------------------------------------------
+
+def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
+                      num_heads: int, eps: float = 1e-6, pool: int = 0,
+                      quant: bool = False, bf16_out: bool = True,
+                      pad_to: Optional[int] = None) -> dict:
+    """Plain version of K5 (sla_fused.py:76-137).
+
+    x: (B, L, H*Dh). weight => RMSNorm over the whole row in fp32, cast to
+    x's dtype, times the weight in x's dtype; cos/sin (>= L, Dh) => rotate-
+    half RoPE in fp32. The int8 plane and the pooled means come from that
+    fp32 value (`yf`), before the final rounding to x's dtype. Returns a dict
+    with keys among bf16 (B, H, Lp, Dh), i8 (B, H, Lp, Dh) int8, scale
+    (B, H, Lp) fp32, pooled (B, H, ceil(L/pool), Dh) fp32."""
+    B, L, HD = x.shape
+    H = num_heads
+    Dh = HD // H
+    Lp = L if pad_to is None else pad_to
+    xf = x.float()
+    if weight is not None:
+        rms = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        y16 = (xf * rms).to(x.dtype) * weight.to(x.dtype)
+    else:
+        y16 = x
+    y16 = y16.reshape(B, L, H, Dh)
+    yf = y16.float()
+    if cos_full is not None:
+        half = torch.cat([yf[..., Dh // 2:], yf[..., :Dh // 2]], -1)
+        yf = (yf * cos_full[:L, None].float()
+              + half * sin_full[:L, None].float())
+    planes = torch.nn.functional.pad(yf.transpose(1, 2),
+                                     (0, 0, 0, Lp - L))    # (B, H, Lp, Dh)
+    out = {}
+    if bf16_out:
+        out["bf16"] = planes.to(x.dtype)
+    if quant:
+        out["i8"], out["scale"] = _quant_rows(planes)
+    if pool:
+        nP = _cdiv(L, pool)
+        yp = torch.nn.functional.pad(planes[:, :, :L], (0, 0, 0, nP * pool - L))
+        counts = torch.clamp(L - torch.arange(nP, device=x.device) * pool,
+                             max=pool).float()
+        out["pooled"] = (yp.reshape(B, H, nP, pool, Dh).sum(3)
+                         / counts[:, None])
+    return out
+
+
+def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
+                      eps: float, pool: int, quant: bool, bf16_out: bool,
+                      Lp: int) -> dict:
+    """Launch K5. x (B, L, H*128) bf16 contiguous; weight (H*128,);
+    cos/sin (>= L, 128) fp32 or both None."""
+    B, L, HD = x.shape
+    H = num_heads
+    _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+             "K5 takes a contiguous bf16 x")
+    _require(HD == H * 128 and 1 <= H <= 16,
+             f"K5 takes 1-16 heads of 128, got width {HD} for {H} heads")
+    _require(Lp >= L and Lp % _HP_ROWS == 0,
+             f"K5 pads to a multiple of {_HP_ROWS} >= L, got {Lp}")
+    _require(not pool or (pool % _HP_ROWS == 0 and Lp % pool == 0),
+             f"K5 pools over a multiple of {_HP_ROWS} rows dividing Lp, "
+             f"got {pool}")
+    _require(quant or bf16_out or pool, "K5 asked for no output")
+    dev = x.device
+    w = None
+    if weight is not None:
+        w = weight.to(torch.bfloat16).contiguous()
+        _require(w.device == dev and w.numel() == HD,
+                 "K5 weight must lie on x's device with H*Dh entries")
+    rope = cos_full is not None
+    _require(rope == (sin_full is not None), "K5 takes cos and sin together")
+    if rope:
+        cos_full = cos_full.float().contiguous()
+        sin_full = sin_full.float().contiguous()
+        _require(cos_full.shape == sin_full.shape and cos_full.shape[0] >= L
+                 and cos_full.shape[1] == 128 and cos_full.device == dev,
+                 "K5 tables must be (>= L, 128) on x's device")
+    out = {}
+    if bf16_out:
+        out["bf16"] = torch.empty((B, H, Lp, 128), dtype=x.dtype, device=dev)
+    if quant:
+        out["i8"] = torch.empty((B, H, Lp, 128), dtype=torch.int8, device=dev)
+        out["scale"] = torch.empty((B, H, Lp), dtype=torch.float32, device=dev)
+    n_tiles = Lp // _HP_ROWS
+    partial = counters = None
+    nP = 0
+    if pool:
+        nP = _cdiv(L, pool)
+        out["pooled"] = torch.empty((B, H, nP, 128), dtype=torch.float32,
+                                    device=dev)
+        partial = torch.empty((B, n_tiles, HD), dtype=torch.float32, device=dev)
+        counters = torch.zeros((B, Lp // pool), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load()
+    rc = lib.tdx_head_planes(
+        x.data_ptr(), ptr(w), ptr(cos_full), ptr(sin_full),
+        ptr(out.get("bf16")), ptr(out.get("i8")), ptr(out.get("scale")),
+        ptr(partial), ptr(out.get("pooled")), ptr(counters),
+        B, L, Lp, H, pool, nP, float(eps), _build.stream_ptr(x))
+    _build.check(rc, "tdx_head_planes")
+    _head_planes_cuda.launches += 1
+    return out
+
+
+_head_planes_cuda.launches = 0
+
+
+def head_planes(x, weight=None, cos_full=None, sin_full=None, *,
+                num_heads: int, eps: float = 1e-6, pool: int = 0,
+                quant: bool = False, bf16_out: bool = True,
+                pad_to: Optional[int] = None) -> dict:
+    """One-pass head-plane transform of a (B, L, H*Dh) projection output
+    (sla_fused.head_planes): the plain version on a CPU tensor, kernel K5 on
+    a CUDA tensor. See `head_planes_plain` for the outputs."""
+    Lp = x.shape[1] if pad_to is None else pad_to
+    if x.device.type == "cpu":
+        return head_planes_plain(x, weight, cos_full, sin_full,
+                                 num_heads=num_heads, eps=eps, pool=pool,
+                                 quant=quant, bf16_out=bf16_out, pad_to=Lp)
+    _require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    return _head_planes_cuda(x, weight, cos_full, sin_full, num_heads, eps,
+                             pool, quant, bf16_out, Lp)
+
+
+# ---------------------------------------------------------------------------
+# smooth-k block map from pooled means (plain torch)
+# ---------------------------------------------------------------------------
+
+def block_map_from_pooled(pooled_q, pooled_k, L: int, pool: int,
+                          topk_ratio: float):
+    """Top-k K-block LUT from pooled means (sla_fused.py:281-298): pooling is
+    linear, so smooth-k before pooling equals subtracting the count-weighted
+    mean of the pooled K blocks. `pool` is the K-side block. Returns (lut
+    (B, H, nQ, topk) int32, topk, k_mean (B, H, 1, Dh) fp32). Ties may be
+    ordered differently from `jax.lax.top_k`: compare LUT rows as sets."""
+    nK = pooled_k.shape[2]
+    counts = torch.clamp(L - torch.arange(nK, device=pooled_k.device) * pool,
+                         max=pool).float()
+    k_mean = (pooled_k * counts[:, None]).sum(2, keepdim=True) / float(L)
+    score = torch.matmul(pooled_q.float(), (pooled_k - k_mean).transpose(-1, -2))
+    topk = max(1, min(nK, int(topk_ratio * nK)))
+    lut = torch.topk(score, topk, dim=-1).indices
+    return lut.to(torch.int32), topk, k_mean
+
+
+# ---------------------------------------------------------------------------
+# K6: subquant_pack_kvt
+# ---------------------------------------------------------------------------
+
+def _softmax_d(x):
+    """softmax over the last dim as the JAX kernels write it:
+    exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k: int,
+                            kv_len: Optional[int] = None,
+                            linear_kv: bool = False):
+    """Plain version of K6 (sla_fused.py:351-409).
+
+    k_planes (B, H, Lp, D); mu (B, H, 1, D); v_i8 (B, H, Lp, D) int8.
+    Returns (kp (B, H, Lp, D) int8 = round((k - mu) / s_blk), vtp
+    (B, H, nK, D, block_k) int8, ks (B, H, nK) fp32) where s_blk =
+    max(max over rows < kv_len of |k - mu|, 1e-8) / 127; linear_kv adds
+    kv (B, H, D, D) = sum over rows < kv_len of softmax_D(k)^T v_i8 and
+    ksum (B, H, 1, D) = sum of softmax_D(k), both fp32, over the raw k."""
+    B, H, Lp, D = k_planes.shape
+    kv_len = Lp if kv_len is None else kv_len
+    nK = Lp // block_k
+    kf = k_planes.float()
+    xf = kf - mu.float()
+    valid = (torch.arange(Lp, device=kf.device) < kv_len)[:, None]
+    rowmax = torch.where(valid, xf.abs(), 0.0).amax(-1)
+    scale = (rowmax.reshape(B, H, nK, block_k).amax(-1).clamp_min(1e-8)
+             * (1.0 / INT8_MAX))
+    rows = scale.repeat_interleave(block_k, -1)[..., None]
+    kp = torch.round(xf * (1.0 / rows)).clamp_(-INT8_MAX, INT8_MAX)
+    vtp = v_i8.reshape(B, H, nK, block_k, D).transpose(-1, -2).contiguous()
+    res = (kp.to(torch.int8), vtp, scale)
+    if linear_kv:
+        pk = torch.where(valid, _softmax_d(kf), 0.0)
+        kv = torch.matmul(pk.transpose(-1, -2), v_i8.float())
+        res += (kv, pk.sum(2, keepdim=True))
+    return res
+
+
+def _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k: int, kv_len: int,
+                            linear_kv: bool):
+    """Launch K6 (and, with linear_kv, its two-pass kv / ksum sums)."""
+    B, H, Lp, D = k_planes.shape
+    dev = k_planes.device
+    _require(k_planes.dtype == torch.bfloat16 and k_planes.is_contiguous(),
+             "K6 takes contiguous bf16 K planes")
+    _require(D == 128, f"K6 takes head dim 128, got {D}")
+    _require(v_i8.dtype == torch.int8 and v_i8.is_contiguous()
+             and v_i8.shape == k_planes.shape and v_i8.device == dev,
+             "K6 takes contiguous int8 V planes shaped like K")
+    _require(block_k % 64 == 0 and 64 <= block_k <= 256 and Lp % block_k == 0,
+             f"K6 takes a block of 64-256 rows dividing Lp, got {block_k}")
+    _require(0 < kv_len <= Lp, f"kv_len {kv_len} out of range")
+    mu = mu.float().contiguous()
+    _require(mu.numel() == B * H * D and mu.device == dev,
+             "K6 mu must be (B, H, 1, D) on K's device")
+    nK = Lp // block_k
+    kp = torch.empty_like(v_i8)
+    vtp = torch.empty((B, H, nK, D, block_k), dtype=torch.int8, device=dev)
+    ks = torch.empty((B, H, nK), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    stream = _build.stream_ptr(k_planes)
+    rc = lib.tdx_subquant_pack_kvt(
+        k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kp.data_ptr(),
+        vtp.data_ptr(), ks.data_ptr(), B, H, Lp, block_k, kv_len, stream)
+    _build.check(rc, "tdx_subquant_pack_kvt")
+    res = (kp, vtp, ks)
+    if linear_kv:
+        n_chunks = _cdiv(kv_len, _LIN_ROWS)
+        part = torch.empty((B, H, n_chunks, D + 1, D), dtype=torch.float32,
+                           device=dev)
+        kv = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+        ksum = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
+        rc = lib.tdx_linear_kv(
+            k_planes.data_ptr(), v_i8.data_ptr(), part.data_ptr(),
+            kv.data_ptr(), ksum.data_ptr(), B, H, Lp, kv_len, n_chunks,
+            stream)
+        _build.check(rc, "tdx_linear_kv")
+        res += (kv, ksum)
+    _subquant_pack_kvt_cuda.launches += 1
+    return res
+
+
+_subquant_pack_kvt_cuda.launches = 0
+
+
+def subquant_pack_kvt(k_planes, mu, v_i8, block_k: int,
+                      kv_len: Optional[int] = None, linear_kv: bool = False):
+    """Smooth-k int8 K panel, per-block transposed V panel and K block
+    scales in one pass (sla_fused.subquant_pack_kvt): the plain version on a
+    CPU tensor, kernel K6 on a CUDA tensor."""
+    kv_len = k_planes.shape[2] if kv_len is None else kv_len
+    if k_planes.device.type == "cpu":
+        return subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k, kv_len,
+                                       linear_kv)
+    _require(k_planes.device.type == "cuda",
+             f"no kernel for device {k_planes.device}")
+    return _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k, kv_len,
+                                   linear_kv)
+
+
+def unfold_planes(planes, out_len: int):
+    """(B, H, Lp, Dh) planes -> (B, out_len, H*Dh) for the O projection
+    (sla_fused.py:646-649)."""
+    B, H, Lp, Dh = planes.shape
+    return planes.transpose(1, 2).reshape(B, Lp, H * Dh)[:, :out_len]

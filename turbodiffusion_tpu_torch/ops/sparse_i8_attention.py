@@ -1,0 +1,204 @@
+"""Block-sparse INT8 attention of the fused SageSLA path: kernel K7.
+
+The counterpart of two functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
+  * `quantize_v_per_channel` (:1068-1082) — plain torch: per-(head, channel)
+    symmetric int8 V, the channel absmax taken over rows < kv_len;
+  * `sparse_attention_i8_vt` — K7 `_sparse_i8_vt_cuda` replaces the TPU
+    kernel of the same name (launch :1032, body `_sparse_attn_kernel_i8b_vt`
+    :809-951), with its fused SLA linear-branch epilogue.
+
+Semantics (kernel and plain version), per (b, h) and query row r of Q-block
+i, over the keys of the K-blocks lut[b, h, i, :]:
+  s = int32(qi[r] . kp[c]) * qs[r] * (ks[blk(c)] * Dh^-0.5 * log2 e), keys
+  >= kv_len set to -1e9 before the row max; p = exp2(s - max); l = sum p;
+  o = (bf16(p) @ bf16(v_i8)) / max(l, 1e-20) * vch.
+With the linear epilogue (lin_kvw, lin_ks_bias):
+  phi(q) = softmax_D(f32(qi[r]) * qs[r]);
+  o += phi(q) @ kvw / (1e-5 + phi(q) . ksum) + bias.
+Output bf16 planes (B, H, Lp, Dh).
+
+The kernel streams the LUT blocks with an online softmax, where the TPU
+kernel holds all sel*block_k scores at once; that changes only where p is
+rounded to bf16. The TPU's 8,192-key bound on sel*block_k is a VMEM limit
+and does not apply.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from turbodiffusion_tpu_torch.ops import _build
+from turbodiffusion_tpu_torch.ops.flash_attention import (
+    _PLAIN_LOGITS_BUDGET, _require)
+
+LOG2E = math.log2(math.e)
+MASKED = -1e9                 # score of a key >= kv_len (flash_pallas.py:933)
+
+
+def quantize_v_per_channel(v_planes, kv_len: int, eps: float = 1e-8):
+    """(B, H, Lp, D) V planes -> (int8 (B, H, Lp, D), fp32 scales
+    (B, H, 1, D)): per-(head, channel) absmax over rows < kv_len,
+    q = clip(round(v / scale), -127, 127) (flash_pallas.py:1068-1082)."""
+    vf = v_planes.float()
+    valid = (torch.arange(vf.shape[2], device=vf.device) < kv_len)[:, None]
+    amax = torch.where(valid, vf.abs(), 0.0).amax(2, keepdim=True)
+    scale = amax.clamp_min(eps) / 127.0
+    vi = torch.round(vf / scale).clamp_(-127, 127).to(torch.int8)
+    return vi, scale
+
+
+def _pad_lut(lut, nQ: int):
+    """LUT rows for every Q-block of the padded length: the rows past the
+    block map's last are block 0's id list of zeros, as the JAX wrapper pads
+    them (flash_pallas.py:1000-1003)."""
+    n = lut.shape[2]
+    if n < nQ:
+        lut = torch.nn.functional.pad(lut, (0, 0, 0, nQ - n))
+    return lut[:, :, :nQ]
+
+
+def sparse_attention_i8_vt_plain(qi, qs, k_panel, vt_panel, k_block_scale,
+                                 v_channel_scale, lut, *,
+                                 scale: Optional[float] = None,
+                                 block_q: int = 256, block_k: int = 256,
+                                 kv_len: Optional[int] = None,
+                                 lin_kvw=None, lin_ks_bias=None):
+    """Plain version of K7: the one-pass softmax of the TPU kernel over the
+    gathered blocks, chunked over Q-blocks. qi (B, H, Lp, D) int8; qs
+    (B, H, Lp) fp32; k_panel (B, H, Lkp, D) int8; vt_panel
+    (B, H, nK, D, block_k) int8; k_block_scale (B, H, nK); v_channel_scale
+    (B, H, 1, D); lut (B, H, nQr, sel) int."""
+    B, H, Lp, D = qi.shape
+    Lkp = k_panel.shape[2]
+    kv_len = Lkp if kv_len is None else kv_len
+    scale = D ** -0.5 if scale is None else scale
+    nQ, nK = Lp // block_q, Lkp // block_k
+    lut = _pad_lut(lut.long(), nQ)
+    sel = lut.shape[-1]
+    dev = qi.device
+    ksc = k_block_scale.reshape(B, H, nK).float() * (scale * LOG2E)
+    qb = qi.reshape(B, H, nQ, block_q, D)
+    qsb = qs.reshape(B, H, nQ, block_q, 1).float()
+    kb = k_panel.reshape(B, H, nK, block_k, D)
+    vch = v_channel_scale.reshape(B, H, 1, 1, D).float()
+    bi = torch.arange(B, device=dev)[:, None, None, None]
+    hi = torch.arange(H, device=dev)[None, :, None, None]
+    cols = lut[..., None] * block_k + torch.arange(block_k, device=dev)
+    lin = lin_kvw is not None
+    if lin:
+        kvw = lin_kvw.reshape(B, H, 1, D, D).float()
+        lsb = lin_ks_bias.reshape(B, H, 2, D).float()
+        ksum = lsb[:, :, None, None, 0]                     # (B, H, 1, 1, D)
+        bias = lsb[:, :, None, None, 1]
+    step = max(1, _PLAIN_LOGITS_BUDGET // (B * H * block_q * sel * block_k))
+    out = torch.empty((B, H, nQ, block_q, D), dtype=torch.bfloat16, device=dev)
+    for i0 in range(0, nQ, step):
+        sl = slice(i0, i0 + step)
+        ids = lut[:, :, sl]
+        n = ids.shape[2]
+        kg = kb[bi, hi, ids].reshape(B, H, n, sel * block_k, D)
+        vg = vt_panel[bi, hi, ids].transpose(-1, -2).reshape(
+            B, H, n, sel * block_k, D)
+        krow = ksc[bi, hi, ids].repeat_interleave(block_k, -1)[:, :, :, None]
+        # exact: |qi . kp| <= 127^2 * 128 < 2^24
+        s32 = torch.matmul(qb[:, :, sl].float(), kg.float().transpose(-1, -2))
+        s = s32 * qsb[:, :, sl] * krow
+        valid = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
+        s = torch.where(valid, s, MASKED)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        pv = torch.matmul(p.bfloat16().float(), vg.float())
+        o = pv / l.clamp_min(1e-20) * vch
+        if lin:
+            pq = qb[:, :, sl].float() * qsb[:, :, sl]
+            pq = torch.exp(pq - pq.amax(-1, keepdim=True))
+            pq = pq / pq.sum(-1, keepdim=True)
+            num = torch.matmul(pq, kvw)
+            den = 1e-5 + (pq * ksum).sum(-1, keepdim=True)
+            o = o + num / den + bias
+        out[:, :, sl] = o.to(torch.bfloat16)
+    return out.reshape(B, H, Lp, D)
+
+
+def _sparse_i8_vt_cuda(qi, qs, k_panel, vt_panel, k_block_scale,
+                       v_channel_scale, lut, scale: float, block_q: int,
+                       block_k: int, kv_len: int, lin_kvw, lin_ks_bias):
+    """Launch K7."""
+    B, H, Lp, D = qi.shape
+    Lkp = k_panel.shape[2]
+    dev = qi.device
+    _require(D == 128, f"K7 takes head dim 128, got {D}")
+    _require(qi.dtype == k_panel.dtype == vt_panel.dtype == torch.int8,
+             "K7 takes int8 q, K panel and V panel")
+    nQ, nK = Lp // block_q, Lkp // block_k
+    _require(block_q % 64 == 0 and Lp % block_q == 0,
+             f"K7 takes a Q block of a multiple of 64 rows dividing Lp, "
+             f"got {block_q}")
+    _require(block_k % 64 == 0 and Lkp % block_k == 0,
+             f"K7 takes a K block of a multiple of 64 rows dividing Lk, "
+             f"got {block_k}")
+    _require(tuple(vt_panel.shape) == (B, H, nK, D, block_k)
+             and tuple(k_panel.shape) == (B, H, Lkp, D),
+             "K7 panels must be (B, H, Lk, D) and (B, H, nK, D, block_k)")
+    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    ts = [qi, k_panel, vt_panel]
+    _require(all(t.is_contiguous() and t.device == dev for t in ts),
+             "K7 takes contiguous tensors on one CUDA device")
+    qs = qs.float().reshape(B, H, Lp).contiguous()
+    ks = k_block_scale.float().reshape(B, H, nK).contiguous()
+    vch = v_channel_scale.float().reshape(B, H, D).contiguous()
+    lut = _pad_lut(lut.to(device=dev, dtype=torch.int32), nQ).contiguous()
+    _require(lut.shape[:2] == (B, H), "K7 lut must be (B, H, nQ, sel)")
+    lin = lin_kvw is not None
+    if lin:
+        lin_kvw = lin_kvw.float().reshape(B, H, D, D).contiguous()
+        lin_ks_bias = lin_ks_bias.float().reshape(B, H, 2, D).contiguous()
+    for t in (qs, ks, vch, lut) + ((lin_kvw, lin_ks_bias) if lin else ()):
+        _require(t.device == dev, "K7 operands must lie on q's device")
+    out = torch.empty((B, H, Lp, D), dtype=torch.bfloat16, device=dev)
+    lib = _build.load()
+    rc = lib.tdx_sparse_attention_i8_vt(
+        qi.data_ptr(), qs.data_ptr(), k_panel.data_ptr(), vt_panel.data_ptr(),
+        ks.data_ptr(), vch.data_ptr(), lut.data_ptr(),
+        lin_kvw.data_ptr() if lin else None,
+        lin_ks_bias.data_ptr() if lin else None, out.data_ptr(),
+        B, H, Lp, Lkp, kv_len, nQ, lut.shape[-1], block_q, block_k,
+        float(scale * LOG2E), _build.stream_ptr(qi))
+    _build.check(rc, "tdx_sparse_attention_i8_vt")
+    _sparse_i8_vt_cuda.launches += 1
+    return out
+
+
+_sparse_i8_vt_cuda.launches = 0
+
+
+def sparse_attention_i8_vt(qi, qs, k_panel, vt_panel, k_block_scale,
+                           v_channel_scale, lut, *,
+                           scale: Optional[float] = None,
+                           block_q: int = 256, block_k: int = 256,
+                           kv_len: Optional[int] = None,
+                           lin_kvw=None, lin_ks_bias=None):
+    """Block-sparse SageSLA attention over int8 planes
+    (flash_pallas.sparse_attention_i8_vt): the plain version on a CPU tensor,
+    kernel K7 on a CUDA tensor. lin_kvw (B, H, D, D) and lin_ks_bias
+    (B, H, 2, D) (row 0 ksum, row 1 proj_l bias) fuse the SLA linear branch
+    into the epilogue."""
+    scale = float(qi.shape[-1] ** -0.5) if scale is None else float(scale)
+    kv_len = k_panel.shape[2] if kv_len is None else kv_len
+    _require((lin_kvw is None) == (lin_ks_bias is None),
+             "lin_kvw and lin_ks_bias go together")
+    if qi.device.type == "cpu":
+        return sparse_attention_i8_vt_plain(
+            qi, qs, k_panel, vt_panel, k_block_scale, v_channel_scale, lut,
+            scale=scale, block_q=block_q, block_k=block_k, kv_len=kv_len,
+            lin_kvw=lin_kvw, lin_ks_bias=lin_ks_bias)
+    _require(qi.device.type == "cuda", f"no kernel for device {qi.device}")
+    return _sparse_i8_vt_cuda(qi, qs, k_panel, vt_panel, k_block_scale,
+                              v_channel_scale, lut, scale, block_q, block_k,
+                              kv_len, lin_kvw, lin_ks_bias)

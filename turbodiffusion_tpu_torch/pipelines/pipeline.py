@@ -35,18 +35,24 @@ log = logging.getLogger(__name__)
 
 def make_wan_cfg(model: str, attention_type: str = "sagesla",
                  sla_topk: float = 0.1, quant_linear: bool = False,
-                 sla_block: int = 256) -> WanConfig:
+                 sla_block: int = 256, v_quant: str = "channel") -> WanConfig:
     """A WanConfig from the CLI flag surface (pipeline.py:41-63): block_q is
-    twice the K-block granularity at 256 and above (512/256), equal below."""
+    twice the K-block granularity at 256 and above (512/256), equal below;
+    v_quant is sagesla's INT8 V granularity."""
     if quant_linear:
         raise NotImplementedError(
-            "W8A8 linears wait for their kernels (ROADMAP Queue B items 2, 3, "
-            "9, 10)")
+            "W8A8 linears wait for their kernels (ROADMAP Queue B items 1, 2, "
+            "3, 7-10)")
+    if v_quant != "channel":
+        raise NotImplementedError(
+            f"v_quant={v_quant!r}: per-row INT8 V waits for its kernels "
+            "(ROADMAP Queue B item 11: sparse_attention_i8_planes, "
+            "subquant_pack_kv)")
     backend = attention_type if attention_type in ("sla", "sagesla") else "dense"
     blk = 8 if model == "test" else sla_block
     bq = min(2 * blk, 512) if blk >= 256 else blk
     attn = AttentionConfig(backend=backend, sla_topk=sla_topk, block_q=bq,
-                           block_k=blk)
+                           block_k=blk, v_quant=v_quant)
     if model == "test":
         return wan_test_config(attention=attn)
     return wan_config(model, attention=attn)
@@ -174,20 +180,17 @@ class WanPipeline:
                text_encoder_path: Optional[str] = None,
                attention_type: str = "sagesla", sla_topk: float = 0.1,
                quant_linear: bool = False, seed: int = 0,
-               sla_block: int = 256, device="cuda"):
+               sla_block: int = 256, v_quant: str = "channel",
+               device="cuda"):
         """Random weights on `device`: DiT from `seed`, VAE from 3, umT5 from
         7, as the JAX package seeds them."""
-        if attention_type == "sagesla":
-            raise NotImplementedError(
-                "sagesla attention waits for its kernels (ROADMAP Queue B "
-                "items 1-10); use attention_type='sla' or 'original'")
         if vae_path is not None:
             raise NotImplementedError(
                 "VAE checkpoint loading waits for checkpoint import (ROADMAP "
                 "Queue A item 14)")
         device = torch.device(device)
         cfg = make_wan_cfg(model, attention_type, sla_topk, quant_linear,
-                           sla_block=sla_block)
+                           sla_block=sla_block, v_quant=v_quant)
         dit, cfg = load_dit(dit_path, cfg, seed, device)
         if model == "test":
             te = TextEncoder(text_encoder_path, cfg=umt5_test_config(
