@@ -6,26 +6,34 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), and the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`;
-  2. every kernel of the two paths against its plain PyTorch version on the
-     card, at the main path's shapes (Wan2.1-1.3B, 480p/81f: 32,760 tokens,
-     12 heads x 128, dim 1536, 512 text tokens; sagesla blocks 512/256, 12 of
-     128 K blocks): max absolute error under the stated tolerance (int8
-     outputs within 1 LSB), and both times (CUDA events, median of a few
-     runs);
+  2. every kernel of the three paths against its plain PyTorch version on
+     the card, at the main path's shapes (Wan2.1-1.3B, 480p/81f: 32,760
+     tokens, 12 heads x 128, dim 1536, FFN 8960, 512 text tokens; sagesla
+     blocks 512/256, 12 of 128 K blocks): max absolute error under the
+     stated tolerance (int8 outputs within 1 LSB), both times (CUDA events,
+     median of a few runs), the least time the card could take (`bound`:
+     bytes over 3.35 TB/s or operations over the dense peak of their type,
+     whichever is larger) and, where one PyTorch call computes the same
+     function, that call's time (`library`; for the int8 GEMMs
+     `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of the
+     same shape); the port calls neither;
   3. one full-width 1.3B `WanAttentionBlock` with seeded random non-zero
-     weights at one 480p latent frame (1,560 tokens), `sla` and `sagesla`
-     (the latter with a non-zero `proj_l`, so the fused linear epilogue
-     runs): the kernels on the card against the plain versions on the CPU,
-     on the Q blocks whose block-map rows agree as sets;
-  4. the slice: `WanPipeline.create(..., attention_type="sagesla")` with
-     random weights and two 480p/81f 4-step `generate_t2v` requests, then one
-     `attention_type="sla"` request; per request the text-encode, denoise and
-     VAE-decode times, peak device memory, and the launch count of every
-     kernel, set to 0 just before the request and read just after (sagesla:
-     K1 3, K2 1, K4 1, K5 3, K6 1, K7 1 per block; sla: K1 3, K2 3, K3 1, K4
-     1; x 30 blocks x 4 steps), which shows each path went through its
-     kernels; then each path's denoise under torch.profiler: device time by
-     kernel category and the device's idle share.
+     weights at one 480p latent frame (1,560 tokens): `sla`, `sagesla` and
+     `sagesla` with W8A8 linears (both sagesla blocks with a non-zero
+     `proj_l`, so the fused linear epilogue runs): the kernels on the card
+     against the plain versions on the CPU, on the Q blocks whose block-map
+     rows agree as sets;
+  4. the slice: `WanPipeline.create(..., attention_type="sagesla",
+     quant_linear=True)` with random weights and two 480p/81f 4-step
+     `generate_t2v` requests, then one request each of bf16 `sagesla` and
+     `sla`; per request the text-encode, denoise and VAE-decode times, peak
+     device memory, and the launch count of every kernel, set to 0 just
+     before the request and read just after (W8A8 sagesla: K1 3, K2 1, K4 1,
+     K5 3, K6 1, K7 1, K8 7, K9 6, K10 1, K11 1 per block; bf16 sagesla the
+     same without K8-K11; sla: K1 3, K2 3, K3 1, K4 1; x 30 blocks x 4
+     steps), which shows each path went through its kernels; then each
+     path's denoise under torch.profiler: device time by kernel category and
+     the device's idle share.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; without a CUDA card it exits non-zero at once.
@@ -44,20 +52,33 @@ import sys
 import time
 
 # main-path geometry: Wan2.1-1.3B at 480p/81f
-B, L, DIM, HEADS, DH, TEXT = 1, 32760, 1536, 12, 128, 512
+B, L, DIM, HEADS, DH, TEXT, FFN = 1, 32760, 1536, 12, 128, 512, 8960
+BNQ = 896                           # K10's scale block, K11's K slab
 ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
+SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
 BLOCK_ATOL, BLOCK_RTOL = 0.1, 0.05  # bf16 block, card vs CPU (other GEMMs)
 BQ, BK, TOPK = 512, 256, 0.1        # sagesla / sla blocks and top-k ratio
 LP = -(-L // 512) * 512             # the fused path's padded length
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): a
+# kernel's bound is the larger of its bytes over HBM and the sum over types
+# of its operations over the type's peak
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # launches per request: 30 blocks x 4 steps x per-block calls
+_BF16_SAGESLA = {"K1": 360, "K2": 120, "K3": 0, "K4": 120, "K5": 360,
+                 "K6": 120, "K7": 120}
+_NO_W8A8 = {"K8": 0, "K9": 0, "K10": 0, "K11": 0}
 EXPECTED_LAUNCHES = {
-    "sagesla": {"K1": 360, "K2": 120, "K3": 0, "K4": 120, "K5": 360,
-                "K6": 120, "K7": 120},
+    "sagesla+w8a8": {**_BF16_SAGESLA, "K8": 840, "K9": 720, "K10": 120,
+                     "K11": 120},
+    "sagesla": {**_BF16_SAGESLA, **_NO_W8A8},
     "sla": {"K1": 360, "K2": 360, "K3": 120, "K4": 120, "K5": 0, "K6": 0,
-            "K7": 0},
+            "K7": 0, **_NO_W8A8},
 }
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
-REQUESTS = {"sagesla": 2, "sla": 1}   # phase-4 requests per path
+# phase-4 paths, this slice's first: (label, attention, quant_linear, requests)
+PATHS = [("sagesla+w8a8", "sagesla", True, 2), ("sagesla", "sagesla", False, 1),
+         ("sla", "sla", False, 1)]
 
 KERNELS = {
     # name: (source, TPU kernel launch it replaces)
@@ -75,18 +96,77 @@ KERNELS = {
            "turbodiffusion_tpu/ops/sla_fused.py:455"),
     "K7": ("turbodiffusion_tpu_torch/csrc/sparse_i8_attention.cu",
            "turbodiffusion_tpu/ops/flash_pallas.py:1032"),
+    "K8": ("turbodiffusion_tpu_torch/csrc/quant.cu",
+           "turbodiffusion_tpu/ops/quant.py:121"),
+    "K9": ("turbodiffusion_tpu_torch/csrc/quant.cu",
+           "turbodiffusion_tpu/ops/quant.py:253"),
+    "K10": ("turbodiffusion_tpu_torch/csrc/quant.cu",
+            "turbodiffusion_tpu/ops/quant.py:561"),
+    "K11": ("turbodiffusion_tpu_torch/csrc/quant.cu",
+            "turbodiffusion_tpu/ops/quant.py:750"),
 }
 
 
 def _launchers():
     from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import quant as qt
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
     return {"K1": fn._mln_cuda, "K2": fn._rmsrope_cuda,
             "K3": fa._sparse_flash_cuda, "K4": fa._flash_cuda,
             "K5": sf._head_planes_cuda, "K6": sf._subquant_pack_kvt_cuda,
-            "K7": si8._sparse_i8_vt_cuda}
+            "K7": si8._sparse_i8_vt_cuda, "K8": qt._quantize_rows_cuda,
+            "K9": qt._int8_gemm_postscale_cuda, "K10": qt._int8_gemm_qout_cuda,
+            "K11": qt._int8_gemm_blockact_cuda}
+
+
+@dataclasses.dataclass
+class Check:
+    """One phase-2 comparison: the kernel launcher and its plain version on
+    the same inputs; `ins` are the tensors the kernel reads (each counted
+    once in its bound, with its outputs written once), `ops` its operations
+    by type; `library` one PyTorch call computing the same function, where
+    there is one, and `yardsticks` other calls timed beside it."""
+    name: str
+    what: str
+    kern: object
+    plain: object
+    ins: tuple
+    ops: dict
+    library: object = None
+    library_what: str = ""
+    yardsticks: dict = dataclasses.field(default_factory=dict)
+    atol: float = ATOL
+    rtol: float = RTOL
+
+
+def _nbytes(t) -> int:
+    if t is None:
+        return 0
+    if isinstance(t, dict):
+        return sum(_nbytes(v) for v in t.values())
+    if isinstance(t, (tuple, list)):
+        return sum(_nbytes(v) for v in t)
+    return t.numel() * t.element_size()
+
+
+def _bound(nbytes: int, ops: dict):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sparse_pairs(lut, block_q: int, block_k: int, lq: int, kv_len: int) -> int:
+    """Query-key pairs a block-sparse pass computes with these inputs: for
+    each (b, h, Q block), its valid query rows times the valid keys of the
+    K blocks its LUT row selects."""
+    import torch
+    nq = lut.shape[2]
+    q_rows = (lq - torch.arange(nq, device=lut.device) * block_q).clamp(max=block_q)
+    k_rows = (kv_len - lut.long() * block_k).clamp(min=0, max=block_k)
+    return int((k_rows.sum(-1) * q_rows).sum())
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -206,71 +286,195 @@ def phase2(reps: int = REPS):
         return lambda: fn_(*i8_args, scale, BQ, BK, L, extra.get("lin_kvw"),
                            extra.get("lin_ks_bias"))
 
+    def sdpa(q_, k_, v_):
+        # (B, L, H, Dh) views as (B, H, L, Dh), as the kernel reads them
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2))
+
+    # operations by type; the elementwise kernels count their few fp32
+    # operations per element (they are bound by bytes by a wide margin)
+    n_x = x.numel()
+    F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
+    pairs3 = _sparse_pairs(lut, BQ, BK, L, L)
+    pairs7 = _sparse_pairs(lut8, BQ, BK, L, L)
+    ops4 = lambda lk: {"bf16": 4 * B * HEADS * L * lk * DH}      # noqa: E731
+    ops7 = {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}   # QK, PV
+    kv_ops = 2 * B * HEADS * L * DH * DH                          # K6's kv sums
     checks = [
-        ("K1", "mod (norm1/norm2)", lambda: fn._mln_cuda(x, ms, mb, None, None, 1e-6),
-         lambda: fn.modulated_layer_norm_ref(x, ms, mb, None, None, 1e-6)),
-        ("K1", "affine (norm3)", lambda: fn._mln_cuda(x, None, None, w, bias, 1e-6),
-         lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6)),
-        ("K1", "plain", lambda: fn._mln_cuda(x, None, None, None, None, 1e-6),
-         lambda: fn.modulated_layer_norm_ref(x, None, None, None, None, 1e-6)),
-        ("K2", "rope (self q/k)",
-         lambda: fn._rmsrope_cuda(x, w, cosF, sinF, 1e-6, HEADS),
-         lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6)),
-        ("K2", "norm only (cross q)",
-         lambda: fn._rmsrope_cuda(x, w, None, None, 1e-6, HEADS),
-         lambda: fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)),
-        ("K3", f"sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}",
-         lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
-         lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L)),
-        ("K4", f"cross {L}x{TEXT}",
-         lambda: fa._flash_cuda(q, kt, vt, scale, TEXT),
-         lambda: fa.flash_attention_plain(q, kt, vt, scale, TEXT)),
-        ("K4", f"dense self {L}x{L}",
-         lambda: fa._flash_cuda(q, k, v, scale, L),
-         lambda: fa.flash_attention_plain(q, k, v, scale, L)),
-        ("K5", "Q (norm+rope, int8, pool 512)",
-         lambda: sf._head_planes_cuda(xq, q_form["weight"], cosF, sinF, HEADS,
-                                      1e-6, BQ, True, False, LP),
-         lambda: sf.head_planes_plain(xq, **q_form, **hp)),
-        ("K5", "K (norm+rope, bf16, pool 256)",
-         lambda: sf._head_planes_cuda(xk, w, cosF, sinF, HEADS, 1e-6, BK,
-                                      False, True, LP),
-         lambda: sf.head_planes_plain(xk, **k_form, **hp)),
-        ("K5", "V (bf16 fold)",
-         lambda: sf._head_planes_cuda(xv, None, None, None, HEADS, 1e-6, 0,
-                                      False, True, LP),
-         lambda: sf.head_planes_plain(xv, **hp)),
-        ("K6", f"pack K/V {BK}-row blocks",
-         lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, False),
-         lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L)),
-        ("K6", "pack + linear kv sums",
-         lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, True),
-         lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L,
-                                            linear_kv=True)),
-        ("K7", f"int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}",
-         k7(si8._sparse_i8_vt_cuda),
-         lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw)),
-        ("K7", "int8 sparse + linear epilogue",
-         k7(si8._sparse_i8_vt_cuda, **lin),
-         lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw, **lin)),
-    ]
+        # the main path's K1 forms: norm1/norm2 (mod) twice a block, norm3
+        # (affine) once; the affine form first, as F.layer_norm computes it
+        Check("K1", "affine (norm3)", lambda: fn._mln_cuda(x, None, None, w, bias, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6),
+              (x, w, bias), {"fp32": 8 * n_x},
+              lambda: torch.nn.functional.layer_norm(x, (DIM,), w, bias, 1e-6),
+              "F.layer_norm"),
+        Check("K1", "mod (norm1/norm2)", lambda: fn._mln_cuda(x, ms, mb, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, ms, mb, None, None, 1e-6),
+              (x, ms, mb), {"fp32": 8 * n_x}),
+        Check("K1", "plain", lambda: fn._mln_cuda(x, None, None, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, None, None, None, None, 1e-6),
+              (x,), {"fp32": 6 * n_x},
+              lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6),
+              "F.layer_norm"),
+        # sagesla's K2 form (cross q) first
+        Check("K2", "norm only (cross q)",
+              lambda: fn._rmsrope_cuda(x, w, None, None, 1e-6, HEADS),
+              lambda: fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH),
+              (x, w), {"fp32": 4 * n_x},
+              (lambda: F_rms_norm(x, (DIM,), w, 1e-6)) if F_rms_norm else None,
+              "F.rms_norm"),
+        Check("K2", "rope (self q/k)",
+              lambda: fn._rmsrope_cuda(x, w, cosF, sinF, 1e-6, HEADS),
+              lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6),
+              (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
+        Check("K3", f"sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}",
+              lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
+              lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L),
+              (q, k, v, lut), {"bf16": 4 * DH * pairs3}),
+        Check("K4", f"cross {L}x{TEXT}",
+              lambda: fa._flash_cuda(q, kt, vt, scale, TEXT),
+              lambda: fa.flash_attention_plain(q, kt, vt, scale, TEXT),
+              (q, kt, vt), ops4(TEXT), sdpa(q, kt, vt),
+              "F.scaled_dot_product_attention"),
+        Check("K4", f"dense self {L}x{L}",
+              lambda: fa._flash_cuda(q, k, v, scale, L),
+              lambda: fa.flash_attention_plain(q, k, v, scale, L),
+              (q, k, v), ops4(L), sdpa(q, k, v),
+              "F.scaled_dot_product_attention"),
+        Check("K5", "Q (norm+rope, int8, pool 512)",
+              lambda: sf._head_planes_cuda(xq, q_form["weight"], cosF, sinF, HEADS,
+                                           1e-6, BQ, True, False, LP),
+              lambda: sf.head_planes_plain(xq, **q_form, **hp),
+              (xq, w, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}),
+        Check("K5", "K (norm+rope, bf16, pool 256)",
+              lambda: sf._head_planes_cuda(xk, w, cosF, sinF, HEADS, 1e-6, BK,
+                                           False, True, LP),
+              lambda: sf.head_planes_plain(xk, **k_form, **hp),
+              (xk, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
+        Check("K5", "V (bf16 fold)",
+              lambda: sf._head_planes_cuda(xv, None, None, None, HEADS, 1e-6, 0,
+                                           False, True, LP),
+              lambda: sf.head_planes_plain(xv, **hp), (xv,), {}),
+        Check("K6", f"pack K/V {BK}-row blocks",
+              lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, False),
+              lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L),
+              (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x}),
+        Check("K6", "pack + linear kv sums",
+              lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, True),
+              lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L,
+                                                 linear_kv=True),
+              (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x + kv_ops}),
+        Check("K7", f"int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}",
+              k7(si8._sparse_i8_vt_cuda),
+              lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw),
+              i8_args, ops7),
+        Check("K7", "int8 sparse + linear epilogue",
+              k7(si8._sparse_i8_vt_cuda, **lin),
+              lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw, **lin),
+              i8_args + tuple(lin.values()), ops7),
+    ] + _w8a8_checks(randn, x)
     results = {}
-    for name, what, kern, plain in checks:
-        got = kern()
-        want = plain()
+    for c in checks:
+        got = c.kern()
+        want = c.plain()
         torch.cuda.synchronize()
-        max_err, mean_err, lsb = _compare(f"{name} {what}", got, want, ATOL, RTOL)
-        ms_k = _time_ms(kern, reps)
-        ms_p = _time_ms(plain, max(2, reps // 2))
-        print(f"phase2 {name} {what}: max_abs_err {max_err:.5g} mean_abs_err "
-              f"{mean_err:.5g} int8 max diff {lsb} LSB (tol atol {ATOL} + "
-              f"rtol {RTOL}, 1 LSB) | kernel {ms_k:.4f} ms | plain "
-              f"{ms_p:.4f} ms", flush=True)
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms_k,
-                                      "plain_ms": ms_p})
+        max_err, mean_err, lsb = _compare(f"{c.name} {c.what}", got, want,
+                                          c.atol, c.rtol)
+        bound_ms, bound_by = _bound(_nbytes(c.ins) + _nbytes(got), c.ops)
+        del got, want
+        ms_k = _time_ms(c.kern, reps)
+        ms_p = _time_ms(c.plain, max(2, reps // 2))
+        lib_ms = _time_ms(c.library, reps) if c.library else None
+        extra = "".join(f" | {what} {_time_ms(fn_, reps):.4f} ms"
+                        for what, fn_ in c.yardsticks.items())
+        lib = (f" | library {c.library_what} {lib_ms:.4f} ms" if c.library
+               else " | library none")
+        print(f"phase2 {c.name} {c.what}: max_abs_err {max_err:.5g} mean_abs_err "
+              f"{mean_err:.5g} int8 max diff {lsb} LSB (tol atol {c.atol} + "
+              f"rtol {c.rtol}, 1 LSB) | kernel {ms_k:.4f} ms | plain "
+              f"{ms_p:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}){lib}{extra}",
+              flush=True)
+        # a kernel's line in the JSON: its first check's numbers, the worst
+        # error of all its checks
+        r = results.setdefault(c.name, {
+            "max_abs_err": 0.0, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         r["max_abs_err"] = max(r["max_abs_err"], max_err)
     _poisoned_tail(i8_args, scale)
     return results
+
+
+def _w8a8_checks(randn, x):
+    """Phase-2 checks of K8-K11 at the W8A8 path's shapes: K8 over the
+    trunk and the text context; K9 as the fused QKV (with bias), the O
+    projection (gate + residual) and a text-side cross-K (M = 512); K10 as
+    fc1 (GELU, int8 out with BN = 896 scales); K11 as fc2 (896-wide K slabs,
+    gate + residual). Weights are N(0, 1/fan_in) quantised as the port
+    quantises them; activations are K8's (plain) output. Beside each GEMM:
+    `torch._int_mm` on the same int8 operands (the product alone) and bf16
+    `torch.matmul` of the same shape (what the bf16 path pays)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import quant as qt
+
+    def weight(n, k):
+        return qt.quantize_int8_postscale(randn(n, k, std=k ** -0.5))
+
+    x2 = x.reshape(L, DIM)
+    c2 = randn(TEXT, DIM)
+    xq, rs = qt.quantize_rows_int8_plain(x2)
+    cq, crs = qt.quantize_rows_int8_plain(c2)
+    (wqkv, sqkv), (wo, so), (wk, sk) = weight(3 * DIM, DIM), weight(DIM, DIM), \
+        weight(DIM, DIM)
+    (w1, s1), (w2, s2) = weight(FFN, DIM), weight(DIM, FFN)
+    bqkv, bk_, b1, b2 = (randn(n, std=0.1) for n in (3 * DIM, DIM, FFN, DIM))
+    gate = randn(DIM, dtype=torch.float32, std=0.5)
+    hq, hs = qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1, act="gelu_tanh")
+    scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
+
+    def gemm(name, what, kern, plain, ins, a, wq, **kw):
+        M, K = a.shape
+        N = wq.shape[0]
+        ab, wb = randn(M, K), randn(N, K)
+        return Check(name, what, kern, plain, ins, {"int8": 2 * M * N * K},
+                     lambda: torch._int_mm(a, wq.t()),
+                     "torch._int_mm (product only)",
+                     {"bf16 torch.matmul": lambda: torch.matmul(ab, wb.t())}, **kw)
+
+    return [
+        Check("K8", f"rows {L}x{DIM}", lambda: qt._quantize_rows_cuda(x2),
+              lambda: qt.quantize_rows_int8_plain(x2), (x2,),
+              {"fp32": 3 * x2.numel()}, **scale_tol),
+        Check("K8", f"text rows {TEXT}x{DIM}", lambda: qt._quantize_rows_cuda(c2),
+              lambda: qt.quantize_rows_int8_plain(c2), (c2,),
+              {"fp32": 3 * c2.numel()}, **scale_tol),
+        gemm("K9", f"fused QKV {L}x{3 * DIM}x{DIM} + bias",
+             lambda: qt._int8_gemm_postscale_cuda(xq, rs, wqkv, sqkv, bqkv, None,
+                                                  None, None),
+             lambda: qt.int8_gemm_postscale_plain(xq, rs, wqkv, sqkv, bqkv),
+             (xq, rs, wqkv, sqkv, bqkv), xq, wqkv),
+        gemm("K9", f"O {L}x{DIM}x{DIM} + bias, gate, residual",
+             lambda: qt._int8_gemm_postscale_cuda(xq, rs, wo, so, bk_, None, gate,
+                                                  x2),
+             lambda: qt.int8_gemm_postscale_plain(xq, rs, wo, so, bk_, gate=gate,
+                                                  residual=x2),
+             (xq, rs, wo, so, bk_, gate, x2), xq, wo),
+        gemm("K9", f"cross K {TEXT}x{DIM}x{DIM} + bias",
+             lambda: qt._int8_gemm_postscale_cuda(cq, crs, wk, sk, bk_, None, None,
+                                                  None),
+             lambda: qt.int8_gemm_postscale_plain(cq, crs, wk, sk, bk_),
+             (cq, crs, wk, sk, bk_), cq, wk),
+        gemm("K10", f"fc1 {L}x{FFN}x{DIM} + bias, GELU -> int8, BN {BNQ}",
+             lambda: qt._int8_gemm_qout_cuda(xq, rs, w1, s1, b1, "gelu_tanh"),
+             lambda: qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1,
+                                                       act="gelu_tanh"),
+             (xq, rs, w1, s1, b1), xq, w1, **scale_tol),
+        gemm("K11", f"fc2 {L}x{DIM}x{FFN}, K slabs {BNQ}, + bias, gate, residual",
+             lambda: qt._int8_gemm_blockact_cuda(hq, hs, w2, s2, b2, None, BNQ,
+                                                 gate, x2),
+             lambda: qt.int8_gemm_blockact_plain(hq, hs, w2, s2, b2, bk=BNQ,
+                                                 gate=gate, residual=x2),
+             (hq, hs, w2, s2, b2, gate, x2), hq, w2),
+    ]
 
 
 def _poisoned_tail(i8_args, scale):
@@ -313,20 +517,32 @@ def _random_block(cfg, dev, seed: int, proj_l_std: float = 0.0):
     return blk
 
 
-def phase3(attention: str, device: str = "cuda"):
+def _qk_proj(sa, h):
+    """The self-attention q and k projections of h, through the fused qkv
+    linear where the block has one."""
+    from turbodiffusion_tpu_torch.ops.quant import linear_maybe_quant
+    if sa.qkv is not None:
+        return linear_maybe_quant(sa.qkv, h).split(h.shape[-1], -1)[:2]
+    return linear_maybe_quant(sa.q, h), linear_maybe_quant(sa.k, h)
+
+
+def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
     """One full-width block, card against CPU. sla: zero proj_l (the sparse
     branch alone); sagesla: a non-zero proj_l, so K6 sums the linear kv and
-    K7 runs its linear epilogue."""
+    K7 runs its linear epilogue. quant_linear: the block's linears
+    quantised as load_dit quantises them (W8A8 postscale, fused QKV), so
+    K8-K11 run on the card and their plain versions on the CPU."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops.attention import get_block_map
     from turbodiffusion_tpu_torch.ops.fused_norm import (
         modulated_layer_norm, rope_cos_sin_full, rmsnorm_rope)
+    from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
     from turbodiffusion_tpu_torch.ops.sla_fused import (
         block_map_from_pooled, head_planes)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
-    cfg = make_wan_cfg("Wan2.1-1.3B", attention, TOPK)
+    cfg = make_wan_cfg("Wan2.1-1.3B", attention, TOPK, quant_linear)
     fused = attention == "sagesla"
     if not fused:
         cfg = cfg.replace(attention=dataclasses.replace(cfg.attention,
@@ -334,6 +550,8 @@ def phase3(attention: str, device: str = "cuda"):
     a = cfg.attention
     dev = torch.device(device)
     blk = _random_block(cfg, dev, seed=1, proj_l_std=0.05 if fused else 0.0).eval()
+    if quant_linear:
+        quantize_wan_blocks([blk], mode="postscale", fuse_qkv=True)
     blk_cpu = copy.deepcopy(blk).cpu()
     g = torch.Generator(device=dev).manual_seed(2)
     T, Hs, Ws = 1, 30, 52
@@ -347,15 +565,16 @@ def phase3(attention: str, device: str = "cuda"):
         e = b.modulation.float()[None] + e0
         h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps)
         sa = b.self_attn
+        q_proj, k_proj = _qk_proj(sa, h)
         if fused:
             kw = dict(num_heads=HEADS, eps=cfg.eps, pad_to=-(-n // 512) * 512)
-            pq = head_planes(sa.q(h), sa.norm_q, *rope, pool=a.block_q,
+            pq = head_planes(q_proj, sa.norm_q, *rope, pool=a.block_q,
                              quant=True, bf16_out=False, **kw)["pooled"]
-            pk = head_planes(sa.k(h), sa.norm_k, *rope, pool=a.block_k,
+            pk = head_planes(k_proj, sa.norm_k, *rope, pool=a.block_k,
                              **kw)["pooled"]
             return block_map_from_pooled(pq, pk, n, a.block_k, a.sla_topk)[0]
-        q = rmsnorm_rope(sa.q(h), sa.norm_q, *rope, num_heads=HEADS, eps=cfg.eps)
-        k = rmsnorm_rope(sa.k(h), sa.norm_k, *rope, num_heads=HEADS, eps=cfg.eps)
+        q = rmsnorm_rope(q_proj, sa.norm_q, *rope, num_heads=HEADS, eps=cfg.eps)
+        k = rmsnorm_rope(k_proj, sa.norm_k, *rope, num_heads=HEADS, eps=cfg.eps)
         return get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]
 
     cpu_args = (x.cpu(), e0.cpu(), tuple(t.cpu() for t in rope))
@@ -377,10 +596,11 @@ def phase3(attention: str, device: str = "cuda"):
         keep[i * a.block_q:(i + 1) * a.block_q] = False
     if not keep.any():
         raise AssertionError(f"phase3 {attention}: every Q-block's LUT differs")
-    max_err, mean_err, _ = _compare(f"phase3 {attention} block",
+    label = attention + (" + W8A8" if quant_linear else "")
+    max_err, mean_err, _ = _compare(f"phase3 {label} block",
                                     out.cpu()[:, keep], ref[:, keep],
                                     BLOCK_ATOL, BLOCK_RTOL)
-    print(f"phase3 1.3B {attention} block L={n}"
+    print(f"phase3 1.3B {label} block L={n}"
           f"{' (proj_l != 0, linear epilogue on)' if fused else ''}: LUT rows "
           f"equal as sets {int(same.sum())}/{same.numel()} (Q-blocks left out "
           f"of the comparison: {bad_q}) | max_abs_err {max_err:.5g} "
@@ -389,21 +609,22 @@ def phase3(attention: str, device: str = "cuda"):
           flush=True)
 
 
-def phase4(attention: str, requests: int):
+def phase4(label: str, attention: str, quant_linear: bool, requests: int):
     """`requests` 480p/81f requests through WanPipeline.create(attention_type=
-    attention), then a traced denoise (`_profile_denoise`); returns the
-    launch counts of the last request."""
+    attention, quant_linear=quant_linear), then a traced denoise
+    (`_profile_denoise`); returns the launch counts of the last request."""
     import torch
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
 
     launchers = _launchers()
-    want = EXPECTED_LAUNCHES[attention]
+    want = EXPECTED_LAUNCHES[label]
     t0 = time.perf_counter()
     pipe = WanPipeline.create(model="Wan2.1-1.3B", attention_type=attention,
-                              sla_topk=TOPK, seed=0, device="cuda")
+                              sla_topk=TOPK, quant_linear=quant_linear, seed=0,
+                              device="cuda")
     torch.cuda.synchronize()
-    print(f"phase4 {attention} create: {time.perf_counter() - t0:.1f} s, "
+    print(f"phase4 {label} create: {time.perf_counter() - t0:.1f} s, "
           f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     counts = None
     for r in range(requests):
@@ -420,7 +641,7 @@ def phase4(attention: str, requests: int):
         wall = time.perf_counter() - t0
         counts = {n: fn.launches for n, fn in launchers.items()}
         if counts != want:
-            raise AssertionError(f"{attention} launch counts {counts} != {want}")
+            raise AssertionError(f"{label} launch counts {counts} != {want}")
         if tuple(video.shape) != (1, 3, 81, 480, 832):
             raise AssertionError(f"video shape {tuple(video.shape)}")
         if not bool(torch.isfinite(video).all()):
@@ -428,14 +649,14 @@ def phase4(attention: str, requests: int):
         lo, hi = float(video.min()), float(video.max())
         if lo < 0.0 or hi > 1.0:
             raise AssertionError(f"video outside [0, 1]: [{lo}, {hi}]")
-        print(f"phase4 {attention} request {r}: text-encode "
+        print(f"phase4 {label} request {r}: text-encode "
               f"{timings['text_encode_ms']:.1f} ms | denoise "
               f"{timings['denoise_ms']:.1f} ms | vae-decode "
               f"{timings['vae_decode_ms']:.1f} ms | wall {wall:.2f} s | peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | video "
               f"{tuple(video.shape)} in [{lo:.3f}, {hi:.3f}] | launches "
               f"{counts}", flush=True)
-    _profile_denoise(pipe)
+    _profile_denoise(pipe, label)
     del pipe
     torch.cuda.empty_cache()
     return counts
@@ -447,12 +668,15 @@ PROFILE_CATEGORIES = [
     ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_pack_kvt_kernel",)),
     ("K6 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
+    # K8-K11 before the library GEMMs: K9-K11's name holds "gemm"
+    ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
+    ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")),
     ("top-k/sort", ("topk", "sort", "radix")), ("reduce", ("reduce",)),
 ]
 
 
-def _profile_denoise(pipe):
+def _profile_denoise(pipe, label: str):
     """The denoise phase of one warm request (4 DiT calls at 480p/81f) under
     torch.profiler: device time by kernel category and the device's idle
     share, as one printed line."""
@@ -495,7 +719,7 @@ def _profile_denoise(pipe):
     total = sum(cats.values()) or 1.0
     parts = ", ".join(f"{c} {us / 1e3:.1f} ms ({100 * us / total:.1f}%)"
                       for c, us in sorted(cats.items(), key=lambda kv: -kv[1]))
-    line = (f"phase4 {pipe.cfg.attention.backend} profile, denoise 4 DiT calls: "
+    line = (f"phase4 {label} profile, denoise 4 DiT calls: "
             f"wall {wall:.1f} ms, device window {window / 1e3:.1f} ms, idle "
             f"share {1 - busy / window if window else 0:.3f}; kernel time "
             f"{total / 1e3:.1f} ms: {parts}")
@@ -518,14 +742,15 @@ def main(argv=None) -> int:
     smi = phase1()
     kernels = phase2() if 2 in phases else {}
     if 3 in phases:
-        for attention in ("sla", "sagesla"):
-            phase3(attention)
+        for attention, quant_linear in (("sla", False), ("sagesla", False),
+                                        ("sagesla", True)):
+            phase3(attention, quant_linear)
     counts = {}
     if 4 in phases:
         # a kernel's launches come from the first path that runs it: this
-        # slice's main path (sagesla), then the earlier one (sla)
-        for attention, n in REQUESTS.items():
-            for name, c in phase4(attention, n).items():
+        # slice's main path (W8A8 sagesla), then the earlier ones
+        for label, attention, quant_linear, n in PATHS:
+            for name, c in phase4(label, attention, quant_linear, n).items():
                 counts[name] = counts.get(name) or c
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -21,6 +21,7 @@ import torch
 from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
 from turbodiffusion_tpu_torch.ops import flash_attention as fa
 from turbodiffusion_tpu_torch.ops import fused_norm as fn
+from turbodiffusion_tpu_torch.ops import quant as qt
 from turbodiffusion_tpu_torch.ops import sla_fused as sf
 from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
 from turbodiffusion_tpu_torch.ops.attention import get_block_map
@@ -235,3 +236,129 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
         sf.head_planes(_randn(dev, 1, 64, DIM), num_heads=HEADS)   # fp32
     with pytest.raises(ValueError):
         sf.head_planes(_randn(dev, 1, 64, 128).bfloat16(), num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 2])
+def test_k2_k5_read_a_fused_qkv_column_group_in_place(dev, group):
+    """K2 and K5 read Q, K or V as a column group of one (B, L, 3*D) GEMM
+    output (rows 3*D apart): the same output as from a contiguous copy."""
+    L, Lp = 1000, 1024
+    qkv = _randn(dev, 1, L, 3 * DIM, seed=50).bfloat16()
+    x = qkv.split(DIM, -1)[group]
+    assert not x.is_contiguous()
+    w = (1 + _randn(dev, DIM, seed=51, std=0.1)).bfloat16()
+    cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 20, 25, DH, device=dev))
+    assert torch.equal(fn.rmsnorm_rope(x, w, cos, sin, num_heads=HEADS),
+                       fn.rmsnorm_rope(x.contiguous(), w, cos, sin,
+                                       num_heads=HEADS))
+    kw = dict(weight=w, cos_full=cos, sin_full=sin, pool=256, num_heads=HEADS,
+              eps=1e-6, pad_to=Lp)
+    got = sf.head_planes(x, **kw)
+    want = sf.head_planes(x.contiguous(), **kw)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+# ---------------------------------------------------------------------------
+# K8-K11: the W8A8 linears (tolerances: int8 within 1 LSB, fp32 scales rtol
+# 1e-5 for tanhf / torch.tanh ulps before an amax, bf16 outputs as above)
+# ---------------------------------------------------------------------------
+
+def _i8(dev, *shape, seed):
+    a = np.random.RandomState(seed).randint(-127, 128, shape).astype(np.int8)
+    return torch.from_numpy(a).to(dev)
+
+
+def _scales(dev, n, seed):
+    return _randn(dev, n, seed=seed, std=0.01).abs() + 1e-3
+
+
+def _scales_close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,stride", [(200, 256, 256), (512, 1536, 1536),
+                                        (300, 256, 768)])
+def test_k8_matches_plain(dev, M, K, stride):
+    """Rows of a contiguous activation and of a column group (stride 768)."""
+    x = (3 * _randn(dev, M, stride, seed=60)).bfloat16()[:, :K]
+    before = qt._quantize_rows_cuda.launches
+    q, s = qt.quantize_rows_int8(x)
+    assert qt._quantize_rows_cuda.launches == before + 1
+    want_q, want_s = qt.quantize_rows_int8_plain(x)
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "bias", "gelu", "gate_residual"])
+def test_k9_matches_plain(dev, case):
+    """M = 200 (a tail of 72 rows past the last full 128-row tile)."""
+    M, K, N = 200, 512, 384
+    xq, wq = _i8(dev, M, K, seed=61), _i8(dev, N, K, seed=62)
+    rs, cs = _scales(dev, M, 63)[:, None], _scales(dev, N, 64)
+    bias = _randn(dev, N, seed=65).bfloat16() if case != "tail" else None
+    act = "gelu_tanh" if case == "gelu" else None
+    gate = _randn(dev, N, seed=66) if case == "gate_residual" else None
+    res = _randn(dev, M, N, seed=67).bfloat16() if case == "gate_residual" else None
+    before = qt._int8_gemm_postscale_cuda.launches
+    got = qt.int8_gemm_postscale(xq, rs, wq, cs, bias, act, gate, res)
+    assert qt._int8_gemm_postscale_cuda.launches == before + 1
+    _close(got, qt.int8_gemm_postscale_plain(xq, rs, wq, cs, bias, act, gate, res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [768, 1536])
+def test_k10_matches_plain(dev, N):
+    """BN = 768 (a cluster of 6 blocks): one scale column, then two."""
+    M, K = 200, 512
+    xq, wq = _i8(dev, M, K, seed=70), _i8(dev, N, K, seed=71)
+    rs, cs = _scales(dev, M, 72)[:, None], _scales(dev, N, 73)
+    bias = _randn(dev, N, seed=74).bfloat16()
+    before = qt._int8_gemm_qout_cuda.launches
+    q, s = qt.int8_gemm_postscale_qout(xq, rs, wq, cs, bias, act="gelu_tanh")
+    assert qt._int8_gemm_qout_cuda.launches == before + 1
+    want_q, want_s = qt.int8_gemm_postscale_qout_plain(xq, rs, wq, cs, bias,
+                                                       act="gelu_tanh")
+    assert s.shape == (M, N // 768)
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate_residual", [False, True])
+def test_k11_matches_plain(dev, gate_residual):
+    """bk = 768 over K = 1536: two slabs rescaled in order."""
+    M, K, N, bk = 200, 1536, 384, 768
+    xq, wq = _i8(dev, M, K, seed=80), _i8(dev, N, K, seed=81)
+    xs = _randn(dev, M, K // bk, seed=82, std=0.01).abs() + 1e-3
+    cs, bias = _scales(dev, N, 83), _randn(dev, N, seed=84).bfloat16()
+    gate = _randn(dev, N, seed=85) if gate_residual else None
+    res = _randn(dev, M, N, seed=86).bfloat16() if gate_residual else None
+    before = qt._int8_gemm_blockact_cuda.launches
+    got = qt.int8_gemm_blockact(xq, xs, wq, cs, bias, bk=bk, gate=gate,
+                                residual=res)
+    assert qt._int8_gemm_blockact_cuda.launches == before + 1
+    _close(got, qt.int8_gemm_blockact_plain(xq, xs, wq, cs, bias, bk=bk,
+                                            gate=gate, residual=res))
+
+
+@pytest.mark.cuda
+def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """No silent fallback: N not a multiple of 128, K not of 64, an fp32
+    activation, or an N without a scale block raises."""
+    xq = _i8(dev, 64, 256, seed=90)
+    s = _scales(dev, 64, 91)[:, None]
+    with pytest.raises(ValueError):
+        qt.int8_gemm_postscale(xq, s, _i8(dev, 100, 256, seed=92),
+                               _scales(dev, 100, 93))
+    with pytest.raises(ValueError):
+        qt.int8_gemm_postscale(xq[:, :200].contiguous(), s,
+                               _i8(dev, 128, 200, seed=94), _scales(dev, 128, 95))
+    with pytest.raises(ValueError):
+        qt.quantize_rows_int8(_randn(dev, 64, 256))
+    with pytest.raises(ValueError):
+        qt.int8_gemm_postscale_qout(xq, s, _i8(dev, 256, 256, seed=96),
+                                    _scales(dev, 256, 97))

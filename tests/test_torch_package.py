@@ -19,6 +19,7 @@ SLICE_MODULES = [
     "turbodiffusion_tpu_torch.ops.flash_attention",
     "turbodiffusion_tpu_torch.ops.sla_fused",
     "turbodiffusion_tpu_torch.ops.sparse_i8_attention",
+    "turbodiffusion_tpu_torch.ops.quant",
     "turbodiffusion_tpu_torch.ops.attention",
     "turbodiffusion_tpu_torch.pipelines.sampler",
     "turbodiffusion_tpu_torch.pipelines.pipeline",

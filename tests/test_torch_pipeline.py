@@ -219,14 +219,67 @@ def test_v_quant_reaches_the_config(monkeypatch):
                          "--random_weights", "--prompt", "x"])
     assert seen["v_quant"] == "channel"
     assert seen["attention_type"] == "sagesla"
+    assert seen["quant_linear"] is False
 
 
 @pytest.mark.parametrize("flag", [["--serve"], ["--mesh", "1,1,2"],
                                   ["--dit_path", "x.pth"], ["--quant_linear"],
                                   ["--v_quant", "row"]])
-def test_cli_refuses_paths_not_ported(flag):
+def test_cli_refuses_paths_not_ported(monkeypatch, flag):
+    """Each flag of a path the port lacks raises naming its ROADMAP item.
+    --quant_linear is ported (the W8A8 linears, K8-K11): the CLI forwards
+    it to WanPipeline.create instead."""
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
+    from turbodiffusion_tpu_torch.pipelines import pipeline
     base = ["--model", "test", "--device", "cpu", "--random_weights",
             "--prompt", "x", "--attention_type", "sla"]
+    if flag == ["--quant_linear"]:
+        seen = {}
+
+        def create(**kw):
+            seen.update(kw)
+            raise SystemExit(0)
+
+        monkeypatch.setattr(pipeline.WanPipeline, "create",
+                            staticmethod(create))
+        with pytest.raises(SystemExit):
+            main(base + flag)
+        assert seen["quant_linear"] is True
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(base + flag)
+
+
+def test_entry_points_default_to_the_card():
+    """Every public entry point of the pipeline runs on the card unless the
+    caller asks for the CPU."""
+    import inspect
+
+    from turbodiffusion_tpu_torch.inference.wan2_1_t2v import parse_arguments
+    from turbodiffusion_tpu_torch.pipelines import pipeline
+    for fn in (pipeline.load_dit, pipeline.TextEncoder,
+               pipeline.WanPipeline.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert parse_arguments(["--prompt", "x"]).device == "cuda"
+
+
+@pytest.mark.parametrize("attention_type", ["sla", "sagesla"])
+def test_pipeline_quant_linear_generates_on_cpu(attention_type):
+    """WanPipeline.create(quant_linear=True) on the test model: every block
+    linear is a W8A8 Int8Linear (fused qkv, proj_l left float) and a request
+    gives a finite video in [0, 1]."""
+    from turbodiffusion_tpu_torch.ops.quant import Int8Linear
+    pipe = WanPipeline.create(model="test", attention_type=attention_type,
+                              quant_linear=True, device="cpu")
+    assert pipe.cfg.quant_linear
+    for blk in pipe.dit.blocks:
+        sa, ca = blk.self_attn, blk.cross_attn
+        assert sa.q is None and isinstance(sa.qkv, Int8Linear)
+        assert all(isinstance(m, Int8Linear) for m in (
+            sa.o, ca.q, ca.k, ca.v, ca.o, blk.ffn.fc1, blk.ffn.fc2))
+        assert isinstance(sa.proj_l, torch.nn.Linear)
+    video = pipe.generate_t2v("a cat", GenerationConfig(
+        num_steps=2, num_frames=5, resolution="tiny", aspect_ratio="1:1"))
+    assert video.shape == (1, 3, 5, 64, 64)
+    assert bool(torch.isfinite(video).all())
+    assert float(video.min()) >= 0.0 and float(video.max()) <= 1.0

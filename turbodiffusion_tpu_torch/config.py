@@ -77,6 +77,9 @@ class WanConfig:
     rope_max_w: int = 128
     rope_max_t: int = 32
     attention: AttentionConfig = field(default_factory=AttentionConfig)
+    # W8A8 "postscale" linears inside the transformer blocks (--quant_linear;
+    # ops/quant.py, kernels K8-K11)
+    quant_linear: bool = False
     # compute dtype of the transformer trunk; norms/modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
 

@@ -4,6 +4,8 @@
 //    turbodiffusion_tpu/ops/fused_norm.py:_mln_pallas (body _mln_kernel).
 // K2 tdx_rmsnorm_rope replaces
 //    turbodiffusion_tpu/ops/fused_norm.py:_rmsrope_pallas (body _rmsrope_kernel).
+//    Its input rows are `ld` elements apart, so the Q or K column group of the
+//    fused (B, L, 3*D) QKV GEMM output is read in place.
 //
 // What bounds them on an H100: memory. Each is one read and one write of a
 // (B*L, D) bf16 activation (about 200 MB per call at the 1.3B 480p shape,
@@ -121,14 +123,14 @@ __global__ void __launch_bounds__(kThreads)
 rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
                const __nv_bfloat16* __restrict__ weight,
                const float* __restrict__ cos_full, const float* __restrict__ sin_full,
-               int L, int H, int Dh, float eps) {
+               long long ld, int L, int H, int Dh, float eps) {
   __shared__ float red[33];
   const int row = blockIdx.x;
   const int l = row % L;
   const int half = Dh / 2;
   const int HD = H * Dh;
   const int npairs = HD / 2;
-  const __nv_bfloat16* xr = x + (size_t)row * HD;
+  const __nv_bfloat16* xr = x + (size_t)row * ld;
   __nv_bfloat16* orow = out + (size_t)row * HD;
 
   float a[kMaxPairs], c[kMaxPairs];
@@ -184,10 +186,10 @@ extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
 
 extern "C" int tdx_rmsnorm_rope(const void* x, void* out, const void* weight,
                                 const void* cos_full, const void* sin_full,
-                                int rows, int L, int H, int Dh, float eps,
+                                long long ld, int rows, int L, int H, int Dh, float eps,
                                 void* stream) {
   rmsrope_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (const __nv_bfloat16*)weight,
-      (const float*)cos_full, (const float*)sin_full, L, H, Dh, eps);
+      (const float*)cos_full, (const float*)sin_full, ld, L, H, Dh, eps);
   return (int)cudaGetLastError();
 }

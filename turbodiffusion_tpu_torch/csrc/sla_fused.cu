@@ -2,7 +2,9 @@
 //
 // K5 tdx_head_planes replaces the TPU kernel
 //    turbodiffusion_tpu/ops/sla_fused.py:head_planes (body _head_planes_kernel):
-//    one pass over a (B, L, H*128) bf16 projection output that writes any of
+//    one pass over a (B, L, H*128) bf16 projection output (rows `ld` elements
+//    apart, so a Q, K or V column group of the fused (B, L, 3*H*128) QKV GEMM
+//    output is read in place) that writes any of
 //    the bf16 head planes (B, H, Lp, 128), per-(head, token) int8 planes with
 //    fp32 scales (B, H, Lp), and per-block pooled means (B, H, nP, 128) fp32,
 //    with the full-row RMSNorm and the rotate-half RoPE fused in.
@@ -127,14 +129,14 @@ head_planes_kernel(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ cosF, const float* __restrict__ sinF,
                    __nv_bfloat16* __restrict__ out_bf, int8_t* __restrict__ out_i8,
                    float* __restrict__ out_scale, float* __restrict__ partial,
-                   float* __restrict__ pooled, int* __restrict__ counters, int L,
-                   int Lp, int H, int pool, int nP, float eps) {
+                   float* __restrict__ pooled, int* __restrict__ counters, long long ld,
+                   int L, int Lp, int H, int pool, int nP, float eps) {
   __shared__ float red[kMaxHeads * kDh];
   __shared__ int s_last;
   const int b = blockIdx.y, tile = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int HD = H * kDh, npc = H * 8;
-  const __nv_bfloat16* xb = x + (size_t)b * L * HD;
+  const __nv_bfloat16* xb = x + (size_t)b * L * ld;
 
   float pacc[NI][16];
 #pragma unroll
@@ -151,7 +153,7 @@ head_planes_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = 0; i < NI; ++i) {
       const int p = lane + 32 * i;
       if (valid && p < npc) {
-        const __nv_bfloat16* src = xb + (size_t)row * HD + (p >> 3) * kDh + (p & 7) * 8;
+        const __nv_bfloat16* src = xb + (size_t)row * ld + (p >> 3) * kDh + (p & 7) * 8;
         unpack8(*reinterpret_cast<const uint4*>(src), y[i]);
         unpack8(*reinterpret_cast<const uint4*>(src + 64), y[i] + 8);
       } else {
@@ -459,16 +461,16 @@ linear_kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
 extern "C" int tdx_head_planes(const void* x, const void* w, const void* cos_full,
                                const void* sin_full, void* out_bf, void* out_i8,
                                void* out_scale, void* partial, void* pooled,
-                               void* counters, int B, int L, int Lp, int H, int pool,
-                               int nP, float eps, void* stream) {
+                               void* counters, long long ld, int B, int L, int Lp, int H,
+                               int pool, int nP, float eps, void* stream) {
   const dim3 grid(Lp / kHpRows, B);
   const int ni = (H * 8 + 31) / 32;
 #define TDX_HP_LAUNCH(NI)                                                            \
   head_planes_kernel<NI><<<grid, kHpThreads, 0, (cudaStream_t)stream>>>(             \
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)cos_full,      \
       (const float*)sin_full, (__nv_bfloat16*)out_bf, (int8_t*)out_i8,               \
-      (float*)out_scale, (float*)partial, (float*)pooled, (int*)counters, L, Lp, H,  \
-      pool, nP, eps)
+      (float*)out_scale, (float*)partial, (float*)pooled, (int*)counters, ld, L, Lp, \
+      H, pool, nP, eps)
   switch (ni) {
     case 1: TDX_HP_LAUNCH(1); break;
     case 2: TDX_HP_LAUNCH(2); break;

@@ -7,7 +7,8 @@ NotImplementedError naming their ROADMAP item.
 
 Usage:
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
-      --prompt "..." [--attention_type sagesla|sla|original] [--num_steps 4]
+      --prompt "..." [--attention_type sagesla|sla|original] [--quant_linear]
+      [--num_steps 4]
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ _NOT_YET = {
     "serve": "the serve TUI waits for ROADMAP Queue A item 14",
     "mesh": "multi-GPU meshes wait for ROADMAP Queue A item 12",
     "dit_path": "checkpoint loading waits for ROADMAP Queue A item 14",
-    "quant_linear": "W8A8 linears wait for ROADMAP Queue B items 1, 2, 3, "
-                    "7-10",
 }
 
 
@@ -58,7 +57,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "at 256)")
     p.add_argument("--v_quant", choices=["channel", "row"], default="channel",
                    help="sagesla INT8 V granularity (sagesla only)")
-    p.add_argument("--quant_linear", action="store_true")
+    p.add_argument("--quant_linear", action="store_true",
+                   help="W8A8 int8 linears in the transformer blocks")
     p.add_argument("--default_norm", action="store_true",
                    help="Kept for reference CLI parity (norms are fused)")
     p.add_argument("--serve", action="store_true",
@@ -95,8 +95,8 @@ def main(argv=None):
         model=args.model, vae_path=args.vae_path,
         text_encoder_path=args.text_encoder_path,
         attention_type=args.attention_type, sla_topk=args.sla_topk,
-        sla_block=args.sla_block, v_quant=args.v_quant, seed=args.seed,
-        device=args.device)
+        sla_block=args.sla_block, v_quant=args.v_quant,
+        quant_linear=args.quant_linear, seed=args.seed, device=args.device)
     gen = GenerationConfig(
         num_steps=args.num_steps, sigma_max=args.sigma_max,
         num_frames=args.num_frames, resolution=args.resolution,

@@ -1,11 +1,12 @@
-"""Wan2.1 video diffusion transformer (T2V), composable non-quantised path.
+"""Wan2.1 video diffusion transformer (T2V).
 
 Ports `turbodiffusion_tpu/models/wan.py`:
   * `WanSelfAttention`   ← `_self_attention`: the fused SageSLA branch
-    (:109-151, without Ulysses and the int8 O projection) and the
-    composable path (:153-169)
-  * `WanCrossAttention`  ← `_cross_attention` (:211-226)
-  * `WanFFN`             ← `_ffn` (:283-284)
+    (:97-151, without Ulysses) and the composable path (:153-169), each with
+    separate q/k/v linears or the fused `qkv` one
+  * `WanCrossAttention`  ← `_cross_attention` (:183-226, text-only)
+  * `WanFFN`             ← `_ffn`: the int8 hidden chain (:248-268) and the
+    fallback (:283-284)
   * `WanAttentionBlock`  ← `wan_block` (:287-335)
   * `WanHead`            ← `wan_head` (:338-345)
   * `patchify` / `unpatchify` (:374-384)
@@ -13,15 +14,20 @@ Ports `turbodiffusion_tpu/models/wan.py`:
     `nn.ModuleList` run by a Python loop where JAX scans stacked params
   * `init_wan_params`    (:474-575)
 
-Left out with the paths they serve: the fused-QKV GEMM, the int8 and
-prequantised branches (W8A8 slice), the FFN half-split (a 16 GB-chip memory
-guard), remat (training), sharding constraints and Ulysses (multi-GPU) and
+Every linear of a block goes through `ops/quant.linear_maybe_quant`: bf16
+`nn.Linear`s, or, after `ops/quant.quantize_wan_blocks` (`--quant_linear`),
+W8A8 `Int8Linear`s. Where JAX feeds an int8 GEMM from a fused producer (the
+quant-out LN, `unfold_quant`, `cross_attention_qout`: ROADMAP Queue B items
+1, 7, 8), the port runs the bf16 producer and the row quantiser K8; the
+FFN's int8 hidden (K10 -> K11) is JAX's. Left out with the paths they
+serve: the FFN half-split and its `L*n_ffn` guard (16 GB-chip memory
+guards), remat (training), sharding constraints and Ulysses (multi-GPU) and
 `_img_emb` (I2V).
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
-K2), attention (K3, K4) and the fused SageSLA path (K5-K7) dispatch to the
-CUDA kernels on the card.
+K2), attention (K3, K4), the fused SageSLA path (K5-K7) and the W8A8 linears
+(K8-K11) dispatch to the CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -42,22 +48,17 @@ from turbodiffusion_tpu_torch.ops.attention import (
     attention, dense_attention, fused_sla_geometry, sla_attention_fused)
 from turbodiffusion_tpu_torch.ops.fused_norm import (
     modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
+from turbodiffusion_tpu_torch.ops.quant import (
+    Int8Linear, int8_gemm_blockact, int8_gemm_postscale_qout,
+    linear_maybe_quant, pick_bn_div, quantize_rows_int8)
 from turbodiffusion_tpu_torch.ops.sla_fused import unfold_planes
-
-
-def _finish(y, gate=None, residual=None):
-    """`residual + y * gate` as linear_maybe_quant's epilogue does it
-    (quant.py:933-938): the gate is cast to y's dtype first."""
-    if gate is not None:
-        y = y * gate.to(y.dtype)
-    if residual is not None:
-        y = y + residual
-    return y
 
 
 class WanSelfAttention(nn.Module):
     """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O; in the fused
-    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O."""
+    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O. With
+    a fused `qkv` linear (q, k and v None), Q, K and V are column groups of
+    its output, read in place by K5 or K2 and the attention kernels."""
 
     def __init__(self, cfg: WanConfig, with_proj_l: bool, device=None):
         super().__init__()
@@ -66,6 +67,7 @@ class WanSelfAttention(nn.Module):
         kw = dict(device=device, dtype=dt)
         self.q, self.k = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
         self.v, self.o = nn.Linear(D, D, **kw), nn.Linear(D, D, **kw)
+        self.qkv = None                    # set by quantize_wan_blocks
         self.norm_q = nn.Parameter(torch.ones(D, **kw))
         self.norm_k = nn.Parameter(torch.ones(D, **kw))
         # zero-init learned linear-branch projection (SLA/core.py:78-81)
@@ -78,19 +80,26 @@ class WanSelfAttention(nn.Module):
         B, Lx, D = x.shape
         H, Dh = cfg.num_heads, cfg.head_dim
         cosF, sinF = rope_cs
+        if self.qkv is not None:
+            # one GEMM, one activation quantisation; views, no split copies
+            q_proj, k_proj, v_proj = linear_maybe_quant(self.qkv, x).split(D, -1)
+        else:
+            q_proj, k_proj, v_proj = (linear_maybe_quant(lin, x)
+                                      for lin in (self.q, self.k, self.v))
         if fused_sla_geometry(cfg.attention, Dh):
             planes = sla_attention_fused(
-                self.q(x), self.k(x), self.v(x), self.norm_q, self.norm_k,
-                rope_cs, self.proj_l, cfg.attention, num_heads=H, eps=cfg.eps)
+                q_proj, k_proj, v_proj, self.norm_q, self.norm_k, rope_cs,
+                self.proj_l, cfg.attention, num_heads=H, eps=cfg.eps)
             y = unfold_planes(planes, Lx).to(x.dtype)
-            return _finish(self.o(y), gate, residual)
-        q = rmsnorm_rope(self.q(x), self.norm_q, cosF, sinF, num_heads=H,
+            return linear_maybe_quant(self.o, y, gate=gate, residual=residual)
+        q = rmsnorm_rope(q_proj, self.norm_q, cosF, sinF, num_heads=H,
                          eps=cfg.eps)
-        k = rmsnorm_rope(self.k(x), self.norm_k, cosF, sinF, num_heads=H,
+        k = rmsnorm_rope(k_proj, self.norm_k, cosF, sinF, num_heads=H,
                          eps=cfg.eps)
-        v = self.v(x).reshape(B, Lx, H, Dh)
+        v = v_proj.reshape(B, Lx, H, Dh)
         o = attention(q, k, v, cfg.attention, proj_l=self.proj_l)
-        return _finish(self.o(o.reshape(B, Lx, D)), gate, residual)
+        return linear_maybe_quant(self.o, o.reshape(B, Lx, D), gate=gate,
+                                  residual=residual)
 
 
 class WanCrossAttention(nn.Module):
@@ -111,16 +120,25 @@ class WanCrossAttention(nn.Module):
         cfg = self.cfg
         B, Lx, D = x.shape
         H, Dh = cfg.num_heads, cfg.head_dim
-        k = rms_norm(self.k(context), self.norm_k, eps=cfg.eps)
+        k = rms_norm(linear_maybe_quant(self.k, context), self.norm_k,
+                     eps=cfg.eps)
         k = k.reshape(B, -1, H, Dh)
-        v = self.v(context).reshape(B, -1, H, Dh)
-        q = rmsnorm_rope(self.q(x), self.norm_q, num_heads=H, eps=cfg.eps)
+        v = linear_maybe_quant(self.v, context).reshape(B, -1, H, Dh)
+        q = rmsnorm_rope(linear_maybe_quant(self.q, x), self.norm_q,
+                         num_heads=H, eps=cfg.eps)
         o = dense_attention(q, k, v)
-        return _finish(self.o(o.reshape(B, Lx, D)), residual=residual)
+        return linear_maybe_quant(self.o, o.reshape(B, Lx, D),
+                                  residual=residual)
 
 
 class WanFFN(nn.Module):
-    """Linear -> GELU(tanh) -> Linear, gated residual (wan.py:283-284)."""
+    """Linear -> GELU(tanh) -> Linear, gated residual (wan.py:243-284).
+
+    W8A8 at batch 1, when ffn_dim has a block divisor (`pick_bn_div`, 896 at
+    1.3B): K8 quantises x, K10 runs fc1 with the GELU and emits the hidden as
+    int8 with per-(row, BN) scales, K11 runs fc2 rescaling per BN-wide K
+    slab with the gate and residual fused; the hidden never exists in bf16.
+    Otherwise each linear quantises its own input."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
@@ -129,7 +147,23 @@ class WanFFN(nn.Module):
         self.fc2 = nn.Linear(cfg.ffn_dim, cfg.dim, **kw)
 
     def forward(self, x, gate=None, residual=None):
-        return _finish(self.fc2(gelu_tanh(self.fc1(x))), gate, residual)
+        fc1, fc2 = self.fc1, self.fc2
+        B, L, D = x.shape
+        bn = pick_bn_div(fc1.out_features)
+        if (isinstance(fc1, Int8Linear) and isinstance(fc2, Int8Linear)
+                and B == 1 and bn):
+            xq, rs = quantize_rows_int8(x.reshape(L, D))
+            hq, hs = int8_gemm_postscale_qout(xq, rs, fc1.w_int8, fc1.scale,
+                                              fc1.bias, act="gelu_tanh")
+            y = int8_gemm_blockact(
+                hq, hs, fc2.w_int8, fc2.scale, fc2.bias, bk=bn,
+                gate=None if gate is None else gate.reshape(-1),
+                residual=None if residual is None else residual.reshape(L, -1),
+                out_dtype=x.dtype)
+            return y.reshape(B, L, -1)
+        return linear_maybe_quant(fc2, linear_maybe_quant(fc1, x,
+                                                          act="gelu_tanh"),
+                                  gate=gate, residual=residual)
 
 
 class WanAttentionBlock(nn.Module):

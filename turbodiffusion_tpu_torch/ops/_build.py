@@ -43,8 +43,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, out, mod_scale, mod_shift, weight, bias, rows, L, D, eps, stream
     "tdx_modulated_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # x, out, weight, cos_full, sin_full, rows, L, H, Dh, eps, stream
-    "tdx_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, out, weight, cos_full, sin_full, x row stride, rows, L, H, Dh, eps,
+    # stream
+    "tdx_rmsnorm_rope": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, lut, B, H, Lq, kv_len, nQ, sel, block_q, block_k,
     # 12 strides (q, k, v, o: batch, token, head), scale, stream
     "tdx_sparse_flash_attention": [_P, _P, _P, _P, _P] + [_I] * 8
@@ -53,8 +54,8 @@ SIGNATURES = {
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
     # x, weight, cos, sin, bf16, i8, scale, partial, pooled, counters,
-    # B, L, Lp, H, pool, nP, eps, stream
-    "tdx_head_planes": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # x row stride, B, L, Lp, H, pool, nP, eps, stream
+    "tdx_head_planes": [_P] * 10 + [_I64] + [_I] * 6 + [_F, _P],
     # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream
     "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
     # k, v, partials, kv, ksum, B, H, Lp, kv_len, n_chunks, stream
@@ -62,6 +63,17 @@ SIGNATURES = {
     # qi, qs, kp, vtp, ks, vch, lut, kvw, ks_bias, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale*log2e, stream
     "tdx_sparse_attention_i8_vt": [_P] * 10 + [_I] * 9 + [_F, _P],
+    # x, x row stride, xq, row scales, M, K, stream
+    "tdx_quantize_rows_int8": [_P, _I64, _P, _P, _I, _I, _P],
+    # xq, w (N, K), row scales, col scales, bias, gate, residual, out,
+    # M, N, K, act, stream
+    "tdx_int8_gemm_postscale": [_P] * 8 + [_I] * 4 + [_P],
+    # xq, w, row scales, col scales, bias, out int8, out scales,
+    # M, N, K, scale block, act, stream
+    "tdx_int8_gemm_qout": [_P] * 7 + [_I] * 5 + [_P],
+    # xq, w, slab scales, col scales, bias, gate, residual, out,
+    # M, N, K, slab, act, stream
+    "tdx_int8_gemm_blockact": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

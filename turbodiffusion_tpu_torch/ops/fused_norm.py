@@ -9,7 +9,9 @@ Ports `turbodiffusion_tpu/ops/fused_norm.py`:
 
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel (csrc/fused_norm.cu) or raises. Each launcher counts its
-launches in `.launches`. The int8 `quant_out` form of K1 waits for W8A8.
+launches in `.launches`. K2 reads its input rows through a row stride, so
+the q and k column groups of the fused QKV output need no copy. The int8
+`quant_out` form of K1 is ROADMAP Queue B item 1.
 """
 
 from __future__ import annotations
@@ -23,6 +25,18 @@ from turbodiffusion_tpu_torch.ops import _build
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _row_stride(x, what: str) -> int:
+    """The element stride between the rows of a (B, L, W) tensor that a
+    kernel reads as row * stride: unit stride within a row and batches L rows
+    apart, as in a column group (Q, K or V) of the fused (B, L, 3*W) QKV
+    GEMM output, which the kernels read in place."""
+    B, L, _ = x.shape
+    ld = x.stride(1)
+    _require(x.stride(2) == 1 and (B == 1 or x.stride(0) == L * ld),
+             f"{what} takes rows with a unit last stride, batches L rows apart")
+    return ld
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +143,14 @@ def rmsnorm_rope_ref(x, weight, cos_full, sin_full, eps: float = 1e-5):
 
 
 def _rmsrope_cuda(x, weight, cos_full, sin_full, eps: float, num_heads: int):
-    """Launch K2. x (B, L, H*Dh) bf16 contiguous; weight (H*Dh,);
-    cos/sin (L, Dh) fp32 or both None (norm only). Returns (B, L, H, Dh)."""
+    """Launch K2. x (B, L, H*Dh) bf16 with rows `_row_stride` apart;
+    weight (H*Dh,); cos/sin (L, Dh) fp32 or both None (norm only). Returns
+    (B, L, H, Dh)."""
     B, L, HD = x.shape
     H = num_heads
     Dh = HD // H
-    _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-             "K2 takes a contiguous bf16 x")
+    _require(x.dtype == torch.bfloat16, "K2 takes a bf16 x")
+    ld = _row_stride(x, "K2")
     _require(HD == H * Dh and Dh % 2 == 0 and HD <= 4096,
              f"K2 takes H*Dh <= 4096 with an even Dh, got {H}x{Dh}")
     w = weight.to(torch.bfloat16).contiguous()
@@ -155,7 +170,7 @@ def _rmsrope_cuda(x, weight, cos_full, sin_full, eps: float, num_heads: int):
         x.data_ptr(), out.data_ptr(), w.data_ptr(),
         cos_full.data_ptr() if rope else None,
         sin_full.data_ptr() if rope else None,
-        B * L, L, H, Dh, float(eps), _build.stream_ptr(x))
+        ld, B * L, L, H, Dh, float(eps), _build.stream_ptr(x))
     _build.check(rc, "tdx_rmsnorm_rope")
     _rmsrope_cuda.launches += 1
     return out

@@ -4,7 +4,9 @@ The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
 single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
   * `head_planes` — K5 `_head_planes_cuda` replaces the TPU kernel
     `head_planes` (launch :228, body `_head_planes_kernel` :76-137): one pass
-    over a (B, L, H*Dh) projection output giving any of the bf16 head planes
+    over a (B, L, H*Dh) projection output (read through a row stride, so a
+    column group of the fused QKV output needs no copy) giving any of the
+    bf16 head planes
     (B, H, Lp, Dh), per-(head, token) int8 + fp32 scales, and per-block
     pooled means, with the full-row RMSNorm and rotate-half RoPE fused in;
   * `block_map_from_pooled` (:281-298) — plain torch: the smooth-k mean
@@ -35,6 +37,7 @@ import torch
 
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
+from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride
 
 INT8_MAX = 127.0
 # rows of a K5 thread block: the grain of its pooled partial sums
@@ -104,12 +107,15 @@ def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
 def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
                       eps: float, pool: int, quant: bool, bf16_out: bool,
                       Lp: int) -> dict:
-    """Launch K5. x (B, L, H*128) bf16 contiguous; weight (H*128,);
-    cos/sin (>= L, 128) fp32 or both None."""
+    """Launch K5. x (B, L, H*128) bf16 with 16-byte aligned rows
+    `_row_stride` apart; weight (H*128,); cos/sin (>= L, 128) fp32 or both
+    None."""
     B, L, HD = x.shape
     H = num_heads
-    _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-             "K5 takes a contiguous bf16 x")
+    _require(x.dtype == torch.bfloat16, "K5 takes a bf16 x")
+    ld = _row_stride(x, "K5")
+    _require(ld % 8 == 0 and x.data_ptr() % 16 == 0,
+             "K5 takes 16-byte aligned rows")
     _require(HD == H * 128 and 1 <= H <= 16,
              f"K5 takes 1-16 heads of 128, got width {HD} for {H} heads")
     _require(Lp >= L and Lp % _HP_ROWS == 0,
@@ -155,7 +161,7 @@ def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
     rc = lib.tdx_head_planes(
         x.data_ptr(), ptr(w), ptr(cos_full), ptr(sin_full),
         ptr(out.get("bf16")), ptr(out.get("i8")), ptr(out.get("scale")),
-        ptr(partial), ptr(out.get("pooled")), ptr(counters),
+        ptr(partial), ptr(out.get("pooled")), ptr(counters), ld,
         B, L, Lp, H, pool, nP, float(eps), _build.stream_ptr(x))
     _build.check(rc, "tdx_head_planes")
     _head_planes_cuda.launches += 1

@@ -4,8 +4,9 @@ Ports `turbodiffusion_tpu/pipelines/pipeline.py`: `make_wan_cfg` and
 `load_dit` (:41-104, with the zero-`proj_l` rule), `TextEncoder` with its
 hash-tokenizer fallback (:107-160) and `WanPipeline.create` /
 `generate_t2v` (:185-288). The models stay resident on the pipeline's
-device and answer any number of requests. I2V, meshes and checkpoint
-loading (`dit_path`, `vae_path`, `text_encoder_path`) wait for later slices.
+device and answer any number of requests; every entry point runs on the
+card unless told otherwise. I2V, meshes and checkpoint loading (`dit_path`,
+`vae_path`, `text_encoder_path`) wait for later slices.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from turbodiffusion_tpu_torch.models.umt5 import (
 from turbodiffusion_tpu_torch.models.vae import (
     VAEConfig, WanVAE, init_vae_params, vae_decode)
 from turbodiffusion_tpu_torch.models.wan import WanModel, init_wan_params
+from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
 from turbodiffusion_tpu_torch.pipelines.sampler import latent_shape, rcm_sample
 
 log = logging.getLogger(__name__)
@@ -38,11 +40,8 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
                  sla_block: int = 256, v_quant: str = "channel") -> WanConfig:
     """A WanConfig from the CLI flag surface (pipeline.py:41-63): block_q is
     twice the K-block granularity at 256 and above (512/256), equal below;
-    v_quant is sagesla's INT8 V granularity."""
-    if quant_linear:
-        raise NotImplementedError(
-            "W8A8 linears wait for their kernels (ROADMAP Queue B items 1, 2, "
-            "3, 7-10)")
+    v_quant is sagesla's INT8 V granularity; quant_linear selects the W8A8
+    postscale linears."""
     if v_quant != "channel":
         raise NotImplementedError(
             f"v_quant={v_quant!r}: per-row INT8 V waits for its kernels "
@@ -54,20 +53,24 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
     attn = AttentionConfig(backend=backend, sla_topk=sla_topk, block_q=bq,
                            block_k=blk, v_quant=v_quant)
     if model == "test":
-        return wan_test_config(attention=attn)
-    return wan_config(model, attention=attn)
+        return wan_test_config(attention=attn, quant_linear=quant_linear)
+    return wan_config(model, attention=attn, quant_linear=quant_linear)
 
 
 def load_dit(dit_path: Optional[str], cfg: WanConfig, seed: int = 0,
-             device="cpu"):
-    """Random weights (dit_path=None) on `device` (pipeline.py:66-104).
-    Returns (model, cfg); cfg turns the linear branch off when every proj_l
-    is exactly zero."""
+             device="cuda"):
+    """Random weights (dit_path=None) on `device` (pipeline.py:66-104),
+    quantised to W8A8 postscale when `cfg.quant_linear` (QKV fused below
+    dim 4096, as JAX does). Returns (model, cfg); cfg turns the linear
+    branch off when every proj_l is exactly zero."""
     if dit_path is not None:
         raise NotImplementedError(
             "DiT checkpoint loading waits for checkpoint import (ROADMAP "
             "Queue A item 14)")
     model = init_wan_params(cfg, seed, device)
+    if cfg.quant_linear:
+        quantize_wan_blocks(model.blocks, mode="postscale",
+                            fuse_qkv=cfg.dim < 4096)
     projs = [b.self_attn.proj_l for b in model.blocks
              if b.self_attn.proj_l is not None]
     if projs and cfg.attention.backend in ("sla", "sagesla"):
@@ -89,7 +92,7 @@ class TextEncoder:
 
     def __init__(self, checkpoint_path: Optional[str] = None,
                  text_len: int = 512, cfg: Optional[UMT5Config] = None,
-                 device="cpu", tokenizer_path: Optional[str] = None):
+                 device="cuda", tokenizer_path: Optional[str] = None):
         if checkpoint_path is not None:
             raise NotImplementedError(
                 "umT5 checkpoint loading waits for checkpoint import (ROADMAP "
