@@ -18,9 +18,10 @@ Phases, each printing one line of its numbers:
      `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of the
      same shape); the port calls neither;
   3. one full-width 1.3B `WanAttentionBlock` with seeded random non-zero
-     weights at one 480p latent frame (1,560 tokens): `sla`, `sagesla` and
-     `sagesla` with W8A8 linears (both sagesla blocks with a non-zero
-     `proj_l`, so the fused linear epilogue runs): the kernels on the card
+     weights at one 480p latent frame (1,560 tokens): `sla`, `sagesla`,
+     `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
+     blocks with a non-zero `proj_l`, so the fused linear epilogue runs; the
+     W8A8 blocks take the int8 feeds K12-K14): the kernels on the card
      against the plain versions on the CPU, on the Q blocks whose block-map
      rows agree as sets;
   4. the slice: `WanPipeline.create(..., attention_type="sagesla",
@@ -28,10 +29,11 @@ Phases, each printing one line of its numbers:
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
      `sla`; per request the text-encode, denoise and VAE-decode times, peak
      device memory, and the launch count of every kernel, set to 0 just
-     before the request and read just after (W8A8 sagesla: K1 3, K2 1, K4 1,
-     K5 3, K6 1, K7 1, K8 7, K9 6, K10 1, K11 1 per block; bf16 sagesla the
-     same without K8-K11; sla: K1 3, K2 3, K3 1, K4 1; x 30 blocks x 4
-     steps), which shows each path went through its kernels; then each
+     before the request and read just after (W8A8 sagesla: K5 3, K6 1, K7 1,
+     K8 2, K9 6, K10 1, K11 1, K12 3, K13 1, K14 1 per block and no K1-K4;
+     bf16 sagesla: K1 3, K2 1, K4 1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1,
+     K4 1; x 30 blocks x 4 steps), which shows each path went through its
+     kernels; then each
      path's denoise under torch.profiler: device time by kernel category and
      the device's idle share.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and as
@@ -56,6 +58,11 @@ B, L, DIM, HEADS, DH, TEXT, FFN = 1, 32760, 1536, 12, 128, 512, 8960
 BNQ = 896                           # K10's scale block, K11's K slab
 ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
 SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
+# K14's scales: its fp32 sums (the row's mean square, QK, P V) run in another
+# order than the plain version's, which can move one bf16 element of the
+# normed q or of P by a step (2^-8) and so the row's output absmax by up to
+# ~p_j * 2^-8 / l of it (a few 1e-3 where one key dominates the row)
+K14_SCALE_RTOL = 5e-3
 BLOCK_ATOL, BLOCK_RTOL = 0.1, 0.05  # bf16 block, card vs CPU (other GEMMs)
 BQ, BK, TOPK = 512, 256, 0.1        # sagesla / sla blocks and top-k ratio
 LP = -(-L // 512) * 512             # the fused path's padded length
@@ -65,13 +72,15 @@ LP = -(-L // 512) * 512             # the fused path's padded length
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # launches per request: 30 blocks x 4 steps x per-block calls
-_BF16_SAGESLA = {"K1": 360, "K2": 120, "K3": 0, "K4": 120, "K5": 360,
-                 "K6": 120, "K7": 120}
-_NO_W8A8 = {"K8": 0, "K9": 0, "K10": 0, "K11": 0}
+_SAGESLA = {"K3": 0, "K5": 360, "K6": 120, "K7": 120}
+_NO_W8A8 = {"K8": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K13": 0, "K14": 0}
 EXPECTED_LAUNCHES = {
-    "sagesla+w8a8": {**_BF16_SAGESLA, "K8": 840, "K9": 720, "K10": 120,
-                     "K11": 120},
-    "sagesla": {**_BF16_SAGESLA, **_NO_W8A8},
+    # the int8 feeds: K12 for norm1 / norm3 / norm2, K13 for the O feed, K14
+    # for cross attention; K8 only for the text-side K / V linears
+    "sagesla+w8a8": {**_SAGESLA, "K1": 0, "K2": 0, "K4": 0, "K8": 240,
+                     "K9": 720, "K10": 120, "K11": 120, "K12": 360,
+                     "K13": 120, "K14": 120},
+    "sagesla": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120, **_NO_W8A8},
     "sla": {"K1": 360, "K2": 360, "K3": 120, "K4": 120, "K5": 0, "K6": 0,
             "K7": 0, **_NO_W8A8},
 }
@@ -104,6 +113,12 @@ KERNELS = {
             "turbodiffusion_tpu/ops/quant.py:561"),
     "K11": ("turbodiffusion_tpu_torch/csrc/quant.cu",
             "turbodiffusion_tpu/ops/quant.py:750"),
+    "K12": ("turbodiffusion_tpu_torch/csrc/fused_norm.cu",
+            "turbodiffusion_tpu/ops/fused_norm.py:144"),
+    "K13": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:633"),
+    "K14": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:384"),
 }
 
 
@@ -118,7 +133,8 @@ def _launchers():
             "K5": sf._head_planes_cuda, "K6": sf._subquant_pack_kvt_cuda,
             "K7": si8._sparse_i8_vt_cuda, "K8": qt._quantize_rows_cuda,
             "K9": qt._int8_gemm_postscale_cuda, "K10": qt._int8_gemm_qout_cuda,
-            "K11": qt._int8_gemm_blockact_cuda}
+            "K11": qt._int8_gemm_blockact_cuda, "K12": fn._mln_quant_cuda,
+            "K13": sf._unfold_quant_cuda, "K14": fa._cross_qout_cuda}
 
 
 @dataclasses.dataclass
@@ -372,7 +388,8 @@ def phase2(reps: int = REPS):
               k7(si8._sparse_i8_vt_cuda, **lin),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw, **lin),
               i8_args + tuple(lin.values()), ops7),
-    ] + _w8a8_checks(randn, x)
+    ] + _w8a8_checks(randn, x) + _int8_feed_checks(randn, x, ms, mb, w, bias,
+                                                  kt, vt, sdpa)
     results = {}
     for c in checks:
         got = c.kern()
@@ -477,6 +494,47 @@ def _w8a8_checks(randn, x):
     ]
 
 
+def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
+    """Phase-2 checks of K12-K14 at the W8A8 path's shapes: K12 as norm1 /
+    norm2 (modulated) and norm3 (affine); K13 over K7-shaped planes (B, 12,
+    32,768, 128) to the 32,760 live rows; K14 as the cross attention of the
+    trunk's raw Q rows over 512 text keys. No PyTorch call computes these
+    functions: beside K12 `F.layer_norm` and beside K14 SDPA of the cross
+    shape (the attention alone, bf16 out) are timed as yardsticks."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    planes = randn(B, HEADS, LP, DH, std=2.0)
+    qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
+    scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
+    n_x = x.numel()
+    return [
+        Check("K12", "mod -> int8 (norm1/norm2)",
+              lambda: fn._mln_quant_cuda(x, ms, mb, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=True),
+              (x, ms, mb), {"fp32": 11 * n_x}, **scale_tol,
+              yardsticks={"F.layer_norm (bf16 out)":
+                          lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6)}),
+        Check("K12", "affine -> int8 (norm3)",
+              lambda: fn._mln_quant_cuda(x, None, None, w, bias, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6,
+                                                  quant_out=True),
+              (x, w, bias), {"fp32": 11 * n_x}, **scale_tol),
+        Check("K13", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
+              lambda: sf._unfold_quant_cuda(planes, L),
+              lambda: sf.unfold_quant_plain(planes, L),
+              (planes[:, :, :L],), {"fp32": 3 * n_x}, **scale_tol),
+        Check("K14", f"q-norm + cross {L}x{TEXT} -> int8",
+              lambda: fa._cross_qout_cuda(x, kt, vt, w, DH ** -0.5, 1e-6),
+              lambda: fa.cross_attention_qout_plain(x, kt, vt, w, DH ** -0.5, 1e-6),
+              (x, w, kt, vt), {"bf16": 4 * B * HEADS * L * TEXT * DH},
+              atol=0.0, rtol=K14_SCALE_RTOL,
+              yardsticks={"SDPA of the cross shape (attention only)":
+                          sdpa(qn, kt, vt)}),
+    ]
+
+
 def _poisoned_tail(i8_args, scale):
     """K7 on the card: int8 K / V rows past kv_len set to +127 change no
     output row before kv_len (flash_pallas.py:933, the garbage-tail test)."""
@@ -518,12 +576,12 @@ def _random_block(cfg, dev, seed: int, proj_l_std: float = 0.0):
 
 
 def _qk_proj(sa, h):
-    """The self-attention q and k projections of h, through the fused qkv
-    linear where the block has one."""
-    from turbodiffusion_tpu_torch.ops.quant import linear_maybe_quant
+    """The self-attention q and k projections of h (bf16, or K12's int8
+    pair), through the fused qkv linear where the block has one."""
+    from turbodiffusion_tpu_torch.models.wan import _lin_q
     if sa.qkv is not None:
-        return linear_maybe_quant(sa.qkv, h).split(h.shape[-1], -1)[:2]
-    return linear_maybe_quant(sa.q, h), linear_maybe_quant(sa.k, h)
+        return _lin_q(sa.qkv, h).split(DIM, -1)[:2]
+    return _lin_q(sa.q, h), _lin_q(sa.k, h)
 
 
 def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
@@ -531,7 +589,8 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
     branch alone); sagesla: a non-zero proj_l, so K6 sums the linear kv and
     K7 runs its linear epilogue. quant_linear: the block's linears
     quantised as load_dit quantises them (W8A8 postscale, fused QKV), so
-    K8-K11 run on the card and their plain versions on the CPU."""
+    the int8 feeds K12-K14 and the GEMMs K8-K11 run on the card and their
+    plain versions on the CPU."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops.attention import get_block_map
@@ -563,7 +622,8 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
 
     def block_map(b, x, e0, rope):
         e = b.modulation.float()[None] + e0
-        h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps)
+        h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps,
+                                 quant_out=quant_linear)
         sa = b.self_attn
         q_proj, k_proj = _qk_proj(sa, h)
         if fused:
@@ -664,7 +724,9 @@ def phase4(label: str, attention: str, quant_linear: bool, requests: int):
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1", ("mln_kernel",)), ("K2", ("rmsrope_kernel",)),
+    ("K1", ("mln_kernel<false>",)), ("K12", ("mln_kernel<true>",)),
+    ("K2", ("rmsrope_kernel",)), ("K13", ("unfold_quant_kernel",)),
+    ("K14", ("cross_qout_kernel",)),
     ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_pack_kvt_kernel",)),
     ("K6 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
@@ -743,7 +805,7 @@ def main(argv=None) -> int:
     kernels = phase2() if 2 in phases else {}
     if 3 in phases:
         for attention, quant_linear in (("sla", False), ("sagesla", False),
-                                        ("sagesla", True)):
+                                        ("sagesla", True), ("sla", True)):
             phase3(attention, quant_linear)
     counts = {}
     if 4 in phases:

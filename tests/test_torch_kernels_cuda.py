@@ -362,3 +362,72 @@ def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         qt.int8_gemm_postscale_qout(xq, s, _i8(dev, 256, 256, seed=96),
                                     _scales(dev, 256, 97))
+
+
+# ---------------------------------------------------------------------------
+# K12-K14: the int8 feeds of the W8A8 path (tolerances: int8 within 1 LSB;
+# fp32 scales rtol 1e-5, K14's 5e-3 for fp32 sums in another order that move
+# the bf16 rounding of a normed q or a P element)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mod", "affine"])
+def test_k12_matches_plain(dev, mode):
+    """norm1 / norm2 (modulated, int8 from fp32) and norm3 (affine)."""
+    x = (2 * _randn(dev, 1, SEQ, DIM)).bfloat16()
+    ms = _randn(dev, 1, DIM, seed=1, std=0.5) if mode == "mod" else None
+    mb = _randn(dev, 1, DIM, seed=2, std=0.5) if mode == "mod" else None
+    w = (1 + _randn(dev, DIM, seed=3, std=0.1)).bfloat16() if mode == "affine" else None
+    b = _randn(dev, DIM, seed=4, std=0.1).bfloat16() if mode == "affine" else None
+    before = fn._mln_quant_cuda.launches
+    q, s = fn.modulated_layer_norm(x, ms, mb, w, b, eps=1e-6, quant_out=True)
+    assert fn._mln_quant_cuda.launches == before + 1
+    want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6, quant_out=True)
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 12])
+def test_k13_matches_plain_bitwise(dev, heads):
+    """L = 1000 live rows of 1024-row planes: K8's rule on the unfolded
+    rows, bit for bit."""
+    planes = (2 * _randn(dev, 1, heads, 1024, DH, seed=100)).bfloat16()
+    before = sf._unfold_quant_cuda.launches
+    q, s = sf.unfold_quant(planes, 1000)
+    assert sf._unfold_quant_cuda.launches == before + 1
+    want_q, want_s = sf.unfold_quant_plain(planes, 1000)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,Lk", [(2, 77), (3, 512), (12, 512), (24, 77),
+                                      (40, 512)])
+def test_k14_matches_plain(dev, heads, Lk):
+    """Clusters of 2, 3, 6 and 8 blocks: 1 or 2 heads a block on 128-row
+    tiles, 3 or 5 on 64-row tiles; 77 keys mask most of the second 64-key
+    chunk."""
+    HD = heads * DH
+    q = _randn(dev, 1, 1100, HD, seed=101).bfloat16()
+    k, v = (_randn(dev, 1, Lk, heads, DH, seed=s).bfloat16() for s in (102, 103))
+    w = (1 + _randn(dev, HD, seed=104, std=0.2)).bfloat16()
+    before = fa._cross_qout_cuda.launches
+    got_q, got_s = fa.cross_attention_qout(q, k, v, w)
+    assert fa._cross_qout_cuda.launches == before + 1
+    want_q, want_s = fa.cross_attention_qout_plain(q, k, v, w)
+    _int8_close(got_q, want_q)
+    torch.testing.assert_close(got_s, want_s, rtol=5e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_feed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """No silent fallback: fp32 inputs, or 13 heads (no cluster of <= 8
+    blocks with <= 5 heads each), raise."""
+    with pytest.raises(ValueError):
+        fn.modulated_layer_norm(_randn(dev, 1, 8, DIM), quant_out=True)
+    with pytest.raises(ValueError):
+        sf.unfold_quant(_randn(dev, 1, 2, 64, DH), 8)
+    q13 = _randn(dev, 1, 64, 13 * DH).bfloat16()
+    k13 = _randn(dev, 1, 77, 13, DH).bfloat16()
+    with pytest.raises(ValueError):
+        fa.cross_attention_qout(q13, k13, k13, torch.ones(13 * DH, device=dev))

@@ -1,4 +1,5 @@
-// K3 and K4: bf16 flash attention forward for sm_90a, block-sparse and dense.
+// K3, K4 and K14: bf16 flash attention forward for sm_90a, block-sparse,
+// dense, and the cross attention with the int8 O feed.
 //
 // K3 tdx_sparse_flash_attention replaces the TPU kernel
 //    turbodiffusion_tpu/ops/flash_pallas.py:_flash_fwd_impl, bf16 sparse
@@ -8,10 +9,16 @@
 //    (bodies _attn_kernel_onepass and _attn_kernel without int8 QK):
 //    softmax attention over all kv_len keys (cross-attention over the 512
 //    text tokens; self-attention under --attention_type original).
+// K14 tdx_cross_attention_qout replaces flash_pallas.py:cross_attention_qout,
+//    fused-norm mode (body _cross_attn_qout_kernel): the raw cross-Q rows
+//    (B, Lq, H*128) -> full-row RMSNorm (fp32 statistic, bf16 cast, bf16
+//    weight product) -> per head softmax(q k^T * scale) V over the text keys
+//    -> the int8 feed of the W8A8 O projection, (B, Lq, H*128) int8 with one
+//    fp32 scale per token across all heads, taken from the fp32 output.
 //
 // What bounds them on an H100: tensor-core math. At the 1.3B 480p shape a K3
-// call is ~6.2e11 FLOPs over ~100 MB of q/k/v, and a K4 cross call ~1.0e11
-// FLOPs, both well above the ridge. The design is FlashAttention-2 on
+// call is ~6.2e11 FLOPs over ~100 MB of q/k/v, and a K4 or K14 cross call
+// ~1.0e11 FLOPs, all well above the ridge. The design is FlashAttention-2 on
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate):
 //   * one block of 4 warps owns 64 query rows of one (batch, head); each warp
 //     owns 16 rows and keeps its Q fragments, its 16x128 fp32 output
@@ -27,12 +34,32 @@
 // through strides, loops over exactly `sel` LUT entries, skips the chunks
 // that lie wholly past kv_len, zero-fills rows past kv_len, masks columns
 // >= kv_len to -1e30 before the row max, and never writes rows past Lq.
+//
+// K14 needs two things a CUDA block cannot carry across the grid the way the
+// TPU's sequential grid carries its o scratch: the RMS of the whole
+// H*128-wide row before any head's QK, and the absmax over every head's
+// output before any int8 store. So the C = H / G blocks that own one row
+// tile (G heads each, C <= 8) run as one thread-block cluster: each sums the
+// squares of its G heads' columns, and reads the other blocks' partial sums
+// through distributed shared memory; each keeps its heads' fp32 outputs in
+// shared memory (34 KB a head), reduces their row maxima, and reads the
+// others' the same way before it quantises its own columns (the 1.3B's 12
+// heads: clusters of 6 blocks of 2 heads; up to 40 heads fit, 5 a block).
+// It keeps the TPU kernel's exact softmax: a first pass over the keys takes
+// each row's max of the scaled logits, the second computes P = exp(s - max),
+// rounds it to bf16 for P V and divides by the fp32 row sum (no online
+// rescaling, so P rounds where the JAX kernel rounds it). The logit scale
+// multiplies in fp32 (s * scale) and exp is expf, as the plain version
+// computes them. The first pass costs a second QK product and K stream.
 // A first, simple version: loads are synchronous (no cp.async/TMA ring) and
 // there is no wgmma; both are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -262,6 +289,271 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// K14
+// ---------------------------------------------------------------------------
+
+constexpr int kOStride = kDh + 8;             // padded fp32 row of the o buffer
+constexpr int kQoutMaxCluster = 8;            // portable cluster size
+constexpr int kQoutStageBytes = (kBN * kKStride + kDh * kVStride) * 2;
+constexpr float kInvInt8 = 1.0f / 127.0f;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t to_u8(float v) {
+  return (uint32_t)(uint8_t)(int8_t)max(-127, min(127, __float2int_rn(v)));
+}
+
+// S = Q K^T for one warp's 16 rows x kBN keys of the chunk in Ks, scaled in
+// fp32 and masked past nvalid.
+__device__ __forceinline__ void qk_chunk(float (&s)[kBN / 8][4], const uint32_t (&qa)[kDh / 16][4],
+                                         const __nv_bfloat16* Ks, int g, int t, int nvalid,
+                                         float scale) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) {
+      const __nv_bfloat16* kp = Ks + (j * 8 + g) * kKStride + kk * 16 + t * 2;
+      mma_bf16(s[j], qa[kk], lds32(kp), lds32(kp + 8));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = j * 8 + t * 2 + (e & 1);
+      s[j][e] = col < nvalid ? __fmul_rn(s[j][e], scale) : kNegInf;
+    }
+  }
+}
+
+// Grid (n_tiles * C, B), clusters of C blocks along x: block rank r of tile
+// `tile` owns rows [64 tile, 64 tile + 64) and heads [r G, r G + G).
+__global__ void __launch_bounds__(kThreads)
+cross_qout_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ norm_w,
+                  const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                  int8_t* __restrict__ out_q, float* __restrict__ out_s, long long ldq,
+                  int Lq, int kv_len, int H, int G, Strides ks, Strides vs, float scale,
+                  float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // K chunk / Q staging
+  __nv_bfloat16* Vt = Ks + kBN * kKStride;
+  float* Ob = reinterpret_cast<float*>(smem + kQoutStageBytes);   // G x kBM x kOStride
+  __shared__ float s_part[kBM];   // this block's share of a row statistic
+  __shared__ float s_row[kBM];    // the row's rms, then its int8 scale
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / C) * kBM;
+  const int b = blockIdx.y;
+  const int HD = H * kDh, width = G * kDh, col0 = rank * width;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qb = q + (long long)b * Lq * ldq;
+
+  // 1. the full-row RMS: partial sums of squares over this block's columns,
+  // then over the cluster's blocks in rank order. A warp owns 16 rows and
+  // issues all their loads before it reduces, so it waits on memory once a
+  // 256-column slab rather than once a row.
+  for (int c0 = 0; c0 < width; c0 += 256) {
+    const int c = c0 + lane * 8;
+    uint4 u[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = warp * 16 + i;
+      u[i] = make_uint4(0, 0, 0, 0);
+      if (row0 + r < Lq && c < width)
+        u[i] = *reinterpret_cast<const uint4*>(qb + (long long)(row0 + r) * ldq + col0 + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float f[8];
+      unpack8(u[i], f);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += f[e] * f[e];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) s_part[warp * 16 + i] = c0 ? s_part[warp * 16 + i] + s : s;
+    }
+  }
+  cluster.sync();
+  if (threadIdx.x < kBM) {
+    float s = 0.f;
+    for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(&s_part[threadIdx.x], r);
+    s_row[threadIdx.x] = rsqrtf(s / HD + eps);
+  }
+  cluster.sync();  // every block has read s_part before it is reused below
+
+  const int n_chunks = (kv_len + kBN - 1) / kBN;
+  float amax0 = 0.f, amax1 = 0.f;  // |o| maxima of rows warp*16 + g and + 8
+  for (int hl = 0; hl < G; ++hl) {
+    const int h = rank * G + hl;
+    const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+    const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+
+    // 2. this head's normed Q slice, staged in Ks: bf16(x * rms) * w in bf16
+    __syncthreads();  // the previous head's last chunk consumed
+#pragma unroll
+    for (int i = 0; i < kBM * (kDh / 8) / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / (kDh / 8), c8 = (idx % (kDh / 8)) * 8;
+      float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (row0 + r < Lq) {
+        float f[8], w[8];
+        unpack8(*reinterpret_cast<const uint4*>(qb + (long long)(row0 + r) * ldq + h * kDh + c8), f);
+        unpack8(*reinterpret_cast<const uint4*>(norm_w + h * kDh + c8), w);
+        const float rms = s_row[r];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(f[e], rms)), w[e]));
+      }
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pw[e] = pack_bf16(y[2 * e], y[2 * e + 1]);
+      *reinterpret_cast<uint4*>(Ks + r * kKStride + c8) = packed;
+    }
+    __syncthreads();
+    uint32_t qa[kDh / 16][4];
+    {
+      const __nv_bfloat16* base = Ks + (warp * 16) * kKStride;
+#pragma unroll
+      for (int kk = 0; kk < kDh / 16; ++kk) {
+        qa[kk][0] = lds32(base + g * kKStride + kk * 16 + t * 2);
+        qa[kk][1] = lds32(base + (g + 8) * kKStride + kk * 16 + t * 2);
+        qa[kk][2] = lds32(base + g * kKStride + kk * 16 + 8 + t * 2);
+        qa[kk][3] = lds32(base + (g + 8) * kKStride + kk * 16 + 8 + t * 2);
+      }
+    }
+
+    // 3. pass 1: each row's exact max of the scaled, masked logits. It reads
+    // K alone, so the V buffer is free: K chunks double-buffer in Ks and Vt
+    // and chunk c + 1 lands while chunk c is multiplied.
+    float m0 = kNegInf, m1 = kNegInf;
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();
+      load_rows(Ks, kb, ks, c * kBN, kv_len);
+      __syncthreads();
+      float s[kBN / 8][4];
+      qk_chunk(s, qa, Ks, g, t, kv_len - c * kBN, scale);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+
+    // 4. pass 2: P = exp(s - max) in fp32, its row sum, O += bf16(P) V
+    float acc[kDh / 8][4];
+#pragma unroll
+    for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+    float l0 = 0.f, l1 = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int key0 = c * kBN;
+      __syncthreads();
+      load_rows(Ks, kb, ks, key0, kv_len);
+      load_v_transposed(Vt, vb, vs, key0, kv_len);
+      __syncthreads();
+      float s[kBN / 8][4];
+      qk_chunk(s, qa, Ks, g, t, kv_len - key0, scale);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        s[j][0] = expf(s[j][0] - m0);
+        s[j][1] = expf(s[j][1] - m0);
+        s[j][2] = expf(s[j][2] - m1);
+        s[j][3] = expf(s[j][3] - m1);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int d = 0; d < kDh / 8; ++d) {
+          const __nv_bfloat16* vp = Vt + (d * 8 + g) * kVStride + kk * 16 + t * 2;
+          mma_bf16(acc[d], pa, lds32(vp), lds32(vp + 8));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    l0 = fmaxf(l0, 1e-20f);
+    l1 = fmaxf(l1, 1e-20f);
+
+    // 5. o = O / l in fp32 into this head's o buffer; the rows' |o| maxima
+    float* ob = Ob + (hl * kBM + warp * 16 + g) * kOStride;
+#pragma unroll
+    for (int d = 0; d < kDh / 8; ++d) {
+      const float2 o0 = make_float2(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
+      const float2 o1 = make_float2(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
+      amax0 = fmaxf(amax0, fmaxf(fabsf(o0.x), fabsf(o0.y)));
+      amax1 = fmaxf(amax1, fmaxf(fabsf(o1.x), fabsf(o1.y)));
+      *reinterpret_cast<float2*>(ob + d * 8 + t * 2) = o0;
+      *reinterpret_cast<float2*>(ob + 8 * kOStride + d * 8 + t * 2) = o1;
+    }
+  }
+
+  // 6. each row's absmax over the cluster's heads -> its int8 scale
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    amax0 = fmaxf(amax0, __shfl_xor_sync(0xffffffffu, amax0, off));
+    amax1 = fmaxf(amax1, __shfl_xor_sync(0xffffffffu, amax1, off));
+  }
+  if (t == 0) {
+    s_part[warp * 16 + g] = amax0;
+    s_part[warp * 16 + g + 8] = amax1;
+  }
+  cluster.sync();
+  if (threadIdx.x < kBM) {
+    float m = 0.f;
+    for (int r = 0; r < C; ++r) m = fmaxf(m, *cluster.map_shared_rank(&s_part[threadIdx.x], r));
+    s_row[threadIdx.x] = __fmul_rn(fmaxf(m, 1e-8f), kInvInt8);
+  }
+  cluster.sync();  // remote reads done before any block exits; s_row visible
+
+  // 7. this block's columns of each live row as int8, 8 bytes a thread
+  const int cpr = width / 8;
+  for (int idx = threadIdx.x; idx < kBM * cpr; idx += kThreads) {
+    const int r = idx / cpr, c = idx % cpr;
+    if (row0 + r >= Lq) continue;
+    const float inv = 1.f / s_row[r];
+    const float* src = Ob + ((c / (kDh / 8)) * kBM + r) * kOStride + (c % (kDh / 8)) * 8;
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w0 |= to_u8(__fmul_rn(src[e], inv)) << (8 * e);
+      w1 |= to_u8(__fmul_rn(src[4 + e], inv)) << (8 * e);
+    }
+    *reinterpret_cast<uint2*>(out_q + ((long long)b * Lq + row0 + r) * HD + col0 + c * 8) =
+        make_uint2(w0, w1);
+  }
+  if (rank == 0 && threadIdx.x < kBM && row0 + threadIdx.x < Lq)
+    out_s[(long long)b * Lq + row0 + threadIdx.x] = s_row[threadIdx.x];
+}
+
 }  // namespace
 
 extern "C" int tdx_sparse_flash_attention(
@@ -290,5 +582,42 @@ extern "C" int tdx_flash_attention(
       (__nv_bfloat16*)o, nullptr, H, Lq, kv_len, 0, 0, 0, 0, Strides{qsb, qsl, qsh},
       Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh},
       scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+
+extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const void* k,
+                                        const void* v, void* out_q, void* out_s,
+                                        long long ldq, int B, int H, int G, int Lq,
+                                        int kv_len, long long ksb, long long ksl,
+                                        long long ksh, long long vsb, long long vsl,
+                                        long long vsh, float scale, float eps,
+                                        void* stream) {
+  // G heads a block, C = H / G blocks a cluster (portable: at most 8)
+  if (G <= 0 || H % G || H / G > kQoutMaxCluster || ldq % 8 || kv_len <= 0 || Lq <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int C = H / G;
+  const int smem = kQoutStageBytes + G * kBM * kOStride * 4;
+  cudaError_t err = cudaFuncSetAttribute(cross_qout_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((Lq + kBM - 1) / kBM) * C, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cross_qout_kernel, (const __nv_bfloat16*)q,
+                           (const __nv_bfloat16*)norm_w, (const __nv_bfloat16*)k,
+                           (const __nv_bfloat16*)v, (int8_t*)out_q, (float*)out_s, ldq, Lq,
+                           kv_len, H, G, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale,
+                           eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

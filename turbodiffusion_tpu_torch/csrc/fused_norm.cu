@@ -1,25 +1,39 @@
-// K1 and K2: the row-wise fused norms of the Wan block, for sm_90a.
+// K1, K2 and K12: the row-wise fused norms of the Wan block, for sm_90a.
 //
 // K1 tdx_modulated_layer_norm replaces the TPU kernel
 //    turbodiffusion_tpu/ops/fused_norm.py:_mln_pallas (body _mln_kernel).
+// K12 tdx_modulated_layer_norm_quant replaces the same launch with
+//    quant_out=True: the row goes out as int8 with one fp32 scale, the feed of
+//    the next W8A8 GEMM (fused QKV, cross Q, fc1), so no bf16 row is written
+//    and no row quantiser runs after it.
 // K2 tdx_rmsnorm_rope replaces
 //    turbodiffusion_tpu/ops/fused_norm.py:_rmsrope_pallas (body _rmsrope_kernel).
 //    Its input rows are `ld` elements apart, so the Q or K column group of the
 //    fused (B, L, 3*D) QKV GEMM output is read in place.
 //
 // What bounds them on an H100: memory. Each is one read and one write of a
-// (B*L, D) bf16 activation (about 200 MB per call at the 1.3B 480p shape,
-// D = 1536, L = 32,760) with a few FLOPs per element, far below the ~295
-// FLOP/byte ridge. The design keeps the whole row in registers: one block of
-// 256 threads per row, each thread holding up to 8 element pairs, so x is
-// read once, the statistics are two block reductions over registers, and the
-// output is written once — no fp32 intermediate ever reaches device memory.
-// Pairs are read as bf16x2 (K1) so a warp moves 128 contiguous bytes.
+// (B*L, D) activation (about 200 MB per call at the 1.3B 480p shape,
+// D = 1536, L = 32,760; K12 writes int8, 150 MB in all: 0.045 ms at
+// 3.35 TB/s) with a few FLOPs per element, far below the ~295 FLOP/byte
+// ridge. The design keeps the whole row in registers: one block of 256
+// threads per row, each thread holding up to 8 element pairs, so x is read
+// once, the statistics are block reductions over registers (K12 adds one for
+// the row's absmax), and the output is written once — no fp32 intermediate
+// ever reaches device memory. Pairs are read as bf16x2 (K1, K12) so a warp
+// moves 128 contiguous bytes.
 //
-// Both follow the JAX cast chain exactly (fused_norm.py:43-65, :241-260):
+// All follow the JAX cast chain exactly (fused_norm.py:43-65, :68-93,
+// :241-260):
 //   K1: fp32 LN -> (affine in fp32) -> bf16 -> fp32 -> x*(1+scale)+shift -> bf16
+//   K12: K1's chain up to the modulation, then int8 from the fp32 modulated
+//        value (never rounded to bf16), or from the bf16 affine value when
+//        there is no modulation (norm3): scale = max(amax, 1e-8) * (1/127),
+//        q = round-half-even(y * (1/scale)), the TPU kernel's rule;
 //   K2: fp32 RMS over the full H*Dh row -> bf16 -> bf16 weight multiply ->
 //       fp32 rotate-half RoPE with (L, Dh) cos/sin tables -> bf16.
+// The affine and modulation products and sums are __fmul_rn / __fadd_rn, one
+// rounding each as in the plain version, so nvcc cannot contract them into an
+// FMA that moves an fp32 value K12 quantises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,12 +70,35 @@ __device__ __forceinline__ __nv_bfloat16 f2bf(float v) {
 }
 __device__ __forceinline__ float round_bf16(float v) { return bf2f(f2bf(v)); }
 
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < (kThreads / 32) ? red[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+__device__ __forceinline__ int8_t to_i8(float v) {
+  // |y| * (1/scale) rounds to at most 127; the clamp only guards the rule
+  return (int8_t)max(-127, min(127, __float2int_rn(v)));
+}
+
 // One block per row of x (rows = B*L). Element pairs (2p, 2p+1) with
-// p = threadIdx.x + i*kThreads.
+// p = threadIdx.x + i*kThreads. QUANT: out is int8 (rows, D) and rs one fp32
+// scale per row (K12); else out is bf16 (K1).
+template <bool QUANT>
 __global__ void __launch_bounds__(kThreads)
-mln_kernel(const __nv_bfloat162* __restrict__ x, __nv_bfloat162* __restrict__ out,
-           const float2* __restrict__ mod_scale, const float2* __restrict__ mod_shift,
-           const __nv_bfloat162* __restrict__ weight,
+mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
+           float* __restrict__ rs, const float2* __restrict__ mod_scale,
+           const float2* __restrict__ mod_shift, const __nv_bfloat162* __restrict__ weight,
            const __nv_bfloat162* __restrict__ bias, int L, int D, float eps) {
   __shared__ float red[33];
   const int row = blockIdx.x;
@@ -89,20 +126,21 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, __nv_bfloat162* __restrict__ ou
   }
   const float inv = rsqrtf(block_sum(s2, red) / D + eps);
 
+  float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxPairs; ++i) {
     const int p = threadIdx.x + i * kThreads;
     if (p >= npairs) continue;
-    float y0 = (v[i].x - mean) * inv, y1 = (v[i].y - mean) * inv;
+    float y0 = __fmul_rn(v[i].x - mean, inv), y1 = __fmul_rn(v[i].y - mean, inv);
     if (weight) {
       const float2 w = __bfloat1622float2(weight[p]);
-      y0 *= w.x;
-      y1 *= w.y;
+      y0 = __fmul_rn(y0, w.x);
+      y1 = __fmul_rn(y1, w.y);
     }
     if (bias) {
       const float2 c = __bfloat1622float2(bias[p]);
-      y0 += c.x;
-      y1 += c.y;
+      y0 = __fadd_rn(y0, c.x);
+      y1 = __fadd_rn(y1, c.y);
     }
     // WanLayerNorm casts out to bf16 before the fp32 modulation
     y0 = round_bf16(y0);
@@ -110,11 +148,30 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, __nv_bfloat162* __restrict__ ou
     if (mod_scale) {
       const float2 ms = mod_scale[(size_t)b * npairs + p];
       const float2 mb = mod_shift[(size_t)b * npairs + p];
-      y0 = y0 * (1.f + ms.x) + mb.x;
-      y1 = y1 * (1.f + ms.y) + mb.y;
+      y0 = __fadd_rn(__fmul_rn(y0, 1.f + ms.x), mb.x);
+      y1 = __fadd_rn(__fmul_rn(y1, 1.f + ms.y), mb.y);
     }
-    out[(size_t)row * npairs + p] = __floats2bfloat162_rn(y0, y1);
+    if (QUANT) {
+      v[i] = make_float2(y0, y1);
+      amax = fmaxf(amax, fmaxf(fabsf(y0), fabsf(y1)));
+    } else {
+      reinterpret_cast<__nv_bfloat162*>(out)[(size_t)row * npairs + p] =
+          __floats2bfloat162_rn(y0, y1);
+    }
   }
+  if (!QUANT) return;
+  const float scale = __fmul_rn(fmaxf(block_max(amax, red), 1e-8f), 1.0f / 127.0f);
+  const float qinv = 1.f / scale;
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    if (p >= npairs) continue;
+    char2 q;
+    q.x = to_i8(__fmul_rn(v[i].x, qinv));
+    q.y = to_i8(__fmul_rn(v[i].y, qinv));
+    reinterpret_cast<char2*>(out)[(size_t)row * npairs + p] = q;
+  }
+  if (threadIdx.x == 0) rs[row] = scale;
 }
 
 // One block per row. Pair p = (head h, index i < Dh/2) holds the two
@@ -177,8 +234,20 @@ extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
                                         const void* weight, const void* bias,
                                         int rows, int L, int D, float eps,
                                         void* stream) {
-  mln_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat162*)x, (__nv_bfloat162*)out, (const float2*)mod_scale,
+  mln_kernel<false><<<rows, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat162*)x, out, nullptr, (const float2*)mod_scale,
+      (const float2*)mod_shift, (const __nv_bfloat162*)weight,
+      (const __nv_bfloat162*)bias, L, D, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* out_scale,
+                                              const void* mod_scale, const void* mod_shift,
+                                              const void* weight, const void* bias,
+                                              int rows, int L, int D, float eps,
+                                              void* stream) {
+  mln_kernel<true><<<rows, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat162*)x, out_q, (float*)out_scale, (const float2*)mod_scale,
       (const float2*)mod_shift, (const __nv_bfloat162*)weight,
       (const __nv_bfloat162*)bias, L, D, eps);
   return (int)cudaGetLastError();

@@ -15,6 +15,10 @@
 //    K7 stages without a transpose. With the linear branch on, tdx_linear_kv
 //    adds kv = sum softmax_D(k)^T v_i8 (B, H, 128, 128) and ksum = sum
 //    softmax_D(k) over rows < kv_len.
+// K13 tdx_unfold_quant replaces sla_fused.py:unfold_quant, narrow form (body
+//    _unfold_quant_kernel): K7's bf16 planes (B, H, Lp, Dh) -> the int8 feed of
+//    the W8A8 O projection, (B, L, H*Dh) int8 with one fp32 scale per token
+//    across all heads; only the L live rows are written.
 //
 // What bounds them on an H100: memory. A K5 pass reads the 100.6 MB
 // projection (1.3B, 480p: L = 32,760, H*Dh = 1536) and writes 51-101 MB at
@@ -44,6 +48,13 @@
 // (1/127), q = round-half-even(y * (1/scale)) saturated to +-127. Products
 // and sums that the plain version rounds one by one use __fmul_rn /
 // __fadd_rn so nvcc does not contract them into FMAs.
+//   * K13: memory-bound too (100.6 MB in, 50.4 MB out at the main shape:
+//     0.045 ms). One warp per token: each lane loads 16-byte chunks of the
+//     token's head slices (a warp reads two heads' 256-byte rows at a time),
+//     keeps them in registers for the absmax and the quantise, and the warp
+//     writes the token's 1536-byte int8 row as contiguous 8-byte stores. The
+//     rule is K8's (csrc/quant.cu) on the unfolded bf16 row, so the two agree
+//     bit for bit.
 // A first, simple version: no cp.async or TMA.
 
 #include <cuda_bf16.h>
@@ -456,7 +467,63 @@ linear_kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K13
+// ---------------------------------------------------------------------------
+
+constexpr int kUqWarps = 8;
+constexpr int kUqMaxChunks = 16;  // 16-byte chunks a lane holds: rows <= 4096 wide
+
+// One warp per token row = b * L + l. Chunk c = lane + 32 i of the row is
+// head c / (Dh / 8), channels (c % (Dh / 8)) * 8 + [0, 8).
+__global__ void __launch_bounds__(kUqWarps * 32)
+unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
+                    float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kUqWarps + warp;
+  if (row >= rows) return;
+  const int b = row / L, l = row % L;
+  const int cph = Dh / 8, n = H * cph;
+  uint4 u[kUqMaxChunks];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kUqMaxChunks; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= n) break;
+    const int h = c / cph;
+    u[i] = *reinterpret_cast<const uint4*>(
+        planes + (((size_t)b * H + h) * Lp + l) * Dh + (c - h * cph) * 8);
+    float f[8];
+    unpack8(u[i], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+  amax = warp_max(amax);
+  const float scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+  const float inv = 1.f / scale;
+  int8_t* qr = xq + (size_t)row * n * 8;
+#pragma unroll
+  for (int i = 0; i < kUqMaxChunks; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= n) break;
+    float f[8];
+    unpack8(u[i], f);
+    *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
+  }
+  if (lane == 0) rs[row] = scale;
+}
+
 }  // namespace
+
+extern "C" int tdx_unfold_quant(const void* planes, void* xq, void* rs, int B, int L,
+                                int Lp, int H, int Dh, void* stream) {
+  if (Dh % 8 || H * Dh > kUqMaxChunks * 32 * 8 || L > Lp) return (int)cudaErrorInvalidValue;
+  const int rows = B * L;
+  unfold_quant_kernel<<<(rows + kUqWarps - 1) / kUqWarps, kUqWarps * 32, 0,
+                        (cudaStream_t)stream>>>((const __nv_bfloat16*)planes, (int8_t*)xq,
+                                                (float*)rs, rows, L, Lp, H, Dh);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tdx_head_planes(const void* x, const void* w, const void* cos_full,
                                const void* sin_full, void* out_bf, void* out_i8,

@@ -16,18 +16,22 @@ Ports `turbodiffusion_tpu/models/wan.py`:
 
 Every linear of a block goes through `ops/quant.linear_maybe_quant`: bf16
 `nn.Linear`s, or, after `ops/quant.quantize_wan_blocks` (`--quant_linear`),
-W8A8 `Int8Linear`s. Where JAX feeds an int8 GEMM from a fused producer (the
-quant-out LN, `unfold_quant`, `cross_attention_qout`: ROADMAP Queue B items
-1, 7, 8), the port runs the bf16 producer and the row quantiser K8; the
-FFN's int8 hidden (K10 -> K11) is JAX's. Left out with the paths they
-serve: the FFN half-split and its `L*n_ffn` guard (16 GB-chip memory
-guards), remat (training), sharding constraints and Ulysses (multi-GPU) and
+W8A8 `Int8Linear`s. With W8A8 linears the block takes JAX's int8 feeds
+(`_prequantized` / `_lin_q`, wan.py:68-78, 296-334): the quant-out LN (K12)
+feeds the QKV, cross-Q and fc1 GEMMs, `unfold_quant` (K13) the fused
+path's O projection and `cross_attention_qout` (K14) the cross O
+projection, each an (int8, per-row fp32 scale) pair consumed by
+`int8_linear_prequant`; the FFN's int8 hidden runs K10 -> K11. JAX takes
+these branches on the TPU only; the port takes them on every device (the
+CPU runs the kernels' plain versions). Left out with the paths they serve:
+the FFN half-split and its `L*n_ffn` guard (16 GB-chip memory guards),
+remat (training), sharding constraints and Ulysses (multi-GPU) and
 `_img_emb` (I2V).
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
-K2), attention (K3, K4), the fused SageSLA path (K5-K7) and the W8A8 linears
-(K8-K11) dispatch to the CUDA kernels on the card.
+K2, K12), attention (K3, K4, K14), the fused SageSLA path (K5-K7, K13) and
+the W8A8 linears (K8-K11) dispatch to the CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -46,19 +50,34 @@ from turbodiffusion_tpu_torch.models.layers import (
 from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
 from turbodiffusion_tpu_torch.ops.attention import (
     attention, dense_attention, fused_sla_geometry, sla_attention_fused)
+from turbodiffusion_tpu_torch.ops.flash_attention import cross_attention_qout
 from turbodiffusion_tpu_torch.ops.fused_norm import (
     modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
 from turbodiffusion_tpu_torch.ops.quant import (
     Int8Linear, int8_gemm_blockact, int8_gemm_postscale_qout,
-    linear_maybe_quant, pick_bn_div, quantize_rows_int8)
-from turbodiffusion_tpu_torch.ops.sla_fused import unfold_planes
+    int8_linear_prequant, linear_maybe_quant, pick_bn_div, quantize_rows_int8)
+from turbodiffusion_tpu_torch.ops.sla_fused import unfold_planes, unfold_quant
+
+
+def _prequantized(x) -> bool:
+    """x may be an (int8, row scale) pair from an int8 feed (wan.py:68-70)."""
+    return isinstance(x, tuple)
+
+
+def _lin_q(lin, x, act=None):
+    """A linear over a maybe-prequantised activation (wan.py:73-78)."""
+    if _prequantized(x):
+        return int8_linear_prequant(x[0], x[1], lin, act=act)
+    return linear_maybe_quant(lin, x, act=act)
 
 
 class WanSelfAttention(nn.Module):
     """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O; in the fused
-    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O. With
-    a fused `qkv` linear (q, k and v None), Q, K and V are column groups of
-    its output, read in place by K5 or K2 and the attention kernels."""
+    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O, the
+    unfold being K13's int8 feed when O is an `Int8Linear`. x may be an
+    (int8, scale) pair from K12. With a fused `qkv` linear (q, k and v
+    None), Q, K and V are column groups of its output, read in place by K5
+    or K2 and the attention kernels."""
 
     def __init__(self, cfg: WanConfig, with_proj_l: bool, device=None):
         super().__init__()
@@ -77,21 +96,26 @@ class WanSelfAttention(nn.Module):
 
     def forward(self, x, rope_cs, gate=None, residual=None):
         cfg = self.cfg
-        B, Lx, D = x.shape
+        B, Lx, D = (x[0] if _prequantized(x) else x).shape
         H, Dh = cfg.num_heads, cfg.head_dim
         cosF, sinF = rope_cs
         if self.qkv is not None:
             # one GEMM, one activation quantisation; views, no split copies
-            q_proj, k_proj, v_proj = linear_maybe_quant(self.qkv, x).split(D, -1)
+            q_proj, k_proj, v_proj = _lin_q(self.qkv, x).split(D, -1)
         else:
-            q_proj, k_proj, v_proj = (linear_maybe_quant(lin, x)
+            q_proj, k_proj, v_proj = (_lin_q(lin, x)
                                       for lin in (self.q, self.k, self.v))
         if fused_sla_geometry(cfg.attention, Dh):
             planes = sla_attention_fused(
                 q_proj, k_proj, v_proj, self.norm_q, self.norm_k, rope_cs,
                 self.proj_l, cfg.attention, num_heads=H, eps=cfg.eps)
-            y = unfold_planes(planes, Lx).to(x.dtype)
-            return linear_maybe_quant(self.o, y, gate=gate, residual=residual)
+            if isinstance(self.o, Int8Linear):
+                xq, rs = unfold_quant(planes, Lx)
+                return int8_linear_prequant(xq, rs, self.o, gate=gate,
+                                            residual=residual)
+            return linear_maybe_quant(self.o,
+                                      unfold_planes(planes, Lx).to(cfg.dtype),
+                                      gate=gate, residual=residual)
         q = rmsnorm_rope(q_proj, self.norm_q, cosF, sinF, num_heads=H,
                          eps=cfg.eps)
         k = rmsnorm_rope(k_proj, self.norm_k, cosF, sinF, num_heads=H,
@@ -104,7 +128,10 @@ class WanSelfAttention(nn.Module):
 
 class WanCrossAttention(nn.Module):
     """Text cross-attention: q-RMSNorm (K2, no RoPE) + dense attention (K4)
-    over the text tokens; the K/V side is plain torch, as in JAX."""
+    over the text tokens; with an `Int8Linear` O and heads of 128, K14 does
+    the q-RMSNorm, the attention and the int8 O feed in one launch
+    (wan.py:192-210). x may be an (int8, scale) pair from K12. The K/V side
+    is plain torch around its linears, as in JAX."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
@@ -118,14 +145,18 @@ class WanCrossAttention(nn.Module):
 
     def forward(self, x, context, residual=None):
         cfg = self.cfg
-        B, Lx, D = x.shape
+        B, Lx, D = (x[0] if _prequantized(x) else x).shape
         H, Dh = cfg.num_heads, cfg.head_dim
+        q_proj = _lin_q(self.q, x)
         k = rms_norm(linear_maybe_quant(self.k, context), self.norm_k,
                      eps=cfg.eps)
         k = k.reshape(B, -1, H, Dh)
         v = linear_maybe_quant(self.v, context).reshape(B, -1, H, Dh)
-        q = rmsnorm_rope(linear_maybe_quant(self.q, x), self.norm_q,
-                         num_heads=H, eps=cfg.eps)
+        if isinstance(self.o, Int8Linear) and Dh % 128 == 0:
+            xq, rs = cross_attention_qout(q_proj, k, v, self.norm_q,
+                                          eps=cfg.eps)
+            return int8_linear_prequant(xq, rs, self.o, residual=residual)
+        q = rmsnorm_rope(q_proj, self.norm_q, num_heads=H, eps=cfg.eps)
         o = dense_attention(q, k, v)
         return linear_maybe_quant(self.o, o.reshape(B, Lx, D),
                                   residual=residual)
@@ -134,41 +165,48 @@ class WanCrossAttention(nn.Module):
 class WanFFN(nn.Module):
     """Linear -> GELU(tanh) -> Linear, gated residual (wan.py:243-284).
 
-    W8A8 at batch 1, when ffn_dim has a block divisor (`pick_bn_div`, 896 at
-    1.3B): K8 quantises x, K10 runs fc1 with the GELU and emits the hidden as
-    int8 with per-(row, BN) scales, K11 runs fc2 rescaling per BN-wide K
-    slab with the gate and residual fused; the hidden never exists in bf16.
-    Otherwise each linear quantises its own input."""
+    x may be an (int8, scale) pair from K12. W8A8 at batch 1, when ffn_dim
+    has a block divisor (`pick_bn_div`, 896 at 1.3B): the pair (or K8's of a
+    bf16 x) feeds K10, which runs fc1 with the GELU and emits the hidden as
+    int8 with per-(row, BN) scales, and K11 runs fc2 rescaling per BN-wide
+    K slab with the gate and residual fused; the hidden never exists in
+    bf16. Otherwise fc1 takes the pair (or quantises x itself) and fc2
+    quantises its input."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
         kw = dict(device=device, dtype=cfg.dtype)
+        self.dtype = cfg.dtype
         self.fc1 = nn.Linear(cfg.dim, cfg.ffn_dim, **kw)
         self.fc2 = nn.Linear(cfg.ffn_dim, cfg.dim, **kw)
 
     def forward(self, x, gate=None, residual=None):
         fc1, fc2 = self.fc1, self.fc2
-        B, L, D = x.shape
+        B, L, D = (x[0] if _prequantized(x) else x).shape
         bn = pick_bn_div(fc1.out_features)
         if (isinstance(fc1, Int8Linear) and isinstance(fc2, Int8Linear)
                 and B == 1 and bn):
-            xq, rs = quantize_rows_int8(x.reshape(L, D))
-            hq, hs = int8_gemm_postscale_qout(xq, rs, fc1.w_int8, fc1.scale,
-                                              fc1.bias, act="gelu_tanh")
+            xq, rs = (x if _prequantized(x)
+                      else quantize_rows_int8(x.reshape(L, D)))
+            hq, hs = int8_gemm_postscale_qout(
+                xq.reshape(L, D), rs.reshape(L, 1), fc1.w_int8, fc1.scale,
+                fc1.bias, act="gelu_tanh")
             y = int8_gemm_blockact(
                 hq, hs, fc2.w_int8, fc2.scale, fc2.bias, bk=bn,
                 gate=None if gate is None else gate.reshape(-1),
                 residual=None if residual is None else residual.reshape(L, -1),
-                out_dtype=x.dtype)
+                out_dtype=self.dtype)
             return y.reshape(B, L, -1)
-        return linear_maybe_quant(fc2, linear_maybe_quant(fc1, x,
-                                                          act="gelu_tanh"),
+        return linear_maybe_quant(fc2, _lin_q(fc1, x, act="gelu_tanh"),
                                   gate=gate, residual=residual)
 
 
 class WanAttentionBlock(nn.Module):
     """WanAttentionBlock (wan.py:287-335): norm1 + AdaLN (K1) -> self-attn
-    -> norm3 (K1, affine) -> cross-attn -> norm2 + AdaLN (K1) -> FFN."""
+    -> norm3 (K1, affine) -> cross-attn -> norm2 + AdaLN (K1) -> FFN. Each
+    norm whose consumer GEMM is an `Int8Linear` emits int8 instead (K12):
+    norm1 when the QKV linear is, norm3 when the cross Q linear is too,
+    norm2 when fc1 is (wan.py:296-334)."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
@@ -187,14 +225,19 @@ class WanAttentionBlock(nn.Module):
         eps = self.cfg.eps
         e = self.modulation.float()[None] + e0_B6D          # (B, 6, D) fp32
         e0, e1, e2, e3, e4, e5 = [e[:, i:i + 1] for i in range(6)]
-        x = self.self_attn(modulated_layer_norm(x, e1, e0, eps=eps),
-                           rope_cs, gate=e2, residual=x)
+        sa = self.self_attn
+        qout = isinstance(sa.qkv if sa.qkv is not None else sa.q, Int8Linear)
+        x = sa(modulated_layer_norm(x, e1, e0, eps=eps, quant_out=qout),
+               rope_cs, gate=e2, residual=x)
         n3 = x
         if self.cfg.cross_attn_norm:
-            n3 = modulated_layer_norm(x, weight=self.norm3_weight,
-                                      bias=self.norm3_bias, eps=eps)
+            n3 = modulated_layer_norm(
+                x, weight=self.norm3_weight, bias=self.norm3_bias, eps=eps,
+                quant_out=qout and isinstance(self.cross_attn.q, Int8Linear))
         x = self.cross_attn(n3, context, residual=x)
-        return self.ffn(modulated_layer_norm(x, e4, e3, eps=eps),
+        qout_ffn = qout and isinstance(self.ffn.fc1, Int8Linear)
+        return self.ffn(modulated_layer_norm(x, e4, e3, eps=eps,
+                                             quant_out=qout_ffn),
                         gate=e5, residual=x)
 
 

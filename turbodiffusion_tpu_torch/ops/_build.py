@@ -43,6 +43,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, out, mod_scale, mod_shift, weight, bias, rows, L, D, eps, stream
     "tdx_modulated_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, out int8, out scales, mod_scale, mod_shift, weight, bias, rows, L, D,
+    # eps, stream
+    "tdx_modulated_layer_norm_quant": [_P] * 7 + [_I] * 3 + [_F, _P],
     # x, out, weight, cos_full, sin_full, x row stride, rows, L, H, Dh, eps,
     # stream
     "tdx_rmsnorm_rope": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _F, _P],
@@ -53,6 +56,11 @@ SIGNATURES = {
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
+    # q, norm_w, k, v, out int8, out scales, q row stride, B, H, heads a
+    # block, Lq, kv_len, 6 strides (k, v: batch, token, head), scale, eps,
+    # stream
+    "tdx_cross_attention_qout": [_P] * 6 + [_I64] + [_I] * 5 + [_I64] * 6
+                                + [_F, _F, _P],
     # x, weight, cos, sin, bf16, i8, scale, partial, pooled, counters,
     # x row stride, B, L, Lp, H, pool, nP, eps, stream
     "tdx_head_planes": [_P] * 10 + [_I64] + [_I] * 6 + [_F, _P],
@@ -60,6 +68,8 @@ SIGNATURES = {
     "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
     # k, v, partials, kv, ksum, B, H, Lp, kv_len, n_chunks, stream
     "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_P],
+    # planes, xq, row scales, B, L, Lp, H, Dh, stream
+    "tdx_unfold_quant": [_P] * 3 + [_I] * 5 + [_P],
     # qi, qs, kp, vtp, ks, vch, lut, kvw, ks_bias, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale*log2e, stream
     "tdx_sparse_attention_i8_vt": [_P] * 10 + [_I] * 9 + [_F, _P],

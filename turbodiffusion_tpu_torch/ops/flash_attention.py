@@ -1,4 +1,5 @@
-"""Flash attention forward: kernels K3 (block-sparse) and K4 (dense).
+"""Flash attention forward: kernels K3 (block-sparse), K4 (dense) and K14
+(cross attention with the int8 O feed).
 
 The counterpart of `turbodiffusion_tpu/ops/flash_pallas.py`. Its TPU
 function `_flash_fwd_impl` (:1085-1269) runs three bf16 kernels that this
@@ -8,11 +9,20 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
   * K4 `_flash_cuda` ← the dense branches (`_attn_kernel_onepass`
     :128-144, launch :1121; `_attn_kernel` without int8 QK :64-121, launch
     :1139).
+  * K14 `_cross_qout_cuda` ← `cross_attention_qout`, fused-norm mode
+    (:329-401, launch :384, body `_cross_attn_qout_kernel` :147-193): the
+    raw cross-Q rows, their full-row RMSNorm, every head's attention over
+    the text K/V and the per-token int8 feed of the W8A8 O projection in one
+    launch. The planes mode (LTX-2) and the head-grouped wide launch (:310)
+    are not ported here; K14 itself takes up to 40 heads of 128.
 
-Semantics (both kernels and their plain versions): logits in fp32 times
+Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
 `p.astype(bf16) @ v` accumulated in fp32 and divided by the fp32 row sum;
-output in q's dtype. Layout (B, L, H, Dh) in and out, read through strides.
+output in q's dtype (K14: int8 from the fp32 output, K8's rule, one scale
+per token across all heads). Layout (B, L, H, Dh) in and out, read through
+strides; K14 reads the raw (B, L, H*Dh) rows and (B, Lk, H, Dh) K/V, where
+the TPU kernel folds and pads them to (B*H, Lkp, Dh).
 
 The plain versions scale to the main path: the dense one chunks over query
 rows, the sparse one gathers each Q-block's selected K/V blocks — neither
@@ -29,11 +39,15 @@ from typing import Optional
 
 import torch
 
+from turbodiffusion_tpu_torch.models.layers import rms_norm
 from turbodiffusion_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 # elements of fp32 logits a plain version materialises at once (1 GiB)
 _PLAIN_LOGITS_BUDGET = 1 << 28
+# K14: heads of one thread block times its (64 x 136) fp32 output rows stay
+# within the 227 KB of shared memory; blocks of one cluster at most 8
+_QOUT_MAX_GROUP, _QOUT_MAX_CLUSTER = 5, 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -58,25 +72,48 @@ def _softmax_pv(s, v):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def flash_attention_plain(q, k, v, scale: Optional[float] = None,
-                          kv_len: Optional[int] = None):
-    """Plain version of K4: dense attention, chunked over query rows.
-    q: (B, Lq, H, D); k, v: (B, Lk, H, D); keys >= kv_len are masked."""
+def _flash_plain_f32(q, k, v, scale: float, kv_len: int):
+    """Dense attention in fp32 out, chunked over query rows."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
-    kv_len = Lk if kv_len is None else kv_len
-    scale = D ** -0.5 if scale is None else scale
     kh = k.permute(0, 2, 3, 1).float()              # (B, H, D, Lk)
     vh = v.permute(0, 2, 1, 3)                      # (B, H, Lk, D)
     valid = torch.arange(Lk, device=q.device) < kv_len
     rows = max(1, _PLAIN_LOGITS_BUDGET // (B * H * Lk))
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     for r0 in range(0, Lq, rows):
         qh = q[:, r0:r0 + rows].permute(0, 2, 1, 3).float()
         s = torch.matmul(qh, kh) * scale            # (B, H, r, Lk)
         s = torch.where(valid, s, NEG_INF)
-        out[:, r0:r0 + rows] = _softmax_pv(s, vh).permute(0, 2, 1, 3).to(q.dtype)
+        out[:, r0:r0 + rows] = _softmax_pv(s, vh).permute(0, 2, 1, 3)
     return out
+
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None,
+                          kv_len: Optional[int] = None):
+    """Plain version of K4: dense attention, chunked over query rows.
+    q: (B, Lq, H, D); k, v: (B, Lk, H, D); keys >= kv_len are masked."""
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _flash_plain_f32(q, k, v, scale, kv_len).to(q.dtype)
+
+
+def cross_attention_qout_plain(q, k, v, norm_w, scale: Optional[float] = None,
+                               eps: float = 1e-6):
+    """Plain version of K14 (flash_pallas.py:147-193, fused-norm mode).
+    q: (B, Lq, H*Dh) raw cross-Q projection rows; norm_w (H*Dh,); k, v:
+    (B, Lk, H, Dh). WanRMSNorm of q over the full row, attention over all
+    Lk keys in fp32, then (int8 (B, Lq, H*Dh), fp32 (B, Lq, 1)) from the
+    fp32 output with one scale per token across all heads."""
+    from turbodiffusion_tpu_torch.ops.quant import (  # quant imports this
+        quantize_rows_int8_plain)
+    B, Lq, HD = q.shape
+    H, Dh = k.shape[2], k.shape[3]
+    _require(H * Dh == HD, f"q width {HD} != {H} heads x {Dh}")
+    scale = Dh ** -0.5 if scale is None else scale
+    qn = rms_norm(q, norm_w, eps=eps).reshape(B, Lq, H, Dh)
+    o = _flash_plain_f32(qn, k, v, scale, k.shape[1])
+    return quantize_rows_int8_plain(o.reshape(B, Lq, HD))
 
 
 def sparse_flash_attention_plain(q, k, v, lut, block_q: int, block_k: int,
@@ -190,6 +227,43 @@ def _flash_cuda(q, k, v, scale: float, kv_len: int):
 _flash_cuda.launches = 0
 
 
+def _qout_group(H: int) -> int:
+    """K14's heads per thread block: the least G dividing H with H / G <= 8
+    blocks a cluster."""
+    return next(g for g in range(1, H + 1)
+                if H % g == 0 and H // g <= _QOUT_MAX_CLUSTER)
+
+
+def _cross_qout_cuda(q, k, v, norm_w, scale: float, eps: float):
+    """Launch K14. q (B, Lq, H*128) bf16 with 16-byte aligned rows
+    `_row_stride` apart; norm_w (H*128,); k, v (B, Lk, H, 128) bf16."""
+    from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride  # cycle
+    B, Lq, HD = q.shape
+    Lk, H = k.shape[1], k.shape[2]
+    _require(HD % H == 0, f"q width {HD} is no multiple of {H} heads")
+    ldq = _row_stride(q, "K14")
+    _check_qkv(q.unflatten(-1, (H, HD // H)), k, v, Lk)
+    G = _qout_group(H)
+    _require(HD == H * 128 and G <= _QOUT_MAX_GROUP,
+             f"K14 takes heads of 128, at most {_QOUT_MAX_GROUP} a block in "
+             f"clusters of <= {_QOUT_MAX_CLUSTER}, got {H} heads, width {HD}")
+    w = norm_w.to(torch.bfloat16).contiguous()
+    _require(w.device == q.device and w.numel() == HD,
+             "K14 norm_w must lie on q's device with H*Dh entries")
+    xq = torch.empty((B, Lq, HD), dtype=torch.int8, device=q.device)
+    rs = torch.empty((B, Lq, 1), dtype=torch.float32, device=q.device)
+    rc = _build.load().tdx_cross_attention_qout(
+        q.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(), xq.data_ptr(),
+        rs.data_ptr(), ldq, B, H, G, Lq, Lk, *_strides(k, v), float(scale),
+        float(eps), _build.stream_ptr(q))
+    _build.check(rc, "tdx_cross_attention_qout")
+    _cross_qout_cuda.launches += 1
+    return xq, rs
+
+
+_cross_qout_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -217,3 +291,17 @@ def sparse_flash_attention(q, k, v, lut, block_q: int, block_k: int,
                                             scale, kv_len)
     _require(q.device.type == "cuda", f"no kernel for device {q.device}")
     return _sparse_flash_cuda(q, k, v, lut, block_q, block_k, scale, kv_len)
+
+
+def cross_attention_qout(q, k, v, norm_w, scale: Optional[float] = None,
+                         eps: float = 1e-6):
+    """q-RMSNorm + dense cross attention + the per-token int8 O feed
+    (flash_pallas.cross_attention_qout with norm_w): q (B, Lq, H*Dh) raw
+    projection rows, k, v (B, Lk, H, Dh). Returns (int8 (B, Lq, H*Dh), fp32
+    (B, Lq, 1)) for `int8_linear_prequant`: the plain version on a CPU
+    tensor, kernel K14 on a CUDA tensor."""
+    scale = float(k.shape[-1] ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return cross_attention_qout_plain(q, k, v, norm_w, scale, eps)
+    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
+    return _cross_qout_cuda(q, k, v, norm_w, scale, eps)

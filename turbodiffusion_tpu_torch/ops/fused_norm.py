@@ -1,17 +1,25 @@
-"""Fused norm + modulation and RMSNorm + RoPE: kernels K1 and K2.
+"""Fused norm + modulation and RMSNorm + RoPE: kernels K1, K12 and K2.
 
 Ports `turbodiffusion_tpu/ops/fused_norm.py`:
   * `modulated_layer_norm` / `modulated_layer_norm_ref` (:43-65, :193-224)
     — K1 `_mln_cuda` replaces the TPU kernel `_mln_pallas` (:96-162);
+    with `quant_out=True`, K12 `_mln_quant_cuda` replaces its quant-out
+    launch (:144, body `_mln_kernel` :68-93): int8 rows with one fp32 scale
+    each, the feed of the next W8A8 GEMM;
   * `rmsnorm_rope` / `rmsnorm_rope_ref` (:241-260, :364-381)
     — K2 `_rmsrope_cuda` replaces `_rmsrope_pallas` (:281-325);
   * `rope_cos_sin_full` (:231-238).
 
+K12 and its plain version follow the TPU kernel, not JAX's off-TPU branch
+(:205-213, which rounds the modulated value to bf16 and divides by the
+scale): the int8 comes from the fp32 modulated value, with K8's rule
+(`x * (1/scale)`, `scale = max(amax, 1e-8) * (1/127)`, half to even); the
+affine form without modulation (norm3) quantises the bf16-rounded value.
+
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel (csrc/fused_norm.cu) or raises. Each launcher counts its
 launches in `.launches`. K2 reads its input rows through a row stride, so
-the q and k column groups of the fused QKV output need no copy. The int8
-`quant_out` form of K1 is ROADMAP Queue B item 1.
+the q and k column groups of the fused QKV output need no copy.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 
 from turbodiffusion_tpu_torch.models.layers import rms_norm
 from turbodiffusion_tpu_torch.ops import _build
+from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -40,15 +49,17 @@ def _row_stride(x, what: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: modulated layer norm
+# K1 / K12: modulated layer norm, bf16 or int8 out
 # ---------------------------------------------------------------------------
 
 def modulated_layer_norm_ref(x, mod_scale=None, mod_shift=None, weight=None,
-                             bias=None, eps: float = 1e-6):
-    """Plain version of K1 (fused_norm.py:43-65). x: (B, L, D);
-    mod_scale/mod_shift: (B, 1, D) or (B, D) fp32; weight/bias: (D,). LN in
-    fp32, affine in fp32, cast to x.dtype BEFORE the fp32 modulation, cast
-    back to x.dtype."""
+                             bias=None, eps: float = 1e-6,
+                             quant_out: bool = False):
+    """Plain version of K1 and K12 (fused_norm.py:43-65, :68-93). x:
+    (B, L, D); mod_scale/mod_shift: (B, 1, D) or (B, D) fp32; weight/bias:
+    (D,). LN in fp32, affine in fp32, cast to x.dtype BEFORE the fp32
+    modulation, cast back to x.dtype. quant_out: (int8 (B, L, D), fp32
+    (B, L, 1)) from the fp32 modulated value instead of the last cast."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
@@ -57,22 +68,25 @@ def modulated_layer_norm_ref(x, mod_scale=None, mod_shift=None, weight=None,
         y = y * weight.float()
     if bias is not None:
         y = y + bias.float()
-    y = y.to(x.dtype)
-    if mod_scale is None:
-        return y
-    B, D = x.shape[0], x.shape[-1]
-    ms = mod_scale.reshape(B, 1, D).float()
-    mb = mod_shift.reshape(B, 1, D).float()
-    return (y.float() * (1.0 + ms) + mb).to(x.dtype)
+    y = y.to(x.dtype).float()
+    if mod_scale is not None:
+        B, D = x.shape[0], x.shape[-1]
+        ms = mod_scale.reshape(B, 1, D).float()
+        mb = mod_shift.reshape(B, 1, D).float()
+        y = y * (1.0 + ms) + mb
+    if quant_out:
+        return quantize_rows_int8_plain(y)
+    return y.to(x.dtype)
 
 
-def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
-    """Launch K1. x (B, L, D) bf16 contiguous; mod_* (B, D) fp32; weight/bias
-    (D,) bf16."""
+def _mln_operands(x, mod_scale, mod_shift, weight, bias, what: str):
+    """Check K1 / K12's operands: x (B, L, D) bf16 contiguous; mod_* (B, D)
+    fp32; weight/bias (D,) bf16. Returns the four as the kernel reads them."""
     B, L, D = x.shape
     _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-             "K1 takes a contiguous bf16 x")
-    _require(D % 2 == 0 and D <= 4096, f"K1 takes an even D <= 4096, got {D}")
+             f"{what} takes a contiguous bf16 x")
+    _require(D % 2 == 0 and D <= 4096,
+             f"{what} takes an even D <= 4096, got {D}")
     args = []
     for t, dt, n in ((mod_scale, torch.float32, B * D),
                      (mod_shift, torch.float32, B * D),
@@ -82,16 +96,21 @@ def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
             continue
         t = t.to(dt).contiguous()
         _require(t.device == x.device and t.numel() == n,
-                 "K1 operands must lie on x's device with matching sizes")
+                 f"{what} operands must lie on x's device with matching sizes")
         args.append(t)
     _require((args[0] is None) == (args[1] is None),
-             "K1 takes mod_scale and mod_shift together")
+             f"{what} takes mod_scale and mod_shift together")
+    return [None if a is None else a.data_ptr() for a in args]
+
+
+def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
+    """Launch K1 (bf16 out)."""
+    B, L, D = x.shape
+    args = _mln_operands(x, mod_scale, mod_shift, weight, bias, "K1")
     out = torch.empty_like(x)
-    lib = _build.load()
-    rc = lib.tdx_modulated_layer_norm(
-        x.data_ptr(), out.data_ptr(),
-        *[None if a is None else a.data_ptr() for a in args],
-        B * L, L, D, float(eps), _build.stream_ptr(x))
+    rc = _build.load().tdx_modulated_layer_norm(
+        x.data_ptr(), out.data_ptr(), *args, B * L, L, D, float(eps),
+        _build.stream_ptr(x))
     _build.check(rc, "tdx_modulated_layer_norm")
     _mln_cuda.launches += 1
     return out
@@ -100,18 +119,38 @@ def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
 _mln_cuda.launches = 0
 
 
+def _mln_quant_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
+    """Launch K12: (int8 (B, L, D), fp32 (B, L, 1))."""
+    B, L, D = x.shape
+    args = _mln_operands(x, mod_scale, mod_shift, weight, bias, "K12")
+    q = torch.empty((B, L, D), dtype=torch.int8, device=x.device)
+    s = torch.empty((B, L, 1), dtype=torch.float32, device=x.device)
+    rc = _build.load().tdx_modulated_layer_norm_quant(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), *args, B * L, L, D,
+        float(eps), _build.stream_ptr(x))
+    _build.check(rc, "tdx_modulated_layer_norm_quant")
+    _mln_quant_cuda.launches += 1
+    return q, s
+
+
+_mln_quant_cuda.launches = 0
+
+
 def modulated_layer_norm(x, mod_scale=None, mod_shift=None, weight=None,
-                         bias=None, eps: float = 1e-6):
+                         bias=None, eps: float = 1e-6,
+                         quant_out: bool = False):
     """LN (+affine) (+AdaLN modulate) (fused_norm.py:193-224): the plain
-    version on a CPU tensor, kernel K1 on a CUDA tensor."""
+    version on a CPU tensor, kernel K1 (or K12 with quant_out, returning
+    (int8 (B, L, D), fp32 (B, L, 1))) on a CUDA tensor."""
     if x.device.type == "cpu":
         return modulated_layer_norm_ref(x, mod_scale, mod_shift, weight,
-                                        bias, eps)
+                                        bias, eps, quant_out)
     _require(x.device.type == "cuda", f"no kernel for device {x.device}")
     B, D = x.shape[0], x.shape[-1]
     ms = None if mod_scale is None else mod_scale.reshape(B, D)
     mb = None if mod_shift is None else mod_shift.reshape(B, D)
-    return _mln_cuda(x, ms, mb, weight, bias, eps)
+    launch = _mln_quant_cuda if quant_out else _mln_cuda
+    return launch(x, ms, mb, weight, bias, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,10 @@ Ports the postscale half of `turbodiffusion_tpu/ops/quant.py`:
     :277-317, `_qout_wres` :490);
   * `int8_gemm_blockact` — K11 replaces `int8_gemm_blockact_pallas` (:750,
     `_blockact_gemm_kernel` :577-610, `_blockact_wres` :679);
-  * `int8_linear_prequant`, `int8_linear_postscale`, `linear_maybe_quant`
-    (:763-810, :926-957), `fuse_linear_params`, `quantize_linear_params`
-    and `quantize_wan_blocks` (:960-1012), over `Int8Linear` modules.
+  * `int8_linear_prequant` (the consumer of the int8 feeds K12-K14),
+    `int8_linear_postscale`, `linear_maybe_quant` (:763-810, :926-957),
+    `fuse_linear_params`, `quantize_linear_params` and
+    `quantize_wan_blocks` (:960-1012), over `Int8Linear` modules.
 
 Weights: an `Int8Linear` holds its int8 weight (out, in) — K-contiguous, the
 operand layout of the GEMM kernels — where JAX stores (in, out); the loader
@@ -379,13 +380,19 @@ def int8_linear_prequant(xq, row_scale, lin: Int8Linear,
                          act: Optional[str] = None, gate=None, residual=None,
                          out_dtype=torch.bfloat16):
     """A postscale linear over a quantised activation (xq (..., K) int8,
-    row_scale (..., 1)) (quant.py:763-777): K9 with the gate (N,) and
-    residual (..., N) fused into the epilogue."""
+    row_scale (..., 1)) (quant.py:763-777), the consumer of the int8 feeds
+    (K12, K13, K14): K9 with the residual (..., N) and a batch-1 gate ((N,)
+    or (1, 1, N)) fused into the epilogue. A gate over a batch > 1 is
+    applied after the GEMM as `residual + y * gate` in the output dtype
+    (wan.py:146-149)."""
     shape = xq.shape
     N = lin.out_features
+    if gate is not None and gate.dim() > 1 and gate.shape[0] > 1:
+        y = int8_linear_prequant(xq, row_scale, lin, act, out_dtype=out_dtype)
+        return _finish(y, gate, residual)
     y = int8_gemm_postscale(
         xq.reshape(-1, shape[-1]), row_scale.reshape(-1, 1), lin.w_int8,
-        lin.scale, lin.bias, act, gate,
+        lin.scale, lin.bias, act, None if gate is None else gate.reshape(-1),
         None if residual is None else residual.reshape(-1, N), out_dtype)
     return y.reshape(*shape[:-1], N)
 

@@ -16,6 +16,11 @@ single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
     :351-409): smooth-k subtract + per-block int8 K, the per-block
     transposed V panel, and (linear_kv) the SLA linear branch's kv / ksum
     sums;
+  * `unfold_quant` — K13 `_unfold_quant_cuda` replaces the TPU kernel
+    `unfold_quant`, narrow form (launch :633, body `_unfold_quant_kernel`
+    :551-562): K7's planes to the W8A8 O projection's int8 feed, one fp32
+    scale per token across all heads, K8's rule (so it equals K8 on
+    `unfold_planes`' rows bit for bit);
   * `unfold_planes` (:646-649) — plain torch.
 
 Rows in [L, Lp) of the outputs: the JAX kernels leave them unwritten; here
@@ -26,7 +31,7 @@ linear sums, K7's row max).
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
 `.launches`. The wide (dim > 4096) forms and `subquant_pack_kv` /
-`subquant_planes` / `unfold_quant` wait for ROADMAP Queue B items 7, 11, 16.
+`subquant_planes` wait for ROADMAP Queue B items 11, 15 and 16.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
 from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride
+from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 INT8_MAX = 127.0
 # rows of a K5 thread block: the grain of its pooled partial sums
@@ -318,3 +324,48 @@ def unfold_planes(planes, out_len: int):
     (sla_fused.py:646-649)."""
     B, H, Lp, Dh = planes.shape
     return planes.transpose(1, 2).reshape(B, Lp, H * Dh)[:, :out_len]
+
+
+# ---------------------------------------------------------------------------
+# K13: unfold_quant
+# ---------------------------------------------------------------------------
+
+def unfold_quant_plain(planes, out_len: int):
+    """Plain version of K13 (sla_fused.py:551-562): K8's plain version over
+    the unfolded rows. Returns (int8 (B, out_len, H*Dh), fp32
+    (B, out_len, 1))."""
+    return quantize_rows_int8_plain(unfold_planes(planes, out_len))
+
+
+def _unfold_quant_cuda(planes, out_len: int):
+    """Launch K13. planes (B, H, Lp, Dh) bf16 contiguous, H*Dh <= 4096."""
+    B, H, Lp, Dh = planes.shape
+    _require(planes.dtype == torch.bfloat16 and planes.is_contiguous(),
+             "K13 takes contiguous bf16 planes")
+    _require(Dh % 8 == 0 and H * Dh <= 4096,
+             f"K13 takes H*Dh <= 4096 with Dh a multiple of 8, got {H}x{Dh}")
+    _require(0 < out_len <= Lp, f"out_len {out_len} out of range")
+    xq = torch.empty((B, out_len, H * Dh), dtype=torch.int8,
+                     device=planes.device)
+    rs = torch.empty((B, out_len, 1), dtype=torch.float32,
+                     device=planes.device)
+    rc = _build.load().tdx_unfold_quant(
+        planes.data_ptr(), xq.data_ptr(), rs.data_ptr(), B, out_len, Lp, H,
+        Dh, _build.stream_ptr(planes))
+    _build.check(rc, "tdx_unfold_quant")
+    _unfold_quant_cuda.launches += 1
+    return xq, rs
+
+
+_unfold_quant_cuda.launches = 0
+
+
+def unfold_quant(planes, out_len: int):
+    """(B, H, Lp, Dh) planes -> (int8 (B, out_len, H*Dh), fp32
+    (B, out_len, 1)) per-token quantised for the W8A8 O projection
+    (sla_fused.unfold_quant): the plain version on a CPU tensor, kernel K13
+    on a CUDA tensor."""
+    if planes.device.type == "cpu":
+        return unfold_quant_plain(planes, out_len)
+    _require(planes.device.type == "cuda", f"no kernel for device {planes.device}")
+    return _unfold_quant_cuda(planes, out_len)
