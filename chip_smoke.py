@@ -6,37 +6,44 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), and the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`;
-  2. every kernel of the three paths against its plain PyTorch version on
-     the card, at the main path's shapes (Wan2.1-1.3B, 480p/81f: 32,760
-     tokens, 12 heads x 128, dim 1536, FFN 8960, 512 text tokens; sagesla
-     blocks 512/256, 12 of 128 K blocks): max absolute error under the
-     stated tolerance (int8 outputs within 1 LSB), both times (CUDA events,
-     median of a few runs), the least time the card could take (`bound`:
-     bytes over 3.35 TB/s or operations over the dense peak of their type,
-     whichever is larger) and, where one PyTorch call computes the same
-     function, that call's time (`library`; for the int8 GEMMs
-     `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of the
-     same shape); the port calls neither;
-  3. one full-width 1.3B `WanAttentionBlock` with seeded random non-zero
-     weights at one 480p latent frame (1,560 tokens): `sla`, `sagesla`,
+  2. every kernel of the four paths against its plain PyTorch version on
+     the card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text
+     tokens, heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads,
+     dim 1536, FFN 8960, 12 of 128 K blocks; then the Wan2.1-14B forms: K15,
+     K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12 and K8-K11 at dim
+     5120, FFN 13824): max absolute error under the stated tolerance (int8
+     outputs within 1 LSB), both times (CUDA events, median of a few runs),
+     the least time the card could take (`bound`: bytes over 3.35 TB/s or
+     operations over the dense peak of their type, whichever is larger)
+     and, where one PyTorch call computes the same function, that call's
+     time (`library`; for the int8 GEMMs `torch._int_mm`, the product alone,
+     plus bf16 `torch.matmul` of the same shape); the port calls neither;
+  3. one full-width `WanAttentionBlock` with seeded random non-zero weights
+     at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
      `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
      blocks with a non-zero `proj_l`, so the fused linear epilogue runs; the
-     W8A8 blocks take the int8 feeds K12-K14): the kernels on the card
+     W8A8 blocks take the int8 feeds K12-K14), and at 14B `sagesla` with
+     W8A8 linears (unfused Q / K / V, K15-K17): the kernels on the card
      against the plain versions on the CPU, on the Q blocks whose block-map
      rows agree as sets;
-  4. the slice: `WanPipeline.create(..., attention_type="sagesla",
+  4. the paths: `WanPipeline.create(..., attention_type="sagesla",
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
-     `sla`; per request the text-encode, denoise and VAE-decode times, peak
-     device memory, and the launch count of every kernel, set to 0 just
-     before the request and read just after (W8A8 sagesla: K5 3, K6 1, K7 1,
-     K8 2, K9 6, K10 1, K11 1, K12 3, K13 1, K14 1 per block and no K1-K4;
-     bf16 sagesla: K1 3, K2 1, K4 1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1,
-     K4 1; x 30 blocks x 4 steps), which shows each path went through its
-     kernels; then each
-     path's denoise under torch.profiler: device time by kernel category and
-     the device's idle share.
-Then one JSON line with every kernel's numbers, the nvidia-smi line, and as
+     `sla`, then, with the 1.3B pipelines freed, this slice's path: two
+     requests of `WanPipeline.create("Wan2.1-14B", quant_linear=True)`; per
+     request the text-encode, denoise and VAE-decode times, peak device
+     memory, and the launch count of every kernel, set to 0 just before the
+     request and read just after (1.3B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2,
+     K9 6, K10 1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3,
+     K2 1, K4 1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1, K4 1; x 30 blocks
+     x 4 steps; 14B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11
+     1, K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
+     0), which shows each path went through its kernels; then each path's
+     denoise under torch.profiler: device time by kernel category and the
+     device's idle share.
+Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
+its 14B checks and that path's launches; any other: its 1.3B checks and the
+launches of the first 1.3B path that runs it), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; without a CUDA card it exits non-zero at once.
 """
@@ -46,16 +53,36 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
 
-# main-path geometry: Wan2.1-1.3B at 480p/81f
-B, L, DIM, HEADS, DH, TEXT, FFN = 1, 32760, 1536, 12, 128, 512, 8960
-BNQ = 896                           # K10's scale block, K11's K slab
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One model's widths (config.py presets): `bnq` is K10's scale block
+    and K11's K slab, pick_bn_div(ffn); Q, K and V are one fused linear
+    below dim 4096."""
+    model: str
+    dim: int
+    heads: int
+    ffn: int
+    bnq: int
+
+    @property
+    def fuse_qkv(self) -> bool:
+        return self.dim < 4096
+
+
+G13 = Geometry("Wan2.1-1.3B", 1536, 12, 8960, 896)
+G14 = Geometry("Wan2.1-14B", 5120, 40, 13824, 768)
+# 480p/81f: tokens, head dim, text tokens
+B, L, DH, TEXT = 1, 32760, 128, 512
 ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
 SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
 # K14's scales: its fp32 sums (the row's mean square, QK, P V) run in another
@@ -71,23 +98,29 @@ LP = -(-L // 512) * 512             # the fused path's padded length
 # of its operations over the type's peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
-# launches per request: 30 blocks x 4 steps x per-block calls
-_SAGESLA = {"K3": 0, "K5": 360, "K6": 120, "K7": 120}
-_NO_W8A8 = {"K8": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K13": 0, "K14": 0}
+# launches per request: blocks x 4 steps x per-block calls (1.3B: 30
+# blocks, 14B: 40); a kernel a path does not name runs 0 times
+_SAGESLA = {"K5": 360, "K6": 120, "K7": 120}
 EXPECTED_LAUNCHES = {
     # the int8 feeds: K12 for norm1 / norm3 / norm2, K13 for the O feed, K14
     # for cross attention; K8 only for the text-side K / V linears
-    "sagesla+w8a8": {**_SAGESLA, "K1": 0, "K2": 0, "K4": 0, "K8": 240,
-                     "K9": 720, "K10": 120, "K11": 120, "K12": 360,
-                     "K13": 120, "K14": 120},
-    "sagesla": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120, **_NO_W8A8},
-    "sla": {"K1": 360, "K2": 360, "K3": 120, "K4": 120, "K5": 0, "K6": 0,
-            "K7": 0, **_NO_W8A8},
+    "sagesla+w8a8": {**_SAGESLA, "K8": 240, "K9": 720, "K10": 120,
+                     "K11": 120, "K12": 360, "K13": 120, "K14": 120},
+    "sagesla": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120},
+    "sla": {"K1": 360, "K2": 360, "K3": 120, "K4": 120},
+    # the wide forms: unfused Q / K / V (K9 x 8), K15 on Q, K and the cross
+    # q, K5 reading its RMS, K16 for the O feed, K17 for cross attention
+    "14b-sagesla+w8a8": {"K5": 480, "K6": 160, "K7": 160, "K8": 320,
+                         "K9": 1280, "K10": 160, "K11": 160, "K12": 480,
+                         "K15": 480, "K16": 160, "K17": 160},
 }
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
-# phase-4 paths, this slice's first: (label, attention, quant_linear, requests)
-PATHS = [("sagesla+w8a8", "sagesla", True, 2), ("sagesla", "sagesla", False, 1),
-         ("sla", "sla", False, 1)]
+# phase-4 paths in the order run: (label, geometry, attention, quant_linear,
+# requests); this slice's path, the 14B, runs last, after the 1.3B
+# pipelines are freed, and its counts fill the JSON line first
+PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2),
+         ("sagesla", G13, "sagesla", False, 1), ("sla", G13, "sla", False, 1),
+         ("14b-sagesla+w8a8", G14, "sagesla", True, 2)]
 
 KERNELS = {
     # name: (source, TPU kernel launch it replaces)
@@ -119,6 +152,12 @@ KERNELS = {
             "turbodiffusion_tpu/ops/sla_fused.py:633"),
     "K14": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
             "turbodiffusion_tpu/ops/flash_pallas.py:384"),
+    "K15": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:62"),
+    "K16": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:608"),
+    "K17": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:310"),
 }
 
 
@@ -134,7 +173,9 @@ def _launchers():
             "K7": si8._sparse_i8_vt_cuda, "K8": qt._quantize_rows_cuda,
             "K9": qt._int8_gemm_postscale_cuda, "K10": qt._int8_gemm_qout_cuda,
             "K11": qt._int8_gemm_blockact_cuda, "K12": fn._mln_quant_cuda,
-            "K13": sf._unfold_quant_cuda, "K14": fa._cross_qout_cuda}
+            "K13": sf._unfold_quant_cuda, "K14": fa._cross_qout_cuda,
+            "K15": sf._row_rms_inv_cuda, "K16": sf._unfold_quant_wide_cuda,
+            "K17": fa._cross_qout_wide_cuda}
 
 
 @dataclasses.dataclass
@@ -243,11 +284,49 @@ def phase1():
     t0 = time.perf_counter()
     lib = _build.load()
     wall = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
-          f"(load {wall:.1f} s) | ptxas: {' / '.join(ptxas)}", flush=True)
+          f"(load {wall:.1f} s) | ptxas: {_ptxas_summary(lib.build_log)}",
+          flush=True)
     return smi
+
+
+def _kernel_name(mangled: str) -> str:
+    """`head_planes_kernel<4>` from the mangled name of a kernel in a
+    (per-file anonymous) namespace, its bool / int template arguments
+    decoded."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]          # past the namespace
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), rest[m.end():]
+    name, args = rest[:n], re.match(r"I((?:L[bi]\d+E)+)E", rest[n:])
+    if args:
+        vals = [("true" if v == "1" else "false") if t == "b" else v
+                for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+        name += f"<{', '.join(vals)}>"
+    return name
+
+
+def _ptxas_summary(log: str) -> str:
+    """`kernel<args> N regs[, S B spill]` for each kernel entry of nvcc's
+    -Xptxas -v output (empty when nothing was built in this process)."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = _kernel_name(m.group(1)), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name and int(m.group(1)):
+            spill = f", {m.group(1)} B spill"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs{spill}")
+            name = None
+    return "; ".join(out)
 
 
 def phase2(reps: int = REPS):
@@ -265,6 +344,7 @@ def phase2(reps: int = REPS):
     def randn(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
+    DIM, HEADS = G13.dim, G13.heads
     x = randn(B, L, DIM)
     ms, mb = randn(B, DIM, dtype=torch.float32, std=0.1), \
         randn(B, DIM, dtype=torch.float32, std=0.1)
@@ -388,8 +468,23 @@ def phase2(reps: int = REPS):
               k7(si8._sparse_i8_vt_cuda, **lin),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw, **lin),
               i8_args + tuple(lin.values()), ops7),
-    ] + _w8a8_checks(randn, x) + _int8_feed_checks(randn, x, ms, mb, w, bias,
-                                                  kt, vt, sdpa)
+    ] + _w8a8_checks(randn, x, G13) + _int8_feed_checks(randn, x, ms, mb, w,
+                                                       bias, kt, vt, sdpa)
+    results = _run_checks(checks, reps)
+    _poisoned_tail(i8_args, scale)
+    # a kernel this slice's path (the 14B) runs reports its 14B numbers,
+    # with the worst error of all its checks
+    for name, r in _run_checks(_wide_checks(randn, sdpa), reps).items():
+        worst = max(r["max_abs_err"], results.get(name, r)["max_abs_err"])
+        results[name] = {**r, "max_abs_err": worst}
+    return results
+
+
+def _run_checks(checks, reps: int) -> dict:
+    """Run each check (compare, bound, times) and print its line; returns
+    each kernel's JSON numbers: its first check's, with the worst error of
+    all its checks."""
+    import torch
     results = {}
     for c in checks:
         got = c.kern()
@@ -417,33 +512,34 @@ def phase2(reps: int = REPS):
             "max_abs_err": 0.0, "ms": ms_k, "plain_ms": ms_p,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         r["max_abs_err"] = max(r["max_abs_err"], max_err)
-    _poisoned_tail(i8_args, scale)
     return results
 
 
-def _w8a8_checks(randn, x):
-    """Phase-2 checks of K8-K11 at the W8A8 path's shapes: K8 over the
-    trunk and the text context; K9 as the fused QKV (with bias), the O
-    projection (gate + residual) and a text-side cross-K (M = 512); K10 as
-    fc1 (GELU, int8 out with BN = 896 scales); K11 as fc2 (896-wide K slabs,
-    gate + residual). Weights are N(0, 1/fan_in) quantised as the port
-    quantises them; activations are K8's (plain) output. Beside each GEMM:
-    `torch._int_mm` on the same int8 operands (the product alone) and bf16
-    `torch.matmul` of the same shape (what the bf16 path pays)."""
+def _w8a8_checks(randn, x, geo: Geometry):
+    """Phase-2 checks of K8-K11 at a W8A8 path's shapes: K8 over the trunk
+    and the text context; K9 as the fused QKV (1.3B) or Q (14B, unfused),
+    with bias, the O projection (gate + residual) and a text-side cross-K
+    (M = 512); K10 as fc1 (GELU, int8 out with per-BN scales); K11 as fc2
+    (BN-wide K slabs, gate + residual). Weights are N(0, 1/fan_in) quantised
+    as the port quantises them; activations are K8's (plain) output. Beside
+    each GEMM: `torch._int_mm` on the same int8 operands (the product alone)
+    and bf16 `torch.matmul` of the same shape (what the bf16 path pays)."""
     import torch
     from turbodiffusion_tpu_torch.ops import quant as qt
 
     def weight(n, k):
         return qt.quantize_int8_postscale(randn(n, k, std=k ** -0.5))
 
+    DIM, FFN, BNQ = geo.dim, geo.ffn, geo.bnq
+    n_in = 3 * DIM if geo.fuse_qkv else DIM
     x2 = x.reshape(L, DIM)
     c2 = randn(TEXT, DIM)
     xq, rs = qt.quantize_rows_int8_plain(x2)
     cq, crs = qt.quantize_rows_int8_plain(c2)
-    (wqkv, sqkv), (wo, so), (wk, sk) = weight(3 * DIM, DIM), weight(DIM, DIM), \
+    (wqkv, sqkv), (wo, so), (wk, sk) = weight(n_in, DIM), weight(DIM, DIM), \
         weight(DIM, DIM)
     (w1, s1), (w2, s2) = weight(FFN, DIM), weight(DIM, FFN)
-    bqkv, bk_, b1, b2 = (randn(n, std=0.1) for n in (3 * DIM, DIM, FFN, DIM))
+    bqkv, bk_, b1, b2 = (randn(n, std=0.1) for n in (n_in, DIM, FFN, DIM))
     gate = randn(DIM, dtype=torch.float32, std=0.5)
     hq, hs = qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1, act="gelu_tanh")
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
@@ -464,7 +560,7 @@ def _w8a8_checks(randn, x):
         Check("K8", f"text rows {TEXT}x{DIM}", lambda: qt._quantize_rows_cuda(c2),
               lambda: qt.quantize_rows_int8_plain(c2), (c2,),
               {"fp32": 3 * c2.numel()}, **scale_tol),
-        gemm("K9", f"fused QKV {L}x{3 * DIM}x{DIM} + bias",
+        gemm("K9", f"{'fused QKV' if geo.fuse_qkv else 'Q'} {L}x{n_in}x{DIM} + bias",
              lambda: qt._int8_gemm_postscale_cuda(xq, rs, wqkv, sqkv, bqkv, None,
                                                   None, None),
              lambda: qt.int8_gemm_postscale_plain(xq, rs, wqkv, sqkv, bqkv),
@@ -494,33 +590,44 @@ def _w8a8_checks(randn, x):
     ]
 
 
-def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
-    """Phase-2 checks of K12-K14 at the W8A8 path's shapes: K12 as norm1 /
-    norm2 (modulated) and norm3 (affine); K13 over K7-shaped planes (B, 12,
-    32,768, 128) to the 32,760 live rows; K14 as the cross attention of the
-    trunk's raw Q rows over 512 text keys. No PyTorch call computes these
-    functions: beside K12 `F.layer_norm` and beside K14 SDPA of the cross
-    shape (the attention alone, bf16 out) are timed as yardsticks."""
+def _k12_checks(x, ms, mb, w, bias):
+    """K12 as norm1 / norm2 (modulated) and norm3 (affine) on x's rows;
+    `F.layer_norm` (bf16 out) beside it as a yardstick."""
     import torch
-    from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
-    from turbodiffusion_tpu_torch.ops import sla_fused as sf
-    planes = randn(B, HEADS, LP, DH, std=2.0)
-    qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
-    n_x = x.numel()
+    n_x, D = x.numel(), x.shape[-1]
     return [
-        Check("K12", "mod -> int8 (norm1/norm2)",
+        Check("K12", f"mod -> int8 (norm1/norm2), D {D}",
               lambda: fn._mln_quant_cuda(x, ms, mb, None, None, 1e-6),
               lambda: fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=True),
               (x, ms, mb), {"fp32": 11 * n_x}, **scale_tol,
               yardsticks={"F.layer_norm (bf16 out)":
-                          lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6)}),
-        Check("K12", "affine -> int8 (norm3)",
+                          lambda: torch.nn.functional.layer_norm(x, (D,), eps=1e-6)}),
+        Check("K12", f"affine -> int8 (norm3), D {D}",
               lambda: fn._mln_quant_cuda(x, None, None, w, bias, 1e-6),
               lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6,
                                                   quant_out=True),
               (x, w, bias), {"fp32": 11 * n_x}, **scale_tol),
+    ]
+
+
+def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
+    """Phase-2 checks of K12-K14 at the 1.3B W8A8 path's shapes: K12 as
+    norm1 / norm2 and norm3; K13 over K7-shaped planes (B, 12, 32,768, 128)
+    to the 32,760 live rows; K14 as the cross attention of the trunk's raw Q
+    rows over 512 text keys. No PyTorch call computes these functions:
+    beside K12 `F.layer_norm` and beside K14 SDPA of the cross shape (the
+    attention alone, bf16 out) are timed as yardsticks."""
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    DIM, HEADS = G13.dim, G13.heads
+    planes = randn(B, HEADS, LP, DH, std=2.0)
+    qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
+    scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
+    n_x = x.numel()
+    return _k12_checks(x, ms, mb, w, bias) + [
         Check("K13", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
               lambda: sf._unfold_quant_cuda(planes, L),
               lambda: sf.unfold_quant_plain(planes, L),
@@ -533,6 +640,91 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
               yardsticks={"SDPA of the cross shape (attention only)":
                           sdpa(qn, kt, vt)}),
     ]
+
+
+def _wide_checks(randn, sdpa):
+    """Phase-2 checks of the 14B path's kernel forms (dim 5120, 40 heads,
+    FFN 13824): K15 on a projection's rows; K5's three passes of the fused
+    path at 40 heads, Q and K reading K15's RMS; K6 and K7 at 40 heads on
+    those planes (12 of 128 K blocks); K16 over K7-shaped planes (B, 40,
+    32,768, 128); K17 (q-norm with K15's RMS, cross attention over 512 text
+    keys, int8 O feed); K12 and K8-K11 at the 14B widths. No PyTorch call
+    computes K15-K17: SDPA of the cross shape is timed beside K17."""
+    import torch
+    from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    DIM, HEADS = G14.dim, G14.heads
+    x = randn(B, L, DIM)
+    xk, xv = randn(B, L, DIM), randn(B, L, DIM)
+    ms, mb = randn(B, DIM, dtype=torch.float32, std=0.1), \
+        randn(B, DIM, dtype=torch.float32, std=0.1)
+    w = (1 + randn(DIM, dtype=torch.float32, std=0.1)).bfloat16()
+    bias = randn(DIM, std=0.1)
+    kt, vt = randn(B, TEXT, HEADS, DH), randn(B, TEXT, HEADS, DH)
+    cosF, sinF = fn.rope_cos_sin_full(rope_freqs_3d(21, 30, 52, DH, device=x.device))
+    ri_q, ri_k = sf.row_rms_inv_plain(x, 1e-6), sf.row_rms_inv_plain(xk, 1e-6)
+    hp = dict(num_heads=HEADS, eps=1e-6, pad_to=LP)
+    q_form = dict(weight=w, cos_full=cosF, sin_full=sinF, pool=BQ, quant=True,
+                  bf16_out=False)
+    k_form = dict(weight=w, cos_full=cosF, sin_full=sinF, pool=BK)
+    Qp = sf.head_planes_plain(x, **q_form, **hp, rms_inv=ri_q)
+    Kp = sf.head_planes_plain(xk, **k_form, **hp, rms_inv=ri_k)
+    Vp = sf.head_planes_plain(xv, **hp)
+    lut8, sel, k_mean = sf.block_map_from_pooled(Qp["pooled"], Kp["pooled"],
+                                                 L, BK, TOPK)
+    vi, vcs = si8.quantize_v_per_channel(Vp["bf16"], L)
+    kp, vtp, ksb = sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L)
+    i8_args = (Qp["i8"], Qp["scale"], kp, vtp, ksb, vcs, lut8)
+    pairs7 = _sparse_pairs(lut8, BQ, BK, L, L)
+    planes = randn(B, HEADS, LP, DH, std=2.0)
+    qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
+    scale = DH ** -0.5
+    scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
+    n_x = x.numel()
+    return [
+        Check("K15", f"row RMS inverse {L}x{DIM}",
+              lambda: sf._row_rms_inv_cuda(x, 1e-6, None, 0),
+              lambda: sf.row_rms_inv_plain(x, 1e-6), (x,), {"fp32": 2 * n_x},
+              **scale_tol),
+        Check("K5", f"14B Q (K15's RMS, rope, int8, pool {BQ}), {HEADS} heads",
+              lambda: sf._head_planes_cuda(x, w, cosF, sinF, HEADS, 1e-6, BQ,
+                                           True, False, LP, ri_q),
+              lambda: sf.head_planes_plain(x, **q_form, **hp, rms_inv=ri_q),
+              (x, w, ri_q, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}),
+        Check("K5", f"14B K (K15's RMS, rope, bf16, pool {BK}), {HEADS} heads",
+              lambda: sf._head_planes_cuda(xk, w, cosF, sinF, HEADS, 1e-6, BK,
+                                           False, True, LP, ri_k),
+              lambda: sf.head_planes_plain(xk, **k_form, **hp, rms_inv=ri_k),
+              (xk, w, ri_k, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
+        Check("K5", f"14B V (bf16 fold), {HEADS} heads",
+              lambda: sf._head_planes_cuda(xv, None, None, None, HEADS, 1e-6, 0,
+                                           False, True, LP),
+              lambda: sf.head_planes_plain(xv, **hp), (xv,), {}),
+        Check("K6", f"14B pack K/V {BK}-row blocks, {HEADS} heads",
+              lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, False),
+              lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L),
+              (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x}),
+        Check("K7", f"14B int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}, "
+              f"{HEADS} heads",
+              lambda: si8._sparse_i8_vt_cuda(*i8_args, scale, BQ, BK, L, None, None),
+              lambda: si8.sparse_attention_i8_vt_plain(*i8_args, block_q=BQ,
+                                                       block_k=BK, kv_len=L),
+              i8_args, {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}),
+        Check("K16", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
+              lambda: sf._unfold_quant_wide_cuda(planes, L),
+              lambda: sf.unfold_quant_wide_plain(planes, L),
+              (planes[:, :, :L],), {"fp32": 3 * n_x}, **scale_tol),
+        Check("K17", f"q-norm (K15's RMS) + cross {L}x{TEXT} -> int8, {HEADS} heads",
+              lambda: fa._cross_qout_wide_cuda(x, ri_q, kt, vt, w, scale),
+              lambda: fa.cross_attention_qout_wide_plain(x, ri_q, kt, vt, w, scale),
+              (x, w, ri_q, kt, vt), {"bf16": 4 * B * HEADS * L * TEXT * DH},
+              atol=0.0, rtol=K14_SCALE_RTOL,
+              yardsticks={"SDPA of the cross shape (attention only)":
+                          sdpa(qn, kt, vt)}),
+    ] + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
 
 
 def _poisoned_tail(i8_args, scale):
@@ -555,11 +747,12 @@ def _poisoned_tail(i8_args, scale):
 
 
 def _random_block(cfg, dev, seed: int, proj_l_std: float = 0.0):
-    """A 1.3B WanAttentionBlock with seeded random non-zero weights; proj_l
-    is N(0, proj_l_std^2) (zero, as load_dit finds random weights, at 0)."""
+    """A WanAttentionBlock of cfg's widths with seeded random non-zero
+    weights; proj_l is N(0, proj_l_std^2) (zero, as load_dit finds random
+    weights, at 0)."""
     import torch
     from turbodiffusion_tpu_torch.models.wan import WanAttentionBlock
-    blk = WanAttentionBlock(cfg).to(dev)
+    blk = WanAttentionBlock(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, p in blk.named_parameters():
@@ -575,22 +768,23 @@ def _random_block(cfg, dev, seed: int, proj_l_std: float = 0.0):
     return blk
 
 
-def _qk_proj(sa, h):
+def _qk_proj(sa, h, dim: int):
     """The self-attention q and k projections of h (bf16, or K12's int8
     pair), through the fused qkv linear where the block has one."""
     from turbodiffusion_tpu_torch.models.wan import _lin_q
     if sa.qkv is not None:
-        return _lin_q(sa.qkv, h).split(DIM, -1)[:2]
+        return _lin_q(sa.qkv, h).split(dim, -1)[:2]
     return _lin_q(sa.q, h), _lin_q(sa.k, h)
 
 
-def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
-    """One full-width block, card against CPU. sla: zero proj_l (the sparse
-    branch alone); sagesla: a non-zero proj_l, so K6 sums the linear kv and
-    K7 runs its linear epilogue. quant_linear: the block's linears
-    quantised as load_dit quantises them (W8A8 postscale, fused QKV), so
-    the int8 feeds K12-K14 and the GEMMs K8-K11 run on the card and their
-    plain versions on the CPU."""
+def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
+           geo: Geometry = G13):
+    """One full-width block of `geo`, card against CPU. sla: zero proj_l
+    (the sparse branch alone); sagesla: a non-zero proj_l, so K6 sums the
+    linear kv and K7 runs its linear epilogue. quant_linear: the block's
+    linears quantised as load_dit quantises them (W8A8 postscale, QKV fused
+    below dim 4096), so the int8 feeds (K12-K14; K15-K17 at 14B) and the
+    GEMMs K8-K11 run on the card and their plain versions on the CPU."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops.attention import get_block_map
@@ -598,10 +792,11 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
         modulated_layer_norm, rope_cos_sin_full, rmsnorm_rope)
     from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
     from turbodiffusion_tpu_torch.ops.sla_fused import (
-        block_map_from_pooled, head_planes)
+        block_map_from_pooled, head_planes, row_rms_inv)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
-    cfg = make_wan_cfg("Wan2.1-1.3B", attention, TOPK, quant_linear)
+    cfg = make_wan_cfg(geo.model, attention, TOPK, quant_linear)
+    DIM, HEADS = geo.dim, geo.heads
     fused = attention == "sagesla"
     if not fused:
         cfg = cfg.replace(attention=dataclasses.replace(cfg.attention,
@@ -610,7 +805,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
     dev = torch.device(device)
     blk = _random_block(cfg, dev, seed=1, proj_l_std=0.05 if fused else 0.0).eval()
     if quant_linear:
-        quantize_wan_blocks([blk], mode="postscale", fuse_qkv=True)
+        quantize_wan_blocks([blk], mode="postscale", fuse_qkv=geo.fuse_qkv)
     blk_cpu = copy.deepcopy(blk).cpu()
     g = torch.Generator(device=dev).manual_seed(2)
     T, Hs, Ws = 1, 30, 52
@@ -625,13 +820,17 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
         h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps,
                                  quant_out=quant_linear)
         sa = b.self_attn
-        q_proj, k_proj = _qk_proj(sa, h)
+        q_proj, k_proj = _qk_proj(sa, h, DIM)
         if fused:
+            # as sla_attention_fused: K15's RMS for rows wider than 4096
+            ri = ((lambda p: row_rms_inv(p, cfg.eps)) if DIM > 4096
+                  else (lambda p: None))
             kw = dict(num_heads=HEADS, eps=cfg.eps, pad_to=-(-n // 512) * 512)
             pq = head_planes(q_proj, sa.norm_q, *rope, pool=a.block_q,
-                             quant=True, bf16_out=False, **kw)["pooled"]
-            pk = head_planes(k_proj, sa.norm_k, *rope, pool=a.block_k,
+                             quant=True, bf16_out=False, rms_inv=ri(q_proj),
                              **kw)["pooled"]
+            pk = head_planes(k_proj, sa.norm_k, *rope, pool=a.block_k,
+                             rms_inv=ri(k_proj), **kw)["pooled"]
             return block_map_from_pooled(pq, pk, n, a.block_k, a.sla_topk)[0]
         q = rmsnorm_rope(q_proj, sa.norm_q, *rope, num_heads=HEADS, eps=cfg.eps)
         k = rmsnorm_rope(k_proj, sa.norm_k, *rope, num_heads=HEADS, eps=cfg.eps)
@@ -660,7 +859,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
     max_err, mean_err, _ = _compare(f"phase3 {label} block",
                                     out.cpu()[:, keep], ref[:, keep],
                                     BLOCK_ATOL, BLOCK_RTOL)
-    print(f"phase3 1.3B {label} block L={n}"
+    print(f"phase3 {geo.model} {label} block L={n}"
           f"{' (proj_l != 0, linear epilogue on)' if fused else ''}: LUT rows "
           f"equal as sets {int(same.sum())}/{same.numel()} (Q-blocks left out "
           f"of the comparison: {bad_q}) | max_abs_err {max_err:.5g} "
@@ -669,18 +868,20 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda"):
           flush=True)
 
 
-def phase4(label: str, attention: str, quant_linear: bool, requests: int):
-    """`requests` 480p/81f requests through WanPipeline.create(attention_type=
-    attention, quant_linear=quant_linear), then a traced denoise
-    (`_profile_denoise`); returns the launch counts of the last request."""
+def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
+           requests: int):
+    """`requests` 480p/81f requests through WanPipeline.create(geo.model,
+    attention_type=attention, quant_linear=quant_linear), then a traced
+    denoise (`_profile_denoise`); frees the pipeline and returns the launch
+    counts of the last request."""
     import torch
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
 
     launchers = _launchers()
-    want = EXPECTED_LAUNCHES[label]
+    want = {n: EXPECTED_LAUNCHES[label].get(n, 0) for n in launchers}
     t0 = time.perf_counter()
-    pipe = WanPipeline.create(model="Wan2.1-1.3B", attention_type=attention,
+    pipe = WanPipeline.create(model=geo.model, attention_type=attention,
                               sla_topk=TOPK, quant_linear=quant_linear, seed=0,
                               device="cuda")
     torch.cuda.synchronize()
@@ -717,16 +918,18 @@ def phase4(label: str, attention: str, quant_linear: bool, requests: int):
               f"{tuple(video.shape)} in [{lo:.3f}, {hi:.3f}] | launches "
               f"{counts}", flush=True)
     _profile_denoise(pipe, label)
-    del pipe
+    del pipe, video
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1", ("mln_kernel<false>",)), ("K12", ("mln_kernel<true>",)),
+    ("K1", ("mln_kernel<false",)), ("K12", ("mln_kernel<true",)),
     ("K2", ("rmsrope_kernel",)), ("K13", ("unfold_quant_kernel",)),
-    ("K14", ("cross_qout_kernel",)),
+    ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
+    ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_pack_kvt_kernel",)),
     ("K6 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
@@ -807,12 +1010,15 @@ def main(argv=None) -> int:
         for attention, quant_linear in (("sla", False), ("sagesla", False),
                                         ("sagesla", True), ("sla", True)):
             phase3(attention, quant_linear)
+        phase3("sagesla", True, geo=G14)
     counts = {}
     if 4 in phases:
-        # a kernel's launches come from the first path that runs it: this
-        # slice's main path (W8A8 sagesla), then the earlier ones
-        for label, attention, quant_linear, n in PATHS:
-            for name, c in phase4(label, attention, quant_linear, n).items():
+        # a kernel's launches come from this slice's path (the 14B, run
+        # last) where it runs there, else from the first earlier path that
+        # runs it
+        by_path = [phase4(*path) for path in PATHS]
+        for path_counts in by_path[-1:] + by_path[:-1]:
+            for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

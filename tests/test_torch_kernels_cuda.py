@@ -406,13 +406,15 @@ def test_k13_matches_plain_bitwise(dev, heads):
 def test_k14_matches_plain(dev, heads, Lk):
     """Clusters of 2, 3, 6 and 8 blocks: 1 or 2 heads a block on 128-row
     tiles, 3 or 5 on 64-row tiles; 77 keys mask most of the second 64-key
-    chunk."""
+    chunk. Above 16 heads `cross_attention_qout` takes K17, so K14 is
+    launched directly there."""
     HD = heads * DH
     q = _randn(dev, 1, 1100, HD, seed=101).bfloat16()
     k, v = (_randn(dev, 1, Lk, heads, DH, seed=s).bfloat16() for s in (102, 103))
     w = (1 + _randn(dev, HD, seed=104, std=0.2)).bfloat16()
     before = fa._cross_qout_cuda.launches
-    got_q, got_s = fa.cross_attention_qout(q, k, v, w)
+    got_q, got_s = (fa.cross_attention_qout(q, k, v, w) if heads <= 16 else
+                    fa._cross_qout_cuda(q, k, v, w, DH ** -0.5, 1e-6))
     assert fa._cross_qout_cuda.launches == before + 1
     want_q, want_s = fa.cross_attention_qout_plain(q, k, v, w)
     _int8_close(got_q, want_q)
@@ -431,3 +433,110 @@ def test_int8_feed_wrappers_refuse_what_the_kernels_do_not_take(dev):
     k13 = _randn(dev, 1, 77, 13, DH).bfloat16()
     with pytest.raises(ValueError):
         fa.cross_attention_qout(q13, k13, k13, torch.ones(13 * DH, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# K15-K17 and the wide forms of K1, K5 and K12: the 14B's 5120-wide rows and
+# 40 heads (tolerances as above; K15's fp32 sum of squares rtol 1e-5, another
+# order; K16 bit for bit, the same fp32 division)
+# ---------------------------------------------------------------------------
+
+WIDE_HEADS = 40
+WIDE = WIDE_HEADS * DH                            # 5120
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,col_block", [(None, 0), (WIDE, 1)])
+def test_k15_matches_plain(dev, width, col_block):
+    """A 5120-wide row, and the second 5120-column block of a 15360-wide
+    row read through `width` / `col_block`."""
+    cols = WIDE if width is None else 3 * WIDE
+    x = (2 * _randn(dev, 1, 300, cols, seed=110)).bfloat16()
+    before = sf._row_rms_inv_cuda.launches
+    got = sf.row_rms_inv(x, 1e-6, width=width, col_block=col_block)
+    assert sf._row_rms_inv_cuda.launches == before + 1
+    want = sf.row_rms_inv_plain(x, 1e-6, width=width, col_block=col_block)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["q", "k", "v"])
+def test_k5_external_rms_at_40_heads_matches_plain(dev, form):
+    """K5 at 40 heads, L = 1000 padded to 1024: Q and K with the row's RMS
+    inverse from K15 (three head groups in one launch), V without a norm."""
+    L, Lp = 1000, 1024
+    x = _randn(dev, 1, L, WIDE, seed=111).bfloat16()
+    w = (1 + _randn(dev, WIDE, seed=112, std=0.1)).bfloat16()
+    cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 20, 26, DH, device=dev))
+    ri = sf.row_rms_inv(x, 1e-6) if form != "v" else None
+    kw = {"q": dict(weight=w, cos_full=cos, sin_full=sin, pool=512,
+                    quant=True, bf16_out=False),
+          "k": dict(weight=w, cos_full=cos, sin_full=sin, pool=256),
+          "v": dict()}[form]
+    before = sf._head_planes_cuda.launches
+    got = sf.head_planes(x, num_heads=WIDE_HEADS, eps=1e-6, pad_to=Lp,
+                         rms_inv=ri, **kw)
+    assert sf._head_planes_cuda.launches == before + 1
+    want = sf.head_planes_plain(x, num_heads=WIDE_HEADS, eps=1e-6, pad_to=Lp,
+                                rms_inv=ri, **kw)
+    assert sorted(got) == sorted(want)
+    for key in got:
+        if key == "i8":
+            _int8_close(got[key], want[key])
+        elif key == "bf16":
+            _close(got[key], want[key])
+        else:
+            torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=2e-2)
+    with pytest.raises(ValueError):                 # 40 heads need K15's RMS
+        sf.head_planes(x, w, num_heads=WIDE_HEADS, pad_to=Lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [33, WIDE_HEADS])
+def test_k16_matches_plain_bitwise(dev, heads):
+    """L = 1000 live rows of 1024-row planes at 4224 and 5120 wide: the wide
+    rule y / scale, bit for bit."""
+    planes = (2 * _randn(dev, 1, heads, 1024, DH, seed=113)).bfloat16()
+    before = sf._unfold_quant_wide_cuda.launches
+    q, s = sf.unfold_quant(planes, 1000)
+    assert sf._unfold_quant_wide_cuda.launches == before + 1
+    want_q, want_s = sf.unfold_quant_wide_plain(planes, 1000)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,Lk", [(24, 77), (WIDE_HEADS, 512)])
+def test_k17_matches_plain(dev, heads, Lk):
+    """`cross_attention_qout` above 2048 wide: K15 then K17 (clusters of 8
+    blocks of 3 and of 5 heads)."""
+    HD = heads * DH
+    q = _randn(dev, 1, 1100, HD, seed=114).bfloat16()
+    k, v = (_randn(dev, 1, Lk, heads, DH, seed=s).bfloat16() for s in (115, 116))
+    w = (1 + _randn(dev, HD, seed=117, std=0.2)).bfloat16()
+    before = (fa._cross_qout_wide_cuda.launches, sf._row_rms_inv_cuda.launches)
+    got_q, got_s = fa.cross_attention_qout(q, k, v, w)
+    assert (fa._cross_qout_wide_cuda.launches,
+            sf._row_rms_inv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want_q, want_s = fa.cross_attention_qout_wide_plain(
+        q, sf.row_rms_inv_plain(q, 1e-6), k, v, w)
+    _int8_close(got_q, want_q)
+    torch.testing.assert_close(got_s, want_s, rtol=5e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mod", "affine"])
+def test_k1_k12_at_the_14b_width_match_plain(dev, mode):
+    """K1 (bf16) and K12 (int8) on 5120-wide rows, ten pairs a thread."""
+    x = (2 * _randn(dev, 1, SEQ, WIDE, seed=118)).bfloat16()
+    ms = _randn(dev, 1, WIDE, seed=1, std=0.5) if mode == "mod" else None
+    mb = _randn(dev, 1, WIDE, seed=2, std=0.5) if mode == "mod" else None
+    w = (1 + _randn(dev, WIDE, seed=3, std=0.1)).bfloat16() if mode == "affine" else None
+    b = _randn(dev, WIDE, seed=4, std=0.1).bfloat16() if mode == "affine" else None
+    _close(fn.modulated_layer_norm(x, ms, mb, w, b, eps=1e-6),
+           fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6))
+    before = fn._mln_quant_cuda.launches
+    q, s = fn.modulated_layer_norm(x, ms, mb, w, b, eps=1e-6, quant_out=True)
+    assert fn._mln_quant_cuda.launches == before + 1
+    want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6, quant_out=True)
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)

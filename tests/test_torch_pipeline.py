@@ -256,9 +256,11 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import parse_arguments
+    from turbodiffusion_tpu_torch.models import umt5, vae, wan
     from turbodiffusion_tpu_torch.pipelines import pipeline
     for fn in (pipeline.load_dit, pipeline.TextEncoder,
-               pipeline.WanPipeline.create):
+               pipeline.WanPipeline.create, wan.init_wan_params,
+               vae.init_vae_params, umt5.init_umt5_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert parse_arguments(["--prompt", "x"]).device == "cuda"
 

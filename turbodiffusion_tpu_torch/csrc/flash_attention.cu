@@ -15,6 +15,11 @@
 //    weight product) -> per head softmax(q k^T * scale) V over the text keys
 //    -> the int8 feed of the W8A8 O projection, (B, Lq, H*128) int8 with one
 //    fp32 scale per token across all heads, taken from the fp32 output.
+// K17 tdx_cross_attention_qout_wide replaces flash_pallas.py:
+//    _cross_attention_qout_wide, fused-norm mode (body
+//    _cross_attn_qout_wide_kernel; H*Dh > 2048, the 14B's 40 heads): K14's
+//    function with the row's RMS inverse given (K15, (B, Lq) fp32), as the
+//    TPU kernel takes it from row_rms_inv.
 //
 // What bounds them on an H100: tensor-core math. At the 1.3B 480p shape a K3
 // call is ~6.2e11 FLOPs over ~100 MB of q/k/v, and a K4 or K14 cross call
@@ -45,6 +50,9 @@
 // shared memory (34 KB a head), reduces their row maxima, and reads the
 // others' the same way before it quantises its own columns (the 1.3B's 12
 // heads: clusters of 6 blocks of 2 heads; up to 40 heads fit, 5 a block).
+// K17 is the same kernel with the RMS read from K15's output instead of the
+// cluster's exchange of sums of squares; the absmax exchange stays (at 40
+// heads: clusters of 8 blocks of 5 heads, 204 KB of shared memory a block).
 // It keeps the TPU kernel's exact softmax: a first pass over the keys takes
 // each row's max of the scaled logits, the second computes P = exp(s - max),
 // rounds it to bf16 for P V and divides by the fp32 row sum (no online
@@ -339,12 +347,15 @@ __device__ __forceinline__ void qk_chunk(float (&s)[kBN / 8][4], const uint32_t 
 
 // Grid (n_tiles * C, B), clusters of C blocks along x: block rank r of tile
 // `tile` owns rows [64 tile, 64 tile + 64) and heads [r G, r G + G).
+// EXT_RMS (K17): the rows' RMS inverse is ri (B, Lq); else (K14) the cluster
+// computes it.
+template <bool EXT_RMS>
 __global__ void __launch_bounds__(kThreads)
 cross_qout_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ norm_w,
-                  const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                  int8_t* __restrict__ out_q, float* __restrict__ out_s, long long ldq,
-                  int Lq, int kv_len, int H, int G, Strides ks, Strides vs, float scale,
-                  float eps) {
+                  const float* __restrict__ ri, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, int8_t* __restrict__ out_q,
+                  float* __restrict__ out_s, long long ldq, int Lq, int kv_len, int H, int G,
+                  Strides ks, Strides vs, float scale, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // K chunk / Q staging
   __nv_bfloat16* Vt = Ks + kBN * kKStride;
@@ -365,8 +376,12 @@ cross_qout_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   // 1. the full-row RMS: partial sums of squares over this block's columns,
   // then over the cluster's blocks in rank order. A warp owns 16 rows and
   // issues all their loads before it reduces, so it waits on memory once a
-  // 256-column slab rather than once a row.
-  for (int c0 = 0; c0 < width; c0 += 256) {
+  // 256-column slab rather than once a row. K17 reads it.
+  if (EXT_RMS) {
+    if (threadIdx.x < kBM)
+      s_row[threadIdx.x] = row0 + threadIdx.x < Lq ? ri[(long long)b * Lq + row0 + threadIdx.x] : 0.f;
+  }
+  for (int c0 = 0; !EXT_RMS && c0 < width; c0 += 256) {
     const int c = c0 + lane * 8;
     uint4 u[16];
 #pragma unroll
@@ -388,13 +403,15 @@ cross_qout_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       if (lane == 0) s_part[warp * 16 + i] = c0 ? s_part[warp * 16 + i] + s : s;
     }
   }
-  cluster.sync();
-  if (threadIdx.x < kBM) {
-    float s = 0.f;
-    for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(&s_part[threadIdx.x], r);
-    s_row[threadIdx.x] = rsqrtf(s / HD + eps);
+  if (!EXT_RMS) {
+    cluster.sync();
+    if (threadIdx.x < kBM) {
+      float s = 0.f;
+      for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(&s_part[threadIdx.x], r);
+      s_row[threadIdx.x] = rsqrtf(s / HD + eps);
+    }
   }
-  cluster.sync();  // every block has read s_part before it is reused below
+  cluster.sync();  // s_row visible; every block has read s_part before its reuse
 
   const int n_chunks = (kv_len + kBN - 1) / kBN;
   float amax0 = 0.f, amax1 = 0.f;  // |o| maxima of rows warp*16 + g and + 8
@@ -586,19 +603,19 @@ extern "C" int tdx_flash_attention(
 }
 
 
-extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const void* k,
-                                        const void* v, void* out_q, void* out_s,
-                                        long long ldq, int B, int H, int G, int Lq,
-                                        int kv_len, long long ksb, long long ksl,
-                                        long long ksh, long long vsb, long long vsl,
-                                        long long vsh, float scale, float eps,
-                                        void* stream) {
+namespace {
+
+template <bool EXT_RMS>
+int launch_cross_qout(const void* q, const void* norm_w, const void* ri, const void* k,
+                      const void* v, void* out_q, void* out_s, long long ldq, int B, int H,
+                      int G, int Lq, int kv_len, Strides ks, Strides vs, float scale, float eps,
+                      void* stream) {
   // G heads a block, C = H / G blocks a cluster (portable: at most 8)
   if (G <= 0 || H % G || H / G > kQoutMaxCluster || ldq % 8 || kv_len <= 0 || Lq <= 0)
     return (int)cudaErrorInvalidValue;
   const int C = H / G;
   const int smem = kQoutStageBytes + G * kBM * kOStride * 4;
-  cudaError_t err = cudaFuncSetAttribute(cross_qout_kernel,
+  cudaError_t err = cudaFuncSetAttribute(cross_qout_kernel<EXT_RMS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -613,11 +630,35 @@ extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, cross_qout_kernel, (const __nv_bfloat16*)q,
-                           (const __nv_bfloat16*)norm_w, (const __nv_bfloat16*)k,
-                           (const __nv_bfloat16*)v, (int8_t*)out_q, (float*)out_s, ldq, Lq,
-                           kv_len, H, G, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale,
-                           eps);
+  err = cudaLaunchKernelEx(&cfg, cross_qout_kernel<EXT_RMS>, (const __nv_bfloat16*)q,
+                           (const __nv_bfloat16*)norm_w, (const float*)ri,
+                           (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (int8_t*)out_q,
+                           (float*)out_s, ldq, Lq, kv_len, H, G, ks, vs, scale, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const void* k,
+                                        const void* v, void* out_q, void* out_s,
+                                        long long ldq, int B, int H, int G, int Lq,
+                                        int kv_len, long long ksb, long long ksl,
+                                        long long ksh, long long vsb, long long vsl,
+                                        long long vsh, float scale, float eps,
+                                        void* stream) {
+  return launch_cross_qout<false>(q, norm_w, nullptr, k, v, out_q, out_s, ldq, B, H, G, Lq,
+                                  kv_len, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                                  scale, eps, stream);
+}
+
+extern "C" int tdx_cross_attention_qout_wide(const void* q, const void* norm_w, const void* ri,
+                                             const void* k, const void* v, void* out_q,
+                                             void* out_s, long long ldq, int B, int H, int G,
+                                             int Lq, int kv_len, long long ksb, long long ksl,
+                                             long long ksh, long long vsb, long long vsl,
+                                             long long vsh, float scale, void* stream) {
+  return launch_cross_qout<true>(q, norm_w, ri, k, v, out_q, out_s, ldq, B, H, G, Lq, kv_len,
+                                 Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale, 0.f,
+                                 stream);
 }

@@ -16,11 +16,13 @@
 // D = 1536, L = 32,760; K12 writes int8, 150 MB in all: 0.045 ms at
 // 3.35 TB/s) with a few FLOPs per element, far below the ~295 FLOP/byte
 // ridge. The design keeps the whole row in registers: one block of 256
-// threads per row, each thread holding up to 8 element pairs, so x is read
-// once, the statistics are block reductions over registers (K12 adds one for
-// the row's absmax), and the output is written once — no fp32 intermediate
-// ever reaches device memory. Pairs are read as bf16x2 (K1, K12) so a warp
-// moves 128 contiguous bytes.
+// threads per row, each thread holding up to 8 element pairs (K1 and K12 up
+// to 10, the 14B's 5120-wide rows, as a second instance of the template so
+// the narrow rows keep their registers), so x is read once, the statistics
+// are block reductions over registers (K12 adds one for the row's absmax),
+// and the output is written once — no fp32 intermediate ever reaches device
+// memory. Pairs are read as bf16x2 (K1, K12) so a warp moves 128 contiguous
+// bytes.
 //
 // All follow the JAX cast chain exactly (fused_norm.py:43-65, :68-93,
 // :241-260):
@@ -42,7 +44,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPairs = 8;  // rows of up to 2 * 8 * 256 = 4096 elements
+constexpr int kMaxPairs = 8;   // rows of up to 2 * 8 * 256 = 4096 elements
+constexpr int kWidePairs = 10; // K1 / K12 rows of up to 5120 elements
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
@@ -92,9 +95,9 @@ __device__ __forceinline__ int8_t to_i8(float v) {
 }
 
 // One block per row of x (rows = B*L). Element pairs (2p, 2p+1) with
-// p = threadIdx.x + i*kThreads. QUANT: out is int8 (rows, D) and rs one fp32
-// scale per row (K12); else out is bf16 (K1).
-template <bool QUANT>
+// p = threadIdx.x + i*kThreads, i < PAIRS. QUANT: out is int8 (rows, D) and
+// rs one fp32 scale per row (K12); else out is bf16 (K1).
+template <bool QUANT, int PAIRS>
 __global__ void __launch_bounds__(kThreads)
 mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
            float* __restrict__ rs, const float2* __restrict__ mod_scale,
@@ -106,10 +109,10 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
   const int npairs = D / 2;
   const __nv_bfloat162* xr = x + (size_t)row * npairs;
 
-  float2 v[kMaxPairs];
+  float2 v[PAIRS];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
+  for (int i = 0; i < PAIRS; ++i) {
     const int p = threadIdx.x + i * kThreads;
     v[i] = p < npairs ? __bfloat1622float2(xr[p]) : make_float2(0.f, 0.f);
     s += v[i].x + v[i].y;
@@ -117,7 +120,7 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
   const float mean = block_sum(s, red) / D;
   float s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
+  for (int i = 0; i < PAIRS; ++i) {
     const int p = threadIdx.x + i * kThreads;
     if (p < npairs) {
       const float a = v[i].x - mean, c = v[i].y - mean;
@@ -128,7 +131,7 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
 
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
+  for (int i = 0; i < PAIRS; ++i) {
     const int p = threadIdx.x + i * kThreads;
     if (p >= npairs) continue;
     float y0 = __fmul_rn(v[i].x - mean, inv), y1 = __fmul_rn(v[i].y - mean, inv);
@@ -163,7 +166,7 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
   const float scale = __fmul_rn(fmaxf(block_max(amax, red), 1e-8f), 1.0f / 127.0f);
   const float qinv = 1.f / scale;
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
+  for (int i = 0; i < PAIRS; ++i) {
     const int p = threadIdx.x + i * kThreads;
     if (p >= npairs) continue;
     char2 q;
@@ -229,16 +232,32 @@ rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
 
 }  // namespace
 
+namespace {
+
+// The instance whose registers hold a D-wide row: 8 pairs a thread up to
+// 4096, 10 up to 5120.
+template <bool QUANT>
+int launch_mln(const void* x, void* out, float* rs, const void* mod_scale,
+               const void* mod_shift, const void* weight, const void* bias, int rows, int L,
+               int D, float eps, void* stream) {
+  if (D <= 0 || D % 2 || D > 2 * kThreads * kWidePairs) return (int)cudaErrorInvalidValue;
+  const auto kernel = D <= 2 * kThreads * kMaxPairs ? &mln_kernel<QUANT, kMaxPairs>
+                                                    : &mln_kernel<QUANT, kWidePairs>;
+  kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat162*)x, out, rs, (const float2*)mod_scale, (const float2*)mod_shift,
+      (const __nv_bfloat162*)weight, (const __nv_bfloat162*)bias, L, D, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
                                         const void* mod_scale, const void* mod_shift,
                                         const void* weight, const void* bias,
                                         int rows, int L, int D, float eps,
                                         void* stream) {
-  mln_kernel<false><<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat162*)x, out, nullptr, (const float2*)mod_scale,
-      (const float2*)mod_shift, (const __nv_bfloat162*)weight,
-      (const __nv_bfloat162*)bias, L, D, eps);
-  return (int)cudaGetLastError();
+  return launch_mln<false>(x, out, nullptr, mod_scale, mod_shift, weight, bias, rows, L, D,
+                           eps, stream);
 }
 
 extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* out_scale,
@@ -246,11 +265,8 @@ extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* 
                                               const void* weight, const void* bias,
                                               int rows, int L, int D, float eps,
                                               void* stream) {
-  mln_kernel<true><<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat162*)x, out_q, (float*)out_scale, (const float2*)mod_scale,
-      (const float2*)mod_shift, (const __nv_bfloat162*)weight,
-      (const __nv_bfloat162*)bias, L, D, eps);
-  return (int)cudaGetLastError();
+  return launch_mln<true>(x, out_q, (float*)out_scale, mod_scale, mod_shift, weight, bias,
+                          rows, L, D, eps, stream);
 }
 
 extern "C" int tdx_rmsnorm_rope(const void* x, void* out, const void* weight,

@@ -19,6 +19,13 @@
 //    _unfold_quant_kernel): K7's bf16 planes (B, H, Lp, Dh) -> the int8 feed of
 //    the W8A8 O projection, (B, L, H*Dh) int8 with one fp32 scale per token
 //    across all heads; only the L live rows are written.
+// K15 tdx_row_rms_inv replaces sla_fused.py:row_rms_inv (body _row_rms_kernel):
+//    (B, L, W) bf16 rows `ld` elements apart -> (B, L) fp32
+//    rsqrt(mean(x^2) + eps), the full-row statistic that K5's external-RMS
+//    mode and K17 read for the wide models (14B: dim 5120).
+// K16 tdx_unfold_quant_wide replaces sla_fused.py:unfold_quant, wide form
+//    (H*Dh > 4096; bodies _unfold_scale_kernel and _unfold_write_kernel, two
+//    TPU passes): K13's function with the wide kernel's rule, one launch.
 //
 // What bounds them on an H100: memory. A K5 pass reads the 100.6 MB
 // projection (1.3B, 480p: L = 32,760, H*Dh = 1536) and writes 51-101 MB at
@@ -55,6 +62,18 @@
 //     writes the token's 1536-byte int8 row as contiguous 8-byte stores. The
 //     rule is K8's (csrc/quant.cu) on the unfolded bf16 row, so the two agree
 //     bit for bit.
+//   * K5 at more than 16 heads (14B: 40) walks the heads in groups of 16
+//     inside one launch: a lane holds one group's chunks at a time, so the
+//     registers stay those of the 16-head form. That needs the row's RMS
+//     before the first group: it comes from K15 (`ri`, the TPU kernel's
+//     external-RMS mode), or there is no norm (the V pass). With the RMS in
+//     the row (ri null) the whole row is one group (H <= 16).
+//   * K15: 335.5 MB in at 14B (0.100 ms). One warp per row, 16-byte loads,
+//     an fp32 sum of squares per lane, one warp reduction.
+//   * K16: K13's warp-a-token kernel with 20 chunks a lane (a 5120-wide row
+//     in registers) and the wide TPU kernel's rule, q = round-half-even(y /
+//     scale) with IEEE division (__fdiv_rn), where K13 keeps the narrow
+//     kernel's y * (1/scale). Each is bit-equal to its own TPU kernel.
 // A first, simple version: no cp.async or TMA.
 
 #include <cuda_bf16.h>
@@ -68,7 +87,8 @@ constexpr int kHpRows = 64;                    // rows of one K5 block
 constexpr int kHpWarps = 8;
 constexpr int kHpThreads = kHpWarps * 32;
 constexpr int kRowsPerWarp = kHpRows / kHpWarps;
-constexpr int kMaxHeads = 16;
+constexpr int kMaxHeads = 40;                  // the pooled sums' shared row
+constexpr int kGroupHeads = 16;               // heads a lane's registers hold
 constexpr float kInvInt8 = 1.0f / 127.0f;
 constexpr int kSqThreads = 256;
 constexpr int kMaxBlockK = 256;
@@ -131,12 +151,14 @@ __device__ __forceinline__ float warp_max(float v) {
 // K5
 // ---------------------------------------------------------------------------
 
-// NI = pair-chunks per lane = ceil(H * 8 / 32). Pair-chunk p = lane + 32 i
-// is head p / 8, channels (p % 8) * 8 + [0, 8) and the same + 64.
+// NI = pair-chunks per lane = ceil(G * 8 / 32) for a group of G heads.
+// Pair-chunk p = lane + 32 i of the group starting at head h0 is head
+// h0 + p / 8, channels (p % 8) * 8 + [0, 8) and the same + 64. ri: the row's
+// RMS inverse (B, L) from K15, or null (RMS over the row, or no norm).
 template <int NI>
 __global__ void __launch_bounds__(kHpThreads)
 head_planes_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
+                   const __nv_bfloat16* __restrict__ w, const float* __restrict__ ri,
                    const float* __restrict__ cosF, const float* __restrict__ sinF,
                    __nv_bfloat16* __restrict__ out_bf, int8_t* __restrict__ out_i8,
                    float* __restrict__ out_scale, float* __restrict__ partial,
@@ -146,131 +168,140 @@ head_planes_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ int s_last;
   const int b = blockIdx.y, tile = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int HD = H * kDh, npc = H * 8;
+  const int HD = H * kDh, G = NI * 4;
   const __nv_bfloat16* xb = x + (size_t)b * L * ld;
+  // below 16 heads the launch picked NI with G >= H: one group, which the
+  // compiler sees (a bound it cannot see costs the 12-head form a spill)
+  const int h_end = G < kGroupHeads ? G : H;
 
-  float pacc[NI][16];
+  for (int h0 = 0; h0 < h_end; h0 += G) {
+    const int npc = min(G, H - h0) * 8;
+    float pacc[NI][16];
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) pacc[i][e] = 0.f;
+      for (int e = 0; e < 16; ++e) pacc[i][e] = 0.f;
 
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = tile * kHpRows + warp * kRowsPerWarp + r;
-    const bool valid = row < L;
-    float y[NI][16];
-    float ss = 0.f;
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = tile * kHpRows + warp * kRowsPerWarp + r;
+      const bool valid = row < L;
+      float y[NI][16];
+      float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int p = lane + 32 * i;
-      if (valid && p < npc) {
-        const __nv_bfloat16* src = xb + (size_t)row * ld + (p >> 3) * kDh + (p & 7) * 8;
-        unpack8(*reinterpret_cast<const uint4*>(src), y[i]);
-        unpack8(*reinterpret_cast<const uint4*>(src + 64), y[i] + 8);
-      } else {
+      for (int i = 0; i < NI; ++i) {
+        const int p = lane + 32 * i;
+        if (valid && p < npc) {
+          const __nv_bfloat16* src = xb + (size_t)row * ld + (h0 + (p >> 3)) * kDh + (p & 7) * 8;
+          unpack8(*reinterpret_cast<const uint4*>(src), y[i]);
+          unpack8(*reinterpret_cast<const uint4*>(src + 64), y[i] + 8);
+        } else {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) y[i][e] = 0.f;
+          for (int e = 0; e < 16; ++e) y[i][e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 16; ++e) ss += y[i][e] * y[i][e];
       }
+      if (valid) {
+        if (w != nullptr) {
+          const float rms = ri != nullptr ? ri[(size_t)b * L + row]
+                                          : 1.f / sqrtf(warp_sum(ss) / HD + eps);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) ss += y[i][e] * y[i][e];
-    }
-    if (valid) {
-      if (w != nullptr) {
-        const float rms = 1.f / sqrtf(warp_sum(ss) / HD + eps);
+          for (int i = 0; i < NI; ++i) {
+            const int p = lane + 32 * i;
+            if (p >= npc) continue;
+            const __nv_bfloat16* wp = w + (h0 + (p >> 3)) * kDh + (p & 7) * 8;
+            float wv[16];
+            unpack8(*reinterpret_cast<const uint4*>(wp), wv);
+            unpack8(*reinterpret_cast<const uint4*>(wp + 64), wv + 8);
+            // cast to bf16 BEFORE the bf16 weight product, as WanRMSNorm does
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int p = lane + 32 * i;
-          if (p >= npc) continue;
-          const __nv_bfloat16* wp = w + (p >> 3) * kDh + (p & 7) * 8;
-          float wv[16];
-          unpack8(*reinterpret_cast<const uint4*>(wp), wv);
-          unpack8(*reinterpret_cast<const uint4*>(wp + 64), wv + 8);
-          // cast to bf16 BEFORE the bf16 weight product, as WanRMSNorm does
+            for (int e = 0; e < 16; ++e)
+              y[i][e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(y[i][e], rms)), wv[e]));
+          }
+        }
+        if (cosF != nullptr) {
 #pragma unroll
-          for (int e = 0; e < 16; ++e)
-            y[i][e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(y[i][e], rms)), wv[e]));
+          for (int i = 0; i < NI; ++i) {
+            const int p = lane + 32 * i;
+            if (p >= npc) continue;
+            const int c0 = (p & 7) * 8;
+            const float* cr = cosF + (size_t)row * kDh;
+            const float* sr = sinF + (size_t)row * kDh;
+            float cl[8], ch[8], sl[8], sh[8];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              *reinterpret_cast<float4*>(cl + 4 * q) = *reinterpret_cast<const float4*>(cr + c0 + 4 * q);
+              *reinterpret_cast<float4*>(ch + 4 * q) = *reinterpret_cast<const float4*>(cr + 64 + c0 + 4 * q);
+              *reinterpret_cast<float4*>(sl + 4 * q) = *reinterpret_cast<const float4*>(sr + c0 + 4 * q);
+              *reinterpret_cast<float4*>(sh + 4 * q) = *reinterpret_cast<const float4*>(sr + 64 + c0 + 4 * q);
+            }
+            // out[j] = y[j] cos[j] + y[(j + 64) % 128] sin[j]
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const float a = y[i][e], c = y[i][8 + e];
+              y[i][e] = __fadd_rn(__fmul_rn(a, cl[e]), __fmul_rn(c, sl[e]));
+              y[i][8 + e] = __fadd_rn(__fmul_rn(c, ch[e]), __fmul_rn(a, sh[e]));
+            }
+          }
+        }
+        if (pool) {
+#pragma unroll
+          for (int i = 0; i < NI; ++i)
+#pragma unroll
+            for (int e = 0; e < 16; ++e) pacc[i][e] += y[i][e];
         }
       }
-      if (cosF != nullptr) {
+      // rows in [L, Lp) are the planes of a zero row
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int p = lane + 32 * i;
+        float inv = 0.f, scale = 0.f;
+        if (out_i8 != nullptr) {
+          float amax = 0.f;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(y[i][e]));
+#pragma unroll
+          for (int o = 1; o < 8; o <<= 1)
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+          scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+          inv = 1.f / scale;
+        }
+        if (p >= npc) continue;
+        const int h = h0 + (p >> 3), c0 = (p & 7) * 8;
+        const size_t off = (((size_t)b * H + h) * Lp + row) * kDh + c0;
+        if (out_bf != nullptr) {
+          *reinterpret_cast<uint4*>(out_bf + off) = pack8(y[i]);
+          *reinterpret_cast<uint4*>(out_bf + off + 64) = pack8(y[i] + 8);
+        }
+        if (out_i8 != nullptr) {
+          *reinterpret_cast<uint2*>(out_i8 + off) = quant8(y[i], inv);
+          *reinterpret_cast<uint2*>(out_i8 + off + 64) = quant8(y[i] + 8, inv);
+          if ((p & 7) == 0) out_scale[((size_t)b * H + h) * Lp + row] = scale;
+        }
+      }
+    }
+
+    if (!pool) continue;
+    // this block's pooled sums of the group, warp by warp in order
+    for (int wv = 0; wv < kHpWarps; ++wv) {
+      if (warp == wv) {
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
           const int p = lane + 32 * i;
           if (p >= npc) continue;
-          const int c0 = (p & 7) * 8;
-          const float* cr = cosF + (size_t)row * kDh;
-          const float* sr = sinF + (size_t)row * kDh;
-          float cl[8], ch[8], sl[8], sh[8];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            *reinterpret_cast<float4*>(cl + 4 * q) = *reinterpret_cast<const float4*>(cr + c0 + 4 * q);
-            *reinterpret_cast<float4*>(ch + 4 * q) = *reinterpret_cast<const float4*>(cr + 64 + c0 + 4 * q);
-            *reinterpret_cast<float4*>(sl + 4 * q) = *reinterpret_cast<const float4*>(sr + c0 + 4 * q);
-            *reinterpret_cast<float4*>(sh + 4 * q) = *reinterpret_cast<const float4*>(sr + 64 + c0 + 4 * q);
-          }
-          // out[j] = y[j] cos[j] + y[(j + 64) % 128] sin[j]
+          const int base = (h0 + (p >> 3)) * kDh + (p & 7) * 8;
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            const float a = y[i][e], c = y[i][8 + e];
-            y[i][e] = __fadd_rn(__fmul_rn(a, cl[e]), __fmul_rn(c, sl[e]));
-            y[i][8 + e] = __fadd_rn(__fmul_rn(c, ch[e]), __fmul_rn(a, sh[e]));
+            red[base + e] = (wv ? red[base + e] : 0.f) + pacc[i][e];
+            red[base + 64 + e] = (wv ? red[base + 64 + e] : 0.f) + pacc[i][8 + e];
           }
         }
       }
-      if (pool) {
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-#pragma unroll
-          for (int e = 0; e < 16; ++e) pacc[i][e] += y[i][e];
-      }
-    }
-    // rows in [L, Lp) are the planes of a zero row
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int p = lane + 32 * i;
-      float inv = 0.f, scale = 0.f;
-      if (out_i8 != nullptr) {
-        float amax = 0.f;
-#pragma unroll
-        for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(y[i][e]));
-#pragma unroll
-        for (int o = 1; o < 8; o <<= 1)
-          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-        scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
-        inv = 1.f / scale;
-      }
-      if (p >= npc) continue;
-      const int h = p >> 3, c0 = (p & 7) * 8;
-      const size_t off = (((size_t)b * H + h) * Lp + row) * kDh + c0;
-      if (out_bf != nullptr) {
-        *reinterpret_cast<uint4*>(out_bf + off) = pack8(y[i]);
-        *reinterpret_cast<uint4*>(out_bf + off + 64) = pack8(y[i] + 8);
-      }
-      if (out_i8 != nullptr) {
-        *reinterpret_cast<uint2*>(out_i8 + off) = quant8(y[i], inv);
-        *reinterpret_cast<uint2*>(out_i8 + off + 64) = quant8(y[i] + 8, inv);
-        if ((p & 7) == 0) out_scale[((size_t)b * H + h) * Lp + row] = scale;
-      }
+      __syncthreads();
     }
   }
 
   if (!pool) return;
-  // this block's pooled sums, warp by warp in order
-  for (int wv = 0; wv < kHpWarps; ++wv) {
-    if (warp == wv) {
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int p = lane + 32 * i;
-        if (p >= npc) continue;
-        const int base = (p >> 3) * kDh + (p & 7) * 8;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          red[base + e] = (wv ? red[base + e] : 0.f) + pacc[i][e];
-          red[base + 64 + e] = (wv ? red[base + 64 + e] : 0.f) + pacc[i][8 + e];
-        }
-      }
-    }
-    __syncthreads();
-  }
   const int n_tiles = Lp / kHpRows;
   float* part = partial + ((size_t)b * n_tiles + tile) * HD;
   for (int c = threadIdx.x; c < HD; c += kHpThreads) part[c] = red[c];
@@ -472,22 +503,43 @@ linear_kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
 // ---------------------------------------------------------------------------
 
 constexpr int kUqWarps = 8;
-constexpr int kUqMaxChunks = 16;  // 16-byte chunks a lane holds: rows <= 4096 wide
+constexpr int kUqChunks = 16;      // 16-byte chunks a lane holds: K13, rows <= 4096 wide
+constexpr int kUqWideChunks = 20;  // K16, rows <= 5120 wide
+
+// 8 values -> 8 int8 as the wide TPU kernel rounds them: round-half-even(y /
+// scale) with an IEEE division, saturated to +-127.
+__device__ __forceinline__ uint2 quant8_div(const float* f, float scale) {
+  uint32_t w[2];
+#pragma unroll
+  for (int hw = 0; hw < 2; ++hw) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int q = __float2int_rn(__fdiv_rn(f[4 * hw + i], scale));
+      q = max(-127, min(127, q));
+      acc |= (uint32_t)(q & 0xff) << (8 * i);
+    }
+    w[hw] = acc;
+  }
+  return make_uint2(w[0], w[1]);
+}
 
 // One warp per token row = b * L + l. Chunk c = lane + 32 i of the row is
-// head c / (Dh / 8), channels (c % (Dh / 8)) * 8 + [0, 8).
-__global__ void __launch_bounds__(kUqWarps * 32)
-unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
-                    float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
+// head c / (Dh / 8), channels (c % (Dh / 8)) * 8 + [0, 8). DIVIDE: K16's rule
+// y / scale, else K13's y * (1 / scale).
+template <int NC, bool DIVIDE>
+__device__ __forceinline__ void unfold_quant_row(const __nv_bfloat16* __restrict__ planes,
+                                                 int8_t* __restrict__ xq, float* __restrict__ rs,
+                                                 int rows, int L, int Lp, int H, int Dh) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kUqWarps + warp;
   if (row >= rows) return;
   const int b = row / L, l = row % L;
   const int cph = Dh / 8, n = H * cph;
-  uint4 u[kUqMaxChunks];
+  uint4 u[NC];
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < kUqMaxChunks; ++i) {
+  for (int i = 0; i < NC; ++i) {
     const int c = lane + 32 * i;
     if (c >= n) break;
     const int h = c / cph;
@@ -503,21 +555,59 @@ unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict
   const float inv = 1.f / scale;
   int8_t* qr = xq + (size_t)row * n * 8;
 #pragma unroll
-  for (int i = 0; i < kUqMaxChunks; ++i) {
+  for (int i = 0; i < NC; ++i) {
     const int c = lane + 32 * i;
     if (c >= n) break;
     float f[8];
     unpack8(u[i], f);
-    *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
+    *reinterpret_cast<uint2*>(qr + c * 8) = DIVIDE ? quant8_div(f, scale) : quant8(f, inv);
   }
   if (lane == 0) rs[row] = scale;
+}
+
+__global__ void __launch_bounds__(kUqWarps * 32)
+unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
+                    float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
+  unfold_quant_row<kUqChunks, false>(planes, xq, rs, rows, L, Lp, H, Dh);
+}
+
+__global__ void __launch_bounds__(kUqWarps * 32)
+unfold_quant_wide_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
+                         float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
+  unfold_quant_row<kUqWideChunks, true>(planes, xq, rs, rows, L, Lp, H, Dh);
+}
+
+// ---------------------------------------------------------------------------
+// K15
+// ---------------------------------------------------------------------------
+
+constexpr int kRrWarps = 8;
+
+// One warp per row of W bf16 values, rows `ld` elements apart.
+__global__ void __launch_bounds__(kRrWarps * 32)
+row_rms_inv_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
+                   long long ld, int rows, int W, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRrWarps + warp;
+  if (row >= rows) return;
+  const __nv_bfloat16* xr = x + (size_t)row * ld;
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = lane * 8; c < W; c += 256) {
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += f[e] * f[e];
+  }
+  s = warp_sum(s);
+  if (lane == 0) out[row] = 1.f / sqrtf(s / W + eps);
 }
 
 }  // namespace
 
 extern "C" int tdx_unfold_quant(const void* planes, void* xq, void* rs, int B, int L,
                                 int Lp, int H, int Dh, void* stream) {
-  if (Dh % 8 || H * Dh > kUqMaxChunks * 32 * 8 || L > Lp) return (int)cudaErrorInvalidValue;
+  if (Dh % 8 || H * Dh > kUqChunks * 32 * 8 || L > Lp) return (int)cudaErrorInvalidValue;
   const int rows = B * L;
   unfold_quant_kernel<<<(rows + kUqWarps - 1) / kUqWarps, kUqWarps * 32, 0,
                         (cudaStream_t)stream>>>((const __nv_bfloat16*)planes, (int8_t*)xq,
@@ -525,19 +615,42 @@ extern "C" int tdx_unfold_quant(const void* planes, void* xq, void* rs, int B, i
   return (int)cudaGetLastError();
 }
 
-extern "C" int tdx_head_planes(const void* x, const void* w, const void* cos_full,
-                               const void* sin_full, void* out_bf, void* out_i8,
-                               void* out_scale, void* partial, void* pooled,
+extern "C" int tdx_unfold_quant_wide(const void* planes, void* xq, void* rs, int B, int L,
+                                     int Lp, int H, int Dh, void* stream) {
+  if (Dh % 8 || H * Dh > kUqWideChunks * 32 * 8 || L > Lp) return (int)cudaErrorInvalidValue;
+  const int rows = B * L;
+  unfold_quant_wide_kernel<<<(rows + kUqWarps - 1) / kUqWarps, kUqWarps * 32, 0,
+                             (cudaStream_t)stream>>>((const __nv_bfloat16*)planes,
+                                                     (int8_t*)xq, (float*)rs, rows, L, Lp,
+                                                     H, Dh);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_row_rms_inv(const void* x, void* out, long long ld, int rows, int W,
+                               float eps, void* stream) {
+  if (W <= 0 || W % 8 || ld % 8 || ld < W) return (int)cudaErrorInvalidValue;
+  row_rms_inv_kernel<<<(rows + kRrWarps - 1) / kRrWarps, kRrWarps * 32, 0,
+                       (cudaStream_t)stream>>>((const __nv_bfloat16*)x, (float*)out, ld,
+                                               rows, W, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_head_planes(const void* x, const void* w, const void* ri,
+                               const void* cos_full, const void* sin_full, void* out_bf,
+                               void* out_i8, void* out_scale, void* partial, void* pooled,
                                void* counters, long long ld, int B, int L, int Lp, int H,
                                int pool, int nP, float eps, void* stream) {
+  // more than one head group needs the row's RMS from K15 (or no norm)
+  if (H < 1 || H > kMaxHeads || (H > kGroupHeads && w != nullptr && ri == nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(Lp / kHpRows, B);
-  const int ni = (H * 8 + 31) / 32;
-#define TDX_HP_LAUNCH(NI)                                                            \
-  head_planes_kernel<NI><<<grid, kHpThreads, 0, (cudaStream_t)stream>>>(             \
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)cos_full,      \
-      (const float*)sin_full, (__nv_bfloat16*)out_bf, (int8_t*)out_i8,               \
-      (float*)out_scale, (float*)partial, (float*)pooled, (int*)counters, ld, L, Lp, \
-      H, pool, nP, eps)
+  const int ni = (min(H, kGroupHeads) * 8 + 31) / 32;
+#define TDX_HP_LAUNCH(NI)                                                             \
+  head_planes_kernel<NI><<<grid, kHpThreads, 0, (cudaStream_t)stream>>>(              \
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)ri,             \
+      (const float*)cos_full, (const float*)sin_full, (__nv_bfloat16*)out_bf,         \
+      (int8_t*)out_i8, (float*)out_scale, (float*)partial, (float*)pooled,            \
+      (int*)counters, ld, L, Lp, H, pool, nP, eps)
   switch (ni) {
     case 1: TDX_HP_LAUNCH(1); break;
     case 2: TDX_HP_LAUNCH(2); break;

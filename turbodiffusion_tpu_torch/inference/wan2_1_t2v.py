@@ -9,6 +9,8 @@ Usage:
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
       --prompt "..." [--attention_type sagesla|sla|original] [--quant_linear]
       [--num_steps 4]
+  python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
+      --model Wan2.1-14B --quant_linear --prompt "..."   # W8A8 sagesla only
 """
 
 from __future__ import annotations
@@ -88,8 +90,11 @@ def main(argv=None):
                          "is not ported yet)")
 
     from turbodiffusion_tpu_torch.config import GenerationConfig
-    from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
+    from turbodiffusion_tpu_torch.pipelines.pipeline import (
+        WanPipeline, check_ported)
     from turbodiffusion_tpu_torch.utils.video_io import save_video
+    check_ported(args.model, args.attention_type, args.quant_linear,
+                 args.device)
 
     pipe = WanPipeline.create(
         model=args.model, vae_path=args.vae_path,

@@ -164,7 +164,7 @@ def umt5_embed_padded(encoder: UMT5Encoder, ids, mask):
 
 
 @torch.no_grad()
-def init_umt5_params(cfg: UMT5Config, seed: int = 7, device="cpu") -> UMT5Encoder:
+def init_umt5_params(cfg: UMT5Config, seed: int = 7, device="cuda") -> UMT5Encoder:
     """Random init per the reference's schemes (umt5.py:131-172), drawn from
     a torch.Generator seeded with `seed` on `device`."""
     device = torch.device(device)

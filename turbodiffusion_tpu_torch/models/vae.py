@@ -247,7 +247,7 @@ def vae_decode(vae: WanVAE, z, chunk: int = 1):
 
 @torch.no_grad()
 def init_vae_params(cfg: VAEConfig = VAEConfig(), seed: int = 3,
-                    device="cpu") -> WanVAE:
+                    device="cuda") -> WanVAE:
     """Random decoder params with the reference topology (vae.py:494-592):
     conv weights N(0, 1/fan_in), zero biases, unit gammas, drawn from a
     torch.Generator seeded with `seed` on `device`."""

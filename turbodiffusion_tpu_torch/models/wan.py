@@ -18,10 +18,11 @@ Every linear of a block goes through `ops/quant.linear_maybe_quant`: bf16
 `nn.Linear`s, or, after `ops/quant.quantize_wan_blocks` (`--quant_linear`),
 W8A8 `Int8Linear`s. With W8A8 linears the block takes JAX's int8 feeds
 (`_prequantized` / `_lin_q`, wan.py:68-78, 296-334): the quant-out LN (K12)
-feeds the QKV, cross-Q and fc1 GEMMs, `unfold_quant` (K13) the fused
-path's O projection and `cross_attention_qout` (K14) the cross O
-projection, each an (int8, per-row fp32 scale) pair consumed by
-`int8_linear_prequant`; the FFN's int8 hidden runs K10 -> K11. JAX takes
+feeds the QKV, cross-Q and fc1 GEMMs, `unfold_quant` (K13; K16 above
+H*Dh 4096) the fused path's O projection and `cross_attention_qout` (K14;
+K15 + K17 above H*Dh 2048) the cross O projection, each an (int8, per-row
+fp32 scale) pair consumed by `int8_linear_prequant`; the FFN's int8 hidden
+runs K10 -> K11 (BN 896 at 1.3B, 768 at 14B). JAX takes
 these branches on the TPU only; the port takes them on every device (the
 CPU runs the kernels' plain versions). Left out with the paths they serve:
 the FFN half-split and its `L*n_ffn` guard (16 GB-chip memory guards),
@@ -30,8 +31,10 @@ remat (training), sharding constraints and Ulysses (multi-GPU) and
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
-K2, K12), attention (K3, K4, K14), the fused SageSLA path (K5-K7, K13) and
-the W8A8 linears (K8-K11) dispatch to the CUDA kernels on the card.
+K2, K12), attention (K3, K4, K14, K17), the fused SageSLA path (K5-K7,
+K13, K15, K16) and the W8A8 linears (K8-K11) dispatch to the CUDA kernels
+on the card. Wide models (Wan2.1-14B: dim 5120) keep Q, K and V as three
+linears (`quantize_wan_blocks(fuse_qkv=False)`, as JAX fuses below 4096).
 """
 
 from __future__ import annotations
@@ -73,8 +76,9 @@ def _lin_q(lin, x, act=None):
 
 class WanSelfAttention(nn.Module):
     """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O; in the fused
-    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7) + unfold + O, the
-    unfold being K13's int8 feed when O is an `Int8Linear`. x may be an
+    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7; K15 first on Q and
+    K above H*Dh 4096) + unfold + O, the unfold being K13's int8 feed (K16's
+    above H*Dh 4096) when O is an `Int8Linear`. x may be an
     (int8, scale) pair from K12. With a fused `qkv` linear (q, k and v
     None), Q, K and V are column groups of its output, read in place by K5
     or K2 and the attention kernels."""
@@ -130,7 +134,8 @@ class WanCrossAttention(nn.Module):
     """Text cross-attention: q-RMSNorm (K2, no RoPE) + dense attention (K4)
     over the text tokens; with an `Int8Linear` O and heads of 128, K14 does
     the q-RMSNorm, the attention and the int8 O feed in one launch
-    (wan.py:192-210). x may be an (int8, scale) pair from K12. The K/V side
+    (wan.py:192-210), K15 + K17 above H*Dh 2048 (the 14B's 40 heads). x may
+    be an (int8, scale) pair from K12. The K/V side
     is plain torch around its linears, as in JAX."""
 
     def __init__(self, cfg: WanConfig, device=None):
@@ -351,7 +356,7 @@ def _init_linear(lin: nn.Linear, g, std: Optional[float] = None,
 
 
 @torch.no_grad()
-def init_wan_params(cfg: WanConfig, seed: int = 0, device="cpu") -> WanModel:
+def init_wan_params(cfg: WanConfig, seed: int = 0, device="cuda") -> WanModel:
     """A WanModel with the reference's random init (trunc-normal attention
     weights std 1/sqrt(dim), xavier FFN, zero head, zero proj_l), drawn from
     a torch.Generator seeded with `seed` on `device`."""

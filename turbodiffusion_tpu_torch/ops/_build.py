@@ -61,15 +61,22 @@ SIGNATURES = {
     # stream
     "tdx_cross_attention_qout": [_P] * 6 + [_I64] + [_I] * 5 + [_I64] * 6
                                 + [_F, _F, _P],
-    # x, weight, cos, sin, bf16, i8, scale, partial, pooled, counters,
-    # x row stride, B, L, Lp, H, pool, nP, eps, stream
-    "tdx_head_planes": [_P] * 10 + [_I64] + [_I] * 6 + [_F, _P],
+    # q, norm_w, row rms inverse, k, v, out int8, out scales, q row stride,
+    # B, H, heads a block, Lq, kv_len, 6 strides, scale, stream
+    "tdx_cross_attention_qout_wide": [_P] * 7 + [_I64] + [_I] * 5
+                                     + [_I64] * 6 + [_F, _P],
+    # x, weight, row rms inverse, cos, sin, bf16, i8, scale, partial, pooled,
+    # counters, x row stride, B, L, Lp, H, pool, nP, eps, stream
+    "tdx_head_planes": [_P] * 11 + [_I64] + [_I] * 6 + [_F, _P],
+    # x, out, x row stride, rows, W, eps, stream
+    "tdx_row_rms_inv": [_P, _P, _I64, _I, _I, _F, _P],
     # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream
     "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
     # k, v, partials, kv, ksum, B, H, Lp, kv_len, n_chunks, stream
     "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_P],
     # planes, xq, row scales, B, L, Lp, H, Dh, stream
     "tdx_unfold_quant": [_P] * 3 + [_I] * 5 + [_P],
+    "tdx_unfold_quant_wide": [_P] * 3 + [_I] * 5 + [_P],
     # qi, qs, kp, vtp, ks, vch, lut, kvw, ks_bias, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale*log2e, stream
     "tdx_sparse_attention_i8_vt": [_P] * 10 + [_I] * 9 + [_F, _P],

@@ -10,7 +10,8 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
                                           linear compensation branch
   * linear_attention(q, k, v)           — plain torch
   * sla_attention_fused(q_proj, ...)    — SageSLA from the raw projections:
-                                          kernels K5, K6, K7
+                                          kernels K5, K6, K7 (and K15 above
+                                          H*Dh 4096)
 
 The linear branch with a non-zero `proj_l` runs plain torch on the CPU only
 on the `sla` path; its kernel (`linear_attention_pallas.
@@ -31,9 +32,13 @@ from turbodiffusion_tpu_torch.config import AttentionConfig
 from turbodiffusion_tpu_torch.ops.flash_attention import (
     flash_attention, sparse_flash_attention)
 from turbodiffusion_tpu_torch.ops.sla_fused import (
-    block_map_from_pooled, head_planes, subquant_pack_kvt)
+    block_map_from_pooled, head_planes, row_rms_inv, subquant_pack_kvt)
 from turbodiffusion_tpu_torch.ops.sparse_i8_attention import (
     quantize_v_per_channel, sparse_attention_i8_vt)
+
+
+# widest projection row K5 reduces itself; wider ones take K15's statistic
+_WIDE_HD = 4096
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -137,12 +142,17 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
                         cfg: AttentionConfig, *, num_heads: int,
                         eps: float = 1e-6):
     """Fused SageSLA from the raw (B, L, H*Dh) projections
-    (attention.py:336-504, single device, one head group, the VT kernel):
-    RMSNorm-QK, RoPE, the head fold, block pooling and every int8
-    quantisation run in K5 passes; the block map and the per-channel V
-    quantisation in plain torch; K6 packs K and V (and sums the linear
-    branch's kv); K7 attends. Returns (B, H, Lp, Dh) bf16 planes, Lp = L
-    rounded up to 512; feed `unfold_planes` to the O projection.
+    (attention.py:336-504, single device, the VT kernel): RMSNorm-QK, RoPE,
+    the head fold, block pooling and every int8 quantisation run in K5
+    passes; the block map and the per-channel V quantisation in plain
+    torch; K6 packs K and V (and sums the linear branch's kv); K7 attends.
+    Returns (B, H, Lp, Dh) bf16 planes, Lp = L rounded up to 512; feed
+    `unfold_planes` (or `unfold_quant`) to the O projection.
+
+    Wide models (H*Dh > 4096, the 14B's 5120; attention.py:362-396): the
+    full-row RMS inverse of Q and K comes from `row_rms_inv` (K15) and K5
+    reads it (its external-RMS mode), walking the heads in groups inside
+    one launch a plane, where the TPU tiles head groups over launches.
 
     Q is pooled at block_q directly, where the TPU pools at 256 and merges
     pairs weighted by count (attention.py:413-440): the same block means.
@@ -160,9 +170,12 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
     cosF, sinF = rope_cs
     lin = cfg.linear_branch and proj_l is not None
     kw = dict(num_heads=H, eps=eps, pad_to=Lp)
+    wide = HD > _WIDE_HD
     Q = head_planes(q_proj, norm_q_w, cosF, sinF, pool=cfg.block_q,
-                    quant=True, bf16_out=False, **kw)
-    K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k, **kw)
+                    quant=True, bf16_out=False,
+                    rms_inv=row_rms_inv(q_proj, eps) if wide else None, **kw)
+    K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k,
+                    rms_inv=row_rms_inv(k_proj, eps) if wide else None, **kw)
     V = head_planes(v_proj, **kw)
     lut, _, k_mean = block_map_from_pooled(Q["pooled"], K["pooled"], L,
                                            cfg.block_k, cfg.sla_topk)

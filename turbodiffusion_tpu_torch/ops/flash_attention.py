@@ -1,5 +1,5 @@
-"""Flash attention forward: kernels K3 (block-sparse), K4 (dense) and K14
-(cross attention with the int8 O feed).
+"""Flash attention forward: kernels K3 (block-sparse), K4 (dense), K14 and
+K17 (cross attention with the int8 O feed, narrow and wide).
 
 The counterpart of `turbodiffusion_tpu/ops/flash_pallas.py`. Its TPU
 function `_flash_fwd_impl` (:1085-1269) runs three bf16 kernels that this
@@ -13,8 +13,13 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
     (:329-401, launch :384, body `_cross_attn_qout_kernel` :147-193): the
     raw cross-Q rows, their full-row RMSNorm, every head's attention over
     the text K/V and the per-token int8 feed of the W8A8 O projection in one
-    launch. The planes mode (LTX-2) and the head-grouped wide launch (:310)
-    are not ported here; K14 itself takes up to 40 heads of 128.
+    launch;
+  * K17 `_cross_qout_wide_cuda` ← `_cross_attention_qout_wide`, fused-norm
+    mode (launch :310, body `_cross_attn_qout_wide_kernel` :196-255), which
+    `cross_attention_qout` takes above H*Dh 2048 (:353, the 14B's 5120):
+    K14's function with the row's RMS inverse from `sla_fused.row_rms_inv`
+    (K15), as the TPU kernel takes it. The planes mode (LTX-2) is not
+    ported.
 
 Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
@@ -45,9 +50,11 @@ from turbodiffusion_tpu_torch.ops import _build
 NEG_INF = -1e30
 # elements of fp32 logits a plain version materialises at once (1 GiB)
 _PLAIN_LOGITS_BUDGET = 1 << 28
-# K14: heads of one thread block times its (64 x 136) fp32 output rows stay
-# within the 227 KB of shared memory; blocks of one cluster at most 8
+# K14 / K17: heads of one thread block times its (64 x 136) fp32 output rows
+# stay within the 227 KB of shared memory; blocks of one cluster at most 8
 _QOUT_MAX_GROUP, _QOUT_MAX_CLUSTER = 5, 8
+# widest q row of the narrow cross_attention_qout; K17 above it
+_QOUT_NARROW_MAX = 2048
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -113,6 +120,22 @@ def cross_attention_qout_plain(q, k, v, norm_w, scale: Optional[float] = None,
     scale = Dh ** -0.5 if scale is None else scale
     qn = rms_norm(q, norm_w, eps=eps).reshape(B, Lq, H, Dh)
     o = _flash_plain_f32(qn, k, v, scale, k.shape[1])
+    return quantize_rows_int8_plain(o.reshape(B, Lq, HD))
+
+
+def cross_attention_qout_wide_plain(q, rms_inv, k, v, norm_w,
+                                    scale: Optional[float] = None):
+    """Plain version of K17 (flash_pallas.py:196-255, fused-norm mode): K14's
+    with the row's RMS inverse given, rms_inv (B, Lq, 1) fp32: the normed q
+    is bf16(q * rms_inv) * norm_w in bf16."""
+    from turbodiffusion_tpu_torch.ops.quant import (  # quant imports this
+        quantize_rows_int8_plain)
+    B, Lq, HD = q.shape
+    H, Dh = k.shape[2], k.shape[3]
+    _require(H * Dh == HD, f"q width {HD} != {H} heads x {Dh}")
+    scale = Dh ** -0.5 if scale is None else scale
+    qn = (q.float() * rms_inv.float()).to(q.dtype) * norm_w.to(q.dtype)
+    o = _flash_plain_f32(qn.reshape(B, Lq, H, Dh), k, v, scale, k.shape[1])
     return quantize_rows_int8_plain(o.reshape(B, Lq, HD))
 
 
@@ -228,40 +251,72 @@ _flash_cuda.launches = 0
 
 
 def _qout_group(H: int) -> int:
-    """K14's heads per thread block: the least G dividing H with H / G <= 8
-    blocks a cluster."""
+    """K14's and K17's heads per thread block: the least G dividing H with
+    H / G <= 8 blocks a cluster."""
     return next(g for g in range(1, H + 1)
                 if H % g == 0 and H // g <= _QOUT_MAX_CLUSTER)
+
+
+def _qout_operands(name: str, q, k, v, norm_w):
+    """Check K14 / K17's operands; returns (row stride of q, heads a block,
+    the bf16 norm weight)."""
+    from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride  # cycle
+    B, Lq, HD = q.shape
+    Lk, H = k.shape[1], k.shape[2]
+    _require(HD % H == 0, f"q width {HD} is no multiple of {H} heads")
+    ldq = _row_stride(q, name)
+    _check_qkv(q.unflatten(-1, (H, HD // H)), k, v, Lk)
+    G = _qout_group(H)
+    _require(HD == H * 128 and G <= _QOUT_MAX_GROUP,
+             f"{name} takes heads of 128, at most {_QOUT_MAX_GROUP} a block in "
+             f"clusters of <= {_QOUT_MAX_CLUSTER}, got {H} heads, width {HD}")
+    w = norm_w.to(torch.bfloat16).contiguous()
+    _require(w.device == q.device and w.numel() == HD,
+             f"{name} norm_w must lie on q's device with H*Dh entries")
+    return ldq, G, w
+
+
+def _qout_outputs(q):
+    B, Lq, HD = q.shape
+    return (torch.empty((B, Lq, HD), dtype=torch.int8, device=q.device),
+            torch.empty((B, Lq, 1), dtype=torch.float32, device=q.device))
 
 
 def _cross_qout_cuda(q, k, v, norm_w, scale: float, eps: float):
     """Launch K14. q (B, Lq, H*128) bf16 with 16-byte aligned rows
     `_row_stride` apart; norm_w (H*128,); k, v (B, Lk, H, 128) bf16."""
-    from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride  # cycle
-    B, Lq, HD = q.shape
-    Lk, H = k.shape[1], k.shape[2]
-    _require(HD % H == 0, f"q width {HD} is no multiple of {H} heads")
-    ldq = _row_stride(q, "K14")
-    _check_qkv(q.unflatten(-1, (H, HD // H)), k, v, Lk)
-    G = _qout_group(H)
-    _require(HD == H * 128 and G <= _QOUT_MAX_GROUP,
-             f"K14 takes heads of 128, at most {_QOUT_MAX_GROUP} a block in "
-             f"clusters of <= {_QOUT_MAX_CLUSTER}, got {H} heads, width {HD}")
-    w = norm_w.to(torch.bfloat16).contiguous()
-    _require(w.device == q.device and w.numel() == HD,
-             "K14 norm_w must lie on q's device with H*Dh entries")
-    xq = torch.empty((B, Lq, HD), dtype=torch.int8, device=q.device)
-    rs = torch.empty((B, Lq, 1), dtype=torch.float32, device=q.device)
+    ldq, G, w = _qout_operands("K14", q, k, v, norm_w)
+    B, Lq, _ = q.shape
+    xq, rs = _qout_outputs(q)
     rc = _build.load().tdx_cross_attention_qout(
         q.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(), xq.data_ptr(),
-        rs.data_ptr(), ldq, B, H, G, Lq, Lk, *_strides(k, v), float(scale),
-        float(eps), _build.stream_ptr(q))
+        rs.data_ptr(), ldq, B, k.shape[2], G, Lq, k.shape[1], *_strides(k, v),
+        float(scale), float(eps), _build.stream_ptr(q))
     _build.check(rc, "tdx_cross_attention_qout")
     _cross_qout_cuda.launches += 1
     return xq, rs
 
 
 _cross_qout_cuda.launches = 0
+
+
+def _cross_qout_wide_cuda(q, rms_inv, k, v, norm_w, scale: float):
+    """Launch K17: K14's operands plus rms_inv (B, Lq, 1) fp32, K15's."""
+    ldq, G, w = _qout_operands("K17", q, k, v, norm_w)
+    B, Lq, _ = q.shape
+    ri = rms_inv.reshape(B, Lq).float().contiguous()
+    _require(ri.device == q.device, "K17 rms_inv must lie on q's device")
+    xq, rs = _qout_outputs(q)
+    rc = _build.load().tdx_cross_attention_qout_wide(
+        q.data_ptr(), w.data_ptr(), ri.data_ptr(), k.data_ptr(), v.data_ptr(),
+        xq.data_ptr(), rs.data_ptr(), ldq, B, k.shape[2], G, Lq, k.shape[1],
+        *_strides(k, v), float(scale), _build.stream_ptr(q))
+    _build.check(rc, "tdx_cross_attention_qout_wide")
+    _cross_qout_wide_cuda.launches += 1
+    return xq, rs
+
+
+_cross_qout_wide_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +353,19 @@ def cross_attention_qout(q, k, v, norm_w, scale: Optional[float] = None,
     """q-RMSNorm + dense cross attention + the per-token int8 O feed
     (flash_pallas.cross_attention_qout with norm_w): q (B, Lq, H*Dh) raw
     projection rows, k, v (B, Lk, H, Dh). Returns (int8 (B, Lq, H*Dh), fp32
-    (B, Lq, 1)) for `int8_linear_prequant`: the plain version on a CPU
-    tensor, kernel K14 on a CUDA tensor."""
+    (B, Lq, 1)) for `int8_linear_prequant`. Up to H*Dh 2048 the narrow form
+    (K14); above it, as the JAX function splits them, the row's RMS inverse
+    (`row_rms_inv`, K15) then the wide form (K17). The plain versions on a
+    CPU tensor, the kernels on a CUDA tensor."""
+    from turbodiffusion_tpu_torch.ops.sla_fused import row_rms_inv  # cycle
     scale = float(k.shape[-1] ** -0.5) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return cross_attention_qout_plain(q, k, v, norm_w, scale, eps)
-    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    return _cross_qout_cuda(q, k, v, norm_w, scale, eps)
+    cpu = q.device.type == "cpu"
+    _require(cpu or q.device.type == "cuda", f"no kernel for device {q.device}")
+    if q.shape[-1] <= _QOUT_NARROW_MAX:
+        if cpu:
+            return cross_attention_qout_plain(q, k, v, norm_w, scale, eps)
+        return _cross_qout_cuda(q, k, v, norm_w, scale, eps)
+    ri = row_rms_inv(q, eps)
+    if cpu:
+        return cross_attention_qout_wide_plain(q, ri, k, v, norm_w, scale)
+    return _cross_qout_wide_cuda(q, ri, k, v, norm_w, scale)

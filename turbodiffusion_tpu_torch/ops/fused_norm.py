@@ -5,7 +5,8 @@ Ports `turbodiffusion_tpu/ops/fused_norm.py`:
     — K1 `_mln_cuda` replaces the TPU kernel `_mln_pallas` (:96-162);
     with `quant_out=True`, K12 `_mln_quant_cuda` replaces its quant-out
     launch (:144, body `_mln_kernel` :68-93): int8 rows with one fp32 scale
-    each, the feed of the next W8A8 GEMM;
+    each, the feed of the next W8A8 GEMM; both take rows up to 5120 wide
+    (the 14B's dim);
   * `rmsnorm_rope` / `rmsnorm_rope_ref` (:241-260, :364-381)
     — K2 `_rmsrope_cuda` replaces `_rmsrope_pallas` (:281-325);
   * `rope_cos_sin_full` (:231-238).
@@ -29,6 +30,10 @@ import torch
 from turbodiffusion_tpu_torch.models.layers import rms_norm
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
+
+
+# widest row of K1 / K12 (the 14B's dim; csrc/fused_norm.cu kWidePairs)
+_MLN_MAX_D = 5120
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -85,8 +90,8 @@ def _mln_operands(x, mod_scale, mod_shift, weight, bias, what: str):
     B, L, D = x.shape
     _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
              f"{what} takes a contiguous bf16 x")
-    _require(D % 2 == 0 and D <= 4096,
-             f"{what} takes an even D <= 4096, got {D}")
+    _require(D % 2 == 0 and D <= _MLN_MAX_D,
+             f"{what} takes an even D <= {_MLN_MAX_D}, got {D}")
     args = []
     for t, dt, n in ((mod_scale, torch.float32, B * D),
                      (mod_shift, torch.float32, B * D),

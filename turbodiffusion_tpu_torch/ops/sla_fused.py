@@ -1,7 +1,12 @@
-"""Fused SageSLA front-end: kernels K5 (head_planes) and K6 (subquant_pack_kvt).
+"""Fused SageSLA front-end: kernels K5 (head_planes), K6 (subquant_pack_kvt),
+K13 and K16 (unfold_quant) and K15 (row_rms_inv).
 
 The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
-single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
+single-chip path that `ops/attention.sla_attention_fused` takes:
+  * `row_rms_inv` — K15 `_row_rms_inv_cuda` replaces the TPU kernel
+    `row_rms_inv` (launch :62, body `_row_rms_kernel` :45-47): the full-row
+    RMS inverse of a wide model's projection (14B: 5120 columns), which K5's
+    external-RMS mode and K17 read;
   * `head_planes` — K5 `_head_planes_cuda` replaces the TPU kernel
     `head_planes` (launch :228, body `_head_planes_kernel` :76-137): one pass
     over a (B, L, H*Dh) projection output (read through a row stride, so a
@@ -9,6 +14,9 @@ single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
     bf16 head planes
     (B, H, Lp, Dh), per-(head, token) int8 + fp32 scales, and per-block
     pooled means, with the full-row RMSNorm and rotate-half RoPE fused in;
+    with `rms_inv` (K15's output, the TPU kernel's external-RMS mode,
+    :93-94) the row's statistic is read, not reduced, and K5 takes up to 40
+    heads in one launch;
   * `block_map_from_pooled` (:281-298) — plain torch: the smooth-k mean
     recovered from pooled K, the block scores and the top-k LUT;
   * `subquant_pack_kvt` — K6 `_subquant_pack_kvt_cuda` replaces
@@ -20,7 +28,10 @@ single-chip, non-wide path that `ops/attention.sla_attention_fused` takes:
     `unfold_quant`, narrow form (launch :633, body `_unfold_quant_kernel`
     :551-562): K7's planes to the W8A8 O projection's int8 feed, one fp32
     scale per token across all heads, K8's rule (so it equals K8 on
-    `unfold_planes`' rows bit for bit);
+    `unfold_planes`' rows bit for bit); above H*Dh 4096, K16
+    `_unfold_quant_wide_cuda` replaces its wide form (launches :608 and
+    :619, bodies `_unfold_scale_kernel` / `_unfold_write_kernel` :565-592)
+    in one launch, with that form's rule `y / scale`;
   * `unfold_planes` (:646-649) — plain torch.
 
 Rows in [L, Lp) of the outputs: the JAX kernels leave them unwritten; here
@@ -30,8 +41,8 @@ linear sums, K7's row max).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
-`.launches`. The wide (dim > 4096) forms and `subquant_pack_kv` /
-`subquant_planes` wait for ROADMAP Queue B items 11, 15 and 16.
+`.launches`. `subquant_pack_kv` / `subquant_planes` wait for ROADMAP Queue
+B item 11.
 """
 
 from __future__ import annotations
@@ -48,6 +59,11 @@ from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 INT8_MAX = 127.0
 # rows of a K5 thread block: the grain of its pooled partial sums
 _HP_ROWS = 64
+# K5's heads: 16 in one pass over a row, up to 40 in groups of 16 where the
+# row's RMS comes from K15 (or there is no norm)
+_HP_GROUP_HEADS, _HP_MAX_HEADS = 16, 40
+# widest row of the narrow unfold_quant (K13); K16 takes up to 5120
+_UNFOLD_NARROW_MAX, _UNFOLD_WIDE_MAX = 4096, 5120
 # rows of one linear-kv partial sum (csrc/sla_fused.cu kLinRows)
 _LIN_ROWS = 2048
 
@@ -62,17 +78,68 @@ def _quant_rows(yf):
 
 
 # ---------------------------------------------------------------------------
+# K15: row_rms_inv
+# ---------------------------------------------------------------------------
+
+def _column_block(x, width: Optional[int], col_block: int):
+    """Columns [col_block*width, (col_block+1)*width) of x, as a view."""
+    W = x.shape[-1] if width is None else width
+    return x[..., col_block * W:(col_block + 1) * W]
+
+
+def row_rms_inv_plain(x, eps: float = 1e-6, width: Optional[int] = None,
+                      col_block: int = 0):
+    """Plain version of K15 (sla_fused.py:45-69): (B, L, W) -> (B, L, 1)
+    fp32 rsqrt(mean(x^2) + eps) over the column block."""
+    xf = _column_block(x, width, col_block).float()
+    return torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+
+
+def _row_rms_inv_cuda(x, eps: float, width: Optional[int], col_block: int):
+    """Launch K15. x (B, L, >= W) bf16 with 16-byte aligned rows
+    `_row_stride` apart."""
+    xs = _column_block(x, width, col_block)
+    B, L, W = xs.shape
+    _require(xs.dtype == torch.bfloat16, "K15 takes a bf16 x")
+    ld = _row_stride(xs, "K15")
+    _require(W % 8 == 0 and ld % 8 == 0 and xs.data_ptr() % 16 == 0,
+             "K15 takes 16-byte aligned rows of a multiple of 8 columns")
+    out = torch.empty((B, L, 1), dtype=torch.float32, device=x.device)
+    rc = _build.load().tdx_row_rms_inv(xs.data_ptr(), out.data_ptr(), ld,
+                                       B * L, W, float(eps),
+                                       _build.stream_ptr(x))
+    _build.check(rc, "tdx_row_rms_inv")
+    _row_rms_inv_cuda.launches += 1
+    return out
+
+
+_row_rms_inv_cuda.launches = 0
+
+
+def row_rms_inv(x, eps: float = 1e-6, width: Optional[int] = None,
+                col_block: int = 0):
+    """(B, L, W) -> (B, L, 1) fp32 full-row RMS inverse over columns
+    [col_block*width, (col_block+1)*width) (sla_fused.row_rms_inv): the
+    plain version on a CPU tensor, kernel K15 on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return row_rms_inv_plain(x, eps, width, col_block)
+    _require(x.device.type == "cuda", f"no kernel for device {x.device}")
+    return _row_rms_inv_cuda(x, eps, width, col_block)
+
+
+# ---------------------------------------------------------------------------
 # K5: head_planes
 # ---------------------------------------------------------------------------
 
 def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
                       num_heads: int, eps: float = 1e-6, pool: int = 0,
                       quant: bool = False, bf16_out: bool = True,
-                      pad_to: Optional[int] = None) -> dict:
+                      pad_to: Optional[int] = None, rms_inv=None) -> dict:
     """Plain version of K5 (sla_fused.py:76-137).
 
     x: (B, L, H*Dh). weight => RMSNorm over the whole row in fp32, cast to
-    x's dtype, times the weight in x's dtype; cos/sin (>= L, Dh) => rotate-
+    x's dtype, times the weight in x's dtype, the row's RMS inverse taken
+    from `rms_inv` (B, >= L, 1) where given; cos/sin (>= L, Dh) => rotate-
     half RoPE in fp32. The int8 plane and the pooled means come from that
     fp32 value (`yf`), before the final rounding to x's dtype. Returns a dict
     with keys among bf16 (B, H, Lp, Dh), i8 (B, H, Lp, Dh) int8, scale
@@ -83,7 +150,8 @@ def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
     Lp = L if pad_to is None else pad_to
     xf = x.float()
     if weight is not None:
-        rms = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        rms = (row_rms_inv_plain(x, eps) if rms_inv is None
+               else rms_inv[:, :L].float())
         y16 = (xf * rms).to(x.dtype) * weight.to(x.dtype)
     else:
         y16 = x
@@ -112,18 +180,21 @@ def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
 
 def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
                       eps: float, pool: int, quant: bool, bf16_out: bool,
-                      Lp: int) -> dict:
+                      Lp: int, rms_inv=None) -> dict:
     """Launch K5. x (B, L, H*128) bf16 with 16-byte aligned rows
-    `_row_stride` apart; weight (H*128,); cos/sin (>= L, 128) fp32 or both
-    None."""
+    `_row_stride` apart; weight (H*128,); rms_inv (B, >= L, 1) fp32 or
+    None; cos/sin (>= L, 128) fp32 or both None."""
     B, L, HD = x.shape
     H = num_heads
     _require(x.dtype == torch.bfloat16, "K5 takes a bf16 x")
     ld = _row_stride(x, "K5")
     _require(ld % 8 == 0 and x.data_ptr() % 16 == 0,
              "K5 takes 16-byte aligned rows")
-    _require(HD == H * 128 and 1 <= H <= 16,
-             f"K5 takes 1-16 heads of 128, got width {HD} for {H} heads")
+    own_rms = weight is not None and rms_inv is None
+    max_heads = _HP_GROUP_HEADS if own_rms else _HP_MAX_HEADS
+    _require(HD == H * 128 and 1 <= H <= max_heads,
+             f"K5 takes 1-{max_heads} heads of 128 (above {_HP_GROUP_HEADS} "
+             f"the RMS comes from K15), got width {HD} for {H} heads")
     _require(Lp >= L and Lp % _HP_ROWS == 0,
              f"K5 pads to a multiple of {_HP_ROWS} >= L, got {Lp}")
     _require(not pool or (pool % _HP_ROWS == 0 and Lp % pool == 0),
@@ -131,11 +202,15 @@ def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
              f"got {pool}")
     _require(quant or bf16_out or pool, "K5 asked for no output")
     dev = x.device
-    w = None
+    w = ri = None
     if weight is not None:
         w = weight.to(torch.bfloat16).contiguous()
         _require(w.device == dev and w.numel() == HD,
                  "K5 weight must lie on x's device with H*Dh entries")
+    if rms_inv is not None:
+        _require(weight is not None, "K5 takes rms_inv with a norm weight")
+        ri = rms_inv[:, :L].reshape(B, L).float().contiguous()
+        _require(ri.device == dev, "K5 rms_inv must lie on x's device")
     rope = cos_full is not None
     _require(rope == (sin_full is not None), "K5 takes cos and sin together")
     if rope:
@@ -165,7 +240,7 @@ def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
 
     lib = _build.load()
     rc = lib.tdx_head_planes(
-        x.data_ptr(), ptr(w), ptr(cos_full), ptr(sin_full),
+        x.data_ptr(), ptr(w), ptr(ri), ptr(cos_full), ptr(sin_full),
         ptr(out.get("bf16")), ptr(out.get("i8")), ptr(out.get("scale")),
         ptr(partial), ptr(out.get("pooled")), ptr(counters), ld,
         B, L, Lp, H, pool, nP, float(eps), _build.stream_ptr(x))
@@ -180,18 +255,20 @@ _head_planes_cuda.launches = 0
 def head_planes(x, weight=None, cos_full=None, sin_full=None, *,
                 num_heads: int, eps: float = 1e-6, pool: int = 0,
                 quant: bool = False, bf16_out: bool = True,
-                pad_to: Optional[int] = None) -> dict:
+                pad_to: Optional[int] = None, rms_inv=None) -> dict:
     """One-pass head-plane transform of a (B, L, H*Dh) projection output
-    (sla_fused.head_planes): the plain version on a CPU tensor, kernel K5 on
-    a CUDA tensor. See `head_planes_plain` for the outputs."""
+    (sla_fused.head_planes; `rms_inv` its external-RMS mode): the plain
+    version on a CPU tensor, kernel K5 on a CUDA tensor. See
+    `head_planes_plain` for the outputs."""
     Lp = x.shape[1] if pad_to is None else pad_to
     if x.device.type == "cpu":
         return head_planes_plain(x, weight, cos_full, sin_full,
                                  num_heads=num_heads, eps=eps, pool=pool,
-                                 quant=quant, bf16_out=bf16_out, pad_to=Lp)
+                                 quant=quant, bf16_out=bf16_out, pad_to=Lp,
+                                 rms_inv=rms_inv)
     _require(x.device.type == "cuda", f"no kernel for device {x.device}")
     return _head_planes_cuda(x, weight, cos_full, sin_full, num_heads, eps,
-                             pool, quant, bf16_out, Lp)
+                             pool, quant, bf16_out, Lp, rms_inv)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +404,7 @@ def unfold_planes(planes, out_len: int):
 
 
 # ---------------------------------------------------------------------------
-# K13: unfold_quant
+# K13 and K16: unfold_quant, narrow and wide
 # ---------------------------------------------------------------------------
 
 def unfold_quant_plain(planes, out_len: int):
@@ -337,35 +414,69 @@ def unfold_quant_plain(planes, out_len: int):
     return quantize_rows_int8_plain(unfold_planes(planes, out_len))
 
 
-def _unfold_quant_cuda(planes, out_len: int):
-    """Launch K13. planes (B, H, Lp, Dh) bf16 contiguous, H*Dh <= 4096."""
+def unfold_quant_wide_plain(planes, out_len: int):
+    """Plain version of K16 (sla_fused.py:565-592): the same scale, and
+    q = round(y / scale) half to even in fp32 (the wide TPU kernel divides
+    where the narrow one multiplies by 1/scale)."""
+    x = unfold_planes(planes, out_len).float()
+    scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / INT8_MAX)
+    return torch.round(x / scale).to(torch.int8), scale
+
+
+def _unfold_launch(name: str, fn: str, planes, out_len: int, max_width: int):
+    """Launch K13 or K16: planes (B, H, Lp, Dh) bf16 contiguous, H*Dh <=
+    max_width."""
     B, H, Lp, Dh = planes.shape
     _require(planes.dtype == torch.bfloat16 and planes.is_contiguous(),
-             "K13 takes contiguous bf16 planes")
-    _require(Dh % 8 == 0 and H * Dh <= 4096,
-             f"K13 takes H*Dh <= 4096 with Dh a multiple of 8, got {H}x{Dh}")
+             f"{name} takes contiguous bf16 planes")
+    _require(Dh % 8 == 0 and H * Dh <= max_width,
+             f"{name} takes H*Dh <= {max_width} with Dh a multiple of 8, got "
+             f"{H}x{Dh}")
     _require(0 < out_len <= Lp, f"out_len {out_len} out of range")
     xq = torch.empty((B, out_len, H * Dh), dtype=torch.int8,
                      device=planes.device)
     rs = torch.empty((B, out_len, 1), dtype=torch.float32,
                      device=planes.device)
-    rc = _build.load().tdx_unfold_quant(
+    rc = getattr(_build.load(), fn)(
         planes.data_ptr(), xq.data_ptr(), rs.data_ptr(), B, out_len, Lp, H,
         Dh, _build.stream_ptr(planes))
-    _build.check(rc, "tdx_unfold_quant")
-    _unfold_quant_cuda.launches += 1
+    _build.check(rc, fn)
     return xq, rs
+
+
+def _unfold_quant_cuda(planes, out_len: int):
+    """Launch K13 (H*Dh <= 4096)."""
+    out = _unfold_launch("K13", "tdx_unfold_quant", planes, out_len,
+                         _UNFOLD_NARROW_MAX)
+    _unfold_quant_cuda.launches += 1
+    return out
 
 
 _unfold_quant_cuda.launches = 0
 
 
+def _unfold_quant_wide_cuda(planes, out_len: int):
+    """Launch K16 (H*Dh <= 5120)."""
+    out = _unfold_launch("K16", "tdx_unfold_quant_wide", planes, out_len,
+                         _UNFOLD_WIDE_MAX)
+    _unfold_quant_wide_cuda.launches += 1
+    return out
+
+
+_unfold_quant_wide_cuda.launches = 0
+
+
 def unfold_quant(planes, out_len: int):
     """(B, H, Lp, Dh) planes -> (int8 (B, out_len, H*Dh), fp32
     (B, out_len, 1)) per-token quantised for the W8A8 O projection
-    (sla_fused.unfold_quant): the plain version on a CPU tensor, kernel K13
-    on a CUDA tensor."""
+    (sla_fused.unfold_quant): the narrow form (K13) up to H*Dh 4096, the
+    wide form (K16) above, as the JAX function splits them; the plain
+    version on a CPU tensor, the kernel on a CUDA tensor."""
+    B, H, Lp, Dh = planes.shape
+    wide = H * Dh > _UNFOLD_NARROW_MAX
     if planes.device.type == "cpu":
-        return unfold_quant_plain(planes, out_len)
+        return (unfold_quant_wide_plain if wide else unfold_quant_plain)(
+            planes, out_len)
     _require(planes.device.type == "cuda", f"no kernel for device {planes.device}")
-    return _unfold_quant_cuda(planes, out_len)
+    return (_unfold_quant_wide_cuda if wide else _unfold_quant_cuda)(
+        planes, out_len)

@@ -5,7 +5,8 @@ Ports `turbodiffusion_tpu/pipelines/pipeline.py`: `make_wan_cfg` and
 hash-tokenizer fallback (:107-160) and `WanPipeline.create` /
 `generate_t2v` (:185-288). The models stay resident on the pipeline's
 device and answer any number of requests; every entry point runs on the
-card unless told otherwise. I2V, meshes and checkpoint loading (`dit_path`,
+card unless told otherwise. Wan2.1-14B runs on the card as W8A8 sagesla
+(`check_ported`). I2V, meshes and checkpoint loading (`dit_path`,
 `vae_path`, `text_encoder_path`) wait for later slices.
 """
 
@@ -55,6 +56,21 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
     if model == "test":
         return wan_test_config(attention=attn, quant_linear=quant_linear)
     return wan_config(model, attention=attn, quant_linear=quant_linear)
+
+
+def check_ported(model: str, attention_type: str, quant_linear: bool,
+                 device) -> None:
+    """Refuse a configuration the port's kernels do not carry on a card yet:
+    Wan2.1-14B runs there only as sagesla with W8A8 linears. Its other
+    configurations (bf16 linears, `sla`, `original`) need K2 (RMSNorm +
+    RoPE) at dim 5120, the bf16 ones a ~26 GiB DiT (ROADMAP Queue A item
+    15)."""
+    if (model == "Wan2.1-14B" and torch.device(device).type == "cuda"
+            and (attention_type != "sagesla" or not quant_linear)):
+        raise NotImplementedError(
+            "Wan2.1-14B runs on a card only with --attention_type sagesla and "
+            "--quant_linear; bf16 14B and its sla / original attention wait "
+            "for K2 at dim 5120 (ROADMAP Queue A item 15)")
 
 
 def load_dit(dit_path: Optional[str], cfg: WanConfig, seed: int = 0,
@@ -191,6 +207,7 @@ class WanPipeline:
             raise NotImplementedError(
                 "VAE checkpoint loading waits for checkpoint import (ROADMAP "
                 "Queue A item 14)")
+        check_ported(model, attention_type, quant_linear, device)
         device = torch.device(device)
         cfg = make_wan_cfg(model, attention_type, sla_topk, quant_linear,
                            sla_block=sla_block, v_quant=v_quant)

@@ -9,7 +9,8 @@ buffers by name:
     an `Int8Linear`'s `w_int8` buffer are transposed, because JAX stores
     linears (in, out); the `Int8Linear`'s `scale` buffer is the tree's
     `scale` (a tree quantised by `quantize_wan_blocks`, with its fused
-    `self_attn.qkv`, loads into blocks quantised the same way);
+    `self_attn.qkv` below dim 4096 or separate q / k / v above, loads into
+    blocks quantised the same way);
   * a name that indexes a stacked subtree (the DiT's and umT5's `blocks`,
     whose leaves carry a leading num_layers axis) selects that layer;
   * where the tree holds a bare array (umT5's bias-free linears), it is the
