@@ -6,46 +6,63 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), and the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`;
-  2. every kernel of the four paths against its plain PyTorch version on
-     the card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text
-     tokens, heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads,
-     dim 1536, FFN 8960, 12 of 128 K blocks; then the Wan2.1-14B forms: K15,
-     K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12 and K8-K11 at dim
-     5120, FFN 13824): max absolute error under the stated tolerance (int8
-     outputs within 1 LSB), both times (CUDA events, median of a few runs),
-     the least time the card could take (`bound`: bytes over 3.35 TB/s or
-     operations over the dense peak of their type, whichever is larger)
-     and, where one PyTorch call computes the same function, that call's
-     time (`library`; for the int8 GEMMs `torch._int_mm`, the product alone,
-     plus bf16 `torch.matmul` of the same shape); the port calls neither;
+  2. every kernel of the paths against its plain PyTorch version on the
+     card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
+     heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
+     FFN 8960, 12 of 128 K blocks; K12 also at batch 2 with the block's
+     strided modulation; K18 and K19 of the v_quant="row" path,
+     K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
+     over (B, L, H, D); then the Wan2.1-14B forms: K15, K5 with K15's RMS
+     at 40 heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824),
+     with poisoned-tail checks of K7, K19 and K21: max absolute error
+     under the stated tolerance (int8 outputs within 1 LSB; K19-K21 at
+     atol 4e-3 + rtol 2e-2, each with planted faults the check must
+     reject: a dropped LUT entry, K21's weight zeroed, v read from k, q
+     doubled), the mean and max |output| beside it, both times
+     (CUDA events, median of a few runs), the least time the card could
+     take (`bound`: bytes over 3.35 TB/s or operations over the dense peak
+     of their type, whichever is larger) and, where one PyTorch call
+     computes the same function, that call's time (`library`; for the int8
+     GEMMs `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of
+     the same shape); the port calls neither;
   3. one full-width `WanAttentionBlock` with seeded random non-zero weights
      at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
      `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
      blocks with a non-zero `proj_l`, so the fused linear epilogue runs; the
-     W8A8 blocks take the int8 feeds K12-K14), and at 14B `sagesla` with
-     W8A8 linears (unfused Q / K / V, K15-K17): the kernels on the card
-     against the plain versions on the CPU, on the Q blocks whose block-map
-     rows agree as sets;
+     W8A8 blocks take the int8 feeds K12-K14), W8A8 `sagesla` at
+     v_quant="row" with a non-zero `proj_l` (K18, K19, K21 over the planes),
+     W8A8 `sagesla` at blocks 64/64 (K20), bf16 `sla` with a non-zero
+     `proj_l` (K21 over (B, L, H, D)) and W8A8 `sagesla` at batch 2, and at
+     14B `sagesla` with W8A8 linears (unfused Q / K / V, K15-K17): the
+     kernels on the card against the plain versions on the CPU, on the Q
+     blocks whose block-map rows agree as sets, with each block's launch
+     counts (K21's in the JSON line: random weights give the requests a
+     zero `proj_l`);
   4. the paths: `WanPipeline.create(..., attention_type="sagesla",
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
-     `sla`, then, with the 1.3B pipelines freed, this slice's path: two
-     requests of `WanPipeline.create("Wan2.1-14B", quant_linear=True)`; per
-     request the text-encode, denoise and VAE-decode times, peak device
-     memory, and the launch count of every kernel, set to 0 just before the
-     request and read just after (1.3B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2,
-     K9 6, K10 1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3,
-     K2 1, K4 1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1, K4 1; x 30 blocks
-     x 4 steps; 14B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11
-     1, K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
+     `sla`, one W8A8 `sagesla` request at v_quant="row" and one at
+     sla_block=64, then, with the 1.3B pipelines freed, two requests of
+     `WanPipeline.create("Wan2.1-14B", quant_linear=True)`; per request the
+     text-encode, denoise and VAE-decode times, peak device memory, and the
+     launch count of every kernel, set to 0 just before the request and
+     read just after (1.3B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 6, K10
+     1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3, K2 1, K4
+     1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1, K4 1; W8A8 row: K5 3, K8 2,
+     K9 6, K10 1, K11 1, K12 3, K13 1, K14 1, K18 1, K19 1; W8A8 block 64:
+     K2 2, K8 3, K9 6, K10 1, K11 1, K12 3, K14 1, K20 1; x 30 blocks x 4
+     steps; 14B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
+     K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
      0), which shows each path went through its kernels; then each path's
      denoise under torch.profiler: device time by kernel category and the
      device's idle share.
 Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
-its 14B checks and that path's launches; any other: its 1.3B checks and the
-launches of the first 1.3B path that runs it), the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}. Any failure raises and the
-script exits non-zero; without a CUDA card it exits non-zero at once.
+its 14B checks and that path's launches; K21: its 1.3B checks and the
+launches of the phase-3 block that runs it over the planes; any other: its
+1.3B checks and the launches of the first 1.3B path that runs it), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
+failure raises and the script exits non-zero; without a CUDA card it exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -84,6 +101,9 @@ G14 = Geometry("Wan2.1-14B", 5120, 40, 13824, 768)
 # 480p/81f: tokens, head dim, text tokens
 B, L, DH, TEXT = 1, 32760, 128, 512
 ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
+# K19-K21: outputs of order 0.03 (K19, K20: near-flat softmax over ~3,000
+# keys) to 1 (K21's inputs); an atol a fifth of ATOL fails each planted fault
+SHARP_ATOL = 4e-3
 SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
 # K14's scales: its fp32 sums (the row's mean square, QK, P V) run in another
 # order than the plain version's, which can move one bf16 element of the
@@ -108,6 +128,14 @@ EXPECTED_LAUNCHES = {
                      "K11": 120, "K12": 360, "K13": 120, "K14": 120},
     "sagesla": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120},
     "sla": {"K1": 360, "K2": 360, "K3": 120, "K4": 120},
+    # v_quant="row": K5's V pass gives per-row int8, K18 packs, K19 attends
+    "sagesla+w8a8 row": {"K5": 360, "K8": 240, "K9": 720, "K10": 120,
+                         "K11": 120, "K12": 360, "K13": 120, "K14": 120,
+                         "K18": 120, "K19": 120},
+    # blocks 64/64: the composable path, K2 on q and k, K20; the O
+    # projection takes K8 on the bf16 attention output
+    "sagesla+w8a8 block64": {"K2": 240, "K8": 360, "K9": 720, "K10": 120,
+                             "K11": 120, "K12": 360, "K14": 120, "K20": 120},
     # the wide forms: unfused Q / K / V (K9 x 8), K15 on Q, K and the cross
     # q, K5 reading its RMS, K16 for the O feed, K17 for cross attention
     "14b-sagesla+w8a8": {"K5": 480, "K6": 160, "K7": 160, "K8": 320,
@@ -116,11 +144,14 @@ EXPECTED_LAUNCHES = {
 }
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
 # phase-4 paths in the order run: (label, geometry, attention, quant_linear,
-# requests); this slice's path, the 14B, runs last, after the 1.3B
-# pipelines are freed, and its counts fill the JSON line first
-PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2),
-         ("sagesla", G13, "sagesla", False, 1), ("sla", G13, "sla", False, 1),
-         ("14b-sagesla+w8a8", G14, "sagesla", True, 2)]
+# requests, other WanPipeline.create arguments); the 14B runs last, after
+# the 1.3B pipelines are freed, and its counts fill the JSON line first
+PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2, {}),
+         ("sagesla", G13, "sagesla", False, 1, {}),
+         ("sla", G13, "sla", False, 1, {}),
+         ("sagesla+w8a8 row", G13, "sagesla", True, 1, {"v_quant": "row"}),
+         ("sagesla+w8a8 block64", G13, "sagesla", True, 1, {"sla_block": 64}),
+         ("14b-sagesla+w8a8", G14, "sagesla", True, 2, {})]
 
 KERNELS = {
     # name: (source, TPU kernel launch it replaces)
@@ -158,12 +189,21 @@ KERNELS = {
             "turbodiffusion_tpu/ops/sla_fused.py:608"),
     "K17": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
             "turbodiffusion_tpu/ops/flash_pallas.py:310"),
+    "K18": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:501"),
+    "K19": ("turbodiffusion_tpu_torch/csrc/sparse_i8_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1432"),
+    "K20": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1200"),
+    "K21": ("turbodiffusion_tpu_torch/csrc/linear_attention.cu",
+            "turbodiffusion_tpu/ops/linear_attention_pallas.py:141"),
 }
 
 
 def _launchers():
     from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import linear_attention as la
     from turbodiffusion_tpu_torch.ops import quant as qt
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
@@ -175,7 +215,9 @@ def _launchers():
             "K11": qt._int8_gemm_blockact_cuda, "K12": fn._mln_quant_cuda,
             "K13": sf._unfold_quant_cuda, "K14": fa._cross_qout_cuda,
             "K15": sf._row_rms_inv_cuda, "K16": sf._unfold_quant_wide_cuda,
-            "K17": fa._cross_qout_wide_cuda}
+            "K17": fa._cross_qout_wide_cuda, "K18": sf._subquant_pack_kv_cuda,
+            "K19": si8._sparse_i8_planes_cuda, "K20": fa._sparse_flash_i8qk_cuda,
+            "K21": la._linear_projected_cuda}
 
 
 @dataclasses.dataclass
@@ -184,7 +226,9 @@ class Check:
     the same inputs; `ins` are the tensors the kernel reads (each counted
     once in its bound, with its outputs written once), `ops` its operations
     by type; `library` one PyTorch call computing the same function, where
-    there is one, and `yardsticks` other calls timed beside it."""
+    there is one, and `yardsticks` other calls timed beside it; `faults`
+    planted faults (what -> a wrong output, from the kernel on altered
+    inputs) that the comparison must reject."""
     name: str
     what: str
     kern: object
@@ -196,6 +240,7 @@ class Check:
     yardsticks: dict = dataclasses.field(default_factory=dict)
     atol: float = ATOL
     rtol: float = RTOL
+    faults: dict = dataclasses.field(default_factory=dict)
 
 
 def _nbytes(t) -> int:
@@ -242,9 +287,10 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _compare(name, got, want, atol, rtol):
-    """(max abs error, mean abs error, int8 LSB difference); raises past
-    atol + rtol * |want|, or past 1 LSB for int8 outputs. Tuples and dicts
-    compare element by element and give the worst of each."""
+    """(max abs error, mean abs error, int8 LSB difference, mean |want|,
+    max |want|); raises past atol + rtol * |want|, or past 1 LSB for int8
+    outputs. Tuples and dicts compare element by element and give the worst
+    (largest) of each."""
     import torch
     if isinstance(got, dict):
         if sorted(got) != sorted(want):
@@ -252,14 +298,15 @@ def _compare(name, got, want, atol, rtol):
         got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(got)]
     if isinstance(got, (tuple, list)):
         errs = [_compare(name, a, b, atol, rtol) for a, b in zip(got, want)]
-        return tuple(max(e[i] for e in errs) for i in range(3))
+        return tuple(max(e[i] for e in errs) for i in range(5))
     if got.dtype == torch.int8:
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         d = int((got.int() - want.int()).abs().max())
         if d > 1:
             raise AssertionError(f"{name}: int8 output off by {d} LSB")
-        return 0.0, 0.0, d
+        wa = want.float().abs()
+        return 0.0, 0.0, d, float(wa.mean()), float(wa.max())
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -272,7 +319,7 @@ def _compare(name, got, want, atol, rtol):
     if worst > 0:
         raise AssertionError(f"{name}: max |err| {max_err:.4g} exceeds "
                              f"atol {atol} + rtol {rtol}*|want|")
-    return max_err, mean_err, 0
+    return max_err, mean_err, 0, float(want.abs().mean()), float(want.abs().max())
 
 
 def phase1():
@@ -470,8 +517,11 @@ def phase2(reps: int = REPS):
               i8_args + tuple(lin.values()), ops7),
     ] + _w8a8_checks(randn, x, G13) + _int8_feed_checks(randn, x, ms, mb, w,
                                                        bias, kt, vt, sdpa)
-    results = _run_checks(checks, reps)
+    mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
+    results = _run_checks(checks + mode_checks, reps)
     _poisoned_tail(i8_args, scale)
+    for tail in tails:
+        tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
     for name, r in _run_checks(_wide_checks(randn, sdpa), reps).items():
@@ -490,9 +540,11 @@ def _run_checks(checks, reps: int) -> dict:
         got = c.kern()
         want = c.plain()
         torch.cuda.synchronize()
-        max_err, mean_err, lsb = _compare(f"{c.name} {c.what}", got, want,
-                                          c.atol, c.rtol)
+        max_err, mean_err, lsb, want_mean, want_max = _compare(
+            f"{c.name} {c.what}", got, want, c.atol, c.rtol)
         bound_ms, bound_by = _bound(_nbytes(c.ins) + _nbytes(got), c.ops)
+        for what, fault in c.faults.items():
+            _must_fail(f"{c.name} {c.what}", what, fault(), want, c.atol, c.rtol)
         del got, want
         ms_k = _time_ms(c.kern, reps)
         ms_p = _time_ms(c.plain, max(2, reps // 2))
@@ -503,7 +555,8 @@ def _run_checks(checks, reps: int) -> dict:
                else " | library none")
         print(f"phase2 {c.name} {c.what}: max_abs_err {max_err:.5g} mean_abs_err "
               f"{mean_err:.5g} int8 max diff {lsb} LSB (tol atol {c.atol} + "
-              f"rtol {c.rtol}, 1 LSB) | kernel {ms_k:.4f} ms | plain "
+              f"rtol {c.rtol}, 1 LSB; |want| mean {want_mean:.5g} max "
+              f"{want_max:.5g}) | kernel {ms_k:.4f} ms | plain "
               f"{ms_p:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}){lib}{extra}",
               flush=True)
         # a kernel's line in the JSON: its first check's numbers, the worst
@@ -513,6 +566,19 @@ def _run_checks(checks, reps: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         r["max_abs_err"] = max(r["max_abs_err"], max_err)
     return results
+
+
+def _must_fail(name, what, bad, want, atol, rtol):
+    """A planted fault: the comparison that passes the kernel must reject
+    `bad`, a wrong output of the same shape."""
+    import torch
+    torch.cuda.synchronize()
+    try:
+        _compare(name, bad, want, atol, rtol)
+    except AssertionError as e:
+        print(f"phase2 {name} planted fault ({what}): rejected: {e}", flush=True)
+        return
+    raise AssertionError(f"{name}: the planted fault ({what}) passed the check")
 
 
 def _w8a8_checks(randn, x, geo: Geometry):
@@ -619,6 +685,7 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
     rows over 512 text keys. No PyTorch call computes these functions:
     beside K12 `F.layer_norm` and beside K14 SDPA of the cross shape (the
     attention alone, bf16 out) are timed as yardsticks."""
+    import torch
     from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
@@ -627,7 +694,17 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
     qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
     n_x = x.numel()
+    # K12 at batch 2 with the modulation as the block passes it: column views
+    # of one (B, 6, D) tensor, which the wrapper copies before the launch
+    x2 = torch.cat([x, x.flip(1)])
+    e2 = torch.stack([torch.stack([mb[0], ms[0]] * 3), torch.stack([ms[0], mb[0]] * 3)])
     return _k12_checks(x, ms, mb, w, bias) + [
+        Check("K12", f"mod -> int8 at batch 2, strided (2, 6, {DIM}) modulation",
+              lambda: fn.modulated_layer_norm(x2, e2[:, 1:2], e2[:, 0:1],
+                                              eps=1e-6, quant_out=True),
+              lambda: fn.modulated_layer_norm_ref(x2, e2[:, 1:2], e2[:, 0:1],
+                                                  eps=1e-6, quant_out=True),
+              (x2, e2[:, :2]), {"fp32": 22 * n_x}, **scale_tol),
         Check("K13", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
               lambda: sf._unfold_quant_cuda(planes, L),
               lambda: sf.unfold_quant_plain(planes, L),
@@ -727,6 +804,137 @@ def _wide_checks(randn, sdpa):
     ] + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
 
 
+def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
+    """Phase-2 checks of K18-K21 at the 1.3B 480p shapes, and their
+    poisoned-tail checks (returned to run after the timed checks): K18 and
+    K19 on the fused operands at v_quant="row" (V from K5's per-row int8
+    pass), K20 at blocks 64/64 (int(0.1 * 512) = 51 K blocks a Q block) on
+    smooth-k'd bf16 q / k / v, with K3 on the same LUT beside it; K21 over
+    the planes (the row path's form) and over (B, L, H, D) (the sla path's).
+    K19-K21 take SHARP_ATOL and planted faults that must fail: K19 and K20
+    with the LUT's last entry dropped; K21 with proj_l's weight zeroed (the
+    bias alone), with v read from k, and with q doubled (phi at half the
+    temperature). No single PyTorch call computes these functions."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import linear_attention as la
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    HEADS = G13.heads
+    scale = DH ** -0.5
+    Vr = sf.head_planes_plain(xv, num_heads=HEADS, eps=1e-6, pad_to=LP,
+                              quant=True)
+    kvi, ks = sf.subquant_pack_kv_plain(Kp["bf16"], k_mean, Vr["i8"])
+    planes_args = (Qp["i8"], Qp["scale"], kvi, ks, Vr["scale"], lut8)
+    pairs19 = _sparse_pairs(lut8, BQ, BK, L, L)
+    ks_, bk64 = k - k.mean(dim=1, keepdim=True), 64
+    _, lut64, sel64 = get_block_map(q, ks_, TOPK, bk64, bk64)
+    pairs20 = _sparse_pairs(lut64, bk64, bk64, L, L)
+    # K21's inputs make the linear term the whole output and make it depend
+    # on each operand: q and k of std 4 (phi close to one-hot over D), v a
+    # fixed permutation of k's channels plus noise (kv / ksum holds
+    # conditional means of order 10, not the ~0 of independent v), proj_l's
+    # weight of std D^-0.5 and a small bias: |o| of order 1
+    q21, k21 = randn(B, L, HEADS, DH, std=4.0), randn(B, L, HEADS, DH, std=4.0)
+    perm = torch.randperm(DH, generator=torch.Generator().manual_seed(0))
+    v21 = (k21.float()[..., perm.to(k21.device)]
+           + randn(B, L, HEADS, DH, dtype=torch.float32)).bfloat16()
+    w21 = randn(DH, DH, dtype=torch.float32, std=DH ** -0.5)
+    pb = randn(DH, dtype=torch.float32, std=0.01)
+    qp, kp, vp = (torch.zeros(B, HEADS, LP, DH, dtype=torch.bfloat16,
+                              device=q.device) for _ in range(3))
+    for t, src in ((qp, q21), (kp, k21), (vp, v21)):
+        t[:, :, :L] = src.transpose(1, 2)                 # K5's zero rows past L
+
+    def k21_planes(k_=kp, v_=vp, q_=qp, w_=w21):
+        out = torch.empty(q_.shape, dtype=torch.bfloat16, device=q_.device)
+        return la._linear_projected_cuda(q_, k_, v_, w_, pb, L, out)
+
+    def i8_planes(lut_):
+        return si8._sparse_i8_planes_cuda(*planes_args[:-1], lut_, scale, BQ, BK, L)
+
+    sharp = dict(atol=SHARP_ATOL, rtol=RTOL)
+
+    lin_ops = {"fp32": 2 * B * HEADS * (L + LP) * DH * DH}
+    checks = [
+        Check("K18", f"pack K|V per row {HEADS}x{LP}x{DH}",
+              lambda: sf._subquant_pack_kv_cuda(Kp["bf16"], k_mean, Vr["i8"]),
+              lambda: sf.subquant_pack_kv_plain(Kp["bf16"], k_mean, Vr["i8"]),
+              (Kp["bf16"], k_mean, Vr["i8"]), {"fp32": 4 * Kp["bf16"].numel()},
+              atol=0.0, rtol=SCALE_RTOL),
+        Check("K19", f"int8 sparse per-row scales ({lut8.shape[-1]}/{LP // BK} "
+              f"blocks) {BQ}/{BK}",
+              lambda: i8_planes(lut8),
+              lambda: si8.sparse_attention_i8_planes_plain(
+                  *planes_args, block_q=BQ, block_k=BK, kv_len=L),
+              planes_args, {"int8": 2 * DH * pairs19, "bf16": 2 * DH * pairs19},
+              **sharp, faults={"last LUT entry dropped": lambda: i8_planes(lut8[..., :-1])}),
+        Check("K20", f"int8-QK sparse gather ({sel64}/{LP // bk64} blocks) "
+              f"{bk64}/{bk64}",
+              lambda: fa._sparse_flash_i8qk_cuda(q, ks_, v, lut64, bk64, bk64,
+                                                 scale, L),
+              lambda: fa.sparse_flash_attention_i8qk_plain(q, ks_, v, lut64, bk64,
+                                                           bk64, scale, L),
+              (q, ks_, v, lut64), {"int8": 2 * DH * pairs20,
+                                   "bf16": 2 * DH * pairs20},
+              yardsticks={"K3 (bf16 QK) on the same LUT": lambda:
+                          fa._sparse_flash_cuda(q, ks_, v, lut64, bk64, bk64,
+                                                scale, L)},
+              **sharp, faults={"last LUT entry dropped": lambda:
+                               fa._sparse_flash_i8qk_cuda(q, ks_, v, lut64[..., :-1],
+                                                          bk64, bk64, scale, L)}),
+        Check("K21", f"linear branch over planes {HEADS}x{LP}x{DH}",
+              k21_planes,
+              lambda: la.linear_projected_planes_plain(qp, kp, vp, w21, pb, L),
+              (qp, kp[:, :, :L], vp[:, :, :L], w21, pb), lin_ops, **sharp,
+              faults={"proj_l weight zeroed (bias alone)":
+                      lambda: k21_planes(w_=torch.zeros_like(w21)),
+                      "v read from k": lambda: k21_planes(v_=kp),
+                      "q doubled": lambda: k21_planes(q_=qp * 2)}),
+        Check("K21", f"linear branch over (B, L, H, D) {L}x{HEADS}x{DH}",
+              lambda: la.linear_attention_projected(q21, k21, v21, w21, pb),
+              lambda: la.linear_attention_projected_plain(q21, k21, v21, w21, pb),
+              (q21, k21, v21, w21, pb), {"fp32": 4 * B * HEADS * L * DH * DH},
+              **sharp, faults={"proj_l weight zeroed (bias alone)": lambda:
+                               la.linear_attention_projected(
+                                   q21, k21, v21, torch.zeros_like(w21), pb)}),
+    ]
+
+    def k19_tail():
+        """K19 on the card: K|V rows past kv_len set to +127 and their K / V
+        scales to NaN change no live output row (flash_pallas.py:1406-1408
+        zeroes them on the TPU; the port masks by column)."""
+        clean = si8._sparse_i8_planes_cuda(*planes_args, scale, BQ, BK, L)
+        pk, pks, pvs = kvi.clone(), ks.clone(), Vr["scale"].clone()
+        pk[:, :, L:] = 127
+        pks[:, :, L:] = float("nan")
+        pvs[:, :, L:] = float("nan")
+        poisoned = si8._sparse_i8_planes_cuda(Qp["i8"], Qp["scale"], pk, pks,
+                                              pvs, lut8, scale, BQ, BK, L)
+        torch.cuda.synchronize()
+        if not torch.equal(clean[:, :, :L], poisoned[:, :, :L]):
+            raise AssertionError("K19: a poisoned tail changed live rows")
+        print(f"phase2 K19 poisoned tail (rows {L}..{LP - 1}: K|V = 127, "
+              f"scales NaN): live rows unchanged", flush=True)
+
+    def k21_tail():
+        """K21 on the card: K and V plane rows past true_len set to NaN
+        change no live output row (the TPU kernel's where() on k and v)."""
+        clean = k21_planes()
+        pk, pv = kp.clone(), vp.clone()
+        pk[:, :, L:] = float("nan")
+        pv[:, :, L:] = float("nan")
+        poisoned = k21_planes(pk, pv)
+        torch.cuda.synchronize()
+        if not torch.equal(clean[:, :, :L], poisoned[:, :, :L]):
+            raise AssertionError("K21: a poisoned tail changed live rows")
+        print(f"phase2 K21 poisoned tail (K / V rows {L}..{LP - 1} = NaN): "
+              f"live rows unchanged", flush=True)
+
+    return checks, (k19_tail, k21_tail)
+
+
 def _poisoned_tail(i8_args, scale):
     """K7 on the card: int8 K / V rows past kv_len set to +127 change no
     output row before kv_len (flash_pallas.py:933, the garbage-tail test)."""
@@ -778,16 +986,23 @@ def _qk_proj(sa, h, dim: int):
 
 
 def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
-           geo: Geometry = G13):
-    """One full-width block of `geo`, card against CPU. sla: zero proj_l
-    (the sparse branch alone); sagesla: a non-zero proj_l, so K6 sums the
-    linear kv and K7 runs its linear epilogue. quant_linear: the block's
-    linears quantised as load_dit quantises them (W8A8 postscale, QKV fused
-    below dim 4096), so the int8 feeds (K12-K14; K15-K17 at 14B) and the
-    GEMMs K8-K11 run on the card and their plain versions on the CPU."""
+           geo: Geometry = G13, v_quant: str = "channel", sla_block: int = 256,
+           proj_l=None, batch: int = 1):
+    """One full-width block of `geo`, card against CPU; returns the launch
+    counts of its card run (set to 0 just before it, read just after).
+    proj_l (default: on for sagesla at 256, off otherwise) makes it
+    non-zero, so the linear branch runs: K6's kv sums and K7's epilogue on
+    the channel path, K21 on the row and `sla` paths. quant_linear: the
+    block's linears quantised as load_dit quantises them (W8A8 postscale,
+    QKV fused below dim 4096), so the int8 feeds (K12-K14; K15-K17 at 14B)
+    and the GEMMs K8-K11 run on the card and their plain versions on the
+    CPU. v_quant and sla_block as `make_wan_cfg` takes them; batch > 1
+    stacks independent random latents and contexts, and the card runs the
+    block twice, bit-equal."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
-    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    from turbodiffusion_tpu_torch.ops.attention import (
+        fused_sla_geometry, get_block_map)
     from turbodiffusion_tpu_torch.ops.fused_norm import (
         modulated_layer_norm, rope_cos_sin_full, rmsnorm_rope)
     from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
@@ -795,24 +1010,26 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         block_map_from_pooled, head_planes, row_rms_inv)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
-    cfg = make_wan_cfg(geo.model, attention, TOPK, quant_linear)
+    cfg = make_wan_cfg(geo.model, attention, TOPK, quant_linear,
+                       sla_block=sla_block, v_quant=v_quant)
     DIM, HEADS = geo.dim, geo.heads
-    fused = attention == "sagesla"
-    if not fused:
+    fused = fused_sla_geometry(cfg.attention, DH)
+    lin = fused and v_quant == "channel" if proj_l is None else proj_l
+    if not lin:
         cfg = cfg.replace(attention=dataclasses.replace(cfg.attention,
                                                         linear_branch=False))
     a = cfg.attention
     dev = torch.device(device)
-    blk = _random_block(cfg, dev, seed=1, proj_l_std=0.05 if fused else 0.0).eval()
+    blk = _random_block(cfg, dev, seed=1, proj_l_std=0.05 if lin else 0.0).eval()
     if quant_linear:
         quantize_wan_blocks([blk], mode="postscale", fuse_qkv=geo.fuse_qkv)
     blk_cpu = copy.deepcopy(blk).cpu()
     g = torch.Generator(device=dev).manual_seed(2)
     T, Hs, Ws = 1, 30, 52
     n = T * Hs * Ws
-    x = torch.randn((1, n, DIM), generator=g, device=dev).bfloat16()
-    e0 = 0.1 * torch.randn((1, 6, DIM), generator=g, device=dev)
-    ctx = torch.randn((1, TEXT, DIM), generator=g, device=dev).bfloat16()
+    x = torch.randn((batch, n, DIM), generator=g, device=dev).bfloat16()
+    e0 = 0.1 * torch.randn((batch, 6, DIM), generator=g, device=dev)
+    ctx = torch.randn((batch, TEXT, DIM), generator=g, device=dev).bfloat16()
     rope = rope_cos_sin_full(rope_freqs_3d(T, Hs, Ws, DH, device=dev))
 
     def block_map(b, x, e0, rope):
@@ -836,17 +1053,26 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         k = rmsnorm_rope(k_proj, sa.norm_k, *rope, num_heads=HEADS, eps=cfg.eps)
         return get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]
 
+    launchers = _launchers()
     cpu_args = (x.cpu(), e0.cpu(), tuple(t.cpu() for t in rope))
     with torch.no_grad():
         lut_gpu = block_map(blk, x, e0, rope).cpu()
         lut_cpu = block_map(blk_cpu, *cpu_args)
         same = (lut_gpu.sort(-1).values == lut_cpu.sort(-1).values).all(-1)
         bad_q = sorted(set((~same).nonzero()[:, 2].tolist()))
+        for fn in launchers.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         out = blk(x, e0, rope, ctx)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         ms_gpu = (time.perf_counter() - t0) * 1e3
+        counts = {name: fn.launches for name, fn in launchers.items()
+                  if fn.launches}
+        if batch > 1 and not torch.equal(out, blk(x, e0, rope, ctx)):
+            # the kernels are deterministic, so a second run matches bit for
+            # bit unless a kernel reads memory that is being reused
+            raise AssertionError(f"phase3 batch {batch}: two card runs differ")
         t0 = time.perf_counter()
         ref = blk_cpu(*cpu_args, ctx.cpu())
         ms_cpu = (time.perf_counter() - t0) * 1e3
@@ -855,25 +1081,30 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         keep[i * a.block_q:(i + 1) * a.block_q] = False
     if not keep.any():
         raise AssertionError(f"phase3 {attention}: every Q-block's LUT differs")
-    label = attention + (" + W8A8" if quant_linear else "")
-    max_err, mean_err, _ = _compare(f"phase3 {label} block",
-                                    out.cpu()[:, keep], ref[:, keep],
-                                    BLOCK_ATOL, BLOCK_RTOL)
+    label = (attention + (" + W8A8" if quant_linear else "")
+             + (f" v_quant {v_quant}" if v_quant != "channel" else "")
+             + (f" blocks {a.block_q}/{a.block_k}" if sla_block != 256 else "")
+             + (f" batch {batch}" if batch > 1 else ""))
+    max_err, mean_err, _, want_mean, _ = _compare(
+        f"phase3 {label} block", out.cpu()[:, keep], ref[:, keep], BLOCK_ATOL,
+        BLOCK_RTOL)
     print(f"phase3 {geo.model} {label} block L={n}"
-          f"{' (proj_l != 0, linear epilogue on)' if fused else ''}: LUT rows "
+          f"{' (proj_l != 0, linear branch on)' if lin else ''}: LUT rows "
           f"equal as sets {int(same.sum())}/{same.numel()} (Q-blocks left out "
           f"of the comparison: {bad_q}) | max_abs_err {max_err:.5g} "
           f"mean_abs_err {mean_err:.5g} (tol atol {BLOCK_ATOL} + rtol "
-          f"{BLOCK_RTOL}) | card {ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms",
+          f"{BLOCK_RTOL}; |want| mean {want_mean:.5g}) | card {ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | "
+          f"{'two card runs bit-equal | ' if batch > 1 else ''}launches {counts}",
           flush=True)
+    return counts
 
 
 def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
-           requests: int):
+           requests: int, create_kw: dict):
     """`requests` 480p/81f requests through WanPipeline.create(geo.model,
-    attention_type=attention, quant_linear=quant_linear), then a traced
-    denoise (`_profile_denoise`); frees the pipeline and returns the launch
-    counts of the last request."""
+    attention_type=attention, quant_linear=quant_linear, **create_kw), then
+    a traced denoise (`_profile_denoise`); frees the pipeline and returns
+    the launch counts of the last request."""
     import torch
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
@@ -883,7 +1114,7 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
     t0 = time.perf_counter()
     pipe = WanPipeline.create(model=geo.model, attention_type=attention,
                               sla_topk=TOPK, quant_linear=quant_linear, seed=0,
-                              device="cuda")
+                              device="cuda", **create_kw)
     torch.cuda.synchronize()
     print(f"phase4 {label} create: {time.perf_counter() - t0:.1f} s, "
           f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -932,7 +1163,9 @@ PROFILE_CATEGORIES = [
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_pack_kvt_kernel",)),
-    ("K6 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
+    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
+    ("K18", ("subquant_pack_kv_kernel",)), ("K19", ("sparse_i8_planes_kernel",)),
+    ("K20", ("sparse_flash_i8qk_kernel",)), ("K21 apply", ("linear_apply_kernel",)),
     # K8-K11 before the library GEMMs: K9-K11's name holds "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
     ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
@@ -1006,20 +1239,37 @@ def main(argv=None) -> int:
 
     smi = phase1()
     kernels = phase2() if 2 in phases else {}
+    block_counts = {}
     if 3 in phases:
         for attention, quant_linear in (("sla", False), ("sagesla", False),
                                         ("sagesla", True), ("sla", True)):
             phase3(attention, quant_linear)
+        # the other sagesla configurations and the linear branch, each block
+        # with the kernels it must launch
+        for label, kw, must in (
+                ("row", dict(attention="sagesla", quant_linear=True,
+                             v_quant="row", proj_l=True), ("K18", "K19", "K21")),
+                ("block64", dict(attention="sagesla", quant_linear=True,
+                                 sla_block=64), ("K2", "K20")),
+                ("sla+proj_l", dict(attention="sla", proj_l=True), ("K3", "K21")),
+                ("batch2", dict(attention="sagesla", quant_linear=True, batch=2),
+                 ("K5", "K6", "K7", "K12", "K13"))):
+            block_counts[label] = phase3(**kw)
+            missing = [n for n in must if not block_counts[label].get(n)]
+            if missing:
+                raise AssertionError(f"phase3 {label}: {missing} never launched")
         phase3("sagesla", True, geo=G14)
     counts = {}
     if 4 in phases:
-        # a kernel's launches come from this slice's path (the 14B, run
-        # last) where it runs there, else from the first earlier path that
-        # runs it
+        # a kernel's launches come from the 14B path (run last) where it
+        # runs there, else from the first earlier path that runs it; K21,
+        # which no request runs (random weights: proj_l = 0), from the
+        # phase-3 block of the row path
         by_path = [phase4(*path) for path in PATHS]
         for path_counts in by_path[-1:] + by_path[:-1]:
             for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c
+        counts["K21"] = block_counts.get("row", {}).get("K21", 0)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts.get(n, 0), **kernels.get(n, {})}

@@ -21,6 +21,7 @@ import torch
 from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
 from turbodiffusion_tpu_torch.ops import flash_attention as fa
 from turbodiffusion_tpu_torch.ops import fused_norm as fn
+from turbodiffusion_tpu_torch.ops import linear_attention as la
 from turbodiffusion_tpu_torch.ops import quant as qt
 from turbodiffusion_tpu_torch.ops import sla_fused as sf
 from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
@@ -388,6 +389,27 @@ def test_k12_matches_plain(dev, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant_out", [False, True])
+def test_k1_k12_at_batch_2_with_the_blocks_modulation(dev, quant_out):
+    """Batch 2 with the modulation as WanAttentionBlock passes it: column
+    views of one (B, 6, D) tensor, which the wrapper copies to (B, D). With
+    L = D, K12's scale output is the size of that copy, so it would take the
+    copy's memory if the wrapper freed the copy before the launch; three
+    launches in a row must each agree with the plain version."""
+    x = (2 * _randn(dev, 2, DIM, DIM)).bfloat16()
+    e = _randn(dev, 2, 6, DIM, seed=1, std=0.5)
+    ms, mb = e[:, 1:2], e[:, 0:1]
+    want = fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=quant_out)
+    for _ in range(3):
+        got = fn.modulated_layer_norm(x, ms, mb, eps=1e-6, quant_out=quant_out)
+        if quant_out:
+            _int8_close(got[0], want[0])
+            _scales_close(got[1], want[1])
+        else:
+            _close(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("heads", [2, 12])
 def test_k13_matches_plain_bitwise(dev, heads):
     """L = 1000 live rows of 1024-row planes: K8's rule on the unfolded
@@ -540,3 +562,88 @@ def test_k1_k12_at_the_14b_width_match_plain(dev, mode):
     want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6, quant_out=True)
     _int8_close(q, want_q)
     _scales_close(s, want_s)
+
+
+# ---------------------------------------------------------------------------
+# K18-K21: v_quant="row", --sla_block 64, the linear branch
+# ---------------------------------------------------------------------------
+
+def _row_operands(dev, L, Lp, seed):
+    """K planes (non-zero mean, zero past L) and per-row int8 V."""
+    k = _randn(dev, 1, HEADS, Lp, DH, seed=seed, std=2.0)
+    k[:, :, L:] = 0
+    k = (k + 0.5).bfloat16()
+    vi, vs = sf._quant_rows(_randn(dev, 1, HEADS, Lp, DH, seed=seed + 1))
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    return k, mu, vi, vs
+
+
+@pytest.mark.cuda
+def test_k18_matches_plain(dev):
+    L, Lp = 1000, 1024
+    k, mu, vi, _ = _row_operands(dev, L, Lp, 30)
+    before = sf._subquant_pack_kv_cuda.launches
+    kvi, ks = sf.subquant_pack_kv(k, mu, vi)
+    assert sf._subquant_pack_kv_cuda.launches == before + 1
+    kvi_p, ks_p = sf.subquant_pack_kv_plain(k, mu, vi)
+    _int8_close(kvi, kvi_p)
+    assert torch.equal(kvi[..., DH:], vi)
+    torch.testing.assert_close(ks, ks_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,bq,bk", [(1000, 512, 256), (300, 128, 64)])
+def test_k19_matches_plain_and_ignores_a_poisoned_tail(dev, L, bq, bk):
+    Lp = -(-L // 512) * 512
+    k, mu, vi, vs = _row_operands(dev, L, Lp, 31)
+    qi, qs = sf._quant_rows(_randn(dev, 1, HEADS, Lp, DH, seed=33))
+    kvi, ks = sf.subquant_pack_kv_plain(k, mu, vi)
+    nQ, nK = Lp // bq, -(-L // bk)
+    r = np.random.RandomState(34)
+    lut = torch.from_numpy(np.stack([r.permutation(nK)[:max(1, nK // 2)]
+                                     for _ in range(HEADS * nQ)])
+                           .reshape(1, HEADS, nQ, -1).astype(np.int32)).to(dev)
+    kw = dict(block_q=bq, block_k=bk, kv_len=L)
+    before = si8._sparse_i8_planes_cuda.launches
+    got = si8.sparse_attention_i8_planes(qi, qs, kvi, ks, vs, lut, **kw)
+    assert si8._sparse_i8_planes_cuda.launches == before + 1
+    _close(got[:, :, :L], si8.sparse_attention_i8_planes_plain(
+        qi, qs, kvi, ks, vs, lut, **kw)[:, :, :L])
+    pk, pks, pvs = kvi.clone(), ks.clone(), vs.clone()
+    pk[:, :, L:], pks[:, :, L:], pvs[:, :, L:] = 127, float("nan"), float("nan")
+    poisoned = si8.sparse_attention_i8_planes(qi, qs, pk, pks, pvs, lut, **kw)
+    assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1100, 300])
+def test_k20_matches_plain(dev, L):
+    q, k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (35, 36, 37))
+    k = k - k.mean(dim=1, keepdim=True)
+    _, lut, _ = get_block_map(q, k, 0.3, 64, 64)
+    before = fa._sparse_flash_i8qk_cuda.launches
+    got = fa._sparse_flash_i8qk_cuda(q, k, v, lut, 64, 64, DH ** -0.5, L)
+    assert fa._sparse_flash_i8qk_cuda.launches == before + 1
+    _close(got, fa.sparse_flash_attention_i8qk_plain(q, k, v, lut, 64, 64))
+
+
+@pytest.mark.cuda
+def test_k21_matches_plain(dev):
+    """Both forms: planes with NaN rows past the true length (which stay out
+    of kv / ksum) and (B, L, H, D) views read through strides."""
+    L, Lp = 2500, 2560                 # two kv partial chunks
+    qp, kp, vp = (_randn(dev, 1, HEADS, Lp, DH, seed=s, std=2.0).bfloat16()
+                  for s in (38, 39, 40))
+    w = _randn(dev, DH, DH, seed=41, std=0.05)
+    b = _randn(dev, DH, seed=42, std=0.1)
+    want = la.linear_projected_planes_plain(qp, kp, vp, w, b, L)
+    kp[:, :, L:], vp[:, :, L:] = float("nan"), float("nan")
+    before = la._linear_projected_cuda.launches
+    got = la.linear_projected_planes(qp, kp, vp, w, b, L)
+    assert la._linear_projected_cuda.launches == before + 1
+    _close(got[:, :, :L], want[:, :, :L])
+    q, k, v = (_randn(dev, 1, 700, HEADS, DH, seed=s, std=2.0).bfloat16()
+               for s in (43, 44, 45))
+    got = la.linear_attention_projected(q, k, v, w, b)
+    assert la._linear_projected_cuda.launches == before + 2
+    _close(got, la.linear_attention_projected_plain(q, k, v, w, b))

@@ -197,16 +197,24 @@ def test_cli_runs_sagesla_on_cpu(tmp_path):
 
 def test_v_quant_reaches_the_config(monkeypatch):
     """--v_quant goes through the CLI, WanPipeline.create and make_wan_cfg
-    into AttentionConfig.v_quant; "row" is refused naming its kernels."""
+    into AttentionConfig.v_quant; "row" builds as JAX's make_wan_cfg does
+    (its kernels, K18 and K19, are ported)."""
+    import turbodiffusion_tpu.pipelines.pipeline as pipeline_jax
     from turbodiffusion_tpu_torch.inference import wan2_1_t2v
     from turbodiffusion_tpu_torch.pipelines import pipeline
     assert pipeline.make_wan_cfg("test", "sagesla").attention.v_quant == "channel"
     cfg = pipeline.make_wan_cfg("Wan2.1-1.3B", "sagesla", v_quant="channel")
     assert (cfg.attention.backend, cfg.attention.v_quant) == ("sagesla", "channel")
-    with pytest.raises(NotImplementedError, match="Queue B item 11"):
-        pipeline.make_wan_cfg("test", "sagesla", v_quant="row")
-    with pytest.raises(NotImplementedError, match="Queue B item 11"):
-        pipeline.WanPipeline.create(model="test", v_quant="row", device="cpu")
+    for model, blk in (("test", 256), ("Wan2.1-1.3B", 64), ("Wan2.1-1.3B", 256)):
+        got = pipeline.make_wan_cfg(model, "sagesla", sla_block=blk,
+                                    v_quant="row").attention
+        want = pipeline_jax.make_wan_cfg(model, "sagesla", sla_block=blk,
+                                         v_quant="row").attention
+        assert (got.backend, got.v_quant, got.block_q, got.block_k) == (
+            want.backend, want.v_quant, want.block_q, want.block_k)
+    pipe = pipeline.WanPipeline.create(model="test", v_quant="row",
+                                       device="cpu")
+    assert pipe.cfg.attention.v_quant == "row"
     seen = {}
 
     def create(**kw):
@@ -227,13 +235,13 @@ def test_v_quant_reaches_the_config(monkeypatch):
                                   ["--v_quant", "row"]])
 def test_cli_refuses_paths_not_ported(monkeypatch, flag):
     """Each flag of a path the port lacks raises naming its ROADMAP item.
-    --quant_linear is ported (the W8A8 linears, K8-K11): the CLI forwards
-    it to WanPipeline.create instead."""
+    --quant_linear (the W8A8 linears, K8-K11) and --v_quant row (K18, K19)
+    are ported: the CLI forwards them to WanPipeline.create instead."""
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
     from turbodiffusion_tpu_torch.pipelines import pipeline
     base = ["--model", "test", "--device", "cpu", "--random_weights",
             "--prompt", "x", "--attention_type", "sla"]
-    if flag == ["--quant_linear"]:
+    if flag in (["--quant_linear"], ["--v_quant", "row"]):
         seen = {}
 
         def create(**kw):
@@ -244,7 +252,9 @@ def test_cli_refuses_paths_not_ported(monkeypatch, flag):
                             staticmethod(create))
         with pytest.raises(SystemExit):
             main(base + flag)
-        assert seen["quant_linear"] is True
+        assert (seen["quant_linear"], seen["v_quant"]) == (
+            flag == ["--quant_linear"],
+            "row" if flag == ["--v_quant", "row"] else "channel")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(base + flag)

@@ -72,40 +72,56 @@ def test_wan_forward_matches_jax(backend, linear_branch):
 
 
 def test_linear_branch_refuses_non_cpu_tensors(monkeypatch):
-    """A non-zero proj_l has no CUDA kernel yet: past the sparse branch, the
-    dispatch refuses a non-CPU tensor rather than run plain torch there
-    (a meta tensor stands in for a card's; the sparse kernel is stubbed)."""
+    """A non-zero proj_l runs K21 (linear_attention_projected) past the
+    sparse branch: a tensor on neither the CPU nor a card (meta) raises
+    instead of running plain torch there; so does K21's planes form (the
+    sparse kernel is stubbed)."""
     from turbodiffusion_tpu_torch.ops import attention as attn
+    from turbodiffusion_tpu_torch.ops import linear_attention as la
     monkeypatch.setattr(attn, "sparse_flash_attention",
                         lambda q, *a, **k: torch.zeros_like(q))
     cfg = AttentionConfig(backend="sla", block_q=8, block_k=8)
     q = torch.zeros(1, 16, 1, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B item 13"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         attn.sla_attention(q, q, q, torch.nn.Linear(8, 8, device="meta"), cfg)
+    p = torch.zeros(1, 2, 512, 128, device="meta")
+    w = torch.zeros(128, 128, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        la.linear_projected_planes(p, p, p, w, w[0], 500)
 
 
 def test_composable_sagesla_refuses_non_cpu_tensors():
-    """sagesla outside the fused geometry needs the composable int8-QK
-    kernels (ROADMAP Queue B item 12): a non-CPU tensor (a meta tensor
-    stands in for a card's) raises instead of running plain torch there;
-    the fused path's wrappers refuse it too."""
+    """sagesla outside the fused geometry at blocks < 128 runs the int8-QK
+    gather (K20), and the row path runs K18 / K19: their wrappers refuse a
+    tensor on neither the CPU nor a card (meta) instead of running plain
+    torch there, as the fused path's wrappers do. At blocks >= 128 (a head
+    dim that is no multiple of 128) a non-CPU tensor raises naming its
+    ROADMAP item."""
     from turbodiffusion_tpu_torch.ops import attention as attn
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
     cfg = AttentionConfig(backend="sagesla", block_q=8, block_k=8)
     q = torch.zeros(1, 16, 1, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B item 12"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         attn.attention(q, q, q, cfg)
+    cfg128 = AttentionConfig(backend="sagesla", block_q=128, block_k=128)
+    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+        attn.attention(q, q, q, cfg128)
     x = torch.zeros(1, 16, 256, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         sf.head_planes(x, num_heads=2)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        sf.subquant_pack_kvt(torch.zeros(1, 2, 512, 128, device="meta"),
-                             None, None, 256)
+    kp = torch.zeros(1, 2, 512, 128, device="meta")
     i8 = torch.zeros(1, 2, 512, 128, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sf.subquant_pack_kvt(kp, None, None, 256)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sf.subquant_pack_kv(kp, None, i8)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         si8.sparse_attention_i8_vt(i8, None, i8, None, None, None, None,
                                    block_q=512)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        si8.sparse_attention_i8_planes(i8, None, i8, None, None, None,
+                                       block_q=512)
 
 
 def test_patchify_and_unpatchify_match_jax():

@@ -40,9 +40,8 @@ class AttentionConfig:
     block_q/block_k: block-map granularity of the sparse branch.
     linear_branch: False when every `proj_l` is zero — the linear
     compensation branch then contributes exactly zero and is skipped.
-    v_quant: INT8 V granularity of sagesla: "channel" (per head and
-    channel, the fused path's) or "row" (per token; its kernels are
-    ROADMAP Queue B item 11, so the port refuses it).
+    v_quant: INT8 V granularity of the fused sagesla path: "channel" (per
+    head and channel; K6 + K7) or "row" (per token; K18 + K19).
     """
 
     backend: str = "dense"

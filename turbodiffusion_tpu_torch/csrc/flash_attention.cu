@@ -61,11 +61,38 @@
 // computes them. The first pass costs a second QK product and K stream.
 // A first, simple version: loads are synchronous (no cp.async/TMA ring) and
 // there is no wgmma; both are later work.
+//
+// K20 tdx_sparse_flash_attention_i8qk replaces the int8-QK sparse branch of
+//    flash_pallas.py:_flash_fwd_impl for blocks < 128 (body
+//    _sparse_attn_kernel with int8_qk=True), which sagesla at --sla_block 64
+//    takes: K3's gather, with Q quantised per row once (qq = round(q * (127 /
+//    qa)), qa = max(max |q|, 1e-6)) and every gathered K row the same way, so
+//    QK runs on mma.sync m16n8k32 s8 x s8 -> s32 (exact) and
+//    s = ((s32 * (qa / 127)) * (ka / 127)) * Dh^-0.5 in fp32; natural exp
+//    (the TPU kernel's domain), P in bf16 against bf16 V, o = O / max(l,
+//    1e-20). The caller subtracts K's mean first (smooth-k, plain torch).
+//    Bound by tensor-core math like K3 (at 64/64 and 1.3B 480p: 51 of 512
+//    K-blocks a Q-block, 3.3e11 int8 + 3.3e11 bf16 operations), but a
+//    64-row block gathers ~1.6 MB of K and V from device memory (one 64-key
+//    chunk a LUT entry, ~10 GB a call), which the 50 MB L2 serves while
+//    the heads run in order (a head's K and V are 16.8 MB). A K row's int8
+//    values do not depend on the Q block that gathers it, so a first
+//    launch quantises every K row once (a warp a row, a lane 4 channels, the
+//    row's absmax one warp reduction) into (B, H, Lk, 128) int8 and its
+//    scale, and the gather stages int8 K rows as K7 does, where the TPU
+//    kernel requantises each gathered block (at 64/64 each K row is
+//    gathered by ~51 Q blocks); V is staged transposed as K3 stages it.
+//    Keys at or past kv_len are zero-filled and masked to -1e30 before the
+//    row max;
+//    JAX's LUT padding to a group (block nK, past K's end) has no
+//    counterpart: the kernel loops over exactly `sel` entries.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_step.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,24 +111,6 @@ constexpr float kNegInf = -1e30f;
 struct Strides {
   long long b, l, h;
 };
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Copy a kBM x kDh tile of rows [row0, row0 + kBM) into dst (row stride
 // kKStride), zero-filling rows >= nrows. 16 bytes per thread per step,
@@ -218,62 +227,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-    // scale, mask columns past kv_len, row max over the quad
+    // scale (log2 domain), mask columns past kv_len; the softmax step and
+    // O += P V with P (bf16) taken from the S accumulators
     const int nvalid = kv_len - key0;
-    float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t * 2 + (e & 1);
         s[j][e] = col < nvalid ? s[j][e] * scale_log2 : kNegInf;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) {
-      acc[d][0] *= alpha0;
-      acc[d][1] *= alpha0;
-      acc[d][2] *= alpha1;
-      acc[d][3] *= alpha1;
-    }
-
-    // O += P V: P (bf16) comes from the S accumulators as A fragments.
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int d = 0; d < kDh / 8; ++d) {
-        const __nv_bfloat16* vp = Vt + (d * 8 + g) * kVStride + kk * 16 + t * 2;
-        mma_bf16(acc[d], pa, lds32(vp), lds32(vp + 8));
-      }
-    }
+    softmax_pv_step<true, kVStride>(s, acc, m0, m1, l0, l1, Vt);
   }
 
   // finalize: full row sums over the quad, normalise, write rows < Lq
@@ -294,6 +258,186 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     if (r1 < Lq)
       *reinterpret_cast<uint32_t*>(ob + (long long)r1 * os.l + col) =
           pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K20
+// ---------------------------------------------------------------------------
+
+constexpr int kI8Stride = kDh + 16;   // bytes per int8 row of Qi / Ki
+
+// One row's channels 4 lane .. 4 lane + 3 (a warp a row) -> their int8
+// values packed in a word, quantised per row as the TPU kernel does:
+// round(x * (127 / amax)), amax = max(max |x|, 1e-6); `scale` gets amax / 127
+// (the same in every lane).
+__device__ __forceinline__ uint32_t quant_row4_i8(uint2 u, float& scale) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(p2[0]), c = __bfloat1622float2(p2[1]);
+  const float f[4] = {a.x, a.y, c.x, c.y};
+  float amax = fmaxf(fmaxf(fabsf(f[0]), fabsf(f[1])), fmaxf(fabsf(f[2]), fabsf(f[3])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  amax = fmaxf(amax, 1e-6f);
+  const float mul = __fdiv_rn(127.f, amax);
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int q = max(-127, min(127, __float2int_rn(__fmul_rn(f[e], mul))));
+    w |= (uint32_t)(q & 0xff) << (8 * e);
+  }
+  scale = __fdiv_rn(amax, 127.f);
+  return w;
+}
+
+// Rows [row0 + 16 warp, + 16) of src (row stride sl, zero past nrows) ->
+// int8 rows of dst by quant_row4_i8, each row's scale into scale[]. The
+// warp issues its 16 rows' loads before it reduces any, so it waits on
+// memory once a chunk rather than once a row.
+__device__ __forceinline__ void quant_rows_i8(int8_t* dst, float* scale,
+                                              const __nv_bfloat16* src, long long sl,
+                                              int row0, int nrows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint2 u[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = row0 + warp * 16 + i;
+    u[i] = r < nrows ? *reinterpret_cast<const uint2*>(src + (long long)r * sl + lane * 4)
+                     : make_uint2(0, 0);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i;
+    float sc;
+    *reinterpret_cast<uint32_t*>(dst + r * kI8Stride + lane * 4) = quant_row4_i8(u[i], sc);
+    if (lane == 0) scale[r] = sc;
+  }
+}
+
+// K20's first launch: every K row (b, l, h), read through strides, ->
+// int8 kq (B, H, Lk, 128) and ka / 127 (B, H, Lk) by quant_row4_i8 (a warp a
+// row), so the gather reads the values the TPU kernel computes for each
+// gathered block.
+__global__ void __launch_bounds__(256)
+i8qk_quant_k_kernel(const __nv_bfloat16* __restrict__ k, int8_t* __restrict__ kq,
+                    float* __restrict__ ksc, int Lk, Strides ks) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = blockIdx.x * 8 + warp, h = blockIdx.y, b = blockIdx.z;
+  if (l >= Lk) return;
+  const uint2 u = *reinterpret_cast<const uint2*>(k + b * ks.b + h * ks.h + l * ks.l + lane * 4);
+  float sc;
+  const uint32_t w = quant_row4_i8(u, sc);
+  const size_t row = ((size_t)b * gridDim.y + h) * Lk + l;
+  *reinterpret_cast<uint32_t*>(kq + row * kDh + lane * 4) = w;
+  if (lane == 0) ksc[row] = sc;
+}
+
+// Grid (ceil(Lq / 64), H, B), 4 warps of 16 query rows.
+__global__ void __launch_bounds__(kThreads)
+sparse_flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
+                         const float* __restrict__ ksc, const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, const int* __restrict__ lut, int H,
+                         int Lq, int Lk, int kv_len, int nQ, int sel, int block_q, int block_k,
+                         Strides qs, Strides vs, Strides os, float scale) {
+  __shared__ __align__(16) int8_t Ki[kBN * kI8Stride];       // Q staging, then K chunks
+  __shared__ __align__(16) __nv_bfloat16 Vt[kDh * kVStride];
+  __shared__ float s_qa[kBM], s_ka[kBN];
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = blockIdx.x * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const size_t bh = (size_t)b * H + h;
+  const int8_t* kqb = kq + bh * Lk * kDh;
+  const float* kab = ksc + bh * Lk;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+
+  // Q rows -> int8 A fragments (m16n8k32), their scales qa / 127
+  quant_rows_i8(Ki, s_qa, qb, qs.l, row0, Lq);
+  __syncthreads();
+  uint32_t qa[kDh / 32][4];
+  {
+    const int8_t* base = Ki + (warp * 16) * kI8Stride;
+#pragma unroll
+    for (int kk = 0; kk < kDh / 32; ++kk) {
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(base + g * kI8Stride + kk * 32 + t * 4);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * kI8Stride + kk * 32 + t * 4);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + g * kI8Stride + kk * 32 + 16 + t * 4);
+      qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * kI8Stride + kk * 32 + 16 + t * 4);
+    }
+  }
+  const float qa0 = s_qa[warp * 16 + g], qa1 = s_qa[warp * 16 + g + 8];
+
+  float acc[kDh / 8][4];
+#pragma unroll
+  for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;
+  float l0 = 0.f, l1 = 0.f;
+
+  const int* lut_row = lut + (bh * nQ + row0 / block_q) * sel;
+  const int per = block_k / kBN;
+  const int n_chunks = sel * per;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int key0 = lut_row[c / per] * block_k + (c % per) * kBN;
+    // wholly past the tail (or an id out of range): no valid column
+    if (key0 < 0 || key0 >= kv_len) continue;
+    __syncthreads();  // previous chunk (or the Q fragments' staging) consumed
+    for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
+      const int r = u >> 3, cc = u & 7;
+      *reinterpret_cast<uint4*>(Ki + r * kI8Stride + cc * 16) =
+          key0 + r < kv_len
+              ? *reinterpret_cast<const uint4*>(kqb + (size_t)(key0 + r) * kDh + cc * 16)
+              : make_uint4(0, 0, 0, 0);
+    }
+    if (threadIdx.x < kBN)
+      s_ka[threadIdx.x] = key0 + threadIdx.x < kv_len ? kab[key0 + threadIdx.x] : 0.f;
+    load_v_transposed(Vt, vb, vs, key0, kv_len);
+    __syncthreads();
+
+    // s = ((s32 * qa') * ka') * scale for this warp's 16 rows x 64 keys
+    const int nvalid = kv_len - key0;
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      int si[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int kk = 0; kk < kDh / 32; ++kk) {
+        const int8_t* kq = Ki + (j * 8 + g) * kI8Stride + kk * 32 + t * 4;
+        mma_s8(si, qa[kk], *reinterpret_cast<const uint32_t*>(kq),
+               *reinterpret_cast<const uint32_t*>(kq + 16));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + t * 2 + (e & 1);
+        const float x = __fmul_rn(__fmul_rn(__fmul_rn((float)si[e], e < 2 ? qa0 : qa1),
+                                            s_ka[col]), scale);
+        s[j][e] = col < nvalid ? x : kNegInf;
+      }
+    }
+    // natural exp; O += P V with P (bf16) from the S accumulators
+    softmax_pv_step<false, kVStride>(s, acc, m0, m1, l0, l1, Vt);
+  }
+
+  // finalize: full row sums over the quad, o = O / max(l, 1e-20), rows < Lq
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-20f);
+  l1 = fmaxf(l1, 1e-20f);
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int d = 0; d < kDh / 8; ++d) {
+    const int col = d * 8 + t * 2;
+    if (r0 < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * os.l + col) =
+          pack_bf16(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
+    if (r1 < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * os.l + col) =
+          pack_bf16(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
   }
 }
 
@@ -585,6 +729,25 @@ extern "C" int tdx_sparse_flash_attention(
       (__nv_bfloat16*)o, (const int*)lut, H, Lq, kv_len, nQ, sel, block_q, block_k,
       Strides{qsb, qsl, qsh}, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
       Strides{osb, osl, osh}, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_sparse_flash_attention_i8qk(
+    const void* q, const void* k, const void* v, void* o, const void* lut, void* kq,
+    void* ksc, int B, int H, int Lq, int Lk, int kv_len, int nQ, int sel, int block_q,
+    int block_k, long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
+    long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
+    long long osl, long long osh, float scale, void* stream) {
+  if (block_q % kBM || block_k % kBN || kv_len > Lk) return (int)cudaErrorInvalidValue;
+  i8qk_quant_k_kernel<<<dim3((Lk + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (int8_t*)kq, (float*)ksc, Lk, Strides{ksb, ksl, ksh});
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid((Lq + kBM - 1) / kBM, H, B);
+  sparse_flash_i8qk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, (const int*)lut, H, Lq, Lk, kv_len, nQ, sel, block_q, block_k,
+      Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh}, scale);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,8 @@
 //    fp32 scale per block_k rows (rows >= kv_len stay out of the statistic),
 //    and the per-block transposed int8 V panel (B, H, nK, 128, block_k) that
 //    K7 stages without a transpose. With the linear branch on, tdx_linear_kv
-//    adds kv = sum softmax_D(k)^T v_i8 (B, H, 128, 128) and ksum = sum
-//    softmax_D(k) over rows < kv_len.
+//    (csrc/linear_attention.cu, shared with K21) adds kv = sum softmax_D(k)^T
+//    v_i8 (B, H, 128, 128) and ksum = sum softmax_D(k) over rows < kv_len.
 // K13 tdx_unfold_quant replaces sla_fused.py:unfold_quant, narrow form (body
 //    _unfold_quant_kernel): K7's bf16 planes (B, H, Lp, Dh) -> the int8 feed of
 //    the W8A8 O projection, (B, L, H*Dh) int8 with one fp32 scale per token
@@ -23,6 +23,13 @@
 //    (B, L, W) bf16 rows `ld` elements apart -> (B, L) fp32
 //    rsqrt(mean(x^2) + eps), the full-row statistic that K5's external-RMS
 //    mode and K17 read for the wide models (14B: dim 5120).
+// K18 tdx_subquant_pack_kv replaces sla_fused.py:subquant_pack_kv in its
+//    per-row mode (body _subquant_pack_kernel with block_k 0), the
+//    v_quant=row producer: xf = f32(k) - mu, one fp32 scale per row, int8 K
+//    written into the first half of a packed (B, H, Lp, 256) K|V row and the
+//    per-row int8 V row (K5's) copied into the second half: the layout K19
+//    gathers, one 256-byte row a key. No trailing poison block and no
+//    (TL/128, 128) scale relayout: K19 masks keys past kv_len by column.
 // K16 tdx_unfold_quant_wide replaces sla_fused.py:unfold_quant, wide form
 //    (H*Dh > 4096; bodies _unfold_scale_kernel and _unfold_write_kernel, two
 //    TPU passes): K13's function with the wide kernel's rule, one launch.
@@ -43,12 +50,15 @@
 //   * K6: one 256-thread block per (b, h, K block): the block absmax over
 //     valid rows, a second read of the block (an L2 hit) to quantise, and the
 //     V block transposed through shared memory.
-//   * tdx_linear_kv: the kv sum crosses thread blocks, so it is two passes:
-//     per-2048-row partials of softmax_D(k)^T v (fp32 FMAs, 8 x 8 outputs a
-//     thread, 32-row slabs in shared memory), then an ordered sum of the
-//     partials. Deterministic. It re-reads K and V, where the TPU kernel
-//     folds the sums into its K/V walk; the main path (random weights, so
-//     proj_l = 0) does not run it.
+//   * tdx_linear_kv (csrc/linear_attention.cu) re-reads K and V, where the
+//     TPU kernel folds the sums into its K/V walk; the main path (random
+//     weights, so proj_l = 0) does not run it.
+//   * K18: memory-bound (1.3B 480p: 100.7 MB of K and 50.3 MB of V in,
+//     100.7 MB of K|V and 1.6 MB of scales out, 0.076 ms). One warp per row,
+//     8-byte K loads, 4-byte V copies and 4-byte int8 stores a lane, all
+//     coalesced; the row absmax is one warp reduction. K8's rule (fp32
+//     subtract, 1.0f / scale then a multiply, round half to even), so it is
+//     bit-equal to the TPU kernel.
 // The arithmetic follows the JAX chain: RMS over the whole row in fp32, a
 // bf16 round, a bf16 product with the weight, fp32 RoPE; the int8 plane and
 // the pooled means come from that fp32 value; scale = max(amax, 1e-8) *
@@ -93,8 +103,6 @@ constexpr float kInvInt8 = 1.0f / 127.0f;
 constexpr int kSqThreads = 256;
 constexpr int kMaxBlockK = 256;
 constexpr int kVTileStride = kDh + 4;          // bytes per row of K6's V tile
-constexpr int kLinRows = 2048;                 // rows of one linear-kv partial
-constexpr int kLinSub = 32;                    // rows of one shared slab
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -398,104 +406,45 @@ subquant_pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __res
   }
 }
 
-// Partial sums of softmax_D(k)^T v and softmax_D(k) over rows
-// [chunk * kLinRows, min(kv_len, (chunk + 1) * kLinRows)): part holds, per
-// (b, h, chunk), 128 rows of kv then one row of ksum.
-__global__ void __launch_bounds__(256)
-linear_kv_partial_kernel(const __nv_bfloat16* __restrict__ k, const int8_t* __restrict__ v,
-                         float* __restrict__ part, int H, int Lp, int kv_len,
-                         int n_chunks) {
-  __shared__ __align__(16) float sphi[kLinSub * kDh];
-  __shared__ __align__(16) float sv[kLinSub * kDh];
-  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
+// ---------------------------------------------------------------------------
+// K18
+// ---------------------------------------------------------------------------
+
+constexpr int kSpWarps = 8;
+
+// One warp per row of the (B*H*Lp) K planes: a lane owns channels
+// 4 lane .. 4 lane + 3 of K (8 bytes) and of V (4 bytes). The packed row is
+// 128 bytes of int8 K then the 128 bytes of the V row.
+__global__ void __launch_bounds__(kSpWarps * 32)
+subquant_pack_kv_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
+                        const int8_t* __restrict__ v, int8_t* __restrict__ kvi,
+                        float* __restrict__ ks, int rows, int Lp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int row_begin = chunk * kLinRows;
-  const int row_end = min(kv_len, row_begin + kLinRows);
-
-  float acc[8][8], ksa[8];
+  const int row = blockIdx.x * kSpWarps + warp;
+  if (row >= rows) return;
+  const size_t bh = row / Lp;
+  const uint2 u = *reinterpret_cast<const uint2*>(k + (size_t)row * kDh + lane * 4);
+  const float4 m = *reinterpret_cast<const float4*>(mu + bh * kDh + lane * 4);
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(p2[0]), c = __bfloat1622float2(p2[1]);
+  float f[4] = {__fsub_rn(a.x, m.x), __fsub_rn(a.y, m.y), __fsub_rn(c.x, m.z),
+                __fsub_rn(c.y, m.w)};
+  const float amax = warp_max(fmaxf(fmaxf(fabsf(f[0]), fabsf(f[1])),
+                                    fmaxf(fabsf(f[2]), fabsf(f[3]))));
+  const float scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+  const float inv = 1.f / scale;
+  uint32_t w = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    ksa[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    int q = __float2int_rn(__fmul_rn(f[i], inv));
+    q = max(-127, min(127, q));
+    w |= (uint32_t)(q & 0xff) << (8 * i);
   }
-  for (int base = row_begin; base < row_end; base += kLinSub) {
-    // phi = softmax over the 128 channels of the raw k row: 4 rows a warp
-#pragma unroll
-    for (int rr = 0; rr < kLinSub / 8; ++rr) {
-      const int lr = warp * (kLinSub / 8) + rr, row = base + lr;
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row < row_end) {
-        const uint2 u = *reinterpret_cast<const uint2*>(k + (bh * Lp + row) * kDh + lane * 4);
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-        const float2 a = __bfloat1622float2(p2[0]), c2 = __bfloat1622float2(p2[1]);
-        f[0] = a.x; f[1] = a.y; f[2] = c2.x; f[3] = c2.y;
-        const float mx = warp_max(fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3])));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) f[e] = expf(f[e] - mx);
-        const float s = warp_sum(f[0] + f[1] + f[2] + f[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) f[e] = f[e] / s;
-      }
-      *reinterpret_cast<float4*>(sphi + lr * kDh + lane * 4) = make_float4(f[0], f[1], f[2], f[3]);
-    }
-    {
-      const int lr = threadIdx.x >> 3, c16 = threadIdx.x & 7, row = base + lr;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (row < row_end)
-        u = *reinterpret_cast<const uint4*>(v + (bh * Lp + row) * kDh + c16 * 16);
-      const int8_t* q = reinterpret_cast<const int8_t*>(&u);
-      float* dst = sv + lr * kDh + c16 * 16;
-#pragma unroll
-      for (int e = 0; e < 16; e += 4)
-        *reinterpret_cast<float4*>(dst + e) =
-            make_float4((float)q[e], (float)q[e + 1], (float)q[e + 2], (float)q[e + 3]);
-    }
-    __syncthreads();
-    for (int rr = 0; rr < kLinSub; ++rr) {
-      float pd[8], vv[8];
-      *reinterpret_cast<float4*>(pd) = *reinterpret_cast<const float4*>(sphi + rr * kDh + ty * 8);
-      *reinterpret_cast<float4*>(pd + 4) = *reinterpret_cast<const float4*>(sphi + rr * kDh + ty * 8 + 4);
-      *reinterpret_cast<float4*>(vv) = *reinterpret_cast<const float4*>(sv + rr * kDh + tx * 8);
-      *reinterpret_cast<float4*>(vv + 4) = *reinterpret_cast<const float4*>(sv + rr * kDh + tx * 8 + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        ksa[i] += pd[i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pd[i], vv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + (bh * n_chunks + chunk) * (size_t)(kDh + 1) * kDh;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* o = out + (size_t)(ty * 8 + i) * kDh + tx * 8;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[(size_t)kDh * kDh + ty * 8 + i] = ksa[i];
-  }
-}
-
-// kv (B, H, 128, 128) and ksum (B, H, 1, 128): the partials summed in order.
-__global__ void __launch_bounds__(256)
-linear_kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
-                        float* __restrict__ ksum, int n_chunks) {
-  const size_t bh = blockIdx.x;
-  constexpr int kN = (kDh + 1) * kDh;
-  for (int idx = threadIdx.x; idx < kN; idx += 256) {
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += part[(bh * n_chunks + c) * kN + idx];
-    if (idx < kDh * kDh)
-      kv[bh * kDh * kDh + idx] = s;
-    else
-      ksum[bh * kDh + idx - kDh * kDh] = s;
-  }
+  int8_t* out = kvi + (size_t)row * 2 * kDh;
+  *reinterpret_cast<uint32_t*>(out + lane * 4) = w;
+  *reinterpret_cast<uint32_t*>(out + kDh + lane * 4) =
+      *reinterpret_cast<const uint32_t*>(v + (size_t)row * kDh + lane * 4);
+  if (lane == 0) ks[row] = scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -673,16 +622,13 @@ extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int tdx_linear_kv(const void* k, const void* v, void* part, void* kv,
-                             void* ksum, int B, int H, int Lp, int kv_len,
-                             int n_chunks, void* stream) {
-  const dim3 grid(n_chunks, H, B);
-  linear_kv_partial_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)k, (const int8_t*)v, (float*)part, H, Lp, kv_len,
-      n_chunks);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  linear_kv_reduce_kernel<<<B * H, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (float*)kv, (float*)ksum, n_chunks);
+extern "C" int tdx_subquant_pack_kv(const void* k, const void* mu, const void* v, void* kvi,
+                                    void* ks, int BH, int Lp, void* stream) {
+  if (BH <= 0 || Lp <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = BH * Lp;
+  subquant_pack_kv_kernel<<<(rows + kSpWarps - 1) / kSpWarps, kSpWarps * 32, 0,
+                            (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kvi, (float*)ks,
+      rows, Lp);
   return (int)cudaGetLastError();
 }

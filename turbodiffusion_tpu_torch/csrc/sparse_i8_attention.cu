@@ -1,4 +1,4 @@
-// K7: block-sparse INT8 SageSLA attention for sm_90a.
+// K7 and K19: block-sparse INT8 SageSLA attention for sm_90a.
 //
 // K7 tdx_sparse_attention_i8_vt replaces the TPU kernel
 //    turbodiffusion_tpu/ops/flash_pallas.py:sparse_attention_i8_vt (body
@@ -35,10 +35,32 @@
 //     time.
 // A first, simple version: synchronous loads (no cp.async or TMA ring) and
 // no wgmma; both are later work.
+//
+// K19 tdx_sparse_attention_i8_planes replaces the per-row form of the TPU
+//    kernel turbodiffusion_tpu/ops/flash_pallas.py:sparse_attention_i8_planes
+//    (body _sparse_attn_kernel_i8, metadata rows built at :1391-1421), the
+//    v_quant=row path: int8 Q with per-row scales (the softmax scale folded
+//    in, qs * Dh^-0.5), and K18's packed (B, H, Lk, 256) K|V rows with
+//    per-row fp32 K and V scales.
+//    s = (int32(q . k) * (qs * Dh^-0.5)) * ks, natural exp (the TPU kernel's
+//    domain), and V's row scale folded into P before its bf16 rounding:
+//    O += bf16(p * vs) bf16(v_i8); o = O / max(l, 1e-20) with l the sum of
+//    the unscaled p. Bound like K7 by tensor-core math (the same pair count;
+//    the PV product scales P per key instead of O per channel). K7's main
+//    loop with three changes: the K and V halves of a chunk come from one
+//    packed 256-byte row a key (V converted to bf16 and transposed as it is
+//    staged, as K3 stages bf16 V); the chunk's 64 K and V row scales are
+//    staged in shared memory, the V scales zeroed past kv_len; p is
+//    rescaled per key before it is packed into the A fragments of P V.
+//    Keys at or past kv_len get -1e30 before the row max: the port's rule
+//    for K3 / K4 / K7, which replaces the TPU's poison block (LUT padding
+//    pointing at a zero block with a -1e30 bias).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_step.cuh"
 
 namespace {
 
@@ -55,33 +77,6 @@ constexpr int kEpiBytes = (kBM * kPhiStride + kKvRows * kDh) * 4;
 constexpr int kSmemBytes = kMainBytes > kEpiBytes ? kMainBytes : kEpiBytes;
 constexpr float kNegInf = -1e30f;            // running-max start
 constexpr float kMasked = -1e9f;             // score of a key >= kv_len
-
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __global__ void __launch_bounds__(kThreads)
 sparse_i8_vt_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
@@ -181,55 +176,8 @@ sparse_i8_vt_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
       }
     }
 
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) {
-      acc[d][0] *= alpha0;
-      acc[d][1] *= alpha0;
-      acc[d][2] *= alpha1;
-      acc[d][3] *= alpha1;
-    }
-
-    // O += P V with bf16 P taken from the S accumulators
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int d = 0; d < kDh / 8; ++d) {
-        const __nv_bfloat16* vp = Vt + (d * 8 + g) * kVStride + kk * 16 + t * 2;
-        mma_bf16(acc[d], pa, lds32(vp), lds32(vp + 8));
-      }
-    }
+    // log2 domain; O += P V with bf16 P taken from the S accumulators
+    softmax_pv_step<true, kVStride>(s, acc, m0, m1, l0, l1, Vt);
   }
 
   // o = acc / max(l, 1e-20) * vch
@@ -339,6 +287,130 @@ sparse_i8_vt_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
   }
 }
 
+
+// K19. Grid (Lp / 64, H, B), 4 warps of 16 query rows.
+__global__ void __launch_bounds__(kThreads)
+sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
+                        const int8_t* __restrict__ kvi, const float* __restrict__ ks,
+                        const float* __restrict__ vs, const int* __restrict__ lut,
+                        __nv_bfloat16* __restrict__ out, int H, int Lp, int Lkp, int kv_len,
+                        int nQ, int sel, int block_q, int block_k, float scale) {
+  __shared__ __align__(16) unsigned char smem[kMainBytes];
+  __shared__ float s_ks[kBN], s_vs[kBN];
+  int8_t* Ks = reinterpret_cast<int8_t*>(smem);
+  __nv_bfloat16* Vt = reinterpret_cast<__nv_bfloat16*>(smem + kBM * kKStride);
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = blockIdx.x * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t bh = (size_t)b * H + h;
+  const int nK = Lkp / block_k;
+
+  // Q rows -> int8 A fragments, as K7
+  const int8_t* qb = qi + (bh * Lp + row0) * kDh;
+  for (int u = threadIdx.x; u < kBM * (kDh / 16); u += kThreads) {
+    const int r = u >> 3, c = u & 7;
+    *reinterpret_cast<uint4*>(Ks + r * kKStride + c * 16) =
+        *reinterpret_cast<const uint4*>(qb + (size_t)r * kDh + c * 16);
+  }
+  __syncthreads();
+  uint32_t qa[kDh / 32][4];
+  {
+    const int8_t* base = Ks + (warp * 16) * kKStride;
+#pragma unroll
+    for (int kk = 0; kk < kDh / 32; ++kk) {
+      qa[kk][0] = lds32(base + g * kKStride + kk * 32 + t * 4);
+      qa[kk][1] = lds32(base + (g + 8) * kKStride + kk * 32 + t * 4);
+      qa[kk][2] = lds32(base + g * kKStride + kk * 32 + 16 + t * 4);
+      qa[kk][3] = lds32(base + (g + 8) * kKStride + kk * 32 + 16 + t * 4);
+    }
+  }
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  // the softmax scale folds into the row scale (flash_pallas.py:1319)
+  const float qs0 = __fmul_rn(qs[bh * Lp + r0], scale);
+  const float qs1 = __fmul_rn(qs[bh * Lp + r1], scale);
+
+  float acc[kDh / 8][4];
+#pragma unroll
+  for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;
+  float l0 = 0.f, l1 = 0.f;
+
+  const int* lut_row = lut + (bh * nQ + row0 / block_q) * sel;
+  const int per = block_k / kBN;
+  const int n_chunks = sel * per;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int kb = lut_row[c / per];
+    const int key0 = kb * block_k + (c % per) * kBN;
+    if (kb < 0 || kb >= nK || key0 >= kv_len) continue;
+    __syncthreads();  // previous chunk (or the Q staging) fully consumed
+    const int8_t* src = kvi + (bh * Lkp + key0) * (2 * kDh);
+    for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
+      const int r = u >> 3, cc = u & 7;
+      *reinterpret_cast<uint4*>(Ks + r * kKStride + cc * 16) =
+          *reinterpret_cast<const uint4*>(src + (size_t)r * 2 * kDh + cc * 16);
+    }
+    // V half -> bf16 (exact), transposed: keys walk fastest so the 2-byte
+    // shared stores of a warp fall in distinct words
+    for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
+      const int r = u % kBN, c16 = u / kBN;
+      const uint4 val = *reinterpret_cast<const uint4*>(src + (size_t)r * 2 * kDh + kDh + c16 * 16);
+      const int8_t* q8 = reinterpret_cast<const int8_t*>(&val);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) Vt[(c16 * 16 + e) * kVStride + r] = __float2bfloat16_rn((float)q8[e]);
+    }
+    if (threadIdx.x < kBN) {
+      const int key = key0 + threadIdx.x;
+      const bool live = key < kv_len;
+      s_ks[threadIdx.x] = live ? ks[bh * Lkp + key] : 0.f;
+      s_vs[threadIdx.x] = live ? vs[bh * Lkp + key] : 0.f;
+    }
+    __syncthreads();
+
+    // s = (s32 * qs') * ks for this warp's 16 rows x 64 keys, keys >= kv_len
+    // masked
+    const int nvalid = kv_len - key0;
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      int si[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int kk = 0; kk < kDh / 32; ++kk) {
+        const int8_t* kq = Ks + (j * 8 + g) * kKStride + kk * 32 + t * 4;
+        mma_s8(si, qa[kk], lds32(kq), lds32(kq + 16));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + t * 2 + (e & 1);
+        const float v = __fmul_rn(__fmul_rn((float)si[e], e < 2 ? qs0 : qs1), s_ks[col]);
+        s[j][e] = col < nvalid ? v : kNegInf;
+      }
+    }
+
+    // natural exp; O += bf16(p * vs) V
+    softmax_pv_step<false, kVStride>(s, acc, m0, m1, l0, l1, Vt, s_vs);
+  }
+
+  // o = acc / max(l, 1e-20)
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  l0 = fmaxf(l0, 1e-20f);
+  l1 = fmaxf(l1, 1e-20f);
+  __nv_bfloat16* ob = out + bh * Lp * kDh;
+#pragma unroll
+  for (int d = 0; d < kDh / 8; ++d) {
+    const int col = d * 8 + t * 2;
+    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kDh + col) =
+        pack_bf16(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
+    *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * kDh + col) =
+        pack_bf16(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
+  }
+}
+
 }  // namespace
 
 extern "C" int tdx_sparse_attention_i8_vt(
@@ -353,5 +425,18 @@ extern "C" int tdx_sparse_attention_i8_vt(
       (const float*)ks, (const float*)vch, (const int*)lut, (const float*)kvw,
       (const float*)ksb, (__nv_bfloat16*)out, H, Lp, Lkp, kv_len, nQ, sel, block_q,
       block_k, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_sparse_attention_i8_planes(
+    const void* qi, const void* qs, const void* kvi, const void* ks, const void* vs,
+    const void* lut, void* out, int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel,
+    int block_q, int block_k, float scale, void* stream) {
+  if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Lp / kBM, H, B);
+  sparse_i8_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)qi, (const float*)qs, (const int8_t*)kvi, (const float*)ks,
+      (const float*)vs, (const int*)lut, (__nv_bfloat16*)out, H, Lp, Lkp, kv_len, nQ, sel,
+      block_q, block_k, scale);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ NotImplementedError naming their ROADMAP item.
 Usage:
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
       --prompt "..." [--attention_type sagesla|sla|original] [--quant_linear]
-      [--num_steps 4]
+      [--v_quant channel|row] [--sla_block 64|128|256] [--num_steps 4]
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
       --model Wan2.1-14B --quant_linear --prompt "..."   # W8A8 sagesla only
 """
@@ -79,10 +79,6 @@ def main(argv=None):
     for flag, why in _NOT_YET.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {why}")
-    if args.v_quant != "channel":
-        raise NotImplementedError(
-            f"--v_quant {args.v_quant}: per-row INT8 V waits for ROADMAP "
-            "Queue B item 11")
     if args.prompt is None:
         raise SystemExit("--prompt is required")
     if not args.random_weights:

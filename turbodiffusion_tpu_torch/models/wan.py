@@ -31,9 +31,10 @@ remat (training), sharding constraints and Ulysses (multi-GPU) and
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
-K2, K12), attention (K3, K4, K14, K17), the fused SageSLA path (K5-K7,
-K13, K15, K16) and the W8A8 linears (K8-K11) dispatch to the CUDA kernels
-on the card. Wide models (Wan2.1-14B: dim 5120) keep Q, K and V as three
+K2, K12), attention (K3, K4, K14, K17; K20 for sagesla at blocks < 128),
+the fused SageSLA path (K5-K7 at v_quant "channel", K5 + K18 + K19 at
+"row"; K13, K15, K16), the SLA linear branch (K21) and the W8A8 linears
+(K8-K11) dispatch to the CUDA kernels on the card. Wide models (Wan2.1-14B: dim 5120) keep Q, K and V as three
 linears (`quantize_wan_blocks(fuse_qkv=False)`, as JAX fuses below 4096).
 """
 
@@ -75,10 +76,12 @@ def _lin_q(lin, x, act=None):
 
 
 class WanSelfAttention(nn.Module):
-    """QKV + RMSNorm-QK + RoPE (K2) + attention (K3 or K4) + O; in the fused
-    SageSLA geometry, QKV + `sla_attention_fused` (K5-K7; K15 first on Q and
-    K above H*Dh 4096) + unfold + O, the unfold being K13's int8 feed (K16's
-    above H*Dh 4096) when O is an `Int8Linear`. x may be an
+    """QKV + RMSNorm-QK + RoPE (K2) + attention (K3, K4, or K20 for sagesla
+    at blocks < 128; K21 for a non-zero proj_l) + O; in the fused SageSLA
+    geometry, QKV + `sla_attention_fused` (K5-K7, or K5 + K18 + K19 (+ K21)
+    at v_quant "row"; K15 first on Q and K above H*Dh 4096) + unfold + O,
+    the unfold being K13's int8 feed (K16's above H*Dh 4096) when O is an
+    `Int8Linear`. x may be an
     (int8, scale) pair from K12. With a fused `qkv` linear (q, k and v
     None), Q, K and V are column groups of its output, read in place by K5
     or K2 and the attention kernels."""

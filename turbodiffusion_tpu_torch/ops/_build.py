@@ -53,6 +53,10 @@ SIGNATURES = {
     # 12 strides (q, k, v, o: batch, token, head), scale, stream
     "tdx_sparse_flash_attention": [_P, _P, _P, _P, _P] + [_I] * 8
                                   + [_I64] * 12 + [_F, _P],
+    # q, k, v, o, lut, int8 K rows, K row scales, B, H, Lq, Lk, kv_len,
+    # nQ, sel, block_q, block_k, 12 strides, scale, stream (K20)
+    "tdx_sparse_flash_attention_i8qk": [_P] * 7 + [_I] * 9 + [_I64] * 12
+                                       + [_F, _P],
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
@@ -72,14 +76,23 @@ SIGNATURES = {
     "tdx_row_rms_inv": [_P, _P, _I64, _I, _I, _F, _P],
     # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream
     "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
-    # k, v, partials, kv, ksum, B, H, Lp, kv_len, n_chunks, stream
-    "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_P],
+    # k, mu, v, kvi, ks, B*H, Lp, stream
+    "tdx_subquant_pack_kv": [_P] * 5 + [_I] * 2 + [_P],
+    # k, v, partials, kv, ksum, B, H, kv_len, n_chunks, v is int8,
+    # 6 strides (k, v: batch, head, row), stream
+    "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_I64] * 6 + [_P],
+    # q, kvw, ksum, bias, out, B, H, Lq, 6 strides (q, out: batch, head,
+    # row), stream
+    "tdx_linear_apply": [_P] * 5 + [_I] * 3 + [_I64] * 6 + [_P],
     # planes, xq, row scales, B, L, Lp, H, Dh, stream
     "tdx_unfold_quant": [_P] * 3 + [_I] * 5 + [_P],
     "tdx_unfold_quant_wide": [_P] * 3 + [_I] * 5 + [_P],
     # qi, qs, kp, vtp, ks, vch, lut, kvw, ks_bias, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale*log2e, stream
     "tdx_sparse_attention_i8_vt": [_P] * 10 + [_I] * 9 + [_F, _P],
+    # qi, qs, kvi, ks, vs, lut, out,
+    # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale, stream
+    "tdx_sparse_attention_i8_planes": [_P] * 7 + [_I] * 9 + [_F, _P],
     # x, x row stride, xq, row scales, M, K, stream
     "tdx_quantize_rows_int8": [_P, _I64, _P, _P, _I, _I, _P],
     # xq, w (N, K), row scales, col scales, bias, gate, residual, out,

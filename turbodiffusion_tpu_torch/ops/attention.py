@@ -6,20 +6,27 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
   * dense_attention(q, k, v)            — kernel K4 (ops/flash_attention.py)
   * get_block_map(q, k, ...)            — smooth-k mean-pooled block scores
                                           and the top-k LUT, plain torch
-  * sla_attention(q, k, v, proj_l, cfg) — kernel K3 over the LUT, plus the
-                                          linear compensation branch
-  * linear_attention(q, k, v)           — plain torch
+  * sla_attention(q, k, v, proj_l, cfg) — kernel K3 (int8_qk: K20) over
+                                          the LUT, plus the linear
+                                          compensation branch (K21)
+  * linear_attention(q, k, v)           — plain torch (feature maps other
+                                          than softmax, which JAX runs in
+                                          jnp on every device)
   * sla_attention_fused(q_proj, ...)    — SageSLA from the raw projections:
-                                          kernels K5, K6, K7 (and K15 above
-                                          H*Dh 4096)
+                                          kernels K5, then K6 + K7
+                                          (v_quant "channel") or K18 + K19
+                                          (+ K21 with the linear branch;
+                                          v_quant "row"); K15 above H*Dh
+                                          4096
+  * attention(q, k, v, cfg)             — backend dispatch; sagesla outside
+                                          the fused geometry at blocks
+                                          < 128 runs K20
 
-The linear branch with a non-zero `proj_l` runs plain torch on the CPU only
-on the `sla` path; its kernel (`linear_attention_pallas.
-linear_attention_projected`) is ROADMAP Queue B item 13, so on a CUDA tensor
-it raises instead of running plain torch on the card. The fused SageSLA path
-carries its linear branch in K6 and K7. SageSLA outside the fused geometry
-(the composable int8-QK kernels, Queue B item 12) runs as JAX does on the
-CPU — K3's plain version — and raises on a CUDA tensor.
+SageSLA outside the fused geometry takes JAX's TPU composition on every
+device: at blocks < 128 the int8-QK gather (K20, its plain version on the
+CPU). At blocks >= 128 it is reached only by a head dim that is no
+multiple of 128 (LTX-2): there the CPU runs K3's plain version as JAX does
+off the TPU, and a CUDA tensor raises (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -30,11 +37,15 @@ import torch
 
 from turbodiffusion_tpu_torch.config import AttentionConfig
 from turbodiffusion_tpu_torch.ops.flash_attention import (
-    flash_attention, sparse_flash_attention)
+    flash_attention, sparse_flash_attention, sparse_flash_attention_i8qk)
+from turbodiffusion_tpu_torch.ops.linear_attention import (
+    linear_attention_projected, linear_projected_planes)
 from turbodiffusion_tpu_torch.ops.sla_fused import (
-    block_map_from_pooled, head_planes, row_rms_inv, subquant_pack_kvt)
+    block_map_from_pooled, head_planes, row_rms_inv, subquant_pack_kv,
+    subquant_pack_kvt)
 from turbodiffusion_tpu_torch.ops.sparse_i8_attention import (
-    quantize_v_per_channel, sparse_attention_i8_vt)
+    quantize_v_per_channel, sparse_attention_i8_planes,
+    sparse_attention_i8_vt)
 
 
 # widest projection row K5 reduces itself; wider ones take K15's statistic
@@ -108,19 +119,22 @@ def dense_attention(q, k, v, scale: Optional[float] = None):
 
 
 def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
-                  cfg: AttentionConfig):
+                  cfg: AttentionConfig, int8_qk: bool = False):
     """Sparse-Linear Attention (attention.py:186-267): top-k block-sparse
-    softmax (K3) plus the linear branch projected by `proj_l` (a Linear on
-    the head dim, fp32 weights, applied in q's dtype)."""
+    softmax, K3 (int8_qk: smooth-k and the int8-QK gather K20, composable
+    SageSLA at blocks < 128), plus the linear branch projected by `proj_l`
+    (a Linear on the head dim, fp32 weights): the softmax feature map
+    through K21 (`linear_attention_projected`, the TPU's kernel), any other
+    in plain torch (JAX's jnp chain, proj_l applied in q's dtype)."""
     _, lut, _ = get_block_map(q, k, cfg.sla_topk, cfg.block_q, cfg.block_k)
-    o_s = sparse_flash_attention(q, k, v, lut, cfg.block_q, cfg.block_k)
+    sparse = sparse_flash_attention_i8qk if int8_qk else sparse_flash_attention
+    o_s = sparse(q, k, v, lut, cfg.block_q, cfg.block_k)
     if not cfg.linear_branch:
         # a zero proj_l contributes exactly zero
         return o_s
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "the SLA linear branch with a non-zero proj_l has no CUDA kernel "
-            "yet (ROADMAP Queue B item 13, linear_attention_projected)")
+    if cfg.feature_map == "softmax":
+        o_l = linear_attention_projected(q, k, v, proj_l.weight, proj_l.bias)
+        return (o_s + o_l).to(q.dtype)
     o_l = linear_attention(q, k, v, cfg.feature_map)
     w = proj_l.weight.to(q.dtype)
     b = proj_l.bias.to(q.dtype)
@@ -133,8 +147,7 @@ def fused_sla_geometry(cfg: AttentionConfig, head_dim: int) -> bool:
     without its device test, so the CPU runs the same path on the kernels'
     plain versions."""
     return (cfg.backend == "sagesla" and head_dim % 128 == 0
-            and cfg.block_q >= 128 and cfg.block_k >= 128
-            and cfg.v_quant == "channel")
+            and cfg.block_q >= 128 and cfg.block_k >= 128)
 
 
 def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
@@ -142,10 +155,16 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
                         cfg: AttentionConfig, *, num_heads: int,
                         eps: float = 1e-6):
     """Fused SageSLA from the raw (B, L, H*Dh) projections
-    (attention.py:336-504, single device, the VT kernel): RMSNorm-QK, RoPE,
-    the head fold, block pooling and every int8 quantisation run in K5
-    passes; the block map and the per-channel V quantisation in plain
-    torch; K6 packs K and V (and sums the linear branch's kv); K7 attends.
+    (attention.py:336-504, single device): RMSNorm-QK, RoPE, the head fold,
+    block pooling and the int8 quantisation of Q run in K5 passes; the
+    block map in plain torch. Then, by `cfg.v_quant`:
+      * "channel" (the VT kernel): V quantised per channel in plain torch;
+        K6 packs K and V (and sums the linear branch's kv); K7 attends, with
+        the linear branch in its epilogue (the TDX_LIN_FUSED=1 default);
+      * "row" (attention.py:492-503): K5 gives V as int8 with per-row scales
+        (and bf16 planes of Q and V when the linear branch is on, which JAX
+        cannot fuse here); K18 packs K and V; K19 attends; the branch, when
+        on, is K21 over the planes.
     Returns (B, H, Lp, Dh) bf16 planes, Lp = L rounded up to 512; feed
     `unfold_planes` (or `unfold_quant`) to the O projection.
 
@@ -156,29 +175,38 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
 
     Q is pooled at block_q directly, where the TPU pools at 256 and merges
     pairs weighted by count (attention.py:413-440): the same block means.
-    The linear branch, when on, always rides K6 and K7's epilogue (the
-    TDX_LIN_FUSED=1 default); `TDX_SPARSE_VT` has no counterpart."""
+    `TDX_SPARSE_VT` has no counterpart: "channel" always takes K7."""
     B, L, HD = q_proj.shape
     H = num_heads
     Lp = -(-L // 512) * 512
-    if not fused_sla_geometry(cfg, HD // H) or Lp % cfg.block_q \
-            or Lp % cfg.block_k:
+    if (not fused_sla_geometry(cfg, HD // H) or Lp % cfg.block_q
+            or Lp % cfg.block_k or cfg.v_quant not in ("channel", "row")):
         raise ValueError(
-            f"the fused SageSLA path takes v_quant 'channel', head_dim % 128 "
-            f"== 0 and blocks >= 128 dividing 512, got {cfg.v_quant!r}, "
-            f"{HD // H}, {cfg.block_q}/{cfg.block_k}")
+            f"the fused SageSLA path takes v_quant 'channel' or 'row', "
+            f"head_dim % 128 == 0 and blocks >= 128 dividing 512, got "
+            f"{cfg.v_quant!r}, {HD // H}, {cfg.block_q}/{cfg.block_k}")
     cosF, sinF = rope_cs
     lin = cfg.linear_branch and proj_l is not None
+    v_chan = cfg.v_quant == "channel"
     kw = dict(num_heads=H, eps=eps, pad_to=Lp)
     wide = HD > _WIDE_HD
     Q = head_planes(q_proj, norm_q_w, cosF, sinF, pool=cfg.block_q,
-                    quant=True, bf16_out=False,
+                    quant=True, bf16_out=lin and not v_chan,
                     rms_inv=row_rms_inv(q_proj, eps) if wide else None, **kw)
     K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k,
                     rms_inv=row_rms_inv(k_proj, eps) if wide else None, **kw)
-    V = head_planes(v_proj, **kw)
+    V = head_planes(v_proj, quant=not v_chan, bf16_out=lin or v_chan, **kw)
     lut, _, k_mean = block_map_from_pooled(Q["pooled"], K["pooled"], L,
                                            cfg.block_k, cfg.sla_topk)
+    blocks = dict(block_q=cfg.block_q, block_k=cfg.block_k, kv_len=L)
+    if not v_chan:
+        kvi, ks = subquant_pack_kv(K["bf16"], k_mean, V["i8"])
+        o = sparse_attention_i8_planes(Q["i8"], Q["scale"], kvi, ks,
+                                       V["scale"], lut, **blocks)
+        if lin:
+            o = o + linear_projected_planes(Q["bf16"], K["bf16"], V["bf16"],
+                                            proj_l.weight, proj_l.bias, L)
+        return o
     vi, vcs = quantize_v_per_channel(V["bf16"], L)
     packed = subquant_pack_kvt(K["bf16"], k_mean, vi, cfg.block_k, kv_len=L,
                                linear_kv=lin)
@@ -192,23 +220,27 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
         bias = proj_l.bias.float().expand(ksum.shape)
         lin_ksb = torch.cat([ksum, bias], dim=2)              # (B, H, 2, D)
     return sparse_attention_i8_vt(
-        Q["i8"], Q["scale"], kp, vtp, ksb, vcs, lut, block_q=cfg.block_q,
-        block_k=cfg.block_k, kv_len=L, lin_kvw=lin_kvw, lin_ks_bias=lin_ksb)
+        Q["i8"], Q["scale"], kp, vtp, ksb, vcs, lut, lin_kvw=lin_kvw,
+        lin_ks_bias=lin_ksb, **blocks)
 
 
 def attention(q, k, v, cfg: AttentionConfig, proj_l=None):
     """Backend dispatch mirroring --attention_type (attention.py:507-517).
-    sagesla here is the composable path (outside the fused geometry): on
-    the CPU it runs as `sla`, as the JAX package does there."""
+    sagesla here is the composable path (outside the fused geometry): at
+    blocks < 128 the int8-QK gather (K20) on every device; at blocks >= 128
+    (a head dim that is no multiple of 128) K3's plain version on the CPU,
+    as the JAX package runs it there, and no kernel yet on a card."""
     if cfg.backend == "dense":
         return dense_attention(q, k, v)
     if cfg.backend == "sla":
         return sla_attention(q, k, v, proj_l, cfg)
     if cfg.backend == "sagesla":
+        if min(cfg.block_q, cfg.block_k) < 128:
+            return sla_attention(q, k, v, proj_l, cfg, int8_qk=True)
         if q.device.type != "cpu":
             raise NotImplementedError(
-                "sagesla outside the fused geometry (head_dim % 128, blocks "
-                ">= 128, v_quant channel) needs the composable int8-QK "
-                "kernels (ROADMAP Queue B item 12)")
+                "sagesla at blocks >= 128 outside the fused geometry (head "
+                "dim % 128 != 0) needs the composable int8-QK planes path "
+                "(ROADMAP Queue A item 13, LTX-2)")
         return sla_attention(q, k, v, proj_l, cfg)
     raise ValueError(f"Unknown attention backend: {cfg.backend}")

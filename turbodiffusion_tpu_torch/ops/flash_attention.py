@@ -1,8 +1,9 @@
 """Flash attention forward: kernels K3 (block-sparse), K4 (dense), K14 and
-K17 (cross attention with the int8 O feed, narrow and wide).
+K17 (cross attention with the int8 O feed, narrow and wide), K20 (block-
+sparse with int8 QK, blocks < 128).
 
 The counterpart of `turbodiffusion_tpu/ops/flash_pallas.py`. Its TPU
-function `_flash_fwd_impl` (:1085-1269) runs three bf16 kernels that this
+function `_flash_fwd_impl` (:1085-1269) runs the kernels that this
 module replaces with hand-written CUDA (csrc/flash_attention.cu):
   * K3 `_sparse_flash_cuda` ← the bf16 sparse branch (launch :1254, body
     `_sparse_attn_kernel` :429-557): LUT-gather block-sparse flash;
@@ -19,7 +20,19 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
     `cross_attention_qout` takes above H*Dh 2048 (:353, the 14B's 5120):
     K14's function with the row's RMS inverse from `sla_fused.row_rms_inv`
     (K15), as the TPU kernel takes it. The planes mode (LTX-2) is not
-    ported.
+    ported;
+  * K20 `_sparse_flash_i8qk_cuda` ← the int8-QK sparse branch for blocks
+    < 128 (launch :1200, body `_sparse_attn_kernel` with int8_qk :429-557),
+    which `flash_attention(..., int8_qk=True)` takes for sagesla at
+    `--sla_block 64`: K3's gather with Q quantised per row once
+    (qq = round(q * (127 / max(amax, 1e-6)))) and each gathered K row the
+    same way; s = ((s32 * (qa / 127)) * (ka / 127)) * Dh^-0.5, natural exp,
+    P in bf16 against bf16 V. A K row quantises the same whichever Q block
+    gathers it, so the kernel's first launch quantises every K row once and
+    the gather reads int8 K. The smooth-k subtraction before it
+    (`flash_attention`, :2028-2031) is plain torch
+    (`sparse_flash_attention_i8qk`). JAX pads LUT entries to a group with
+    block nK, past K's end; the port pads nothing and masks by column.
 
 Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
@@ -34,8 +47,8 @@ rows, the sparse one gathers each Q-block's selected K/V blocks — neither
 builds the (B, H, L, L) logits.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Each launcher counts its launches in `.launches`. The int8
-forms (sagesla) and the backward kernels wait for later slices.
+kernel or raises. Each launcher counts its launches in `.launches`. The
+dense int8-QK form and the backward kernels wait for later slices.
 """
 
 from __future__ import annotations
@@ -139,12 +152,20 @@ def cross_attention_qout_wide_plain(q, rms_inv, k, v, norm_w,
     return quantize_rows_int8_plain(o.reshape(B, Lq, HD))
 
 
-def sparse_flash_attention_plain(q, k, v, lut, block_q: int, block_k: int,
-                                 scale: Optional[float] = None,
-                                 kv_len: Optional[int] = None):
-    """Plain version of K3: each Q-block attends to the K-blocks its LUT row
-    names, by gathering them. q: (B, L, H, D); k, v: (B, Lk, H, D);
-    lut: (B, H, nQ, sel) int K-block ids; keys >= kv_len are masked."""
+def _quant_rows_i8qk(x):
+    """The int8-QK kernel's per-row quantisation (flash_pallas.py:503-505,
+    :524-527): amax = max(max |x|, 1e-6), q = round(x * (127 / amax)) half
+    to even. Returns (q as fp32 integers, amax / 127)."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    return torch.round(xf * (127.0 / amax)), amax / 127.0
+
+
+def _sparse_gather_plain(q, k, v, lut, block_q: int, block_k: int,
+                         scale: Optional[float], kv_len: Optional[int],
+                         int8_qk: bool):
+    """Each Q-block attends to the K-blocks its LUT row names, by gathering
+    them: the plain versions of K3 and (int8_qk) K20."""
     B, L, H, D = q.shape
     Lk = k.shape[1]
     kv_len = Lk if kv_len is None else kv_len
@@ -160,6 +181,8 @@ def sparse_flash_attention_plain(q, k, v, lut, block_q: int, block_k: int,
 
     qb, kb, vb = blocks(q, nQ, block_q), blocks(k, nK, block_k), \
         blocks(v, nK, block_k)
+    if int8_qk:
+        (qb, qa), (kb, ka) = _quant_rows_i8qk(qb), _quant_rows_i8qk(kb)
     lut = lut.long()
     bi = torch.arange(B, device=q.device)[:, None, None, None]
     hi = torch.arange(H, device=q.device)[None, :, None, None]
@@ -168,15 +191,43 @@ def sparse_flash_attention_plain(q, k, v, lut, block_q: int, block_k: int,
     out = torch.empty((B, H, nQ, block_q, D), dtype=q.dtype, device=q.device)
     for i0 in range(0, nQ, step):
         sl = slice(i0, i0 + step)
-        n = lut[:, :, sl].shape[2]
-        kg = kb[bi, hi, lut[:, :, sl]].reshape(B, H, n, sel * block_k, D)
-        vg = vb[bi, hi, lut[:, :, sl]].reshape(B, H, n, sel * block_k, D)
+        ids = lut[:, :, sl]
+        n = ids.shape[2]
+        kg = kb[bi, hi, ids].reshape(B, H, n, sel * block_k, D)
+        vg = vb[bi, hi, ids].reshape(B, H, n, sel * block_k, D)
         s = torch.matmul(qb[:, :, sl].float(), kg.float().transpose(-1, -2))
+        if int8_qk:
+            # exact: |qq . kq| <= 127^2 * D < 2^24 for D <= 1024
+            kag = ka[bi, hi, ids].reshape(B, H, n, 1, sel * block_k)
+            s = s * qa[:, :, sl] * kag * scale
+        else:
+            s = s * scale
         valid = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
-        s = torch.where(valid, s * scale, NEG_INF)
+        s = torch.where(valid, s, NEG_INF)
         out[:, :, sl] = _softmax_pv(s, vg).to(q.dtype)
     out = out.reshape(B, H, nQ * block_q, D)[:, :, :L]
     return out.permute(0, 2, 1, 3).contiguous()
+
+
+def sparse_flash_attention_plain(q, k, v, lut, block_q: int, block_k: int,
+                                 scale: Optional[float] = None,
+                                 kv_len: Optional[int] = None):
+    """Plain version of K3: each Q-block attends to the K-blocks its LUT row
+    names, by gathering them. q: (B, L, H, D); k, v: (B, Lk, H, D);
+    lut: (B, H, nQ, sel) int K-block ids; keys >= kv_len are masked."""
+    return _sparse_gather_plain(q, k, v, lut, block_q, block_k, scale, kv_len,
+                                int8_qk=False)
+
+
+def sparse_flash_attention_i8qk_plain(q, k, v, lut, block_q: int,
+                                      block_k: int,
+                                      scale: Optional[float] = None,
+                                      kv_len: Optional[int] = None):
+    """Plain version of K20: K3's gather with int8 QK. q: (B, L, H, D); k
+    (already smooth-k subtracted), v: (B, Lk, H, D); lut: (B, H, nQ, sel)
+    int K-block ids; keys >= kv_len are masked. Output in q's dtype."""
+    return _sparse_gather_plain(q, k, v, lut, block_q, block_k, scale, kv_len,
+                                int8_qk=True)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +281,35 @@ def _sparse_flash_cuda(q, k, v, lut, block_q: int, block_k: int,
 
 
 _sparse_flash_cuda.launches = 0
+
+
+def _sparse_flash_i8qk_cuda(q, k, v, lut, block_q: int, block_k: int,
+                            scale: float, kv_len: int):
+    """Launch K20: K's rows quantised once into scratch, then the gather."""
+    B, L, H, D = q.shape
+    _check_qkv(q, k, v, kv_len)
+    _require(block_q % 64 == 0 and block_k % 64 == 0,
+             f"K20 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    nQ = _cdiv(L, block_q)
+    _require(lut.dim() == 4 and tuple(lut.shape[:3]) == (B, H, nQ)
+             and lut.device == q.device,
+             f"lut must be (B, H, {nQ}, sel) on q's device")
+    lut = lut.to(torch.int32).contiguous()
+    Lk = k.shape[1]
+    out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
+    kq = torch.empty((B, H, Lk, D), dtype=torch.int8, device=q.device)
+    ksc = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device)
+    rc = _build.load().tdx_sparse_flash_attention_i8qk(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lut.data_ptr(), kq.data_ptr(), ksc.data_ptr(), B, H, L, Lk, kv_len, nQ,
+        lut.shape[-1], block_q, block_k, *_strides(q, k, v, out), float(scale),
+        _build.stream_ptr(q))
+    _build.check(rc, "tdx_sparse_flash_attention_i8qk")
+    _sparse_flash_i8qk_cuda.launches += 1
+    return out
+
+
+_sparse_flash_i8qk_cuda.launches = 0
 
 
 def _flash_cuda(q, k, v, scale: float, kv_len: int):
@@ -346,6 +426,23 @@ def sparse_flash_attention(q, k, v, lut, block_q: int, block_k: int,
                                             scale, kv_len)
     _require(q.device.type == "cuda", f"no kernel for device {q.device}")
     return _sparse_flash_cuda(q, k, v, lut, block_q, block_k, scale, kv_len)
+
+
+def sparse_flash_attention_i8qk(q, k, v, lut, block_q: int, block_k: int,
+                                scale: Optional[float] = None):
+    """Block-sparse SageSLA attention with int8 QK at blocks < 128
+    (flash_pallas.flash_attention with a `lut` and int8_qk=True): smooth-k
+    (k minus its mean over the sequence, in k's dtype) in plain torch, then
+    the plain version of K20 on a CPU tensor, K20 on a CUDA tensor."""
+    scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
+    kv_len = k.shape[1]
+    k = k - k.mean(dim=1, keepdim=True)
+    if q.device.type == "cpu":
+        return sparse_flash_attention_i8qk_plain(q, k, v, lut, block_q,
+                                                 block_k, scale, kv_len)
+    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
+    return _sparse_flash_i8qk_cuda(q, k, v, lut, block_q, block_k, scale,
+                                   kv_len)
 
 
 def cross_attention_qout(q, k, v, norm_w, scale: Optional[float] = None,

@@ -86,7 +86,11 @@ def modulated_layer_norm_ref(x, mod_scale=None, mod_shift=None, weight=None,
 
 def _mln_operands(x, mod_scale, mod_shift, weight, bias, what: str):
     """Check K1 / K12's operands: x (B, L, D) bf16 contiguous; mod_* (B, D)
-    fp32; weight/bias (D,) bf16. Returns the four as the kernel reads them."""
+    fp32; weight/bias (D,) bf16. Returns the four as the kernel reads them
+    (tensors or None). The caller holds them until the launch: a copy made
+    here (a strided modulation at batch > 1) freed before the outputs are
+    allocated could become an output's memory, which the kernel then writes
+    while it reads the modulation from it."""
     B, L, D = x.shape
     _require(x.dtype == torch.bfloat16 and x.is_contiguous(),
              f"{what} takes a contiguous bf16 x")
@@ -105,7 +109,11 @@ def _mln_operands(x, mod_scale, mod_shift, weight, bias, what: str):
         args.append(t)
     _require((args[0] is None) == (args[1] is None),
              f"{what} takes mod_scale and mod_shift together")
-    return [None if a is None else a.data_ptr() for a in args]
+    return args
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
@@ -114,7 +122,7 @@ def _mln_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
     args = _mln_operands(x, mod_scale, mod_shift, weight, bias, "K1")
     out = torch.empty_like(x)
     rc = _build.load().tdx_modulated_layer_norm(
-        x.data_ptr(), out.data_ptr(), *args, B * L, L, D, float(eps),
+        x.data_ptr(), out.data_ptr(), *_ptrs(args), B * L, L, D, float(eps),
         _build.stream_ptr(x))
     _build.check(rc, "tdx_modulated_layer_norm")
     _mln_cuda.launches += 1
@@ -131,7 +139,7 @@ def _mln_quant_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
     q = torch.empty((B, L, D), dtype=torch.int8, device=x.device)
     s = torch.empty((B, L, 1), dtype=torch.float32, device=x.device)
     rc = _build.load().tdx_modulated_layer_norm_quant(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), *args, B * L, L, D,
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), *_ptrs(args), B * L, L, D,
         float(eps), _build.stream_ptr(x))
     _build.check(rc, "tdx_modulated_layer_norm_quant")
     _mln_quant_cuda.launches += 1

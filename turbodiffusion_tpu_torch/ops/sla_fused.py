@@ -1,5 +1,5 @@
 """Fused SageSLA front-end: kernels K5 (head_planes), K6 (subquant_pack_kvt),
-K13 and K16 (unfold_quant) and K15 (row_rms_inv).
+K13 and K16 (unfold_quant), K15 (row_rms_inv) and K18 (subquant_pack_kv).
 
 The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
 single-chip path that `ops/attention.sla_attention_fused` takes:
@@ -23,7 +23,14 @@ single-chip path that `ops/attention.sla_attention_fused` takes:
     `subquant_pack_kvt` (launch :455, body `_subquant_pack_kvt_kernel`
     :351-409): smooth-k subtract + per-block int8 K, the per-block
     transposed V panel, and (linear_kv) the SLA linear branch's kv / ksum
-    sums;
+    sums (csrc/linear_attention.cu, shared with K21);
+  * `subquant_pack_kv` — K18 `_subquant_pack_kv_cuda` replaces
+    `subquant_pack_kv` in its per-row mode (launch :501, body
+    `_subquant_pack_kernel` :313-348 with block_k 0), the `v_quant="row"`
+    producer: smooth-k subtract + per-row int8 K written beside the
+    per-row int8 V in packed K|V rows, the layout K19 reads. The TPU's
+    trailing poison block and (TL/128, 128) scale relayout have no
+    counterpart: K19 masks by column;
   * `unfold_quant` — K13 `_unfold_quant_cuda` replaces the TPU kernel
     `unfold_quant`, narrow form (launch :633, body `_unfold_quant_kernel`
     :551-562): K7's planes to the W8A8 O projection's int8 feed, one fp32
@@ -41,8 +48,8 @@ linear sums, K7's row max).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
-`.launches`. `subquant_pack_kv` / `subquant_planes` wait for ROADMAP Queue
-B item 11.
+`.launches`. `subquant_pack_kv`'s block-scale mode and `subquant_planes`
+wait for ROADMAP Queue B item 11.
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ import torch
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
 from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride
+from turbodiffusion_tpu_torch.ops.linear_attention import (
+    _linear_kv_sums, _softmax_d)
 from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 INT8_MAX = 127.0
@@ -64,8 +73,6 @@ _HP_ROWS = 64
 _HP_GROUP_HEADS, _HP_MAX_HEADS = 16, 40
 # widest row of the narrow unfold_quant (K13); K16 takes up to 5120
 _UNFOLD_NARROW_MAX, _UNFOLD_WIDE_MAX = 4096, 5120
-# rows of one linear-kv partial sum (csrc/sla_fused.cu kLinRows)
-_LIN_ROWS = 2048
 
 
 def _quant_rows(yf):
@@ -296,13 +303,6 @@ def block_map_from_pooled(pooled_q, pooled_k, L: int, pool: int,
 # K6: subquant_pack_kvt
 # ---------------------------------------------------------------------------
 
-def _softmax_d(x):
-    """softmax over the last dim as the JAX kernels write it:
-    exp(x - max) / sum."""
-    e = torch.exp(x - x.amax(-1, keepdim=True))
-    return e / e.sum(-1, keepdim=True)
-
-
 def subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k: int,
                             kv_len: Optional[int] = None,
                             linear_kv: bool = False):
@@ -355,25 +355,14 @@ def _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k: int, kv_len: int,
     kp = torch.empty_like(v_i8)
     vtp = torch.empty((B, H, nK, D, block_k), dtype=torch.int8, device=dev)
     ks = torch.empty((B, H, nK), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    stream = _build.stream_ptr(k_planes)
-    rc = lib.tdx_subquant_pack_kvt(
+    rc = _build.load().tdx_subquant_pack_kvt(
         k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kp.data_ptr(),
-        vtp.data_ptr(), ks.data_ptr(), B, H, Lp, block_k, kv_len, stream)
+        vtp.data_ptr(), ks.data_ptr(), B, H, Lp, block_k, kv_len,
+        _build.stream_ptr(k_planes))
     _build.check(rc, "tdx_subquant_pack_kvt")
     res = (kp, vtp, ks)
     if linear_kv:
-        n_chunks = _cdiv(kv_len, _LIN_ROWS)
-        part = torch.empty((B, H, n_chunks, D + 1, D), dtype=torch.float32,
-                           device=dev)
-        kv = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
-        ksum = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
-        rc = lib.tdx_linear_kv(
-            k_planes.data_ptr(), v_i8.data_ptr(), part.data_ptr(),
-            kv.data_ptr(), ksum.data_ptr(), B, H, Lp, kv_len, n_chunks,
-            stream)
-        _build.check(rc, "tdx_linear_kv")
-        res += (kv, ksum)
+        res += _linear_kv_sums(k_planes, v_i8, kv_len)
     _subquant_pack_kvt_cuda.launches += 1
     return res
 
@@ -394,6 +383,60 @@ def subquant_pack_kvt(k_planes, mu, v_i8, block_k: int,
              f"no kernel for device {k_planes.device}")
     return _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k, kv_len,
                                    linear_kv)
+
+
+# ---------------------------------------------------------------------------
+# K18: subquant_pack_kv, per-row mode
+# ---------------------------------------------------------------------------
+
+def subquant_pack_kv_plain(k_planes, mu, v_i8):
+    """Plain version of K18 (sla_fused.py:313-348, per-row mode).
+
+    k_planes (B, H, Lp, D); mu (B, H, 1, D); v_i8 (B, H, Lp, D) int8.
+    xf = f32(k) - mu; per row scale = max(max |xf|, 1e-8) * (1/127) and
+    k_i8 = round(xf * (1/scale)) half to even. Returns (kvi (B, H, Lp, 2D)
+    int8, K in [..., :D] and V beside it; ks (B, H, Lp) fp32). Every row is
+    written, rows past the sequence too: K19 masks them."""
+    kq, ks = _quant_rows(k_planes.float() - mu.float())
+    return torch.cat([kq, v_i8], dim=-1), ks
+
+
+def _subquant_pack_kv_cuda(k_planes, mu, v_i8):
+    """Launch K18."""
+    B, H, Lp, D = k_planes.shape
+    dev = k_planes.device
+    _require(k_planes.dtype == torch.bfloat16 and k_planes.is_contiguous(),
+             "K18 takes contiguous bf16 K planes")
+    _require(D == 128, f"K18 takes head dim 128, got {D}")
+    _require(v_i8.dtype == torch.int8 and v_i8.is_contiguous()
+             and v_i8.shape == k_planes.shape and v_i8.device == dev,
+             "K18 takes contiguous int8 V planes shaped like K")
+    mu = mu.float().contiguous()
+    _require(mu.numel() == B * H * D and mu.device == dev,
+             "K18 mu must be (B, H, 1, D) on K's device")
+    kvi = torch.empty((B, H, Lp, 2 * D), dtype=torch.int8, device=dev)
+    ks = torch.empty((B, H, Lp), dtype=torch.float32, device=dev)
+    rc = _build.load().tdx_subquant_pack_kv(
+        k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kvi.data_ptr(),
+        ks.data_ptr(), B * H, Lp, _build.stream_ptr(k_planes))
+    _build.check(rc, "tdx_subquant_pack_kv")
+    _subquant_pack_kv_cuda.launches += 1
+    return kvi, ks
+
+
+_subquant_pack_kv_cuda.launches = 0
+
+
+def subquant_pack_kv(k_planes, mu, v_i8):
+    """Smooth-k int8 K with per-row scales, packed beside the per-row int8
+    V (sla_fused.subquant_pack_kv, block_scales=False): the plain version
+    on a CPU tensor, kernel K18 on a CUDA tensor. See
+    `subquant_pack_kv_plain` for the outputs."""
+    if k_planes.device.type == "cpu":
+        return subquant_pack_kv_plain(k_planes, mu, v_i8)
+    _require(k_planes.device.type == "cuda",
+             f"no kernel for device {k_planes.device}")
+    return _subquant_pack_kv_cuda(k_planes, mu, v_i8)
 
 
 def unfold_planes(planes, out_len: int):

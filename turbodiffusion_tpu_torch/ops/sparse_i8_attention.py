@@ -1,14 +1,27 @@
-"""Block-sparse INT8 attention of the fused SageSLA path: kernel K7.
+"""Block-sparse INT8 attention of the fused SageSLA path: kernels K7, K19.
 
-The counterpart of two functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
+The counterpart of three functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
   * `quantize_v_per_channel` (:1068-1082) — plain torch: per-(head, channel)
     symmetric int8 V, the channel absmax taken over rows < kv_len;
   * `sparse_attention_i8_vt` — K7 `_sparse_i8_vt_cuda` replaces the TPU
     kernel of the same name (launch :1032, body `_sparse_attn_kernel_i8b_vt`
-    :809-951), with its fused SLA linear-branch epilogue.
+    :809-951), with its fused SLA linear-branch epilogue;
+  * `sparse_attention_i8_planes` — K19 `_sparse_i8_planes_cuda` replaces its
+    per-row form (launch :1432, body `_sparse_attn_kernel_i8` :560-680,
+    metadata :1391-1421), the `v_quant="row"` path: int8 Q, K and V with
+    per-row fp32 scales, K and V packed in rows (K18's layout).
 
-Semantics (kernel and plain version), per (b, h) and query row r of Q-block
-i, over the keys of the K-blocks lut[b, h, i, :]:
+K19's semantics (kernel and plain version), per query row r over the keys c
+of the selected K-blocks:
+  s = (int32(qi[r] . k[c]) * (qs[r] * Dh^-0.5)) * ks[c], keys >= kv_len set
+  to -1e30 before the row max; p = exp(s - max) (natural exp); l = sum p;
+  o = (bf16(p * vs[c]) @ bf16(v_i8)) / max(l, 1e-20), bf16 out.
+The TPU's poison block (LUT padding pointing at a zero block with a -1e30
+bias, and zero scales past kv_len) has no counterpart: the port pads no LUT
+entries and masks by column, as K3 and K7 do.
+
+K7's semantics (kernel and plain version), per (b, h) and query row r of
+Q-block i, over the keys of the K-blocks lut[b, h, i, :]:
   s = int32(qi[r] . kp[c]) * qs[r] * (ks[blk(c)] * Dh^-0.5 * log2 e), keys
   >= kv_len set to -1e9 before the row max; p = exp2(s - max); l = sum p;
   o = (bf16(p) @ bf16(v_i8)) / max(l, 1e-20) * vch.
@@ -17,10 +30,10 @@ With the linear epilogue (lin_kvw, lin_ks_bias):
   o += phi(q) @ kvw / (1e-5 + phi(q) . ksum) + bias.
 Output bf16 planes (B, H, Lp, Dh).
 
-The kernel streams the LUT blocks with an online softmax, where the TPU
-kernel holds all sel*block_k scores at once; that changes only where p is
-rounded to bf16. The TPU's 8,192-key bound on sel*block_k is a VMEM limit
-and does not apply.
+Both kernels stream the LUT blocks with an online softmax, where K7's TPU
+kernel holds all sel*block_k scores at once (and K19's streams groups of
+blocks); that changes only where p is rounded to bf16. The TPU's 8,192-key
+bound on sel*block_k is a VMEM limit and does not apply.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
@@ -35,7 +48,7 @@ import torch
 
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import (
-    _PLAIN_LOGITS_BUDGET, _require)
+    _PLAIN_LOGITS_BUDGET, NEG_INF, _require)
 
 LOG2E = math.log2(math.e)
 MASKED = -1e9                 # score of a key >= kv_len (flash_pallas.py:933)
@@ -202,3 +215,118 @@ def sparse_attention_i8_vt(qi, qs, k_panel, vt_panel, k_block_scale,
     return _sparse_i8_vt_cuda(qi, qs, k_panel, vt_panel, k_block_scale,
                               v_channel_scale, lut, scale, block_q, block_k,
                               kv_len, lin_kvw, lin_ks_bias)
+
+
+# ---------------------------------------------------------------------------
+# K19: sparse_attention_i8_planes, per-row form
+# ---------------------------------------------------------------------------
+
+def sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut, *,
+                                     scale: Optional[float] = None,
+                                     block_q: int = 256, block_k: int = 256,
+                                     kv_len: Optional[int] = None):
+    """Plain version of K19: the one-pass softmax over the gathered blocks,
+    chunked over Q-blocks. qi (B, H, Lp, D) int8; qs (B, H, Lp) fp32; kvi
+    (B, H, Lkp, 2D) int8, K in [..., :D] and V beside it (K18's layout); ks,
+    vs (B, H, Lkp) fp32 row scales; lut (B, H, nQr, sel) int. Scales past
+    kv_len never reach an output (the TPU wrapper zeroes them, :1406-1408)."""
+    B, H, Lp, D = qi.shape
+    Lkp = kvi.shape[2]
+    kv_len = Lkp if kv_len is None else kv_len
+    scale = D ** -0.5 if scale is None else scale
+    nQ, nK = Lp // block_q, Lkp // block_k
+    lut = _pad_lut(lut.long(), nQ)
+    sel = lut.shape[-1]
+    dev = qi.device
+    valid = torch.arange(Lkp, device=dev) < kv_len
+    ksb = torch.where(valid, ks.reshape(B, H, Lkp).float(), 0.0).reshape(
+        B, H, nK, block_k)
+    vsb = torch.where(valid, vs.reshape(B, H, Lkp).float(), 0.0).reshape(
+        B, H, nK, block_k)
+    qb = qi.reshape(B, H, nQ, block_q, D)
+    qsb = qs.reshape(B, H, nQ, block_q, 1).float() * scale
+    kb = kvi[..., :D].reshape(B, H, nK, block_k, D)
+    vb = kvi[..., D:].reshape(B, H, nK, block_k, D)
+    bi = torch.arange(B, device=dev)[:, None, None, None]
+    hi = torch.arange(H, device=dev)[None, :, None, None]
+    cols = lut[..., None] * block_k + torch.arange(block_k, device=dev)
+    step = max(1, _PLAIN_LOGITS_BUDGET // (B * H * block_q * sel * block_k))
+    out = torch.empty((B, H, nQ, block_q, D), dtype=torch.bfloat16, device=dev)
+    for i0 in range(0, nQ, step):
+        sl = slice(i0, i0 + step)
+        ids = lut[:, :, sl]
+        n = ids.shape[2]
+        kg = kb[bi, hi, ids].reshape(B, H, n, sel * block_k, D)
+        vg = vb[bi, hi, ids].reshape(B, H, n, sel * block_k, D)
+        krow = ksb[bi, hi, ids].reshape(B, H, n, 1, sel * block_k)
+        vrow = vsb[bi, hi, ids].reshape(B, H, n, 1, sel * block_k)
+        # exact: |qi . k| <= 127^2 * 128 < 2^24
+        s32 = torch.matmul(qb[:, :, sl].float(), kg.float().transpose(-1, -2))
+        s = s32 * qsb[:, :, sl] * krow
+        ok = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
+        s = torch.where(ok, s, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        pv = torch.matmul((p * vrow).bfloat16().float(), vg.float())
+        out[:, :, sl] = (pv / l.clamp_min(1e-20)).to(torch.bfloat16)
+    return out.reshape(B, H, Lp, D)
+
+
+def _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale: float,
+                           block_q: int, block_k: int, kv_len: int):
+    """Launch K19."""
+    B, H, Lp, D = qi.shape
+    Lkp = kvi.shape[2]
+    dev = qi.device
+    _require(D == 128, f"K19 takes head dim 128, got {D}")
+    _require(qi.dtype == kvi.dtype == torch.int8, "K19 takes int8 q and K|V")
+    _require(tuple(kvi.shape) == (B, H, Lkp, 2 * D),
+             "K19 takes packed K|V rows (B, H, Lk, 2D)")
+    _require(block_q % 64 == 0 and Lp % block_q == 0,
+             f"K19 takes a Q block of a multiple of 64 rows dividing Lp, "
+             f"got {block_q}")
+    _require(block_k % 64 == 0 and Lkp % block_k == 0,
+             f"K19 takes a K block of a multiple of 64 rows dividing Lk, "
+             f"got {block_k}")
+    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    _require(all(t.is_contiguous() and t.device == dev for t in (qi, kvi)),
+             "K19 takes contiguous tensors on one CUDA device")
+    qs = qs.float().reshape(B, H, Lp).contiguous()
+    ks = ks.float().reshape(B, H, Lkp).contiguous()
+    vs = vs.float().reshape(B, H, Lkp).contiguous()
+    nQ = Lp // block_q
+    lut = _pad_lut(lut.to(device=dev, dtype=torch.int32), nQ).contiguous()
+    _require(lut.shape[:2] == (B, H), "K19 lut must be (B, H, nQ, sel)")
+    for t in (qs, ks, vs):
+        _require(t.device == dev, "K19 operands must lie on q's device")
+    out = torch.empty((B, H, Lp, D), dtype=torch.bfloat16, device=dev)
+    rc = _build.load().tdx_sparse_attention_i8_planes(
+        qi.data_ptr(), qs.data_ptr(), kvi.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), lut.data_ptr(), out.data_ptr(), B, H, Lp, Lkp, kv_len,
+        nQ, lut.shape[-1], block_q, block_k, float(scale),
+        _build.stream_ptr(qi))
+    _build.check(rc, "tdx_sparse_attention_i8_planes")
+    _sparse_i8_planes_cuda.launches += 1
+    return out
+
+
+_sparse_i8_planes_cuda.launches = 0
+
+
+def sparse_attention_i8_planes(qi, qs, kvi, ks, vs, lut, *,
+                               scale: Optional[float] = None,
+                               block_q: int = 256, block_k: int = 256,
+                               kv_len: Optional[int] = None):
+    """Block-sparse SageSLA attention over int8 planes with per-row scales
+    (flash_pallas.sparse_attention_i8_planes with `kvi_packed`, per-row
+    form): the plain version on a CPU tensor, kernel K19 on a CUDA tensor.
+    See `sparse_attention_i8_planes_plain` for the operands."""
+    scale = float(qi.shape[-1] ** -0.5) if scale is None else float(scale)
+    kv_len = kvi.shape[2] if kv_len is None else kv_len
+    if qi.device.type == "cpu":
+        return sparse_attention_i8_planes_plain(
+            qi, qs, kvi, ks, vs, lut, scale=scale, block_q=block_q,
+            block_k=block_k, kv_len=kv_len)
+    _require(qi.device.type == "cuda", f"no kernel for device {qi.device}")
+    return _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale, block_q,
+                                  block_k, kv_len)

@@ -40,14 +40,10 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
                  sla_topk: float = 0.1, quant_linear: bool = False,
                  sla_block: int = 256, v_quant: str = "channel") -> WanConfig:
     """A WanConfig from the CLI flag surface (pipeline.py:41-63): block_q is
-    twice the K-block granularity at 256 and above (512/256), equal below;
-    v_quant is sagesla's INT8 V granularity; quant_linear selects the W8A8
-    postscale linears."""
-    if v_quant != "channel":
-        raise NotImplementedError(
-            f"v_quant={v_quant!r}: per-row INT8 V waits for its kernels "
-            "(ROADMAP Queue B item 11: sparse_attention_i8_planes, "
-            "subquant_pack_kv)")
+    twice the K-block granularity at 256 and above (512/256), equal below
+    (64/64 and 128/128, the parity blocks of reference-trained SLA maps);
+    v_quant is sagesla's INT8 V granularity ("channel" or "row");
+    quant_linear selects the W8A8 postscale linears."""
     backend = attention_type if attention_type in ("sla", "sagesla") else "dense"
     blk = 8 if model == "test" else sla_block
     bq = min(2 * blk, 512) if blk >= 256 else blk
