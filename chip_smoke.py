@@ -12,13 +12,17 @@ Phases, each printing one line of its numbers:
      FFN 8960, 12 of 128 K blocks; K12 also at batch 2 with the block's
      strided modulation; K18 and K19 of the v_quant="row" path,
      K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
-     over (B, L, H, D); then the Wan2.1-14B forms: K15, K5 with K15's RMS
-     at 40 heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824),
-     with poisoned-tail checks of K7, K19 and K21: max absolute error
-     under the stated tolerance (int8 outputs within 1 LSB; K19-K21 at
-     atol 4e-3 + rtol 2e-2, each with planted faults the check must
-     reject: a dropped LUT entry, K21's weight zeroed, v read from k, q
-     doubled), the mean and max |output| beside it, both times
+     over (B, L, H, D); K22 at the block-scale checkpoint path's GEMM
+     shapes in bf16 and at 1536 x 1536 and a ragged shape in fp32,
+     bit-equal; then the Wan2.1-14B forms: K15, K5 with K15's RMS at 40
+     heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824), with
+     poisoned-tail checks of K7, K19 and K21: max absolute error under the
+     stated tolerance (int8 outputs within 1 LSB; K19-K21 at atol 4e-3 +
+     rtol 2e-2, each with planted faults the check must reject: a dropped
+     LUT entry, K21's weight zeroed, v read from k, q doubled; K22 exact in
+     fp32, one bf16 step in bf16, rejecting its block scales transposed or
+     shifted by one M block), the mean and max |output| beside it, both
+     times
      (CUDA events, median of a few runs), the least time the card could
      take (`bound`: bytes over 3.35 TB/s or operations over the dense peak
      of their type, whichever is larger) and, where one PyTorch call
@@ -32,8 +36,10 @@ Phases, each printing one line of its numbers:
      W8A8 blocks take the int8 feeds K12-K14), W8A8 `sagesla` at
      v_quant="row" with a non-zero `proj_l` (K18, K19, K21 over the planes),
      W8A8 `sagesla` at blocks 64/64 (K20), bf16 `sla` with a non-zero
-     `proj_l` (K21 over (B, L, H, D)) and W8A8 `sagesla` at batch 2, and at
-     14B `sagesla` with W8A8 linears (unfused Q / K / V, K15-K17): the
+     `proj_l` (K21 over (B, L, H, D)), W8A8 `sagesla` at batch 2 and
+     `sagesla` with 128x128 block-scaled linears and a non-zero `proj_l`
+     (the bf16 composition, K22 for each linear), and at 14B `sagesla`
+     with W8A8 linears (unfused Q / K / V, K15-K17): the
      kernels on the card against the plain versions on the CPU, on the Q
      blocks whose block-map rows agree as sets, with each block's launch
      counts (K21's in the JSON line: random weights give the requests a
@@ -42,7 +48,11 @@ Phases, each printing one line of its numbers:
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
      `sla`, one W8A8 `sagesla` request at v_quant="row" and one at
-     sla_block=64, then, with the 1.3B pipelines freed, two requests of
+     sla_block=64, then two requests of `WanPipeline.create(dit_path=...)`
+     on a 1.3B sagesla checkpoint that the port's writer saves first (block-
+     scaled linears, non-zero `proj_l` and head; the loaded DiT must equal
+     the written one tensor for tensor), then, with the 1.3B pipelines
+     freed, two requests of
      `WanPipeline.create("Wan2.1-14B", quant_linear=True)`; per request the
      text-encode, denoise and VAE-decode times, peak device memory, and the
      launch count of every kernel, set to 0 just before the request and
@@ -50,8 +60,9 @@ Phases, each printing one line of its numbers:
      1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3, K2 1, K4
      1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1, K4 1; W8A8 row: K5 3, K8 2,
      K9 6, K10 1, K11 1, K12 3, K13 1, K14 1, K18 1, K19 1; W8A8 block 64:
-     K2 2, K8 3, K9 6, K10 1, K11 1, K12 3, K14 1, K20 1; x 30 blocks x 4
-     steps; 14B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
+     K2 2, K8 3, K9 6, K10 1, K11 1, K12 3, K14 1, K20 1; checkpoint: K1
+     3, K2 1, K4 1, K5 3, K6 1, K7 1, K22 10; x 30 blocks x 4 steps; 14B
+     W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
      K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
      0), which shows each path went through its kernels; then each path's
      denoise under torch.profiler: device time by kernel category and the
@@ -73,10 +84,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -141,6 +154,12 @@ EXPECTED_LAUNCHES = {
     "14b-sagesla+w8a8": {"K5": 480, "K6": 160, "K7": 160, "K8": 320,
                          "K9": 1280, "K10": 160, "K11": 160, "K12": 480,
                          "K15": 480, "K16": 160, "K17": 160},
+    # a reference-layout checkpoint with 128x128 block-scaled linears: the
+    # bf16 sagesla composition (K1 x 3, K2 on the cross q, K4) with each of
+    # the ten linears a K22, and the linear branch on (a non-zero proj_l:
+    # K6's linear kv, K7's linear epilogue)
+    "1.3b checkpoint": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120,
+                        "K22": 1200},
 }
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
 # phase-4 paths in the order run: (label, geometry, attention, quant_linear,
@@ -151,6 +170,8 @@ PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2, {}),
          ("sla", G13, "sla", False, 1, {}),
          ("sagesla+w8a8 row", G13, "sagesla", True, 1, {"v_quant": "row"}),
          ("sagesla+w8a8 block64", G13, "sagesla", True, 1, {"sla_block": 64}),
+         # dit_path: a checkpoint the port's writer saves first
+         ("1.3b checkpoint", G13, "sagesla", False, 2, {"dit_path": None}),
          ("14b-sagesla+w8a8", G14, "sagesla", True, 2, {})]
 
 KERNELS = {
@@ -197,6 +218,8 @@ KERNELS = {
             "turbodiffusion_tpu/ops/flash_pallas.py:1200"),
     "K21": ("turbodiffusion_tpu_torch/csrc/linear_attention.cu",
             "turbodiffusion_tpu/ops/linear_attention_pallas.py:141"),
+    "K22": ("turbodiffusion_tpu_torch/csrc/quant.cu",
+            "turbodiffusion_tpu/ops/quant.py:890"),
 }
 
 
@@ -217,7 +240,7 @@ def _launchers():
             "K15": sf._row_rms_inv_cuda, "K16": sf._unfold_quant_wide_cuda,
             "K17": fa._cross_qout_wide_cuda, "K18": sf._subquant_pack_kv_cuda,
             "K19": si8._sparse_i8_planes_cuda, "K20": fa._sparse_flash_i8qk_cuda,
-            "K21": la._linear_projected_cuda}
+            "K21": la._linear_projected_cuda, "K22": qt._int8_block_matmul_cuda}
 
 
 @dataclasses.dataclass
@@ -518,7 +541,7 @@ def phase2(reps: int = REPS):
     ] + _w8a8_checks(randn, x, G13) + _int8_feed_checks(randn, x, ms, mb, w,
                                                        bias, kt, vt, sdpa)
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
-    results = _run_checks(checks + mode_checks, reps)
+    results = _run_checks(checks + mode_checks + _block_gemm_checks(randn), reps)
     _poisoned_tail(i8_args, scale)
     for tail in tails:
         tail()
@@ -654,6 +677,63 @@ def _w8a8_checks(randn, x, geo: Geometry):
                                                  gate=gate, residual=x2),
              (hq, hs, w2, s2, b2, gate, x2), hq, w2),
     ]
+
+
+def _block_gemm_checks(randn):
+    """Phase-2 checks of K22 at the 1.3B block-scale checkpoint path's
+    shapes (bf16 out, as the path writes it: self q / k / v / o and cross
+    q / o 32760x1536x1536, fc1 32760x8960x1536, fc2 32760x1536x8960, text
+    k / v 512x1536x1536) and in fp32 on the square shape and a ragged one
+    (1000x300x200: K and N padded), fp32 bit-equal to the plain version
+    (the same fp32 terms in the same K-block order), bf16 within one step.
+    The block scales span a factor of ~55, so a scale read from the wrong
+    block shows; two planted faults must be rejected: ws transposed (on the
+    square shape, where the shapes cannot catch it) and xs shifted by one
+    M block. Beside each: `torch._int_mm` (the product alone) and bf16
+    `torch.matmul` of the same shape; beside the 1536- and 8960-wide ones,
+    the plain-torch activation quantiser that feeds K22 on the path."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import quant as qt
+
+    def scales(r, c):
+        return 1e-3 * torch.exp(4 * randn(r, c, dtype=torch.float32).sigmoid())
+
+    def int8(*shape):
+        return randn(*shape, dtype=torch.float32, std=60.0).round().clamp(
+            -127, 127).to(torch.int8)
+
+    def check(what, M, K, N, out, faults=False, quantiser=False):
+        cd = lambda n: -(-n // 128)                     # noqa: E731
+        xq, wq = int8(M, K), int8(N, K)
+        x = randn(M, K)
+        xs, ws = scales(cd(M), cd(K)), scales(cd(N), cd(K))
+        b = randn(N, dtype=torch.float32, std=0.5)
+        exact = out == torch.float32
+        tol = dict(atol=0.0, rtol=0.0 if exact else 2.0 ** -8)
+        fault = {"ws transposed": lambda: qt._int8_block_matmul_cuda(
+                     xq, xs, wq, ws.t().contiguous(), b, out),
+                 "xs shifted by one M block": lambda: qt._int8_block_matmul_cuda(
+                     xq, xs.roll(1, 0), wq, ws, b, out)} if faults else {}
+        lib = (lambda: torch._int_mm(xq, wq.t())) if M > 16 and K % 8 == 0 \
+            and N % 8 == 0 else None
+        wb = randn(N, K)
+        yard = {"bf16 torch.matmul": lambda: torch.matmul(x, wb.t())}
+        if quantiser:       # the linear's input quantiser (plain torch)
+            yard[f"quantize_activation_block {M}x{K} (plain torch)"] = \
+                lambda: qt.quantize_activation_block(x)
+        return Check("K22", f"{what} {M}x{N}x{K} + bias, {str(out)[6:]} out",
+                     lambda: qt._int8_block_matmul_cuda(xq, xs, wq, ws, b, out),
+                     lambda: qt.int8_block_matmul_plain(xq, xs, wq, ws, b, out),
+                     (xq, xs, wq, ws, b), {"int8": 2 * M * N * K}, lib,
+                     "torch._int_mm (product only)", yard, faults=fault, **tol)
+
+    D, F = G13.dim, G13.ffn
+    bf, f32 = torch.bfloat16, torch.float32
+    return [check("self / cross q, k, v, o", L, D, D, bf, quantiser=True),
+            check("fc1", L, D, F, bf), check("fc2", L, F, D, bf, quantiser=True),
+            check("text k / v", TEXT, D, D, bf),
+            check("square", L, D, D, f32, faults=True),
+            check("ragged", 1000, 200, 300, f32)]
 
 
 def _k12_checks(x, ms, mb, w, bias):
@@ -987,7 +1067,7 @@ def _qk_proj(sa, h, dim: int):
 
 def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
            geo: Geometry = G13, v_quant: str = "channel", sla_block: int = 256,
-           proj_l=None, batch: int = 1):
+           proj_l=None, batch: int = 1, block_scale: bool = False):
     """One full-width block of `geo`, card against CPU; returns the launch
     counts of its card run (set to 0 just before it, read just after).
     proj_l (default: on for sagesla at 256, off otherwise) makes it
@@ -996,9 +1076,11 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     block's linears quantised as load_dit quantises them (W8A8 postscale,
     QKV fused below dim 4096), so the int8 feeds (K12-K14; K15-K17 at 14B)
     and the GEMMs K8-K11 run on the card and their plain versions on the
-    CPU. v_quant and sla_block as `make_wan_cfg` takes them; batch > 1
-    stacks independent random latents and contexts, and the card runs the
-    block twice, bit-equal."""
+    CPU. block_scale: every linear W8A8 with 128x128 block scales instead
+    (a reference checkpoint's layout, unfused): the bf16 composition with
+    K22 for each linear. v_quant and sla_block as `make_wan_cfg` takes
+    them; batch > 1 stacks independent random latents and contexts, and the
+    card runs the block twice, bit-equal."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops.attention import (
@@ -1023,6 +1105,8 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     blk = _random_block(cfg, dev, seed=1, proj_l_std=0.05 if lin else 0.0).eval()
     if quant_linear:
         quantize_wan_blocks([blk], mode="postscale", fuse_qkv=geo.fuse_qkv)
+    elif block_scale:
+        quantize_wan_blocks([blk], mode="block", fuse_qkv=False)
     blk_cpu = copy.deepcopy(blk).cpu()
     g = torch.Generator(device=dev).manual_seed(2)
     T, Hs, Ws = 1, 30, 52
@@ -1082,6 +1166,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     if not keep.any():
         raise AssertionError(f"phase3 {attention}: every Q-block's LUT differs")
     label = (attention + (" + W8A8" if quant_linear else "")
+             + (" + W8A8 block-scale" if block_scale else "")
              + (f" v_quant {v_quant}" if v_quant != "channel" else "")
              + (f" blocks {a.block_q}/{a.block_k}" if sla_block != 256 else "")
              + (f" batch {batch}" if batch > 1 else ""))
@@ -1099,12 +1184,50 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     return counts
 
 
+def _write_checkpoint(directory: str):
+    """The port's writer saves a seeded random 1.3B sagesla DiT in the
+    reference's checkpoint layout: every block linear quantised to 128x128
+    block scales (`quantize_wan_blocks(mode="block", fuse_qkv=False)`),
+    proj_l N(0, 0.05^2) and the head N(0, 0.02^2) (non-zero: the linear
+    branch runs and the velocity depends on the blocks), saved with
+    convert's dtype rules (fp32 to bf16 but the scales). Returns the path
+    and the state the port must load from it: the model's, fp32 tensors
+    rounded through bf16 as the file stores them."""
+    import torch
+    from turbodiffusion_tpu_torch.models.wan import init_wan_params
+    from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
+    from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
+    from turbodiffusion_tpu_torch.scripts.convert import save_state_dict
+    from turbodiffusion_tpu_torch.utils.checkpoint import (
+        wan_state_dict_from_params)
+    t0 = time.perf_counter()
+    cfg = make_wan_cfg(G13.model, "sagesla", TOPK)
+    model = init_wan_params(cfg, seed=11, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        for p in [b.self_attn.proj_l for b in model.blocks] + [model.head.head]:
+            std = 0.02 if p is model.head.head else 0.05
+            for t in (p.weight, p.bias):
+                t.copy_(std * torch.randn(t.shape, generator=g, device="cuda"))
+    quantize_wan_blocks(model.blocks, mode="block", fuse_qkv=False)
+    path = os.path.join(directory, "dit_1.3b_sagesla_block.pth")
+    save_state_dict(wan_state_dict_from_params(model, cfg), path)
+    expected = {k: (v.bfloat16().float() if v.dtype == torch.float32
+                    and not k.endswith("scale") else v)
+                for k, v in model.state_dict().items()}
+    print(f"phase4 checkpoint written: {os.path.getsize(path) / 2**30:.2f} GiB "
+          f"in {time.perf_counter() - t0:.1f} s ({len(expected)} tensors)",
+          flush=True)
+    return path, expected
+
+
 def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
-           requests: int, create_kw: dict):
+           requests: int, create_kw: dict, loaded_state=None):
     """`requests` 480p/81f requests through WanPipeline.create(geo.model,
     attention_type=attention, quant_linear=quant_linear, **create_kw), then
     a traced denoise (`_profile_denoise`); frees the pipeline and returns
-    the launch counts of the last request."""
+    the launch counts of the last request. loaded_state: the DiT state the
+    checkpoint in create_kw must load into, tensor for tensor."""
     import torch
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
@@ -1118,6 +1241,17 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
     torch.cuda.synchronize()
     print(f"phase4 {label} create: {time.perf_counter() - t0:.1f} s, "
           f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if loaded_state is not None:
+        got = pipe.dit.state_dict()
+        bad = [k for k, v in loaded_state.items()
+               if k not in got or not torch.equal(got[k], v)]
+        if bad or len(got) != len(loaded_state) \
+                or not pipe.cfg.attention.linear_branch:
+            raise AssertionError(f"{label}: loaded DiT differs from the written "
+                                 f"one at {bad[:5]} (linear branch "
+                                 f"{pipe.cfg.attention.linear_branch})")
+        print(f"phase4 {label} load: all {len(got)} tensors equal the written "
+              f"model's (bf16 where the file is), linear branch on", flush=True)
     counts = None
     for r in range(requests):
         gen = GenerationConfig(num_steps=4, num_frames=81, resolution="480p",
@@ -1169,6 +1303,7 @@ PROFILE_CATEGORIES = [
     # K8-K11 before the library GEMMs: K9-K11's name holds "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
     ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
+    ("K22", ("int8_gemm_kernel<3>",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")),
     ("top-k/sort", ("topk", "sort", "radix")), ("reduce", ("reduce",)),
 ]
@@ -1253,7 +1388,9 @@ def main(argv=None) -> int:
                                  sla_block=64), ("K2", "K20")),
                 ("sla+proj_l", dict(attention="sla", proj_l=True), ("K3", "K21")),
                 ("batch2", dict(attention="sagesla", quant_linear=True, batch=2),
-                 ("K5", "K6", "K7", "K12", "K13"))):
+                 ("K5", "K6", "K7", "K12", "K13")),
+                ("block-scale", dict(attention="sagesla", block_scale=True),
+                 ("K1", "K2", "K4", "K5", "K6", "K7", "K22"))):
             block_counts[label] = phase3(**kw)
             missing = [n for n in must if not block_counts[label].get(n)]
             if missing:
@@ -1265,7 +1402,18 @@ def main(argv=None) -> int:
         # runs there, else from the first earlier path that runs it; K21,
         # which no request runs (random weights: proj_l = 0), from the
         # phase-3 block of the row path
-        by_path = [phase4(*path) for path in PATHS]
+        by_path = []
+        for path in PATHS:
+            if "dit_path" not in path[5]:
+                by_path.append(phase4(*path))
+                continue
+            from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                ckpt, state = _write_checkpoint(tmp)
+                by_path.append(phase4(*path[:5], {**path[5], "dit_path": ckpt},
+                                      loaded_state=state))
+                del state
         for path_counts in by_path[-1:] + by_path[:-1]:
             for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c

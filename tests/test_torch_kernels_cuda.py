@@ -647,3 +647,52 @@ def test_k21_matches_plain(dev):
     got = la.linear_attention_projected(q, k, v, w, b)
     assert la._linear_projected_cuda.launches == before + 2
     _close(got, la.linear_attention_projected_plain(q, k, v, w, b))
+
+
+# ---------------------------------------------------------------------------
+# K22: the 128x128 block-scaled W8A8 GEMM (fp32 out bit-equal to the plain
+# version, which forms the same fp32 terms in the same K-block order; bf16
+# out within one bf16 step, the plain version's fp32 value rounded once)
+# ---------------------------------------------------------------------------
+
+def _block_scales(dev, rows, cols, seed):
+    """Scales spanning a factor of ~50 across blocks."""
+    a = np.random.RandomState(seed).uniform(0, 4, (rows, cols))
+    return torch.from_numpy((1e-3 * np.exp(a)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bias,out", [
+    (300, 256, 384, True, torch.float32), (300, 256, 384, False, torch.float32),
+    (1000, 200, 300, True, torch.float32),        # ragged K and N: padded
+    (512, 1536, 1536, True, torch.bfloat16)])
+def test_k22_matches_plain(dev, M, K, N, bias, out):
+    cd = lambda n: -(-n // 128)                   # noqa: E731
+    xq, wq = _i8(dev, M, K, seed=100), _i8(dev, N, K, seed=101)
+    xs, ws = _block_scales(dev, cd(M), cd(K), 102), _block_scales(dev, cd(N), cd(K), 103)
+    b = _randn(dev, N, seed=104) if bias else None
+    before = qt._int8_block_matmul_cuda.launches
+    got = qt.int8_block_matmul(xq, xs, wq, ws, b, out_dtype=out)
+    assert qt._int8_block_matmul_cuda.launches == before + 1
+    want = qt.int8_block_matmul_plain(xq, xs, wq, ws, b, out_dtype=out)
+    assert got.dtype == out and got.shape == (M, N)
+    if out == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.cuda
+def test_block_linear_on_the_card_matches_plain(dev):
+    """An Int8BlockLinear over a (2, 200, 256) bf16 activation: the
+    activation quantiser (plain torch on both devices) and K22 (bf16 out)
+    against the CPU's plain composition."""
+    lin = torch.nn.Linear(256, 384, dtype=torch.bfloat16)
+    blk = qt.Int8BlockLinear.from_linear(lin).to(dev)
+    x = (3 * _randn(dev, 2, 200, 256, seed=105)).bfloat16()
+    before = qt._int8_block_matmul_cuda.launches
+    got = blk(x)
+    assert qt._int8_block_matmul_cuda.launches == before + 1
+    want = blk.cpu()(x.cpu())
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2.0 ** -8,
+                               atol=0)

@@ -235,13 +235,15 @@ def test_v_quant_reaches_the_config(monkeypatch):
                                   ["--v_quant", "row"]])
 def test_cli_refuses_paths_not_ported(monkeypatch, flag):
     """Each flag of a path the port lacks raises naming its ROADMAP item.
-    --quant_linear (the W8A8 linears, K8-K11) and --v_quant row (K18, K19)
-    are ported: the CLI forwards them to WanPipeline.create instead."""
+    --quant_linear (the W8A8 linears, K8-K11), --v_quant row (K18, K19) and
+    --dit_path (checkpoint import, K22 for block-scaled linears) are
+    ported: the CLI forwards them to WanPipeline.create instead."""
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
     from turbodiffusion_tpu_torch.pipelines import pipeline
     base = ["--model", "test", "--device", "cpu", "--random_weights",
             "--prompt", "x", "--attention_type", "sla"]
-    if flag in (["--quant_linear"], ["--v_quant", "row"]):
+    if flag in (["--quant_linear"], ["--v_quant", "row"],
+                ["--dit_path", "x.pth"]):
         seen = {}
 
         def create(**kw):
@@ -252,9 +254,10 @@ def test_cli_refuses_paths_not_ported(monkeypatch, flag):
                             staticmethod(create))
         with pytest.raises(SystemExit):
             main(base + flag)
-        assert (seen["quant_linear"], seen["v_quant"]) == (
+        assert (seen["quant_linear"], seen["v_quant"], seen["dit_path"]) == (
             flag == ["--quant_linear"],
-            "row" if flag == ["--v_quant", "row"] else "channel")
+            "row" if flag == ["--v_quant", "row"] else "channel",
+            "x.pth" if flag == ["--dit_path", "x.pth"] else None)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(base + flag)

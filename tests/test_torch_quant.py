@@ -276,8 +276,17 @@ def test_quantize_wan_blocks_matches_jax():
 
 
 def test_block_layout_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue B item 18"):
-        quant.quantize_linear_params(torch.nn.Linear(8, 8), mode="block")
+    """The 128x128 block layout (K22, Int8BlockLinear) is refused where the
+    postscale layout is meant: by the int8 feeds' consumer and by QKV
+    fusion (tests/test_torch_checkpoint.py holds the layout itself against
+    JAX)."""
+    lin = quant.quantize_linear_params(torch.nn.Linear(128, 128), mode="block")
+    assert isinstance(lin, quant.Int8BlockLinear)
+    with pytest.raises(ValueError, match="postscale linears"):
+        quant.int8_linear_prequant(torch.zeros(2, 128, dtype=torch.int8),
+                                   torch.ones(2, 1), lin)
+    with pytest.raises(ValueError, match="fuses only postscale"):
+        quant.fuse_linear_params([lin, lin, lin])
 
 
 def test_cuda_wrappers_refuse_non_cuda_devices():

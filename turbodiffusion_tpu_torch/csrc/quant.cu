@@ -20,6 +20,13 @@
 //     bk-slab) scaled int8 activation: acc_f32 = sum over slabs of
 //     float(s32 slab product) * xs[m, slab], in slab order, then K9's
 //     epilogue from the col scale on.
+// K22 tdx_int8_gemm_block replaces quant.py:_int8_block_matmul_pallas (body
+//     _gemm_kernel): W8A8 with 128 x 128 block scales on both operands, the
+//     reference's Int8Linear checkpoint layout. For each 128-wide K block kb,
+//     in order: facc += float(s32 block product) * (xs[mb, kb] * ws[nb, kb]),
+//     in fp32, the scale product first as the TPU kernel forms it; then the
+//     fp32 bias and one store, fp32 or bf16 (the same single rounding as the
+//     TPU kernel's fp32 output cast by its caller).
 //
 // What bounds them on an H100. K8 is memory-bound: at (32,760, 1,536) it
 // reads 100.6 MB and writes 50.4 MB, 0.045 ms at 3.35 TB/s; one warp per
@@ -35,7 +42,10 @@
 //     (|127 * 127 * 8960| < 2^31); the weight is stored (N, K), K-contiguous,
 //     which is the "col" operand layout mma.sync reads;
 //   * K11 moves the s32 accumulators into fp32 ones at every slab edge
-//     (bk = 896 = 14 K slices, so no slice straddles a slab);
+//     (bk = 896 = 14 K slices, so no slice straddles a slab); K22 at every
+//     128-K edge (2 K slices). The output tile is the quant block, so K22
+//     reads one xs and one ws scalar a K block; it has no col scale, gate,
+//     residual or activation;
 //   * K10's per-(row, 896) scale spans 7 output tiles: the 7 blocks of one
 //     stripe run as one thread-block cluster, reduce each row's amax over
 //     their 128 columns in shared memory, read the other blocks' maxima
@@ -114,7 +124,9 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ld,
 // K9-K11: the int8 GEMM
 // ---------------------------------------------------------------------------
 
-enum Mode { kPostscale = 0, kQout = 1, kBlockact = 2 };
+enum Mode { kPostscale = 0, kQout = 1, kBlockact = 2, kBlockScale = 3 };
+
+constexpr int kQBlock = 128;  // K22's quant block, both operands
 
 constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, THREADS = 256;
 constexpr int WARPS_N = 4, WM = 64, WN = 32;
@@ -127,12 +139,14 @@ struct GemmParams {
   const int8_t* a;          // (M, K) int8
   const int8_t* w;          // (N, K) int8
   const float* rs;          // (M,) row scales (K9, K10)
-  const float* xs;          // (M, K / bk) slab scales (K11)
+  const float* xs;          // (M, K / bk) slab scales (K11); (Mb, Kb) (K22)
+  const float* ws;          // (Nb, Kb) weight block scales (K22)
   const float* cs;          // (N,) col scales
   const float* bias;        // (N,) or null
   const float* gate;        // (N,) or null
   const __nv_bfloat16* res; // (M, N) or null
-  __nv_bfloat16* out;       // (M, N) bf16 (K9, K11)
+  __nv_bfloat16* out;       // (M, N) bf16 (K9, K11, K22)
+  float* out_f;             // (M, N) fp32 (K22, in place of out)
   int8_t* out_q;            // (M, N) int8 (K10)
   float* out_s;             // (M, N / BNQ) fp32 (K10)
   int M, N, K, bk, act;
@@ -279,28 +293,46 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
         }
       }
     }
+    if constexpr (MODE == kBlockScale) {
+      if (((kt + 1) * BK) % kQBlock == 0) {  // a quant block ends
+        const int kb = (kt + 1) * BK / kQBlock - 1;
+        const int n_kb = p.K / kQBlock;
+        const float sc = __fmul_rn(p.xs[(size_t)blockIdx.y * n_kb + kb],
+                                   p.ws[(size_t)blockIdx.x * n_kb + kb]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              facc[i][j][e] = __fadd_rn(facc[i][j][e], __fmul_rn((float)acc[i][j][e], sc));
+              acc[i][j][e] = 0;
+            }
+      }
+    }
   }
   cp_async_wait<0>();
 
   // epilogue in fp32: the values v[i][j][e] (reusing facc)
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
+    constexpr bool kRescaled = MODE == kBlockact || MODE == kBlockScale;
     float rsv[2] = {1.f, 1.f};
-    if constexpr (MODE != kBlockact) {
+    if constexpr (!kRescaled) {
       rsv[0] = p.rs[min(rows[i][0], p.M - 1)];
       rsv[1] = p.rs[min(rows[i][1], p.M - 1)];
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int col = n0 + wn * WN + j * 8 + t * 2;
-      const float2 csv = *reinterpret_cast<const float2*>(p.cs + col);
+      float2 csv = make_float2(1.f, 1.f);
+      if constexpr (MODE != kBlockScale) csv = *reinterpret_cast<const float2*>(p.cs + col);
       float2 bv = make_float2(0.f, 0.f);
       if (p.bias) bv = *reinterpret_cast<const float2*>(p.bias + col);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float v = MODE == kBlockact ? facc[i][j][e]
-                                    : __fmul_rn((float)acc[i][j][e], rsv[e >> 1]);
-        v = __fmul_rn(v, (e & 1) ? csv.y : csv.x);
+        float v = kRescaled ? facc[i][j][e] : __fmul_rn((float)acc[i][j][e], rsv[e >> 1]);
+        if constexpr (MODE != kBlockScale) v = __fmul_rn(v, (e & 1) ? csv.y : csv.x);
         if (p.bias) v = __fadd_rn(v, (e & 1) ? bv.y : bv.x);
         if (p.act) v = gelu_tanh(v);
         facc[i][j][e] = v;
@@ -384,8 +416,11 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
             v0 = __fadd_rn(v0, rv.x);
             v1 = __fadd_rn(v1, rv.y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
-              __floats2bfloat162_rn(v0, v1);
+          if (MODE == kBlockScale && p.out_f)
+            *reinterpret_cast<float2*>(p.out_f + (size_t)row * p.N + col) = make_float2(v0, v1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
+                __floats2bfloat162_rn(v0, v1);
         }
       }
   }
@@ -477,4 +512,18 @@ extern "C" int tdx_int8_gemm_blockact(const void* a, const void* w, const void* 
   p.out = (__nv_bfloat16*)out;
   p.bk = bk;
   return launch_gemm<kBlockact>(p, 1, stream);
+}
+
+extern "C" int tdx_int8_gemm_block(const void* a, const void* w, const void* xs,
+                                   const void* ws, const void* bias, void* out, int out_f32,
+                                   int M, int N, int K, void* stream) {
+  if (K % kQBlock || N % kQBlock) return (int)cudaErrorInvalidValue;
+  GemmParams p = make_params(a, w, nullptr, bias, M, N, K, 0);
+  p.xs = (const float*)xs;
+  p.ws = (const float*)ws;
+  if (out_f32)
+    p.out_f = (float*)out;
+  else
+    p.out = (__nv_bfloat16*)out;
+  return launch_gemm<kBlockScale>(p, 1, stream);
 }

@@ -2,10 +2,17 @@
 
 The flag surface of `turbodiffusion_tpu/inference/wan2_1_t2v.py:19-63`,
 plus `--device` (default `cuda`; `cpu` runs the plain versions of the
-kernels, for small test models). Flags whose paths are not ported yet raise
+kernels, for small test models) and `--tokenizer_path` (a local umT5
+tokenizer directory). One of `--dit_path` and `--random_weights` is
+required, as in JAX. Flags whose paths are not ported yet raise
 NotImplementedError naming their ROADMAP item.
 
 Usage:
+  python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v \
+      --dit_path TurboWan2.1-T2V-1.3B-480P-quant.pth \
+      --vae_path Wan2.1_VAE.pth \
+      --text_encoder_path models_t5_umt5-xxl-enc-bf16.pth \
+      --tokenizer_path umt5-xxl/ --prompt "..."
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
       --prompt "..." [--attention_type sagesla|sla|original] [--quant_linear]
       [--v_quant channel|row] [--sla_block 64|128|256] [--num_steps 4]
@@ -23,7 +30,6 @@ from einops import rearrange
 _NOT_YET = {
     "serve": "the serve TUI waits for ROADMAP Queue A item 14",
     "mesh": "multi-GPU meshes wait for ROADMAP Queue A item 12",
-    "dit_path": "checkpoint loading waits for ROADMAP Queue A item 14",
 }
 
 
@@ -69,6 +75,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                    help="Run with random weights (no checkpoints)")
     p.add_argument("--mesh", type=str, default=None, metavar="DP,FSDP,CP",
                    help="Multi-GPU mesh")
+    p.add_argument("--tokenizer_path", type=str, default=None,
+                   help="Local umT5 tokenizer directory (needed with "
+                        "--text_encoder_path)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -81,23 +90,25 @@ def main(argv=None):
             raise NotImplementedError(f"--{flag}: {why}")
     if args.prompt is None:
         raise SystemExit("--prompt is required")
-    if not args.random_weights:
-        raise SystemExit("--random_weights is required (checkpoint loading "
-                         "is not ported yet)")
+    if args.dit_path is None and not args.random_weights:
+        raise SystemExit("--dit_path is required (or pass --random_weights)")
 
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import (
         WanPipeline, check_ported)
     from turbodiffusion_tpu_torch.utils.video_io import save_video
-    check_ported(args.model, args.attention_type, args.quant_linear,
-                 args.device)
+    if args.dit_path is None:
+        # a checkpoint's layout is checked by create, once it is read
+        check_ported(args.model, args.attention_type, args.quant_linear,
+                     args.device)
 
     pipe = WanPipeline.create(
-        model=args.model, vae_path=args.vae_path,
+        model=args.model, dit_path=args.dit_path, vae_path=args.vae_path,
         text_encoder_path=args.text_encoder_path,
         attention_type=args.attention_type, sla_topk=args.sla_topk,
         sla_block=args.sla_block, v_quant=args.v_quant,
-        quant_linear=args.quant_linear, seed=args.seed, device=args.device)
+        quant_linear=args.quant_linear, seed=args.seed,
+        tokenizer_path=args.tokenizer_path, device=args.device)
     gen = GenerationConfig(
         num_steps=args.num_steps, sigma_max=args.sigma_max,
         num_frames=args.num_frames, resolution=args.resolution,

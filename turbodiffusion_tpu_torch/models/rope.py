@@ -1,15 +1,18 @@
-"""3D video RoPE angles for the Wan DiT.
+"""3D video RoPE angles for the Wan DiT, and the Q/K channel permutation.
 
-Ports `rope_freqs_3d` (`turbodiffusion_tpu/models/rope.py:17-55`). The port
-keeps the JAX package's convention: rotate-half RoPE, whose Q/K channel
-permutation is applied to the projection weights once at checkpoint import
-(rope.py:104-140), so JAX parameters carry over 1:1. The interleaved variant
-and the permutation helpers wait for checkpoint import.
+Ports `rope_freqs_3d` (`turbodiffusion_tpu/models/rope.py:17-55`),
+`rope_channel_permutation` (:104-116) and `permute_qk_linear` (:119-149).
+The port keeps the JAX package's convention: rotate-half RoPE, whose Q/K
+channel permutation is applied to the projection weights once at checkpoint
+import, so JAX parameters carry over 1:1.
 """
 
 from __future__ import annotations
 
 import torch
+
+from turbodiffusion_tpu_torch.ops.quant import (
+    QBLOCK, Int8BlockLinear, Int8Linear, quantize_int8_block)
 
 
 def rope_freqs_3d(T: int, H: int, W: int, head_dim: int,
@@ -43,3 +46,45 @@ def rope_freqs_3d(T: int, H: int, W: int, head_dim: int,
                        fh.expand(T, H, W, dim_h // 2),
                        fw.expand(T, H, W, dim_w // 2)], dim=-1)
     return freqs.reshape(T * H * W, dim // 2)
+
+
+def rope_channel_permutation(head_dim: int, num_heads: int) -> torch.Tensor:
+    """The permutation from the reference's interleaved channel order to
+    the rotate-half order, per head: [0, 2, 4, ..., 1, 3, 5, ...] (rope.py:
+    104-116). Applied to the output channels of the Q / K projections and
+    to norm_q / norm_k; attention scores are unchanged, as q and k get the
+    same permutation."""
+    half = head_dim // 2
+    per_head = torch.cat([torch.arange(half) * 2, torch.arange(half) * 2 + 1])
+    return (per_head[None, :] + torch.arange(num_heads)[:, None] * head_dim
+            ).reshape(-1)
+
+
+@torch.no_grad()
+def permute_qk_linear(lin, head_dim: int, num_heads: int,
+                      inverse: bool = False):
+    """Permute a Q / K projection's output channels into rotate-half order
+    (or back, inverse=True), in place (rope.py:119-149). lin is an
+    nn.Linear, an Int8Linear (postscale: the per-channel scales permute with
+    the rows) or an Int8BlockLinear (128x128 block scales: with heads of a
+    multiple of 128 the permutation stays inside each block and only the
+    rows move; heads that straddle blocks are dequantised, permuted and
+    requantised with `quantize_int8_block`). Returns lin."""
+    perm = rope_channel_permutation(head_dim, num_heads)
+    if inverse:
+        perm = torch.argsort(perm)
+    if isinstance(lin, Int8BlockLinear) and head_dim % QBLOCK:
+        N, K = lin.w_int8.shape
+        sr = lin.scale.repeat_interleave(QBLOCK, 0)[:N]
+        sr = sr.repeat_interleave(QBLOCK, 1)[:, :K]
+        lin.w_int8, lin.scale = quantize_int8_block(
+            (lin.w_int8.float() * sr)[perm.to(sr.device)])
+    elif isinstance(lin, (Int8Linear, Int8BlockLinear)):
+        lin.w_int8 = lin.w_int8[perm.to(lin.w_int8.device)].contiguous()
+        if isinstance(lin, Int8Linear):
+            lin.scale = lin.scale[perm.to(lin.scale.device)].contiguous()
+    else:
+        lin.weight.copy_(lin.weight[perm.to(lin.weight.device)])
+    if lin.bias is not None:
+        lin.bias.copy_(lin.bias[perm.to(lin.bias.device)])
+    return lin

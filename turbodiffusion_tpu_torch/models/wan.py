@@ -15,8 +15,13 @@ Ports `turbodiffusion_tpu/models/wan.py`:
   * `init_wan_params`    (:474-575)
 
 Every linear of a block goes through `ops/quant.linear_maybe_quant`: bf16
-`nn.Linear`s, or, after `ops/quant.quantize_wan_blocks` (`--quant_linear`),
-W8A8 `Int8Linear`s. With W8A8 linears the block takes JAX's int8 feeds
+`nn.Linear`s; W8A8 `Int8BlockLinear`s with 128x128 block scales (the
+reference's quantised checkpoints, K22 each), which keep the bf16
+composition of the block (JAX's `scale.ndim == 1` tests, wan.py:139, :192,
+:248-249, :301, :317, :331: every `isinstance(..., Int8Linear)` below is
+False for them); or, after `ops/quant.quantize_wan_blocks`
+(`--quant_linear`), W8A8 postscale `Int8Linear`s. With postscale linears
+the block takes JAX's int8 feeds
 (`_prequantized` / `_lin_q`, wan.py:68-78, 296-334): the quant-out LN (K12)
 feeds the QKV, cross-Q and fc1 GEMMs, `unfold_quant` (K13; K16 above
 H*Dh 4096) the fused path's O projection and `cross_attention_qout` (K14;

@@ -104,6 +104,9 @@ SIGNATURES = {
     # xq, w, slab scales, col scales, bias, gate, residual, out,
     # M, N, K, slab, act, stream
     "tdx_int8_gemm_blockact": [_P] * 8 + [_I] * 5 + [_P],
+    # xq, w (N, K), x block scales (Mb, Kb), w block scales (Nb, Kb), bias,
+    # out, out is fp32, M, N, K, stream
+    "tdx_int8_gemm_block": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

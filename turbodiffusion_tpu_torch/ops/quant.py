@@ -1,7 +1,8 @@
-"""W8A8 "postscale" linears: kernels K8 (row quantiser), K9 (postscale GEMM),
-K10 (quant-out GEMM) and K11 (block-activation GEMM).
+"""W8A8 linears: kernels K8 (row quantiser), K9 (postscale GEMM), K10
+(quant-out GEMM), K11 (block-activation GEMM) and K22 (128x128 block-scaled
+GEMM).
 
-Ports the postscale half of `turbodiffusion_tpu/ops/quant.py`:
+Ports `turbodiffusion_tpu/ops/quant.py`. The postscale layout:
   * `quantize_int8_postscale` (:74-82) — per-out-channel weight quantiser;
   * `quantize_rows_int8` — K8 `_quantize_rows_cuda` replaces the TPU kernel
     `quantize_rows_int8_pallas` (launch :121, body `_rowquant_kernel`
@@ -21,10 +22,25 @@ Ports the postscale half of `turbodiffusion_tpu/ops/quant.py`:
     `fuse_linear_params`, `quantize_linear_params` and
     `quantize_wan_blocks` (:960-1012), over `Int8Linear` modules.
 
-Weights: an `Int8Linear` holds its int8 weight (out, in) — K-contiguous, the
-operand layout of the GEMM kernels — where JAX stores (in, out); the loader
-transposes. The 128x128 "block" layout (`int8_linear_block`,
-`_int8_block_matmul_pallas`) is ROADMAP Queue B item 18 and is refused.
+The block layout (the reference's `Int8Linear` checkpoints):
+  * `quantize_int8_block` (:43-59) and `quantize_activation_block`
+    (:62-71): scale = max(amax, 1e-8) / 127 per 128x128 block, q =
+    round(x / scale) half to even (a division, not K8's `* (1/127)`);
+  * `int8_block_matmul` — K22 replaces `_int8_block_matmul_pallas` (:890,
+    body `_gemm_kernel` :837-858); its plain version loops over the K
+    blocks in order as the TPU kernel does (`int8_block_matmul_ref`
+    :817-834 sums the same terms in another order);
+  * `int8_linear_block` (:904-919) and the block branch of
+    `linear_maybe_quant` (:954-957: GELU, gate and residual after the GEMM,
+    in the output dtype), over `Int8BlockLinear` modules.
+
+Weights: both linears hold their int8 weight (out, in) — K-contiguous, the
+operand layout of the GEMM kernels — where JAX stores (in, out); the JAX
+tree loader transposes. An `Int8BlockLinear`'s scale is (out/128, in/128),
+the reference's on-disk layout, so a checkpoint loads without a transpose.
+`Int8BlockLinear` is not an `Int8Linear`: the model's `isinstance(...,
+Int8Linear)` tests keep it off the postscale int8 feeds (K12-K14), as JAX's
+`scale.ndim == 1` tests do.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/quant.cu) or raises. `.launches` counts launches. The plain
@@ -46,6 +62,7 @@ INT8_MAX = 127.0
 _GELU_C = 0.7978845608028654        # sqrt(2 / pi), rounded to fp32 in use
 _ACTS = {None: 0, "gelu_tanh": 1}
 _TILE = 128                         # N multiple of the GEMM kernels
+QBLOCK = 128                        # block of the block layout (both axes)
 _BK = 64                            # K multiple of the GEMM kernels
 
 
@@ -335,13 +352,125 @@ def int8_gemm_blockact(xq, x_scale, wq, col_scale, bias=None,
 
 
 # ---------------------------------------------------------------------------
+# the 128x128 block layout: quantisers, K22
+# ---------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad2(t, rows: int, cols: int):
+    """t (R, C) zero-padded at the end to (rows, cols); t itself if no pad."""
+    R, C = t.shape
+    if (R, C) == (rows, cols):
+        return t
+    return torch.nn.functional.pad(t, (0, cols - C, 0, rows - R))
+
+
+def quantize_int8_block(w, block: int = QBLOCK):
+    """Per-(block x block) symmetric quant of an (out, in) weight
+    (quant.py:43-59 on the transposed layout): scale = max(amax, 1e-8) / 127
+    per block, q = round(w / scale) half to even. Returns (int8 (out, in),
+    fp32 scale (cdiv(out, block), cdiv(in, block)))."""
+    N, K = w.shape
+    Nb, Kb = _cdiv(N, block), _cdiv(K, block)
+    wb = _pad2(w.float(), Nb * block, Kb * block).reshape(Nb, block, Kb, block)
+    scale = wb.abs().amax(dim=(1, 3)).clamp_min(1e-8) / INT8_MAX
+    q = torch.round(wb / scale[:, None, :, None]).to(torch.int8)
+    return q.reshape(Nb * block, Kb * block)[:N, :K].contiguous(), scale
+
+
+def quantize_activation_block(x2, block: int = QBLOCK):
+    """Per-(block x block) quant of an (M, K) activation (quant.py:62-71):
+    the rule of `quantize_int8_block`. Returns (int8 (M, K), fp32 scales
+    (cdiv(M, block), cdiv(K, block))). JAX returns its zero-padded
+    (Mb * block, Kb * block) int8 and slices it back to (M, K); the port
+    pads K only where it must and never M (K22 masks rows past M)."""
+    M, K = x2.shape
+    Mb, Kb = _cdiv(M, block), _cdiv(K, block)
+    xp = _pad2(x2, M, Kb * block)
+    amax = xp.abs().reshape(M, Kb, block).amax(-1).float()        # exact
+    amax = _pad2(amax, Mb * block, Kb).reshape(Mb, block, Kb).amax(1)
+    scale = amax.clamp_min(1e-8) / INT8_MAX                        # (Mb, Kb)
+    rows = scale.repeat_interleave(block, 0)[:M]                   # (M, Kb)
+    q = xp.float().reshape(M, Kb, block).div_(rows[..., None]).round_()
+    return q.to(torch.int8).reshape(M, Kb * block)[:, :K], scale
+
+
+def int8_block_matmul_plain(xq, xs, wq, ws, bias=None,
+                            out_dtype=torch.float32, block: int = QBLOCK):
+    """Plain version of K22, the TPU kernel's arithmetic: for each K block
+    kb in order, acc += float(xq_kb @ wq_kb^T) * (xs[m, kb] * ws[n, kb]) in
+    fp32, then + bias, one cast. xq (M, K) int8, xs (cdiv(M, 128), Kb); wq
+    (N, K) int8, ws (cdiv(N, 128), Kb); K past its last full block
+    zero-padded."""
+    M, K = xq.shape
+    N = wq.shape[0]
+    Kb = _cdiv(K, block)
+    xq, wq = _pad2(xq, M, Kb * block), _pad2(wq, N, Kb * block)
+    acc = None
+    for kb in range(Kb):
+        sl = slice(kb * block, (kb + 1) * block)
+        sc = xs[:, kb].float()[:, None] * ws[:, kb].float()[None, :]
+        sc = sc.repeat_interleave(block, 0)[:M].repeat_interleave(block, 1)[:, :N]
+        term = _int_product(xq[:, sl], wq[:, sl]).float() * sc
+        acc = term if acc is None else acc + term
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(out_dtype)
+
+
+def _int8_block_matmul_cuda(xq, xs, wq, ws, bias, out_dtype):
+    """Launch K22. K and N are zero-padded to multiples of 128 as JAX pads
+    them (quant.py:866-867); rows past M are masked in the kernel."""
+    M, K = xq.shape
+    N = wq.shape[0]
+    dev = xq.device
+    _require(xq.dtype == wq.dtype == torch.int8 and wq.shape[1] == K
+             and wq.device == dev and M > 0,
+             "K22 takes int8 xq (M, K) and wq (N, K) on one device")
+    _require(out_dtype in (torch.float32, torch.bfloat16),
+             "K22 writes fp32 or bf16")
+    Mb, Kb, Nb = _cdiv(M, QBLOCK), _cdiv(K, QBLOCK), _cdiv(N, QBLOCK)
+    xq = _pad2(xq, M, Kb * QBLOCK).contiguous()
+    wq = _pad2(wq, Nb * QBLOCK, Kb * QBLOCK).contiguous()
+    xs = _f32(xs, Mb * Kb, dev, "xs")
+    ws = _f32(ws, Nb * Kb, dev, "ws")
+    b = None if bias is None else _f32(
+        torch.nn.functional.pad(bias.reshape(-1).float(), (0, Nb * QBLOCK - N)),
+        Nb * QBLOCK, dev, "bias")
+    out = torch.empty((M, Nb * QBLOCK), dtype=out_dtype, device=dev)
+    rc = _build.load().tdx_int8_gemm_block(
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(), _ptr(b),
+        out.data_ptr(), int(out_dtype == torch.float32), M, Nb * QBLOCK,
+        Kb * QBLOCK, _build.stream_ptr(xq))
+    _build.check(rc, "tdx_int8_gemm_block")
+    _int8_block_matmul_cuda.launches += 1
+    return out if Nb * QBLOCK == N else out[:, :N]
+
+
+_int8_block_matmul_cuda.launches = 0
+
+
+def int8_block_matmul(xq, xs, wq, ws, bias=None, out_dtype=torch.float32):
+    """W8A8 GEMM with 128x128 block scales on both operands
+    (quant._int8_block_matmul_pallas, over wq (N, K) and ws (Nb, Kb)): the
+    plain version on a CPU tensor, kernel K22 on a CUDA tensor."""
+    if xq.device.type == "cpu":
+        return int8_block_matmul_plain(xq, xs, wq, ws, bias, out_dtype)
+    _require(xq.device.type == "cuda", f"no kernel for device {xq.device}")
+    return _int8_block_matmul_cuda(xq, xs, wq, ws, bias, out_dtype)
+
+
+# ---------------------------------------------------------------------------
 # linears
 # ---------------------------------------------------------------------------
 
-class Int8Linear(nn.Module):
-    """A W8A8 postscale linear (the JAX `{"w_int8", "scale", "b"}` leaf):
-    buffers `w_int8` (out, in) int8 and `scale` (out,) fp32, parameter
-    `bias` (out,) in the model dtype or None."""
+class _QuantLinear(nn.Module):
+    """A W8A8 linear's storage: buffers `w_int8` (out, in) int8 and
+    `scale` fp32 (its layout's shape), parameter `bias` (out,) in the model
+    dtype or None. A subclass gives the layout: its scale shape and
+    weight quantiser."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, dtype=torch.bfloat16):
@@ -350,30 +479,74 @@ class Int8Linear(nn.Module):
         self.register_buffer("w_int8", torch.zeros(
             (out_features, in_features), dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(
-            out_features, dtype=torch.float32, device=device))
+            self._scale_shape(in_features, out_features), dtype=torch.float32,
+            device=device))
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
                                               device=device))
                      if bias else None)
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
-        """Quantise an nn.Linear (quant.py:1000-1012, postscale); the float
-        weight is not kept."""
+    def from_linear(cls, lin: nn.Linear):
+        """Quantise an nn.Linear to this layout (quant.py:1000-1012); the
+        float weight is not kept."""
         q = cls(lin.in_features, lin.out_features, lin.bias is not None,
                 lin.weight.device, lin.weight.dtype)
-        q.w_int8, q.scale = quantize_int8_postscale(lin.weight)
+        q.w_int8, q.scale = cls._quantize(lin.weight)
         if lin.bias is not None:
             q.bias.copy_(lin.bias)
         return q
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features="
+                f"{self.out_features}, bias={self.bias is not None}")
+
+
+class Int8Linear(_QuantLinear):
+    """A W8A8 postscale linear (the JAX `{"w_int8", "scale", "b"}` leaf with
+    a 1-D scale): `scale` (out,), one per output channel."""
+
+    @staticmethod
+    def _scale_shape(in_features, out_features):
+        return (out_features,)
+
+    @staticmethod
+    def _quantize(w):
+        return quantize_int8_postscale(w)
 
     def forward(self, x, act: Optional[str] = None, gate=None, residual=None):
         return int8_linear_postscale(x, self.w_int8, self.scale, self.bias,
                                      act, gate, residual)
 
-    def extra_repr(self) -> str:
-        return (f"in_features={self.in_features}, out_features="
-                f"{self.out_features}, bias={self.bias is not None}")
+
+class Int8BlockLinear(_QuantLinear):
+    """A W8A8 linear with 128x128 block scales (the reference `Int8Linear`,
+    ops/core.py:391-432; the JAX leaf with a 2-D scale): `scale`
+    (cdiv(out, 128), cdiv(in, 128)). Not an `Int8Linear`, so the block
+    keeps it off the postscale int8 feeds. The input is quantised per
+    128x128 block at every call (plain torch), then K22."""
+
+    @staticmethod
+    def _scale_shape(in_features, out_features):
+        return (_cdiv(out_features, QBLOCK), _cdiv(in_features, QBLOCK))
+
+    @staticmethod
+    def _quantize(w):
+        return quantize_int8_block(w)
+
+    def forward(self, x):
+        return int8_linear_block(x, self.w_int8, self.scale, self.bias)
+
+
+def int8_linear_block(x, w_int8, scale, bias=None):
+    """Dynamic-activation-quant W8A8 linear with block scales
+    (quant.py:904-919): `quantize_activation_block` (plain torch, as JAX
+    leaves it to XLA), then K22; output in x's dtype (K22 writes it, one
+    rounding as JAX's fp32 output + astype)."""
+    shape = x.shape
+    xq, xs = quantize_activation_block(x.reshape(-1, shape[-1]))
+    y = int8_block_matmul(xq, xs, w_int8, scale, bias, out_dtype=x.dtype)
+    return y.reshape(*shape[:-1], w_int8.shape[0])
 
 
 def int8_linear_prequant(xq, row_scale, lin: Int8Linear,
@@ -385,6 +558,8 @@ def int8_linear_prequant(xq, row_scale, lin: Int8Linear,
     or (1, 1, N)) fused into the epilogue. A gate over a batch > 1 is
     applied after the GEMM as `residual + y * gate` in the output dtype
     (wan.py:146-149)."""
+    _require(isinstance(lin, Int8Linear),
+             f"the int8 feeds take postscale linears, not {type(lin).__name__}")
     shape = xq.shape
     N = lin.out_features
     if gate is not None and gate.dim() > 1 and gate.shape[0] > 1:
@@ -424,11 +599,13 @@ def _finish(y, gate=None, residual=None):
 
 def linear_maybe_quant(lin, x, act: Optional[str] = None, gate=None,
                        residual=None):
-    """A float (nn.Linear) or postscale (Int8Linear) linear with an optional
-    GELU-tanh and `residual + y * gate` (quant.py:926-957). On the int8 path
-    a batch-1 gate and the residual ride K9's epilogue; a gate over a batch
-    > 1 is applied after."""
-    if isinstance(lin, nn.Linear):
+    """A float (nn.Linear), block-scaled (Int8BlockLinear) or postscale
+    (Int8Linear) linear with an optional GELU-tanh and `residual + y * gate`
+    (quant.py:926-957). On the postscale path a batch-1 gate and the
+    residual ride K9's epilogue, a gate over a batch > 1 is applied after;
+    on the float and block paths all three follow the GEMM, in the output
+    dtype."""
+    if isinstance(lin, (nn.Linear, Int8BlockLinear)):
         y = lin(x)
         return _finish(gelu_tanh(y) if act == "gelu_tanh" else y, gate,
                        residual)
@@ -445,6 +622,9 @@ def fuse_linear_params(parts):
     (per-channel scales concatenate exactly), nn.Linear parts an
     nn.Linear."""
     first = parts[0]
+    _require(not isinstance(first, Int8BlockLinear),
+             "QKV fusion takes float or postscale linears (pipeline.py:87-93 "
+             "fuses only postscale)")
     has_bias = first.bias is not None
     out = sum(p.out_features for p in parts)
     with torch.no_grad():
@@ -464,28 +644,31 @@ def fuse_linear_params(parts):
     return fused
 
 
+LINEAR_LAYOUTS = {"postscale": Int8Linear, "block": Int8BlockLinear}
+
+
 def quantize_linear_params(lin, mode: str = "postscale"):
-    """An nn.Linear -> its quantised layout (quant.py:1000-1012); anything
-    else passes through."""
-    if mode != "postscale":
-        raise NotImplementedError(
-            f"mode={mode!r}: the 128x128 block-scaled W8A8 layout waits for "
-            "its kernel (ROADMAP Queue B item 18, _int8_block_matmul_pallas)")
-    return Int8Linear.from_linear(lin) if isinstance(lin, nn.Linear) else lin
+    """An nn.Linear -> its quantised layout (quant.py:1000-1012): "postscale"
+    (Int8Linear) or "block" (Int8BlockLinear); anything else passes
+    through."""
+    _require(mode in LINEAR_LAYOUTS, f"unknown W8A8 layout {mode!r}")
+    return (LINEAR_LAYOUTS[mode].from_linear(lin) if isinstance(lin, nn.Linear)
+            else lin)
 
 
 def quantize_wan_blocks(blocks, mode: str = "postscale",
                         fuse_qkv: bool = True):
     """Quantise every linear of the transformer blocks in place, skipping
-    the SLA `proj_l` (quant.py:978-997). fuse_qkv: self-attention Q/K/V
-    become one `qkv` linear (q, k, v set to None) whose output the attention
-    reads by column group. Returns `blocks`."""
+    the SLA `proj_l` (quant.py:978-997). fuse_qkv (postscale mode only, as
+    in JAX): self-attention Q/K/V become one `qkv` linear (q, k, v set to
+    None) whose output the attention reads by column group. Returns
+    `blocks`."""
     for blk in blocks:
         for attn in (blk.self_attn, blk.cross_attn):
             for name in ("q", "k", "v", "o"):
                 setattr(attn, name,
                         quantize_linear_params(getattr(attn, name), mode))
-        if fuse_qkv:
+        if fuse_qkv and mode == "postscale":
             sa = blk.self_attn
             sa.qkv = fuse_linear_params([sa.q, sa.k, sa.v])
             sa.q = sa.k = sa.v = None

@@ -1,19 +1,22 @@
 """Resident T2V pipeline.
 
 Ports `turbodiffusion_tpu/pipelines/pipeline.py`: `make_wan_cfg` and
-`load_dit` (:41-104, with the zero-`proj_l` rule), `TextEncoder` with its
-hash-tokenizer fallback (:107-160) and `WanPipeline.create` /
-`generate_t2v` (:185-288). The models stay resident on the pipeline's
-device and answer any number of requests; every entry point runs on the
-card unless told otherwise. Wan2.1-14B runs on the card as W8A8 sagesla
-(`check_ported`). I2V, meshes and checkpoint loading (`dit_path`,
-`vae_path`, `text_encoder_path`) wait for later slices.
+`load_dit` (:41-104: random weights or a checkpoint, the W8A8 rules and the
+zero-`proj_l` rule), `TextEncoder` (:107-160: random or checkpoint weights,
+and the hash-tokenizer fallback, refused with real weights) and
+`WanPipeline.create` (with `dit_path`, `vae_path`, `text_encoder_path`) /
+`generate_t2v` (:185-288). Checkpoints are read by `utils/checkpoint.py`.
+The models stay resident on the pipeline's device and answer any number of
+requests; every entry point runs on the card unless told otherwise.
+Wan2.1-14B runs on the card with W8A8 postscale linears and sagesla
+(`check_ported`). I2V and meshes wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -30,7 +33,12 @@ from turbodiffusion_tpu_torch.models.umt5 import (
 from turbodiffusion_tpu_torch.models.vae import (
     VAEConfig, WanVAE, init_vae_params, vae_decode)
 from turbodiffusion_tpu_torch.models.wan import WanModel, init_wan_params
-from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
+from turbodiffusion_tpu_torch.ops.quant import (
+    Int8BlockLinear, quantize_wan_blocks)
+from turbodiffusion_tpu_torch.utils.checkpoint import (
+    checkpoint_layout, load_torch_state_dict, strip_prefix,
+    umt5_params_from_state_dict, vae_params_from_state_dict,
+    wan_params_from_state_dict)
 from turbodiffusion_tpu_torch.pipelines.sampler import latent_shape, rcm_sample
 
 log = logging.getLogger(__name__)
@@ -55,32 +63,42 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
 
 
 def check_ported(model: str, attention_type: str, quant_linear: bool,
-                 device) -> None:
-    """Refuse a configuration the port's kernels do not carry on a card yet:
-    Wan2.1-14B runs there only as sagesla with W8A8 linears. Its other
-    configurations (bf16 linears, `sla`, `original`) need K2 (RMSNorm +
-    RoPE) at dim 5120, the bf16 ones a ~26 GiB DiT (ROADMAP Queue A item
-    15)."""
+                 device, layout: str = "float") -> None:
+    """Refuse a configuration the port's kernels do not carry on a card yet.
+    `layout` is that of the DiT's block linears as loaded ("float" for
+    random weights or a float checkpoint, quantised to postscale when
+    `quant_linear`; "postscale"; "block"). Wan2.1-14B runs there only as
+    sagesla with postscale W8A8 linears. Its other configurations (bf16 or
+    block-scaled linears, which keep the bf16 composition; `sla`,
+    `original`) need K2 (RMSNorm + RoPE) at dim 5120, the bf16 ones a ~26
+    GiB DiT (ROADMAP Queue A item 15)."""
+    postscale = layout == "postscale" or (layout == "float" and quant_linear)
     if (model == "Wan2.1-14B" and torch.device(device).type == "cuda"
-            and (attention_type != "sagesla" or not quant_linear)):
+            and (attention_type != "sagesla" or not postscale)):
         raise NotImplementedError(
             "Wan2.1-14B runs on a card only with --attention_type sagesla and "
-            "--quant_linear; bf16 14B and its sla / original attention wait "
-            "for K2 at dim 5120 (ROADMAP Queue A item 15)")
+            "W8A8 postscale linears (--quant_linear, or a postscale "
+            f"checkpoint; this DiT's linears: {layout}); bf16 or block-scaled "
+            "14B and its sla / original attention wait for K2 at dim 5120 "
+            "(ROADMAP Queue A item 15)")
 
 
-def load_dit(dit_path: Optional[str], cfg: WanConfig, seed: int = 0,
-             device="cuda"):
-    """Random weights (dit_path=None) on `device` (pipeline.py:66-104),
-    quantised to W8A8 postscale when `cfg.quant_linear` (QKV fused below
-    dim 4096, as JAX does). Returns (model, cfg); cfg turns the linear
+def load_dit(dit_path, cfg: WanConfig, seed: int = 0, device="cuda"):
+    """The DiT on `device` (pipeline.py:66-104): random weights
+    (dit_path=None), or a reference checkpoint (a path, or its state dict
+    already loaded), each linear in its layout on disk. With
+    `cfg.quant_linear`, float linears become W8A8 postscale and postscale
+    Q / K / V are fused below dim 4096, as JAX does; a block-scaled
+    checkpoint is left as it is. Returns (model, cfg); cfg turns the linear
     branch off when every proj_l is exactly zero."""
-    if dit_path is not None:
-        raise NotImplementedError(
-            "DiT checkpoint loading waits for checkpoint import (ROADMAP "
-            "Queue A item 14)")
-    model = init_wan_params(cfg, seed, device)
-    if cfg.quant_linear:
+    if dit_path is None:
+        model = init_wan_params(cfg, seed, device)
+    else:
+        sd = (dit_path if isinstance(dit_path, dict)
+              else strip_prefix(load_torch_state_dict(dit_path)))
+        model = wan_params_from_state_dict(sd, cfg, device)
+    if cfg.quant_linear and not isinstance(model.blocks[0].self_attn.q,
+                                           Int8BlockLinear):
         quantize_wan_blocks(model.blocks, mode="postscale",
                             fuse_qkv=cfg.dim < 4096)
     projs = [b.self_attn.proj_l for b in model.blocks
@@ -99,24 +117,30 @@ def load_dit(dit_path: Optional[str], cfg: WanConfig, seed: int = 0,
 
 class TextEncoder:
     """umT5 embedding service (pipeline.py:107-160). Built lazily on
-    `device`; `free` releases it. Without a local tokenizer directory the
-    prompts go through a hash tokenizer."""
+    `device`, from the reference's encoder checkpoint or, without one, from
+    random weights; `free` releases it. Prompts are tokenised from a local
+    umT5 tokenizer directory (`tokenizer_path`). Without one (or without
+    `transformers`) random weights take a hash tokenizer, and real weights
+    refuse it, as JAX does (:129-143), unless TDX_ALLOW_HASH_TOKENIZER=1."""
 
     def __init__(self, checkpoint_path: Optional[str] = None,
                  text_len: int = 512, cfg: Optional[UMT5Config] = None,
                  device="cuda", tokenizer_path: Optional[str] = None):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "umT5 checkpoint loading waits for checkpoint import (ROADMAP "
-                "Queue A item 14)")
         self.cfg = cfg if cfg is not None else UMT5Config(text_len=text_len)
+        self.checkpoint_path = checkpoint_path
         self.device = torch.device(device)
         self.tokenizer_path = tokenizer_path
         self.encoder: Optional[UMT5Encoder] = None
 
     def load(self):
         if self.encoder is None:
-            self.encoder = init_umt5_params(self.cfg, seed=7, device=self.device)
+            if self.checkpoint_path is None:
+                self.encoder = init_umt5_params(self.cfg, seed=7,
+                                                device=self.device)
+            else:
+                self.encoder = umt5_params_from_state_dict(
+                    load_torch_state_dict(self.checkpoint_path), self.cfg,
+                    self.device)
         return self
 
     def _hash_tokens(self, prompts):
@@ -139,8 +163,15 @@ class TextEncoder:
             ids, mask = tokenize(prompts, self.cfg.text_len,
                                  self.tokenizer_path)
         except (ImportError, OSError) as e:
-            # random weights only (real ones raise in __init__): the hash
-            # fallback keeps checkpoint-free runs deterministic
+            # the hash fallback keeps checkpoint-free runs deterministic; with
+            # real encoder weights it would silently ruin every request
+            if (self.checkpoint_path is not None
+                    and os.environ.get("TDX_ALLOW_HASH_TOKENIZER") != "1"):
+                raise RuntimeError(
+                    "umT5 tokenizer unavailable but real encoder weights are "
+                    "loaded — refusing the hash-tokenizer fallback (pass a "
+                    "local umT5 tokenizer directory, or set "
+                    "TDX_ALLOW_HASH_TOKENIZER=1 to force)") from e
             log.warning("umT5 tokenizer unavailable (%s); using the HASH "
                         "tokenizer fallback — embeddings are NOT meaningful "
                         "text encodings", e)
@@ -196,26 +227,33 @@ class WanPipeline:
                attention_type: str = "sagesla", sla_topk: float = 0.1,
                quant_linear: bool = False, seed: int = 0,
                sla_block: int = 256, v_quant: str = "channel",
-               device="cuda"):
-        """Random weights on `device`: DiT from `seed`, VAE from 3, umT5 from
-        7, as the JAX package seeds them."""
-        if vae_path is not None:
-            raise NotImplementedError(
-                "VAE checkpoint loading waits for checkpoint import (ROADMAP "
-                "Queue A item 14)")
-        check_ported(model, attention_type, quant_linear, device)
+               tokenizer_path: Optional[str] = None, device="cuda"):
+        """The pipeline on `device`: each model from its checkpoint path
+        where one is given (the VAE's is ignored at model "test", as in JAX,
+        :204-210), else random weights: DiT from `seed`, VAE from 3, umT5
+        from 7, as the JAX package seeds them. The DiT checkpoint is read
+        once and its layout checked (`check_ported`) before anything is
+        built on the card."""
+        sd = (None if dit_path is None
+              else strip_prefix(load_torch_state_dict(dit_path)))
+        check_ported(model, attention_type, quant_linear, device,
+                     "float" if sd is None else checkpoint_layout(sd))
         device = torch.device(device)
         cfg = make_wan_cfg(model, attention_type, sla_topk, quant_linear,
                            sla_block=sla_block, v_quant=v_quant)
-        dit, cfg = load_dit(dit_path, cfg, seed, device)
+        dit, cfg = load_dit(sd, cfg, seed, device)
         if model == "test":
             te = TextEncoder(text_encoder_path, cfg=umt5_test_config(
-                dim=cfg.text_dim, text_len=cfg.text_len), device=device)
+                dim=cfg.text_dim, text_len=cfg.text_len), device=device,
+                tokenizer_path=tokenizer_path)
             vae = init_vae_params(VAEConfig(dim=16, dtype=torch.float32),
                                   seed=3, device=device)
         else:
-            te = TextEncoder(text_encoder_path, device=device)
-            vae = init_vae_params(VAEConfig(), seed=3, device=device)
+            te = TextEncoder(text_encoder_path, device=device,
+                             tokenizer_path=tokenizer_path)
+            vae = (init_vae_params(VAEConfig(), seed=3, device=device)
+                   if vae_path is None else vae_params_from_state_dict(
+                       load_torch_state_dict(vae_path), VAEConfig(), device))
         return cls(cfg=cfg, dit=dit, vae=vae, text_encoder=te, device=device)
 
     @torch.no_grad()

@@ -6,11 +6,13 @@ sequences). This module takes such a tree with numpy leaves — no jax import
 packages compute the same function. It walks the module's parameters and
 buffers by name:
   * `weight` / `bias` map to the tree's `w` / `b`; an `nn.Linear` weight and
-    an `Int8Linear`'s `w_int8` buffer are transposed, because JAX stores
-    linears (in, out); the `Int8Linear`'s `scale` buffer is the tree's
-    `scale` (a tree quantised by `quantize_wan_blocks`, with its fused
-    `self_attn.qkv` below dim 4096 or separate q / k / v above, loads into
-    blocks quantised the same way);
+    the `w_int8` buffer of an `Int8Linear` or `Int8BlockLinear` are
+    transposed, because JAX stores linears (in, out); so is an
+    `Int8BlockLinear`'s `scale` (JAX: (in/128, out/128)), while a postscale
+    `Int8Linear`'s per-channel `scale` is copied as it is (a tree quantised
+    by `quantize_wan_blocks`, with its fused `self_attn.qkv` below dim 4096
+    or separate q / k / v above, or in the block layout, loads into blocks
+    quantised the same way);
   * a name that indexes a stacked subtree (the DiT's and umT5's `blocks`,
     whose leaves carry a leading num_layers axis) selects that layer;
   * where the tree holds a bare array (umT5's bias-free linears), it is the
@@ -25,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from turbodiffusion_tpu_torch.ops.quant import Int8BlockLinear
 
 _RENAME = {
     "weight": ("w",), "bias": ("b",),
@@ -72,8 +76,9 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
             arr = _to_numpy(node)
             if layer is not None:
                 arr = arr[layer]
-            if (isinstance(mod, nn.Linear) and pname == "weight") \
-                    or pname == "w_int8":
+            if ((isinstance(mod, nn.Linear) and pname == "weight")
+                    or pname == "w_int8"
+                    or (isinstance(mod, Int8BlockLinear) and pname == "scale")):
                 arr = arr.T
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"{mname}.{pname}: tree shape {arr.shape} != "
