@@ -28,7 +28,13 @@ Phases, each printing one line of its numbers:
      of their type, whichever is larger) and, where one PyTorch call
      computes the same function, that call's time (`library`; for the int8
      GEMMs `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of
-     the same shape); the port calls neither;
+     the same shape); the port calls neither. Then K23 / K24, the
+     block-sparse backward, at the 1.3B training shape (q of std 3, a
+     K-block no Q-block selects, NaN in the buffers' rows past L; planted
+     faults: an inverse-LUT entry dropped, delta left out of dS, dk without
+     `scale`; (lse, delta) in fp32, K24 ignoring their rows past L, dk = dv
+     = 0 on the unselected block, two runs bit-equal; no library call: the
+     dense SDPA backward of the shape beside them for scale);
   3. one full-width `WanAttentionBlock` with seeded random non-zero weights
      at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
      `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
@@ -42,7 +48,10 @@ Phases, each printing one line of its numbers:
      with W8A8 linears (unfused Q / K / V, K15-K17): the
      kernels on the card against the plain versions on the CPU, on the Q
      blocks whose block-map rows agree as sets, with each block's launch
-     counts (K21's in the JSON line: random weights give the requests a
+     counts; then one 1.3B `sla` block (proj_l != 0) forward and backward,
+     card (K23 + K24) against CPU: the output and the gradients of its 29
+     parameters and 3 inputs, each within 5% relative L2 (K21's earlier
+     JSON source: random weights give the requests a
      zero `proj_l`);
   4. the paths: `WanPipeline.create(..., attention_type="sagesla",
      quant_linear=True)` with random weights and two 480p/81f 4-step
@@ -66,11 +75,21 @@ Phases, each printing one line of its numbers:
      K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
      0), which shows each path went through its kernels; then each path's
      denoise under torch.profiler: device time by kernel category and the
-     device's idle share.
+     device's idle share;
+  5. SLA fine-tuning through the training CLI (`scripts.train.main
+     --experiment sla`) from a 1.3B teacher checkpoint the port's writer
+     saves first (non-zero head and proj_l) and tar shards written here:
+     3 steps at 480p/81f, full width and depth, --remat block_wise (per
+     step: wall time and its teacher / forward / backward / optimizer
+     split, loss, peak memory, exact launches K1 270, K2 270, K3 60, K4
+     120, K21 60, K23 30, K24 30; non-zero q / k / v / proj_l gradients;
+     step 2 under torch.profiler), 1 step at 480p/21f, --remat none (K1
+     180, K2 180, K3 30, K4 90, K21 30, K23 30, K24 30), and the
+     checkpoint save -> resume round trip at 2 layers.
 Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
-its 14B checks and that path's launches; K21: its 1.3B checks and the
-launches of the phase-3 block that runs it over the planes; any other: its
-1.3B checks and the launches of the first 1.3B path that runs it), the
+its 14B checks and that path's launches; K21, K23, K24: their 1.3B checks
+and one training step's launches; any other: its 1.3B checks and the
+launches of the first 1.3B path that runs it), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and the script exits non-zero; without a CUDA card it exits
 non-zero at once.
@@ -220,6 +239,10 @@ KERNELS = {
             "turbodiffusion_tpu/ops/linear_attention_pallas.py:141"),
     "K22": ("turbodiffusion_tpu_torch/csrc/quant.cu",
             "turbodiffusion_tpu/ops/quant.py:890"),
+    "K23": ("turbodiffusion_tpu_torch/csrc/sparse_attention_bwd.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1796"),
+    "K24": ("turbodiffusion_tpu_torch/csrc/sparse_attention_bwd.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1836"),
 }
 
 
@@ -229,6 +252,7 @@ def _launchers():
     from turbodiffusion_tpu_torch.ops import linear_attention as la
     from turbodiffusion_tpu_torch.ops import quant as qt
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
     return {"K1": fn._mln_cuda, "K2": fn._rmsrope_cuda,
             "K3": fa._sparse_flash_cuda, "K4": fa._flash_cuda,
@@ -240,7 +264,8 @@ def _launchers():
             "K15": sf._row_rms_inv_cuda, "K16": sf._unfold_quant_wide_cuda,
             "K17": fa._cross_qout_wide_cuda, "K18": sf._subquant_pack_kv_cuda,
             "K19": si8._sparse_i8_planes_cuda, "K20": fa._sparse_flash_i8qk_cuda,
-            "K21": la._linear_projected_cuda, "K22": qt._int8_block_matmul_cuda}
+            "K21": la._linear_projected_cuda, "K22": qt._int8_block_matmul_cuda,
+            "K23": sb._sparse_bwd_dq_cuda, "K24": sb._sparse_bwd_dkv_cuda}
 
 
 @dataclasses.dataclass
@@ -541,9 +566,11 @@ def phase2(reps: int = REPS):
     ] + _w8a8_checks(randn, x, G13) + _int8_feed_checks(randn, x, ms, mb, w,
                                                        bias, kt, vt, sdpa)
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
-    results = _run_checks(checks + mode_checks + _block_gemm_checks(randn), reps)
+    bwd_checks, bwd_extra = _bwd_checks(randn)
+    results = _run_checks(checks + mode_checks + _block_gemm_checks(randn)
+                          + bwd_checks, reps)
     _poisoned_tail(i8_args, scale)
-    for tail in tails:
+    for tail in (*tails, bwd_extra):
         tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
@@ -1015,6 +1042,125 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
     return checks, (k19_tail, k21_tail)
 
 
+# the K-block phase 2's K23 / K24 LUT never selects
+ZERO_BLOCK = 5
+
+
+def _without_block(lut, j: int):
+    """lut with K-block j replaced, in each row that names it, by the
+    smallest block id the row does not name: no Q-block selects j."""
+    import numpy as np
+    import torch
+    a = lut.cpu().numpy().copy()
+    nK = -(-L // BK)
+    for row in a.reshape(-1, a.shape[-1]):
+        if j in row:
+            row[row == j] = next(c for c in range(nK) if c != j and c not in row)
+    return torch.from_numpy(a).to(lut.device)
+
+
+def _bwd_checks(randn):
+    """K23 and K24 at the 1.3B training shape (32,760 tokens, 12 heads,
+    blocks 512/256, topk 0.1) against their plain versions on the card.
+    Inputs where every term matters: q of std 3, so each row's softmax
+    leans on a few keys and its output o on a few rows of v; dO of N(0, 1),
+    so delta (= dO . o) is of the order of dp and leaving it out of dS
+    shows. (dO = 4 o + N(0, 1) makes |dq| ~30, where dq = scale (acc1 -
+    delta acc2) / l, a difference of sums of bf16-rounded terms, is only
+    good to ~0.1-0.4 absolute, and beyond atol 2e-2 + rtol 2e-2.) q, k, v, dO are views of
+    buffers whose rows past L hold NaN; K-block ZERO_BLOCK is never
+    selected. Planted faults K24's check must reject: one inverse-LUT entry
+    dropped, delta left out of dS, dk without `scale`. Returns (checks, a
+    function of the further checks: lse / delta in fp32, K24 ignoring (lse,
+    delta) rows past L, dk = dv = 0 on the unselected block, two runs of
+    each kernel bit-equal)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    HEADS = G13.heads
+
+    def view(t):                     # rows past L of the buffer: NaN
+        t[:, L:] = float("nan")
+        return t[:, :L]
+
+    q, k, v = (view(randn(B, LP, HEADS, DH, std=sd)) for sd in (3.0, 1.0, 1.0))
+    lut = _without_block(get_block_map(q, k, TOPK, BQ, BK)[1], ZERO_BLOCK)
+    scale = DH ** -0.5
+    do = view(randn(B, LP, HEADS, DH))
+    nK = -(-L // BK)
+    inv = sb.inverse_lut(lut, nK)
+    pairs = _sparse_pairs(lut, BQ, BK, L, L)
+
+    def k23(lut_=lut):
+        dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut_, BQ, BK, scale, L)
+        return dq, ld[:, :L]
+
+    def k23_plain():
+        dq, ld = sb.sparse_bwd_dq_plain(q, k, v, do, lut, BQ, BK, scale, L)
+        return dq, ld[:, :L]
+
+    ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, BQ, BK, scale, L)[1]
+
+    def k24(inv_=inv, ld_=ld):
+        return sb._sparse_bwd_dkv_cuda(q, k, v, do, ld_, inv_, BQ, BK, scale, L)
+
+    dropped = inv.clone()
+    bh, kb = divmod(int(inv[:, :, 0].argmax()), nK)
+    dropped[bh, kb, 0] -= 1          # the row's last Q-block left out
+    no_delta = ld.clone()
+    no_delta[..., 1] = 0
+
+    def unscaled():
+        dk, dv = k24()
+        return dk.float() / scale, dv
+
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    o_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    sdpa_bwd = {"dense SDPA backward (dq, dk, dv), for scale":
+                lambda: torch.autograd.grad(o_s, (qs, ks, vs), do.transpose(1, 2),
+                                            retain_graph=True)}
+    sel = lut.shape[-1]
+    checks = [
+        Check("K23", f"dq pass + (lse, delta), {sel}/{nK} blocks {BQ}/{BK}, "
+              f"rows {L}..{LP - 1} NaN", k23, k23_plain, (q, k, v, do, lut),
+              {"bf16": 3 * 2 * DH * pairs}, yardsticks=sdpa_bwd),
+        Check("K24", f"inverse-LUT dk/dv pass, block {ZERO_BLOCK} never selected",
+              k24, lambda: sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, BQ, BK,
+                                                   scale, L),
+              (q, k, v, do, ld, inv), {"bf16": 4 * 2 * DH * pairs},
+              faults={"one inverse-LUT entry dropped": lambda: k24(inv_=dropped),
+                      "delta left out of dS": lambda: k24(ld_=no_delta),
+                      "dk without scale": unscaled}),
+    ]
+
+    def extra():
+        dq, ld_k = k23()
+        dq_p, ld_p = k23_plain()
+        torch.cuda.synchronize()
+        ld_err = float((ld_k - ld_p).abs().max())
+        if not torch.allclose(ld_k, ld_p, atol=1e-3, rtol=1e-4):
+            raise AssertionError(f"K23 (lse, delta) off by {ld_err}")
+        poisoned = ld.clone()
+        poisoned[:, L:] = float("nan")
+        dk, dv = k24()
+        dk_p, dv_p = k24(ld_=poisoned)
+        blk = slice(ZERO_BLOCK * BK, (ZERO_BLOCK + 1) * BK)
+        if not (torch.equal(dk, dk_p) and torch.equal(dv, dv_p)):
+            raise AssertionError("K24 read (lse, delta) rows past L")
+        if dk[:, blk].any() or dv[:, blk].any():
+            raise AssertionError(f"K24: block {ZERO_BLOCK} has non-zero dk / dv")
+        dk2, dv2 = k24()
+        if not (torch.equal(dq, k23()[0]) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError("K23 / K24: two runs differ")
+        print(f"phase2 K23/K24 tail and stability: (lse, delta) max_abs_err "
+              f"{ld_err:.3g} (tol atol 1e-3 + rtol 1e-4, fp32) | K24 with "
+              f"(lse, delta) rows {L}..{LP - 1} NaN: bit-equal | block "
+              f"{ZERO_BLOCK} (never selected): dk = dv = 0 exactly | two runs "
+              f"of each: bit-equal", flush=True)
+    return checks, extra
+
+
 def _poisoned_tail(i8_args, scale):
     """K7 on the card: int8 K / V rows past kv_len set to +127 change no
     output row before kv_len (flash_pallas.py:933, the garbage-tail test)."""
@@ -1184,10 +1330,116 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     return counts
 
 
-def _write_checkpoint(directory: str):
+GRAD_REL = 0.05   # a gradient's relative L2 error, bf16 block, card vs CPU
+
+
+def phase3_train(device: str = "cuda"):
+    """One full-width 1.3B `sla` block (linear branch on, proj_l != 0) at one
+    480p latent frame, forward and backward: the card (K1-K4, K21 forward;
+    K23 + K24 backward) against the plain versions on the CPU. The output
+    on the Q blocks whose block-map rows agree, and the gradient of every
+    parameter and of the inputs (x, the time modulation, the context), with
+    the cotangent zero on the rows of Q blocks whose LUT rows differ, so
+    both sides differentiate the same function. Returns the launch counts."""
+    import torch
+    from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    from turbodiffusion_tpu_torch.ops.fused_norm import (
+        modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
+    from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
+
+    cfg = make_wan_cfg(G13.model, "sla", TOPK)
+    a = cfg.attention
+    dev = torch.device(device)
+    blk = _random_block(cfg, dev, seed=3, proj_l_std=0.05)
+    blk_cpu = copy.deepcopy(blk).cpu()
+    g = torch.Generator(device=dev).manual_seed(4)
+    T, Hs, Ws = 1, 30, 52
+    n = T * Hs * Ws
+    x = torch.randn((1, n, G13.dim), generator=g, device=dev).bfloat16()
+    e0 = 0.1 * torch.randn((1, 6, G13.dim), generator=g, device=dev)
+    ctx = torch.randn((1, TEXT, G13.dim), generator=g, device=dev).bfloat16()
+    cot = torch.randn((1, n, G13.dim), generator=g, device=dev).bfloat16()
+    rope = rope_cos_sin_full(rope_freqs_3d(T, Hs, Ws, DH, device=dev))
+
+    def lut_of(b, x, e0, rope):
+        with torch.no_grad():
+            e = b.modulation.float()[None] + e0
+            h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps)
+            sa = b.self_attn
+            q = rmsnorm_rope(sa.q(h), sa.norm_q, *rope, num_heads=G13.heads,
+                             eps=cfg.eps)
+            k = rmsnorm_rope(sa.k(h), sa.norm_k, *rope, num_heads=G13.heads,
+                             eps=cfg.eps)
+            return get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]
+
+    cpu = lambda *ts: tuple(t.cpu() for t in ts)  # noqa: E731
+    same = (lut_of(blk, x, e0, rope).cpu().sort(-1).values
+            == lut_of(blk_cpu, *cpu(x, e0), cpu(*rope)).sort(-1).values).all(-1)
+    bad_q = sorted(set((~same).nonzero()[:, 2].tolist()))
+    keep = torch.ones(n, dtype=torch.bool)
+    for i in bad_q:
+        keep[i * a.block_q:(i + 1) * a.block_q] = False
+    if not keep.any():
+        raise AssertionError("phase3 train: every Q-block's LUT differs")
+    cot = cot * keep.to(dev)[None, :, None].to(cot.dtype)
+
+    def run(b, x, e0, ctx, rope, cot):
+        ins = [t.detach().requires_grad_() for t in (x, e0, ctx)]
+        params = [p for _, p in b.named_parameters()]
+        out = b(ins[0], ins[1], rope, ins[2])
+        grads = torch.autograd.grad(out, ins + params, cot)
+        return out.detach(), grads
+
+    launchers = _launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, grads = run(blk, x, e0, ctx, rope, cot)
+    torch.cuda.synchronize()
+    ms_gpu = (time.perf_counter() - t0) * 1e3
+    counts = {name: fn.launches for name, fn in launchers.items() if fn.launches}
+    t0 = time.perf_counter()
+    ref, ref_grads = run(blk_cpu, *cpu(x, e0, ctx), cpu(*rope), cot.cpu())
+    ms_cpu = (time.perf_counter() - t0) * 1e3
+    max_err, mean_err, _, want_mean, _ = _compare(
+        "phase3 train block output", out.cpu()[:, keep], ref[:, keep],
+        BLOCK_ATOL, BLOCK_RTOL)
+    names = ["x", "e0", "context"] + [nm for nm, _ in blk.named_parameters()]
+    rel = {}
+    for nm, gg, gw in zip(names, grads, ref_grads):
+        gg, gw = gg.float().cpu(), gw.float()
+        if not bool(torch.isfinite(gg).all()):
+            raise AssertionError(f"phase3 train: non-finite gradient of {nm}")
+        rel[nm] = float((gg - gw).norm() / gw.norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GRAD_REL:
+        raise AssertionError(f"phase3 train: gradient of {worst} off by "
+                             f"{rel[worst]:.3g} (relative L2) > {GRAD_REL}")
+    for lin in ("q", "k", "v", "proj_l"):
+        if not grads[names.index(f"self_attn.{lin}.weight")].abs().max() > 0:
+            raise AssertionError(f"phase3 train: zero gradient of {lin}")
+    want = {"K1": 3, "K2": 3, "K3": 1, "K4": 1, "K21": 1, "K23": 1, "K24": 1}
+    if counts != want:
+        raise AssertionError(f"phase3 train launches {counts} != {want}")
+    print(f"phase3 {G13.model} sla block forward + backward L={n} (proj_l != 0, "
+          f"linear branch on): LUT rows equal as sets {int(same.sum())}/"
+          f"{same.numel()} (Q-blocks left out: {bad_q}) | output max_abs_err "
+          f"{max_err:.5g} mean_abs_err {mean_err:.5g} (|want| mean "
+          f"{want_mean:.5g}) | gradients of {len(names)} tensors (x, e0, "
+          f"context, {len(names) - 3} parameters): relative L2 error max "
+          f"{rel[worst]:.4g} ({worst}), median "
+          f"{statistics.median(rel.values()):.4g} (tol {GRAD_REL}) | card "
+          f"{ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | launches {counts}",
+          flush=True)
+    return counts
+
+
+def _write_checkpoint(directory: str, block_scale: bool = True):
     """The port's writer saves a seeded random 1.3B sagesla DiT in the
     reference's checkpoint layout: every block linear quantised to 128x128
-    block scales (`quantize_wan_blocks(mode="block", fuse_qkv=False)`),
+    block scales (`quantize_wan_blocks(mode="block", fuse_qkv=False)`;
+    bf16 linears without block_scale, the training phase's teacher),
     proj_l N(0, 0.05^2) and the head N(0, 0.02^2) (non-zero: the linear
     branch runs and the velocity depends on the blocks), saved with
     convert's dtype rules (fp32 to bf16 but the scales). Returns the path
@@ -1209,8 +1461,9 @@ def _write_checkpoint(directory: str):
             std = 0.02 if p is model.head.head else 0.05
             for t in (p.weight, p.bias):
                 t.copy_(std * torch.randn(t.shape, generator=g, device="cuda"))
-    quantize_wan_blocks(model.blocks, mode="block", fuse_qkv=False)
-    path = os.path.join(directory, "dit_1.3b_sagesla_block.pth")
+    if block_scale:
+        quantize_wan_blocks(model.blocks, mode="block", fuse_qkv=False)
+    path = os.path.join(directory, f"dit_1.3b_sagesla_{'block' if block_scale else 'bf16'}.pth")
     save_state_dict(wan_state_dict_from_params(model, cfg), path)
     expected = {k: (v.bfloat16().float() if v.dtype == torch.float32
                     and not k.endswith("scale") else v)
@@ -1289,6 +1542,208 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
     return counts
 
 
+# launches per training step of the 30-block 1.3B (student sla + teacher
+# original): the student's forward K1 3, K2 3, K3 1, K4 1, K21 1 a block,
+# twice under block_wise remat (the backward recomputes each block); its
+# backward K23 1, K24 1 (K1, K2, K4 and K21 differentiate plain recomputes);
+# the teacher's forward K1 3, K2 3, K4 2
+TRAIN_LAUNCHES = {
+    "block_wise": {"K1": 270, "K2": 270, "K3": 60, "K4": 120, "K21": 60,
+                   "K23": 30, "K24": 30},
+    "none": {"K1": 180, "K2": 180, "K3": 30, "K4": 90, "K21": 30, "K23": 30,
+             "K24": 30},
+}
+TRAIN_FRAMES = {81: 21, 21: 6}    # clip frames -> latent frames
+
+
+def _train_shards(directory: str):
+    """Tar shards of seeded random samples at 480p 16:9, written with the
+    port's writer: two of 81 frames (latents (16, 21, 60, 104)) and one of
+    21 frames, each with a (512, 4096) text embedding. Returns {frames:
+    shard glob}."""
+    import torch
+    from turbodiffusion_tpu_torch.training.data import write_tar_shard
+    g = torch.Generator().manual_seed(31)
+    out = {}
+    for frames, n in ((81, 2), (21, 1)):
+        samples = [{"latents": torch.randn((16, TRAIN_FRAMES[frames], 60, 104),
+                                           generator=g),
+                    "t5_text_embeddings": torch.randn((TEXT, 4096), generator=g),
+                    "prompts": f"sample {i}"} for i in range(n)]
+        sub = os.path.join(directory, f"data{frames}")
+        write_tar_shard(os.path.join(sub, "shard-000000.tar"), samples)
+        out[frames] = os.path.join(sub, "*.tar")
+    return out
+
+
+def _step_probe(label: str, want: dict, profile_step=None):
+    """A trainer callback that, around each step, sets every launch count
+    to 0 and reads it after (each must equal `want`), and measures the
+    step's wall time (synchronised), peak memory and loss (finite); checks
+    the q / k / v / proj_l gradients of the first and last block are
+    non-zero; profiles step `profile_step`; and at the end checks that the
+    weight matrices and fp32 parameters it watches moved. `.peaks` keeps each step's peak (GiB), `.counts` the
+    last step's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from turbodiffusion_tpu_torch.training.trainer import Callback
+    launchers = _launchers()
+    want = {n: want.get(n, 0) for n in launchers}
+
+    class Probe(Callback):
+        def on_train_start(self, state):
+            self.peaks, self.counts, self.prof = [], None, None
+            blocks = state.params.blocks
+            self.watch = {n: p for n, p in state.params.named_parameters()
+                          if n.startswith(("blocks.0.self_attn", "head.head"))
+                          or n.startswith(f"blocks.{len(blocks) - 1}.ffn")}
+            self.before = {n: p.detach().clone() for n, p in self.watch.items()}
+
+        def on_training_step_start(self, state, it):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in launchers.values():
+                fn.launches = 0
+            if it == profile_step:
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+        def on_training_step_end(self, state, metrics, it):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            counts = {n: fn.launches for n, fn in launchers.items()}
+            if counts != want:
+                raise AssertionError(f"{label} step {it}: launches {counts} != "
+                                     f"{want}")
+            self.counts = {n: c for n, c in counts.items() if c}
+            loss = float(metrics["loss"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label} step {it}: loss {loss}")
+            model = state.params
+            for i in (0, len(model.blocks) - 1):
+                sa = model.blocks[i].self_attn
+                for lin in (sa.q, sa.k, sa.v, sa.proj_l):
+                    if lin.weight.grad is None or not lin.weight.grad.abs().max() > 0:
+                        raise AssertionError(f"{label} step {it}: block {i} has "
+                                             f"a zero q / k / v / proj_l gradient")
+            phases = " | ".join(f"{k[:-3]} {float(v):.1f} ms" for k, v in
+                                metrics.items() if k.endswith("_ms"))
+            self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            line = (f"phase5 {label} step {it}: wall {wall * 1e3:.1f} ms ({phases}) "
+                    f"| loss {loss:.6g} | grad norm "
+                    f"{float(metrics['grad_norm']):.4g} | peak "
+                    f"{self.peaks[-1]:.2f} GiB | launches {self.counts}")
+            if self.prof is not None:
+                self.prof.__exit__(None, None, None)
+                line += f"\nphase5 {label} profile of step {it}: " \
+                    f"{_profile_summary(self.prof)}"
+                self.prof = None
+            print(line, flush=True)
+
+        def on_train_end(self, state):
+            # bf16 parameters move only where an update (~lr) reaches half a
+            # bf16 step of the value, as with JAX's bf16 optax state: the
+            # RMSNorm weights (all 1.0) do not at lr 1e-5; every weight
+            # matrix and every fp32 parameter must
+            moved = {n: int((p.detach() != self.before[n]).sum())
+                     for n, p in self.watch.items()}
+            still = [n for n, c in moved.items() if not c]
+            must = [n for n in still if n.endswith("weight")
+                    or self.watch[n].dtype == torch.float32]
+            if must:
+                raise AssertionError(f"{label}: parameters did not move: {must}")
+            total = sum(p.numel() for p in self.watch.values())
+            print(f"phase5 {label}: {len(self.watch) - len(still)} of "
+                  f"{len(self.watch)} watched tensors moved (block 0 self-"
+                  f"attention incl. proj_l, the last block's FFN, the head; "
+                  f"{sum(moved.values())} of {total} elements); unmoved, their "
+                  f"updates under half a bf16 step: {still}", flush=True)
+
+    return Probe()
+
+
+def phase5():
+    """SLA fine-tuning through the CLI (`scripts.train.main`, as `python -m
+    turbodiffusion_tpu_torch.scripts.train --experiment sla` runs it) on a
+    1.3B teacher checkpoint that the port's writer saves first (bf16
+    linears, non-zero head and proj_l) and tar shards written here: (1) 3
+    steps at 480p/81f, full width and depth, --remat block_wise, step 2
+    profiled; (2) 1 step at 480p/21f, --remat none; (3) the checkpoint
+    round trip at 2 layers, full width (21f): 1 step saved, then a run
+    that resumes from it must start from the saved model, optimizer state
+    and generator state and take step 2. Returns run 1's last step's
+    launch counts."""
+    import torch
+    from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
+    from turbodiffusion_tpu_torch.scripts import train
+    from turbodiffusion_tpu_torch.training.trainer import Callback
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        ckpt, _ = _write_checkpoint(tmp, block_scale=False)
+        shards = _train_shards(tmp)
+        print(f"phase5 data: teacher checkpoint and shards written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        base = ["--experiment", "sla", "--model", G13.model, "--teacher_ckpt",
+                ckpt, "--seed", "0", "--lr", "1e-5"]
+        runs = [("block_wise 81f", 81, "block_wise", 3, 2),
+                ("none 21f", 21, "none", 1, None)]
+        peaks, counts = {}, None
+        for label, frames, remat, steps, prof_step in runs:
+            probe = _step_probe(label, TRAIN_LAUNCHES[remat], prof_step)
+            t0 = time.perf_counter()
+            train.main(base + ["--data", shards[frames], "--remat", remat,
+                               "--max_iter", str(steps), "--ckpt_dir", "",
+                               "--time_phases", "--", "trainer.log_every=1"],
+                       callbacks=[probe])
+            print(f"phase5 {label}: {steps} steps in "
+                  f"{time.perf_counter() - t0:.1f} s with set-up", flush=True)
+            peaks[label] = max(probe.peaks)
+            counts = counts or probe.counts
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        saved = {}
+
+        class Keep(Callback):
+            def on_train_end(self, state):
+                saved["model"] = {n: t.detach().cpu().clone() for n, t in
+                                  state.params.state_dict().items()}
+                saved["exp_avg"] = [state.opt_state.adamw.state[p]["exp_avg"]
+                                    .detach().cpu().clone()
+                                    for p in state.opt_state.params]
+
+        class Resumed(Callback):
+            def on_train_start(self, state):
+                got = state.params.state_dict()
+                bad = [n for n, t in saved["model"].items()
+                       if not torch.equal(got[n].cpu(), t)]
+                moms = [state.opt_state.adamw.state[p]["exp_avg"].cpu()
+                        for p in state.opt_state.params]
+                if bad or state.step != 1 or not all(
+                        torch.equal(a, b) for a, b in zip(moms, saved["exp_avg"])):
+                    raise AssertionError(f"phase5 resume: step {state.step}, "
+                                         f"model differs at {bad[:5]}")
+
+        rt = base + ["--data", shards[21], "--ckpt_dir", os.path.join(tmp, "run"),
+                     "--save_every", "1", "--", "model.num_layers=2"]
+        t0 = time.perf_counter()
+        train.main(rt[:-2] + ["--max_iter", "1"] + rt[-2:], callbacks=[Keep()])
+        state = train.main(rt[:-2] + ["--max_iter", "2"] + rt[-2:],
+                           callbacks=[Resumed()])
+        size = os.path.getsize(os.path.join(tmp, "run", "iter_000000001.pth"))
+        if state.step != 2:
+            raise AssertionError(f"phase5 resume: ended at step {state.step}")
+        print(f"phase5 checkpoint round trip (2 layers, full width): step 1 "
+              f"saved ({size / 2**30:.2f} GiB: model, AdamW state, generator), "
+              f"a second run resumed with every tensor and moment equal and "
+              f"took step 2 | {time.perf_counter() - t0:.1f} s | peak "
+              f"81f block_wise {peaks['block_wise 81f']:.2f} GiB, 21f none "
+              f"{peaks['none 21f']:.2f} GiB", flush=True)
+    return counts
+
+
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
     ("K1", ("mln_kernel<false",)), ("K12", ("mln_kernel<true",)),
@@ -1304,6 +1759,8 @@ PROFILE_CATEGORIES = [
     ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
     ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
     ("K22", ("int8_gemm_kernel<3>",)),
+    ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
+    ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")),
     ("top-k/sort", ("topk", "sort", "radix")), ("reduce", ("reduce",)),
 ]
@@ -1314,7 +1771,6 @@ def _profile_denoise(pipe, label: str):
     torch.profiler: device time by kernel category and the device's idle
     share, as one printed line."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.sampler import latent_shape
@@ -1332,6 +1788,14 @@ def _profile_denoise(pipe, label: str):
                 pipe.dit(x, t, emb)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    print(f"phase4 {label} profile, denoise 4 DiT calls: wall {wall:.1f} ms, "
+          f"{_profile_summary(prof)}", flush=True)
+
+
+def _profile_summary(prof) -> str:
+    """A profile's device window, idle share (1 - the union of kernel
+    intervals over the window) and kernel time by category."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
@@ -1352,16 +1816,14 @@ def _profile_denoise(pipe, label: str):
     total = sum(cats.values()) or 1.0
     parts = ", ".join(f"{c} {us / 1e3:.1f} ms ({100 * us / total:.1f}%)"
                       for c, us in sorted(cats.items(), key=lambda kv: -kv[1]))
-    line = (f"phase4 {label} profile, denoise 4 DiT calls: "
-            f"wall {wall:.1f} ms, device window {window / 1e3:.1f} ms, idle "
-            f"share {1 - busy / window if window else 0:.3f}; kernel time "
+    return (f"device window {window / 1e3:.1f} ms, idle share "
+            f"{1 - busy / window if window else 0:.3f}; kernel time "
             f"{total / 1e3:.1f} ms: {parts}")
-    print(line, flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,5",
                     help="comma-separated subset; the final ok line needs all")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1396,6 +1858,7 @@ def main(argv=None) -> int:
             if missing:
                 raise AssertionError(f"phase3 {label}: {missing} never launched")
         phase3("sagesla", True, geo=G14)
+        phase3_train()
     counts = {}
     if 4 in phases:
         # a kernel's launches come from the 14B path (run last) where it
@@ -1418,12 +1881,17 @@ def main(argv=None) -> int:
             for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c
         counts["K21"] = block_counts.get("row", {}).get("K21", 0)
+    if 5 in phases:
+        # the training path's kernels: one step's launches (run 1, last step)
+        train_counts = phase5()
+        for name in ("K21", "K23", "K24"):
+            counts[name] = train_counts.get(name, 0)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts.get(n, 0), **kernels.get(n, {})}
         for n, (src, rep) in KERNELS.items()]}))
     print(smi)
-    if phases != {1, 2, 3, 4}:
+    if phases != {1, 2, 3, 4, 5}:
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

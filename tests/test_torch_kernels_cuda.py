@@ -696,3 +696,86 @@ def test_block_linear_on_the_card_matches_plain(dev):
     want = blk.cpu()(x.cpu())
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2.0 ** -8,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K23 / K24: the block-sparse attention backward (dq pass, inverse-LUT dk/dv
+# pass). lse and delta are fp32 (atol 1e-4 + rtol 1e-5: another summation
+# order, exp2 against exp); the gradients bf16 (ATOL / RTOL).
+# ---------------------------------------------------------------------------
+
+def _bwd_operands(dev, L, bq, bk, seed):
+    """q, k, v, dO (1, L, HEADS, 128) bf16 views into buffers whose rows past
+    L hold NaN, and a LUT that never selects the last K-block but one."""
+    bufs = []
+    for s in range(4):
+        t = _randn(dev, 1, L + 64, HEADS, DH, seed=seed + s).bfloat16()
+        t[:, L:] = float("nan")
+        bufs.append(t[:, :L])
+    nQ, nK = -(-L // bq), -(-L // bk)
+    r = np.random.RandomState(seed + 4)
+    keep = [j for j in range(nK) if j != nK - 2]
+    sel = max(1, len(keep) // 2)
+    lut = np.stack([r.permutation(keep)[:sel] for _ in range(HEADS * nQ)])
+    lut = torch.from_numpy(lut.reshape(1, HEADS, nQ, sel).astype(np.int32))
+    return (*bufs, lut.to(dev), nQ, nK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (520, 128, 128)])
+def test_k23_k24_match_plain(dev, L, bq, bk):
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    q, k, v, do, lut, nQ, nK = _bwd_operands(dev, L, bq, bk, 50)
+    scale = DH ** -0.5
+    b23, b24 = sb._sparse_bwd_dq_cuda.launches, sb._sparse_bwd_dkv_cuda.launches
+    dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk, scale, L)
+    dq_p, ld_p = sb.sparse_bwd_dq_plain(q, k, v, do, lut, bq, bk, scale, L)
+    _close(dq, dq_p)
+    torch.testing.assert_close(ld[:, :L], ld_p[:, :L], atol=1e-4, rtol=1e-5)
+    inv = sb.inverse_lut(lut, nK)
+    poisoned = ld.clone()
+    poisoned[:, L:] = float("nan")           # rows past L are never read
+    dk, dv = sb._sparse_bwd_dkv_cuda(q, k, v, do, poisoned, inv, bq, bk, scale, L)
+    dk_p, dv_p = sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, bq, bk, scale, L)
+    _close(dk, dk_p)
+    _close(dv, dv_p)
+    assert sb._sparse_bwd_dq_cuda.launches == b23 + 1
+    assert sb._sparse_bwd_dkv_cuda.launches == b24 + 1
+    # the never-selected K-block: exactly zero; a second run: the same bits
+    blk = slice((nK - 2) * bk, (nK - 1) * bk)
+    assert not dk[:, blk].any() and not dv[:, blk].any()
+    dk2, dv2 = sb._sparse_bwd_dkv_cuda(q, k, v, do, ld, inv, bq, bk, scale, L)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk,
+                                                  scale, L)[0])
+
+
+@pytest.mark.cuda
+def test_sparse_attention_autograd_on_the_card_matches_cpu(dev):
+    """K3's autograd Function: the card's gradients (K23 + K24, dO strided
+    as autograd hands it over) against the plain versions' on the CPU."""
+    L, bq, bk = 1100, 512, 256
+    q, k, v, _, lut, _, _ = _bwd_operands(dev, L, bq, bk, 60)
+    g = _randn(dev, 1, HEADS, L, DH, seed=65).bfloat16().transpose(1, 2)
+
+    def grads(q, k, v, lut, g):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = fa.sparse_flash_attention(q, k, v, lut, bq, bk)
+        return (o, *torch.autograd.grad(o, (q, k, v), g))
+
+    got = grads(q, k, v, lut, g)
+    want = grads(*(t.cpu() for t in (q, k, v, lut, g)))
+    for a, b in zip(got, want):
+        _close(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_k23_k24_refuse_what_they_do_not_take(dev):
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    q = _randn(dev, 1, 256, HEADS, 64).bfloat16()
+    lut = torch.zeros(1, HEADS, 2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim 128"):
+        sb.sparse_flash_attention_bwd(q, q, q, q, lut, 128, 128)
+    q = _randn(dev, 1, 256, HEADS, DH).bfloat16()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        sb.sparse_flash_attention_bwd(q, q, q, q, lut[:, :, :1], 256, 32)

@@ -21,11 +21,19 @@ SLICE_MODULES = [
     "turbodiffusion_tpu_torch.ops.sparse_i8_attention",
     "turbodiffusion_tpu_torch.ops.quant",
     "turbodiffusion_tpu_torch.ops.attention",
+    "turbodiffusion_tpu_torch.ops.linear_attention",
+    "turbodiffusion_tpu_torch.ops.sparse_attention_bwd",
     "turbodiffusion_tpu_torch.pipelines.sampler",
     "turbodiffusion_tpu_torch.pipelines.pipeline",
     "turbodiffusion_tpu_torch.inference.wan2_1_t2v",
     "turbodiffusion_tpu_torch.utils.video_io",
     "turbodiffusion_tpu_torch.utils.jax_params",
+    "turbodiffusion_tpu_torch.training.timesteps",
+    "turbodiffusion_tpu_torch.training.train_step",
+    "turbodiffusion_tpu_torch.training.data",
+    "turbodiffusion_tpu_torch.training.checkpointing",
+    "turbodiffusion_tpu_torch.training.trainer",
+    "turbodiffusion_tpu_torch.scripts.train",
 ]
 
 

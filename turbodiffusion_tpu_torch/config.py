@@ -53,6 +53,11 @@ class AttentionConfig:
     v_quant: str = "channel"
 
 
+# the port's remat modes, and JAX's selective ones it refuses
+REMAT_MODES = ("none", "block_wise", "full")
+REMAT_LATER = ("mm_only", "attn_only", "self_attn_only")
+
+
 @dataclass(frozen=True)
 class WanConfig:
     """Wan2.1 diffusion-transformer architecture (config.py:86-144)."""
@@ -81,8 +86,19 @@ class WanConfig:
     quant_linear: bool = False
     # compute dtype of the transformer trunk; norms/modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
+    # rematerialisation (config.py:122-125): "none", or "block_wise" / "full"
+    # (each block recomputed in the backward, nothing saved inside it); the
+    # selective modes wait (REMAT_LATER)
+    remat: str = "none"
 
     def __post_init__(self):
+        if self.remat in REMAT_LATER:
+            raise NotImplementedError(
+                f"remat {self.remat!r} (a selective mode, JAX's default under "
+                f"an FSDP mesh) is not ported: the port takes "
+                f"{', '.join(REMAT_MODES)} (ROADMAP Queue A item 11b)")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {self.remat!r}")
         if self.dim % self.num_heads:
             raise ValueError(
                 f"dim ({self.dim}) must be divisible by num_heads "

@@ -31,8 +31,15 @@ runs K10 -> K11 (BN 896 at 1.3B, 768 at 14B). JAX takes
 these branches on the TPU only; the port takes them on every device (the
 CPU runs the kernels' plain versions). Left out with the paths they serve:
 the FFN half-split and its `L*n_ffn` guard (16 GB-chip memory guards),
-remat (training), sharding constraints and Ulysses (multi-GPU) and
-`_img_emb` (I2V).
+the selective remat modes, sharding constraints and Ulysses (multi-GPU)
+and `_img_emb` (I2V).
+
+Training: the bf16 `dense` / `sla` forward carries gradients to every
+parameter (K1-K4 and K21 run inside autograd Functions; K3's backward is
+K23 + K24). `cfg.remat` "block_wise" / "full" wraps each block in
+`torch.utils.checkpoint` (wan.py:436-456, nothing saveable): the backward
+recomputes the block, launching each of its forward kernels a second time,
+with the same LUT (top-k and the kernels are deterministic).
 
 fp32 islands as in JAX: time embedding and projection, AdaLN modulation and
 the head run in fp32; the trunk runs in `cfg.dtype`. The fused norms (K1,
@@ -52,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from turbodiffusion_tpu_torch.config import WanConfig
 from turbodiffusion_tpu_torch.models.layers import (
@@ -328,8 +336,13 @@ class WanModel(nn.Module):
         context = txt["fc2"](gelu_tanh(txt["fc1"](crossattn_emb.to(cfg.dtype))))
         rope_cs = rope_cos_sin_full(rope_freqs_3d(T, H, W, cfg.head_dim,
                                                   device=x.device))
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, e0_B6D, rope_cs, context)
+            if remat:
+                x = checkpoint(blk, x, e0_B6D, rope_cs, context,
+                               use_reentrant=False)
+            else:
+                x = blk(x, e0_B6D, rope_cs, context)
         out = self.head(x, e_B_D)
         return unpatchify(out, T, H, W, cfg.patch_size, cfg.out_dim)
 

@@ -107,6 +107,16 @@ SIGNATURES = {
     # xq, w (N, K), x block scales (Mb, Kb), w block scales (Nb, Kb), bias,
     # out, out is fp32, M, N, K, stream
     "tdx_int8_gemm_block": [_P] * 6 + [_I] * 4 + [_P],
+    # q, k, v, dout, dq, (lse, delta), lut, B, H, Lq, kv_len, nQ, sel,
+    # block_q, block_k, 15 strides (q, k, v, dout, dq: batch, token, head),
+    # scale, stream
+    "tdx_sparse_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [_I64] * 15
+                                   + [_F, _P],
+    # q, k, v, dout, (lse, delta), inverse lut, dk, dv, B, H, Lq, Lk,
+    # kv_len, nQ, nK, block_q, block_k, 18 strides (q, k, v, dout, dk, dv),
+    # scale, stream
+    "tdx_sparse_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_I64] * 18
+                                    + [_F, _P],
 }
 
 

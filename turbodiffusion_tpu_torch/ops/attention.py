@@ -22,6 +22,11 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
                                           the fused geometry at blocks
                                           < 128 runs K20
 
+Gradients: `dense_attention` and `sla_attention` without int8 QK carry them
+to q, k, v and `proj_l` (K3, K4 and K21 run inside autograd Functions; K3's
+backward is K23 + K24), as JAX's custom VJPs do; the fused and int8 paths
+are inference-only, as in JAX.
+
 SageSLA outside the fused geometry takes JAX's TPU composition on every
 device: at blocks < 128 the int8-QK gather (K20, its plain version on the
 CPU). At blocks >= 128 it is reached only by a head dim that is no
@@ -75,10 +80,11 @@ def get_block_map(q, k, topk_ratio: float, block_q: int, block_k: int):
     q, k: (B, L, H, D). Returns (sparse_map, lut, topk): sparse_map
     (B, H, nQ, nK) int8, lut (B, H, nQ, topk) int32, topk = max(1,
     min(nK, int(topk_ratio * nK))). Ties may be ordered differently from
-    `jax.lax.top_k`: compare LUT rows as sets.
+    `jax.lax.top_k`: compare LUT rows as sets. Not differentiable: the LUT
+    is integer, as in JAX.
     """
-    qh = q.transpose(1, 2)
-    kh = k.transpose(1, 2)
+    qh = q.detach().transpose(1, 2)
+    kh = k.detach().transpose(1, 2)
     kh = kh - kh.mean(dim=-2, keepdim=True)      # smooth-k, in k's dtype
     pq = _mean_pool_blocks(qh, block_q)
     pk = _mean_pool_blocks(kh, block_k)

@@ -48,7 +48,15 @@ builds the (B, H, L, L) logits.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. Each launcher counts its launches in `.launches`. The
-dense int8-QK form and the backward kernels wait for later slices.
+dense int8-QK form waits for a later slice.
+
+Gradients (the custom VJP of `flash_attention`, :1982-2011): K3 and K4 run
+inside `torch.autograd.Function`s. K3's backward is the two-pass sparse
+backward, K23 + the inverse LUT + K24 (`ops/sparse_attention_bwd.py`); K4's
+is `flash_attention_bwd_plain`, the port of `_attention_bwd_ref`
+(:1938-1967), plain torch as JAX leaves it to XLA, chunked over query rows.
+The LUT gets no gradient. K14, K17 and K20 are inference-only, as in JAX
+(no path trains through them).
 """
 
 from __future__ import annotations
@@ -116,6 +124,38 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None,
     kv_len = k.shape[1] if kv_len is None else kv_len
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _flash_plain_f32(q, k, v, scale, kv_len).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, do, scale: Optional[float] = None,
+                              kv_len: Optional[int] = None):
+    """(dq, dk, dv) of dense attention given dO, in fp32 from the saved q,
+    k, v (flash_pallas.py:1938-1967 `_attention_bwd_ref` with no LUT),
+    chunked over query rows; keys >= kv_len get no gradient. Outputs in the
+    inputs' dtypes."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    kv_len = Lk if kv_len is None else kv_len
+    scale = D ** -0.5 if scale is None else scale
+    kh = k.permute(0, 2, 1, 3).float()              # (B, H, Lk, D)
+    vh = v.permute(0, 2, 1, 3).float()
+    valid = torch.arange(Lk, device=q.device) < kv_len
+    rows = max(1, _PLAIN_LOGITS_BUDGET // (B * H * Lk))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros_like(kh)
+    dv = torch.zeros_like(vh)
+    for r0 in range(0, Lq, rows):
+        qh = q[:, r0:r0 + rows].permute(0, 2, 1, 3).float()
+        gh = do[:, r0:r0 + rows].permute(0, 2, 1, 3).float()
+        s = torch.where(valid, torch.matmul(qh, kh.transpose(-1, -2)) * scale,
+                        NEG_INF)
+        p = torch.softmax(s, -1)
+        dv += torch.matmul(p.transpose(-1, -2), gh)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+        dq[:, r0:r0 + rows] = torch.matmul(ds, kh).permute(0, 2, 1, 3)
+        dk += torch.matmul(ds.transpose(-1, -2), qh)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def cross_attention_qout_plain(q, k, v, norm_w, scale: Optional[float] = None,
@@ -403,29 +443,67 @@ _cross_qout_wide_cuda.launches = 0
 # dispatch
 # ---------------------------------------------------------------------------
 
+class _FlashFn(torch.autograd.Function):
+    """K4 forward, `flash_attention_bwd_plain` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, kv_len: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, kv_len)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, scale, kv_len)
+        _require(q.device.type == "cuda", f"no kernel for device {q.device}")
+        return _flash_cuda(q, k, v, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, do, *ctx.args), None,
+                None)
+
+
+class _SparseFlashFn(torch.autograd.Function):
+    """K3 forward, K23 + K24 backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lut, block_q: int, block_k: int, scale: float,
+                kv_len: int):
+        ctx.save_for_backward(q, k, v, lut)
+        ctx.args = (block_q, block_k, scale, kv_len)
+        if q.device.type == "cpu":
+            return sparse_flash_attention_plain(q, k, v, lut, block_q,
+                                                block_k, scale, kv_len)
+        _require(q.device.type == "cuda", f"no kernel for device {q.device}")
+        return _sparse_flash_cuda(q, k, v, lut, block_q, block_k, scale,
+                                  kv_len)
+
+    @staticmethod
+    def backward(ctx, do):
+        from turbodiffusion_tpu_torch.ops.sparse_attention_bwd import (  # cycle
+            sparse_flash_attention_bwd)
+        q, k, v, lut = ctx.saved_tensors
+        dq, dk, dv = sparse_flash_attention_bwd(q, k, v, do, lut, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, scale: Optional[float] = None,
                     kv_len: Optional[int] = None):
-    """Dense softmax attention (K4) over (B, L, H, D) tensors."""
+    """Dense softmax attention (K4) over (B, L, H, D) tensors;
+    differentiable in q, k and v."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else kv_len
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, kv_len)
-    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    return _flash_cuda(q, k, v, scale, kv_len)
+    return _FlashFn.apply(q, k, v, scale, kv_len)
 
 
 def sparse_flash_attention(q, k, v, lut, block_q: int, block_k: int,
                            scale: Optional[float] = None,
                            kv_len: Optional[int] = None):
     """Block-sparse attention (K3): Q-block i attends to the K-blocks
-    lut[b, h, i, :] (flash_pallas.flash_attention with a `lut`)."""
+    lut[b, h, i, :] (flash_pallas.flash_attention with a `lut`);
+    differentiable in q, k and v (K23 + K24)."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else kv_len
-    if q.device.type == "cpu":
-        return sparse_flash_attention_plain(q, k, v, lut, block_q, block_k,
-                                            scale, kv_len)
-    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    return _sparse_flash_cuda(q, k, v, lut, block_q, block_k, scale, kv_len)
+    return _SparseFlashFn.apply(q, k, v, lut, block_q, block_k, scale, kv_len)
 
 
 def sparse_flash_attention_i8qk(q, k, v, lut, block_q: int, block_k: int,

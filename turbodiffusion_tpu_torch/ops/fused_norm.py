@@ -21,6 +21,12 @@ Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel (csrc/fused_norm.cu) or raises. Each launcher counts its
 launches in `.launches`. K2 reads its input rows through a row stride, so
 the q and k column groups of the fused QKV output need no copy.
+
+Gradients: K1 (bf16 out) and K2 run inside `torch.autograd.Function`s whose
+backward recomputes the plain version and differentiates it
+(`recompute_vjp`), JAX's `_make_mln_vjp` (:166-190) and `_make_rmsrope_vjp`
+(:329-362); RoPE's tables get no gradient. K12 (int8 out) is
+inference-only.
 """
 
 from __future__ import annotations
@@ -34,6 +40,20 @@ from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 # widest row of K1 / K12 (the 14B's dim; csrc/fused_norm.cu kWidePairs)
 _MLN_MAX_D = 5120
+
+
+def recompute_vjp(plain, inputs, needs, grad_out):
+    """The backward of a kernel whose forward is `plain(*inputs)`: recompute
+    the plain version with autograd on and differentiate it. `needs` says
+    which inputs want a gradient (the rest, and None inputs, get None)."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(n) if torch.is_tensor(t) else t
+                for t, n in zip(inputs, needs)]
+        wrt = [a for a, n in zip(args, needs) if n and torch.is_tensor(a)]
+        out = plain(*args)
+        grads = iter(torch.autograd.grad(out, wrt, grad_out, allow_unused=True))
+    return tuple(next(grads) if n and torch.is_tensor(a) else None
+                 for a, n in zip(args, needs))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -149,21 +169,45 @@ def _mln_quant_cuda(x, mod_scale, mod_shift, weight, bias, eps: float):
 _mln_quant_cuda.launches = 0
 
 
+class _MlnFn(torch.autograd.Function):
+    """K1 forward, plain-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, mod_scale, mod_shift, weight, bias, eps: float):
+        ctx.save_for_backward(x, mod_scale, mod_shift, weight, bias)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return modulated_layer_norm_ref(x, mod_scale, mod_shift, weight,
+                                            bias, eps)
+        B, D = x.shape[0], x.shape[-1]
+        ms = None if mod_scale is None else mod_scale.reshape(B, D)
+        mb = None if mod_shift is None else mod_shift.reshape(B, D)
+        return _mln_cuda(x, ms, mb, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda *a: modulated_layer_norm_ref(*a, ctx.eps)  # noqa: E731
+        return (*recompute_vjp(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:5], g), None)
+
+
 def modulated_layer_norm(x, mod_scale=None, mod_shift=None, weight=None,
                          bias=None, eps: float = 1e-6,
                          quant_out: bool = False):
     """LN (+affine) (+AdaLN modulate) (fused_norm.py:193-224): the plain
     version on a CPU tensor, kernel K1 (or K12 with quant_out, returning
-    (int8 (B, L, D), fp32 (B, L, 1))) on a CUDA tensor."""
+    (int8 (B, L, D), fp32 (B, L, 1))) on a CUDA tensor. The bf16 form is
+    differentiable in every tensor input."""
+    _require(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
+    if not quant_out:
+        return _MlnFn.apply(x, mod_scale, mod_shift, weight, bias, eps)
     if x.device.type == "cpu":
         return modulated_layer_norm_ref(x, mod_scale, mod_shift, weight,
                                         bias, eps, quant_out)
-    _require(x.device.type == "cuda", f"no kernel for device {x.device}")
     B, D = x.shape[0], x.shape[-1]
     ms = None if mod_scale is None else mod_scale.reshape(B, D)
     mb = None if mod_shift is None else mod_shift.reshape(B, D)
-    launch = _mln_quant_cuda if quant_out else _mln_cuda
-    return launch(x, ms, mb, weight, bias, eps)
+    return _mln_quant_cuda(x, ms, mb, weight, bias, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -231,16 +275,42 @@ def _rmsrope_cuda(x, weight, cos_full, sin_full, eps: float, num_heads: int):
 _rmsrope_cuda.launches = 0
 
 
+def _rmsrope_plain(x, weight, cos_full, sin_full, eps: float,
+                   num_heads: int):
+    """K2's plain version, norm only without tables."""
+    B, L, HD = x.shape
+    if cos_full is None:
+        return rms_norm(x, weight, eps=eps).reshape(B, L, num_heads,
+                                                    HD // num_heads)
+    return rmsnorm_rope_ref(x, weight, cos_full, sin_full, eps)
+
+
+class _RmsRopeFn(torch.autograd.Function):
+    """K2 forward, plain-recompute backward (no gradient to the tables)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, cos_full, sin_full, eps: float,
+                num_heads: int):
+        ctx.save_for_backward(x, weight)
+        ctx.args = (cos_full, sin_full, eps, num_heads)
+        if x.device.type == "cpu":
+            return _rmsrope_plain(x, weight, cos_full, sin_full, eps,
+                                  num_heads)
+        return _rmsrope_cuda(x, weight, cos_full, sin_full, eps, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain = lambda x, w: _rmsrope_plain(x, w, *ctx.args)  # noqa: E731
+        return (*recompute_vjp(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:2], g),
+                None, None, None, None)
+
+
 def rmsnorm_rope(x, weight, cos_full=None, sin_full=None, *, num_heads: int,
                  eps: float = 1e-5):
     """RMSNorm over the full row (+ rotate-half RoPE) (fused_norm.py:364-381).
     x: (B, L, H*Dh) -> (B, L, H, Dh); no tables => norm only (cross Q).
-    The plain version on a CPU tensor, kernel K2 on a CUDA tensor."""
-    B, L, HD = x.shape
-    if x.device.type == "cpu":
-        if cos_full is None:
-            return rms_norm(x, weight, eps=eps).reshape(
-                B, L, num_heads, HD // num_heads)
-        return rmsnorm_rope_ref(x, weight, cos_full, sin_full, eps)
-    _require(x.device.type == "cuda", f"no kernel for device {x.device}")
-    return _rmsrope_cuda(x, weight, cos_full, sin_full, eps, num_heads)
+    The plain version on a CPU tensor, kernel K2 on a CUDA tensor;
+    differentiable in x and weight."""
+    _require(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
+    return _RmsRopeFn.apply(x, weight, cos_full, sin_full, eps, num_heads)

@@ -26,6 +26,9 @@ V's type: bf16 here, int8 for K6): per-2048-row partials, then an ordered
 sum. Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. `_linear_projected_cuda.launches` counts the calls
 (two launches each: the kv pass with its reduce, then the apply).
+`linear_attention_projected` is differentiable (an autograd Function whose
+backward recomputes the plain version, JAX's custom VJP); the planes form
+is inference-only, as in JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
+from turbodiffusion_tpu_torch.ops.fused_norm import recompute_vjp
 
 # rows of one linear-kv partial sum (csrc/linear_attention.cu kLinRows)
 _LIN_ROWS = 2048
@@ -176,16 +180,34 @@ def linear_projected_planes(qp, kp, vp, weight, bias, true_len: int):
     return _linear_projected_cuda(qp, kp, vp, weight, bias, true_len, out)
 
 
+class _LinearProjectedFn(torch.autograd.Function):
+    """K21 over (B, L, H, D) forward, plain-recompute backward
+    (linear_attention_pallas.py:94-120)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, weight, bias):
+        ctx.save_for_backward(q, k, v, weight, bias)
+        if q.device.type == "cpu":
+            return linear_attention_projected_plain(q, k, v, weight, bias)
+        _require(q.device.type == "cuda", f"no kernel for device {q.device}")
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _linear_projected_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), weight, bias, k.shape[1],
+                               out.transpose(1, 2))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_vjp(linear_attention_projected_plain,
+                             ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
 def linear_attention_projected(q, k, v, weight, bias):
     """proj_l(linear attention) over (B, L, H, D)
     (linear_attention_pallas.linear_attention_projected); weight is the
     (out, in) `proj_l` weight; output in q's dtype. The plain version on a
-    CPU tensor, kernel K21 (reading through strides) on a CUDA tensor."""
-    if q.device.type == "cpu":
-        return linear_attention_projected_plain(q, k, v, weight, bias)
-    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _linear_projected_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), weight, bias, k.shape[1],
-                           out.transpose(1, 2))
-    return out
+    CPU tensor, kernel K21 (reading through strides) on a CUDA tensor;
+    differentiable in all five inputs (proj_l is SLA fine-tuning's main
+    trainable), by recomputing the plain version, as JAX's custom VJP
+    does."""
+    return _LinearProjectedFn.apply(q, k, v, weight, bias)

@@ -7,8 +7,9 @@ Ports `turbodiffusion_tpu/scripts/convert.py`:
                          Q / K / V stay separate on disk (:45-65);
   * merge              — task-arithmetic model merging (:133-152);
   * safetensors-to-pth — HF shards -> one state dict (:155-166).
-`ckpt-to-pth` and `dcp-to-pth` read trainer checkpoints and wait for
-training (ROADMAP Queue A item 11).
+`ckpt-to-pth` and `dcp-to-pth` read the JAX trainer's Orbax and the
+reference's DCP checkpoints (the port's trainer writes `torch.save` files
+of its own) and wait for ROADMAP Queue A item 11b.
 
 Usage:
   python -m turbodiffusion_tpu_torch.scripts.convert quantize \
@@ -23,7 +24,8 @@ import glob
 
 import torch
 
-_NOT_YET = "reads trainer checkpoints: waits for training (ROADMAP Queue A item 11)"
+_NOT_YET = ("reads Orbax / DCP trainer checkpoints: waits for ROADMAP Queue A "
+            "item 11b")
 
 
 def save_state_dict(sd: dict, path: str):

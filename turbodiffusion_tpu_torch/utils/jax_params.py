@@ -60,9 +60,11 @@ def _walk(tree, parts):
     return node, layer
 
 
-@torch.no_grad()
-def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy a JAX parameter tree (numpy leaves) into `module`, in place."""
+def port_layout(module: nn.Module, tree) -> dict:
+    """For each parameter and buffer of `module`, by its name there, the
+    tree's leaf in the port's layout (numpy): what `load_jax_params` copies
+    in. Also maps a JAX gradient tree onto the port's parameters."""
+    out = {}
     for mname, mod in module.named_modules():
         mparts = mname.split(".") if mname else []
         for pname, param in (*mod.named_parameters(recurse=False),
@@ -83,5 +85,14 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"{mname}.{pname}: tree shape {arr.shape} != "
                                  f"parameter shape {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            out[f"{mname}.{pname}" if mname else pname] = arr
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, tree) -> nn.Module:
+    """Copy a JAX parameter tree (numpy leaves) into `module`, in place."""
+    arrays = port_layout(module, tree)
+    for name, t in (*module.named_parameters(), *module.named_buffers()):
+        t.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name])))
     return module
