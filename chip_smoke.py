@@ -34,7 +34,13 @@ Phases, each printing one line of its numbers:
      faults: an inverse-LUT entry dropped, delta left out of dS, dk without
      `scale`; (lse, delta) in fp32, K24 ignoring their rows past L, dk = dv
      = 0 on the unselected block, two runs bit-equal; no library call: the
-     dense SDPA backward of the shape beside them for scale);
+     dense SDPA backward of the shape beside them for scale); then K25 / K26,
+     forward-mode attention (o and its tangent do), at the training shape:
+     K25 self 32,760 x 32,760 and cross 32,760 x 512, K26 at 512/256 with
+     12 of 128 K-blocks (q of std 3, tangents the size of the primals, NaN
+     in the rows past each length; atol 0.1 + rtol 2e-2; planted faults: mu left out of do, P dv
+     left out, q dk^T left out of dS, K26's last LUT entry dropped; two runs
+     bit-equal; no library call: the SDPA forward of the shape beside them);
   3. one full-width `WanAttentionBlock` with seeded random non-zero weights
      at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
      `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
@@ -52,7 +58,10 @@ Phases, each printing one line of its numbers:
      card (K23 + K24) against CPU: the output and the gradients of its 29
      parameters and 3 inputs, each within 5% relative L2 (K21's earlier
      JSON source: random weights give the requests a
-     zero `proj_l`);
+     zero `proj_l`); then one 1.3B `original` and one `sla` block (proj_l !=
+     0) in the sCM tangent pass (forward AD, `jvp_mode`), card (K25, K26)
+     against CPU: o and do each within 5% relative L2, launches exactly K25
+     2 (dense) or K26 1 + K25 1 (sla);
   4. the paths: `WanPipeline.create(..., attention_type="sagesla",
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
@@ -85,10 +94,23 @@ Phases, each printing one line of its numbers:
      120, K21 60, K23 30, K24 30; non-zero q / k / v / proj_l gradients;
      step 2 under torch.profiler), 1 step at 480p/21f, --remat none (K1
      180, K2 180, K3 30, K4 90, K21 30, K23 30, K24 30), and the
-     checkpoint save -> resume round trip at 2 layers.
+     checkpoint save -> resume round trip at 2 layers;
+  6. rCM distillation through the training CLI (`scripts.train.main
+     --experiment rcm`) from phase 5's teacher checkpoint and 81f shards,
+     full width and depth, --remat block_wise: the dense student's
+     iteration 0 (sCM + DMD + EMA; launches K1 630, K2 630, K4 420, K25 60)
+     and iteration 1 (the critic's; K1 270, K2 270, K4 180), then one student
+     iteration with `-- model.attention.backend=sla` (K1 630, K2 630, K3
+     210, K4 210, K21 210, K23 60, K24 60, K26 30, K25 30; profiled); per
+     iteration the wall time and its split, the losses (finite), peak
+     memory, exact launches, and the watched weights of what it trains
+     moved (student and EMA, or fake score) and of nothing else (the
+     teacher never); then the DistillState save -> resume round trip at 2
+     layers.
 Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
 its 14B checks and that path's launches; K21, K23, K24: their 1.3B checks
-and one training step's launches; any other: its 1.3B checks and the
+and one training step's launches; K25, K26: one student iteration's of
+phase 6 (dense, sla); any other: its 1.3B checks and the
 launches of the first 1.3B path that runs it), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and the script exits non-zero; without a CUDA card it exits
@@ -136,6 +158,12 @@ ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
 # K19-K21: outputs of order 0.03 (K19, K20: near-flat softmax over ~3,000
 # keys) to 1 (K21's inputs); an atol a fifth of ATOL fails each planted fault
 SHARP_ATOL = 4e-3
+# K25 / K26's do = acc_t / l - mu o subtracts terms of up to ~25 (q of std
+# 3) whose bf16-rounded P dS the kernel rounds at the running max of the
+# online softmax and the plain version at the row's final max, as the TPU
+# kernel and its jnp reference do: ~2^-8 x 25 = 0.1 absolute; the planted
+# faults miss by 4 and more
+JVP_ATOL = 0.1
 SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
 # K14's scales: its fp32 sums (the row's mean square, QK, P V) run in another
 # order than the plain version's, which can move one bf16 element of the
@@ -243,11 +271,16 @@ KERNELS = {
             "turbodiffusion_tpu/ops/flash_pallas.py:1796"),
     "K24": ("turbodiffusion_tpu_torch/csrc/sparse_attention_bwd.cu",
             "turbodiffusion_tpu/ops/flash_pallas.py:1836"),
+    "K25": ("turbodiffusion_tpu_torch/csrc/flash_jvp.cu",
+            "turbodiffusion_tpu/ops/flash_jvp_pallas.py:170"),
+    "K26": ("turbodiffusion_tpu_torch/csrc/flash_jvp.cu",
+            "turbodiffusion_tpu/ops/flash_jvp_pallas.py:367"),
 }
 
 
 def _launchers():
     from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
     from turbodiffusion_tpu_torch.ops import linear_attention as la
     from turbodiffusion_tpu_torch.ops import quant as qt
@@ -265,7 +298,8 @@ def _launchers():
             "K17": fa._cross_qout_wide_cuda, "K18": sf._subquant_pack_kv_cuda,
             "K19": si8._sparse_i8_planes_cuda, "K20": fa._sparse_flash_i8qk_cuda,
             "K21": la._linear_projected_cuda, "K22": qt._int8_block_matmul_cuda,
-            "K23": sb._sparse_bwd_dq_cuda, "K24": sb._sparse_bwd_dkv_cuda}
+            "K23": sb._sparse_bwd_dq_cuda, "K24": sb._sparse_bwd_dkv_cuda,
+            "K25": fj._flash_jvp_cuda, "K26": fj._sparse_flash_jvp_cuda}
 
 
 @dataclasses.dataclass
@@ -567,10 +601,11 @@ def phase2(reps: int = REPS):
                                                        bias, kt, vt, sdpa)
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
     bwd_checks, bwd_extra = _bwd_checks(randn)
+    jvp_checks, jvp_extra = _jvp_checks(randn, sdpa)
     results = _run_checks(checks + mode_checks + _block_gemm_checks(randn)
-                          + bwd_checks, reps)
+                          + bwd_checks + jvp_checks, reps)
     _poisoned_tail(i8_args, scale)
-    for tail in (*tails, bwd_extra):
+    for tail in (*tails, bwd_extra, jvp_extra):
         tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
@@ -1161,6 +1196,122 @@ def _bwd_checks(randn):
     return checks, extra
 
 
+def _epilogue_without_mu(s, ds, v, dv):
+    """`ops/flash_jvp._jvp_epilogue` with mu (rowsum P dS) left out of do:
+    a planted fault of K25 / K26, made by their plain versions."""
+    import torch
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    pb = p.to(v.dtype).float()
+    acc_t = (torch.matmul((p * ds).to(v.dtype).float(), v.float())
+             + torch.matmul(pb, dv.float()))
+    return torch.matmul(pb, v.float()) / l, acc_t / l
+
+
+def _jvp_checks(randn, sdpa):
+    """K25 (self 32,760 x 32,760 and cross 32,760 x 512) and K26 (blocks
+    512/256, topk 0.1: 12 of 128 K-blocks) at the 1.3B training shape, 12
+    heads, against their plain versions on the card. q of std 3, so each
+    row's softmax leans on a few keys, and tangents of N(0, 1), the size of
+    the primals: mu, P dv and both terms of dS all matter (with flat
+    attention a kernel without mu would pass). q, k, v and the tangents are
+    views of buffers whose rows past their length hold NaN. Tolerance atol
+    JVP_ATOL + rtol 2e-2. Planted faults each check must reject: mu left out of do (the plain version so
+    changed), P dv left out (the kernel with dv = 0), q dk^T left out of dS
+    (the kernel with dk = 0) and, for K26, the last LUT entry of every row
+    dropped. No PyTorch call computes an attention JVP: the SDPA forward of
+    the shape stands beside each for scale. Returns (checks, a function of
+    the further check: two runs of each kernel bit-equal)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    HEADS = G13.heads
+
+    def view(n, std=1.0):             # rows past n of the buffer: NaN
+        t = randn(B, n + 64, HEADS, DH, std=std)
+        t[:, n:] = float("nan")
+        return t[:, :n]
+
+    q, dq = view(L, 3.0), view(L)
+    self_kv = [view(L) for _ in range(4)]            # k, v, dk, dv
+    text_kv = [view(TEXT) for _ in range(4)]
+    lut = get_block_map(q, self_kv[0], TOPK, BQ, BK)[1]
+    scale = DH ** -0.5
+    pairs = _sparse_pairs(lut, BQ, BK, L, L)
+
+    def without_mu(plain):
+        def run():
+            keep = fj._jvp_epilogue
+            fj._jvp_epilogue = _epilogue_without_mu
+            try:
+                return plain()
+            finally:
+                fj._jvp_epilogue = keep
+        return run
+
+    def faults(kern):
+        return {"mu left out of do": without_mu(lambda: kern(mu=False)),
+                "P dv left out": lambda: kern(dv=0),
+                "q dk^T left out of dS": lambda: kern(dk=0)}
+
+    def dense(kv, n):
+        def kern(dk=None, dv=None, mu=True):
+            k, v, dk_, dv_ = kv
+            dk_ = dk_ if dk is None else torch.zeros_like(dk_)
+            dv_ = dv_ if dv is None else torch.zeros_like(dv_)
+            if not mu:
+                return fj.flash_attention_jvp_plain(q, k, v, dq, dk_, dv_,
+                                                    scale, n)
+            return fj._flash_jvp_cuda(q, k, v, dq, dk_, dv_, scale, n)
+        return kern
+
+    def sparse(dk=None, dv=None, mu=True, lut_=lut):
+        k, v, dk_, dv_ = self_kv
+        dk_ = dk_ if dk is None else torch.zeros_like(dk_)
+        dv_ = dv_ if dv is None else torch.zeros_like(dv_)
+        if not mu:
+            return fj.sparse_flash_attention_jvp_plain(
+                q, k, v, dq, dk_, dv_, lut_, BQ, BK, scale, L)
+        return fj._sparse_flash_jvp_cuda(q, k, v, dq, dk_, dv_, lut_, BQ, BK,
+                                         scale, L)
+
+    k_self, k_text = dense(self_kv, L), dense(text_kv, TEXT)
+    ops25 = lambda lk: {"bf16": 12 * B * HEADS * L * lk * DH}   # noqa: E731
+    scale_sdpa = lambda kv: {"SDPA forward, for scale": sdpa(q, *kv[:2])}  # noqa: E731
+    sel = lut.shape[-1]
+    checks = [
+        Check("K25", f"dense self {L}x{L} (o, do), rows past L NaN", k_self,
+              lambda: fj.flash_attention_jvp_plain(q, *self_kv[:2], dq,
+                                                   *self_kv[2:], scale, L),
+              (q, dq, *self_kv), ops25(L), yardsticks=scale_sdpa(self_kv),
+              atol=JVP_ATOL, faults=faults(k_self)),
+        Check("K25", f"cross {L}x{TEXT} (o, do)", k_text,
+              lambda: fj.flash_attention_jvp_plain(q, *text_kv[:2], dq,
+                                                   *text_kv[2:], scale, TEXT),
+              (q, dq, *text_kv), ops25(TEXT), yardsticks=scale_sdpa(text_kv),
+              atol=JVP_ATOL, faults=faults(k_text)),
+        Check("K26", f"sparse {sel}/{-(-L // BK)} blocks {BQ}/{BK} (o, do)",
+              sparse, lambda: fj.sparse_flash_attention_jvp_plain(
+                  q, *self_kv[:2], dq, *self_kv[2:], lut, BQ, BK, scale, L),
+              (q, dq, *self_kv, lut), {"bf16": 12 * DH * pairs},
+              yardsticks=scale_sdpa(self_kv), atol=JVP_ATOL,
+              faults={**faults(sparse), "last LUT entry of every row dropped":
+                      lambda: sparse(lut_=lut[..., :-1].contiguous())}),
+    ]
+
+    def extra():
+        for name, kern in (("K25 self", k_self), ("K25 cross", k_text),
+                           ("K26", sparse)):
+            a, b = kern(), kern()
+            torch.cuda.synchronize()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{name}: two runs differ")
+        print("phase2 K25/K26 stability: two runs of each (self, cross, "
+              "sparse) bit-equal, with NaN in the rows past each length",
+              flush=True)
+    return checks, extra
+
+
 def _poisoned_tail(i8_args, scale):
     """K7 on the card: int8 K / V rows past kv_len set to +127 change no
     output row before kv_len (flash_pallas.py:933, the garbage-tail test)."""
@@ -1435,6 +1586,104 @@ def phase3_train(device: str = "cuda"):
     return counts
 
 
+JVP_REL = 0.05   # o's and do's relative L2 error, bf16 block, card vs CPU
+
+
+def phase3_jvp(attention: str, device: str = "cuda"):
+    """One full-width 1.3B block (`original`, or `sla` with proj_l != 0)
+    at one 480p latent frame in the sCM tangent pass: `jvp_mode` and
+    forward AD, with tangents on x and on the time modulation, as the
+    student's tangent pass has them. The card (K25 for dense self and cross
+    attention, K26 for sparse self attention; plain norms) against the plain
+    versions on the CPU: o and do each within 5% relative L2, on the Q
+    blocks whose block-map rows agree. Exact launch counts: dense K25 2;
+    sla K26 1 and K25 1; no other kernel (K1-K4 and K21 have no tangent
+    rule; the linear branch is plain torch there). Returns them."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+    from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
+    from turbodiffusion_tpu_torch.models.wan import jvp_mode
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    from turbodiffusion_tpu_torch.ops.fused_norm import (
+        modulated_layer_norm_ref, rmsnorm_rope_ref, rope_cos_sin_full)
+    from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
+
+    sla = attention == "sla"
+    cfg = make_wan_cfg(G13.model, attention, TOPK)
+    a = cfg.attention
+    dev = torch.device(device)
+    blk = _random_block(cfg, dev, seed=7, proj_l_std=0.05 if sla else 0.0)
+    blk_cpu = copy.deepcopy(blk).cpu()
+    g = torch.Generator(device=dev).manual_seed(8)
+    T, Hs, Ws = 1, 30, 52
+    n = T * Hs * Ws
+    x, dx = (torch.randn((1, n, G13.dim), generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    e0, de0 = (0.1 * torch.randn((1, 6, G13.dim), generator=g, device=dev)
+               for _ in range(2))
+    ctx = torch.randn((1, TEXT, G13.dim), generator=g, device=dev).bfloat16()
+    rope = rope_cos_sin_full(rope_freqs_3d(T, Hs, Ws, DH, device=dev))
+    cpu = lambda *ts: tuple(t.cpu() for t in ts)  # noqa: E731
+
+    def lut_of(b, x, e0, rope):
+        with torch.no_grad():
+            e = b.modulation.float()[None] + e0
+            h = modulated_layer_norm_ref(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps)
+            sa = b.self_attn
+            q, k = (rmsnorm_rope_ref(lin(h), w, *rope, cfg.eps) for lin, w in
+                    ((sa.q, sa.norm_q), (sa.k, sa.norm_k)))
+            return get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]
+
+    keep, bad_q = torch.ones(n, dtype=torch.bool), []
+    if sla:
+        same = (lut_of(blk, x, e0, rope).cpu().sort(-1).values
+                == lut_of(blk_cpu, *cpu(x, e0), cpu(*rope)).sort(-1).values
+                ).all(-1)
+        bad_q = sorted(set((~same).nonzero()[:, 2].tolist()))
+        for i in bad_q:
+            keep[i * a.block_q:(i + 1) * a.block_q] = False
+        if not keep.any():
+            raise AssertionError("phase3 jvp: every Q-block's LUT differs")
+
+    def run(b, x, dx, e0, de0, ctx, rope):
+        with torch.no_grad(), jvp_mode(b), fwAD.dual_level():
+            out = b(fwAD.make_dual(x, dx), fwAD.make_dual(e0, de0), rope, ctx)
+            o, do = fwAD.unpack_dual(out)
+        return o, do
+
+    launchers = _launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = run(blk, x, dx, e0, de0, ctx, rope)
+    torch.cuda.synchronize()
+    ms_gpu = (time.perf_counter() - t0) * 1e3
+    counts = {nm: fn.launches for nm, fn in launchers.items() if fn.launches}
+    t0 = time.perf_counter()
+    want = run(blk_cpu, *cpu(x, dx, e0, de0, ctx), cpu(*rope))
+    ms_cpu = (time.perf_counter() - t0) * 1e3
+    rel = {}
+    for nm, gg, ww in zip(("o", "do"), got, want):
+        gg, ww = gg.float().cpu()[:, keep], ww.float()[:, keep]
+        if not bool(torch.isfinite(gg).all()):
+            raise AssertionError(f"phase3 jvp {attention}: non-finite {nm}")
+        rel[nm] = float((gg - ww).norm() / ww.norm().clamp_min(1e-30))
+        if rel[nm] > JVP_REL:
+            raise AssertionError(f"phase3 jvp {attention}: {nm} off by "
+                                 f"{rel[nm]:.3g} (relative L2) > {JVP_REL}")
+    expect = {"K26": 1, "K25": 1} if sla else {"K25": 2}
+    if counts != expect:
+        raise AssertionError(f"phase3 jvp {attention} launches {counts} != "
+                             f"{expect}")
+    print(f"phase3 {G13.model} {attention} block, sCM tangent pass L={n}"
+          f"{' (proj_l != 0)' if sla else ''}: o relative L2 error "
+          f"{rel['o']:.4g}, do {rel['do']:.4g} (tol {JVP_REL}; |do| mean "
+          f"{float(want[1].float().abs().mean()):.4g}; Q-blocks left out: "
+          f"{bad_q}) | card {ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 def _write_checkpoint(directory: str, block_scale: bool = True):
     """The port's writer saves a seeded random 1.3B sagesla DiT in the
     reference's checkpoint layout: every block linear quantised to 128x128
@@ -1663,11 +1912,22 @@ def _step_probe(label: str, want: dict, profile_step=None):
     return Probe()
 
 
-def phase5():
+def _training_data(tmp: str):
+    """Phase 5's and 6's inputs under `tmp`: a 1.3B teacher checkpoint the
+    port's writer saves (bf16 linears, non-zero head and proj_l) and the tar
+    shards of `_train_shards`. Returns (checkpoint path, {frames: glob})."""
+    t0 = time.perf_counter()
+    ckpt, _ = _write_checkpoint(tmp, block_scale=False)
+    shards = _train_shards(tmp)
+    print(f"phase5/6 data: teacher checkpoint and shards written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ckpt, shards
+
+
+def phase5(tmp: str, ckpt: str, shards: dict):
     """SLA fine-tuning through the CLI (`scripts.train.main`, as `python -m
-    turbodiffusion_tpu_torch.scripts.train --experiment sla` runs it) on a
-    1.3B teacher checkpoint that the port's writer saves first (bf16
-    linears, non-zero head and proj_l) and tar shards written here: (1) 3
+    turbodiffusion_tpu_torch.scripts.train --experiment sla` runs it) on
+    `_training_data`'s teacher checkpoint and shards: (1) 3
     steps at 480p/81f, full width and depth, --remat block_wise, step 2
     profiled; (2) 1 step at 480p/21f, --remat none; (3) the checkpoint
     round trip at 2 layers, full width (21f): 1 step saved, then a run
@@ -1675,72 +1935,240 @@ def phase5():
     and generator state and take step 2. Returns run 1's last step's
     launch counts."""
     import torch
-    from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
     from turbodiffusion_tpu_torch.scripts import train
     from turbodiffusion_tpu_torch.training.trainer import Callback
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    base = ["--experiment", "sla", "--model", G13.model, "--teacher_ckpt",
+            ckpt, "--seed", "0", "--lr", "1e-5"]
+    runs = [("block_wise 81f", 81, "block_wise", 3, 2),
+            ("none 21f", 21, "none", 1, None)]
+    peaks, counts = {}, None
+    for label, frames, remat, steps, prof_step in runs:
+        probe = _step_probe(label, TRAIN_LAUNCHES[remat], prof_step)
         t0 = time.perf_counter()
-        ckpt, _ = _write_checkpoint(tmp, block_scale=False)
-        shards = _train_shards(tmp)
-        print(f"phase5 data: teacher checkpoint and shards written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        base = ["--experiment", "sla", "--model", G13.model, "--teacher_ckpt",
-                ckpt, "--seed", "0", "--lr", "1e-5"]
-        runs = [("block_wise 81f", 81, "block_wise", 3, 2),
-                ("none 21f", 21, "none", 1, None)]
-        peaks, counts = {}, None
-        for label, frames, remat, steps, prof_step in runs:
-            probe = _step_probe(label, TRAIN_LAUNCHES[remat], prof_step)
-            t0 = time.perf_counter()
-            train.main(base + ["--data", shards[frames], "--remat", remat,
-                               "--max_iter", str(steps), "--ckpt_dir", "",
-                               "--time_phases", "--", "trainer.log_every=1"],
-                       callbacks=[probe])
-            print(f"phase5 {label}: {steps} steps in "
-                  f"{time.perf_counter() - t0:.1f} s with set-up", flush=True)
-            peaks[label] = max(probe.peaks)
-            counts = counts or probe.counts
-            gc.collect()
-            torch.cuda.empty_cache()
+        train.main(base + ["--data", shards[frames], "--remat", remat,
+                           "--max_iter", str(steps), "--ckpt_dir", "",
+                           "--time_phases", "--", "trainer.log_every=1"],
+                   callbacks=[probe])
+        print(f"phase5 {label}: {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s with set-up", flush=True)
+        peaks[label] = max(probe.peaks)
+        counts = counts or probe.counts
+        gc.collect()
+        torch.cuda.empty_cache()
 
-        saved = {}
+    saved = {}
 
-        class Keep(Callback):
-            def on_train_end(self, state):
-                saved["model"] = {n: t.detach().cpu().clone() for n, t in
-                                  state.params.state_dict().items()}
-                saved["exp_avg"] = [state.opt_state.adamw.state[p]["exp_avg"]
-                                    .detach().cpu().clone()
-                                    for p in state.opt_state.params]
+    class Keep(Callback):
+        def on_train_end(self, state):
+            saved["model"] = {n: t.detach().cpu().clone() for n, t in
+                              state.params.state_dict().items()}
+            saved["exp_avg"] = [state.opt_state.adamw.state[p]["exp_avg"]
+                                .detach().cpu().clone()
+                                for p in state.opt_state.params]
 
-        class Resumed(Callback):
-            def on_train_start(self, state):
-                got = state.params.state_dict()
-                bad = [n for n, t in saved["model"].items()
-                       if not torch.equal(got[n].cpu(), t)]
-                moms = [state.opt_state.adamw.state[p]["exp_avg"].cpu()
-                        for p in state.opt_state.params]
-                if bad or state.step != 1 or not all(
-                        torch.equal(a, b) for a, b in zip(moms, saved["exp_avg"])):
-                    raise AssertionError(f"phase5 resume: step {state.step}, "
-                                         f"model differs at {bad[:5]}")
+    class Resumed(Callback):
+        def on_train_start(self, state):
+            got = state.params.state_dict()
+            bad = [n for n, t in saved["model"].items()
+                   if not torch.equal(got[n].cpu(), t)]
+            moms = [state.opt_state.adamw.state[p]["exp_avg"].cpu()
+                    for p in state.opt_state.params]
+            if bad or state.step != 1 or not all(
+                    torch.equal(a, b) for a, b in zip(moms, saved["exp_avg"])):
+                raise AssertionError(f"phase5 resume: step {state.step}, "
+                                     f"model differs at {bad[:5]}")
 
-        rt = base + ["--data", shards[21], "--ckpt_dir", os.path.join(tmp, "run"),
-                     "--save_every", "1", "--", "model.num_layers=2"]
+    rt = base + ["--data", shards[21], "--ckpt_dir", os.path.join(tmp, "run"),
+                 "--save_every", "1", "--", "model.num_layers=2"]
+    t0 = time.perf_counter()
+    train.main(rt[:-2] + ["--max_iter", "1"] + rt[-2:], callbacks=[Keep()])
+    state = train.main(rt[:-2] + ["--max_iter", "2"] + rt[-2:],
+                       callbacks=[Resumed()])
+    size = os.path.getsize(os.path.join(tmp, "run", "iter_000000001.pth"))
+    if state.step != 2:
+        raise AssertionError(f"phase5 resume: ended at step {state.step}")
+    print(f"phase5 checkpoint round trip (2 layers, full width): step 1 "
+          f"saved ({size / 2**30:.2f} GiB: model, AdamW state, generator), "
+          f"a second run resumed with every tensor and moment equal and "
+          f"took step 2 | {time.perf_counter() - t0:.1f} s | peak "
+          f"81f block_wise {peaks['block_wise 81f']:.2f} GiB, 21f none "
+          f"{peaks['none 21f']:.2f} GiB", flush=True)
+    return counts
+
+
+# launches per rCM iteration of the 30-block 1.3B (n_sim 1, no negative
+# prompt: one teacher forward per call site). Student iteration: 7 block
+# forwards (the sCM teacher, the student and its block_wise recompute, the
+# DMD student and its recompute, the fake score, the DMD teacher), each K1
+# 3, K2 3, K4 2 (dense) or K3 1 + K4 1 + K21 1 (sla); the tangent pass K25
+# on self and cross attention (dense) or K26 + K25 (sla) and nothing else;
+# the backward of the two student graphs K23 + K24 (sla). Critic iteration:
+# the simulated student, the fake score and its recompute
+DISTILL_LAUNCHES = {
+    "dense": ({"K1": 630, "K2": 630, "K4": 420, "K25": 60},
+              {"K1": 270, "K2": 270, "K4": 180}),
+    "sla": ({"K1": 630, "K2": 630, "K3": 210, "K4": 210, "K21": 210,
+             "K23": 60, "K24": 60, "K26": 30, "K25": 30},
+            {"K1": 270, "K2": 270, "K3": 90, "K4": 90, "K21": 90, "K23": 30,
+             "K24": 30}),
+}
+# the tensors an rCM probe watches in each net: block 0's self-attention
+# weight matrices, the last block's fc2, the head
+_WATCH = ("blocks.0.self_attn.q.weight", "blocks.0.self_attn.o.weight",
+          "blocks.29.ffn.fc2.weight", "head.head.weight")
+
+
+def _distill_probe(label: str, launches, profile_iteration=None):
+    """A trainer callback for `--experiment rcm`: around each iteration it
+    sets every launch count to 0 and reads it after (each must equal the
+    student's or the critic's of `launches`), measures the wall time
+    (synchronised) and peak memory, checks the losses finite, and that the
+    iteration moved what it trains (student and EMA, or fake score) and
+    nothing else (the teacher never); profiles `profile_iteration`.
+    `.counts` keeps each phase's launches, `.peaks` each iteration's peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from turbodiffusion_tpu_torch.training.trainer import Callback
+    launchers = _launchers()
+
+    def snap(state):
+        nets = {"student": state.student, "fake": state.fake_score,
+                "teacher": state.teacher}
+        out = {k: {n: p.detach().clone() for n, p in m.named_parameters()
+                   if n in _WATCH} for k, m in nets.items()}
+        out["ema"] = {n: state.ema[n].clone() for n in out["student"]}
+        return out
+
+    class Probe(Callback):
+        def on_train_start(self, state):
+            self.peaks, self.counts, self.prof = [], {}, None
+
+        def on_training_step_start(self, state, it):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.before = snap(state)
+            for fn in launchers.values():
+                fn.launches = 0
+            if it == profile_iteration:
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+        def on_training_step_end(self, state, metrics, it):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            student = metrics["student_phase"] == 1.0
+            phase = "student" if student else "critic"
+            want = launches[0 if student else 1]
+            counts = {n: fn.launches for n, fn in launchers.items()}
+            if counts != {n: want.get(n, 0) for n in launchers}:
+                raise AssertionError(f"phase6 {label} iteration {it} ({phase}): "
+                                     f"launches {counts} != {want}")
+            self.counts[phase] = {n: c for n, c in counts.items() if c}
+            keys = ("loss_cm", "loss_dmd") if student else ("loss_critic",)
+            losses = {k: float(metrics[k]) for k in keys}
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"phase6 {label} iteration {it}: {losses}")
+            after = snap(state)
+            moved = {k: sum(int(not torch.equal(self.before[k][n], t))
+                            for n, t in after[k].items()) for k in after}
+            trained = {"student", "ema"} if student else {"fake"}
+            wrong = [k for k, c in moved.items()
+                     if c != (len(after[k]) if k in trained else 0)]
+            if wrong:
+                raise AssertionError(f"phase6 {label} iteration {it} ({phase}): "
+                                     f"watched tensors moved {moved}")
+            self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            phases = " | ".join(f"{k[:-3]} {float(v):.1f} ms" for k, v in
+                                metrics.items() if k.endswith("_ms"))
+            line = (f"phase6 {label} iteration {it} ({phase}): wall "
+                    f"{wall * 1e3:.1f} ms ({phases}) | "
+                    + " ".join(f"{k} {v:.6g}" for k, v in losses.items())
+                    + f" | grad norm {float(metrics['grad_norm']):.4g} | peak "
+                    f"{self.peaks[-1]:.2f} GiB | watched tensors moved "
+                    f"{moved} | launches {self.counts[phase]}")
+            if self.prof is not None:
+                self.prof.__exit__(None, None, None)
+                line += (f"\nphase6 {label} profile of iteration {it}: "
+                         f"{_profile_summary(self.prof)}")
+                self.prof = None
+            print(line, flush=True)
+
+    return Probe()
+
+
+def phase6(tmp: str, ckpt: str, shards: dict):
+    """rCM distillation through the CLI (`scripts.train.main`, as `python -m
+    turbodiffusion_tpu_torch.scripts.train --experiment rcm` runs it) on
+    `_training_data`'s teacher checkpoint and 81f shards, full width and
+    depth, --remat block_wise, lr 1e-5: (1) the dense (`original`) student,
+    2 iterations (iteration 0 the student's, 1 the critic's); (2) `--
+    model.attention.backend=sla`, the student's iteration, profiled; each
+    through `_distill_probe`; (3) the DistillState round trip at 2 layers
+    (21f): 1 iteration saved, then a run that resumes from it must start
+    from the saved student, fake score, EMA, both AdamW states and
+    generator and take iteration 2 (the critic's). Returns {dense, sla:
+    the student iteration's launch counts}."""
+    import torch
+    from turbodiffusion_tpu_torch.scripts import train
+    from turbodiffusion_tpu_torch.training.trainer import Callback
+    base = ["--experiment", "rcm", "--model", G13.model, "--teacher_ckpt",
+            ckpt, "--seed", "0", "--lr", "1e-5"]
+    counts, peaks = {}, {}
+    for label, ovr, iters, prof in (("dense", [], 2, None),
+                                    ("sla", ["model.attention.backend=sla"], 1,
+                                     0)):
+        probe = _distill_probe(label, DISTILL_LAUNCHES[label], prof)
         t0 = time.perf_counter()
-        train.main(rt[:-2] + ["--max_iter", "1"] + rt[-2:], callbacks=[Keep()])
-        state = train.main(rt[:-2] + ["--max_iter", "2"] + rt[-2:],
-                           callbacks=[Resumed()])
-        size = os.path.getsize(os.path.join(tmp, "run", "iter_000000001.pth"))
-        if state.step != 2:
-            raise AssertionError(f"phase5 resume: ended at step {state.step}")
-        print(f"phase5 checkpoint round trip (2 layers, full width): step 1 "
-              f"saved ({size / 2**30:.2f} GiB: model, AdamW state, generator), "
-              f"a second run resumed with every tensor and moment equal and "
-              f"took step 2 | {time.perf_counter() - t0:.1f} s | peak "
-              f"81f block_wise {peaks['block_wise 81f']:.2f} GiB, 21f none "
-              f"{peaks['none 21f']:.2f} GiB", flush=True)
+        state = train.main(base + ["--data", shards[81], "--remat",
+                                   "block_wise", "--max_iter", str(iters),
+                                   "--ckpt_dir", "", "--time_phases", "--",
+                                   "trainer.log_every=1", *ovr],
+                           callbacks=[probe])
+        print(f"phase6 {label}: {iters} iterations in "
+              f"{time.perf_counter() - t0:.1f} s with set-up", flush=True)
+        counts[label], peaks[label] = probe.counts["student"], max(probe.peaks)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    saved = {}
+
+    def tensors(state):
+        return {**{f"student.{n}": t for n, t in state.student.state_dict().items()},
+                **{f"fake.{n}": t for n, t in state.fake_score.state_dict().items()},
+                **{f"ema.{n}": t for n, t in state.ema.items()},
+                **{f"m{i}": state.opt_student.adamw.state[p]["exp_avg"]
+                   for i, p in enumerate(state.opt_student.params)}}
+
+    class Keep(Callback):
+        def on_train_end(self, state):
+            saved.update({n: t.detach().cpu().clone()
+                          for n, t in tensors(state).items()})
+
+    class Resumed(Callback):
+        def on_train_start(self, state):
+            got = tensors(state)
+            bad = [n for n, t in saved.items() if not torch.equal(got[n].cpu(), t)]
+            if bad or state.step != 1:
+                raise AssertionError(f"phase6 resume: step {state.step}, "
+                                     f"differs at {bad[:5]}")
+
+    rt = base + ["--data", shards[21], "--ckpt_dir", os.path.join(tmp, "rcm"),
+                 "--save_every", "1", "--", "model.num_layers=2"]
+    t0 = time.perf_counter()
+    train.main(rt[:-2] + ["--max_iter", "1"] + rt[-2:], callbacks=[Keep()])
+    state = train.main(rt[:-2] + ["--max_iter", "2"] + rt[-2:],
+                       callbacks=[Resumed()])
+    size = os.path.getsize(os.path.join(tmp, "rcm", "iter_000000001.pth"))
+    if state.step != 2:
+        raise AssertionError(f"phase6 resume: ended at iteration {state.step}")
+    print(f"phase6 DistillState round trip (2 layers, full width): iteration "
+          f"1 saved ({size / 2**30:.2f} GiB: student, fake score, EMA, two "
+          f"AdamW states, generator), a second run resumed with all "
+          f"{len(saved)} tensors equal and took iteration 2 (critic) | "
+          f"{time.perf_counter() - t0:.1f} s | peak dense {peaks['dense']:.2f} "
+          f"GiB, sla {peaks['sla']:.2f} GiB", flush=True)
     return counts
 
 
@@ -1760,6 +2188,7 @@ PROFILE_CATEGORIES = [
     ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
     ("K22", ("int8_gemm_kernel<3>",)),
     ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
+    ("K25", ("flash_jvp_kernel<false>",)), ("K26", ("flash_jvp_kernel<true>",)),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")),
     ("top-k/sort", ("topk", "sort", "radix")), ("reduce", ("reduce",)),
@@ -1823,7 +2252,7 @@ def _profile_summary(prof) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated subset; the final ok line needs all")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1859,6 +2288,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"phase3 {label}: {missing} never launched")
         phase3("sagesla", True, geo=G14)
         phase3_train()
+        for attention in ("original", "sla"):
+            phase3_jvp(attention)
     counts = {}
     if 4 in phases:
         # a kernel's launches come from the 14B path (run last) where it
@@ -1881,17 +2312,28 @@ def main(argv=None) -> int:
             for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c
         counts["K21"] = block_counts.get("row", {}).get("K21", 0)
-    if 5 in phases:
-        # the training path's kernels: one step's launches (run 1, last step)
-        train_counts = phase5()
-        for name in ("K21", "K23", "K24"):
-            counts[name] = train_counts.get(name, 0)
+    if phases & {5, 6}:
+        from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            data = _training_data(tmp)
+            if 5 in phases:
+                # the SLA path's kernels: one step's launches (run 1, last step)
+                train_counts = phase5(tmp, *data)
+                for name in ("K21", "K23", "K24"):
+                    counts[name] = train_counts.get(name, 0)
+            if 6 in phases:
+                # the JVP kernels: one student iteration's launches (K25 the
+                # dense student's, K26 the sla student's)
+                distill_counts = phase6(tmp, *data)
+                counts["K25"] = distill_counts["dense"]["K25"]
+                counts["K26"] = distill_counts["sla"]["K26"]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts.get(n, 0), **kernels.get(n, {})}
         for n, (src, rep) in KERNELS.items()]}))
     print(smi)
-    if phases != {1, 2, 3, 4, 5}:
+    if phases != {1, 2, 3, 4, 5, 6}:
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -779,3 +779,126 @@ def test_k23_k24_refuse_what_they_do_not_take(dev):
     q = _randn(dev, 1, 256, HEADS, DH).bfloat16()
     with pytest.raises(ValueError, match="multiples of 64"):
         sb.sparse_flash_attention_bwd(q, q, q, q, lut[:, :, :1], 256, 32)
+
+
+# ---------------------------------------------------------------------------
+# K25 / K26: forward-mode (JVP) attention, dense and block-sparse. q has std
+# 3 and the tangents the size of the primals, so that mu, P dv and each term
+# of dS matter: the planted faults (mu dropped, P dv dropped, q dk^T dropped
+# from dS, a LUT entry dropped; errors of 3 and more) must each fail the
+# comparison. o at ATOL / RTOL; do at atol 2e-2 + rtol 2e-2, chip_smoke's
+# bf16 tolerance: do = acc_t / l - mu o subtracts terms of up to ~10 whose
+# bf16-rounded P dS the kernel rounds at the running max of the online
+# softmax and the plain version at the row's final max, which leaves a few
+# elements a bf16 step (2^-5 at 4 to 8) apart.
+# ---------------------------------------------------------------------------
+
+def _close_do(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _jvp_operands(dev, L, Lk, seed):
+    """q, k, v, dq, dk, dv (1, L or Lk, HEADS, 128) bf16 views into buffers
+    whose rows past their length hold NaN."""
+    out = []
+    for i, (n, std) in enumerate(((L, 3.0), (Lk, 1.0), (Lk, 1.0), (L, 1.0),
+                                  (Lk, 1.0), (Lk, 1.0))):
+        t = _randn(dev, 1, n + 64, HEADS, DH, seed=seed + i, std=std).bfloat16()
+        t[:, n:] = float("nan")
+        out.append(t[:, :n])
+    return out
+
+
+def _mu_hat(q, k, dq, dk, kv_len, lut=None, bq=None, bk=None):
+    """rowsum(softmax(S) dS), (1, L, HEADS, 1) fp32: what do subtracts times
+    o. Dense, or over the K-blocks the LUT selects."""
+    scale = DH ** -0.5
+    qh, kh, dqh, dkh = (t.float().transpose(1, 2) for t in (q, k, dq, dk))
+    s = qh @ kh.transpose(-1, -2) * scale
+    ds = (dqh @ kh.transpose(-1, -2) + qh @ dkh.transpose(-1, -2)) * scale
+    cols = torch.arange(k.shape[1], device=q.device)
+    live = (cols < kv_len).expand(s.shape)
+    if lut is not None:
+        allowed = torch.zeros((*lut.shape[:3], -(-k.shape[1] // bk)),
+                              dtype=torch.bool, device=q.device)
+        allowed.scatter_(-1, lut.long(), True)
+        rows = torch.arange(q.shape[1], device=q.device) // bq
+        live = live & allowed[:, :, rows][..., cols // bk]
+    p = torch.softmax(torch.where(live, s, -1e30), -1)
+    return (p * torch.where(live, ds, 0.0)).sum(-1, keepdim=True).transpose(1, 2)
+
+
+def _rejects(bad, want):
+    with pytest.raises(AssertionError):
+        _close_do(bad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,Lk", [(1100, 1100), (300, 77)])
+def test_k25_matches_plain_and_rejects_planted_faults(dev, L, Lk):
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    q, k, v, dq, dk, dv = _jvp_operands(dev, L, Lk, 70)
+    scale = DH ** -0.5
+    before = fj._flash_jvp_cuda.launches
+    o, do = fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, Lk)
+    assert fj._flash_jvp_cuda.launches == before + 1
+    o_p, do_p = fj.flash_attention_jvp_plain(q, k, v, dq, dk, dv, scale, Lk)
+    _close(o, o_p)
+    _close_do(do, do_p)
+    zero = torch.zeros_like
+    _rejects(do.float() + _mu_hat(q, k, dq, dk, Lk) * o.float(), do_p)
+    _rejects(fj._flash_jvp_cuda(q, k, v, dq, dk, zero(dv), scale, Lk)[1], do_p)
+    _rejects(fj._flash_jvp_cuda(q, k, v, dq, zero(dk), dv, scale, Lk)[1], do_p)
+    o2, do2 = fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, Lk)
+    assert torch.equal(o, o2) and torch.equal(do, do2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (520, 128, 128)])
+def test_k26_matches_plain_and_rejects_planted_faults(dev, L, bq, bk):
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    q, k, v, dq, dk, dv = _jvp_operands(dev, L, L, 80)
+    lut = _bwd_operands(dev, L, bq, bk, 90)[4]
+    scale = DH ** -0.5
+    before = fj._sparse_flash_jvp_cuda.launches
+    o, do = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut, bq, bk, scale, L)
+    assert fj._sparse_flash_jvp_cuda.launches == before + 1
+    o_p, do_p = fj.sparse_flash_attention_jvp_plain(q, k, v, dq, dk, dv, lut,
+                                                    bq, bk, scale, L)
+    _close(o, o_p)
+    _close_do(do, do_p)
+    zero = torch.zeros_like
+    args = (lut, bq, bk, scale, L)
+    mu = _mu_hat(q, k, dq, dk, L, lut, bq, bk)
+    _rejects(do.float() + mu * o.float(), do_p)
+    _rejects(fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, zero(dv), *args)[1], do_p)
+    _rejects(fj._sparse_flash_jvp_cuda(q, k, v, dq, zero(dk), dv, *args)[1], do_p)
+    dropped = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut[..., :-1],
+                                        *args[1:])
+    _rejects(dropped[0], o_p)
+    o2, do2 = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, *args)
+    assert torch.equal(o, o2) and torch.equal(do, do2)
+
+
+@pytest.mark.cuda
+def test_jvp_wrappers_on_the_card_launch_one_kernel(dev):
+    """Under forward AD a dense call launches one K25 and no K4, a sparse
+    call one K26 and no K3; (o, do) equal the card's kernel outputs."""
+    import torch.autograd.forward_ad as fwAD
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    L, bq, bk = 1100, 512, 256
+    q, k, v, dq, dk, dv = _jvp_operands(dev, L, L, 100)
+    lut = _bwd_operands(dev, L, bq, bk, 110)[4]
+    counters = (fa._flash_cuda, fa._sparse_flash_cuda, fj._flash_jvp_cuda,
+                fj._sparse_flash_jvp_cuda)
+    before = [c.launches for c in counters]
+    with torch.no_grad(), fwAD.dual_level():
+        duals = [fwAD.make_dual(p, t) for p, t in ((q, dq), (k, dk), (v, dv))]
+        dense = fwAD.unpack_dual(fj.flash_attention_jvp(*duals))
+        sparse = fwAD.unpack_dual(fj.sparse_attention_jvp(*duals, lut, bq, bk))
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 1, 1]
+    scale = DH ** -0.5
+    for got, want in ((dense, fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, L)),
+                      (sparse, fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut,
+                                                         bq, bk, scale, L))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

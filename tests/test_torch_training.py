@@ -259,18 +259,28 @@ def test_tar_round_trip_reads_the_same_as_jax(tmp_path):
 
 def test_loader_batching_and_host_split(tmp_path):
     paths = _shards(str(tmp_path), 4, 2)
-    batches = list(WebDatasetLoader(paths, 2, loop=False, shuffle=False))
+    batches = list(WebDatasetLoader(paths, 2, loop=False, shuffle=False,
+                                    device="cpu"))
     assert len(batches) == 4
     assert batches[0]["latents"].shape == (2, 16, 2, 4, 4)
     assert torch.is_tensor(batches[0]["latents"])
     parts = [{p for b in WebDatasetLoader(paths, 2, host_id=h, num_hosts=2,
-                                          loop=False, shuffle=False)
+                                          loop=False, shuffle=False,
+                                          device="cpu")
               for p in b["prompts"]} for h in (0, 1)]
     assert parts[0].isdisjoint(parts[1]) and len(parts[0] | parts[1]) == 8
     # the shuffle follows seed + epoch, as JAX's
-    lp = WebDatasetLoader(paths, 2, seed=3)
+    lp = WebDatasetLoader(paths, 2, seed=3, device="cpu")
     lj = data_jax.WebDatasetLoader(paths, 2, seed=3)
     assert lp._epoch_shards(1) == lj._epoch_shards(1)
+
+
+def test_loader_default_device_is_the_card(tmp_path):
+    """Like every entry point of the port, the loader puts its batches on
+    the card unless the caller asks for the CPU."""
+    paths = _shards(str(tmp_path), 1, 1)
+    assert WebDatasetLoader(paths, 1).device == torch.device("cuda")
+    assert WebDatasetLoader(paths, 1, device="cpu").device == torch.device("cpu")
 
 
 def test_trainer_loop_with_checkpoint_resume(tmp_path):
@@ -334,8 +344,6 @@ def test_cli_trains_two_steps_and_resumes(tmp_path):
 def test_cli_and_config_refuse_what_is_not_ported(tmp_path):
     from turbodiffusion_tpu_torch.scripts import train
     base = ["--model", "test", "--device", "cpu", "--data", "none/*.tar"]
-    with pytest.raises(NotImplementedError, match="Queue A item 11b"):
-        train.main(["--experiment", "rcm"] + base)
     with pytest.raises(NotImplementedError, match="item 12"):
         train.main(["--experiment", "sla", "--mesh", "1,4,2"] + base)
     for mode in ("mm_only", "attn_only", "self_attn_only"):

@@ -42,6 +42,10 @@ class AttentionConfig:
     compensation branch then contributes exactly zero and is skipped.
     v_quant: INT8 V granularity of the fused sagesla path: "channel" (per
     head and channel; K6 + K7) or "row" (per token; K18 + K19).
+    jvp_mode: the forward-mode pass (the sCM tangent of rCM distillation,
+    set by `models/wan.jvp_mode`; config.py:62-66): attention through the
+    JVP wrappers whose tangent rule is K25 / K26 (ops/flash_jvp.py), plain
+    norms, no fused or int8 path.
     """
 
     backend: str = "dense"
@@ -51,6 +55,7 @@ class AttentionConfig:
     feature_map: str = "softmax"
     linear_branch: bool = True
     v_quant: str = "channel"
+    jvp_mode: bool = False
 
 
 # the port's remat modes, and JAX's selective ones it refuses

@@ -48,10 +48,20 @@ the fused SageSLA path (K5-K7 at v_quant "channel", K5 + K18 + K19 at
 "row"; K13, K15, K16), the SLA linear branch (K21) and the W8A8 linears
 (K8-K11) dispatch to the CUDA kernels on the card. Wide models (Wan2.1-14B: dim 5120) keep Q, K and V as three
 linears (`quantize_wan_blocks(fuse_qkv=False)`, as JAX fuses below 4096).
+
+The forward-mode pass (`jvp_mode(model)`: cfg.attention.jvp_mode, the sCM
+tangent of rCM distillation) takes JAX's routes (wan.py:56, :155-158, :194,
+:213-224, :302-334): the plain norms (`force_ref`) in place of K1 / K2, no
+fused sagesla, no int8 feed and no cross qout, and attention through the
+forward-mode wrappers whose tangent rules are K25 / K26; the caller runs it
+under `torch.autograd.forward_ad` and `torch.no_grad()`, so no block is
+rematerialised.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import Optional
 
@@ -136,10 +146,11 @@ class WanSelfAttention(nn.Module):
             return linear_maybe_quant(self.o,
                                       unfold_planes(planes, Lx).to(cfg.dtype),
                                       gate=gate, residual=residual)
+        ref = cfg.attention.jvp_mode
         q = rmsnorm_rope(q_proj, self.norm_q, cosF, sinF, num_heads=H,
-                         eps=cfg.eps)
+                         eps=cfg.eps, force_ref=ref)
         k = rmsnorm_rope(k_proj, self.norm_k, cosF, sinF, num_heads=H,
-                         eps=cfg.eps)
+                         eps=cfg.eps, force_ref=ref)
         v = v_proj.reshape(B, Lx, H, Dh)
         o = attention(q, k, v, cfg.attention, proj_l=self.proj_l)
         return linear_maybe_quant(self.o, o.reshape(B, Lx, D), gate=gate,
@@ -173,12 +184,14 @@ class WanCrossAttention(nn.Module):
                      eps=cfg.eps)
         k = k.reshape(B, -1, H, Dh)
         v = linear_maybe_quant(self.v, context).reshape(B, -1, H, Dh)
-        if isinstance(self.o, Int8Linear) and Dh % 128 == 0:
+        jvp = cfg.attention.jvp_mode
+        if isinstance(self.o, Int8Linear) and Dh % 128 == 0 and not jvp:
             xq, rs = cross_attention_qout(q_proj, k, v, self.norm_q,
                                           eps=cfg.eps)
             return int8_linear_prequant(xq, rs, self.o, residual=residual)
-        q = rmsnorm_rope(q_proj, self.norm_q, num_heads=H, eps=cfg.eps)
-        o = dense_attention(q, k, v)
+        q = rmsnorm_rope(q_proj, self.norm_q, num_heads=H, eps=cfg.eps,
+                         force_ref=jvp)
+        o = dense_attention(q, k, v, jvp_mode=jvp)
         return linear_maybe_quant(self.o, o.reshape(B, Lx, D),
                                   residual=residual)
 
@@ -244,21 +257,26 @@ class WanAttentionBlock(nn.Module):
 
     def forward(self, x, e0_B6D, rope_cs, context):
         eps = self.cfg.eps
+        ref = self.cfg.attention.jvp_mode
         e = self.modulation.float()[None] + e0_B6D          # (B, 6, D) fp32
         e0, e1, e2, e3, e4, e5 = [e[:, i:i + 1] for i in range(6)]
         sa = self.self_attn
-        qout = isinstance(sa.qkv if sa.qkv is not None else sa.q, Int8Linear)
-        x = sa(modulated_layer_norm(x, e1, e0, eps=eps, quant_out=qout),
+        qout = (isinstance(sa.qkv if sa.qkv is not None else sa.q, Int8Linear)
+                and not ref)
+        x = sa(modulated_layer_norm(x, e1, e0, eps=eps, quant_out=qout,
+                                    force_ref=ref),
                rope_cs, gate=e2, residual=x)
         n3 = x
         if self.cfg.cross_attn_norm:
             n3 = modulated_layer_norm(
                 x, weight=self.norm3_weight, bias=self.norm3_bias, eps=eps,
-                quant_out=qout and isinstance(self.cross_attn.q, Int8Linear))
+                quant_out=qout and isinstance(self.cross_attn.q, Int8Linear),
+                force_ref=ref)
         x = self.cross_attn(n3, context, residual=x)
         qout_ffn = qout and isinstance(self.ffn.fc1, Int8Linear)
         return self.ffn(modulated_layer_norm(x, e4, e3, eps=eps,
-                                             quant_out=qout_ffn),
+                                             quant_out=qout_ffn,
+                                             force_ref=ref),
                         gate=e5, residual=x)
 
 
@@ -345,6 +363,22 @@ class WanModel(nn.Module):
                 x = blk(x, e0_B6D, rope_cs, context)
         out = self.head(x, e_B_D)
         return unpatchify(out, T, H, W, cfg.patch_size, cfg.out_dim)
+
+
+@contextlib.contextmanager
+def jvp_mode(model: nn.Module):
+    """Run `model` in the forward-mode pass: every module's config takes
+    attention.jvp_mode (JAX's `jvp_cfg`, distill.py:90-91) until the block
+    exits, when each gets its own config back."""
+    saved = [(m, m.cfg) for m in model.modules() if hasattr(m, "cfg")]
+    try:
+        for m, cfg in saved:
+            m.cfg = cfg.replace(attention=dataclasses.replace(
+                cfg.attention, jvp_mode=True))
+        yield model
+    finally:
+        for m, cfg in saved:
+            m.cfg = cfg
 
 
 # ---------------------------------------------------------------------------

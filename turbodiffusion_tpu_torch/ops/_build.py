@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 
 # C signatures: name -> argtypes (every function returns int, the CUDA error)
 SIGNATURES = {
@@ -117,6 +118,12 @@ SIGNATURES = {
     # scale, stream
     "tdx_sparse_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_I64] * 18
                                     + [_F, _P],
+    # q, k, v, dq, dk, dv, o, dout, B, H, Lq, kv_len, 24 strides (q, k, v,
+    # dq, dk, dv, o, dout: batch, token, head), scale, stream
+    "tdx_flash_attention_jvp": [_P] * 8 + [_I] * 4 + [_PI64, _F, _P],
+    # the same with the lut after dout and nQ, sel, block_q, block_k after
+    # kv_len
+    "tdx_sparse_flash_attention_jvp": [_P] * 9 + [_I] * 8 + [_PI64, _F, _P],
 }
 
 

@@ -21,6 +21,12 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
   * attention(q, k, v, cfg)             — backend dispatch; sagesla outside
                                           the fused geometry at blocks
                                           < 128 runs K20
+  * cfg.jvp_mode (the sCM tangent pass)  — dense attention through
+                                          `flash_attention_jvp` (tangent
+                                          rule K25), sla and sagesla through
+                                          `sparse_attention_jvp` (K26) plus
+                                          the plain-torch linear branch
+                                          (attention.py:161-179, :230-243)
 
 Gradients: `dense_attention` and `sla_attention` without int8 QK carry them
 to q, k, v and `proj_l` (K3, K4 and K21 run inside autograd Functions; K3's
@@ -43,6 +49,8 @@ import torch
 from turbodiffusion_tpu_torch.config import AttentionConfig
 from turbodiffusion_tpu_torch.ops.flash_attention import (
     flash_attention, sparse_flash_attention, sparse_flash_attention_i8qk)
+from turbodiffusion_tpu_torch.ops.flash_jvp import (
+    flash_attention_jvp, sparse_attention_jvp)
 from turbodiffusion_tpu_torch.ops.linear_attention import (
     linear_attention_projected, linear_projected_planes)
 from turbodiffusion_tpu_torch.ops.sla_fused import (
@@ -119,9 +127,19 @@ def linear_attention(q, k, v, feature_map: str = "softmax"):
     return (num / den[..., None]).to(q.dtype)
 
 
-def dense_attention(q, k, v, scale: Optional[float] = None):
-    """Dense softmax attention: kernel K4 (plain version on the CPU)."""
+def dense_attention(q, k, v, scale: Optional[float] = None,
+                    jvp_mode: bool = False):
+    """Dense softmax attention: kernel K4 (plain version on the CPU);
+    jvp_mode: the forward-mode wrapper, whose tangent rule is K25."""
+    if jvp_mode:
+        return flash_attention_jvp(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale)
+
+
+def _projected(o_l, proj_l, dtype):
+    """proj_l applied to the linear branch in `dtype` (JAX's jnp chain)."""
+    w, b = proj_l.weight.to(dtype), proj_l.bias.to(dtype)
+    return torch.matmul(o_l.to(dtype), w.t()) + b
 
 
 def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
@@ -131,8 +149,19 @@ def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
     SageSLA at blocks < 128), plus the linear branch projected by `proj_l`
     (a Linear on the head dim, fp32 weights): the softmax feature map
     through K21 (`linear_attention_projected`, the TPU's kernel), any other
-    in plain torch (JAX's jnp chain, proj_l applied in q's dtype)."""
+    in plain torch (JAX's jnp chain, proj_l applied in q's dtype).
+
+    cfg.jvp_mode (attention.py:230-243): the forward-mode wrapper over the
+    same LUT (taken from the primal q and k; its tangent rule is K26) and
+    the linear branch as the jnp chain, which K21 has no tangent rule for;
+    int8 QK is off, as quantisation is in JAX's tangent pass."""
     _, lut, _ = get_block_map(q, k, cfg.sla_topk, cfg.block_q, cfg.block_k)
+    if cfg.jvp_mode:
+        o_s = sparse_attention_jvp(q, k, v, lut, cfg.block_q, cfg.block_k)
+        if not cfg.linear_branch:
+            return o_s
+        o_l = linear_attention(q, k, v, cfg.feature_map)
+        return (o_s + _projected(o_l, proj_l, q.dtype)).to(q.dtype)
     sparse = sparse_flash_attention_i8qk if int8_qk else sparse_flash_attention
     o_s = sparse(q, k, v, lut, cfg.block_q, cfg.block_k)
     if not cfg.linear_branch:
@@ -142,17 +171,15 @@ def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
         o_l = linear_attention_projected(q, k, v, proj_l.weight, proj_l.bias)
         return (o_s + o_l).to(q.dtype)
     o_l = linear_attention(q, k, v, cfg.feature_map)
-    w = proj_l.weight.to(q.dtype)
-    b = proj_l.bias.to(q.dtype)
-    o_l = torch.matmul(o_l.to(q.dtype), w.t()) + b
-    return (o_s + o_l).to(q.dtype)
+    return (o_s + _projected(o_l, proj_l, q.dtype)).to(q.dtype)
 
 
 def fused_sla_geometry(cfg: AttentionConfig, head_dim: int) -> bool:
     """Whether sagesla takes the fused path: `models/wan.py:_use_fused_sla`
     without its device test, so the CPU runs the same path on the kernels'
-    plain versions."""
-    return (cfg.backend == "sagesla" and head_dim % 128 == 0
+    plain versions; never in the forward-mode pass."""
+    return (cfg.backend == "sagesla" and not cfg.jvp_mode
+            and head_dim % 128 == 0
             and cfg.block_q >= 128 and cfg.block_k >= 128)
 
 
@@ -235,10 +262,11 @@ def attention(q, k, v, cfg: AttentionConfig, proj_l=None):
     sagesla here is the composable path (outside the fused geometry): at
     blocks < 128 the int8-QK gather (K20) on every device; at blocks >= 128
     (a head dim that is no multiple of 128) K3's plain version on the CPU,
-    as the JAX package runs it there, and no kernel yet on a card."""
+    as the JAX package runs it there, and no kernel yet on a card. In
+    cfg.jvp_mode every backend takes its forward-mode wrapper."""
     if cfg.backend == "dense":
-        return dense_attention(q, k, v)
-    if cfg.backend == "sla":
+        return dense_attention(q, k, v, jvp_mode=cfg.jvp_mode)
+    if cfg.backend == "sla" or (cfg.backend == "sagesla" and cfg.jvp_mode):
         return sla_attention(q, k, v, proj_l, cfg)
     if cfg.backend == "sagesla":
         if min(cfg.block_q, cfg.block_k) < 128:

@@ -193,12 +193,17 @@ class _MlnFn(torch.autograd.Function):
 
 def modulated_layer_norm(x, mod_scale=None, mod_shift=None, weight=None,
                          bias=None, eps: float = 1e-6,
-                         quant_out: bool = False):
+                         quant_out: bool = False, force_ref: bool = False):
     """LN (+affine) (+AdaLN modulate) (fused_norm.py:193-224): the plain
     version on a CPU tensor, kernel K1 (or K12 with quant_out, returning
     (int8 (B, L, D), fp32 (B, L, 1))) on a CUDA tensor. The bf16 form is
-    differentiable in every tensor input."""
+    differentiable in every tensor input. force_ref: the plain version on
+    every device (the forward-mode pass, which the kernels' reverse-mode
+    Functions do not carry)."""
     _require(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
+    if force_ref:
+        return modulated_layer_norm_ref(x, mod_scale, mod_shift, weight,
+                                        bias, eps, quant_out)
     if not quant_out:
         return _MlnFn.apply(x, mod_scale, mod_shift, weight, bias, eps)
     if x.device.type == "cpu":
@@ -307,10 +312,13 @@ class _RmsRopeFn(torch.autograd.Function):
 
 
 def rmsnorm_rope(x, weight, cos_full=None, sin_full=None, *, num_heads: int,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, force_ref: bool = False):
     """RMSNorm over the full row (+ rotate-half RoPE) (fused_norm.py:364-381).
     x: (B, L, H*Dh) -> (B, L, H, Dh); no tables => norm only (cross Q).
     The plain version on a CPU tensor, kernel K2 on a CUDA tensor;
-    differentiable in x and weight."""
+    differentiable in x and weight. force_ref: the plain version on every
+    device (the forward-mode pass)."""
     _require(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
+    if force_ref:
+        return _rmsrope_plain(x, weight, cos_full, sin_full, eps, num_heads)
     return _RmsRopeFn.apply(x, weight, cos_full, sin_full, eps, num_heads)

@@ -1,12 +1,14 @@
-"""Training CLI of the PyTorch port: SLA white-box fine-tuning.
+"""Training CLI of the PyTorch port: SLA white-box fine-tuning and rCM
+distillation.
 
 The flag surface of `turbodiffusion_tpu/scripts/train.py:49-197`, plus
 `--device` (default `cuda`; `cpu` runs the kernels' plain versions, for
 small test models), `--time_phases` (synchronise after each phase of a
-step and log its teacher / forward / backward / optimizer times) and
-`--ckpt_dir ''` (no checkpoints: a measurement run). Dotted
-`model.*` overrides apply to the student and the teacher alike, `trainer.*`
-to the TrainerConfig.
+step and log its times: `sla` teacher / forward / backward / optimizer;
+`rcm` see `training/distill.make_distill_steps`) and `--ckpt_dir ''` (no
+checkpoints: a measurement run). Dotted `model.*` overrides apply to every
+net alike, `trainer.*` to the TrainerConfig, `distill.*` (rcm) to the
+DistillConfig.
 
 `--experiment sla`: the sparse `sla` student (topk `--sla_topk`, blocks
 512/256 at the published sizes) starts from the teacher's weights and
@@ -15,10 +17,20 @@ linear branch even where every `proj_l` is zero, as JAX does (it discards
 `load_dit`'s config, which switches the branch off then): proj_l is the
 main trainable and must receive gradients.
 
+`--experiment rcm` (train.py:149-161): the `original` config plus the
+`model.*` overrides (`model.attention.backend=sla` makes all three nets
+sla, topk 0.1, blocks 512/256), the teacher loaded from --teacher_ckpt,
+student and fake score initialised from it (`training/distill.py`); each
+iteration is a student (sCM or dCM + DMD, then the EMA) or a critic
+iteration by `distill.student_update_freq`.
+
 Usage:
   python -m turbodiffusion_tpu_torch.scripts.train --experiment sla \
       --data 'shards/*.tar' --teacher_ckpt teacher.pth --model Wan2.1-1.3B \
       --remat block_wise -- trainer.max_iter=1000 trainer.save_every=100
+  python -m turbodiffusion_tpu_torch.scripts.train --experiment rcm \
+      --data 'shards/*.tar' --teacher_ckpt teacher.pth --model Wan2.1-1.3B \
+      --remat block_wise -- distill.student_update_freq=5
 """
 
 from __future__ import annotations
@@ -99,17 +111,13 @@ def _with_cfg(model, cfg):
 
 def main(argv=None, callbacks=()):
     """Run the CLI; `callbacks` are added to the trainer's. Returns the
-    final TrainState."""
+    final TrainState (sla) or DistillState (rcm)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     overrides = []
     if "--" in argv:
         idx = argv.index("--")
         argv, overrides = argv[:idx], argv[idx + 1:]
     args = parse_arguments(argv)
-    if args.experiment == "rcm":
-        raise NotImplementedError(
-            "--experiment rcm (sCM/dCM + DMD distillation, training/"
-            "distill.py, the JVP kernels) waits for ROADMAP Queue A item 11b")
     if args.mesh:
         raise NotImplementedError(
             "--mesh (multi-GPU) waits for ROADMAP Queue A item 12")
@@ -117,6 +125,7 @@ def main(argv=None, callbacks=()):
     import torch
 
     from turbodiffusion_tpu_torch.pipelines.pipeline import load_dit, make_wan_cfg
+    from turbodiffusion_tpu_torch.training import distill as D
     from turbodiffusion_tpu_torch.training.checkpointing import Checkpointer
     from turbodiffusion_tpu_torch.training.data import WebDatasetLoader
     from turbodiffusion_tpu_torch.training.train_step import (
@@ -124,31 +133,45 @@ def main(argv=None, callbacks=()):
     from turbodiffusion_tpu_torch.training.trainer import (
         IterSpeed, JsonlLogger, Trainer, TrainerConfig)
 
-    model_ovr = [o[len("model."):] for o in overrides if o.startswith("model.")]
-    cfg = make_wan_cfg(args.model, attention_type="sla", sla_topk=args.sla_topk)
-    cfg_teacher = make_wan_cfg(args.model, attention_type="original")
-    cfg = apply_dotted_overrides(cfg, model_ovr).replace(remat=args.remat)
-    cfg_teacher = apply_dotted_overrides(cfg_teacher, model_ovr).replace(
-        remat=args.remat)
+    def prefixed(prefix):
+        return [o[len(prefix):] for o in overrides if o.startswith(prefix)]
 
+    model_ovr = prefixed("model.")
     device = torch.device(args.device)
-    loader = WebDatasetLoader(sorted(glob.glob(args.data)), args.batch_size,
-                              seed=args.seed, device=device)
     optimizer = make_optimizer(lr=args.lr)
     tcfg = TrainerConfig(max_iter=args.max_iter, save_every=args.save_every)
-    tcfg = apply_dotted_overrides(tcfg, [o[len("trainer."):] for o in overrides
-                                         if o.startswith("trainer.")])
-    # the student starts FROM the teacher's weights, the teacher stays frozen
-    # with dense attention (t2v_model_sla.py); the student keeps cfg (its
-    # linear branch on), whatever load_dit makes of a zero proj_l
-    student = _with_cfg(load_dit(args.teacher_ckpt, cfg, args.seed, device)[0],
-                        cfg)
-    teacher = load_dit(args.teacher_ckpt, cfg_teacher, args.seed, device)[0]
-    teacher.eval().requires_grad_(False)
-    state = TrainState(student, optimizer.init(student), 0)
-    step = make_sla_train_step(teacher, optimizer,
-                               time_phases=args.time_phases)
+    tcfg = apply_dotted_overrides(tcfg, prefixed("trainer."))
+    if args.experiment == "sla":
+        cfg = make_wan_cfg(args.model, attention_type="sla",
+                           sla_topk=args.sla_topk)
+        cfg_teacher = make_wan_cfg(args.model, attention_type="original")
+        cfg = apply_dotted_overrides(cfg, model_ovr).replace(remat=args.remat)
+        cfg_teacher = apply_dotted_overrides(cfg_teacher, model_ovr).replace(
+            remat=args.remat)
+        # the student starts FROM the teacher's weights, the teacher stays
+        # frozen with dense attention (t2v_model_sla.py); the student keeps
+        # cfg (its linear branch on), whatever load_dit makes of a zero
+        # proj_l
+        student = _with_cfg(load_dit(args.teacher_ckpt, cfg, args.seed,
+                                     device)[0], cfg)
+        teacher = load_dit(args.teacher_ckpt, cfg_teacher, args.seed, device)[0]
+        teacher.eval().requires_grad_(False)
+        state = TrainState(student, optimizer.init(student), 0)
+        step = make_sla_train_step(teacher, optimizer,
+                                   time_phases=args.time_phases)
+    else:
+        cfg = make_wan_cfg(args.model, attention_type="original")
+        cfg = apply_dotted_overrides(cfg, model_ovr).replace(remat=args.remat)
+        dcfg = apply_dotted_overrides(D.DistillConfig(), prefixed("distill."))
+        # all three nets keep cfg, whatever load_dit makes of a zero proj_l
+        teacher = _with_cfg(load_dit(args.teacher_ckpt, cfg, args.seed,
+                                     device)[0], cfg)
+        state = D.create_distill_state(teacher, optimizer, dcfg)
+        step = D.make_distill_steps(dcfg, optimizer,
+                                    time_phases=args.time_phases)
 
+    loader = WebDatasetLoader(sorted(glob.glob(args.data)), args.batch_size,
+                              seed=args.seed, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     start = 0

@@ -4,13 +4,15 @@ Ports `turbodiffusion_tpu/training/checkpointing.py` (reference
 rcm/checkpointers/dcp.py: async background save, `latest_checkpoint.txt`
 resume selection :427-450, EMA -> regular on load :202-241). Orbax has no
 counterpart here: each checkpoint is one `torch.save` file,
-`iter_{step:09d}.pth` in the checkpoint directory, holding the model's and
-the optimizer's state dicts, the step and (when given) the generator's
-state. `save` copies the state to host memory before it returns; with
-`async_save` a thread writes the file while training goes on (`wait` joins
-it), otherwise `save` writes it itself. The file is written under a
-temporary name and renamed, then `latest_checkpoint.txt` names it, then all
-but the newest three are removed.
+`iter_{step:09d}.pth` in the checkpoint directory, holding the state's
+`state_dict()` and (when given) the generator's state: a `TrainState`'s
+model, optimizer state and step; a `DistillState`'s student, fake score,
+EMA, both optimizer states and step (not the frozen teacher, which comes
+from its own checkpoint). `save` copies the state to host memory before it
+returns; with `async_save` a thread writes the file while training goes on
+(`wait` joins it), otherwise `save` writes it itself. The file is written
+under a temporary name and renamed, then `latest_checkpoint.txt` names it,
+then all but the newest three are removed.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def _host_copy(obj):
 
 
 class Checkpointer:
-    """save / restore of a `TrainState` keyed by iteration."""
+    """save / restore of a `TrainState` or `DistillState` keyed by
+    iteration."""
 
     def __init__(self, ckpt_dir: str, async_save: bool = True):
         self.dir = os.path.abspath(ckpt_dir)
@@ -58,9 +61,7 @@ class Checkpointer:
              generator: Optional[torch.Generator] = None):
         self.wait()
         blob = _host_copy({
-            "model": state.params.state_dict(),
-            "optimizer": state.opt_state.state_dict(),
-            "step": int(state.step),
+            "state": state.state_dict(),
             "generator": None if generator is None else generator.get_state(),
         })
         if self.async_save:
@@ -100,16 +101,14 @@ class Checkpointer:
     def restore(self, state: Any, step: Optional[int] = None,
                 generator: Optional[torch.Generator] = None):
         """Load checkpoint `step` (default the latest) into `state` (its
-        model and optimizer, in place) and `generator`. Returns (state,
-        step), or (None, None) when there is none."""
+        models, EMA and optimizers, in place) and `generator`. Returns
+        (state, step), or (None, None) when there is none."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         blob = torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
-        state.params.load_state_dict(blob["model"])
-        state.opt_state.load_state_dict(blob["optimizer"])
-        state.step = blob["step"]
+        state.load_state_dict(blob["state"])
         if generator is not None and blob["generator"] is not None:
             generator.set_state(blob["generator"])
         return state, step
@@ -117,7 +116,7 @@ class Checkpointer:
 
 def load_ema_as_params(state) -> Any:
     """EMA -> regular weights for inference export (scripts/dcp_to_pth.py:
-    36-46 takes net_ema.* as net.*): the state's EMA model where it has one,
-    else its student."""
+    36-46 takes net_ema.* as net.*): the state's EMA (a `DistillState`'s
+    fp32 tensors by parameter name) where it has one, else its student."""
     ema = getattr(state, "ema", None)
     return ema if ema is not None else state.student

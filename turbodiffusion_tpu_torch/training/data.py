@@ -65,11 +65,13 @@ def iter_tar_samples(shard_path: str) -> Iterator[Dict]:
 
 class WebDatasetLoader:
     """Sharded, shuffled, batched loader over tar shards (data.py:96-142);
-    tensors are stacked and moved to `device`, strings kept as lists."""
+    tensors are stacked and moved to `device` (the card unless the caller
+    asks for the CPU, as every entry point of the port), strings kept as
+    lists."""
 
     def __init__(self, shard_paths: Sequence[str], batch_size: int,
                  host_id: int = 0, num_hosts: int = 1, seed: int = 0,
-                 shuffle: bool = True, loop: bool = True, device="cpu"):
+                 shuffle: bool = True, loop: bool = True, device="cuda"):
         self.shards = sorted(shard_paths)
         if not self.shards:
             raise ValueError("no shards given")

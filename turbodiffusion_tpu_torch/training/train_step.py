@@ -35,6 +35,17 @@ class TrainState:
     opt_state: "OptState"
     step: int = 0
 
+    def state_dict(self) -> Dict:
+        """What a checkpoint keeps."""
+        return {"model": self.params.state_dict(),
+                "optimizer": self.opt_state.state_dict(),
+                "step": int(self.step)}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.params.load_state_dict(sd["model"])
+        self.opt_state.load_state_dict(sd["optimizer"])
+        self.step = sd["step"]
+
 
 def lambda_linear_schedule(base_lr: float, warmup_steps: int = 1000,
                            f_start: float = 1e-6, f_max: float = 1.0,
