@@ -41,6 +41,15 @@ Phases, each printing one line of its numbers:
      in the rows past each length; atol 0.1 + rtol 2e-2; planted faults: mu left out of do, P dv
      left out, q dk^T left out of dS, K26's last LUT entry dropped; two runs
      bit-equal; no library call: the SDPA forward of the shape beside them);
+     then K27-K30 (`_last_checks`): K27 block-scale pack with K rows past
+     L of 1e4, then NaN (1 LSB, scales bit-equal; faults: the statistic
+     over the rows past L, scales one block off), K28 at 512/256 on the
+     topk-0.3 LUT (38 of 128 K blocks; SHARP_ATOL; faults: a LUT entry
+     dropped, the scale table shifted a block, vch left out; a poisoned
+     tail; K7 on the same LUT beside it), K29 (1 LSB; fault: mu left out),
+     K30 dense int8-QK self 32,760 x 32,760 (faults: one K row's scale
+     doubled, kv_len one chunk short; SDPA beside it), each run twice
+     bit-equal;
   3. one full-width `WanAttentionBlock` with seeded random non-zero weights
      at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
      `sagesla` with W8A8 linears and `sla` with W8A8 linears (the sagesla
@@ -48,16 +57,22 @@ Phases, each printing one line of its numbers:
      W8A8 blocks take the int8 feeds K12-K14), W8A8 `sagesla` at
      v_quant="row" with a non-zero `proj_l` (K18, K19, K21 over the planes),
      W8A8 `sagesla` at blocks 64/64 (K20), bf16 `sla` with a non-zero
-     `proj_l` (K21 over (B, L, H, D)), W8A8 `sagesla` at batch 2 and
+     `proj_l` (K21 over (B, L, H, D)), W8A8 `sagesla` at batch 2,
      `sagesla` with 128x128 block-scaled linears and a non-zero `proj_l`
-     (the bf16 composition, K22 for each linear), and at 14B `sagesla`
+     (the bf16 composition, K22 for each linear) and W8A8 `sagesla` in the
+     block-scale branch (6 latent frames, 9,360 tokens, topk 0.9: 33 of 37
+     K blocks, 8,448 keys a row > 8,192; proj_l != 0: exactly K27 1, K28 1,
+     K21 1, K6 0, K7 0), and at 14B `sagesla`
      with W8A8 linears (unfused Q / K / V, K15-K17): the
      kernels on the card against the plain versions on the CPU, on the Q
      blocks whose block-map rows agree as sets, with each block's launch
-     counts; then one 1.3B `sla` block (proj_l != 0) forward and backward,
-     card (K23 + K24) against CPU: the output and the gradients of its 29
-     parameters and 3 inputs, each within 5% relative L2 (K21's earlier
-     JSON source: random weights give the requests a
+     counts; then three 1.3B blocks (proj_l != 0) forward and backward,
+     card against CPU: `sla` (K23 + K24), bf16 `sagesla` on the fused path
+     (the composable VJP: K2 2, K21 1, K23 1, K24 1 in the backward, no K20)
+     and `sagesla` at 64/64 (K20, straight-through K23 + K24): the output
+     and the gradients of every parameter and the 3 inputs, each within 5%
+     relative L2 and none zero, exact launches of forward and backward
+     (K21's earlier JSON source: random weights give the requests a
      zero `proj_l`); then one 1.3B `original` and one `sla` block (proj_l !=
      0) in the sCM tangent pass (forward AD, `jvp_mode`), card (K25, K26)
      against CPU: o and do each within 5% relative L2, launches exactly K25
@@ -66,7 +81,8 @@ Phases, each printing one line of its numbers:
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
      `sla`, one W8A8 `sagesla` request at v_quant="row" and one at
-     sla_block=64, then two requests of `WanPipeline.create(dit_path=...)`
+     sla_block=64, two W8A8 `sagesla` requests at sla_topk=0.3 (the
+     block-scale pair), then two requests of `WanPipeline.create(dit_path=...)`
      on a 1.3B sagesla checkpoint that the port's writer saves first (block-
      scaled linears, non-zero `proj_l` and head; the loaded DiT must equal
      the written one tensor for tensor), then, with the 1.3B pipelines
@@ -78,7 +94,9 @@ Phases, each printing one line of its numbers:
      1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3, K2 1, K4
      1, K5 3, K6 1, K7 1; sla: K1 3, K2 3, K3 1, K4 1; W8A8 row: K5 3, K8 2,
      K9 6, K10 1, K11 1, K12 3, K13 1, K14 1, K18 1, K19 1; W8A8 block 64:
-     K2 2, K8 3, K9 6, K10 1, K11 1, K12 3, K14 1, K20 1; checkpoint: K1
+     K2 2, K8 3, K9 6, K10 1, K11 1, K12 3, K14 1, K20 1; W8A8 topk 0.3:
+     K5 3, K8 2, K9 6, K10 1, K11 1, K12 3, K13 1, K14 1, K27 1, K28 1;
+     checkpoint: K1
      3, K2 1, K4 1, K5 3, K6 1, K7 1, K22 10; x 30 blocks x 4 steps; 14B
      W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
      K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
@@ -110,7 +128,8 @@ Phases, each printing one line of its numbers:
 Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
 its 14B checks and that path's launches; K21, K23, K24: their 1.3B checks
 and one training step's launches; K25, K26: one student iteration's of
-phase 6 (dense, sla); any other: its 1.3B checks and the
+phase 6 (dense, sla); K29, K30: their checks and 0 launches, as no path
+reaches them, in JAX either; any other: its 1.3B checks and the
 launches of the first 1.3B path that runs it), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and the script exits non-zero; without a CUDA card it exits
@@ -172,6 +191,7 @@ SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
 K14_SCALE_RTOL = 5e-3
 BLOCK_ATOL, BLOCK_RTOL = 0.1, 0.05  # bf16 block, card vs CPU (other GEMMs)
 BQ, BK, TOPK = 512, 256, 0.1        # sagesla / sla blocks and top-k ratio
+TOPK_BS = 0.3      # the block-scale pair's path: 38 of 128 K blocks
 LP = -(-L // 512) * 512             # the fused path's padded length
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): a
 # kernel's bound is the larger of its bytes over HBM and the sum over types
@@ -207,6 +227,12 @@ EXPECTED_LAUNCHES = {
     # K6's linear kv, K7's linear epilogue)
     "1.3b checkpoint": {**_SAGESLA, "K1": 360, "K2": 120, "K4": 120,
                         "K22": 1200},
+    # topk 0.3: sel = int(0.3 * 128) = 38 K blocks, 38 x 256 = 9,728 keys a
+    # row > 8,192, so the fused path takes JAX's block-scale pair: K27
+    # packs K|V with one K scale a block, K28 attends
+    "sagesla+w8a8 topk0.3": {"K5": 360, "K8": 240, "K9": 720, "K10": 120,
+                             "K11": 120, "K12": 360, "K13": 120, "K14": 120,
+                             "K27": 120, "K28": 120},
 }
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
 # phase-4 paths in the order run: (label, geometry, attention, quant_linear,
@@ -217,6 +243,7 @@ PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2, {}),
          ("sla", G13, "sla", False, 1, {}),
          ("sagesla+w8a8 row", G13, "sagesla", True, 1, {"v_quant": "row"}),
          ("sagesla+w8a8 block64", G13, "sagesla", True, 1, {"sla_block": 64}),
+         ("sagesla+w8a8 topk0.3", G13, "sagesla", True, 2, {"sla_topk": TOPK_BS}),
          # dit_path: a checkpoint the port's writer saves first
          ("1.3b checkpoint", G13, "sagesla", False, 2, {"dit_path": None}),
          ("14b-sagesla+w8a8", G14, "sagesla", True, 2, {})]
@@ -275,6 +302,14 @@ KERNELS = {
             "turbodiffusion_tpu/ops/flash_jvp_pallas.py:170"),
     "K26": ("turbodiffusion_tpu_torch/csrc/flash_jvp.cu",
             "turbodiffusion_tpu/ops/flash_jvp_pallas.py:367"),
+    "K27": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:501"),
+    "K28": ("turbodiffusion_tpu_torch/csrc/sparse_i8_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1363"),
+    "K29": ("turbodiffusion_tpu_torch/csrc/sla_fused.cu",
+            "turbodiffusion_tpu/ops/sla_fused.py:533"),
+    "K30": ("turbodiffusion_tpu_torch/csrc/flash_attention.cu",
+            "turbodiffusion_tpu/ops/flash_pallas.py:1139"),
 }
 
 
@@ -299,7 +334,10 @@ def _launchers():
             "K19": si8._sparse_i8_planes_cuda, "K20": fa._sparse_flash_i8qk_cuda,
             "K21": la._linear_projected_cuda, "K22": qt._int8_block_matmul_cuda,
             "K23": sb._sparse_bwd_dq_cuda, "K24": sb._sparse_bwd_dkv_cuda,
-            "K25": fj._flash_jvp_cuda, "K26": fj._sparse_flash_jvp_cuda}
+            "K25": fj._flash_jvp_cuda, "K26": fj._sparse_flash_jvp_cuda,
+            "K27": sf._subquant_pack_kv_blocks_cuda,
+            "K28": si8._sparse_i8_planes_bs_cuda,
+            "K29": sf._subquant_planes_cuda, "K30": fa._flash_i8qk_cuda}
 
 
 @dataclasses.dataclass
@@ -602,10 +640,12 @@ def phase2(reps: int = REPS):
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
     bwd_checks, bwd_extra = _bwd_checks(randn)
     jvp_checks, jvp_extra = _jvp_checks(randn, sdpa)
+    last_checks, last_extra = _last_checks(randn, xq, w, cosF, sinF, Kp,
+                                           k_mean, Vp, k, v, sdpa)
     results = _run_checks(checks + mode_checks + _block_gemm_checks(randn)
-                          + bwd_checks + jvp_checks, reps)
+                          + bwd_checks + jvp_checks + last_checks, reps)
     _poisoned_tail(i8_args, scale)
-    for tail in (*tails, bwd_extra, jvp_extra):
+    for tail in (*tails, bwd_extra, jvp_extra, last_extra):
         tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
@@ -1077,6 +1117,142 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
     return checks, (k19_tail, k21_tail)
 
 
+def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
+    """Phase-2 checks of K27-K30 at the 1.3B 480p shapes (12 heads):
+    K27 on the fused path's K planes with rows past L of 1e4, then NaN
+    (live rows within 1 LSB, scales bit-equal; planted faults: the
+    statistic taken over the rows past L, the scales shifted by one
+    block); K28 at 512/256 on the topk 0.3 LUT (38 of 128 K blocks) from a
+    q of std ~3 (an RMSNorm weight of 3x), K27's operands, atol SHARP_ATOL + rtol 2e-2 as K19 (planted
+    faults: a LUT entry dropped, the block-scale table shifted by one block,
+    vch left out; K7 on the same LUT and operands in its VT layout timed
+    beside it); K29 on K planes with a per-channel offset (so that smooth-k
+    matters; planted fault: mu left out); K30 on the dense self shape
+    32,760 x 32,760 with q of std 3 and smooth-k'd k (planted faults: one
+    K row's scale doubled, the row that query 0 leans on most; the kv_len
+    mask one 64-key chunk short; SDPA of the shape timed beside it).
+    Returns (checks, a function of the further checks: K28 with the rows
+    past L of K|V poisoned to +127 leaves live rows bit-equal, two runs of
+    each kernel bit-equal)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    HEADS = G13.heads
+    scale = DH ** -0.5
+    hp = dict(num_heads=HEADS, eps=1e-6, pad_to=LP)
+    Q3 = sf.head_planes_plain(xq, 3 * w, cosF, sinF, pool=BQ, quant=True,
+                              bf16_out=False, **hp)
+    lut, sel, _ = sf.block_map_from_pooled(Q3["pooled"], Kp["pooled"], L, BK,
+                                           TOPK_BS)
+    vi, vcs = si8.quantize_v_per_channel(Vp["bf16"], L)
+    # rows past L: 1e4 (which would win any block statistic that took
+    # them; CUDA's fmaxf passes over NaN, so NaN alone could not show it),
+    # then NaN
+    kn = Kp["bf16"].clone()
+    kn[:, :, L:] = float("nan")
+    kn[:, :, L:L + (LP - L) // 2] = 1e4
+
+    def k27(kv_len=L):
+        kvi, ks = sf._subquant_pack_kv_blocks_cuda(kn, k_mean, vi, BK, kv_len)
+        return kvi[:, :, :L], ks
+
+    def k27_plain():
+        kvi, ks = sf.subquant_pack_kv_plain(kn, k_mean, vi, BK, L)
+        return kvi[:, :, :L], ks
+
+    def k27_shifted():
+        kvi, ks = k27()
+        return kvi, ks.roll(1, -1)
+
+    kvi, ksb = sf.subquant_pack_kv_plain(Kp["bf16"], k_mean, vi, BK, L)
+    kp, vtp, _ = sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L)
+    bs_args = (Q3["i8"], Q3["scale"], kvi, ksb, vcs, lut)
+
+    def k28(kvi_=kvi, ks_=ksb, vcs_=vcs, lut_=lut):
+        return si8._sparse_i8_planes_bs_cuda(Q3["i8"], Q3["scale"], kvi_, ks_,
+                                             vcs_, lut_, scale, BQ, BK, L)
+
+    # K29: K planes with a per-channel offset, mu their mean over the rows
+    k29 = (Kp["bf16"].float() + randn(1, HEADS, 1, DH, dtype=torch.float32)
+           ).bfloat16()
+    mu29 = k29[:, :, :L].float().mean(2, keepdim=True)
+    # K30: q of std 3, smooth-k'd k; the key row query 0 of head 0 leans on
+    # most
+    q3 = randn(B, L, HEADS, DH, std=3.0)
+    ks_ = k - k.mean(dim=1, keepdim=True)
+    j = int(torch.matmul(ks_[0, :, 0].float(), q3[0, 0, 0].float()).argmax())
+    k_row2 = ks_.clone()
+    k_row2[:, j] *= 2
+
+    def k30(k_=ks_, kv_len=L):
+        return fa._flash_i8qk_cuda(q3, k_, v, scale, kv_len)
+
+    pairs = _sparse_pairs(lut, BQ, BK, L, L)
+    n_kp = Kp["bf16"].numel()
+    dense_ops = 2 * B * HEADS * L * L * DH
+    sharp = dict(atol=SHARP_ATOL, rtol=RTOL)
+    checks = [
+        Check("K27", f"pack K|V, one scale a {BK}-row block, {HEADS}x{LP}x{DH}, "
+              f"rows {L}..{LP - 1} 1e4 then NaN", k27, k27_plain,
+              (kn, k_mean, vi), {"fp32": 4 * n_kp}, atol=0.0, rtol=SCALE_RTOL,
+              faults={"statistic over the rows past L": lambda: k27(LP),
+                      "scales one block off": k27_shifted}),
+        Check("K28", f"int8 sparse block-scale topk {TOPK_BS} ({sel}/{LP // BK} "
+              f"blocks) {BQ}/{BK}, q of std ~3", k28,
+              lambda: si8.sparse_attention_i8_planes_bs_plain(
+                  *bs_args, block_q=BQ, block_k=BK, kv_len=L),
+              bs_args, {"int8": 2 * DH * pairs, "bf16": 2 * DH * pairs},
+              yardsticks={"K7 (VT layout) on the same LUT and operands":
+                          lambda: si8._sparse_i8_vt_cuda(
+                              Q3["i8"], Q3["scale"], kp, vtp, ksb, vcs, lut,
+                              scale, BQ, BK, L, None, None)},
+              **sharp,
+              faults={"last LUT entry dropped":
+                      lambda: k28(lut_=lut[..., :-1].contiguous()),
+                      "block-scale table shifted by one block":
+                      lambda: k28(ks_=ksb.roll(1, -1)),
+                      "vch left out": lambda: k28(vcs_=torch.ones_like(vcs))}),
+        Check("K29", f"smooth-k per-row int8 planes {HEADS}x{LP}x{DH}",
+              lambda: sf._subquant_planes_cuda(k29, mu29),
+              lambda: sf.subquant_planes_plain(k29, mu29), (k29, mu29),
+              {"fp32": 4 * n_kp}, atol=0.0, rtol=SCALE_RTOL,
+              faults={"mu left out": lambda: sf._subquant_planes_cuda(
+                  k29, torch.zeros_like(mu29))}),
+        Check("K30", f"dense int8-QK self {L}x{L}, q of std 3", k30,
+              lambda: fa.flash_attention_i8qk_plain(q3, ks_, v, scale, L),
+              (q3, ks_, v), {"int8": dense_ops, "bf16": dense_ops},
+              yardsticks={"SDPA of the shape (bf16 QK)": sdpa(q3, ks_, v)},
+              faults={f"K row {j}'s scale doubled": lambda: k30(k_=k_row2),
+                      "kv_len mask one chunk short": lambda: k30(kv_len=L - 64)}),
+    ]
+
+    def extra():
+        clean = k28()
+        pk = kvi.clone()
+        pk[:, :, L:] = 127
+        poisoned = k28(kvi_=pk)
+        torch.cuda.synchronize()
+        if not torch.equal(clean[:, :, :L], poisoned[:, :, :L]):
+            raise AssertionError("K28: a poisoned tail changed live rows")
+        _, ks_k = k27()
+        if not torch.equal(ks_k, k27_plain()[1]):
+            raise AssertionError("K27: block scales differ from the plain version's")
+        for name, fn_ in (("K27", k27), ("K28", k28),
+                          ("K29", lambda: sf._subquant_planes_cuda(k29, mu29)),
+                          ("K30", k30)):
+            a, b = fn_(), fn_()
+            torch.cuda.synchronize()
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{name}: two runs differ")
+        print(f"phase2 K27-K30 tail and stability: K28 with K|V rows {L}..{LP - 1} "
+              f"= 127: live rows unchanged | K27 block scales bit-equal to the "
+              f"plain version's | two runs of each of K27-K30: bit-equal",
+              flush=True)
+    return checks, extra
+
+
 # the K-block phase 2's K23 / K24 LUT never selects
 ZERO_BLOCK = 5
 
@@ -1364,7 +1540,8 @@ def _qk_proj(sa, h, dim: int):
 
 def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
            geo: Geometry = G13, v_quant: str = "channel", sla_block: int = 256,
-           proj_l=None, batch: int = 1, block_scale: bool = False):
+           proj_l=None, batch: int = 1, block_scale: bool = False,
+           frames: int = 1, topk: float = TOPK):
     """One full-width block of `geo`, card against CPU; returns the launch
     counts of its card run (set to 0 just before it, read just after).
     proj_l (default: on for sagesla at 256, off otherwise) makes it
@@ -1377,7 +1554,8 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     (a reference checkpoint's layout, unfused): the bf16 composition with
     K22 for each linear. v_quant and sla_block as `make_wan_cfg` takes
     them; batch > 1 stacks independent random latents and contexts, and the
-    card runs the block twice, bit-equal."""
+    card runs the block twice, bit-equal. frames: 480p latent frames of
+    1,560 tokens; topk the block map's ratio."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops.attention import (
@@ -1389,7 +1567,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         block_map_from_pooled, head_planes, row_rms_inv)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
-    cfg = make_wan_cfg(geo.model, attention, TOPK, quant_linear,
+    cfg = make_wan_cfg(geo.model, attention, topk, quant_linear,
                        sla_block=sla_block, v_quant=v_quant)
     DIM, HEADS = geo.dim, geo.heads
     fused = fused_sla_geometry(cfg.attention, DH)
@@ -1406,7 +1584,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         quantize_wan_blocks([blk], mode="block", fuse_qkv=False)
     blk_cpu = copy.deepcopy(blk).cpu()
     g = torch.Generator(device=dev).manual_seed(2)
-    T, Hs, Ws = 1, 30, 52
+    T, Hs, Ws = frames, 30, 52
     n = T * Hs * Ws
     x = torch.randn((batch, n, DIM), generator=g, device=dev).bfloat16()
     e0 = 0.1 * torch.randn((batch, 6, DIM), generator=g, device=dev)
@@ -1466,7 +1644,8 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
              + (" + W8A8 block-scale" if block_scale else "")
              + (f" v_quant {v_quant}" if v_quant != "channel" else "")
              + (f" blocks {a.block_q}/{a.block_k}" if sla_block != 256 else "")
-             + (f" batch {batch}" if batch > 1 else ""))
+             + (f" batch {batch}" if batch > 1 else "")
+             + (f" topk {topk}" if topk != TOPK else ""))
     max_err, mean_err, _, want_mean, _ = _compare(
         f"phase3 {label} block", out.cpu()[:, keep], ref[:, keep], BLOCK_ATOL,
         BLOCK_RTOL)
@@ -1484,23 +1663,50 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
 GRAD_REL = 0.05   # a gradient's relative L2 error, bf16 block, card vs CPU
 
 
-def phase3_train(device: str = "cuda"):
-    """One full-width 1.3B `sla` block (linear branch on, proj_l != 0) at one
-    480p latent frame, forward and backward: the card (K1-K4, K21 forward;
-    K23 + K24 backward) against the plain versions on the CPU. The output
-    on the Q blocks whose block-map rows agree, and the gradient of every
-    parameter and of the inputs (x, the time modulation, the context), with
-    the cotangent zero on the rows of Q blocks whose LUT rows differ, so
-    both sides differentiate the same function. Returns the launch counts."""
+# launches of a train block's forward and backward (1.3B, one latent frame,
+# proj_l != 0): sla: K1-K4 and K21 forward, K23 + K24 backward (K1, K2, K4
+# and K21 differentiate plain recomputes); fused sagesla: its fused forward
+# (K6's linear kv, K7's epilogue), the composable path's recompute in the
+# backward (K2 on q and k, K21; its sparse term launches no K20, whose value
+# the VJP never reads) and its straight-through VJP (K23 + K24); sagesla at
+# 64/64: the composable forward (K2 x 3, K20, K21)
+TRAIN_BLOCK_LAUNCHES = {
+    ("sla", 256): ({"K1": 3, "K2": 3, "K3": 1, "K4": 1, "K21": 1},
+                   {"K23": 1, "K24": 1}),
+    ("sagesla", 256): ({"K1": 3, "K2": 1, "K4": 1, "K5": 3, "K6": 1, "K7": 1},
+                       {"K2": 2, "K21": 1, "K23": 1, "K24": 1}),
+    ("sagesla", 64): ({"K1": 3, "K2": 3, "K4": 1, "K20": 1, "K21": 1},
+                      {"K23": 1, "K24": 1}),
+}
+
+
+def phase3_train(attention: str = "sla", sla_block: int = 256,
+                 device: str = "cuda"):
+    """One full-width 1.3B block (linear branch on, proj_l != 0) at one 480p
+    latent frame, forward and backward: the card (`sla`: K1-K4, K21 forward,
+    K23 + K24 backward; `sagesla` at 512/256: the fused forward, JAX's
+    composable VJP backward; at 64/64: K20 with its straight-through
+    backward) against the plain versions on the CPU. The output on the Q
+    blocks whose block-map rows (the fused path's pooled map and the
+    composable path's) agree, and the gradient of every parameter and of
+    the inputs (x, the time modulation, the context), with the cotangent
+    zero on the rows of Q blocks whose LUT rows differ, so both sides
+    differentiate the same function; no gradient may be zero. Exact
+    launches of the forward and of the backward (TRAIN_BLOCK_LAUNCHES).
+    Returns the counts of both."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
-    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    from turbodiffusion_tpu_torch.ops.attention import (
+        fused_sla_geometry, get_block_map)
     from turbodiffusion_tpu_torch.ops.fused_norm import (
         modulated_layer_norm, rmsnorm_rope, rope_cos_sin_full)
+    from turbodiffusion_tpu_torch.ops.sla_fused import (
+        block_map_from_pooled, head_planes)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
-    cfg = make_wan_cfg(G13.model, "sla", TOPK)
+    cfg = make_wan_cfg(G13.model, attention, TOPK, sla_block=sla_block)
     a = cfg.attention
+    fused = fused_sla_geometry(a, DH)
     dev = torch.device(device)
     blk = _random_block(cfg, dev, seed=3, proj_l_std=0.05)
     blk_cpu = copy.deepcopy(blk).cpu()
@@ -1514,6 +1720,7 @@ def phase3_train(device: str = "cuda"):
     rope = rope_cos_sin_full(rope_freqs_3d(T, Hs, Ws, DH, device=dev))
 
     def lut_of(b, x, e0, rope):
+        """The composable path's LUT, and the fused path's where it runs."""
         with torch.no_grad():
             e = b.modulation.float()[None] + e0
             h = modulated_layer_norm(x, e[:, 1:2], e[:, 0:1], eps=cfg.eps)
@@ -1522,11 +1729,24 @@ def phase3_train(device: str = "cuda"):
                              eps=cfg.eps)
             k = rmsnorm_rope(sa.k(h), sa.norm_k, *rope, num_heads=G13.heads,
                              eps=cfg.eps)
-            return get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]
+            luts = [get_block_map(q, k, a.sla_topk, a.block_q, a.block_k)[1]]
+            if fused:
+                kw = dict(num_heads=G13.heads, eps=cfg.eps,
+                          pad_to=-(-n // 512) * 512)
+                pq = head_planes(sa.q(h), sa.norm_q, *rope, pool=a.block_q,
+                                 quant=True, bf16_out=False, **kw)["pooled"]
+                pk = head_planes(sa.k(h), sa.norm_k, *rope, pool=a.block_k,
+                                 **kw)["pooled"]
+                luts.append(block_map_from_pooled(pq, pk, n, a.block_k,
+                                                  a.sla_topk)[0])
+            return [t.cpu() for t in luts]
 
     cpu = lambda *ts: tuple(t.cpu() for t in ts)  # noqa: E731
-    same = (lut_of(blk, x, e0, rope).cpu().sort(-1).values
-            == lut_of(blk_cpu, *cpu(x, e0), cpu(*rope)).sort(-1).values).all(-1)
+    same = None
+    for lg, lc in zip(lut_of(blk, x, e0, rope),
+                      lut_of(blk_cpu, *cpu(x, e0), cpu(*rope))):
+        eq = (lg.sort(-1).values == lc.sort(-1).values).all(-1)
+        same = eq if same is None else same & eq
     bad_q = sorted(set((~same).nonzero()[:, 2].tolist()))
     keep = torch.ones(n, dtype=torch.bool)
     for i in bad_q:
@@ -1534,56 +1754,61 @@ def phase3_train(device: str = "cuda"):
     if not keep.any():
         raise AssertionError("phase3 train: every Q-block's LUT differs")
     cot = cot * keep.to(dev)[None, :, None].to(cot.dtype)
+    launchers = _launchers()
 
     def run(b, x, e0, ctx, rope, cot):
+        """(output, gradients, forward launches, backward launches)."""
         ins = [t.detach().requires_grad_() for t in (x, e0, ctx)]
         params = [p for _, p in b.named_parameters()]
+        for fn in launchers.values():
+            fn.launches = 0
         out = b(ins[0], ins[1], rope, ins[2])
+        fwd = {nm: fn.launches for nm, fn in launchers.items() if fn.launches}
+        for fn in launchers.values():
+            fn.launches = 0
         grads = torch.autograd.grad(out, ins + params, cot)
-        return out.detach(), grads
+        bwd = {nm: fn.launches for nm, fn in launchers.items() if fn.launches}
+        return out.detach(), grads, fwd, bwd
 
-    launchers = _launchers()
-    for fn in launchers.values():
-        fn.launches = 0
     t0 = time.perf_counter()
-    out, grads = run(blk, x, e0, ctx, rope, cot)
+    out, grads, fwd, bwd = run(blk, x, e0, ctx, rope, cot)
     torch.cuda.synchronize()
     ms_gpu = (time.perf_counter() - t0) * 1e3
-    counts = {name: fn.launches for name, fn in launchers.items() if fn.launches}
     t0 = time.perf_counter()
-    ref, ref_grads = run(blk_cpu, *cpu(x, e0, ctx), cpu(*rope), cot.cpu())
+    ref, ref_grads, _, _ = run(blk_cpu, *cpu(x, e0, ctx), cpu(*rope), cot.cpu())
     ms_cpu = (time.perf_counter() - t0) * 1e3
+    label = f"{attention}{'' if sla_block == 256 else f' blocks {a.block_q}/{a.block_k}'}"
     max_err, mean_err, _, want_mean, _ = _compare(
-        "phase3 train block output", out.cpu()[:, keep], ref[:, keep],
+        f"phase3 train {label} block output", out.cpu()[:, keep], ref[:, keep],
         BLOCK_ATOL, BLOCK_RTOL)
     names = ["x", "e0", "context"] + [nm for nm, _ in blk.named_parameters()]
     rel = {}
     for nm, gg, gw in zip(names, grads, ref_grads):
         gg, gw = gg.float().cpu(), gw.float()
         if not bool(torch.isfinite(gg).all()):
-            raise AssertionError(f"phase3 train: non-finite gradient of {nm}")
+            raise AssertionError(f"phase3 train {label}: non-finite gradient of {nm}")
+        if not gg.abs().max() > 0:
+            raise AssertionError(f"phase3 train {label}: zero gradient of {nm}")
         rel[nm] = float((gg - gw).norm() / gw.norm().clamp_min(1e-30))
     worst = max(rel, key=rel.get)
     if rel[worst] > GRAD_REL:
-        raise AssertionError(f"phase3 train: gradient of {worst} off by "
+        raise AssertionError(f"phase3 train {label}: gradient of {worst} off by "
                              f"{rel[worst]:.3g} (relative L2) > {GRAD_REL}")
-    for lin in ("q", "k", "v", "proj_l"):
-        if not grads[names.index(f"self_attn.{lin}.weight")].abs().max() > 0:
-            raise AssertionError(f"phase3 train: zero gradient of {lin}")
-    want = {"K1": 3, "K2": 3, "K3": 1, "K4": 1, "K21": 1, "K23": 1, "K24": 1}
-    if counts != want:
-        raise AssertionError(f"phase3 train launches {counts} != {want}")
-    print(f"phase3 {G13.model} sla block forward + backward L={n} (proj_l != 0, "
-          f"linear branch on): LUT rows equal as sets {int(same.sum())}/"
+    want_fwd, want_bwd = TRAIN_BLOCK_LAUNCHES[(attention, sla_block)]
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        raise AssertionError(f"phase3 train {label} launches forward {fwd}, "
+                             f"backward {bwd} != {want_fwd}, {want_bwd}")
+    print(f"phase3 {G13.model} {label} block forward + backward L={n} (proj_l "
+          f"!= 0, linear branch on): LUT rows equal as sets {int(same.sum())}/"
           f"{same.numel()} (Q-blocks left out: {bad_q}) | output max_abs_err "
           f"{max_err:.5g} mean_abs_err {mean_err:.5g} (|want| mean "
           f"{want_mean:.5g}) | gradients of {len(names)} tensors (x, e0, "
-          f"context, {len(names) - 3} parameters): relative L2 error max "
-          f"{rel[worst]:.4g} ({worst}), median "
+          f"context, {len(names) - 3} parameters), none zero: relative L2 error "
+          f"max {rel[worst]:.4g} ({worst}), median "
           f"{statistics.median(rel.values()):.4g} (tol {GRAD_REL}) | card "
-          f"{ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | launches {counts}",
-          flush=True)
-    return counts
+          f"{ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | launches forward "
+          f"{fwd}, backward {bwd}", flush=True)
+    return {k: fwd.get(k, 0) + bwd.get(k, 0) for k in {*fwd, *bwd}}
 
 
 JVP_REL = 0.05   # o's and do's relative L2 error, bf16 block, card vs CPU
@@ -1738,8 +1963,8 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
     want = {n: EXPECTED_LAUNCHES[label].get(n, 0) for n in launchers}
     t0 = time.perf_counter()
     pipe = WanPipeline.create(model=geo.model, attention_type=attention,
-                              sla_topk=TOPK, quant_linear=quant_linear, seed=0,
-                              device="cuda", **create_kw)
+                              quant_linear=quant_linear, seed=0, device="cuda",
+                              **{"sla_topk": TOPK, **create_kw})
     torch.cuda.synchronize()
     print(f"phase4 {label} create: {time.perf_counter() - t0:.1f} s, "
           f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -2179,10 +2404,15 @@ PROFILE_CATEGORIES = [
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
-    ("K5", ("head_planes_kernel",)), ("K6", ("subquant_pack_kvt_kernel",)),
+    ("K5", ("head_planes_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
+    ("K27", ("subquant_block_kernel<true>",)),
     ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
-    ("K18", ("subquant_pack_kv_kernel",)), ("K19", ("sparse_i8_planes_kernel",)),
-    ("K20", ("sparse_flash_i8qk_kernel",)), ("K21 apply", ("linear_apply_kernel",)),
+    ("K18", ("subquant_pack_kv_kernel<true>",)),
+    ("K29", ("subquant_pack_kv_kernel<false>",)),
+    ("K19", ("sparse_i8_planes_kernel<false>",)),
+    ("K28", ("sparse_i8_planes_kernel<true>",)),
+    ("K20", ("flash_i8qk_kernel<true>",)), ("K30", ("flash_i8qk_kernel<false>",)),
+    ("K21 apply", ("linear_apply_kernel",)),
     # K8-K11 before the library GEMMs: K9-K11's name holds "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
     ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
@@ -2281,13 +2511,22 @@ def main(argv=None) -> int:
                 ("batch2", dict(attention="sagesla", quant_linear=True, batch=2),
                  ("K5", "K6", "K7", "K12", "K13")),
                 ("block-scale", dict(attention="sagesla", block_scale=True),
-                 ("K1", "K2", "K4", "K5", "K6", "K7", "K22"))):
+                 ("K1", "K2", "K4", "K5", "K6", "K7", "K22")),
+                # 6 latent frames (9,360 tokens), topk 0.9: 33 of 37 K
+                # blocks, 33 x 256 = 8,448 keys a row > 8,192
+                ("k27k28", dict(attention="sagesla", quant_linear=True,
+                                frames=6, topk=0.9), ("K27", "K28", "K21"))):
             block_counts[label] = phase3(**kw)
             missing = [n for n in must if not block_counts[label].get(n)]
             if missing:
                 raise AssertionError(f"phase3 {label}: {missing} never launched")
+        bs = {n: block_counts["k27k28"].get(n, 0)
+              for n in ("K27", "K28", "K21", "K6", "K7")}
+        if bs != {"K27": 1, "K28": 1, "K21": 1, "K6": 0, "K7": 0}:
+            raise AssertionError(f"phase3 block-scale pair launches {bs}")
         phase3("sagesla", True, geo=G14)
-        phase3_train()
+        for attention, sla_block in TRAIN_BLOCK_LAUNCHES:
+            phase3_train(attention, sla_block)
         for attention in ("original", "sla"):
             phase3_jvp(attention)
     counts = {}

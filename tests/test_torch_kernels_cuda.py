@@ -14,6 +14,8 @@ outputs within 1 LSB (an fp32 value on a rounding boundary); fp32 sums rtol
 1e-4 (another summation order, CUDA's expf).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -613,6 +615,117 @@ def test_k19_matches_plain_and_ignores_a_poisoned_tail(dev, L, bq, bk):
     pk[:, :, L:], pks[:, :, L:], pvs[:, :, L:] = 127, float("nan"), float("nan")
     poisoned = si8.sparse_attention_i8_planes(qi, qs, pk, pks, pvs, lut, **kw)
     assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
+
+
+@pytest.mark.cuda
+def test_k27_matches_plain_and_ignores_nan_rows(dev):
+    """Block-scale pack: K rows past kv_len NaN (they stay out of the block
+    statistic); live rows within 1 LSB, scales bit-equal, V copied."""
+    L, Lp, bk = 1000, 1024, 256
+    k, mu, vi, _ = _row_operands(dev, L, Lp, 46)
+    k[:, :, L:] = float("nan")
+    before = sf._subquant_pack_kv_blocks_cuda.launches
+    kvi, ks = sf.subquant_pack_kv(k, mu, vi, block_k=bk, kv_len=L)
+    assert sf._subquant_pack_kv_blocks_cuda.launches == before + 1
+    kvi_p, ks_p = sf.subquant_pack_kv_plain(k, mu, vi, bk, L)
+    assert ks.shape == (1, HEADS, Lp // bk) and torch.equal(ks, ks_p)
+    _int8_close(kvi[:, :, :L], kvi_p[:, :, :L])
+    assert torch.equal(kvi[..., DH:], vi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,bq,bk", [(1000, 512, 256), (300, 128, 64)])
+def test_k28_matches_plain_and_ignores_a_poisoned_tail(dev, L, bq, bk):
+    Lp = -(-L // 512) * 512
+    k, mu, _, _ = _row_operands(dev, L, Lp, 47)
+    v = _randn(dev, 1, HEADS, Lp, DH, seed=48).bfloat16()
+    vi, vcs = si8.quantize_v_per_channel(v, L)
+    qi, qs = sf._quant_rows(_randn(dev, 1, HEADS, Lp, DH, seed=49, std=3.0))
+    kvi, ksb = sf.subquant_pack_kv_plain(k, mu, vi, bk, L)
+    nQ, nK = Lp // bq, -(-L // bk)
+    r = np.random.RandomState(50)
+    lut = torch.from_numpy(np.stack([r.permutation(nK)[:max(1, nK // 2)]
+                                     for _ in range(HEADS * nQ)])
+                           .reshape(1, HEADS, nQ, -1).astype(np.int32)).to(dev)
+    kw = dict(block_q=bq, block_k=bk, kv_len=L, k_block_scale=ksb,
+              v_channel_scale=vcs)
+    before = si8._sparse_i8_planes_bs_cuda.launches
+    got = si8.sparse_attention_i8_planes(qi, qs, kvi, None, None, lut, **kw)
+    assert si8._sparse_i8_planes_bs_cuda.launches == before + 1
+    _close(got[:, :, :L], si8.sparse_attention_i8_planes_bs_plain(
+        qi, qs, kvi, ksb, vcs, lut, block_q=bq, block_k=bk, kv_len=L)[:, :, :L])
+    pk = kvi.clone()
+    pk[:, :, L:] = 127
+    poisoned = si8.sparse_attention_i8_planes(qi, qs, pk, None, None, lut, **kw)
+    assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
+
+
+@pytest.mark.cuda
+def test_k29_matches_plain(dev):
+    L = Lp = 1024
+    k, mu, _, _ = _row_operands(dev, L, Lp, 51)
+    before = sf._subquant_planes_cuda.launches
+    i8, sc = sf.subquant_planes(k, mu)
+    assert sf._subquant_planes_cuda.launches == before + 1
+    i8_p, sc_p = sf.subquant_planes_plain(k, mu)
+    _int8_close(i8, i8_p)
+    torch.testing.assert_close(sc, sc_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,kv_len", [(1100, 1100), (300, 250)])
+def test_k30_matches_plain(dev, L, kv_len):
+    q = _randn(dev, 1, L, HEADS, DH, seed=52, std=3.0).bfloat16()
+    k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (53, 54))
+    k = k - k.mean(dim=1, keepdim=True)
+    before = fa._flash_i8qk_cuda.launches
+    got = fa._flash_i8qk_cuda(q, k, v, DH ** -0.5, kv_len)
+    assert fa._flash_i8qk_cuda.launches == before + 1
+    _close(got, fa.flash_attention_i8qk_plain(q, k, v, DH ** -0.5, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,topk,pair", [(8600, 1.0, ("K27", "K28")),
+                                         (1100, 0.5, ("K6", "K7"))])
+def test_fused_sagesla_on_the_card_matches_cpu(dev, L, topk, pair):
+    """sla_attention_fused with the linear branch on, card against CPU:
+    the output and the gradients of the projections, norm weights and
+    proj_l (the composable path's VJP: K2, K21, K23, K24); above
+    sel * block_k 8,192 the block-scale pair and K21 run, below it K6 + K7;
+    the backward's recompute launches no K20."""
+    from turbodiffusion_tpu_torch.config import AttentionConfig
+    from turbodiffusion_tpu_torch.ops.attention import sla_attention_fused
+    xs = [_randn(dev, 1, L, DIM, seed=s).bfloat16() for s in (55, 56, 57)]
+    wq = (3 * torch.ones(DIM, device=dev)).bfloat16()
+    wk = (1 + _randn(dev, DIM, seed=58, std=0.1)).bfloat16()
+    proj = torch.nn.Linear(DH, DH, device=dev)
+    cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(-(-L // 208), 8, 26, DH,
+                                                  device=dev))
+    cfg = AttentionConfig(backend="sagesla", sla_topk=topk, block_q=512,
+                          block_k=256, linear_branch=True, v_quant="channel")
+    Lp = -(-L // 512) * 512
+    g = _randn(dev, 1, HEADS, Lp, DH, seed=59).bfloat16()
+    g[:, :, L:] = 0
+    launchers = {"K6": sf._subquant_pack_kvt_cuda, "K7": si8._sparse_i8_vt_cuda,
+                 "K20": fa._sparse_flash_i8qk_cuda,
+                 "K27": sf._subquant_pack_kv_blocks_cuda,
+                 "K28": si8._sparse_i8_planes_bs_cuda}
+
+    def run(d):
+        ins = [t.detach().to(d).requires_grad_() for t in (*xs, wq, wk)]
+        p = copy.deepcopy(proj).to(d)
+        o = sla_attention_fused(*ins, (cos[:L].to(d), sin[:L].to(d)), p, cfg,
+                                num_heads=HEADS, eps=1e-6)
+        return [o, *torch.autograd.grad(o, ins + [p.weight, p.bias], g.to(d))]
+
+    before = {n: f.launches for n, f in launchers.items()}
+    got = run(dev)
+    ran = {n for n, f in launchers.items() if f.launches > before[n]}
+    assert ran == set(pair)
+    want = run("cpu")
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        assert float((a - b).norm() / b.norm()) < 0.05
 
 
 @pytest.mark.cuda

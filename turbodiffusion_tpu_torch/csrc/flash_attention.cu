@@ -1,5 +1,6 @@
-// K3, K4 and K14: bf16 flash attention forward for sm_90a, block-sparse,
-// dense, and the cross attention with the int8 O feed.
+// K3, K4, K14, K17, K20 and K30: flash attention forward for sm_90a,
+// block-sparse, dense, the cross attention with the int8 O feed, and the
+// int8-QK forms.
 //
 // K3 tdx_sparse_flash_attention replaces the TPU kernel
 //    turbodiffusion_tpu/ops/flash_pallas.py:_flash_fwd_impl, bf16 sparse
@@ -86,6 +87,15 @@
 //    row max;
 //    JAX's LUT padding to a group (block nK, past K's end) has no
 //    counterpart: the kernel loops over exactly `sel` entries.
+// K30 tdx_flash_attention_i8qk replaces the dense branch of _flash_fwd_impl
+//    with int8 QK (launch :1139, body _attn_kernel with int8_qk=True), which
+//    flash_attention(..., int8_qk=True) without a LUT takes: K20's function
+//    over every key of [0, kv_len) instead of the LUT's blocks (the same
+//    kernel, its chunk walk a template flag; the same first launch
+//    quantising each K row once). The caller subtracts K's mean first, as
+//    JAX's flash_attention does. Bound by tensor-core math: at the 1.3B
+//    480p dense self shape (12 heads, 32,760 x 32,760) 3.3e12 int8 and
+//    3.3e12 bf16 operations.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -332,9 +342,11 @@ i8qk_quant_k_kernel(const __nv_bfloat16* __restrict__ k, int8_t* __restrict__ kq
   if (lane == 0) ksc[row] = sc;
 }
 
-// Grid (ceil(Lq / 64), H, B), 4 warps of 16 query rows.
+// K20 (SPARSE: the chunks of this Q-block's LUT row) and K30 (every chunk
+// of [0, kv_len)). Grid (ceil(Lq / 64), H, B), 4 warps of 16 query rows.
+template <bool SPARSE>
 __global__ void __launch_bounds__(kThreads)
-sparse_flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
+flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
                          const float* __restrict__ ksc, const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o, const int* __restrict__ lut, int H,
                          int Lq, int Lk, int kv_len, int nQ, int sel, int block_q, int block_k,
@@ -375,11 +387,11 @@ sparse_flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __re
   float m0 = kNegInf, m1 = kNegInf;
   float l0 = 0.f, l1 = 0.f;
 
-  const int* lut_row = lut + (bh * nQ + row0 / block_q) * sel;
+  const int* lut_row = SPARSE ? lut + (bh * nQ + row0 / block_q) * sel : nullptr;
   const int per = block_k / kBN;
-  const int n_chunks = sel * per;
+  const int n_chunks = SPARSE ? sel * per : (kv_len + kBN - 1) / kBN;
   for (int c = 0; c < n_chunks; ++c) {
-    const int key0 = lut_row[c / per] * block_k + (c % per) * kBN;
+    const int key0 = SPARSE ? lut_row[c / per] * block_k + (c % per) * kBN : c * kBN;
     // wholly past the tail (or an id out of range): no valid column
     if (key0 < 0 || key0 >= kv_len) continue;
     __syncthreads();  // previous chunk (or the Q fragments' staging) consumed
@@ -744,9 +756,27 @@ extern "C" int tdx_sparse_flash_attention_i8qk(
   const int err = (int)cudaGetLastError();
   if (err) return err;
   dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  sparse_flash_i8qk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  flash_i8qk_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)o, (const int*)lut, H, Lq, Lk, kv_len, nQ, sel, block_q, block_k,
+      Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh}, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_flash_attention_i8qk(
+    const void* q, const void* k, const void* v, void* o, void* kq, void* ksc, int B, int H,
+    int Lq, int Lk, int kv_len, long long qsb, long long qsl, long long qsh, long long ksb,
+    long long ksl, long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
+    long long osl, long long osh, float scale, void* stream) {
+  if (kv_len <= 0 || kv_len > Lk) return (int)cudaErrorInvalidValue;
+  i8qk_quant_k_kernel<<<dim3((Lk + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (int8_t*)kq, (float*)ksc, Lk, Strides{ksb, ksl, ksh});
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid((Lq + kBM - 1) / kBM, H, B);
+  flash_i8qk_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, nullptr, H, Lq, Lk, kv_len, 0, 0, kBN, kBN,
       Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh}, scale);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K5 and K6: the fused SageSLA front-end for sm_90a.
+// K5, K6, K13, K15, K16, K18, K27 and K29: the fused SageSLA front-end for
+// sm_90a.
 //
 // K5 tdx_head_planes replaces the TPU kernel
 //    turbodiffusion_tpu/ops/sla_fused.py:head_planes (body _head_planes_kernel):
@@ -30,6 +31,17 @@
 //    per-row int8 V row (K5's) copied into the second half: the layout K19
 //    gathers, one 256-byte row a key. No trailing poison block and no
 //    (TL/128, 128) scale relayout: K19 masks keys past kv_len by column.
+// K27 tdx_subquant_pack_kv_blocks replaces sla_fused.py:subquant_pack_kv in
+//    its block-scale mode (body _subquant_pack_kernel with block_k), the
+//    producer of the block-scale sparse kernel (K28) that fused sagesla at
+//    v_quant=channel takes once sel * block_k exceeds 8,192: K6's block
+//    statistic (max |k - mu| over the block's rows < kv_len; rows past it
+//    may hold NaN and stay out), every row of the block quantised with it,
+//    written into K18's packed (B, H, Lp, 256) K|V layout with the int8 V
+//    row beside it; one fp32 scale per (b, h, K block). No poison block.
+// K29 tdx_subquant_planes replaces sla_fused.py:subquant_planes (body
+//    _subquant_kernel): K18's per-row rule without the packing, (B, H, Lp,
+//    128) bf16 planes minus mu -> int8 planes and (B, H, Lp) fp32 scales.
 // K16 tdx_unfold_quant_wide replaces sla_fused.py:unfold_quant, wide form
 //    (H*Dh > 4096; bodies _unfold_scale_kernel and _unfold_write_kernel, two
 //    TPU passes): K13's function with the wide kernel's rule, one launch.
@@ -53,6 +65,12 @@
 //   * tdx_linear_kv (csrc/linear_attention.cu) re-reads K and V, where the
 //     TPU kernel folds the sums into its K/V walk; the main path (random
 //     weights, so proj_l = 0) does not run it.
+//   * K27: K6's block (a 256-thread block per (b, h, K block), the
+//     statistic then a second read of the block, an L2 hit), with K written
+//     at a 256-byte row stride and the V rows copied beside it 16 bytes a
+//     thread (1.3B 480p: 100.7 MB of K and 50.3 MB of V in, 100.7 MB out).
+//   * K29: K18's warp-a-row kernel writing the int8 row alone (100.7 MB in,
+//     50.3 MB and 1.6 MB of scales out).
 //   * K18: memory-bound (1.3B 480p: 100.7 MB of K and 50.3 MB of V in,
 //     100.7 MB of K|V and 1.6 MB of scales out, 0.076 ms). One warp per row,
 //     8-byte K loads, 4-byte V copies and 4-byte int8 stores a lane, all
@@ -332,15 +350,21 @@ head_planes_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K6
+// K6 and K27
 // ---------------------------------------------------------------------------
 
+// One block per (b, h, K block). PACKED (K27): the int8 K rows go into the
+// first half of packed (B, H, Lp, 256) K|V rows and the V rows are copied
+// beside them; else (K6) K goes to kp (B, H, Lp, 128) and V into the
+// per-block transposed panel vtp.
+template <bool PACKED>
 __global__ void __launch_bounds__(kSqThreads)
-subquant_pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
-                         const int8_t* __restrict__ v, int8_t* __restrict__ kp,
-                         int8_t* __restrict__ vtp, float* __restrict__ ks, int H,
-                         int Lp, int block_k, int kv_len) {
-  __shared__ __align__(16) int8_t vtile[kMaxBlockK * kVTileStride];
+subquant_block_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
+                      const int8_t* __restrict__ v, int8_t* __restrict__ kp,
+                      int8_t* __restrict__ vtp, float* __restrict__ ks, int H, int Lp,
+                      int block_k, int kv_len) {
+  constexpr int kRow = PACKED ? 2 * kDh : kDh;   // bytes between K rows of kp
+  __shared__ __align__(16) int8_t vtile[PACKED ? 16 : kMaxBlockK * kVTileStride];
   __shared__ float red[kSqThreads / 32];
   const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nK = Lp / block_k;
@@ -355,7 +379,7 @@ subquant_pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __res
   *reinterpret_cast<float4*>(m8) = *reinterpret_cast<const float4*>(mu + bh * kDh + c * 8);
   *reinterpret_cast<float4*>(m8 + 4) = *reinterpret_cast<const float4*>(mu + bh * kDh + c * 8 + 4);
 
-  // the block statistic over rows < kv_len
+  // the block statistic over rows < kv_len (rows past it may hold NaN)
   float amax = 0.f;
   for (int r = r0; r < block_k && row0 + r < kv_len; r += 16) {
     float f[8];
@@ -373,51 +397,65 @@ subquant_pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __res
   const float inv = 1.f / scale;
   if (threadIdx.x == 0) ks[bh * nK + kb] = scale;
 
-  int8_t* kout = kp + (bh * Lp + row0) * kDh + c * 8;
+  // every row, rows past kv_len too, with the block's scale
+  int8_t* kout = kp + (bh * Lp + row0) * kRow + c * 8;
   for (int r = r0; r < block_k; r += 16) {
     float f[8];
     unpack8(*reinterpret_cast<const uint4*>(kbase + (size_t)r * kDh), f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] = __fsub_rn(f[e], m8[e]);
-    *reinterpret_cast<uint2*>(kout + (size_t)r * kDh) = quant8(f, inv);
+    *reinterpret_cast<uint2*>(kout + (size_t)r * kRow) = quant8(f, inv);
   }
 
-  // V block (block_k, 128) -> (128, block_k) through shared memory
   const int8_t* vbase = v + (bh * Lp + row0) * kDh;
-  for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
-    const int r = u >> 3, c16 = u & 7;
-    const uint4 val = *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(vtile + r * kVTileStride + c16 * 16);
-    dst[0] = val.x;
-    dst[1] = val.y;
-    dst[2] = val.z;
-    dst[3] = val.w;
-  }
-  __syncthreads();
-  int8_t* vout = vtp + (bh * nK + kb) * (size_t)kDh * block_k;
-  const int nq = block_k / 4;
-  for (int u = threadIdx.x; u < kDh * nq; u += kSqThreads) {
-    const int d = u / nq, jq = u % nq;
-    uint32_t word = 0;
+  if constexpr (PACKED) {
+    // V rows beside K: 16-byte copies, neighbouring threads on neighbouring
+    // addresses
+    int8_t* vout = kp + (bh * Lp + row0) * kRow + kDh;
+    for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
+      const int r = u >> 3, c16 = u & 7;
+      *reinterpret_cast<uint4*>(vout + (size_t)r * kRow + c16 * 16) =
+          *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
+    }
+  } else {
+    // V block (block_k, 128) -> (128, block_k) through shared memory
+    for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
+      const int r = u >> 3, c16 = u & 7;
+      const uint4 val = *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(vtile + r * kVTileStride + c16 * 16);
+      dst[0] = val.x;
+      dst[1] = val.y;
+      dst[2] = val.z;
+      dst[3] = val.w;
+    }
+    __syncthreads();
+    int8_t* vout = vtp + (bh * nK + kb) * (size_t)kDh * block_k;
+    const int nq = block_k / 4;
+    for (int u = threadIdx.x; u < kDh * nq; u += kSqThreads) {
+      const int d = u / nq, jq = u % nq;
+      uint32_t word = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      word |= (uint32_t)(uint8_t)vtile[(jq * 4 + i) * kVTileStride + d] << (8 * i);
-    *reinterpret_cast<uint32_t*>(vout + (size_t)d * block_k + jq * 4) = word;
+      for (int i = 0; i < 4; ++i)
+        word |= (uint32_t)(uint8_t)vtile[(jq * 4 + i) * kVTileStride + d] << (8 * i);
+      *reinterpret_cast<uint32_t*>(vout + (size_t)d * block_k + jq * 4) = word;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K18
+// K18 and K29
 // ---------------------------------------------------------------------------
 
 constexpr int kSpWarps = 8;
 
 // One warp per row of the (B*H*Lp) K planes: a lane owns channels
-// 4 lane .. 4 lane + 3 of K (8 bytes) and of V (4 bytes). The packed row is
-// 128 bytes of int8 K then the 128 bytes of the V row.
+// 4 lane .. 4 lane + 3 of K (8 bytes) and of V (4 bytes). PACK (K18): the
+// packed row is 128 bytes of int8 K then the 128 bytes of the V row; else
+// (K29, v null) the int8 row goes to out (B*H*Lp, 128).
+template <bool PACK>
 __global__ void __launch_bounds__(kSpWarps * 32)
 subquant_pack_kv_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
-                        const int8_t* __restrict__ v, int8_t* __restrict__ kvi,
+                        const int8_t* __restrict__ v, int8_t* __restrict__ out,
                         float* __restrict__ ks, int rows, int Lp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kSpWarps + warp;
@@ -440,10 +478,12 @@ subquant_pack_kv_kernel(const __nv_bfloat16* __restrict__ k, const float* __rest
     q = max(-127, min(127, q));
     w |= (uint32_t)(q & 0xff) << (8 * i);
   }
-  int8_t* out = kvi + (size_t)row * 2 * kDh;
-  *reinterpret_cast<uint32_t*>(out + lane * 4) = w;
-  *reinterpret_cast<uint32_t*>(out + kDh + lane * 4) =
-      *reinterpret_cast<const uint32_t*>(v + (size_t)row * kDh + lane * 4);
+  constexpr int kRow = PACK ? 2 * kDh : kDh;
+  int8_t* dst = out + (size_t)row * kRow;
+  *reinterpret_cast<uint32_t*>(dst + lane * 4) = w;
+  if constexpr (PACK)
+    *reinterpret_cast<uint32_t*>(dst + kDh + lane * 4) =
+        *reinterpret_cast<const uint32_t*>(v + (size_t)row * kDh + lane * 4);
   if (lane == 0) ks[row] = scale;
 }
 
@@ -616,9 +656,20 @@ extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* 
                                      int Lp, int block_k, int kv_len, void* stream) {
   if (block_k > kMaxBlockK || block_k % 64) return (int)cudaErrorInvalidValue;
   const dim3 grid(Lp / block_k, H, B);
-  subquant_pack_kvt_kernel<<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
+  subquant_block_kernel<false><<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kp,
       (int8_t*)vtp, (float*)ks, H, Lp, block_k, kv_len);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_subquant_pack_kv_blocks(const void* k, const void* mu, const void* v,
+                                           void* kvi, void* ks, int B, int H, int Lp,
+                                           int block_k, int kv_len, void* stream) {
+  if (block_k <= 0 || block_k % 64 || Lp % block_k) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Lp / block_k, H, B);
+  subquant_block_kernel<true><<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kvi, nullptr,
+      (float*)ks, H, Lp, block_k, kv_len);
   return (int)cudaGetLastError();
 }
 
@@ -626,9 +677,19 @@ extern "C" int tdx_subquant_pack_kv(const void* k, const void* mu, const void* v
                                     void* ks, int BH, int Lp, void* stream) {
   if (BH <= 0 || Lp <= 0) return (int)cudaErrorInvalidValue;
   const int rows = BH * Lp;
-  subquant_pack_kv_kernel<<<(rows + kSpWarps - 1) / kSpWarps, kSpWarps * 32, 0,
-                            (cudaStream_t)stream>>>(
+  subquant_pack_kv_kernel<true><<<(rows + kSpWarps - 1) / kSpWarps, kSpWarps * 32, 0,
+                                  (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kvi, (float*)ks,
       rows, Lp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_subquant_planes(const void* k, const void* mu, void* out, void* ks, int BH,
+                                   int Lp, void* stream) {
+  if (BH <= 0 || Lp <= 0) return (int)cudaErrorInvalidValue;
+  const int rows = BH * Lp;
+  subquant_pack_kv_kernel<false><<<(rows + kSpWarps - 1) / kSpWarps, kSpWarps * 32, 0,
+                                   (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const float*)mu, nullptr, (int8_t*)out, (float*)ks, rows, Lp);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// K7 and K19: block-sparse INT8 SageSLA attention for sm_90a.
+// K7, K19 and K28: block-sparse INT8 SageSLA attention for sm_90a.
 //
 // K7 tdx_sparse_attention_i8_vt replaces the TPU kernel
 //    turbodiffusion_tpu/ops/flash_pallas.py:sparse_attention_i8_vt (body
@@ -55,6 +55,20 @@
 //    Keys at or past kv_len get -1e30 before the row max: the port's rule
 //    for K3 / K4 / K7, which replaces the TPU's poison block (LUT padding
 //    pointing at a zero block with a -1e30 bias).
+
+//
+// K28 tdx_sparse_attention_i8_planes_bs replaces the block-scale form of
+//    flash_pallas.py:sparse_attention_i8_planes (body _sparse_attn_kernel_i8b,
+//    wrapper :1345-1390), which fused sagesla at v_quant=channel takes once
+//    sel * block_k exceeds 8,192 (480p at --sla_topk 0.3: 38 of 128 blocks):
+//    K19's walk over K27's packed K|V rows with K7's scoring: one K scale a
+//    block, read from the (B, H, nK) table and multiplied by Dh^-0.5 *
+//    log2 e (the TPU wrapper folds both into its table, not into qs),
+//    s = (int32(q . k) * qs) * that, keys >= kv_len at -1e9 before the row
+//    max (K27 quantises rows past kv_len, which may have been NaN, with the
+//    block's scale; they never reach a live score), exp2, O += bf16(p)
+//    bf16(v_i8), o = O / max(l, 1e-20) * vch. Bound like K7 (the same
+//    pair count; K19's gather of 256-byte rows, one stream a key).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,7 +302,11 @@ sparse_i8_vt_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
 }
 
 
-// K19. Grid (Lp / 64, H, B), 4 warps of 16 query rows.
+// K19 (BS false) and K28 (BS true). Grid (Lp / 64, H, B), 4 warps of 16
+// query rows. K19: ks and vs are per-key row scales (B, H, Lkp) and `scale`
+// is Dh^-0.5; K28: ks is the per-block table (B, H, nK), vs the per-channel
+// V scale (B, H, 128) and `scale` is Dh^-0.5 * log2 e.
+template <bool BS>
 __global__ void __launch_bounds__(kThreads)
 sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
                         const int8_t* __restrict__ kvi, const float* __restrict__ ks,
@@ -327,9 +345,10 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
     }
   }
   const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-  // the softmax scale folds into the row scale (flash_pallas.py:1319)
-  const float qs0 = __fmul_rn(qs[bh * Lp + r0], scale);
-  const float qs1 = __fmul_rn(qs[bh * Lp + r1], scale);
+  // K19: the softmax scale folds into the row scale (flash_pallas.py:1319);
+  // K28: it rides the K block-scale table, as the TPU wrapper folds it
+  const float qs0 = BS ? qs[bh * Lp + r0] : __fmul_rn(qs[bh * Lp + r0], scale);
+  const float qs1 = BS ? qs[bh * Lp + r1] : __fmul_rn(qs[bh * Lp + r1], scale);
 
   float acc[kDh / 8][4];
 #pragma unroll
@@ -360,16 +379,20 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
 #pragma unroll
       for (int e = 0; e < 16; ++e) Vt[(c16 * 16 + e) * kVStride + r] = __float2bfloat16_rn((float)q8[e]);
     }
-    if (threadIdx.x < kBN) {
+    if (!BS && threadIdx.x < kBN) {
       const int key = key0 + threadIdx.x;
       const bool live = key < kv_len;
       s_ks[threadIdx.x] = live ? ks[bh * Lkp + key] : 0.f;
       s_vs[threadIdx.x] = live ? vs[bh * Lkp + key] : 0.f;
     }
+    // K28: the block's scale times Dh^-0.5 * log2 e (the TPU wrapper's
+    // table), one product in fp32
+    const float kb_scale = BS ? __fmul_rn(ks[bh * nK + kb], scale) : 0.f;
     __syncthreads();
 
-    // s = (s32 * qs') * ks for this warp's 16 rows x 64 keys, keys >= kv_len
-    // masked
+    // K19: s = (s32 * qs') * ks[key], keys >= kv_len at -1e30; K28: s =
+    // (s32 * qs) * kb_scale in the log2 domain, keys >= kv_len at -1e9
+    // before the row max
     const int nvalid = kv_len - key0;
     float s[kBN / 8][4];
 #pragma unroll
@@ -383,16 +406,22 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + t * 2 + (e & 1);
-        const float v = __fmul_rn(__fmul_rn((float)si[e], e < 2 ? qs0 : qs1), s_ks[col]);
-        s[j][e] = col < nvalid ? v : kNegInf;
+        const float v = __fmul_rn(__fmul_rn((float)si[e], e < 2 ? qs0 : qs1),
+                                  BS ? kb_scale : s_ks[col]);
+        s[j][e] = col < nvalid ? v : (BS ? kMasked : kNegInf);
       }
     }
 
-    // natural exp; O += bf16(p * vs) V
-    softmax_pv_step<false, kVStride>(s, acc, m0, m1, l0, l1, Vt, s_vs);
+    if constexpr (BS) {
+      // exp2; O += bf16(p) V, V's channel scale at the finalize
+      softmax_pv_step<true, kVStride>(s, acc, m0, m1, l0, l1, Vt);
+    } else {
+      // natural exp; O += bf16(p * vs) V
+      softmax_pv_step<false, kVStride>(s, acc, m0, m1, l0, l1, Vt, s_vs);
+    }
   }
 
-  // o = acc / max(l, 1e-20)
+  // o = acc / max(l, 1e-20) (K28: times the per-channel V scale)
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
@@ -401,13 +430,21 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
   l0 = fmaxf(l0, 1e-20f);
   l1 = fmaxf(l1, 1e-20f);
   __nv_bfloat16* ob = out + bh * Lp * kDh;
+  const float* vc = vs + bh * kDh;
 #pragma unroll
   for (int d = 0; d < kDh / 8; ++d) {
     const int col = d * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kDh + col) =
-        pack_bf16(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * kDh + col) =
-        pack_bf16(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
+    float o[4] = {__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0),
+                  __fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1)};
+    if constexpr (BS) {
+      const float2 sc = *reinterpret_cast<const float2*>(vc + col);
+      o[0] = __fmul_rn(o[0], sc.x);
+      o[1] = __fmul_rn(o[1], sc.y);
+      o[2] = __fmul_rn(o[2], sc.x);
+      o[3] = __fmul_rn(o[3], sc.y);
+    }
+    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kDh + col) = pack_bf16(o[0], o[1]);
+    *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * kDh + col) = pack_bf16(o[2], o[3]);
   }
 }
 
@@ -434,9 +471,22 @@ extern "C" int tdx_sparse_attention_i8_planes(
     int block_q, int block_k, float scale, void* stream) {
   if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
   const dim3 grid(Lp / kBM, H, B);
-  sparse_i8_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  sparse_i8_planes_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)qi, (const float*)qs, (const int8_t*)kvi, (const float*)ks,
       (const float*)vs, (const int*)lut, (__nv_bfloat16*)out, H, Lp, Lkp, kv_len, nQ, sel,
       block_q, block_k, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tdx_sparse_attention_i8_planes_bs(
+    const void* qi, const void* qs, const void* kvi, const void* ks, const void* vch,
+    const void* lut, void* out, int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel,
+    int block_q, int block_k, float scale_log2, void* stream) {
+  if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Lp / kBM, H, B);
+  sparse_i8_planes_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)qi, (const float*)qs, (const int8_t*)kvi, (const float*)ks,
+      (const float*)vch, (const int*)lut, (__nv_bfloat16*)out, H, Lp, Lkp, kv_len, nQ, sel,
+      block_q, block_k, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,9 @@ SIGNATURES = {
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
+    # q, k, v, o, int8 K rows, K row scales, B, H, Lq, Lk, kv_len,
+    # 12 strides, scale, stream (K30)
+    "tdx_flash_attention_i8qk": [_P] * 6 + [_I] * 5 + [_I64] * 12 + [_F, _P],
     # q, norm_w, k, v, out int8, out scales, q row stride, B, H, heads a
     # block, Lq, kv_len, 6 strides (k, v: batch, token, head), scale, eps,
     # stream
@@ -79,6 +82,10 @@ SIGNATURES = {
     "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
     # k, mu, v, kvi, ks, B*H, Lp, stream
     "tdx_subquant_pack_kv": [_P] * 5 + [_I] * 2 + [_P],
+    # k, mu, v, kvi, block scales, B, H, Lp, block_k, kv_len, stream (K27)
+    "tdx_subquant_pack_kv_blocks": [_P] * 5 + [_I] * 5 + [_P],
+    # planes, mu, int8 planes, row scales, B*H, Lp, stream (K29)
+    "tdx_subquant_planes": [_P] * 4 + [_I] * 2 + [_P],
     # k, v, partials, kv, ksum, B, H, kv_len, n_chunks, v is int8,
     # 6 strides (k, v: batch, head, row), stream
     "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_I64] * 6 + [_P],
@@ -94,6 +101,9 @@ SIGNATURES = {
     # qi, qs, kvi, ks, vs, lut, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale, stream
     "tdx_sparse_attention_i8_planes": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # qi, qs, kvi, K block scales, V channel scales, lut, out, the same
+    # ints, scale*log2e, stream (K28)
+    "tdx_sparse_attention_i8_planes_bs": [_P] * 7 + [_I] * 9 + [_F, _P],
     # x, x row stride, xq, row scales, M, K, stream
     "tdx_quantize_rows_int8": [_P, _I64, _P, _P, _I, _I, _P],
     # xq, w (N, K), row scales, col scales, bias, gate, residual, out,

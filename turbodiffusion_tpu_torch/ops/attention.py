@@ -14,7 +14,9 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
                                           jnp on every device)
   * sla_attention_fused(q_proj, ...)    — SageSLA from the raw projections:
                                           kernels K5, then K6 + K7
-                                          (v_quant "channel") or K18 + K19
+                                          (v_quant "channel", sel * block_k
+                                          <= 8,192), K27 + K28 (+ K21;
+                                          "channel" above it) or K18 + K19
                                           (+ K21 with the linear branch;
                                           v_quant "row"); K15 above H*Dh
                                           4096
@@ -28,10 +30,12 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
                                           the plain-torch linear branch
                                           (attention.py:161-179, :230-243)
 
-Gradients: `dense_attention` and `sla_attention` without int8 QK carry them
-to q, k, v and `proj_l` (K3, K4 and K21 run inside autograd Functions; K3's
-backward is K23 + K24), as JAX's custom VJPs do; the fused and int8 paths
-are inference-only, as in JAX.
+Gradients, as JAX's custom VJPs give them: `dense_attention` and
+`sla_attention` carry them to q, k, v and `proj_l` (K3, K4, K20 and K21 run
+inside autograd Functions; K3's backward is K23 + K24, and K20's the same,
+straight-through, on the smooth-k'd k); `sla_attention_fused` to the
+projections, the norm weights and `proj_l`, through the composable path's
+VJP (attention.py:293-333), whose recompute launches no sparse forward.
 
 SageSLA outside the fused geometry takes JAX's TPU composition on every
 device: at blocks < 128 the int8-QK gather (K20, its plain version on the
@@ -42,15 +46,18 @@ off the TPU, and a CUDA tensor raises (ROADMAP Queue A item 13).
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
 from turbodiffusion_tpu_torch.config import AttentionConfig
 from turbodiffusion_tpu_torch.ops.flash_attention import (
-    flash_attention, sparse_flash_attention, sparse_flash_attention_i8qk)
+    flash_attention, sparse_flash_attention, sparse_flash_attention_i8qk,
+    sparse_flash_attention_i8qk_vjp)
 from turbodiffusion_tpu_torch.ops.flash_jvp import (
     flash_attention_jvp, sparse_attention_jvp)
+from turbodiffusion_tpu_torch.ops.fused_norm import recompute_vjp, rmsnorm_rope
 from turbodiffusion_tpu_torch.ops.linear_attention import (
     linear_attention_projected, linear_projected_planes)
 from turbodiffusion_tpu_torch.ops.sla_fused import (
@@ -63,6 +70,11 @@ from turbodiffusion_tpu_torch.ops.sparse_i8_attention import (
 
 # widest projection row K5 reduces itself; wider ones take K15's statistic
 _WIDE_HD = 4096
+# JAX's dispatch bound between K6 + K7 and K27 + K28 on sel * block_k
+# (attention.py:401-406): the TPU's resident-tile budget for the VT kernel,
+# which the card does not have (K7 gathers any sel); kept so the port runs
+# JAX's composition, at a cost on the card (PERF.md)
+_VT_MAX_KEYS = 8192
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -164,6 +176,11 @@ def sla_attention(q, k, v, proj_l: Optional[torch.nn.Linear],
         return (o_s + _projected(o_l, proj_l, q.dtype)).to(q.dtype)
     sparse = sparse_flash_attention_i8qk if int8_qk else sparse_flash_attention
     o_s = sparse(q, k, v, lut, cfg.block_q, cfg.block_k)
+    return _plus_linear(o_s, q, k, v, proj_l, cfg)
+
+
+def _plus_linear(o_s, q, k, v, proj_l, cfg: AttentionConfig):
+    """o_s plus the linear branch when it is on (attention.py:252-262)."""
     if not cfg.linear_branch:
         # a zero proj_l contributes exactly zero
         return o_s
@@ -188,16 +205,25 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
                         cfg: AttentionConfig, *, num_heads: int,
                         eps: float = 1e-6):
     """Fused SageSLA from the raw (B, L, H*Dh) projections
-    (attention.py:336-504, single device): RMSNorm-QK, RoPE, the head fold,
+    (attention.py:275-504, single device): RMSNorm-QK, RoPE, the head fold,
     block pooling and the int8 quantisation of Q run in K5 passes; the
-    block map in plain torch. Then, by `cfg.v_quant`:
-      * "channel" (the VT kernel): V quantised per channel in plain torch;
-        K6 packs K and V (and sums the linear branch's kv); K7 attends, with
-        the linear branch in its epilogue (the TDX_LIN_FUSED=1 default);
+    block map in plain torch. Then, by `cfg.v_quant` and JAX's dispatch on
+    sel = max(1, min(nK, int(topk * nK))), nK = ceil(L / block_k)
+    (attention.py:401-406):
+      * "channel", sel * block_k <= 8,192 (the VT kernel): V quantised per
+        channel in plain torch; K6 packs K and V (and sums the linear
+        branch's kv); K7 attends, with the linear branch in its epilogue
+        (the TDX_LIN_FUSED=1 default);
+      * "channel" above it (attention.py:480-491): K27 packs K|V with one K
+        scale a block; K28 attends; the linear branch, when on, is K21 over
+        K5's bf16 Q, K and V planes (JAX cannot fuse it here). The bound is
+        the TPU's resident-tile budget and binds nothing on the card, where
+        K7 would gather any sel (and faster, PERF.md §6); the port keeps it
+        so that it computes JAX's function, rounding for rounding;
       * "row" (attention.py:492-503): K5 gives V as int8 with per-row scales
-        (and bf16 planes of Q and V when the linear branch is on, which JAX
-        cannot fuse here); K18 packs K and V; K19 attends; the branch, when
-        on, is K21 over the planes.
+        (and bf16 planes of Q and V when the linear branch is on); K18
+        packs K and V; K19 attends; the branch, when on, is K21 over the
+        planes.
     Returns (B, H, Lp, Dh) bf16 planes, Lp = L rounded up to 512; feed
     `unfold_planes` (or `unfold_quant`) to the O projection.
 
@@ -208,7 +234,17 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
 
     Q is pooled at block_q directly, where the TPU pools at 256 and merges
     pairs weighted by count (attention.py:413-440): the same block means.
-    `TDX_SPARSE_VT` has no counterpart: "channel" always takes K7."""
+    `TDX_SPARSE_VT` and `TDX_LIN_FUSED` have no counterpart (their
+    defaults hold).
+
+    Differentiable in the projections, the norm weights and `proj_l`, as
+    JAX's custom VJP makes it (attention.py:293-333): the forward runs the
+    fused kernels, the backward recomputes the composable path
+    (`rmsnorm_rope`, K2, then `sla_attention(..., int8_qk=True)`'s
+    function: the LUT of the unquantised q and k, K20's straight-through
+    K23 + K24 backward, K21 for the branch) under autograd and returns its
+    VJP. The recompute's value is never read, so its sparse term launches
+    no K20 (`sparse_flash_attention_i8qk_vjp`)."""
     B, L, HD = q_proj.shape
     H = num_heads
     Lp = -(-L // 512) * 512
@@ -218,13 +254,30 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
             f"the fused SageSLA path takes v_quant 'channel' or 'row', "
             f"head_dim % 128 == 0 and blocks >= 128 dividing 512, got "
             f"{cfg.v_quant!r}, {HD // H}, {cfg.block_q}/{cfg.block_k}")
-    cosF, sinF = rope_cs
     lin = cfg.linear_branch and proj_l is not None
+    w, b = (proj_l.weight, proj_l.bias) if lin else (None, None)
+    return _SlaFusedFn.apply(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, w, b,
+                             *rope_cs, cfg, H, eps)
+
+
+def _sla_fused_forward(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, proj_w,
+                       proj_b, cosF, sinF, cfg: AttentionConfig, H: int,
+                       eps: float):
+    """The fused kernels (see `sla_attention_fused`); proj_w None: the
+    linear branch is off."""
+    B, L, HD = q_proj.shape
+    Lp = -(-L // 512) * 512
+    lin = proj_w is not None
     v_chan = cfg.v_quant == "channel"
+    nK = _cdiv(L, cfg.block_k)
+    sel = max(1, min(nK, int(cfg.sla_topk * nK)))
+    use_vt = v_chan and sel * cfg.block_k <= _VT_MAX_KEYS
     kw = dict(num_heads=H, eps=eps, pad_to=Lp)
     wide = HD > _WIDE_HD
+    # the fused linear epilogue recovers phi(q) from the int8 q: the bf16 Q
+    # plane has no consumer there
     Q = head_planes(q_proj, norm_q_w, cosF, sinF, pool=cfg.block_q,
-                    quant=True, bf16_out=lin and not v_chan,
+                    quant=True, bf16_out=lin and not use_vt,
                     rms_inv=row_rms_inv(q_proj, eps) if wide else None, **kw)
     K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k,
                     rms_inv=row_rms_inv(k_proj, eps) if wide else None, **kw)
@@ -236,25 +289,81 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
         kvi, ks = subquant_pack_kv(K["bf16"], k_mean, V["i8"])
         o = sparse_attention_i8_planes(Q["i8"], Q["scale"], kvi, ks,
                                        V["scale"], lut, **blocks)
-        if lin:
-            o = o + linear_projected_planes(Q["bf16"], K["bf16"], V["bf16"],
-                                            proj_l.weight, proj_l.bias, L)
-        return o
-    vi, vcs = quantize_v_per_channel(V["bf16"], L)
-    packed = subquant_pack_kvt(K["bf16"], k_mean, vi, cfg.block_k, kv_len=L,
-                               linear_kv=lin)
-    kp, vtp, ksb = packed[:3]
-    lin_kvw = lin_ksb = None
+    else:
+        vi, vcs = quantize_v_per_channel(V["bf16"], L)
+        if use_vt:
+            packed = subquant_pack_kvt(K["bf16"], k_mean, vi, cfg.block_k,
+                                       kv_len=L, linear_kv=lin)
+            kp, vtp, ksb = packed[:3]
+            lin_kvw = lin_ksb = None
+            if lin:
+                kv, ksum = packed[3], packed[4]
+                # fold V's per-channel int8 scale into kv's columns (exact),
+                # then proj_l: kvw = (kv * vcs) @ W^T, W the (out, in) weight
+                lin_kvw = torch.matmul(kv * vcs, proj_w.float().t())
+                bias = proj_b.float().expand(ksum.shape)
+                lin_ksb = torch.cat([ksum, bias], dim=2)      # (B, H, 2, D)
+            return sparse_attention_i8_vt(
+                Q["i8"], Q["scale"], kp, vtp, ksb, vcs, lut, lin_kvw=lin_kvw,
+                lin_ks_bias=lin_ksb, **blocks)
+        kvi, ksb = subquant_pack_kv(K["bf16"], k_mean, vi, cfg.block_k,
+                                    kv_len=L)
+        o = sparse_attention_i8_planes(Q["i8"], Q["scale"], kvi, None, None,
+                                       lut, k_block_scale=ksb,
+                                       v_channel_scale=vcs, **blocks)
     if lin:
-        kv, ksum = packed[3], packed[4]
-        # fold V's per-channel int8 scale into kv's columns (exact), then
-        # proj_l: kvw = (kv * vcs) @ W^T, W the (out, in) Linear weight
-        lin_kvw = torch.matmul(kv * vcs, proj_l.weight.float().t())
-        bias = proj_l.bias.float().expand(ksum.shape)
-        lin_ksb = torch.cat([ksum, bias], dim=2)              # (B, H, 2, D)
-    return sparse_attention_i8_vt(
-        Q["i8"], Q["scale"], kp, vtp, ksb, vcs, lut, lin_kvw=lin_kvw,
-        lin_ks_bias=lin_ksb, **blocks)
+        o = o + linear_projected_planes(Q["bf16"], K["bf16"], V["bf16"],
+                                        proj_w, proj_b, L)
+    return o
+
+
+class _Proj(NamedTuple):
+    """`proj_l`'s tensors where `sla_attention` reads an nn.Linear."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+
+def _sla_composable(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, proj_w,
+                    proj_b, cosF, sinF, cfg: AttentionConfig, H: int,
+                    eps: float, Lp: int):
+    """JAX's `composable` (attention.py:301-312), for its VJP alone: RMSNorm
+    + RoPE (K2) of q and k, v reshaped, `sla_attention` with int8 QK whose
+    sparse term is K20's VJP without its value (zeros, no launch), the
+    output as planes padded to Lp."""
+    B, L, HD = q_proj.shape
+    q = rmsnorm_rope(q_proj, norm_q_w, cosF, sinF, num_heads=H, eps=eps)
+    k = rmsnorm_rope(k_proj, norm_k_w, cosF, sinF, num_heads=H, eps=eps)
+    v = v_proj.reshape(B, L, H, HD // H)
+    lin = proj_w is not None
+    cfg = dataclasses.replace(cfg, linear_branch=lin)
+    _, lut, _ = get_block_map(q, k, cfg.sla_topk, cfg.block_q, cfg.block_k)
+    o_s = sparse_flash_attention_i8qk_vjp(q, k, v, lut, cfg.block_q,
+                                          cfg.block_k)
+    o = _plus_linear(o_s, q, k, v, _Proj(proj_w, proj_b) if lin else None,
+                     cfg)
+    return torch.nn.functional.pad(o.transpose(1, 2), (0, 0, 0, Lp - L))
+
+
+class _SlaFusedFn(torch.autograd.Function):
+    """Fused sagesla: the fused kernels forward, the composable path's VJP
+    backward (attention.py:293-333). Saves the inputs, not kernel outputs."""
+
+    @staticmethod
+    def forward(ctx, q_proj, k_proj, v_proj, norm_q_w, norm_k_w, proj_w,
+                proj_b, cosF, sinF, cfg, H, eps):
+        ctx.save_for_backward(q_proj, k_proj, v_proj, norm_q_w, norm_k_w,
+                              proj_w, proj_b)
+        ctx.args = (cosF, sinF, cfg, H, eps)
+        return _sla_fused_forward(q_proj, k_proj, v_proj, norm_q_w, norm_k_w,
+                                  proj_w, proj_b, cosF, sinF, cfg, H, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.args + (g.shape[2],)
+        composable = lambda *t: _sla_composable(*t, *args)  # noqa: E731
+        return (*recompute_vjp(composable, ctx.saved_tensors,
+                               ctx.needs_input_grad[:7], g),
+                None, None, None, None, None)
 
 
 def attention(q, k, v, cfg: AttentionConfig, proj_l=None):

@@ -1,6 +1,6 @@
 """Flash attention forward: kernels K3 (block-sparse), K4 (dense), K14 and
 K17 (cross attention with the int8 O feed, narrow and wide), K20 (block-
-sparse with int8 QK, blocks < 128).
+sparse with int8 QK) and K30 (dense with int8 QK).
 
 The counterpart of `turbodiffusion_tpu/ops/flash_pallas.py`. Its TPU
 function `_flash_fwd_impl` (:1085-1269) runs the kernels that this
@@ -33,6 +33,14 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
     (`flash_attention`, :2028-2031) is plain torch
     (`sparse_flash_attention_i8qk`). JAX pads LUT entries to a group with
     block nK, past K's end; the port pads nothing and masks by column.
+    Fused sagesla's backward (`ops/attention.sla_attention_fused`) needs
+    only this form's straight-through VJP, not its value:
+    `sparse_flash_attention_i8qk_vjp` gives it without a K20 launch;
+  * K30 `_flash_i8qk_cuda` ← the dense branch with int8 QK (launch :1139,
+    body `_attn_kernel` with int8_qk :64-121), which `flash_attention(...,
+    int8_qk=True)` without a LUT takes: K20's function over every key of
+    [0, kv_len) (K20's kernel with its chunk walk a template flag). No
+    model path reaches it, as in JAX.
 
 Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
@@ -47,16 +55,17 @@ rows, the sparse one gathers each Q-block's selected K/V blocks — neither
 builds the (B, H, L, L) logits.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Each launcher counts its launches in `.launches`. The
-dense int8-QK form waits for a later slice.
+kernel or raises. Each launcher counts its launches in `.launches`.
 
-Gradients (the custom VJP of `flash_attention`, :1982-2011): K3 and K4 run
-inside `torch.autograd.Function`s. K3's backward is the two-pass sparse
-backward, K23 + the inverse LUT + K24 (`ops/sparse_attention_bwd.py`); K4's
-is `flash_attention_bwd_plain`, the port of `_attention_bwd_ref`
-(:1938-1967), plain torch as JAX leaves it to XLA, chunked over query rows.
-The LUT gets no gradient. K14, K17 and K20 are inference-only, as in JAX
-(no path trains through them).
+Gradients (the custom VJP of `flash_attention`, :1982-2011): K3, K4, K20
+and K30 run inside `torch.autograd.Function`s. K3's backward is the
+two-pass sparse backward, K23 + the inverse LUT + K24
+(`ops/sparse_attention_bwd.py`); K4's is `flash_attention_bwd_plain`, the
+port of `_attention_bwd_ref` (:1938-1967), plain torch as JAX leaves it to
+XLA, chunked over query rows. K20's and K30's are the same, straight-
+through: the gradient of the unquantised attention on the smooth-k'd k,
+whose subtraction stays in autograd, as in JAX. The LUT gets no gradient.
+K14 and K17 are inference-only, as in JAX (no path trains through them).
 """
 
 from __future__ import annotations
@@ -100,19 +109,31 @@ def _softmax_pv(s, v):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _flash_plain_f32(q, k, v, scale: float, kv_len: int):
-    """Dense attention in fp32 out, chunked over query rows."""
+def _flash_plain_f32(q, k, v, scale: float, kv_len: int,
+                     int8_qk: bool = False):
+    """Dense attention in fp32 out, chunked over query rows; int8_qk: each
+    q and k row quantised by `_quant_rows_i8qk` and s = ((s32 * qa') * ka')
+    * scale (K30's rule)."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    if int8_qk:
+        k, ka = _quant_rows_i8qk(k)
+        ka = ka.permute(0, 2, 3, 1)                 # (B, H, 1, Lk)
     kh = k.permute(0, 2, 3, 1).float()              # (B, H, D, Lk)
     vh = v.permute(0, 2, 1, 3)                      # (B, H, Lk, D)
     valid = torch.arange(Lk, device=q.device) < kv_len
     rows = max(1, _PLAIN_LOGITS_BUDGET // (B * H * Lk))
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     for r0 in range(0, Lq, rows):
-        qh = q[:, r0:r0 + rows].permute(0, 2, 1, 3).float()
-        s = torch.matmul(qh, kh) * scale            # (B, H, r, Lk)
-        s = torch.where(valid, s, NEG_INF)
+        qr = q[:, r0:r0 + rows]
+        if int8_qk:
+            # exact: |qq . kq| <= 127^2 * D < 2^24 for D <= 1024
+            qr, qa = _quant_rows_i8qk(qr)
+            s = torch.matmul(qr.permute(0, 2, 1, 3), kh)
+            s = s * qa.permute(0, 2, 1, 3) * ka * scale
+        else:
+            s = torch.matmul(qr.permute(0, 2, 1, 3).float(), kh) * scale
+        s = torch.where(valid, s, NEG_INF)          # (B, H, r, Lk)
         out[:, r0:r0 + rows] = _softmax_pv(s, vh).permute(0, 2, 1, 3)
     return out
 
@@ -124,6 +145,19 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None,
     kv_len = k.shape[1] if kv_len is None else kv_len
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _flash_plain_f32(q, k, v, scale, kv_len).to(q.dtype)
+
+
+def flash_attention_i8qk_plain(q, k, v, scale: Optional[float] = None,
+                               kv_len: Optional[int] = None):
+    """Plain version of K30: dense attention with int8 QK
+    (flash_pallas.py:64-121 with int8_qk): each q and k row quantised,
+    qq = round(q * (127 / qa)), qa = max(max |q|, 1e-6), and s = ((s32 *
+    (qa / 127)) * (ka / 127)) * scale; natural exp, p in bf16 against bf16
+    v, keys >= kv_len masked. k already smooth-k subtracted. Output in q's
+    dtype."""
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _flash_plain_f32(q, k, v, scale, kv_len, int8_qk=True).to(q.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, do, scale: Optional[float] = None,
@@ -352,6 +386,27 @@ def _sparse_flash_i8qk_cuda(q, k, v, lut, block_q: int, block_k: int,
 _sparse_flash_i8qk_cuda.launches = 0
 
 
+def _flash_i8qk_cuda(q, k, v, scale: float, kv_len: int):
+    """Launch K30: K's rows quantised once into scratch, then every chunk of
+    [0, kv_len)."""
+    B, L, H, D = q.shape
+    _check_qkv(q, k, v, kv_len)
+    Lk = k.shape[1]
+    out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
+    kq = torch.empty((B, H, Lk, D), dtype=torch.int8, device=q.device)
+    ksc = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device)
+    rc = _build.load().tdx_flash_attention_i8qk(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kq.data_ptr(),
+        ksc.data_ptr(), B, H, L, Lk, kv_len, *_strides(q, k, v, out),
+        float(scale), _build.stream_ptr(q))
+    _build.check(rc, "tdx_flash_attention_i8qk")
+    _flash_i8qk_cuda.launches += 1
+    return out
+
+
+_flash_i8qk_cuda.launches = 0
+
+
 def _flash_cuda(q, k, v, scale: float, kv_len: int):
     """Launch K4."""
     B, L, H, D = q.shape
@@ -444,38 +499,45 @@ _cross_qout_wide_cuda.launches = 0
 # ---------------------------------------------------------------------------
 
 class _FlashFn(torch.autograd.Function):
-    """K4 forward, `flash_attention_bwd_plain` backward."""
+    """K4 (int8_qk: K30) forward, `flash_attention_bwd_plain` backward: the
+    int8 form's is straight-through, the gradient of the unquantised
+    attention (flash_pallas.py:1982-2011)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, kv_len: int):
+    def forward(ctx, q, k, v, scale: float, kv_len: int, int8_qk: bool):
         ctx.save_for_backward(q, k, v)
         ctx.args = (scale, kv_len)
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, scale, kv_len)
+            plain = flash_attention_i8qk_plain if int8_qk else flash_attention_plain
+            return plain(q, k, v, scale, kv_len)
         _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-        return _flash_cuda(q, k, v, scale, kv_len)
+        return (_flash_i8qk_cuda if int8_qk else _flash_cuda)(q, k, v, scale,
+                                                              kv_len)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         return (*flash_attention_bwd_plain(q, k, v, do, *ctx.args), None,
-                None)
+                None, None)
 
 
 class _SparseFlashFn(torch.autograd.Function):
-    """K3 forward, K23 + K24 backward (their plain versions on the CPU)."""
+    """K3 (int8_qk: K20) forward, K23 + K24 backward (their plain versions
+    on the CPU); the int8 form's backward is straight-through, on the
+    unquantised q, k, v, as JAX's custom VJP gives it."""
 
     @staticmethod
     def forward(ctx, q, k, v, lut, block_q: int, block_k: int, scale: float,
-                kv_len: int):
+                kv_len: int, int8_qk: bool):
         ctx.save_for_backward(q, k, v, lut)
         ctx.args = (block_q, block_k, scale, kv_len)
         if q.device.type == "cpu":
-            return sparse_flash_attention_plain(q, k, v, lut, block_q,
-                                                block_k, scale, kv_len)
+            plain = (sparse_flash_attention_i8qk_plain if int8_qk
+                     else sparse_flash_attention_plain)
+            return plain(q, k, v, lut, block_q, block_k, scale, kv_len)
         _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-        return _sparse_flash_cuda(q, k, v, lut, block_q, block_k, scale,
-                                  kv_len)
+        launch = _sparse_flash_i8qk_cuda if int8_qk else _sparse_flash_cuda
+        return launch(q, k, v, lut, block_q, block_k, scale, kv_len)
 
     @staticmethod
     def backward(ctx, do):
@@ -483,16 +545,37 @@ class _SparseFlashFn(torch.autograd.Function):
             sparse_flash_attention_bwd)
         q, k, v, lut = ctx.saved_tensors
         dq, dk, dv = sparse_flash_attention_bwd(q, k, v, do, lut, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+class _SparseVjpFn(_SparseFlashFn):
+    """`_SparseFlashFn`'s backward with no forward launch: the value is
+    zeros and must not be read (K23 recomputes the row statistics)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lut, block_q: int, block_k: int, scale: float,
+                kv_len: int, int8_qk: bool):
+        ctx.save_for_backward(q, k, v, lut)
+        ctx.args = (block_q, block_k, scale, kv_len)
+        return torch.zeros_like(q)
+
+
+def _smooth_k(k):
+    """k minus its mean over the sequence, in k's dtype, under autograd
+    (flash_pallas.py:2028-2031)."""
+    return k - k.mean(dim=1, keepdim=True)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
-                    kv_len: Optional[int] = None):
-    """Dense softmax attention (K4) over (B, L, H, D) tensors;
-    differentiable in q, k and v."""
+                    kv_len: Optional[int] = None, int8_qk: bool = False):
+    """Dense softmax attention over (B, L, H, D) tensors: K4, or with
+    int8_qk K30 after smooth-k (k minus its mean over all rows);
+    differentiable in q, k and v (the int8 form straight-through)."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else kv_len
-    return _FlashFn.apply(q, k, v, scale, kv_len)
+    if int8_qk:
+        k = _smooth_k(k)
+    return _FlashFn.apply(q, k, v, scale, kv_len, int8_qk)
 
 
 def sparse_flash_attention(q, k, v, lut, block_q: int, block_k: int,
@@ -503,24 +586,31 @@ def sparse_flash_attention(q, k, v, lut, block_q: int, block_k: int,
     differentiable in q, k and v (K23 + K24)."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
     kv_len = k.shape[1] if kv_len is None else kv_len
-    return _SparseFlashFn.apply(q, k, v, lut, block_q, block_k, scale, kv_len)
+    return _SparseFlashFn.apply(q, k, v, lut, block_q, block_k, scale, kv_len,
+                                False)
 
 
 def sparse_flash_attention_i8qk(q, k, v, lut, block_q: int, block_k: int,
                                 scale: Optional[float] = None):
-    """Block-sparse SageSLA attention with int8 QK at blocks < 128
-    (flash_pallas.flash_attention with a `lut` and int8_qk=True): smooth-k
-    (k minus its mean over the sequence, in k's dtype) in plain torch, then
-    the plain version of K20 on a CPU tensor, K20 on a CUDA tensor."""
+    """Block-sparse SageSLA attention with int8 QK (flash_pallas.
+    flash_attention with a `lut` and int8_qk=True): smooth-k in plain torch
+    under autograd, then the plain version of K20 on a CPU tensor, K20 on a
+    CUDA tensor; differentiable in q, k and v by the straight-through
+    backward (K23 + K24 on the smooth-k'd k)."""
     scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
-    kv_len = k.shape[1]
-    k = k - k.mean(dim=1, keepdim=True)
-    if q.device.type == "cpu":
-        return sparse_flash_attention_i8qk_plain(q, k, v, lut, block_q,
-                                                 block_k, scale, kv_len)
-    _require(q.device.type == "cuda", f"no kernel for device {q.device}")
-    return _sparse_flash_i8qk_cuda(q, k, v, lut, block_q, block_k, scale,
-                                   kv_len)
+    return _SparseFlashFn.apply(q, _smooth_k(k), v, lut, block_q, block_k,
+                                scale, k.shape[1], True)
+
+
+def sparse_flash_attention_i8qk_vjp(q, k, v, lut, block_q: int, block_k: int,
+                                    scale: Optional[float] = None):
+    """`sparse_flash_attention_i8qk`'s gradient without its value: returns
+    zeros (launching nothing) whose backward is the same straight-through
+    K23 + K24 on the smooth-k'd k. For a recompute that only carries a VJP
+    (fused sagesla's backward), where a K20 forward would be thrown away."""
+    scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
+    return _SparseVjpFn.apply(q, _smooth_k(k), v, lut, block_q, block_k,
+                              scale, k.shape[1], True)
 
 
 def cross_attention_qout(q, k, v, norm_w, scale: Optional[float] = None,

@@ -1,5 +1,6 @@
 """Fused SageSLA front-end: kernels K5 (head_planes), K6 (subquant_pack_kvt),
-K13 and K16 (unfold_quant), K15 (row_rms_inv) and K18 (subquant_pack_kv).
+K13 and K16 (unfold_quant), K15 (row_rms_inv), K18 and K27
+(subquant_pack_kv) and K29 (subquant_planes).
 
 The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
 single-chip path that `ops/attention.sla_attention_fused` takes:
@@ -30,7 +31,15 @@ single-chip path that `ops/attention.sla_attention_fused` takes:
     producer: smooth-k subtract + per-row int8 K written beside the
     per-row int8 V in packed K|V rows, the layout K19 reads. The TPU's
     trailing poison block and (TL/128, 128) scale relayout have no
-    counterpart: K19 masks by column;
+    counterpart: K19 masks by column; with `block_k`, K27
+    `_subquant_pack_kv_blocks_cuda` replaces its block-scale mode (the
+    block_k branch of the same body): K6's block statistic over the rows
+    < kv_len, into the same packed layout, the producer of K28 (fused
+    sagesla at v_quant "channel" above sel * block_k 8,192);
+  * `subquant_planes` — K29 `_subquant_planes_cuda` replaces the TPU kernel
+    of the same name (launch :533, body `_subquant_kernel` :305-310): K18's
+    per-row rule into unpacked int8 planes (no model path calls it, as in
+    JAX);
   * `unfold_quant` — K13 `_unfold_quant_cuda` replaces the TPU kernel
     `unfold_quant`, narrow form (launch :633, body `_unfold_quant_kernel`
     :551-562): K7's planes to the W8A8 O projection's int8 feed, one fp32
@@ -48,8 +57,7 @@ linear sums, K7's row max).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
-`.launches`. `subquant_pack_kv`'s block-scale mode and `subquant_planes`
-wait for ROADMAP Queue B item 11.
+`.launches`.
 """
 
 from __future__ import annotations
@@ -303,6 +311,24 @@ def block_map_from_pooled(pooled_q, pooled_k, L: int, pool: int,
 # K6: subquant_pack_kvt
 # ---------------------------------------------------------------------------
 
+def _quant_k_blocks(k_planes, mu, block_k: int, kv_len: int):
+    """Smooth-k int8 K with one scale per block_k rows (K6's and K27's
+    rule): xf = f32(k) - mu, s_blk = max(max over the block's rows < kv_len
+    of |xf|, 1e-8) * (1/127) (rows past kv_len, NaN or not, stay out), every
+    row k_i8 = round(xf * (1/s_blk)) half to even. Returns (int8
+    (B, H, Lp, D), fp32 (B, H, nK))."""
+    B, H, Lp, D = k_planes.shape
+    nK = Lp // block_k
+    xf = k_planes.float() - mu.float()
+    valid = (torch.arange(Lp, device=xf.device) < kv_len)[:, None]
+    rowmax = torch.where(valid, xf.abs(), 0.0).amax(-1)
+    scale = (rowmax.reshape(B, H, nK, block_k).amax(-1).clamp_min(1e-8)
+             * (1.0 / INT8_MAX))
+    rows = scale.repeat_interleave(block_k, -1)[..., None]
+    kp = torch.round(xf * (1.0 / rows)).clamp_(-INT8_MAX, INT8_MAX)
+    return kp.to(torch.int8), scale
+
+
 def subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k: int,
                             kv_len: Optional[int] = None,
                             linear_kv: bool = False):
@@ -317,18 +343,12 @@ def subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k: int,
     B, H, Lp, D = k_planes.shape
     kv_len = Lp if kv_len is None else kv_len
     nK = Lp // block_k
-    kf = k_planes.float()
-    xf = kf - mu.float()
-    valid = (torch.arange(Lp, device=kf.device) < kv_len)[:, None]
-    rowmax = torch.where(valid, xf.abs(), 0.0).amax(-1)
-    scale = (rowmax.reshape(B, H, nK, block_k).amax(-1).clamp_min(1e-8)
-             * (1.0 / INT8_MAX))
-    rows = scale.repeat_interleave(block_k, -1)[..., None]
-    kp = torch.round(xf * (1.0 / rows)).clamp_(-INT8_MAX, INT8_MAX)
+    kp, scale = _quant_k_blocks(k_planes, mu, block_k, kv_len)
     vtp = v_i8.reshape(B, H, nK, block_k, D).transpose(-1, -2).contiguous()
-    res = (kp.to(torch.int8), vtp, scale)
+    res = (kp, vtp, scale)
     if linear_kv:
-        pk = torch.where(valid, _softmax_d(kf), 0.0)
+        valid = (torch.arange(Lp, device=k_planes.device) < kv_len)[:, None]
+        pk = torch.where(valid, _softmax_d(k_planes.float()), 0.0)
         kv = torch.matmul(pk.transpose(-1, -2), v_i8.float())
         res += (kv, pk.sum(2, keepdim=True))
     return res
@@ -386,36 +406,53 @@ def subquant_pack_kvt(k_planes, mu, v_i8, block_k: int,
 
 
 # ---------------------------------------------------------------------------
-# K18: subquant_pack_kv, per-row mode
+# K18 / K27: subquant_pack_kv, per-row and block-scale modes; K29:
+# subquant_planes
 # ---------------------------------------------------------------------------
 
-def subquant_pack_kv_plain(k_planes, mu, v_i8):
-    """Plain version of K18 (sla_fused.py:313-348, per-row mode).
+def subquant_pack_kv_plain(k_planes, mu, v_i8, block_k: Optional[int] = None,
+                           kv_len: Optional[int] = None):
+    """Plain version of K18 (block_k None) and K27 (sla_fused.py:313-348).
 
     k_planes (B, H, Lp, D); mu (B, H, 1, D); v_i8 (B, H, Lp, D) int8.
-    xf = f32(k) - mu; per row scale = max(max |xf|, 1e-8) * (1/127) and
-    k_i8 = round(xf * (1/scale)) half to even. Returns (kvi (B, H, Lp, 2D)
-    int8, K in [..., :D] and V beside it; ks (B, H, Lp) fp32). Every row is
-    written, rows past the sequence too: K19 masks them."""
-    kq, ks = _quant_rows(k_planes.float() - mu.float())
+    xf = f32(k) - mu. Per-row mode: scale = max(max |xf|, 1e-8) * (1/127)
+    a row; block-scale mode: one scale per block_k rows, the max over the
+    block's rows < kv_len (`_quant_k_blocks`); k_i8 = round(xf * (1/scale))
+    half to even. Returns (kvi (B, H, Lp, 2D) int8, K in [..., :D] and V
+    beside it; ks (B, H, Lp) fp32 a row, or (B, H, Lp // block_k) a block).
+    Every row is written, rows past the sequence too: K19 / K28 mask them."""
+    if block_k is None:
+        kq, ks = _quant_rows(k_planes.float() - mu.float())
+    else:
+        Lp = k_planes.shape[2]
+        kq, ks = _quant_k_blocks(k_planes, mu, block_k,
+                                 Lp if kv_len is None else kv_len)
     return torch.cat([kq, v_i8], dim=-1), ks
+
+
+def _check_kv_planes(name: str, k_planes, mu, v_i8=None):
+    """K18 / K27 / K29's operands; returns mu as contiguous fp32."""
+    B, H, Lp, D = k_planes.shape
+    dev = k_planes.device
+    _require(k_planes.dtype == torch.bfloat16 and k_planes.is_contiguous(),
+             f"{name} takes contiguous bf16 K planes")
+    _require(D == 128, f"{name} takes head dim 128, got {D}")
+    if v_i8 is not None:
+        _require(v_i8.dtype == torch.int8 and v_i8.is_contiguous()
+                 and v_i8.shape == k_planes.shape and v_i8.device == dev,
+                 f"{name} takes contiguous int8 V planes shaped like K")
+    mu = mu.float().contiguous()
+    _require(mu.numel() == B * H * D and mu.device == dev,
+             f"{name} mu must be (B, H, 1, D) on K's device")
+    return mu
 
 
 def _subquant_pack_kv_cuda(k_planes, mu, v_i8):
     """Launch K18."""
     B, H, Lp, D = k_planes.shape
-    dev = k_planes.device
-    _require(k_planes.dtype == torch.bfloat16 and k_planes.is_contiguous(),
-             "K18 takes contiguous bf16 K planes")
-    _require(D == 128, f"K18 takes head dim 128, got {D}")
-    _require(v_i8.dtype == torch.int8 and v_i8.is_contiguous()
-             and v_i8.shape == k_planes.shape and v_i8.device == dev,
-             "K18 takes contiguous int8 V planes shaped like K")
-    mu = mu.float().contiguous()
-    _require(mu.numel() == B * H * D and mu.device == dev,
-             "K18 mu must be (B, H, 1, D) on K's device")
-    kvi = torch.empty((B, H, Lp, 2 * D), dtype=torch.int8, device=dev)
-    ks = torch.empty((B, H, Lp), dtype=torch.float32, device=dev)
+    mu = _check_kv_planes("K18", k_planes, mu, v_i8)
+    kvi = torch.empty((B, H, Lp, 2 * D), dtype=torch.int8, device=k_planes.device)
+    ks = torch.empty((B, H, Lp), dtype=torch.float32, device=k_planes.device)
     rc = _build.load().tdx_subquant_pack_kv(
         k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kvi.data_ptr(),
         ks.data_ptr(), B * H, Lp, _build.stream_ptr(k_planes))
@@ -427,16 +464,80 @@ def _subquant_pack_kv_cuda(k_planes, mu, v_i8):
 _subquant_pack_kv_cuda.launches = 0
 
 
-def subquant_pack_kv(k_planes, mu, v_i8):
-    """Smooth-k int8 K with per-row scales, packed beside the per-row int8
-    V (sla_fused.subquant_pack_kv, block_scales=False): the plain version
-    on a CPU tensor, kernel K18 on a CUDA tensor. See
-    `subquant_pack_kv_plain` for the outputs."""
+def _subquant_pack_kv_blocks_cuda(k_planes, mu, v_i8, block_k: int,
+                                  kv_len: int):
+    """Launch K27."""
+    B, H, Lp, D = k_planes.shape
+    mu = _check_kv_planes("K27", k_planes, mu, v_i8)
+    _require(block_k % 64 == 0 and Lp % block_k == 0,
+             f"K27 takes a block of a multiple of 64 rows dividing Lp, got "
+             f"{block_k}")
+    _require(0 < kv_len <= Lp, f"kv_len {kv_len} out of range")
+    kvi = torch.empty((B, H, Lp, 2 * D), dtype=torch.int8, device=k_planes.device)
+    ks = torch.empty((B, H, Lp // block_k), dtype=torch.float32,
+                     device=k_planes.device)
+    rc = _build.load().tdx_subquant_pack_kv_blocks(
+        k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kvi.data_ptr(),
+        ks.data_ptr(), B, H, Lp, block_k, kv_len, _build.stream_ptr(k_planes))
+    _build.check(rc, "tdx_subquant_pack_kv_blocks")
+    _subquant_pack_kv_blocks_cuda.launches += 1
+    return kvi, ks
+
+
+_subquant_pack_kv_blocks_cuda.launches = 0
+
+
+def subquant_pack_kv(k_planes, mu, v_i8, block_k: Optional[int] = None,
+                     kv_len: Optional[int] = None):
+    """Smooth-k int8 K packed beside the int8 V (sla_fused.subquant_pack_kv):
+    per-row scales when block_k is None (block_scales=False; kernel K18),
+    one scale per block_k rows over the rows < kv_len otherwise
+    (block_scales=True; kernel K27). The plain version on a CPU tensor, the
+    kernel on a CUDA tensor. See `subquant_pack_kv_plain` for the outputs."""
     if k_planes.device.type == "cpu":
-        return subquant_pack_kv_plain(k_planes, mu, v_i8)
+        return subquant_pack_kv_plain(k_planes, mu, v_i8, block_k, kv_len)
     _require(k_planes.device.type == "cuda",
              f"no kernel for device {k_planes.device}")
-    return _subquant_pack_kv_cuda(k_planes, mu, v_i8)
+    if block_k is None:
+        return _subquant_pack_kv_cuda(k_planes, mu, v_i8)
+    kv_len = k_planes.shape[2] if kv_len is None else kv_len
+    return _subquant_pack_kv_blocks_cuda(k_planes, mu, v_i8, block_k, kv_len)
+
+
+def subquant_planes_plain(planes, mu):
+    """Plain version of K29 (sla_fused.py:305-310): (B, H, Lp, Dh) planes
+    minus mu (B, H, 1, Dh) in fp32, per-row int8 with scale = max(amax,
+    1e-8) * (1/127), q = round(x * (1/scale)) half to even. Returns (int8
+    (B, H, Lp, Dh), fp32 (B, H, Lp, 1))."""
+    q, scale = _quant_rows(planes.float() - mu.float())
+    return q, scale[..., None]
+
+
+def _subquant_planes_cuda(planes, mu):
+    """Launch K29."""
+    B, H, Lp, D = planes.shape
+    mu = _check_kv_planes("K29", planes, mu)
+    out = torch.empty((B, H, Lp, D), dtype=torch.int8, device=planes.device)
+    ks = torch.empty((B, H, Lp, 1), dtype=torch.float32, device=planes.device)
+    rc = _build.load().tdx_subquant_planes(
+        planes.data_ptr(), mu.data_ptr(), out.data_ptr(), ks.data_ptr(), B * H,
+        Lp, _build.stream_ptr(planes))
+    _build.check(rc, "tdx_subquant_planes")
+    _subquant_planes_cuda.launches += 1
+    return out, ks
+
+
+_subquant_planes_cuda.launches = 0
+
+
+def subquant_planes(planes, mu):
+    """Smooth-k per-row int8 quantisation of (B, H, Lp, Dh) planes
+    (sla_fused.subquant_planes): the plain version on a CPU tensor, kernel
+    K29 on a CUDA tensor. No model path calls it, as in JAX."""
+    if planes.device.type == "cpu":
+        return subquant_planes_plain(planes, mu)
+    _require(planes.device.type == "cuda", f"no kernel for device {planes.device}")
+    return _subquant_planes_cuda(planes, mu)
 
 
 def unfold_planes(planes, out_len: int):

@@ -1,4 +1,5 @@
-"""Block-sparse INT8 attention of the fused SageSLA path: kernels K7, K19.
+"""Block-sparse INT8 attention of the fused SageSLA path: kernels K7, K19,
+K28.
 
 The counterpart of three functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
   * `quantize_v_per_channel` (:1068-1082) — plain torch: per-(head, channel)
@@ -9,7 +10,13 @@ The counterpart of three functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
   * `sparse_attention_i8_planes` — K19 `_sparse_i8_planes_cuda` replaces its
     per-row form (launch :1432, body `_sparse_attn_kernel_i8` :560-680,
     metadata :1391-1421), the `v_quant="row"` path: int8 Q, K and V with
-    per-row fp32 scales, K and V packed in rows (K18's layout).
+    per-row fp32 scales, K and V packed in rows (K18's layout); K28
+    `_sparse_i8_planes_bs_cuda` replaces its block-scale form (launch
+    :1363, body `_sparse_attn_kernel_i8b` :683-806, wrapper :1345-1390):
+    K19's walk over K27's packed rows with K7's scoring (one K scale a
+    block, the softmax scale and log2 e folded into it, exp2, -1e9 past
+    kv_len, per-channel V at the finalize), which fused sagesla takes at
+    v_quant "channel" once sel * block_k exceeds 8,192.
 
 K19's semantics (kernel and plain version), per query row r over the keys c
 of the selected K-blocks:
@@ -30,10 +37,17 @@ With the linear epilogue (lin_kvw, lin_ks_bias):
   o += phi(q) @ kvw / (1e-5 + phi(q) . ksum) + bias.
 Output bf16 planes (B, H, Lp, Dh).
 
-Both kernels stream the LUT blocks with an online softmax, where K7's TPU
-kernel holds all sel*block_k scores at once (and K19's streams groups of
-blocks); that changes only where p is rounded to bf16. The TPU's 8,192-key
-bound on sel*block_k is a VMEM limit and does not apply.
+K28's semantics are K7's, with K and V read from packed (B, H, Lk, 2D)
+rows.
+
+The kernels stream the LUT blocks with an online softmax, where K7's TPU
+kernel holds all sel*block_k scores at once (and K19's and K28's stream
+groups of blocks); that changes only where p is rounded to bf16. The
+TPU's 8,192-key bound on sel*block_k is its resident-tile budget and does
+not bind here: K7 gathers any sel. JAX takes K7's TPU kernel below the
+bound and K28's above it; the port keeps that dispatch
+(`ops/attention.sla_attention_fused`) to compute JAX's function, though
+K7 is the faster of the two on the card.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
@@ -313,20 +327,90 @@ def _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale: float,
 _sparse_i8_planes_cuda.launches = 0
 
 
+def sparse_attention_i8_planes_bs_plain(qi, qs, kvi, k_block_scale,
+                                        v_channel_scale, lut, *,
+                                        scale: Optional[float] = None,
+                                        block_q: int = 256, block_k: int = 256,
+                                        kv_len: Optional[int] = None):
+    """Plain version of K28: K7's plain version (its scoring is K28's) on
+    the K and V halves of K27's packed rows. qi (B, H, Lp, D) int8; qs
+    (B, H, Lp) fp32; kvi (B, H, Lkp, 2D) int8; k_block_scale (B, H, nK);
+    v_channel_scale (B, H, 1, D); lut (B, H, nQr, sel) int."""
+    B, H, Lp, D = qi.shape
+    Lkp = kvi.shape[2]
+    vtp = kvi[..., D:].reshape(B, H, Lkp // block_k, block_k, D).transpose(-1, -2)
+    return sparse_attention_i8_vt_plain(
+        qi, qs, kvi[..., :D], vtp, k_block_scale, v_channel_scale, lut,
+        scale=scale, block_q=block_q, block_k=block_k, kv_len=kv_len)
+
+
+def _sparse_i8_planes_bs_cuda(qi, qs, kvi, k_block_scale, v_channel_scale,
+                              lut, scale: float, block_q: int, block_k: int,
+                              kv_len: int):
+    """Launch K28."""
+    B, H, Lp, D = qi.shape
+    Lkp = kvi.shape[2]
+    dev = qi.device
+    _require(D == 128, f"K28 takes head dim 128, got {D}")
+    _require(qi.dtype == kvi.dtype == torch.int8, "K28 takes int8 q and K|V")
+    _require(tuple(kvi.shape) == (B, H, Lkp, 2 * D),
+             "K28 takes packed K|V rows (B, H, Lk, 2D)")
+    _require(block_q % 64 == 0 and Lp % block_q == 0,
+             f"K28 takes a Q block of a multiple of 64 rows dividing Lp, "
+             f"got {block_q}")
+    _require(block_k % 64 == 0 and Lkp % block_k == 0,
+             f"K28 takes a K block of a multiple of 64 rows dividing Lk, "
+             f"got {block_k}")
+    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    _require(all(t.is_contiguous() and t.device == dev for t in (qi, kvi)),
+             "K28 takes contiguous tensors on one CUDA device")
+    nQ, nK = Lp // block_q, Lkp // block_k
+    qs = qs.float().reshape(B, H, Lp).contiguous()
+    ks = k_block_scale.float().reshape(B, H, nK).contiguous()
+    vch = v_channel_scale.float().reshape(B, H, D).contiguous()
+    lut = _pad_lut(lut.to(device=dev, dtype=torch.int32), nQ).contiguous()
+    _require(lut.shape[:2] == (B, H), "K28 lut must be (B, H, nQ, sel)")
+    for t in (qs, ks, vch):
+        _require(t.device == dev, "K28 operands must lie on q's device")
+    out = torch.empty((B, H, Lp, D), dtype=torch.bfloat16, device=dev)
+    rc = _build.load().tdx_sparse_attention_i8_planes_bs(
+        qi.data_ptr(), qs.data_ptr(), kvi.data_ptr(), ks.data_ptr(),
+        vch.data_ptr(), lut.data_ptr(), out.data_ptr(), B, H, Lp, Lkp, kv_len,
+        nQ, lut.shape[-1], block_q, block_k, float(scale * LOG2E),
+        _build.stream_ptr(qi))
+    _build.check(rc, "tdx_sparse_attention_i8_planes_bs")
+    _sparse_i8_planes_bs_cuda.launches += 1
+    return out
+
+
+_sparse_i8_planes_bs_cuda.launches = 0
+
+
 def sparse_attention_i8_planes(qi, qs, kvi, ks, vs, lut, *,
                                scale: Optional[float] = None,
                                block_q: int = 256, block_k: int = 256,
-                               kv_len: Optional[int] = None):
-    """Block-sparse SageSLA attention over int8 planes with per-row scales
-    (flash_pallas.sparse_attention_i8_planes with `kvi_packed`, per-row
-    form): the plain version on a CPU tensor, kernel K19 on a CUDA tensor.
-    See `sparse_attention_i8_planes_plain` for the operands."""
+                               kv_len: Optional[int] = None,
+                               k_block_scale=None, v_channel_scale=None):
+    """Block-sparse SageSLA attention over int8 planes and packed K|V rows
+    (flash_pallas.sparse_attention_i8_planes with `kvi_packed`): per-row
+    scales ks, vs (K19), or, with k_block_scale (B, H, nK) and
+    v_channel_scale (B, H, 1, D), the block-scale form (K28; ks and vs are
+    then unused, as JAX ignores them). The plain version on a CPU tensor,
+    the kernel on a CUDA tensor. See the plain versions for the operands."""
     scale = float(qi.shape[-1] ** -0.5) if scale is None else float(scale)
     kv_len = kvi.shape[2] if kv_len is None else kv_len
-    if qi.device.type == "cpu":
-        return sparse_attention_i8_planes_plain(
-            qi, qs, kvi, ks, vs, lut, scale=scale, block_q=block_q,
-            block_k=block_k, kv_len=kv_len)
-    _require(qi.device.type == "cuda", f"no kernel for device {qi.device}")
-    return _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale, block_q,
-                                  block_k, kv_len)
+    blockscale = k_block_scale is not None
+    _require(blockscale == (v_channel_scale is not None),
+             "k_block_scale and v_channel_scale go together")
+    cpu = qi.device.type == "cpu"
+    _require(cpu or qi.device.type == "cuda", f"no kernel for device {qi.device}")
+    kw = dict(block_q=block_q, block_k=block_k, kv_len=kv_len)
+    if blockscale:
+        args = (qi, qs, kvi, k_block_scale, v_channel_scale, lut)
+        if cpu:
+            return sparse_attention_i8_planes_bs_plain(*args, scale=scale, **kw)
+        return _sparse_i8_planes_bs_cuda(*args, scale, **kw)
+    if cpu:
+        return sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut,
+                                                scale=scale, **kw)
+    return _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale, **kw)
