@@ -14,7 +14,11 @@ Phases, each printing one line of its numbers:
      K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
      over (B, L, H, D); K22 at the block-scale checkpoint path's GEMM
      shapes in bf16 and at 1536 x 1536 and a ragged shape in fp32,
-     bit-equal; then the Wan2.1-14B forms: K15, K5 with K15's RMS at 40
+     bit-equal; then the Wan2.1-14B forms: K1 at 5120; K2 at H*Dh 5120, norm only and
+     with RoPE, each with planted faults a kernel that stopped at 4096
+     would give (channels past 4096 left NaN, weight channel 4100 doubled),
+     and above 5120 at 48 x 128; K3 and K4 (cross and dense self,
+     SDPA beside it) at 40 heads; K15, K5 with K15's RMS at 40
      heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824), with
      poisoned-tail checks of K7, K19 and K21: max absolute error under the
      stated tolerance (int8 outputs within 1 LSB; K19-K21 at atol 4e-3 +
@@ -63,7 +67,9 @@ Phases, each printing one line of its numbers:
      block-scale branch (6 latent frames, 9,360 tokens, topk 0.9: 33 of 37
      K blocks, 8,448 keys a row > 8,192; proj_l != 0: exactly K27 1, K28 1,
      K21 1, K6 0, K7 0), and at 14B `sagesla`
-     with W8A8 linears (unfused Q / K / V, K15-K17): the
+     with W8A8 linears (unfused Q / K / V, K15-K17), bf16 `sagesla` (K15,
+     K5-K7, K2 on the cross q), `sla` (K2 on q, k and the cross q, K3),
+     `original` (K2, K4) and `sagesla` with block-scaled linears (K22): the
      kernels on the card against the plain versions on the CPU, on the Q
      blocks whose block-map rows agree as sets, with each block's launch
      counts; then three 1.3B blocks (proj_l != 0) forward and backward,
@@ -81,14 +87,17 @@ Phases, each printing one line of its numbers:
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
      `sla`, one W8A8 `sagesla` request at v_quant="row" and one at
-     sla_block=64, two W8A8 `sagesla` requests at sla_topk=0.3 (the
-     block-scale pair), then two requests of `WanPipeline.create(dit_path=...)`
+     sla_block=64, one W8A8 `sagesla` request at sla_topk=0.3 (the
+     block-scale pair), then one request of `WanPipeline.create(dit_path=...)`
      on a 1.3B sagesla checkpoint that the port's writer saves first (block-
      scaled linears, non-zero `proj_l` and head; the loaded DiT must equal
-     the written one tensor for tensor), then, with the 1.3B pipelines
-     freed, two requests of
-     `WanPipeline.create("Wan2.1-14B", quant_linear=True)`; per request the
-     text-encode, denoise and VAE-decode times, peak device memory, and the
+     the written one tensor for tensor), then, each pipeline freed before
+     the next, Wan2.1-14B: two W8A8 `sagesla` requests, two bf16 `sagesla`,
+     one bf16 `sla`, one bf16 `original`, one from a block-scaled DiT made
+     on the card and passed to `create` as a state dict (the loaded DiT must
+     equal it), and one bf16 `sagesla` at 720p (1280 x 720); per request the
+     text-encode, denoise and VAE-decode times, each phase's peak device
+     memory and the VAE decode's own rise (at most 16 GiB at 480p), and the
      launch count of every kernel, set to 0 just before the request and
      read just after (1.3B W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 6, K10
      1, K11 1, K12 3, K13 1, K14 1 per block; bf16 sagesla: K1 3, K2 1, K4
@@ -99,10 +108,13 @@ Phases, each printing one line of its numbers:
      checkpoint: K1
      3, K2 1, K4 1, K5 3, K6 1, K7 1, K22 10; x 30 blocks x 4 steps; 14B
      W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
-     K12 3, K15 3, K16 1, K17 1 x 40 blocks x 4 steps; every other kernel
-     0), which shows each path went through its kernels; then each path's
-     denoise under torch.profiler: device time by kernel category and the
-     device's idle share;
+     K12 3, K15 3, K16 1, K17 1; 14B bf16 sagesla (480p and 720p): K1 3,
+     K2 1, K4 1, K5 3, K6 1, K7 1, K15 2; `sla`: K1 3, K2 3, K3 1, K4 1;
+     `original`: K1 3, K2 3, K4 2; block-scaled: bf16 sagesla's and K22
+     10; x 40 blocks x 4 steps; every other kernel 0), which shows each
+     path went through its kernels; then one DiT call of each path under
+     torch.profiler: device time by kernel category and the device's idle
+     share;
   5. SLA fine-tuning through the training CLI (`scripts.train.main
      --experiment sla`) from a 1.3B teacher checkpoint the port's writer
      saves first (non-zero head and proj_l) and tar shards written here:
@@ -111,7 +123,12 @@ Phases, each printing one line of its numbers:
      split, loss, peak memory, exact launches K1 270, K2 270, K3 60, K4
      120, K21 60, K23 30, K24 30; non-zero q / k / v / proj_l gradients;
      step 2 under torch.profiler), 1 step at 480p/21f, --remat none (K1
-     180, K2 180, K3 30, K4 90, K21 30, K23 30, K24 30), and the
+     180, K2 180, K3 30, K4 90, K21 30, K23 30, K24 30), 1 step of a
+     sagesla student at 480p/21f, --remat none (`-- model.attention.backend
+     =sagesla`, the teacher's too, so the student's head starts N(0,
+     0.02^2) apart, else the loss is exactly 0: K1 180, K2 120, K4 60, K5
+     180, K6 60, K7 60, K21 30, K23 30, K24 30; finite loss and gradient
+     norm, non-zero q / k / v / proj_l gradients, moved weights), and the
      checkpoint save -> resume round trip at 2 layers;
   6. rCM distillation through the training CLI (`scripts.train.main
      --experiment rcm`) from phase 5's teacher checkpoint and 81f shards,
@@ -125,8 +142,8 @@ Phases, each printing one line of its numbers:
      moved (student and EMA, or fake score) and of nothing else (the
      teacher never); then the DistillState save -> resume round trip at 2
      layers.
-Then one JSON line with every kernel's numbers (a kernel the 14B path runs:
-its 14B checks and that path's launches; K21, K23, K24: their 1.3B checks
+Then one JSON line with every kernel's numbers (a kernel a 14B path runs:
+its 14B checks and the first such path's launches; K21, K23, K24: their 1.3B checks
 and one training step's launches; K25, K26: one student iteration's of
 phase 6 (dense, sla); K29, K30: their checks and 0 launches, as no path
 reaches them, in JAX either; any other: its 1.3B checks and the
@@ -201,6 +218,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # launches per request: blocks x 4 steps x per-block calls (1.3B: 30
 # blocks, 14B: 40); a kernel a path does not name runs 0 times
 _SAGESLA = {"K5": 360, "K6": 120, "K7": 120}
+_SAGESLA_14B = {"K1": 480, "K2": 160, "K4": 160, "K5": 480, "K6": 160,
+                "K7": 160, "K15": 320}
 EXPECTED_LAUNCHES = {
     # the int8 feeds: K12 for norm1 / norm3 / norm2, K13 for the O feed, K14
     # for cross attention; K8 only for the text-side K / V linears
@@ -233,20 +252,40 @@ EXPECTED_LAUNCHES = {
     "sagesla+w8a8 topk0.3": {"K5": 360, "K8": 240, "K9": 720, "K10": 120,
                              "K11": 120, "K12": 360, "K13": 120, "K14": 120,
                              "K27": 120, "K28": 120},
+    # the 14B with bf16 linears: K1 x 3, K2 on the cross q at 5120 and K4
+    # over the text; fused sagesla K15 on Q and K (the wide form), K5 x 3,
+    # K6, K7; `sla` and `original` K2 on the self q and k too, then K3 or K4
+    "14b-sagesla": _SAGESLA_14B,
+    "14b-sla": {"K1": 480, "K2": 480, "K3": 160, "K4": 160},
+    "14b-original": {"K1": 480, "K2": 480, "K4": 320},
+    # 128x128 block-scaled linears keep the bf16 composition, each of the
+    # ten linears a K22
+    "14b-block-scale": {**_SAGESLA_14B, "K22": 1600},
+    "14b-sagesla 720p": _SAGESLA_14B,
 }
+# the largest rise of a 480p/81f request's VAE decode above the allocation
+# at its start: the HBM of the TPU v5e the JAX package decodes it on
+VAE_OWN_PEAK_MAX_GIB = 16.0
 REPS = 5          # timed runs of each kernel (plain versions: REPS // 2)
 # phase-4 paths in the order run: (label, geometry, attention, quant_linear,
-# requests, other WanPipeline.create arguments); the 14B runs last, after
-# the 1.3B pipelines are freed, and its counts fill the JSON line first
+# requests, other WanPipeline.create arguments and "resolution"); each
+# pipeline is freed before the next; the 14B paths run last and their counts
+# fill the JSON line first
 PATHS = [("sagesla+w8a8", G13, "sagesla", True, 2, {}),
          ("sagesla", G13, "sagesla", False, 1, {}),
          ("sla", G13, "sla", False, 1, {}),
          ("sagesla+w8a8 row", G13, "sagesla", True, 1, {"v_quant": "row"}),
          ("sagesla+w8a8 block64", G13, "sagesla", True, 1, {"sla_block": 64}),
-         ("sagesla+w8a8 topk0.3", G13, "sagesla", True, 2, {"sla_topk": TOPK_BS}),
+         ("sagesla+w8a8 topk0.3", G13, "sagesla", True, 1, {"sla_topk": TOPK_BS}),
          # dit_path: a checkpoint the port's writer saves first
-         ("1.3b checkpoint", G13, "sagesla", False, 2, {"dit_path": None}),
-         ("14b-sagesla+w8a8", G14, "sagesla", True, 2, {})]
+         ("1.3b checkpoint", G13, "sagesla", False, 1, {"dit_path": None}),
+         ("14b-sagesla+w8a8", G14, "sagesla", True, 2, {}),
+         ("14b-sagesla", G14, "sagesla", False, 2, {}),
+         ("14b-sla", G14, "sla", False, 1, {}),
+         ("14b-original", G14, "original", False, 1, {}),
+         # dit_path: a block-scaled DiT's state dict, made on the card
+         ("14b-block-scale", G14, "sagesla", False, 1, {"dit_path": "block"}),
+         ("14b-sagesla 720p", G14, "sagesla", False, 1, {"resolution": "720p"})]
 
 KERNELS = {
     # name: (source, TPU kernel launch it replaces)
@@ -902,19 +941,26 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
 
 
 def _wide_checks(randn, sdpa):
-    """Phase-2 checks of the 14B path's kernel forms (dim 5120, 40 heads,
-    FFN 13824): K15 on a projection's rows; K5's three passes of the fused
-    path at 40 heads, Q and K reading K15's RMS; K6 and K7 at 40 heads on
-    those planes (12 of 128 K blocks); K16 over K7-shaped planes (B, 40,
-    32,768, 128); K17 (q-norm with K15's RMS, cross attention over 512 text
-    keys, int8 O feed); K12 and K8-K11 at the 14B widths. No PyTorch call
-    computes K15-K17: SDPA of the cross shape is timed beside K17."""
+    """Phase-2 checks of the 14B paths' kernel forms (dim 5120, 40 heads,
+    FFN 13824): K1 at 5120 (the bf16 paths' norms); K2 at H*Dh 5120 (norm
+    only, the cross q; RoPE, the self q /
+    k of `sla` and `original`), with planted faults a kernel that stopped at
+    4096 would give, and once above 5120 (48 x 128);
+    K4 (cross 32,760 x 512, dense self 32,760^2) and K3 (512/256, 12 of 128
+    K blocks) at 40 heads; K15 on a projection's rows; K5's three passes of
+    the fused path at 40 heads, Q and K reading K15's RMS; K6 and K7 at 40
+    heads on those planes (12 of 128 K blocks); K16 over K7-shaped planes
+    (B, 40, 32,768, 128); K17 (q-norm with K15's RMS, cross attention over
+    512 text keys, int8 O feed); K12 and K8-K11 at the 14B widths. No
+    PyTorch call computes K15-K17: SDPA of the cross shape is timed beside
+    K17."""
     import torch
     from turbodiffusion_tpu_torch.models.rope import rope_freqs_3d
     from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
     from turbodiffusion_tpu_torch.ops import sla_fused as sf
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
     DIM, HEADS = G14.dim, G14.heads
     x = randn(B, L, DIM)
     xk, xv = randn(B, L, DIM), randn(B, L, DIM)
@@ -943,7 +989,73 @@ def _wide_checks(randn, sdpa):
     scale = DH ** -0.5
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
     n_x = x.numel()
+    F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
+    q, k, v = randn(B, L, HEADS, DH), randn(B, L, HEADS, DH), randn(B, L, HEADS, DH)
+    _, lut, topk = get_block_map(q, k, TOPK, BQ, BK)
+    pairs3 = _sparse_pairs(lut, BQ, BK, L, L)
+    # K2's planted faults past channel 4096: what a kernel that stopped there
+    # would leave in an output prefilled with NaN, and one weight channel
+    # there doubled (a kernel that never read it would pass that)
+    w_bad = w.clone()
+    w_bad[4100] *= 2
+
+    def past_4096_nan(out):
+        out.view(B, L, DIM)[..., 4096:] = float("nan")
+        return out
+
+    def k2_faults(cos_, sin_):
+        return {"channels past 4096 left NaN": lambda: past_4096_nan(
+                    fn._rmsrope_cuda(x, w, cos_, sin_, 1e-6, HEADS)),
+                "weight channel 4100 doubled": lambda: fn._rmsrope_cuda(
+                    x, w_bad, cos_, sin_, 1e-6, HEADS)}
+
+    WH = 48                                       # 6144 wide: above the 14B
+    x6 = randn(B, L, WH * DH)
+    w6 = (1 + randn(WH * DH, dtype=torch.float32, std=0.1)).bfloat16()
+    ops4 = lambda lk: {"bf16": 4 * B * HEADS * L * lk * DH}      # noqa: E731
     return [
+        # the bf16 14B's K1: norm3 (affine, as F.layer_norm computes it)
+        # first, then norm1 / norm2 (modulated)
+        Check("K1", f"14B affine (norm3) {L}x{DIM}",
+              lambda: fn._mln_cuda(x, None, None, w, bias, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6),
+              (x, w, bias), {"fp32": 8 * n_x},
+              lambda: torch.nn.functional.layer_norm(x, (DIM,), w, bias, 1e-6),
+              "F.layer_norm"),
+        Check("K1", f"14B mod (norm1/norm2) {L}x{DIM}",
+              lambda: fn._mln_cuda(x, ms, mb, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, ms, mb, None, None, 1e-6),
+              (x, ms, mb), {"fp32": 8 * n_x}),
+        Check("K2", f"14B norm only (cross q) {L}x{DIM}",
+              lambda: fn._rmsrope_cuda(x, w, None, None, 1e-6, HEADS),
+              lambda: fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH),
+              (x, w), {"fp32": 4 * n_x},
+              (lambda: F_rms_norm(x, (DIM,), w, 1e-6)) if F_rms_norm else None,
+              "F.rms_norm", faults=k2_faults(None, None)),
+        Check("K2", f"14B rope (self q/k) {L}x{DIM}",
+              lambda: fn._rmsrope_cuda(x, w, cosF, sinF, 1e-6, HEADS),
+              lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6),
+              (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
+              faults=k2_faults(cosF, sinF)),
+        Check("K2", f"rope {L}x{WH * DH} ({WH}x{DH}, above 5120)",
+              lambda: fn._rmsrope_cuda(x6, w6, cosF, sinF, 1e-6, WH),
+              lambda: fn.rmsnorm_rope_ref(x6, w6, cosF, sinF, 1e-6),
+              (x6, w6, cosF[:L], sinF[:L]), {"fp32": 10 * x6.numel()}),
+        Check("K3", f"14B sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}, "
+              f"{HEADS} heads",
+              lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
+              lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L),
+              (q, k, v, lut), {"bf16": 4 * DH * pairs3}),
+        Check("K4", f"14B cross {L}x{TEXT}, {HEADS} heads",
+              lambda: fa._flash_cuda(q, kt, vt, scale, TEXT),
+              lambda: fa.flash_attention_plain(q, kt, vt, scale, TEXT),
+              (q, kt, vt), ops4(TEXT), sdpa(q, kt, vt),
+              "F.scaled_dot_product_attention"),
+        Check("K4", f"14B dense self {L}x{L}, {HEADS} heads",
+              lambda: fa._flash_cuda(q, k, v, scale, L),
+              lambda: fa.flash_attention_plain(q, k, v, scale, L),
+              (q, k, v), ops4(L), sdpa(q, k, v),
+              "F.scaled_dot_product_attention"),
         Check("K15", f"row RMS inverse {L}x{DIM}",
               lambda: sf._row_rms_inv_cuda(x, 1e-6, None, 0),
               lambda: sf.row_rms_inv_plain(x, 1e-6), (x,), {"fp32": 2 * n_x},
@@ -1615,9 +1727,13 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     launchers = _launchers()
     cpu_args = (x.cpu(), e0.cpu(), tuple(t.cpu() for t in rope))
     with torch.no_grad():
-        lut_gpu = block_map(blk, x, e0, rope).cpu()
-        lut_cpu = block_map(blk_cpu, *cpu_args)
-        same = (lut_gpu.sort(-1).values == lut_cpu.sort(-1).values).all(-1)
+        # dense attention has no block map: every row compares
+        nq = -(-n // a.block_q)
+        same = torch.ones((batch, HEADS, nq), dtype=torch.bool)
+        if a.backend != "dense":
+            lut_gpu = block_map(blk, x, e0, rope).cpu()
+            lut_cpu = block_map(blk_cpu, *cpu_args)
+            same = (lut_gpu.sort(-1).values == lut_cpu.sort(-1).values).all(-1)
         bad_q = sorted(set((~same).nonzero()[:, 2].tolist()))
         for fn in launchers.values():
             fn.launches = 0
@@ -1649,10 +1765,12 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
     max_err, mean_err, _, want_mean, _ = _compare(
         f"phase3 {label} block", out.cpu()[:, keep], ref[:, keep], BLOCK_ATOL,
         BLOCK_RTOL)
+    lut_note = ("dense, no block map" if a.backend == "dense" else
+                f"LUT rows equal as sets {int(same.sum())}/{same.numel()} "
+                f"(Q-blocks left out of the comparison: {bad_q})")
     print(f"phase3 {geo.model} {label} block L={n}"
-          f"{' (proj_l != 0, linear branch on)' if lin else ''}: LUT rows "
-          f"equal as sets {int(same.sum())}/{same.numel()} (Q-blocks left out "
-          f"of the comparison: {bad_q}) | max_abs_err {max_err:.5g} "
+          f"{' (proj_l != 0, linear branch on)' if lin else ''}: {lut_note} "
+          f"| max_abs_err {max_err:.5g} "
           f"mean_abs_err {mean_err:.5g} (tol atol {BLOCK_ATOL} + rtol "
           f"{BLOCK_RTOL}; |want| mean {want_mean:.5g}) | card {ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | "
           f"{'two card runs bit-equal | ' if batch > 1 else ''}launches {counts}",
@@ -1948,17 +2066,45 @@ def _write_checkpoint(directory: str, block_scale: bool = True):
     return path, expected
 
 
+def _block_scale_state(geo: Geometry):
+    """A seeded random `sagesla` DiT of geo's widths with every block linear
+    quantised to 128x128 block scales on the card
+    (`quantize_wan_blocks(mode="block", fuse_qkv=False)`), as the
+    reference-named state dict `wan_state_dict_from_params` gives: what
+    `load_dit` reads from a `-quant` checkpoint, with no file written.
+    Returns (state dict, the model's state the load must reproduce)."""
+    from turbodiffusion_tpu_torch.models.wan import init_wan_params
+    from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
+    from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
+    from turbodiffusion_tpu_torch.utils.checkpoint import (
+        wan_state_dict_from_params)
+    t0 = time.perf_counter()
+    cfg = make_wan_cfg(geo.model, "sagesla", TOPK)
+    model = init_wan_params(cfg, seed=13, device="cuda")
+    quantize_wan_blocks(model.blocks, mode="block", fuse_qkv=False)
+    sd = wan_state_dict_from_params(model, cfg)
+    print(f"phase4 {geo.model} block-scale state dict: {len(sd)} tensors in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return sd, model.state_dict()
+
+
 def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
            requests: int, create_kw: dict, loaded_state=None):
-    """`requests` 480p/81f requests through WanPipeline.create(geo.model,
+    """`requests` 4-step 81-frame requests (480p unless create_kw names a
+    "resolution") through WanPipeline.create(geo.model,
     attention_type=attention, quant_linear=quant_linear, **create_kw), then
-    a traced denoise (`_profile_denoise`); frees the pipeline and returns
-    the launch counts of the last request. loaded_state: the DiT state the
-    checkpoint in create_kw must load into, tensor for tensor."""
+    one traced DiT call (`_profile_denoise`); frees the pipeline and returns
+    the launch counts of the last request. loaded_state: (the DiT state the
+    checkpoint in create_kw must load into, tensor for tensor; whether the
+    linear branch is on). Per request: each phase's time and peak, and the
+    VAE decode's own peak (at most VAE_OWN_PEAK_MAX_GIB at 480p)."""
     import torch
-    from turbodiffusion_tpu_torch.config import GenerationConfig
+    from turbodiffusion_tpu_torch.config import VIDEO_RES_SIZE_INFO, GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
 
+    create_kw = dict(create_kw)
+    res = create_kw.pop("resolution", "480p")
+    width, height = VIDEO_RES_SIZE_INFO[res]["16:9"]
     launchers = _launchers()
     want = {n: EXPECTED_LAUNCHES[label].get(n, 0) for n in launchers}
     t0 = time.perf_counter()
@@ -1969,21 +2115,22 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
     print(f"phase4 {label} create: {time.perf_counter() - t0:.1f} s, "
           f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     if loaded_state is not None:
+        state, linear_branch = loaded_state
         got = pipe.dit.state_dict()
-        bad = [k for k, v in loaded_state.items()
+        bad = [k for k, v in state.items()
                if k not in got or not torch.equal(got[k], v)]
-        if bad or len(got) != len(loaded_state) \
-                or not pipe.cfg.attention.linear_branch:
+        if bad or len(got) != len(state) \
+                or pipe.cfg.attention.linear_branch != linear_branch:
             raise AssertionError(f"{label}: loaded DiT differs from the written "
                                  f"one at {bad[:5]} (linear branch "
                                  f"{pipe.cfg.attention.linear_branch})")
         print(f"phase4 {label} load: all {len(got)} tensors equal the written "
-              f"model's (bf16 where the file is), linear branch on", flush=True)
+              f"model's (bf16 where a file is), linear branch "
+              f"{'on' if linear_branch else 'off'}", flush=True)
     counts = None
     for r in range(requests):
-        gen = GenerationConfig(num_steps=4, num_frames=81, resolution="480p",
+        gen = GenerationConfig(num_steps=4, num_frames=81, resolution=res,
                                aspect_ratio="16:9", seed=r)
-        torch.cuda.reset_peak_memory_stats()
         timings = {}
         for fn in launchers.values():
             fn.launches = 0
@@ -1995,21 +2142,29 @@ def phase4(label: str, geo: Geometry, attention: str, quant_linear: bool,
         counts = {n: fn.launches for n, fn in launchers.items()}
         if counts != want:
             raise AssertionError(f"{label} launch counts {counts} != {want}")
-        if tuple(video.shape) != (1, 3, 81, 480, 832):
+        if tuple(video.shape) != (1, 3, 81, height, width):
             raise AssertionError(f"video shape {tuple(video.shape)}")
         if not bool(torch.isfinite(video).all()):
             raise AssertionError("non-finite video")
         lo, hi = float(video.min()), float(video.max())
         if lo < 0.0 or hi > 1.0:
             raise AssertionError(f"video outside [0, 1]: [{lo}, {hi}]")
+        own = timings["vae_decode_peak_gib"] - timings["vae_decode_start_gib"]
+        if res == "480p" and own > VAE_OWN_PEAK_MAX_GIB:
+            raise AssertionError(f"{label}: the VAE decode rose {own:.2f} GiB "
+                                 f"above its start (> {VAE_OWN_PEAK_MAX_GIB})")
+        peaks = " | ".join(
+            f"{ph} peak {timings[f'{ph}_peak_gib']:.2f} GiB from "
+            f"{timings[f'{ph}_start_gib']:.2f}"
+            for ph in ("text_encode", "denoise", "vae_decode"))
         print(f"phase4 {label} request {r}: text-encode "
               f"{timings['text_encode_ms']:.1f} ms | denoise "
               f"{timings['denoise_ms']:.1f} ms | vae-decode "
               f"{timings['vae_decode_ms']:.1f} ms | wall {wall:.2f} s | peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | video "
-              f"{tuple(video.shape)} in [{lo:.3f}, {hi:.3f}] | launches "
-              f"{counts}", flush=True)
-    _profile_denoise(pipe, label)
+              f"{timings['peak_gib']:.2f} GiB ({peaks}; the decode's own "
+              f"{own:.2f}) | video {tuple(video.shape)} in [{lo:.3f}, "
+              f"{hi:.3f}] | launches {counts}", flush=True)
+    _profile_denoise(pipe, label, res)
     del pipe, video
     gc.collect()
     torch.cuda.empty_cache()
@@ -2026,6 +2181,12 @@ TRAIN_LAUNCHES = {
                    "K23": 30, "K24": 30},
     "none": {"K1": 180, "K2": 180, "K3": 30, "K4": 90, "K21": 30, "K23": 30,
              "K24": 30},
+    # `-- model.attention.backend=sagesla`, which applies to the teacher
+    # too, as in JAX (its train.py:118): two forwards of the fused path, K1
+    # 3, K2 1 and K4 1 (cross), K5 3, K6 1, K7 1 a block; the student's
+    # backward the composable VJP, K2 2, K21 1, K23 1, K24 1
+    "sagesla none": {"K1": 180, "K2": 120, "K4": 60, "K5": 180, "K6": 60,
+                     "K7": 60, "K21": 30, "K23": 30, "K24": 30},
 }
 TRAIN_FRAMES = {81: 21, 21: 6}    # clip frames -> latent frames
 
@@ -2091,9 +2252,10 @@ def _step_probe(label: str, want: dict, profile_step=None):
                 raise AssertionError(f"{label} step {it}: launches {counts} != "
                                      f"{want}")
             self.counts = {n: c for n, c in counts.items() if c}
-            loss = float(metrics["loss"])
-            if not math.isfinite(loss):
-                raise AssertionError(f"{label} step {it}: loss {loss}")
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{label} step {it}: loss {loss}, gradient "
+                                     f"norm {gnorm}")
             model = state.params
             for i in (0, len(model.blocks) - 1):
                 sa = model.blocks[i].self_attn
@@ -2105,8 +2267,7 @@ def _step_probe(label: str, want: dict, profile_step=None):
                                 metrics.items() if k.endswith("_ms"))
             self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             line = (f"phase5 {label} step {it}: wall {wall * 1e3:.1f} ms ({phases}) "
-                    f"| loss {loss:.6g} | grad norm "
-                    f"{float(metrics['grad_norm']):.4g} | peak "
+                    f"| loss {loss:.6g} | grad norm {gnorm:.4g} | peak "
                     f"{self.peaks[-1]:.2f} GiB | launches {self.counts}")
             if self.prof is not None:
                 self.prof.__exit__(None, None, None)
@@ -2154,26 +2315,43 @@ def phase5(tmp: str, ckpt: str, shards: dict):
     turbodiffusion_tpu_torch.scripts.train --experiment sla` runs it) on
     `_training_data`'s teacher checkpoint and shards: (1) 3
     steps at 480p/81f, full width and depth, --remat block_wise, step 2
-    profiled; (2) 1 step at 480p/21f, --remat none; (3) the checkpoint
-    round trip at 2 layers, full width (21f): 1 step saved, then a run
-    that resumes from it must start from the saved model, optimizer state
-    and generator state and take step 2. Returns run 1's last step's
-    launch counts."""
+    profiled; (2) 1 step at 480p/21f, --remat none; (3) the same with
+    `-- model.attention.backend=sagesla` (fused sagesla forward, its
+    composable VJP backward); (4) the checkpoint round trip at 2 layers,
+    full width (21f): 1 step saved, then a run that resumes from it must
+    start from the saved model, optimizer state and generator state and
+    take step 2. Returns run 1's last step's launch counts."""
     import torch
     from turbodiffusion_tpu_torch.scripts import train
     from turbodiffusion_tpu_torch.training.trainer import Callback
     base = ["--experiment", "sla", "--model", G13.model, "--teacher_ckpt",
             ckpt, "--seed", "0", "--lr", "1e-5"]
-    runs = [("block_wise 81f", 81, "block_wise", 3, 2),
-            ("none 21f", 21, "none", 1, None)]
+
+    class PerturbStudent(Callback):
+        """The override makes the teacher sagesla too (as in JAX), so the
+        student would start equal to it: loss and gradient exactly 0. A
+        head N(0, 0.02^2) apart gives the backward something to carry."""
+
+        def on_train_start(self, state):
+            g = torch.Generator(device="cuda").manual_seed(14)
+            with torch.no_grad():
+                w = state.params.head.head.weight
+                w.add_(0.02 * torch.randn(w.shape, generator=g, device=w.device))
+
+    # (label, frames, remat, steps, profiled step, launches, overrides,
+    # callbacks run before the probe)
+    runs = [("block_wise 81f", 81, "block_wise", 3, 2, "block_wise", [], []),
+            ("none 21f", 21, "none", 1, None, "none", [], []),
+            ("sagesla none 21f", 21, "none", 1, None, "sagesla none",
+             ["model.attention.backend=sagesla"], [PerturbStudent()])]
     peaks, counts = {}, None
-    for label, frames, remat, steps, prof_step in runs:
-        probe = _step_probe(label, TRAIN_LAUNCHES[remat], prof_step)
+    for label, frames, remat, steps, prof_step, launches, ovr, first in runs:
+        probe = _step_probe(label, TRAIN_LAUNCHES[launches], prof_step)
         t0 = time.perf_counter()
         train.main(base + ["--data", shards[frames], "--remat", remat,
                            "--max_iter", str(steps), "--ckpt_dir", "",
-                           "--time_phases", "--", "trainer.log_every=1"],
-                   callbacks=[probe])
+                           "--time_phases", "--", "trainer.log_every=1", *ovr],
+                   callbacks=[*first, probe])
         print(f"phase5 {label}: {steps} steps in "
               f"{time.perf_counter() - t0:.1f} s with set-up", flush=True)
         peaks[label] = max(probe.peaks)
@@ -2425,29 +2603,28 @@ PROFILE_CATEGORIES = [
 ]
 
 
-def _profile_denoise(pipe, label: str):
-    """The denoise phase of one warm request (4 DiT calls at 480p/81f) under
-    torch.profiler: device time by kernel category and the device's idle
-    share, as one printed line."""
+def _profile_denoise(pipe, label: str, resolution: str = "480p"):
+    """One DiT call of an 81-frame request (a quarter of its denoise; the
+    pipeline's requests warmed it) under torch.profiler: device time by
+    kernel category and the device's idle share, as one printed line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from turbodiffusion_tpu_torch.config import GenerationConfig
     from turbodiffusion_tpu_torch.pipelines.sampler import latent_shape
-    gen = GenerationConfig(num_frames=81, resolution="480p", aspect_ratio="16:9")
+    gen = GenerationConfig(num_frames=81, resolution=resolution,
+                           aspect_ratio="16:9")
     emb = pipe.text_encoder("a red fox running through snow").to(pipe.cfg.dtype)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((1, *latent_shape(gen)), generator=g, device="cuda")
     t = torch.full((1, 1), 500.0, device="cuda")
     with torch.no_grad():
-        pipe.dit(x, t, emb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(gen.num_steps):
-                pipe.dit(x, t, emb)
+            pipe.dit(x, t, emb)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    print(f"phase4 {label} profile, denoise 4 DiT calls: wall {wall:.1f} ms, "
+    print(f"phase4 {label} profile, one DiT call: wall {wall:.1f} ms, "
           f"{_profile_summary(prof)}", flush=True)
 
 
@@ -2525,29 +2702,47 @@ def main(argv=None) -> int:
         if bs != {"K27": 1, "K28": 1, "K21": 1, "K6": 0, "K7": 0}:
             raise AssertionError(f"phase3 block-scale pair launches {bs}")
         phase3("sagesla", True, geo=G14)
+        # the 14B's bf16 compositions (K2 at 5120) and its block-scaled one
+        for label, kw, must in (
+                ("sagesla", dict(attention="sagesla"),
+                 ("K1", "K2", "K4", "K5", "K6", "K7", "K15")),
+                ("sla", dict(attention="sla"), ("K1", "K2", "K3", "K4")),
+                ("original", dict(attention="original"), ("K1", "K2", "K4")),
+                ("block-scale", dict(attention="sagesla", block_scale=True),
+                 ("K1", "K2", "K4", "K5", "K6", "K7", "K15", "K22"))):
+            got = phase3(geo=G14, **kw)
+            missing = [n for n in must if not got.get(n)]
+            if missing:
+                raise AssertionError(f"phase3 14B {label}: {missing} never launched")
         for attention, sla_block in TRAIN_BLOCK_LAUNCHES:
             phase3_train(attention, sla_block)
         for attention in ("original", "sla"):
             phase3_jvp(attention)
     counts = {}
     if 4 in phases:
-        # a kernel's launches come from the 14B path (run last) where it
-        # runs there, else from the first earlier path that runs it; K21,
-        # which no request runs (random weights: proj_l = 0), from the
-        # phase-3 block of the row path
+        # a kernel's launches come from the first 14B path that runs it,
+        # else from the first 1.3B path; K21, which no request runs (random
+        # weights: proj_l = 0), from the phase-3 block of the row path
         by_path = []
         for path in PATHS:
-            if "dit_path" not in path[5]:
-                by_path.append(phase4(*path))
-                continue
-            from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                ckpt, state = _write_checkpoint(tmp)
-                by_path.append(phase4(*path[:5], {**path[5], "dit_path": ckpt},
-                                      loaded_state=state))
-                del state
-        for path_counts in by_path[-1:] + by_path[:-1]:
+            label, geo, *_, create_kw = path
+            if create_kw.get("dit_path") == "block":
+                sd, state = _block_scale_state(geo)
+                by_path.append((geo, phase4(*path[:5], {**create_kw, "dit_path": sd},
+                                            loaded_state=(state, False))))
+                del sd, state
+            elif "dit_path" in create_kw:
+                from turbodiffusion_tpu_torch.ops._build import BUILD_DIR
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                    ckpt, state = _write_checkpoint(tmp)
+                    by_path.append((geo, phase4(*path[:5],
+                                                {**create_kw, "dit_path": ckpt},
+                                                loaded_state=(state, True))))
+                    del state
+            else:
+                by_path.append((geo, phase4(*path)))
+        for geo, path_counts in sorted(by_path, key=lambda gc_: gc_[0] != G14):
             for name, c in path_counts.items():
                 counts[name] = counts.get(name) or c
         counts["K21"] = block_counts.get("row", {}).get("K21", 0)

@@ -477,18 +477,40 @@ def test_strip_prefix_and_safetensors_match_jax(tmp_path):
     assert merged["w"].tolist() == [1.5, 1.5] and set(merged) == {"w", "n", "p"}
 
 
-def test_check_ported_decides_from_the_loaded_layout():
-    """A 14B block-scale checkpoint runs the bf16 feeds at dim 5120 (K2
-    above 4096) and is refused on a card naming Queue A item 15; a 14B
-    postscale checkpoint takes the W8A8 path with or without
-    --quant_linear; the CPU refuses nothing."""
-    for layout, ql in (("block", True), ("block", False), ("float", False)):
-        with pytest.raises(NotImplementedError, match="Queue A item 15"):
-            pipeline.check_ported("Wan2.1-14B", "sagesla", ql, "cuda", layout)
-    for layout, ql in (("postscale", False), ("float", True)):
-        pipeline.check_ported("Wan2.1-14B", "sagesla", ql, "cuda", layout)
-    pipeline.check_ported("Wan2.1-14B", "sagesla", False, "cpu", "block")
-    pipeline.check_ported("Wan2.1-1.3B", "sagesla", False, "cuda", "block")
+def test_check_ported_decides_from_the_loaded_layout(monkeypatch):
+    """No configuration is refused any more: a 14B DiT in each layout
+    (block-scaled, postscale, float) reaches `load_dit` on `cuda`, with or
+    without --quant_linear, under every attention type, its state dict
+    handed on as it is (a path or a dict in memory) and the 14B's config.
+    The name is kept from when `check_ported` refused some of these
+    layouts; the test now holds that none is refused."""
+    seen = []
+
+    def load_dit(dit_path, cfg, seed, device):
+        seen.append((ckpt.checkpoint_layout(dit_path), cfg.dim,
+                     cfg.quant_linear, cfg.attention.backend, device.type))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(pipeline, "load_dit", load_dit)
+    q = "blocks.0.self_attn.q"
+    layouts = {
+        "block": {f"{q}.int8_weight": torch.zeros(256, 256, dtype=torch.int8),
+                  f"{q}.scale": torch.ones(2, 2)},
+        "postscale": {f"{q}.int8_weight": torch.zeros(256, 256, dtype=torch.int8),
+                      f"{q}.scale": torch.ones(256)},
+        "float": {f"{q}.weight": torch.zeros(256, 256)}}
+    want = []
+    for layout, sd in layouts.items():
+        for ql in (False, True):
+            for attention in ("sagesla", "sla", "original"):
+                with pytest.raises(SystemExit):
+                    pipeline.WanPipeline.create(
+                        model="Wan2.1-14B", dit_path=sd, attention_type=attention,
+                        quant_linear=ql, device="cuda")
+                want.append((layout, 5120, ql, "dense" if attention == "original"
+                             else attention, "cuda"))
+    assert seen == want
+    assert not hasattr(pipeline, "check_ported")
 
 
 # ---------------------------------------------------------------------------

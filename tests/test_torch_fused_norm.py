@@ -4,7 +4,8 @@ The same numpy-seeded inputs go through the JAX Pallas kernels in interpret
 mode (`_mln_pallas`, `_rmsrope_pallas`) and through the port's wrappers,
 which take their plain versions on CPU tensors. Shapes follow
 tests/test_fused_norm.py: DIM 256, 2 heads x 128, SEQ 528 (a ragged tail
-for the 128-row Pallas blocks). Tolerances: fp32 atol 1e-5 (the same fp32
+for the 128-row Pallas blocks); K2 also above H*Dh 4096 (40 and 48 heads
+of 128, 48 rows, bf16). Tolerances: fp32 atol 1e-5 (the same fp32
 math in another summation order); bf16 atol 2e-2 as in test_fused_norm.py,
 plus rtol 2^-8: where the two frameworks round an fp32 intermediate to
 neighbouring bf16 values, the output moves by one bf16 step, which is
@@ -81,21 +82,44 @@ def test_rope_tables_match_jax():
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rope", [True, False])
-def test_k2_plain_matches_rmsrope_pallas(rope, dtype):
-    """K2 with rotate-half RoPE (self-attention Q/K) and without (cross Q)."""
-    j, t = _inputs(dtype)
+def _wide_inputs(heads: int, seq: int = 48):
+    """bf16 (x, w) of H*Dh = heads x 128 channels, as numpy-seeded pairs."""
+    r = np.random.RandomState(1)
+    x = r.randn(B, seq, heads * DH).astype(np.float32)
+    w = (1.0 + 0.1 * r.randn(heads * DH)).astype(np.float32)
+    return ((jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w).astype(jnp.bfloat16)),
+            (torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()))
+
+
+# the model's width (2 x 128) in both dtypes; above H*Dh 4096 in bf16: the
+# 14B's 40 x 128 and 48 x 128 (6144, wider than any model of the repo)
+K2_CASES = [pytest.param(rope, HEADS, dtype, id=f"{rope}-{dtype}")
+            for dtype in ("float32", "bfloat16") for rope in (True, False)]
+K2_CASES += [pytest.param(rope, heads, "bfloat16", id=f"{rope}-{heads}x128")
+             for heads in (40, 48) for rope in (True, False)]
+
+
+@pytest.mark.parametrize("rope,heads,dtype", K2_CASES)
+def test_k2_plain_matches_rmsrope_pallas(rope, heads, dtype):
+    """K2 with rotate-half RoPE (self-attention Q/K) and without (cross Q),
+    at the model's width and above H*Dh 4096 (48 rows there)."""
+    if heads == HEADS:
+        j, t = _inputs(dtype)
+        (xj, wj), (xt, wt) = (j["x"], j["w"]), (t["x"], t["w"])
+    else:
+        (xj, wj), (xt, wt) = _wide_inputs(heads)
+    seq = xt.shape[1]
     cj = sj = ct = st = None
     if rope:
         cj, sj = rope_cos_sin_full_jax(rope_freqs_3d_jax(T, H_SP, W_SP * 11, DH))
         ct, st = fn.rope_cos_sin_full(rope_freqs_3d(T, H_SP, W_SP * 11, DH))
-    want = _rmsrope_pallas(j["x"], j["w"], cj, sj, 1e-5, HEADS,
-                           interpret=True, block_l=128)
-    got = fn.rmsnorm_rope(t["x"], t["w"], ct, st, num_heads=HEADS, eps=1e-5)
-    assert got.shape == (B, SEQ, HEADS, DH) and got.dtype == t["x"].dtype
+        cj, sj, ct, st = cj[:seq], sj[:seq], ct[:seq], st[:seq]
+    want = _rmsrope_pallas(xj, wj, cj, sj, 1e-5, heads, interpret=True,
+                           block_l=128)
+    got = fn.rmsnorm_rope(xt, wt, ct, st, num_heads=heads, eps=1e-5)
+    assert got.shape == (B, seq, heads, DH) and got.dtype == xt.dtype
     np.testing.assert_allclose(got.float().numpy(),
-                               _np(want).reshape(B, SEQ, HEADS, DH),
+                               _np(want).reshape(B, seq, heads, DH),
                                atol=ATOL[dtype], rtol=RTOL[dtype])
 
 

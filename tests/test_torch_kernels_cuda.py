@@ -80,6 +80,44 @@ def test_k2_matches_plain(dev, rope):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [40, 48])
+@pytest.mark.parametrize("rope", [True, False])
+def test_k2_wide_matches_plain(dev, heads, rope):
+    """K2 above H*Dh 4096: the 14B's 40 x 128 and 48 x 128 (wider than any
+    model of the repo), every channel checked."""
+    D = heads * DH
+    x = _randn(dev, 1, 300, D).bfloat16()
+    w = (1 + _randn(dev, D, seed=3, std=0.1)).bfloat16()
+    cos = sin = None
+    if rope:
+        cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 6, 25, DH, device=dev))
+    before = fn._rmsrope_cuda.launches
+    got = fn.rmsnorm_rope(x, w, cos, sin, num_heads=heads, eps=1e-5)
+    assert fn._rmsrope_cuda.launches == before + 1
+    want = (fn.rmsnorm_rope_ref(x, w, cos, sin, 1e-5) if rope else
+            fn.rms_norm(x, w, 1e-5).reshape(got.shape))
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_k2_entry_refuses_what_it_cannot_compute(dev):
+    """tdx_rmsnorm_rope returns cudaErrorInvalidValue (1) for an odd head
+    dim or a row stride shorter than the row, and launches nothing."""
+    from turbodiffusion_tpu_torch.ops import _build
+    x = torch.zeros(4, 5120, dtype=torch.bfloat16, device=dev)
+    out = torch.full_like(x, float("nan"))
+    w = torch.ones(5120, dtype=torch.bfloat16, device=dev)
+    lib = _build.load()
+    for ld, H, Dh in ((5120, 40, 127), (4096, 40, 128)):
+        rc = lib.tdx_rmsnorm_rope(x.data_ptr(), out.data_ptr(), w.data_ptr(),
+                                  None, None, ld, 4, 4, H, Dh, 1e-5,
+                                  _build.stream_ptr(x))
+        assert rc == 1
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (300, 128, 64)])
 def test_k3_matches_plain(dev, L, bq, bk):
     q, k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (5, 6, 7))

@@ -130,6 +130,25 @@ def test_vae_decode_matches_jax(chunk):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+@pytest.mark.parametrize("first", [True, False], ids=["frame0", "chunk"])
+def test_vae_causal_caches_own_their_frames(first):
+    """Every causal cache the decoder leaves holds its input's last 2
+    frames in memory of its own: a view would keep the conv's whole input
+    alive until the next chunk (the decode's memory at full size). The
+    first chunk (latent frame 0) and a later chunk of 4."""
+    torch.manual_seed(0)
+    vae = WanVAE(VAEConfig(dim=16, dtype=torch.float32))
+    z = torch.randn(1, 16, 5, 4, 4)
+    with torch.no_grad():
+        _, cache = vae.decoder(z[:, :, :1], None, first=True)
+        if not first:
+            _, cache = vae.decoder(z[:, :, 1:], cache, first=False)
+    assert cache
+    for key, t in cache.items():
+        assert t.shape[2] == 2, key
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size(), key
+
+
 def test_t2v_slice_matches_jax(monkeypatch):
     """make_wan_cfg('test', 'sla') end to end: text encode, 4 rCM steps over
     the DiT (seeded head), VAE decode."""

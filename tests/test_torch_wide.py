@@ -1,7 +1,8 @@
 """The wide-model (Wan2.1-14B: dim 5120, 40 heads of 128) path of the port
 against the JAX package: K15 (`row_rms_inv`), K5's external-RMS mode, K16
 (wide `unfold_quant`), K17 (wide `cross_attention_qout`), the wide branch of
-`sla_attention_fused`, one W8A8 block and a 2-layer W8A8 forward.
+`sla_attention_fused`, one W8A8 block and a 2-layer W8A8 forward, and bf16
+sagesla, sla and original blocks (K2 at H*Dh 5120).
 
 The kernels take their plain versions on CPU tensors; the JAX kernels run in
 interpret mode, as the JAX package's own tests run them. Inputs are
@@ -21,7 +22,11 @@ numpy-seeded. Tolerances, with reasons:
     W8A8 block rule: bf16 outputs and int8 values one LSB apart upstream of
     a GEMM), against JAX with its TPU branches taken (the backend reported
     as "tpu", every Pallas entry point in interpret mode, its calls
-    counted).
+    counted);
+  * the bf16 blocks: the same rule (bf16 outputs; fused sagesla's int8 Q
+    and K one LSB apart where XLA's excess precision moves a bf16 step,
+    ROADMAP Queue C), JAX's TPU branches taken as above, `_rmsrope_pallas`
+    among them.
 """
 
 import dataclasses
@@ -115,32 +120,32 @@ def test_14b_preset_matches_jax():
 
 
 def test_cli_refuses_14b_without_w8a8_sagesla_on_the_card(monkeypatch):
-    """`--model Wan2.1-14B` on `cuda` reaches WanPipeline.create only with
-    --quant_linear and sagesla; otherwise it raises naming its ROADMAP
-    item. On the CPU (plain versions) it is not refused."""
+    """Nothing is refused any more: `--model Wan2.1-14B` on `cuda` reaches
+    WanPipeline.create with bf16 or W8A8 linears and `sagesla`, `sla` or
+    `original` attention, at 480p and 720p; on the CPU too. The name is
+    kept from when the CLI refused the bf16 forms on the card; the test
+    now holds that none is refused."""
     from turbodiffusion_tpu_torch.inference.wan2_1_t2v import main
     from turbodiffusion_tpu_torch.pipelines import pipeline
-    seen = {}
+    seen = []
 
     def create(**kw):
-        seen.update(kw)
+        seen.append((kw["model"], kw["quant_linear"], kw["attention_type"],
+                     kw["device"]))
         raise SystemExit(0)
 
     monkeypatch.setattr(pipeline.WanPipeline, "create", staticmethod(create))
     base = ["--model", "Wan2.1-14B", "--random_weights", "--prompt", "x"]
-    for extra in ([], ["--attention_type", "sla", "--quant_linear"],
-                  ["--attention_type", "original", "--quant_linear"]):
-        with pytest.raises(NotImplementedError, match="Queue A item 15"):
-            main(base + ["--device", "cuda"] + extra)
-    assert not seen
-    with pytest.raises(SystemExit):
-        main(base + ["--device", "cuda", "--quant_linear"])
-    assert (seen["model"], seen["quant_linear"], seen["attention_type"],
-            seen["device"]) == ("Wan2.1-14B", True, "sagesla", "cuda")
-    seen.clear()
-    with pytest.raises(SystemExit):
-        main(base + ["--device", "cpu"])
-    assert seen["quant_linear"] is False
+    want = []
+    for device in ("cuda", "cpu"):
+        for attention in ("sagesla", "sla", "original"):
+            for extra in ([], ["--quant_linear"], ["--resolution", "720p"]):
+                with pytest.raises(SystemExit):
+                    main(base + ["--device", device, "--attention_type",
+                                 attention] + extra)
+                want.append(("Wan2.1-14B", extra == ["--quant_linear"],
+                             attention, device))
+    assert seen == want
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +293,7 @@ def test_sla_attention_fused_wide_matches_jax(topk):
 
 
 # ---------------------------------------------------------------------------
-# one W8A8 block and a 2-layer forward against JAX with its TPU branches
+# JAX with its TPU branches on the CPU, and the 5120-wide test tree
 # ---------------------------------------------------------------------------
 
 SIZE = dict(dim=HD, ffn_dim=1536, num_heads=H)    # FFN BN 768, as at 14B
@@ -314,12 +319,15 @@ def _count(fn_, calls, name):
     return run
 
 
-def _patch_tpu_jax(monkeypatch, calls):
+def _patch_tpu_jax(monkeypatch, calls, clear: bool = True):
     """JAX as it runs on the TPU, on the CPU (test-only): the backend
     reported as "tpu", so wan_block takes its fused and qout branches, and
     every Pallas entry point the block reaches in interpret mode, its calls
     counted in `calls` (the wide unfold's two kernel bodies and the wide
-    cross kernel counted where the jitted callers trace them)."""
+    cross kernel counted where the jitted callers trace them, after the
+    compile caches are cleared; clear=False keeps what earlier tests
+    compiled, for a caller that counts only entry points called from
+    Python)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(attention_jax, "_use_pallas", lambda *a, **k: False)
     for mod, name in ((fused_norm_jax, "_mln_pallas"),
@@ -336,7 +344,8 @@ def _patch_tpu_jax(monkeypatch, calls):
                       (sla_fused_jax, "_unfold_write_kernel"),
                       (flash_pallas_jax, "_cross_attention_qout_wide")):
         monkeypatch.setattr(mod, name, _count(getattr(mod, name), calls, name))
-    jax.clear_caches()          # the jitted callers trace the counted bodies
+    if clear:
+        jax.clear_caches()      # the jitted callers trace the counted bodies
 
 
 def _spy_port(monkeypatch, calls):
@@ -349,29 +358,128 @@ def _spy_port(monkeypatch, calls):
 
 
 @pytest.fixture(scope="module")
-def w8a8_models():
-    """The JAX config, the JAX W8A8 tree (`quantize_wan_blocks`, unfused
-    QKV as JAX quantises dim >= 4096) and the port's WanModel loaded from
-    it: SIZE, 2 layers, the head drawn N(0, 0.02^2). Built once for the
-    block test (layer 0) and the forward test: the 5120-wide init is most
-    of their time."""
+def wide_tree():
+    """The JAX config and a 2-layer bf16 JAX tree at SIZE, as numpy (the
+    head drawn N(0, 0.02^2)): the 5120-wide init is most of the W8A8 and
+    bf16 tests' time, so they share it."""
     from turbodiffusion_tpu.models.wan import init_wan_params as init_jax
     cfg_j = config_jax.wan_test_config(
         attention=config_jax.AttentionConfig(**ATTN), dtype=jnp.bfloat16,
         num_layers=2, **SIZE)
-    cfg_t = config_t.wan_test_config(
-        attention=config_t.AttentionConfig(**ATTN), dtype=torch.bfloat16,
-        quant_linear=True, num_layers=2, **SIZE)
     params = jax.tree.map(np.array, jax.jit(init_jax, static_argnums=1)(
         jax.random.PRNGKey(0), cfg_j))
     head = params["head"]["head"]
     head["w"] = (0.02 * np.random.RandomState(1).randn(
         *head["w"].shape)).astype(np.float32)
+    return cfg_j, params
+
+
+# ---------------------------------------------------------------------------
+# bf16 blocks (sagesla, sla, original) against JAX with its TPU branches:
+# K2 at 5120 on the cross q, and on the self q / k outside fused sagesla
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bf16_block(wide_tree):
+    """Layer 0 of `wide_tree` as a port block (bf16 linears, with proj_l;
+    the rest of the model stays on the meta device) and as a JAX block."""
+    _, params = wide_tree
+    cfg_t = config_t.wan_test_config(
+        attention=config_t.AttentionConfig(**ATTN), dtype=torch.bfloat16,
+        num_layers=1, **SIZE)
+    blk = WanModel(cfg_t, device="meta").blocks[0].to_empty(device="cpu")
+    block0 = jax.tree.map(lambda a: a[0], params["blocks"])
+    load_jax_params(blk, block0)
+    return blk, jax.tree.map(jnp.asarray, block0)
+
+
+# per block, JAX with its TPU branches: K1 x 3, then K2 on the cross q and,
+# outside fused sagesla, on the self q and k; fused sagesla takes K15 first
+# on Q and K (the wide form)
+JAX_BF16_CALLS = {
+    "sagesla": {"_mln_pallas": 3, "_rmsrope_pallas": 1, "row_rms_inv": 2,
+                "sla_attention_fused": 1},
+    "sla": {"_mln_pallas": 3, "_rmsrope_pallas": 3},
+    "dense": {"_mln_pallas": 3, "_rmsrope_pallas": 3},
+}
+
+
+@pytest.mark.parametrize("backend", sorted(JAX_BF16_CALLS))
+def test_bf16_wide_block_matches_jax_wan_block(monkeypatch, bf16_block, backend):
+    """WanAttentionBlock at dim 5120, 40 heads, bf16 linears, 256 tokens, as
+    the 14B's bf16 forms run it, against JAX `wan_block` on its TPU branches
+    (`_rmsrope_pallas` in interpret mode at H*Dh 5120, counted); the port's
+    K2 plain version runs as often."""
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    attn = {**ATTN, "backend": backend}
+    cfg_j = config_jax.wan_test_config(
+        attention=config_jax.AttentionConfig(**attn), dtype=jnp.bfloat16,
+        num_layers=1, **SIZE)
+    cfg_t = config_t.wan_test_config(
+        attention=config_t.AttentionConfig(**attn), dtype=torch.bfloat16,
+        num_layers=1, **SIZE)
+    blk, block_j = bf16_block
+    for m in blk.modules():       # one set of weights, this attention
+        if hasattr(m, "cfg"):
+            monkeypatch.setattr(m, "cfg", cfg_t)
+    n = int(np.prod(GRID))
+    x, e0, ctx = _rand((1, n, HD), 60), _rand((1, 6, HD), 61, 0.1), \
+        _rand((1, 16, HD), 62)
+    cosF, sinF = rope_cos_sin_full(rope_freqs_3d(*GRID, DH))
+
+    port_calls = {}
+    monkeypatch.setattr(fn, "_rmsrope_plain",
+                        _count(fn._rmsrope_plain, port_calls, "_rmsrope_plain"))
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x).bfloat16(), torch.from_numpy(e0),
+                              (cosF, sinF), torch.from_numpy(ctx).bfloat16()
+                              ).float().numpy()
+    assert port_calls == {"_rmsrope_plain": JAX_BF16_CALLS[backend]["_rmsrope_pallas"]}
+
+    # every entry point counted here is called from Python (wan_block runs
+    # eagerly), so the caches are kept: fused sagesla reuses the kernels
+    # test_sla_attention_fused_wide_matches_jax[0.5] compiled at these
+    # shapes (this section runs before the W8A8 tests clear them)
+    jax_calls, widths = {}, []
+    _patch_tpu_jax(monkeypatch, jax_calls, clear=False)
+    rmsrope = fused_norm_jax._rmsrope_pallas
+
+    def rmsrope_width(x, *a, **k):
+        widths.append(k.get("width") or x.shape[-1])
+        return rmsrope(x, *a, **k)
+
+    monkeypatch.setattr(fused_norm_jax, "_rmsrope_pallas", _force(
+        rmsrope_width, jax_calls, "_rmsrope_pallas"))
+    want = np.asarray(wan_jax.wan_block(
+        block_j, jnp.asarray(x, jnp.bfloat16), jnp.asarray(e0),
+        (jnp.asarray(cosF.numpy()), jnp.asarray(sinF.numpy())),
+        jnp.asarray(ctx, jnp.bfloat16), cfg_j), np.float32)
+    assert jax_calls == JAX_BF16_CALLS[backend], jax_calls
+    assert widths and set(widths) == {HD}          # the TPU kernel at 5120
+    assert got.shape == want.shape == (1, n, HD)
+    scale = np.abs(want).max()
+    assert scale > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -6 * scale)
+
+
+# ---------------------------------------------------------------------------
+# one W8A8 block and a 2-layer forward against JAX with its TPU branches
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def w8a8_models(wide_tree):
+    """The JAX config, the JAX W8A8 tree (`quantize_wan_blocks`, unfused
+    QKV as JAX quantises dim >= 4096) and the port's WanModel loaded from
+    it: SIZE, 2 layers. Built once for the block test (layer 0) and the
+    forward test."""
+    cfg_j, params = wide_tree
+    cfg_t = config_t.wan_test_config(
+        attention=config_t.AttentionConfig(**ATTN), dtype=torch.bfloat16,
+        quant_linear=True, num_layers=2, **SIZE)
     qtree = dict(params)
     qtree["blocks"] = jax.tree.map(np.array, quant_jax.quantize_wan_blocks(
         jax.tree.map(jnp.asarray, params["blocks"]), mode="postscale",
         fuse_qkv=False))
-    del params
     # no random init (the load overwrites every value); zeros keep the
     # quantiser's input finite
     model = WanModel(cfg_t, device="meta").to_empty(device="cpu")

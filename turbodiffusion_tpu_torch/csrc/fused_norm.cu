@@ -9,20 +9,22 @@
 // K2 tdx_rmsnorm_rope replaces
 //    turbodiffusion_tpu/ops/fused_norm.py:_rmsrope_pallas (body _rmsrope_kernel).
 //    Its input rows are `ld` elements apart, so the Q or K column group of the
-//    fused (B, L, 3*D) QKV GEMM output is read in place.
+//    fused (B, L, 3*D) QKV GEMM output is read in place. Like the TPU kernel
+//    it takes any H*Dh with an even Dh (to 2^30 elements); the C entry
+//    refuses the rest with cudaErrorInvalidValue.
 //
 // What bounds them on an H100: memory. Each is one read and one write of a
 // (B*L, D) activation (about 200 MB per call at the 1.3B 480p shape,
 // D = 1536, L = 32,760; K12 writes int8, 150 MB in all: 0.045 ms at
 // 3.35 TB/s) with a few FLOPs per element, far below the ~295 FLOP/byte
-// ridge. The design keeps the whole row in registers: one block of 256
-// threads per row, each thread holding up to 8 element pairs (K1 and K12 up
-// to 10, the 14B's 5120-wide rows, as a second instance of the template so
-// the narrow rows keep their registers), so x is read once, the statistics
-// are block reductions over registers (K12 adds one for the row's absmax),
-// and the output is written once — no fp32 intermediate ever reaches device
-// memory. Pairs are read as bf16x2 (K1, K12) so a warp moves 128 contiguous
-// bytes.
+// ridge. One block of 256 threads per row. K1 and K12 keep the whole row in
+// registers, each thread holding up to 8 element pairs (up to 10, the 14B's
+// 5120-wide rows, as a second instance of the template so the narrow rows
+// keep their registers), so x is read once; K2 reads its row twice, the
+// second time from L2. The statistics are block reductions (K12 adds one for
+// the row's absmax), and the output is written once — no fp32 intermediate
+// ever reaches device memory. Pairs are read as bf16x2 (K1, K12) so a warp
+// moves 128 contiguous bytes.
 //
 // All follow the JAX cast chain exactly (fused_norm.py:43-65, :68-93,
 // :241-260):
@@ -44,7 +46,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPairs = 8;   // rows of up to 2 * 8 * 256 = 4096 elements
+constexpr int kMaxPairs = 8;   // K1 / K12 rows of up to 2 * 8 * 256 = 4096 elements
 constexpr int kWidePairs = 10; // K1 / K12 rows of up to 5120 elements
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -177,8 +179,12 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
   if (threadIdx.x == 0) rs[row] = scale;
 }
 
-// One block per row. Pair p = (head h, index i < Dh/2) holds the two
-// channels that rotate-half RoPE mixes: h*Dh + i and h*Dh + i + Dh/2.
+// One block per row, at any width. Pair p = (head h, index i < Dh/2) holds
+// the two channels that rotate-half RoPE mixes: h*Dh + i and h*Dh + i + Dh/2.
+// Each thread walks its pairs twice, once for the sum of squares and once for
+// the output, reading x again (from L2: a block's row is a few tens of KB).
+// Holding the row in registers instead (8 pairs a thread to 4096, 10 to 5120)
+// was 12-18% slower on an H100 at widths 1536 and 5120 (tools/time_k2.py).
 __global__ void __launch_bounds__(kThreads)
 rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
                const __nv_bfloat16* __restrict__ weight,
@@ -193,30 +199,20 @@ rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   const __nv_bfloat16* xr = x + (size_t)row * ld;
   __nv_bfloat16* orow = out + (size_t)row * HD;
 
-  float a[kMaxPairs], c[kMaxPairs];
   float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    a[k] = c[k] = 0.f;
-    if (p < npairs) {
-      const int e0 = (p / half) * Dh + (p % half);
-      a[k] = bf2f(xr[e0]);
-      c[k] = bf2f(xr[e0 + half]);
-    }
-    s += a[k] * a[k] + c[k] * c[k];
+  for (int p = threadIdx.x; p < npairs; p += kThreads) {
+    const int e0 = (p / half) * Dh + (p % half);
+    const float a = bf2f(xr[e0]), c = bf2f(xr[e0 + half]);
+    s += a * a + c * c;
   }
   const float rms = rsqrtf(block_sum(s, red) / HD + eps);
 
-#pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    if (p >= npairs) continue;
+  for (int p = threadIdx.x; p < npairs; p += kThreads) {
     const int i = p % half;
     const int e0 = (p / half) * Dh + i;
     // cast to bf16 BEFORE the (bf16) weight multiply, as WanRMSNorm does
-    const float y0 = round_bf16(round_bf16(a[k] * rms) * bf2f(weight[e0]));
-    const float y1 = round_bf16(round_bf16(c[k] * rms) * bf2f(weight[e0 + half]));
+    const float y0 = round_bf16(round_bf16(bf2f(xr[e0]) * rms) * bf2f(weight[e0]));
+    const float y1 = round_bf16(round_bf16(bf2f(xr[e0 + half]) * rms) * bf2f(weight[e0 + half]));
     if (cos_full) {
       const float* cs = cos_full + (size_t)l * Dh;
       const float* sn = sin_full + (size_t)l * Dh;
@@ -273,6 +269,11 @@ extern "C" int tdx_rmsnorm_rope(const void* x, void* out, const void* weight,
                                 const void* cos_full, const void* sin_full,
                                 long long ld, int rows, int L, int H, int Dh, float eps,
                                 void* stream) {
+  // a row of H*Dh elements with an even Dh, up to 2^30 (no int overflows)
+  const long long HD = (long long)H * Dh;
+  if (rows < 0 || L <= 0 || H <= 0 || Dh <= 0 || Dh % 2 || HD > (1LL << 30) || ld < HD)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
   rmsrope_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (const __nv_bfloat16*)weight,
       (const float*)cos_full, (const float*)sin_full, ld, L, H, Dh, eps);

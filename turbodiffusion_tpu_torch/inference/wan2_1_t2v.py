@@ -17,7 +17,7 @@ Usage:
       --prompt "..." [--attention_type sagesla|sla|original] [--quant_linear]
       [--v_quant channel|row] [--sla_block 64|128|256] [--num_steps 4]
   python -m turbodiffusion_tpu_torch.inference.wan2_1_t2v --random_weights \
-      --model Wan2.1-14B --quant_linear --prompt "..."   # W8A8 sagesla only
+      --model Wan2.1-14B [--quant_linear] [--resolution 720p] --prompt "..."
 """
 
 from __future__ import annotations
@@ -94,13 +94,8 @@ def main(argv=None):
         raise SystemExit("--dit_path is required (or pass --random_weights)")
 
     from turbodiffusion_tpu_torch.config import GenerationConfig
-    from turbodiffusion_tpu_torch.pipelines.pipeline import (
-        WanPipeline, check_ported)
+    from turbodiffusion_tpu_torch.pipelines.pipeline import WanPipeline
     from turbodiffusion_tpu_torch.utils.video_io import save_video
-    if args.dit_path is None:
-        # a checkpoint's layout is checked by create, once it is read
-        check_ported(args.model, args.attention_type, args.quant_linear,
-                     args.device)
 
     pipe = WanPipeline.create(
         model=args.model, dit_path=args.dit_path, vae_path=args.vae_path,

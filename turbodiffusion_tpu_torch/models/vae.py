@@ -11,6 +11,11 @@ cache — each causal conv sees [2 cached frames, chunk]; latent frame 0
 bypasses the temporal upsample, so T_pixel = 1 + 4*(T_latent - 1). Module
 and parameter names follow the JAX parameter tree (weights in torch layout
 in both). Encode waits for I2V.
+
+Memory (the decode's own peak is what a request adds to the resident
+models): each causal cache holds a copy of its input's last 2 frames, not
+a view that would keep the whole input alive; the RMS norm works in one
+fp32 buffer in place; the 2x upsample makes one copy.
 """
 
 from __future__ import annotations
@@ -81,10 +86,21 @@ class RMSNormC(nn.Module):
         self.gamma = nn.Parameter(torch.ones(gamma_shape, device=device, dtype=dtype))
 
     def forward(self, x):
-        xf = x.float()
-        y = xf / xf.norm(dim=1, keepdim=True).clamp_min(1e-12) * (x.shape[1] ** 0.5)
-        g = self.gamma.float().reshape(1, -1, *([1] * (x.dim() - 2)))
-        return (y * g).to(x.dtype)
+        # one fp32 copy of x, updated in place: the same operations in the
+        # same order as `x / ||x|| * sqrt(C) * gamma`
+        y = x.to(torch.float32, copy=True)
+        y.div_(y.norm(dim=1, keepdim=True).clamp_min(1e-12))
+        y.mul_(x.shape[1] ** 0.5)
+        y.mul_(self.gamma.float().reshape(1, -1, *([1] * (x.dim() - 2))))
+        return y.to(x.dtype)
+
+
+def _last_frames(x):
+    """The causal cache of a conv: a copy of x's last CACHE_T frames. A
+    slice would keep all of x alive until the next chunk replaces it: ~21
+    GiB of the decode's peak at 480p/81f, chunk 4 (tools/vae_memory.py
+    on an H100)."""
+    return x[:, :, -CACHE_T:].clone()
 
 
 def _causal_conv3d(conv: nn.Conv3d, x, io: _CacheIO, norm: Optional[RMSNormC] = None,
@@ -96,9 +112,9 @@ def _causal_conv3d(conv: nn.Conv3d, x, io: _CacheIO, norm: Optional[RMSNormC] = 
     if conv.weight.shape[2] > 1:
         key, cache = io.pull(CACHE_T, x)
         x_in = torch.cat([cache, x], dim=2)
-        io.push(key, x_in[:, :, -CACHE_T:])
+        io.push(key, _last_frames(x_in))
     if norm is not None:
-        x_in = F.silu(norm(x_in))
+        x_in = F.silu(norm(x_in), inplace=True)
     kh, kw = conv.weight.shape[3:]
     out = F.conv3d(x_in, conv.weight, conv.bias, padding=(0, kh // 2, kw // 2))
     return out if residual is None else out + residual
@@ -167,15 +183,18 @@ class Upsample(nn.Module):
             key, cache = io.pull(CACHE_T, x)
             if not io.first:
                 x_in = torch.cat([cache, x], dim=2)
-                io.push(key, x_in[:, :, -CACHE_T:])
+                io.push(key, _last_frames(x_in))
                 y = F.conv3d(x_in, self.time_conv.weight, self.time_conv.bias)
                 x = y.reshape(B, 2, C, T, H, W).permute(0, 2, 3, 1, 4, 5) \
                     .reshape(B, C, 2 * T, H, W)
             else:
                 # frame 0 is excluded from the time_conv stream
                 io.push(key, cache)
-        h = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
-        return _conv2d_frames(self.conv, h)
+        # nearest 2x as one copy of a broadcast view (repeat_interleave
+        # twice makes two copies; F.interpolate is slower on the card)
+        B, C, T, H, W = x.shape
+        h = x[:, :, :, :, None, :, None].expand(B, C, T, H, 2, W, 2)
+        return _conv2d_frames(self.conv, h.reshape(B, C, T, 2 * H, 2 * W))
 
 
 class Decoder3d(nn.Module):

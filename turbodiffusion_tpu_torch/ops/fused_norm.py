@@ -8,7 +8,9 @@ Ports `turbodiffusion_tpu/ops/fused_norm.py`:
     each, the feed of the next W8A8 GEMM; both take rows up to 5120 wide
     (the 14B's dim);
   * `rmsnorm_rope` / `rmsnorm_rope_ref` (:241-260, :364-381)
-    — K2 `_rmsrope_cuda` replaces `_rmsrope_pallas` (:281-325);
+    — K2 `_rmsrope_cuda` replaces `_rmsrope_pallas` (:281-325), at any
+    H*Dh with an even Dh, as the TPU kernel does (the 14B's 5120 among
+    them);
   * `rope_cos_sin_full` (:231-238).
 
 K12 and its plain version follow the TPU kernel, not JAX's off-TPU branch
@@ -39,7 +41,9 @@ from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 
 # widest row of K1 / K12 (the 14B's dim; csrc/fused_norm.cu kWidePairs)
+# and of K2 (the C entry's limit: any H*Dh the model has)
 _MLN_MAX_D = 5120
+_RMSROPE_MAX_HD = 1 << 30
 
 
 def recompute_vjp(plain, inputs, needs, grad_out):
@@ -252,8 +256,8 @@ def _rmsrope_cuda(x, weight, cos_full, sin_full, eps: float, num_heads: int):
     Dh = HD // H
     _require(x.dtype == torch.bfloat16, "K2 takes a bf16 x")
     ld = _row_stride(x, "K2")
-    _require(HD == H * Dh and Dh % 2 == 0 and HD <= 4096,
-             f"K2 takes H*Dh <= 4096 with an even Dh, got {H}x{Dh}")
+    _require(HD == H * Dh and Dh % 2 == 0 and HD <= _RMSROPE_MAX_HD,
+             f"K2 takes H*Dh <= 2^30 with an even Dh, got {H}x{Dh}")
     w = weight.to(torch.bfloat16).contiguous()
     _require(w.device == x.device and w.numel() == HD,
              "K2 weight must lie on x's device with H*Dh entries")

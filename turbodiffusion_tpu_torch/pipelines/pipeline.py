@@ -8,8 +8,10 @@ and the hash-tokenizer fallback, refused with real weights) and
 `generate_t2v` (:185-288). Checkpoints are read by `utils/checkpoint.py`.
 The models stay resident on the pipeline's device and answer any number of
 requests; every entry point runs on the card unless told otherwise.
-Wan2.1-14B runs on the card with W8A8 postscale linears and sagesla
-(`check_ported`). I2V and meshes wait for later slices.
+Wan2.1-1.3B and Wan2.1-14B run on the card in every form the JAX package
+gives them: bf16, W8A8 postscale (`--quant_linear`) or 128x128 block-scaled
+linears, with `sagesla`, `sla` or `original` attention, at 480p and 720p.
+I2V and meshes wait for later slices.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from turbodiffusion_tpu_torch.models.wan import WanModel, init_wan_params
 from turbodiffusion_tpu_torch.ops.quant import (
     Int8BlockLinear, quantize_wan_blocks)
 from turbodiffusion_tpu_torch.utils.checkpoint import (
-    checkpoint_layout, load_torch_state_dict, strip_prefix,
+    load_torch_state_dict, strip_prefix,
     umt5_params_from_state_dict, vae_params_from_state_dict,
     wan_params_from_state_dict)
 from turbodiffusion_tpu_torch.pipelines.sampler import latent_shape, rcm_sample
@@ -60,27 +62,6 @@ def make_wan_cfg(model: str, attention_type: str = "sagesla",
     if model == "test":
         return wan_test_config(attention=attn, quant_linear=quant_linear)
     return wan_config(model, attention=attn, quant_linear=quant_linear)
-
-
-def check_ported(model: str, attention_type: str, quant_linear: bool,
-                 device, layout: str = "float") -> None:
-    """Refuse a configuration the port's kernels do not carry on a card yet.
-    `layout` is that of the DiT's block linears as loaded ("float" for
-    random weights or a float checkpoint, quantised to postscale when
-    `quant_linear`; "postscale"; "block"). Wan2.1-14B runs there only as
-    sagesla with postscale W8A8 linears. Its other configurations (bf16 or
-    block-scaled linears, which keep the bf16 composition; `sla`,
-    `original`) need K2 (RMSNorm + RoPE) at dim 5120, the bf16 ones a ~26
-    GiB DiT (ROADMAP Queue A item 15)."""
-    postscale = layout == "postscale" or (layout == "float" and quant_linear)
-    if (model == "Wan2.1-14B" and torch.device(device).type == "cuda"
-            and (attention_type != "sagesla" or not postscale)):
-        raise NotImplementedError(
-            "Wan2.1-14B runs on a card only with --attention_type sagesla and "
-            "W8A8 postscale linears (--quant_linear, or a postscale "
-            f"checkpoint; this DiT's linears: {layout}); bf16 or block-scaled "
-            "14B and its sla / original attention wait for K2 at dim 5120 "
-            "(ROADMAP Queue A item 15)")
 
 
 def load_dit(dit_path, cfg: WanConfig, seed: int = 0, device="cuda"):
@@ -185,17 +166,24 @@ class TextEncoder:
 
 class _PhaseTimer:
     """Per-phase times in ms: CUDA events on a card, the host clock on the
-    CPU. `stop` reads them (synchronising the events)."""
+    CPU. On a card it also keeps each phase's device memory: the allocation
+    at its start and its peak (`max_memory_allocated`, reset at each phase's
+    start). `stop` reads them (synchronising the events)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+        self.mem = []
 
     def mark(self, name):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.marks.append((name, ev))
+            if self.mem:
+                self.mem[-1].append(torch.cuda.max_memory_allocated())
+            self.mem.append([torch.cuda.memory_allocated()])
+            torch.cuda.reset_peak_memory_stats()
         else:
             self.marks.append((name, time.perf_counter()))
 
@@ -207,6 +195,11 @@ class _PhaseTimer:
                 out[f"{name}_ms"] = a.elapsed_time(b)
             else:
                 out[f"{name}_ms"] = (b - a) * 1e3
+        if self.cuda:
+            for (name, _), (start, peak) in zip(self.marks[:-1], self.mem):
+                out[f"{name}_start_gib"] = start / 2**30
+                out[f"{name}_peak_gib"] = peak / 2**30
+            out["peak_gib"] = max(peak for _, peak in self.mem[:-1]) / 2**30
 
 
 @dataclass(eq=False)
@@ -221,7 +214,7 @@ class WanPipeline:
     device: torch.device
 
     @classmethod
-    def create(cls, model: str = "Wan2.1-1.3B", dit_path: Optional[str] = None,
+    def create(cls, model: str = "Wan2.1-1.3B", dit_path=None,
                vae_path: Optional[str] = None,
                text_encoder_path: Optional[str] = None,
                attention_type: str = "sagesla", sla_topk: float = 0.1,
@@ -231,17 +224,12 @@ class WanPipeline:
         """The pipeline on `device`: each model from its checkpoint path
         where one is given (the VAE's is ignored at model "test", as in JAX,
         :204-210), else random weights: DiT from `seed`, VAE from 3, umT5
-        from 7, as the JAX package seeds them. The DiT checkpoint is read
-        once and its layout checked (`check_ported`) before anything is
-        built on the card."""
-        sd = (None if dit_path is None
-              else strip_prefix(load_torch_state_dict(dit_path)))
-        check_ported(model, attention_type, quant_linear, device,
-                     "float" if sd is None else checkpoint_layout(sd))
+        from 7, as the JAX package seeds them. `dit_path` may also be a DiT
+        state dict already in memory (`load_dit`)."""
         device = torch.device(device)
         cfg = make_wan_cfg(model, attention_type, sla_topk, quant_linear,
                            sla_block=sla_block, v_quant=v_quant)
-        dit, cfg = load_dit(sd, cfg, seed, device)
+        dit, cfg = load_dit(dit_path, cfg, seed, device)
         if model == "test":
             te = TextEncoder(text_encoder_path, cfg=umt5_test_config(
                 dim=cfg.text_dim, text_len=cfg.text_len), device=device,
@@ -270,15 +258,23 @@ class WanPipeline:
         The noise comes from a torch.Generator seeded with `gen.seed` on the
         device unless `init_noise` (B, 16, T_lat, H/8, W/8) and
         `step_noises` (one tensor per step) give it. A `timings` dict
-        receives text_encode_ms, denoise_ms and vae_decode_ms.
+        receives text_encode_ms, denoise_ms and vae_decode_ms and, on a
+        card, each phase's device memory at its start and its peak
+        (`<phase>_start_gib`, `<phase>_peak_gib`) and the request's
+        `peak_gib`. To read them it calls
+        `torch.cuda.reset_peak_memory_stats()` at each phase's start, so
+        with `timings` the process-wide `max_memory_allocated` no longer
+        holds any peak from before the call; afterwards it holds the
+        decode's.
         """
-        timer = _PhaseTimer(self.device)
-        timer.mark("text_encode")
+        timer = _PhaseTimer(self.device) if timings is not None else None
+        mark = timer.mark if timer else (lambda name: None)
+        mark("text_encode")
         if text_emb is None:
             text_emb = self.text_encoder(prompt)
         text_emb = text_emb.to(self.device, self.cfg.dtype).repeat_interleave(
             gen.num_samples, dim=0)
-        timer.mark("denoise")
+        mark("denoise")
         g = torch.Generator(device=self.device).manual_seed(gen.seed)
         if init_noise is None:
             init_noise = torch.randn(
@@ -293,10 +289,10 @@ class WanPipeline:
         x = rcm_sample(denoise_fn, init_noise.to(self.device), gen.num_steps,
                        gen.sigma_max, gen.mid_t, gen.ode, generator=g,
                        step_noises=step_noises)
-        timer.mark("vae_decode")
+        mark("vae_decode")
         chunk = 4 if (x.shape[2] - 1) % 4 == 0 else 1
         video = vae_decode(self.vae, x, chunk=chunk)
         video = (1.0 + video.clamp(-1.0, 1.0)) / 2.0
-        if timings is not None:
+        if timer:
             timer.stop(timings)
         return video
