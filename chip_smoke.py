@@ -10,7 +10,10 @@ Phases, each printing one line of its numbers:
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
      FFN 8960, 12 of 128 K blocks; K12 also at batch 2 with the block's
-     strided modulation; K18 and K19 of the v_quant="row" path,
+     strided modulation; K10 and K11 also at a ragged M of 1,000 rows and
+     at scale blocks / slabs of 384 and 1024 (K10's clusters of 3 and 8),
+     and at both widths each rejecting a planted fault: a column scale
+     doubled, a slab's row scales doubled; K18 and K19 of the v_quant="row" path,
      K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
      over (B, L, H, D); K22 at the block-scale checkpoint path's GEMM
      shapes in bf16 and at 1536 x 1536 and a ragged shape in fp32,
@@ -19,7 +22,8 @@ Phases, each printing one line of its numbers:
      would give (channels past 4096 left NaN, weight channel 4100 doubled),
      and above 5120 at 48 x 128; K3 and K4 (cross and dense self,
      SDPA beside it) at 40 heads; K15, K5 with K15's RMS at 40
-     heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824), with
+     heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824; every
+     int8 GEMM line with its TOP/s and share of the int8 peak), with
      poisoned-tail checks of K7, K19 and K21: max absolute error under the
      stated tolerance (int8 outputs within 1 LSB; K19-K21 at atol 4e-3 +
      rtol 2e-2, each with planted faults the check must reject: a dropped
@@ -497,18 +501,21 @@ def phase1():
 
 
 def _kernel_name(mangled: str) -> str:
-    """`head_planes_kernel<4>` from the mangled name of a kernel in a
-    (per-file anonymous) namespace, its bool / int template arguments
-    decoded."""
+    """`head_planes_kernel<4>` (or `ffn::w8a8_ffn_kernel<2>`) from the
+    mangled name of a kernel in a (per-file anonymous) namespace, its bool /
+    int template arguments decoded."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
     rest = mangled[m.end() + int(m.group(1)):]          # past the namespace
-    m = re.match(r"(\d+)", rest)
-    if not m:
+    parts = []
+    while m := re.match(r"(\d+)", rest):               # nested names
+        n = int(m.group(1))
+        parts.append(rest[m.end():m.end() + n])
+        rest = rest[m.end() + n:]
+    if not parts:
         return mangled
-    n, rest = int(m.group(1)), rest[m.end():]
-    name, args = rest[:n], re.match(r"I((?:L[bi]\d+E)+)E", rest[n:])
+    name, args = "::".join(parts), re.match(r"I((?:L[bi]\d+E)+)E", rest)
     if args:
         vals = [("true" if v == "1" else "false") if t == "b" else v
                 for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
@@ -717,6 +724,12 @@ def _run_checks(checks, reps: int) -> dict:
                         for what, fn_ in c.yardsticks.items())
         lib = (f" | library {c.library_what} {lib_ms:.4f} ms" if c.library
                else " | library none")
+        if set(c.ops) == {"int8"}:       # the int8 GEMMs: rate and peak share
+            rate = lambda ms: c.ops["int8"] / ms * 1e-9          # noqa: E731
+            extra += (f" | {rate(ms_k):.1f} TOP/s, "
+                      f"{100 * rate(ms_k) * 1e12 / PEAK_OPS_PER_S['int8']:.1f}% "
+                      f"of the int8 peak" + (f" (library {rate(lib_ms):.1f} TOP/s)"
+                                             if c.library else ""))
         print(f"phase2 {c.name} {c.what}: max_abs_err {max_err:.5g} mean_abs_err "
               f"{mean_err:.5g} int8 max diff {lsb} LSB (tol atol {c.atol} + "
               f"rtol {c.rtol}, 1 LSB; |want| mean {want_mean:.5g} max "
@@ -773,6 +786,10 @@ def _w8a8_checks(randn, x, geo: Geometry):
     gate = randn(DIM, dtype=torch.float32, std=0.5)
     hq, hs = qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1, act="gelu_tanh")
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
+    # planted faults: a column scale or a slab's row scales read wrong
+    s1_bad, hs_bad = s1.clone(), hs.clone()
+    s1_bad[7] *= 2
+    hs_bad[:, 1] *= 2
 
     def gemm(name, what, kern, plain, ins, a, wq, **kw):
         M, K = a.shape
@@ -810,14 +827,55 @@ def _w8a8_checks(randn, x, geo: Geometry):
              lambda: qt._int8_gemm_qout_cuda(xq, rs, w1, s1, b1, "gelu_tanh"),
              lambda: qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1,
                                                        act="gelu_tanh"),
-             (xq, rs, w1, s1, b1), xq, w1, **scale_tol),
+             (xq, rs, w1, s1, b1), xq, w1,
+             faults={"column 7's scale doubled": lambda: qt._int8_gemm_qout_cuda(
+                 xq, rs, w1, s1_bad, b1, "gelu_tanh")}, **scale_tol),
         gemm("K11", f"fc2 {L}x{DIM}x{FFN}, K slabs {BNQ}, + bias, gate, residual",
              lambda: qt._int8_gemm_blockact_cuda(hq, hs, w2, s2, b2, None, BNQ,
                                                  gate, x2),
              lambda: qt.int8_gemm_blockact_plain(hq, hs, w2, s2, b2, bk=BNQ,
                                                  gate=gate, residual=x2),
-             (hq, hs, w2, s2, b2, gate, x2), hq, w2),
-    ]
+             (hq, hs, w2, s2, b2, gate, x2), hq, w2,
+             faults={"slab 1's row scales doubled": lambda: qt._int8_gemm_blockact_cuda(
+                 hq, hs_bad, w2, s2, b2, None, BNQ, gate, x2)}),
+    ] + (_ffn_edge_checks(randn, gemm, geo) if geo == G13 else [])
+
+
+def _ffn_edge_checks(randn, gemm, geo: Geometry):
+    """K10 and K11 off the paths' shapes: a ragged M (1,000 rows: a last
+    K10 tile of 232 rows, a last K11 tile of 40) at the model's FFN, and
+    FFN widths whose scale block / slab is 384 and 1024 (K10 clusters of 3
+    and 8) at the paths' rows. fc2 reads fc1's plain output."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import quant as qt
+    DIM = geo.dim
+    out = []
+    for M, ffn in ((1000, geo.ffn), (L, 3456), (L, 4096)):
+        bn = qt.pick_bn_div(ffn)
+        x2 = randn(M, DIM)
+        xq, rs = qt.quantize_rows_int8_plain(x2)
+        w1, s1 = qt.quantize_int8_postscale(randn(ffn, DIM, std=DIM ** -0.5))
+        w2, s2 = qt.quantize_int8_postscale(randn(DIM, ffn, std=ffn ** -0.5))
+        b1, b2 = randn(ffn, std=0.1), randn(DIM, std=0.1)
+        gate = randn(DIM, dtype=torch.float32, std=0.5)
+        hq, hs = qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1,
+                                                   act="gelu_tanh")
+        out += [
+            gemm("K10", f"fc1 {M}x{ffn}x{DIM}, BN {bn} (clusters of {bn // 128})",
+                 lambda xq=xq, rs=rs, w1=w1, s1=s1, b1=b1: qt._int8_gemm_qout_cuda(
+                     xq, rs, w1, s1, b1, "gelu_tanh"),
+                 lambda xq=xq, rs=rs, w1=w1, s1=s1, b1=b1:
+                 qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1, act="gelu_tanh"),
+                 (xq, rs, w1, s1, b1), xq, w1,
+                 atol=0.0, rtol=SCALE_RTOL),
+            gemm("K11", f"fc2 {M}x{DIM}x{ffn}, K slabs {bn}, gate, residual",
+                 lambda hq=hq, hs=hs, w2=w2, s2=s2, b2=b2, gate=gate, x2=x2, bn=bn:
+                 qt._int8_gemm_blockact_cuda(hq, hs, w2, s2, b2, None, bn, gate, x2),
+                 lambda hq=hq, hs=hs, w2=w2, s2=s2, b2=b2, gate=gate, x2=x2, bn=bn:
+                 qt.int8_gemm_blockact_plain(hq, hs, w2, s2, b2, bk=bn, gate=gate,
+                                             residual=x2),
+                 (hq, hs, w2, s2, b2, gate, x2), hq, w2)]
+    return out
 
 
 def _block_gemm_checks(randn):
@@ -2591,9 +2649,10 @@ PROFILE_CATEGORIES = [
     ("K28", ("sparse_i8_planes_kernel<true>",)),
     ("K20", ("flash_i8qk_kernel<true>",)), ("K30", ("flash_i8qk_kernel<false>",)),
     ("K21 apply", ("linear_apply_kernel",)),
-    # K8-K11 before the library GEMMs: K9-K11's name holds "gemm"
+    # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold
+    # "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
-    ("K10", ("int8_gemm_kernel<1>",)), ("K11", ("int8_gemm_kernel<2>",)),
+    ("K10", ("w8a8_ffn_kernel<1>",)), ("K11", ("w8a8_ffn_kernel<2>",)),
     ("K22", ("int8_gemm_kernel<3>",)),
     ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
     ("K25", ("flash_jvp_kernel<false>",)), ("K26", ("flash_jvp_kernel<true>",)),

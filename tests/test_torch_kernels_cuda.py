@@ -351,10 +351,14 @@ def test_k9_matches_plain(dev, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [768, 1536])
-def test_k10_matches_plain(dev, N):
-    """BN = 768 (a cluster of 6 blocks): one scale column, then two."""
-    M, K = 200, 512
+@pytest.mark.parametrize("M,N,K", [(200, 768, 512), (200, 1536, 512),
+                                   (1000, 1152, 256), (1000, 4096, 384),
+                                   (1000, 1792, 1536)])
+def test_k10_matches_plain(dev, M, N, K):
+    """BN = 768 (a cluster of 6 blocks): one scale column, then two; a
+    ragged M (1000 = 3 x 256 + 232 rows) at BN 384 (clusters of 3), 1024
+    (clusters of 8) and 896 (7, the 1.3B's) with 12 K tiles, three turns
+    of the 4-stage ring."""
     xq, wq = _i8(dev, M, K, seed=70), _i8(dev, N, K, seed=71)
     rs, cs = _scales(dev, M, 72)[:, None], _scales(dev, N, 73)
     bias = _randn(dev, N, seed=74).bfloat16()
@@ -363,16 +367,20 @@ def test_k10_matches_plain(dev, N):
     assert qt._int8_gemm_qout_cuda.launches == before + 1
     want_q, want_s = qt.int8_gemm_postscale_qout_plain(xq, rs, wq, cs, bias,
                                                        act="gelu_tanh")
-    assert s.shape == (M, N // 768)
+    assert s.shape == (M, N // qt.pick_bn_div(N))
     _int8_close(q, want_q)
     _scales_close(s, want_s)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gate_residual", [False, True])
-def test_k11_matches_plain(dev, gate_residual):
-    """bk = 768 over K = 1536: two slabs rescaled in order."""
-    M, K, N, bk = 200, 1536, 384, 768
+@pytest.mark.parametrize("M,N,K,bk,gate_residual", [
+    (200, 384, 1536, 768, False), (200, 384, 1536, 768, True),
+    (1000, 384, 768, 384, True), (1000, 512, 2048, 1024, True),
+    (1000, 1536, 1792, 896, True)])
+def test_k11_matches_plain(dev, M, N, K, bk, gate_residual):
+    """bk = 768 over K = 1536: two slabs rescaled in order; M = 1000 (a
+    40-row last tile) with slabs of 384, 1024 and 896 K; N / 128 odd (one
+    block a cluster) and even (pairs sharing the activation tile)."""
     xq, wq = _i8(dev, M, K, seed=80), _i8(dev, N, K, seed=81)
     xs = _randn(dev, M, K // bk, seed=82, std=0.01).abs() + 1e-3
     cs, bias = _scales(dev, N, 83), _randn(dev, N, seed=84).bfloat16()
@@ -388,8 +396,11 @@ def test_k11_matches_plain(dev, gate_residual):
 
 @pytest.mark.cuda
 def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """No silent fallback: N not a multiple of 128, K not of 64, an fp32
-    activation, or an N without a scale block raises."""
+    """No silent fallback: N not a multiple of 128, K not of 64 (K10 / K11:
+    of 128, and K11's slab), an fp32 activation, or an N without a scale
+    block raises without a launch; the K10 / K11 C entries refuse the same
+    and N not a multiple of the scale block (a CUDA error, nothing runs)."""
+    from turbodiffusion_tpu_torch.ops import _build
     xq = _i8(dev, 64, 256, seed=90)
     s = _scales(dev, 64, 91)[:, None]
     with pytest.raises(ValueError):
@@ -403,6 +414,35 @@ def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         qt.int8_gemm_postscale_qout(xq, s, _i8(dev, 256, 256, seed=96),
                                     _scales(dev, 256, 97))
+    x192, w192 = _i8(dev, 64, 192, seed=98), _i8(dev, 768, 192, seed=99)
+    x384, w384 = _i8(dev, 64, 384, seed=100), _i8(dev, 768, 384, seed=101)
+    cs = _scales(dev, 768, 102)
+    counts = (qt._int8_gemm_qout_cuda.launches, qt._int8_gemm_blockact_cuda.launches)
+    for call in (lambda: qt.int8_gemm_postscale_qout(x192, s, w192, cs),
+                 lambda: qt.int8_gemm_blockact(x192, s, w192, cs, bk=192),
+                 lambda: qt.int8_gemm_blockact(x384, torch.ones(64, 2, device=dev),
+                                               w384, cs, bk=192)):
+        with pytest.raises(ValueError):
+            call()
+    assert (qt._int8_gemm_qout_cuda.launches,
+            qt._int8_gemm_blockact_cuda.launches) == counts
+    lib, st = _build.load(), _build.stream_ptr(xq)
+    q = torch.empty(64, 1152, dtype=torch.int8, device=dev)
+    sq = torch.empty(64, 2, device=dev)
+    w1152, cs1152 = _i8(dev, 1152, 384, seed=103), _scales(dev, 1152, 104)
+    out = torch.empty(64, 768, dtype=torch.bfloat16, device=dev)
+    # N = 1152 with a 768 scale block; K = 192 (K10 and K11); a 192 slab
+    assert lib.tdx_int8_gemm_qout(x384.data_ptr(), w1152.data_ptr(), s.data_ptr(),
+                                  cs1152.data_ptr(), None, q.data_ptr(), sq.data_ptr(),
+                                  64, 1152, 384, 768, 0, st) != 0
+    assert lib.tdx_int8_gemm_qout(x192.data_ptr(), w192.data_ptr(), s.data_ptr(),
+                                  cs.data_ptr(), None, q.data_ptr(), sq.data_ptr(),
+                                  64, 768, 192, 768, 0, st) != 0
+    for K, bk, a, w in ((192, 192, x192, w192), (384, 192, x384, w384)):
+        assert lib.tdx_int8_gemm_blockact(a.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                          cs.data_ptr(), None, None, None,
+                                          out.data_ptr(), 64, 768, K, bk, 0, st) != 0
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

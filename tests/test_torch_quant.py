@@ -302,6 +302,28 @@ def test_cuda_wrappers_refuse_non_cuda_devices():
             fn(i8, s, i8, s)
 
 
+@pytest.mark.parametrize("case", ["k10_k", "k11_k", "k11_slab"])
+def test_ffn_launchers_refuse_shapes_off_their_tiles(case):
+    """K10 / K11 read 128-byte TMA tiles of K: the launchers refuse K, or
+    K11's slab, that is a multiple of K9's 64 but not of 128, before any
+    build or launch (CPU tensors reach the check, then nothing else)."""
+    K = 384 if case == "k11_slab" else 192
+    xq, wq = torch.zeros(8, K, dtype=torch.int8), torch.zeros(768, K, dtype=torch.int8)
+    rs, cs = torch.ones(8, 1), torch.ones(768)
+    if case == "k10_k":
+        fn, call = quant._int8_gemm_qout_cuda, lambda: quant._int8_gemm_qout_cuda(
+            xq, rs, wq, cs, None, None)
+    else:
+        bk = 192 if case == "k11_slab" else K
+        fn = quant._int8_gemm_blockact_cuda
+        call = lambda: fn(xq, torch.ones(8, K // bk), wq, cs, None,  # noqa: E731
+                          None, bk, None, None)
+    before = fn.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        call()
+    assert fn.launches == before
+
+
 def test_row_stride_reads_column_groups_in_place():
     """K2 and K5 read Q/K/V as column groups of the fused QKV output: rows
     3*D apart; a tensor whose last stride is not 1 is refused."""

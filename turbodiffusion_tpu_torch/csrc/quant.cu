@@ -12,14 +12,16 @@
 //     ((acc * rs[m]) * cs[n]) (+ bias[n]) (GELU-tanh) (* gate[n]) (+ res[m, n]),
 //     one cast to bf16 at the end.
 // K10 tdx_int8_gemm_qout replaces quant.py:int8_gemm_postscale_qout_pallas
-//     (_postscale_gemm_qout_kernel, _qout_wres): K9's product and epilogue up
-//     to the GELU, then int8 with one fp32 scale per (row, BNQ columns), BNQ =
-//     _pick_bn_div(N) (896 for the 1.3B FFN), taken from the fp32 values.
+//     (_postscale_gemm_qout_kernel, _qout_wres), the FFN's fc1: K9's product
+//     and epilogue up to the GELU, then int8 with one fp32 scale per (row, BNQ
+//     columns), BNQ = _pick_bn_div(N) (896 for the 1.3B FFN, 768 for the 14B),
+//     scale = max(amax, 1e-8) * (1/127), q = rn(v * (1/scale)), from the fp32
+//     values.
 // K11 tdx_int8_gemm_blockact replaces quant.py:int8_gemm_blockact_pallas
-//     (_blockact_gemm_kernel, _blockact_wres): the product over a per-(row,
-//     bk-slab) scaled int8 activation: acc_f32 = sum over slabs of
-//     float(s32 slab product) * xs[m, slab], in slab order, then K9's
-//     epilogue from the col scale on.
+//     (_blockact_gemm_kernel, _blockact_wres), the FFN's fc2: the product over
+//     a per-(row, bk-slab) scaled int8 activation: acc_f32 = sum over slabs of
+//     float(s32 slab product) * xs[m, slab], in slab order, then * cs[n]
+//     (+ bias[n]) (* gate[n]) (+ res[m, n]), one cast to bf16.
 // K22 tdx_int8_gemm_block replaces quant.py:_int8_block_matmul_pallas (body
 //     _gemm_kernel): W8A8 with 128 x 128 block scales on both operands, the
 //     reference's Int8Linear checkpoint layout. For each 128-wide K block kb,
@@ -29,39 +31,76 @@
 //     TPU kernel's fp32 output cast by its caller).
 //
 // What bounds them on an H100. K8 is memory-bound: at (32,760, 1,536) it
-// reads 100.6 MB and writes 50.4 MB, 0.045 ms at 3.35 TB/s; one warp per
-// row, 16-byte loads, the row re-read from L1 for the quantise. K9-K11 are
-// bound by int8 tensor-core math (2*M*N*K operations: 4.64e11 for the fused
-// QKV, 9.02e11 for fc1 / fc2, 0.23-0.46 ms at 1,979 TOP/s). The design is
-// one main loop for all three:
-//   * a 128 x 128 output tile per 256-thread block, 8 warps of 64 x 32;
-//   * a 4-stage cp.async ring of 64-byte K slices of both operands in shared
-//     memory (rows padded to 80 bytes, so ldmatrix reads hit 32 banks); rows
-//     of A past M are zero-filled;
-//   * ldmatrix.x4 fragments and mma.sync.m16n8k32 s8 x s8 -> s32, exact
-//     (|127 * 127 * 8960| < 2^31); the weight is stored (N, K), K-contiguous,
-//     which is the "col" operand layout mma.sync reads;
-//   * K11 moves the s32 accumulators into fp32 ones at every slab edge
-//     (bk = 896 = 14 K slices, so no slice straddles a slab); K22 at every
-//     128-K edge (2 K slices). The output tile is the quant block, so K22
-//     reads one xs and one ws scalar a K block; it has no col scale, gate,
-//     residual or activation;
-//   * K10's per-(row, 896) scale spans 7 output tiles: the 7 blocks of one
-//     stripe run as one thread-block cluster, reduce each row's amax over
-//     their 128 columns in shared memory, read the other blocks' maxima
-//     through distributed shared memory, and each quantises its own tile.
-//     No fp32 stripe is written to memory and no block holds 896 columns.
+// reads 100.6 MB and writes 50.4 MB, 0.045 ms at 3.35 TB/s. The GEMMs are
+// bound by int8 tensor-core math, 2*M*N*K operations at 1,979 TOP/s: 0.46 ms
+// for the 1.3B fc1 / fc2 (9.02e11), 2.34 ms for the 14B's (4.64e12); their
+// bytes are far below that (K10's int8 out: 293 MB at 1.3B, 453 MB at 14B,
+// 0.09 / 0.14 ms; K11's bf16 residual read and output write: 201 / 671 MB).
+//
+// K10 and K11: `w8a8_ffn_kernel`, Hopper's GEMM shape.
+//   * A block is a producer warpgroup and two (K10) or three (K11) consumer
+//     warpgroups. One producer warp starts TMA tile loads
+//     (cp.async.bulk.tensor, 128-byte swizzle, 128-byte K tiles of both
+//     operands) into a ring of shared-memory stages guarded by mbarriers
+//     (full: the bytes landed; empty: every consumer warpgroup of the
+//     cluster is done with the stage). The consumers run wgmma.mma_async
+//     m64n128k32 s8 x s8 -> s32 from shared memory, one commit group in
+//     flight while the next stage is waited on. setmaxnreg moves registers
+//     from the producer (40) to the consumers (232 / 152). Both operands
+//     are K-major as they lie in memory (activation (M, K), weight (N, K)):
+//     the layout wgmma takes for 8-bit types. TMA zero-fills rows past M;
+//     the int8 sums are exact (|127 * 127 * 13,824| < 2^31).
+//   * Tiles are 128 columns wide (every K10 scale block is whole tiles) and
+//     run as one thread-block cluster along N whose blocks share the M
+//     rows: block 0 of the cluster loads the activation tile once and
+//     multicasts it to all of them.
+//   * K10: 256 x 128 tiles, 4 stages (each consumer warpgroup two m64
+//     slices: two independent accumulator chains, 128 s32 registers); the
+//     cluster is the scale block (BNQ / 128 blocks, 3-8). The fp32 epilogue
+//     takes GELU-tanh as x * sigmoid(2u) on the SFU (see gelu_tanh_sfu).
+//     Each row's amax over the tile's 128 columns takes two shuffles (four
+//     lanes hold a row); each block writes it into every cluster block's
+//     shared memory (distributed shared memory), one cluster barrier, and
+//     each block quantises its own tile against the row's scale into shared
+//     memory (128-byte swizzled rows, rounded by the fp32 adder) and stores
+//     it with one TMA store.
+//   * K11: 192 x 128 tiles, 5 stages (one m64 slice a warpgroup: 64 s32 and
+//     64 fp32 accumulator registers; the third warpgroup cuts the L2 bytes
+//     an operation); clusters of 2 along N where N / 128 is even. At each
+//     slab edge (bk / 128 K tiles: 7 at 1.3B, 6 at 14B) a consumer waits on
+//     its wgmmas and folds the s32 sums into fp32 with the slab's xs, which
+//     the producer staged in shared memory beside the slab's last K tile;
+//     the epilogue reads the residual and writes the bf16 output through
+//     shared memory, a TMA load and a TMA store a 64 x 64 box.
+//   * Tensor maps are encoded on the host at each launch
+//     (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint:
+//     libcuda is not on the link line) and passed as __grid_constant__
+//     parameters.
+//   What holds them back on an H100 80GB HBM3 (tools/time_w8a8_ffn.py,
+//   tools/stamp_w8a8_ffn.py): K10's main loop runs near the int8 peak, and
+//   its epilogue (GELU, the amax exchange, the quantise) is about half of a
+//   block's time at the 1.3B's K of 1,536; K11's main loop runs at about
+//   half the peak, at the same rate of unique L2 bytes per SM as K10's.
+//   Not yet: persistent blocks and ping-pong consumers, which would overlap
+//   one tile's epilogue with the next tile's loads and math.
+//
+// K9 and K22: `int8_gemm_kernel`, a first, simple version: a 128 x 128
+// output tile per 256-thread block (8 warps of 64 x 32), a 4-stage cp.async
+// ring of 64-byte K slices (rows padded to 80 bytes, so ldmatrix reads hit 32
+// banks; rows past M zero-filled), ldmatrix.x4 fragments and
+// mma.sync.m16n8k32 s8 x s8 -> s32; the weight is stored (N, K), the "col"
+// operand layout. K22 folds the s32 sums into fp32 at every 128-K edge (2 K
+// slices); its output tile is the quant block, so it reads one xs and one ws
+// scalar a K block.
+//
 // Products the plain version rounds one by one use __fmul_rn / __fadd_rn so
 // nvcc does not contract them. Outputs are written to fresh buffers (the
-// residual may be the caller's trunk). A first, simple version: mma.sync, no
-// wgmma or TMA, and fragment-wise stores.
+// residual may be the caller's trunk).
 
-#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -120,11 +159,600 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ld,
   if (lane == 0) rs[row] = scale;
 }
 
+// jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(c * (x + 0.044715 x^3))))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fadd_rn(x, __fmul_rn(0.044715f, cube));
+  return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(__fmul_rn(kGeluC, inner)))));
+}
+
+// K10's GELU-tanh as x * sigmoid(2 u), 0.5 (1 + tanh u) = 1 / (1 + exp(-2 u)),
+// with the SFU's exp2 and reciprocal: ~3e-7 relative to tanhf's form, in ~10
+// instructions where tanhf takes ~25 (K10's epilogue is bound by instruction throughput)
+__device__ __forceinline__ float gelu_tanh_sfu(float x) {
+  constexpr float kNeg2CLog2e = -2.f * kGeluC * 1.4426950408889634f;
+  const float cube = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fadd_rn(x, __fmul_rn(0.044715f, cube));
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(__fmul_rn(kNeg2CLog2e, inner)));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(__fadd_rn(1.f, e)));
+  return __fmul_rn(x, r);
+}
+
+// two int8 rn(a * inv), rn(b * inv) (|.| <= 127 * (1 + 2^-23)) as a byte pair:
+// y + 1.5 * 2^23 leaves rn-even(y) in the low bits of its fp32 word, by the
+// full-rate adder where cvt.rni is quarter rate
+__device__ __forceinline__ uint16_t q8_pair(float a, float b, float inv) {
+  const uint32_t qa = __float_as_uint(__fadd_rn(__fmul_rn(a, inv), 12582912.f));
+  const uint32_t qb = __float_as_uint(__fadd_rn(__fmul_rn(b, inv), 12582912.f));
+  return (uint16_t)__byte_perm(qa, qb, 0x0040);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the kernel template's modes: K9 and K22 on int8_gemm_kernel, K10 and K11 on
+// w8a8_ffn_kernel
+enum Mode { kPostscale = 0, kQout = 1, kBlockact = 2, kBlockScale = 3 };
+
 // ---------------------------------------------------------------------------
-// K9-K11: the int8 GEMM
+// K10, K11: w8a8_ffn_kernel (wgmma, TMA, mbarrier ring, clusters)
 // ---------------------------------------------------------------------------
 
-enum Mode { kPostscale = 0, kQout = 1, kBlockact = 2, kBlockScale = 3 };
+namespace ffn {
+
+constexpr int kTN = 128;          // tile columns: divide every K10 scale block
+constexpr int kTK = 128;          // K bytes a stage: one 128-byte swizzle row
+constexpr int kWG = 128;          // threads of a warpgroup
+constexpr int kMaxCluster = 8;    // portable cluster size
+
+// A block is one producer warpgroup and NCW consumer warpgroups of MS m64
+// slices each: K10 2 x 2 (256 x 128 tiles, 128 s32 registers a thread), K11
+// 3 x 1 (192 x 128 tiles: its fp32 slab accumulator lives beside the s32 one,
+// so one slice a warpgroup, and a third warpgroup for fewer L2 bytes an
+// operation). setmaxnreg moves registers from the producer to the consumers
+// within the block's allocation at launch (65,536 / THREADS in steps of 8).
+template <int MODE>
+struct Layout {
+  static constexpr int MS = MODE == kQout ? 2 : 1;
+  static constexpr int NCW = MODE == kQout ? 2 : 3;
+  static constexpr int THREADS = (NCW + 1) * kWG;
+  static constexpr int REGS = MODE == kQout ? 168 : 128;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = MODE == kQout ? 232 : 152;
+  static_assert(REGS == 65536 / THREADS / 8 * 8, "registers a thread at launch");
+  static_assert(PRODUCER_REGS * kWG + CONSUMER_REGS * NCW * kWG <= REGS * THREADS,
+                "setmaxnreg within the block's allocation");
+  static constexpr int STAGES = MODE == kQout ? 4 : 5;
+  static constexpr int BM = NCW * 64 * MS;
+  static constexpr int A_BYTES = BM * kTK, B_BYTES = kTN * kTK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static_assert(STAGE_BYTES % 1024 == 0, "swizzled tiles 1024-byte aligned");
+  // after the stages: K10 the cluster's row maxima [kMaxCluster][BM], K11 the
+  // slab scales [STAGES][BM]; then the barriers
+  static constexpr int EXTRA = STAGES * STAGE_BYTES;
+  static constexpr int BARS = EXTRA + (MODE == kQout ? kMaxCluster : STAGES) * BM * 4;
+  // full and empty barriers a stage; K11: one residual barrier a consumer
+  static constexpr int SMEM = BARS + (2 * STAGES + NCW) * 8 + 1024;  // + alignment slack
+};
+
+struct FfnParams {
+  const float* rs;            // (M,) row scales (K10)
+  const float* xs;            // (M, K / bk) slab scales (K11)
+  const float* cs;            // (N,) col scales
+  const float* bias;          // (N,) or null
+  const float* gate;          // (N,) or null (K11)
+  const __nv_bfloat16* res;   // (M, N) or null (K11; read through tm_r)
+  float* out_s;               // (M, N / bnq) fp32 (K10)
+  int M, N, K, bk, act;
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; release / acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in cluster block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n\t}" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_remote_f32(uint32_t addr, uint32_t rank, float v) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.f32 [ra], %2;\n\t}" ::"r"(addr),
+      "r"(rank), "f"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the tile lands at `dst` and completes `bar`'s bytes in every block of `mask`
+__device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, uint32_t dst,
+                                                   uint32_t bar, int c0, int c1,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// store a shared-memory tile (rows past the map's are not written)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wait until the stores issued so far have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n\tcp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride offset); the
+// leading offset is unused (a 32-byte K step stays inside the swizzle row).
+// The tile starts 1024-byte aligned; a K step advances the start by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (the asm above carries no register operands)
+__device__ __forceinline__ void reg_fence(int* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128 s32, the warpgroup's fragment) += A (64 x 32 s8) B (128 x 32 s8)^T
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n\t}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Grid (N / 128, cdiv(M, BM)), clusters of C blocks along x. Fragment of a
+// consumer thread (warp w of its warpgroup, lane l): register i of an m64
+// slice holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) +
+// 2 (l & 3) + (i & 1).
+template <int MODE>
+__global__ void __launch_bounds__(Layout<MODE>::THREADS, 1)
+w8a8_ffn_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+                const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_r,
+                const FfnParams p) {
+  using Ly = Layout<MODE>;
+  constexpr int MS = Ly::MS, NCW = Ly::NCW, STAGES = Ly::STAGES, BM = Ly::BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  float* extra = reinterpret_cast<float*>(smem + Ly::EXTRA);
+  const uint32_t full0 = base + Ly::BARS, empty0 = full0 + STAGES * 8;
+  const uint32_t res0 = empty0 + STAGES * 8;   // K11's residual barriers
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank(), csize = cluster_blocks();
+  const int n0 = blockIdx.x * kTN, m0 = blockIdx.y * BM;
+  const int KT = p.K / kTK;
+  const int SK = p.bk / kTK;   // K tiles a slab (K11)
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NCW * csize);   // every consumer warpgroup of the cluster
+    }
+#pragma unroll 1
+    for (int c = 0; c < NCW; ++c) mbar_init(res0 + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();   // the cluster's barriers live before any multicast or remote arrive
+
+  if (tid < kWG) {
+    // ---- producer: warp 0 feeds the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(Ly::PRODUCER_REGS));
+    if (tid < 32) {
+      const int lane = tid;
+      const uint16_t mask = (uint16_t)((1u << csize) - 1u);
+#pragma unroll 1
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty0 + 8 * s, ((kt / STAGES) & 1) ^ 1);
+        if constexpr (MODE == kBlockact) {
+          if ((kt + 1) % SK == 0) {   // the slab's last tile carries its row scales
+            const int slab = (kt + 1) / SK - 1, n_slab = p.K / p.bk;
+            float* ring = extra + s * BM;
+            for (int r = lane; r < BM; r += 32)
+              ring[r] = m0 + r < p.M ? p.xs[(size_t)(m0 + r) * n_slab + slab] : 0.f;
+            __syncwarp();
+          }
+        }
+        if (lane == 0) {
+          const uint32_t a = base + s * Ly::STAGE_BYTES, full = full0 + 8 * s;
+          mbar_arrive_expect_tx(full, Ly::STAGE_BYTES);
+          tma_load(&tm_w, a + Ly::A_BYTES, full, kt * kTK, n0);
+          if (rank == 0) tma_load_multicast(&tm_a, a, full, kt * kTK, m0, mask);
+        }
+        __syncwarp();
+      }
+    }
+    cluster_sync();   // the consumers' one
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(Ly::CONSUMER_REGS));
+  const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
+  const int row0 = cw * 64 * MS + warp * 16 + (lane >> 2);   // local row of register 0
+  int acc[MS][64];
+  float facc[MODE == kBlockact ? 64 : 1];
+#pragma unroll
+  for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[ms][i] = 0;
+#pragma unroll
+  for (int i = 0; i < (MODE == kBlockact ? 64 : 1); ++i) facc[i] = 0.f;
+
+  // a stage is free once every consumer warpgroup of the cluster is done with it:
+  // lanes 0..C-1 of the warpgroup's first warp arrive, one per cluster block
+  auto release = [&](int s) {
+    if (lt < (int)csize) mbar_arrive_remote(empty0 + 8 * s, (uint32_t)lt);
+  };
+  int prev = -1;   // the stage read by the commit group still in flight
+#pragma unroll 1
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full0 + 8 * s, (kt / STAGES) & 1);
+    const uint32_t a = base + s * Ly::STAGE_BYTES + cw * 64 * MS * kTK;
+    const uint32_t b = base + s * Ly::STAGE_BYTES + Ly::A_BYTES;
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms) reg_fence(acc[ms]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTK / 32; ++kk)
+#pragma unroll
+      for (int ms = 0; ms < MS; ++ms)
+        wgmma_s8(acc[ms], sw128_desc(a + ms * 64 * kTK + kk * 32), sw128_desc(b + kk * 32));
+    wgmma_commit();
+    bool folded = false;
+    if constexpr (MODE == kBlockact) {
+      if ((kt + 1) % SK == 0) {
+        // a slab ends: its exact sums into fp32 with the slab's row scales
+        wgmma_wait<0>();
+        reg_fence(acc[0]);
+        const float* ring = extra + s * BM + row0;
+        const float x0 = ring[0], x1 = ring[8];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          facc[i] = __fadd_rn(facc[i], __fmul_rn((float)acc[0][i], (i & 2) ? x1 : x0));
+          acc[0][i] = 0;
+        }
+        if (prev >= 0) release(prev);
+        release(s);
+        prev = -1;
+        folded = true;
+      }
+    }
+    if (!folded) {
+      wgmma_wait<1>();
+#pragma unroll
+      for (int ms = 0; ms < MS; ++ms) reg_fence(acc[ms]);
+      if (prev >= 0) release(prev);
+      prev = s;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int ms = 0; ms < MS; ++ms) reg_fence(acc[ms]);
+
+  if constexpr (MODE == kQout) {
+    // fp32 values: ((acc * rs) * cs) (+ bias) (GELU)
+    float v[MS][64];
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms) {
+      const int r = m0 + row0 + ms * 64;
+      const float rs0 = p.rs[min(r, p.M - 1)], rs1 = p.rs[min(r + 8, p.M - 1)];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + j * 8 + 2 * (lane & 3);
+        const float2 csv = *reinterpret_cast<const float2*>(p.cs + col);
+        const float2 bv = p.bias ? *reinterpret_cast<const float2*>(p.bias + col)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = __fmul_rn((float)acc[ms][4 * j + e], (e & 2) ? rs1 : rs0);
+          x = __fmul_rn(x, (e & 1) ? csv.y : csv.x);
+          if (p.bias) x = __fadd_rn(x, (e & 1) ? bv.y : bv.x);
+          if (p.act) x = gelu_tanh_sfu(x);
+          v[ms][4 * j + e] = x;
+        }
+      }
+    }
+    // each row's amax over the tile (its four lanes), into slot [rank][row]
+    // of every block of the cluster
+    const uint32_t smax = smem_u32(extra);
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          m = fmaxf(m, fmaxf(fabsf(v[ms][4 * j + 2 * h]), fabsf(v[ms][4 * j + 2 * h + 1])));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const int lr = row0 + ms * 64 + 8 * h;
+        for (uint32_t r = lane & 3; r < csize; r += 4)
+          st_remote_f32(smax + 4 * (rank * BM + lr), r, m);
+      }
+    // every block's maxima written; every block's main loop done, so no load
+    // into this block is pending and stage 0 can hold the int8 tile
+    cluster_sync();
+    unsigned char* otile = smem;
+    const int n_q = p.N / (kTN * (int)csize);
+#pragma unroll
+    for (int ms = 0; ms < MS; ++ms)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = row0 + ms * 64 + 8 * h;
+        float amax = 0.f;
+        for (uint32_t r = 0; r < csize; ++r) amax = fmaxf(amax, extra[r * BM + lr]);
+        const float scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+        const float inv = 1.f / scale;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = j * 8 + 2 * (lane & 3);
+          const uint16_t pair = q8_pair(v[ms][4 * j + 2 * h], v[ms][4 * j + 2 * h + 1], inv);
+          // the TMA store's 128-byte swizzle: 16-byte chunk c / 16 of row lr
+          // sits at chunk (c / 16) ^ (lr % 8)
+          *reinterpret_cast<uint16_t*>(otile + lr * kTK + ((((c >> 4) ^ (lr & 7)) << 4) | (c & 15))) =
+              pair;
+        }
+        if (rank == 0 && (lane & 3) == 0 && m0 + lr < p.M)
+          p.out_s[(size_t)(m0 + lr) * n_q + blockIdx.x / csize] = scale;
+      }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"n"(NCW * kWG) : "memory");   // the consumer warpgroups
+    if (tid == kWG) {   // rows past M are not written
+      tma_store(&tm_q, base, n0, m0);
+      tma_store_wait();
+    }
+  } else {
+    // (facc * cs) (+ bias) (GELU) (* gate) (+ res), one bf16 rounding. The
+    // residual and the output pass through shared memory as two 64 x 64
+    // boxes a warpgroup (128-byte swizzled rows, TMA in and out), in the
+    // warpgroup's own activation rows of stages 0 and 1: its main loop is
+    // done, so no load is pending there and no other warpgroup reads them
+    const uint32_t box[2] = {base + cw * 64 * kTK, base + Ly::STAGE_BYTES + cw * 64 * kTK};
+    const int r0 = m0 + cw * 64;
+    if (p.res) {
+      if (lt == 0) {
+        mbar_arrive_expect_tx(res0 + 8 * cw, 2 * 64 * kTK);
+        tma_load(&tm_r, box[0], res0 + 8 * cw, n0, r0);
+        tma_load(&tm_r, box[1], res0 + 8 * cw, n0 + 64, r0);
+      }
+      mbar_wait(res0 + 8 * cw, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = j * 8 + 2 * (lane & 3);   // the pair's column in the tile
+      const float2 csv = *reinterpret_cast<const float2*>(p.cs + n0 + c);
+      const float2 bv = p.bias ? *reinterpret_cast<const float2*>(p.bias + n0 + c)
+                               : make_float2(0.f, 0.f);
+      const float2 gv = p.gate ? *reinterpret_cast<const float2*>(p.gate + n0 + c)
+                               : make_float2(1.f, 1.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 - cw * 64 + 8 * h;   // the row in the warpgroup's box
+        const int cb = 2 * (c & 63);            // the pair's byte in the box row
+        __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(
+            smem + (box[c >> 6] - base) + r * kTK + ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15)));
+        float v0 = __fmul_rn(facc[4 * j + 2 * h], csv.x);
+        float v1 = __fmul_rn(facc[4 * j + 2 * h + 1], csv.y);
+        if (p.bias) {
+          v0 = __fadd_rn(v0, bv.x);
+          v1 = __fadd_rn(v1, bv.y);
+        }
+        if (p.act) {
+          v0 = gelu_tanh(v0);
+          v1 = gelu_tanh(v1);
+        }
+        if (p.gate) {
+          v0 = __fmul_rn(v0, gv.x);
+          v1 = __fmul_rn(v1, gv.y);
+        }
+        if (p.res) {
+          const float2 rv = __bfloat1622float2(*slot);
+          v0 = __fadd_rn(v0, rv.x);
+          v1 = __fadd_rn(v1, rv.y);
+        }
+        *slot = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" ::"r"(2 + cw), "n"(kWG) : "memory");   // this warpgroup
+    if (lt == 0) {   // rows past M are not written
+      tma_store(&tm_q, box[0], n0, r0);
+      tma_store(&tm_q, box[1], n0 + 64, r0);
+      tma_store_wait();
+    }
+    // no block exits while a remote arrive or multicast may still reach it
+    cluster_sync();
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiledFn)ptr : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major (rows, cols) int8 or bf16 matrix in tiles of (box_rows, 128
+// bytes), 128-byte swizzle; rows past `rows` read as zero and are not written
+bool tile_map(CUtensorMap* map, const void* ptr, bool bf16, int rows, int cols, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const int esize = bf16 ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(kTK / esize), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// once per mode: the shared-memory size, and the register count setmaxnreg
+// assumes (else the consumers' request could not be met: refuse, not hang)
+template <int MODE>
+int prepare() {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, w8a8_ffn_kernel<MODE>);
+  if (err != cudaSuccess) return (int)err;
+  if (fa.numRegs != Layout<MODE>::REGS) return (int)cudaErrorInvalidConfiguration;
+  return (int)cudaFuncSetAttribute(w8a8_ffn_kernel<MODE>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   Layout<MODE>::SMEM);
+}
+
+// a (M, K) x w (N, K); out (M, N): K10's int8, K11's bf16 (beside the residual)
+template <int MODE>
+int launch(const void* a, const void* w, void* out, const FfnParams& p, int cluster,
+           void* stream) {
+  using Ly = Layout<MODE>;
+  if (p.M <= 0 || p.K <= 0 || p.K % kTK || cluster < 1 || cluster > kMaxCluster ||
+      p.N % (kTN * cluster))
+    return (int)cudaErrorInvalidValue;
+  static const int ready = prepare<MODE>();
+  if (ready != 0) return ready;
+  constexpr bool kBf16Out = MODE == kBlockact;
+  CUtensorMap ta, tw, tq, tr;
+  if (!tile_map(&ta, a, false, p.M, p.K, Ly::BM) || !tile_map(&tw, w, false, p.N, p.K, kTN) ||
+      !tile_map(&tq, out, kBf16Out, p.M, p.N, kBf16Out ? 64 : Ly::BM) ||
+      !tile_map(&tr, p.res ? (const void*)p.res : out, kBf16Out, p.M, p.N,
+                kBf16Out ? 64 : Ly::BM))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.N / kTN, (p.M + Ly::BM - 1) / Ly::BM, 1);
+  cfg.blockDim = dim3(Ly::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Ly::SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, w8a8_ffn_kernel<MODE>, ta, tw, tq, tr, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ffn
+
+// ---------------------------------------------------------------------------
+// K9, K22: int8_gemm_kernel (mma.sync)
+// ---------------------------------------------------------------------------
 
 constexpr int kQBlock = 128;  // K22's quant block, both operands
 
@@ -138,23 +766,17 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
 struct GemmParams {
   const int8_t* a;          // (M, K) int8
   const int8_t* w;          // (N, K) int8
-  const float* rs;          // (M,) row scales (K9, K10)
-  const float* xs;          // (M, K / bk) slab scales (K11); (Mb, Kb) (K22)
+  const float* rs;          // (M,) row scales (K9)
+  const float* xs;          // (Mb, Kb) activation block scales (K22)
   const float* ws;          // (Nb, Kb) weight block scales (K22)
-  const float* cs;          // (N,) col scales
+  const float* cs;          // (N,) col scales (K9)
   const float* bias;        // (N,) or null
   const float* gate;        // (N,) or null
   const __nv_bfloat16* res; // (M, N) or null
-  __nv_bfloat16* out;       // (M, N) bf16 (K9, K11, K22)
+  __nv_bfloat16* out;       // (M, N) bf16
   float* out_f;             // (M, N) fp32 (K22, in place of out)
-  int8_t* out_q;            // (M, N) int8 (K10)
-  float* out_s;             // (M, N / BNQ) fp32 (K10)
-  int M, N, K, bk, act;
+  int M, N, K, act;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -182,13 +804,6 @@ __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, u
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(c * (x + 0.044715 x^3))))
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float cube = __fmul_rn(__fmul_rn(x, x), x);
-  const float inner = __fadd_rn(x, __fmul_rn(0.044715f, cube));
-  return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(__fmul_rn(kGeluC, inner)))));
 }
 
 template <int MODE>
@@ -273,26 +888,6 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-    if constexpr (MODE == kBlockact) {
-      if (((kt + 1) * BK) % p.bk == 0) {  // a slab ends: rescale into fp32
-        const int slab = (kt + 1) * BK / p.bk - 1;
-        const int n_slab = p.K / p.bk;
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          float xsv[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            xsv[h] = p.xs[(size_t)min(rows[i][h], p.M - 1) * n_slab + slab];
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              facc[i][j][e] = __fadd_rn(facc[i][j][e], __fmul_rn((float)acc[i][j][e], xsv[e >> 1]));
-              acc[i][j][e] = 0;
-            }
-        }
-      }
-    }
     if constexpr (MODE == kBlockScale) {
       if (((kt + 1) * BK) % kQBlock == 0) {  // a quant block ends
         const int kb = (kt + 1) * BK / kQBlock - 1;
@@ -316,7 +911,7 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
   // epilogue in fp32: the values v[i][j][e] (reusing facc)
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    constexpr bool kRescaled = MODE == kBlockact || MODE == kBlockScale;
+    constexpr bool kRescaled = MODE == kBlockScale;
     float rsv[2] = {1.f, 1.f};
     if constexpr (!kRescaled) {
       rsv[0] = p.rs[min(rows[i][0], p.M - 1)];
@@ -340,90 +935,34 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
     }
   }
 
-  if constexpr (MODE == kQout) {
-    // per-row amax over this tile's 128 columns, then over the cluster's
-    __shared__ float s_part[WARPS_N][BM];
-    __shared__ float s_tile[BM];
-    __shared__ float s_row[BM];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float m = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = rows[i][h];
+      if (row >= p.M) continue;
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          m = fmaxf(m, fmaxf(fabsf(facc[i][j][2 * h]), fabsf(facc[i][j][2 * h + 1])));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        if (t == 0) s_part[wn][wm * WM + i * 16 + g + 8 * h] = m;
-      }
-    __syncthreads();
-    if (tid < BM) {
-      float m = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS_N; ++w) m = fmaxf(m, s_part[w][tid]);
-      s_tile[tid] = m;
-    }
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every tile's maxima written
-    const int csize = (int)cluster.num_blocks();
-    if (tid < BM) {
-      float m = 0.f;
-      for (int r = 0; r < csize; ++r) m = fmaxf(m, *cluster.map_shared_rank(&s_tile[tid], r));
-      s_row[tid] = m;
-    }
-    cluster.sync();  // remote reads done before any block exits; s_row visible
-    const int n_q = p.N / (BN * csize);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lr = wm * WM + i * 16 + g + 8 * h;
-        const int row = rows[i][h];
-        if (row >= p.M) continue;
-        const float scale = __fmul_rn(fmaxf(s_row[lr], 1e-8f), kInvInt8);
-        const float inv = 1.f / scale;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + wn * WN + j * 8 + t * 2;
-          const uint16_t pair =
-              (uint16_t)(uint8_t)to_i8(__fmul_rn(facc[i][j][2 * h], inv)) |
-              (uint16_t)((uint16_t)(uint8_t)to_i8(__fmul_rn(facc[i][j][2 * h + 1], inv)) << 8);
-          *reinterpret_cast<uint16_t*>(p.out_q + (size_t)row * p.N + col) = pair;
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + wn * WN + j * 8 + t * 2;
+        float v0 = facc[i][j][2 * h], v1 = facc[i][j][2 * h + 1];
+        if (p.gate) {
+          const float2 gv = *reinterpret_cast<const float2*>(p.gate + col);
+          v0 = __fmul_rn(v0, gv.x);
+          v1 = __fmul_rn(v1, gv.y);
         }
-        if (cluster.block_rank() == 0 && wn == 0 && t == 0)
-          p.out_s[(size_t)row * n_q + blockIdx.x / csize] = scale;
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = rows[i][h];
-        if (row >= p.M) continue;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + wn * WN + j * 8 + t * 2;
-          float v0 = facc[i][j][2 * h], v1 = facc[i][j][2 * h + 1];
-          if (p.gate) {
-            const float2 gv = *reinterpret_cast<const float2*>(p.gate + col);
-            v0 = __fmul_rn(v0, gv.x);
-            v1 = __fmul_rn(v1, gv.y);
-          }
-          if (p.res) {
-            const float2 rv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(p.res + (size_t)row * p.N + col));
-            v0 = __fadd_rn(v0, rv.x);
-            v1 = __fadd_rn(v1, rv.y);
-          }
-          if (MODE == kBlockScale && p.out_f)
-            *reinterpret_cast<float2*>(p.out_f + (size_t)row * p.N + col) = make_float2(v0, v1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
-                __floats2bfloat162_rn(v0, v1);
+        if (p.res) {
+          const float2 rv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(p.res + (size_t)row * p.N + col));
+          v0 = __fadd_rn(v0, rv.x);
+          v1 = __fadd_rn(v1, rv.y);
         }
+        if (MODE == kBlockScale && p.out_f)
+          *reinterpret_cast<float2*>(p.out_f + (size_t)row * p.N + col) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
+              __floats2bfloat162_rn(v0, v1);
       }
-  }
+    }
 }
 
 template <int MODE>
@@ -461,7 +1000,6 @@ GemmParams make_params(const void* a, const void* w, const void* cs, const void*
   p.N = N;
   p.K = K;
   p.act = act;
-  p.bk = K;
   return p;
 }
 
@@ -492,26 +1030,39 @@ extern "C" int tdx_int8_gemm_qout(const void* a, const void* w, const void* rs, 
                                   const void* bias, void* out_q, void* out_s, int M, int N,
                                   int K, int bnq, int act, void* stream) {
   // one cluster of bnq / 128 blocks per scale column; at most 8 (portable)
-  if (bnq % BN || N % bnq || bnq / BN > 8) return (int)cudaErrorInvalidValue;
-  GemmParams p = make_params(a, w, cs, bias, M, N, K, act);
+  if (bnq <= 0 || bnq % ffn::kTN || N % bnq || bnq / ffn::kTN > ffn::kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  ffn::FfnParams p = {};
   p.rs = (const float*)rs;
-  p.out_q = (int8_t*)out_q;
+  p.cs = (const float*)cs;
+  p.bias = (const float*)bias;
   p.out_s = (float*)out_s;
-  return launch_gemm<kQout>(p, bnq / BN, stream);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.bk = K;
+  p.act = act;
+  return ffn::launch<kQout>(a, w, out_q, p, bnq / ffn::kTN, stream);
 }
 
 extern "C" int tdx_int8_gemm_blockact(const void* a, const void* w, const void* xs,
                                       const void* cs, const void* bias, const void* gate,
                                       const void* res, void* out, int M, int N, int K, int bk,
                                       int act, void* stream) {
-  if (bk <= 0 || bk % BK || K % bk) return (int)cudaErrorInvalidValue;
-  GemmParams p = make_params(a, w, cs, bias, M, N, K, act);
+  if (bk <= 0 || bk % ffn::kTK || K % bk || N % ffn::kTN) return (int)cudaErrorInvalidValue;
+  ffn::FfnParams p = {};
   p.xs = (const float*)xs;
+  p.cs = (const float*)cs;
+  p.bias = (const float*)bias;
   p.gate = (const float*)gate;
   p.res = (const __nv_bfloat16*)res;
-  p.out = (__nv_bfloat16*)out;
+  p.M = M;
+  p.N = N;
+  p.K = K;
   p.bk = bk;
-  return launch_gemm<kBlockact>(p, 1, stream);
+  p.act = act;
+  // pairs of blocks along N share the activation tile where N / 128 is even
+  return ffn::launch<kBlockact>(a, w, out, p, (N / ffn::kTN) % 2 ? 1 : 2, stream);
 }
 
 extern "C" int tdx_int8_gemm_block(const void* a, const void* w, const void* xs,

@@ -45,6 +45,10 @@ Int8Linear)` tests keep it off the postscale int8 feeds (K12-K14), as JAX's
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/quant.cu) or raises. `.launches` counts launches. The plain
 GEMMs take the exact int32 product in float64 (|127 * 127 * K| < 2^53).
+K10 and K11 (`w8a8_ffn_kernel`: wgmma fed by TMA) take K, and K11 its slab,
+in multiples of 128, and 16-byte aligned operands; K9 (mma.sync) K in
+multiples of 64. The wrappers check these shapes before anything is built
+or launched.
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ _GELU_C = 0.7978845608028654        # sqrt(2 / pi), rounded to fp32 in use
 _ACTS = {None: 0, "gelu_tanh": 1}
 _TILE = 128                         # N multiple of the GEMM kernels
 QBLOCK = 128                        # block of the block layout (both axes)
-_BK = 64                            # K multiple of the GEMM kernels
+_BK = 64                            # K multiple of K9's kernel
+_FFN_TK = 128                       # K tile of K10 / K11 (a 128-byte TMA row)
 
 
 def pick_bn_div(N: int) -> int:
@@ -265,9 +270,20 @@ def _int8_gemm_postscale_cuda(xq, row_scale, wq, col_scale, bias, act, gate,
 _int8_gemm_postscale_cuda.launches = 0
 
 
+def _ffn_operands(name: str, xq, wq, col_scale, bias):
+    """K9's operand rules plus K10 / K11's TMA tiles: K a multiple of 128
+    and both operands 16-byte aligned."""
+    M, N, K, cs, b = _gemm_operands(name, xq, wq, col_scale, bias)
+    _require(K % _FFN_TK == 0,
+             f"{name} takes K a multiple of {_FFN_TK}, got K={K}")
+    _require(xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
+             f"{name} takes 16-byte aligned operands")
+    return M, N, K, cs, b
+
+
 def _int8_gemm_qout_cuda(xq, row_scale, wq, col_scale, bias, act):
-    """Launch K10: one thread-block cluster per (128 rows, BN columns)."""
-    M, N, K, cs, b = _gemm_operands("K10", xq, wq, col_scale, bias)
+    """Launch K10: one thread-block cluster per (256 rows, BN columns)."""
+    M, N, K, cs, b = _ffn_operands("K10", xq, wq, col_scale, bias)
     dev = xq.device
     bn = pick_bn_div(N)
     _require(bn > 0, f"N={N} has no multiple of 128 in [384, 1024] dividing it")
@@ -289,13 +305,16 @@ _int8_gemm_qout_cuda.launches = 0
 def _int8_gemm_blockact_cuda(xq, x_scale, wq, col_scale, bias, act, bk,
                              gate, residual):
     """Launch K11 (bf16 output, a fresh buffer)."""
-    M, N, K, cs, b = _gemm_operands("K11", xq, wq, col_scale, bias)
+    M, N, K, cs, b = _ffn_operands("K11", xq, wq, col_scale, bias)
     dev = xq.device
-    _require(bk % _BK == 0 and K % bk == 0,
-             f"K11 takes a slab that is a multiple of {_BK} dividing K, got {bk}")
+    _require(bk > 0 and bk % _FFN_TK == 0 and K % bk == 0,
+             f"K11 takes a slab that is a multiple of {_FFN_TK} dividing K, "
+             f"got {bk}")
     xs = _f32(x_scale, M * (K // bk), dev, "x_scale")
     g = _f32(gate, N, dev, "gate")
     res = _residual(residual, M, N, dev)
+    _require(res is None or res.data_ptr() % 16 == 0,
+             "K11 reads a 16-byte aligned residual (TMA)")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     rc = _build.load().tdx_int8_gemm_blockact(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), cs.data_ptr(), _ptr(b),
