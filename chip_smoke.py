@@ -13,7 +13,12 @@ Phases, each printing one line of its numbers:
      strided modulation; K10 and K11 also at a ragged M of 1,000 rows and
      at scale blocks / slabs of 384 and 1024 (K10's clusters of 3 and 8),
      and at both widths each rejecting a planted fault: a column scale
-     doubled, a slab's row scales doubled; K18 and K19 of the v_quant="row" path,
+     doubled, a slab's row scales doubled; K9 also at a ragged M of 1,000
+     rows, at K = 192 and at N = 1,152 (9 tiles), and at both widths
+     rejecting a row scale doubled and the residual read one row off; K7
+     also at blocks 128/128, at 32 of 128 K blocks (8,192 keys a row) and,
+     at 40 heads, with the linear epilogue, rejecting the last LUT entry
+     dropped and the V channel scales doubled; K18 and K19 of the v_quant="row" path,
      K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
      over (B, L, H, D); K22 at the block-scale checkpoint path's GEMM
      shapes in bf16 and at 1536 x 1536 and a ragged shape in fp32,
@@ -524,17 +529,20 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _ptxas_summary(log: str) -> str:
-    """`kernel<args> N regs[, S B spill]` for each kernel entry of nvcc's
-    -Xptxas -v output (empty when nothing was built in this process)."""
+    """`kernel<args> N regs[, F B stack][, S B spill]` for each kernel entry
+    of nvcc's -Xptxas -v output (empty when nothing was built in this
+    process); a stack frame is a local array the registers did not hold."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name, spill = _kernel_name(m.group(1)), ""
             continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
         if m and name and int(m.group(1)):
-            spill = f", {m.group(1)} B spill"
+            spill += f", {m.group(1)} B stack"
+        if m and name and int(m.group(2)):
+            spill += f", {m.group(2)} B spill"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             out.append(f"{name} {m.group(1)} regs{spill}")
@@ -676,13 +684,13 @@ def phase2(reps: int = REPS):
         Check("K7", f"int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}",
               k7(si8._sparse_i8_vt_cuda),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw),
-              i8_args, ops7),
+              i8_args, ops7, faults=_k7_faults(i8_args, scale)),
         Check("K7", "int8 sparse + linear epilogue",
               k7(si8._sparse_i8_vt_cuda, **lin),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw, **lin),
               i8_args + tuple(lin.values()), ops7),
-    ] + _w8a8_checks(randn, x, G13) + _int8_feed_checks(randn, x, ms, mb, w,
-                                                       bias, kt, vt, sdpa)
+    ] + (_k7_edge_checks(q, k, Qp, Kp, k_mean, vi, vcs) + _w8a8_checks(randn, x, G13)
+         + _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa))
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
     bwd_checks, bwd_extra = _bwd_checks(randn)
     jvp_checks, jvp_extra = _jvp_checks(randn, sdpa)
@@ -786,10 +794,13 @@ def _w8a8_checks(randn, x, geo: Geometry):
     gate = randn(DIM, dtype=torch.float32, std=0.5)
     hq, hs = qt.int8_gemm_postscale_qout_plain(xq, rs, w1, s1, b1, act="gelu_tanh")
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
-    # planted faults: a column scale or a slab's row scales read wrong
-    s1_bad, hs_bad = s1.clone(), hs.clone()
+    # planted faults: a column scale or a slab's row scales read wrong (K10,
+    # K11); a row scale doubled, the residual read one row off (K9)
+    s1_bad, hs_bad, rs_bad = s1.clone(), hs.clone(), rs.clone()
     s1_bad[7] *= 2
     hs_bad[:, 1] *= 2
+    rs_bad[1000] *= 2
+    x2_off = torch.roll(x2, 1, 0)
 
     def gemm(name, what, kern, plain, ins, a, wq, **kw):
         M, K = a.shape
@@ -817,7 +828,11 @@ def _w8a8_checks(randn, x, geo: Geometry):
                                                   x2),
              lambda: qt.int8_gemm_postscale_plain(xq, rs, wo, so, bk_, gate=gate,
                                                   residual=x2),
-             (xq, rs, wo, so, bk_, gate, x2), xq, wo),
+             (xq, rs, wo, so, bk_, gate, x2), xq, wo,
+             faults={"row 1000's scale doubled": lambda: qt._int8_gemm_postscale_cuda(
+                         xq, rs_bad, wo, so, bk_, None, gate, x2),
+                     "residual read one row off": lambda: qt._int8_gemm_postscale_cuda(
+                         xq, rs, wo, so, bk_, None, gate, x2_off)}),
         gemm("K9", f"cross K {TEXT}x{DIM}x{DIM} + bias",
              lambda: qt._int8_gemm_postscale_cuda(cq, crs, wk, sk, bk_, None, None,
                                                   None),
@@ -838,7 +853,45 @@ def _w8a8_checks(randn, x, geo: Geometry):
              (hq, hs, w2, s2, b2, gate, x2), hq, w2,
              faults={"slab 1's row scales doubled": lambda: qt._int8_gemm_blockact_cuda(
                  hq, hs_bad, w2, s2, b2, None, BNQ, gate, x2)}),
-    ] + (_ffn_edge_checks(randn, gemm, geo) if geo == G13 else [])
+    ] + (_k9_edge_checks(gemm, geo) + _ffn_edge_checks(randn, gemm, geo)
+         if geo == G13 else [])
+
+
+def _fresh_randn(seed: int):
+    """A randn(*shape, dtype, std) on the card from a generator of its own:
+    checks added later draw from it, so the inputs of the checks drawn from
+    phase 2's generator stay what they were."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+    return randn
+
+
+def _k9_edge_checks(gemm, geo: Geometry):
+    """K9 off the paths' shapes, with bias, gate and residual: a ragged M
+    (1,000 rows: a last tile of 104 rows), K = 192 (a multiple of 64, not of
+    128: the last 128-byte K tile reads zeros past K) and N = 1,152 (9
+    tiles: N / 128 odd, one block a cluster)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import quant as qt
+    DIM = geo.dim
+    randn = _fresh_randn(13)
+    out = []
+    for M, N, K in ((1000, DIM, DIM), (L, DIM, 192), (L, 1152, DIM)):
+        xq, rs = qt.quantize_rows_int8_plain(randn(M, K))
+        wq, cs = qt.quantize_int8_postscale(randn(N, K, std=K ** -0.5))
+        b, res = randn(N, std=0.1), randn(M, N)
+        gate = randn(N, dtype=torch.float32, std=0.5)
+        out.append(gemm(
+            "K9", f"{M}x{N}x{K} + bias, gate, residual",
+            lambda xq=xq, rs=rs, wq=wq, cs=cs, b=b, gate=gate, res=res:
+            qt._int8_gemm_postscale_cuda(xq, rs, wq, cs, b, None, gate, res),
+            lambda xq=xq, rs=rs, wq=wq, cs=cs, b=b, gate=gate, res=res:
+            qt.int8_gemm_postscale_plain(xq, rs, wq, cs, b, gate=gate, residual=res),
+            (xq, rs, wq, cs, b, gate, res), xq, wq))
+    return out
 
 
 def _ffn_edge_checks(randn, gemm, geo: Geometry):
@@ -1039,9 +1092,16 @@ def _wide_checks(randn, sdpa):
     lut8, sel, k_mean = sf.block_map_from_pooled(Qp["pooled"], Kp["pooled"],
                                                  L, BK, TOPK)
     vi, vcs = si8.quantize_v_per_channel(Vp["bf16"], L)
-    kp, vtp, ksb = sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L)
+    kp, vtp, ksb, kv, ksum = sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L,
+                                                        linear_kv=True)
     i8_args = (Qp["i8"], Qp["scale"], kp, vtp, ksb, vcs, lut8)
     pairs7 = _sparse_pairs(lut8, BQ, BK, L, L)
+    # the linear branch at 40 heads, as phase 2 builds it at 12
+    rn = _fresh_randn(14)
+    proj_w = rn(DH, DH, dtype=torch.float32, std=0.3 / math.sqrt(DH))
+    lin = dict(lin_kvw=torch.matmul(kv * vcs, proj_w.t()),
+               lin_ks_bias=torch.cat([ksum, rn(B, HEADS, 1, DH, dtype=torch.float32,
+                                               std=0.1)], dim=2))
     planes = randn(B, HEADS, LP, DH, std=2.0)
     qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
     scale = DH ** -0.5
@@ -1141,7 +1201,15 @@ def _wide_checks(randn, sdpa):
               lambda: si8._sparse_i8_vt_cuda(*i8_args, scale, BQ, BK, L, None, None),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, block_q=BQ,
                                                        block_k=BK, kv_len=L),
-              i8_args, {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}),
+              i8_args, {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7},
+              faults=_k7_faults(i8_args, scale)),
+        Check("K7", f"14B int8 sparse + linear epilogue, {HEADS} heads",
+              lambda: si8._sparse_i8_vt_cuda(*i8_args, scale, BQ, BK, L,
+                                             lin["lin_kvw"], lin["lin_ks_bias"]),
+              lambda: si8.sparse_attention_i8_vt_plain(*i8_args, block_q=BQ,
+                                                       block_k=BK, kv_len=L, **lin),
+              i8_args + tuple(lin.values()),
+              {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}),
         Check("K16", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
               lambda: sf._unfold_quant_wide_cuda(planes, L),
               lambda: sf.unfold_quant_wide_plain(planes, L),
@@ -1675,6 +1743,47 @@ def _poisoned_tail(i8_args, scale):
         raise AssertionError("K7: a poisoned tail changed live rows")
     print(f"phase2 K7 poisoned tail (rows {L}..{LP - 1} = 127): live rows "
           f"unchanged", flush=True)
+
+
+def _k7_faults(i8_args, scale, bq: int = BQ, bk: int = BK):
+    """K7's planted faults: the last LUT entry of every row dropped (one of
+    the selected K blocks never read) and the V channel scales doubled."""
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    qi, qs, kp, vtp, ksb, vcs, lut = i8_args
+    return {"last LUT entry dropped": lambda: si8._sparse_i8_vt_cuda(
+                qi, qs, kp, vtp, ksb, vcs, lut[..., :-1].contiguous(), scale, bq, bk, L,
+                None, None),
+            "vch doubled": lambda: si8._sparse_i8_vt_cuda(
+                qi, qs, kp, vtp, ksb, 2 * vcs, lut, scale, bq, bk, L, None, None)}
+
+
+def _k7_edge_checks(q, k, Qp, Kp, k_mean, vi, vcs):
+    """K7 at the 1.3B 480p planes off the main path's 512/256 blocks: blocks
+    128/128 (25 of 256 K blocks: one 128-key chunk a K block, one 128-row
+    block a Q block) and 512/256 with 32 of 128 K blocks (sel x block_k =
+    8,192 keys a row, the most JAX's VT kernel takes), each rejecting the
+    planted faults. The LUTs are the block maps of the raw q and k
+    (get_block_map); K is repacked at the block size."""
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    scale = DH ** -0.5
+    out = []
+    for bq, bk, topk in ((128, 128, TOPK), (BQ, BK, 0.25)):
+        _, lut, sel = get_block_map(q, k, topk, bq, bk)
+        kp, vtp, ksb = sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, bk, L)
+        args = (Qp["i8"], Qp["scale"], kp, vtp, ksb, vcs, lut)
+        pairs = _sparse_pairs(lut, bq, bk, L, L)
+        out.append(Check(
+            "K7", f"int8 sparse ({sel}/{LP // bk} blocks, {sel * bk} keys a row) "
+            f"{bq}/{bk}",
+            lambda args=args, bq=bq, bk=bk: si8._sparse_i8_vt_cuda(
+                *args, scale, bq, bk, L, None, None),
+            lambda args=args, bq=bq, bk=bk: si8.sparse_attention_i8_vt_plain(
+                *args, block_q=bq, block_k=bk, kv_len=L),
+            args, {"int8": 2 * DH * pairs, "bf16": 2 * DH * pairs},
+            faults=_k7_faults(args, scale, bq, bk)))
+    return out
 
 
 def _random_block(cfg, dev, seed: int, proj_l_std: float = 0.0):
@@ -2651,7 +2760,7 @@ PROFILE_CATEGORIES = [
     ("K21 apply", ("linear_apply_kernel",)),
     # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold
     # "gemm"
-    ("K8", ("quantize_rows_kernel",)), ("K9", ("int8_gemm_kernel<0>",)),
+    ("K8", ("quantize_rows_kernel",)), ("K9", ("postscale_gemm_kernel",)),
     ("K10", ("w8a8_ffn_kernel<1>",)), ("K11", ("w8a8_ffn_kernel<2>",)),
     ("K22", ("int8_gemm_kernel<3>",)),
     ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),

@@ -244,8 +244,14 @@ def _k7_operands(dev, L, Lp, bq, bk, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lin", [False, True])
 @pytest.mark.parametrize("L,Lp,bq,bk", [(1000, 1024, 512, 256),
-                                        (520, 1024, 128, 128)])
+                                        (520, 1024, 128, 128),
+                                        (3000, 3072, 256, 128),
+                                        (16200, 16384, 512, 256)])
 def test_k7_matches_plain(dev, L, Lp, bq, bk, lin):
+    """Blocks 512/256 and 128/128 (one 128-key chunk a block), Q blocks of
+    two 128-row blocks at 128-key K blocks, and 32 of 64 K blocks of 256
+    (sel x block_k = 8,192 keys a row, 64 chunks through the 3-stage
+    ring)."""
     args, lin_kw = _k7_operands(dev, L, Lp, bq, bk, seed=30)
     kw = dict(block_q=bq, block_k=bk, kv_len=L, **(lin_kw if lin else {}))
     before = si8._sparse_i8_vt_cuda.launches
@@ -272,11 +278,27 @@ def test_k7_poisoned_tail_cannot_change_live_rows(dev):
 
 @pytest.mark.cuda
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """No silent fallback: an fp32 or head-dim-64 CUDA tensor raises."""
+    """No silent fallback: an fp32 or head-dim-64 CUDA tensor raises; K7
+    refuses blocks of 64 rows (its tiles are 128 rows and 128 keys) without
+    a launch, and its C entry refuses them too (a CUDA error, nothing
+    runs)."""
+    from turbodiffusion_tpu_torch.ops import _build
     with pytest.raises(ValueError):
         sf.head_planes(_randn(dev, 1, 64, DIM), num_heads=HEADS)   # fp32
     with pytest.raises(ValueError):
         sf.head_planes(_randn(dev, 1, 64, 128).bfloat16(), num_heads=2)
+    (qi, qs, kp, vtp, ks, vcs, lut), _ = _k7_operands(dev, 250, 256, 64, 128, 31)
+    before = si8._sparse_i8_vt_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        si8.sparse_attention_i8_vt(qi, qs, kp, vtp, ks, vcs, lut, block_q=64,
+                                   block_k=128, kv_len=250)
+    assert si8._sparse_i8_vt_cuda.launches == before
+    out = torch.empty(1, HEADS, 256, DH, dtype=torch.bfloat16, device=dev)
+    assert _build.load().tdx_sparse_attention_i8_vt(
+        qi.data_ptr(), qs.data_ptr(), kp.data_ptr(), vtp.data_ptr(), ks.data_ptr(),
+        vcs.data_ptr(), lut.data_ptr(), None, None, out.data_ptr(), 1, HEADS, 256,
+        256, 250, 4, lut.shape[-1], 64, 128, 1.0, _build.stream_ptr(qi)) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -333,17 +355,30 @@ def test_k8_matches_plain(dev, M, K, stride):
     _scales_close(s, want_s)
 
 
+# K9's shapes beside the first four cases' M = 200, K = 512, N = 384 (N / 128
+# odd: one block a cluster): a ragged M with K = 192 (a half-zero last K
+# tile) and pairs of blocks sharing the activation tile, M = 1, K = 64 (one
+# K tile, half zeros), and M = 4000 x N 4608 (576 tile pairs, more than the
+# card holds at once: each block walks several tiles, both consumers and the
+# ring turning across tiles)
+_K9_SHAPES = {"ragged_k192": (1000, 192, 1536), "one_row_k64": (1, 64, 256),
+              "persistent": (4000, 1536, 4608)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["tail", "bias", "gelu", "gate_residual"])
+@pytest.mark.parametrize("case", ["tail", "bias", "gelu", "gate_residual",
+                                  "ragged_k192", "one_row_k64", "persistent"])
 def test_k9_matches_plain(dev, case):
-    """M = 200 (a tail of 72 rows past the last full 128-row tile)."""
-    M, K, N = 200, 512, 384
+    """M = 200 (a tail of 72 rows past the last full 128-row tile), then
+    the shapes of _K9_SHAPES with bias, gate and residual."""
+    M, K, N = _K9_SHAPES.get(case, (200, 512, 384))
     xq, wq = _i8(dev, M, K, seed=61), _i8(dev, N, K, seed=62)
     rs, cs = _scales(dev, M, 63)[:, None], _scales(dev, N, 64)
     bias = _randn(dev, N, seed=65).bfloat16() if case != "tail" else None
     act = "gelu_tanh" if case == "gelu" else None
-    gate = _randn(dev, N, seed=66) if case == "gate_residual" else None
-    res = _randn(dev, M, N, seed=67).bfloat16() if case == "gate_residual" else None
+    gr = case not in ("tail", "bias", "gelu")
+    gate = _randn(dev, N, seed=66) if gr else None
+    res = _randn(dev, M, N, seed=67).bfloat16() if gr else None
     before = qt._int8_gemm_postscale_cuda.launches
     got = qt.int8_gemm_postscale(xq, rs, wq, cs, bias, act, gate, res)
     assert qt._int8_gemm_postscale_cuda.launches == before + 1
@@ -397,9 +432,10 @@ def test_k11_matches_plain(dev, M, N, K, bk, gate_residual):
 @pytest.mark.cuda
 def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """No silent fallback: N not a multiple of 128, K not of 64 (K10 / K11:
-    of 128, and K11's slab), an fp32 activation, or an N without a scale
-    block raises without a launch; the K10 / K11 C entries refuse the same
-    and N not a multiple of the scale block (a CUDA error, nothing runs)."""
+    of 128, and K11's slab), an fp32 activation, an N without a scale block
+    or a K9 operand off 16-byte alignment raises without a launch; the K9,
+    K10 and K11 C entries refuse the same shapes and K10 an N not a multiple
+    of the scale block (a CUDA error, nothing runs)."""
     from turbodiffusion_tpu_torch.ops import _build
     xq = _i8(dev, 64, 256, seed=90)
     s = _scales(dev, 64, 91)[:, None]
@@ -426,7 +462,20 @@ def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(dev):
             call()
     assert (qt._int8_gemm_qout_cuda.launches,
             qt._int8_gemm_blockact_cuda.launches) == counts
+    # K9: operands off the 16 bytes TMA reads from (a view one byte in)
+    buf = _i8(dev, 64 * 256 + 16, seed=105)
+    x_off = buf[1:1 + 64 * 256].view(64, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        qt.int8_gemm_postscale(x_off, s, _i8(dev, 128, 256, seed=106),
+                               _scales(dev, 128, 107))
     lib, st = _build.load(), _build.stream_ptr(xq)
+    # K9's C entry: N not a multiple of 128, K not of 64
+    out9 = torch.empty(64, 256, dtype=torch.bfloat16, device=dev)
+    w9 = _i8(dev, 256, 256, seed=108)
+    for N, K in ((200, 256), (256, 96)):
+        assert lib.tdx_int8_gemm_postscale(xq.data_ptr(), w9.data_ptr(), s.data_ptr(),
+                                           cs.data_ptr(), None, None, None,
+                                           out9.data_ptr(), 64, N, K, 0, st) != 0
     q = torch.empty(64, 1152, dtype=torch.int8, device=dev)
     sq = torch.empty(64, 2, device=dev)
     w1152, cs1152 = _i8(dev, 1152, 384, seed=103), _scales(dev, 1152, 104)

@@ -324,6 +324,51 @@ def test_ffn_launchers_refuse_shapes_off_their_tiles(case):
     assert fn.launches == before
 
 
+def _off_by_one(*shape):
+    """A contiguous int8 tensor one byte past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 16, dtype=torch.int8)[1:1 + n].view(*shape)
+
+
+@pytest.mark.parametrize("case", ["k9_n", "k9_k", "k9_align", "k9_residual",
+                                  "k7_block_q", "k7_block_k", "k7_align"])
+def test_k9_k7_launchers_refuse_shapes_off_their_tiles(case):
+    """K9 (TMA tiles of 128 columns and 128-byte K rows, K a multiple of 64)
+    and K7 (128 query rows a block, 128-key chunks, TMA panels) refuse N off
+    128, K off 64, an operand or residual off 16-byte alignment, and a Q or
+    K block of 64 rows, before any build or launch (CPU tensors reach the
+    checks, then nothing else)."""
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    if case.startswith("k9"):
+        N = 200 if case == "k9_n" else 256
+        K = 96 if case == "k9_k" else 128
+        xq = _off_by_one(8, K) if case == "k9_align" else torch.zeros(8, K, dtype=torch.int8)
+        res = (torch.zeros(8 * N + 8, dtype=torch.bfloat16)[1:1 + 8 * N].view(8, N)
+               if case == "k9_residual" else None)
+        fn = quant._int8_gemm_postscale_cuda
+        call = lambda: fn(xq, torch.ones(8, 1), torch.zeros(N, K, dtype=torch.int8),  # noqa: E731
+                          torch.ones(N), None, None, None, res)
+        match = "multiple of" if case in ("k9_n", "k9_k") else "16-byte aligned"
+    else:
+        bq, bk = (64, 128) if case == "k7_block_q" else (128, 64) if case == "k7_block_k" \
+            else (128, 128)
+        Lp, H, D = 256, 1, 128
+        qi = (_off_by_one(1, H, Lp, D) if case == "k7_align"
+              else torch.zeros(1, H, Lp, D, dtype=torch.int8))
+        nK = Lp // bk
+        fn = si8._sparse_i8_vt_cuda
+        call = lambda: fn(qi, torch.ones(1, H, Lp), torch.zeros(1, H, Lp, D, dtype=torch.int8),  # noqa: E731
+                          torch.zeros(1, H, nK, D, bk, dtype=torch.int8),
+                          torch.ones(1, H, nK), torch.ones(1, H, 1, D),
+                          torch.zeros(1, H, Lp // bq, 1, dtype=torch.int32),
+                          D ** -0.5, bq, bk, Lp, None, None)
+        match = "multiple of 128" if case != "k7_align" else "16-byte aligned"
+    before = fn.launches
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert fn.launches == before
+
+
 def test_row_stride_reads_column_groups_in_place():
     """K2 and K5 read Q/K/V as column groups of the fused QKV output: rows
     3*D apart; a tensor whose last stride is not 1 is refused."""

@@ -39,7 +39,9 @@ K10_PHASES = ["start", "consumer up", "first tile", "loop done", "gelu done",
 K11_PHASES = ["start", "consumer up", "first tile", "loop done", "epilogue",
               "cluster sync"]
 
-# (anchor in csrc/quant.cu, text inserted before it)
+# (anchor in w8a8_ffn_kernel's text in csrc/quant.cu, text inserted before it)
+KERNEL = ("w8a8_ffn_kernel(const __grid_constant__",
+          "// once per mode: the shared-memory size")
 STAMPS = [
     ("  if (tid == 0) {\n#pragma unroll 1\n    for (int s = 0; s < STAGES; ++s) {",
      "  if (tid == kWG) stamp(MODE, 0);\n"),
@@ -57,8 +59,7 @@ STAMPS = [
     ("    asm volatile(\"bar.sync 1, %0;\"", "    if (tid == kWG) stamp(MODE, 7);\n"),
     ("    // no block exits while a remote arrive or multicast may still reach it",
      "    if (tid == kWG) stamp(MODE, 4);\n"),
-    ("\n  }\n}\n\ntypedef CUresult (*EncodeTiledFn)",
-     "\n    if (tid == kWG) stamp(MODE, 5);"),
+    ("\n  }\n}\n\n", "\n    if (tid == kWG) stamp(MODE, 5);"),
 ]
 TABLE = f"""
 __device__ long long g_stamps[2][{MAX_BLOCKS}][8];
@@ -77,11 +78,14 @@ extern "C" int tdx_ffn_stamps(void* host, int mode) {{
 
 def _instrument(src: str) -> str:
     src = src.replace("namespace ffn {\n", "namespace ffn {\n" + TABLE, 1)
+    i = src.index(KERNEL[0])
+    j = src.index(KERNEL[1], i)
+    body = src[i:j]
     for anchor, text in STAMPS:
-        if src.count(anchor) != 1:
+        if body.count(anchor) != 1:
             raise SystemExit(f"stamp_w8a8_ffn: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, text + anchor, 1)
-    return src + ENTRY
+        body = body.replace(anchor, text + anchor, 1)
+    return src[:i] + body + src[j:] + ENTRY
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,4 @@
-// K8-K11: the W8A8 "postscale" linears for sm_90a.
+// K8-K11 and K22: the W8A8 linears for sm_90a.
 //
 // K8  tdx_quantize_rows_int8 replaces the TPU kernel
 //     turbodiffusion_tpu/ops/quant.py:quantize_rows_int8_pallas (body
@@ -75,21 +75,45 @@
 //   * Tensor maps are encoded on the host at each launch
 //     (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint:
 //     libcuda is not on the link line) and passed as __grid_constant__
-//     parameters.
+//     parameters. The helpers K7, K9, K10 and K11 share are in hopper.cuh.
 //   What holds them back on an H100 80GB HBM3 (tools/time_w8a8_ffn.py,
 //   tools/stamp_w8a8_ffn.py): K10's main loop runs near the int8 peak, and
 //   its epilogue (GELU, the amax exchange, the quantise) is about half of a
 //   block's time at the 1.3B's K of 1,536; K11's main loop runs at about
 //   half the peak, at the same rate of unique L2 bytes per SM as K10's.
-//   Not yet: persistent blocks and ping-pong consumers, which would overlap
-//   one tile's epilogue with the next tile's loads and math.
+//   Not yet: K9's persistent ping-pong schedule, which would overlap one
+//   tile's epilogue with the next tile's loads and math.
 //
-// K9 and K22: `int8_gemm_kernel`, a first, simple version: a 128 x 128
-// output tile per 256-thread block (8 warps of 64 x 32), a 4-stage cp.async
-// ring of 64-byte K slices (rows padded to 80 bytes, so ldmatrix reads hit 32
+// K9: `ffn::postscale_gemm_kernel`, the same wgmma + TMA main loop on a
+// schedule for short K (12 K tiles at the 1.3B's 1,536, 40 at the 14B's):
+//   * persistent blocks, as many as the card holds at once, walk the output
+//     in 128 x 128 tiles (N fastest); clusters of 2 along N share the rows
+//     (block 0 multicasts the activation tile) where N / 128 is even;
+//   * two consumer warpgroups in ping-pong: each takes every other tile of
+//     its block whole (two m64 slices, 128 s32 registers), so one runs its
+//     epilogue while the other runs its main loop; the producer walks every
+//     tile's K tiles through one 5-stage ring and runs ahead across tiles;
+//   * the epilogue, ((acc * rs) * cs) (+ bias) (GELU-tanh) (* gate) (+ res)
+//     in the order of the plain version, one bf16 rounding, works in a
+//     128 x 128 bf16 box a consumer (two 64-column TMA boxes): the residual
+//     lands there by TMA while the tile's main loop runs and is read in
+//     place, the output leaves by TMA store and drains under the next
+//     tile's main loop;
+//   * K a multiple of 64: the last 128-byte K tile may read zeros past K
+//     (TMA fills them), rows past M read zeros and are not written.
+//   What holds it back on an H100 80GB HBM3 (tools/time_k9_k7.py): 40% of
+//   the int8 peak at the 1.3B's fused QKV, 32% at its O (K = 1,536: 12 K
+//   tiles a tile), 52-61% at the 14B's; a consumer's 128 x 128 tile reads
+//   more L2 bytes an operation than K10's 256 x 128 cluster tile. The
+//   512-row text K / V are 48 tiles, a third of the card (~3x
+//   torch._int_mm there).
+//
+// K22: `int8_gemm_kernel`, a first, simple version: a 128 x 128 output tile
+// per 256-thread block (8 warps of 64 x 32), a 4-stage cp.async ring of
+// 64-byte K slices (rows padded to 80 bytes, so ldmatrix reads hit 32
 // banks; rows past M zero-filled), ldmatrix.x4 fragments and
 // mma.sync.m16n8k32 s8 x s8 -> s32; the weight is stored (N, K), the "col"
-// operand layout. K22 folds the s32 sums into fp32 at every 128-K edge (2 K
+// operand layout. It folds the s32 sums into fp32 at every 128-K edge (2 K
 // slices); its output tile is the quant block, so it reads one xs and one ws
 // scalar a K block.
 //
@@ -101,6 +125,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,13 +214,9 @@ __device__ __forceinline__ uint16_t q8_pair(float a, float b, float inv) {
   return (uint16_t)__byte_perm(qa, qb, 0x0040);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// the kernel template's modes: K9 and K22 on int8_gemm_kernel, K10 and K11 on
-// w8a8_ffn_kernel
-enum Mode { kPostscale = 0, kQout = 1, kBlockact = 2, kBlockScale = 3 };
+// the kernel templates' modes: K10 and K11 on w8a8_ffn_kernel, K22 on
+// int8_gemm_kernel (K9 has a kernel of its own)
+enum Mode { kQout = 1, kBlockact = 2, kBlockScale = 3 };
 
 // ---------------------------------------------------------------------------
 // K10, K11: w8a8_ffn_kernel (wgmma, TMA, mbarrier ring, clusters)
@@ -248,55 +270,6 @@ struct FfnParams {
   int M, N, K, bk, act;
 };
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_blocks() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster; release / acquire
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// arrive on the barrier at the same offset in cluster block `rank`
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n\t.reg .b32 ra;\n\t"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n\t}" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
 __device__ __forceinline__ void st_remote_f32(uint32_t addr, uint32_t rank, float v) {
   asm volatile(
       "{\n\t.reg .b32 ra;\n\t"
@@ -304,95 +277,6 @@ __device__ __forceinline__ void st_remote_f32(uint32_t addr, uint32_t rank, floa
       "st.shared::cluster.f32 [ra], %2;\n\t}" ::"r"(addr),
       "r"(rank), "f"(v)
       : "memory");
-}
-
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// the tile lands at `dst` and completes `bar`'s bytes in every block of `mask`
-__device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, uint32_t dst,
-                                                   uint32_t bar, int c0, int c1,
-                                                   uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
-      : "memory");
-}
-
-// store a shared-memory tile (rows past the map's are not written)
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
-                                          int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wait until the stores issued so far have read their shared memory
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n\tcp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride offset); the
-// leading offset is unused (a 32-byte K step stays inside the swizzle row).
-// The tile starts 1024-byte aligned; a K step advances the start by 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (the asm above carries no register operands)
-__device__ __forceinline__ void reg_fence(int* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (64 x 128 s32, the warpgroup's fragment) += A (64 x 32 s8) B (128 x 32 s8)^T
-__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "setp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n\t}"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
-        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
-        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
-        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
-        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
-        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
-        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
-        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // Grid (N / 128, cdiv(M, BM)), clusters of C blocks along x. Fragment of a
@@ -664,43 +548,6 @@ w8a8_ffn_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? (EncodeTiledFn)ptr : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) int8 or bf16 matrix in tiles of (box_rows, 128
-// bytes), 128-byte swizzle; rows past `rows` read as zero and are not written
-bool tile_map(CUtensorMap* map, const void* ptr, bool bf16, int rows, int cols, int box_rows) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (!enc) return false;
-  const int esize = bf16 ? 2 : 1;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(kTK / esize), (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // once per mode: the shared-memory size, and the register count setmaxnreg
 // assumes (else the consumers' request could not be met: refuse, not hang)
 template <int MODE>
@@ -748,10 +595,308 @@ int launch(const void* a, const void* w, void* out, const FfnParams& p, int clus
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K9: postscale_gemm_kernel (persistent blocks, ping-pong consumers)
+// ---------------------------------------------------------------------------
+
+// One producer warpgroup and two consumer warpgroups, each consumer a whole
+// 128 x 128 tile (two m64 slices, 128 s32 registers a thread); 5 stages of
+// 128 x 128-byte tiles of both operands, then a 128 x 128 bf16 box a
+// consumer for its residual and output.
+struct PsLayout {
+  static constexpr int NCW = 2;
+  static constexpr int THREADS = (NCW + 1) * kWG;
+  static constexpr int REGS = 168;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static_assert(REGS == 65536 / THREADS / 8 * 8, "registers a thread at launch");
+  static_assert(PRODUCER_REGS * kWG + CONSUMER_REGS * NCW * kWG <= REGS * THREADS,
+                "setmaxnreg within the block's allocation");
+  static constexpr int STAGES = 5;
+  static constexpr int BM = 128;
+  static constexpr int A_BYTES = BM * kTK, B_BYTES = kTN * kTK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BOX_BYTES = BM * 64 * 2;            // 64 bf16 columns of the tile
+  static constexpr int EPI = STAGES * STAGE_BYTES;         // two boxes a consumer
+  static constexpr int BARS = EPI + NCW * 2 * BOX_BYTES;
+  // full and empty barriers a stage, a residual and an order barrier a consumer
+  static constexpr int SMEM = BARS + (2 * STAGES + 2 * NCW) * 8 + 1024;
+  static_assert(SMEM <= 232448, "one block an SM");
+};
+
+struct PsParams {
+  const float* rs;            // (M,) row scales
+  const float* cs;            // (N,) col scales
+  const float* bias;          // (N,) or null
+  const float* gate;          // (N,) or null
+  const __nv_bfloat16* res;   // (M, N) or null (read through tm_r)
+  int M, N, K, act;
+};
+
+// Grid: clusters of C (1 or 2) blocks along N, as many as the card holds at
+// once. The output is walked in units of C tiles of 128 x 128 that share
+// their rows (N fastest); cluster q takes units q, q + Q, q + 2Q, ... (Q
+// clusters), the block of rank r the unit's r-th tile, and its consumer
+// warpgroups take the block's tiles in turn (0, 2, 4, ... and 1, 3, ...).
+// The producer walks every tile's K tiles in that order through one ring
+// and runs ahead across tiles; block 0 of a cluster multicasts the
+// activation tile. The consumers' main loops take turns (an order barrier
+// each, as CUTLASS's ping-pong kernel orders its math warpgroups): a
+// consumer waits for the ring only once the other has left it, so its wait
+// on a stage's parity can never match a phase two turns early. Fragment of
+// a consumer thread as in w8a8_ffn_kernel.
+__global__ void __launch_bounds__(PsLayout::THREADS, 1)
+postscale_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_w,
+                      const __grid_constant__ CUtensorMap tm_o,
+                      const __grid_constant__ CUtensorMap tm_r, const PsParams p) {
+  using Ly = PsLayout;
+  constexpr int STAGES = Ly::STAGES, BM = Ly::BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + Ly::BARS, empty0 = full0 + STAGES * 8;
+  const uint32_t res0 = empty0 + STAGES * 8, ord0 = res0 + Ly::NCW * 8;
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank(), csize = cluster_blocks();
+  const int cl = blockIdx.x / csize, n_cl = gridDim.x / csize;
+  const int KT = (p.K + kTK - 1) / kTK;            // the last tile's tail reads zeros
+  const int n_units_n = p.N / (kTN * csize);
+  const int n_units = (p.M + BM - 1) / BM * n_units_n;
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, csize);   // the stage's consumer in every cluster block
+    }
+    for (int c = 0; c < Ly::NCW; ++c) {
+      mbar_init(res0 + 8 * c, 1);
+      mbar_init(ord0 + 8 * c, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  if (tid < kWG) {
+    // ---- producer: warp 0 feeds the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(Ly::PRODUCER_REGS));
+    if (tid < 32) {
+      const uint16_t mask = (uint16_t)((1u << csize) - 1u);
+      int it = 0;
+#pragma unroll 1
+      for (int u = cl; u < n_units; u += n_cl) {
+        const int m0 = u / n_units_n * BM, n0 = (u % n_units_n * (int)csize + (int)rank) * kTN;
+#pragma unroll 1
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+          if (tid == 0) {
+            const uint32_t a = base + s * Ly::STAGE_BYTES, full = full0 + 8 * s;
+            mbar_arrive_expect_tx(full, Ly::STAGE_BYTES);
+            tma_load(&tm_w, a + Ly::A_BYTES, full, kt * kTK, n0);
+            if (csize == 1)
+              tma_load(&tm_a, a, full, kt * kTK, m0);
+            else if (rank == 0)
+              tma_load_multicast(&tm_a, a, full, kt * kTK, m0, mask);
+          }
+          __syncwarp();
+        }
+      }
+    }
+    cluster_sync();   // the consumers' one
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(Ly::CONSUMER_REGS));
+  const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
+  const int row_w = warp * 16 + (lane >> 2);   // tile row of register 0 of slice 0
+  const uint32_t box = base + Ly::EPI + cw * 2 * Ly::BOX_BYTES;
+  const uint32_t rbar = res0 + 8 * cw;
+  int acc[2][64];
+
+  // a stage is free once its consumer in every cluster block is done with
+  // it: lanes 0..C-1 of the warpgroup's first warp arrive, one per block
+  auto release = [&](int s) {
+    if (lt < (int)csize) mbar_arrive_remote(empty0 + 8 * s, (uint32_t)lt);
+  };
+  int n_done = 0;
+#pragma unroll 1
+  for (int u = cl + cw * n_cl, j = cw; u < n_units; u += 2 * n_cl, j += 2, ++n_done) {
+    const int m0 = u / n_units_n * BM, n0 = (u % n_units_n * (int)csize + (int)rank) * kTN;
+    if (lt == 0) {
+      // the box is free once the previous tile's output store has read it;
+      // the residual lands there while the main loop runs
+      tma_store_wait_read();
+      if (p.res) {
+        mbar_arrive_expect_tx(rbar, 2 * Ly::BOX_BYTES);
+        tma_load(&tm_r, box, rbar, n0, m0);
+        tma_load(&tm_r, box + Ly::BOX_BYTES, rbar, n0 + 64, m0);
+      }
+    }
+    // my turn on the ring: the other consumer's previous tile has left it
+    // (consumer 0's first tile goes first)
+    if (j > 0) mbar_wait(ord0 + 8 * cw, (n_done - 1 + cw) & 1);
+    int prev = -1;   // the stage read by the commit group still in flight
+#pragma unroll 1
+    for (int kt = 0; kt < KT; ++kt) {
+      const int it = j * KT + kt, s = it % STAGES;
+      mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+      const uint32_t a = base + s * Ly::STAGE_BYTES, b = a + Ly::A_BYTES;
+      reg_fence(acc[0]);
+      reg_fence(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 32; ++kk)
+#pragma unroll
+        for (int ms = 0; ms < 2; ++ms)
+          wgmma_s8(acc[ms], sw128_desc(a + ms * 64 * kTK + kk * 32), sw128_desc(b + kk * 32),
+                   kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(acc[0]);
+      reg_fence(acc[1]);
+      if (prev >= 0) release(prev);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    release(prev);
+    // every warp of this warpgroup issued its last wgmma, so has passed its
+    // last wait on the ring: the other consumer's turn
+    if (lt == 0) mbar_arrive(ord0 + 8 * (1 - cw));
+
+    // ((acc * rs) * cs) (+ bias) (GELU) (* gate) (+ res), one bf16 rounding,
+    // into the box (128-byte swizzled rows, the residual read in place),
+    // then two TMA stores that drain while the next tile's main loop runs
+    named_sync(2 + cw, kWG);   // lane 0's wait for the box is behind every thread
+    if (p.res) mbar_wait(rbar, n_done & 1);
+    float rsv[2][2];
+#pragma unroll
+    for (int ms = 0; ms < 2; ++ms)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rsv[ms][h] = p.rs[min(m0 + ms * 64 + row_w + 8 * h, p.M - 1)];
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      const int c = jn * 8 + 2 * (lane & 3);   // the pair's column in the tile
+      const float2 csv = *reinterpret_cast<const float2*>(p.cs + n0 + c);
+      const float2 bv = p.bias ? *reinterpret_cast<const float2*>(p.bias + n0 + c)
+                               : make_float2(0.f, 0.f);
+      const float2 gv = p.gate ? *reinterpret_cast<const float2*>(p.gate + n0 + c)
+                               : make_float2(1.f, 1.f);
+      const int cb = 2 * (c & 63);              // the pair's byte in the box row
+#pragma unroll
+      for (int ms = 0; ms < 2; ++ms)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = ms * 64 + row_w + 8 * h;
+          __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(
+              smem + (box - base) + (c >> 6) * Ly::BOX_BYTES + r * kTK +
+              ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15)));
+          float v0 = __fmul_rn(__fmul_rn((float)acc[ms][4 * jn + 2 * h], rsv[ms][h]), csv.x);
+          float v1 = __fmul_rn(__fmul_rn((float)acc[ms][4 * jn + 2 * h + 1], rsv[ms][h]), csv.y);
+          if (p.bias) {
+            v0 = __fadd_rn(v0, bv.x);
+            v1 = __fadd_rn(v1, bv.y);
+          }
+          if (p.act) {
+            v0 = gelu_tanh(v0);
+            v1 = gelu_tanh(v1);
+          }
+          if (p.gate) {
+            v0 = __fmul_rn(v0, gv.x);
+            v1 = __fmul_rn(v1, gv.y);
+          }
+          if (p.res) {
+            const float2 rv = __bfloat1622float2(*slot);
+            v0 = __fadd_rn(v0, rv.x);
+            v1 = __fadd_rn(v1, rv.y);
+          }
+          *slot = __floats2bfloat162_rn(v0, v1);
+        }
+    }
+    fence_async_shared();
+    named_sync(2 + cw, kWG);
+    if (lt == 0) {   // rows past M are not written
+      tma_store(&tm_o, box, n0, m0);
+      tma_store(&tm_o, box + Ly::BOX_BYTES, n0 + 64, m0);
+      tma_store_commit();
+    }
+  }
+  if (lt == 0) tma_store_wait_all();
+  // no block exits while a remote arrive or multicast may still reach it
+  cluster_sync();
+}
+
+// clusters of C blocks the card holds at once, once per C
+int max_clusters(cudaLaunchConfig_t cfg, int csize) {
+  static int cached[3] = {0, 0, 0};
+  if (!cached[csize]) {
+    int n = 0;
+    cfg.gridDim = dim3(csize, 1, 1);
+    if (cudaOccupancyMaxActiveClusters(&n, postscale_gemm_kernel, &cfg) != cudaSuccess ||
+        n <= 0) {
+      cudaGetLastError();
+      int dev = 0, sms = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      n = sms / csize;
+    }
+    cached[csize] = n;
+  }
+  return cached[csize];
+}
+
+// a (M, K) x w (N, K) -> bf16 out (M, N); K a multiple of 64 (the last
+// 128-byte K tile may be half zeros), N of 128
+int launch_postscale(const void* a, const void* w, void* out, const PsParams& p,
+                     void* stream) {
+  using Ly = PsLayout;
+  if (p.M <= 0 || p.K <= 0 || p.K % 64 || p.N <= 0 || p.N % kTN)
+    return (int)cudaErrorInvalidValue;
+  static const int ready = [] {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, postscale_gemm_kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (fa.numRegs != Ly::REGS) return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaFuncSetAttribute(postscale_gemm_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::SMEM);
+  }();
+  if (ready != 0) return ready;
+  // pairs of blocks along N share the activation tile where N / 128 is even
+  const int csize = (p.N / kTN) % 2 ? 1 : 2;
+  CUtensorMap ta, tw, to, tr;
+  if (!tile_map(&ta, a, false, p.M, p.K, Ly::BM) || !tile_map(&tw, w, false, p.N, p.K, kTN) ||
+      !tile_map(&to, out, true, p.M, p.N, Ly::BM) ||
+      !tile_map(&tr, p.res ? (const void*)p.res : out, true, p.M, p.N, Ly::BM))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(Ly::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Ly::SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int n_units = (p.M + Ly::BM - 1) / Ly::BM * (p.N / (kTN * csize));
+  const int n_cl = max_clusters(cfg, csize);
+  cfg.gridDim = dim3((n_units < n_cl ? n_units : n_cl) * csize, 1, 1);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, postscale_gemm_kernel, ta, tw, to, tr, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace ffn
 
 // ---------------------------------------------------------------------------
-// K9, K22: int8_gemm_kernel (mma.sync)
+// K22: int8_gemm_kernel (mma.sync)
 // ---------------------------------------------------------------------------
 
 constexpr int kQBlock = 128;  // K22's quant block, both operands
@@ -766,16 +911,12 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
 struct GemmParams {
   const int8_t* a;          // (M, K) int8
   const int8_t* w;          // (N, K) int8
-  const float* rs;          // (M,) row scales (K9)
-  const float* xs;          // (Mb, Kb) activation block scales (K22)
-  const float* ws;          // (Nb, Kb) weight block scales (K22)
-  const float* cs;          // (N,) col scales (K9)
+  const float* xs;          // (Mb, Kb) activation block scales
+  const float* ws;          // (Nb, Kb) weight block scales
   const float* bias;        // (N,) or null
-  const float* gate;        // (N,) or null
-  const __nv_bfloat16* res; // (M, N) or null
   __nv_bfloat16* out;       // (M, N) bf16
-  float* out_f;             // (M, N) fp32 (K22, in place of out)
-  int M, N, K, act;
+  float* out_f;             // (M, N) fp32 (in place of out)
+  int M, N, K;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -888,53 +1029,25 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-    if constexpr (MODE == kBlockScale) {
-      if (((kt + 1) * BK) % kQBlock == 0) {  // a quant block ends
-        const int kb = (kt + 1) * BK / kQBlock - 1;
-        const int n_kb = p.K / kQBlock;
-        const float sc = __fmul_rn(p.xs[(size_t)blockIdx.y * n_kb + kb],
-                                   p.ws[(size_t)blockIdx.x * n_kb + kb]);
+    if (((kt + 1) * BK) % kQBlock == 0) {  // a quant block ends
+      const int kb = (kt + 1) * BK / kQBlock - 1;
+      const int n_kb = p.K / kQBlock;
+      const float sc = __fmul_rn(p.xs[(size_t)blockIdx.y * n_kb + kb],
+                                 p.ws[(size_t)blockIdx.x * n_kb + kb]);
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < NT; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              facc[i][j][e] = __fadd_rn(facc[i][j][e], __fmul_rn((float)acc[i][j][e], sc));
-              acc[i][j][e] = 0;
-            }
-      }
+          for (int e = 0; e < 4; ++e) {
+            facc[i][j][e] = __fadd_rn(facc[i][j][e], __fmul_rn((float)acc[i][j][e], sc));
+            acc[i][j][e] = 0;
+          }
     }
   }
   cp_async_wait<0>();
 
-  // epilogue in fp32: the values v[i][j][e] (reusing facc)
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    constexpr bool kRescaled = MODE == kBlockScale;
-    float rsv[2] = {1.f, 1.f};
-    if constexpr (!kRescaled) {
-      rsv[0] = p.rs[min(rows[i][0], p.M - 1)];
-      rsv[1] = p.rs[min(rows[i][1], p.M - 1)];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn * WN + j * 8 + t * 2;
-      float2 csv = make_float2(1.f, 1.f);
-      if constexpr (MODE != kBlockScale) csv = *reinterpret_cast<const float2*>(p.cs + col);
-      float2 bv = make_float2(0.f, 0.f);
-      if (p.bias) bv = *reinterpret_cast<const float2*>(p.bias + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = kRescaled ? facc[i][j][e] : __fmul_rn((float)acc[i][j][e], rsv[e >> 1]);
-        if constexpr (MODE != kBlockScale) v = __fmul_rn(v, (e & 1) ? csv.y : csv.x);
-        if (p.bias) v = __fadd_rn(v, (e & 1) ? bv.y : bv.x);
-        if (p.act) v = gelu_tanh(v);
-        facc[i][j][e] = v;
-      }
-    }
-  }
-
+  // epilogue in fp32: + bias, one store
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -945,18 +1058,12 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) 
       for (int j = 0; j < NT; ++j) {
         const int col = n0 + wn * WN + j * 8 + t * 2;
         float v0 = facc[i][j][2 * h], v1 = facc[i][j][2 * h + 1];
-        if (p.gate) {
-          const float2 gv = *reinterpret_cast<const float2*>(p.gate + col);
-          v0 = __fmul_rn(v0, gv.x);
-          v1 = __fmul_rn(v1, gv.y);
+        if (p.bias) {
+          const float2 bv = *reinterpret_cast<const float2*>(p.bias + col);
+          v0 = __fadd_rn(v0, bv.x);
+          v1 = __fadd_rn(v1, bv.y);
         }
-        if (p.res) {
-          const float2 rv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.res + (size_t)row * p.N + col));
-          v0 = __fadd_rn(v0, rv.x);
-          v1 = __fadd_rn(v1, rv.y);
-        }
-        if (MODE == kBlockScale && p.out_f)
+        if (p.out_f)
           *reinterpret_cast<float2*>(p.out_f + (size_t)row * p.N + col) = make_float2(v0, v1);
         else
           *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
@@ -989,20 +1096,6 @@ int launch_gemm(const GemmParams& p, int cluster_x, void* stream) {
   return (int)cudaGetLastError();
 }
 
-GemmParams make_params(const void* a, const void* w, const void* cs, const void* bias, int M,
-                       int N, int K, int act) {
-  GemmParams p = {};
-  p.a = (const int8_t*)a;
-  p.w = (const int8_t*)w;
-  p.cs = (const float*)cs;
-  p.bias = (const float*)bias;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.act = act;
-  return p;
-}
-
 }  // namespace
 
 extern "C" int tdx_quantize_rows_int8(const void* x, long long ld, void* xq, void* rs, int M,
@@ -1018,12 +1111,17 @@ extern "C" int tdx_int8_gemm_postscale(const void* a, const void* w, const void*
                                        const void* cs, const void* bias, const void* gate,
                                        const void* res, void* out, int M, int N, int K,
                                        int act, void* stream) {
-  GemmParams p = make_params(a, w, cs, bias, M, N, K, act);
+  ffn::PsParams p = {};
   p.rs = (const float*)rs;
+  p.cs = (const float*)cs;
+  p.bias = (const float*)bias;
   p.gate = (const float*)gate;
   p.res = (const __nv_bfloat16*)res;
-  p.out = (__nv_bfloat16*)out;
-  return launch_gemm<kPostscale>(p, 1, stream);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.act = act;
+  return ffn::launch_postscale(a, w, out, p, stream);
 }
 
 extern "C" int tdx_int8_gemm_qout(const void* a, const void* w, const void* rs, const void* cs,
@@ -1069,7 +1167,13 @@ extern "C" int tdx_int8_gemm_block(const void* a, const void* w, const void* xs,
                                    const void* ws, const void* bias, void* out, int out_f32,
                                    int M, int N, int K, void* stream) {
   if (K % kQBlock || N % kQBlock) return (int)cudaErrorInvalidValue;
-  GemmParams p = make_params(a, w, nullptr, bias, M, N, K, 0);
+  GemmParams p = {};
+  p.a = (const int8_t*)a;
+  p.w = (const int8_t*)w;
+  p.bias = (const float*)bias;
+  p.M = M;
+  p.N = N;
+  p.K = K;
   p.xs = (const float*)xs;
   p.ws = (const float*)ws;
   if (out_f32)

@@ -10,31 +10,47 @@
 //
 // What bounds it on an H100: tensor-core math. At the 1.3B 480p shape a call
 // is 6.2e11 operations (12 heads x 32,768 rows x 3,072 keys x 128 x 2 x 2)
-// over ~100 MB of panels, far above the ridge. The design is K3's
-// FlashAttention-2 loop on mma.sync with the QK product in int8:
-//   * one block of 4 warps owns 64 query rows of one (b, h); each warp keeps
-//     its 16 rows' int8 Q fragments (16 registers, half of K3's bf16 ones),
-//     a 16 x 128 fp32 accumulator and the running max / sum in registers;
-//   * 64-key chunks of the selected blocks stream through shared memory: K
-//     as int8 rows (row stride 144 bytes, so fragment loads hit 32 banks), V
-//     converted from int8 to bf16 (exact) as it is staged, already
-//     transposed by K6 so no transpose is needed here;
-//   * S = Q K^T on mma.sync m16n8k32 s8 x s8 -> s32 (exact), scaled by the
-//     q row scale and the K block scale (which carries Dh^-0.5 * log2 e);
-//     keys >= kv_len are set to -1e9 before the row max, so garbage in the
-//     tail of the last block can never win it; chunks wholly past kv_len are
-//     skipped;
-//   * an online softmax in the log2 domain (the TPU kernel holds all
-//     sel * block_k = 3,072 scores of a row at once; that only changes where
-//     p is rounded to bf16), then O += P V on mma.sync m16n8k16 bf16 with P
-//     taken from the S accumulators as A fragments;
+// over ~100 MB of panels, far above the ridge; half of them (P V) run at the
+// bf16 rate. The design (`k7::sparse_i8_vt_kernel`) is Hopper's
+// warp-specialised attention shape:
+//   * a block owns 128 query rows of one (b, h): one producer warpgroup and
+//     two consumer warpgroups of 64 rows; the Q rows stay in shared memory as
+//     int8 (128-byte swizzled rows, one TMA load);
+//   * the producer's warp 0 walks the LUT row and loads each 128-key chunk
+//     by TMA into a 3-stage mbarrier ring: K as int8 rows (keys x 128, as K6
+//     writes it) and V^T as int8 (128 channel rows of the chunk's keys, K6's
+//     transposed panel); its warps 1-3 convert V to bf16 (exact: a byte
+//     placed in the mantissa of 2^23, less 2^23 + 128) once a chunk, into
+//     the K-major 128-byte-swizzled layout wgmma reads, for both consumers;
+//   * S = Q K^T on wgmma m64n128k32 s8 x s8 -> s32 (exact), scaled by the q
+//     row scale and the K block scale (which carries Dh^-0.5 * log2 e); keys
+//     >= kv_len are set to -1e9 before the row max, so garbage in the tail of
+//     the last block can never win it; chunks wholly past kv_len are skipped;
+//   * an online softmax in the log2 domain in fp32 registers (the TPU kernel
+//     holds all sel * block_k = 3,072 scores of a row at once; that only
+//     changes where p is rounded to bf16): the row max on the exact int32
+//     sums (the scales are positive), exp2(s32 * scale - max) as one FFMA
+//     and the SFU's exp2; then O += bf16(P) V on wgmma
+//     m64n128k16 bf16 with P in registers (the S accumulator is already the
+//     A fragment) and V from the converted stage; the next chunk's QK is
+//     issued before the previous P V is waited on;
 //   * epilogue: o / max(l, 1e-20) * vch, and with the linear branch
 //     phi(q) = softmax_D(q_i8 * qs) (from global q, a quad of threads per
 //     row), o += phi(q) kvw / (1e-5 + phi(q) . ksum) + bias in fp32, with
-//     phi staged in shared memory and kvw streamed through it 8 rows at a
-//     time.
-// A first, simple version: synchronous loads (no cp.async or TMA ring) and
-// no wgmma; both are later work.
+//     phi and all of kvw staged in the freed stages; bf16 stores from the
+//     fragments.
+//   setmaxnreg moves registers from the producer (56: four units of V in
+//   flight a converter thread) to the consumers (224).
+//   Blocks of 128 rows: block_q and block_k must be multiples of 128 (the
+//   fused path's blocks are 128, 256 or 512).
+//   What holds it back on an H100 80GB HBM3 (tools/time_k9_k7.py,
+//   tools/stamp_k7.py): ~3x its bound, the tensor cores busy about a third
+//   of the time. A consumer's time goes to the softmax (64 exp2 a thread a
+//   chunk on the quarter-rate SFU, beside P's bf16 packing) and to wgmma
+//   issue stalls; the producer's spare warps convert V for most of a
+//   block's time. Not yet: exp2 partly on the FMA pipe; a cluster of the
+//   blocks that share a LUT row converting V once and multicasting K and V.
+//   The linear epilogue runs in fp32 on the CUDA cores.
 //
 // K19 tdx_sparse_attention_i8_planes replaces the per-row form of the TPU
 //    kernel turbodiffusion_tpu/ops/flash_pallas.py:sparse_attention_i8_planes
@@ -46,8 +62,14 @@
 //    domain), and V's row scale folded into P before its bf16 rounding:
 //    O += bf16(p * vs) bf16(v_i8); o = O / max(l, 1e-20) with l the sum of
 //    the unscaled p. Bound like K7 by tensor-core math (the same pair count;
-//    the PV product scales P per key instead of O per channel). K7's main
-//    loop with three changes: the K and V halves of a chunk come from one
+//    the PV product scales P per key instead of O per channel). K3's
+//    FlashAttention-2 loop on mma.sync: a block of 4 warps owns 64 query
+//    rows, each warp its 16 rows' int8 Q fragments, a 16 x 128 fp32
+//    accumulator and the running max / sum in registers; 64-key chunks are
+//    staged synchronously in shared memory (int8 K rows of 144 bytes, so
+//    fragment loads hit 32 banks) and S = Q K^T runs on mma.sync m16n8k32
+//    s8, P V on m16n8k16 bf16 with P from the S accumulators. Beside K3's
+//    loop: the K and V halves of a chunk come from one
 //    packed 256-byte row a key (V converted to bf16 and transposed as it is
 //    staged, as K3 stages bf16 V); the chunk's 64 K and V row scales are
 //    staged in shared memory, the V scales zeroed past kv_len; p is
@@ -75,6 +97,7 @@
 #include <stdint.h>
 
 #include "attention_step.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -84,222 +107,454 @@ constexpr int kBN = 64;                      // keys per chunk
 constexpr int kThreads = 128;
 constexpr int kKStride = kDh + 16;           // bytes per int8 row of Ks / Q staging
 constexpr int kVStride = kBN + 8;            // bf16 per row of Vt
-constexpr int kPhiStride = kDh + 4;          // floats per row of phi
-constexpr int kKvRows = 8;                   // kvw rows per epilogue step
 constexpr int kMainBytes = kBM * kKStride + kDh * kVStride * 2;
-constexpr int kEpiBytes = (kBM * kPhiStride + kKvRows * kDh) * 4;
-constexpr int kSmemBytes = kMainBytes > kEpiBytes ? kMainBytes : kEpiBytes;
 constexpr float kNegInf = -1e30f;            // running-max start
 constexpr float kMasked = -1e9f;             // score of a key >= kv_len
+constexpr int kMaskedS32 = -(1 << 22);       // K7: below every int8 QK sum
 
-__global__ void __launch_bounds__(kThreads)
-sparse_i8_vt_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qs,
-                    const int8_t* __restrict__ kp, const int8_t* __restrict__ vtp,
-                    const float* __restrict__ ks, const float* __restrict__ vch,
-                    const int* __restrict__ lut, const float* __restrict__ kvw,
-                    const float* __restrict__ ksb, __nv_bfloat16* __restrict__ out,
-                    int H, int Lp, int Lkp, int kv_len, int nQ, int sel, int block_q,
-                    int block_k, float scale_log2) {
-  __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  int8_t* Ks = reinterpret_cast<int8_t*>(smem);
-  __nv_bfloat16* Vt = reinterpret_cast<__nv_bfloat16*>(smem + kBM * kKStride);
+// ---------------------------------------------------------------------------
+// K7: sparse_i8_vt_kernel (warp-specialised, wgmma fed by TMA)
+// ---------------------------------------------------------------------------
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t bh = (size_t)b * H + h;
-  const int nK = Lkp / block_k;
+namespace k7 {
 
-  // Q rows -> int8 A fragments (m16n8k32: rows g / g + 8, bytes t*4 (+16))
-  const int8_t* qb = qi + (bh * Lp + row0) * kDh;
-  for (int u = threadIdx.x; u < kBM * (kDh / 16); u += kThreads) {
-    const int r = u >> 3, c = u & 7;
-    *reinterpret_cast<uint4*>(Ks + r * kKStride + c * 16) =
-        *reinterpret_cast<const uint4*>(qb + (size_t)r * kDh + c * 16);
+constexpr int kRows = 128;                 // query rows a block: two warpgroups of 64
+constexpr int kKeys = 128;                 // keys a chunk
+constexpr int kWG = 128;                   // threads of a warpgroup
+constexpr int kStages = 3;
+constexpr int kThreadsK7 = 3 * kWG;        // producer warpgroup + two consumers
+constexpr int kRegs = 168, kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(kRegs == 65536 / kThreadsK7 / 8 * 8, "registers a thread at launch");
+static_assert(kProducerRegs * kWG + 2 * kConsumerRegs * kWG <= kRegs * kThreadsK7,
+              "setmaxnreg within the block's allocation");
+constexpr int kConvThreads = 3 * 32;       // producer warps 1-3 convert V
+constexpr int kQBytes = kRows * kDh;       // int8 Q, 128-byte swizzled rows
+constexpr int kKBytes = kKeys * kDh;       // int8 K rows of the chunk
+constexpr int kViBytes = kDh * kKeys;      // int8 V^T (channel rows of 128 keys)
+constexpr int kVbAtom = kDh * 64 * 2;      // bf16 V^T, 64 keys (128 bytes) a row
+constexpr int kStageBytes = kKBytes + kViBytes + 2 * kVbAtom;
+constexpr int kBars = kQBytes + kStages * kStageBytes;
+// q, then full / ready / empty a stage
+constexpr int kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;
+static_assert(kSmem <= 232448, "one block an SM");
+// the linear branch's epilogue, over the stages: phi (kRows rows) and kvw
+constexpr int kPhiStride = kDh + 4;
+static_assert(kRows * kPhiStride * 4 + kDh * kDh * 4 <= kStages * kStageBytes,
+              "phi and kvw fit in the stages");
+
+struct VtParams {
+  const float* qs;      // (B, H, Lp) q row scales
+  const float* ks;      // (B, H, nK) K block scales
+  const float* vch;     // (B, H, 128) V channel scales
+  const int* lut;       // (B, H, nQ, sel)
+  const int8_t* qi;     // (B, H, Lp, 128) (the linear branch's phi)
+  const float* kvw;     // (B, H, 128, 128) or null
+  const float* ksb;     // (B, H, 2, 128): ksum, bias
+  __nv_bfloat16* out;   // (B, H, Lp, 128)
+  int H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k;
+  float scale_log2;
+};
+
+// four int8 (a word) as two bf16 pairs, exactly and on the integer and fp32
+// adders (not the conversion unit the softmax's exp2 and P packing load):
+// byte + 128 in the low bits of 2^23 (a prmt), less 2^23 + 128; the fp32
+// value of an integer |v| <= 128 has zeros in its low 16 bits, so its bf16
+// is its high half (a prmt packs two)
+__device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __float_as_uint(
+        __fsub_rn(__uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | k)), 8388736.f));
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// an int32 |s| < 2^22 as fp32, exactly, on the adders (I2F is quarter rate)
+__device__ __forceinline__ float s32_float(int s) {
+  return __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.f);
+}
+
+// 2^x on the SFU (flushes results below 2^-126 to zero; they round to
+// nothing the bf16 P can carry into a sum of values near 1)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the max (MAX) or sum of the 32 fragment values of one row: registers
+// 4 j + h0 and 4 j + h0 + 1, j < 16 (h0 = 0: row g, 2: row g + 8), in a tree
+template <bool MAX, typename T>
+__device__ __forceinline__ T tree_op(T a, T b) {
+  return MAX ? max(a, b) : a + b;
+}
+
+template <bool MAX, int H0, typename T>
+__device__ __forceinline__ T row_tree(const T (&v)[64]) {
+  T r[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) r[j] = tree_op<MAX, T>(v[4 * j + H0], v[4 * j + H0 + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 2]);
+  return tree_op<MAX, T>(r[0], r[1]);
+}
+
+// Grid (Lp / 128, H, B): a block owns 128 query rows of one (b, h) (inside
+// one Q block of the LUT: block_q is a multiple of 128) and walks the
+// 128-key chunks of the K blocks its LUT row selects. Warp 0 of the producer
+// warpgroup loads Q once and, for each chunk, K (keys x 128 int8, as K6
+// writes it) and V^T (128 channels x the chunk's keys) by TMA into a 3-stage
+// ring; warps 1-3 convert each chunk's V to bf16 once, into the K-major
+// swizzled layout wgmma reads. Each consumer warpgroup owns 64 rows: S = Q
+// K^T on wgmma s8 (Q and K from shared memory), the scales, the tail mask
+// and the online softmax in fp32 registers, then O += bf16(P) V on wgmma
+// bf16 with P in registers (the m16n8k16 A fragment the S accumulator
+// already is). Fragment of a consumer thread (warp w, lane l): register i
+// holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) +
+// (i & 1).
+__global__ void __launch_bounds__(kThreadsK7, 1)
+sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const VtParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t qbar = base + kBars, full0 = qbar + 8, ready0 = full0 + 8 * kStages;
+  const uint32_t empty0 = ready0 + 8 * kStages;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const size_t bh = (size_t)blockIdx.z * p.H + blockIdx.y;
+  const int nK = p.Lkp / p.block_k;
+  const int* lut_row = p.lut + (bh * p.nQ + row0 / p.block_q) * p.sel;
+  // fn(kb, off) for the chunks the LUT row names, in order: the 128-key
+  // chunks of K block kb that start before kv_len (an id out of range
+  // names none)
+  auto for_chunks = [&](auto&& fn) {
+#pragma unroll 1
+    for (int j = 0; j < p.sel; ++j) {
+      const int kb = lut_row[j];
+      if (kb < 0 || kb >= nK) continue;
+      const int keys = min(p.block_k, p.kv_len - kb * p.block_k);
+#pragma unroll 1
+      for (int off = 0; off < keys; off += kKeys) fn(kb, off);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll 1
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(ready0 + 8 * s, kConvThreads);
+      mbar_init(empty0 + 8 * s, 2);   // both consumer warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  uint32_t qa[kDh / 32][4];
-  {
-    const int8_t* base = Ks + (warp * 16) * kKStride;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 32; ++kk) {
-      qa[kk][0] = lds32(base + g * kKStride + kk * 32 + t * 4);
-      qa[kk][1] = lds32(base + (g + 8) * kKStride + kk * 32 + t * 4);
-      qa[kk][2] = lds32(base + g * kKStride + kk * 32 + 16 + t * 4);
-      qa[kk][3] = lds32(base + (g + 8) * kKStride + kk * 32 + 16 + t * 4);
-    }
-  }
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-  const float qs0 = qs[bh * Lp + r0], qs1 = qs[bh * Lp + r1];
 
-  float acc[kDh / 8][4];
-#pragma unroll
-  for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;
-  float l0 = 0.f, l1 = 0.f;
-
-  const int* lut_row = lut + (bh * nQ + row0 / block_q) * sel;
-  const int per = block_k / kBN;
-  const int n_chunks = sel * per;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int kb = lut_row[c / per];
-    const int off = (c % per) * kBN;
-    const int key0 = kb * block_k + off;
-    // an id out of range, or a chunk wholly past the tail: no valid key
-    if (kb < 0 || kb >= nK || key0 >= kv_len) continue;
-    const float ks_eff = ks[bh * nK + kb] * scale_log2;
-    __syncthreads();  // previous chunk (or the Q staging) fully consumed
-    const int8_t* ksrc = kp + (bh * Lkp + key0) * kDh;
-    for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
-      const int r = u >> 3, cc = u & 7;
-      *reinterpret_cast<uint4*>(Ks + r * kKStride + cc * 16) =
-          *reinterpret_cast<const uint4*>(ksrc + (size_t)r * kDh + cc * 16);
+  if (tid < kWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      // ---- loads ----
+      mbar_arrive_expect_tx(qbar, kQBytes);
+      tma_load(&tm_q, base, qbar, 0, (int)(bh * p.Lp + row0));
+      int i = 0;
+      for_chunks([&](int kb, int off) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+        const uint32_t st = base + kQBytes + s * kStageBytes, full = full0 + 8 * s;
+        mbar_arrive_expect_tx(full, kKBytes + kViBytes);
+        tma_load(&tm_k, st, full, 0, (int)(bh * p.Lkp + kb * p.block_k + off));
+        tma_load(&tm_v, st + kKBytes, full, off, (int)((bh * nK + kb) * kDh));
+        ++i;
+      });
+    } else if (tid >= 32) {
+      // ---- V: int8 -> bf16, once a chunk ----
+      // unit u: channel row d, 16 keys q; eight lanes take eight rows of one
+      // q, so both the swizzled reads and the swizzled writes hit 32 banks
+      const int ct = tid - 32;
+      int i = 0;
+      for_chunks([&](int, int) {
+        const int s = i % kStages;
+        mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+        const unsigned char* vi = smem + kQBytes + s * kStageBytes + kKBytes;
+        unsigned char* vb = smem + kQBytes + s * kStageBytes + kKBytes + kViBytes;
+#pragma unroll 4
+        for (int u = ct; u < kDh * 8; u += kConvThreads) {
+          const int d = (u & 7) | ((u >> 6) << 3), q = (u >> 3) & 7;
+          const uint4 w = *reinterpret_cast<const uint4*>(vi + d * kKeys + ((q ^ (d & 7)) << 4));
+          const uint2 b0 = i8x4_bf16(w.x), b1 = i8x4_bf16(w.y), b2 = i8x4_bf16(w.z),
+                      b3 = i8x4_bf16(w.w);
+          // keys 16 q .. 16 q + 15: atom q / 4, 16-byte chunks 2 (q % 4) and + 1
+          unsigned char* row = vb + (q >> 2) * kVbAtom + d * 128;
+          const int c0 = 2 * (q & 3);
+          *reinterpret_cast<uint4*>(row + ((c0 ^ (d & 7)) << 4)) = make_uint4(b0.x, b0.y, b1.x, b1.y);
+          *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (d & 7)) << 4)) =
+              make_uint4(b2.x, b2.y, b3.x, b3.y);
+        }
+        fence_async_shared();   // wgmma reads them through the async proxy
+        mbar_arrive(ready0 + 8 * s);
+        ++i;
+      });
     }
-    const int8_t* vsrc = vtp + (bh * nK + kb) * (size_t)kDh * block_k + off;
-    for (int u = threadIdx.x; u < kDh * (kBN / 16); u += kThreads) {
-      const int d = u >> 2, c16 = u & 3;
-      const uint4 val = *reinterpret_cast<const uint4*>(vsrc + (size_t)d * block_k + c16 * 16);
-      const int8_t* q8 = reinterpret_cast<const int8_t*>(&val);
-      uint32_t w[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) w[e] = pack_bf16((float)q8[2 * e], (float)q8[2 * e + 1]);
-      uint4* dst = reinterpret_cast<uint4*>(Vt + d * kVStride + c16 * 16);
-      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-    }
-    __syncthreads();
-
-    // S = Q K^T (exact int32) for this warp's 16 rows x 64 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      int si[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int kk = 0; kk < kDh / 32; ++kk) {
-        const int8_t* kq = Ks + (j * 8 + g) * kKStride + kk * 32 + t * 4;
-        mma_s8(si, qa[kk], lds32(kq), lds32(kq + 16));
-      }
-      // (s32 * qs) * ks * Dh^-0.5 * log2 e, keys >= kv_len masked
-      const int nvalid = kv_len - key0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float v = __fmul_rn(__fmul_rn((float)si[e], e < 2 ? qs0 : qs1), ks_eff);
-        s[j][e] = col < nvalid ? v : kMasked;
-      }
-    }
-
-    // log2 domain; O += P V with bf16 P taken from the S accumulators
-    softmax_pv_step<true, kVStride>(s, acc, m0, m1, l0, l1, Vt);
+    return;
   }
 
-  // o = acc / max(l, 1e-20) * vch
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int rl0 = cw * 64 + warp * 16 + (lane >> 2), rl1 = rl0 + 8;   // block rows
+  const float qs0 = p.qs[bh * p.Lp + row0 + rl0], qs1 = p.qs[bh * p.Lp + row0 + rl1];
+  const uint32_t qa = base + cw * 64 * kDh;       // this warpgroup's Q rows
+
+  // Each consumer issues a chunk's QK and the previous chunk's P V
+  // together, then runs the chunk's softmax under that P V (and under the
+  // other consumer's products).
+
+  float o[64];
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  for (int e = 0; e < 64; ++e) o[e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  int sc[64];
+  uint32_t pa[32];
+
+  // O += bf16(P) V of the chunk in stage s (V^T converted, two 64-key atoms)
+  auto issue_pv = [&](int s, int i) {
+    mbar_wait(ready0 + 8 * s, (i / kStages) & 1);
+    const uint32_t vb = base + kQBytes + s * kStageBytes + kKBytes + kViBytes;
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_bf16_rs(o, pa + 4 * kk, sw128_desc(vb + (kk >> 2) * kVbAtom + (kk & 3) * 32));
+    wgmma_commit();
+  };
+
+  mbar_wait(qbar, 0);
+  int i = 0, prev = -1;   // prev: the stage of the chunk whose P V is pending
+  for_chunks([&](int kb, int off) {
+    const int key0 = kb * p.block_k + off;
+    const int s = i % kStages;
+    const uint32_t st = base + kQBytes + s * kStageBytes;
+    const float ks_eff = p.ks[bh * nK + kb] * p.scale_log2;
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+    // S = Q K^T, exact s32 (64 rows x 128 keys); then the previous P V
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    wgmma_fence();
+    wgmma_s8_first(sc, sw128_desc(qa), sw128_desc(st));
+#pragma unroll
+    for (int kk = 1; kk < kDh / 32; ++kk)
+      wgmma_s8(sc, sw128_desc(qa + kk * 32), sw128_desc(st + kk * 32));
+    wgmma_commit();
+    if (prev >= 0) issue_pv(prev, i - 1);
+    if (prev >= 0)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    reg_fence<64>(sc);
+
+    // s = s32 * (qs * ks * Dh^-0.5 * log2 e), the online softmax in the
+    // log2 domain. The scales are positive, so a row's max is its largest
+    // exact s32 sum, taken on the integers; keys >= kv_len (only in a K
+    // block's last chunk before kv_len) never win it and get p = 0, as
+    // their -1e9 gives the plain version. The s32 sums (|s| <= 127^2 * 128
+    // < 2^22) become fp32 exactly as 1.5 * 2^23 + s less 1.5 * 2^23, and
+    // exp2(s32 * scale - max) is one FFMA and the SFU's exp2
+    const int nvalid = p.kv_len - key0;
+    const bool tail = nvalid < kKeys;
+    const float qk0 = qs0 * ks_eff, qk1 = qs1 * ks_eff;
+    if (tail) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sc[e] = kMaskedS32;
+    }
+    // row maxima and sums as trees over the thread's 32 values a row
+    // (registers e with e & 2 clear: row g; set: row g + 8)
+    int im0 = row_tree<true, 0>(sc), im1 = row_tree<true, 2>(sc);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      im0 = max(im0, __shfl_xor_sync(0xffffffffu, im0, off));
+      im1 = max(im1, __shfl_xor_sync(0xffffffffu, im1, off));
+    }
+    const float mn0 = fmaxf(m0, s32_float(im0) * qk0), mn1 = fmaxf(m1, s32_float(im1) * qk1);
+    const float alpha0 = ex2_approx(m0 - mn0), alpha1 = ex2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sf[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      sf[e] = ex2_approx(fmaf(s32_float(sc[e]), (e & 2) ? qk1 : qk0, (e & 2) ? -mn1 : -mn0));
+    if (tail) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sf[e] = 0.f;
+    }
+    const float rs0 = row_tree<false, 0>(sf), rs1 = row_tree<false, 2>(sf);
+    // the previous P V is done: its stage is free, O and P are ours
+    wgmma_wait<0>();
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    if (prev >= 0 && lt == 0) mbar_arrive(empty0 + 8 * prev);
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+    // (a warp whose row maxima all held skips the multiply by 1)
+    if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) o[e] *= (e & 2) ? alpha1 : alpha0;
+    }
+    // P as the A fragments of the 8 k16 steps: keys 16 kk .. 16 kk + 15
+#pragma unroll
+    for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sf[2 * e], sf[2 * e + 1]);
+    prev = s;
+    ++i;
+  });
+  if (prev >= 0) {
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    wgmma_fence();
+    issue_pv(prev, i - 1);
+    wgmma_wait<0>();
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    if (lt == 0) mbar_arrive(empty0 + 8 * prev);
+  }
+
+  // o = O / max(l, 1e-20) * vch
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   l0 = fmaxf(l0, 1e-20f);
   l1 = fmaxf(l1, 1e-20f);
-  const float* vc = vch + bh * kDh;
+  const float* vc = p.vch + bh * kDh;
 #pragma unroll
-  for (int d = 0; d < kDh / 8; ++d) {
-    const float2 sc = *reinterpret_cast<const float2*>(vc + d * 8 + t * 2);
-    acc[d][0] = __fmul_rn(acc[d][0] / l0, sc.x);
-    acc[d][1] = __fmul_rn(acc[d][1] / l0, sc.y);
-    acc[d][2] = __fmul_rn(acc[d][2] / l1, sc.x);
-    acc[d][3] = __fmul_rn(acc[d][3] / l1, sc.y);
+  for (int j = 0; j < 16; ++j) {
+    const float2 sc2 = *reinterpret_cast<const float2*>(vc + j * 8 + t * 2);
+    o[4 * j] = __fmul_rn(o[4 * j] / l0, sc2.x);
+    o[4 * j + 1] = __fmul_rn(o[4 * j + 1] / l0, sc2.y);
+    o[4 * j + 2] = __fmul_rn(o[4 * j + 2] / l1, sc2.x);
+    o[4 * j + 3] = __fmul_rn(o[4 * j + 3] / l1, sc2.y);
   }
 
-  if (kvw != nullptr) {
-    // the SLA linear branch: o += phi(q) kvw / (1e-5 + phi(q) . ksum) + b
-    __syncthreads();  // the main loop's Ks / Vt are dead: reuse as phi
-    float* phi = reinterpret_cast<float*>(smem);
-    float* kvs = phi + kBM * kPhiStride;
-    const float* ksum = ksb + bh * 2 * kDh;
+  if (p.kvw != nullptr) {
+    // the SLA linear branch: o += phi(q) kvw / (1e-5 + phi(q) . ksum) + b,
+    // phi and kvw in the stages once both warpgroups are done with them
+    named_sync(1, 2 * kWG);
+    float* phi = reinterpret_cast<float*>(smem + kQBytes);
+    float* kvs = phi + kRows * kPhiStride;
+    const float* ksum = p.ksb + bh * 2 * kDh;
     const float* bias = ksum + kDh;
+    const float4* kw = reinterpret_cast<const float4*>(p.kvw + bh * kDh * kDh);
+#pragma unroll 4
+    for (int u = tid - kWG; u < kDh * kDh / 4; u += 2 * kWG)
+      reinterpret_cast<float4*>(kvs)[u] = kw[u];
     float den[2];
 #pragma unroll
     for (int which = 0; which < 2; ++which) {
-      const int rl = warp * 16 + g + 8 * which;
+      const int rl = which ? rl1 : rl0;
       const float qsr = which ? qs1 : qs0;
-      const int8_t* qrow = qi + (bh * Lp + row0 + rl) * kDh + t * 32;
-      uint4 raw[2];
-      raw[0] = *reinterpret_cast<const uint4*>(qrow);
-      raw[1] = *reinterpret_cast<const uint4*>(qrow + 16);
-      const int8_t* q8 = reinterpret_cast<const int8_t*>(raw);
+      const int8_t* qrow = p.qi + (bh * p.Lp + row0 + rl) * kDh + t * 32;
+      uint4 qraw[2];
+      qraw[0] = *reinterpret_cast<const uint4*>(qrow);
+      qraw[1] = *reinterpret_cast<const uint4*>(qrow + 16);
+      const int8_t* q8 = reinterpret_cast<const int8_t*>(qraw);
       float f[32];
       float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        f[i] = __fmul_rn((float)q8[i], qsr);
-        mx = fmaxf(mx, f[i]);
+      for (int e = 0; e < 32; ++e) {
+        f[e] = __fmul_rn((float)q8[e], qsr);
+        mx = fmaxf(mx, f[e]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        f[i] = expf(f[i] - mx);
-        sum += f[i];
+      for (int e = 0; e < 32; ++e) {
+        f[e] = expf(f[e] - mx);
+        sum += f[e];
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       float dp = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        f[i] = f[i] / sum;
-        dp += f[i] * ksum[t * 32 + i];
-        phi[rl * kPhiStride + t * 32 + i] = f[i];
+      for (int e = 0; e < 32; ++e) {
+        f[e] = f[e] / sum;
+        dp += f[e] * ksum[t * 32 + e];
+        phi[rl * kPhiStride + t * 32 + e] = f[e];
       }
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 2);
       den[which] = 1e-5f + dp;
     }
-    const int rl0 = warp * 16 + g, rl1 = rl0 + 8;
-    float num[kDh / 8][4];
+    named_sync(1, 2 * kWG);   // phi and kvw written
+    float num[64];
 #pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) num[d][0] = num[d][1] = num[d][2] = num[d][3] = 0.f;
-    const float* kw = kvw + bh * kDh * kDh;
-    for (int d0 = 0; d0 < kDh; d0 += kKvRows) {
-      __syncthreads();  // phi written / the previous kvw rows consumed
-      for (int u = threadIdx.x; u < kKvRows * kDh / 4; u += kThreads)
-        reinterpret_cast<float4*>(kvs)[u] =
-            reinterpret_cast<const float4*>(kw + (size_t)d0 * kDh)[u];
-      __syncthreads();
+    for (int e = 0; e < 64; ++e) num[e] = 0.f;
+#pragma unroll 2
+    for (int dd = 0; dd < kDh; ++dd) {
+      const float p0 = phi[rl0 * kPhiStride + dd], p1 = phi[rl1 * kPhiStride + dd];
 #pragma unroll
-      for (int dd = 0; dd < kKvRows; ++dd) {
-        const float p0 = phi[rl0 * kPhiStride + d0 + dd];
-        const float p1 = phi[rl1 * kPhiStride + d0 + dd];
-#pragma unroll
-        for (int d = 0; d < kDh / 8; ++d) {
-          const float2 kv2 = *reinterpret_cast<const float2*>(kvs + dd * kDh + d * 8 + t * 2);
-          num[d][0] = fmaf(p0, kv2.x, num[d][0]);
-          num[d][1] = fmaf(p0, kv2.y, num[d][1]);
-          num[d][2] = fmaf(p1, kv2.x, num[d][2]);
-          num[d][3] = fmaf(p1, kv2.y, num[d][3]);
-        }
+      for (int j = 0; j < 16; ++j) {
+        const float2 kv2 = *reinterpret_cast<const float2*>(kvs + dd * kDh + j * 8 + t * 2);
+        num[4 * j] = fmaf(p0, kv2.x, num[4 * j]);
+        num[4 * j + 1] = fmaf(p0, kv2.y, num[4 * j + 1]);
+        num[4 * j + 2] = fmaf(p1, kv2.x, num[4 * j + 2]);
+        num[4 * j + 3] = fmaf(p1, kv2.y, num[4 * j + 3]);
       }
     }
 #pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) {
-      const float2 bb = *reinterpret_cast<const float2*>(bias + d * 8 + t * 2);
-      acc[d][0] = (acc[d][0] + num[d][0] / den[0]) + bb.x;
-      acc[d][1] = (acc[d][1] + num[d][1] / den[0]) + bb.y;
-      acc[d][2] = (acc[d][2] + num[d][2] / den[1]) + bb.x;
-      acc[d][3] = (acc[d][3] + num[d][3] / den[1]) + bb.y;
+    for (int j = 0; j < 16; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + j * 8 + t * 2);
+      o[4 * j] = (o[4 * j] + num[4 * j] / den[0]) + bb.x;
+      o[4 * j + 1] = (o[4 * j + 1] + num[4 * j + 1] / den[0]) + bb.y;
+      o[4 * j + 2] = (o[4 * j + 2] + num[4 * j + 2] / den[1]) + bb.x;
+      o[4 * j + 3] = (o[4 * j + 3] + num[4 * j + 3] / den[1]) + bb.y;
     }
   }
 
-  __nv_bfloat16* ob = out + bh * Lp * kDh;
+  __nv_bfloat16* ob = p.out + (bh * p.Lp + row0) * kDh;
 #pragma unroll
-  for (int d = 0; d < kDh / 8; ++d) {
-    const int col = d * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * kDh + col) = pack_bf16(acc[d][0], acc[d][1]);
-    *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * kDh + col) = pack_bf16(acc[d][2], acc[d][3]);
+  for (int j = 0; j < 16; ++j) {
+    const int col = j * 8 + t * 2;
+    *reinterpret_cast<uint32_t*>(ob + (size_t)rl0 * kDh + col) = pack_bf16(o[4 * j], o[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(ob + (size_t)rl1 * kDh + col) =
+        pack_bf16(o[4 * j + 2], o[4 * j + 3]);
   }
 }
+
+int launch(const void* qi, const void* kp, const void* vtp, const VtParams& p, int B,
+           void* stream) {
+  if (p.Lp % kRows || p.block_q % kRows || p.block_k % kKeys || p.Lkp % p.block_k)
+    return (int)cudaErrorInvalidValue;
+  static const int ready = [] {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, sparse_i8_vt_kernel);
+    if (err != cudaSuccess) return (int)err;
+    // the register count setmaxnreg assumes (else refuse, not hang)
+    if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaFuncSetAttribute(sparse_i8_vt_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  }();
+  if (ready != 0) return ready;
+  const long long bh = (long long)B * p.H;
+  CUtensorMap tq, tk, tv;
+  if (!tile_map(&tq, qi, false, bh * p.Lp, kDh, kRows) ||
+      !tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys) ||
+      !tile_map(&tv, vtp, false, bh * (p.Lkp / p.block_k) * kDh, p.block_k, kDh))
+    return (int)cudaErrorInvalidValue;
+  sparse_i8_vt_kernel<<<dim3(p.Lp / kRows, p.H, B), kThreadsK7, kSmem, (cudaStream_t)stream>>>(
+      tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k7
 
 
 // K19 (BS false) and K28 (BS true). Grid (Lp / 64, H, B), 4 warps of 16
@@ -455,14 +710,25 @@ extern "C" int tdx_sparse_attention_i8_vt(
     const void* vch, const void* lut, const void* kvw, const void* ksb, void* out,
     int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel, int block_q,
     int block_k, float scale_log2, void* stream) {
-  if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Lp / kBM, H, B);
-  sparse_i8_vt_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)qi, (const float*)qs, (const int8_t*)kp, (const int8_t*)vtp,
-      (const float*)ks, (const float*)vch, (const int*)lut, (const float*)kvw,
-      (const float*)ksb, (__nv_bfloat16*)out, H, Lp, Lkp, kv_len, nQ, sel, block_q,
-      block_k, scale_log2);
-  return (int)cudaGetLastError();
+  k7::VtParams p = {};
+  p.qs = (const float*)qs;
+  p.ks = (const float*)ks;
+  p.vch = (const float*)vch;
+  p.lut = (const int*)lut;
+  p.qi = (const int8_t*)qi;
+  p.kvw = (const float*)kvw;
+  p.ksb = (const float*)ksb;
+  p.out = (__nv_bfloat16*)out;
+  p.H = H;
+  p.Lp = Lp;
+  p.Lkp = Lkp;
+  p.kv_len = kv_len;
+  p.nQ = nQ;
+  p.sel = sel;
+  p.block_q = block_q;
+  p.block_k = block_k;
+  p.scale_log2 = scale_log2;
+  return k7::launch(qi, kp, vtp, p, B, stream);
 }
 
 extern "C" int tdx_sparse_attention_i8_planes(

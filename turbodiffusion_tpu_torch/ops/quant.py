@@ -45,10 +45,11 @@ Int8Linear)` tests keep it off the postscale int8 feeds (K12-K14), as JAX's
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/quant.cu) or raises. `.launches` counts launches. The plain
 GEMMs take the exact int32 product in float64 (|127 * 127 * K| < 2^53).
-K10 and K11 (`w8a8_ffn_kernel`: wgmma fed by TMA) take K, and K11 its slab,
-in multiples of 128, and 16-byte aligned operands; K9 (mma.sync) K in
-multiples of 64. The wrappers check these shapes before anything is built
-or launched.
+K9-K11 are wgmma fed by TMA: 16-byte aligned operands (and residual), N in
+multiples of 128; K9 (`postscale_gemm_kernel`, persistent) takes K in
+multiples of 64 (its last 128-byte K tile reads zeros past K), K10 and K11
+(`w8a8_ffn_kernel`) K, and K11 its slab, in multiples of 128. The wrappers
+check these shapes before anything is built or launched.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ _GELU_C = 0.7978845608028654        # sqrt(2 / pi), rounded to fp32 in use
 _ACTS = {None: 0, "gelu_tanh": 1}
 _TILE = 128                         # N multiple of the GEMM kernels
 QBLOCK = 128                        # block of the block layout (both axes)
-_BK = 64                            # K multiple of K9's kernel
+_BK = 64                            # K multiple of K9's kernel (half a TMA row)
 _FFN_TK = 128                       # K tile of K10 / K11 (a 128-byte TMA row)
 
 
@@ -231,6 +232,8 @@ def _gemm_operands(name: str, xq, wq, col_scale, bias):
     _require(N % _TILE == 0 and K % _BK == 0 and M > 0,
              f"{name} takes N a multiple of {_TILE} and K of {_BK}, "
              f"got N={N}, K={K}")
+    _require(xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
+             f"{name} takes 16-byte aligned operands (TMA)")
     return (M, N, K, _f32(col_scale, N, dev, "col_scale"),
             _f32(bias, N, dev, "bias"))
 
@@ -240,8 +243,9 @@ def _residual(residual, M: int, N: int, dev):
         return None
     residual = residual.reshape(M, N)
     _require(residual.dtype == torch.bfloat16 and residual.is_contiguous()
-             and residual.device == dev,
-             "the residual must be a contiguous bf16 (M, N) tensor")
+             and residual.device == dev and residual.data_ptr() % 16 == 0,
+             "the residual must be a contiguous, 16-byte aligned bf16 (M, N) "
+             "tensor (TMA)")
     return residual
 
 
@@ -271,13 +275,10 @@ _int8_gemm_postscale_cuda.launches = 0
 
 
 def _ffn_operands(name: str, xq, wq, col_scale, bias):
-    """K9's operand rules plus K10 / K11's TMA tiles: K a multiple of 128
-    and both operands 16-byte aligned."""
+    """K9's operand rules plus K10 / K11's whole 128-byte K tiles."""
     M, N, K, cs, b = _gemm_operands(name, xq, wq, col_scale, bias)
     _require(K % _FFN_TK == 0,
              f"{name} takes K a multiple of {_FFN_TK}, got K={K}")
-    _require(xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
-             f"{name} takes 16-byte aligned operands")
     return M, N, K, cs, b
 
 
@@ -313,8 +314,6 @@ def _int8_gemm_blockact_cuda(xq, x_scale, wq, col_scale, bias, act, bk,
     xs = _f32(x_scale, M * (K // bk), dev, "x_scale")
     g = _f32(gate, N, dev, "gate")
     res = _residual(residual, M, N, dev)
-    _require(res is None or res.data_ptr() % 16 == 0,
-             "K11 reads a 16-byte aligned residual (TMA)")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     rc = _build.load().tdx_int8_gemm_blockact(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), cs.data_ptr(), _ptr(b),

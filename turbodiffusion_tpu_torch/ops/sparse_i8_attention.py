@@ -51,6 +51,10 @@ K7 is the faster of the two on the card.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
+K7 (wgmma fed by TMA, 128 query rows a block, 128-key chunks) takes block_q
+and block_k in multiples of 128 and 16-byte aligned q and panels; K19 and
+K28 multiples of 64. The wrappers check these before anything is built or
+launched.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from turbodiffusion_tpu_torch.ops.flash_attention import (
 
 LOG2E = math.log2(math.e)
 MASKED = -1e9                 # score of a key >= kv_len (flash_pallas.py:933)
+_K7_TILE = 128                # K7's query rows a block and keys a chunk
 
 
 def quantize_v_per_channel(v_planes, kv_len: int, eps: float = 1e-8):
@@ -164,12 +169,12 @@ def _sparse_i8_vt_cuda(qi, qs, k_panel, vt_panel, k_block_scale,
     _require(qi.dtype == k_panel.dtype == vt_panel.dtype == torch.int8,
              "K7 takes int8 q, K panel and V panel")
     nQ, nK = Lp // block_q, Lkp // block_k
-    _require(block_q % 64 == 0 and Lp % block_q == 0,
-             f"K7 takes a Q block of a multiple of 64 rows dividing Lp, "
-             f"got {block_q}")
-    _require(block_k % 64 == 0 and Lkp % block_k == 0,
-             f"K7 takes a K block of a multiple of 64 rows dividing Lk, "
-             f"got {block_k}")
+    _require(block_q % _K7_TILE == 0 and Lp % block_q == 0,
+             f"K7 takes a Q block of a multiple of {_K7_TILE} rows dividing "
+             f"Lp, got {block_q}")
+    _require(block_k % _K7_TILE == 0 and Lkp % block_k == 0,
+             f"K7 takes a K block of a multiple of {_K7_TILE} rows dividing "
+             f"Lk, got {block_k}")
     _require(tuple(vt_panel.shape) == (B, H, nK, D, block_k)
              and tuple(k_panel.shape) == (B, H, Lkp, D),
              "K7 panels must be (B, H, Lk, D) and (B, H, nK, D, block_k)")
@@ -177,6 +182,8 @@ def _sparse_i8_vt_cuda(qi, qs, k_panel, vt_panel, k_block_scale,
     ts = [qi, k_panel, vt_panel]
     _require(all(t.is_contiguous() and t.device == dev for t in ts),
              "K7 takes contiguous tensors on one CUDA device")
+    _require(all(t.data_ptr() % 16 == 0 for t in ts),
+             "K7 takes 16-byte aligned q and panels (TMA)")
     qs = qs.float().reshape(B, H, Lp).contiguous()
     ks = k_block_scale.float().reshape(B, H, nK).contiguous()
     vch = v_channel_scale.float().reshape(B, H, D).contiguous()
