@@ -20,14 +20,21 @@ Phases, each printing one line of its numbers:
      at 40 heads, with the linear epilogue, rejecting the last LUT entry
      dropped and the V channel scales doubled; K18 and K19 of the v_quant="row" path,
      K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
-     over (B, L, H, D); K22 at the block-scale checkpoint path's GEMM
-     shapes in bf16 and at 1536 x 1536 and a ragged shape in fp32,
-     bit-equal; then the Wan2.1-14B forms: K1 at 5120; K2 at H*Dh 5120, norm only and
+     over (B, L, H, D); K4 also at batch 2, at a ragged Lq of 1,000, at
+     kv_len 500 of 512 with NaN in k and v past it, with q, k and v read in
+     place as fused-QKV column groups (q sharp, rejecting the scale
+     doubled), and on a sharp q rejecting three planted faults (v read from
+     k, the scale doubled, the last 128-key chunk dropped); K22 at the
+     block-scale checkpoint path's GEMM shapes in bf16 and at 1536 x 1536
+     and a ragged shape in fp32, bit-equal, the last two (and the 14B's
+     ragged M) with xs ending where mapped memory ends; then the Wan2.1-14B forms: K1 at 5120; K2 at H*Dh 5120, norm only and
      with RoPE, each with planted faults a kernel that stopped at 4096
      would give (channels past 4096 left NaN, weight channel 4100 doubled),
      and above 5120 at 48 x 128; K3 and K4 (cross and dense self,
-     SDPA beside it) at 40 heads; K15, K5 with K15's RMS at 40
-     heads, K6, K7, K16, K17, K12 and K8-K11 at dim 5120, FFN 13824; every
+     SDPA beside it) at 40 heads, K4 also dense at 720p (75,600 tokens, q
+     sharp);
+     K15, K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12, K8-K11 and
+     K22 (also at a ragged M of 1,000) at dim 5120, FFN 13824; every
      int8 GEMM line with its TOP/s and share of the int8 peak), with
      poisoned-tail checks of K7, K19 and K21: max absolute error under the
      stated tolerance (int8 outputs within 1 LSB; K19-K21 at atol 4e-3 +
@@ -199,6 +206,7 @@ G13 = Geometry("Wan2.1-1.3B", 1536, 12, 8960, 896)
 G14 = Geometry("Wan2.1-14B", 5120, 40, 13824, 768)
 # 480p/81f: tokens, head dim, text tokens
 B, L, DH, TEXT = 1, 32760, 128, 512
+L720 = 75600                        # 720p/81f tokens (1280 x 720)
 ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
 # K19-K21: outputs of order 0.03 (K19, K20: near-flat softmax over ~3,000
 # keys) to 1 (K21's inputs); an atol a fifth of ATOL fails each planted fault
@@ -529,14 +537,19 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _ptxas_summary(log: str) -> str:
-    """`kernel<args> N regs[, F B stack][, S B spill]` for each kernel entry
-    of nvcc's -Xptxas -v output (empty when nothing was built in this
-    process); a stack frame is a local array the registers did not hold."""
+    """`kernel<args> N regs[, F B stack][, S B spill][, wgmma serialized]`
+    for each kernel entry of nvcc's -Xptxas -v output (empty when nothing
+    was built in this process); a stack frame is a local array the
+    registers did not hold; "wgmma serialized" is ptxas's C7514 (each
+    wgmma waits for the one before: no product overlaps other work)."""
     out, name, spill = [], None, ""
+    serialized = set(re.findall(r"\(C7514\).*?in the function '(\w+)'", log))
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name, spill = _kernel_name(m.group(1)), ""
+            if m.group(1) in serialized:
+                spill += ", wgmma serialized"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
         if m and name and int(m.group(1)):
@@ -658,6 +671,7 @@ def phase2(reps: int = REPS):
               lambda: fa.flash_attention_plain(q, k, v, scale, L),
               (q, k, v), ops4(L), sdpa(q, k, v),
               "F.scaled_dot_product_attention"),
+    ] + _k4_edge_checks(q, kt, vt, sdpa) + [
         Check("K5", "Q (norm+rope, int8, pool 512)",
               lambda: sf._head_planes_cuda(xq, q_form["weight"], cosF, sinF, HEADS,
                                            1e-6, BQ, True, False, LP),
@@ -931,21 +945,81 @@ def _ffn_edge_checks(randn, gemm, geo: Geometry):
     return out
 
 
-def _block_gemm_checks(randn):
-    """Phase-2 checks of K22 at the 1.3B block-scale checkpoint path's
-    shapes (bf16 out, as the path writes it: self q / k / v / o and cross
-    q / o 32760x1536x1536, fc1 32760x8960x1536, fc2 32760x1536x8960, text
-    k / v 512x1536x1536) and in fp32 on the square shape and a ragged one
-    (1000x300x200: K and N padded), fp32 bit-equal to the plain version
+def _k4_edge_checks(q, kt, vt, sdpa):
+    """Phase-2 checks of K4 beyond the path's two calls (1.3B, 12 heads):
+    the cross shape at batch 2; a ragged Lq of 1,000 rows over the 32,760
+    keys; kv_len 500 of 512 text keys with NaN in k and v past it (held
+    against the plain version on the first 500 keys); q, k and v read in
+    place as the column groups of one fused (B, L, 3 x 1536) QKV buffer
+    (rows 4,608 apart; the q group sharp, std 3, so the outputs are of
+    order 1 and a wrong scale shows: the scale doubled must be rejected);
+    and the cross shape on a sharp q (std 2, outputs of order 1), which
+    must reject three planted faults: v read from k, the scale doubled, and
+    the last 128-key chunk dropped (kv_len 384 against the full result).
+    Its inputs come from a generator of its own, so the other checks keep
+    theirs."""
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    randn = _fresh_randn(40)
+    HEADS, scale = G13.heads, DH ** -0.5
+    ops4 = lambda b, lq, lk: {"bf16": 4 * b * HEADS * lq * lk * DH}    # noqa: E731
+    q2, kt2, vt2 = randn(2, L, HEADS, DH), randn(2, TEXT, HEADS, DH), randn(2, TEXT, HEADS, DH)
+    qr = q[:, :1000]
+    kn, vn = kt.clone(), vt.clone()
+    kn[:, 500:], vn[:, 500:] = float("nan"), float("nan")
+    qkv = randn(B, L, 3 * HEADS * DH)
+    qkv[..., :HEADS * DH] *= 3
+    qg, kg, vg = (qkv[..., i * HEADS * DH:(i + 1) * HEADS * DH].unflatten(-1, (HEADS, DH))
+                  for i in range(3))
+    qs = randn(B, L, HEADS, DH, std=2.0)
+    lib = "F.scaled_dot_product_attention"
+    return [
+        Check("K4", f"cross {L}x{TEXT}, batch 2",
+              lambda: fa._flash_cuda(q2, kt2, vt2, scale, TEXT),
+              lambda: fa.flash_attention_plain(q2, kt2, vt2, scale, TEXT),
+              (q2, kt2, vt2), ops4(2, L, TEXT), sdpa(q2, kt2, vt2), lib),
+        Check("K4", f"ragged Lq 1000 x {L} keys",
+              lambda: fa._flash_cuda(qr, q, q, scale, L),
+              lambda: fa.flash_attention_plain(qr, q, q, scale, L),
+              (qr, q), ops4(1, 1000, L)),
+        Check("K4", f"cross kv_len 500 of {TEXT}, NaN in k and v past it",
+              lambda: fa._flash_cuda(q, kn, vn, scale, 500),
+              lambda: fa.flash_attention_plain(q, kt[:, :500], vt[:, :500], scale, 500),
+              (q, kt[:, :500], vt[:, :500]), ops4(1, L, 500)),
+        Check("K4", f"dense self {L}x{L}, q / k / v column groups of a fused QKV",
+              lambda: fa._flash_cuda(qg, kg, vg, scale, L),
+              lambda: fa.flash_attention_plain(qg, kg, vg, scale, L),
+              (qkv,), ops4(1, L, L),
+              faults={"scale doubled": lambda: fa._flash_cuda(qg, kg, vg, 2 * scale, L)}),
+        Check("K4", f"cross {L}x{TEXT}, sharp q (std 2)",
+              lambda: fa._flash_cuda(qs, kt, vt, scale, TEXT),
+              lambda: fa.flash_attention_plain(qs, kt, vt, scale, TEXT),
+              (qs, kt, vt), ops4(1, L, TEXT),
+              faults={"v read from k": lambda: fa._flash_cuda(qs, kt, kt, scale, TEXT),
+                      "scale doubled": lambda: fa._flash_cuda(qs, kt, vt, 2 * scale, TEXT),
+                      "last 128-key chunk dropped": lambda: fa._flash_cuda(
+                          qs, kt, vt, scale, TEXT - 128)}),
+    ]
+
+
+def _block_gemm_checks(randn, geo: Geometry = G13):
+    """Phase-2 checks of K22 at a block-scale path's shapes (bf16 out, as
+    the path writes it; the 1.3B: self q / k / v / o and cross q / o
+    32760x1536x1536, fc1 32760x8960x1536, fc2 32760x1536x8960, text k / v
+    512x1536x1536; the 14B the same at dim 5120, FFN 13824, and a ragged M
+    of 1,000 rows) and, at the 1.3B, in fp32 on the square shape and a
+    ragged one (1000x300x200: K and N padded), fp32 bit-equal to the plain version
     (the same fp32 terms in the same K-block order), bf16 within one step.
     The block scales span a factor of ~55, so a scale read from the wrong
     block shows; two planted faults must be rejected: ws transposed (on the
     square shape, where the shapes cannot catch it) and xs shifted by one
-    M block. Beside each: `torch._int_mm` (the product alone) and bf16
+    M block. The square and ragged ones read xs from the end of mapped
+    memory (`ops._guard`): a scale read past xs stops the card with an
+    illegal address. Beside each: `torch._int_mm` (the product alone) and bf16
     `torch.matmul` of the same shape; beside the 1536- and 8960-wide ones,
     the plain-torch activation quantiser that feeds K22 on the path."""
     import torch
     from turbodiffusion_tpu_torch.ops import quant as qt
+    from turbodiffusion_tpu_torch.ops._guard import guarded_copy
 
     def scales(r, c):
         return 1e-3 * torch.exp(4 * randn(r, c, dtype=torch.float32).sigmoid())
@@ -954,11 +1028,13 @@ def _block_gemm_checks(randn):
         return randn(*shape, dtype=torch.float32, std=60.0).round().clamp(
             -127, 127).to(torch.int8)
 
-    def check(what, M, K, N, out, faults=False, quantiser=False):
+    def check(what, M, K, N, out, faults=False, quantiser=False, guard=False):
         cd = lambda n: -(-n // 128)                     # noqa: E731
         xq, wq = int8(M, K), int8(N, K)
         x = randn(M, K)
         xs, ws = scales(cd(M), cd(K)), scales(cd(N), cd(K))
+        if guard:               # xs ends where mapped memory ends
+            xs = guarded_copy(xs)
         b = randn(N, dtype=torch.float32, std=0.5)
         exact = out == torch.float32
         tol = dict(atol=0.0, rtol=0.0 if exact else 2.0 ** -8)
@@ -979,13 +1055,16 @@ def _block_gemm_checks(randn):
                      (xq, xs, wq, ws, b), {"int8": 2 * M * N * K}, lib,
                      "torch._int_mm (product only)", yard, faults=fault, **tol)
 
-    D, F = G13.dim, G13.ffn
+    D, F = geo.dim, geo.ffn
     bf, f32 = torch.bfloat16, torch.float32
-    return [check("self / cross q, k, v, o", L, D, D, bf, quantiser=True),
-            check("fc1", L, D, F, bf), check("fc2", L, F, D, bf, quantiser=True),
-            check("text k / v", TEXT, D, D, bf),
-            check("square", L, D, D, f32, faults=True),
-            check("ragged", 1000, 200, 300, f32)]
+    pre = "" if geo is G13 else "14B "
+    out = [check(f"{pre}self / cross q, k, v, o", L, D, D, bf, quantiser=True),
+           check(f"{pre}fc1", L, D, F, bf), check(f"{pre}fc2", L, F, D, bf, quantiser=True),
+           check(f"{pre}text k / v", TEXT, D, D, bf)]
+    if geo is G13:
+        return out + [check("square", L, D, D, f32, faults=True, guard=True),
+                      check("ragged", 1000, 200, 300, f32, guard=True)]
+    return out + [check(f"{pre}ragged M", 1000, D, D, bf, guard=True)]
 
 
 def _k12_checks(x, ms, mb, w, bias):
@@ -1057,12 +1136,12 @@ def _wide_checks(randn, sdpa):
     only, the cross q; RoPE, the self q /
     k of `sla` and `original`), with planted faults a kernel that stopped at
     4096 would give, and once above 5120 (48 x 128);
-    K4 (cross 32,760 x 512, dense self 32,760^2) and K3 (512/256, 12 of 128
-    K blocks) at 40 heads; K15 on a projection's rows; K5's three passes of
+    K4 (cross 32,760 x 512, dense self 32,760^2 and, at 720p, 75,600^2) and
+    K3 (512/256, 12 of 128 K blocks) at 40 heads; K15 on a projection's rows; K5's three passes of
     the fused path at 40 heads, Q and K reading K15's RMS; K6 and K7 at 40
     heads on those planes (12 of 128 K blocks); K16 over K7-shaped planes
     (B, 40, 32,768, 128); K17 (q-norm with K15's RMS, cross attention over
-    512 text keys, int8 O feed); K12 and K8-K11 at the 14B widths. No
+    512 text keys, int8 O feed); K12, K8-K11 and K22 at the 14B widths. No
     PyTorch call computes K15-K17: SDPA of the cross shape is timed beside
     K17."""
     import torch
@@ -1127,6 +1206,11 @@ def _wide_checks(randn, sdpa):
                 "weight channel 4100 doubled": lambda: fn._rmsrope_cuda(
                     x, w_bad, cos_, sin_, 1e-6, HEADS)}
 
+    # 720p, drawn apart from the rest; q sharp (std 3: outputs of order 1
+    # over 75,600 keys, so a subtle fault exceeds the tolerance)
+    rn7 = _fresh_randn(41)
+    q7 = rn7(B, L720, HEADS, DH, std=3.0)
+    k7, v7 = rn7(B, L720, HEADS, DH), rn7(B, L720, HEADS, DH)
     WH = 48                                       # 6144 wide: above the 14B
     x6 = randn(B, L, WH * DH)
     w6 = (1 + randn(WH * DH, dtype=torch.float32, std=0.1)).bfloat16()
@@ -1173,6 +1257,11 @@ def _wide_checks(randn, sdpa):
               lambda: fa._flash_cuda(q, k, v, scale, L),
               lambda: fa.flash_attention_plain(q, k, v, scale, L),
               (q, k, v), ops4(L), sdpa(q, k, v),
+              "F.scaled_dot_product_attention"),
+        Check("K4", f"14B dense self 720p {L720}x{L720}, {HEADS} heads",
+              lambda: fa._flash_cuda(q7, k7, v7, scale, L720),
+              lambda: fa.flash_attention_plain(q7, k7, v7, scale, L720),
+              (q7, k7, v7), {"bf16": 4 * B * HEADS * L720 * L720 * DH}, sdpa(q7, k7, v7),
               "F.scaled_dot_product_attention"),
         Check("K15", f"row RMS inverse {L}x{DIM}",
               lambda: sf._row_rms_inv_cuda(x, 1e-6, None, 0),
@@ -1221,7 +1310,8 @@ def _wide_checks(randn, sdpa):
               atol=0.0, rtol=K14_SCALE_RTOL,
               yardsticks={"SDPA of the cross shape (attention only)":
                           sdpa(qn, kt, vt)}),
-    ] + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
+    ] + (_k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
+         + _block_gemm_checks(_fresh_randn(42), G14))
 
 
 def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
@@ -2748,7 +2838,7 @@ PROFILE_CATEGORIES = [
     ("K2", ("rmsrope_kernel",)), ("K13", ("unfold_quant_kernel",)),
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
-    ("K3", ("flash_fwd_kernel<true>",)), ("K4", ("flash_fwd_kernel<false>",)),
+    ("K3", ("sparse_flash_fwd_kernel",)), ("K4", ("dense_fwd_kernel",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
     ("K27", ("subquant_block_kernel<true>",)),
     ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
@@ -2762,7 +2852,7 @@ PROFILE_CATEGORIES = [
     # "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("postscale_gemm_kernel",)),
     ("K10", ("w8a8_ffn_kernel<1>",)), ("K11", ("w8a8_ffn_kernel<2>",)),
-    ("K22", ("int8_gemm_kernel<3>",)),
+    ("K22", ("block_gemm_kernel",)),
     ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
     ("K25", ("flash_jvp_kernel<false>",)), ("K26", ("flash_jvp_kernel<true>",)),
     ("AdamW (foreach)", ("multi_tensor_apply",)),

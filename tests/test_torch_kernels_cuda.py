@@ -129,14 +129,28 @@ def test_k3_matches_plain(dev, L, bq, bk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Lk", [77, 512, 1100])
-def test_k4_matches_plain(dev, Lk):
-    q = _randn(dev, 1, 1100, HEADS, DH, seed=8).bfloat16()
-    k, v = (_randn(dev, 1, Lk, HEADS, DH, seed=s).bfloat16() for s in (9, 10))
+@pytest.mark.parametrize("Lk,form", [(77, "plain"), (512, "plain"), (1100, "plain"),
+                                     (512, "batch 2"), (1100, "ragged kv_len"),
+                                     (300, "qkv view"), (300, "40 heads")])
+def test_k4_matches_plain(dev, Lk, form):
+    """K4 against its plain version: Lq 1,100 over Lk keys; at batch 2; Lq
+    1,000 over kv_len 900 of 1,100 keys; q, k, v read in place as the column
+    groups of a fused (1, L, 3 x 256) QKV buffer; 40 heads."""
+    B = 2 if form == "batch 2" else 1
+    H = 40 if form == "40 heads" else HEADS
+    Lq = 1000 if form == "ragged kv_len" else 1100
+    kv_len = 900 if form == "ragged kv_len" else Lk
+    if form == "qkv view":
+        qkv = _randn(dev, 1, Lk, 3 * H * DH, seed=8).bfloat16()
+        q, k, v = (qkv[..., i * H * DH:(i + 1) * H * DH].unflatten(-1, (H, DH))
+                   for i in range(3))
+    else:
+        q = _randn(dev, B, Lq, H, DH, seed=8).bfloat16()
+        k, v = (_randn(dev, B, Lk, H, DH, seed=s).bfloat16() for s in (9, 10))
     before = fa._flash_cuda.launches
-    got = fa.flash_attention(q, k, v)
+    got = fa.flash_attention(q, k, v, kv_len=kv_len)
     assert fa._flash_cuda.launches == before + 1
-    _close(got, fa.flash_attention_plain(q, k, v))
+    _close(got, fa.flash_attention_plain(q, k, v, kv_len=kv_len))
 
 
 @pytest.mark.cuda
@@ -166,6 +180,39 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q64, q64, q64)                # head dim 64
     with pytest.raises(ValueError):
         fn.modulated_layer_norm(_randn(dev, 1, 8, DIM))  # fp32
+    qs = torch.zeros(1, 64, HEADS, DH + 4, dtype=torch.bfloat16, device=dev)[..., :DH]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(qs, qs, qs)                   # heads 132 channels apart
+    xq = torch.zeros(8, 128, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        qt.int8_block_matmul(xq.bfloat16(), torch.ones(1, 1, device=dev), xq,
+                             torch.ones(1, 1, device=dev))
+
+
+@pytest.mark.cuda
+def test_k4_k22_entries_refuse_what_they_cannot_compute(dev):
+    """tdx_flash_attention returns cudaErrorInvalidValue (1) for a stride
+    off 16 bytes (a TMA map cannot hold it) and tdx_int8_gemm_block for K or
+    N off 128 (a K tile is one quant block), and neither launches."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    q = torch.zeros(1, 64, HEADS, DH, dtype=torch.bfloat16, device=dev)
+    o = torch.full_like(q, float("nan"))
+    st = [q.stride(0), q.stride(1), q.stride(2)]
+    bad = [q.stride(0), q.stride(1), q.stride(2) + 4]
+    rc = lib.tdx_flash_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+                                 1, HEADS, 64, 64, *bad, *st, *st, *st, 0.1,
+                                 _build.stream_ptr(q))
+    assert rc == 1
+    a = torch.zeros(8, 192, dtype=torch.int8, device=dev)
+    out = torch.full((8, 256), float("nan"), device=dev)
+    s = torch.ones(2, 2, device=dev)
+    for K, N in ((192, 256), (128, 192)):
+        rc = lib.tdx_int8_gemm_block(a.data_ptr(), a.data_ptr(), s.data_ptr(), s.data_ptr(),
+                                     None, out.data_ptr(), 1, 8, N, K, _build.stream_ptr(a))
+        assert rc == 1
+    torch.cuda.synchronize()
+    assert bool(o.isnan().all()) and bool(out.isnan().all())
 
 
 def _int8_close(got, want):
@@ -905,7 +952,9 @@ def _block_scales(dev, rows, cols, seed):
 @pytest.mark.parametrize("M,K,N,bias,out", [
     (300, 256, 384, True, torch.float32), (300, 256, 384, False, torch.float32),
     (1000, 200, 300, True, torch.float32),        # ragged K and N: padded
-    (512, 1536, 1536, True, torch.bfloat16)])
+    (512, 1536, 1536, True, torch.bfloat16),
+    (300, 1536, 256, True, torch.float32),        # 12 K blocks: the fold order
+    (1000, 1536, 512, True, torch.bfloat16)])     # ragged M
 def test_k22_matches_plain(dev, M, K, N, bias, out):
     cd = lambda n: -(-n // 128)                   # noqa: E731
     xq, wq = _i8(dev, M, K, seed=100), _i8(dev, N, K, seed=101)
@@ -920,6 +969,26 @@ def test_k22_matches_plain(dev, M, K, N, bias, out):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1000, 512, 32760])
+def test_k22_reads_no_scale_past_xs(dev, M):
+    """xs (ceil(M / 128), Kb) ends where mapped memory ends
+    (`ops._guard.guarded_copy`): the M that leave the last 192-row tile
+    with a consumer wholly past M (its 64 rows past the last quant block)
+    must not read a scale past xs. fp32 out bit-equal to the plain
+    version."""
+    from turbodiffusion_tpu_torch.ops._guard import guarded_copy
+    K, N = 256, 256
+    xq, wq = _i8(dev, M, K, seed=106), _i8(dev, N, K, seed=107)
+    xs = guarded_copy(_block_scales(dev, -(-M // 128), K // 128, 108))
+    ws = _block_scales(dev, N // 128, K // 128, 109)
+    before = qt._int8_block_matmul_cuda.launches
+    got = qt.int8_block_matmul(xq, xs, wq, ws, None, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert qt._int8_block_matmul_cuda.launches == before + 1
+    assert torch.equal(got, qt.int8_block_matmul_plain(xq, xs, wq, ws, None))
 
 
 @pytest.mark.cuda

@@ -369,6 +369,43 @@ def test_k9_k7_launchers_refuse_shapes_off_their_tiles(case):
     assert fn.launches == before
 
 
+@pytest.mark.parametrize("case", ["k4_head_dim_64", "k4_stride", "k4_align", "k4_kv_len",
+                                  "k22_dtype", "k22_align"])
+def test_k4_k22_launchers_refuse_what_the_kernels_do_not_take(case):
+    """K4 (TMA boxes of 64 bf16 channels over (B, L, H, 128) read through
+    16-byte strides) and K22 (TMA tiles of 128-byte int8 rows) refuse head
+    dim 64, a head stride or a base off 16 bytes, kv_len past the keys and
+    a non-int8 operand, before any build or launch (CPU tensors reach the
+    checks, then nothing else)."""
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    if case.startswith("k4"):
+        D = 64 if case == "k4_head_dim_64" else 128
+        q = kv = torch.zeros(1, 64, 2, D, dtype=torch.bfloat16)
+        if case == "k4_stride":          # heads 132 channels apart
+            q = torch.zeros(1, 64, 2, 132, dtype=torch.bfloat16)[..., :128]
+        elif case == "k4_align":
+            q = torch.zeros(64 * 2 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 2, 128)
+        kv_len = 65 if case == "k4_kv_len" else 64
+        fn = fa._flash_cuda
+        call = lambda: fn(q, kv, kv, 0.1, kv_len)                # noqa: E731
+        match = {"k4_head_dim_64": "head dim 128", "k4_kv_len": "out of range"}.get(
+            case, "16-byte aligned")
+    else:
+        xq, wq = torch.zeros(8, 128, dtype=torch.int8), torch.zeros(256, 128, dtype=torch.int8)
+        if case == "k22_dtype":
+            xq = xq.to(torch.bfloat16)
+        else:
+            xq = _off_by_one(8, 128)
+        fn = quant._int8_block_matmul_cuda
+        call = lambda: fn(xq, torch.ones(1, 1), wq, torch.ones(2, 1), None,  # noqa: E731
+                          torch.float32)
+        match = "int8" if case == "k22_dtype" else "16-byte aligned"
+    before = fn.launches
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert fn.launches == before
+
+
 def test_row_stride_reads_column_groups_in_place():
     """K2 and K5 read Q/K/V as column groups of the fused QKV output: rows
     3*D apart; a tensor whose last stride is not 1 is refused."""

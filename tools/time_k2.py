@@ -22,11 +22,9 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+import kernel_timing as kt
 
 
 def main(argv=None) -> int:
@@ -39,17 +37,12 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=7)
     p.add_argument("--reps", type=int, default=20)
     args = p.parse_args(argv)
-    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[1]))
+    kt.use_root(args.root)
 
     import torch
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
 
-    if not torch.cuda.is_available():
-        raise SystemExit("time_k2: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip().splitlines()[0]
+    card = kt.card("time_k2")
     g = torch.Generator(device="cuda").manual_seed(0)
     for spec in args.widths.split(","):
         H, Dh = (int(v) for v in spec.split("x"))
@@ -69,22 +62,14 @@ def main(argv=None) -> int:
             want = fn._rmsrope_plain(x, w, cos, sin, 1e-6, H)
             rec["max_abs_err"] = (got.float() - want.float()).abs().max().item()
             del got, want
-            ms = []
-            for _ in range(args.rounds):
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                for _ in range(args.reps):
-                    fn._rmsrope_cuda(x, w, cos, sin, 1e-6, H)
-                t1.record()
-                t1.synchronize()
-                ms.append(t0.elapsed_time(t1) / args.reps)
+            ms = kt.times(lambda: fn._rmsrope_cuda(x, w, cos, sin, 1e-6, H),
+                          args.rounds, args.reps)
             nbytes = 2 * x.numel() * 2 + HD * 2 + (
                 0 if cos is None else 2 * cos.numel() * 4)
             print(json.dumps({**rec, "ms_min": min(ms),
                               "ms_median": statistics.median(ms),
                               "ms_max": max(ms),
-                              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}),
+                              "bound_ms": nbytes / kt.HBM * 1e3}),
                   flush=True)
     return 0
 

@@ -40,53 +40,16 @@ import argparse
 import json
 import math
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-PEAK = {"int8": 1979e12, "bf16": 989e12}   # H100 SXM dense, NVIDIA's data sheet
+import kernel_timing as kt
+from kernel_timing import PEAK
 MODELS = {"1.3b": (1536, 12, True), "14b": (5120, 40, False)}   # dim, heads, fused QKV
 L, LP, TEXT, DH, BQ, BK, SEL = 32760, 32768, 512, 128, 512, 256, 12
 
 
-def _times(fn, rounds: int, reps: int) -> list:
-    import torch
-    fn()
-    out = []
-    for _ in range(rounds):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        t1.synchronize()
-        out.append(t0.elapsed_time(t1) / reps)
-    return out
-
-
-def _device_ms(fn, reps: int, key: str) -> float:
-    """Device time (ms) a call of fn spends in the kernels whose name holds
-    `key` (every kernel for ""), over `reps` calls, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and key in e.name]
-    return sum(us) * 1e-3 / reps if us else float("nan")
-
-
 def _errors(got, want) -> dict:
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()
-              and got.float().isfinite().all())
-    return {"max_abs_err": float(err.max()), "ok": ok}
+    return kt.within(got, want, 2e-2, 2e-2)
 
 
 def _k9_cases(model: str, randn):
@@ -156,16 +119,12 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
-    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[1]))
+    kt.use_root(args.root)
 
     import torch
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
 
-    if not torch.cuda.is_available():
-        raise SystemExit("time_k9_k7: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = kt.card("time_k9_k7")
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, std=1.0):
@@ -184,10 +143,10 @@ def main(argv=None) -> int:
                 except Exception as e:          # a kernel that fails is reported
                     print(json.dumps({**rec, "error": str(e)[:300]}), flush=True)
                     continue
-                ms = _times(kern, args.rounds, args.reps)
-                dev = _device_ms(kern, args.reps, "gemm_kernel")
-                lib = _times(lambda: torch._int_mm(a, w.t()), args.rounds, args.reps)
-                lib_dev = _device_ms(lambda: torch._int_mm(a, w.t()), args.reps, "")
+                ms = kt.times(kern, args.rounds, args.reps)
+                dev = kt.device_ms(kern, args.reps, ("gemm_kernel",))
+                lib = kt.times(lambda: torch._int_mm(a, w.t()), args.rounds, args.reps)
+                lib_dev = kt.device_ms(lambda: torch._int_mm(a, w.t()), args.reps)
                 print(json.dumps({
                     **rec, "ms_min": min(ms), "ms_median": statistics.median(ms),
                     "ms_max": max(ms), "device_ms": dev, "tops": ops / dev * 1e-9,
@@ -218,8 +177,8 @@ def main(argv=None) -> int:
                 except Exception as e:
                     print(json.dumps({**rec, "error": str(e)[:300]}), flush=True)
                     continue
-                ms = _times(kern, args.rounds, args.reps)
-                dev = _device_ms(kern, args.reps, "sparse_i8_vt_kernel")
+                ms = kt.times(kern, args.rounds, args.reps)
+                dev = kt.device_ms(kern, args.reps, ("sparse_i8_vt_kernel",))
                 print(json.dumps({
                     **rec, "ms_min": min(ms), "ms_median": statistics.median(ms),
                     "ms_max": max(ms), "device_ms": dev,

@@ -27,28 +27,12 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8, NVIDIA's data sheet
+import kernel_timing as kt
+
+PEAK_INT8_OPS = kt.PEAK["int8"]
 MODELS = {"1.3b": (1536, 8960), "14b": (5120, 13824)}   # dim, FFN
-
-
-def _times(fn, rounds: int, reps: int) -> list:
-    import torch
-    fn()
-    out = []
-    for _ in range(rounds):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        t1.synchronize()
-        out.append(t0.elapsed_time(t1) / reps)
-    return out
 
 
 def main(argv=None) -> int:
@@ -61,17 +45,12 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--reps", type=int, default=10)
     args = p.parse_args(argv)
-    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[1]))
+    kt.use_root(args.root)
 
     import torch
     from turbodiffusion_tpu_torch.ops import quant as qt
 
-    if not torch.cuda.is_available():
-        raise SystemExit("time_w8a8_ffn: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip().splitlines()[0]
+    card = kt.card("time_w8a8_ffn")
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, std=1.0):
@@ -121,8 +100,8 @@ def main(argv=None) -> int:
                 ok = bool((err <= 2e-2 + 2e-2 * want.float().abs()).all())
             rec["ok"] = ok
             del got, want
-            ms = _times(kern, args.rounds, args.reps)
-            lib = _times(lambda: torch._int_mm(a, w.t()), args.rounds, args.reps)
+            ms = kt.times(kern, args.rounds, args.reps)
+            lib = kt.times(lambda: torch._int_mm(a, w.t()), args.rounds, args.reps)
             med = statistics.median(ms)
             print(json.dumps({
                 **rec, "ms_min": min(ms), "ms_median": med, "ms_max": max(ms),

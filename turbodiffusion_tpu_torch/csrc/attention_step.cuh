@@ -1,5 +1,5 @@
-// What the mma.sync attention kernels share (K3 / K4, K14 / K17, K19, K20,
-// K28; K7 its bf16 packing): the tensor-core wrappers and, for all but
+// What the mma.sync attention kernels share (K3, K14 / K17, K19, K20, K28;
+// K4 and K7 their bf16 packing): the tensor-core wrappers and, for all but
 // K14 / K17, one 64-key chunk's online-softmax step with O += P V.
 //
 // The step works on a warp's 16 query rows in the m16n8 accumulator layout:
@@ -47,7 +47,7 @@ __device__ __forceinline__ float step_exp(float x) {
 
 // One chunk of NB * 8 keys for the warp's rows. s holds the chunk's scaled
 // logits, masked columns already at a large negative value, in the log2
-// domain when EXP2 (K3, K4, K28) and the natural one otherwise (K19, K20).
+// domain when EXP2 (K3, K28) and the natural one otherwise (K19, K20).
 // Updates the rows' running max (m0, m1), this lane's share of their sums
 // (l0, l1) and the fp32 output acc (ND tiles of 8 channels), then adds P V:
 // P rounds to bf16 (times the key's V scale vsc[key] before the rounding

@@ -24,8 +24,10 @@
 //
 // What bounds them on an H100: tensor-core math. At the 1.3B 480p shape a K3
 // call is ~6.2e11 FLOPs over ~100 MB of q/k/v, and a K4 or K14 cross call
-// ~1.0e11 FLOPs, all well above the ridge. The design is FlashAttention-2 on
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate):
+// ~1.0e11 FLOPs, all well above the ridge.
+//
+// K3 (`sparse_flash_fwd_kernel`) is FlashAttention-2 on mma.sync m16n8k16
+// (bf16 in, fp32 accumulate):
 //   * one block of 4 warps owns 64 query rows of one (batch, head); each warp
 //     owns 16 rows and keeps its Q fragments, its 16x128 fp32 output
 //     accumulator and its running max / sum in registers;
@@ -40,6 +42,43 @@
 // through strides, loops over exactly `sel` LUT entries, skips the chunks
 // that lie wholly past kv_len, zero-fills rows past kv_len, masks columns
 // >= kv_len to -1e30 before the row max, and never writes rows past Lq.
+//
+// K4 (`k4::dense_fwd_kernel`) is Hopper's warp-specialised attention
+// (FlashAttention-3's forward shape, K7's in bf16):
+//   * persistent blocks, one an SM, walk 128-row query tiles of every (b,
+//     h) (tiles of one head in turn, so the blocks at work share its K and V
+//     in L2); a block is one producer warp and two consumer warpgroups of
+//     64 rows each;
+//   * the producer reads q, k, v and writes o through rank-4 TMA maps over
+//     (D, H, L, B) with the caller's strides (fused-QKV column groups in
+//     place), in 64-channel boxes with 128-byte swizzle: each tile's Q into
+//     one of two Q buffers, each 128-key chunk's K and V into a 2-stage
+//     mbarrier ring, running ahead across tiles (the next tile's Q lands
+//     under the current tile's last chunks). K and V are released apart, as
+//     FlashAttention-3 does: a chunk's K once both QKs have read it, its V
+//     after both P Vs, so the next K load starts a chunk ahead of its use
+//     (one release a stage left the load a few hundred cycles). The K and V
+//     maps end at kv_len, so rows past it arrive as zeros and a poisoned
+//     tail is never read; columns >= kv_len are still masked to -inf before
+//     the row max;
+//   * S = Q K^T on wgmma m64n128k16 bf16 -> fp32, both operands K-major in
+//     shared memory; the online softmax in fp32 registers in the log2
+//     domain, exp2(s * scale log2 e - max) as one FFMA and the SFU's exp2;
+//     O += bf16(P) V on wgmma with P in registers (the S accumulator is the
+//     A fragment) and V as it lies (keys x channels: MN-major, the transpose
+//     bit; no V transpose pass); the next chunk's QK is issued with the
+//     previous chunk's P V, and the softmax runs under that P V;
+//   * the epilogue writes o / l in bf16 into the warpgroup's own Q rows and
+//     stores them by TMA (rows past Lq are not written), draining under the
+//     next tile's first chunks.
+//   setmaxnreg moves registers from the producer (40) to the consumers (232).
+//   What holds it back on an H100 80GB HBM3 (tools/time_k4_k22.py; PERF.md):
+//   it runs at 63-65% of the bf16 peak dense (14B 32,760^2: 35.3 ms, bound
+//   22.2, SDPA 39.2) and 54-59% at the cross shapes, where a tile has four
+//   chunks. The SFU's exp2 (one a score, quarter rate) and P's bf16 packing
+//   sit beside the tensor cores' QK and P V, and the two consumers overlap
+//   each other's products only as the warp scheduler interleaves them:
+//   FlashAttention-3's turn barriers between them ran 29% slower here.
 //
 // K14 needs two things a CUDA block cannot carry across the grid the way the
 // TPU's sequential grid carries its o scratch: the RMS of the whole
@@ -103,6 +142,7 @@
 #include <stdint.h>
 
 #include "attention_step.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -159,15 +199,14 @@ __device__ __forceinline__ void load_v_transposed(__nv_bfloat16* vt,
   }
 }
 
-// SPARSE: chunks come from the LUT row of this block's Q-block; else all
-// chunks of [0, kv_len).
-template <bool SPARSE>
+// K3: the chunks of the LUT row of this block's Q-block.
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 const int* __restrict__ lut, int H, int Lq, int kv_len, int nQ,
-                 int sel, int block_q, int block_k, Strides qs, Strides ks,
-                 Strides vs, Strides os, float scale_log2) {
+sparse_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                        const int* __restrict__ lut, int H, int Lq, int kv_len, int nQ,
+                        int sel, int block_q, int block_k, Strides qs, Strides ks,
+                        Strides vs, Strides os, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 Ks[kBN * kKStride];
   __shared__ __align__(16) __nv_bfloat16 Vt[kDh * kVStride];
 
@@ -201,25 +240,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   float m0 = kNegInf, m1 = kNegInf;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-  const int* lut_row = nullptr;
-  int n_chunks;
-  if (SPARSE) {
-    lut_row = lut + (((long long)b * H + h) * nQ + row0 / block_q) * sel;
-    n_chunks = sel * (block_k / kBN);
-  } else {
-    n_chunks = (kv_len + kBN - 1) / kBN;
-  }
-
+  const int* lut_row = lut + (((long long)b * H + h) * nQ + row0 / block_q) * sel;
+  const int per = block_k / kBN;
+  const int n_chunks = sel * per;
   for (int c = 0; c < n_chunks; ++c) {
-    int key0;
-    if (SPARSE) {
-      const int per = block_k / kBN;
-      key0 = lut_row[c / per] * block_k + (c % per) * kBN;
-      // wholly past the tail (or an id out of range): no valid column
-      if (key0 < 0 || key0 >= kv_len) continue;
-    } else {
-      key0 = c * kBN;
-    }
+    const int key0 = lut_row[c / per] * block_k + (c % per) * kBN;
+    // wholly past the tail (or an id out of range): no valid column
+    if (key0 < 0 || key0 >= kv_len) continue;
     __syncthreads();  // previous chunk (or the Q staging) fully consumed
     load_rows(Ks, kb, ks, key0, kv_len);
     load_v_transposed(Vt, vb, vs, key0, kv_len);
@@ -270,6 +297,303 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
           pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K4: k4::dense_fwd_kernel (warp-specialised, wgmma fed by TMA)
+// ---------------------------------------------------------------------------
+
+namespace k4 {
+
+constexpr int kRows = 128;                 // query rows a tile: two warpgroups of 64
+constexpr int kKeys = 128;                 // keys a chunk
+constexpr int kWG = 128;                   // threads of a warpgroup
+constexpr int kStages = 2;                 // K / V chunks in flight
+constexpr int kQBufs = 2;                  // Q tiles in flight
+constexpr int kThreadsK4 = 3 * kWG;        // producer warpgroup + two consumers
+constexpr int kRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kRegs == 65536 / kThreadsK4 / 8 * 8, "registers a thread at launch");
+static_assert(kProducerRegs * kWG + 2 * kConsumerRegs * kWG <= kRegs * kThreadsK4,
+              "setmaxnreg within the block's allocation");
+constexpr int kBox = kRows * 128;          // 64 bf16 channels of 128 rows (one TMA box)
+constexpr int kTile = 2 * kBox;            // 128 rows x 128 channels
+constexpr int kBars = kQBufs * kTile + kStages * 2 * kTile;
+// qfull, qempty a Q buffer; kfull, vfull, kempty, vempty a stage
+constexpr int kSmem = kBars + (2 * kQBufs + 4 * kStages) * 8 + 1024;
+static_assert(kSmem <= 232448, "one block an SM");
+constexpr float kMaskedLogit = -__builtin_huge_valf();   // a key >= kv_len: p = 0
+
+struct Params {
+  int B, H, Lq, kv_len;
+  float scale_log2;
+};
+
+// Grid: min(tiles, SMs) persistent blocks. A tile is 128
+// query rows of one (b, h); tile t of the walk is (b, h) = t / n_tiles, rows
+// 128 (t % n_tiles), and block x takes tiles x, x + grid, ... Producer
+// thread 0 loads each tile's Q (two 64-channel boxes) into one of two Q
+// buffers and each 128-key chunk's K and V (as they lie: keys x channels)
+// into a 2-stage ring, running ahead across tiles. Each consumer warpgroup
+// owns 64 rows of every tile: S = Q K^T on wgmma bf16 from shared memory,
+// the online softmax in fp32 registers, O += bf16(P) V on wgmma with P in
+// registers and V MN-major (the transpose bit), the next chunk's QK issued
+// with the previous chunk's P V. The epilogue writes o / l as bf16 into the
+// warpgroup's own Q rows (swizzled) and stores them by TMA; the Q buffer is
+// released once that store has read it. Fragment of a consumer thread (warp
+// w, lane l): register i holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (l & 3) + (i & 1).
+__global__ void __launch_bounds__(kThreadsK4, 1)
+dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t st0 = base + kQBufs * kTile;     // stage s: K tile, then V tile
+  const uint32_t qfull0 = base + kBars, qempty0 = qfull0 + 8 * kQBufs;
+  const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
+  const uint32_t kempty0 = vfull0 + 8 * kStages, vempty0 = kempty0 + 8 * kStages;
+  const int tid = threadIdx.x;
+  const int n_tiles = (p.Lq + kRows - 1) / kRows;
+  const int n_items = p.B * p.H * n_tiles;
+  const int n_chunks = (p.kv_len + kKeys - 1) / kKeys;
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(qfull0 + 8 * i, 1);
+      mbar_init(qempty0 + 8 * i, 2);   // both consumer warpgroups
+    }
+#pragma unroll 1
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull0 + 8 * s, 1);
+      mbar_init(vfull0 + 8 * s, 1);
+      mbar_init(kempty0 + 8 * s, 2);
+      mbar_init(vempty0 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < kWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      // ---- loads; K and V maps end at kv_len: rows past it read as zeros ----
+      int n = 0, c = 0;
+#pragma unroll 1
+      for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+        const int tile = it % n_tiles, bh = it / n_tiles, h = bh % p.H, b = bh / p.H;
+        const int qb = n % kQBufs;
+        if (n >= kQBufs) mbar_wait(qempty0 + 8 * qb, ((n / kQBufs) & 1) ^ 1);
+        const uint32_t qd = base + qb * kTile, qbar = qfull0 + 8 * qb;
+        mbar_arrive_expect_tx(qbar, kTile);
+        tma_load_4d(&tm_q, qd, qbar, 0, h, tile * kRows, b);
+        tma_load_4d(&tm_q, qd + kBox, qbar, 64, h, tile * kRows, b);
+#pragma unroll 1
+        for (int j = 0; j < n_chunks; ++j, ++c) {
+          // K and V have barriers of their own: a chunk's K is free once
+          // both consumers' QK has read it, a chunk before its V
+          const int s = c % kStages, ph = ((c / kStages) & 1) ^ 1;
+          const uint32_t kd = st0 + s * 2 * kTile, vd = kd + kTile;
+          const uint32_t kbar = kfull0 + 8 * s, vbar = vfull0 + 8 * s;
+          if (c >= kStages) mbar_wait(kempty0 + 8 * s, ph);
+          mbar_arrive_expect_tx(kbar, kTile);
+          tma_load_4d(&tm_k, kd, kbar, 0, h, j * kKeys, b);
+          tma_load_4d(&tm_k, kd + kBox, kbar, 64, h, j * kKeys, b);
+          if (c >= kStages) mbar_wait(vempty0 + 8 * s, ph);
+          mbar_arrive_expect_tx(vbar, kTile);
+          tma_load_4d(&tm_v, vd, vbar, 0, h, j * kKeys, b);
+          tma_load_4d(&tm_v, vd + kBox, vbar, 64, h, j * kKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl0 = warp * 16 + g;   // the warpgroup's row of registers with (i & 2) == 0
+
+  float o[64], sc[64];
+  uint32_t pa[32];
+
+  // O += bf16(P) V of the chunk in stage s: V's keys are wgmma's K, its
+  // channels N (MN-major): a 16-key step is two 8-row groups, 2048 bytes
+  auto issue_pv = [&](int s, int cc) {
+    mbar_wait(vfull0 + 8 * s, (cc / kStages) & 1);
+    const uint32_t vb = st0 + s * 2 * kTile + kTile;
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_bf16_rs<1>(o, pa + 4 * kk, sw128_desc_mn(vb + kk * 2048, kBox));
+    wgmma_commit();
+  };
+
+  int n = 0, c = 0;   // tiles and chunks done: the producer's counts
+  int pend = -1;      // the Q buffer whose O store has yet to be read
+#pragma unroll 1
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+    const int tile = it % n_tiles, bh = it / n_tiles, h = bh % p.H, b = bh / p.H;
+    const int qb = n % kQBufs;
+    const uint32_t qbuf = base + qb * kTile, qa = qbuf + cw * 64 * 128;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) o[e] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    int prev = -1;   // the stage of the chunk whose P V is pending
+    mbar_wait(qfull0 + 8 * qb, (n / kQBufs) & 1);
+#pragma unroll 1
+    for (int j = 0; j < n_chunks; ++j, ++c) {
+      const int s = c % kStages;
+      const uint32_t kb = st0 + s * 2 * kTile;
+      mbar_wait(kfull0 + 8 * s, (c / kStages) & 1);
+      // S = Q K^T (64 rows x 128 keys, fp32); then the previous P V
+      reg_fence<64>(o);
+      reg_fence<32>(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_bf16_ss(sc, sw128_desc(qa + (kk >> 2) * kBox + (kk & 3) * 32),
+                      sw128_desc(kb + (kk >> 2) * kBox + (kk & 3) * 32), kk > 0);
+      wgmma_commit();
+      if (prev >= 0) issue_pv(prev, c - 1);
+      if (prev >= 0)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      reg_fence<64>(sc);
+      if (lt == 0) mbar_arrive(kempty0 + 8 * s);   // this chunk's K is read
+      if (j == 0 && pend >= 0) {
+        // the previous tile's O store has read its Q buffer: release it
+        // (after the wait: a divergent block inside the products' window
+        // made ptxas serialize every wgmma)
+        if (lt == 0) {
+          tma_store_wait_read();
+          mbar_arrive(qempty0 + 8 * pend);
+        }
+        pend = -1;
+      }
+
+      // the online softmax in the log2 domain: keys >= kv_len (only in the
+      // last chunk; zeros by TMA) at -inf before the row max; the scale is
+      // positive, so the row max of s times scale * log2 e is the max of
+      // the scaled logits; p = exp2(s * scale_log2 - max), one FFMA and the
+      // SFU's exp2
+      const int nvalid = p.kv_len - j * kKeys;
+      if (nvalid < kKeys) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sc[e] = kMaskedLogit;
+      }
+      float mx0 = row_tree<true, 0>(sc), mx1 = row_tree<true, 2>(sc);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * p.scale_log2), mn1 = fmaxf(m1, mx1 * p.scale_log2);
+      const float alpha0 = ex2_approx(m0 - mn0), alpha1 = ex2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        sc[e] = ex2_approx(fmaf(sc[e], p.scale_log2, (e & 2) ? -mn1 : -mn0));
+      const float rs0 = row_tree<false, 0>(sc), rs1 = row_tree<false, 2>(sc);
+      // the previous P V is done: its stage is free, O and P are ours
+      wgmma_wait<0>();
+      reg_fence<64>(o);
+      reg_fence<32>(pa);
+      if (prev >= 0 && lt == 0) mbar_arrive(vempty0 + 8 * prev);
+      l0 = l0 * alpha0 + rs0;
+      l1 = l1 * alpha1 + rs1;
+      if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) o[e] *= (e & 2) ? alpha1 : alpha0;
+      }
+      // P as the A fragments of the 8 k16 steps: keys 16 kk .. 16 kk + 15
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+      prev = s;
+    }
+    // the last chunk's P V
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    wgmma_fence();
+    issue_pv(prev, c - 1);
+    wgmma_wait<0>();
+    reg_fence<64>(o);
+    reg_fence<32>(pa);
+    if (lt == 0) mbar_arrive(vempty0 + 8 * prev);
+
+    // o = O / max(l, 1e-20) in bf16, into this warpgroup's own Q rows (its
+    // last QK is done) as the TMA store reads them: 16-byte chunk ch of row
+    // r at ch ^ (r % 8); rows past Lq are not written
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+    unsigned char* orow = smem + (qa - base) + rl0 * 128 + 4 * t;
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      unsigned char* at = orow + (jn >> 3) * kBox + (((jn & 7) ^ g) << 4);
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * jn] * inv0, o[4 * jn + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(at + 8 * 128) =
+          pack_bf16(o[4 * jn + 2] * inv1, o[4 * jn + 3] * inv1);
+    }
+    fence_async_shared();
+    named_sync(1 + cw, kWG);
+    if (lt == 0) {
+      const int r0 = tile * kRows + cw * 64;
+      tma_store_4d(&tm_o, qa, 0, h, r0, b);
+      tma_store_4d(&tm_o, qa + kBox, 64, h, r0, b);
+      tma_store_commit();
+    }
+    pend = qb;
+  }
+  if (lt == 0) tma_store_wait_all();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+           int kv_len, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+           void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || kv_len <= 0) return (int)cudaErrorInvalidValue;
+  // TMA: 16-byte aligned bases and strides
+  const Strides st[4] = {qs, ks, vs, os};
+  const void* ptr[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (st[i].b % 8 || st[i].l % 8 || st[i].h % 8 || (uintptr_t)ptr[i] % 16)
+      return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  static const int ready = [] {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, dense_fwd_kernel);
+    if (err != cudaSuccess) return (int)err;
+    // the register count setmaxnreg assumes (else refuse, not hang)
+    if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    return (int)cudaFuncSetAttribute(dense_fwd_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  }();
+  if (ready != 0) return ready;
+  CUtensorMap tq, tk, tv, to;
+  if (!bhld_map(&tq, q, B, Lq, H, qs.b, qs.l, qs.h, kRows) ||
+      !bhld_map(&tk, k, B, kv_len, H, ks.b, ks.l, ks.h, kKeys) ||
+      !bhld_map(&tv, v, B, kv_len, H, vs.b, vs.l, vs.h, kKeys) ||
+      !bhld_map(&to, o, B, Lq, H, os.b, os.l, os.h, 64))
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * H * ((Lq + kRows - 1) / kRows);
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = items > n_sm ? n_sm : (int)items;
+  dense_fwd_kernel<<<grid, kThreadsK4, kSmem, (cudaStream_t)stream>>>(
+      tq, tk, tv, to, Params{B, H, Lq, kv_len, scale * kLog2e});
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k4
 
 // ---------------------------------------------------------------------------
 // K20
@@ -736,7 +1060,7 @@ extern "C" int tdx_sparse_flash_attention(
     long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
     long long osl, long long osh, float scale, void* stream) {
   dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  sparse_flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)o, (const int*)lut, H, Lq, kv_len, nQ, sel, block_q, block_k,
       Strides{qsb, qsl, qsh}, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
@@ -786,13 +1110,9 @@ extern "C" int tdx_flash_attention(
     int kv_len, long long qsb, long long qsl, long long qsh, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
     long long osb, long long osl, long long osh, float scale, void* stream) {
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, nullptr, H, Lq, kv_len, 0, 0, 0, 0, Strides{qsb, qsl, qsh},
-      Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh},
-      scale * kLog2e);
-  return (int)cudaGetLastError();
+  return k4::launch(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                    Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh},
+                    scale, stream);
 }
 
 

@@ -1,12 +1,16 @@
-// What the Hopper kernels share (K7, K9, K10 / K11): mbarriers, thread-block
-// clusters, TMA tile copies with 128-byte swizzle and their tensor maps,
-// wgmma descriptors and the wgmma instructions the kernels issue.
+// What the Hopper kernels share (K4, K7, K9, K10 / K11, K22): mbarriers,
+// thread-block clusters, TMA tile copies with 128-byte swizzle and their
+// tensor maps, wgmma descriptors and the wgmma instructions the kernels
+// issue, and the register-level steps of their softmax and fold.
 //
 // A swizzled tile is rows of 128 bytes, 8-row groups 1024 bytes apart, the
 // tile 1024-byte aligned; 16-byte chunk c of row r sits at chunk c ^ (r % 8)
 // (what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes and what a wgmma
 // descriptor of layout type 1 reads). A K-major wgmma operand takes its K
-// steps of 32 bytes inside one such row: 32 int8 or 16 bf16 values.
+// steps of 32 bytes inside one such row: 32 int8 or 16 bf16 values. An
+// MN-major bf16 operand (K4's V, keys x channels as it lies in memory) takes
+// 64 columns a swizzled row and 8 K rows a 1024-byte group: a K step of 16
+// is two groups, and the next 64 columns lie one box further on.
 
 #pragma once
 
@@ -104,6 +108,16 @@ __device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, uint3
       : "memory");
 }
 
+// the 4-d form: a box of a (D, H, L, B) map (K4's q, k, v)
+__device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // store a shared-memory tile (rows past the map's are not written)
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
                                           int c1) {
@@ -111,6 +125,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -142,6 +165,14 @@ __device__ __forceinline__ void tma_store_wait() {
 // The tile starts 1024-byte aligned; a K step advances the start by 32 bytes.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the same for an MN-major bf16 tile (K4's V as the B operand of P V): 64
+// columns (128 bytes) a swizzled row, K rows 1024 bytes a group of 8 (the
+// stride offset), the next 64 columns `lbo` bytes on (the leading offset)
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -230,18 +261,18 @@ __device__ __forceinline__ void wgmma_s8_first(int* d, uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(0));
 }
 
-// d (64 x 128 fp32) += A (64 x 16 bf16, registers: the m16n8k16 A fragment
-// of each warp's 16 rows) B (128 x 16 bf16, K-major in shared memory)^T
-__device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a, uint64_t db) {
+// d (64 x 128 fp32) (+)= A (64 x 16 bf16, K-major in shared memory) B (128 x
+// 16 bf16, K-major in shared memory)^T; d is overwritten when `acc` is 0
+__device__ __forceinline__ void wgmma_bf16_ss(float* d, uint64_t da, uint64_t db, int acc = 1) {
   asm volatile(
       "{\n\t.reg .pred p;\n\t"
-      "setp.ne.b32 p, %69, 0;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n\t}"
+      "%64, %65, p, 1, 1, 0, 0;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -253,7 +284,70 @@ __device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a, uint6
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 128 fp32) += A (64 x 16 bf16, registers: the m16n8k16 A fragment
+// of each warp's 16 rows) B, in shared memory: (128 x 16)^T K-major (K7's
+// converted V^T), or with TRANS_B 16 x 128 MN-major (K4's V as it lies)
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// an int32 |s| < 2^22 as fp32, exactly, on the adders (I2F is quarter rate)
+__device__ __forceinline__ float s32_float(int s) {
+  return __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.f);
+}
+
+// 2^x on the SFU (flushes results below 2^-126 to zero; they round to
+// nothing the bf16 P can carry into a sum of values near 1)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the max (MAX) or sum of the 32 fragment values of one row of a wgmma
+// m64n128 accumulator: registers 4 j + h0 and 4 j + h0 + 1, j < 16 (h0 = 0:
+// row g, 2: row g + 8), in a tree
+template <bool MAX, typename T>
+__device__ __forceinline__ T tree_op(T a, T b) {
+  return MAX ? max(a, b) : a + b;
+}
+
+template <bool MAX, int H0, typename T>
+__device__ __forceinline__ T row_tree(const T (&v)[64]) {
+  T r[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) r[j] = tree_op<MAX, T>(v[4 * j + H0], v[4 * j + H0 + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 2]);
+  return tree_op<MAX, T>(r[0], r[1]);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -293,6 +387,26 @@ bool tile_map(CUtensorMap* map, const void* ptr, bool bf16, long long rows, int 
              const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (B, L, H, 128) bf16 tensor read through its strides (elements; 16-byte
+// multiples) as a (128, H, L, B) map in boxes of (64 columns, one head,
+// box_rows rows, one batch), 128-byte swizzle; rows past L read as zero and
+// are not written. A dimension of size 1 gets a stride of 16 bytes, as its
+// stride is never stepped.
+bool bhld_map(CUtensorMap* map, const void* ptr, int B, int L, int H, long long sb,
+              long long sl, long long sh, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  auto stride = [](long long s, int n) { return (cuuint64_t)(n == 1 ? 16 : 2 * s); };
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {stride(sh, H), stride(sl, L), stride(sb, B)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

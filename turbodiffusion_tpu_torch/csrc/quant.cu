@@ -108,14 +108,31 @@
 //   512-row text K / V are 48 tiles, a third of the card (~3x
 //   torch._int_mm there).
 //
-// K22: `int8_gemm_kernel`, a first, simple version: a 128 x 128 output tile
-// per 256-thread block (8 warps of 64 x 32), a 4-stage cp.async ring of
-// 64-byte K slices (rows padded to 80 bytes, so ldmatrix reads hit 32
-// banks; rows past M zero-filled), ldmatrix.x4 fragments and
-// mma.sync.m16n8k32 s8 x s8 -> s32; the weight is stored (N, K), the "col"
-// operand layout. It folds the s32 sums into fp32 at every 128-K edge (2 K
-// slices); its output tile is the quant block, so it reads one xs and one ws
-// scalar a K block.
+// K22: `ffn::block_gemm_kernel`, K9's wgmma + TMA machinery with K22's fold:
+//   * persistent blocks walk the output in 192 x 128 tiles (N fastest),
+//     clusters of 2 along N sharing the activation tile (block 0
+//     multicasts it) where N / 128 is even; one producer warp feeds a
+//     5-stage ring of 128-byte K tiles and runs ahead across tiles;
+//   * a 128-byte K tile is exactly one quant block, so every stage ends in
+//     a fold. Three consumer warpgroups share each 192 x 128 tile, 64 rows
+//     each (K11's layout: 64 s32 and 64 fp32 registers; each consumer's
+//     rows lie in one 128-row quant block), so two fold while the third's
+//     wgmmas run;
+//   * the fold converts s32 to fp32 exactly with an integer add and an fp32
+//     subtract (|s32| <= 127^2 * 128 < 2^22), then one FMUL by the block's
+//     scale product and one FADD, never an FFMA: fp32 output bit-equal to
+//     the plain version; the scales are read while the wgmmas run;
+//   * the epilogue adds the bias and stores fp32 or bf16 from the registers
+//     (rows past M left out), while the producer fills the ring for the
+//     next tile.
+//   What holds it back on an H100 80GB HBM3 (tools/time_k4_k22.py; PERF.md):
+//   36-41% of the int8 peak at the 14B's shapes, 26-39% at the 1.3B's,
+//   1.19-1.33x torch._int_mm. A fold is 4 instructions an s32 sum (IADD,
+//   FADD, FMUL, FADD), as many issue slots a K tile as the tensor cores take
+//   for its wgmmas, and they overlap only across consumers: a second s32
+//   set a consumer gained 5% on two consumers, the third consumer (fewer L2
+//   bytes an operation, one more warp to fold while another's wgmmas run)
+//   7-9%. The 1.3B's 512-row text GEMMs are 36 tiles, a quarter of the card.
 //
 // Products the plain version rounds one by one use __fmul_rn / __fadd_rn so
 // nvcc does not contract them. Outputs are written to fresh buffers (the
@@ -214,9 +231,9 @@ __device__ __forceinline__ uint16_t q8_pair(float a, float b, float inv) {
   return (uint16_t)__byte_perm(qa, qb, 0x0040);
 }
 
-// the kernel templates' modes: K10 and K11 on w8a8_ffn_kernel, K22 on
-// int8_gemm_kernel (K9 has a kernel of its own)
-enum Mode { kQout = 1, kBlockact = 2, kBlockScale = 3 };
+// the modes of w8a8_ffn_kernel: K10 and K11 (K9 and K22 have kernels of
+// their own)
+enum Mode { kQout = 1, kBlockact = 2 };
 
 // ---------------------------------------------------------------------------
 // K10, K11: w8a8_ffn_kernel (wgmma, TMA, mbarrier ring, clusters)
@@ -831,14 +848,14 @@ postscale_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
   cluster_sync();
 }
 
-// clusters of C blocks the card holds at once, once per C
-int max_clusters(cudaLaunchConfig_t cfg, int csize) {
-  static int cached[3] = {0, 0, 0};
+// clusters of C blocks of `kernel` the card holds at once (the caller's
+// cache, once per C)
+template <typename Kernel>
+int max_clusters(Kernel kernel, cudaLaunchConfig_t cfg, int csize, int (&cached)[3]) {
   if (!cached[csize]) {
     int n = 0;
     cfg.gridDim = dim3(csize, 1, 1);
-    if (cudaOccupancyMaxActiveClusters(&n, postscale_gemm_kernel, &cfg) != cudaSuccess ||
-        n <= 0) {
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess || n <= 0) {
       cudaGetLastError();
       int dev = 0, sms = 0;
       cudaGetDevice(&dev);
@@ -885,7 +902,8 @@ int launch_postscale(const void* a, const void* w, void* out, const PsParams& p,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int n_units = (p.M + Ly::BM - 1) / Ly::BM * (p.N / (kTN * csize));
-  const int n_cl = max_clusters(cfg, csize);
+  static int cached[3] = {0, 0, 0};
+  const int n_cl = max_clusters(postscale_gemm_kernel, cfg, csize, cached);
   cfg.gridDim = dim3((n_units < n_cl ? n_units : n_cl) * csize, 1, 1);
   cudaError_t err = cudaLaunchKernelEx(&cfg, postscale_gemm_kernel, ta, tw, to, tr, p);
   if (err != cudaSuccess) return (int)err;
@@ -893,208 +911,238 @@ int launch_postscale(const void* a, const void* w, void* out, const PsParams& p,
 }
 
 
-}  // namespace ffn
-
 // ---------------------------------------------------------------------------
-// K22: int8_gemm_kernel (mma.sync)
+// K22: block_gemm_kernel (persistent blocks, three consumers a tile, a fold
+// a K tile)
 // ---------------------------------------------------------------------------
 
-constexpr int kQBlock = 128;  // K22's quant block, both operands
+constexpr int kQBlock = 128;   // K22's quant block, both operands: one K tile
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, THREADS = 256;
-constexpr int WARPS_N = 4, WM = 64, WN = 32;
-constexpr int MT = WM / 16, NT = WN / 8;
-constexpr int SROW = BK + 16;                  // bytes per shared row
-constexpr int STAGE_BYTES = (BM + BN) * SROW;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-
-struct GemmParams {
-  const int8_t* a;          // (M, K) int8
-  const int8_t* w;          // (N, K) int8
-  const float* xs;          // (Mb, Kb) activation block scales
-  const float* ws;          // (Nb, Kb) weight block scales
-  const float* bias;        // (N,) or null
-  __nv_bfloat16* out;       // (M, N) bf16
-  float* out_f;             // (M, N) fp32 (in place of out)
-  int M, N, K;
+// One producer warpgroup and three consumer warpgroups that share each 192
+// x 128 output tile (K11's), 64 rows each (one m64 slice: 64 s32 registers,
+// 64 fp32 sums); 5 stages of 128-byte K tiles of both operands (40 KB).
+struct BsLayout {
+  static constexpr int NCW = 3;
+  static constexpr int THREADS = (NCW + 1) * kWG;
+  static constexpr int REGS = 128;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 152;
+  static_assert(REGS == 65536 / THREADS / 8 * 8, "registers a thread at launch");
+  static_assert(PRODUCER_REGS * kWG + CONSUMER_REGS * NCW * kWG <= REGS * THREADS,
+                "setmaxnreg within the block's allocation");
+  static constexpr int STAGES = 5;
+  static constexpr int BM = 64 * NCW;
+  static constexpr int A_BYTES = BM * kTK, B_BYTES = kTN * kTK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BARS = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+  static_assert(SMEM <= 232448, "one block an SM");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
+struct BsParams {
+  const float* xs;      // (Mb, Kb) activation block scales
+  const float* ws;      // (Nb, Kb) weight block scales
+  const float* bias;    // (N,) or null
+  void* out;            // (M, N) fp32 or bf16
+  int M, N, K, out_f32;
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// Grid: clusters of C (1 or 2) blocks along N, as many as the card holds at
+// once, walking the output in units of C tiles of 192 x 128 that share
+// their rows (N fastest) as K9 walks it; block 0 of a cluster multicasts the
+// activation tile. Each consumer's 64 rows lie in one 128-row quant block,
+// and a 128-byte K tile is one quant block: each consumer folds its exact
+// s32 sums into its fp32 sums once a stage, facc + float(s32) * (xs[mb, kb]
+// * ws[nb, kb]), three roundings in the plain version's order (nothing
+// contracted into an FFMA), the scales read while the tile's wgmmas run. A
+// consumer whose rows all lie past M (the last tile's) reads the last quant
+// block's scales: xs holds ceil(M / 128) rows, and its sums are never
+// stored.
+// Every consumer reads every stage, so a stage is free once all of every
+// cluster block are done with it. Then + bias and one store from the
+// registers, rows past M left out. Fragment of a consumer thread as in
+// w8a8_ffn_kernel.
+__global__ void __launch_bounds__(BsLayout::THREADS, 1)
+block_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                  const __grid_constant__ CUtensorMap tm_w, const BsParams p) {
+  using Ly = BsLayout;
+  constexpr int NCW = Ly::NCW, STAGES = Ly::STAGES, BM = Ly::BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  const uint32_t full0 = base + Ly::BARS, empty0 = full0 + STAGES * 8;
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank(), csize = cluster_blocks();
+  const int cl = blockIdx.x / csize, n_cl = gridDim.x / csize;
+  const int KB = p.K / kQBlock, last_mb = (p.M - 1) / kQBlock;
+  const int n_units_n = p.N / (kTN * csize);
+  const int n_units = (p.M + BM - 1) / BM * n_units_n;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) int8_gemm_kernel(const GemmParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int KT = p.K / BK;
-
-  auto load_tile = [&](int stage, int kt) {
-    unsigned char* sa = smem + stage * STAGE_BYTES;
-    unsigned char* sw = sa + BM * SROW;
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int c = tid; c < BM * (BK / 16); c += THREADS) {
-      const int r = c >> 2, cc = c & 3;
-      const int gm = m0 + r;
-      // rows past M: zero-filled from a valid address
-      const int8_t* src = p.a + (size_t)min(gm, p.M - 1) * p.K + k0 + cc * 16;
-      cp_async16(sa + r * SROW + cc * 16, src, gm < p.M ? 16 : 0);
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NCW * csize);   // every consumer of every cluster block
     }
-#pragma unroll
-    for (int c = tid; c < BN * (BK / 16); c += THREADS) {
-      const int r = c >> 2, cc = c & 3;
-      cp_async16(sw + r * SROW + cc * 16, p.w + (size_t)(n0 + r) * p.K + k0 + cc * 16, 16);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  if (tid < kWG) {
+    // ---- producer: warp 0 feeds the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(Ly::PRODUCER_REGS));
+    if (tid < 32) {
+      const uint16_t mask = (uint16_t)((1u << csize) - 1u);
+      int it = 0;
+#pragma unroll 1
+      for (int u = cl; u < n_units; u += n_cl) {
+        const int mt = u / n_units_n, nb = u % n_units_n * (int)csize + (int)rank;
+#pragma unroll 1
+        for (int kb = 0; kb < KB; ++kb, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+          if (tid == 0) {
+            const uint32_t a = base + s * Ly::STAGE_BYTES, full = full0 + 8 * s;
+            mbar_arrive_expect_tx(full, Ly::STAGE_BYTES);
+            tma_load(&tm_w, a + Ly::A_BYTES, full, kb * kTK, nb * kTN);
+            if (csize == 1)
+              tma_load(&tm_a, a, full, kb * kTK, mt * BM);
+            else if (rank == 0)
+              tma_load_multicast(&tm_a, a, full, kb * kTK, mt * BM, mask);
+          }
+          __syncwarp();
+        }
+      }
     }
+    cluster_sync();   // the consumers' one
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(Ly::CONSUMER_REGS));
+  const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
+  const int row_w = cw * 64 + warp * 16 + (lane >> 2);   // tile row of register 0
+  int acc[64];
+  float facc[64];
+
+  // a stage is free once every consumer of every cluster block is done with
+  // it: lanes 0..C-1 of each consumer's first warp arrive, one per block
+  auto release = [&](int s) {
+    if (lt < (int)csize) mbar_arrive_remote(empty0 + 8 * s, (uint32_t)lt);
+  };
+  // this consumer's 64 rows x 128 columns of the K tile in stage s
+  auto issue = [&](int* d, int s) {
+    const uint32_t b = base + s * Ly::STAGE_BYTES + Ly::A_BYTES;
+    const uint32_t a = base + s * Ly::STAGE_BYTES + cw * 64 * kTK;
+    reg_fence(d);
+    wgmma_fence();
+    wgmma_s8_first(d, sw128_desc(a), sw128_desc(b));
+#pragma unroll
+    for (int kk = 1; kk < kTK / 32; ++kk)
+      wgmma_s8(d, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32));
+    wgmma_commit();
+  };
+  // facc + float(s32) * sc: |s32| <= 127^2 * 128 < 2^22, converted exactly
+  // on the adders; the stage is free once its sums are out
+  auto fold = [&](int* d, int s, float sc) {
+    reg_fence(d);
+    release(s);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) facc[i] = __fadd_rn(facc[i], __fmul_rn(s32_float(d[i]), sc));
   };
 
-  int acc[MT][NT][4];
-  float facc[MT][NT][4];
+  int it = 0;
+#pragma unroll 1
+  for (int u = cl; u < n_units; u += n_cl) {
+    const int m0 = u / n_units_n * BM, n0 = (u % n_units_n * (int)csize + (int)rank) * kTN;
+    const float* xrow = p.xs + (size_t)min((m0 + cw * 64) / kQBlock, last_mb) * KB;
+    const float* wrow = p.ws + (size_t)(n0 / kTN) * KB;
+    // K block kb's scale product, one fp32 rounding (loaded before a wgmma
+    // wait, whose memory clobber keeps the load ahead of it)
+    auto scale = [&](int kb) { return __fmul_rn(__ldg(xrow + kb), __ldg(wrow + kb)); };
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        facc[i][j][e] = 0.f;
-      }
-
-  // rows of this thread's accumulators: i-th m tile, e < 2 -> g, else g + 8
-  int rows[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    rows[i][0] = m0 + wm * WM + i * 16 + g;
-    rows[i][1] = rows[i][0] + 8;
-  }
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed; slice kt - 1's stage is free
-    if (kt + STAGES - 1 < KT) load_tile((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const unsigned char* sa = smem + (kt % STAGES) * STAGE_BYTES;
-    const unsigned char* sw = sa + BM * SROW;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], sa + (wm * WM + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SROW +
-                               kk * 32 + (lane >> 4) * 16);
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        uint32_t r[4];
-        ldmatrix_x4(r, sw + (wn * WN + jp * 16 + (lane & 7) + (lane >> 4) * 8) * SROW +
-                           kk * 32 + ((lane >> 3) & 1) * 16);
-        bf[2 * jp][0] = r[0];
-        bf[2 * jp][1] = r[1];
-        bf[2 * jp + 1][0] = r[2];
-        bf[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    for (int i = 0; i < 64; ++i) facc[i] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < KB; ++kb) {
+      const int s = (it + kb) % STAGES;
+      mbar_wait(full0 + 8 * s, ((it + kb) / STAGES) & 1);
+      issue(acc, s);
+      const float sc = scale(kb);
+      wgmma_wait<0>();
+      fold(acc, s, sc);
     }
-    if (((kt + 1) * BK) % kQBlock == 0) {  // a quant block ends
-      const int kb = (kt + 1) * BK / kQBlock - 1;
-      const int n_kb = p.K / kQBlock;
-      const float sc = __fmul_rn(p.xs[(size_t)blockIdx.y * n_kb + kb],
-                                 p.ws[(size_t)blockIdx.x * n_kb + kb]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            facc[i][j][e] = __fadd_rn(facc[i][j][e], __fmul_rn((float)acc[i][j][e], sc));
-            acc[i][j][e] = 0;
-          }
-    }
-  }
-  cp_async_wait<0>();
+    it += KB;
 
-  // epilogue in fp32: + bias, one store
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
+    // + bias in fp32, one store (fp32, or bf16: one rounding)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = rows[i][h];
-      if (row >= p.M) continue;
+      const int r = m0 + row_w + 8 * h;
+      if (r >= p.M) continue;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = n0 + wn * WN + j * 8 + t * 2;
-        float v0 = facc[i][j][2 * h], v1 = facc[i][j][2 * h + 1];
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = n0 + jn * 8 + 2 * (lane & 3);
+        float v0 = facc[4 * jn + 2 * h], v1 = facc[4 * jn + 2 * h + 1];
         if (p.bias) {
           const float2 bv = *reinterpret_cast<const float2*>(p.bias + col);
           v0 = __fadd_rn(v0, bv.x);
           v1 = __fadd_rn(v1, bv.y);
         }
-        if (p.out_f)
-          *reinterpret_cast<float2*>(p.out_f + (size_t)row * p.N + col) = make_float2(v0, v1);
+        const size_t at = (size_t)r * p.N + col;
+        if (p.out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) = make_float2(v0, v1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)row * p.N + col) =
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + at) =
               __floats2bfloat162_rn(v0, v1);
       }
     }
+  }
+  // no block exits while a remote arrive or multicast may still reach it
+  cluster_sync();
 }
 
-template <int MODE>
-int launch_gemm(const GemmParams& p, int cluster_x, void* stream) {
-  if (p.M <= 0 || p.N % BN || p.K % BK || p.K <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+// xq (M, K) x w (N, K) with block scales -> out (M, N); K and N multiples of
+// 128, 16-byte aligned operands
+int launch_block(const void* a, const void* w, const BsParams& p, void* stream) {
+  using Ly = BsLayout;
+  if (p.M <= 0 || p.K <= 0 || p.K % kQBlock || p.N <= 0 || p.N % kQBlock ||
+      (uintptr_t)a % 16 || (uintptr_t)w % 16)
+    return (int)cudaErrorInvalidValue;
+  static const int ready = [] {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, block_gemm_kernel);
+    if (err != cudaSuccess) return (int)err;
+    // the register count setmaxnreg assumes (else refuse, not hang)
+    if (fa.numRegs != Ly::REGS) return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaFuncSetAttribute(block_gemm_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::SMEM);
+  }();
+  if (ready != 0) return ready;
+  // pairs of blocks along N share the activation tile where N / 128 is even
+  const int csize = (p.N / kTN) % 2 ? 1 : 2;
+  CUtensorMap ta, tw;
+  if (!tile_map(&ta, a, false, p.M, p.K, Ly::BM) || !tile_map(&tw, w, false, p.N, p.K, kTN))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.N / BN, (p.M + BM - 1) / BM, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.blockDim = dim3(Ly::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Ly::SMEM;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.x = csize;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, int8_gemm_kernel<MODE>, p);
+  const int n_units = (p.M + Ly::BM - 1) / Ly::BM * (p.N / (kTN * csize));
+  static int cached[3] = {0, 0, 0};
+  const int n_cl = max_clusters(block_gemm_kernel, cfg, csize, cached);
+  cfg.gridDim = dim3((n_units < n_cl ? n_units : n_cl) * csize, 1, 1);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, block_gemm_kernel, ta, tw, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+}  // namespace ffn
 
 }  // namespace
 
@@ -1166,19 +1214,14 @@ extern "C" int tdx_int8_gemm_blockact(const void* a, const void* w, const void* 
 extern "C" int tdx_int8_gemm_block(const void* a, const void* w, const void* xs,
                                    const void* ws, const void* bias, void* out, int out_f32,
                                    int M, int N, int K, void* stream) {
-  if (K % kQBlock || N % kQBlock) return (int)cudaErrorInvalidValue;
-  GemmParams p = {};
-  p.a = (const int8_t*)a;
-  p.w = (const int8_t*)w;
+  ffn::BsParams p = {};
+  p.xs = (const float*)xs;
+  p.ws = (const float*)ws;
   p.bias = (const float*)bias;
+  p.out = out;
   p.M = M;
   p.N = N;
   p.K = K;
-  p.xs = (const float*)xs;
-  p.ws = (const float*)ws;
-  if (out_f32)
-    p.out_f = (float*)out;
-  else
-    p.out = (__nv_bfloat16*)out;
-  return launch_gemm<kBlockScale>(p, 1, stream);
+  p.out_f32 = out_f32;
+  return ffn::launch_block(a, w, p, stream);
 }

@@ -170,40 +170,6 @@ __device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
   return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
 }
 
-// an int32 |s| < 2^22 as fp32, exactly, on the adders (I2F is quarter rate)
-__device__ __forceinline__ float s32_float(int s) {
-  return __fsub_rn(__int_as_float(s + 0x4B400000), 12582912.f);
-}
-
-// 2^x on the SFU (flushes results below 2^-126 to zero; they round to
-// nothing the bf16 P can carry into a sum of values near 1)
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the max (MAX) or sum of the 32 fragment values of one row: registers
-// 4 j + h0 and 4 j + h0 + 1, j < 16 (h0 = 0: row g, 2: row g + 8), in a tree
-template <bool MAX, typename T>
-__device__ __forceinline__ T tree_op(T a, T b) {
-  return MAX ? max(a, b) : a + b;
-}
-
-template <bool MAX, int H0, typename T>
-__device__ __forceinline__ T row_tree(const T (&v)[64]) {
-  T r[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) r[j] = tree_op<MAX, T>(v[4 * j + H0], v[4 * j + H0 + 1]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 8]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 4]);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 2]);
-  return tree_op<MAX, T>(r[0], r[1]);
-}
-
 // Grid (Lp / 128, H, B): a block owns 128 query rows of one (b, h) (inside
 // one Q block of the LUT: block_q is a multiple of 128) and walks the
 // 128-key chunks of the K blocks its LUT row selects. Warp 0 of the producer

@@ -309,8 +309,19 @@ def sparse_flash_attention_i8qk_plain(q, k, v, lut, block_q: int,
 # ---------------------------------------------------------------------------
 
 def _check_qkv(q, k, v, kv_len):
+    _check_qkv_device(q, k, v)
+    _check_qkv_layout(q, k, v, kv_len)
+
+
+def _check_qkv_device(q, k, v):
     _require(q.is_cuda and k.device == q.device and v.device == q.device,
              "q, k, v must lie on one CUDA device")
+
+
+def _check_qkv_layout(q, k, v, kv_len):
+    """The kernels' operand rules (K4 reads them by TMA: 16-byte
+    aligned bases and strides). K4's launcher checks them before the device,
+    so a CPU tensor meets its refusals before anything is built."""
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
              "the kernel takes bf16 q, k, v")
     _require(q.dim() == 4 and k.shape == v.shape and k.shape[0] == q.shape[0]
@@ -410,7 +421,8 @@ _flash_i8qk_cuda.launches = 0
 def _flash_cuda(q, k, v, scale: float, kv_len: int):
     """Launch K4."""
     B, L, H, D = q.shape
-    _check_qkv(q, k, v, kv_len)
+    _check_qkv_layout(q, k, v, kv_len)
+    _check_qkv_device(q, k, v)
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lib = _build.load()
     rc = lib.tdx_flash_attention(

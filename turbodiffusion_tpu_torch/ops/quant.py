@@ -45,10 +45,12 @@ Int8Linear)` tests keep it off the postscale int8 feeds (K12-K14), as JAX's
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/quant.cu) or raises. `.launches` counts launches. The plain
 GEMMs take the exact int32 product in float64 (|127 * 127 * K| < 2^53).
-K9-K11 are wgmma fed by TMA: 16-byte aligned operands (and residual), N in
-multiples of 128; K9 (`postscale_gemm_kernel`, persistent) takes K in
-multiples of 64 (its last 128-byte K tile reads zeros past K), K10 and K11
-(`w8a8_ffn_kernel`) K, and K11 its slab, in multiples of 128. The wrappers
+K9-K11 and K22 are wgmma fed by TMA: 16-byte aligned operands (and
+residual), N in multiples of 128; K9 (`postscale_gemm_kernel`, persistent)
+takes K in multiples of 64 (its last 128-byte K tile reads zeros past K),
+K10 and K11 (`w8a8_ffn_kernel`) K, and K11 its slab, in multiples of 128;
+K22 (`block_gemm_kernel`, persistent, a fold every 128-byte K tile) K and N
+in multiples of 128, which its wrapper pads to as JAX pads. The wrappers
 check these shapes before anything is built or launched.
 """
 
@@ -452,6 +454,8 @@ def _int8_block_matmul_cuda(xq, xs, wq, ws, bias, out_dtype):
     Mb, Kb, Nb = _cdiv(M, QBLOCK), _cdiv(K, QBLOCK), _cdiv(N, QBLOCK)
     xq = _pad2(xq, M, Kb * QBLOCK).contiguous()
     wq = _pad2(wq, Nb * QBLOCK, Kb * QBLOCK).contiguous()
+    _require(xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
+             "K22 takes 16-byte aligned operands (TMA)")
     xs = _f32(xs, Mb * Kb, dev, "xs")
     ws = _f32(ws, Nb * Kb, dev, "ws")
     b = None if bias is None else _f32(

@@ -5,6 +5,8 @@ Usage:
       sagesla --quant_linear --sla_topk 0.3 --requests 3 [--root DIR]
   python turbodiffusion_tpu_torch/scripts/time_t2v.py --model Wan2.1-14B \
       --resolution 720p --requests 2
+  python turbodiffusion_tpu_torch/scripts/time_t2v.py --model Wan2.1-14B \
+      --block_scale --requests 2
   (also --v_quant row, --sla_block 64: the CLI's flags)
 
 Builds `WanPipeline.create` with seeded random weights, runs `--requests`
@@ -14,7 +16,11 @@ request's peak memory, each phase's peak and the allocation at its start
 (where the package's pipeline reports them), and the launches of every
 kernel launcher found in
 `turbodiffusion_tpu_torch.ops` (each function with a `.launches` count),
-by launcher name. `--root DIR` imports the package from the checkout at DIR
+by launcher name. `--block_scale` loads a seeded random DiT whose block
+linears are quantised to 128 x 128 block scales on the card, passed to
+`create` as a state dict (`dit_path`), as a `-quant` checkpoint loads: the
+block-scale path (the activation quantiser and K22 in every linear).
+`--root DIR` imports the package from the checkout at DIR
 instead (an older commit unpacked beside this one, say), so that two trees
 are timed by the same script on one card, one process each. The last line
 is a JSON object with the denoise and VAE-decode times.
@@ -42,6 +48,20 @@ def _launchers(ops) -> dict:
     return out
 
 
+def _block_scale_state(args) -> dict:
+    """A seeded random DiT of the model's widths, every block linear
+    quantised to 128 x 128 block scales on the card, as the reference-named
+    state dict a `-quant` checkpoint holds."""
+    from turbodiffusion_tpu_torch.models.wan import init_wan_params
+    from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
+    from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
+    from turbodiffusion_tpu_torch.utils.checkpoint import wan_state_dict_from_params
+    cfg = make_wan_cfg(args.model, args.attention_type, args.sla_topk)
+    model = init_wan_params(cfg, seed=13, device="cuda")
+    quantize_wan_blocks(model.blocks, mode="block", fuse_qkv=False)
+    return wan_state_dict_from_params(model, cfg)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=None,
@@ -54,6 +74,8 @@ def main(argv=None) -> int:
     p.add_argument("--v_quant", default="channel")
     p.add_argument("--sla_block", type=int, default=256)
     p.add_argument("--requests", type=int, default=3)
+    p.add_argument("--block_scale", action="store_true",
+                   help="block linears with 128 x 128 block scales (K22)")
     p.add_argument("--label", default="")
     args = p.parse_args(argv)
     # the package of --root, else of the checkout this script lies in
@@ -66,11 +88,14 @@ def main(argv=None) -> int:
 
     print(f"{args.label} package {ops.__file__}", flush=True)
     launchers = _launchers(ops)
+    dit = _block_scale_state(args) if args.block_scale else None
     pipe = WanPipeline.create(model=args.model,
                               attention_type=args.attention_type,
                               quant_linear=args.quant_linear, seed=0,
                               sla_topk=args.sla_topk, v_quant=args.v_quant,
-                              sla_block=args.sla_block, device="cuda")
+                              sla_block=args.sla_block, device="cuda",
+                              dit_path=dit)
+    del dit
     denoise, decode = [], []
     for r in range(args.requests):
         gen = GenerationConfig(num_steps=4, num_frames=81,
