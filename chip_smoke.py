@@ -9,8 +9,14 @@ Phases, each printing one line of its numbers:
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
-     FFN 8960, 12 of 128 K blocks; K12 also at batch 2 with the block's
-     strided modulation; K10 and K11 also at a ragged M of 1,000 rows and
+     FFN 8960, 12 of 128 K blocks; K1 and K2 in their warp-per-row form
+     (each check asserts the form its launch takes), K1 also at batch 2
+     with two modulations (rejecting batch 1's applied to batch 0), K2 with
+     RoPE also on the fused QKV K column group (rows 3 x 1536 apart) and in
+     its loop form (a view 2 bytes off alignment), rejecting the RoPE
+     partner one vector off, the sin sign flipped and a weight channel
+     doubled in the last vector a lane holds; K12 also at batch 2 with the
+     block's strided modulation; K10 and K11 also at a ragged M of 1,000 rows and
      at scale blocks / slabs of 384 and 1024 (K10's clusters of 3 and 8),
      and at both widths each rejecting a planted fault: a column scale
      doubled, a slab's row scales doubled; K9 also at a ragged M of 1,000
@@ -27,9 +33,10 @@ Phases, each printing one line of its numbers:
      k, the scale doubled, the last 128-key chunk dropped); K22 at the
      block-scale checkpoint path's GEMM shapes in bf16 and at 1536 x 1536
      and a ragged shape in fp32, bit-equal, the last two (and the 14B's
-     ragged M) with xs ending where mapped memory ends; then the Wan2.1-14B forms: K1 at 5120; K2 at H*Dh 5120, norm only and
+     ragged M) with xs ending where mapped memory ends; then the Wan2.1-14B forms: K1 at 5120 (affine, mod, bare); K2 at H*Dh 5120, norm only and
      with RoPE, each with planted faults a kernel that stopped at 4096
-     would give (channels past 4096 left NaN, weight channel 4100 doubled),
+     would give (channels past 4096 left NaN, weight channel 4100 doubled)
+     and, with RoPE, the three above,
      and above 5120 at 48 x 128; K3 and K4 (cross and dense self,
      SDPA beside it) at 40 heads, K4 also dense at 720p (75,600 tokens, q
      sharp);
@@ -507,10 +514,18 @@ def phase1():
     t0 = time.perf_counter()
     lib = _build.load()
     wall = time.perf_counter() - t0
+    ptxas = _ptxas_summary(lib.build_log)
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
-          f"(load {wall:.1f} s) | ptxas: {_ptxas_summary(lib.build_log)}",
-          flush=True)
+          f"(load {wall:.1f} s) | ptxas: {ptxas}", flush=True)
+    # K1 and K2's warp-per-row kernels hold their rows in registers
+    spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS)
+               and (" spill" in k or " stack" in k)]
+    if spilled:
+        raise AssertionError(f"phase1: row kernels spill: {spilled}")
     return smi
+
+
+_ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -656,7 +671,9 @@ def phase2(reps: int = REPS):
         Check("K2", "rope (self q/k)",
               lambda: fn._rmsrope_cuda(x, w, cosF, sinF, 1e-6, HEADS),
               lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6),
-              (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
+              (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
+              faults=_k2_rope_faults(x, w, cosF, sinF, HEADS)),
+    ] + _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS) + [
         Check("K3", f"sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}",
               lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
               lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L),
@@ -1130,6 +1147,120 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
     ]
 
 
+def _k1_form(x, ms, mb, w, b) -> str:
+    """The form K1's C entry takes for these operands (its own rule; the
+    output, freshly allocated, is aligned)."""
+    from turbodiffusion_tpu_torch.ops import _build
+    ptr = lambda t: None if t is None else t.data_ptr()           # noqa: E731
+    ok = _build.load().tdx_modulated_layer_norm_form(
+        ptr(x), None, ptr(ms), ptr(mb), ptr(w), ptr(b), x.shape[-1])
+    return "vector" if ok else "loop"
+
+
+def _k2_form(x, w, cos, sin, heads: int) -> str:
+    """The form K2's C entry takes for these inputs."""
+    from turbodiffusion_tpu_torch.ops import _build
+    ptr = lambda t: None if t is None else t.data_ptr()           # noqa: E731
+    HD = x.shape[-1]
+    ok = _build.load().tdx_rmsnorm_rope_form(ptr(x), None, ptr(w), ptr(cos), ptr(sin),
+                                             x.stride(1), heads, HD // heads)
+    return "vector" if ok else "loop"
+
+
+def _form(got: str, want: str, what: str) -> str:
+    if got != want:
+        raise AssertionError(f"{what} takes the {got} form, not the {want} form")
+    return f"[{got} form]"
+
+
+def _k2_rope_faults(x, w, cosF, sinF, heads: int) -> dict:
+    """What a check of K2 with RoPE must reject: the RoPE partner one vector
+    (8 channels) off, the sin sign flipped, and a weight channel doubled in
+    the row's last vector (the last one a lane holds)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    B, L_, HD = x.shape
+    Dh = HD // heads
+    w_bad = w.clone()
+    w_bad[HD - 3] *= 2
+
+    def partner_off():
+        # the kernel's own normed rows, rotated with partner j + Dh/2 + 8
+        y = fn._rmsrope_cuda(x, w, None, None, 1e-6, heads).float()
+        p = torch.roll(y, -(Dh // 2 + 8), dims=-1)
+        return (y * cosF[None, :L_, None] + p * sinF[None, :L_, None]).to(x.dtype)
+
+    return {"RoPE partner one vector off": partner_off,
+            "sin sign flipped": lambda: fn._rmsrope_cuda(x, w, cosF, -sinF, 1e-6, heads),
+            f"weight channel {HD - 3} doubled (the row's last vector)":
+                lambda: fn._rmsrope_cuda(x, w_bad, cosF, sinF, 1e-6, heads)}
+
+
+def _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, heads: int) -> list:
+    """Phase-2 checks of K1 and K2's forms at x's width (1.3B: 1536, 14B:
+    5120), each asserting the form its launch takes: the path shapes take
+    the warp-per-row kernels. K1 bare at 5120 (F.layer_norm beside it) and
+    at batch 2 with two modulations (rejecting batch 1's applied to batch 0); at
+    1536 also K2 with RoPE on the fused QKV K column group (rows 3 D apart,
+    as `sla` / `original` read it) and K2 in its loop form on a view 2
+    bytes off alignment (RoPE, and norm only with F.rms_norm beside it)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    B_, L_, D = x.shape
+    n_x = x.numel()
+    pre = "" if D == G13.dim else "14B "
+    F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
+    for args in ((x, ms, mb, None, None), (x, None, None, w, bias), (x, None, None, None, None)):
+        _form(_k1_form(*args), "vector", f"K1 {pre}at {L_}x{D}")
+    for cos, sin in ((cosF, sinF), (None, None)):
+        _form(_k2_form(x, w, cos, sin, heads), "vector", f"K2 {pre}at {L_}x{D}")
+    x2 = torch.cat([x, x.flip(1)])
+    ms2, mb2 = (torch.stack([t[0], randn(D, dtype=torch.float32, std=0.1)]) for t in (ms, mb))
+    # (the 1.3B's bare K1 is phase 2's "plain" check)
+    checks = [
+        Check("K1", f"{pre}bare {L_}x{D} [vector form]",
+              lambda: fn._mln_cuda(x, None, None, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x, None, None, None, None, 1e-6),
+              (x,), {"fp32": 6 * n_x},
+              lambda: torch.nn.functional.layer_norm(x, (D,), eps=1e-6), "F.layer_norm"),
+    ] if pre else []
+    checks += [
+        Check("K1", f"{pre}mod at batch 2, two modulations "
+              f"{_form(_k1_form(x2, ms2, mb2, None, None), 'vector', 'K1 at batch 2')}",
+              lambda: fn._mln_cuda(x2, ms2, mb2, None, None, 1e-6),
+              lambda: fn.modulated_layer_norm_ref(x2, ms2, mb2, None, None, 1e-6),
+              (x2, ms2, mb2), {"fp32": 8 * x2.numel()},
+              faults={"batch 1's modulation applied to batch 0":
+                      lambda: fn._mln_cuda(x2, ms2[[1, 1]], mb2[[1, 1]], None, None, 1e-6)}),
+    ]
+    if pre:
+        return checks
+    qkv = randn(B_, L_, 3 * D)
+    xg = qkv[..., D:2 * D]                              # the K column group
+    flat = randn(n_x + 1)
+    xu = flat[1:].view(B_, L_, D)                       # 2 bytes off alignment
+    return checks + [
+        Check("K2", f"rope, fused QKV K group (rows {3 * D} apart) "
+              f"{_form(_k2_form(xg, w, cosF, sinF, heads), 'vector', 'K2 on the K group')}",
+              lambda: fn._rmsrope_cuda(xg, w, cosF, sinF, 1e-6, heads),
+              lambda: fn.rmsnorm_rope_ref(xg, w, cosF, sinF, 1e-6),
+              (xg, w, cosF[:L_], sinF[:L_]), {"fp32": 10 * n_x},
+              faults=_k2_rope_faults(xg, w, cosF, sinF, heads)),
+        Check("K2", f"rope, unaligned view "
+              f"{_form(_k2_form(xu, w, cosF, sinF, heads), 'loop', 'K2 on an unaligned view')}",
+              lambda: fn._rmsrope_cuda(xu, w, cosF, sinF, 1e-6, heads),
+              lambda: fn.rmsnorm_rope_ref(xu, w, cosF, sinF, 1e-6),
+              (xu, w, cosF[:L_], sinF[:L_]), {"fp32": 10 * n_x}),
+        Check("K2", f"norm only, unaligned view "
+              f"{_form(_k2_form(xu, w, None, None, heads), 'loop', 'K2 on an unaligned view')}",
+              lambda: fn._rmsrope_cuda(xu, w, None, None, 1e-6, heads),
+              lambda: fn.rms_norm(xu, w, 1e-6).reshape(B_, L_, heads, D // heads),
+              (xu, w), {"fp32": 4 * n_x},
+              (lambda: F_rms_norm(xu, (D,), w, 1e-6)) if F_rms_norm else None,
+              "F.rms_norm"),
+    ]
+
+
 def _wide_checks(randn, sdpa):
     """Phase-2 checks of the 14B paths' kernel forms (dim 5120, 40 heads,
     FFN 13824): K1 at 5120 (the bf16 paths' norms); K2 at H*Dh 5120 (norm
@@ -1238,8 +1369,10 @@ def _wide_checks(randn, sdpa):
               lambda: fn._rmsrope_cuda(x, w, cosF, sinF, 1e-6, HEADS),
               lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6),
               (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
-              faults=k2_faults(cosF, sinF)),
-        Check("K2", f"rope {L}x{WH * DH} ({WH}x{DH}, above 5120)",
+              faults={**k2_faults(cosF, sinF),
+                      **_k2_rope_faults(x, w, cosF, sinF, HEADS)}),
+        Check("K2", f"rope {L}x{WH * DH} ({WH}x{DH}, above 5120) "
+              f"{_form(_k2_form(x6, w6, cosF, sinF, WH), 'vector', 'K2 at 6144')}",
               lambda: fn._rmsrope_cuda(x6, w6, cosF, sinF, 1e-6, WH),
               lambda: fn.rmsnorm_rope_ref(x6, w6, cosF, sinF, 1e-6),
               (x6, w6, cosF[:L], sinF[:L]), {"fp32": 10 * x6.numel()}),
@@ -1310,7 +1443,8 @@ def _wide_checks(randn, sdpa):
               atol=0.0, rtol=K14_SCALE_RTOL,
               yardsticks={"SDPA of the cross shape (attention only)":
                           sdpa(qn, kt, vt)}),
-    ] + (_k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
+    ] + (_norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS)
+         + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
          + _block_gemm_checks(_fresh_randn(42), G14))
 
 
@@ -2834,8 +2968,8 @@ def phase6(tmp: str, ckpt: str, shards: dict):
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1", ("mln_kernel<false",)), ("K12", ("mln_kernel<true",)),
-    ("K2", ("rmsrope_kernel",)), ("K13", ("unfold_quant_kernel",)),
+    ("K1", ("mln_rows_kernel", "mln_kernel<false")), ("K12", ("mln_kernel<true",)),
+    ("K2", ("rmsrope_rows_kernel", "rmsrope_kernel")), ("K13", ("unfold_quant_kernel",)),
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     ("K3", ("sparse_flash_fwd_kernel",)), ("K4", ("dense_fwd_kernel",)),

@@ -130,3 +130,61 @@ def test_wrappers_count_no_launch_on_cpu():
     fn.modulated_layer_norm(t["x"], t["ms"], t["mb"])
     fn.rmsnorm_rope(t["x"], t["w"], num_heads=HEADS)
     assert (fn._mln_cuda.launches, fn._rmsrope_cuda.launches) == before
+
+
+# which kernel form a K2 / K1 launch takes: pointers as numbers (16-byte
+# aligned BASE, a column group 3072 bytes in, 2 bytes off), row strides
+BASE = 1 << 20
+K2_FORMS = [
+    ((12, 128, 1536, BASE), "vector"),              # 1.3B q / k / cross q
+    ((12, 128, 4608, BASE + 3072), "vector"),       # its fused QKV K group
+    ((40, 128, 5120, BASE), "vector"),              # 14B
+    ((48, 128, 6144, BASE), "vector"),
+    ((24, 64, 1536, BASE), "vector"),
+    ((1, 16, 16, BASE), "vector"),
+    ((2, 256, 512, BASE), "vector"),
+    ((4, 6, 24, BASE), "loop"),                     # head dim 6
+    ((3, 48, 144, BASE), "loop"),                   # not a power of two
+    ((2, 512, 1024, BASE), "loop"),                 # head wider than a warp
+    ((12, 128, 1540, BASE), "loop"),                # row stride off 8
+    ((12, 128, 1536, BASE + 2), "loop"),            # unaligned view
+    ((65, 128, 8320, BASE), "loop"),                # above 8192
+]
+
+
+@pytest.mark.parametrize("args,form", K2_FORMS,
+                         ids=[f"{a[0]}x{a[1]}-ld{a[2]}-off{a[3] - BASE}"
+                              for a, _ in K2_FORMS])
+def test_rmsrope_form_by_shape(args, form):
+    """K2's warp-per-row kernel takes head dims 16-256 (powers of two),
+    rows to 8192, row strides that are multiples of 8 and aligned views;
+    the loop takes the rest. Tables present or not, aligned tables do not
+    change the form; an unaligned table does."""
+    H, Dh, ld, x = args
+    assert fn.rmsrope_form(H, Dh, ld, x, BASE, BASE + 64, None, None) == form
+    assert fn.rmsrope_form(H, Dh, ld, x, BASE, BASE + 64, BASE, BASE + 4096) == form
+    assert fn.rmsrope_form(H, Dh, ld, x, BASE, BASE + 64, BASE + 4, BASE) == "loop"
+
+
+@pytest.mark.parametrize("D,x,form", [(1536, BASE, "vector"), (5120, BASE, "vector"),
+                                      (256, BASE, "vector"), (1540, BASE, "loop"),
+                                      (1536, BASE + 2, "loop"), (8200, BASE, "loop")])
+def test_mln_form_by_shape(D, x, form):
+    """K1's warp-per-row kernel takes D a multiple of 8 up to 8192 with
+    aligned operands (absent ones as None); the block-per-row kernel the
+    rest."""
+    assert fn.mln_form(D, x, BASE, None, None, BASE, BASE) == form
+    assert fn.mln_form(D, x, BASE, BASE, BASE, None, None) == form
+    assert fn.mln_form(D, x, BASE, BASE + 8, BASE, None, None) == "loop"
+
+
+def test_form_limit_matches_the_kernel_source():
+    """The widest vector-form row the form functions allow is the one the
+    CUDA source's constants give: 8 elements x 32 lanes x row warps x
+    vectors a lane."""
+    import re
+    from pathlib import Path
+    src = (Path(fn.__file__).resolve().parent.parent / "csrc" / "fused_norm.cu").read_text()
+    vpl = int(re.search(r"constexpr int kMaxVpl = (\d+);", src).group(1))
+    warps = int(re.search(r"constexpr int kMaxRowWarps = (\d+);", src).group(1))
+    assert 8 * 32 * warps * vpl == fn._VEC_MAX_ROW

@@ -117,6 +117,220 @@ def test_k2_entry_refuses_what_it_cannot_compute(dev):
     assert bool(out.isnan().all())
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2's forms: the warp-per-row kernels at the path widths (row counts
+# that are not a multiple of a block's rows, batch 2, the fused QKV column
+# group), each written into an output poisoned with NaN so that a row or
+# vector left unwritten fails; and the shapes that take the loop form. The
+# 32,760-row inputs are drawn on the card (torch.Generator, seeded), the
+# rest numpy-seeded as above.
+# ---------------------------------------------------------------------------
+
+def _card_randn(dev, *shape, seed=0, std=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev) * std
+
+
+def _k1_operands(dev, D, mode, B=1, seed=0):
+    """(mod_scale, mod_shift, weight, bias) of a K1 form: "mod" (norm1 /
+    norm2), "affine" (norm3) or "bare"; the modulation (B, D) fp32."""
+    mod, aff = mode == "mod", mode == "affine"
+    return (_randn(dev, B, D, seed=seed + 1, std=0.5) if mod else None,
+            _randn(dev, B, D, seed=seed + 2, std=0.5) if mod else None,
+            (1 + _randn(dev, D, seed=seed + 3, std=0.1)).bfloat16() if aff else None,
+            _randn(dev, D, seed=seed + 4, std=0.1).bfloat16() if aff else None)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _k1_into_nan(x, ms, mb, w, b, form):
+    """K1 through its C entry into an output prefilled with NaN, after
+    checking which form the entry and `fn.mln_form` give the launch."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    B, L, D = x.shape
+    out = torch.full_like(x, float("nan"))
+    ptrs = [_ptr(t) for t in (x, out, ms, mb, w, b)]
+    assert fn.mln_form(D, *ptrs) == form
+    assert lib.tdx_modulated_layer_norm_form(*ptrs, D) == (form == "vector")
+    assert lib.tdx_modulated_layer_norm(*ptrs, B * L, L, D, 1e-6,
+                                        _build.stream_ptr(x)) == 0
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32760, 1000])
+@pytest.mark.parametrize("D", [1536, 5120])
+@pytest.mark.parametrize("mode", ["mod", "affine", "bare"])
+def test_k1_vector_form_writes_every_row(dev, mode, D, rows):
+    """K1's warp-per-row kernel at the 1.3B and 14B widths in its three
+    forms, on 32,760 and 1,000 rows, against its plain version; through the
+    wrapper too (one launch)."""
+    x = (2 * _card_randn(dev, 1, rows, D, seed=60)).bfloat16()
+    ms, mb, w, b = _k1_operands(dev, D, mode)
+    want = fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6)
+    _close(_k1_into_nan(x, ms, mb, w, b, "vector"), want)
+    before = fn._mln_cuda.launches
+    _close(fn.modulated_layer_norm(x, ms, mb, w, b, eps=1e-6), want)
+    assert fn._mln_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1536, 5120])
+def test_k1_vector_form_at_batch_2_takes_each_batchs_modulation(dev, D):
+    """Batch 2 with two different modulations: each batch's rows take its
+    own (a block stages one batch's); batch 1's applied to batch 0 fails."""
+    L = 1000
+    x = (2 * _randn(dev, 2, L, D, seed=61)).bfloat16()
+    ms, mb, _, _ = _k1_operands(dev, D, "mod", B=2, seed=62)
+    want = fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6)
+    got = _k1_into_nan(x, ms, mb, None, None, "vector")
+    _close(got, want)
+    wrong = fn.modulated_layer_norm_ref(x, ms[[1, 1]], mb[[1, 1]], eps=1e-6)
+    with pytest.raises(AssertionError):
+        _close(wrong, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mod", "affine"])
+@pytest.mark.parametrize("case", ["width 1540", "unaligned view"])
+def test_k1_loop_form_takes_what_the_vector_form_cannot(dev, case, mode):
+    """Shapes that take K1's block-per-row kernel: a width that is not a
+    multiple of 8, a view 4 bytes off 16-byte alignment; each matches the
+    plain version, every row written."""
+    L, D = 300, 1540 if case == "width 1540" else 1536
+    if case == "width 1540":
+        x = (2 * _randn(dev, 1, L, D, seed=68)).bfloat16()
+    else:
+        x = (2 * _randn(dev, L * D + 2, seed=68)).bfloat16()[2:].view(1, L, D)
+    ms, mb, w, b = _k1_operands(dev, D, mode)
+    _close(_k1_into_nan(x, ms, mb, w, b, "loop"),
+           fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6))
+
+
+@pytest.mark.cuda
+def test_k1_k12_entries_refuse_a_view_their_loop_cannot_read(dev):
+    """A view 2 bytes off alignment: the block-per-row kernel reads bf16
+    pairs, so tdx_modulated_layer_norm(_quant) return cudaErrorInvalidValue
+    (1), launch nothing, and the wrapper raises."""
+    from turbodiffusion_tpu_torch.ops import _build
+    L, D = 64, 1536
+    x = _randn(dev, L * D + 1, seed=69).bfloat16()[1:].view(1, L, D)
+    out = torch.full((1, L, D), float("nan"), dtype=torch.bfloat16, device=dev)
+    s = torch.full((1, L, 1), float("nan"), device=dev)
+    lib, st = _build.load(), _build.stream_ptr(x)
+    assert lib.tdx_modulated_layer_norm(x.data_ptr(), out.data_ptr(), None, None, None,
+                                        None, L, L, D, 1e-6, st) == 1
+    assert lib.tdx_modulated_layer_norm_quant(x.data_ptr(), out.data_ptr(), s.data_ptr(),
+                                              None, None, None, None, L, L, D, 1e-6,
+                                              st) == 1
+    with pytest.raises(RuntimeError, match="tdx_modulated_layer_norm"):
+        fn.modulated_layer_norm(x)
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all()) and bool(s.isnan().all())
+
+
+def _k2_into_nan(x, w, cos, sin, H, form):
+    """K2 through its C entry into an output prefilled with NaN, after
+    checking which form the entry and `fn.rmsrope_form` give the launch."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    B, L, HD = x.shape
+    ld = x.stride(1)
+    out = torch.full((B, L, H, HD // H), float("nan"), dtype=x.dtype, device=x.device)
+    ptrs = [_ptr(t) for t in (x, out, w, cos, sin)]
+    assert fn.rmsrope_form(H, HD // H, ld, *ptrs) == form
+    assert lib.tdx_rmsnorm_rope_form(*ptrs, ld, H, HD // H) == (form == "vector")
+    assert lib.tdx_rmsnorm_rope(*ptrs, ld, B * L, L, H, HD // H, 1e-5,
+                                _build.stream_ptr(x)) == 0
+    torch.cuda.synchronize()
+    return out
+
+
+def _k2_want(x, w, cos, sin, H):
+    if cos is not None:
+        return fn.rmsnorm_rope_ref(x, w, cos, sin, 1e-5)
+    B, L, HD = x.shape
+    return fn.rms_norm(x, w, 1e-5).reshape(B, L, H, HD // H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "qkv group"])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("H,Dh", [(12, 128), (40, 128), (48, 128), (24, 64)])
+def test_k2_vector_form_matches_plain(dev, H, Dh, rope, layout):
+    """K2's warp-per-row kernel at 12, 40 and 48 heads of 128 and 24 of 64,
+    RoPE and norm only, on 1,000 rows, contiguous and as the K column group
+    of a fused (1, L, 3 x H*Dh) QKV buffer (rows 3 H*Dh apart)."""
+    L, HD = 1000, H * Dh
+    if layout == "qkv group":
+        x = _randn(dev, 1, L, 3 * HD, seed=63).bfloat16()[..., HD:2 * HD]
+        assert x.stride(1) == 3 * HD
+    else:
+        x = _randn(dev, 1, L, HD, seed=63).bfloat16()
+    w = (1 + _randn(dev, HD, seed=64, std=0.1)).bfloat16()
+    cos = sin = None
+    if rope:
+        cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 20, 25, Dh, device=dev))
+    _close(_k2_into_nan(x, w, cos, sin, H, "vector"), _k2_want(x, w, cos, sin, H))
+    before = fn._rmsrope_cuda.launches
+    _close(fn.rmsnorm_rope(x, w, cos, sin, num_heads=H, eps=1e-5),
+           _k2_want(x, w, cos, sin, H))
+    assert fn._rmsrope_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("case", ["head dim 6", "row stride 1540", "unaligned view"])
+def test_k2_loop_form_takes_what_the_vector_form_cannot(dev, case, rope):
+    """Shapes that take the block-per-row loop: a head dim of 6, a row
+    stride that is not a multiple of 8, a view 2 bytes off 16-byte
+    alignment; each matches the plain version, every element written."""
+    L = 300
+    if case == "head dim 6":
+        H, Dh = 4, 6
+        x = _randn(dev, 1, L, H * Dh, seed=65).bfloat16()
+    elif case == "row stride 1540":
+        H, Dh = 12, 128
+        x = _randn(dev, 1, L, 1540, seed=65).bfloat16()[..., :H * Dh]
+    else:
+        H, Dh = 12, 128
+        flat = _randn(dev, L * H * Dh + 1, seed=65).bfloat16()
+        x = flat[1:].view(1, L, H * Dh)
+    w = (1 + _randn(dev, H * Dh, seed=66, std=0.1)).bfloat16()
+    cos = sin = None
+    if rope:
+        cos, sin = fn.rope_cos_sin_full(_randn(dev, L, Dh // 2, seed=67, std=3.0))
+    _close(_k2_into_nan(x, w, cos, sin, H, "loop"), _k2_want(x, w, cos, sin, H))
+
+
+@pytest.mark.cuda
+def test_form_functions_agree_with_the_c_entries(dev):
+    """`fn.mln_form` / `fn.rmsrope_form` give the form the C entries take,
+    over widths, head dims, row strides and pointer offsets (the queries
+    read pointers as numbers only)."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    base = 1 << 20
+    for D in (8, 256, 1536, 1540, 2056, 5120, 8192, 8200):
+        for off in (0, 2, 8, 16):
+            for opt in (None, base + 4096):
+                ptrs = [base + off, base, opt, opt, base + 64, None]
+                assert (fn.mln_form(D, *ptrs) == "vector") == bool(
+                    lib.tdx_modulated_layer_norm_form(*ptrs, D)), (D, off, opt)
+    for H, Dh in ((12, 128), (40, 128), (48, 128), (24, 64), (4, 6), (3, 48), (65, 128),
+                  (1, 16), (2, 256), (8, 8), (2, 512)):
+        for ld in (H * Dh, 3 * H * Dh, H * Dh + 4):
+            for off in (0, 2, 3072):
+                for tables in ((None, None), (base, base + 8192)):
+                    ptrs = [base + off, base, base + 64, *tables]
+                    assert (fn.rmsrope_form(H, Dh, ld, *ptrs) == "vector") == bool(
+                        lib.tdx_rmsnorm_rope_form(*ptrs, ld, H, Dh)), (H, Dh, ld, off)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (300, 128, 64)])
 def test_k3_matches_plain(dev, L, bq, bk):

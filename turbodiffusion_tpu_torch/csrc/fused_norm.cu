@@ -15,16 +15,33 @@
 //
 // What bounds them on an H100: memory. Each is one read and one write of a
 // (B*L, D) activation (about 200 MB per call at the 1.3B 480p shape,
-// D = 1536, L = 32,760; K12 writes int8, 150 MB in all: 0.045 ms at
-// 3.35 TB/s) with a few FLOPs per element, far below the ~295 FLOP/byte
-// ridge. One block of 256 threads per row. K1 and K12 keep the whole row in
-// registers, each thread holding up to 8 element pairs (up to 10, the 14B's
-// 5120-wide rows, as a second instance of the template so the narrow rows
-// keep their registers), so x is read once; K2 reads its row twice, the
-// second time from L2. The statistics are block reductions (K12 adds one for
-// the row's absmax), and the output is written once — no fp32 intermediate
-// ever reaches device memory. Pairs are read as bf16x2 (K1, K12) so a warp
-// moves 128 contiguous bytes.
+// D = 1536, L = 32,760: 0.060 ms at 3.35 TB/s; K12 writes int8, 150 MB)
+// with a few FLOPs per element, far below the ~295 FLOP/byte ridge.
+//
+// K1 and K2 are warp-per-row kernels (mln_rows_kernel, rmsrope_rows_kernel):
+// a row takes one warp, or 2 or 4 for rows wider than 32 lanes x kMaxVpl
+// vectors (the 14B's 5120), and a block of 8 warps walks its rows
+// persistently (as many blocks as fit on the card). Each lane loads its share
+// of the row as 16-byte vectors of 8 bf16 (a warp moves 512 contiguous bytes
+// an instruction; the loads skip L1 and ask L2 for 256-byte blocks), holds
+// them in registers as packed bf16 and stores 16 bytes at a time (streaming),
+// so the row is read once. A warp's share of the row is its only work in
+// flight; more warps, not deeper rows, cover the latency (a warp loading its
+// next row first measured no faster). The statistics are warp shuffles; the
+// warps of a wide row exchange their partial sums once, through shared memory
+// behind a named barrier of the row's warps (K1 exchanges each warp's sum and
+// centred sum of squares and combines them as Chan et al.'s parallel
+// variance). No block-wide barrier runs per row. The operands that do not
+// change from row to row are staged in shared memory once a block: K1's
+// modulation of the block's batch (1 + scale and shift, fp32), its weight and
+// bias; K2's weight. A lane's column within its head is the same for every
+// vector it holds, so K2 loads its 8 cos and 8 sin values once a row, and the
+// RoPE partner of element j (j +- Dh/2) sits in lane ^ Dh/16 of the same
+// vector: one shuffle per bf16 pair. The vector forms take the shapes and
+// alignments of *_vector below; any other launch takes, by shape, the
+// block-per-row kernels: mln_kernel<false> (K1) and rmsrope_kernel (K2).
+// K12 stays on mln_kernel<true>: one block of 256 threads per row, the row in
+// registers as bf16 pairs, block reductions through shared memory.
 //
 // All follow the JAX cast chain exactly (fused_norm.py:43-65, :68-93,
 // :241-260):
@@ -38,6 +55,8 @@
 // The affine and modulation products and sums are __fmul_rn / __fadd_rn, one
 // rounding each as in the plain version, so nvcc cannot contract them into an
 // FMA that moves an fp32 value K12 quantises.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,7 +117,8 @@ __device__ __forceinline__ int8_t to_i8(float v) {
 
 // One block per row of x (rows = B*L). Element pairs (2p, 2p+1) with
 // p = threadIdx.x + i*kThreads, i < PAIRS. QUANT: out is int8 (rows, D) and
-// rs one fp32 scale per row (K12); else out is bf16 (K1).
+// rs one fp32 scale per row (K12); else out is bf16 (K1 at the shapes
+// mln_vector refuses).
 template <bool QUANT, int PAIRS>
 __global__ void __launch_bounds__(kThreads)
 mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
@@ -179,12 +199,13 @@ mln_kernel(const __nv_bfloat162* __restrict__ x, void* __restrict__ out,
   if (threadIdx.x == 0) rs[row] = scale;
 }
 
-// One block per row, at any width. Pair p = (head h, index i < Dh/2) holds
-// the two channels that rotate-half RoPE mixes: h*Dh + i and h*Dh + i + Dh/2.
-// Each thread walks its pairs twice, once for the sum of squares and once for
-// the output, reading x again (from L2: a block's row is a few tens of KB).
-// Holding the row in registers instead (8 pairs a thread to 4096, 10 to 5120)
-// was 12-18% slower on an H100 at widths 1536 and 5120 (tools/time_k2.py).
+// K2's loop form, for the shapes rmsrope_vector refuses (a head dim that is
+// not a power of two from 16 to 256, a row stride that is not a multiple of
+// 8, an unaligned view, rows above kMaxVecRow): one block per row, at any
+// width. Pair p = (head h, index i < Dh/2) holds the two channels that
+// rotate-half RoPE mixes: h*Dh + i and h*Dh + i + Dh/2. Each thread walks its
+// pairs twice, once for the sum of squares and once for the output, reading x
+// again (from L2).
 __global__ void __launch_bounds__(kThreads)
 rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
                const __nv_bfloat16* __restrict__ weight,
@@ -226,17 +247,447 @@ rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The warp-per-row kernels of K1 and K2
+// ---------------------------------------------------------------------------
+
+// (mln_rows_kernel's __launch_bounds__ names 1 block an SM: without it
+// ptxas held some of its instances to 48 or 64 registers with a few bytes
+// of spill; the path's instances, 104-122 registers, keep 2 blocks an SM)
+constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+// the most 16-byte vectors a lane holds of a row; a row takes the fewest
+// warps (1, 2 or 4) whose lanes hold it
+constexpr int kMaxVpl = 8;
+constexpr int kMaxRowWarps = 4;
+constexpr int kMaxVecRow = 8 * 32 * kMaxRowWarps * kMaxVpl;   // 8192 elements
+// x's loads skip L1 and ask L2 for 256-byte blocks; out's stores stream
+// (evict first): 2-5% at the 1.3B width, within 2% either way at 5120
+// (tools/time_k2.py --design)
+constexpr bool kLoadHint = true;
+constexpr bool kStoreHint = true;
+
+__device__ __forceinline__ uint4 load_vec(const uint4* p) {
+  if constexpr (kLoadHint) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(p));
+    return v;
+  } else {
+    return *p;
+  }
+}
+
+__device__ __forceinline__ void store_vec(uint4* p, const uint4& v) {
+  if constexpr (kStoreHint) {
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(v.x), "r"(v.y),
+                 "r"(v.z), "r"(v.w)
+                 : "memory");
+  } else {
+    *p = v;
+  }
+}
+
+__host__ __device__ __forceinline__ int row_warps(int nvec) {
+  int rw = 1;
+  while (rw < kMaxRowWarps && nvec > 32 * rw * kMaxVpl) rw *= 2;
+  return rw;
+}
+
+// vector i of lane `lane` in warp `wig` of a row's RW warps: the warps of a
+// row take turns at 32-vector (512-byte) spans
+__device__ __forceinline__ int vec_index(int i, int RW, int wig, int lane) {
+  return (i * RW + wig) * 32 + lane;
+}
+
+// elements of a nvec-vector row that warp `wig` of the row's RW warps holds
+template <int VPL>
+__device__ __forceinline__ int warp_share(int nvec, int RW, int wig) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) n += max(0, min(32, nvec - (i * RW + wig) * 32));
+  return 8 * n;
+}
+
+// this lane's vectors of the row at xr (zeros past the row)
+template <int VPL>
+__device__ __forceinline__ void load_row(uint4 (&v)[VPL], const uint4* xr, int nvec, int RW,
+                                         int wig, int lane) {
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int vi = vec_index(i, RW, wig, lane);
+    v[i] = vi < nvec ? load_vec(xr + vi) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// s / n rounded to nearest (the division of the TPU kernel and of the
+// block-per-row kernels) for an integer n, from inv = 1/n rounded on the
+// host: the product corrected by one FMA residual step. A `/` would bring
+// the division's slow path, a call whose ABI costs the row's registers a
+// stack frame.
+__device__ __forceinline__ float div_n(float s, float n, float inv) {
+  const float q = s * inv;
+  return fmaf(fmaf(-q, n, s), inv, q);
+}
+
+// the RW warps of one row meet at named barrier 1 + group (barrier 0 is
+// __syncthreads)
+__device__ __forceinline__ void row_sync(int group, int RW) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(32 * RW) : "memory");
+}
+
+// a packed bf16 pair as fp32 (element 0 in the low half), and back, rounded
+// to nearest even
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  uint32_t u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+  return u;
+}
+__device__ __forceinline__ uint32_t word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// K1, bf16 out. x, out (B*L, D) with D = 8 * nvec; one block walks rows of
+// batch b = blockIdx.x / per_batch, so its staged modulation is that batch's.
+// Shared memory holds, for each operand present, 2 * nvec float4: channels
+// 8v..8v+3 at [v] and 8v+4..8v+7 at [nvec + v], so a warp's 16-byte reads
+// are consecutive (no bank conflict). inv_d = 1/D, from the host.
+template <int VPL>
+__global__ void __launch_bounds__(kRowThreads, 1)
+mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                const float4* __restrict__ mod_scale, const float4* __restrict__ mod_shift,
+                const uint4* __restrict__ weight, const uint4* __restrict__ bias, int L,
+                int D, int per_batch, float inv_d, float eps) {
+  extern __shared__ float4 stage[];
+  __shared__ float4 xch[2][kRowWarps];
+  const int nvec = D / 8;
+  const int RW = row_warps(nvec);
+  const bool has_mod = mod_scale != nullptr, has_w = weight != nullptr,
+             has_b = bias != nullptr;
+  float4* s_scale = stage;                                  // 1 + scale
+  float4* s_shift = s_scale + (has_mod ? 2 * nvec : 0);
+  float4* s_w = s_shift + (has_mod ? 2 * nvec : 0);
+  float4* s_b = s_w + (has_w ? 2 * nvec : 0);
+  const int b = blockIdx.x / per_batch, bx = blockIdx.x % per_batch;
+  for (int v = threadIdx.x; v < nvec; v += kRowThreads) {
+    if (has_mod) {
+      const float4 a = mod_scale[(size_t)b * 2 * nvec + 2 * v];
+      const float4 c = mod_scale[(size_t)b * 2 * nvec + 2 * v + 1];
+      s_scale[v] = make_float4(1.f + a.x, 1.f + a.y, 1.f + a.z, 1.f + a.w);
+      s_scale[nvec + v] = make_float4(1.f + c.x, 1.f + c.y, 1.f + c.z, 1.f + c.w);
+      s_shift[v] = mod_shift[(size_t)b * 2 * nvec + 2 * v];
+      s_shift[nvec + v] = mod_shift[(size_t)b * 2 * nvec + 2 * v + 1];
+    }
+    if (has_w) {
+      const uint4 u = weight[v];
+      const float2 p0 = unpack2(u.x), p1 = unpack2(u.y), p2 = unpack2(u.z), p3 = unpack2(u.w);
+      s_w[v] = make_float4(p0.x, p0.y, p1.x, p1.y);
+      s_w[nvec + v] = make_float4(p2.x, p2.y, p3.x, p3.y);
+    }
+    if (has_b) {
+      const uint4 u = bias[v];
+      const float2 p0 = unpack2(u.x), p1 = unpack2(u.y), p2 = unpack2(u.z), p3 = unpack2(u.w);
+      s_b[v] = make_float4(p0.x, p0.y, p1.x, p1.y);
+      s_b[nvec + v] = make_float4(p2.x, p2.y, p3.x, p3.y);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kRowWarps / RW, group = warp / RW, wig = warp % RW;
+  // a wide row's warps centre their sums of squares on their own means (any
+  // centre c is exact through the correction below; 1/n by the SFU is enough)
+  const float n_w = (float)warp_share<VPL>(nvec, RW, wig);
+  const float inv_nw = RW > 1 ? __fdividef(1.f, n_w) : inv_d;
+  const uint4* xb = x + (size_t)b * L * nvec;
+  uint4* ob = out + (size_t)b * L * nvec;
+  const int step = per_batch * groups;
+  int parity = 0;
+  for (int l = bx * groups + group; l < L; l += step) {
+    uint4 v[VPL];
+    load_row<VPL>(v, xb + (size_t)l * nvec, nvec, RW, wig, lane);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = unpack2(word(v[i], k));
+        s += f.x + f.y;
+      }
+    s = warp_sum(s);
+    float mean = RW > 1 ? s * inv_nw : div_n(s, (float)D, inv_d);
+    float m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      if (vec_index(i, RW, wig, lane) >= nvec) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = unpack2(word(v[i], k));
+        const float a = f.x - mean, c = f.y - mean;
+        m2 += a * a + c * c;
+      }
+    }
+    m2 = warp_sum(m2);
+    if (RW > 1) {
+      // one exchange: each warp's (sum, sum of squares about its centre c,
+      // c, its element count), combined in the same order by every warp:
+      // sum (x - mu)^2 = m2 + 2 (c - mu) (s - n c) + n (c - mu)^2
+      if (lane == 0) xch[parity][warp] = make_float4(s, m2, mean, n_w);
+      row_sync(group, RW);
+      float S = 0.f;
+#pragma unroll 1
+      for (int j = 0; j < RW; ++j) S += xch[parity][group * RW + j].x;
+      const float mu = div_n(S, (float)D, inv_d);
+      float M2 = 0.f;
+#pragma unroll 1
+      for (int j = 0; j < RW; ++j) {
+        const float4 e = xch[parity][group * RW + j];
+        const float d = e.z - mu;
+        M2 += e.y + 2.f * d * (e.x - e.w * e.z) + e.w * d * d;
+      }
+      mean = mu;
+      m2 = M2;
+      parity ^= 1;
+    }
+    const float inv = rsqrtf(div_n(m2, (float)D, inv_d) + eps);
+
+    uint4* orow = ob + (size_t)l * nvec;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = vec_index(i, RW, wig, lane);
+      if (vi >= nvec) continue;
+      float y[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = unpack2(word(v[i], k));
+        y[2 * k] = __fmul_rn(f.x - mean, inv);
+        y[2 * k + 1] = __fmul_rn(f.y - mean, inv);
+      }
+      if (has_w) {
+        const float4 a = s_w[vi], c = s_w[nvec + vi];
+        const float w8[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = __fmul_rn(y[k], w8[k]);
+      }
+      if (has_b) {
+        const float4 a = s_b[vi], c = s_b[nvec + vi];
+        const float b8[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = __fadd_rn(y[k], b8[k]);
+      }
+      if (has_mod) {
+        // WanLayerNorm casts out to bf16 before the fp32 modulation
+        const float4 a = s_scale[vi], c = s_scale[nvec + vi];
+        const float4 e = s_shift[vi], f = s_shift[nvec + vi];
+        const float sc[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+        const float sh[8] = {e.x, e.y, e.z, e.w, f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = __fadd_rn(__fmul_rn(round_bf16(y[k]), sc[k]), sh[k]);
+      }
+      store_vec(orow + vi, make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
+                                      pack2(y[4], y[5]), pack2(y[6], y[7])));
+    }
+  }
+}
+
+// K2's vector form. x rows `ld` elements apart, out (rows, HD) with
+// HD = 8 * nvec; Dh a power of two from 16 to 256, so a head is Dh/8 lanes
+// of one 32-vector span and the partner of a lane's vector is lane ^ Dh/16.
+// inv_hd = 1/HD, from the host.
+template <int VPL, bool ROPE>
+__global__ void __launch_bounds__(kRowThreads)
+rmsrope_rows_kernel(const __nv_bfloat16* __restrict__ x, uint4* __restrict__ out,
+                    const uint4* __restrict__ weight, const float* __restrict__ cos_full,
+                    const float* __restrict__ sin_full, long long ld, int rows, int L,
+                    int HD, int Dh, float inv_hd, float eps) {
+  extern __shared__ uint4 s_wv[];   // the bf16 weight, nvec vectors
+  __shared__ float xch[2][kRowWarps];
+  const int nvec = HD / 8;
+  const int RW = row_warps(nvec);
+  for (int v = threadIdx.x; v < nvec; v += kRowThreads) s_wv[v] = weight[v];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kRowWarps / RW, group = warp / RW, wig = warp % RW;
+  const int hv = Dh / 16;                       // the RoPE partner: lane ^ hv
+  const int col = (lane & (Dh / 8 - 1)) * 8;    // the lane's column in each head
+  const int step = gridDim.x * groups;
+  int parity = 0;
+  for (int r = blockIdx.x * groups + group; r < rows; r += step) {
+    uint4 v[VPL];
+    load_row<VPL>(v, reinterpret_cast<const uint4*>(x + r * ld), nvec, RW, wig, lane);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = unpack2(word(v[i], k));
+        s += f.x * f.x + f.y * f.y;
+      }
+    s = warp_sum(s);
+    if (RW > 1) {
+      if (lane == 0) xch[parity][warp] = s;
+      row_sync(group, RW);
+      s = 0.f;
+#pragma unroll 1
+      for (int j = 0; j < RW; ++j) s += xch[parity][group * RW + j];
+      parity ^= 1;
+    }
+    const float rms = rsqrtf(div_n(s, (float)HD, inv_hd) + eps);
+    float cs[8], sn[8];
+    if (ROPE) {
+      const int t = (r % L) * Dh + col;
+      const float4 c0 = *reinterpret_cast<const float4*>(cos_full + t);
+      const float4 c1 = *reinterpret_cast<const float4*>(cos_full + t + 4);
+      const float4 s0 = *reinterpret_cast<const float4*>(sin_full + t);
+      const float4 s1 = *reinterpret_cast<const float4*>(sin_full + t + 4);
+      cs[0] = c0.x; cs[1] = c0.y; cs[2] = c0.z; cs[3] = c0.w;
+      cs[4] = c1.x; cs[5] = c1.y; cs[6] = c1.z; cs[7] = c1.w;
+      sn[0] = s0.x; sn[1] = s0.y; sn[2] = s0.z; sn[3] = s0.w;
+      sn[4] = s1.x; sn[5] = s1.y; sn[6] = s1.z; sn[7] = s1.w;
+    }
+
+    uint4* orow = out + (size_t)r * nvec;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = vec_index(i, RW, wig, lane);
+      const uint4 wv = s_wv[vi < nvec ? vi : 0];
+      uint32_t y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // cast to bf16 BEFORE the (bf16) weight multiply, as WanRMSNorm does
+        const float2 f = unpack2(word(v[i], k)), w = unpack2(word(wv, k));
+        const float2 t = unpack2(pack2(f.x * rms, f.y * rms));
+        y[k] = pack2(t.x * w.x, t.y * w.y);
+      }
+      if (ROPE) {
+        // out[j] = y[j]*cos[j] + y[(j + Dh/2) % Dh]*sin[j]; every lane
+        // shuffles (a head's lanes are all in or all past the row)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 a = unpack2(y[k]);
+          const float2 p = unpack2(__shfl_xor_sync(0xffffffffu, y[k], hv));
+          y[k] = pack2(a.x * cs[2 * k] + p.x * sn[2 * k],
+                       a.y * cs[2 * k + 1] + p.y * sn[2 * k + 1]);
+        }
+      }
+      if (vi < nvec) store_vec(orow + vi, make_uint4(y[0], y[1], y[2], y[3]));
+    }
+  }
+}
+
 }  // namespace
 
 namespace {
 
-// The instance whose registers hold a D-wide row: 8 pairs a thread up to
-// 4096, 10 up to 5120.
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }   // null too
+
+// The shapes the warp-per-row kernels take (1 = vector form, 0 = the
+// block-per-row kernel). K1: D a multiple of 8 up to kMaxVecRow, every
+// operand 16-byte aligned.
+bool mln_vector(const void* x, const void* out, const void* mod_scale, const void* mod_shift,
+                const void* weight, const void* bias, int D) {
+  return D > 0 && D % 8 == 0 && D <= kMaxVecRow && aligned16(x) && aligned16(out) &&
+         aligned16(mod_scale) && aligned16(mod_shift) && aligned16(weight) &&
+         aligned16(bias);
+}
+
+// K2: Dh a power of two from 16 to 256 (Dh/2 a multiple of 8, Dh/8 lanes
+// dividing the warp), H*Dh up to kMaxVecRow, a row stride that is a multiple
+// of 8, every pointer 16-byte aligned.
+bool rmsrope_vector(const void* x, const void* out, const void* weight, const void* cos_full,
+                    const void* sin_full, long long ld, int H, int Dh) {
+  return Dh >= 16 && Dh <= 256 && (Dh & (Dh - 1)) == 0 && (long long)H * Dh <= kMaxVecRow &&
+         ld % 8 == 0 && aligned16(x) && aligned16(out) && aligned16(weight) &&
+         aligned16(cos_full) && aligned16(sin_full);
+}
+
+// Blocks of `kernel` that fit on the card at once (at least 1).
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, smem);
+  return std::max(1, n_sm * per_sm);
+}
+
+template <int V>
+int launch_mln_rows(int vpl, const void* x, void* out, const void* mod_scale,
+                    const void* mod_shift, const void* weight, const void* bias, int rows,
+                    int L, int D, float eps, cudaStream_t stream) {
+  if constexpr (V > kMaxVpl) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vpl != V)
+      return launch_mln_rows<V + 1>(vpl, x, out, mod_scale, mod_shift, weight, bias, rows, L,
+                                    D, eps, stream);
+    const auto kernel = &mln_rows_kernel<V>;
+    const size_t smem = (size_t)D * sizeof(float) *
+                        (2 * (mod_scale != nullptr) + (weight != nullptr) + (bias != nullptr));
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int B = rows / L, groups = kRowWarps / row_warps(D / 8);
+    const int per_batch =
+        std::max(1, std::min((L + groups - 1) / groups, resident_blocks(kernel, smem) / B));
+    kernel<<<B * per_batch, kRowThreads, smem, stream>>>(
+        (const uint4*)x, (uint4*)out, (const float4*)mod_scale, (const float4*)mod_shift,
+        (const uint4*)weight, (const uint4*)bias, L, D, per_batch, 1.f / D, eps);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int V, bool ROPE>
+int launch_rmsrope_rows(int vpl, const void* x, void* out, const void* weight,
+                        const void* cos_full, const void* sin_full, long long ld, int rows,
+                        int L, int HD, int Dh, float eps, cudaStream_t stream) {
+  if constexpr (V > kMaxVpl) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vpl != V)
+      return launch_rmsrope_rows<V + 1, ROPE>(vpl, x, out, weight, cos_full, sin_full, ld,
+                                              rows, L, HD, Dh, eps, stream);
+    const auto kernel = &rmsrope_rows_kernel<V, ROPE>;
+    const size_t smem = (size_t)HD * 2;
+    const int groups = kRowWarps / row_warps(HD / 8);
+    const int grid = std::min((rows + groups - 1) / groups, resident_blocks(kernel, smem));
+    kernel<<<grid, kRowThreads, smem, stream>>>(
+        (const __nv_bfloat16*)x, (uint4*)out, (const uint4*)weight, (const float*)cos_full,
+        (const float*)sin_full, ld, rows, L, HD, Dh, 1.f / HD, eps);
+    return (int)cudaGetLastError();
+  }
+}
+
+// a row's vectors a lane holds: ceil(nvec / (32 * row warps))
+int lane_vectors(int nvec) {
+  const int lanes = 32 * row_warps(nvec);
+  return (nvec + lanes - 1) / lanes;
+}
+
+// K12, and K1 at the shapes mln_vector refuses: the instance whose
+// registers hold a D-wide row, 8 pairs a thread up to 4096, 10 up to 5120.
+// It reads x, weight and bias as bf16 pairs and the modulation as float2,
+// and writes pairs: it refuses operands off those alignments.
 template <bool QUANT>
 int launch_mln(const void* x, void* out, float* rs, const void* mod_scale,
                const void* mod_shift, const void* weight, const void* bias, int rows, int L,
                int D, float eps, void* stream) {
   if (D <= 0 || D % 2 || D > 2 * kThreads * kWidePairs) return (int)cudaErrorInvalidValue;
+  const auto off = [](const void* p, int n) { return ((uintptr_t)p % n) != 0; };
+  if (off(x, 4) || off(out, QUANT ? 2 : 4) || off(mod_scale, 8) || off(mod_shift, 8) ||
+      off(weight, 4) || off(bias, 4))
+    return (int)cudaErrorInvalidValue;
   const auto kernel = D <= 2 * kThreads * kMaxPairs ? &mln_kernel<QUANT, kMaxPairs>
                                                     : &mln_kernel<QUANT, kWidePairs>;
   kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
@@ -247,13 +698,30 @@ int launch_mln(const void* x, void* out, float* rs, const void* mod_scale,
 
 }  // namespace
 
+extern "C" int tdx_modulated_layer_norm_form(const void* x, const void* out,
+                                             const void* mod_scale, const void* mod_shift,
+                                             const void* weight, const void* bias, int D) {
+  return mln_vector(x, out, mod_scale, mod_shift, weight, bias, D) ? 1 : 0;
+}
+
+extern "C" int tdx_rmsnorm_rope_form(const void* x, const void* out, const void* weight,
+                                     const void* cos_full, const void* sin_full, long long ld,
+                                     int H, int Dh) {
+  return rmsrope_vector(x, out, weight, cos_full, sin_full, ld, H, Dh) ? 1 : 0;
+}
+
 extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
                                         const void* mod_scale, const void* mod_shift,
                                         const void* weight, const void* bias,
                                         int rows, int L, int D, float eps,
                                         void* stream) {
-  return launch_mln<false>(x, out, nullptr, mod_scale, mod_shift, weight, bias, rows, L, D,
-                           eps, stream);
+  if (!mln_vector(x, out, mod_scale, mod_shift, weight, bias, D))
+    return launch_mln<false>(x, out, nullptr, mod_scale, mod_shift, weight, bias, rows, L, D,
+                             eps, stream);
+  if (rows < 0 || L <= 0 || rows % L) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  return launch_mln_rows<1>(lane_vectors(D / 8), x, out, mod_scale, mod_shift, weight, bias,
+                            rows, L, D, eps, (cudaStream_t)stream);
 }
 
 extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* out_scale,
@@ -274,6 +742,13 @@ extern "C" int tdx_rmsnorm_rope(const void* x, void* out, const void* weight,
   if (rows < 0 || L <= 0 || H <= 0 || Dh <= 0 || Dh % 2 || HD > (1LL << 30) || ld < HD)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
+  if (rmsrope_vector(x, out, weight, cos_full, sin_full, ld, H, Dh)) {
+    const int HD = H * Dh, vpl = lane_vectors(HD / 8);
+    return cos_full ? launch_rmsrope_rows<1, true>(vpl, x, out, weight, cos_full, sin_full, ld,
+                                                   rows, L, HD, Dh, eps, (cudaStream_t)stream)
+                    : launch_rmsrope_rows<1, false>(vpl, x, out, weight, nullptr, nullptr, ld,
+                                                    rows, L, HD, Dh, eps, (cudaStream_t)stream);
+  }
   rmsrope_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (const __nv_bfloat16*)weight,
       (const float*)cos_full, (const float*)sin_full, ld, L, H, Dh, eps);

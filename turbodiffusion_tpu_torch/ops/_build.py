@@ -50,6 +50,11 @@ SIGNATURES = {
     # x, out, weight, cos_full, sin_full, x row stride, rows, L, H, Dh, eps,
     # stream
     "tdx_rmsnorm_rope": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _F, _P],
+    # 1 when K1 / K2 take their warp-per-row kernel for these arguments:
+    # x, out, mod_scale, mod_shift, weight, bias, D; x, out, weight, cos_full,
+    # sin_full, x row stride, H, Dh
+    "tdx_modulated_layer_norm_form": [_P] * 6 + [_I],
+    "tdx_rmsnorm_rope_form": [_P] * 5 + [_I64, _I, _I],
     # q, k, v, o, lut, B, H, Lq, kv_len, nQ, sel, block_q, block_k,
     # 12 strides (q, k, v, o: batch, token, head), scale, stream
     "tdx_sparse_flash_attention": [_P, _P, _P, _P, _P] + [_I] * 8

@@ -22,7 +22,11 @@ affine form without modulation (norm3) quantises the bf16-rounded value.
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel (csrc/fused_norm.cu) or raises. Each launcher counts its
 launches in `.launches`. K2 reads its input rows through a row stride, so
-the q and k column groups of the fused QKV output need no copy.
+the q and k column groups of the fused QKV output need no copy. K1 and K2
+run warp-per-row kernels with 16-byte accesses at the shapes `mln_form` /
+`rmsrope_form` call "vector" (every path shape, the fused QKV column groups
+included) and block-per-row kernels at the rest ("loop"); the C entry
+chooses by the same rule, and both forms count as one launch.
 
 Gradients: K1 (bf16 out) and K2 run inside `torch.autograd.Function`s whose
 backward recomputes the plain version and differentiates it
@@ -44,6 +48,36 @@ from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 # and of K2 (the C entry's limit: any H*Dh the model has)
 _MLN_MAX_D = 5120
 _RMSROPE_MAX_HD = 1 << 30
+# widest row of the warp-per-row kernels (csrc/fused_norm.cu kMaxVecRow)
+_VEC_MAX_ROW = 8192
+
+
+def _aligned16(ptrs) -> bool:
+    return all(p is None or p % 16 == 0 for p in ptrs)
+
+
+def mln_form(D: int, *ptrs) -> str:
+    """The kernel a K1 launch takes (csrc/fused_norm.cu `mln_vector`):
+    "vector", the warp-per-row kernel, for D a multiple of 8 up to 8192 with
+    every operand pointer (x, out, mod_scale, mod_shift, weight, bias; None
+    for an absent one) 16-byte aligned; else "loop", the block-per-row
+    kernel K12 shares, which reads bf16 pairs and float2 and refuses
+    operands off 4-byte alignment (8 for the modulation)."""
+    ok = 0 < D <= _VEC_MAX_ROW and D % 8 == 0 and _aligned16(ptrs)
+    return "vector" if ok else "loop"
+
+
+def rmsrope_form(num_heads: int, head_dim: int, ld: int, *ptrs) -> str:
+    """The kernel a K2 launch takes (csrc/fused_norm.cu `rmsrope_vector`):
+    "vector", the warp-per-row kernel, for a head dim that is a power of two
+    from 16 to 256, H*Dh up to 8192, a row stride `ld` that is a multiple of
+    8 and every pointer (x, out, weight, cos, sin; None for an absent one)
+    16-byte aligned; else "loop", the block-per-row kernel, which takes any
+    even head dim."""
+    Dh = head_dim
+    ok = (16 <= Dh <= 256 and Dh & (Dh - 1) == 0
+          and num_heads * Dh <= _VEC_MAX_ROW and ld % 8 == 0 and _aligned16(ptrs))
+    return "vector" if ok else "loop"
 
 
 def recompute_vjp(plain, inputs, needs, grad_out):
