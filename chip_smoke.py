@@ -4,8 +4,11 @@
     python3 chip_smoke.py --phases 1,2
 
 Phases, each printing one line of its numbers:
-  1. device and build: the card's name and power limit (nvidia-smi), and the
-     time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`;
+  1. device and build: the card's name and power limit (nvidia-smi), the
+     time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
+     and each kernel's ptxas registers (K1 / K2's row kernels and K14 /
+     K17's `k14::cross_qout_kernel` must not spill, nor the latter
+     serialize its wgmmas: ptxas C7514);
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
@@ -37,7 +40,12 @@ Phases, each printing one line of its numbers:
      with RoPE, each with planted faults a kernel that stopped at 4096
      would give (channels past 4096 left NaN, weight channel 4100 doubled)
      and, with RoPE, the three above,
-     and above 5120 at 48 x 128; K3 and K4 (cross and dense self,
+     and above 5120 at 48 x 128; K14 (12 heads) and K17 (40 heads) also on
+     a sharp q (one key of 512 dominates each row, in either half of the
+     keys), rejecting two planted faults (the scale from one block's heads
+     only, the second key half's row max ignored), at a ragged Lq of 1,000
+     with kv_len 300, at batch 2 with q a column slice and at kv_len 1,100
+     (two passes); K3 and K4 (cross and dense self,
      SDPA beside it) at 40 heads, K4 also dense at 720p (75,600 tokens, q
      sharp);
      K15, K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12, K8-K11 and
@@ -61,7 +69,9 @@ Phases, each printing one line of its numbers:
      faults: an inverse-LUT entry dropped, delta left out of dS, dk without
      `scale`; (lse, delta) in fp32, K24 ignoring their rows past L, dk = dv
      = 0 on the unselected block, two runs bit-equal; no library call: the
-     dense SDPA backward of the shape beside them for scale); then K25 / K26,
+     dense SDPA backward of the shape beside them for scale), and K24's
+     check over 8 more draws of its inputs, each draw's worst error as a
+     share of the tolerance printed; then K25 / K26,
      forward-mode attention (o and its tangent do), at the training shape:
      K25 self 32,760 x 32,760 and cross 32,760 x 512, K26 at 512/256 with
      12 of 128 K-blocks (q of std 3, tangents the size of the primals, NaN
@@ -517,15 +527,21 @@ def phase1():
     ptxas = _ptxas_summary(lib.build_log)
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
           f"(load {wall:.1f} s) | ptxas: {ptxas}", flush=True)
-    # K1 and K2's warp-per-row kernels hold their rows in registers
-    spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS)
+    # K1 and K2's warp-per-row kernels hold their rows in registers; K14 /
+    # K17's holds its S and O there, and its wgmmas must overlap
+    spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS + _WGMMA_KERNELS)
                and (" spill" in k or " stack" in k)]
     if spilled:
-        raise AssertionError(f"phase1: row kernels spill: {spilled}")
+        raise AssertionError(f"phase1: kernels spill: {spilled}")
+    serialized = [k for k in ptxas.split("; ")
+                  if k.startswith(_WGMMA_KERNELS) and "wgmma serialized" in k]
+    if serialized:
+        raise AssertionError(f"phase1: wgmma serialized (C7514): {serialized}")
     return smi
 
 
 _ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel")
+_WGMMA_KERNELS = ("k14::cross_qout_kernel",)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -730,7 +746,7 @@ def phase2(reps: int = REPS):
     results = _run_checks(checks + mode_checks + _block_gemm_checks(randn)
                           + bwd_checks + jvp_checks + last_checks, reps)
     _poisoned_tail(i8_args, scale)
-    for tail in (*tails, bwd_extra, jvp_extra, last_extra):
+    for tail in (*tails, bwd_extra, _k24_seeds, jvp_extra, last_extra):
         tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
@@ -1144,7 +1160,111 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
               atol=0.0, rtol=K14_SCALE_RTOL,
               yardsticks={"SDPA of the cross shape (attention only)":
                           sdpa(qn, kt, vt)}),
-    ]
+    ] + _qout_edge_checks(G13.heads, False)
+
+
+def _qout_inputs(randn, heads: int, lq: int, ext: bool, batch: int = 1,
+                 kv_len: int = TEXT, ld: int = 0, sharp: bool = False):
+    """(q, K15's RMS inverse or None, k, v, norm weight) for K14 (ext
+    False) or K17: q (batch, lq, heads x 128), a column slice of rows `ld`
+    wide when ld > 0; sharp: each row one of 8 directions plus noise, and
+    the 8 keys at 0, 73, ..., 511 (of 512) 12 x those directions normed, so
+    that one key dominates each row by ~136 in the logits, in either half
+    of the keys."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    HD = heads * DH
+    w = (1 + randn(HD, dtype=torch.float32, std=0.1)).bfloat16()
+    if sharp:
+        d = randn(batch, 8, HD)
+        x = (d[:, torch.arange(lq, device=d.device) % 8]
+             + randn(batch, lq, HD, dtype=torch.float32, std=0.05)).bfloat16()
+    else:
+        x = randn(batch, lq, ld or HD)
+    q = x[..., :HD]
+    k, v = randn(batch, kv_len, heads, DH), randn(batch, kv_len, heads, DH)
+    if sharp:
+        keys = torch.linspace(0, kv_len - 1, 8, device=d.device).long()
+        k[:, keys] = (12 * fn.rms_norm(d, w, 1e-6).float()).bfloat16().view(
+            batch, 8, heads, DH)
+    return q, sf.row_rms_inv_plain(q, 1e-6) if ext else None, k, v, w
+
+
+def _qout_faulty(q, ri, k, v, w, fault: str):
+    """What K14 / K17 would write with a planted fault, by the plain
+    version's steps: "block amax", each block's G heads quantised with
+    their own rows' |o| max and block 0's scales written (the cluster's
+    exchange skipped); "half max", every key's P = exp(s - m) at the row
+    max m of consumer 0's keys only (consumer 1's half ignored)."""
+    import torch
+    from turbodiffusion_tpu_torch.models.layers import rms_norm
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
+    Bq, Lq, HD = q.shape
+    H, Lk = k.shape[2], k.shape[1]
+    shape = fa.qout_shape(H, Lk)
+    qn = (rms_norm(q, w, 1e-6) if ri is None else
+          (q.float() * ri.float()).to(q.dtype) * w.to(q.dtype)).reshape(Bq, Lq, H, DH)
+    if fault == "half max":
+        s = torch.matmul(qn.permute(0, 2, 1, 3).float(),
+                         k.permute(0, 2, 3, 1).float()) * DH ** -0.5
+        m = s[..., :shape["consumer0_chunks"] * 64].amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        o = torch.matmul(p.bfloat16().float(), v.permute(0, 2, 1, 3).float()) / \
+            p.sum(-1, keepdim=True).clamp_min(1e-20)
+        return quantize_rows_int8_plain(o.permute(0, 2, 1, 3).reshape(Bq, Lq, HD))
+    o = fa._flash_plain_f32(qn, k, v, DH ** -0.5, Lk).reshape(Bq, Lq, HD)
+    GD = shape["heads_per_block"] * DH
+    parts = [quantize_rows_int8_plain(o[..., c:c + GD]) for c in range(0, HD, GD)]
+    return torch.cat([p_[0] for p_ in parts], -1), parts[0][1]
+
+
+def _qout_edge_checks(heads: int, ext: bool) -> list:
+    """K14 (12 heads) or K17 (40 heads, K15's RMS given) off the path's
+    call, each against its plain version at K14's tolerances: a sharp q
+    (one key of 512 dominates each row by ~136 in the logits, in either
+    half of the keys; a running max would round P elsewhere), which must
+    reject two planted faults: the scale from one block's heads only (the
+    cluster's |o| max exchange skipped) and the second key half's row max
+    ignored (its P overflow); a ragged Lq of 1,000 with kv_len 300 (neither
+    512 nor a multiple of the 64-key chunk); batch 2 with q a column slice
+    (rows 3 x or 2 x H*128 wide); kv_len 1,100, past the 512 keys the single
+    pass holds (a first pass over K takes the rows' exact max). Inputs from
+    a generator of their own."""
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    randn = _fresh_randn(16 + heads)
+    name = "K17" if ext else "K14"
+    if ext:
+        kern = lambda q, ri, k, v, w: fa._cross_qout_wide_cuda(q, ri, k, v, w, DH ** -0.5)  # noqa: E731
+        plain = lambda q, ri, k, v, w: fa.cross_attention_qout_wide_plain(  # noqa: E731
+            q, ri, k, v, w, DH ** -0.5)
+    else:
+        kern = lambda q, ri, k, v, w: fa._cross_qout_cuda(q, k, v, w, DH ** -0.5, 1e-6)  # noqa: E731
+        plain = lambda q, ri, k, v, w: fa.cross_attention_qout_plain(  # noqa: E731
+            q, k, v, w, DH ** -0.5, 1e-6)
+    wide = 2 if ext else 3
+    cases = [(f"sharp q, {L}x{TEXT}", dict(lq=L, sharp=True)),
+             ("ragged Lq 1000, kv_len 300", dict(lq=1000, kv_len=300)),
+             (f"batch 2, q a column slice ({wide} x {heads * DH} wide), 4096 rows",
+              dict(lq=4096, batch=2, ld=wide * heads * DH)),
+             ("kv_len 1100 (two passes), 2048 rows", dict(lq=2048, kv_len=1100))]
+    out = []
+    for what, kw in cases:
+        ins = _qout_inputs(randn, heads, ext=ext, **kw)
+        q, ri, k, v, w = ins
+        ops = {"bf16": 4 * q.shape[0] * heads * q.shape[1] * k.shape[1] * DH}
+        faults = {}
+        if kw.get("sharp"):
+            faults = {"scale from one block's heads only (the cluster's amax skipped)":
+                      lambda ins=ins: _qout_faulty(*ins, "block amax"),
+                      "the second key half's row max ignored":
+                      lambda ins=ins: _qout_faulty(*ins, "half max")}
+        out.append(Check(name, f"{what}, {heads} heads", lambda ins=ins: kern(*ins),
+                         lambda ins=ins: plain(*ins),
+                         tuple(t for t in (q, ri, k, v, w) if t is not None), ops,
+                         atol=0.0, rtol=K14_SCALE_RTOL, faults=faults))
+    return out
 
 
 def _k1_form(x, ms, mb, w, b) -> str:
@@ -1443,7 +1563,8 @@ def _wide_checks(randn, sdpa):
               atol=0.0, rtol=K14_SCALE_RTOL,
               yardsticks={"SDPA of the cross shape (attention only)":
                           sdpa(qn, kt, vt)}),
-    ] + (_norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS)
+    ] + (_qout_edge_checks(HEADS, True)
+         + _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS)
          + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
          + _block_gemm_checks(_fresh_randn(42), G14))
 
@@ -1832,6 +1953,49 @@ def _bwd_checks(randn):
               f"{ZERO_BLOCK} (never selected): dk = dv = 0 exactly | two runs "
               f"of each: bit-equal", flush=True)
     return checks, extra
+
+
+K24_SEEDS = 8
+
+
+def _k24_seeds():
+    """K24's check over K24_SEEDS more draws of its inputs (each from a
+    generator of its own, of the same kinds: q of std 3, k, v, dO of std
+    1, NaN in the buffers' rows past L, K-block ZERO_BLOCK never selected,
+    (lse, delta) from K23): the worst error of dk and of dv of each draw as
+    a share of the unchanged tolerance (atol ATOL + rtol RTOL |want|),
+    printed; any share above 1 fails."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    HEADS, scale, nK = G13.heads, DH ** -0.5, -(-L // BK)
+    shares = []
+    for seed in range(K24_SEEDS):
+        randn = _fresh_randn(2400 + seed)
+
+        def view(std):
+            t = randn(B, LP, HEADS, DH, std=std)
+            t[:, L:] = float("nan")
+            return t[:, :L]
+
+        q, k, v, do = view(3.0), view(1.0), view(1.0), view(1.0)
+        lut = _without_block(get_block_map(q, k, TOPK, BQ, BK)[1], ZERO_BLOCK)
+        ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, BQ, BK, scale, L)[1]
+        inv = sb.inverse_lut(lut, nK)
+        got = sb._sparse_bwd_dkv_cuda(q, k, v, do, ld, inv, BQ, BK, scale, L)
+        want = sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, BQ, BK, scale, L)
+        torch.cuda.synchronize()
+        shares.append(tuple(float(((a.float() - b.float()).abs()
+                                   / (ATOL + RTOL * b.float().abs())).max())
+                            for a, b in zip(got, want)))
+        del q, k, v, do, ld, got, want
+    print("phase2 K24 over " + str(K24_SEEDS) + " seeds: worst error as a share of "
+          f"atol {ATOL} + rtol {RTOL} |want| (dk, dv): "
+          + ", ".join(f"seed {i} {a:.3f} / {b:.3f}" for i, (a, b) in enumerate(shares)),
+          flush=True)
+    bad = [i for i, sh in enumerate(shares) if max(sh) > 1]
+    if bad:
+        raise AssertionError(f"K24: seeds {bad} exceed the tolerance")
 
 
 def _epilogue_without_mu(s, ds, v, dv):

@@ -181,10 +181,11 @@ def test_int8_feed_wrappers_refuse_non_cuda_devices():
 
 
 def test_k14_head_groups():
-    """K14's blocks: the least heads per block that keeps a cluster at 8
-    blocks or fewer (1.3B: 12 heads as 6 blocks of 2; 14B: 40 as 8 of 5)."""
+    """K14's blocks: the most heads per block, up to 4, that keeps a cluster
+    at 8 blocks or fewer, else the least that does (1.3B: 12 heads as 3
+    blocks of 4; 14B: 40 as 8 of 5)."""
     assert [fa._qout_group(h) for h in (2, 3, 8, 12, 16, 40)] == \
-        [1, 1, 1, 2, 2, 5]
+        [2, 3, 4, 4, 4, 5]
 
 
 # ---------------------------------------------------------------------------

@@ -816,10 +816,10 @@ def test_k13_matches_plain_bitwise(dev, heads):
 @pytest.mark.parametrize("heads,Lk", [(2, 77), (3, 512), (12, 512), (24, 77),
                                       (40, 512)])
 def test_k14_matches_plain(dev, heads, Lk):
-    """Clusters of 2, 3, 6 and 8 blocks: 1 or 2 heads a block on 128-row
-    tiles, 3 or 5 on 64-row tiles; 77 keys mask most of the second 64-key
-    chunk. Above 16 heads `cross_attention_qout` takes K17, so K14 is
-    launched directly there."""
+    """One block of 2 or 3 heads a 64-row tile, clusters of 3, 6 and 8
+    blocks (12 heads as 3 of 4, 24 as 6 of 4, 40 as 8 of 5); 77 keys mask
+    most of the second 64-key chunk. Above 16 heads `cross_attention_qout`
+    takes K17, so K14 is launched directly there."""
     HD = heads * DH
     q = _randn(dev, 1, 1100, HD, seed=101).bfloat16()
     k, v = (_randn(dev, 1, Lk, heads, DH, seed=s).bfloat16() for s in (102, 103))
@@ -831,6 +831,71 @@ def test_k14_matches_plain(dev, heads, Lk):
     want_q, want_s = fa.cross_attention_qout_plain(q, k, v, w)
     _int8_close(got_q, want_q)
     torch.testing.assert_close(got_s, want_s, rtol=5e-3, atol=0)
+
+
+def _qout_case(dev, heads, lq, seed, B=1, kv_len=512, ld=0, sharp=False):
+    """(q, k, v, w) for K14 / K17: q (B, lq, heads x 128), a column slice
+    of rows `ld` wide when ld > 0; sharp: each row one of 8 directions plus
+    noise, and 8 keys spread over [0, kv_len) 12 x those directions normed,
+    so one key dominates each row by ~136 in the logits."""
+    HD = heads * DH
+    w = (1 + _randn(dev, HD, seed=seed, std=0.1)).bfloat16()
+    if sharp:
+        d = _randn(dev, B, 8, HD, seed=seed + 1).bfloat16()
+        x = (d[:, torch.arange(lq, device=dev) % 8]
+             + _randn(dev, B, lq, HD, seed=seed + 2, std=0.05)).bfloat16()
+    else:
+        x = _randn(dev, B, lq, ld or HD, seed=seed + 1).bfloat16()
+    k = _randn(dev, B, kv_len, heads, DH, seed=seed + 3).bfloat16()
+    v = _randn(dev, B, kv_len, heads, DH, seed=seed + 4).bfloat16()
+    if sharp:
+        keys = torch.linspace(0, kv_len - 1, 8, device=dev).long()
+        k[:, keys] = (12 * fn.rms_norm(d, w, 1e-6).float()).bfloat16().view(B, 8, heads, DH)
+    return x[..., :HD], k, v, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True], ids=["k14", "k17"])
+@pytest.mark.parametrize("case", ["sharp", "ragged_kv300", "batch2_slice", "kv1100",
+                                  "kv50"])
+def test_k14_k17_edge_cases_match_plain(dev, ext, case):
+    """K14 (12 heads) and K17 (40 heads, K15's RMS given) off the path's
+    call: a sharp q (one key dominates each row, in either key half), a
+    ragged Lq with kv_len 300 (not a multiple of the 64-key chunk), batch 2
+    with q a column slice, kv_len 1100 (past the one-pass 512 keys: two
+    passes) and kv_len 50 (one chunk: consumer 1 holds no key)."""
+    heads = 40 if ext else 12
+    kw = {"sharp": dict(lq=700, sharp=True), "ragged_kv300": dict(lq=333, kv_len=300),
+          "batch2_slice": dict(lq=200, B=2, ld=3 * heads * DH),
+          "kv1100": dict(lq=150, kv_len=1100), "kv50": dict(lq=100, kv_len=50)}[case]
+    q, k, v, w = _qout_case(dev, heads, seed=150, **kw)
+    if ext:
+        ri = sf.row_rms_inv_plain(q, 1e-6)
+        got = fa._cross_qout_wide_cuda(q, ri, k, v, w, DH ** -0.5)
+        want = fa.cross_attention_qout_wide_plain(q, ri, k, v, w)
+    else:
+        got = fa._cross_qout_cuda(q, k, v, w, DH ** -0.5, 1e-6)
+        want = fa.cross_attention_qout_plain(q, k, v, w)
+    _int8_close(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=5e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_qout_shape_matches_the_kernels_launch(dev):
+    """`qout_shape` (Python) and `tdx_cross_attention_qout_shape` (the
+    launcher's own computation) agree for every head count of the paths and
+    a long kv_len."""
+    import ctypes
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    for heads in (1, 2, 5, 12, 16, 24, 40):
+        for kv_len in (50, 300, 512, 1100):
+            want = fa.qout_shape(heads, kv_len)
+            out = (ctypes.c_int * 6)()
+            assert lib.tdx_cross_attention_qout_shape(
+                heads, want["heads_per_block"], kv_len, ctypes.addressof(out)) == 0
+            assert list(out) == [want["cluster"], want["stages"], want["chunks"],
+                                 want["consumer0_chunks"], want["smem"], want["q_buffers"]]
 
 
 @pytest.mark.cuda
@@ -919,8 +984,8 @@ def test_k16_matches_plain_bitwise(dev, heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("heads,Lk", [(24, 77), (WIDE_HEADS, 512)])
 def test_k17_matches_plain(dev, heads, Lk):
-    """`cross_attention_qout` above 2048 wide: K15 then K17 (clusters of 8
-    blocks of 3 and of 5 heads)."""
+    """`cross_attention_qout` above 2048 wide: K15 then K17 (clusters of 6
+    blocks of 4 heads and of 8 of 5)."""
     HD = heads * DH
     q = _randn(dev, 1, 1100, HD, seed=114).bfloat16()
     k, v = (_randn(dev, 1, Lk, heads, DH, seed=s).bfloat16() for s in (115, 116))
@@ -1271,6 +1336,29 @@ def test_k23_k24_match_plain(dev, L, bq, bk):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk,
                                                   scale, L)[0])
+
+
+@pytest.mark.cuda
+def test_k24_matches_plain_over_seeds(dev):
+    """K24 against its plain version over 8 draws of chip_smoke's kinds of
+    inputs (q of std 3, k, v, dO of std 1; (lse, delta) from K23) at 2,000
+    rows, 2 heads, blocks 512/256, at chip_smoke's tolerance: atol 2e-2 +
+    rtol 2e-2 |want| (its error once reached 0.047 there)."""
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    L, bq, bk, scale = 2000, 512, 256, DH ** -0.5
+    nK = -(-L // bk)
+    for seed in range(8):
+        q = (3 * _randn(dev, 1, L, HEADS, DH, seed=700 + seed)).bfloat16()
+        k, v, do = (_randn(dev, 1, L, HEADS, DH, seed=710 + 10 * seed + i).bfloat16()
+                    for i in range(3))
+        lut = get_block_map(q, k, 0.5, bq, bk)[1]
+        ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk, scale, L)[1]
+        inv = sb.inverse_lut(lut, nK)
+        got = sb._sparse_bwd_dkv_cuda(q, k, v, do, ld, inv, bq, bk, scale, L)
+        want = sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, bq, bk, scale, L)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

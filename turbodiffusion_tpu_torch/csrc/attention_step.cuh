@@ -1,6 +1,6 @@
-// What the mma.sync attention kernels share (K3, K14 / K17, K19, K20, K28;
-// K4 and K7 their bf16 packing): the tensor-core wrappers and, for all but
-// K14 / K17, one 64-key chunk's online-softmax step with O += P V.
+// What the mma.sync attention kernels share (K3, K19, K20, K28; K4, K7 and
+// K14 / K17 their bf16 packing): the tensor-core wrappers and one 64-key
+// chunk's online-softmax step with O += P V.
 //
 // The step works on a warp's 16 query rows in the m16n8 accumulator layout:
 // lane = 4 g + t holds rows g and g + 8, columns 8 j + 2 t (+1) of each

@@ -24,7 +24,8 @@
 //
 // What bounds them on an H100: tensor-core math. At the 1.3B 480p shape a K3
 // call is ~6.2e11 FLOPs over ~100 MB of q/k/v, and a K4 or K14 cross call
-// ~1.0e11 FLOPs, all well above the ridge.
+// ~1.0e11 FLOPs, all well above the ridge (K14's q in and int8 out are
+// 150 MB, 0.045 ms at 3.35 TB/s).
 //
 // K3 (`sparse_flash_fwd_kernel`) is FlashAttention-2 on mma.sync m16n8k16
 // (bf16 in, fp32 accumulate):
@@ -71,7 +72,7 @@
 //   * the epilogue writes o / l in bf16 into the warpgroup's own Q rows and
 //     stores them by TMA (rows past Lq are not written), draining under the
 //     next tile's first chunks.
-//   setmaxnreg moves registers from the producer (40) to the consumers (232).
+//   setmaxnreg moves registers from the producer (24) to the consumers (240).
 //   What holds it back on an H100 80GB HBM3 (tools/time_k4_k22.py; PERF.md):
 //   it runs at 63-65% of the bf16 peak dense (14B 32,760^2: 35.3 ms, bound
 //   22.2, SDPA 39.2) and 54-59% at the cross shapes, where a tile has four
@@ -80,28 +81,53 @@
 //   each other's products only as the warp scheduler interleaves them:
 //   FlashAttention-3's turn barriers between them ran 29% slower here.
 //
-// K14 needs two things a CUDA block cannot carry across the grid the way the
-// TPU's sequential grid carries its o scratch: the RMS of the whole
-// H*128-wide row before any head's QK, and the absmax over every head's
-// output before any int8 store. So the C = H / G blocks that own one row
-// tile (G heads each, C <= 8) run as one thread-block cluster: each sums the
-// squares of its G heads' columns, and reads the other blocks' partial sums
-// through distributed shared memory; each keeps its heads' fp32 outputs in
-// shared memory (34 KB a head), reduces their row maxima, and reads the
-// others' the same way before it quantises its own columns (the 1.3B's 12
-// heads: clusters of 6 blocks of 2 heads; up to 40 heads fit, 5 a block).
-// K17 is the same kernel with the RMS read from K15's output instead of the
-// cluster's exchange of sums of squares; the absmax exchange stays (at 40
-// heads: clusters of 8 blocks of 5 heads, 204 KB of shared memory a block).
-// It keeps the TPU kernel's exact softmax: a first pass over the keys takes
-// each row's max of the scaled logits, the second computes P = exp(s - max),
-// rounds it to bf16 for P V and divides by the fp32 row sum (no online
-// rescaling, so P rounds where the JAX kernel rounds it). The logit scale
-// multiplies in fp32 (s * scale) and exp is expf, as the plain version
-// computes them. The first pass costs a second QK product and K stream.
-// A first, simple version: loads are synchronous (no cp.async/TMA ring) and
-// there is no wgmma; both are later work.
-//
+// K14 / K17 (`k14::cross_qout_kernel`) need two things a CUDA block cannot
+// carry across the grid the way the TPU's sequential grid carries its o
+// scratch: the RMS of the whole H*128-wide row before any head's QK, and the
+// |o| max over every head's output before any int8 store. So the C = H / G
+// blocks that own one 64-row tile (G heads each, C <= 8) run as one
+// thread-block cluster: K14's blocks sum the squares of their G heads'
+// columns and read the others' partial sums through distributed shared
+// memory (K17 reads K15's RMS instead); each block keeps its heads' fp32 o
+// on chip and the rows' |o| maxima meet the same way before any int8 store
+// (1.3B: clusters of 3 blocks of 4 heads; 14B: 8 of 5). A block is Hopper's
+// warp-specialised shape, K4's in its parts:
+//   * a producer warpgroup: warp 0 and warp 1 each TMA-load one consumer's
+//     64-key K and V chunks (64 channels a box, 128-byte swizzle; the maps
+//     end at kv_len, so keys past it read as zeros) into that consumer's
+//     ring of mbarrier-guarded 16 KB stages (4 stages, 2 at 5 heads a
+//     block), the first chunks before the row statistics; warp 2 TMA-loads
+//     each head's raw q rows into one of two Q tiles (one at 5 heads a
+//     block), the next head's under this head's work, where each consumer
+//     norms its 32 rows in place, bf16(bf16(x * rms) * w): the swizzled A
+//     tile of S = Q K^T;
+//   * two consumer warpgroups share the block's 64 rows and split the keys
+//     (512: 256 each): each computes its S chunks on wgmma m64n64k16 (bf16,
+//     both operands in shared memory) and holds them in registers (128
+//     fp32 a thread), so every logit is computed once; the two exchange
+//     their 64 row maxima through shared memory (a named barrier), so P =
+//     exp(s - max) uses the exact row max over all kv_len keys, as the
+//     TPU kernel's single K/V tile does (an online max would round bf16(P)
+//     at another max); P = exp2(s * scale log2 e - max), one FFMA and the
+//     SFU's exp2, its fp32 row sum over the unrounded P, and O += bf16(P) V
+//     on wgmma with P in registers and V as it lies (MN-major: no
+//     transpose), a chunk's softmax under the previous chunk's P V;
+//   * the consumers' partial O and row sums meet in the head's fp32 o slot
+//     in shared memory (each writes its partial of the other's 64 channels
+//     and finishes its own: o = (O + O') / (l + l')); the last head's o
+//     stays in registers (its meeting place: the first stage of each ring,
+//     which no load refills), so 5 heads take 4 slots (128 KB) beside the
+//     Q tile and the rings (217,680 bytes at 5 heads);
+//   * the int8 feed: scale = max(|o| max over all H heads, 1e-8) / 127 (the
+//     producer reduces it over the cluster), int8 = round-half-even(o * (1 /
+//     scale)) clipped to +-127: the slots by 16-byte stores, the last head
+//     from the registers.
+//   Above 512 keys (4 chunks a consumer) the same kernel takes two passes:
+//   the first over K for the exact row max, the second computes S again
+//   for P V (any kv_len; the paths' text is 512 keys).
+//   setmaxnreg moves registers from the producer (24) to the consumers (240).
+//   What bounds it on an H100: tensor-core math, 4 B H Lq Lk 128 operations
+//   (1.3B: 1.03e11, 0.104 ms at 989 TFLOP/s; 14B 3.43e11, 0.347 ms).
 // K20 tdx_sparse_flash_attention_i8qk replaces the int8-QK sparse branch of
 //    flash_pallas.py:_flash_fwd_impl for blocks < 128 (body
 //    _sparse_attn_kernel with int8_qk=True), which sagesla at --sla_block 64
@@ -136,15 +162,12 @@
 //    480p dense self shape (12 heads, 32,760 x 32,760) 3.3e12 int8 and
 //    3.3e12 bf16 operations.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_step.cuh"
 #include "hopper.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -778,278 +801,714 @@ flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// K14
+// K14 / K17: k14::cross_qout_kernel (warp-specialised, wgmma fed by TMA)
 // ---------------------------------------------------------------------------
 
-constexpr int kOStride = kDh + 8;             // padded fp32 row of the o buffer
-constexpr int kQoutMaxCluster = 8;            // portable cluster size
-constexpr int kQoutStageBytes = (kBN * kKStride + kDh * kVStride) * 2;
+namespace k14 {
+
+constexpr int kRows = 64;                   // query rows a block
+constexpr int kChunk = 64;                  // keys a chunk (one ring stage)
+constexpr int kHeld = 4;                    // chunks a consumer holds as S (256 keys)
+constexpr int kWG = 128;                    // threads of a warpgroup
+constexpr int kThreadsQ = 3 * kWG;          // producer warpgroup + two consumers
+constexpr int kRegs = 168, kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(kRegs == 65536 / kThreadsQ / 8 * 8, "registers a thread at launch");
+static_assert(kProducerRegs * kWG + 2 * kConsumerRegs * kWG <= kRegs * kThreadsQ,
+              "setmaxnreg within the block's allocation");
+constexpr int kBox = kChunk * 128;          // 64 bf16 channels of 64 rows (one TMA box)
+constexpr int kTile = 2 * kBox;             // 64 rows x 128 channels bf16: Q, a K or V chunk
+constexpr int kSlot = kRows * kDh * 4;      // a head's fp32 o, 64 x 128
+constexpr int kMaxGroup = 5, kMaxCluster = 8, kMaxStages = 4;
+// the per-row statistics and the mbarriers, in static shared memory (fixed
+// addresses: no register holds them)
+struct RowSmem {
+  float ss[kRows], row[kRows];   // partial sum of squares; the row's RMS inverse
+  float mx[4][kRows];            // row max [head parity x 2 + consumer]
+  float l[4][kRows];             // row sums [head parity x 2 + consumer]
+  float amx[2][kRows];           // |o| max [consumer]
+  float inv[kRows];              // 1 / the int8 scale
+  // full / empty of each stage of each sub-ring; qempty and xfull (the raw
+  // q tile) of two Q tiles; the scales
+  unsigned long long bars[4 * kMaxStages + 5];
+};
+// dynamic shared memory: the block's 227 KB less a 4 KB allowance for the
+// static (RowSmem's 3,496 bytes and what the compiler adds)
+constexpr int kSmemLimit = 232448 - 4096;
+static_assert(sizeof(RowSmem) <= 4096, "the static shared memory allowance");
 constexpr float kInvInt8 = 1.0f / 127.0f;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* norm_w;
+  const float* ri;          // K17: the rows' RMS inverse (B, Lq); K14: null
+  int8_t* out_q;
+  float* out_s;
+  long long ldq;
+  int Lq, kv_len, H, G, stages, qbufs, n_chunks, n0;
+  float scale_log2, eps;
+};
+
+// dynamic shared memory: [G - 1 o slots | qbufs Q tiles | two sub-rings of
+// `stages` chunks], 1024-byte aligned from `base`
+struct Layout {
+  int q, ring, bytes;
+};
+
+__host__ __device__ inline Layout layout(int G, int stages, int qbufs) {
+  Layout l;
+  l.q = (G - 1) * kSlot;
+  l.ring = l.q + qbufs * kTile;
+  l.bytes = l.ring + 2 * stages * kTile + 1024;
+  return l;
+}
+
+// G heads a block fit with `qbufs` Q tiles and `stages` ring stages: two Q
+// tiles (the next head's raw rows land under this head's work) with at
+// least 2 stages, else one; then as many stages as fit, at most 4 (stages
+// 0: G does not fit)
+struct Shape {
+  int stages, qbufs;
+};
+
+__host__ __device__ inline Shape shape_for(int G) {
+  for (int qb = 2; qb >= 1; --qb) {
+    int s = kMaxStages;
+    while (s >= 2 && layout(G, s, qb).bytes > kSmemLimit) --s;
+    if (s >= 2) return Shape{s, qb};
+  }
+  return Shape{0, 1};
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
 }
 
 __device__ __forceinline__ uint32_t to_u8(float v) {
   return (uint32_t)(uint8_t)(int8_t)max(-127, min(127, __float2int_rn(v)));
 }
 
-// S = Q K^T for one warp's 16 rows x kBN keys of the chunk in Ks, scaled in
-// fp32 and masked past nvalid.
-__device__ __forceinline__ void qk_chunk(float (&s)[kBN / 8][4], const uint32_t (&qa)[kDh / 16][4],
-                                         const __nv_bfloat16* Ks, int g, int t, int nvalid,
-                                         float scale) {
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      const __nv_bfloat16* kp = Ks + (j * 8 + g) * kKStride + kk * 16 + t * 2;
-      mma_bf16(s[j], qa[kk], lds32(kp), lds32(kp + 8));
+// fp32 element (row, col) of a row-major (rows x width) buffer whose 8-float
+// groups are XOR-swizzled by row % 4: a warp's fragment stores (rows g, g +
+// 8 of 4 quads) and 16-byte row reads hit distinct banks
+__device__ __forceinline__ int osw(int row, int col, int width) {
+  return row * width + (col ^ ((row & 3) << 3));
+}
+
+// the raw q rows of head hl by TMA into Q tile hl % qbufs (normed there);
+// the head that takes this tile next brought into L2
+__device__ __forceinline__ void load_x(const CUtensorMap* tm_x, uint32_t qbuf0, uint32_t xfull0,
+                                       int qbufs, int G, int col0, int row0, int b, int hl) {
+  const uint32_t dst = qbuf0 + (hl % qbufs) * kTile, xb = xfull0 + 8 * (hl % qbufs);
+  mbar_arrive_expect_tx(xb, kTile);
+  tma_load_3d(tm_x, dst, xb, col0 + hl * kDh, row0, b);
+  tma_load_3d(tm_x, dst + kBox, xb, col0 + hl * kDh + 64, row0, b);
+  if (hl + qbufs < G) {
+    tma_prefetch_3d(tm_x, col0 + (hl + qbufs) * kDh, row0, b);
+    tma_prefetch_3d(tm_x, col0 + (hl + qbufs) * kDh + 64, row0, b);
+  }
+}
+
+// Items [from, to) of sub-ring c, the producer's chunks of consumer c's
+// keys (the first half of the chunks, rounded up, or the rest), item by
+// item: per head, K of every chunk, then V of every chunk (single pass), or
+// K of every chunk, then K and V of each chunk in turn (two passes, above
+// kHeld chunks a consumer). Item i takes stage i % stages once the
+// consumer has released its previous use.
+__device__ __forceinline__ void load_items(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                           uint32_t ring0, uint32_t bars, const Params& p, int c,
+                                           bool single, int rank, int b, int from, int to) {
+  const int first = c ? p.n0 : 0, nc = c ? p.n_chunks - p.n0 : p.n0;
+  const int per = single ? 2 * nc : 3 * nc;
+  const uint32_t ring = ring0 + c * p.stages * kTile, full0 = bars + 16 * c * p.stages;
+  int it = 0, st = 0, ph = 0;   // item, its stage and that stage's use parity
+#pragma unroll 1
+  for (int hl = 0; hl < p.G; ++hl) {
+#pragma unroll 1
+    for (int k = 0; k < per; ++k, ++it) {
+      if (it >= to) return;
+      if (it >= from) {
+        const bool is_v = single ? k >= nc : k >= nc && ((k - nc) & 1);
+        const int j = k < nc ? k : single ? k - nc : (k - nc) >> 1;
+        if (it >= p.stages) mbar_wait(full0 + 8 * (p.stages + st), ph ^ 1);
+        const uint32_t dst = ring + st * kTile, bar = full0 + 8 * st;
+        const CUtensorMap* tm = is_v ? tm_v : tm_k;
+        const int h = rank * p.G + hl, key0 = (first + j) * kChunk;
+        mbar_arrive_expect_tx(bar, kTile);
+        tma_load_4d(tm, dst, bar, 0, h, key0, b);
+        tma_load_4d(tm, dst + kBox, bar, 64, h, key0, b);
+      }
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
     }
+  }
+}
+
+// a value the compiler must take as made here: what it feeds (the wgmma
+// descriptors of one chunk, the producer's walk) is computed at its use, not
+// hoisted or kept live in registers the S and O fragments need
+__device__ __forceinline__ void launder(uint32_t& v) { asm volatile("" : "+r"(v)); }
+__device__ __forceinline__ void launder(int& v) { asm volatile("" : "+r"(v)); }
+
+// keys >= nvalid of a 64-key S chunk at -inf (their p is 0)
+__device__ __forceinline__ void mask_chunk(float (&s)[32], int nvalid, int t) {
+  if (nvalid >= kChunk) return;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + t * 2 + (e & 1);
-      s[j][e] = col < nvalid ? __fmul_rn(s[j][e], scale) : kNegInf;
+  for (int e = 0; e < 32; ++e)
+    if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) s[e] = -__builtin_huge_valf();
+}
+
+// p = exp2(s * scale_log2 - m) in place (one FFMA and the SFU's exp2),
+// added to the rows' sums
+__device__ __forceinline__ void exp_chunk(float (&s)[32], float sl2, float m0, float m1,
+                                          float& l0, float& l1) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = ex2_approx(fmaf(s[e], sl2, (e & 2) ? -m1 : -m0));
+  l0 += row_tree<false, 0>(s);
+  l1 += row_tree<false, 2>(s);
+}
+
+// P as the bf16 A fragments of P V's four 16-key steps
+__device__ __forceinline__ void pack_chunk(const float (&s)[32], uint32_t (&pa)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+}
+
+// O += bf16(P) V for the 64-key V chunk at vb (keys x channels as it lies:
+// MN-major, a 16-key step is two 8-row groups, the next 64 channels one box
+// on)
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[16], uint32_t vb) {
+  launder(vb);
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk)
+    wgmma_bf16_rs<1>(o, pa + 4 * kk, sw128_desc_mn(vb + kk * 2048, kBox));
+  wgmma_commit();
+}
+
+// S = Q K^T of the 64-key K chunk at kb (64 rows x 64 keys, fp32)
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa, uint32_t kb) {
+  launder(qa);
+  launder(kb);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_bf16_ss_n64(s, sw128_desc(qa + (kk >> 2) * kBox + (kk & 3) * 32),
+                      sw128_desc(kb + (kk >> 2) * kBox + (kk & 3) * 32), kk > 0);
+  wgmma_commit();
+}
+
+// The two consumers' partial O (this one's keys) and row sums meet: each
+// owns channel half HALF (registers 32 HALF ..), writes its partial of the
+// other half where the other reads it (the head's o slot, or for the last
+// head its own first ring stage), reads the other's partial of its own
+// half, and forms o = (O + O') / (l + l'); into the slot, or (last head) kept
+// in its registers for the int8 stores. Tracks the rows' |o| maxima.
+template <int HALF>
+__device__ __forceinline__ void combine(float (&o)[64], float* wbuf, const float* rbuf,
+                                        bool last, float l0, float l1, float* s_l, int r0,
+                                        int t, float& amax0, float& amax1) {
+  constexpr int OTH = 1 - HALF;
+  const int width = last ? 64 : 128;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const int i = 32 * OTH + 4 * jn, col = 8 * jn + 2 * t + (last ? 0 : 64 * OTH);
+    *reinterpret_cast<float2*>(wbuf + osw(r0, col, width)) = make_float2(o[i], o[i + 1]);
+    *reinterpret_cast<float2*>(wbuf + osw(r0 + 8, col, width)) =
+        make_float2(o[i + 2], o[i + 3]);
+  }
+  if (t == 0) {
+    s_l[HALF * kRows + r0] = l0;
+    s_l[HALF * kRows + r0 + 8] = l1;
+  }
+  named_sync(2, 2 * kWG);
+  const float inv0 = 1.f / fmaxf(l0 + s_l[OTH * kRows + r0], 1e-20f);
+  const float inv1 = 1.f / fmaxf(l1 + s_l[OTH * kRows + r0 + 8], 1e-20f);
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const int i = 32 * HALF + 4 * jn, col = 8 * jn + 2 * t + (last ? 0 : 64 * HALF);
+    const float2 a = *reinterpret_cast<const float2*>(rbuf + osw(r0, col, width));
+    const float2 c = *reinterpret_cast<const float2*>(rbuf + osw(r0 + 8, col, width));
+    o[i] = (o[i] + a.x) * inv0;
+    o[i + 1] = (o[i + 1] + a.y) * inv0;
+    o[i + 2] = (o[i + 2] + c.x) * inv1;
+    o[i + 3] = (o[i + 3] + c.y) * inv1;
+    amax0 = fmaxf(amax0, fmaxf(fabsf(o[i]), fabsf(o[i + 1])));
+    amax1 = fmaxf(amax1, fmaxf(fabsf(o[i + 2]), fabsf(o[i + 3])));
+    if (!last) {
+      float* w = const_cast<float*>(rbuf);
+      *reinterpret_cast<float2*>(w + osw(r0, col, width)) = make_float2(o[i], o[i + 1]);
+      *reinterpret_cast<float2*>(w + osw(r0 + 8, col, width)) = make_float2(o[i + 2], o[i + 3]);
     }
+  }
+}
+
+// the last head's o (channel half HALF, in registers) as int8 pairs
+template <int HALF>
+__device__ __forceinline__ void store_last(const float (&o)[64], int8_t* orow0, int8_t* orow1,
+                                           float inv0, float inv1, int t) {
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const int i = 32 * HALF + 4 * jn, col = 64 * HALF + 8 * jn + 2 * t;
+    if (orow0)
+      *reinterpret_cast<uint16_t*>(orow0 + col) =
+          (uint16_t)(to_u8(__fmul_rn(o[i], inv0)) | (to_u8(__fmul_rn(o[i + 1], inv0)) << 8));
+    if (orow1)
+      *reinterpret_cast<uint16_t*>(orow1 + col) = (uint16_t)(
+          to_u8(__fmul_rn(o[i + 2], inv1)) | (to_u8(__fmul_rn(o[i + 3], inv1)) << 8));
   }
 }
 
 // Grid (n_tiles * C, B), clusters of C blocks along x: block rank r of tile
-// `tile` owns rows [64 tile, 64 tile + 64) and heads [r G, r G + G).
-// EXT_RMS (K17): the rows' RMS inverse is ri (B, Lq); else (K14) the cluster
-// computes it.
+// `tile` owns rows [64 tile, 64 tile + 64) and heads [r G, r G + G). Warp 0
+// (lane 0) of the producer warpgroup loads consumer 0's K / V chunks into its
+// sub-ring, warp 1 consumer 1's, warp 2 each head's raw q rows.
+// Consumer c takes keys [64 first_c, 64 (first_c + nc)), half the chunks:
+// S = Q K^T (wgmma bf16, both operands from shared memory), the rows' max
+// exchanged with the other consumer, P = exp(s - max) in fp32, its row sums,
+// O += bf16(P) V (P in registers, V MN-major). Fragment of a consumer thread
+// (warp w, lane l): register i holds row 16 w + l / 4 + 8 ((i >> 1) & 1),
+// column 8 (i >> 2) + 2 (l & 3) + (i & 1). EXT_RMS (K17): the rows' RMS
+// inverse is p.ri; else (K14) the cluster sums the squares of the row.
 template <bool EXT_RMS>
-__global__ void __launch_bounds__(kThreads)
-cross_qout_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ norm_w,
-                  const float* __restrict__ ri, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, int8_t* __restrict__ out_q,
-                  float* __restrict__ out_s, long long ldq, int Lq, int kv_len, int H, int G,
-                  Strides ks, Strides vs, float scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // K chunk / Q staging
-  __nv_bfloat16* Vt = Ks + kBN * kKStride;
-  float* Ob = reinterpret_cast<float*>(smem + kQoutStageBytes);   // G x kBM x kOStride
-  __shared__ float s_part[kBM];   // this block's share of a row statistic
-  __shared__ float s_row[kBM];    // the row's rms, then its int8 scale
+__global__ void __launch_bounds__(kThreadsQ, 1)
+cross_qout_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  __shared__ RowSmem rs;
+  const Layout ly = layout(p.G, p.stages, p.qbufs);
+  float* slots = reinterpret_cast<float*>(smem);
+  const uint32_t qbuf0 = base + ly.q, ring0 = base + ly.ring;
+  float* s_ss = rs.ss;
+  float* s_row = rs.row;
+  float* s_mx = &rs.mx[0][0];         // [head parity][consumer][row]
+  float* s_l = &rs.l[0][0];           // [head parity][consumer][row]
+  float* s_amx = &rs.amx[0][0];       // [consumer][row]
+  float* s_inv = rs.inv;
+  const uint32_t bars = smem_u32(rs.bars);
+  // sub-ring c: its stages at ring0 + c stages kTile; full barriers at
+  // bars + 16 c stages, empty ones 8 stages on; Q tile i: qempty0 + 8 i,
+  // xfull0 + 8 i
+  const uint32_t qempty0 = bars + 4 * p.stages * 8, xfull0 = qempty0 + 16, sbar = xfull0 + 16;
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int row0 = (blockIdx.x / C) * kBM;
-  const int b = blockIdx.y;
-  const int HD = H * kDh, width = G * kDh, col0 = rank * width;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + (long long)b * Lq * ldq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = (int)cluster_rank(), C = (int)cluster_blocks();
+  const int row0 = (blockIdx.x / C) * kRows, b = blockIdx.y;
+  const int HD = p.H * kDh, col0 = rank * p.G * kDh;
+  const bool single = p.n0 <= kHeld;
+  const __nv_bfloat16* qb = p.q + (long long)b * p.Lq * p.ldq;
 
-  // 1. the full-row RMS: partial sums of squares over this block's columns,
-  // then over the cluster's blocks in rank order. A warp owns 16 rows and
-  // issues all their loads before it reduces, so it waits on memory once a
-  // 256-column slab rather than once a row. K17 reads it.
+  if (tid == 0) {
+#pragma unroll 1
+    for (int i = 0; i < 4 * p.stages; ++i) mbar_init(bars + 8 * i, 1);   // full, empty
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qempty0 + 8 * i, 2);   // both consumers
+      mbar_init(xfull0 + 8 * i, 1);    // the raw q tile's TMA
+    }
+    mbar_init(sbar, kRows);            // the rows' int8 scales
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the first heads' raw q rows (from device memory) first, then the
+  // first chunks of each sub-ring (from L2; they need no free stage), all
+  // in flight before the row statistics
+  if (tid == 2 * 32)
+    for (int hl = 0; hl < min(p.qbufs, p.G); ++hl)
+      load_x(&tm_x, qbuf0, xfull0, p.qbufs, p.G, col0, row0, b, hl);
+  __syncthreads();
+  if (warp < 2 && lane == 0)
+    load_items(&tm_k, &tm_v, ring0, bars, p, warp, single, rank, b, 0, p.stages);
+
+  // 1. the rows' RMS inverse. K14: each warp sums the squares of its rows
+  // over this block's G * 128 columns (16 bytes a lane), then the cluster's
+  // blocks add their partial sums in rank order. K17 reads it.
   if (EXT_RMS) {
-    if (threadIdx.x < kBM)
-      s_row[threadIdx.x] = row0 + threadIdx.x < Lq ? ri[(long long)b * Lq + row0 + threadIdx.x] : 0.f;
-  }
-  for (int c0 = 0; !EXT_RMS && c0 < width; c0 += 256) {
-    const int c = c0 + lane * 8;
-    uint4 u[16];
+    if (tid < kRows) s_row[tid] = row0 + tid < p.Lq ? p.ri[(long long)b * p.Lq + row0 + tid] : 0.f;
+    __syncthreads();
+  } else {
+    const int n16 = p.G * 16;   // 16-byte pieces of the block's columns
+    // warp w sums rows w, w + 12, ...: three rows' loads in flight at once
+#pragma unroll 1
+    for (int k0 = 0; k0 < (kRows + 11) / 12; k0 += 3) {
+      uint4 u[3][3];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i;
-      u[i] = make_uint4(0, 0, 0, 0);
-      if (row0 + r < Lq && c < width)
-        u[i] = *reinterpret_cast<const uint4*>(qb + (long long)(row0 + r) * ldq + col0 + c);
-    }
+      for (int k = 0; k < 3; ++k) {
+        const int r = warp + 12 * (k0 + k);
+        const bool live = r < kRows && row0 + r < p.Lq;
+        const __nv_bfloat16* src = qb + (long long)(row0 + (live ? r : 0)) * p.ldq + col0;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      float f[8];
-      unpack8(u[i], f);
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += f[e] * f[e];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) s_part[warp * 16 + i] = c0 ? s_part[warp * 16 + i] + s : s;
-    }
-  }
-  if (!EXT_RMS) {
-    cluster.sync();
-    if (threadIdx.x < kBM) {
-      float s = 0.f;
-      for (int r = 0; r < C; ++r) s += *cluster.map_shared_rank(&s_part[threadIdx.x], r);
-      s_row[threadIdx.x] = rsqrtf(s / HD + eps);
-    }
-  }
-  cluster.sync();  // s_row visible; every block has read s_part before its reuse
-
-  const int n_chunks = (kv_len + kBN - 1) / kBN;
-  float amax0 = 0.f, amax1 = 0.f;  // |o| maxima of rows warp*16 + g and + 8
-  for (int hl = 0; hl < G; ++hl) {
-    const int h = rank * G + hl;
-    const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-    const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-    // 2. this head's normed Q slice, staged in Ks: bf16(x * rms) * w in bf16
-    __syncthreads();  // the previous head's last chunk consumed
-#pragma unroll
-    for (int i = 0; i < kBM * (kDh / 8) / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kDh / 8), c8 = (idx % (kDh / 8)) * 8;
-      float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (row0 + r < Lq) {
-        float f[8], w[8];
-        unpack8(*reinterpret_cast<const uint4*>(qb + (long long)(row0 + r) * ldq + h * kDh + c8), f);
-        unpack8(*reinterpret_cast<const uint4*>(norm_w + h * kDh + c8), w);
-        const float rms = s_row[r];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) y[e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(f[e], rms)), w[e]));
+        for (int x = 0; x < 3; ++x)
+          u[k][x] = live && lane + 32 * x < n16
+                        ? *reinterpret_cast<const uint4*>(src + 8 * (lane + 32 * x))
+                        : make_uint4(0, 0, 0, 0);
       }
-      uint4 packed;
-      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) pw[e] = pack_bf16(y[2 * e], y[2 * e + 1]);
-      *reinterpret_cast<uint4*>(Ks + r * kKStride + c8) = packed;
+      for (int k = 0; k < 3; ++k) {
+        float s = 0.f;
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u[k][x]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            s += f.x * f.x + f.y * f.y;
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        const int r = warp + 12 * (k0 + k);
+        if (r < kRows && lane == 0) s_ss[r] = s;
+      }
+    }
+    cluster_sync();
+    if (tid < kRows) {
+      // every block's partial sum in flight at once, added in rank order
+      float part[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        part[r] = r < C ? ld_remote_f32(smem_u32(&s_ss[tid]), r) : 0.f;
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) s += part[r];
+      s_row[tid] = rsqrtf(s / HD + p.eps);
     }
     __syncthreads();
-    uint32_t qa[kDh / 16][4];
-    {
-      const __nv_bfloat16* base = Ks + (warp * 16) * kKStride;
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        qa[kk][0] = lds32(base + g * kKStride + kk * 16 + t * 2);
-        qa[kk][1] = lds32(base + (g + 8) * kKStride + kk * 16 + t * 2);
-        qa[kk][2] = lds32(base + g * kKStride + kk * 16 + 8 + t * 2);
-        qa[kk][3] = lds32(base + (g + 8) * kKStride + kk * 16 + 8 + t * 2);
-      }
-    }
+  }
 
-    // 3. pass 1: each row's exact max of the scaled, masked logits. It reads
-    // K alone, so the V buffer is free: K chunks double-buffer in Ks and Vt
-    // and chunk c + 1 lands while chunk c is multiplied.
-    float m0 = kNegInf, m1 = kNegInf;
-    for (int c = 0; c < n_chunks; ++c) {
-      __syncthreads();
-      load_rows(Ks, kb, ks, c * kBN, kv_len);
-      __syncthreads();
-      float s[kBN / 8][4];
-      qk_chunk(s, qa, Ks, g, t, kv_len - c * kBN, scale);
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  if (tid < kWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp < 2) {
+      // ---- K / V loads of sub-ring `warp`; the maps end at kv_len ----
+      if (lane == 0) {
+        // the walk's values made anew here, not kept from the prologue
+        int c = warp;
+        launder(c);
+        load_items(&tm_k, &tm_v, ring0, bars, p, c, single, rank, b, p.stages, 1 << 30);
+      }
+    } else if (warp == 2 && lane == 0) {
+      // ---- each head's raw q rows into its Q tile, the head after the
+      // next once both consumers' QK has read the tile ----
+#pragma unroll 1
+      for (int hl = p.qbufs; hl < p.G; ++hl) {
+        mbar_wait(qempty0 + 8 * (hl % p.qbufs), (hl / p.qbufs - 1) & 1);
+        load_x(&tm_x, qbuf0, xfull0, p.qbufs, p.G, col0, row0, b, hl);
       }
     }
+    // 3. each row's |o| max over the cluster's heads -> its int8 scale; no
+    // block exits before every block's remote reads are done
+    cluster_sync();
+    if (tid < kRows) {
+      float part[2 * kMaxCluster];
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-
-    // 4. pass 2: P = exp(s - max) in fp32, its row sum, O += bf16(P) V
-    float acc[kDh / 8][4];
-#pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-    float l0 = 0.f, l1 = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const int key0 = c * kBN;
-      __syncthreads();
-      load_rows(Ks, kb, ks, key0, kv_len);
-      load_v_transposed(Vt, vb, vs, key0, kv_len);
-      __syncthreads();
-      float s[kBN / 8][4];
-      qk_chunk(s, qa, Ks, g, t, kv_len - key0, scale);
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        s[j][0] = expf(s[j][0] - m0);
-        s[j][1] = expf(s[j][1] - m0);
-        s[j][2] = expf(s[j][2] - m1);
-        s[j][3] = expf(s[j][3] - m1);
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+      for (int r = 0; r < kMaxCluster; ++r) {
+        part[2 * r] = r < C ? ld_remote_f32(smem_u32(&s_amx[tid]), r) : 0.f;
+        part[2 * r + 1] = r < C ? ld_remote_f32(smem_u32(&s_amx[kRows + tid]), r) : 0.f;
       }
+      float mx = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int r = 0; r < 2 * kMaxCluster; ++r) mx = fmaxf(mx, part[r]);
+      const float sc = __fmul_rn(fmaxf(mx, 1e-8f), kInvInt8);
+      s_inv[tid] = 1.f / sc;
+      if (rank == 0 && row0 + tid < p.Lq) p.out_s[(long long)b * p.Lq + row0 + tid] = sc;
+      mbar_arrive(sbar);
+    }
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int cw = tid / kWG - 1, lt = tid % kWG;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = (lt >> 5) * 16 + g;   // this thread's rows r0 and r0 + 8
+    float o[64];
+    float amax0 = 0.f, amax1 = 0.f;
+    const int first = cw ? p.n0 : 0, nc = cw ? p.n_chunks - p.n0 : p.n0;
+    const uint32_t rbase = ring0 + cw * p.stages * kTile, fb = bars + 16 * cw * p.stages;
+    const uint32_t eb = fb + 8 * p.stages;
+    int n = 0;   // items of this sub-ring consumed: stage n % stages
+    float sc[kHeld][32];
+    uint32_t pa[16];
+#pragma unroll 1
+    for (int hl = 0; hl < p.G; ++hl) {
+      const int qi = hl % p.qbufs;
+      const uint32_t qbuf = qbuf0 + qi * kTile, qempty = qempty0 + 8 * qi;
+      // this head's normed q, bf16(bf16(x * rms) * w), in place in the
+      // swizzled K-major A tile of S = Q K^T its raw rows arrived in (rows
+      // past Lq arrive as zeros): each consumer its 32 rows, 16 bytes a
+      // thread at a time
+      {
+        const int c8 = lt & 15;
+        const uint4 wu = *reinterpret_cast<const uint4*>(p.norm_w + col0 + hl * kDh + c8 * 8);
+        const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&wu);
+        unsigned char* qt = smem + ly.q + qi * kTile + (c8 >> 3) * kBox;
+        mbar_wait(xfull0 + 8 * qi, (hl / p.qbufs) & 1);
 #pragma unroll
-        for (int d = 0; d < kDh / 8; ++d) {
-          const __nv_bfloat16* vp = Vt + (d * 8 + g) * kVStride + kk * 16 + t * 2;
-          mma_bf16(acc[d], pa, lds32(vp), lds32(vp + 8));
+        for (int i = 0; i < 4; ++i) {
+          const int r = 32 * cw + (lt >> 4) + 8 * i;
+          uint4* at = reinterpret_cast<uint4*>(qt + r * 128 + (((c8 & 7) ^ (r & 7)) << 4));
+          uint4 u = *at;
+          uint32_t* uw = reinterpret_cast<uint32_t*>(&u);
+          const float rms = s_row[r];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&uw[e]));
+            const float2 w = __bfloat1622float2(w2[e]);
+            uw[e] = pack_bf16(round_bf16(__fmul_rn(round_bf16(__fmul_rn(x.x, rms)), w.x)),
+                              round_bf16(__fmul_rn(round_bf16(__fmul_rn(x.y, rms)), w.y)));
+          }
+          *at = u;
+        }
+        fence_async_shared();
+        named_sync(3, 2 * kWG);   // both halves of the tile normed
+      }
+      float mx0 = -__builtin_huge_valf(), mx1 = -__builtin_huge_valf();
+      if (single) {
+        // every S chunk of this consumer's keys, held in registers; a
+        // chunk's stage is released once the next chunk's QK is issued
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) {
+          if (j < nc) {
+            mbar_wait(fb + 8 * ((n + j) % p.stages), (((n + j) / p.stages) & 1));
+            issue_qk(sc[j], qbuf, rbase + ((n + j) % p.stages) * kTile);
+            if (j > 0) {
+              wgmma_wait<1>();
+              if (lt == 0) mbar_arrive(eb + 8 * ((n + j - 1) % p.stages));
+            }
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) reg_fence<32>(sc[j]);
+        if (nc > 0 && lt == 0) mbar_arrive(eb + 8 * ((n + nc - 1) % p.stages));
+        if (lt == 0) mbar_arrive(qempty);
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) {
+          if (j < nc) {
+            mask_chunk(sc[j], p.kv_len - (first + j) * kChunk, t);
+            mx0 = fmaxf(mx0, row_tree<true, 0>(sc[j]));
+            mx1 = fmaxf(mx1, row_tree<true, 2>(sc[j]));
+          }
+        }
+        n += nc;
+      } else {
+        // pass 1 of two: the rows' exact max over every chunk
+#pragma unroll 1
+        for (int j = 0; j < nc; ++j, ++n) {
+          mbar_wait(fb + 8 * (n % p.stages), ((n / p.stages) & 1));
+          wgmma_fence();
+          issue_qk(sc[0], qbuf, rbase + (n % p.stages) * kTile);
+          wgmma_wait<0>();
+          reg_fence<32>(sc[0]);
+          if (lt == 0) mbar_arrive(eb + 8 * (n % p.stages));
+          mask_chunk(sc[0], p.kv_len - (first + j) * kChunk, t);
+          mx0 = fmaxf(mx0, row_tree<true, 0>(sc[0]));
+          mx1 = fmaxf(mx1, row_tree<true, 2>(sc[0]));
         }
       }
+      // the rows' max over both consumers' keys (raw logits; the scale is
+      // positive), in the log2 domain
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      float* mxb = s_mx + (hl & 1) * 2 * kRows;
+      if (t == 0) {
+        mxb[cw * kRows + r0] = mx0;
+        mxb[cw * kRows + r0 + 8] = mx1;
+      }
+      named_sync(1, 2 * kWG);
+      const float m0 = fmaxf(mx0, mxb[(1 - cw) * kRows + r0]) * p.scale_log2;
+      const float m1 = fmaxf(mx1, mxb[(1 - cw) * kRows + r0 + 8]) * p.scale_log2;
+
+      // P = exp(s - max), its fp32 row sums, O += bf16(P) V
+#pragma unroll
+      for (int e = 0; e < 64; ++e) o[e] = 0.f;
+      float l0 = 0.f, l1 = 0.f;
+      if (single) {
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) {
+          if (j < nc) {
+            // this chunk's softmax runs under the previous chunk's P V
+            exp_chunk(sc[j], p.scale_log2, m0, m1, l0, l1);
+            if (j > 0) {
+              wgmma_wait<0>();
+              reg_fence<64>(o);
+              reg_fence<16>(pa);
+              if (lt == 0) mbar_arrive(eb + 8 * ((n + j - 1) % p.stages));
+            }
+            pack_chunk(sc[j], pa);
+            mbar_wait(fb + 8 * ((n + j) % p.stages), (((n + j) / p.stages) & 1));
+            reg_fence<64>(o);
+            reg_fence<16>(pa);
+            wgmma_fence();
+            issue_pv(o, pa, rbase + ((n + j) % p.stages) * kTile);
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence<64>(o);
+        reg_fence<16>(pa);
+        if (nc > 0 && lt == 0) mbar_arrive(eb + 8 * ((n + nc - 1) % p.stages));
+        n += nc;
+      } else {
+        // pass 2: each chunk's S again, then its P V
+#pragma unroll 1
+        for (int j = 0; j < nc; ++j) {
+          mbar_wait(fb + 8 * (n % p.stages), ((n / p.stages) & 1));
+          reg_fence<64>(o);
+          wgmma_fence();
+          issue_qk(sc[0], qbuf, rbase + (n % p.stages) * kTile);
+          wgmma_wait<0>();
+          reg_fence<32>(sc[0]);
+          if (lt == 0) mbar_arrive(eb + 8 * (n % p.stages));
+          if (lt == 0 && j == nc - 1) mbar_arrive(qempty);
+          ++n;
+          mask_chunk(sc[0], p.kv_len - (first + j) * kChunk, t);
+          exp_chunk(sc[0], p.scale_log2, m0, m1, l0, l1);
+          pack_chunk(sc[0], pa);
+          mbar_wait(fb + 8 * (n % p.stages), ((n / p.stages) & 1));
+          reg_fence<64>(o);
+          reg_fence<16>(pa);
+          wgmma_fence();
+          issue_pv(o, pa, rbase + (n % p.stages) * kTile);
+          wgmma_wait<0>();
+          reg_fence<64>(o);
+          reg_fence<16>(pa);
+          if (lt == 0) mbar_arrive(eb + 8 * (n % p.stages));
+          ++n;
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+
+      // 2. the two halves of the keys meet in the head's o slot; the last
+      // head's o stays in registers (its scratch: the first stage of each
+      // consumer's ring, which no load refills)
+      const bool last = hl == p.G - 1;
+      float* own = last ? reinterpret_cast<float*>(smem + (rbase - base))
+                        : slots + hl * (kSlot / 4);
+      const float* other = last ? reinterpret_cast<float*>(smem + (ring0 + (1 - cw) * p.stages * kTile - base)) : own;
+      float* sl = s_l + (hl & 1) * 2 * kRows;
+      if (cw == 0)
+        combine<0>(o, own, other, last, l0, l1, sl, r0, t, amax0, amax1);
+      else
+        combine<1>(o, own, other, last, l0, l1, sl, r0, t, amax0, amax1);
     }
+    // the rows' |o| maxima over this consumer's half of every head
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      amax0 = fmaxf(amax0, __shfl_xor_sync(0xffffffffu, amax0, off));
+      amax1 = fmaxf(amax1, __shfl_xor_sync(0xffffffffu, amax1, off));
     }
-    l0 = fmaxf(l0, 1e-20f);
-    l1 = fmaxf(l1, 1e-20f);
-
-    // 5. o = O / l in fp32 into this head's o buffer; the rows' |o| maxima
-    float* ob = Ob + (hl * kBM + warp * 16 + g) * kOStride;
-#pragma unroll
-    for (int d = 0; d < kDh / 8; ++d) {
-      const float2 o0 = make_float2(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
-      const float2 o1 = make_float2(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
-      amax0 = fmaxf(amax0, fmaxf(fabsf(o0.x), fabsf(o0.y)));
-      amax1 = fmaxf(amax1, fmaxf(fabsf(o1.x), fabsf(o1.y)));
-      *reinterpret_cast<float2*>(ob + d * 8 + t * 2) = o0;
-      *reinterpret_cast<float2*>(ob + 8 * kOStride + d * 8 + t * 2) = o1;
+    if (t == 0) {
+      s_amx[cw * kRows + r0] = amax0;
+      s_amx[cw * kRows + r0 + 8] = amax1;
     }
-  }
+    cluster_sync();
+    mbar_wait(sbar, 0);   // the producer's scales
+    cluster_arrive();
 
-  // 6. each row's absmax over the cluster's heads -> its int8 scale
+    // 4. int8 = round(o * (1 / scale)): the o slots 16 channels a thread (two
+    // 8-float groups of a swizzled row, one 16-byte store), the last head
+    // from registers
+    int8_t* outb = p.out_q + ((long long)b * p.Lq + row0) * HD + col0;
+    const int n_items = (p.G - 1) * kRows * 8;
+#pragma unroll 1
+    for (int it = tid - kWG; it < n_items; it += 2 * kWG) {
+      const int c16 = it & 7, r = (it >> 3) % kRows, hl = (it >> 3) / kRows;
+      if (row0 + r >= p.Lq) continue;
+      const float* src = slots + hl * (kSlot / 4);
+      const float inv = s_inv[r];
+      uint32_t w[4];
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    amax0 = fmaxf(amax0, __shfl_xor_sync(0xffffffffu, amax0, off));
-    amax1 = fmaxf(amax1, __shfl_xor_sync(0xffffffffu, amax1, off));
-  }
-  if (t == 0) {
-    s_part[warp * 16 + g] = amax0;
-    s_part[warp * 16 + g + 8] = amax1;
-  }
-  cluster.sync();
-  if (threadIdx.x < kBM) {
-    float m = 0.f;
-    for (int r = 0; r < C; ++r) m = fmaxf(m, *cluster.map_shared_rank(&s_part[threadIdx.x], r));
-    s_row[threadIdx.x] = __fmul_rn(fmaxf(m, 1e-8f), kInvInt8);
-  }
-  cluster.sync();  // remote reads done before any block exits; s_row visible
-
-  // 7. this block's columns of each live row as int8, 8 bytes a thread
-  const int cpr = width / 8;
-  for (int idx = threadIdx.x; idx < kBM * cpr; idx += kThreads) {
-    const int r = idx / cpr, c = idx % cpr;
-    if (row0 + r >= Lq) continue;
-    const float inv = 1.f / s_row[r];
-    const float* src = Ob + ((c / (kDh / 8)) * kBM + r) * kOStride + (c % (kDh / 8)) * 8;
-    uint32_t w0 = 0, w1 = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      w0 |= to_u8(__fmul_rn(src[e], inv)) << (8 * e);
-      w1 |= to_u8(__fmul_rn(src[4 + e], inv)) << (8 * e);
+      for (int hf = 0; hf < 2; ++hf) {
+        const float4* g8 = reinterpret_cast<const float4*>(src + osw(r, 16 * c16 + 8 * hf, kDh));
+        const float4 a = g8[0], c = g8[1];
+        w[2 * hf] = to_u8(__fmul_rn(a.x, inv)) | (to_u8(__fmul_rn(a.y, inv)) << 8) |
+                    (to_u8(__fmul_rn(a.z, inv)) << 16) | (to_u8(__fmul_rn(a.w, inv)) << 24);
+        w[2 * hf + 1] = to_u8(__fmul_rn(c.x, inv)) | (to_u8(__fmul_rn(c.y, inv)) << 8) |
+                        (to_u8(__fmul_rn(c.z, inv)) << 16) | (to_u8(__fmul_rn(c.w, inv)) << 24);
+      }
+      *reinterpret_cast<uint4*>(outb + (long long)r * HD + hl * kDh + 16 * c16) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
-    *reinterpret_cast<uint2*>(out_q + ((long long)b * Lq + row0 + r) * HD + col0 + c * 8) =
-        make_uint2(w0, w1);
+    int8_t* last = outb + (p.G - 1) * kDh;
+    int8_t* o0 = row0 + r0 < p.Lq ? last + (long long)r0 * HD : nullptr;
+    int8_t* o1 = row0 + r0 + 8 < p.Lq ? last + (long long)(r0 + 8) * HD : nullptr;
+    if (cw == 0)
+      store_last<0>(o, o0, o1, s_inv[r0], s_inv[r0 + 8], t);
+    else
+      store_last<1>(o, o0, o1, s_inv[r0], s_inv[r0 + 8], t);
+    cluster_wait();
   }
-  if (rank == 0 && threadIdx.x < kBM && row0 + threadIdx.x < Lq)
-    out_s[(long long)b * Lq + row0 + threadIdx.x] = s_row[threadIdx.x];
 }
+
+// G heads a block, C = H / G blocks a cluster (at most 8) on each 64-row
+// tile; keys in 64-key chunks, half of them each consumer's
+template <bool EXT_RMS>
+int launch(const void* q, const void* norm_w, const void* ri, const void* k, const void* v,
+           void* out_q, void* out_s, long long ldq, int B, int H, int G, int Lq, int kv_len,
+           Strides ks, Strides vs, float scale, float eps, void* stream) {
+  if (B <= 0 || Lq <= 0 || kv_len <= 0 || G <= 0 || G > kMaxGroup || H % G ||
+      H / G > kMaxCluster || ldq % 8 || ldq < (long long)H * kDh)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte vectors and TMA: aligned bases and strides
+  const Strides st[2] = {ks, vs};
+  for (int i = 0; i < 2; ++i)
+    if (st[i].b % 8 || st[i].l % 8 || st[i].h % 8) return (int)cudaErrorInvalidValue;
+  const void* ptr[5] = {q, norm_w, k, v, out_q};
+  for (int i = 0; i < 5; ++i)
+    if ((uintptr_t)ptr[i] % 16) return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_for(G);
+  if (sh.stages < 2) return (int)cudaErrorInvalidValue;
+  static const int ready = [] {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, cross_qout_kernel<EXT_RMS>);
+    if (err != cudaSuccess) return (int)err;
+    // the register count setmaxnreg assumes (else refuse, not hang)
+    if (fa.numRegs != kRegs || fa.sharedSizeBytes + kSmemLimit > 232448)
+      return (int)cudaErrorInvalidConfiguration;
+    return (int)cudaFuncSetAttribute(cross_qout_kernel<EXT_RMS>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  }();
+  if (ready != 0) return ready;
+  CUtensorMap tx, tk, tv;
+  if (!brows_map(&tx, q, B, Lq, H * kDh, ldq, kRows) ||
+      !bhld_map(&tk, k, B, kv_len, H, ks.b, ks.l, ks.h, kChunk) ||
+      !bhld_map(&tv, v, B, kv_len, H, vs.b, vs.l, vs.h, kChunk))
+    return (int)cudaErrorInvalidValue;
+  const int C = H / G, n_chunks = (kv_len + kChunk - 1) / kChunk;
+  const long long tiles = ((long long)Lq + kRows - 1) / kRows;
+  if (tiles * C > 0x7fffffff || B > 65535) return (int)cudaErrorInvalidValue;
+  Params p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)norm_w, (const float*)ri,
+           (int8_t*)out_q, (float*)out_s, ldq, Lq, kv_len, H, G, sh.stages, sh.qbufs,
+           n_chunks, (n_chunks + 1) / 2, scale * kLog2e, eps};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * C), B, 1);
+  cfg.blockDim = dim3(kThreadsQ, 1, 1);
+  cfg.dynamicSmemBytes = layout(G, sh.stages, sh.qbufs).bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, cross_qout_kernel<EXT_RMS>, tx, tk, tv, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k14
 
 }  // namespace
 
@@ -1116,42 +1575,25 @@ extern "C" int tdx_flash_attention(
 }
 
 
-namespace {
-
-template <bool EXT_RMS>
-int launch_cross_qout(const void* q, const void* norm_w, const void* ri, const void* k,
-                      const void* v, void* out_q, void* out_s, long long ldq, int B, int H,
-                      int G, int Lq, int kv_len, Strides ks, Strides vs, float scale, float eps,
-                      void* stream) {
-  // G heads a block, C = H / G blocks a cluster (portable: at most 8)
-  if (G <= 0 || H % G || H / G > kQoutMaxCluster || ldq % 8 || kv_len <= 0 || Lq <= 0)
+// the launch K14 / K17 take (ops/flash_attention.py `qout_shape` mirrors
+// it): out = {cluster blocks, ring stages, key chunks, consumer 0's chunks,
+// shared memory bytes, Q tiles}
+extern "C" int tdx_cross_attention_qout_shape(int H, int G, int kv_len, void* out) {
+  if (H <= 0 || G <= 0 || G > k14::kMaxGroup || H % G || H / G > k14::kMaxCluster ||
+      kv_len <= 0)
     return (int)cudaErrorInvalidValue;
-  const int C = H / G;
-  const int smem = kQoutStageBytes + G * kBM * kOStride * 4;
-  cudaError_t err = cudaFuncSetAttribute(cross_qout_kernel<EXT_RMS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((Lq + kBM - 1) / kBM) * C, B, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, cross_qout_kernel<EXT_RMS>, (const __nv_bfloat16*)q,
-                           (const __nv_bfloat16*)norm_w, (const float*)ri,
-                           (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (int8_t*)out_q,
-                           (float*)out_s, ldq, Lq, kv_len, H, G, ks, vs, scale, eps);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const k14::Shape sh = k14::shape_for(G);
+  const int chunks = (kv_len + k14::kChunk - 1) / k14::kChunk;
+  if (sh.stages < 2) return (int)cudaErrorInvalidValue;
+  int* o = (int*)out;
+  o[0] = H / G;
+  o[1] = sh.stages;
+  o[2] = chunks;
+  o[3] = (chunks + 1) / 2;
+  o[4] = k14::layout(G, sh.stages, sh.qbufs).bytes;
+  o[5] = sh.qbufs;
+  return 0;
 }
-
-}  // namespace
 
 extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const void* k,
                                         const void* v, void* out_q, void* out_s,
@@ -1160,9 +1602,8 @@ extern "C" int tdx_cross_attention_qout(const void* q, const void* norm_w, const
                                         long long ksh, long long vsb, long long vsl,
                                         long long vsh, float scale, float eps,
                                         void* stream) {
-  return launch_cross_qout<false>(q, norm_w, nullptr, k, v, out_q, out_s, ldq, B, H, G, Lq,
-                                  kv_len, Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
-                                  scale, eps, stream);
+  return k14::launch<false>(q, norm_w, nullptr, k, v, out_q, out_s, ldq, B, H, G, Lq, kv_len,
+                            Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale, eps, stream);
 }
 
 extern "C" int tdx_cross_attention_qout_wide(const void* q, const void* norm_w, const void* ri,
@@ -1171,7 +1612,6 @@ extern "C" int tdx_cross_attention_qout_wide(const void* q, const void* norm_w, 
                                              int Lq, int kv_len, long long ksb, long long ksl,
                                              long long ksh, long long vsb, long long vsl,
                                              long long vsh, float scale, void* stream) {
-  return launch_cross_qout<true>(q, norm_w, ri, k, v, out_q, out_s, ldq, B, H, G, Lq, kv_len,
-                                 Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale, 0.f,
-                                 stream);
+  return k14::launch<true>(q, norm_w, ri, k, v, out_q, out_s, ldq, B, H, G, Lq, kv_len,
+                           Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale, 0.f, stream);
 }

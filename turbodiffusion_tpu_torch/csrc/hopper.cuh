@@ -1,7 +1,8 @@
-// What the Hopper kernels share (K4, K7, K9, K10 / K11, K22): mbarriers,
-// thread-block clusters, TMA tile copies with 128-byte swizzle and their
-// tensor maps, wgmma descriptors and the wgmma instructions the kernels
-// issue, and the register-level steps of their softmax and fold.
+// What the Hopper kernels share (K4, K7, K9, K10 / K11, K14 / K17, K22):
+// mbarriers, thread-block clusters and their distributed shared memory, TMA
+// tile copies with 128-byte swizzle and their tensor maps, wgmma descriptors
+// and the wgmma instructions the kernels issue, and the register-level steps
+// of their softmax and fold.
 //
 // A swizzled tile is rows of 128 bytes, 8-row groups 1024 bytes apart, the
 // tile 1024-byte aligned; 16-byte chunk c of row r sits at chunk c ^ (r % 8)
@@ -39,6 +40,29 @@ __device__ __forceinline__ uint32_t cluster_blocks() {
 // every thread of every block of the cluster; release / acquire
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+// cluster_sync in two halves: work between them overlaps the other blocks'
+// arrival
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the fp32 at the same shared-memory offset in cluster block `rank`
+__device__ __forceinline__ float ld_remote_f32(uint32_t addr, uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %1, %2;\n\t"
+      "ld.shared::cluster.f32 %0, [ra];\n\t}"
+      : "=f"(v)
+      : "r"(addr), "r"(rank)
+      : "memory");
+  return v;
 }
 
 // the threads of `count` (a multiple of 32) that name barrier `id` (1-15)
@@ -116,6 +140,24 @@ __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, uint32_t dst
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the 3-d form: a box of a (cols, rows, B) map (K14's raw q rows)
+__device__ __forceinline__ void tma_load_3d(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// bring a box of a 3-d map into L2 ahead of its load
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global [%0, {%1, %2, %3}];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
 }
 
 // store a shared-memory tile (rows past the map's are not written)
@@ -287,6 +329,26 @@ __device__ __forceinline__ void wgmma_bf16_ss(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 64 fp32) (+)= A (64 x 16 bf16) B (64 x 16 bf16)^T, both K-major in
+// shared memory (K14's S of one 64-key chunk); d is overwritten when `acc` is 0
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float* d, uint64_t da, uint64_t db,
+                                                  int acc = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 128 fp32) += A (64 x 16 bf16, registers: the m16n8k16 A fragment
 // of each warp's 16 rows) B, in shared memory: (128 x 16)^T K-major (K7's
 // converted V^T), or with TRANS_B 16 x 128 MN-major (K4's V as it lies)
@@ -328,21 +390,24 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-// the max (MAX) or sum of the 32 fragment values of one row of a wgmma
-// m64n128 accumulator: registers 4 j + h0 and 4 j + h0 + 1, j < 16 (h0 = 0:
-// row g, 2: row g + 8), in a tree
+// the max (MAX) or sum of the N / 2 fragment values of one row of a wgmma
+// m64n(N / 2) accumulator: registers 4 j + h0 and 4 j + h0 + 1, j < N / 4
+// (h0 = 0: row g, 2: row g + 8), in a tree
 template <bool MAX, typename T>
 __device__ __forceinline__ T tree_op(T a, T b) {
   return MAX ? max(a, b) : a + b;
 }
 
-template <bool MAX, int H0, typename T>
-__device__ __forceinline__ T row_tree(const T (&v)[64]) {
-  T r[16];
+template <bool MAX, int H0, typename T, int N>
+__device__ __forceinline__ T row_tree(const T (&v)[N]) {
+  static_assert(N == 32 || N == 64, "an m64n64 or m64n128 fragment");
+  T r[N / 4];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) r[j] = tree_op<MAX, T>(v[4 * j + H0], v[4 * j + H0 + 1]);
+  for (int j = 0; j < N / 4; ++j) r[j] = tree_op<MAX, T>(v[4 * j + H0], v[4 * j + H0 + 1]);
+  if constexpr (N == 64) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 8]);
+    for (int j = 0; j < 8; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 8]);
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) r[j] = tree_op<MAX, T>(r[j], r[j + 4]);
 #pragma unroll
@@ -404,6 +469,25 @@ bool bhld_map(CUtensorMap* map, const void* ptr, int B, int L, int H, long long 
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// a (B, rows, cols) bf16 tensor whose rows lie `ld` elements apart and
+// batches rows * ld apart (ld a multiple of 8) as a (cols, rows, B) map in
+// boxes of (64 columns, box_rows rows, one batch), 128-byte swizzle; rows
+// past `rows` read as zero
+bool brows_map(CUtensorMap* map, const void* ptr, int B, int rows, int cols, long long ld,
+               int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)(2 * ld),
+                                 (cuuint64_t)(B == 1 ? 16 : 2 * ld * rows)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

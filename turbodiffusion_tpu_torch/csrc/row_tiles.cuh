@@ -71,7 +71,12 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* ti
 
 // X Y^T for the warp's 16 owned rows against streamed rows [r0, r0 + 32):
 // x = the owned tile (A), y = the streamed row-major tile (B). Two products
-// at once (S and dP) share the loop.
+// at once (S and dP) share the loop. SPLIT_S (K24): each 16-channel step of
+// S goes into a zeroed fragment and is added to the sum in fp32, rounded to
+// nearest: the tensor core's accumulation, which truncates, never carries
+// the running sum, whose error (up to an ulp of |s| a step, one way) P =
+// exp(s scale - lse) would take into every rounding of bf16(dS).
+template <bool SPLIT_S = false>
 __device__ __forceinline__ void two_products(float (&s)[kStep / 8][4], float (&d)[kStep / 8][4],
                                              const __nv_bfloat16* xs, const __nv_bfloat16* ys,
                                              const __nv_bfloat16* xd, const __nv_bfloat16* yd,
@@ -88,7 +93,14 @@ __device__ __forceinline__ void two_products(float (&s)[kStep / 8][4], float (&d
 #pragma unroll
     for (int j = 0; j < kStep / 8; ++j) {
       const int off = (r0 + j * 8 + g) * kStride + kk * 16 + t * 2;
-      mma_bf16(s[j], as, lds32(ys + off), lds32(ys + off + 8));
+      if (SPLIT_S) {
+        float ts[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(ts, as, lds32(ys + off), lds32(ys + off + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], ts[e]);
+      } else {
+        mma_bf16(s[j], as, lds32(ys + off), lds32(ys + off + 8));
+      }
       mma_bf16(d[j], ad, lds32(yd + off), lds32(yd + off + 8));
     }
   }

@@ -43,6 +43,12 @@
 //     loads hit 32 distinct banks;
 //   * P and dS go from the S / dP accumulators straight into A fragments,
 //     rounded to bf16 as the TPU kernel rounds them before its dots.
+// K24's S^T = K Q^T adds each 16-channel step's product to its sum in fp32
+// (two_products<true>): chained on the tensor core, the running sum is
+// truncated a step at a time, one way, and P = exp(s scale - lse) took that
+// error (up to ~8 ulps of |s| ~ 150 at q of std 3) into every bf16(dS); on
+// the worst K-block of chip_smoke's inputs the kernel then sat ~4x further
+// from a float64 reference than the plain version (tools/k24_seeds.py).
 // Tails: the kernels loop over exactly `sel` (K23) or `count` (K24) entries
 // and pad no LUT entry; K23 skips chunks wholly past kv_len and gives
 // columns at or past it P = 0; K24 skips chunks wholly past Lq and gives
@@ -242,7 +248,7 @@ sparse_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll 1
       for (int r0 = 0; r0 < kRows; r0 += kStep) {
         float st[kStep / 8][4], dpt[kStep / 8][4];
-        two_products(st, dpt, Ks, Qs, Vs, dOs, r0);
+        two_products<true>(st, dpt, Ks, Qs, Vs, dOs, r0);
 #pragma unroll
         for (int j = 0; j < kStep / 8; ++j)
 #pragma unroll

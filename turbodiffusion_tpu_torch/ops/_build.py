@@ -74,6 +74,10 @@ SIGNATURES = {
     # stream
     "tdx_cross_attention_qout": [_P] * 6 + [_I64] + [_I] * 5 + [_I64] * 6
                                 + [_F, _F, _P],
+    # H, heads a block, kv_len, out: int[6] (cluster blocks, ring stages,
+    # key chunks, consumer 0's chunks, shared memory bytes, Q tiles); K14 /
+    # K17
+    "tdx_cross_attention_qout_shape": [_I, _I, _I, _P],
     # q, norm_w, row rms inverse, k, v, out int8, out scales, q row stride,
     # B, H, heads a block, Lq, kv_len, 6 strides, scale, stream
     "tdx_cross_attention_qout_wide": [_P] * 7 + [_I64] + [_I] * 5

@@ -80,9 +80,18 @@ from turbodiffusion_tpu_torch.ops import _build
 NEG_INF = -1e30
 # elements of fp32 logits a plain version materialises at once (1 GiB)
 _PLAIN_LOGITS_BUDGET = 1 << 28
-# K14 / K17: heads of one thread block times its (64 x 136) fp32 output rows
-# stay within the 227 KB of shared memory; blocks of one cluster at most 8
+# K14 / K17 (csrc/flash_attention.cu `k14::`): a cluster of C = H / G blocks
+# owns 64 query rows, a block G heads; G - 1 heads' fp32 o (64 x 128) stay in
+# shared memory beside the normed Q tile and two rings of 64-key K / V
+# chunks (16 KB each), all within 227 KB; blocks of one cluster at most 8
 _QOUT_MAX_GROUP, _QOUT_MAX_CLUSTER = 5, 8
+_QOUT_ROWS = _QOUT_CHUNK = 64
+_QOUT_HELD = 4          # chunks a consumer holds as S: one pass to 512 keys
+_QOUT_MAX_STAGES = 4
+_QOUT_SLOT, _QOUT_TILE = _QOUT_ROWS * 128 * 4, _QOUT_CHUNK * 128 * 2
+# dynamic shared memory: the block's 227 KB less 4 KB for the static (the
+# per-row statistics and mbarriers)
+_QOUT_SMEM_LIMIT = 232448 - 4096
 # widest q row of the narrow cross_attention_qout; K17 above it
 _QOUT_NARROW_MAX = 2048
 
@@ -438,27 +447,70 @@ _flash_cuda.launches = 0
 
 
 def _qout_group(H: int) -> int:
-    """K14's and K17's heads per thread block: the least G dividing H with
-    H / G <= 8 blocks a cluster."""
-    return next(g for g in range(1, H + 1)
+    """K14's and K17's heads per thread block: the most, up to 4, dividing
+    H with H / G <= 8 blocks a cluster (fewer blocks: less of each block's
+    fixed work, the row statistics and the int8 epilogue; 12 heads as 3 of
+    4 ran 0.73 ms against 0.95 as 6 of 2, PERF.md), else the least G that
+    gives a cluster of <= 8 (the 14B's 40 heads: 8 of 5)."""
+    for g in (4, 3, 2, 1):
+        if H % g == 0 and H // g <= _QOUT_MAX_CLUSTER:
+            return g
+    return next(g for g in range(5, H + 1)
                 if H % g == 0 and H // g <= _QOUT_MAX_CLUSTER)
 
 
+def _qout_smem(G: int, stages: int, qbufs: int) -> int:
+    """Dynamic shared memory of a K14 / K17 block (`k14::layout`)."""
+    return (G - 1) * _QOUT_SLOT + qbufs * _QOUT_TILE + 2 * stages * _QOUT_TILE + 1024
+
+
+def qout_shape(H: int, kv_len: int) -> dict:
+    """The launch K14 / K17 take for H heads of 128 and kv_len keys, as
+    `k14::launch` (csrc/flash_attention.cu) computes it: G heads a block
+    (`_qout_group`), a cluster of H / G blocks on each 64-row tile, two Q
+    tiles (the next head's raw rows land under this head's work) where they
+    fit beside G - 1 heads' fp32 o with at least 2 ring stages, else one;
+    then the most 64-key ring stages (at most 4) a consumer warpgroup gets;
+    the key chunks and consumer 0's share of them (the first half, rounded
+    up). With at most 4 chunks a consumer (kv_len <= 512) each holds its S
+    in registers and every logit is computed once; above that a first pass
+    over K takes the rows' exact max and a second computes S again for
+    P V. Raises where no block fits."""
+    G = _qout_group(H)
+    stages = qbufs = 0
+    for qbufs in (2, 1):
+        stages = next((s for s in range(_QOUT_MAX_STAGES, 1, -1)
+                       if _qout_smem(G, s, qbufs) <= _QOUT_SMEM_LIMIT), 0)
+        if stages:
+            break
+    _require(G <= _QOUT_MAX_GROUP and stages >= 2 and kv_len > 0,
+             f"K14 / K17 take heads in clusters of <= {_QOUT_MAX_CLUSTER} "
+             f"blocks of <= {_QOUT_MAX_GROUP}, got {H} heads, kv_len {kv_len}")
+    chunks = _cdiv(kv_len, _QOUT_CHUNK)
+    n0 = (chunks + 1) // 2
+    return dict(heads_per_block=G, cluster=H // G, stages=stages, q_buffers=qbufs,
+                chunks=chunks, consumer0_chunks=n0,
+                single_pass=n0 <= _QOUT_HELD, smem=_qout_smem(G, stages, qbufs))
+
+
 def _qout_operands(name: str, q, k, v, norm_w):
-    """Check K14 / K17's operands; returns (row stride of q, heads a block,
-    the bf16 norm weight)."""
+    """Check K14 / K17's operands, their layout before their device (so a
+    CPU tensor meets the refusals before anything is built); returns (row
+    stride of q, heads a block, the bf16 norm weight)."""
     from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride  # cycle
     B, Lq, HD = q.shape
     Lk, H = k.shape[1], k.shape[2]
     _require(HD % H == 0, f"q width {HD} is no multiple of {H} heads")
     ldq = _row_stride(q, name)
-    _check_qkv(q.unflatten(-1, (H, HD // H)), k, v, Lk)
-    G = _qout_group(H)
-    _require(HD == H * 128 and G <= _QOUT_MAX_GROUP,
+    qh = q.unflatten(-1, (H, HD // H))
+    _check_qkv_layout(qh, k, v, Lk)
+    _require(_qout_group(H) <= _QOUT_MAX_GROUP,
              f"{name} takes heads of 128, at most {_QOUT_MAX_GROUP} a block in "
              f"clusters of <= {_QOUT_MAX_CLUSTER}, got {H} heads, width {HD}")
+    G = qout_shape(H, Lk)["heads_per_block"]
+    _check_qkv_device(qh, k, v)
     w = norm_w.to(torch.bfloat16).contiguous()
-    _require(w.device == q.device and w.numel() == HD,
+    _require(w.device == q.device and w.numel() == HD and w.data_ptr() % 16 == 0,
              f"{name} norm_w must lie on q's device with H*Dh entries")
     return ldq, G, w
 
