@@ -6,13 +6,21 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
-     and each kernel's ptxas registers (K1 / K2's row kernels and K14 /
-     K17's `k14::cross_qout_kernel` must not spill, nor the latter
-     serialize its wgmmas: ptxas C7514);
+     and each kernel's ptxas registers (K1 / K2's row kernels must not
+     spill, nor the wgmma kernels, K14 / K17's `k14::cross_qout_kernel`,
+     K3 / K4's `k4::flash_fwd_kernel` and K7 / K28's
+     `k7::sparse_i8_vt_kernel`, spill or serialize their wgmmas: ptxas
+     C7514);
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
-     FFN 8960, 12 of 128 K blocks; K1 and K2 in their warp-per-row form
+     FFN 8960, 12 of 128 K blocks; K3 in its wgmma form (K4's kernel
+     walking the LUT) at 512/256, on the path's q (its library call:
+     `flex_attention` compiled with a BlockMask of the same LUT, where it
+     compiles) and on a sharp q (std 3) rejecting three planted faults (the last LUT entry dropped, the scale
+     doubled, v read from k), at 1.3B and 14B, and in its mma.sync form at
+     512/64 (`sla` at --sla_block 64), each check asserting its form; K1
+     and K2 in their warp-per-row form
      (each check asserts the form its launch takes), K1 also at batch 2
      with two modulations (rejecting batch 1's applied to batch 0), K2 with
      RoPE also on the fused QKV K column group (rows 3 x 1536 apart) and in
@@ -80,7 +88,8 @@ Phases, each printing one line of its numbers:
      bit-equal; no library call: the SDPA forward of the shape beside them);
      then K27-K30 (`_last_checks`): K27 block-scale pack with K rows past
      L of 1e4, then NaN (1 LSB, scales bit-equal; faults: the statistic
-     over the rows past L, scales one block off), K28 at 512/256 on the
+     over the rows past L, scales one block off), K28 in its wgmma form
+     (K7's kernel on the packed K|V rows) at 512/256 on the
      topk-0.3 LUT (38 of 128 K blocks; SHARP_ATOL; faults: a LUT entry
      dropped, the scale table shifted a block, vch left out; a poisoned
      tail; K7 on the same LUT beside it), K29 (1 LSB; fault: mu left out),
@@ -201,6 +210,10 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# torch.compile (K3's library yardstick, phase 2) compiles in this process:
+# no pool of compile workers outlives the run
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -528,7 +541,8 @@ def phase1():
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
           f"(load {wall:.1f} s) | ptxas: {ptxas}", flush=True)
     # K1 and K2's warp-per-row kernels hold their rows in registers; K14 /
-    # K17's holds its S and O there, and its wgmmas must overlap
+    # K17's, K3 / K4's and K7 / K28's hold their S and O there, and their
+    # wgmmas must overlap
     spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS + _WGMMA_KERNELS)
                and (" spill" in k or " stack" in k)]
     if spilled:
@@ -541,7 +555,7 @@ def phase1():
 
 
 _ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel")
-_WGMMA_KERNELS = ("k14::cross_qout_kernel",)
+_WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -656,7 +670,6 @@ def phase2(reps: int = REPS):
     # operations per element (they are bound by bytes by a wide margin)
     n_x = x.numel()
     F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
-    pairs3 = _sparse_pairs(lut, BQ, BK, L, L)
     pairs7 = _sparse_pairs(lut8, BQ, BK, L, L)
     ops4 = lambda lk: {"bf16": 4 * B * HEADS * L * lk * DH}      # noqa: E731
     ops7 = {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}   # QK, PV
@@ -689,11 +702,8 @@ def phase2(reps: int = REPS):
               lambda: fn.rmsnorm_rope_ref(x, w, cosF, sinF, 1e-6),
               (x, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
               faults=_k2_rope_faults(x, w, cosF, sinF, HEADS)),
-    ] + _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS) + [
-        Check("K3", f"sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}",
-              lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
-              lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L),
-              (q, k, v, lut), {"bf16": 4 * DH * pairs3}),
+    ] + _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS) + _k3_checks(
+        q, k, v, lut, topk, HEADS) + [
         Check("K4", f"cross {L}x{TEXT}",
               lambda: fa._flash_cuda(q, kt, vt, scale, TEXT),
               lambda: fa.flash_attention_plain(q, kt, vt, scale, TEXT),
@@ -1287,6 +1297,118 @@ def _k2_form(x, w, cos, sin, heads: int) -> str:
     return "vector" if ok else "loop"
 
 
+def _k3_form(q, k, v, bq: int, bk: int, kv_len: int) -> str:
+    """The form K3's C entry takes for these operands (its own rule; the
+    output, freshly allocated, is contiguous), which the package's
+    `sparse_flash_form` must name too."""
+    import ctypes
+    from turbodiffusion_tpu_torch.ops import _build
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    B_, Lq, H, D = q.shape
+    st = fa._strides(q, k, v) + [Lq * H * D, H * D, D]
+    code = _build.load().tdx_sparse_flash_attention_form(bq, bk, kv_len,
+                                                         (ctypes.c_int64 * 12)(*st))
+    got = {1: "wgmma", 0: "mma"}.get(code, "refused")
+    py = fa.sparse_flash_form(bq, bk, kv_len, *st)
+    if got != py:
+        raise AssertionError(f"K3 at {bq}/{bk}: the C entry takes {got}, "
+                             f"sparse_flash_form says {py}")
+    return got
+
+
+def _k28_form(Lp: int, Lkp: int, kv_len: int, bq: int, bk: int) -> str:
+    """The form K28's C entry takes, which the package's
+    `sparse_i8_planes_bs_form` must name too."""
+    from turbodiffusion_tpu_torch.ops import _build
+    from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
+    code = _build.load().tdx_sparse_attention_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk)
+    got = {1: "wgmma", 0: "mma"}.get(code, "refused")
+    py = si8.sparse_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk)
+    if got != py:
+        raise AssertionError(f"K28 at {bq}/{bk}: the C entry takes {got}, "
+                             f"sparse_i8_planes_bs_form says {py}")
+    return got
+
+
+def _flex_sparse(q, k, v, lut, block_q: int, block_k: int):
+    """K3's library yardstick: one call of `flex_attention`, compiled, with a
+    BlockMask whose kv blocks are each row's LUT ids (512 x block_k blocks,
+    the mask the same selection and kv_idx < Lk), on (B, L, H, D) q, k, v;
+    None, with the reason printed, where it does not compile. The port
+    never calls it."""
+    import torch
+    try:
+        from torch.nn.attention.flex_attention import BlockMask, flex_attention
+        Lq, Lk = q.shape[1], k.shape[1]
+        nk = -(-Lk // block_k)
+        sel = lut.shape[-1]
+        idx = torch.zeros(*lut.shape[:3], nk, dtype=torch.int32, device=q.device)
+        idx[..., :sel] = lut
+        num = torch.full(lut.shape[:3], sel, dtype=torch.int32, device=q.device)
+        chosen = torch.zeros(*lut.shape[:3], nk, dtype=torch.bool, device=q.device)
+        chosen.scatter_(-1, lut.long(), True)
+
+        def mask(b, h, q_idx, kv_idx):
+            return chosen[b, h, q_idx // block_q, kv_idx // block_k] & (kv_idx < Lk)
+
+        bm = BlockMask.from_kv_blocks(num, idx, BLOCK_SIZE=(block_q, block_k),
+                                      mask_mod=mask, seq_lengths=(Lq, Lk))
+        fx = torch.compile(flex_attention, dynamic=False)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        call = lambda: fx(qh, kh, vh, block_mask=bm)      # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        return call
+    except Exception as e:           # no library time: say why
+        print(f"phase2 K3 library: flex_attention does not compile here: "
+              f"{type(e).__name__}: {str(e)[:300]}", flush=True)
+        return None
+
+
+def _k3_checks(q, k, v, lut, topk: int, heads: int, what: str = "") -> list:
+    """Phase-2 checks of K3 at a path's shape (512/256, 12 of 128 K blocks),
+    each asserting its form: the path's inputs (compiled `flex_attention`
+    on the same LUT beside it, where it compiles); a sharp q (std 3, one or a
+    few keys lead each row, outputs of order 1) rejecting three planted
+    faults (the last LUT entry dropped, the scale doubled, v read from k);
+    at the 1.3B also 512/64 (`sla` at --sla_block 64, the mma.sync form) on
+    a LUT of the same share of 512 K blocks. The sharp q comes from a
+    generator of its own."""
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    from turbodiffusion_tpu_torch.ops.attention import get_block_map
+    scale = DH ** -0.5
+    form = _form(_k3_form(q, k, v, BQ, BK, L), "wgmma", f"K3 at {BQ}/{BK}")
+    qs = _fresh_randn(170 + heads)(B, L, heads, DH, std=3.0)
+
+    def k3(q_=q, lut_=lut, k_=k, v_=v, sc=scale, bq=BQ, bk=BK):
+        return lambda: fa._sparse_flash_cuda(q_, k_, v_, lut_, bq, bk, sc, L)
+
+    def plain(q_=q, lut_=lut, bq=BQ, bk=BK):
+        return lambda: fa.sparse_flash_attention_plain(q_, k, v, lut_, bq, bk, scale, L)
+
+    ops = lambda lut_, bq, bk: {"bf16": 4 * DH * _sparse_pairs(lut_, bq, bk, L, L)}  # noqa
+    flex = _flex_sparse(q, k, v, lut, BQ, BK)
+    checks = [
+        Check("K3", f"{what}sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}, {heads} "
+              f"heads {form}", k3(), plain(), (q, k, v, lut), ops(lut, BQ, BK), flex,
+              "flex_attention (compiled, a BlockMask of the LUT)" if flex else ""),
+        Check("K3", f"{what}sparse {BQ}/{BK}, sharp q (std 3) {form}", k3(q_=qs),
+              plain(q_=qs), (qs, k, v, lut), ops(lut, BQ, BK),
+              faults={"last LUT entry dropped": k3(q_=qs, lut_=lut[..., :-1].contiguous()),
+                      "scale doubled": k3(q_=qs, sc=2 * scale),
+                      "v read from k": k3(q_=qs, v_=k)}),
+    ]
+    if heads == G13.heads:
+        bk64 = 64
+        _, lut64, topk64 = get_block_map(q, k, TOPK, BQ, bk64)
+        form64 = _form(_k3_form(q, k, v, BQ, bk64, L), "mma", f"K3 at {BQ}/{bk64}")
+        checks.append(Check(
+            "K3", f"sparse topk {TOPK} ({topk64}/512 blocks) {BQ}/{bk64} (`sla` at "
+            f"--sla_block 64) {form64}", k3(lut_=lut64, bk=bk64), plain(lut_=lut64, bk=bk64),
+            (q, k, v, lut64), ops(lut64, BQ, bk64)))
+    return checks
+
+
 def _form(got: str, want: str, what: str) -> str:
     if got != want:
         raise AssertionError(f"{what} takes the {got} form, not the {want} form")
@@ -1440,7 +1562,6 @@ def _wide_checks(randn, sdpa):
     F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
     q, k, v = randn(B, L, HEADS, DH), randn(B, L, HEADS, DH), randn(B, L, HEADS, DH)
     _, lut, topk = get_block_map(q, k, TOPK, BQ, BK)
-    pairs3 = _sparse_pairs(lut, BQ, BK, L, L)
     # K2's planted faults past channel 4096: what a kernel that stopped there
     # would leave in an output prefilled with NaN, and one weight channel
     # there doubled (a kernel that never read it would pass that)
@@ -1496,11 +1617,7 @@ def _wide_checks(randn, sdpa):
               lambda: fn._rmsrope_cuda(x6, w6, cosF, sinF, 1e-6, WH),
               lambda: fn.rmsnorm_rope_ref(x6, w6, cosF, sinF, 1e-6),
               (x6, w6, cosF[:L], sinF[:L]), {"fp32": 10 * x6.numel()}),
-        Check("K3", f"14B sparse topk {TOPK} ({topk}/128 blocks) {BQ}/{BK}, "
-              f"{HEADS} heads",
-              lambda: fa._sparse_flash_cuda(q, k, v, lut, BQ, BK, scale, L),
-              lambda: fa.sparse_flash_attention_plain(q, k, v, lut, BQ, BK, scale, L),
-              (q, k, v, lut), {"bf16": 4 * DH * pairs3}),
+    ] + _k3_checks(q, k, v, lut, topk, HEADS, "14B ") + [
         Check("K4", f"14B cross {L}x{TEXT}, {HEADS} heads",
               lambda: fa._flash_cuda(q, kt, vt, scale, TEXT),
               lambda: fa.flash_attention_plain(q, kt, vt, scale, TEXT),
@@ -1782,7 +1899,8 @@ def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
               faults={"statistic over the rows past L": lambda: k27(LP),
                       "scales one block off": k27_shifted}),
         Check("K28", f"int8 sparse block-scale topk {TOPK_BS} ({sel}/{LP // BK} "
-              f"blocks) {BQ}/{BK}, q of std ~3", k28,
+              f"blocks) {BQ}/{BK}, q of std ~3 "
+              f"{_form(_k28_form(LP, LP, L, BQ, BK), 'wgmma', f'K28 at {BQ}/{BK}')}", k28,
               lambda: si8.sparse_attention_i8_planes_bs_plain(
                   *bs_args, block_q=BQ, block_k=BK, kv_len=L),
               bs_args, {"int8": 2 * DH * pairs, "bf16": 2 * DH * pairs},
@@ -3136,14 +3254,17 @@ PROFILE_CATEGORIES = [
     ("K2", ("rmsrope_rows_kernel", "rmsrope_kernel")), ("K13", ("unfold_quant_kernel",)),
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
-    ("K3", ("sparse_flash_fwd_kernel",)), ("K4", ("dense_fwd_kernel",)),
+    # K3 in either form (K4's kernel with the sparse walk, or the mma.sync
+    # loop), K4; K7 and K28 in either form
+    ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<true>")),
+    ("K4", ("flash_fwd_kernel<false>",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
     ("K27", ("subquant_block_kernel<true>",)),
-    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel",)),
+    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<false>",)),
     ("K18", ("subquant_pack_kv_kernel<true>",)),
     ("K29", ("subquant_pack_kv_kernel<false>",)),
     ("K19", ("sparse_i8_planes_kernel<false>",)),
-    ("K28", ("sparse_i8_planes_kernel<true>",)),
+    ("K28", ("sparse_i8_planes_kernel<true>", "sparse_i8_vt_kernel<true>")),
     ("K20", ("flash_i8qk_kernel<true>",)), ("K30", ("flash_i8qk_kernel<false>",)),
     ("K21 apply", ("linear_apply_kernel",)),
     # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold

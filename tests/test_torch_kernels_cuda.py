@@ -311,7 +311,9 @@ def test_k2_loop_form_takes_what_the_vector_form_cannot(dev, case, rope):
 def test_form_functions_agree_with_the_c_entries(dev):
     """`fn.mln_form` / `fn.rmsrope_form` give the form the C entries take,
     over widths, head dims, row strides and pointer offsets (the queries
-    read pointers as numbers only)."""
+    read pointers as numbers only); `fa.sparse_flash_form` and
+    `si8.sparse_i8_planes_bs_form` the form (or the refusal) of K3's and
+    K28's C queries, over blocks, lengths and strides."""
     from turbodiffusion_tpu_torch.ops import _build
     lib = _build.load()
     base = 1 << 20
@@ -329,6 +331,34 @@ def test_form_functions_agree_with_the_c_entries(dev):
                     ptrs = [base + off, base, base + 64, *tables]
                     assert (fn.rmsrope_form(H, Dh, ld, *ptrs) == "vector") == bool(
                         lib.tdx_rmsnorm_rope_form(*ptrs, ld, H, Dh)), (H, Dh, ld, off)
+    # K3 and K28: 1 the wgmma kernel, 0 the mma.sync loop, -1 refused
+    code = {"wgmma": 1, "mma": 0}
+
+    def py_form(form_fn, *args):
+        try:
+            return code[form_fn(*args)]
+        except ValueError:
+            return -1
+
+    import ctypes
+    L = 32760
+    for bq, bk in ((512, 256), (512, 128), (128, 128), (512, 64), (128, 64), (64, 64),
+                   (256, 384), (192, 256), (96, 64), (512, 32), (0, 256)):
+        for kv_len in (L, 1000, 1, 0):
+            for st in ([L * 12 * 128, 12 * 128, 128] * 4,
+                       [3 * L * 1536, 3 * 1536, 128] * 3 + [L * 1536, 1536, 128],
+                       [L * 12 * 132, 12 * 132, 132] + [L * 1536, 1536, 128] * 3):
+                arr = (ctypes.c_int64 * 12)(*st)
+                assert py_form(fa.sparse_flash_form, bq, bk, kv_len, *st) == \
+                    lib.tdx_sparse_flash_attention_form(bq, bk, kv_len, arr), (bq, bk, kv_len, st)
+    LP = 32768
+    for bq, bk in ((512, 256), (512, 128), (128, 128), (512, 64), (128, 64), (64, 64),
+                   (192, 256), (96, 64), (512, 100)):
+        for Lp, Lkp in ((LP, LP), (1536, 1536), (9728, 9472), (LP, 32760)):
+            for kv_len in (Lkp, Lkp - 8, 1, 0, Lkp + 1):
+                assert py_form(si8.sparse_i8_planes_bs_form, Lp, Lkp, kv_len, bq, bk) == \
+                    lib.tdx_sparse_attention_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk), \
+                    (Lp, Lkp, kv_len, bq, bk)
 
 
 @pytest.mark.cuda
@@ -340,6 +370,56 @@ def test_k3_matches_plain(dev, L, bq, bk):
     got = fa.sparse_flash_attention(q, k, v, lut, bq, bk)
     assert fa._sparse_flash_cuda.launches == before + 1
     _close(got, fa.sparse_flash_attention_plain(q, k, v, lut, bq, bk))
+
+
+K3_CASES = ["ragged kv_len", "LUT ids out of range, a row with no live chunk",
+            "batch 2", "qkv view", "40 heads", "NaN tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("bq,bk", [(512, 256), (128, 128)])
+def test_k3_wgmma_form_matches_plain(dev, bq, bk, case):
+    """K3's wgmma form (K4's kernel walking the LUT) against its plain
+    version, Lq 1,100 (a ragged last tile): kv_len 900 of 1,100 keys (the
+    LUT's last block wholly past it); LUT entries -1 and nK + 3 in every row
+    and a row whose only live id names a block past kv_len (zero rows); batch
+    2; q, k, v column groups of a fused QKV buffer; 40 heads (Lq 600); NaN in
+    k and v past kv_len (held against the plain version on the live keys)."""
+    B = 2 if case == "batch 2" else 1
+    H = 40 if case == "40 heads" else HEADS
+    L = 600 if case == "40 heads" else 1100
+    kv_len = L if case in ("batch 2", "qkv view", "40 heads") else 900
+    if case == "qkv view":
+        qkv = _randn(dev, 1, L, 3 * H * DH, seed=81).bfloat16()
+        q, k, v = (qkv[..., i * H * DH:(i + 1) * H * DH].unflatten(-1, (H, DH))
+                   for i in range(3))
+    else:
+        q, k, v = (_randn(dev, B, L, H, DH, seed=s).bfloat16() for s in (82, 83, 84))
+    nQ, nK = -(-L // bq), -(-L // bk)
+    sel = nK // 2 + 2
+    r = np.random.RandomState(85)
+    a = np.stack([r.permutation(nK)[:sel] for _ in range(B * H * nQ)]).reshape(
+        B, H, nQ, sel).astype(np.int32)
+    if case.startswith("LUT"):
+        a[..., 0], a[..., 1] = -1, nK + 3
+        a[0, 0, 0] = -1
+        a[0, 0, 0, 0] = nK - 1             # starts at or past kv_len: no live chunk
+        assert (nK - 1) * bk >= kv_len
+    lut = torch.from_numpy(a).to(dev)
+    assert fa.sparse_flash_form(bq, bk, kv_len, *fa._strides(q, k, v)) == "wgmma"
+    want_k, want_v = k, v
+    if case == "NaN tail":
+        want_k, want_v = k[:, :kv_len], v[:, :kv_len]
+        k, v = k.clone(), v.clone()
+        k[:, kv_len:], v[:, kv_len:] = float("nan"), float("nan")
+    before = fa._sparse_flash_cuda.launches
+    got = fa.sparse_flash_attention(q, k, v, lut, bq, bk, kv_len=kv_len)
+    assert fa._sparse_flash_cuda.launches == before + 1
+    want = fa.sparse_flash_attention_plain(q, want_k, want_v, lut, bq, bk, kv_len=kv_len)
+    _close(got, want)
+    if case.startswith("LUT"):
+        assert torch.equal(got[0, :bq, 0], torch.zeros_like(got[0, :bq, 0]))
 
 
 @pytest.mark.cuda
@@ -1111,6 +1191,58 @@ def test_k28_matches_plain_and_ignores_a_poisoned_tail(dev, L, bq, bk):
     pk[:, :, L:] = 127
     poisoned = si8.sparse_attention_i8_planes(qi, qs, pk, None, None, lut, **kw)
     assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
+
+
+K28_CASES = ["ragged kv_len", "LUT ids out of range, a row with no live chunk",
+             "batch 2", "40 heads", "NaN tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K28_CASES)
+@pytest.mark.parametrize("bq,bk", [(512, 256), (128, 128)])
+def test_k28_wgmma_form_matches_plain(dev, bq, bk, case):
+    """K28's wgmma form (K7's kernel on K27's packed K|V rows) against its
+    plain version at kv_len 1,000 of 1,024 padded rows: as it is; LUT
+    entries -1 and nK + 3 in every row and a row whose only live id names a
+    block past kv_len (zero rows; kv_len 700); batch 2; 40 heads; K|V rows past kv_len
+    poisoned to +127 and q row scales past it NaN (rows before kv_len
+    bit-equal to the clean run's)."""
+    B = 2 if case == "batch 2" else 1
+    H = 40 if case == "40 heads" else HEADS
+    L, Lp = (700 if case.startswith("LUT") else 1000), 1024
+    k = _randn(dev, B, H, Lp, DH, seed=91, std=2.0)
+    k[:, :, L:] = 0
+    k = (k + 0.5).bfloat16()
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    vi, vcs = si8.quantize_v_per_channel(_randn(dev, B, H, Lp, DH, seed=92).bfloat16(), L)
+    qi, qs = sf._quant_rows(_randn(dev, B, H, Lp, DH, seed=93, std=3.0))
+    kvi, ksb = sf.subquant_pack_kv_plain(k, mu, vi, bk, L)
+    nQ, nK = Lp // bq, Lp // bk
+    sel = nK // 2 + 2
+    r = np.random.RandomState(94)
+    a = np.stack([r.permutation(nK)[:sel] for _ in range(B * H * nQ)]).reshape(
+        B, H, nQ, sel).astype(np.int32)
+    if case.startswith("LUT"):
+        a[..., 0], a[..., 1] = -1, nK + 3
+        a[0, 0, 0] = -1
+        a[0, 0, 0, 0] = nK - 1             # starts at or past kv_len: no live chunk
+        assert (nK - 1) * bk >= L
+    lut = torch.from_numpy(a).to(dev)
+    assert si8.sparse_i8_planes_bs_form(Lp, Lp, L, bq, bk) == "wgmma"
+    kw = dict(block_q=bq, block_k=bk, kv_len=L, k_block_scale=ksb, v_channel_scale=vcs)
+    before = si8._sparse_i8_planes_bs_cuda.launches
+    got = si8.sparse_attention_i8_planes(qi, qs, kvi, None, None, lut, **kw)
+    assert si8._sparse_i8_planes_bs_cuda.launches == before + 1
+    want = si8.sparse_attention_i8_planes_bs_plain(qi, qs, kvi, ksb, vcs, lut, block_q=bq,
+                                                   block_k=bk, kv_len=L)
+    _close(got[:, :, :L], want[:, :, :L])
+    if case.startswith("LUT"):
+        assert torch.equal(got[0, 0, :bq], torch.zeros_like(got[0, 0, :bq]))
+    if case == "NaN tail":
+        pk, pqs = kvi.clone(), qs.clone()
+        pk[:, :, L:], pqs[:, :, L:] = 127, float("nan")
+        poisoned = si8.sparse_attention_i8_planes(qi, pqs, pk, None, None, lut, **kw)
+        assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
 
 
 @pytest.mark.cuda

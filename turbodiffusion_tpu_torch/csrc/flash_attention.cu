@@ -27,8 +27,19 @@
 // ~1.0e11 FLOPs, all well above the ridge (K14's q in and int8 out are
 // 150 MB, 0.045 ms at 3.35 TB/s).
 //
-// K3 (`sparse_flash_fwd_kernel`) is FlashAttention-2 on mma.sync m16n8k16
-// (bf16 in, fp32 accumulate):
+// K3 takes two forms by its blocks (`k3_form`; ops/flash_attention.py
+// `sparse_flash_form`). At blocks that are multiples of 128 (the paths'
+// 512/256) it is K4's kernel with its chunk walk a template flag,
+// `k4::flash_fwd_kernel<true>` (below): a 128-row tile lies in one Q block
+// and reads LUT row tile * 128 / block_q; the producer and both consumers
+// walk the same list of 128-key chunks (each LUT entry in order, an id
+// outside [0, nK) skipped, the chunks of its block that start before
+// kv_len); the blocks walk the tiles of one head in turn, so the four tiles
+// of a 512-row Q block read the same K / V chunks, and the head's K and V
+// (16.8 MB at 480p), from L2; a LUT row with no live chunk gives zero rows.
+// At the other multiples of 64 (`sla` at --sla_block 64: 512/64) it is
+// `sparse_flash_fwd_kernel`, FlashAttention-2 on mma.sync m16n8k16 (bf16
+// in, fp32 accumulate):
 //   * one block of 4 warps owns 64 query rows of one (batch, head); each warp
 //     owns 16 rows and keeps its Q fragments, its 16x128 fp32 output
 //     accumulator and its running max / sum in registers;
@@ -39,12 +50,16 @@
 //     without touching shared memory;
 //   * the online softmax runs in the log2 domain (scale * log2 e folded in).
 // The TPU kernel's grouped K/V gather ring, LUT rings and (B*H) fold with
-// head-dim padding are not carried over: the kernel reads (B, L, H, Dh)
-// through strides, loops over exactly `sel` LUT entries, skips the chunks
-// that lie wholly past kv_len, zero-fills rows past kv_len, masks columns
-// >= kv_len to -1e30 before the row max, and never writes rows past Lq.
+// head-dim padding are carried over by neither form: both read (B, L, H, Dh)
+// through strides, walk exactly the LUT's entries, skip the chunks that lie
+// wholly past kv_len, read rows past kv_len as zeros, mask columns >= kv_len
+// before the row max, and never write rows past Lq. On an H100 80GB HBM3
+// (tools/time_k3_k28.py, PERF.md) the wgmma form takes 1.05 ms at the 1.3B
+// 480p `sla` call (12 of 128 K blocks; bound 0.63) and 3.41 ms at the 14B's
+// (2.08), 63-68% of the bf16 peak like K4's; the mma.sync form at 512/64
+// 4.41 ms (17%).
 //
-// K4 (`k4::dense_fwd_kernel`) is Hopper's warp-specialised attention
+// K4 (`k4::flash_fwd_kernel<false>`) is Hopper's warp-specialised attention
 // (FlashAttention-3's forward shape, K7's in bf16):
 //   * persistent blocks, one an SM, walk 128-row query tiles of every (b,
 //     h) (tiles of one head in turn, so the blocks at work share its K and V
@@ -322,7 +337,8 @@ sparse_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K4: k4::dense_fwd_kernel (warp-specialised, wgmma fed by TMA)
+// K4 and K3: k4::flash_fwd_kernel<SPARSE> (warp-specialised, wgmma fed by
+// TMA)
 // ---------------------------------------------------------------------------
 
 namespace k4 {
@@ -348,13 +364,56 @@ constexpr float kMaskedLogit = -__builtin_huge_valf();   // a key >= kv_len: p =
 struct Params {
   int B, H, Lq, kv_len;
   float scale_log2;
+  // K3: the LUT (B, H, nQ, sel) of K-block ids, block_q query rows a Q
+  // block, block_k keys a K block, nK = ceil(kv_len / block_k) K blocks
+  // that hold a key before kv_len
+  const int* lut;
+  int nQ, sel, block_q, block_k, nK;
+};
+
+// The 128-key chunks one tile attends to, in order; the producer and both
+// consumers each walk the same list. Dense (K4): every chunk of [0,
+// kv_len). Sparse (K3, K7's rule): the LUT entries of the tile's Q block in
+// order, an id outside [0, nK) skipped, and of each K block the chunks that
+// start before kv_len (a chunk's tail past kv_len reads as zeros and is
+// masked before the row max).
+template <bool SPARSE>
+struct ChunkWalk {
+  const int* ids;   // the tile's LUT row (sparse)
+  int j, kb, off, end;   // next entry; the block, its next chunk's offset, its keys
+
+  __device__ __forceinline__ ChunkWalk(const Params& p, int b, int h, int tile)
+      : ids(nullptr), j(0), kb(0), off(0), end(SPARSE ? 0 : p.kv_len) {
+    if (SPARSE)
+      ids = p.lut + (((long long)b * p.H + h) * p.nQ + tile * kRows / p.block_q) * p.sel;
+  }
+
+  // the next chunk's first key, or -1 past the last
+  __device__ __forceinline__ int next(const Params& p) {
+    if (SPARSE) {
+#pragma unroll 1
+      while (off >= end) {
+        if (j >= p.sel) return -1;
+        kb = __ldg(ids + j++);
+        off = 0;
+        end = kb >= 0 && kb < p.nK ? min(p.block_k, p.kv_len - kb * p.block_k) : 0;
+      }
+      const int key0 = kb * p.block_k + off;
+      off += kKeys;
+      return key0;
+    }
+    if (off >= end) return -1;
+    off += kKeys;
+    return off - kKeys;
+  }
 };
 
 // Grid: min(tiles, SMs) persistent blocks. A tile is 128
-// query rows of one (b, h); tile t of the walk is (b, h) = t / n_tiles, rows
-// 128 (t % n_tiles), and block x takes tiles x, x + grid, ... Producer
-// thread 0 loads each tile's Q (two 64-channel boxes) into one of two Q
-// buffers and each 128-key chunk's K and V (as they lie: keys x channels)
+// query rows of one (b, h) (K3: inside one Q block, block_q a multiple of
+// 128); tile t of the walk is (b, h) = t / n_tiles, rows 128 (t % n_tiles),
+// and block x takes tiles x, x + grid, ... Producer thread 0 loads each
+// tile's Q (two 64-channel boxes) into one of two Q buffers and each
+// 128-key chunk of its ChunkWalk's K and V (as they lie: keys x channels)
 // into a 2-stage ring, running ahead across tiles. Each consumer warpgroup
 // owns 64 rows of every tile: S = Q K^T on wgmma bf16 from shared memory,
 // the online softmax in fp32 registers, O += bf16(P) V on wgmma with P in
@@ -364,8 +423,9 @@ struct Params {
 // released once that store has read it. Fragment of a consumer thread (warp
 // w, lane l): register i holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column
 // 8 (i >> 2) + 2 (l & 3) + (i & 1).
+template <bool SPARSE>
 __global__ void __launch_bounds__(kThreadsK4, 1)
-dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                  const Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -379,7 +439,6 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int tid = threadIdx.x;
   const int n_tiles = (p.Lq + kRows - 1) / kRows;
   const int n_items = p.B * p.H * n_tiles;
-  const int n_chunks = (p.kv_len + kKeys - 1) / kKeys;
 
   if (tid == 0) {
 #pragma unroll 1
@@ -412,8 +471,9 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         mbar_arrive_expect_tx(qbar, kTile);
         tma_load_4d(&tm_q, qd, qbar, 0, h, tile * kRows, b);
         tma_load_4d(&tm_q, qd + kBox, qbar, 64, h, tile * kRows, b);
+        ChunkWalk<SPARSE> walk(p, b, h, tile);
 #pragma unroll 1
-        for (int j = 0; j < n_chunks; ++j, ++c) {
+        for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
           // K and V have barriers of their own: a chunk's K is free once
           // both consumers' QK has read it, a chunk before its V
           const int s = c % kStages, ph = ((c / kStages) & 1) ^ 1;
@@ -421,12 +481,12 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           const uint32_t kbar = kfull0 + 8 * s, vbar = vfull0 + 8 * s;
           if (c >= kStages) mbar_wait(kempty0 + 8 * s, ph);
           mbar_arrive_expect_tx(kbar, kTile);
-          tma_load_4d(&tm_k, kd, kbar, 0, h, j * kKeys, b);
-          tma_load_4d(&tm_k, kd + kBox, kbar, 64, h, j * kKeys, b);
+          tma_load_4d(&tm_k, kd, kbar, 0, h, key0, b);
+          tma_load_4d(&tm_k, kd + kBox, kbar, 64, h, key0, b);
           if (c >= kStages) mbar_wait(vempty0 + 8 * s, ph);
           mbar_arrive_expect_tx(vbar, kTile);
-          tma_load_4d(&tm_v, vd, vbar, 0, h, j * kKeys, b);
-          tma_load_4d(&tm_v, vd + kBox, vbar, 64, h, j * kKeys, b);
+          tma_load_4d(&tm_v, vd, vbar, 0, h, key0, b);
+          tma_load_4d(&tm_v, vd + kBox, vbar, 64, h, key0, b);
         }
       }
     }
@@ -465,8 +525,9 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     int prev = -1;   // the stage of the chunk whose P V is pending
     mbar_wait(qfull0 + 8 * qb, (n / kQBufs) & 1);
+    ChunkWalk<SPARSE> walk(p, b, h, tile);
 #pragma unroll 1
-    for (int j = 0; j < n_chunks; ++j, ++c) {
+    for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
       const int s = c % kStages;
       const uint32_t kb = st0 + s * 2 * kTile;
       mbar_wait(kfull0 + 8 * s, (c / kStages) & 1);
@@ -486,7 +547,7 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_wait<0>();
       reg_fence<64>(sc);
       if (lt == 0) mbar_arrive(kempty0 + 8 * s);   // this chunk's K is read
-      if (j == 0 && pend >= 0) {
+      if (pend >= 0) {
         // the previous tile's O store has read its Q buffer: release it
         // (after the wait: a divergent block inside the products' window
         // made ptxas serialize every wgmma)
@@ -502,7 +563,7 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // positive, so the row max of s times scale * log2 e is the max of
       // the scaled logits; p = exp2(s * scale_log2 - max), one FFMA and the
       // SFU's exp2
-      const int nvalid = p.kv_len - j * kKeys;
+      const int nvalid = p.kv_len - key0;
       if (nvalid < kKeys) {
 #pragma unroll
         for (int e = 0; e < 64; ++e)
@@ -538,15 +599,26 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
       prev = s;
     }
-    // the last chunk's P V
-    reg_fence<64>(o);
-    reg_fence<32>(pa);
-    wgmma_fence();
-    issue_pv(prev, c - 1);
-    wgmma_wait<0>();
-    reg_fence<64>(o);
-    reg_fence<32>(pa);
-    if (lt == 0) mbar_arrive(vempty0 + 8 * prev);
+    // the last chunk's P V (K3: a LUT row with no chunk before kv_len has
+    // none, and its rows are 0 / max(0, 1e-20) = 0)
+    if (prev >= 0) {
+      reg_fence<64>(o);
+      reg_fence<32>(pa);
+      wgmma_fence();
+      issue_pv(prev, c - 1);
+      wgmma_wait<0>();
+      reg_fence<64>(o);
+      reg_fence<32>(pa);
+      if (lt == 0) mbar_arrive(vempty0 + 8 * prev);
+    }
+    if (pend >= 0) {
+      // no chunk released the previous tile's Q buffer: release it now
+      if (lt == 0) {
+        tma_store_wait_read();
+        mbar_arrive(qempty0 + 8 * pend);
+      }
+      pend = -1;
+    }
 
     // o = O / max(l, 1e-20) in bf16, into this warpgroup's own Q rows (its
     // last QK is done) as the TMA store reads them: 16-byte chunk ch of row
@@ -578,10 +650,15 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   if (lt == 0) tma_store_wait_all();
 }
 
+// K3 (SPARSE, over the LUT (B, H, ceil(Lq / block_q), sel)) or K4
+template <bool SPARSE>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
            int kv_len, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-           void* stream) {
+           const int* lut, int sel, int block_q, int block_k, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || kv_len <= 0) return (int)cudaErrorInvalidValue;
+  if (SPARSE && (block_q <= 0 || block_q % kRows || block_k <= 0 || block_k % kKeys ||
+                 sel < 0 || !lut))
+    return (int)cudaErrorInvalidValue;
   // TMA: 16-byte aligned bases and strides
   const Strides st[4] = {qs, ks, vs, os};
   const void* ptr[4] = {q, k, v, o};
@@ -591,14 +668,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   static int n_sm = 0;
   static const int ready = [] {
     cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, dense_fwd_kernel);
+    cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_kernel<SPARSE>);
     if (err != cudaSuccess) return (int)err;
     // the register count setmaxnreg assumes (else refuse, not hang)
     if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    return (int)cudaFuncSetAttribute(dense_fwd_kernel,
+    return (int)cudaFuncSetAttribute(flash_fwd_kernel<SPARSE>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   }();
   if (ready != 0) return ready;
@@ -611,8 +688,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const long long items = (long long)B * H * ((Lq + kRows - 1) / kRows);
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items > n_sm ? n_sm : (int)items;
-  dense_fwd_kernel<<<grid, kThreadsK4, kSmem, (cudaStream_t)stream>>>(
-      tq, tk, tv, to, Params{B, H, Lq, kv_len, scale * kLog2e});
+  const Params p{B, H, Lq, kv_len, scale * kLog2e, lut,
+                 SPARSE ? (Lq + block_q - 1) / block_q : 0, sel, block_q, block_k,
+                 SPARSE ? (kv_len + block_k - 1) / block_k : 0};
+  flash_fwd_kernel<SPARSE><<<grid, kThreadsK4, kSmem, (cudaStream_t)stream>>>(tq, tk, tv, to, p);
   return (int)cudaGetLastError();
 }
 
@@ -1510,7 +1589,26 @@ int launch(const void* q, const void* norm_w, const void* ri, const void* k, con
 
 }  // namespace k14
 
+// The kernel a K3 launch takes (ops/flash_attention.py `sparse_flash_form`
+// mirrors it): 1, `k4::flash_fwd_kernel<true>`, for blocks that are
+// multiples of 128 (a 128-row tile lies in one Q block; K blocks are whole
+// 128-key chunks); 0, `sparse_flash_fwd_kernel`, for the other multiples of
+// 64 (`sla` at --sla_block 64: 512/64); -1, refused: other blocks, no key, or
+// a stride (elements; q, k, v, o by batch, token, head) off 16 bytes,
+// which neither form reads (TMA boxes, 16-byte vectors).
+int k3_form(int block_q, int block_k, int kv_len, const long long* strides) {
+  if (block_q <= 0 || block_k <= 0 || block_q % kBM || block_k % kBN || kv_len <= 0) return -1;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return -1;
+  return block_q % k4::kRows == 0 && block_k % k4::kKeys == 0 ? 1 : 0;
+}
+
 }  // namespace
+
+extern "C" int tdx_sparse_flash_attention_form(int block_q, int block_k, int kv_len,
+                                               const long long* strides) {
+  return k3_form(block_q, block_k, kv_len, strides);
+}
 
 extern "C" int tdx_sparse_flash_attention(
     const void* q, const void* k, const void* v, void* o, const void* lut,
@@ -1518,6 +1616,14 @@ extern "C" int tdx_sparse_flash_attention(
     long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
     long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
     long long osl, long long osh, float scale, void* stream) {
+  const long long st[12] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
+  const int form = k3_form(block_q, block_k, kv_len, st);
+  if (form < 0 || nQ != (Lq + block_q - 1) / block_q) return (int)cudaErrorInvalidValue;
+  if (form == 1)
+    return k4::launch<true>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                            Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                            Strides{osb, osl, osh}, scale, (const int*)lut, sel, block_q,
+                            block_k, stream);
   dim3 grid((Lq + kBM - 1) / kBM, H, B);
   sparse_flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -1569,9 +1675,9 @@ extern "C" int tdx_flash_attention(
     int kv_len, long long qsb, long long qsl, long long qsh, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
     long long osb, long long osl, long long osh, float scale, void* stream) {
-  return k4::launch(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
-                    Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh},
-                    scale, stream);
+  return k4::launch<false>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                           Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                           Strides{osb, osl, osh}, scale, nullptr, 0, 0, 0, stream);
 }
 
 

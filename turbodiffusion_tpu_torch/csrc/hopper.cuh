@@ -1,4 +1,5 @@
-// What the Hopper kernels share (K4, K7, K9, K10 / K11, K14 / K17, K22):
+// What the Hopper kernels share (K3 / K4, K7 / K28, K9, K10 / K11, K14 / K17,
+// K22):
 // mbarriers, thread-block clusters and their distributed shared memory, TMA
 // tile copies with 128-byte swizzle and their tensor maps, wgmma descriptors
 // and the wgmma instructions the kernels issue, and the register-level steps
@@ -436,16 +437,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) int8 or bf16 matrix in tiles of (box_rows, 128
-// bytes), 128-byte swizzle; rows and columns past the matrix read as zero
-// and are not written
+// a row-major (rows, cols) int8 or bf16 matrix whose rows lie `ld`
+// elements apart (cols when 0; K28's K and V halves of 256-byte rows) in
+// tiles of (box_rows, 128 bytes), 128-byte swizzle; rows and columns past
+// the matrix read as zero and are not written
 bool tile_map(CUtensorMap* map, const void* ptr, bool bf16, long long rows, int cols,
-              int box_rows) {
+              int box_rows, int ld = 0) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const int esize = bf16 ? 2 : 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld ? ld : cols) * esize};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,

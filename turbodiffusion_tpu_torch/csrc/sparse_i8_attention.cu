@@ -90,7 +90,22 @@
 //    max (K27 quantises rows past kv_len, which may have been NaN, with the
 //    block's scale; they never reach a live score), exp2, O += bf16(p)
 //    bf16(v_i8), o = O / max(l, 1e-20) * vch. Bound like K7 (the same
-//    pair count; K19's gather of 256-byte rows, one stream a key).
+//    pair count). Two forms by its blocks (`k28_form`;
+//    ops/sparse_i8_attention.py `sparse_i8_planes_bs_form`): at multiples
+//    of 128 (fused sagesla's blocks) K7's kernel with its source layout a
+//    template flag, `k7::sparse_i8_vt_kernel<true>`: producer warp 0 loads
+//    K by TMA as 128 keys x 128 bytes at column 0 of the packed 256-byte
+//    rows and V at column 128 (keys x channels, a map of the same rows), its
+//    warps 1-3 convert V with K7's exact integer conversion into a 128-byte
+//    swizzled MN-major bf16 tile, which P V's wgmma reads with the transpose
+//    bit as K4 reads bf16 V; K7's scoring, tail mask, chunk walk and
+//    finalize as they are, the (B, H, nK) table times scale * log2 e in fp32
+//    the K scale (the product K7 takes of its own table). At the other
+//    multiples of 64, `sparse_i8_planes_kernel<true>`: K19's mma.sync loop
+//    with that scoring, the 64-key chunks of each K block staged
+//    synchronously. On an H100 80GB HBM3 (tools/time_k3_k28.py, PERF.md)
+//    the wgmma form takes 3.74 ms at the 1.3B topk-0.3 call (38 of 128 K
+//    blocks; bound 1.48), as K7 does on the same LUT.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +128,8 @@ constexpr float kMasked = -1e9f;             // score of a key >= kv_len
 constexpr int kMaskedS32 = -(1 << 22);       // K7: below every int8 QK sum
 
 // ---------------------------------------------------------------------------
-// K7: sparse_i8_vt_kernel (warp-specialised, wgmma fed by TMA)
+// K7 and K28: k7::sparse_i8_vt_kernel<PACKED> (warp-specialised, wgmma fed
+// by TMA)
 // ---------------------------------------------------------------------------
 
 namespace k7 {
@@ -176,13 +192,15 @@ __device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
 // warpgroup loads Q once and, for each chunk, K (keys x 128 int8, as K6
 // writes it) and V^T (128 channels x the chunk's keys) by TMA into a 3-stage
 // ring; warps 1-3 convert each chunk's V to bf16 once, into the K-major
-// swizzled layout wgmma reads. Each consumer warpgroup owns 64 rows: S = Q
+// swizzled layout wgmma reads. PACKED (K28): K and V are the two halves of
+// K27's 256-byte rows, V keys x channels, converted into an MN-major tile. Each consumer warpgroup owns 64 rows: S = Q
 // K^T on wgmma s8 (Q and K from shared memory), the scales, the tail mask
 // and the online softmax in fp32 registers, then O += bf16(P) V on wgmma
 // bf16 with P in registers (the m16n8k16 A fragment the S accumulator
 // already is). Fragment of a consumer thread (warp w, lane l): register i
 // holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) +
 // (i & 1).
+template <bool PACKED>
 __global__ void __launch_bounds__(kThreadsK7, 1)
 sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -235,15 +253,23 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
         const uint32_t st = base + kQBytes + s * kStageBytes, full = full0 + 8 * s;
+        const int krow = (int)(bh * p.Lkp + kb * p.block_k + off);
         mbar_arrive_expect_tx(full, kKBytes + kViBytes);
-        tma_load(&tm_k, st, full, 0, (int)(bh * p.Lkp + kb * p.block_k + off));
-        tma_load(&tm_v, st + kKBytes, full, off, (int)((bh * nK + kb) * kDh));
+        tma_load(&tm_k, st, full, 0, krow);
+        if (PACKED)   // the V half of the same rows: keys x channels
+          tma_load(&tm_v, st + kKBytes, full, 0, krow);
+        else
+          tma_load(&tm_v, st + kKBytes, full, off, (int)((bh * nK + kb) * kDh));
         ++i;
       });
     } else if (tid >= 32) {
       // ---- V: int8 -> bf16, once a chunk ----
-      // unit u: channel row d, 16 keys q; eight lanes take eight rows of one
-      // q, so both the swizzled reads and the swizzled writes hit 32 banks
+      // unit u: row d of the swizzled int8 tile (a channel of V^T; PACKED:
+      // a key of V as it lies), its 16 bytes q -> half q / 4 of the bf16
+      // tile (a K-major atom of 64 keys; PACKED: an MN-major box of 64
+      // channels), the same bytes moved either way; eight lanes take eight
+      // rows of one q, so both the swizzled reads and the swizzled writes
+      // hit 32 banks
       const int ct = tid - 32;
       int i = 0;
       for_chunks([&](int, int) {
@@ -257,7 +283,7 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
           const uint4 w = *reinterpret_cast<const uint4*>(vi + d * kKeys + ((q ^ (d & 7)) << 4));
           const uint2 b0 = i8x4_bf16(w.x), b1 = i8x4_bf16(w.y), b2 = i8x4_bf16(w.z),
                       b3 = i8x4_bf16(w.w);
-          // keys 16 q .. 16 q + 15: atom q / 4, 16-byte chunks 2 (q % 4) and + 1
+          // bytes 16 q .. 16 q + 15: half q / 4, 16-byte chunks 2 (q % 4) and + 1
           unsigned char* row = vb + (q >> 2) * kVbAtom + d * 128;
           const int c0 = 2 * (q & 3);
           *reinterpret_cast<uint4*>(row + ((c0 ^ (d & 7)) << 4)) = make_uint4(b0.x, b0.y, b1.x, b1.y);
@@ -291,13 +317,20 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
   int sc[64];
   uint32_t pa[32];
 
-  // O += bf16(P) V of the chunk in stage s (V^T converted, two 64-key atoms)
+  // O += bf16(P) V of the chunk in stage s: V^T converted, two 64-key atoms
+  // (K-major); PACKED: V converted as it lies, keys x channels (MN-major,
+  // the transpose bit: a 16-key step is two 8-row groups, 2048 bytes, the
+  // next 64 channels one box on), as K4 reads bf16 V
   auto issue_pv = [&](int s, int i) {
     mbar_wait(ready0 + 8 * s, (i / kStages) & 1);
     const uint32_t vb = base + kQBytes + s * kStageBytes + kKBytes + kViBytes;
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_bf16_rs(o, pa + 4 * kk, sw128_desc(vb + (kk >> 2) * kVbAtom + (kk & 3) * 32));
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      if (PACKED)
+        wgmma_bf16_rs<1>(o, pa + 4 * kk, sw128_desc_mn(vb + kk * 2048, kVbAtom));
+      else
+        wgmma_bf16_rs(o, pa + 4 * kk, sw128_desc(vb + (kk >> 2) * kVbAtom + (kk & 3) * 32));
+    }
     wgmma_commit();
   };
 
@@ -409,7 +442,7 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
     o[4 * j + 3] = __fmul_rn(o[4 * j + 3] / l1, sc2.y);
   }
 
-  if (p.kvw != nullptr) {
+  if (!PACKED && p.kvw != nullptr) {
     // the SLA linear branch: o += phi(q) kvw / (1e-5 + phi(q) . ksum) + b,
     // phi and kvw in the stages once both warpgroups are done with them
     named_sync(1, 2 * kWG);
@@ -495,35 +528,43 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// K7 (kp the K panel, vtp the V^T panel) or, PACKED, K28 (kp the packed
+// (B, H, Lkp, 256) K|V rows; vtp unused: V is the second half of each row)
+template <bool PACKED>
 int launch(const void* qi, const void* kp, const void* vtp, const VtParams& p, int B,
            void* stream) {
   if (p.Lp % kRows || p.block_q % kRows || p.block_k % kKeys || p.Lkp % p.block_k)
     return (int)cudaErrorInvalidValue;
   static const int ready = [] {
     cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, sparse_i8_vt_kernel);
+    cudaError_t err = cudaFuncGetAttributes(&fa, sparse_i8_vt_kernel<PACKED>);
     if (err != cudaSuccess) return (int)err;
     // the register count setmaxnreg assumes (else refuse, not hang)
     if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
-    return (int)cudaFuncSetAttribute(sparse_i8_vt_kernel,
+    return (int)cudaFuncSetAttribute(sparse_i8_vt_kernel<PACKED>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   }();
   if (ready != 0) return ready;
   const long long bh = (long long)B * p.H;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(&tq, qi, false, bh * p.Lp, kDh, kRows) ||
-      !tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys) ||
-      !tile_map(&tv, vtp, false, bh * (p.Lkp / p.block_k) * kDh, p.block_k, kDh))
-    return (int)cudaErrorInvalidValue;
-  sparse_i8_vt_kernel<<<dim3(p.Lp / kRows, p.H, B), kThreadsK7, kSmem, (cudaStream_t)stream>>>(
-      tq, tk, tv, p);
+  // PACKED: K at column 0 and V at column 128 of the 256-byte rows
+  const bool maps =
+      tile_map(&tq, qi, false, bh * p.Lp, kDh, kRows) &&
+      (PACKED ? tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys, 2 * kDh) &&
+                    tile_map(&tv, (const int8_t*)kp + kDh, false, bh * p.Lkp, kDh, kKeys,
+                             2 * kDh)
+              : tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys) &&
+                    tile_map(&tv, vtp, false, bh * (p.Lkp / p.block_k) * kDh, p.block_k, kDh));
+  if (!maps) return (int)cudaErrorInvalidValue;
+  sparse_i8_vt_kernel<PACKED>
+      <<<dim3(p.Lp / kRows, p.H, B), kThreadsK7, kSmem, (cudaStream_t)stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace k7
 
 
-// K19 (BS false) and K28 (BS true). Grid (Lp / 64, H, B), 4 warps of 16
+// K19 (BS false) and K28 at blocks off 128 (BS true). Grid (Lp / 64, H, B), 4 warps of 16
 // query rows. K19: ks and vs are per-key row scales (B, H, Lkp) and `scale`
 // is Dh^-0.5; K28: ks is the per-block table (B, H, nK), vs the per-channel
 // V scale (B, H, 128) and `scale` is Dh^-0.5 * log2 e.
@@ -669,6 +710,19 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
   }
 }
 
+// The kernel a K28 launch takes (ops/sparse_i8_attention.py
+// `sparse_i8_planes_bs_form` mirrors it): 1, `k7::sparse_i8_vt_kernel<true>`,
+// for blocks that are multiples of 128 (fused sagesla's always are); 0,
+// `sparse_i8_planes_kernel<true>`, for the other multiples of 64; -1,
+// refused: other blocks, blocks that do not divide the padded lengths, or
+// kv_len outside (0, Lkp].
+int k28_form(int Lp, int Lkp, int kv_len, int block_q, int block_k) {
+  if (block_q <= 0 || block_k <= 0 || block_q % kBM || block_k % kBN || Lp <= 0 ||
+      Lp % block_q || Lkp <= 0 || Lkp % block_k || kv_len <= 0 || kv_len > Lkp)
+    return -1;
+  return block_q % k7::kRows == 0 && block_k % k7::kKeys == 0 ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" int tdx_sparse_attention_i8_vt(
@@ -694,7 +748,7 @@ extern "C" int tdx_sparse_attention_i8_vt(
   p.block_q = block_q;
   p.block_k = block_k;
   p.scale_log2 = scale_log2;
-  return k7::launch(qi, kp, vtp, p, B, stream);
+  return k7::launch<false>(qi, kp, vtp, p, B, stream);
 }
 
 extern "C" int tdx_sparse_attention_i8_planes(
@@ -710,11 +764,36 @@ extern "C" int tdx_sparse_attention_i8_planes(
   return (int)cudaGetLastError();
 }
 
+extern "C" int tdx_sparse_attention_i8_planes_bs_form(int Lp, int Lkp, int kv_len, int block_q,
+                                                      int block_k) {
+  return k28_form(Lp, Lkp, kv_len, block_q, block_k);
+}
+
 extern "C" int tdx_sparse_attention_i8_planes_bs(
     const void* qi, const void* qs, const void* kvi, const void* ks, const void* vch,
     const void* lut, void* out, int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel,
     int block_q, int block_k, float scale_log2, void* stream) {
-  if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
+  const int form = k28_form(Lp, Lkp, kv_len, block_q, block_k);
+  if (form < 0 || nQ != Lp / block_q) return (int)cudaErrorInvalidValue;
+  if (form == 1) {
+    k7::VtParams p = {};
+    p.qs = (const float*)qs;
+    p.ks = (const float*)ks;
+    p.vch = (const float*)vch;
+    p.lut = (const int*)lut;
+    p.qi = (const int8_t*)qi;
+    p.out = (__nv_bfloat16*)out;
+    p.H = H;
+    p.Lp = Lp;
+    p.Lkp = Lkp;
+    p.kv_len = kv_len;
+    p.nQ = nQ;
+    p.sel = sel;
+    p.block_q = block_q;
+    p.block_k = block_k;
+    p.scale_log2 = scale_log2;
+    return k7::launch<true>(qi, kvi, nullptr, p, B, stream);
+  }
   const dim3 grid(Lp / kBM, H, B);
   sparse_i8_planes_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)qi, (const float*)qs, (const int8_t*)kvi, (const float*)ks,

@@ -59,6 +59,9 @@ SIGNATURES = {
     # 12 strides (q, k, v, o: batch, token, head), scale, stream
     "tdx_sparse_flash_attention": [_P, _P, _P, _P, _P] + [_I] * 8
                                   + [_I64] * 12 + [_F, _P],
+    # the form K3 takes (1 wgmma, 0 mma.sync, -1 refused): block_q,
+    # block_k, kv_len, int64[12] strides
+    "tdx_sparse_flash_attention_form": [_I, _I, _I, _PI64],
     # q, k, v, o, lut, int8 K rows, K row scales, B, H, Lq, Lk, kv_len,
     # nQ, sel, block_q, block_k, 12 strides, scale, stream (K20)
     "tdx_sparse_flash_attention_i8qk": [_P] * 7 + [_I] * 9 + [_I64] * 12
@@ -113,6 +116,9 @@ SIGNATURES = {
     # qi, qs, kvi, K block scales, V channel scales, lut, out, the same
     # ints, scale*log2e, stream (K28)
     "tdx_sparse_attention_i8_planes_bs": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # the form K28 takes (1 wgmma, 0 mma.sync, -1 refused): Lp, Lkp,
+    # kv_len, block_q, block_k
+    "tdx_sparse_attention_i8_planes_bs_form": [_I] * 5,
     # x, x row stride, xq, row scales, M, K, stream
     "tdx_quantize_rows_int8": [_P, _I64, _P, _P, _I, _I, _P],
     # xq, w (N, K), row scales, col scales, bias, gate, residual, out,

@@ -6,7 +6,10 @@ The counterpart of `turbodiffusion_tpu/ops/flash_pallas.py`. Its TPU
 function `_flash_fwd_impl` (:1085-1269) runs the kernels that this
 module replaces with hand-written CUDA (csrc/flash_attention.cu):
   * K3 `_sparse_flash_cuda` ← the bf16 sparse branch (launch :1254, body
-    `_sparse_attn_kernel` :429-557): LUT-gather block-sparse flash;
+    `_sparse_attn_kernel` :429-557): LUT-gather block-sparse flash, in one
+    of two forms by its blocks (`sparse_flash_form`): K4's wgmma + TMA
+    kernel walking the LUT at multiples of 128 (the paths' 512/256), the
+    mma.sync loop at the other multiples of 64 (`sla` at --sla_block 64);
   * K4 `_flash_cuda` ← the dense branches (`_attn_kernel_onepass`
     :128-144, launch :1121; `_attn_kernel` without int8 QK :64-121, launch
     :1139).
@@ -248,7 +251,9 @@ def _sparse_gather_plain(q, k, v, lut, block_q: int, block_k: int,
                          scale: Optional[float], kv_len: Optional[int],
                          int8_qk: bool):
     """Each Q-block attends to the K-blocks its LUT row names, by gathering
-    them: the plain versions of K3 and (int8_qk) K20."""
+    them: the plain versions of K3 and (int8_qk) K20. An id outside [0, nK)
+    names no key, and a row with no key before kv_len is zero, as the
+    kernels give it."""
     B, L, H, D = q.shape
     Lk = k.shape[1]
     kv_len = Lk if kv_len is None else kv_len
@@ -267,9 +272,13 @@ def _sparse_gather_plain(q, k, v, lut, block_q: int, block_k: int,
     if int8_qk:
         (qb, qa), (kb, ka) = _quant_rows_i8qk(qb), _quant_rows_i8qk(kb)
     lut = lut.long()
+    named = (lut >= 0) & (lut < nK)
     bi = torch.arange(B, device=q.device)[:, None, None, None]
     hi = torch.arange(H, device=q.device)[None, :, None, None]
-    cols = lut[..., None] * block_k + torch.arange(block_k, device=q.device)
+    cols = torch.where(named[..., None],
+                       lut[..., None] * block_k + torch.arange(block_k, device=q.device),
+                       kv_len)
+    lut = torch.where(named, lut, 0)
     step = max(1, _PLAIN_LOGITS_BUDGET // (B * H * block_q * sel * block_k))
     out = torch.empty((B, H, nQ, block_q, D), dtype=q.dtype, device=q.device)
     for i0 in range(0, nQ, step):
@@ -287,7 +296,8 @@ def _sparse_gather_plain(q, k, v, lut, block_q: int, block_k: int,
             s = s * scale
         valid = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
         s = torch.where(valid, s, NEG_INF)
-        out[:, :, sl] = _softmax_pv(s, vg).to(q.dtype)
+        o = torch.where(valid.any(-1, keepdim=True), _softmax_pv(s, vg), 0.0)
+        out[:, :, sl] = o.to(q.dtype)
     out = out.reshape(B, H, nQ * block_q, D)[:, :, :L]
     return out.permute(0, 2, 1, 3).contiguous()
 
@@ -351,13 +361,30 @@ def _strides(*ts):
     return out
 
 
+def sparse_flash_form(block_q: int, block_k: int, kv_len: int, *strides: int) -> str:
+    """The kernel a K3 launch takes (csrc/flash_attention.cu `k3_form`):
+    "wgmma", K4's warp-specialised kernel walking the LUT
+    (`k4::flash_fwd_kernel<true>`), for blocks that are multiples of 128 (a
+    128-row tile lies in one Q block, a K block is whole 128-key chunks);
+    "mma", the mma.sync loop (`sparse_flash_fwd_kernel`), for the other
+    multiples of 64. kv_len and the strides (elements, q, k, v, o by batch,
+    token, head) do not change the form; raises where neither form
+    computes: other blocks, no key, a stride off 16 bytes."""
+    _require(block_q > 0 and block_k > 0 and block_q % 64 == 0
+             and block_k % 64 == 0,
+             f"K3 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    _require(kv_len > 0, f"K3 takes kv_len > 0, got {kv_len}")
+    _require(all(s % 8 == 0 for s in strides),
+             "K3 takes strides of 16-byte multiples")
+    return "wgmma" if block_q % 128 == 0 and block_k % 128 == 0 else "mma"
+
+
 def _sparse_flash_cuda(q, k, v, lut, block_q: int, block_k: int,
                        scale: float, kv_len: int):
-    """Launch K3."""
+    """Launch K3 in its form (`sparse_flash_form`)."""
     B, L, H, D = q.shape
     _check_qkv(q, k, v, kv_len)
-    _require(block_q % 64 == 0 and block_k % 64 == 0,
-             f"K3 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    sparse_flash_form(block_q, block_k, kv_len, *_strides(q, k, v))
     nQ = _cdiv(L, block_q)
     _require(lut.dim() == 4 and tuple(lut.shape[:3]) == (B, H, nQ)
              and lut.device == q.device,

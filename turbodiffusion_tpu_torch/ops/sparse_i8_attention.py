@@ -13,10 +13,13 @@ The counterpart of three functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
     per-row fp32 scales, K and V packed in rows (K18's layout); K28
     `_sparse_i8_planes_bs_cuda` replaces its block-scale form (launch
     :1363, body `_sparse_attn_kernel_i8b` :683-806, wrapper :1345-1390):
-    K19's walk over K27's packed rows with K7's scoring (one K scale a
-    block, the softmax scale and log2 e folded into it, exp2, -1e9 past
-    kv_len, per-channel V at the finalize), which fused sagesla takes at
-    v_quant "channel" once sel * block_k exceeds 8,192.
+    K7's scoring (one K scale a block, the softmax scale and log2 e folded
+    into it, exp2, -1e9 past kv_len, per-channel V at the finalize) over
+    K27's packed rows, which fused sagesla takes at v_quant "channel" once
+    sel * block_k exceeds 8,192; in one of two forms by its blocks
+    (`sparse_i8_planes_bs_form`): K7's wgmma + TMA kernel reading the
+    packed rows at multiples of 128, K19's mma.sync walk at the other
+    multiples of 64.
 
 K19's semantics (kernel and plain version), per query row r over the keys c
 of the selected K-blocks:
@@ -52,9 +55,9 @@ K7 is the faster of the two on the card.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
 K7 (wgmma fed by TMA, 128 query rows a block, 128-key chunks) takes block_q
-and block_k in multiples of 128 and 16-byte aligned q and panels; K19 and
-K28 multiples of 64. The wrappers check these before anything is built or
-launched.
+and block_k in multiples of 128 and 16-byte aligned q and panels, as does
+K28's wgmma form; K19 and K28's mma.sync form multiples of 64. The wrappers
+check these before anything is built or launched.
 """
 
 from __future__ import annotations
@@ -105,7 +108,9 @@ def sparse_attention_i8_vt_plain(qi, qs, k_panel, vt_panel, k_block_scale,
     gathered blocks, chunked over Q-blocks. qi (B, H, Lp, D) int8; qs
     (B, H, Lp) fp32; k_panel (B, H, Lkp, D) int8; vt_panel
     (B, H, nK, D, block_k) int8; k_block_scale (B, H, nK); v_channel_scale
-    (B, H, 1, D); lut (B, H, nQr, sel) int."""
+    (B, H, 1, D); lut (B, H, nQr, sel) int. An id outside [0, nK) names no
+    key, and a row with no key before kv_len is zero, as the kernel gives
+    it."""
     B, H, Lp, D = qi.shape
     Lkp = k_panel.shape[2]
     kv_len = Lkp if kv_len is None else kv_len
@@ -121,7 +126,11 @@ def sparse_attention_i8_vt_plain(qi, qs, k_panel, vt_panel, k_block_scale,
     vch = v_channel_scale.reshape(B, H, 1, 1, D).float()
     bi = torch.arange(B, device=dev)[:, None, None, None]
     hi = torch.arange(H, device=dev)[None, :, None, None]
-    cols = lut[..., None] * block_k + torch.arange(block_k, device=dev)
+    named = (lut >= 0) & (lut < nK)
+    cols = torch.where(named[..., None],
+                       lut[..., None] * block_k + torch.arange(block_k, device=dev),
+                       kv_len)
+    lut = torch.where(named, lut, 0)
     lin = lin_kvw is not None
     if lin:
         kvw = lin_kvw.reshape(B, H, 1, D, D).float()
@@ -143,7 +152,7 @@ def sparse_attention_i8_vt_plain(qi, qs, k_panel, vt_panel, k_block_scale,
         s = s32 * qsb[:, :, sl] * krow
         valid = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
         s = torch.where(valid, s, MASKED)
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        p = torch.where(valid, torch.exp2(s - s.amax(-1, keepdim=True)), 0.0)
         l = p.sum(-1, keepdim=True)
         pv = torch.matmul(p.bfloat16().float(), vg.float())
         o = pv / l.clamp_min(1e-20) * vch
@@ -351,10 +360,29 @@ def sparse_attention_i8_planes_bs_plain(qi, qs, kvi, k_block_scale,
         scale=scale, block_q=block_q, block_k=block_k, kv_len=kv_len)
 
 
+def sparse_i8_planes_bs_form(Lp: int, Lkp: int, kv_len: int, block_q: int,
+                             block_k: int) -> str:
+    """The kernel a K28 launch takes (csrc/sparse_i8_attention.cu
+    `k28_form`): "wgmma", K7's warp-specialised kernel on the packed K|V
+    rows (`k7::sparse_i8_vt_kernel<true>`), for blocks that are multiples
+    of 128 (fused sagesla's always are); "mma", the mma.sync loop
+    (`sparse_i8_planes_kernel<true>`), for the other multiples of 64.
+    Raises where neither computes: other blocks, blocks that do not divide
+    the padded lengths Lp / Lkp, kv_len outside (0, Lkp]."""
+    _require(block_q > 0 and block_q % 64 == 0 and Lp > 0 and Lp % block_q == 0,
+             f"K28 takes a Q block of a multiple of 64 rows dividing Lp, "
+             f"got {block_q}")
+    _require(block_k > 0 and block_k % 64 == 0 and Lkp > 0 and Lkp % block_k == 0,
+             f"K28 takes a K block of a multiple of 64 rows dividing Lk, "
+             f"got {block_k}")
+    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    return "wgmma" if block_q % _K7_TILE == 0 and block_k % _K7_TILE == 0 else "mma"
+
+
 def _sparse_i8_planes_bs_cuda(qi, qs, kvi, k_block_scale, v_channel_scale,
                               lut, scale: float, block_q: int, block_k: int,
                               kv_len: int):
-    """Launch K28."""
+    """Launch K28 in its form (`sparse_i8_planes_bs_form`)."""
     B, H, Lp, D = qi.shape
     Lkp = kvi.shape[2]
     dev = qi.device
@@ -362,15 +390,11 @@ def _sparse_i8_planes_bs_cuda(qi, qs, kvi, k_block_scale, v_channel_scale,
     _require(qi.dtype == kvi.dtype == torch.int8, "K28 takes int8 q and K|V")
     _require(tuple(kvi.shape) == (B, H, Lkp, 2 * D),
              "K28 takes packed K|V rows (B, H, Lk, 2D)")
-    _require(block_q % 64 == 0 and Lp % block_q == 0,
-             f"K28 takes a Q block of a multiple of 64 rows dividing Lp, "
-             f"got {block_q}")
-    _require(block_k % 64 == 0 and Lkp % block_k == 0,
-             f"K28 takes a K block of a multiple of 64 rows dividing Lk, "
-             f"got {block_k}")
-    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    sparse_i8_planes_bs_form(Lp, Lkp, kv_len, block_q, block_k)
     _require(all(t.is_contiguous() and t.device == dev for t in (qi, kvi)),
              "K28 takes contiguous tensors on one CUDA device")
+    _require(qi.data_ptr() % 16 == 0 and kvi.data_ptr() % 16 == 0,
+             "K28 takes 16-byte aligned q and K|V rows (TMA)")
     nQ, nK = Lp // block_q, Lkp // block_k
     qs = qs.float().reshape(B, H, Lp).contiguous()
     ks = k_block_scale.float().reshape(B, H, nK).contiguous()
