@@ -8,9 +8,9 @@ Phases, each printing one line of its numbers:
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
      and each kernel's ptxas registers (K1 / K2's row kernels must not
      spill, nor the wgmma kernels, K14 / K17's `k14::cross_qout_kernel`,
-     K3 / K4's `k4::flash_fwd_kernel` and K7 / K28's
-     `k7::sparse_i8_vt_kernel`, spill or serialize their wgmmas: ptxas
-     C7514);
+     K4 / K3 / K20's `k4::flash_fwd_kernel<0>` / `<1>` / `<2>` and K7 /
+     K28 / K19's `k7::sparse_i8_vt_kernel<0>` / `<1>` / `<2>`, spill or
+     serialize their wgmmas: ptxas C7514);
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
@@ -35,9 +35,11 @@ Phases, each printing one line of its numbers:
      rejecting a row scale doubled and the residual read one row off; K7
      also at blocks 128/128, at 32 of 128 K blocks (8,192 keys a row) and,
      at 40 heads, with the linear epilogue, rejecting the last LUT entry
-     dropped and the V channel scales doubled; K18 and K19 of the v_quant="row" path,
-     K20 at blocks 64/64 with 51 of 512 K blocks, K21 over the planes and
-     over (B, L, H, D); K4 also at batch 2, at a ragged Lq of 1,000, at
+     dropped and the V channel scales doubled; K18 and K19 of the v_quant="row" path
+     (K19 in its wgmma form, K7's kernel with a K and a V scale a key, at
+     512/256), K20 in its wgmma form (K4's kernel on int8 Q and K rows,
+     64-key chunks) at blocks 64/64 with 51 of 512 K blocks, each check
+     asserting its form, K21 over the planes and over (B, L, H, D); K4 also at batch 2, at a ragged Lq of 1,000, at
      kv_len 500 of 512 with NaN in k and v past it, with q, k and v read in
      place as fused-QKV column groups (q sharp, rejecting the scale
      doubled), and on a sharp q rejecting three planted faults (v read from
@@ -59,7 +61,9 @@ Phases, each printing one line of its numbers:
      K15, K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12, K8-K11 and
      K22 (also at a ragged M of 1,000) at dim 5120, FFN 13824; every
      int8 GEMM line with its TOP/s and share of the int8 peak), with
-     poisoned-tail checks of K7, K19 and K21: max absolute error under the
+     poisoned-tail checks of K7, K19 (NaN K and V scales past kv_len), K20
+     (NaN k and v rows past a kv_len of 30,000: the output bit-equal) and
+     K21: max absolute error under the
      stated tolerance (int8 outputs within 1 LSB; K19-K21 at atol 4e-3 +
      rtol 2e-2, each with planted faults the check must reject: a dropped
      LUT entry, K21's weight zeroed, v read from k, q doubled; K22 exact in
@@ -541,8 +545,8 @@ def phase1():
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
           f"(load {wall:.1f} s) | ptxas: {ptxas}", flush=True)
     # K1 and K2's warp-per-row kernels hold their rows in registers; K14 /
-    # K17's, K3 / K4's and K7 / K28's hold their S and O there, and their
-    # wgmmas must overlap
+    # K17's, K3 / K4 / K20's and K7 / K19 / K28's hold their S and O there,
+    # and their wgmmas must overlap
     spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS + _WGMMA_KERNELS)
                and (" spill" in k or " stack" in k)]
     if spilled:
@@ -1316,17 +1320,40 @@ def _k3_form(q, k, v, bq: int, bk: int, kv_len: int) -> str:
     return got
 
 
-def _k28_form(Lp: int, Lkp: int, kv_len: int, bq: int, bk: int) -> str:
-    """The form K28's C entry takes, which the package's
-    `sparse_i8_planes_bs_form` must name too."""
+def _k20_form(q, k, v, bq: int, bk: int, kv_len: int) -> str:
+    """The form K20's C entry takes for these operands (the output, freshly
+    allocated, is contiguous), which the package's `sparse_flash_i8qk_form`
+    must name too."""
+    import ctypes
+    from turbodiffusion_tpu_torch.ops import _build
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
+    B_, Lq, H, D = q.shape
+    st = fa._strides(q, k, v) + [Lq * H * D, H * D, D]
+    code = _build.load().tdx_sparse_flash_attention_i8qk_form(
+        bq, bk, kv_len, k.shape[1], (ctypes.c_int64 * 12)(*st))
+    got = {1: "wgmma"}.get(code, "refused")
+    py = fa.sparse_flash_i8qk_form(bq, bk, kv_len, k.shape[1], *st)
+    if got != py:
+        raise AssertionError(f"K20 at {bq}/{bk}: the C entry takes {got}, "
+                             f"sparse_flash_i8qk_form says {py}")
+    return got
+
+
+def _k28_form(Lp: int, Lkp: int, kv_len: int, bq: int, bk: int, name: str = "K28") -> str:
+    """The form K28's (or K19's) C entry takes, which the package's
+    `sparse_i8_planes_bs_form` (`sparse_i8_planes_form`) must name too."""
     from turbodiffusion_tpu_torch.ops import _build
     from turbodiffusion_tpu_torch.ops import sparse_i8_attention as si8
-    code = _build.load().tdx_sparse_attention_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk)
+    query, fn = {"K28": ("tdx_sparse_attention_i8_planes_bs_form",
+                         si8.sparse_i8_planes_bs_form),
+                 "K19": ("tdx_sparse_attention_i8_planes_form",
+                         si8.sparse_i8_planes_form)}[name]
+    code = getattr(_build.load(), query)(Lp, Lkp, kv_len, bq, bk)
     got = {1: "wgmma", 0: "mma"}.get(code, "refused")
-    py = si8.sparse_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk)
+    py = fn(Lp, Lkp, kv_len, bq, bk)
     if got != py:
-        raise AssertionError(f"K28 at {bq}/{bk}: the C entry takes {got}, "
-                             f"sparse_i8_planes_bs_form says {py}")
+        raise AssertionError(f"{name} at {bq}/{bk}: the C entry takes {got}, "
+                             f"{fn.__name__} says {py}")
     return got
 
 
@@ -1693,6 +1720,9 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
     pass), K20 at blocks 64/64 (int(0.1 * 512) = 51 K blocks a Q block) on
     smooth-k'd bf16 q / k / v, with K3 on the same LUT beside it; K21 over
     the planes (the row path's form) and over (B, L, H, D) (the sla path's).
+    K19 and K20 each assert the form their launch takes (the wgmma
+    kernels); their poisoned tails: K19's K|V rows past kv_len 127 with NaN
+    K and V scales, K20's k and v rows past a kv_len of 30,000 NaN.
     K19-K21 take SHARP_ATOL and planted faults that must fail: K19 and K20
     with the LUT's last entry dropped; K21 with proj_l's weight zeroed (the
     bias alone), with v read from k, and with q doubled (phi at half the
@@ -1746,14 +1776,16 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
               (Kp["bf16"], k_mean, Vr["i8"]), {"fp32": 4 * Kp["bf16"].numel()},
               atol=0.0, rtol=SCALE_RTOL),
         Check("K19", f"int8 sparse per-row scales ({lut8.shape[-1]}/{LP // BK} "
-              f"blocks) {BQ}/{BK}",
+              f"blocks) {BQ}/{BK} "
+              f"{_form(_k28_form(LP, LP, L, BQ, BK, 'K19'), 'wgmma', f'K19 at {BQ}/{BK}')}",
               lambda: i8_planes(lut8),
               lambda: si8.sparse_attention_i8_planes_plain(
                   *planes_args, block_q=BQ, block_k=BK, kv_len=L),
               planes_args, {"int8": 2 * DH * pairs19, "bf16": 2 * DH * pairs19},
               **sharp, faults={"last LUT entry dropped": lambda: i8_planes(lut8[..., :-1])}),
         Check("K20", f"int8-QK sparse gather ({sel64}/{LP // bk64} blocks) "
-              f"{bk64}/{bk64}",
+              f"{bk64}/{bk64} "
+              f"{_form(_k20_form(q, ks_, v, bk64, bk64, L), 'wgmma', f'K20 at {bk64}/{bk64}')}",
               lambda: fa._sparse_flash_i8qk_cuda(q, ks_, v, lut64, bk64, bk64,
                                                  scale, L),
               lambda: fa.sparse_flash_attention_i8qk_plain(q, ks_, v, lut64, bk64,
@@ -1800,6 +1832,22 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
         print(f"phase2 K19 poisoned tail (rows {L}..{LP - 1}: K|V = 127, "
               f"scales NaN): live rows unchanged", flush=True)
 
+    def k20_tail():
+        """K20 on the card: k and v rows past kv_len set to NaN (the last
+        2,760 of 32,760 keys, kv_len 30,000) change no output: the first
+        launch quantises only the rows before kv_len, the V map ends there
+        and a key past it gets its score by selection."""
+        kv20 = 30000
+        clean = fa._sparse_flash_i8qk_cuda(q, ks_, v, lut64, bk64, bk64, scale, kv20)
+        pk, pv = ks_.clone(), v.clone()
+        pk[:, kv20:], pv[:, kv20:] = float("nan"), float("nan")
+        poisoned = fa._sparse_flash_i8qk_cuda(q, pk, pv, lut64, bk64, bk64, scale, kv20)
+        torch.cuda.synchronize()
+        if not (torch.equal(clean, poisoned) and bool(clean.float().isfinite().all())):
+            raise AssertionError("K20: a poisoned tail changed the output")
+        print(f"phase2 K20 poisoned tail (k, v rows {kv20}..{L - 1} NaN, kv_len "
+              f"{kv20}): output unchanged, finite", flush=True)
+
     def k21_tail():
         """K21 on the card: K and V plane rows past true_len set to NaN
         change no live output row (the TPU kernel's where() on k and v)."""
@@ -1814,7 +1862,7 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
         print(f"phase2 K21 poisoned tail (K / V rows {L}..{LP - 1} = NaN): "
               f"live rows unchanged", flush=True)
 
-    return checks, (k19_tail, k21_tail)
+    return checks, (k19_tail, k20_tail, k21_tail)
 
 
 def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
@@ -3255,17 +3303,20 @@ PROFILE_CATEGORIES = [
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     # K3 in either form (K4's kernel with the sparse walk, or the mma.sync
-    # loop), K4; K7 and K28 in either form
-    ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<true>")),
-    ("K4", ("flash_fwd_kernel<false>",)),
+    # loop), K4, K20 (K4's kernel in its int8-QK form; its first launches,
+    # the int8 rows, apart); K7, K28 and K19 in either form (K7's kernel by
+    # its source layout, or the mma.sync loop)
+    ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<1>")),
+    ("K4", ("flash_fwd_kernel<0>",)), ("K20", ("flash_fwd_kernel<2>",)),
+    ("K20/K30 int8 rows", ("i8qk_quant_kernel",)),
     ("K5", ("head_planes_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
     ("K27", ("subquant_block_kernel<true>",)),
-    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<false>",)),
+    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
     ("K18", ("subquant_pack_kv_kernel<true>",)),
     ("K29", ("subquant_pack_kv_kernel<false>",)),
-    ("K19", ("sparse_i8_planes_kernel<false>",)),
-    ("K28", ("sparse_i8_planes_kernel<true>", "sparse_i8_vt_kernel<true>")),
-    ("K20", ("flash_i8qk_kernel<true>",)), ("K30", ("flash_i8qk_kernel<false>",)),
+    ("K19", ("sparse_i8_planes_kernel<false>", "sparse_i8_vt_kernel<2>")),
+    ("K28", ("sparse_i8_planes_kernel<true>", "sparse_i8_vt_kernel<1>")),
+    ("K30", ("flash_i8qk_kernel",)),
     ("K21 apply", ("linear_apply_kernel",)),
     # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold
     # "gemm"

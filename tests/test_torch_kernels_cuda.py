@@ -311,9 +311,10 @@ def test_k2_loop_form_takes_what_the_vector_form_cannot(dev, case, rope):
 def test_form_functions_agree_with_the_c_entries(dev):
     """`fn.mln_form` / `fn.rmsrope_form` give the form the C entries take,
     over widths, head dims, row strides and pointer offsets (the queries
-    read pointers as numbers only); `fa.sparse_flash_form` and
-    `si8.sparse_i8_planes_bs_form` the form (or the refusal) of K3's and
-    K28's C queries, over blocks, lengths and strides."""
+    read pointers as numbers only); `fa.sparse_flash_form`,
+    `fa.sparse_flash_i8qk_form`, `si8.sparse_i8_planes_form` and
+    `si8.sparse_i8_planes_bs_form` the form (or the refusal) of K3's,
+    K20's, K19's and K28's C queries, over blocks, lengths and strides."""
     from turbodiffusion_tpu_torch.ops import _build
     lib = _build.load()
     base = 1 << 20
@@ -331,7 +332,8 @@ def test_form_functions_agree_with_the_c_entries(dev):
                     ptrs = [base + off, base, base + 64, *tables]
                     assert (fn.rmsrope_form(H, Dh, ld, *ptrs) == "vector") == bool(
                         lib.tdx_rmsnorm_rope_form(*ptrs, ld, H, Dh)), (H, Dh, ld, off)
-    # K3 and K28: 1 the wgmma kernel, 0 the mma.sync loop, -1 refused
+    # K3, K20, K19 and K28: 1 the wgmma kernel, 0 the mma.sync loop, -1
+    # refused
     code = {"wgmma": 1, "mma": 0}
 
     def py_form(form_fn, *args):
@@ -351,6 +353,10 @@ def test_form_functions_agree_with_the_c_entries(dev):
                 arr = (ctypes.c_int64 * 12)(*st)
                 assert py_form(fa.sparse_flash_form, bq, bk, kv_len, *st) == \
                     lib.tdx_sparse_flash_attention_form(bq, bk, kv_len, arr), (bq, bk, kv_len, st)
+                for Lk in (L, 1000):
+                    assert py_form(fa.sparse_flash_i8qk_form, bq, bk, kv_len, Lk, *st) == \
+                        lib.tdx_sparse_flash_attention_i8qk_form(bq, bk, kv_len, Lk, arr), \
+                        (bq, bk, kv_len, Lk, st)
     LP = 32768
     for bq, bk in ((512, 256), (512, 128), (128, 128), (512, 64), (128, 64), (64, 64),
                    (192, 256), (96, 64), (512, 100)):
@@ -358,6 +364,9 @@ def test_form_functions_agree_with_the_c_entries(dev):
             for kv_len in (Lkp, Lkp - 8, 1, 0, Lkp + 1):
                 assert py_form(si8.sparse_i8_planes_bs_form, Lp, Lkp, kv_len, bq, bk) == \
                     lib.tdx_sparse_attention_i8_planes_bs_form(Lp, Lkp, kv_len, bq, bk), \
+                    (Lp, Lkp, kv_len, bq, bk)
+                assert py_form(si8.sparse_i8_planes_form, Lp, Lkp, kv_len, bq, bk) == \
+                    lib.tdx_sparse_attention_i8_planes_form(Lp, Lkp, kv_len, bq, bk), \
                     (Lp, Lkp, kv_len, bq, bk)
 
 
@@ -1245,6 +1254,61 @@ def test_k28_wgmma_form_matches_plain(dev, bq, bk, case):
         assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
 
 
+K19_CASES = ["ragged kv_len", "LUT ids out of range, a row with no live chunk",
+             "batch 2", "40 heads", "NaN tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K19_CASES)
+@pytest.mark.parametrize("bq,bk", [(512, 256), (128, 128)])
+def test_k19_wgmma_form_matches_plain(dev, bq, bk, case):
+    """K19's wgmma form (K7's kernel on K18's packed K|V rows, a K and a V
+    scale a key) against its plain version (bf16 atol 2e-2 + rtol 2^-8: on
+    this sharp q an online softmax that rounds P to bf16 at a running max
+    lands up to ~0.016 from the one-pass plain version on a few outputs,
+    above chip_smoke's atol 4e-3 for path inputs), kv_len
+    1,000 of 1,024 padded rows: as it is; LUT entries -1 and nK + 3 in every
+    row and a row whose only live id names a block past kv_len (zero rows;
+    kv_len 700); batch 2; 40 heads; K|V rows past kv_len poisoned to +127 and
+    their K and V scales NaN (rows before kv_len bit-equal to the clean
+    run's)."""
+    B = 2 if case == "batch 2" else 1
+    H = 40 if case == "40 heads" else HEADS
+    L, Lp = (700 if case.startswith("LUT") else 1000), 1024
+    k = _randn(dev, B, H, Lp, DH, seed=101, std=2.0)
+    k[:, :, L:] = 0
+    k = (k + 0.5).bfloat16()
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    vi, vs = sf._quant_rows(_randn(dev, B, H, Lp, DH, seed=102))
+    qi, qs = sf._quant_rows(_randn(dev, B, H, Lp, DH, seed=103, std=3.0))
+    kvi, ks = sf.subquant_pack_kv_plain(k, mu, vi)
+    nQ, nK = Lp // bq, Lp // bk
+    sel = nK // 2 + 2
+    r = np.random.RandomState(104)
+    a = np.stack([r.permutation(nK)[:sel] for _ in range(B * H * nQ)]).reshape(
+        B, H, nQ, sel).astype(np.int32)
+    if case.startswith("LUT"):
+        a[..., 0], a[..., 1] = -1, nK + 3
+        a[0, 0, 0] = -1
+        a[0, 0, 0, 0] = nK - 1             # starts at or past kv_len: no live chunk
+        assert (nK - 1) * bk >= L
+    lut = torch.from_numpy(a).to(dev)
+    assert si8.sparse_i8_planes_form(Lp, Lp, L, bq, bk) == "wgmma"
+    kw = dict(block_q=bq, block_k=bk, kv_len=L)
+    before = si8._sparse_i8_planes_cuda.launches
+    got = si8.sparse_attention_i8_planes(qi, qs, kvi, ks, vs, lut, **kw)
+    assert si8._sparse_i8_planes_cuda.launches == before + 1
+    want = si8.sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut, **kw)
+    _close(got[:, :, :L], want[:, :, :L])
+    if case.startswith("LUT"):
+        assert torch.equal(got[0, 0, :bq], torch.zeros_like(got[0, 0, :bq]))
+    if case == "NaN tail":
+        pk, pks, pvs = kvi.clone(), ks.clone(), vs.clone()
+        pk[:, :, L:], pks[:, :, L:], pvs[:, :, L:] = 127, float("nan"), float("nan")
+        poisoned = si8.sparse_attention_i8_planes(qi, qs, pk, pks, pvs, lut, **kw)
+        assert torch.equal(poisoned[:, :, :L], got[:, :, :L])
+
+
 @pytest.mark.cuda
 def test_k29_matches_plain(dev):
     L = Lp = 1024
@@ -1323,6 +1387,55 @@ def test_k20_matches_plain(dev, L):
     got = fa._sparse_flash_i8qk_cuda(q, k, v, lut, 64, 64, DH ** -0.5, L)
     assert fa._sparse_flash_i8qk_cuda.launches == before + 1
     _close(got, fa.sparse_flash_attention_i8qk_plain(q, k, v, lut, 64, 64))
+
+
+K20_CASES = ["ragged kv_len", "LUT ids out of range, a row with no live chunk",
+             "batch 2", "40 heads", "NaN tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K20_CASES)
+@pytest.mark.parametrize("bq,bk", [(64, 64), (512, 256)])
+def test_k20_wgmma_form_matches_plain(dev, bq, bk, case):
+    """K20's wgmma form (K4's kernel on int8 Q and K rows, 64-row tiles and
+    64-key chunks) against its plain version (bf16 atol 2e-2 + rtol 2^-8,
+    as K19's wgmma test on a sharp q), Lq
+    1,100 (a ragged last tile) over kv_len 900 of 1,100 keys: as it is; LUT
+    entries -1 and nK + 3 in every row and a row whose only live id names a
+    block past kv_len (zero rows); batch 2 (kv_len 1,100); 40 heads (Lq 600);
+    k and v rows past kv_len NaN (held against the plain version on the
+    live keys, and bit-equal to the clean run)."""
+    B = 2 if case == "batch 2" else 1
+    H = 40 if case == "40 heads" else HEADS
+    L = 600 if case == "40 heads" else 1100
+    kv_len = L if case in ("batch 2", "40 heads") else 900
+    q = _randn(dev, B, L, H, DH, seed=111, std=3.0).bfloat16()
+    k, v = (_randn(dev, B, L, H, DH, seed=s).bfloat16() for s in (112, 113))
+    k = (k.float() - k[:, :kv_len].float().mean(1, keepdim=True)).bfloat16()
+    nQ, nK = -(-L // bq), -(-L // bk)
+    sel = nK // 2 + 2
+    r = np.random.RandomState(114)
+    a = np.stack([r.permutation(nK)[:sel] for _ in range(B * H * nQ)]).reshape(
+        B, H, nQ, sel).astype(np.int32)
+    if case.startswith("LUT"):
+        a[..., 0], a[..., 1] = -1, nK + 3
+        a[0, 0, 0] = -1
+        a[0, 0, 0, 0] = nK - 1             # starts at or past kv_len: no live chunk
+        assert (nK - 1) * bk >= kv_len
+    lut = torch.from_numpy(a).to(dev)
+    assert fa.sparse_flash_i8qk_form(bq, bk, kv_len, L, *fa._strides(q, k, v)) == "wgmma"
+    before = fa._sparse_flash_i8qk_cuda.launches
+    got = fa._sparse_flash_i8qk_cuda(q, k, v, lut, bq, bk, DH ** -0.5, kv_len)
+    assert fa._sparse_flash_i8qk_cuda.launches == before + 1
+    want = fa.sparse_flash_attention_i8qk_plain(q, k, v, lut, bq, bk, kv_len=kv_len)
+    _close(got, want)
+    if case.startswith("LUT"):
+        assert torch.equal(got[0, :bq, 0], torch.zeros_like(got[0, :bq, 0]))
+    if case == "NaN tail":
+        pk, pv = k.clone(), v.clone()
+        pk[:, kv_len:], pv[:, kv_len:] = float("nan"), float("nan")
+        poisoned = fa._sparse_flash_i8qk_cuda(q, pk, pv, lut, bq, bk, DH ** -0.5, kv_len)
+        assert torch.equal(poisoned, got)
 
 
 @pytest.mark.cuda

@@ -206,7 +206,7 @@ def _run(args, base, randn) -> None:
             out[f"{yname}_ms_median"] = statistics.median(kt.times(fn, args.rounds, args.reps))
             out[f"{yname}_device_ms"] = kt.device_ms(
                 fn, args.reps,
-                ("",) if yname == "sdpa" else ("dense_fwd_kernel", "flash_fwd_kernel<false>"))
+                ("",) if yname == "sdpa" else ("dense_fwd_kernel", "flash_fwd_kernel<false>", "flash_fwd_kernel<0>"))
         print(json.dumps(out), flush=True)
         del q, ri, k, v, w, ins, qn
         torch.cuda.empty_cache()

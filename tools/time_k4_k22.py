@@ -87,8 +87,8 @@ DESIGNS = [
     ]),
     # a block a tile in place of persistent blocks
     ("k4-block-a-tile", "k4", K4_SRC, [
-        ("  const int grid = items > n_sm ? n_sm : (int)items;",
-         "  const int grid = (int)items;")]),
+        ("  const int grid = blocks > n_sm ? n_sm : (int)blocks;",
+         "  const int grid = (int)blocks;")]),
     # two consumers on 128 x 128 tiles in place of three on 192 x 128 (more
     # registers a thread, a stage more)
     ("k22-two-consumers", "k22", K22_SRC, [

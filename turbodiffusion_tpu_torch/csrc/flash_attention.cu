@@ -29,8 +29,8 @@
 //
 // K3 takes two forms by its blocks (`k3_form`; ops/flash_attention.py
 // `sparse_flash_form`). At blocks that are multiples of 128 (the paths'
-// 512/256) it is K4's kernel with its chunk walk a template flag,
-// `k4::flash_fwd_kernel<true>` (below): a 128-row tile lies in one Q block
+// 512/256) it is K4's kernel with its chunk walk a template form,
+// `k4::flash_fwd_kernel<1>` (below): a 128-row tile lies in one Q block
 // and reads LUT row tile * 128 / block_q; the producer and both consumers
 // walk the same list of 128-key chunks (each LUT entry in order, an id
 // outside [0, nK) skipped, the chunks of its block that start before
@@ -59,7 +59,7 @@
 // (2.08), 63-68% of the bf16 peak like K4's; the mma.sync form at 512/64
 // 4.41 ms (17%).
 //
-// K4 (`k4::flash_fwd_kernel<false>`) is Hopper's warp-specialised attention
+// K4 (`k4::flash_fwd_kernel<0>`) is Hopper's warp-specialised attention
 // (FlashAttention-3's forward shape, K7's in bf16):
 //   * persistent blocks, one an SM, walk 128-row query tiles of every (b,
 //     h) (tiles of one head in turn, so the blocks at work share its K and V
@@ -148,34 +148,49 @@
 //    _sparse_attn_kernel with int8_qk=True), which sagesla at --sla_block 64
 //    takes: K3's gather, with Q quantised per row once (qq = round(q * (127 /
 //    qa)), qa = max(max |q|, 1e-6)) and every gathered K row the same way, so
-//    QK runs on mma.sync m16n8k32 s8 x s8 -> s32 (exact) and
-//    s = ((s32 * (qa / 127)) * (ka / 127)) * Dh^-0.5 in fp32; natural exp
-//    (the TPU kernel's domain), P in bf16 against bf16 V, o = O / max(l,
-//    1e-20). The caller subtracts K's mean first (smooth-k, plain torch).
-//    Bound by tensor-core math like K3 (at 64/64 and 1.3B 480p: 51 of 512
-//    K-blocks a Q-block, 3.3e11 int8 + 3.3e11 bf16 operations), but a
-//    64-row block gathers ~1.6 MB of K and V from device memory (one 64-key
-//    chunk a LUT entry, ~10 GB a call), which the 50 MB L2 serves while
-//    the heads run in order (a head's K and V are 16.8 MB). A K row's int8
-//    values do not depend on the Q block that gathers it, so a first
-//    launch quantises every K row once (a warp a row, a lane 4 channels, the
-//    row's absmax one warp reduction) into (B, H, Lk, 128) int8 and its
-//    scale, and the gather stages int8 K rows as K7 does, where the TPU
-//    kernel requantises each gathered block (at 64/64 each K row is
-//    gathered by ~51 Q blocks); V is staged transposed as K3 stages it.
-//    Keys at or past kv_len are zero-filled and masked to -1e30 before the
-//    row max;
-//    JAX's LUT padding to a group (block nK, past K's end) has no
-//    counterpart: the kernel loops over exactly `sel` entries.
+//    QK runs on int8 tensor cores (exact s32) and s = ((s32 * (qa / 127)) *
+//    (ka / 127)) * Dh^-0.5; natural exp (the TPU kernel's domain; the kernel
+//    folds log2 e into the row's scale and takes exp2), P in bf16 against
+//    bf16 V, o = O / max(l, 1e-20). The caller subtracts K's mean first
+//    (smooth-k, plain torch). A row's int8 values do not depend on the block
+//    that reads it, so two first launches (`i8qk_quant_kernel`, a warp a
+//    row) quantise q's rows and k's rows before kv_len once into (B, H,
+//    L64, 128) int8 panels and their scales (rows padded to multiples of 64
+//    with zeros), where the TPU kernel requantises each gathered block (at
+//    64/64 each K row is gathered by ~51 Q blocks). Then K4's kernel in its
+//    third form, `k4::flash_fwd_kernel<2>`, for any blocks that are
+//    multiples of 64 (`k20_form`): at 64/64 two neighbouring 64-row tiles
+//    lie in two Q blocks with two LUT rows, so a block runs two streams of
+//    64-row tiles, one a consumer warpgroup, each with its own producer
+//    thread, Q buffers, 3-stage ring of 64-key chunks and mbarriers (one
+//    block an SM, persistent, the streams' tiles walked in head order); the
+//    producer TMA-loads the int8 Q tile, each chunk's int8 K rows (64 x 128
+//    bytes) and, by a bulk copy on the same barrier, their 64 scales, and
+//    its bf16 V (64 keys x 128 channels as it lies, the map ending at
+//    kv_len); the consumer runs S on wgmma m64n64k32 s8 -> s32, multiplies
+//    each column by its key's scale in fp32 before the row max (a scale a
+//    key: the max of the integer sums is not the max of the scores), keys
+//    >= kv_len selected to -inf, p = exp2(S * qa scale log2 e - max), and P
+//    V on wgmma m64n128k16 bf16 with P in registers (4 k-steps a chunk);
+//    O goes out by TMA from the tile's Q buffer.
+//    What bounds it on an H100: not the tensor cores (at 64/64 and 1.3B
+//    480p, 51 of 512 K blocks a Q block: 3.3e11 int8 + 3.3e11 bf16
+//    operations, 0.50 ms) but the gather: every 64-row tile reads its 51
+//    chunks' 8 KB of int8 K and 16 KB of bf16 V, ~7.5 GB a call, which
+//    the 50 MB L2 serves (a head's int8 K and bf16 V are 12.6 MB and the
+//    blocks at work share a head); JAX's LUT padding to a group (block nK,
+//    past K's end) has no counterpart: the walk takes exactly the LUT's
+//    entries.
 // K30 tdx_flash_attention_i8qk replaces the dense branch of _flash_fwd_impl
 //    with int8 QK (launch :1139, body _attn_kernel with int8_qk=True), which
 //    flash_attention(..., int8_qk=True) without a LUT takes: K20's function
-//    over every key of [0, kv_len) instead of the LUT's blocks (the same
-//    kernel, its chunk walk a template flag; the same first launch
-//    quantising each K row once). The caller subtracts K's mean first, as
+//    over every key of [0, kv_len) instead of the LUT's blocks (a first
+//    launch quantising each K row once, `i8qk_quant_kernel`). The caller subtracts K's mean first, as
 //    JAX's flash_attention does. Bound by tensor-core math: at the 1.3B
 //    480p dense self shape (12 heads, 32,760 x 32,760) 3.3e12 int8 and
-//    3.3e12 bf16 operations.
+//    3.3e12 bf16 operations. No path reaches it; it keeps the mma.sync
+//    FlashAttention-2 loop (4 warps of 16 query rows, 64-key chunks staged
+//    synchronously) K20 ran before its redesign.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -337,60 +352,94 @@ sparse_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K4 and K3: k4::flash_fwd_kernel<SPARSE> (warp-specialised, wgmma fed by
+// K4, K3 and K20: k4::flash_fwd_kernel<FORM> (warp-specialised, wgmma fed by
 // TMA)
 // ---------------------------------------------------------------------------
 
 namespace k4 {
 
-constexpr int kRows = 128;                 // query rows a tile: two warpgroups of 64
-constexpr int kKeys = 128;                 // keys a chunk
+// the kernel's forms
+constexpr int kDense = 0;      // K4: every chunk of [0, kv_len)
+constexpr int kSparse = 1;     // K3: the chunks of the tile's LUT row
+constexpr int kSparseI8 = 2;   // K20: K3's walk with int8 QK, 64-row tiles, 64-key chunks
+
 constexpr int kWG = 128;                   // threads of a warpgroup
-constexpr int kStages = 2;                 // K / V chunks in flight
-constexpr int kQBufs = 2;                  // Q tiles in flight
+constexpr int kQBufs = 2;                  // Q tiles in flight a stream
 constexpr int kThreadsK4 = 3 * kWG;        // producer warpgroup + two consumers
 constexpr int kRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(kRegs == 65536 / kThreadsK4 / 8 * 8, "registers a thread at launch");
 static_assert(kProducerRegs * kWG + 2 * kConsumerRegs * kWG <= kRegs * kThreadsK4,
               "setmaxnreg within the block's allocation");
-constexpr int kBox = kRows * 128;          // 64 bf16 channels of 128 rows (one TMA box)
-constexpr int kTile = 2 * kBox;            // 128 rows x 128 channels
-constexpr int kBars = kQBufs * kTile + kStages * 2 * kTile;
-// qfull, qempty a Q buffer; kfull, vfull, kempty, vempty a stage
-constexpr int kSmem = kBars + (2 * kQBufs + 4 * kStages) * 8 + 1024;
-static_assert(kSmem <= 232448, "one block an SM");
 constexpr float kMaskedLogit = -__builtin_huge_valf();   // a key >= kv_len: p = 0
+
+// A form's tiles and shared memory. A block runs kStreams streams of
+// tiles, each with its own Q buffers, ring and barriers: K4 / K3 one stream
+// of 128-row tiles that both consumer warpgroups share (64 rows each, one
+// chunk walk), K20 two streams of 64-row tiles, one a consumer (at blocks
+// 64/64 two neighbouring 64-row tiles lie in two Q blocks and walk two LUT
+// rows).
+template <int FORM>
+struct Plan {
+  static constexpr bool kI8 = FORM == kSparseI8;
+  static constexpr int kStreams = kI8 ? 2 : 1;
+  static constexpr int kCons = 2 / kStreams;         // consumer warpgroups a stream
+  static constexpr int kRows = 64 * kCons;           // query rows a tile
+  static constexpr int kKeys = kI8 ? 64 : 128;       // keys a chunk
+  static constexpr int kStages = kI8 ? 3 : 2;        // chunks in flight a stream
+  static constexpr int kOBox = kRows * 128;          // 64 channels of a tile's rows
+  // a Q buffer: the tile's Q (bf16 in two 64-channel boxes; K20: int8 rows of
+  // 128 bytes), then its bf16 O as the TMA store reads it
+  static constexpr int kQTile = 2 * kOBox;
+  static constexpr int kQBytes = kI8 ? kRows * 128 : kQTile;
+  static constexpr int kKVBox = kKeys * 128;         // 64 channels of a chunk's bf16 K or V
+  static constexpr int kKTile = kI8 ? kKeys * 128 : 2 * kKVBox;   // a chunk's K
+  static constexpr int kStage = kKTile + 2 * kKVBox;
+  static constexpr int kStream = kQBufs * kQTile + kStages * kStage;
+  // K20: each stage's per-key K scales, after the streams
+  static constexpr int kScaleBytes = kI8 ? kKeys * 4 : 0;
+  static constexpr int kBarsAt = kStreams * (kStream + kStages * kScaleBytes);
+  // qfull, qempty a Q buffer; kfull, vfull, kempty, vempty a stage
+  static constexpr int kBarsA = 2 * kQBufs + 4 * kStages;
+  static constexpr int kSmem = kBarsAt + kStreams * kBarsA * 8 + 1024;
+  static_assert(kSmem <= 232448, "one block an SM");
+};
 
 struct Params {
   int B, H, Lq, kv_len;
   float scale_log2;
-  // K3: the LUT (B, H, nQ, sel) of K-block ids, block_q query rows a Q
-  // block, block_k keys a K block, nK = ceil(kv_len / block_k) K blocks
+  // K3 / K20: the LUT (B, H, nQ, sel) of K-block ids, block_q query rows a
+  // Q block, block_k keys a K block, nK = ceil(kv_len / block_k) K blocks
   // that hold a key before kv_len
   const int* lut;
   int nQ, sel, block_q, block_k, nK;
+  // K20: the int8 rows' scales (absmax / 127) of q (B, H, Lqp) and k (B,
+  // H, Lkp), rows padded to multiples of 64
+  const float* qsc;
+  const float* ksc;
+  int Lqp, Lkp;
 };
 
-// The 128-key chunks one tile attends to, in order; the producer and both
+// The chunks one tile attends to, in order; the producer and the tile's
 // consumers each walk the same list. Dense (K4): every chunk of [0,
-// kv_len). Sparse (K3, K7's rule): the LUT entries of the tile's Q block in
-// order, an id outside [0, nK) skipped, and of each K block the chunks that
-// start before kv_len (a chunk's tail past kv_len reads as zeros and is
-// masked before the row max).
-template <bool SPARSE>
+// kv_len). Sparse (K3, K20; K7's rule): the LUT entries of the tile's Q
+// block in order, an id outside [0, nK) skipped, and of each K block the
+// chunks that start before kv_len (a chunk's tail past kv_len is masked
+// before the row max).
+template <int FORM>
 struct ChunkWalk {
+  static constexpr int kRows = Plan<FORM>::kRows, kKeys = Plan<FORM>::kKeys;
   const int* ids;   // the tile's LUT row (sparse)
   int j, kb, off, end;   // next entry; the block, its next chunk's offset, its keys
 
   __device__ __forceinline__ ChunkWalk(const Params& p, int b, int h, int tile)
-      : ids(nullptr), j(0), kb(0), off(0), end(SPARSE ? 0 : p.kv_len) {
-    if (SPARSE)
+      : ids(nullptr), j(0), kb(0), off(0), end(FORM != kDense ? 0 : p.kv_len) {
+    if (FORM != kDense)
       ids = p.lut + (((long long)b * p.H + h) * p.nQ + tile * kRows / p.block_q) * p.sel;
   }
 
   // the next chunk's first key, or -1 past the last
   __device__ __forceinline__ int next(const Params& p) {
-    if (SPARSE) {
+    if (FORM != kDense) {
 #pragma unroll 1
       while (off >= end) {
         if (j >= p.sel) return -1;
@@ -408,50 +457,67 @@ struct ChunkWalk {
   }
 };
 
-// Grid: min(tiles, SMs) persistent blocks. A tile is 128
-// query rows of one (b, h) (K3: inside one Q block, block_q a multiple of
-// 128); tile t of the walk is (b, h) = t / n_tiles, rows 128 (t % n_tiles),
-// and block x takes tiles x, x + grid, ... Producer thread 0 loads each
-// tile's Q (two 64-channel boxes) into one of two Q buffers and each
-// 128-key chunk of its ChunkWalk's K and V (as they lie: keys x channels)
-// into a 2-stage ring, running ahead across tiles. Each consumer warpgroup
-// owns 64 rows of every tile: S = Q K^T on wgmma bf16 from shared memory,
-// the online softmax in fp32 registers, O += bf16(P) V on wgmma with P in
-// registers and V MN-major (the transpose bit), the next chunk's QK issued
-// with the previous chunk's P V. The epilogue writes o / l as bf16 into the
-// warpgroup's own Q rows (swizzled) and stores them by TMA; the Q buffer is
-// released once that store has read it. Fragment of a consumer thread (warp
-// w, lane l): register i holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column
-// 8 (i >> 2) + 2 (l & 3) + (i & 1).
-template <bool SPARSE>
+// Grid: persistent blocks, at most one an SM. A tile is kRows query rows of
+// one (b, h) (K3 / K20: inside one Q block, block_q a multiple of kRows);
+// tile t of the walk is (b, h) = t / n_tiles, rows kRows (t % n_tiles), and
+// stream s of block x takes tiles kStreams x + s, + kStreams grid, ... (the
+// blocks at work share a head's K and V in L2). The producer thread of
+// stream s (lane 0 of producer warp s) loads each tile's Q into one of two
+// Q buffers and each chunk of its ChunkWalk's K and V (as they lie: keys x
+// channels) into the stream's ring, running ahead across tiles. Each
+// consumer warpgroup owns 64 rows of its stream's tiles: S = Q K^T on wgmma
+// from shared memory (K4 / K3 bf16; K20 int8 -> exact s32, times the key's
+// scale), the online softmax in fp32 registers, O += bf16(P) V on wgmma
+// with P in registers and V MN-major (the transpose bit), the next chunk's
+// QK issued with the previous chunk's P V. The epilogue writes o / l as
+// bf16 into the warpgroup's own Q rows (swizzled) and stores them by TMA;
+// the Q buffer is released once that store has read it. Fragment of a
+// consumer thread (warp w, lane l): register i holds row 16 w + l / 4 + 8
+// ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
+template <int FORM>
 __global__ void __launch_bounds__(kThreadsK4, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                  const Params p) {
+  using P = Plan<FORM>;
+  constexpr bool I8 = P::kI8;
+  constexpr int kRows = P::kRows, kKeys = P::kKeys, kStages = P::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t st0 = base + kQBufs * kTile;     // stage s: K tile, then V tile
-  const uint32_t qfull0 = base + kBars, qempty0 = qfull0 + 8 * kQBufs;
-  const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
-  const uint32_t kempty0 = vfull0 + 8 * kStages, vempty0 = kempty0 + 8 * kStages;
   const int tid = threadIdx.x;
   const int n_tiles = (p.Lq + kRows - 1) / kRows;
   const int n_items = p.B * p.H * n_tiles;
+  // stream sm: its Q buffers, its stages (K tile, then V tile), K20's scales
+  // of each stage, its barriers
+  auto qbuf0 = [&](int sm) { return base + sm * P::kStream; };
+  auto stage0 = [&](int sm) { return base + sm * P::kStream + kQBufs * P::kQTile; };
+  auto scales0 = [&](int sm) {
+    return base + P::kStreams * P::kStream + sm * kStages * P::kScaleBytes;
+  };
+  auto bars0 = [&](int sm) { return base + P::kBarsAt + sm * P::kBarsA * 8; };
+  // K20: each consumer warp releases a chunk's K (it reads the chunk's
+  // scales itself); K4 / K3: one thread a warpgroup
+  constexpr int kKArrivals = I8 ? 4 * P::kCons : P::kCons;
 
   if (tid == 0) {
 #pragma unroll 1
-    for (int i = 0; i < kQBufs; ++i) {
-      mbar_init(qfull0 + 8 * i, 1);
-      mbar_init(qempty0 + 8 * i, 2);   // both consumer warpgroups
-    }
+    for (int sm = 0; sm < P::kStreams; ++sm) {
+      const uint32_t b0 = bars0(sm);
 #pragma unroll 1
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(kfull0 + 8 * s, 1);
-      mbar_init(vfull0 + 8 * s, 1);
-      mbar_init(kempty0 + 8 * s, 2);
-      mbar_init(vempty0 + 8 * s, 2);
+      for (int i = 0; i < kQBufs; ++i) {
+        mbar_init(b0 + 8 * i, 1);                          // qfull
+        mbar_init(b0 + 8 * (kQBufs + i), P::kCons);        // qempty
+      }
+#pragma unroll 1
+      for (int s = 0; s < kStages; ++s) {
+        const uint32_t kf = b0 + 16 * kQBufs + 8 * s;
+        mbar_init(kf, 1);                                  // kfull
+        mbar_init(kf + 8 * kStages, 1);                    // vfull
+        mbar_init(kf + 16 * kStages, kKArrivals);          // kempty
+        mbar_init(kf + 24 * kStages, P::kCons);            // vempty
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -459,34 +525,52 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
   if (tid < kWG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-    if (tid == 0) {
-      // ---- loads; K and V maps end at kv_len: rows past it read as zeros ----
+    if ((tid & 31) == 0 && tid / 32 < P::kStreams) {
+      // ---- loads; K4's and K3's K and V maps end at kv_len (K20's V map):
+      // rows past it read as zeros ----
+      const int sm = tid / 32;
+      const uint32_t qfull0 = bars0(sm), qempty0 = qfull0 + 8 * kQBufs;
+      const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
+      const uint32_t kempty0 = vfull0 + 8 * kStages, vempty0 = kempty0 + 8 * kStages;
       int n = 0, c = 0;
 #pragma unroll 1
-      for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+      for (int it = blockIdx.x * P::kStreams + sm; it < n_items;
+           it += gridDim.x * P::kStreams, ++n) {
         const int tile = it % n_tiles, bh = it / n_tiles, h = bh % p.H, b = bh / p.H;
         const int qb = n % kQBufs;
         if (n >= kQBufs) mbar_wait(qempty0 + 8 * qb, ((n / kQBufs) & 1) ^ 1);
-        const uint32_t qd = base + qb * kTile, qbar = qfull0 + 8 * qb;
-        mbar_arrive_expect_tx(qbar, kTile);
-        tma_load_4d(&tm_q, qd, qbar, 0, h, tile * kRows, b);
-        tma_load_4d(&tm_q, qd + kBox, qbar, 64, h, tile * kRows, b);
-        ChunkWalk<SPARSE> walk(p, b, h, tile);
+        const uint32_t qd = qbuf0(sm) + qb * P::kQTile, qbar = qfull0 + 8 * qb;
+        mbar_arrive_expect_tx(qbar, P::kQBytes);
+        if constexpr (I8) {
+          tma_load(&tm_q, qd, qbar, 0, bh * p.Lqp + tile * kRows);
+        } else {
+          tma_load_4d(&tm_q, qd, qbar, 0, h, tile * kRows, b);
+          tma_load_4d(&tm_q, qd + P::kOBox, qbar, 64, h, tile * kRows, b);
+        }
+        ChunkWalk<FORM> walk(p, b, h, tile);
 #pragma unroll 1
         for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
           // K and V have barriers of their own: a chunk's K is free once
-          // both consumers' QK has read it, a chunk before its V
+          // its consumers' QK has read it, a chunk before its V
           const int s = c % kStages, ph = ((c / kStages) & 1) ^ 1;
-          const uint32_t kd = st0 + s * 2 * kTile, vd = kd + kTile;
+          const uint32_t kd = stage0(sm) + s * P::kStage, vd = kd + P::kKTile;
           const uint32_t kbar = kfull0 + 8 * s, vbar = vfull0 + 8 * s;
           if (c >= kStages) mbar_wait(kempty0 + 8 * s, ph);
-          mbar_arrive_expect_tx(kbar, kTile);
-          tma_load_4d(&tm_k, kd, kbar, 0, h, key0, b);
-          tma_load_4d(&tm_k, kd + kBox, kbar, 64, h, key0, b);
+          if constexpr (I8) {
+            // the chunk's int8 K rows and their scales
+            mbar_arrive_expect_tx(kbar, P::kKTile + P::kScaleBytes);
+            tma_load(&tm_k, kd, kbar, 0, bh * p.Lkp + key0);
+            bulk_load(scales0(sm) + s * P::kScaleBytes, p.ksc + (size_t)bh * p.Lkp + key0,
+                      P::kScaleBytes, kbar);
+          } else {
+            mbar_arrive_expect_tx(kbar, P::kKTile);
+            tma_load_4d(&tm_k, kd, kbar, 0, h, key0, b);
+            tma_load_4d(&tm_k, kd + P::kKVBox, kbar, 64, h, key0, b);
+          }
           if (c >= kStages) mbar_wait(vempty0 + 8 * s, ph);
-          mbar_arrive_expect_tx(vbar, kTile);
+          mbar_arrive_expect_tx(vbar, 2 * P::kKVBox);
           tma_load_4d(&tm_v, vd, vbar, 0, h, key0, b);
-          tma_load_4d(&tm_v, vd + kBox, vbar, 64, h, key0, b);
+          tma_load_4d(&tm_v, vd + P::kKVBox, vbar, 64, h, key0, b);
         }
       }
     }
@@ -498,55 +582,95 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = warp * 16 + g;   // the warpgroup's row of registers with (i & 2) == 0
+  const int sm = I8 ? cw : 0;                    // this consumer's stream
+  const int row_off = (cw % P::kCons) * 64;      // its rows in the stream's tiles
+  const uint32_t qfull0 = bars0(sm), qempty0 = qfull0 + 8 * kQBufs;
+  const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
+  const uint32_t kempty0 = vfull0 + 8 * kStages, vempty0 = kempty0 + 8 * kStages;
+  const uint32_t st0 = stage0(sm);
 
-  float o[64], sc[64];
-  uint32_t pa[32];
+  float o[64], sc[kKeys / 2];
+  int si[I8 ? kKeys / 2 : 1];   // K20: S as exact s32
+  uint32_t pa[kKeys / 4];
 
   // O += bf16(P) V of the chunk in stage s: V's keys are wgmma's K, its
   // channels N (MN-major): a 16-key step is two 8-row groups, 2048 bytes
   auto issue_pv = [&](int s, int cc) {
     mbar_wait(vfull0 + 8 * s, (cc / kStages) & 1);
-    const uint32_t vb = st0 + s * 2 * kTile + kTile;
+    const uint32_t vb = st0 + s * P::kStage + P::kKTile;
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_bf16_rs<1>(o, pa + 4 * kk, sw128_desc_mn(vb + kk * 2048, kBox));
+      wgmma_bf16_rs<1>(o, pa + 4 * kk, sw128_desc_mn(vb + kk * 2048, P::kKVBox));
     wgmma_commit();
   };
 
   int n = 0, c = 0;   // tiles and chunks done: the producer's counts
   int pend = -1;      // the Q buffer whose O store has yet to be read
 #pragma unroll 1
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+  for (int it = blockIdx.x * P::kStreams + sm; it < n_items;
+       it += gridDim.x * P::kStreams, ++n) {
     const int tile = it % n_tiles, bh = it / n_tiles, h = bh % p.H, b = bh / p.H;
     const int qb = n % kQBufs;
-    const uint32_t qbuf = base + qb * kTile, qa = qbuf + cw * 64 * 128;
+    const uint32_t qbuf = qbuf0(sm) + qb * P::kQTile, qa = qbuf + row_off * 128;
 #pragma unroll
     for (int e = 0; e < 64; ++e) o[e] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    // the logits times log2 e are S times mul (K4 / K3: scale * log2 e;
+    // K20: the row's int8 scale times that, S already times the key's)
+    float mul0 = p.scale_log2, mul1 = p.scale_log2;
+    if constexpr (I8) {
+      const float* qsr = p.qsc + (size_t)bh * p.Lqp + tile * kRows + rl0;
+      mul0 = __ldg(qsr) * p.scale_log2;
+      mul1 = __ldg(qsr + 8) * p.scale_log2;
+    }
     int prev = -1;   // the stage of the chunk whose P V is pending
     mbar_wait(qfull0 + 8 * qb, (n / kQBufs) & 1);
-    ChunkWalk<SPARSE> walk(p, b, h, tile);
+    ChunkWalk<FORM> walk(p, b, h, tile);
 #pragma unroll 1
     for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
       const int s = c % kStages;
-      const uint32_t kb = st0 + s * 2 * kTile;
+      const uint32_t kb = st0 + s * P::kStage;
       mbar_wait(kfull0 + 8 * s, (c / kStages) & 1);
-      // S = Q K^T (64 rows x 128 keys, fp32); then the previous P V
+      // S = Q K^T (64 rows x the chunk's keys); then the previous P V
       reg_fence<64>(o);
-      reg_fence<32>(pa);
+      reg_fence<kKeys / 4>(pa);
       wgmma_fence();
+      if constexpr (I8) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_bf16_ss(sc, sw128_desc(qa + (kk >> 2) * kBox + (kk & 3) * 32),
-                      sw128_desc(kb + (kk >> 2) * kBox + (kk & 3) * 32), kk > 0);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8_n64(si, sw128_desc(qa + kk * 32), sw128_desc(kb + kk * 32), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_bf16_ss(sc, sw128_desc(qa + (kk >> 2) * P::kOBox + (kk & 3) * 32),
+                        sw128_desc(kb + (kk >> 2) * P::kKVBox + (kk & 3) * 32), kk > 0);
+      }
       wgmma_commit();
       if (prev >= 0) issue_pv(prev, c - 1);
       if (prev >= 0)
         wgmma_wait<1>();
       else
         wgmma_wait<0>();
-      reg_fence<64>(sc);
-      if (lt == 0) mbar_arrive(kempty0 + 8 * s);   // this chunk's K is read
+      if constexpr (I8) {
+        // S = s32 (exact, |s| < 2^22) times the key's scale, in fp32: the
+        // row max is taken on these, since each key has a scale of its own
+        reg_fence<kKeys / 2>(si);
+        const float* ks = reinterpret_cast<const float*>(
+            smem + (scales0(sm) - base) + s * P::kScaleBytes);
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const float2 k2 = *reinterpret_cast<const float2*>(ks + 8 * j + 2 * t);
+          sc[4 * j] = s32_float(si[4 * j]) * k2.x;
+          sc[4 * j + 1] = s32_float(si[4 * j + 1]) * k2.y;
+          sc[4 * j + 2] = s32_float(si[4 * j + 2]) * k2.x;
+          sc[4 * j + 3] = s32_float(si[4 * j + 3]) * k2.y;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kempty0 + 8 * s);   // this warp is done with the K stage
+      } else {
+        reg_fence<64>(sc);
+        if (lt == 0) mbar_arrive(kempty0 + 8 * s);     // this chunk's K is read
+      }
       if (pend >= 0) {
         // the previous tile's O store has read its Q buffer: release it
         // (after the wait: a divergent block inside the products' window
@@ -559,14 +683,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       }
 
       // the online softmax in the log2 domain: keys >= kv_len (only in the
-      // last chunk; zeros by TMA) at -inf before the row max; the scale is
-      // positive, so the row max of s times scale * log2 e is the max of
-      // the scaled logits; p = exp2(s * scale_log2 - max), one FFMA and the
-      // SFU's exp2
+      // last chunk) at -inf before the row max, selected, never added (a
+      // poisoned tail cannot reach a live row); mul is positive, so the row
+      // max of S times mul is the max of the scaled logits; p = exp2(S mul
+      // - max), one FFMA and the SFU's exp2
       const int nvalid = p.kv_len - key0;
       if (nvalid < kKeys) {
 #pragma unroll
-        for (int e = 0; e < 64; ++e)
+        for (int e = 0; e < kKeys / 2; ++e)
           if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sc[e] = kMaskedLogit;
       }
       float mx0 = row_tree<true, 0>(sc), mx1 = row_tree<true, 2>(sc);
@@ -575,18 +699,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      const float mn0 = fmaxf(m0, mx0 * p.scale_log2), mn1 = fmaxf(m1, mx1 * p.scale_log2);
+      const float mn0 = fmaxf(m0, mx0 * mul0), mn1 = fmaxf(m1, mx1 * mul1);
       const float alpha0 = ex2_approx(m0 - mn0), alpha1 = ex2_approx(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
-      for (int e = 0; e < 64; ++e)
-        sc[e] = ex2_approx(fmaf(sc[e], p.scale_log2, (e & 2) ? -mn1 : -mn0));
+      for (int e = 0; e < kKeys / 2; ++e)
+        sc[e] = ex2_approx(fmaf(sc[e], (e & 2) ? mul1 : mul0, (e & 2) ? -mn1 : -mn0));
       const float rs0 = row_tree<false, 0>(sc), rs1 = row_tree<false, 2>(sc);
       // the previous P V is done: its stage is free, O and P are ours
       wgmma_wait<0>();
       reg_fence<64>(o);
-      reg_fence<32>(pa);
+      reg_fence<kKeys / 4>(pa);
       if (prev >= 0 && lt == 0) mbar_arrive(vempty0 + 8 * prev);
       l0 = l0 * alpha0 + rs0;
       l1 = l1 * alpha1 + rs1;
@@ -594,21 +718,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
         for (int e = 0; e < 64; ++e) o[e] *= (e & 2) ? alpha1 : alpha0;
       }
-      // P as the A fragments of the 8 k16 steps: keys 16 kk .. 16 kk + 15
+      // P as the A fragments of the k16 steps: keys 16 kk .. 16 kk + 15
 #pragma unroll
-      for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+      for (int e = 0; e < kKeys / 4; ++e) pa[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
       prev = s;
     }
-    // the last chunk's P V (K3: a LUT row with no chunk before kv_len has
-    // none, and its rows are 0 / max(0, 1e-20) = 0)
+    // the last chunk's P V (K3 / K20: a LUT row with no chunk before kv_len
+    // has none, and its rows are 0 / max(0, 1e-20) = 0)
     if (prev >= 0) {
       reg_fence<64>(o);
-      reg_fence<32>(pa);
+      reg_fence<kKeys / 4>(pa);
       wgmma_fence();
       issue_pv(prev, c - 1);
       wgmma_wait<0>();
       reg_fence<64>(o);
-      reg_fence<32>(pa);
+      reg_fence<kKeys / 4>(pa);
       if (lt == 0) mbar_arrive(vempty0 + 8 * prev);
     }
     if (pend >= 0) {
@@ -632,7 +756,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     unsigned char* orow = smem + (qa - base) + rl0 * 128 + 4 * t;
 #pragma unroll
     for (int jn = 0; jn < 16; ++jn) {
-      unsigned char* at = orow + (jn >> 3) * kBox + (((jn & 7) ^ g) << 4);
+      unsigned char* at = orow + (jn >> 3) * P::kOBox + (((jn & 7) ^ g) << 4);
       *reinterpret_cast<uint32_t*>(at) = pack_bf16(o[4 * jn] * inv0, o[4 * jn + 1] * inv0);
       *reinterpret_cast<uint32_t*>(at + 8 * 128) =
           pack_bf16(o[4 * jn + 2] * inv1, o[4 * jn + 3] * inv1);
@@ -640,9 +764,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     fence_async_shared();
     named_sync(1 + cw, kWG);
     if (lt == 0) {
-      const int r0 = tile * kRows + cw * 64;
+      const int r0 = tile * kRows + row_off;
       tma_store_4d(&tm_o, qa, 0, h, r0, b);
-      tma_store_4d(&tm_o, qa + kBox, 64, h, r0, b);
+      tma_store_4d(&tm_o, qa + P::kOBox, 64, h, r0, b);
       tma_store_commit();
     }
     pend = qb;
@@ -650,14 +774,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   if (lt == 0) tma_store_wait_all();
 }
 
-// K3 (SPARSE, over the LUT (B, H, ceil(Lq / block_q), sel)) or K4
-template <bool SPARSE>
+// K4 (kDense), K3 (kSparse, over the LUT (B, H, ceil(Lq / block_q), sel))
+// or K20 (kSparseI8: the LUT, and q's and k's int8 rows qi (B, H, Lqp, 128)
+// and ki (B, H, Lkp, 128) with their scales, rows padded to multiples of
+// 64; q and k are then read through these, not their maps)
+template <int FORM>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
            int kv_len, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-           const int* lut, int sel, int block_q, int block_k, void* stream) {
+           const int* lut, int sel, int block_q, int block_k, void* stream,
+           const void* qi = nullptr, const float* qsc = nullptr, const void* ki = nullptr,
+           const float* ksc = nullptr) {
+  using P = Plan<FORM>;
   if (B <= 0 || H <= 0 || Lq <= 0 || kv_len <= 0) return (int)cudaErrorInvalidValue;
-  if (SPARSE && (block_q <= 0 || block_q % kRows || block_k <= 0 || block_k % kKeys ||
-                 sel < 0 || !lut))
+  if (FORM != kDense && (block_q <= 0 || block_q % P::kRows || block_k <= 0 ||
+                         block_k % P::kKeys || sel < 0 || !lut))
     return (int)cudaErrorInvalidValue;
   // TMA: 16-byte aligned bases and strides
   const Strides st[4] = {qs, ks, vs, os};
@@ -668,37 +798,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   static int n_sm = 0;
   static const int ready = [] {
     cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_kernel<SPARSE>);
+    cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_kernel<FORM>);
     if (err != cudaSuccess) return (int)err;
     // the register count setmaxnreg assumes (else refuse, not hang)
     if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    return (int)cudaFuncSetAttribute(flash_fwd_kernel<SPARSE>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    return (int)cudaFuncSetAttribute(flash_fwd_kernel<FORM>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   }();
   if (ready != 0) return ready;
+  const int n_tiles = (Lq + P::kRows - 1) / P::kRows;
+  const int Lqp = n_tiles * P::kRows, Lkp = (kv_len + P::kKeys - 1) / P::kKeys * P::kKeys;
   CUtensorMap tq, tk, tv, to;
-  if (!bhld_map(&tq, q, B, Lq, H, qs.b, qs.l, qs.h, kRows) ||
-      !bhld_map(&tk, k, B, kv_len, H, ks.b, ks.l, ks.h, kKeys) ||
-      !bhld_map(&tv, v, B, kv_len, H, vs.b, vs.l, vs.h, kKeys) ||
-      !bhld_map(&to, o, B, Lq, H, os.b, os.l, os.h, 64))
+  const bool maps =
+      (P::kI8 ? tile_map(&tq, qi, false, (long long)B * H * Lqp, kDh, P::kRows) &&
+                    tile_map(&tk, ki, false, (long long)B * H * Lkp, kDh, P::kKeys)
+              : bhld_map(&tq, q, B, Lq, H, qs.b, qs.l, qs.h, P::kRows) &&
+                    bhld_map(&tk, k, B, kv_len, H, ks.b, ks.l, ks.h, P::kKeys)) &&
+      bhld_map(&tv, v, B, kv_len, H, vs.b, vs.l, vs.h, P::kKeys) &&
+      bhld_map(&to, o, B, Lq, H, os.b, os.l, os.h, 64);
+  if (!maps || (P::kI8 && (!qsc || !ksc || (uintptr_t)ksc % 16)))
     return (int)cudaErrorInvalidValue;
-  const long long items = (long long)B * H * ((Lq + kRows - 1) / kRows);
+  const long long items = (long long)B * H * n_tiles;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = items > n_sm ? n_sm : (int)items;
+  const long long blocks = (items + P::kStreams - 1) / P::kStreams;
+  const int grid = blocks > n_sm ? n_sm : (int)blocks;
   const Params p{B, H, Lq, kv_len, scale * kLog2e, lut,
-                 SPARSE ? (Lq + block_q - 1) / block_q : 0, sel, block_q, block_k,
-                 SPARSE ? (kv_len + block_k - 1) / block_k : 0};
-  flash_fwd_kernel<SPARSE><<<grid, kThreadsK4, kSmem, (cudaStream_t)stream>>>(tq, tk, tv, to, p);
+                 FORM != kDense ? (Lq + block_q - 1) / block_q : 0, sel, block_q, block_k,
+                 FORM != kDense ? (kv_len + block_k - 1) / block_k : 0,
+                 qsc, ksc, Lqp, Lkp};
+  flash_fwd_kernel<FORM><<<grid, kThreadsK4, P::kSmem, (cudaStream_t)stream>>>(tq, tk, tv, to, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace k4
 
 // ---------------------------------------------------------------------------
-// K20
+// K20 and K30: the int8 rows; K30's loop
 // ---------------------------------------------------------------------------
 
 constexpr int kI8Stride = kDh + 16;   // bytes per int8 row of Qi / Ki
@@ -750,33 +888,42 @@ __device__ __forceinline__ void quant_rows_i8(int8_t* dst, float* scale,
   }
 }
 
-// K20's first launch: every K row (b, l, h), read through strides, ->
-// int8 kq (B, H, Lk, 128) and ka / 127 (B, H, Lk) by quant_row4_i8 (a warp a
-// row), so the gather reads the values the TPU kernel computes for each
-// gathered block.
+// K20's and K30's first launches: rows l < Lpad of x (b, l, h), read through
+// strides (rows at or past nrows as zeros), -> int8 xq (B, H, Lpad, 128) and
+// amax / 127 (B, H, Lpad) by quant_row4_i8 (a warp a row), so the kernels
+// read the values the TPU kernel computes for each Q block and each gathered
+// K block (K30: every K row, Lpad = nrows = Lk; K20: q's rows and k's rows
+// before kv_len, padded to multiples of 64 with zero rows).
 __global__ void __launch_bounds__(256)
-i8qk_quant_k_kernel(const __nv_bfloat16* __restrict__ k, int8_t* __restrict__ kq,
-                    float* __restrict__ ksc, int Lk, Strides ks) {
+i8qk_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
+                  float* __restrict__ xsc, int nrows, int Lpad, Strides xs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int l = blockIdx.x * 8 + warp, h = blockIdx.y, b = blockIdx.z;
-  if (l >= Lk) return;
-  const uint2 u = *reinterpret_cast<const uint2*>(k + b * ks.b + h * ks.h + l * ks.l + lane * 4);
+  if (l >= Lpad) return;
+  const uint2 u = l < nrows ? *reinterpret_cast<const uint2*>(x + b * xs.b + h * xs.h +
+                                                              l * xs.l + lane * 4)
+                            : make_uint2(0, 0);
   float sc;
   const uint32_t w = quant_row4_i8(u, sc);
-  const size_t row = ((size_t)b * gridDim.y + h) * Lk + l;
-  *reinterpret_cast<uint32_t*>(kq + row * kDh + lane * 4) = w;
-  if (lane == 0) ksc[row] = sc;
+  const size_t row = ((size_t)b * gridDim.y + h) * Lpad + l;
+  *reinterpret_cast<uint32_t*>(xq + row * kDh + lane * 4) = w;
+  if (lane == 0) xsc[row] = sc;
 }
 
-// K20 (SPARSE: the chunks of this Q-block's LUT row) and K30 (every chunk
-// of [0, kv_len)). Grid (ceil(Lq / 64), H, B), 4 warps of 16 query rows.
-template <bool SPARSE>
+int launch_i8qk_quant(const void* x, void* xq, void* xsc, int B, int H, int nrows, int Lpad,
+                      Strides xs, void* stream) {
+  i8qk_quant_kernel<<<dim3((Lpad + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (int8_t*)xq, (float*)xsc, nrows, Lpad, xs);
+  return (int)cudaGetLastError();
+}
+
+// K30: every 64-key chunk of [0, kv_len). Grid (ceil(Lq / 64), H, B), 4
+// warps of 16 query rows.
 __global__ void __launch_bounds__(kThreads)
 flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
-                         const float* __restrict__ ksc, const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, const int* __restrict__ lut, int H,
-                         int Lq, int Lk, int kv_len, int nQ, int sel, int block_q, int block_k,
-                         Strides qs, Strides vs, Strides os, float scale) {
+                  const float* __restrict__ ksc, const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, int kv_len, Strides qs,
+                  Strides vs, Strides os, float scale) {
   __shared__ __align__(16) int8_t Ki[kBN * kI8Stride];       // Q staging, then K chunks
   __shared__ __align__(16) __nv_bfloat16 Vt[kDh * kVStride];
   __shared__ float s_qa[kBM], s_ka[kBN];
@@ -813,13 +960,12 @@ flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
   float m0 = kNegInf, m1 = kNegInf;
   float l0 = 0.f, l1 = 0.f;
 
-  const int* lut_row = SPARSE ? lut + (bh * nQ + row0 / block_q) * sel : nullptr;
-  const int per = block_k / kBN;
-  const int n_chunks = SPARSE ? sel * per : (kv_len + kBN - 1) / kBN;
+  const int n_chunks = (kv_len + kBN - 1) / kBN;
   for (int c = 0; c < n_chunks; ++c) {
-    const int key0 = SPARSE ? lut_row[c / per] * block_k + (c % per) * kBN : c * kBN;
-    // wholly past the tail (or an id out of range): no valid column
-    if (key0 < 0 || key0 >= kv_len) continue;
+    const int key0 = c * kBN;
+    // never taken; without it ptxas schedules the loop otherwise (173
+    // registers, not 178) and K30 ran 4% slower on an H100
+    if (key0 >= kv_len) continue;
     __syncthreads();  // previous chunk (or the Q fragments' staging) consumed
     for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
       const int r = u >> 3, cc = u & 7;
@@ -1590,7 +1736,7 @@ int launch(const void* q, const void* norm_w, const void* ri, const void* k, con
 }  // namespace k14
 
 // The kernel a K3 launch takes (ops/flash_attention.py `sparse_flash_form`
-// mirrors it): 1, `k4::flash_fwd_kernel<true>`, for blocks that are
+// mirrors it): 1, `k4::flash_fwd_kernel<1>`, for blocks that are
 // multiples of 128 (a 128-row tile lies in one Q block; K blocks are whole
 // 128-key chunks); 0, `sparse_flash_fwd_kernel`, for the other multiples of
 // 64 (`sla` at --sla_block 64: 512/64); -1, refused: other blocks, no key, or
@@ -1600,7 +1746,23 @@ int k3_form(int block_q, int block_k, int kv_len, const long long* strides) {
   if (block_q <= 0 || block_k <= 0 || block_q % kBM || block_k % kBN || kv_len <= 0) return -1;
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8) return -1;
-  return block_q % k4::kRows == 0 && block_k % k4::kKeys == 0 ? 1 : 0;
+  using P = k4::Plan<k4::kSparse>;
+  return block_q % P::kRows == 0 && block_k % P::kKeys == 0 ? 1 : 0;
+}
+
+// The kernel a K20 launch takes (ops/flash_attention.py
+// `sparse_flash_i8qk_form` mirrors it): 1, `k4::flash_fwd_kernel<2>`, for
+// blocks that are multiples of 64 (a 64-row tile lies in one Q block, a K
+// block is whole 64-key chunks); -1, refused: other blocks, kv_len outside
+// (0, Lk], or a stride off 16 bytes (TMA boxes of v and o).
+int k20_form(int block_q, int block_k, int kv_len, int Lk, const long long* strides) {
+  using P = k4::Plan<k4::kSparseI8>;
+  if (block_q <= 0 || block_k <= 0 || block_q % P::kRows || block_k % P::kKeys ||
+      kv_len <= 0 || kv_len > Lk)
+    return -1;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return -1;
+  return 1;
 }
 
 }  // namespace
@@ -1620,10 +1782,10 @@ extern "C" int tdx_sparse_flash_attention(
   const int form = k3_form(block_q, block_k, kv_len, st);
   if (form < 0 || nQ != (Lq + block_q - 1) / block_q) return (int)cudaErrorInvalidValue;
   if (form == 1)
-    return k4::launch<true>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
-                            Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
-                            Strides{osb, osl, osh}, scale, (const int*)lut, sel, block_q,
-                            block_k, stream);
+    return k4::launch<k4::kSparse>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                                   Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                                   Strides{osb, osl, osh}, scale, (const int*)lut, sel,
+                                   block_q, block_k, stream);
   dim3 grid((Lq + kBM - 1) / kBM, H, B);
   sparse_flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -1633,23 +1795,35 @@ extern "C" int tdx_sparse_flash_attention(
   return (int)cudaGetLastError();
 }
 
+extern "C" int tdx_sparse_flash_attention_i8qk_form(int block_q, int block_k, int kv_len,
+                                                    int Lk, const long long* strides) {
+  return k20_form(block_q, block_k, kv_len, Lk, strides);
+}
+
+// K20: q's rows and k's rows before kv_len quantised into qi (B, H, Lqp, 128)
+// / qsc and ki (B, H, Lkp, 128) / ksc (Lqp = ceil(Lq / 64) * 64, Lkp =
+// ceil(kv_len / 64) * 64; scratch the caller allocates), then the walk
 extern "C" int tdx_sparse_flash_attention_i8qk(
-    const void* q, const void* k, const void* v, void* o, const void* lut, void* kq,
-    void* ksc, int B, int H, int Lq, int Lk, int kv_len, int nQ, int sel, int block_q,
-    int block_k, long long qsb, long long qsl, long long qsh, long long ksb, long long ksl,
-    long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
-    long long osl, long long osh, float scale, void* stream) {
-  if (block_q % kBM || block_k % kBN || kv_len > Lk) return (int)cudaErrorInvalidValue;
-  i8qk_quant_k_kernel<<<dim3((Lk + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)k, (int8_t*)kq, (float*)ksc, Lk, Strides{ksb, ksl, ksh});
-  const int err = (int)cudaGetLastError();
+    const void* q, const void* k, const void* v, void* o, const void* lut, void* qi,
+    void* qsc, void* ki, void* ksc, int B, int H, int Lq, int Lk, int kv_len, int nQ,
+    int sel, int block_q, int block_k, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
+    long long osb, long long osl, long long osh, float scale, void* stream) {
+  const long long st[12] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
+  if (k20_form(block_q, block_k, kv_len, Lk, st) < 0 || B <= 0 || H <= 0 || Lq <= 0 ||
+      nQ != (Lq + block_q - 1) / block_q)
+    return (int)cudaErrorInvalidValue;
+  using P = k4::Plan<k4::kSparseI8>;
+  const int Lqp = (Lq + P::kRows - 1) / P::kRows * P::kRows;
+  const int Lkp = (kv_len + P::kKeys - 1) / P::kKeys * P::kKeys;
+  int err = launch_i8qk_quant(k, ki, ksc, B, H, kv_len, Lkp, Strides{ksb, ksl, ksh}, stream);
+  if (!err) err = launch_i8qk_quant(q, qi, qsc, B, H, Lq, Lqp, Strides{qsb, qsl, qsh}, stream);
   if (err) return err;
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_i8qk_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, (const int*)lut, H, Lq, Lk, kv_len, nQ, sel, block_q, block_k,
-      Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh}, scale);
-  return (int)cudaGetLastError();
+  return k4::launch<k4::kSparseI8>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                                   Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                                   Strides{osb, osl, osh}, scale, (const int*)lut, sel,
+                                   block_q, block_k, stream, qi, (const float*)qsc, ki,
+                                   (const float*)ksc);
 }
 
 extern "C" int tdx_flash_attention_i8qk(
@@ -1658,15 +1832,13 @@ extern "C" int tdx_flash_attention_i8qk(
     long long ksl, long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
     long long osl, long long osh, float scale, void* stream) {
   if (kv_len <= 0 || kv_len > Lk) return (int)cudaErrorInvalidValue;
-  i8qk_quant_k_kernel<<<dim3((Lk + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)k, (int8_t*)kq, (float*)ksc, Lk, Strides{ksb, ksl, ksh});
-  const int err = (int)cudaGetLastError();
+  const int err = launch_i8qk_quant(k, kq, ksc, B, H, Lk, Lk, Strides{ksb, ksl, ksh}, stream);
   if (err) return err;
   dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_i8qk_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  flash_i8qk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, nullptr, H, Lq, Lk, kv_len, 0, 0, kBN, kBN,
-      Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh}, Strides{osb, osl, osh}, scale);
+      (__nv_bfloat16*)o, H, Lq, Lk, kv_len, Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh},
+      Strides{osb, osl, osh}, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1675,9 +1847,9 @@ extern "C" int tdx_flash_attention(
     int kv_len, long long qsb, long long qsl, long long qsh, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl, long long vsh,
     long long osb, long long osl, long long osh, float scale, void* stream) {
-  return k4::launch<false>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
-                           Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
-                           Strides{osb, osl, osh}, scale, nullptr, 0, 0, 0, stream);
+  return k4::launch<k4::kDense>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                                Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                                Strides{osb, osl, osh}, scale, nullptr, 0, 0, 0, stream);
 }
 
 

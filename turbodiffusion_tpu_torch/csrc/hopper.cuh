@@ -1,5 +1,5 @@
-// What the Hopper kernels share (K3 / K4, K7 / K28, K9, K10 / K11, K14 / K17,
-// K22):
+// What the Hopper kernels share (K3 / K4 / K20, K7 / K19 / K28, K9, K10 /
+// K11, K14 / K17, K22):
 // mbarriers, thread-block clusters and their distributed shared memory, TMA
 // tile copies with 128-byte swizzle and their tensor maps, wgmma descriptors
 // and the wgmma instructions the kernels issue, and the register-level steps
@@ -130,6 +130,18 @@ __device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, uint3
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, completing `bar`'s bytes (K19 /
+// K20: a chunk's per-key scales beside its tiles)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -302,6 +314,26 @@ __device__ __forceinline__ void wgmma_s8_first(int* d, uint64_t da, uint64_t db)
         "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]), "=r"(d[60]), "=r"(d[61]), "=r"(d[62]),
         "=r"(d[63])
       : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 64 s32) (+)= A (64 x 32 s8) B (64 x 32 s8)^T, both K-major in
+// shared memory (K20's S of one 64-key chunk); d is overwritten when `acc`
+// is 0
+__device__ __forceinline__ void wgmma_s8_n64(int* d, uint64_t da, uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n\t}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // d (64 x 128 fp32) (+)= A (64 x 16 bf16, K-major in shared memory) B (128 x

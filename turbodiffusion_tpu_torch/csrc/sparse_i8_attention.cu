@@ -62,8 +62,22 @@
 //    domain), and V's row scale folded into P before its bf16 rounding:
 //    O += bf16(p * vs) bf16(v_i8); o = O / max(l, 1e-20) with l the sum of
 //    the unscaled p. Bound like K7 by tensor-core math (the same pair count;
-//    the PV product scales P per key instead of O per channel). K3's
-//    FlashAttention-2 loop on mma.sync: a block of 4 warps owns 64 query
+//    the PV product scales P per key instead of O per channel). Two forms by
+//    its blocks (`planes_form`; ops/sparse_i8_attention.py
+//    `sparse_i8_planes_form`). At multiples of 128 (every --v_quant row
+//    call: 512/256) K7's kernel in its third source layout,
+//    `k7::sparse_i8_vt_kernel<2>`: K28's loads of K and V from the two halves
+//    of the packed rows and K7's V conversion into an MN-major tile, and
+//    with each chunk its 128 K and 128 V row scales (two bulk copies on the
+//    chunk's barrier); S = s32 times the key's K scale in fp32 before the
+//    row max (K7's max on the integer sums holds only under one scale a
+//    chunk), log2 e folded into the row's scale, exp2; l sums the unscaled
+//    p, and each column of P is multiplied by its key's V scale before the
+//    bf16 packing (JAX's rounding: bf16(p vs), not bf16(p) bf16(v vs)); a
+//    key >= kv_len gets its score, p and V scale by selection, so NaN
+//    scales past kv_len never reach a live row. At the other multiples of
+//    64, `sparse_i8_planes_kernel<false>`, K3's FlashAttention-2 loop on
+//    mma.sync: a block of 4 warps owns 64 query
 //    rows, each warp its 16 rows' int8 Q fragments, a 16 x 128 fp32
 //    accumulator and the running max / sum in registers; 64-key chunks are
 //    staged synchronously in shared memory (int8 K rows of 144 bytes, so
@@ -77,7 +91,6 @@
 //    Keys at or past kv_len get -1e30 before the row max: the port's rule
 //    for K3 / K4 / K7, which replaces the TPU's poison block (LUT padding
 //    pointing at a zero block with a -1e30 bias).
-
 //
 // K28 tdx_sparse_attention_i8_planes_bs replaces the block-scale form of
 //    flash_pallas.py:sparse_attention_i8_planes (body _sparse_attn_kernel_i8b,
@@ -90,10 +103,10 @@
 //    max (K27 quantises rows past kv_len, which may have been NaN, with the
 //    block's scale; they never reach a live score), exp2, O += bf16(p)
 //    bf16(v_i8), o = O / max(l, 1e-20) * vch. Bound like K7 (the same
-//    pair count). Two forms by its blocks (`k28_form`;
+//    pair count). Two forms by its blocks (`planes_form`;
 //    ops/sparse_i8_attention.py `sparse_i8_planes_bs_form`): at multiples
 //    of 128 (fused sagesla's blocks) K7's kernel with its source layout a
-//    template flag, `k7::sparse_i8_vt_kernel<true>`: producer warp 0 loads
+//    template argument, `k7::sparse_i8_vt_kernel<1>`: producer warp 0 loads
 //    K by TMA as 128 keys x 128 bytes at column 0 of the packed 256-byte
 //    rows and V at column 128 (keys x channels, a map of the same rows), its
 //    warps 1-3 convert V with K7's exact integer conversion into a 128-byte
@@ -128,11 +141,16 @@ constexpr float kMasked = -1e9f;             // score of a key >= kv_len
 constexpr int kMaskedS32 = -(1 << 22);       // K7: below every int8 QK sum
 
 // ---------------------------------------------------------------------------
-// K7 and K28: k7::sparse_i8_vt_kernel<PACKED> (warp-specialised, wgmma fed
-// by TMA)
+// K7, K28 and K19: k7::sparse_i8_vt_kernel<SRC> (warp-specialised, wgmma
+// fed by TMA)
 // ---------------------------------------------------------------------------
 
 namespace k7 {
+
+// the kernel's source layouts
+constexpr int kPanels = 0;       // K7: K6's K panel and V^T panel, one K scale a block
+constexpr int kPacked = 1;       // K28: K27's packed K|V rows, one K scale a block
+constexpr int kPackedRows = 2;   // K19: K18's packed K|V rows, a K and a V scale a key
 
 constexpr int kRows = 128;                 // query rows a block: two warpgroups of 64
 constexpr int kKeys = 128;                 // keys a chunk
@@ -152,7 +170,10 @@ constexpr int kStageBytes = kKBytes + kViBytes + 2 * kVbAtom;
 constexpr int kBars = kQBytes + kStages * kStageBytes;
 // q, then full / ready / empty a stage
 constexpr int kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;
-static_assert(kSmem <= 232448, "one block an SM");
+// K19: each stage's 128 K and 128 V scales, after the barriers
+constexpr int kScalesAt = kBars + 128, kScaleBytes = 2 * kKeys * 4;
+constexpr int kSmemRows = kScalesAt + kStages * kScaleBytes + 1024;
+static_assert(kSmemRows <= 232448, "one block an SM");
 // the linear branch's epilogue, over the stages: phi (kRows rows) and kvw
 constexpr int kPhiStride = kDh + 4;
 static_assert(kRows * kPhiStride * 4 + kDh * kDh * 4 <= kStages * kStageBytes,
@@ -160,8 +181,8 @@ static_assert(kRows * kPhiStride * 4 + kDh * kDh * 4 <= kStages * kStageBytes,
 
 struct VtParams {
   const float* qs;      // (B, H, Lp) q row scales
-  const float* ks;      // (B, H, nK) K block scales
-  const float* vch;     // (B, H, 128) V channel scales
+  const float* ks;      // (B, H, nK) K block scales (K19: (B, H, Lkp) K row scales)
+  const float* vch;     // (B, H, 128) V channel scales (K19: (B, H, Lkp) V row scales)
   const int* lut;       // (B, H, nQ, sel)
   const int8_t* qi;     // (B, H, Lp, 128) (the linear branch's phi)
   const float* kvw;     // (B, H, 128, 128) or null
@@ -192,25 +213,29 @@ __device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
 // warpgroup loads Q once and, for each chunk, K (keys x 128 int8, as K6
 // writes it) and V^T (128 channels x the chunk's keys) by TMA into a 3-stage
 // ring; warps 1-3 convert each chunk's V to bf16 once, into the K-major
-// swizzled layout wgmma reads. PACKED (K28): K and V are the two halves of
-// K27's 256-byte rows, V keys x channels, converted into an MN-major tile. Each consumer warpgroup owns 64 rows: S = Q
-// K^T on wgmma s8 (Q and K from shared memory), the scales, the tail mask
-// and the online softmax in fp32 registers, then O += bf16(P) V on wgmma
-// bf16 with P in registers (the m16n8k16 A fragment the S accumulator
-// already is). Fragment of a consumer thread (warp w, lane l): register i
-// holds row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) +
-// (i & 1).
-template <bool PACKED>
+// swizzled layout wgmma reads. Packed (K28, K19): K and V are the two
+// halves of K27's / K18's 256-byte rows, V keys x channels, converted into
+// an MN-major tile; K19's chunk brings its 128 K and 128 V row scales along
+// (one bulk copy each). Each consumer warpgroup owns 64 rows: S = Q K^T on
+// wgmma s8 (Q and K from shared memory), the scales, the tail mask and the
+// online softmax in fp32 registers, then O += bf16(P) V on wgmma bf16 with
+// P in registers (the m16n8k16 A fragment the S accumulator already is;
+// K19: P times each key's V scale before its bf16 rounding). Fragment of a
+// consumer thread (warp w, lane l): register i holds row 16 w + l / 4 + 8
+// ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
+template <int SRC>
 __global__ void __launch_bounds__(kThreadsK7, 1)
 sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const VtParams p) {
+  constexpr bool PACKED = SRC != kPanels, ROWS = SRC == kPackedRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles: 1024-byte aligned
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t qbar = base + kBars, full0 = qbar + 8, ready0 = full0 + 8 * kStages;
   const uint32_t empty0 = ready0 + 8 * kStages;
+  const uint32_t scales0 = base + kScalesAt;   // K19: stage s's K scales, then its V scales
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
   const size_t bh = (size_t)blockIdx.z * p.H + blockIdx.y;
@@ -254,12 +279,17 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (i >= kStages) mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
         const uint32_t st = base + kQBytes + s * kStageBytes, full = full0 + 8 * s;
         const int krow = (int)(bh * p.Lkp + kb * p.block_k + off);
-        mbar_arrive_expect_tx(full, kKBytes + kViBytes);
+        mbar_arrive_expect_tx(full, kKBytes + kViBytes + (ROWS ? kScaleBytes : 0));
         tma_load(&tm_k, st, full, 0, krow);
         if (PACKED)   // the V half of the same rows: keys x channels
           tma_load(&tm_v, st + kKBytes, full, 0, krow);
         else
           tma_load(&tm_v, st + kKBytes, full, off, (int)((bh * nK + kb) * kDh));
+        if (ROWS) {   // the keys' K and V row scales
+          const uint32_t sd = scales0 + s * kScaleBytes;
+          bulk_load(sd, p.ks + krow, kKeys * 4, full);
+          bulk_load(sd + kKeys * 4, p.vch + krow, kKeys * 4, full);
+        }
         ++i;
       });
     } else if (tid >= 32) {
@@ -304,6 +334,8 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int t = lane & 3;
   const int rl0 = cw * 64 + warp * 16 + (lane >> 2), rl1 = rl0 + 8;   // block rows
   const float qs0 = p.qs[bh * p.Lp + row0 + rl0], qs1 = p.qs[bh * p.Lp + row0 + rl1];
+  // K19: the logits times log2 e are S times the key's K scale times these
+  const float qr0 = qs0 * p.scale_log2, qr1 = qs1 * p.scale_log2;
   const uint32_t qa = base + cw * 64 * kDh;       // this warpgroup's Q rows
 
   // Each consumer issues a chunk's QK and the previous chunk's P V
@@ -340,7 +372,7 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int key0 = kb * p.block_k + off;
     const int s = i % kStages;
     const uint32_t st = base + kQBytes + s * kStageBytes;
-    const float ks_eff = p.ks[bh * nK + kb] * p.scale_log2;
+    const float ks_eff = ROWS ? 0.f : p.ks[bh * nK + kb] * p.scale_log2;
     mbar_wait(full0 + 8 * s, (i / kStages) & 1);
     // S = Q K^T, exact s32 (64 rows x 128 keys); then the previous P V
     reg_fence<64>(o);
@@ -367,28 +399,71 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
     // exp2(s32 * scale - max) is one FFMA and the SFU's exp2
     const int nvalid = p.kv_len - key0;
     const bool tail = nvalid < kKeys;
-    const float qk0 = qs0 * ks_eff, qk1 = qs1 * ks_eff;
-    if (tail) {
+    const float* ksr = reinterpret_cast<const float*>(smem + kScalesAt + s * kScaleBytes);
+    float sf[64];
+    float alpha0, alpha1;
+    if constexpr (ROWS) {
+      // K19: S = s32 times the key's K scale in fp32, a key >= kv_len
+      // selected to kMasked (its scale may be NaN); a scale a key, so the
+      // row max is taken over these; then exp2(S qs scale log2 e - max)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 k2 = *reinterpret_cast<const float2*>(ksr + 8 * j + 2 * t);
+        sf[4 * j] = s32_float(sc[4 * j]) * k2.x;
+        sf[4 * j + 1] = s32_float(sc[4 * j + 1]) * k2.y;
+        sf[4 * j + 2] = s32_float(sc[4 * j + 2]) * k2.x;
+        sf[4 * j + 3] = s32_float(sc[4 * j + 3]) * k2.y;
+      }
+      if (tail) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sf[e] = kMasked;
+      }
+      float mx0 = row_tree<true, 0>(sf), mx1 = row_tree<true, 2>(sf);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * qr0), mn1 = fmaxf(m1, mx1 * qr1);
+      alpha0 = ex2_approx(m0 - mn0);
+      alpha1 = ex2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
 #pragma unroll
       for (int e = 0; e < 64; ++e)
-        if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sc[e] = kMaskedS32;
-    }
-    // row maxima and sums as trees over the thread's 32 values a row
-    // (registers e with e & 2 clear: row g; set: row g + 8)
-    int im0 = row_tree<true, 0>(sc), im1 = row_tree<true, 2>(sc);
+        sf[e] = ex2_approx(fmaf(sf[e], (e & 2) ? qr1 : qr0, (e & 2) ? -mn1 : -mn0));
+    } else {
+      // s = s32 * (qs * ks * Dh^-0.5 * log2 e), the online softmax in the
+      // log2 domain. The scales are positive, so a row's max is its largest
+      // exact s32 sum, taken on the integers; keys >= kv_len (only in a K
+      // block's last chunk before kv_len) never win it and get p = 0, as
+      // their -1e9 gives the plain version. The s32 sums (|s| <= 127^2 * 128
+      // < 2^22) become fp32 exactly as 1.5 * 2^23 + s less 1.5 * 2^23, and
+      // exp2(s32 * scale - max) is one FFMA and the SFU's exp2
+      const float qk0 = qs0 * ks_eff, qk1 = qs1 * ks_eff;
+      if (tail) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      im0 = max(im0, __shfl_xor_sync(0xffffffffu, im0, off));
-      im1 = max(im1, __shfl_xor_sync(0xffffffffu, im1, off));
-    }
-    const float mn0 = fmaxf(m0, s32_float(im0) * qk0), mn1 = fmaxf(m1, s32_float(im1) * qk1);
-    const float alpha0 = ex2_approx(m0 - mn0), alpha1 = ex2_approx(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sf[64];
+        for (int e = 0; e < 64; ++e)
+          if (8 * (e >> 2) + 2 * t + (e & 1) >= nvalid) sc[e] = kMaskedS32;
+      }
+      // row maxima and sums as trees over the thread's 32 values a row
+      // (registers e with e & 2 clear: row g; set: row g + 8)
+      int im0 = row_tree<true, 0>(sc), im1 = row_tree<true, 2>(sc);
 #pragma unroll
-    for (int e = 0; e < 64; ++e)
-      sf[e] = ex2_approx(fmaf(s32_float(sc[e]), (e & 2) ? qk1 : qk0, (e & 2) ? -mn1 : -mn0));
+      for (int off = 1; off < 4; off <<= 1) {
+        im0 = max(im0, __shfl_xor_sync(0xffffffffu, im0, off));
+        im1 = max(im1, __shfl_xor_sync(0xffffffffu, im1, off));
+      }
+      const float mn0 = fmaxf(m0, s32_float(im0) * qk0), mn1 = fmaxf(m1, s32_float(im1) * qk1);
+      alpha0 = ex2_approx(m0 - mn0);
+      alpha1 = ex2_approx(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        sf[e] = ex2_approx(fmaf(s32_float(sc[e]), (e & 2) ? qk1 : qk0, (e & 2) ? -mn1 : -mn0));
+    }
     if (tail) {
 #pragma unroll
       for (int e = 0; e < 64; ++e)
@@ -408,8 +483,22 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int e = 0; e < 64; ++e) o[e] *= (e & 2) ? alpha1 : alpha0;
     }
     // P as the A fragments of the 8 k16 steps: keys 16 kk .. 16 kk + 15
+    // (K19: bf16(p * vs[key]), the V scale of a key >= kv_len selected to 0)
+    if constexpr (ROWS) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sf[2 * e], sf[2 * e + 1]);
+      for (int j = 0; j < 16; ++j) {
+        float2 v2 = *reinterpret_cast<const float2*>(ksr + kKeys + 8 * j + 2 * t);
+        if (tail) {
+          v2.x = 8 * j + 2 * t < nvalid ? v2.x : 0.f;
+          v2.y = 8 * j + 2 * t + 1 < nvalid ? v2.y : 0.f;
+        }
+        pa[2 * j] = pack_bf16(sf[4 * j] * v2.x, sf[4 * j + 1] * v2.y);
+        pa[2 * j + 1] = pack_bf16(sf[4 * j + 2] * v2.x, sf[4 * j + 3] * v2.y);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pa[e] = pack_bf16(sf[2 * e], sf[2 * e + 1]);
+    }
     prev = s;
     ++i;
   });
@@ -424,7 +513,7 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lt == 0) mbar_arrive(empty0 + 8 * prev);
   }
 
-  // o = O / max(l, 1e-20) * vch
+  // o = O / max(l, 1e-20) * vch (K19: o = O / max(l, 1e-20))
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -432,14 +521,19 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   l0 = fmaxf(l0, 1e-20f);
   l1 = fmaxf(l1, 1e-20f);
-  const float* vc = p.vch + bh * kDh;
+  if constexpr (ROWS) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float2 sc2 = *reinterpret_cast<const float2*>(vc + j * 8 + t * 2);
-    o[4 * j] = __fmul_rn(o[4 * j] / l0, sc2.x);
-    o[4 * j + 1] = __fmul_rn(o[4 * j + 1] / l0, sc2.y);
-    o[4 * j + 2] = __fmul_rn(o[4 * j + 2] / l1, sc2.x);
-    o[4 * j + 3] = __fmul_rn(o[4 * j + 3] / l1, sc2.y);
+    for (int e = 0; e < 64; ++e) o[e] /= (e & 2) ? l1 : l0;
+  } else {
+    const float* vc = p.vch + bh * kDh;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 sc2 = *reinterpret_cast<const float2*>(vc + j * 8 + t * 2);
+      o[4 * j] = __fmul_rn(o[4 * j] / l0, sc2.x);
+      o[4 * j + 1] = __fmul_rn(o[4 * j + 1] / l0, sc2.y);
+      o[4 * j + 2] = __fmul_rn(o[4 * j + 2] / l1, sc2.x);
+      o[4 * j + 3] = __fmul_rn(o[4 * j + 3] / l1, sc2.y);
+    }
   }
 
   if (!PACKED && p.kvw != nullptr) {
@@ -528,26 +622,31 @@ sparse_i8_vt_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// K7 (kp the K panel, vtp the V^T panel) or, PACKED, K28 (kp the packed
-// (B, H, Lkp, 256) K|V rows; vtp unused: V is the second half of each row)
-template <bool PACKED>
+// K7 (kp the K panel, vtp the V^T panel) or, packed, K28 / K19 (kp the
+// packed (B, H, Lkp, 256) K|V rows; vtp unused: V is the second half of each
+// row)
+template <int SRC>
 int launch(const void* qi, const void* kp, const void* vtp, const VtParams& p, int B,
            void* stream) {
+  constexpr bool PACKED = SRC != kPanels, ROWS = SRC == kPackedRows;
+  constexpr int smem = ROWS ? kSmemRows : kSmem;
   if (p.Lp % kRows || p.block_q % kRows || p.block_k % kKeys || p.Lkp % p.block_k)
     return (int)cudaErrorInvalidValue;
+  // K19's scales come by bulk copies: 16-byte aligned
+  if (ROWS && ((uintptr_t)p.ks % 16 || (uintptr_t)p.vch % 16)) return (int)cudaErrorInvalidValue;
   static const int ready = [] {
     cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, sparse_i8_vt_kernel<PACKED>);
+    cudaError_t err = cudaFuncGetAttributes(&fa, sparse_i8_vt_kernel<SRC>);
     if (err != cudaSuccess) return (int)err;
     // the register count setmaxnreg assumes (else refuse, not hang)
     if (fa.numRegs != kRegs) return (int)cudaErrorInvalidConfiguration;
-    return (int)cudaFuncSetAttribute(sparse_i8_vt_kernel<PACKED>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    return (int)cudaFuncSetAttribute(sparse_i8_vt_kernel<SRC>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }();
   if (ready != 0) return ready;
   const long long bh = (long long)B * p.H;
   CUtensorMap tq, tk, tv;
-  // PACKED: K at column 0 and V at column 128 of the 256-byte rows
+  // packed: K at column 0 and V at column 128 of the 256-byte rows
   const bool maps =
       tile_map(&tq, qi, false, bh * p.Lp, kDh, kRows) &&
       (PACKED ? tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys, 2 * kDh) &&
@@ -556,8 +655,8 @@ int launch(const void* qi, const void* kp, const void* vtp, const VtParams& p, i
               : tile_map(&tk, kp, false, bh * p.Lkp, kDh, kKeys) &&
                     tile_map(&tv, vtp, false, bh * (p.Lkp / p.block_k) * kDh, p.block_k, kDh));
   if (!maps) return (int)cudaErrorInvalidValue;
-  sparse_i8_vt_kernel<PACKED>
-      <<<dim3(p.Lp / kRows, p.H, B), kThreadsK7, kSmem, (cudaStream_t)stream>>>(tq, tk, tv, p);
+  sparse_i8_vt_kernel<SRC>
+      <<<dim3(p.Lp / kRows, p.H, B), kThreadsK7, smem, (cudaStream_t)stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -710,13 +809,14 @@ sparse_i8_planes_kernel(const int8_t* __restrict__ qi, const float* __restrict__
   }
 }
 
-// The kernel a K28 launch takes (ops/sparse_i8_attention.py
-// `sparse_i8_planes_bs_form` mirrors it): 1, `k7::sparse_i8_vt_kernel<true>`,
-// for blocks that are multiples of 128 (fused sagesla's always are); 0,
-// `sparse_i8_planes_kernel<true>`, for the other multiples of 64; -1,
-// refused: other blocks, blocks that do not divide the padded lengths, or
-// kv_len outside (0, Lkp].
-int k28_form(int Lp, int Lkp, int kv_len, int block_q, int block_k) {
+// The kernel a K19 or K28 launch takes (ops/sparse_i8_attention.py
+// `sparse_i8_planes_form` / `sparse_i8_planes_bs_form` mirror it): 1, K7's
+// kernel on the packed rows (`k7::sparse_i8_vt_kernel<2>` / `<1>`), for
+// blocks that are multiples of 128 (fused sagesla's always are); 0, the
+// mma.sync loop (`sparse_i8_planes_kernel<false>` / `<true>`), for the other
+// multiples of 64; -1, refused: other blocks, blocks that do not divide the
+// padded lengths, or kv_len outside (0, Lkp].
+int planes_form(int Lp, int Lkp, int kv_len, int block_q, int block_k) {
   if (block_q <= 0 || block_k <= 0 || block_q % kBM || block_k % kBN || Lp <= 0 ||
       Lp % block_q || Lkp <= 0 || Lkp % block_k || kv_len <= 0 || kv_len > Lkp)
     return -1;
@@ -748,14 +848,39 @@ extern "C" int tdx_sparse_attention_i8_vt(
   p.block_q = block_q;
   p.block_k = block_k;
   p.scale_log2 = scale_log2;
-  return k7::launch<false>(qi, kp, vtp, p, B, stream);
+  return k7::launch<k7::kPanels>(qi, kp, vtp, p, B, stream);
+}
+
+extern "C" int tdx_sparse_attention_i8_planes_form(int Lp, int Lkp, int kv_len, int block_q,
+                                                   int block_k) {
+  return planes_form(Lp, Lkp, kv_len, block_q, block_k);
 }
 
 extern "C" int tdx_sparse_attention_i8_planes(
     const void* qi, const void* qs, const void* kvi, const void* ks, const void* vs,
     const void* lut, void* out, int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel,
     int block_q, int block_k, float scale, void* stream) {
-  if (Lp % kBM || block_q % kBM || block_k % kBN) return (int)cudaErrorInvalidValue;
+  const int form = planes_form(Lp, Lkp, kv_len, block_q, block_k);
+  if (form < 0 || nQ != Lp / block_q) return (int)cudaErrorInvalidValue;
+  if (form == 1) {
+    k7::VtParams p = {};
+    p.qs = (const float*)qs;
+    p.ks = (const float*)ks;
+    p.vch = (const float*)vs;
+    p.lut = (const int*)lut;
+    p.qi = (const int8_t*)qi;
+    p.out = (__nv_bfloat16*)out;
+    p.H = H;
+    p.Lp = Lp;
+    p.Lkp = Lkp;
+    p.kv_len = kv_len;
+    p.nQ = nQ;
+    p.sel = sel;
+    p.block_q = block_q;
+    p.block_k = block_k;
+    p.scale_log2 = scale * 1.4426950408889634f;
+    return k7::launch<k7::kPackedRows>(qi, kvi, nullptr, p, B, stream);
+  }
   const dim3 grid(Lp / kBM, H, B);
   sparse_i8_planes_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)qi, (const float*)qs, (const int8_t*)kvi, (const float*)ks,
@@ -766,14 +891,14 @@ extern "C" int tdx_sparse_attention_i8_planes(
 
 extern "C" int tdx_sparse_attention_i8_planes_bs_form(int Lp, int Lkp, int kv_len, int block_q,
                                                       int block_k) {
-  return k28_form(Lp, Lkp, kv_len, block_q, block_k);
+  return planes_form(Lp, Lkp, kv_len, block_q, block_k);
 }
 
 extern "C" int tdx_sparse_attention_i8_planes_bs(
     const void* qi, const void* qs, const void* kvi, const void* ks, const void* vch,
     const void* lut, void* out, int B, int H, int Lp, int Lkp, int kv_len, int nQ, int sel,
     int block_q, int block_k, float scale_log2, void* stream) {
-  const int form = k28_form(Lp, Lkp, kv_len, block_q, block_k);
+  const int form = planes_form(Lp, Lkp, kv_len, block_q, block_k);
   if (form < 0 || nQ != Lp / block_q) return (int)cudaErrorInvalidValue;
   if (form == 1) {
     k7::VtParams p = {};
@@ -792,7 +917,7 @@ extern "C" int tdx_sparse_attention_i8_planes_bs(
     p.block_q = block_q;
     p.block_k = block_k;
     p.scale_log2 = scale_log2;
-    return k7::launch<true>(qi, kvi, nullptr, p, B, stream);
+    return k7::launch<k7::kPacked>(qi, kvi, nullptr, p, B, stream);
   }
   const dim3 grid(Lp / kBM, H, B);
   sparse_i8_planes_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(

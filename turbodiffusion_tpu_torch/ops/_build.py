@@ -62,10 +62,14 @@ SIGNATURES = {
     # the form K3 takes (1 wgmma, 0 mma.sync, -1 refused): block_q,
     # block_k, kv_len, int64[12] strides
     "tdx_sparse_flash_attention_form": [_I, _I, _I, _PI64],
-    # q, k, v, o, lut, int8 K rows, K row scales, B, H, Lq, Lk, kv_len,
-    # nQ, sel, block_q, block_k, 12 strides, scale, stream (K20)
-    "tdx_sparse_flash_attention_i8qk": [_P] * 7 + [_I] * 9 + [_I64] * 12
+    # q, k, v, o, lut, int8 Q rows, Q row scales, int8 K rows, K row
+    # scales, B, H, Lq, Lk, kv_len, nQ, sel, block_q, block_k, 12 strides,
+    # scale, stream (K20)
+    "tdx_sparse_flash_attention_i8qk": [_P] * 9 + [_I] * 9 + [_I64] * 12
                                        + [_F, _P],
+    # the form K20 takes (1 wgmma, -1 refused): block_q, block_k, kv_len,
+    # Lk, int64[12] strides
+    "tdx_sparse_flash_attention_i8qk_form": [_I] * 4 + [_PI64],
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
@@ -113,6 +117,9 @@ SIGNATURES = {
     # qi, qs, kvi, ks, vs, lut, out,
     # B, H, Lp, Lkp, kv_len, nQ, sel, block_q, block_k, scale, stream
     "tdx_sparse_attention_i8_planes": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # the form K19 takes (1 wgmma, 0 mma.sync, -1 refused): Lp, Lkp,
+    # kv_len, block_q, block_k
+    "tdx_sparse_attention_i8_planes_form": [_I] * 5,
     # qi, qs, kvi, K block scales, V channel scales, lut, out, the same
     # ints, scale*log2e, stream (K28)
     "tdx_sparse_attention_i8_planes_bs": [_P] * 7 + [_I] * 9 + [_F, _P],

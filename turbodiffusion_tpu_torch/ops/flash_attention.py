@@ -30,9 +30,12 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
     `--sla_block 64`: K3's gather with Q quantised per row once
     (qq = round(q * (127 / max(amax, 1e-6)))) and each gathered K row the
     same way; s = ((s32 * (qa / 127)) * (ka / 127)) * Dh^-0.5, natural exp,
-    P in bf16 against bf16 V. A K row quantises the same whichever Q block
-    gathers it, so the kernel's first launch quantises every K row once and
-    the gather reads int8 K. The smooth-k subtraction before it
+    P in bf16 against bf16 V. A row quantises the same whichever block
+    reads it, so two first launches quantise every Q row and every K row
+    before kv_len once, and the walk (K4's wgmma + TMA kernel in its third
+    form, 64-row tiles and 64-key chunks: `sparse_flash_i8qk_form`, any
+    blocks that are multiples of 64) reads int8 Q and K. The smooth-k
+    subtraction before it
     (`flash_attention`, :2028-2031) is plain torch
     (`sparse_flash_attention_i8qk`). JAX pads LUT entries to a group with
     block nK, past K's end; the port pads nothing and masks by column.
@@ -42,8 +45,8 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
   * K30 `_flash_i8qk_cuda` ← the dense branch with int8 QK (launch :1139,
     body `_attn_kernel` with int8_qk :64-121), which `flash_attention(...,
     int8_qk=True)` without a LUT takes: K20's function over every key of
-    [0, kv_len) (K20's kernel with its chunk walk a template flag). No
-    model path reaches it, as in JAX.
+    [0, kv_len) (the mma.sync loop K20 ran before its redesign, on the same
+    first launch's int8 K rows). No model path reaches it, as in JAX.
 
 Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
@@ -364,7 +367,7 @@ def _strides(*ts):
 def sparse_flash_form(block_q: int, block_k: int, kv_len: int, *strides: int) -> str:
     """The kernel a K3 launch takes (csrc/flash_attention.cu `k3_form`):
     "wgmma", K4's warp-specialised kernel walking the LUT
-    (`k4::flash_fwd_kernel<true>`), for blocks that are multiples of 128 (a
+    (`k4::flash_fwd_kernel<1>`), for blocks that are multiples of 128 (a
     128-row tile lies in one Q block, a K block is whole 128-key chunks);
     "mma", the mma.sync loop (`sparse_flash_fwd_kernel`), for the other
     multiples of 64. kv_len and the strides (elements, q, k, v, o by batch,
@@ -404,27 +407,48 @@ def _sparse_flash_cuda(q, k, v, lut, block_q: int, block_k: int,
 _sparse_flash_cuda.launches = 0
 
 
+def sparse_flash_i8qk_form(block_q: int, block_k: int, kv_len: int, Lk: int,
+                           *strides: int) -> str:
+    """The kernel a K20 launch takes (csrc/flash_attention.cu `k20_form`):
+    "wgmma", K4's warp-specialised kernel in its int8-QK form
+    (`k4::flash_fwd_kernel<2>`: 64-row tiles, each with its own LUT row, and
+    64-key chunks), for any blocks that are multiples of 64 (sagesla at
+    --sla_block 64: 64/64; 512/256). Raises where it does not compute: other
+    blocks, kv_len outside (0, Lk], a stride (elements, q, k, v, o by batch,
+    token, head) off 16 bytes."""
+    _require(block_q > 0 and block_k > 0 and block_q % 64 == 0
+             and block_k % 64 == 0,
+             f"K20 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    _require(0 < kv_len <= Lk, f"kv_len {kv_len} out of range (0, {Lk}]")
+    _require(all(s % 8 == 0 for s in strides),
+             "K20 takes strides of 16-byte multiples")
+    return "wgmma"
+
+
 def _sparse_flash_i8qk_cuda(q, k, v, lut, block_q: int, block_k: int,
                             scale: float, kv_len: int):
-    """Launch K20: K's rows quantised once into scratch, then the gather."""
+    """Launch K20: q's rows and k's rows before kv_len quantised once into
+    scratch (rows padded to multiples of 64), then the walk."""
     B, L, H, D = q.shape
     _check_qkv(q, k, v, kv_len)
-    _require(block_q % 64 == 0 and block_k % 64 == 0,
-             f"K20 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    Lk = k.shape[1]
+    sparse_flash_i8qk_form(block_q, block_k, kv_len, Lk, *_strides(q, k, v))
     nQ = _cdiv(L, block_q)
     _require(lut.dim() == 4 and tuple(lut.shape[:3]) == (B, H, nQ)
              and lut.device == q.device,
              f"lut must be (B, H, {nQ}, sel) on q's device")
     lut = lut.to(torch.int32).contiguous()
-    Lk = k.shape[1]
+    Lqp, Lkp = _cdiv(L, 64) * 64, _cdiv(kv_len, 64) * 64
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
-    kq = torch.empty((B, H, Lk, D), dtype=torch.int8, device=q.device)
-    ksc = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device)
+    qi = torch.empty((B, H, Lqp, D), dtype=torch.int8, device=q.device)
+    qsc = torch.empty((B, H, Lqp), dtype=torch.float32, device=q.device)
+    ki = torch.empty((B, H, Lkp, D), dtype=torch.int8, device=q.device)
+    ksc = torch.empty((B, H, Lkp), dtype=torch.float32, device=q.device)
     rc = _build.load().tdx_sparse_flash_attention_i8qk(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lut.data_ptr(), kq.data_ptr(), ksc.data_ptr(), B, H, L, Lk, kv_len, nQ,
-        lut.shape[-1], block_q, block_k, *_strides(q, k, v, out), float(scale),
-        _build.stream_ptr(q))
+        lut.data_ptr(), qi.data_ptr(), qsc.data_ptr(), ki.data_ptr(),
+        ksc.data_ptr(), B, H, L, Lk, kv_len, nQ, lut.shape[-1], block_q,
+        block_k, *_strides(q, k, v, out), float(scale), _build.stream_ptr(q))
     _build.check(rc, "tdx_sparse_flash_attention_i8qk")
     _sparse_flash_i8qk_cuda.launches += 1
     return out

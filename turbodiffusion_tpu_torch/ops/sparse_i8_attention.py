@@ -10,7 +10,11 @@ The counterpart of three functions of `turbodiffusion_tpu/ops/flash_pallas.py`:
   * `sparse_attention_i8_planes` — K19 `_sparse_i8_planes_cuda` replaces its
     per-row form (launch :1432, body `_sparse_attn_kernel_i8` :560-680,
     metadata :1391-1421), the `v_quant="row"` path: int8 Q, K and V with
-    per-row fp32 scales, K and V packed in rows (K18's layout); K28
+    per-row fp32 scales, K and V packed in rows (K18's layout), in one of
+    two forms by its blocks (`sparse_i8_planes_form`): K7's wgmma + TMA
+    kernel on the packed rows with a K and a V scale a key at multiples of
+    128 (every `--v_quant row` call: 512/256), K3's mma.sync walk at the
+    other multiples of 64; K28
     `_sparse_i8_planes_bs_cuda` replaces its block-scale form (launch
     :1363, body `_sparse_attn_kernel_i8b` :683-806, wrapper :1345-1390):
     K7's scoring (one K scale a block, the softmax scale and log2 e folded
@@ -25,7 +29,8 @@ K19's semantics (kernel and plain version), per query row r over the keys c
 of the selected K-blocks:
   s = (int32(qi[r] . k[c]) * (qs[r] * Dh^-0.5)) * ks[c], keys >= kv_len set
   to -1e30 before the row max; p = exp(s - max) (natural exp); l = sum p;
-  o = (bf16(p * vs[c]) @ bf16(v_i8)) / max(l, 1e-20), bf16 out.
+  o = (bf16(p * vs[c]) @ bf16(v_i8)) / max(l, 1e-20), bf16 out. A LUT id
+outside [0, nK) names no key, and a row with no key before kv_len is zero.
 The TPU's poison block (LUT padding pointing at a zero block with a -1e30
 bias, and zero scales past kv_len) has no counterpart: the port pads no LUT
 entries and masks by column, as K3 and K7 do.
@@ -55,8 +60,9 @@ K7 is the faster of the two on the card.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (csrc/sparse_i8_attention.cu) or raises. `.launches` counts launches.
 K7 (wgmma fed by TMA, 128 query rows a block, 128-key chunks) takes block_q
-and block_k in multiples of 128 and 16-byte aligned q and panels, as does
-K28's wgmma form; K19 and K28's mma.sync form multiples of 64. The wrappers
+and block_k in multiples of 128 and 16-byte aligned q and panels, as do
+K19's and K28's wgmma forms (K19's row scales too: each chunk's come by a
+bulk copy); their mma.sync forms the other multiples of 64. The wrappers
 check these before anything is built or launched.
 """
 
@@ -259,7 +265,9 @@ def sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut, *,
     chunked over Q-blocks. qi (B, H, Lp, D) int8; qs (B, H, Lp) fp32; kvi
     (B, H, Lkp, 2D) int8, K in [..., :D] and V beside it (K18's layout); ks,
     vs (B, H, Lkp) fp32 row scales; lut (B, H, nQr, sel) int. Scales past
-    kv_len never reach an output (the TPU wrapper zeroes them, :1406-1408)."""
+    kv_len never reach an output (the TPU wrapper zeroes them, :1406-1408).
+    An id outside [0, nK) names no key, and a row with no key before kv_len
+    is zero, as the kernels give it."""
     B, H, Lp, D = qi.shape
     Lkp = kvi.shape[2]
     kv_len = Lkp if kv_len is None else kv_len
@@ -279,7 +287,11 @@ def sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut, *,
     vb = kvi[..., D:].reshape(B, H, nK, block_k, D)
     bi = torch.arange(B, device=dev)[:, None, None, None]
     hi = torch.arange(H, device=dev)[None, :, None, None]
-    cols = lut[..., None] * block_k + torch.arange(block_k, device=dev)
+    named = (lut >= 0) & (lut < nK)
+    cols = torch.where(named[..., None],
+                       lut[..., None] * block_k + torch.arange(block_k, device=dev),
+                       kv_len)
+    lut = torch.where(named, lut, 0)
     step = max(1, _PLAIN_LOGITS_BUDGET // (B * H * block_q * sel * block_k))
     out = torch.empty((B, H, nQ, block_q, D), dtype=torch.bfloat16, device=dev)
     for i0 in range(0, nQ, step):
@@ -295,16 +307,41 @@ def sparse_attention_i8_planes_plain(qi, qs, kvi, ks, vs, lut, *,
         s = s32 * qsb[:, :, sl] * krow
         ok = (cols[:, :, sl] < kv_len).reshape(B, H, n, 1, sel * block_k)
         s = torch.where(ok, s, NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
         l = p.sum(-1, keepdim=True)
         pv = torch.matmul((p * vrow).bfloat16().float(), vg.float())
         out[:, :, sl] = (pv / l.clamp_min(1e-20)).to(torch.bfloat16)
     return out.reshape(B, H, Lp, D)
 
 
+def _planes_form(name: str, Lp: int, Lkp: int, kv_len: int, block_q: int,
+                 block_k: int) -> str:
+    _require(block_q > 0 and block_q % 64 == 0 and Lp > 0 and Lp % block_q == 0,
+             f"{name} takes a Q block of a multiple of 64 rows dividing Lp, "
+             f"got {block_q}")
+    _require(block_k > 0 and block_k % 64 == 0 and Lkp > 0 and Lkp % block_k == 0,
+             f"{name} takes a K block of a multiple of 64 rows dividing Lk, "
+             f"got {block_k}")
+    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    return "wgmma" if block_q % _K7_TILE == 0 and block_k % _K7_TILE == 0 else "mma"
+
+
+def sparse_i8_planes_form(Lp: int, Lkp: int, kv_len: int, block_q: int,
+                          block_k: int) -> str:
+    """The kernel a K19 launch takes (csrc/sparse_i8_attention.cu
+    `planes_form`): "wgmma", K7's warp-specialised kernel on K18's packed
+    K|V rows with a K and a V scale a key (`k7::sparse_i8_vt_kernel<2>`),
+    for blocks that are multiples of 128 (every `--v_quant row` call:
+    512/256); "mma", the mma.sync loop (`sparse_i8_planes_kernel<false>`),
+    for the other multiples of 64. Raises where neither computes: other
+    blocks, blocks that do not divide the padded lengths Lp / Lkp, kv_len
+    outside (0, Lkp]."""
+    return _planes_form("K19", Lp, Lkp, kv_len, block_q, block_k)
+
+
 def _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale: float,
                            block_q: int, block_k: int, kv_len: int):
-    """Launch K19."""
+    """Launch K19 in its form (`sparse_i8_planes_form`)."""
     B, H, Lp, D = qi.shape
     Lkp = kvi.shape[2]
     dev = qi.device
@@ -312,13 +349,7 @@ def _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale: float,
     _require(qi.dtype == kvi.dtype == torch.int8, "K19 takes int8 q and K|V")
     _require(tuple(kvi.shape) == (B, H, Lkp, 2 * D),
              "K19 takes packed K|V rows (B, H, Lk, 2D)")
-    _require(block_q % 64 == 0 and Lp % block_q == 0,
-             f"K19 takes a Q block of a multiple of 64 rows dividing Lp, "
-             f"got {block_q}")
-    _require(block_k % 64 == 0 and Lkp % block_k == 0,
-             f"K19 takes a K block of a multiple of 64 rows dividing Lk, "
-             f"got {block_k}")
-    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
+    form = sparse_i8_planes_form(Lp, Lkp, kv_len, block_q, block_k)
     _require(all(t.is_contiguous() and t.device == dev for t in (qi, kvi)),
              "K19 takes contiguous tensors on one CUDA device")
     qs = qs.float().reshape(B, H, Lp).contiguous()
@@ -329,6 +360,10 @@ def _sparse_i8_planes_cuda(qi, qs, kvi, ks, vs, lut, scale: float,
     _require(lut.shape[:2] == (B, H), "K19 lut must be (B, H, nQ, sel)")
     for t in (qs, ks, vs):
         _require(t.device == dev, "K19 operands must lie on q's device")
+    if form == "wgmma":
+        _require(all(t.data_ptr() % 16 == 0 for t in (qi, kvi, ks, vs)),
+                 "K19 takes 16-byte aligned q, K|V rows and row scales (TMA, "
+                 "bulk copies)")
     out = torch.empty((B, H, Lp, D), dtype=torch.bfloat16, device=dev)
     rc = _build.load().tdx_sparse_attention_i8_planes(
         qi.data_ptr(), qs.data_ptr(), kvi.data_ptr(), ks.data_ptr(),
@@ -363,20 +398,13 @@ def sparse_attention_i8_planes_bs_plain(qi, qs, kvi, k_block_scale,
 def sparse_i8_planes_bs_form(Lp: int, Lkp: int, kv_len: int, block_q: int,
                              block_k: int) -> str:
     """The kernel a K28 launch takes (csrc/sparse_i8_attention.cu
-    `k28_form`): "wgmma", K7's warp-specialised kernel on the packed K|V
-    rows (`k7::sparse_i8_vt_kernel<true>`), for blocks that are multiples
+    `planes_form`): "wgmma", K7's warp-specialised kernel on the packed K|V
+    rows (`k7::sparse_i8_vt_kernel<1>`), for blocks that are multiples
     of 128 (fused sagesla's always are); "mma", the mma.sync loop
     (`sparse_i8_planes_kernel<true>`), for the other multiples of 64.
     Raises where neither computes: other blocks, blocks that do not divide
     the padded lengths Lp / Lkp, kv_len outside (0, Lkp]."""
-    _require(block_q > 0 and block_q % 64 == 0 and Lp > 0 and Lp % block_q == 0,
-             f"K28 takes a Q block of a multiple of 64 rows dividing Lp, "
-             f"got {block_q}")
-    _require(block_k > 0 and block_k % 64 == 0 and Lkp > 0 and Lkp % block_k == 0,
-             f"K28 takes a K block of a multiple of 64 rows dividing Lk, "
-             f"got {block_k}")
-    _require(0 < kv_len <= Lkp, f"kv_len {kv_len} out of range")
-    return "wgmma" if block_q % _K7_TILE == 0 and block_k % _K7_TILE == 0 else "mma"
+    return _planes_form("K28", Lp, Lkp, kv_len, block_q, block_k)
 
 
 def _sparse_i8_planes_bs_cuda(qi, qs, kvi, k_block_scale, v_channel_scale,
