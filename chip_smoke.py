@@ -6,8 +6,8 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
-     and each kernel's ptxas registers (K1 / K2's row kernels must not
-     spill, nor the wgmma kernels, K14 / K17's `k14::cross_qout_kernel`,
+     and each kernel's ptxas registers (K1 / K12, K2 and K5's row kernels
+     must not spill, nor the wgmma kernels, K14 / K17's `k14::cross_qout_kernel`,
      K4 / K3 / K20's `k4::flash_fwd_kernel<0>` / `<1>` / `<2>` and K7 /
      K28 / K19's `k7::sparse_i8_vt_kernel<0>` / `<1>` / `<2>`, spill or
      serialize their wgmmas: ptxas C7514);
@@ -26,8 +26,19 @@ Phases, each printing one line of its numbers:
      RoPE also on the fused QKV K column group (rows 3 x 1536 apart) and in
      its loop form (a view 2 bytes off alignment), rejecting the RoPE
      partner one vector off, the sin sign flipped and a weight channel
-     doubled in the last vector a lane holds; K12 also at batch 2 with the
-     block's strided modulation; K10 and K11 also at a ragged M of 1,000 rows and
+     doubled in the last vector a lane holds; K12 in its warp-per-row form
+     (each check asserting it) as norm1 / norm2 and norm3, also at batch 2
+     with the block's strided modulation, rejecting one row's modulation
+     from the other batch, and at 5120 rejecting a row's scale taken from
+     one warp's share; K5's three passes in their warp-per-row form (each
+     check asserting it), the Q and K passes against the plain version fed
+     the RMS each row took (which its own check holds to the plain
+     statistic at rtol 1e-5: summed in another order, one ulp of it can
+     move a bf16 step that RoPE's cancellation turns into two int8 steps),
+     the Q pass at atol 1e-5 + rtol 2e-2 (its int8, scales and means),
+     rejecting the first tile's rows left out of the first pool window's
+     means, head 0's scale taken from head 1 (Q) and the RoPE partner one
+     vector off (K); K10 and K11 also at a ragged M of 1,000 rows and
      at scale blocks / slabs of 384 and 1024 (K10's clusters of 3 and 8),
      and at both widths each rejecting a planted fault: a column scale
      doubled, a slab's row scales doubled; K9 also at a ragged M of 1,000
@@ -58,7 +69,9 @@ Phases, each printing one line of its numbers:
      (two passes); K3 and K4 (cross and dense self,
      SDPA beside it) at 40 heads, K4 also dense at 720p (75,600 tokens, q
      sharp);
-     K15, K5 with K15's RMS at 40 heads, K6, K7, K16, K17, K12, K8-K11 and
+     K15, K5's three passes at 40 heads with the row's own RMS (as the
+     path takes it; the same faults) and its Q pass with K15's RMS (the
+     external-RMS mode), K6, K7, K16, K17, K12, K8-K11 and
      K22 (also at a ragged M of 1,000) at dim 5120, FFN 13824; every
      int8 GEMM line with its TOP/s and share of the int8 peak), with
      poisoned-tail checks of K7, K19 (NaN K and V scales past kv_len), K20
@@ -113,8 +126,8 @@ Phases, each printing one line of its numbers:
      block-scale branch (6 latent frames, 9,360 tokens, topk 0.9: 33 of 37
      K blocks, 8,448 keys a row > 8,192; proj_l != 0: exactly K27 1, K28 1,
      K21 1, K6 0, K7 0), and at 14B `sagesla`
-     with W8A8 linears (unfused Q / K / V, K15-K17), bf16 `sagesla` (K15,
-     K5-K7, K2 on the cross q), `sla` (K2 on q, k and the cross q, K3),
+     with W8A8 linears (unfused Q / K / V, K15-K17), bf16 `sagesla` (K5-K7
+     with the rows' RMS in K5, K2 on the cross q; no K15), `sla` (K2 on q, k and the cross q, K3),
      `original` (K2, K4) and `sagesla` with block-scaled linears (K22): the
      kernels on the card against the plain versions on the CPU, on the Q
      blocks whose block-map rows agree as sets, with each block's launch
@@ -154,8 +167,8 @@ Phases, each printing one line of its numbers:
      checkpoint: K1
      3, K2 1, K4 1, K5 3, K6 1, K7 1, K22 10; x 30 blocks x 4 steps; 14B
      W8A8 sagesla: K5 3, K6 1, K7 1, K8 2, K9 8, K10 1, K11 1,
-     K12 3, K15 3, K16 1, K17 1; 14B bf16 sagesla (480p and 720p): K1 3,
-     K2 1, K4 1, K5 3, K6 1, K7 1, K15 2; `sla`: K1 3, K2 3, K3 1, K4 1;
+     K12 3, K15 1 (the cross q), K16 1, K17 1; 14B bf16 sagesla (480p and
+     720p): K1 3, K2 1, K4 1, K5 3, K6 1, K7 1; `sla`: K1 3, K2 3, K3 1, K4 1;
      `original`: K1 3, K2 3, K4 2; block-scaled: bf16 sagesla's and K22
      10; x 40 blocks x 4 steps; every other kernel 0), which shows each
      path went through its kernels; then one DiT call of each path under
@@ -252,6 +265,11 @@ SHARP_ATOL = 4e-3
 # faults miss by 4 and more
 JVP_ATOL = 0.1
 SCALE_RTOL = 1e-5                   # fp32 int8 scales, kernel vs plain
+# K5's Q pass (int8 planes, scales, pooled means, no bf16 plane): atol 1e-5
+# with RTOL, the card tests' tolerance of K5's scales and means (a one-ulp
+# RMS can move one bf16 step of a head's absmax, 2^-8 relative); ATOL would
+# pass a head's scale taken from its neighbour's
+K5_Q_ATOL = 1e-5
 # K14's scales: its fp32 sums (the row's mean square, QK, P V) run in another
 # order than the plain version's, which can move one bf16 element of the
 # normed q or of P by a step (2^-8) and so the row's output absmax by up to
@@ -270,7 +288,7 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # blocks, 14B: 40); a kernel a path does not name runs 0 times
 _SAGESLA = {"K5": 360, "K6": 120, "K7": 120}
 _SAGESLA_14B = {"K1": 480, "K2": 160, "K4": 160, "K5": 480, "K6": 160,
-                "K7": 160, "K15": 320}
+                "K7": 160}
 EXPECTED_LAUNCHES = {
     # the int8 feeds: K12 for norm1 / norm3 / norm2, K13 for the O feed, K14
     # for cross attention; K8 only for the text-side K / V linears
@@ -286,11 +304,12 @@ EXPECTED_LAUNCHES = {
     # projection takes K8 on the bf16 attention output
     "sagesla+w8a8 block64": {"K2": 240, "K8": 360, "K9": 720, "K10": 120,
                              "K11": 120, "K12": 360, "K14": 120, "K20": 120},
-    # the wide forms: unfused Q / K / V (K9 x 8), K15 on Q, K and the cross
-    # q, K5 reading its RMS, K16 for the O feed, K17 for cross attention
+    # the wide forms: unfused Q / K / V (K9 x 8), K5 taking each row's RMS
+    # itself, K15 on the cross q for K17 (cross attention), K16 for the O
+    # feed
     "14b-sagesla+w8a8": {"K5": 480, "K6": 160, "K7": 160, "K8": 320,
                          "K9": 1280, "K10": 160, "K11": 160, "K12": 480,
-                         "K15": 480, "K16": 160, "K17": 160},
+                         "K15": 160, "K16": 160, "K17": 160},
     # a reference-layout checkpoint with 128x128 block-scaled linears: the
     # bf16 sagesla composition (K1 x 3, K2 on the cross q, K4) with each of
     # the ten linears a K22, and the linear branch on (a non-zero proj_l:
@@ -304,8 +323,8 @@ EXPECTED_LAUNCHES = {
                              "K11": 120, "K12": 360, "K13": 120, "K14": 120,
                              "K27": 120, "K28": 120},
     # the 14B with bf16 linears: K1 x 3, K2 on the cross q at 5120 and K4
-    # over the text; fused sagesla K15 on Q and K (the wide form), K5 x 3,
-    # K6, K7; `sla` and `original` K2 on the self q and k too, then K3 or K4
+    # over the text; fused sagesla K5 x 3 (the RMS in the row), K6, K7; `sla`
+    # and `original` K2 on the self q and k too, then K3 or K4
     "14b-sagesla": _SAGESLA_14B,
     "14b-sla": {"K1": 480, "K2": 480, "K3": 160, "K4": 160},
     "14b-original": {"K1": 480, "K2": 480, "K4": 320},
@@ -544,7 +563,8 @@ def phase1():
     ptxas = _ptxas_summary(lib.build_log)
     print(f"phase1 device: {smi} | kernel build {lib.build_seconds:.1f} s "
           f"(load {wall:.1f} s) | ptxas: {ptxas}", flush=True)
-    # K1 and K2's warp-per-row kernels hold their rows in registers; K14 /
+    # K1 / K12, K2 and K5's warp-per-row kernels hold their rows in
+    # registers; K14 /
     # K17's, K3 / K4 / K20's and K7 / K19 / K28's hold their S and O there,
     # and their wgmmas must overlap
     spilled = [k for k in ptxas.split("; ") if k.startswith(_ROW_KERNELS + _WGMMA_KERNELS)
@@ -558,7 +578,7 @@ def phase1():
     return smi
 
 
-_ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel")
+_ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel")
 _WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel")
 
 
@@ -675,6 +695,10 @@ def phase2(reps: int = REPS):
     n_x = x.numel()
     F_rms_norm = getattr(torch.nn.functional, "rms_norm", None)  # torch >= 2.4
     pairs7 = _sparse_pairs(lut8, BQ, BK, L, L)
+    # the statistic each K5 pass took: its plain version is fed it (see
+    # _k5_rms), the statistic itself checked against the plain one
+    rms_q = _k5_rms(xq, w, cosF, sinF, HEADS, BQ, True, False)
+    rms_k = _k5_rms(xk, w, cosF, sinF, HEADS, BK, False, True)
     ops4 = lambda lk: {"bf16": 4 * B * HEADS * L * lk * DH}      # noqa: E731
     ops7 = {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}   # QK, PV
     kv_ops = 2 * B * HEADS * L * DH * DH                          # K6's kv sums
@@ -719,17 +743,23 @@ def phase2(reps: int = REPS):
               (q, k, v), ops4(L), sdpa(q, k, v),
               "F.scaled_dot_product_attention"),
     ] + _k4_edge_checks(q, kt, vt, sdpa) + [
-        Check("K5", "Q (norm+rope, int8, pool 512)",
+        Check("K5", f"Q (norm+rope, int8, pool 512) {_k5_form(xq, w, cosF, sinF, HEADS)}",
               lambda: sf._head_planes_cuda(xq, q_form["weight"], cosF, sinF, HEADS,
                                            1e-6, BQ, True, False, LP),
-              lambda: sf.head_planes_plain(xq, **q_form, **hp),
-              (xq, w, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}),
-        Check("K5", "K (norm+rope, bf16, pool 256)",
+              lambda: sf.head_planes_plain(xq, **q_form, **hp, rms_inv=rms_q),
+              (xq, w, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}, atol=K5_Q_ATOL,
+              faults=_k5_faults(xq, w, cosF, sinF, HEADS, BQ, True, False)),
+        Check("K5", f"K (norm+rope, bf16, pool 256) {_k5_form(xk, w, cosF, sinF, HEADS)}",
               lambda: sf._head_planes_cuda(xk, w, cosF, sinF, HEADS, 1e-6, BK,
                                            False, True, LP),
-              lambda: sf.head_planes_plain(xk, **k_form, **hp),
-              (xk, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
-        Check("K5", "V (bf16 fold)",
+              lambda: sf.head_planes_plain(xk, **k_form, **hp, rms_inv=rms_k),
+              (xk, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
+              faults=_k5_faults(xk, w, cosF, sinF, HEADS, BK, False, True)),
+        Check("K5", "the Q rows' RMS inverse the kernel took",
+              lambda: _k5_rms(xq, w, cosF, sinF, HEADS, BQ, True, False),
+              lambda: sf.row_rms_inv_plain(xq, 1e-6), (xq, w, cosF[:L], sinF[:L]),
+              {"fp32": 12 * n_x}, atol=0.0, rtol=SCALE_RTOL),
+        Check("K5", f"V (bf16 fold) {_k5_form(xv, None, None, None, HEADS)}",
               lambda: sf._head_planes_cuda(xv, None, None, None, HEADS, 1e-6, 0,
                                            False, True, LP),
               lambda: sf.head_planes_plain(xv, **hp), (xv,), {}),
@@ -1114,21 +1144,39 @@ def _block_gemm_checks(randn, geo: Geometry = G13):
     return out + [check(f"{pre}ragged M", 1000, D, D, bf, guard=True)]
 
 
+def _k12_one_warp_scale(x, ms, mb):
+    """K12's output with each row's scale taken from the first of its warps'
+    share alone (the 32-vector spans 0, 4, 8, ... of a 5120-wide row's four
+    warps) and the row requantised with it: a wide row whose warps skipped
+    the absmax exchange."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    q, s = fn._mln_quant_cuda(x, ms, mb, None, None, 1e-6)
+    y = q.float() * s
+    cols = torch.arange(x.shape[-1], device=x.device).view(-1, 256)[0::4].reshape(-1)
+    s_bad = y[..., cols].abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127
+    return torch.round(y / s_bad).clamp(-127, 127).to(torch.int8), s_bad
+
+
 def _k12_checks(x, ms, mb, w, bias):
-    """K12 as norm1 / norm2 (modulated) and norm3 (affine) on x's rows;
-    `F.layer_norm` (bf16 out) beside it as a yardstick."""
+    """K12 as norm1 / norm2 (modulated) and norm3 (affine) on x's rows, each
+    asserting its warp-per-row form; above 2048 wide (a row on several
+    warps) rejecting a row's scale taken from one warp's share; `F.layer_norm`
+    (bf16 out) beside it as a yardstick."""
     import torch
     from turbodiffusion_tpu_torch.ops import fused_norm as fn
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
     n_x, D = x.numel(), x.shape[-1]
+    wide = {"a row's scale from one warp's share": lambda: _k12_one_warp_scale(x, ms, mb)}
     return [
-        Check("K12", f"mod -> int8 (norm1/norm2), D {D}",
+        Check("K12", f"mod -> int8 (norm1/norm2), D {D} {_k12_form(x, ms, mb, None, None)}",
               lambda: fn._mln_quant_cuda(x, ms, mb, None, None, 1e-6),
               lambda: fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=True),
               (x, ms, mb), {"fp32": 11 * n_x}, **scale_tol,
               yardsticks={"F.layer_norm (bf16 out)":
-                          lambda: torch.nn.functional.layer_norm(x, (D,), eps=1e-6)}),
-        Check("K12", f"affine -> int8 (norm3), D {D}",
+                          lambda: torch.nn.functional.layer_norm(x, (D,), eps=1e-6)},
+              faults=wide if D > 2048 else {}),
+        Check("K12", f"affine -> int8 (norm3), D {D} {_k12_form(x, None, None, w, bias)}",
               lambda: fn._mln_quant_cuda(x, None, None, w, bias, 1e-6),
               lambda: fn.modulated_layer_norm_ref(x, None, None, w, bias, 1e-6,
                                                   quant_out=True),
@@ -1156,13 +1204,25 @@ def _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa):
     # of one (B, 6, D) tensor, which the wrapper copies before the launch
     x2 = torch.cat([x, x.flip(1)])
     e2 = torch.stack([torch.stack([mb[0], ms[0]] * 3), torch.stack([ms[0], mb[0]] * 3)])
+
+    def other_batch_row():
+        # batch 1's first row quantised with batch 0's modulation
+        q, s = fn.modulated_layer_norm(x2, e2[:, 1:2], e2[:, 0:1], eps=1e-6,
+                                       quant_out=True)
+        qr, sr = fn.modulated_layer_norm(x2[1:2, :1], e2[0:1, 1:2], e2[0:1, 0:1],
+                                         eps=1e-6, quant_out=True)
+        q[1, 0], s[1, 0] = qr[0, 0], sr[0, 0]
+        return q, s
+
+    form2 = _k12_form(x2, e2[:, 1].contiguous(), e2[:, 0].contiguous(), None, None)
     return _k12_checks(x, ms, mb, w, bias) + [
-        Check("K12", f"mod -> int8 at batch 2, strided (2, 6, {DIM}) modulation",
+        Check("K12", f"mod -> int8 at batch 2, strided (2, 6, {DIM}) modulation {form2}",
               lambda: fn.modulated_layer_norm(x2, e2[:, 1:2], e2[:, 0:1],
                                               eps=1e-6, quant_out=True),
               lambda: fn.modulated_layer_norm_ref(x2, e2[:, 1:2], e2[:, 0:1],
                                                   eps=1e-6, quant_out=True),
-              (x2, e2[:, :2]), {"fp32": 22 * n_x}, **scale_tol),
+              (x2, e2[:, :2]), {"fp32": 22 * n_x}, **scale_tol,
+              faults={"one row's modulation from the other batch": other_batch_row}),
         Check("K13", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
               lambda: sf._unfold_quant_cuda(planes, L),
               lambda: sf.unfold_quant_plain(planes, L),
@@ -1436,6 +1496,91 @@ def _k3_checks(q, k, v, lut, topk: int, heads: int, what: str = "") -> list:
     return checks
 
 
+def _k5_form(x, w, cos, sin, heads: int) -> str:
+    """The form K5's C entry takes for these inputs (the outputs, freshly
+    allocated, are aligned), "[vector form]" or a failure: the package's
+    `head_planes_form` must name it too, and every path shape takes the
+    warp-per-row kernel."""
+    from turbodiffusion_tpu_torch.ops import _build
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    ptr = lambda t: None if t is None else t.data_ptr()           # noqa: E731
+    ptrs = [ptr(x), ptr(w), ptr(cos), ptr(sin), None, None, None]
+    code = _build.load().tdx_head_planes_form(*ptrs, x.stride(1), heads)
+    py = sf.head_planes_form(heads, x.stride(1), *ptrs)
+    got = "vector" if code else "refused"
+    if got != py:
+        raise AssertionError(f"K5's C entry takes the {got} form, head_planes_form says {py}")
+    return _form(got, "vector", f"K5 at {tuple(x.shape)}")
+
+
+def _k12_form(x, ms, mb, w, b) -> str:
+    """The form K12's C entry takes for these operands, which the package's
+    `mln_quant_form` must name too."""
+    from turbodiffusion_tpu_torch.ops import _build
+    from turbodiffusion_tpu_torch.ops import fused_norm as fn
+    ptr = lambda t: None if t is None else t.data_ptr()           # noqa: E731
+    ptrs = [ptr(x), None, ptr(ms), ptr(mb), ptr(w), ptr(b)]
+    code = _build.load().tdx_modulated_layer_norm_quant_form(*ptrs, x.shape[-1])
+    py = fn.mln_quant_form(x.shape[-1], *ptrs)
+    got = "vector" if code else "loop"
+    if got != py:
+        raise AssertionError(f"K12's C entry takes the {got} form, mln_quant_form says {py}")
+    return _form(got, "vector", f"K12 at {tuple(x.shape)}")
+
+
+def _k5_rms(x, w, cosF, sinF, heads: int, pool: int, quant: bool, bf16_out: bool):
+    """The RMS inverse each row took in a K5 launch with the row's own
+    statistic (B, L, 1). The K5 checks feed it to the plain version and
+    check it against the plain statistic apart: the plain version sums in
+    another order, and one ulp of the RMS can move a bf16 step of the normed
+    row, which RoPE's cancellation can turn into two int8 steps of an output
+    (seen in the 14B's Q pass)."""
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    return sf._head_planes_cuda(x, w, cosF, sinF, heads, 1e-6, pool, quant, bf16_out, LP,
+                                rms_out=True)["rms_inv"]
+
+
+def _k5_faults(x, w, cosF, sinF, heads: int, pool: int, quant: bool, bf16_out: bool) -> dict:
+    """What a check of a K5 pass must reject, each the kernel's own output
+    with one thing wrong: the first tile's rows left out of the first pool
+    window's means; with int8, head 0's scale taken from head 1; with bf16
+    planes, the RoPE partner one vector (8 channels) off."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    L_ = x.shape[1]
+
+    def run():
+        return sf._head_planes_cuda(x, w, cosF, sinF, heads, 1e-6, pool, quant, bf16_out, LP)
+
+    def tile_left_out():
+        out = run()
+        first = sf.head_planes_plain(x[:, :64], w, cosF, sinF, num_heads=heads, eps=1e-6,
+                                     pool=64)["pooled"][:, :, 0]
+        out["pooled"][:, :, 0] -= first * (64 / pool)
+        return out
+
+    def neighbour_scale():
+        out = run()
+        out["scale"][:, 0] = out["scale"][:, 1]
+        return out
+
+    def partner_off():
+        out = run()
+        # the kernel's own normed planes, rotated with partner j + 64 + 8
+        y = sf._head_planes_cuda(x, w, None, None, heads, 1e-6, 0, False, True, LP)["bf16"]
+        y = y[:, :, :L_].float()
+        p = torch.roll(y, -(DH // 2 + 8), dims=-1)
+        out["bf16"][:, :, :L_] = (y * cosF[:L_] + p * sinF[:L_]).bfloat16()
+        return out
+
+    faults = {"the first tile's rows left out of window 0's pooled means": tile_left_out}
+    if quant:
+        faults["head 0's int8 scale taken from head 1"] = neighbour_scale
+    if bf16_out:
+        faults["RoPE partner one vector off"] = partner_off
+    return faults
+
+
 def _form(got: str, want: str, what: str) -> str:
     if got != want:
         raise AssertionError(f"{what} takes the {got} form, not the {want} form")
@@ -1538,7 +1683,8 @@ def _wide_checks(randn, sdpa):
     4096 would give, and once above 5120 (48 x 128);
     K4 (cross 32,760 x 512, dense self 32,760^2 and, at 720p, 75,600^2) and
     K3 (512/256, 12 of 128 K blocks) at 40 heads; K15 on a projection's rows; K5's three passes of
-    the fused path at 40 heads, Q and K reading K15's RMS; K6 and K7 at 40
+    the fused path at 40 heads, Q and K taking the row's RMS themselves
+    (and the Q pass once reading K15's, the external-RMS mode); K6 and K7 at 40
     heads on those planes (12 of 128 K blocks); K16 over K7-shaped planes
     (B, 40, 32,768, 128); K17 (q-norm with K15's RMS, cross attention over
     512 text keys, int8 O feed); K12, K8-K11 and K22 at the 14B widths. No
@@ -1560,13 +1706,15 @@ def _wide_checks(randn, sdpa):
     bias = randn(DIM, std=0.1)
     kt, vt = randn(B, TEXT, HEADS, DH), randn(B, TEXT, HEADS, DH)
     cosF, sinF = fn.rope_cos_sin_full(rope_freqs_3d(21, 30, 52, DH, device=x.device))
-    ri_q, ri_k = sf.row_rms_inv_plain(x, 1e-6), sf.row_rms_inv_plain(xk, 1e-6)
+    ri_q = sf.row_rms_inv_plain(x, 1e-6)
+    rms_q = _k5_rms(x, w, cosF, sinF, HEADS, BQ, True, False)
+    rms_k = _k5_rms(xk, w, cosF, sinF, HEADS, BK, False, True)
     hp = dict(num_heads=HEADS, eps=1e-6, pad_to=LP)
     q_form = dict(weight=w, cos_full=cosF, sin_full=sinF, pool=BQ, quant=True,
                   bf16_out=False)
     k_form = dict(weight=w, cos_full=cosF, sin_full=sinF, pool=BK)
-    Qp = sf.head_planes_plain(x, **q_form, **hp, rms_inv=ri_q)
-    Kp = sf.head_planes_plain(xk, **k_form, **hp, rms_inv=ri_k)
+    Qp = sf.head_planes_plain(x, **q_form, **hp)
+    Kp = sf.head_planes_plain(xk, **k_form, **hp)
     Vp = sf.head_planes_plain(xv, **hp)
     lut8, sel, k_mean = sf.block_map_from_pooled(Qp["pooled"], Kp["pooled"],
                                                  L, BK, TOPK)
@@ -1664,20 +1812,33 @@ def _wide_checks(randn, sdpa):
               lambda: sf._row_rms_inv_cuda(x, 1e-6, None, 0),
               lambda: sf.row_rms_inv_plain(x, 1e-6), (x,), {"fp32": 2 * n_x},
               **scale_tol),
-        Check("K5", f"14B Q (K15's RMS, rope, int8, pool {BQ}), {HEADS} heads",
+        Check("K5", f"14B Q (the row's RMS, rope, int8, pool {BQ}), {HEADS} heads "
+              f"{_k5_form(x, w, cosF, sinF, HEADS)}",
               lambda: sf._head_planes_cuda(x, w, cosF, sinF, HEADS, 1e-6, BQ,
-                                           True, False, LP, ri_q),
-              lambda: sf.head_planes_plain(x, **q_form, **hp, rms_inv=ri_q),
-              (x, w, ri_q, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}),
-        Check("K5", f"14B K (K15's RMS, rope, bf16, pool {BK}), {HEADS} heads",
+                                           True, False, LP),
+              lambda: sf.head_planes_plain(x, **q_form, **hp, rms_inv=rms_q),
+              (x, w, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}, atol=K5_Q_ATOL,
+              faults=_k5_faults(x, w, cosF, sinF, HEADS, BQ, True, False)),
+        Check("K5", f"14B K (the row's RMS, rope, bf16, pool {BK}), {HEADS} heads "
+              f"{_k5_form(xk, w, cosF, sinF, HEADS)}",
               lambda: sf._head_planes_cuda(xk, w, cosF, sinF, HEADS, 1e-6, BK,
-                                           False, True, LP, ri_k),
-              lambda: sf.head_planes_plain(xk, **k_form, **hp, rms_inv=ri_k),
-              (xk, w, ri_k, cosF[:L], sinF[:L]), {"fp32": 10 * n_x}),
-        Check("K5", f"14B V (bf16 fold), {HEADS} heads",
+                                           False, True, LP),
+              lambda: sf.head_planes_plain(xk, **k_form, **hp, rms_inv=rms_k),
+              (xk, w, cosF[:L], sinF[:L]), {"fp32": 10 * n_x},
+              faults=_k5_faults(xk, w, cosF, sinF, HEADS, BK, False, True)),
+        Check("K5", f"14B the Q rows' RMS inverse the kernel took (four warps a row)",
+              lambda: _k5_rms(x, w, cosF, sinF, HEADS, BQ, True, False),
+              lambda: sf.row_rms_inv_plain(x, 1e-6), (x, w, cosF[:L], sinF[:L]),
+              {"fp32": 12 * n_x}, atol=0.0, rtol=SCALE_RTOL),
+        Check("K5", f"14B V (bf16 fold), {HEADS} heads {_k5_form(xv, None, None, None, HEADS)}",
               lambda: sf._head_planes_cuda(xv, None, None, None, HEADS, 1e-6, 0,
                                            False, True, LP),
               lambda: sf.head_planes_plain(xv, **hp), (xv,), {}),
+        Check("K5", f"14B Q with K15's RMS (the external-RMS mode), {HEADS} heads",
+              lambda: sf._head_planes_cuda(x, w, cosF, sinF, HEADS, 1e-6, BQ,
+                                           True, False, LP, ri_q),
+              lambda: sf.head_planes_plain(x, **q_form, **hp, rms_inv=ri_q),
+              (x, w, ri_q, cosF[:L], sinF[:L]), {"fp32": 12 * n_x}, atol=K5_Q_ATOL),
         Check("K6", f"14B pack K/V {BK}-row blocks, {HEADS} heads",
               lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, False),
               lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L),
@@ -2397,7 +2558,7 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         modulated_layer_norm, rope_cos_sin_full, rmsnorm_rope)
     from turbodiffusion_tpu_torch.ops.quant import quantize_wan_blocks
     from turbodiffusion_tpu_torch.ops.sla_fused import (
-        block_map_from_pooled, head_planes, row_rms_inv)
+        block_map_from_pooled, head_planes)
     from turbodiffusion_tpu_torch.pipelines.pipeline import make_wan_cfg
 
     cfg = make_wan_cfg(geo.model, attention, topk, quant_linear,
@@ -2431,15 +2592,12 @@ def phase3(attention: str, quant_linear: bool = False, device: str = "cuda",
         sa = b.self_attn
         q_proj, k_proj = _qk_proj(sa, h, DIM)
         if fused:
-            # as sla_attention_fused: K15's RMS for rows wider than 4096
-            ri = ((lambda p: row_rms_inv(p, cfg.eps)) if DIM > 4096
-                  else (lambda p: None))
+            # as sla_attention_fused: K5 takes each row's RMS itself
             kw = dict(num_heads=HEADS, eps=cfg.eps, pad_to=-(-n // 512) * 512)
             pq = head_planes(q_proj, sa.norm_q, *rope, pool=a.block_q,
-                             quant=True, bf16_out=False, rms_inv=ri(q_proj),
-                             **kw)["pooled"]
+                             quant=True, bf16_out=False, **kw)["pooled"]
             pk = head_planes(k_proj, sa.norm_k, *rope, pool=a.block_k,
-                             rms_inv=ri(k_proj), **kw)["pooled"]
+                             **kw)["pooled"]
             return block_map_from_pooled(pq, pk, n, a.block_k, a.sla_topk)[0]
         q = rmsnorm_rope(q_proj, sa.norm_q, *rope, num_heads=HEADS, eps=cfg.eps)
         k = rmsnorm_rope(k_proj, sa.norm_k, *rope, num_heads=HEADS, eps=cfg.eps)
@@ -3298,7 +3456,9 @@ def phase6(tmp: str, ckpt: str, shards: dict):
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1", ("mln_rows_kernel", "mln_kernel<false")), ("K12", ("mln_kernel<true",)),
+    # K12 (either form) before K1, whose row kernel shares its name
+    ("K12", ("mln_kernel<true",) + tuple(f"mln_rows_kernel<{v}, true>" for v in range(1, 9))),
+    ("K1", ("mln_rows_kernel", "mln_kernel<false")),
     ("K2", ("rmsrope_rows_kernel", "rmsrope_kernel")), ("K13", ("unfold_quant_kernel",)),
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
@@ -3309,7 +3469,7 @@ PROFILE_CATEGORIES = [
     ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<1>")),
     ("K4", ("flash_fwd_kernel<0>",)), ("K20", ("flash_fwd_kernel<2>",)),
     ("K20/K30 int8 rows", ("i8qk_quant_kernel",)),
-    ("K5", ("head_planes_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
+    ("K5", ("head_planes_rows_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
     ("K27", ("subquant_block_kernel<true>",)),
     ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
     ("K18", ("subquant_pack_kv_kernel<true>",)),
@@ -3430,18 +3590,21 @@ def main(argv=None) -> int:
         if bs != {"K27": 1, "K28": 1, "K21": 1, "K6": 0, "K7": 0}:
             raise AssertionError(f"phase3 block-scale pair launches {bs}")
         phase3("sagesla", True, geo=G14)
-        # the 14B's bf16 compositions (K2 at 5120) and its block-scaled one
+        # the 14B's bf16 compositions (K2 at 5120) and its block-scaled one;
+        # fused sagesla takes the rows' RMS in K5, no K15
         for label, kw, must in (
                 ("sagesla", dict(attention="sagesla"),
-                 ("K1", "K2", "K4", "K5", "K6", "K7", "K15")),
+                 ("K1", "K2", "K4", "K5", "K6", "K7")),
                 ("sla", dict(attention="sla"), ("K1", "K2", "K3", "K4")),
                 ("original", dict(attention="original"), ("K1", "K2", "K4")),
                 ("block-scale", dict(attention="sagesla", block_scale=True),
-                 ("K1", "K2", "K4", "K5", "K6", "K7", "K15", "K22"))):
+                 ("K1", "K2", "K4", "K5", "K6", "K7", "K22"))):
             got = phase3(geo=G14, **kw)
             missing = [n for n in must if not got.get(n)]
             if missing:
                 raise AssertionError(f"phase3 14B {label}: {missing} never launched")
+            if got.get("K15"):
+                raise AssertionError(f"phase3 14B {label}: K15 launched {got['K15']} times")
         for attention, sla_block in TRAIN_BLOCK_LAUNCHES:
             phase3_train(attention, sla_block)
         for attention in ("original", "sla"):

@@ -178,13 +178,28 @@ def test_mln_form_by_shape(D, x, form):
     assert fn.mln_form(D, x, BASE, BASE + 8, BASE, None, None) == "loop"
 
 
+@pytest.mark.parametrize("D,x,form", [(1536, BASE, "vector"), (5120, BASE, "vector"),
+                                      (8192, BASE, "vector"), (1540, BASE, "loop"),
+                                      (1536, BASE + 2, "loop"), (8200, BASE, "loop")])
+def test_mln_quant_form_by_shape(D, x, form):
+    """K12 takes K1's rule: the warp-per-row kernel with an int8 epilogue for
+    D a multiple of 8 up to 8192 with aligned operands (the int8 output in
+    out's place); the block-per-row `mln_kernel<true>` the rest, an int8
+    output off 16-byte alignment among them."""
+    assert fn.mln_quant_form(D, x, BASE, None, None, BASE, BASE) == form
+    assert fn.mln_quant_form(D, x, BASE, BASE, BASE, None, None) == form
+    assert fn.mln_quant_form(D, x, BASE + 8, BASE, BASE, None, None) == "loop"
+    assert fn.mln_quant_form(D, x, BASE, BASE, BASE, None, None) == fn.mln_form(
+        D, x, BASE, BASE, BASE, None, None)
+
+
 def test_form_limit_matches_the_kernel_source():
     """The widest vector-form row the form functions allow is the one the
     CUDA source's constants give: 8 elements x 32 lanes x row warps x
-    vectors a lane."""
+    vectors a lane (csrc/warp_rows.cuh, which K1, K2, K12 and K5 share)."""
     import re
     from pathlib import Path
-    src = (Path(fn.__file__).resolve().parent.parent / "csrc" / "fused_norm.cu").read_text()
+    src = (Path(fn.__file__).resolve().parent.parent / "csrc" / "warp_rows.cuh").read_text()
     vpl = int(re.search(r"constexpr int kMaxVpl = (\d+);", src).group(1))
     warps = int(re.search(r"constexpr int kMaxRowWarps = (\d+);", src).group(1))
     assert 8 * 32 * warps * vpl == fn._VEC_MAX_ROW

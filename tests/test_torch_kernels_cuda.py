@@ -549,6 +549,163 @@ def test_k5_matches_plain(dev, form):
             torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=2e-2)
 
 
+def _k5_close(got, want):
+    """K5's outputs: int8 within 1 LSB, bf16 planes one bf16 step, scales
+    and pooled means atol 1e-5 + rtol 2e-2 (a one-ulp RMS can move a bf16
+    step of the normed row, and so a head's absmax)."""
+    got = {k: t for k, t in got.items() if k != "rms_inv"}
+    assert sorted(got) == sorted(want)
+    for key in got:
+        if key == "i8":
+            _int8_close(got[key], want[key])
+        elif key == "bf16":
+            _close(got[key], want[key])
+        else:
+            torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=2e-2)
+
+
+def _k5_want(x, got, H, Lp, **kw):
+    """K5's plain version for `got`, a launch with the row's own RMS: the
+    statistic the kernel took (`rms_inv`, with a norm) against the plain
+    one at rtol 1e-5, and the transform's plain version fed it. The plain
+    version's RMS sums in another order, and one ulp of it can move a bf16
+    step of the normed row, which RoPE's cancellation turns into two int8
+    steps of an output (seen once in 167M values at the 14B's Q)."""
+    ri = got.get("rms_inv")
+    if ri is not None:
+        torch.testing.assert_close(ri, sf.row_rms_inv_plain(x, 1e-6), rtol=1e-5, atol=0)
+    return sf.head_planes_plain(x, num_heads=H, eps=1e-6, pad_to=Lp, rms_inv=ri, **kw)
+
+
+def _k5_into_poison(x, H, Lp, w=None, cos=None, sin=None, pool=0, quant=False,
+                    bf16_out=True):
+    """K5 through its C entry into outputs prefilled with NaN (int8 with
+    -128, which the kernel never writes), after checking that the entry and
+    `sf.head_planes_form` give the launch the warp-per-row form; with a norm
+    weight the output holds the rows' statistic too ("rms_inv")."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    B, L, HD = x.shape
+    ld, dev, nan = x.stride(1), x.device, float("nan")
+    out, partial, counters, nP = {}, None, None, 0
+    if bf16_out:
+        out["bf16"] = torch.full((B, H, Lp, DH), nan, dtype=torch.bfloat16, device=dev)
+    if quant:
+        out["i8"] = torch.full((B, H, Lp, DH), -128, dtype=torch.int8, device=dev)
+        out["scale"] = torch.full((B, H, Lp), nan, device=dev)
+    if pool:
+        nP = -(-L // pool)
+        out["pooled"] = torch.full((B, H, nP, DH), nan, device=dev)
+        partial = torch.full((B, Lp // 64, HD), nan, device=dev)
+        counters = torch.zeros((B, Lp // pool), dtype=torch.int32, device=dev)
+    ptrs = [_ptr(t) for t in (x, w, cos, sin, out.get("bf16"), out.get("i8"), partial)]
+    assert sf.head_planes_form(H, ld, *ptrs) == "vector"
+    assert lib.tdx_head_planes_form(*ptrs, ld, H) == 1
+    if w is not None:
+        out["rms_inv"] = torch.full((B, L, 1), nan, device=dev)
+    assert lib.tdx_head_planes(
+        x.data_ptr(), _ptr(w), None, _ptr(cos), _ptr(sin), _ptr(out.get("bf16")),
+        _ptr(out.get("i8")), _ptr(out.get("scale")), _ptr(partial),
+        _ptr(out.get("pooled")), _ptr(counters), _ptr(out.get("rms_inv")), ld, B, L,
+        Lp, H, pool, nP, 1e-6, _build.stream_ptr(x)) == 0
+    torch.cuda.synchronize()
+    if quant:
+        assert bool((out["i8"] != -128).all())
+    return out
+
+
+# K5's call forms: the fused path's Q (int8, pooled at block_q) and K (bf16,
+# pooled at block_k) passes, every output at pool 128, V bf16 (v_quant
+# "channel") and V int8 with per-row scales (v_quant "row")
+K5_CASES = {"q": dict(pool=512, quant=True, bf16_out=False, norm=True),
+            "k": dict(pool=256, quant=False, bf16_out=True, norm=True),
+            "all, pool 128": dict(pool=128, quant=True, bf16_out=True, norm=True),
+            "v": dict(pool=0, quant=False, bf16_out=True, norm=False),
+            "v row": dict(pool=0, quant=True, bf16_out=True, norm=False)}
+
+
+def _k5_case(dev, heads, case, B=1, seed=120):
+    """(x, kwargs of head_planes) of a K5 case, L = 1000: x contiguous at
+    batch B, or the K column group of a fused (B, L, 3 H 128) QKV output."""
+    L, HD = 1000, heads * DH
+    x = _randn(dev, B, L, HD, seed=seed).bfloat16()
+    c = K5_CASES[case]
+    kw = dict(pool=c["pool"], quant=c["quant"], bf16_out=c["bf16_out"])
+    if c["norm"]:
+        cos, sin = fn.rope_cos_sin_full(rope_freqs_3d(2, 20, 26, DH, device=dev))
+        kw.update(weight=(1 + _randn(dev, HD, seed=seed + 1, std=0.1)).bfloat16(),
+                  cos_full=cos, sin_full=sin)
+    return x, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_CASES))
+@pytest.mark.parametrize("heads", [12, 40])
+def test_k5_vector_form_matches_plain(dev, heads, case):
+    """K5's warp-per-row kernel at the 1.3B's 12 and the 14B's 40 heads (one
+    warp a row, four), the row's RMS its own, in each call form, L = 1,000
+    padded to 1,024 (rows past L: a zero row's planes), into poisoned
+    outputs; through the wrapper too (one launch)."""
+    x, kw = _k5_case(dev, heads, case)
+    Lp = 1024
+    got = _k5_into_poison(x, heads, Lp, kw.get("weight"), kw.get("cos_full"),
+                          kw.get("sin_full"), kw["pool"], kw["quant"], kw["bf16_out"])
+    want = _k5_want(x, got, heads, Lp, **kw)
+    _k5_close(got, want)
+    before = sf._head_planes_cuda.launches
+    again = sf.head_planes(x, num_heads=heads, eps=1e-6, pad_to=Lp, **kw)
+    assert sf._head_planes_cuda.launches == before + 1
+    for key in want:
+        assert torch.equal(again[key], got[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q", "k", "v row"])
+@pytest.mark.parametrize("heads", [12, 40])
+def test_k5_vector_form_on_a_qkv_group_at_batch_2(dev, heads, case):
+    """Batch 2, x the K column group of a fused (2, L, 3 H 128) QKV output
+    (rows 3 H 128 apart, batches L rows apart): each batch's planes and
+    pooled means against the plain version, and two runs bit-equal (the
+    pooled means are summed in a fixed order)."""
+    L, Lp, HD = 1000, 1024, heads * DH
+    qkv, kw = _k5_case(dev, 3 * heads, case, B=2, seed=130)
+    x = qkv[..., HD:2 * HD]
+    if "weight" in kw:
+        kw["weight"] = kw["weight"][:HD]
+    assert not x.is_contiguous() and x.stride(0) == L * x.stride(1)
+    got = sf._head_planes_cuda(x, kw.get("weight"), kw.get("cos_full"), kw.get("sin_full"),
+                               heads, 1e-6, kw["pool"], kw["quant"], kw["bf16_out"], Lp,
+                               rms_out="weight" in kw)
+    _k5_close(got, _k5_want(x, got, heads, Lp, **kw))
+    twice = sf.head_planes(x, num_heads=heads, eps=1e-6, pad_to=Lp, **kw)
+    for key in twice:
+        assert torch.equal(got[key], twice[key]), key
+
+
+@pytest.mark.cuda
+def test_k5_k12_form_functions_agree_with_the_c_entries(dev):
+    """`sf.head_planes_form` and `fn.mln_quant_form` give the form the C
+    queries name (K5: 1 the warp-per-row kernel, 0 refused; K12: 1 the
+    warp-per-row kernel, 0 the block-per-row one), over heads, row strides
+    and pointer offsets (the queries read pointers as numbers only)."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    base = 1 << 20
+    for H in (1, 12, 40, 64, 65):
+        for ld in (H * DH, 3 * H * DH, H * DH + 4, H * DH - 8):
+            for off in (0, 2, 16, 3072):
+                for other in (None, base, base + 4):
+                    ptrs = [base + off, other, other, other, base, None, base]
+                    assert (sf.head_planes_form(H, ld, *ptrs) == "vector") == bool(
+                        lib.tdx_head_planes_form(*ptrs, ld, H)), (H, ld, off, other)
+    for D in (8, 1536, 1540, 5120, 8192, 8200):
+        for off in (0, 2, 8, 16):
+            for opt in (None, base + 4096):
+                ptrs = [base + off, base, opt, opt, base + 64, None]
+                assert (fn.mln_quant_form(D, *ptrs) == "vector") == bool(
+                    lib.tdx_modulated_layer_norm_quant_form(*ptrs, D)), (D, off, opt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("linear_kv", [False, True])
 def test_k6_matches_plain(dev, linear_kv):
@@ -867,6 +1024,83 @@ def test_k12_matches_plain(dev, mode):
     _scales_close(s, want_s)
 
 
+def _k12_into_poison(x, ms, mb, w, b, form):
+    """K12 through its C entry into an int8 output prefilled with -128 (which
+    the kernel never writes) and NaN scales, after checking which form the
+    entry and `fn.mln_quant_form` give the launch."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    B, L, D = x.shape
+    q = torch.full((B, L, D), -128, dtype=torch.int8, device=x.device)
+    s = torch.full((B, L, 1), float("nan"), device=x.device)
+    ptrs = [_ptr(t) for t in (x, q, ms, mb, w, b)]
+    assert fn.mln_quant_form(D, *ptrs) == form
+    assert lib.tdx_modulated_layer_norm_quant_form(*ptrs, D) == (form == "vector")
+    assert lib.tdx_modulated_layer_norm_quant(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                              *ptrs[2:], B * L, L, D, 1e-6,
+                                              _build.stream_ptr(x)) == 0
+    torch.cuda.synchronize()
+    assert bool((q != -128).all()) and bool(s.isfinite().all())
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32760, 1000])
+@pytest.mark.parametrize("D", [1536, 5120])
+@pytest.mark.parametrize("mode", ["mod", "affine"])
+def test_k12_vector_form_writes_every_row(dev, mode, D, rows):
+    """K12's warp-per-row kernel (int8 epilogue) at the 1.3B and 14B widths,
+    modulated (norm1 / norm2) and affine (norm3), on 32,760 and 1,000 rows,
+    into poisoned outputs, against its plain version; through the wrapper
+    too (one launch, the same bits)."""
+    x = (2 * _card_randn(dev, 1, rows, D, seed=70)).bfloat16()
+    ms, mb, w, b = _k1_operands(dev, D, mode)
+    want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, w, b, 1e-6, quant_out=True)
+    q, s = _k12_into_poison(x, ms, mb, w, b, "vector")
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+    before = fn._mln_quant_cuda.launches
+    q2, s2 = fn.modulated_layer_norm(x, ms, mb, w, b, eps=1e-6, quant_out=True)
+    assert fn._mln_quant_cuda.launches == before + 1
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1536, 5120])
+def test_k12_vector_form_at_batch_2_takes_each_batchs_modulation(dev, D):
+    """Batch 2 with two different modulations: each batch's rows take its
+    own (a block stages one batch's); batch 1's applied to batch 0 fails."""
+    L = 1000
+    x = (2 * _randn(dev, 2, L, D, seed=71)).bfloat16()
+    ms, mb, _, _ = _k1_operands(dev, D, "mod", B=2, seed=72)
+    want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=True)
+    q, s = _k12_into_poison(x, ms, mb, None, None, "vector")
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+    wrong_q, wrong_s = fn.modulated_layer_norm_ref(x, ms[[1, 1]], mb[[1, 1]], eps=1e-6,
+                                                   quant_out=True)
+    with pytest.raises(AssertionError):
+        _int8_close(wrong_q, want_q)
+        _scales_close(wrong_s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width 1540", "unaligned view"])
+def test_k12_loop_form_takes_what_the_vector_form_cannot(dev, case):
+    """Shapes that take K12's block-per-row kernel: a width that is not a
+    multiple of 8, a view 4 bytes off 16-byte alignment."""
+    L, D = 300, 1540 if case == "width 1540" else 1536
+    if case == "width 1540":
+        x = (2 * _randn(dev, 1, L, D, seed=73)).bfloat16()
+    else:
+        x = (2 * _randn(dev, L * D + 2, seed=73)).bfloat16()[2:].view(1, L, D)
+    ms, mb, _, _ = _k1_operands(dev, D, "mod")
+    want_q, want_s = fn.modulated_layer_norm_ref(x, ms, mb, eps=1e-6, quant_out=True)
+    q, s = _k12_into_poison(x, ms, mb, None, None, "loop")
+    _int8_close(q, want_q)
+    _scales_close(s, want_s)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant_out", [False, True])
 def test_k1_k12_at_batch_2_with_the_blocks_modulation(dev, quant_out):
@@ -1029,7 +1263,8 @@ def test_k15_matches_plain(dev, width, col_block):
 @pytest.mark.parametrize("form", ["q", "k", "v"])
 def test_k5_external_rms_at_40_heads_matches_plain(dev, form):
     """K5 at 40 heads, L = 1000 padded to 1024: Q and K with the row's RMS
-    inverse from K15 (three head groups in one launch), V without a norm."""
+    inverse from K15 (the external-RMS mode) and with the row's own, V
+    without a norm."""
     L, Lp = 1000, 1024
     x = _randn(dev, 1, L, WIDE, seed=111).bfloat16()
     w = (1 + _randn(dev, WIDE, seed=112, std=0.1)).bfloat16()
@@ -1053,8 +1288,13 @@ def test_k5_external_rms_at_40_heads_matches_plain(dev, form):
             _close(got[key], want[key])
         else:
             torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=2e-2)
-    with pytest.raises(ValueError):                 # 40 heads need K15's RMS
-        sf.head_planes(x, w, num_heads=WIDE_HEADS, pad_to=Lp)
+    if form != "v":
+        # without K15's statistic the kernel takes the row's own (four warps
+        # a 5120-wide row)
+        own = sf._head_planes_cuda(x, w, cos, sin, WIDE_HEADS, 1e-6, kw["pool"],
+                                   kw.get("quant", False), kw.get("bf16_out", True), Lp,
+                                   rms_out=True)
+        _k5_close(own, _k5_want(x, own, WIDE_HEADS, Lp, **kw))
 
 
 @pytest.mark.cuda

@@ -126,6 +126,120 @@ def test_k5_plain_matches_jax(L, form, rope, pool, quant, bf16_out):
                                    np.asarray(want["pooled"]), atol=4e-3)
 
 
+# which form a K5 launch takes: pointers as numbers (16-byte aligned BASE,
+# the fused QKV K group 3072 bytes in, 2 bytes off), row strides; ptrs are
+# x, weight, cos, sin, bf16 planes, int8 planes, partials
+BASE = 1 << 20
+K5_FORMS = [
+    ((12, 1536, BASE, BASE), "vector"),             # 1.3B q / k / v
+    ((12, 4608, BASE + 3072, BASE), "vector"),      # its fused QKV K group
+    ((40, 5120, BASE, BASE), "vector"),             # 14B, the RMS in the row
+    ((64, 8192, BASE, BASE), "vector"),             # the widest row
+    ((1, 128, BASE, BASE), "vector"),
+    ((65, 8320, BASE, BASE), "refused"),            # above 8192
+    ((12, 1540, BASE, BASE), "refused"),            # row stride off 8
+    ((12, 1528, BASE, BASE), "refused"),            # stride under the row
+    ((12, 1536, BASE + 2, BASE), "refused"),        # unaligned view
+    ((12, 1536, BASE, BASE + 4), "refused"),        # unaligned weight / table
+]
+
+
+@pytest.mark.parametrize("args,form", K5_FORMS,
+                         ids=[f"{a[0]}h-ld{a[1]}-x{a[2] - BASE}-o{a[3] - BASE}"
+                              for a, _ in K5_FORMS])
+def test_head_planes_form_by_shape(args, form):
+    """K5's warp-per-row kernel takes 1-64 heads of 128 with the RMS taken
+    in the row at every width, row strides that are multiples of 8 and at
+    least the row, and aligned pointers; the C entry refuses the rest.
+    Absent outputs (None) do not change the form."""
+    H, ld, x, other = args
+    assert sf.head_planes_form(H, ld, x, other, BASE, BASE, BASE, None, BASE) == form
+    assert sf.head_planes_form(H, ld, x, None, None, None, None, BASE, None) == (
+        form if other == BASE else "vector")
+    assert sf.head_planes_form(H, ld, None, BASE, BASE, BASE, BASE, BASE, BASE) == "refused"
+
+
+def test_head_planes_form_limits_match_the_kernel_source():
+    """The widest row and the tile the wrapper assumes are the CUDA
+    source's: kMaxHeads = kMaxVecRow / 128 heads (csrc/warp_rows.cuh's
+    8 x 32 lanes x row warps x vectors a lane) and 64-row tiles."""
+    import re
+    from pathlib import Path
+    csrc = Path(sf.__file__).resolve().parent.parent / "csrc"
+    rows = (csrc / "warp_rows.cuh").read_text()
+    src = (csrc / "sla_fused.cu").read_text()
+    vpl = int(re.search(r"constexpr int kMaxVpl = (\d+);", rows).group(1))
+    warps = int(re.search(r"constexpr int kMaxRowWarps = (\d+);", rows).group(1))
+    assert "constexpr int kMaxHeads = kMaxVecRow / kDh;" in src
+    assert 8 * 32 * warps * vpl // DH == sf._HP_MAX_HEADS
+    assert int(re.search(r"constexpr int kHpRows = (\d+);", src).group(1)) == sf._HP_ROWS
+
+
+WIDE_H = 40                                        # the 14B's heads
+
+
+@pytest.mark.parametrize("form,pool,quant,bf16_out", [("q", 128, True, False),
+                                                      ("k", 256, False, True)])
+def test_k5_in_row_rms_at_40_heads_matches_jax_fed_row_rms_inv(form, pool, quant,
+                                                               bf16_out):
+    """The 14B's Q and K passes take the row's RMS in K5 (no K15 launch):
+    the port's `head_planes` without `rms_inv`, 40 heads, L = 256 padded to
+    512, against JAX's `head_planes` fed `row_rms_inv` (its wide
+    composition), at K5's tolerances."""
+    L, Lp, hd = 256, 512, WIDE_H * DH
+    xj, xt = _bf16(_rand((1, L, hd), 31))
+    wj, wt = _bf16(1 + _rand((hd,), 32, 0.1))
+    (ct, st), (cj, sj) = _tables(L)
+    kw = dict(num_heads=WIDE_H, eps=EPS, pool=pool, quant=quant,
+              bf16_out=bf16_out, pad_to=Lp)
+    ri = sf_jax.row_rms_inv(xj, EPS, interpret=True)
+    want = sf_jax.head_planes(xj, wj, cj, sj, interpret=True,
+                              rms_inv=jnp.pad(ri, ((0, 0), (0, Lp - L), (0, 0))), **kw)
+    got = sf.head_planes(xt, wt, ct, st, **kw)
+    assert sorted(got) == sorted(want)
+    if bf16_out:
+        w16 = _np(want["bf16"])[:, :, :L]
+        np.testing.assert_allclose(_np(got["bf16"])[:, :, :L], w16, rtol=0,
+                                   atol=BF16_RTOL * np.abs(w16).max())
+    if quant:
+        _int8_close(got["i8"][:, :, :L].numpy(), np.asarray(want["i8"])[:, :, :L])
+        np.testing.assert_allclose(got["scale"][:, :, :L].numpy(),
+                                   np.asarray(want["scale"])[:, :, :L], rtol=BF16_RTOL)
+    assert got["pooled"].shape == (1, WIDE_H, L // pool, DH)
+    np.testing.assert_allclose(got["pooled"].numpy(), np.asarray(want["pooled"]),
+                               atol=4e-3)
+
+
+def test_fused_path_at_the_14b_width_takes_the_rms_in_k5(monkeypatch):
+    """`sla_attention_fused` at 40 heads of 128 calls K5 three times with
+    no external RMS and never K15 (`row_rms_inv`), where JAX's wide
+    composition takes `row_rms_inv` on Q and K first."""
+    from turbodiffusion_tpu_torch.ops import attention as attention_port
+    L, hd = 256, WIDE_H * DH
+    xs = [torch.from_numpy(_rand((1, L, hd), s)).bfloat16() for s in (33, 34, 35)]
+    wq, wk = (torch.from_numpy(1 + _rand((hd,), s, 0.1)).bfloat16() for s in (36, 37))
+    (ct, st), _ = _tables(L)
+    rms_inv, k15 = [], []
+
+    def spy_k5(*a, **k):
+        rms_inv.append(k.get("rms_inv"))
+        return sf.head_planes(*a, **k)
+
+    def spy_k15(*a, **k):
+        k15.append(1)
+        return sf.row_rms_inv(*a, **k)
+
+    monkeypatch.setattr(attention_port, "head_planes", spy_k5)
+    monkeypatch.setattr(sf, "row_rms_inv", spy_k15)
+    cfg = AttentionConfig(backend="sagesla", sla_topk=0.5, block_q=128, block_k=128,
+                          linear_branch=False, v_quant="channel")
+    with torch.no_grad():
+        o = sla_attention_fused(*xs, wq, wk, (ct, st), None, cfg, num_heads=WIDE_H,
+                                eps=EPS)
+    assert o.shape == (1, WIDE_H, 512, DH) and bool(o.float().isfinite().all())
+    assert rms_inv == [None, None, None] and not k15
+
+
 @pytest.mark.parametrize("L", [520, 1024, 1500])
 def test_q_pooled_at_block_q_equals_the_jax_merge(L):
     """The port pools Q at block_q = 512 directly; JAX pools at 256 and merges

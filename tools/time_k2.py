@@ -26,8 +26,9 @@ name and power limit. A width the launcher refuses prints its error.
 unpacked beside this one), so two trees are timed by one script, in
 turns, on one card. `--design` times this tree's design variants
 (`DESIGNS`): for each, a copy of the package under
-`turbodiffusion_tpu_torch/_build/design/<name>` with `csrc/fused_norm.cu`
-patched, timed in a process of its own.
+`turbodiffusion_tpu_torch/_build/design/<name>` with `csrc/warp_rows.cuh`
+(the warp-per-row kernels' shared constants) patched, timed in a process
+of its own.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import sys
 import kernel_timing as kt
 from kernel_timing import HBM, ROOT
 
-# the design variants: (name, [(text of csrc/fused_norm.cu, its
+# the design variants: (name, [(text of csrc/warp_rows.cuh, its
 # replacement), ...]); kMaxVpl, the most 16-byte vectors a lane holds, sets
 # the warps a row takes: 8 (this tree) gives a 5120-wide row 4 warps, 12
 # gives it 2, 20 gives it 1; kRowThreads is the block of the row kernels;
@@ -187,7 +188,7 @@ def _design(args) -> int:
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(ROOT / "turbodiffusion_tpu_torch", dst / "turbodiffusion_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        path = dst / "turbodiffusion_tpu_torch" / "csrc" / "fused_norm.cu"
+        path = dst / "turbodiffusion_tpu_torch" / "csrc" / "warp_rows.cuh"
         text = path.read_text()
         for old, new in edits:
             if text.count(old) != 1:

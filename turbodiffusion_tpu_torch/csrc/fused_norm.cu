@@ -18,30 +18,34 @@
 // D = 1536, L = 32,760: 0.060 ms at 3.35 TB/s; K12 writes int8, 150 MB)
 // with a few FLOPs per element, far below the ~295 FLOP/byte ridge.
 //
-// K1 and K2 are warp-per-row kernels (mln_rows_kernel, rmsrope_rows_kernel):
-// a row takes one warp, or 2 or 4 for rows wider than 32 lanes x kMaxVpl
-// vectors (the 14B's 5120), and a block of 8 warps walks its rows
-// persistently (as many blocks as fit on the card). Each lane loads its share
-// of the row as 16-byte vectors of 8 bf16 (a warp moves 512 contiguous bytes
-// an instruction; the loads skip L1 and ask L2 for 256-byte blocks), holds
-// them in registers as packed bf16 and stores 16 bytes at a time (streaming),
-// so the row is read once. A warp's share of the row is its only work in
-// flight; more warps, not deeper rows, cover the latency (a warp loading its
-// next row first measured no faster). The statistics are warp shuffles; the
-// warps of a wide row exchange their partial sums once, through shared memory
-// behind a named barrier of the row's warps (K1 exchanges each warp's sum and
-// centred sum of squares and combines them as Chan et al.'s parallel
-// variance). No block-wide barrier runs per row. The operands that do not
-// change from row to row are staged in shared memory once a block: K1's
-// modulation of the block's batch (1 + scale and shift, fp32), its weight and
-// bias; K2's weight. A lane's column within its head is the same for every
-// vector it holds, so K2 loads its 8 cos and 8 sin values once a row, and the
-// RoPE partner of element j (j +- Dh/2) sits in lane ^ Dh/16 of the same
-// vector: one shuffle per bf16 pair. The vector forms take the shapes and
-// alignments of *_vector below; any other launch takes, by shape, the
-// block-per-row kernels: mln_kernel<false> (K1) and rmsrope_kernel (K2).
-// K12 stays on mln_kernel<true>: one block of 256 threads per row, the row in
-// registers as bf16 pairs, block reductions through shared memory.
+// K1, K12 and K2 are warp-per-row kernels (mln_rows_kernel<VPL, QUANT>,
+// rmsrope_rows_kernel; their shared helpers are in warp_rows.cuh, which K5
+// builds on too): a row takes one warp, or 2 or 4 for rows wider than 32
+// lanes x kMaxVpl vectors (the 14B's 5120), and a block of 8 warps walks its
+// rows persistently (as many blocks as fit on the card). Each lane loads its
+// share of the row as 16-byte vectors of 8 bf16 (a warp moves 512 contiguous
+// bytes an instruction; the loads skip L1 and ask L2 for 256-byte blocks),
+// holds them in registers as packed bf16 and stores 16 bytes (K12: 8 int8)
+// at a time (streaming), so the row is read once. A warp's share of the row
+// is its only work in flight; more warps, not deeper rows, cover the latency
+// (a warp loading its next row first measured no faster). The statistics are
+// warp shuffles; the warps of a wide row exchange their partial sums through
+// shared memory behind a named barrier of the row's warps (K1 / K12 exchange
+// each warp's sum and centred sum of squares and combine them as Chan et
+// al.'s parallel variance; K12 then exchanges the warps' absmax the same
+// way). No block-wide barrier runs per row. The operands that do not change
+// from row to row are staged in shared memory once a block: the modulation
+// of the block's batch (1 + scale and shift, fp32), the weight and bias;
+// K2's weight. K12 computes each modulated value twice from the packed row,
+// once for the absmax and once to quantise, rather than hold the row in
+// fp32. A lane's column within its head is the same for every vector it
+// holds, so K2 loads its 8 cos and 8 sin values once a row, and the RoPE
+// partner of element j (j +- Dh/2) sits in lane ^ Dh/16 of the same vector:
+// one shuffle per bf16 pair. The vector forms take the shapes and alignments
+// of *_vector below; any other launch takes, by shape, the block-per-row
+// kernels: mln_kernel<false> (K1), mln_kernel<true> (K12; one block of 256
+// threads per row, the row in registers as bf16 pairs, block reductions
+// through shared memory) and rmsrope_kernel (K2).
 //
 // All follow the JAX cast chain exactly (fused_norm.py:43-65, :68-93,
 // :241-260):
@@ -56,15 +60,21 @@
 // rounding each as in the plain version, so nvcc cannot contract them into an
 // FMA that moves an fp32 value K12 quantises.
 
-#include <algorithm>
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+// blocks an SM the path's K12 instances (VPL 5 and 6: 5120 and 1536 wide)
+// are compiled for: 2 holds them to 128 registers; and whether a K12 warp's
+// next row is in flight (cp.async into shared memory) while it works on its
+// row (tools/time_k5_k12.py --design)
+constexpr int kQuantMinBlocks = 2;
+constexpr bool kQuantPrefetch = true;
 constexpr int kMaxPairs = 8;   // K1 / K12 rows of up to 2 * 8 * 256 = 4096 elements
 constexpr int kWidePairs = 10; // K1 / K12 rows of up to 5120 elements
 
@@ -252,125 +262,23 @@ rmsrope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ 
 // The warp-per-row kernels of K1 and K2
 // ---------------------------------------------------------------------------
 
-// (mln_rows_kernel's __launch_bounds__ names 1 block an SM: without it
-// ptxas held some of its instances to 48 or 64 registers with a few bytes
-// of spill; the path's instances, 104-122 registers, keep 2 blocks an SM)
-constexpr int kRowThreads = 256;
-constexpr int kRowWarps = kRowThreads / 32;
-// the most 16-byte vectors a lane holds of a row; a row takes the fewest
-// warps (1, 2 or 4) whose lanes hold it
-constexpr int kMaxVpl = 8;
-constexpr int kMaxRowWarps = 4;
-constexpr int kMaxVecRow = 8 * 32 * kMaxRowWarps * kMaxVpl;   // 8192 elements
-// x's loads skip L1 and ask L2 for 256-byte blocks; out's stores stream
-// (evict first): 2-5% at the 1.3B width, within 2% either way at 5120
-// (tools/time_k2.py --design)
-constexpr bool kLoadHint = true;
-constexpr bool kStoreHint = true;
-
-__device__ __forceinline__ uint4 load_vec(const uint4* p) {
-  if constexpr (kLoadHint) {
-    uint4 v;
-    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                 : "l"(p));
-    return v;
-  } else {
-    return *p;
-  }
-}
-
-__device__ __forceinline__ void store_vec(uint4* p, const uint4& v) {
-  if constexpr (kStoreHint) {
-    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(v.x), "r"(v.y),
-                 "r"(v.z), "r"(v.w)
-                 : "memory");
-  } else {
-    *p = v;
-  }
-}
-
-__host__ __device__ __forceinline__ int row_warps(int nvec) {
-  int rw = 1;
-  while (rw < kMaxRowWarps && nvec > 32 * rw * kMaxVpl) rw *= 2;
-  return rw;
-}
-
-// vector i of lane `lane` in warp `wig` of a row's RW warps: the warps of a
-// row take turns at 32-vector (512-byte) spans
-__device__ __forceinline__ int vec_index(int i, int RW, int wig, int lane) {
-  return (i * RW + wig) * 32 + lane;
-}
-
-// elements of a nvec-vector row that warp `wig` of the row's RW warps holds
-template <int VPL>
-__device__ __forceinline__ int warp_share(int nvec, int RW, int wig) {
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) n += max(0, min(32, nvec - (i * RW + wig) * 32));
-  return 8 * n;
-}
-
-// this lane's vectors of the row at xr (zeros past the row)
-template <int VPL>
-__device__ __forceinline__ void load_row(uint4 (&v)[VPL], const uint4* xr, int nvec, int RW,
-                                         int wig, int lane) {
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int vi = vec_index(i, RW, wig, lane);
-    v[i] = vi < nvec ? load_vec(xr + vi) : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// s / n rounded to nearest (the division of the TPU kernel and of the
-// block-per-row kernels) for an integer n, from inv = 1/n rounded on the
-// host: the product corrected by one FMA residual step. A `/` would bring
-// the division's slow path, a call whose ABI costs the row's registers a
-// stack frame.
-__device__ __forceinline__ float div_n(float s, float n, float inv) {
-  const float q = s * inv;
-  return fmaf(fmaf(-q, n, s), inv, q);
-}
-
-// the RW warps of one row meet at named barrier 1 + group (barrier 0 is
-// __syncthreads)
-__device__ __forceinline__ void row_sync(int group, int RW) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(32 * RW) : "memory");
-}
-
-// a packed bf16 pair as fp32 (element 0 in the low half), and back, rounded
-// to nearest even
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  uint32_t u;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
-  return u;
-}
-__device__ __forceinline__ uint32_t word(const uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// K1, bf16 out. x, out (B*L, D) with D = 8 * nvec; one block walks rows of
-// batch b = blockIdx.x / per_batch, so its staged modulation is that batch's.
-// Shared memory holds, for each operand present, 2 * nvec float4: channels
+// K1 (bf16 out) and K12 (QUANT: int8 out and one fp32 scale a row, rs).
+// x, out (B*L, D) with D = 8 * nvec; one block walks rows of batch b =
+// blockIdx.x / per_batch, so its staged modulation is that batch's. Shared
+// memory holds, for each operand present, 2 * nvec float4: channels
 // 8v..8v+3 at [v] and 8v+4..8v+7 at [nvec + v], so a warp's 16-byte reads
-// are consecutive (no bank conflict). inv_d = 1/D, from the host.
-template <int VPL>
-__global__ void __launch_bounds__(kRowThreads, 1)
-mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+// are consecutive (no bank conflict). inv_d = 1/D, from the host. K12
+// takes the row's absmax over the modulated values, then computes them again
+// from the packed row to quantise them (no fp32 row held in registers).
+template <int VPL, bool QUANT>
+__global__ void __launch_bounds__(kRowThreads, QUANT && VPL <= 6 ? kQuantMinBlocks : 1)
+mln_rows_kernel(const uint4* __restrict__ x, void* __restrict__ out, float* __restrict__ rs,
                 const float4* __restrict__ mod_scale, const float4* __restrict__ mod_shift,
                 const uint4* __restrict__ weight, const uint4* __restrict__ bias, int L,
                 int D, int per_batch, float inv_d, float eps) {
   extern __shared__ float4 stage[];
   __shared__ float4 xch[2][kRowWarps];
+  __shared__ float xmax[2][kRowWarps];         // K12: the row's absmax
   const int nvec = D / 8;
   const int RW = row_warps(nvec);
   const bool has_mod = mod_scale != nullptr, has_w = weight != nullptr,
@@ -379,6 +287,10 @@ mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
   float4* s_shift = s_scale + (has_mod ? 2 * nvec : 0);
   float4* s_w = s_shift + (has_mod ? 2 * nvec : 0);
   float4* s_b = s_w + (has_w ? 2 * nvec : 0);
+  // K12 with kQuantPrefetch: each warp's two row buffers of VPL x 32 vectors
+  constexpr bool PREFETCH = QUANT && kQuantPrefetch;
+  uint4* my_buf = reinterpret_cast<uint4*>(s_b + (has_b ? 2 * nvec : 0)) +
+                  (threadIdx.x >> 5) * 2 * VPL * 32;
   const int b = blockIdx.x / per_batch, bx = blockIdx.x % per_batch;
   for (int v = threadIdx.x; v < nvec; v += kRowThreads) {
     if (has_mod) {
@@ -411,12 +323,26 @@ mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
   const float n_w = (float)warp_share<VPL>(nvec, RW, wig);
   const float inv_nw = RW > 1 ? __fdividef(1.f, n_w) : inv_d;
   const uint4* xb = x + (size_t)b * L * nvec;
-  uint4* ob = out + (size_t)b * L * nvec;
   const int step = per_batch * groups;
   int parity = 0;
-  for (int l = bx * groups + group; l < L; l += step) {
+  // K12: the row after l (l + step) is in flight while l is worked on
+  const auto prefetch = [&](int l_, int k_) {
+    if (l_ < L)
+      prefetch_row<VPL>(my_buf + (k_ & 1) * VPL * 32, xb + (size_t)l_ * nvec, nvec, RW, wig,
+                        lane);
+    cp_async_commit();
+  };
+  if (PREFETCH) prefetch(bx * groups + group, 0);
+  int kr = 0;                           // the group's rows so far
+  for (int l = bx * groups + group; l < L; l += step, ++kr) {
     uint4 v[VPL];
-    load_row<VPL>(v, xb + (size_t)l * nvec, nvec, RW, wig, lane);
+    if constexpr (PREFETCH) {
+      prefetch(l + step, kr + 1);
+      cp_async_wait<1>();               // this row's group is in
+      slot_row<VPL>(v, my_buf + (kr & 1) * VPL * 32, nvec, RW, wig, lane);
+    } else {
+      load_row<VPL>(v, xb + (size_t)l * nvec, nvec, RW, wig, lane);
+    }
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < VPL; ++i)
@@ -458,16 +384,13 @@ mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
       }
       mean = mu;
       m2 = M2;
-      parity ^= 1;
     }
     const float inv = rsqrtf(div_n(m2, (float)D, inv_d) + eps);
 
-    uint4* orow = ob + (size_t)l * nvec;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int vi = vec_index(i, RW, wig, lane);
-      if (vi >= nvec) continue;
-      float y[8];
+    // vector i's values as the plain version rounds them: the affine in
+    // fp32, then bf16, then the modulation in fp32 (K1 rounds the result to
+    // bf16; K12 quantises it, or the bf16 affine value without modulation)
+    const auto values = [&](int i, int vi, float (&y)[8]) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const float2 f = unpack2(word(v[i], k));
@@ -493,12 +416,76 @@ mln_rows_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
         const float sc[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
         const float sh[8] = {e.x, e.y, e.z, e.w, f.x, f.y, f.z, f.w};
 #pragma unroll
-        for (int k = 0; k < 8; ++k) y[k] = __fadd_rn(__fmul_rn(round_bf16(y[k]), sc[k]), sh[k]);
+        for (int k = 0; k < 4; ++k) {
+          const float2 r = unpack2(pack2(y[2 * k], y[2 * k + 1]));   // bf16, a pair a cvt
+          y[2 * k] = __fadd_rn(__fmul_rn(r.x, sc[2 * k]), sh[2 * k]);
+          y[2 * k + 1] = __fadd_rn(__fmul_rn(r.y, sc[2 * k + 1]), sh[2 * k + 1]);
+        }
+      } else if (QUANT) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 r = unpack2(pack2(y[2 * k], y[2 * k + 1]));
+          y[2 * k] = r.x;
+          y[2 * k + 1] = r.y;
+        }
       }
-      store_vec(orow + vi, make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
-                                      pack2(y[4], y[5]), pack2(y[6], y[7])));
+    };
+
+    const size_t row = (size_t)b * L + l;
+    if constexpr (!QUANT) {
+      uint4* orow = reinterpret_cast<uint4*>(out) + row * nvec;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int vi = vec_index(i, RW, wig, lane);
+        if (vi >= nvec) continue;
+        float y[8];
+        values(i, vi, y);
+        store_vec(orow + vi, make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
+                                        pack2(y[4], y[5]), pack2(y[6], y[7])));
+      }
+    } else {
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int vi = vec_index(i, RW, wig, lane);
+        if (vi >= nvec) continue;
+        float y[8];
+        values(i, vi, y);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(y[k]));
+      }
+      amax = warp_max_nonneg(amax);
+      if (RW > 1) {
+        // the second exchange of a wide row: its warps' absmax
+        if (lane == 0) xmax[parity][warp] = amax;
+        row_sync(group, RW);
+#pragma unroll 1
+        for (int j = 0; j < RW; ++j) amax = fmaxf(amax, xmax[parity][group * RW + j]);
+      }
+      // the TPU kernel's rule: scale = max(amax, 1e-8) / 127, q =
+      // round-half-even(y * (1 / scale)) saturated to +-127
+      const float scale = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+      const float qinv = rcp_rn(scale);
+      // the values again from the packed row and the staged operands: as far
+      // as the compiler knows the row and shared memory have changed, so it
+      // recomputes them rather than hold the fp32 row in registers
+#pragma unroll
+      for (int i = 0; i < VPL; ++i)
+        asm volatile("" : "+r"(v[i].x), "+r"(v[i].y), "+r"(v[i].z), "+r"(v[i].w)::"memory");
+      uint2* orow = reinterpret_cast<uint2*>(out) + row * nvec;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int vi = vec_index(i, RW, wig, lane);
+        if (vi >= nvec) continue;
+        float y[8];
+        values(i, vi, y);
+        store_vec8(orow + vi, quant8_rn(y, qinv));
+      }
+      if (wig == 0 && lane == 0) rs[row] = scale;
     }
+    parity ^= 1;
   }
+  if (PREFETCH) cp_async_wait<0>();
 }
 
 // K2's vector form. x rows `ld` elements apart, out (rows, HD) with
@@ -591,8 +578,6 @@ rmsrope_rows_kernel(const __nv_bfloat16* __restrict__ x, uint4* __restrict__ out
 
 namespace {
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }   // null too
-
 // The shapes the warp-per-row kernels take (1 = vector form, 0 = the
 // block-per-row kernel). K1: D a multiple of 8 up to kMaxVecRow, every
 // operand 16-byte aligned.
@@ -613,36 +598,28 @@ bool rmsrope_vector(const void* x, const void* out, const void* weight, const vo
          aligned16(cos_full) && aligned16(sin_full);
 }
 
-// Blocks of `kernel` that fit on the card at once (at least 1).
-template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem) {
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, smem);
-  return std::max(1, n_sm * per_sm);
-}
-
-template <int V>
-int launch_mln_rows(int vpl, const void* x, void* out, const void* mod_scale,
+template <int V, bool QUANT>
+int launch_mln_rows(int vpl, const void* x, void* out, float* rs, const void* mod_scale,
                     const void* mod_shift, const void* weight, const void* bias, int rows,
                     int L, int D, float eps, cudaStream_t stream) {
   if constexpr (V > kMaxVpl) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (vpl != V)
-      return launch_mln_rows<V + 1>(vpl, x, out, mod_scale, mod_shift, weight, bias, rows, L,
-                                    D, eps, stream);
-    const auto kernel = &mln_rows_kernel<V>;
-    const size_t smem = (size_t)D * sizeof(float) *
-                        (2 * (mod_scale != nullptr) + (weight != nullptr) + (bias != nullptr));
+      return launch_mln_rows<V + 1, QUANT>(vpl, x, out, rs, mod_scale, mod_shift, weight, bias,
+                                           rows, L, D, eps, stream);
+    const auto kernel = &mln_rows_kernel<V, QUANT>;
+    const size_t smem =
+        (size_t)D * sizeof(float) *
+            (2 * (mod_scale != nullptr) + (weight != nullptr) + (bias != nullptr)) +
+        (QUANT && kQuantPrefetch ? (size_t)kRowWarps * 2 * V * 32 * 16 : 0);
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     const int B = rows / L, groups = kRowWarps / row_warps(D / 8);
     const int per_batch =
         std::max(1, std::min((L + groups - 1) / groups, resident_blocks(kernel, smem) / B));
     kernel<<<B * per_batch, kRowThreads, smem, stream>>>(
-        (const uint4*)x, (uint4*)out, (const float4*)mod_scale, (const float4*)mod_shift,
+        (const uint4*)x, out, rs, (const float4*)mod_scale, (const float4*)mod_shift,
         (const uint4*)weight, (const uint4*)bias, L, D, per_batch, 1.f / D, eps);
     return (int)cudaGetLastError();
   }
@@ -669,13 +646,7 @@ int launch_rmsrope_rows(int vpl, const void* x, void* out, const void* weight,
   }
 }
 
-// a row's vectors a lane holds: ceil(nvec / (32 * row warps))
-int lane_vectors(int nvec) {
-  const int lanes = 32 * row_warps(nvec);
-  return (nvec + lanes - 1) / lanes;
-}
-
-// K12, and K1 at the shapes mln_vector refuses: the instance whose
+// K1 and K12 at the shapes mln_vector refuses: the instance whose
 // registers hold a D-wide row, 8 pairs a thread up to 4096, 10 up to 5120.
 // It reads x, weight and bias as bf16 pairs and the modulation as float2,
 // and writes pairs: it refuses operands off those alignments.
@@ -710,6 +681,13 @@ extern "C" int tdx_rmsnorm_rope_form(const void* x, const void* out, const void*
   return rmsrope_vector(x, out, weight, cos_full, sin_full, ld, H, Dh) ? 1 : 0;
 }
 
+// K1 and K12 take the same form for the same operands
+extern "C" int tdx_modulated_layer_norm_quant_form(const void* x, const void* out_q,
+                                                   const void* mod_scale, const void* mod_shift,
+                                                   const void* weight, const void* bias, int D) {
+  return mln_vector(x, out_q, mod_scale, mod_shift, weight, bias, D) ? 1 : 0;
+}
+
 extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
                                         const void* mod_scale, const void* mod_shift,
                                         const void* weight, const void* bias,
@@ -720,8 +698,8 @@ extern "C" int tdx_modulated_layer_norm(const void* x, void* out,
                              eps, stream);
   if (rows < 0 || L <= 0 || rows % L) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
-  return launch_mln_rows<1>(lane_vectors(D / 8), x, out, mod_scale, mod_shift, weight, bias,
-                            rows, L, D, eps, (cudaStream_t)stream);
+  return launch_mln_rows<1, false>(lane_vectors(D / 8), x, out, nullptr, mod_scale, mod_shift,
+                                   weight, bias, rows, L, D, eps, (cudaStream_t)stream);
 }
 
 extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* out_scale,
@@ -729,8 +707,14 @@ extern "C" int tdx_modulated_layer_norm_quant(const void* x, void* out_q, void* 
                                               const void* weight, const void* bias,
                                               int rows, int L, int D, float eps,
                                               void* stream) {
-  return launch_mln<true>(x, out_q, (float*)out_scale, mod_scale, mod_shift, weight, bias,
-                          rows, L, D, eps, stream);
+  if (!mln_vector(x, out_q, mod_scale, mod_shift, weight, bias, D))
+    return launch_mln<true>(x, out_q, (float*)out_scale, mod_scale, mod_shift, weight, bias,
+                            rows, L, D, eps, stream);
+  if (rows < 0 || L <= 0 || rows % L) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  return launch_mln_rows<1, true>(lane_vectors(D / 8), x, out_q, (float*)out_scale, mod_scale,
+                                  mod_shift, weight, bias, rows, L, D, eps,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int tdx_rmsnorm_rope(const void* x, void* out, const void* weight,

@@ -22,8 +22,8 @@
 //    across all heads; only the L live rows are written.
 // K15 tdx_row_rms_inv replaces sla_fused.py:row_rms_inv (body _row_rms_kernel):
 //    (B, L, W) bf16 rows `ld` elements apart -> (B, L) fp32
-//    rsqrt(mean(x^2) + eps), the full-row statistic that K5's external-RMS
-//    mode and K17 read for the wide models (14B: dim 5120).
+//    rsqrt(mean(x^2) + eps), the full-row statistic that K17 reads for the
+//    wide models (14B: dim 5120) and that K5's external-RMS mode takes.
 // K18 tdx_subquant_pack_kv replaces sla_fused.py:subquant_pack_kv in its
 //    per-row mode (body _subquant_pack_kernel with block_k 0), the
 //    v_quant=row producer: xf = f32(k) - mu, one fp32 scale per row, int8 K
@@ -50,15 +50,20 @@
 // projection (1.3B, 480p: L = 32,760, H*Dh = 1536) and writes 51-101 MB at
 // a few FLOPs per byte; K6 reads 151 MB of K and V and writes 75 MB. The
 // designs move each byte once:
-//   * K5: one warp per row (8 warps x 8 rows = one 64-row block). A lane
-//     owns whole 8-element chunks and their rotate-half partners (channel i
-//     and i + 64 of one head), so the RoPE needs no shuffle; the row's RMS is
-//     one warp reduction and a head's int8 absmax a reduction over the 8
-//     lanes that hold it. Loads and stores are 16 bytes a lane. The pooled
-//     sums are kept in registers per warp, combined in shared memory in warp
-//     order, written as one partial per 64-row block, and the last block of
-//     each pool window (an atomic counter) sums that window's partials in
-//     order: one launch, deterministic, no fp32 atomics on the data.
+//   * K5: K2's warp-per-row kernel (warp_rows.cuh): a row takes one warp,
+//     or 4 at the 14B's 5120, 8-warp blocks walk 64-row tiles persistently,
+//     each lane loads its share of the row once as 16-byte vectors and holds
+//     it as packed bf16. A 32-vector span is two heads of 16 lanes, so the
+//     RoPE partner is a shuffle (lane ^ 8), a head's int8 absmax two warp
+//     max reductions (redux.sync on the bits, one a half-warp), and
+//     a lane's bf16 (16 bytes) and int8 (8 bytes) vectors are stored where
+//     the (B, H, Lp, 128) planes hold them, streaming. The row's RMS is the
+//     warp's sum of squares (a wide row's warps exchange theirs once behind a
+//     named barrier), or the external one. The pooled sums are kept per lane
+//     in shared-memory slots of its own, combined in group order into one
+//     partial per 64-row tile, and the last tile of each pool window (an
+//     atomic counter) sums that window's partials in order: one launch,
+//     deterministic, no fp32 atomics on the data.
 //   * K6: one 256-thread block per (b, h, K block): the block absmax over
 //     valid rows, a second read of the block (an L2 hit) to quantise, and the
 //     V block transposed through shared memory.
@@ -90,12 +95,6 @@
 //     writes the token's 1536-byte int8 row as contiguous 8-byte stores. The
 //     rule is K8's (csrc/quant.cu) on the unfolded bf16 row, so the two agree
 //     bit for bit.
-//   * K5 at more than 16 heads (14B: 40) walks the heads in groups of 16
-//     inside one launch: a lane holds one group's chunks at a time, so the
-//     registers stay those of the 16-head form. That needs the row's RMS
-//     before the first group: it comes from K15 (`ri`, the TPU kernel's
-//     external-RMS mode), or there is no norm (the V pass). With the RMS in
-//     the row (ri null) the whole row is one group (H <= 16).
 //   * K15: 335.5 MB in at 14B (0.100 ms). One warp per row, 16-byte loads,
 //     an fp32 sum of squares per lane, one warp reduction.
 //   * K16: K13's warp-a-token kernel with 20 chunks a lane (a 5120-wide row
@@ -108,43 +107,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_rows.cuh"
+
 namespace {
 
 constexpr int kDh = 128;
-constexpr int kHpRows = 64;                    // rows of one K5 block
-constexpr int kHpWarps = 8;
-constexpr int kHpThreads = kHpWarps * 32;
-constexpr int kRowsPerWarp = kHpRows / kHpWarps;
-constexpr int kMaxHeads = 40;                  // the pooled sums' shared row
-constexpr int kGroupHeads = 16;               // heads a lane's registers hold
+constexpr int kHpRows = 64;            // rows of a K5 tile: the grain of its pooled partials
+// blocks an SM the path's K5 instances (VPL 5 and 6: 40 and 12 heads) are
+// compiled for: 2 holds them to 128 registers (1: ptxas held some at 64 or
+// 128 with spills; 3: 80 registers with spills, 5-15% slower;
+// tools/time_k5_k12.py --design)
+constexpr int kHpMinBlocks = 2;
+constexpr int kMaxHeads = kMaxVecRow / kDh;   // K5: rows up to 8192 wide, 64 heads
 constexpr float kInvInt8 = 1.0f / 127.0f;
 constexpr int kSqThreads = 256;
 constexpr int kMaxBlockK = 256;
 constexpr int kVTileStride = kDh + 4;          // bytes per row of K6's V tile
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-// 8 values -> 8 int8: round half to even, saturated to +-127.
+// 8 values -> 8 int8: round half to even, saturated to +-127 (K6 / K27: a
+// NaN row past kv_len gives 0, as the plain version's cast)
 __device__ __forceinline__ uint2 quant8(const float* f, float inv) {
   uint32_t w[2];
 #pragma unroll
@@ -161,191 +142,216 @@ __device__ __forceinline__ uint2 quant8(const float* f, float inv) {
   return make_uint2(w[0], w[1]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ void unpack8(uint4 u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K5
 // ---------------------------------------------------------------------------
 
-// NI = pair-chunks per lane = ceil(G * 8 / 32) for a group of G heads.
-// Pair-chunk p = lane + 32 i of the group starting at head h0 is head
-// h0 + p / 8, channels (p % 8) * 8 + [0, 8) and the same + 64. ri: the row's
-// RMS inverse (B, L) from K15, or null (RMS over the row, or no norm).
-template <int NI>
-__global__ void __launch_bounds__(kHpThreads)
-head_planes_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w, const float* __restrict__ ri,
-                   const float* __restrict__ cosF, const float* __restrict__ sinF,
-                   __nv_bfloat16* __restrict__ out_bf, int8_t* __restrict__ out_i8,
-                   float* __restrict__ out_scale, float* __restrict__ partial,
-                   float* __restrict__ pooled, int* __restrict__ counters, long long ld,
-                   int L, int Lp, int H, int pool, int nP, float eps) {
-  __shared__ float red[kMaxHeads * kDh];
+// K5's warp-per-row kernel, K2's design (rmsrope_rows_kernel) with K5's
+// outputs: x rows `ld` elements apart (batches L rows apart), H heads of 128,
+// nvec = 16 H vectors a row. A 32-vector span of a row is two heads of 16
+// lanes, so lane l holds channels (l & 15) * 8 .. + 7 of each head it holds,
+// its RoPE partner (channel j +- 64) is lane l ^ 8 and a head's int8 absmax
+// is a max over its 16 lanes; the lane's bf16 and int8 vectors
+// go straight to (b, h, row, (l & 15) * 8). A block walks 64-row tiles of
+// one batch; its row groups (kRowWarps / RW of them) take the tile's rows in
+// turn. With pool, a lane sums its channels over its rows of the tile in
+// shared-memory slots of its own (group, vector), in row order; at the end
+// of the tile the block adds the groups' slots in group order and writes the
+// tile's partial, and the last tile of each pool window (an atomic counter)
+// adds its window's partials in tile order and divides by the window's live
+// rows: deterministic, no fp32 atomics. ri: the row's RMS inverse (B, L)
+// (the TPU kernel's external-RMS mode), else the row's own (w null: no
+// norm). Rows in [L, Lp) are the planes of a zero row. inv_hd = 1 / (H 128).
+template <int VPL>
+__global__ void __launch_bounds__(kRowThreads, VPL <= 6 ? kHpMinBlocks : 1)
+head_planes_rows_kernel(const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ w,
+                        const float* __restrict__ ri, const float* __restrict__ cosF,
+                        const float* __restrict__ sinF, uint4* __restrict__ out_bf,
+                        uint2* __restrict__ out_i8, float* __restrict__ out_scale,
+                        float* __restrict__ partial, float* __restrict__ pooled,
+                        int* __restrict__ counters, float* __restrict__ rms_out, long long ld,
+                        int B, int L, int Lp, int H, int pool, int nP, float inv_hd,
+                        float eps) {
+  // the weight (nvec vectors, with w), then the pooled sums (with pool): a
+  // group's 2 nvec float4 slots, channels 8v..8v+3 at [v] and 8v+4..8v+7 at
+  // [nvec + v], so a warp's 16-byte accesses are consecutive
+  extern __shared__ uint4 hp_smem[];
+  __shared__ float xch[2][kRowWarps];
   __shared__ int s_last;
-  const int b = blockIdx.y, tile = blockIdx.x;
+  const int nvec = H * (kDh / 8), HD = H * kDh;
+  const int RW = row_warps(nvec);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int HD = H * kDh, G = NI * 4;
-  const __nv_bfloat16* xb = x + (size_t)b * L * ld;
-  // below 16 heads the launch picked NI with G >= H: one group, which the
-  // compiler sees (a bound it cannot see costs the 12-head form a spill)
-  const int h_end = G < kGroupHeads ? G : H;
+  const int groups = kRowWarps / RW, group = warp / RW, wig = warp % RW;
+  uint4* s_w = hp_smem;
+  float4* red = reinterpret_cast<float4*>(hp_smem + (w != nullptr ? nvec : 0));
+  float4* my_red = red + group * 2 * nvec;
+  if (w != nullptr)
+    for (int v = threadIdx.x; v < nvec; v += kRowThreads) s_w[v] = w[v];
+  __syncthreads();
 
-  for (int h0 = 0; h0 < h_end; h0 += G) {
-    const int npc = min(G, H - h0) * 8;
-    float pacc[NI][16];
+  const int col = (lane & 15) * 8;      // the lane's channels in each head it holds
+  const int n_tiles = Lp / kHpRows;
+  const int per = pool / kHpRows;       // tiles a pool window
+  // a plane row is 16 vectors; vector i of the lane is head 2 (i RW + wig) +
+  // lane / 16, so its planes lie 2 RW Lp rows apart from one i to the next
+  const uint32_t head_step = 2u * RW * Lp * 16;
+  int parity = 0;
+  for (int t = blockIdx.x; t < B * n_tiles; t += gridDim.x) {
+    const int b = t / n_tiles, tile = t - b * n_tiles;
+    if (pool) {
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int e = 0; e < 16; ++e) pacc[i][e] = 0.f;
-
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = tile * kHpRows + warp * kRowsPerWarp + r;
-      const bool valid = row < L;
-      float y[NI][16];
-      float ss = 0.f;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int p = lane + 32 * i;
-        if (valid && p < npc) {
-          const __nv_bfloat16* src = xb + (size_t)row * ld + (h0 + (p >> 3)) * kDh + (p & 7) * 8;
-          unpack8(*reinterpret_cast<const uint4*>(src), y[i]);
-          unpack8(*reinterpret_cast<const uint4*>(src + 64), y[i] + 8);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; ++e) y[i][e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < 16; ++e) ss += y[i][e] * y[i][e];
+      for (int i = 0; i < VPL; ++i) {
+        const int vi = vec_index(i, RW, wig, lane);
+        if (vi < nvec) my_red[vi] = my_red[nvec + vi] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
+    }
+    for (int l = tile * kHpRows + group; l < (tile + 1) * kHpRows; l += groups) {
+      const bool valid = l < L;               // the same for the row's warps
+      const size_t row = (size_t)b * L + l;
+      uint4 v[VPL];
+      float rms = 0.f, cs[8], sn[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) cs[q] = sn[q] = 0.f;
       if (valid) {
-        if (w != nullptr) {
-          const float rms = ri != nullptr ? ri[(size_t)b * L + row]
-                                          : 1.f / sqrtf(warp_sum(ss) / HD + eps);
-#pragma unroll
-          for (int i = 0; i < NI; ++i) {
-            const int p = lane + 32 * i;
-            if (p >= npc) continue;
-            const __nv_bfloat16* wp = w + (h0 + (p >> 3)) * kDh + (p & 7) * 8;
-            float wv[16];
-            unpack8(*reinterpret_cast<const uint4*>(wp), wv);
-            unpack8(*reinterpret_cast<const uint4*>(wp + 64), wv + 8);
-            // cast to bf16 BEFORE the bf16 weight product, as WanRMSNorm does
-#pragma unroll
-            for (int e = 0; e < 16; ++e)
-              y[i][e] = round_bf16(__fmul_rn(round_bf16(__fmul_rn(y[i][e], rms)), wv[e]));
-          }
-        }
+        load_row<VPL>(v, reinterpret_cast<const uint4*>(x + row * ld), nvec, RW, wig, lane);
         if (cosF != nullptr) {
+          // the row's 8 cos and 8 sin of the lane's channels, asked for
+          // before the statistic (whose exchange no load crosses)
+          const float4* c4 = reinterpret_cast<const float4*>(cosF + (size_t)l * kDh + col);
+          const float4* s4 = reinterpret_cast<const float4*>(sinF + (size_t)l * kDh + col);
+          const float4 c0 = __ldg(c4), c1 = __ldg(c4 + 1), s0 = __ldg(s4), s1 = __ldg(s4 + 1);
+          cs[0] = c0.x; cs[1] = c0.y; cs[2] = c0.z; cs[3] = c0.w;
+          cs[4] = c1.x; cs[5] = c1.y; cs[6] = c1.z; cs[7] = c1.w;
+          sn[0] = s0.x; sn[1] = s0.y; sn[2] = s0.z; sn[3] = s0.w;
+          sn[4] = s1.x; sn[5] = s1.y; sn[6] = s1.z; sn[7] = s1.w;
+        }
+        if (w != nullptr && ri != nullptr) {
+          rms = ri[row];
+        } else if (w != nullptr) {
+          // K2's statistic: the fp32 sum of squares, one exchange for a
+          // wide row's warps
+          float s = 0.f;
 #pragma unroll
-          for (int i = 0; i < NI; ++i) {
-            const int p = lane + 32 * i;
-            if (p >= npc) continue;
-            const int c0 = (p & 7) * 8;
-            const float* cr = cosF + (size_t)row * kDh;
-            const float* sr = sinF + (size_t)row * kDh;
-            float cl[8], ch[8], sl[8], sh[8];
+          for (int i = 0; i < VPL; ++i)
 #pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              *reinterpret_cast<float4*>(cl + 4 * q) = *reinterpret_cast<const float4*>(cr + c0 + 4 * q);
-              *reinterpret_cast<float4*>(ch + 4 * q) = *reinterpret_cast<const float4*>(cr + 64 + c0 + 4 * q);
-              *reinterpret_cast<float4*>(sl + 4 * q) = *reinterpret_cast<const float4*>(sr + c0 + 4 * q);
-              *reinterpret_cast<float4*>(sh + 4 * q) = *reinterpret_cast<const float4*>(sr + 64 + c0 + 4 * q);
+            for (int k = 0; k < 4; ++k) {
+              const float2 f = unpack2(word(v[i], k));
+              s += f.x * f.x + f.y * f.y;
             }
-            // out[j] = y[j] cos[j] + y[(j + 64) % 128] sin[j]
+          s = warp_sum(s);
+          if (RW > 1) {
+            if (lane == 0) xch[parity][warp] = s;
+            row_sync(group, RW);
+            s = 0.f;
+#pragma unroll 1
+            for (int r = 0; r < RW; ++r) s += xch[parity][group * RW + r];
+            parity ^= 1;
+          }
+          rms = rsqrtf(div_n(s, (float)HD, inv_hd) + eps);
+        }
+        if (rms_out != nullptr && wig == 0 && lane == 0) rms_out[row] = rms;
+      } else {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const float a = y[i][e], c = y[i][8 + e];
-              y[i][e] = __fadd_rn(__fmul_rn(a, cl[e]), __fmul_rn(c, sl[e]));
-              y[i][8 + e] = __fadd_rn(__fmul_rn(c, ch[e]), __fmul_rn(a, sh[e]));
-            }
+        for (int i = 0; i < VPL; ++i) v[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+
+      // this lane's vector in the planes of its first head, row l
+      uint32_t at = ((uint32_t)(b * H + wig * 2 + (lane >> 4)) * Lp + l) * 16 + (lane & 15);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i, at += head_step) {
+        const int vi = vec_index(i, RW, wig, lane);
+        const bool live = vi < nvec;          // a head's 16 lanes alike
+        uint32_t p[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+        if (w != nullptr) {
+          // cast to bf16 BEFORE the bf16 weight product, as WanRMSNorm does
+          const uint4 wv = s_w[live ? vi : 0];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = unpack2(p[k]);
+            p[k] = mul_bf16x2(pack2(f.x * rms, f.y * rms), word(wv, k));
           }
         }
-        if (pool) {
+        float y[8];
 #pragma unroll
-          for (int i = 0; i < NI; ++i)
-#pragma unroll
-            for (int e = 0; e < 16; ++e) pacc[i][e] += y[i][e];
+        for (int k = 0; k < 4; ++k) {
+          const float2 a = unpack2(p[k]);
+          if (cosF != nullptr) {
+            // out[j] = y[j] cos[j] + y[(j + 64) % 128] sin[j], each product
+            // and the sum rounded once (the int8 and the pooled means come
+            // from this fp32 value); every lane shuffles
+            const float2 q = unpack2(__shfl_xor_sync(0xffffffffu, p[k], 8));
+            y[2 * k] = __fadd_rn(__fmul_rn(a.x, cs[2 * k]), __fmul_rn(q.x, sn[2 * k]));
+            y[2 * k + 1] =
+                __fadd_rn(__fmul_rn(a.y, cs[2 * k + 1]), __fmul_rn(q.y, sn[2 * k + 1]));
+          } else {
+            y[2 * k] = a.x;
+            y[2 * k + 1] = a.y;
+          }
         }
-      }
-      // rows in [L, Lp) are the planes of a zero row
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int p = lane + 32 * i;
-        float inv = 0.f, scale = 0.f;
+        if (out_bf != nullptr && live)
+          // without RoPE the plane is the packed row itself
+          store_vec(out_bf + at,
+                    cosF == nullptr ? make_uint4(p[0], p[1], p[2], p[3])
+                                    : make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
+                                                 pack2(y[4], y[5]), pack2(y[6], y[7])));
         if (out_i8 != nullptr) {
           float amax = 0.f;
 #pragma unroll
-          for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(y[i][e]));
-#pragma unroll
-          for (int o = 1; o < 8; o <<= 1)
-            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-          scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
-          inv = 1.f / scale;
-        }
-        if (p >= npc) continue;
-        const int h = h0 + (p >> 3), c0 = (p & 7) * 8;
-        const size_t off = (((size_t)b * H + h) * Lp + row) * kDh + c0;
-        if (out_bf != nullptr) {
-          *reinterpret_cast<uint4*>(out_bf + off) = pack8(y[i]);
-          *reinterpret_cast<uint4*>(out_bf + off + 64) = pack8(y[i] + 8);
-        }
-        if (out_i8 != nullptr) {
-          *reinterpret_cast<uint2*>(out_i8 + off) = quant8(y[i], inv);
-          *reinterpret_cast<uint2*>(out_i8 + off + 64) = quant8(y[i] + 8, inv);
-          if ((p & 7) == 0) out_scale[((size_t)b * H + h) * Lp + row] = scale;
-        }
-      }
-    }
-
-    if (!pool) continue;
-    // this block's pooled sums of the group, warp by warp in order
-    for (int wv = 0; wv < kHpWarps; ++wv) {
-      if (warp == wv) {
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int p = lane + 32 * i;
-          if (p >= npc) continue;
-          const int base = (h0 + (p >> 3)) * kDh + (p & 7) * 8;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            red[base + e] = (wv ? red[base + e] : 0.f) + pacc[i][e];
-            red[base + 64 + e] = (wv ? red[base + 64 + e] : 0.f) + pacc[i][8 + e];
+          for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(y[k]));
+          const float scale = __fmul_rn(fmaxf(half_warp_max(amax, lane), 1e-8f), kInvInt8);
+          if (live) {
+            store_vec8(out_i8 + at, quant8_rn(y, rcp_rn(scale)));
+            if ((lane & 15) == 0) out_scale[at >> 4] = scale;
           }
         }
+        if (pool && valid && live) {
+          float4& r0 = my_red[vi];
+          float4& r1 = my_red[nvec + vi];
+          r0.x += y[0]; r0.y += y[1]; r0.z += y[2]; r0.w += y[3];
+          r1.x += y[4]; r1.y += y[5]; r1.z += y[6]; r1.w += y[7];
+        }
       }
-      __syncthreads();
     }
-  }
+    if (!pool) continue;
 
-  if (!pool) return;
-  const int n_tiles = Lp / kHpRows;
-  float* part = partial + ((size_t)b * n_tiles + tile) * HD;
-  for (int c = threadIdx.x; c < HD; c += kHpThreads) part[c] = red[c];
-  __threadfence();
-  __syncthreads();
-  const int per = pool / kHpRows, pb = tile / per;
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&counters[b * (Lp / pool) + pb], 1) == per - 1;
-  __syncthreads();
-  if (!s_last || pb >= nP) return;
-  // the last block of this pool window: sum its partials in order
-  __threadfence();
-  const float cnt = (float)min(pool, L - pb * pool);
-  const float* first = partial + ((size_t)b * n_tiles + (size_t)pb * per) * HD;
-  for (int c = threadIdx.x; c < HD; c += kHpThreads) {
-    float s = 0.f;
-    for (int t = 0; t < per; ++t) s += __ldcg(first + (size_t)t * HD + c);
-    pooled[(((size_t)b * H + c / kDh) * nP + pb) * kDh + (c % kDh)] = s / cnt;
+    // the tile's partial: the groups' slots in group order
+    __syncthreads();
+    float* part = partial + (size_t)t * HD;
+    for (int c = threadIdx.x; c < 2 * nvec; c += kRowThreads) {
+      float4 a = red[c];
+      for (int g = 1; g < groups; ++g) {
+        const float4 e = red[g * 2 * nvec + c];
+        a.x += e.x; a.y += e.y; a.z += e.z; a.w += e.w;
+      }
+      *reinterpret_cast<float4*>(part + (c < nvec ? 8 * c : 8 * (c - nvec) + 4)) = a;
+    }
+    __threadfence();
+    __syncthreads();
+    const int pb = tile / per;
+    if (threadIdx.x == 0) s_last = atomicAdd(&counters[b * (Lp / pool) + pb], 1) == per - 1;
+    __syncthreads();
+    if (!s_last || pb >= nP) continue;
+    // the last tile of this pool window: its partials in tile order
+    __threadfence();
+    const float cnt = (float)min(pool, L - pb * pool);
+    const float inv_cnt = rcp_rn(cnt);
+    const float* first = partial + ((size_t)b * n_tiles + (size_t)pb * per) * HD;
+    for (int c = threadIdx.x; c < HD; c += kRowThreads) {
+      float s = 0.f;
+      for (int q = 0; q < per; ++q) s += __ldcg(first + (size_t)q * HD + c);
+      pooled[(((size_t)b * H + (c >> 7)) * nP + pb) * kDh + (c & (kDh - 1))] =
+          div_n(s, cnt, inv_cnt);
+    }
   }
 }
 
@@ -592,6 +598,47 @@ row_rms_inv_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
   if (lane == 0) out[row] = 1.f / sqrtf(s / W + eps);
 }
 
+// K5's kernel takes H heads of 128 (1-64: rows up to kMaxVecRow), a row stride
+// that is a multiple of 8 and at least the row, and 16-byte aligned x,
+// weight, tables, bf16 and int8 planes and partials (null for an absent
+// one); the C entry refuses any other launch.
+bool head_planes_vector(const void* x, const void* w, const void* cos_full,
+                        const void* sin_full, const void* out_bf, const void* out_i8,
+                        const void* partial, long long ld, int H) {
+  return H >= 1 && H <= kMaxHeads && ld % 8 == 0 && ld >= (long long)H * kDh && x != nullptr &&
+         aligned16(x) && aligned16(w) && aligned16(cos_full) && aligned16(sin_full) &&
+         aligned16(out_bf) && aligned16(out_i8) && aligned16(partial);
+}
+
+template <int V>
+int launch_head_planes_rows(int vpl, const void* x, const void* w, const void* ri,
+                            const void* cos_full, const void* sin_full, void* out_bf,
+                            void* out_i8, void* out_scale, void* partial, void* pooled,
+                            void* counters, void* rms_out, long long ld, int B, int L, int Lp,
+                            int H, int pool, int nP, float eps, cudaStream_t stream) {
+  if constexpr (V > kMaxVpl) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vpl != V)
+      return launch_head_planes_rows<V + 1>(vpl, x, w, ri, cos_full, sin_full, out_bf, out_i8,
+                                            out_scale, partial, pooled, counters, rms_out, ld,
+                                            B, L, Lp, H, pool, nP, eps, stream);
+    const auto kernel = &head_planes_rows_kernel<V>;
+    const int nvec = H * (kDh / 8), groups = kRowWarps / row_warps(nvec);
+    const size_t smem = (size_t)nvec * 16 * ((w != nullptr) + (pool ? 2 * groups : 0));
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int tiles = B * (Lp / kHpRows);
+    const int grid = std::min(tiles, resident_blocks(kernel, smem));
+    kernel<<<grid, kRowThreads, smem, stream>>>(
+        (const __nv_bfloat16*)x, (const uint4*)w, (const float*)ri, (const float*)cos_full,
+        (const float*)sin_full, (uint4*)out_bf, (uint2*)out_i8, (float*)out_scale,
+        (float*)partial, (float*)pooled, (int*)counters, (float*)rms_out, ld, B, L, Lp, H,
+        pool, nP, 1.f / (H * kDh), eps);
+    return (int)cudaGetLastError();
+  }
+}
+
 }  // namespace
 
 extern "C" int tdx_unfold_quant(const void* planes, void* xq, void* rs, int B, int L,
@@ -624,31 +671,31 @@ extern "C" int tdx_row_rms_inv(const void* x, void* out, long long ld, int rows,
   return (int)cudaGetLastError();
 }
 
+extern "C" int tdx_head_planes_form(const void* x, const void* w, const void* cos_full,
+                                    const void* sin_full, const void* out_bf, const void* out_i8,
+                                    const void* partial, long long ld, int H) {
+  return head_planes_vector(x, w, cos_full, sin_full, out_bf, out_i8, partial, ld, H) ? 1 : 0;
+}
+
+// rms_out (optional, B x L fp32): the RMS inverse each live row took (with a
+// norm weight), for a check of the transform against its plain version fed
+// the kernel's own statistic
 extern "C" int tdx_head_planes(const void* x, const void* w, const void* ri,
                                const void* cos_full, const void* sin_full, void* out_bf,
                                void* out_i8, void* out_scale, void* partial, void* pooled,
-                               void* counters, long long ld, int B, int L, int Lp, int H,
-                               int pool, int nP, float eps, void* stream) {
-  // more than one head group needs the row's RMS from K15 (or no norm)
-  if (H < 1 || H > kMaxHeads || (H > kGroupHeads && w != nullptr && ri == nullptr))
+                               void* counters, void* rms_out, long long ld, int B, int L,
+                               int Lp, int H, int pool, int nP, float eps, void* stream) {
+  if (!head_planes_vector(x, w, cos_full, sin_full, out_bf, out_i8, partial, ld, H) ||
+      B < 1 || L < 1 || L > Lp || Lp % kHpRows || (cos_full == nullptr) != (sin_full == nullptr) ||
+      (out_i8 == nullptr) != (out_scale == nullptr) || (!out_bf && !out_i8 && !pool) ||
+      (pool && (pool % kHpRows || Lp % pool || !partial || !pooled || !counters ||
+                nP != (L + pool - 1) / pool)) ||
+      (long long)B * H * Lp * 16 >= (1LL << 32))     // the planes' 32-bit vector index
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Lp / kHpRows, B);
-  const int ni = (min(H, kGroupHeads) * 8 + 31) / 32;
-#define TDX_HP_LAUNCH(NI)                                                             \
-  head_planes_kernel<NI><<<grid, kHpThreads, 0, (cudaStream_t)stream>>>(              \
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)ri,             \
-      (const float*)cos_full, (const float*)sin_full, (__nv_bfloat16*)out_bf,         \
-      (int8_t*)out_i8, (float*)out_scale, (float*)partial, (float*)pooled,            \
-      (int*)counters, ld, L, Lp, H, pool, nP, eps)
-  switch (ni) {
-    case 1: TDX_HP_LAUNCH(1); break;
-    case 2: TDX_HP_LAUNCH(2); break;
-    case 3: TDX_HP_LAUNCH(3); break;
-    case 4: TDX_HP_LAUNCH(4); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TDX_HP_LAUNCH
-  return (int)cudaGetLastError();
+  return launch_head_planes_rows<1>(lane_vectors(H * (kDh / 8)), x, w, ri, cos_full, sin_full,
+                                    out_bf, out_i8, out_scale, partial, pooled, counters,
+                                    rms_out, ld, B, L, Lp, H, pool, nP, eps,
+                                    (cudaStream_t)stream);
 }
 
 extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* v,

@@ -102,7 +102,7 @@ class WanSelfAttention(nn.Module):
     """QKV + RMSNorm-QK + RoPE (K2) + attention (K3, K4, or K20 for sagesla
     at blocks < 128; K21 for a non-zero proj_l) + O; in the fused SageSLA
     geometry, QKV + `sla_attention_fused` (K5-K7, or K5 + K18 + K19 (+ K21)
-    at v_quant "row"; K15 first on Q and K above H*Dh 4096) + unfold + O,
+    at v_quant "row") + unfold + O,
     the unfold being K13's int8 feed (K16's above H*Dh 4096) when O is an
     `Int8Linear`. x may be an
     (int8, scale) pair from K12. With a fused `qkv` linear (q, k and v

@@ -50,10 +50,11 @@ SIGNATURES = {
     # x, out, weight, cos_full, sin_full, x row stride, rows, L, H, Dh, eps,
     # stream
     "tdx_rmsnorm_rope": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _F, _P],
-    # 1 when K1 / K2 take their warp-per-row kernel for these arguments:
-    # x, out, mod_scale, mod_shift, weight, bias, D; x, out, weight, cos_full,
-    # sin_full, x row stride, H, Dh
+    # 1 when K1 / K12 / K2 take their warp-per-row kernel for these
+    # arguments: x, out, mod_scale, mod_shift, weight, bias, D; x, out,
+    # weight, cos_full, sin_full, x row stride, H, Dh
     "tdx_modulated_layer_norm_form": [_P] * 6 + [_I],
+    "tdx_modulated_layer_norm_quant_form": [_P] * 6 + [_I],
     "tdx_rmsnorm_rope_form": [_P] * 5 + [_I64, _I, _I],
     # q, k, v, o, lut, B, H, Lq, kv_len, nQ, sel, block_q, block_k,
     # 12 strides (q, k, v, o: batch, token, head), scale, stream
@@ -90,8 +91,12 @@ SIGNATURES = {
     "tdx_cross_attention_qout_wide": [_P] * 7 + [_I64] + [_I] * 5
                                      + [_I64] * 6 + [_F, _P],
     # x, weight, row rms inverse, cos, sin, bf16, i8, scale, partial, pooled,
-    # counters, x row stride, B, L, Lp, H, pool, nP, eps, stream
-    "tdx_head_planes": [_P] * 11 + [_I64] + [_I] * 6 + [_F, _P],
+    # counters, the rows' rms inverse out (or null), x row stride, B, L, Lp,
+    # H, pool, nP, eps, stream
+    "tdx_head_planes": [_P] * 12 + [_I64] + [_I] * 6 + [_F, _P],
+    # 1 when K5's warp-per-row kernel takes these arguments, 0 when the entry
+    # refuses them: x, weight, cos, sin, bf16, i8, partials, x row stride, H
+    "tdx_head_planes_form": [_P] * 7 + [_I64, _I],
     # x, out, x row stride, rows, W, eps, stream
     "tdx_row_rms_inv": [_P, _P, _I64, _I, _I, _F, _P],
     # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream

@@ -18,8 +18,7 @@ Ports `turbodiffusion_tpu/ops/attention.py:38-267`, `:336-504` and
                                           <= 8,192), K27 + K28 (+ K21;
                                           "channel" above it) or K18 + K19
                                           (+ K21 with the linear branch;
-                                          v_quant "row"); K15 above H*Dh
-                                          4096
+                                          v_quant "row")
   * attention(q, k, v, cfg)             — backend dispatch; sagesla outside
                                           the fused geometry at blocks
                                           < 128 runs K20
@@ -61,15 +60,12 @@ from turbodiffusion_tpu_torch.ops.fused_norm import recompute_vjp, rmsnorm_rope
 from turbodiffusion_tpu_torch.ops.linear_attention import (
     linear_attention_projected, linear_projected_planes)
 from turbodiffusion_tpu_torch.ops.sla_fused import (
-    block_map_from_pooled, head_planes, row_rms_inv, subquant_pack_kv,
-    subquant_pack_kvt)
+    block_map_from_pooled, head_planes, subquant_pack_kv, subquant_pack_kvt)
 from turbodiffusion_tpu_torch.ops.sparse_i8_attention import (
     quantize_v_per_channel, sparse_attention_i8_planes,
     sparse_attention_i8_vt)
 
 
-# widest projection row K5 reduces itself; wider ones take K15's statistic
-_WIDE_HD = 4096
 # JAX's dispatch bound between K6 + K7 and K27 + K28 on sel * block_k
 # (attention.py:401-406): the TPU's resident-tile budget for the VT kernel,
 # which the card does not have (K7 gathers any sel); kept so the port runs
@@ -227,10 +223,11 @@ def sla_attention_fused(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, rope_cs,
     Returns (B, H, Lp, Dh) bf16 planes, Lp = L rounded up to 512; feed
     `unfold_planes` (or `unfold_quant`) to the O projection.
 
-    Wide models (H*Dh > 4096, the 14B's 5120; attention.py:362-396): the
-    full-row RMS inverse of Q and K comes from `row_rms_inv` (K15) and K5
-    reads it (its external-RMS mode), walking the heads in groups inside
-    one launch a plane, where the TPU tiles head groups over launches.
+    Wide models (H*Dh > 4096, the 14B's 5120; attention.py:362-396): where
+    the TPU takes the full-row RMS inverse of Q and K from `row_rms_inv`
+    first and tiles head groups over launches, K5 takes the statistic in
+    the row (a 5120-wide row's four warps exchange their sums) in one
+    launch a plane: the same function, no K15 launch.
 
     Q is pooled at block_q directly, where the TPU pools at 256 and merges
     pairs weighted by count (attention.py:413-440): the same block means.
@@ -273,14 +270,11 @@ def _sla_fused_forward(q_proj, k_proj, v_proj, norm_q_w, norm_k_w, proj_w,
     sel = max(1, min(nK, int(cfg.sla_topk * nK)))
     use_vt = v_chan and sel * cfg.block_k <= _VT_MAX_KEYS
     kw = dict(num_heads=H, eps=eps, pad_to=Lp)
-    wide = HD > _WIDE_HD
     # the fused linear epilogue recovers phi(q) from the int8 q: the bf16 Q
     # plane has no consumer there
     Q = head_planes(q_proj, norm_q_w, cosF, sinF, pool=cfg.block_q,
-                    quant=True, bf16_out=lin and not use_vt,
-                    rms_inv=row_rms_inv(q_proj, eps) if wide else None, **kw)
-    K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k,
-                    rms_inv=row_rms_inv(k_proj, eps) if wide else None, **kw)
+                    quant=True, bf16_out=lin and not use_vt, **kw)
+    K = head_planes(k_proj, norm_k_w, cosF, sinF, pool=cfg.block_k, **kw)
     V = head_planes(v_proj, quant=not v_chan, bf16_out=lin or v_chan, **kw)
     lut, _, k_mean = block_map_from_pooled(Q["pooled"], K["pooled"], L,
                                            cfg.block_k, cfg.sla_topk)

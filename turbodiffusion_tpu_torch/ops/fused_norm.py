@@ -22,11 +22,12 @@ affine form without modulation (norm3) quantises the bf16-rounded value.
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
 launches the kernel (csrc/fused_norm.cu) or raises. Each launcher counts its
 launches in `.launches`. K2 reads its input rows through a row stride, so
-the q and k column groups of the fused QKV output need no copy. K1 and K2
-run warp-per-row kernels with 16-byte accesses at the shapes `mln_form` /
-`rmsrope_form` call "vector" (every path shape, the fused QKV column groups
-included) and block-per-row kernels at the rest ("loop"); the C entry
-chooses by the same rule, and both forms count as one launch.
+the q and k column groups of the fused QKV output need no copy. K1, K12 and
+K2 run warp-per-row kernels with 16-byte accesses at the shapes `mln_form` /
+`mln_quant_form` / `rmsrope_form` call "vector" (every path shape, the
+fused QKV column groups included) and block-per-row kernels at the rest
+("loop"); the C entry chooses by the same rule, and both forms count as one
+launch.
 
 Gradients: K1 (bf16 out) and K2 run inside `torch.autograd.Function`s whose
 backward recomputes the plain version and differentiates it
@@ -65,6 +66,14 @@ def mln_form(D: int, *ptrs) -> str:
     operands off 4-byte alignment (8 for the modulation)."""
     ok = 0 < D <= _VEC_MAX_ROW and D % 8 == 0 and _aligned16(ptrs)
     return "vector" if ok else "loop"
+
+
+def mln_quant_form(D: int, *ptrs) -> str:
+    """The kernel a K12 launch takes (csrc/fused_norm.cu
+    `tdx_modulated_layer_norm_quant_form`): K1's rule, with the int8 output
+    in out's place; "vector" is `mln_rows_kernel<VPL, true>`, "loop"
+    `mln_kernel<true>`."""
+    return mln_form(D, *ptrs)
 
 
 def rmsrope_form(num_heads: int, head_dim: int, ld: int, *ptrs) -> str:

@@ -6,18 +6,18 @@ The counterpart of `turbodiffusion_tpu/ops/sla_fused.py`, for the
 single-chip path that `ops/attention.sla_attention_fused` takes:
   * `row_rms_inv` — K15 `_row_rms_inv_cuda` replaces the TPU kernel
     `row_rms_inv` (launch :62, body `_row_rms_kernel` :45-47): the full-row
-    RMS inverse of a wide model's projection (14B: 5120 columns), which K5's
-    external-RMS mode and K17 read;
+    RMS inverse of a wide model's projection (14B: 5120 columns), which K17
+    reads (and K5's external-RMS mode takes);
   * `head_planes` — K5 `_head_planes_cuda` replaces the TPU kernel
     `head_planes` (launch :228, body `_head_planes_kernel` :76-137): one pass
     over a (B, L, H*Dh) projection output (read through a row stride, so a
     column group of the fused QKV output needs no copy) giving any of the
     bf16 head planes
     (B, H, Lp, Dh), per-(head, token) int8 + fp32 scales, and per-block
-    pooled means, with the full-row RMSNorm and rotate-half RoPE fused in;
+    pooled means, with the full-row RMSNorm and rotate-half RoPE fused in,
+    up to 64 heads (rows of 8,192) with the row's RMS taken in the row;
     with `rms_inv` (K15's output, the TPU kernel's external-RMS mode,
-    :93-94) the row's statistic is read, not reduced, and K5 takes up to 40
-    heads in one launch;
+    :93-94) the row's statistic is read, not reduced;
   * `block_map_from_pooled` (:281-298) — plain torch: the smooth-k mean
     recovered from pooled K, the block scores and the top-k LUT;
   * `subquant_pack_kvt` — K6 `_subquant_pack_kvt_cuda` replaces
@@ -74,11 +74,10 @@ from turbodiffusion_tpu_torch.ops.linear_attention import (
 from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 INT8_MAX = 127.0
-# rows of a K5 thread block: the grain of its pooled partial sums
+# rows of a K5 tile: the grain of its pooled partial sums
 _HP_ROWS = 64
-# K5's heads: 16 in one pass over a row, up to 40 in groups of 16 where the
-# row's RMS comes from K15 (or there is no norm)
-_HP_GROUP_HEADS, _HP_MAX_HEADS = 16, 40
+# K5's heads of 128: rows up to 8,192 wide (csrc/sla_fused.cu kMaxHeads)
+_HP_MAX_HEADS = 64
 # widest row of the narrow unfold_quant (K13); K16 takes up to 5120
 _UNFOLD_NARROW_MAX, _UNFOLD_WIDE_MAX = 4096, 5120
 
@@ -193,24 +192,38 @@ def head_planes_plain(x, weight=None, cos_full=None, sin_full=None, *,
     return out
 
 
+def head_planes_form(num_heads: int, ld: int, *ptrs) -> str:
+    """The kernel a K5 launch takes (csrc/sla_fused.cu
+    `head_planes_vector`): "vector", the warp-per-row kernel, for 1-64 heads
+    of 128, a row stride `ld` that is a multiple of 8 and at least the row,
+    and every pointer (x, weight, cos, sin, bf16 planes, int8 planes,
+    partials; None for an absent one) 16-byte aligned; else "refused": the
+    C entry launches nothing."""
+    ok = (1 <= num_heads <= _HP_MAX_HEADS and ld % 8 == 0
+          and ld >= num_heads * 128 and ptrs[0] is not None
+          and all(p is None or p % 16 == 0 for p in ptrs))
+    return "vector" if ok else "refused"
+
+
 def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
                       eps: float, pool: int, quant: bool, bf16_out: bool,
-                      Lp: int, rms_inv=None) -> dict:
+                      Lp: int, rms_inv=None, rms_out: bool = False) -> dict:
     """Launch K5. x (B, L, H*128) bf16 with 16-byte aligned rows
     `_row_stride` apart; weight (H*128,); rms_inv (B, >= L, 1) fp32 or
-    None; cos/sin (>= L, 128) fp32 or both None."""
+    None (the row's own RMS); cos/sin (>= L, 128) fp32 or both None.
+    rms_out (with a weight): the output also holds "rms_inv" (B, L, 1), the
+    statistic each row took, for a check of the transform against the plain
+    version fed it."""
     B, L, HD = x.shape
     H = num_heads
     _require(x.dtype == torch.bfloat16, "K5 takes a bf16 x")
     ld = _row_stride(x, "K5")
     _require(ld % 8 == 0 and x.data_ptr() % 16 == 0,
              "K5 takes 16-byte aligned rows")
-    own_rms = weight is not None and rms_inv is None
-    max_heads = _HP_GROUP_HEADS if own_rms else _HP_MAX_HEADS
-    _require(HD == H * 128 and 1 <= H <= max_heads,
-             f"K5 takes 1-{max_heads} heads of 128 (above {_HP_GROUP_HEADS} "
-             f"the RMS comes from K15), got width {HD} for {H} heads")
-    _require(Lp >= L and Lp % _HP_ROWS == 0,
+    _require(HD == H * 128 and 1 <= H <= _HP_MAX_HEADS,
+             f"K5 takes 1-{_HP_MAX_HEADS} heads of 128, got width {HD} for "
+             f"{H} heads")
+    _require(0 < L <= Lp and Lp % _HP_ROWS == 0,
              f"K5 pads to a multiple of {_HP_ROWS} >= L, got {Lp}")
     _require(not pool or (pool % _HP_ROWS == 0 and Lp % pool == 0),
              f"K5 pools over a multiple of {_HP_ROWS} rows dividing Lp, "
@@ -240,6 +253,9 @@ def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
     if quant:
         out["i8"] = torch.empty((B, H, Lp, 128), dtype=torch.int8, device=dev)
         out["scale"] = torch.empty((B, H, Lp), dtype=torch.float32, device=dev)
+    if rms_out:
+        _require(weight is not None, "K5 reports the RMS of a norm")
+        out["rms_inv"] = torch.empty((B, L, 1), dtype=torch.float32, device=dev)
     n_tiles = Lp // _HP_ROWS
     partial = counters = None
     nP = 0
@@ -253,12 +269,17 @@ def _head_planes_cuda(x, weight, cos_full, sin_full, num_heads: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    _require(head_planes_form(H, ld, x.data_ptr(), ptr(w), ptr(cos_full),
+                              ptr(sin_full), ptr(out.get("bf16")),
+                              ptr(out.get("i8")), ptr(partial)) == "vector",
+             "K5 takes 16-byte aligned weight and tables")
     lib = _build.load()
     rc = lib.tdx_head_planes(
         x.data_ptr(), ptr(w), ptr(ri), ptr(cos_full), ptr(sin_full),
         ptr(out.get("bf16")), ptr(out.get("i8")), ptr(out.get("scale")),
-        ptr(partial), ptr(out.get("pooled")), ptr(counters), ld,
-        B, L, Lp, H, pool, nP, float(eps), _build.stream_ptr(x))
+        ptr(partial), ptr(out.get("pooled")), ptr(counters),
+        ptr(out.get("rms_inv")), ld, B, L, Lp, H, pool, nP, float(eps),
+        _build.stream_ptr(x))
     _build.check(rc, "tdx_head_planes")
     _head_planes_cuda.launches += 1
     return out
