@@ -6,11 +6,12 @@
 Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
-     and each kernel's ptxas registers (K1 / K12, K2 and K5's row kernels
-     must not spill, nor the wgmma kernels, K14 / K17's `k14::cross_qout_kernel`,
-     K4 / K3 / K20's `k4::flash_fwd_kernel<0>` / `<1>` / `<2>` and K7 /
-     K28 / K19's `k7::sparse_i8_vt_kernel<0>` / `<1>` / `<2>`, spill or
-     serialize their wgmmas: ptxas C7514);
+     and each kernel's ptxas registers (K1 / K12, K2, K5 and K16's row
+     kernels and K6's reduce must not spill, nor the wgmma kernels, K14 /
+     K17's `k14::cross_qout_kernel`, K4 / K3 / K20's `k4::flash_fwd_kernel<0>`
+     / `<1>` / `<2>`, K7 / K28 / K19's `k7::sparse_i8_vt_kernel<0>` / `<1>` /
+     `<2>` and K6's `k6::pack_kvt_kernel`, spill or serialize their wgmmas:
+     ptxas C7514);
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
@@ -50,7 +51,8 @@ Phases, each printing one line of its numbers:
      (K19 in its wgmma form, K7's kernel with a K and a V scale a key, at
      512/256), K20 in its wgmma form (K4's kernel on int8 Q and K rows,
      64-key chunks) at blocks 64/64 with 51 of 512 K blocks, each check
-     asserting its form, K21 over the planes and over (B, L, H, D); K4 also at batch 2, at a ragged Lq of 1,000, at
+     asserting its form, K21 over the planes and over (B, L, H, D); K6's
+     kv against float64 sums as at 40 heads (below); K4 also at batch 2, at a ragged Lq of 1,000, at
      kv_len 500 of 512 with NaN in k and v past it, with q, k and v read in
      place as fused-QKV column groups (q sharp, rejecting the scale
      doubled), and on a sharp q rejecting three planted faults (v read from
@@ -71,7 +73,14 @@ Phases, each printing one line of its numbers:
      sharp);
      K15, K5's three passes at 40 heads with the row's own RMS (as the
      path takes it; the same faults) and its Q pass with K15's RMS (the
-     external-RMS mode), K6, K7, K16, K17, K12, K8-K11 and
+     external-RMS mode), K6 (also with the linear branch's kv sums, rejecting
+     one run's partial left out of a head's kv, its ksum alone at atol
+     5e-4, rejecting a row past kv_len let into phi and ksum from phi's fp16
+     hi half only, and its kv against float64 sums at rtol 1e-4 / atol 1e-4,
+     rejecting kv from phi's fp16 hi half only and phi split into bf16 hi +
+     lo), K7, K16 (bit for bit, on planes whose first rows land on
+     half-integers, rejecting a row's scale taken from its neighbour and the
+     ties rounded away from even), K17, K12, K8-K11 and
      K22 (also at a ragged M of 1,000) at dim 5120, FFN 13824; every
      int8 GEMM line with its TOP/s and share of the int8 peak), with
      poisoned-tail checks of K7, K19 (NaN K and V scales past kv_len), K20
@@ -470,6 +479,8 @@ class Check:
     atol: float = ATOL
     rtol: float = RTOL
     faults: dict = dataclasses.field(default_factory=dict)
+    lsb: int = 1                          # int8 outputs: the largest difference
+    extra_bytes: int = 0                  # bytes the design moves besides ins and outputs
 
 
 def _nbytes(t) -> int:
@@ -515,28 +526,30 @@ def _time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _compare(name, got, want, atol, rtol):
+def _compare(name, got, want, atol, rtol, lsb: int = 1):
     """(max abs error, mean abs error, int8 LSB difference, mean |want|,
-    max |want|); raises past atol + rtol * |want|, or past 1 LSB for int8
-    outputs. Tuples and dicts compare element by element and give the worst
-    (largest) of each."""
+    max |want|); raises past atol + rtol * |want|, or past `lsb` LSB for
+    int8 outputs. Tuples and dicts compare element by element and give the
+    worst (largest) of each."""
     import torch
     if isinstance(got, dict):
         if sorted(got) != sorted(want):
             raise AssertionError(f"{name}: outputs {sorted(got)} != {sorted(want)}")
         got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(got)]
     if isinstance(got, (tuple, list)):
-        errs = [_compare(name, a, b, atol, rtol) for a, b in zip(got, want)]
+        errs = [_compare(name, a, b, atol, rtol, lsb) for a, b in zip(got, want)]
         return tuple(max(e[i] for e in errs) for i in range(5))
     if got.dtype == torch.int8:
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         d = int((got.int() - want.int()).abs().max())
-        if d > 1:
+        if d > lsb:
             raise AssertionError(f"{name}: int8 output off by {d} LSB")
         wa = want.float().abs()
         return 0.0, 0.0, d, float(wa.mean()), float(wa.max())
-    got, want = got.float(), want.float()
+    # a float64 reference (exact sums) is compared in float64
+    dt = torch.float64 if want.dtype == torch.float64 else torch.float32
+    got, want = got.to(dt), want.to(dt)
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not bool(torch.isfinite(got).all()):
@@ -578,8 +591,10 @@ def phase1():
     return smi
 
 
-_ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel")
-_WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel")
+_ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel",
+                "unfold_quant_wide_kernel", "k6::kv_reduce_kernel")
+_WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel",
+                  "k6::pack_kvt_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -701,7 +716,7 @@ def phase2(reps: int = REPS):
     rms_k = _k5_rms(xk, w, cosF, sinF, HEADS, BK, False, True)
     ops4 = lambda lk: {"bf16": 4 * B * HEADS * L * lk * DH}      # noqa: E731
     ops7 = {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}   # QK, PV
-    kv_ops = 2 * B * HEADS * L * DH * DH                          # K6's kv sums
+    kv_ops = 2 * B * HEADS * L * DH * DH          # K6's kv sums, a product (hi and lo: 2)
     checks = [
         # the main path's K1 forms: norm1/norm2 (mod) twice a block, norm3
         # (affine) once; the affine form first, as F.layer_norm computes it
@@ -771,7 +786,9 @@ def phase2(reps: int = REPS):
               lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, True),
               lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L,
                                                  linear_kv=True),
-              (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x + kv_ops}),
+              (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x, "bf16": 2 * kv_ops},
+              extra_bytes=_kvt_partial_bytes(B, HEADS, LP, BK)),
+        _k6_kv_exact_check(Kp["bf16"], k_mean, vi, ""),
         Check("K7", f"int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}",
               k7(si8._sparse_i8_vt_cuda),
               lambda: si8.sparse_attention_i8_vt_plain(*i8_args, **i8_kw),
@@ -811,10 +828,10 @@ def _run_checks(checks, reps: int) -> dict:
         want = c.plain()
         torch.cuda.synchronize()
         max_err, mean_err, lsb, want_mean, want_max = _compare(
-            f"{c.name} {c.what}", got, want, c.atol, c.rtol)
-        bound_ms, bound_by = _bound(_nbytes(c.ins) + _nbytes(got), c.ops)
+            f"{c.name} {c.what}", got, want, c.atol, c.rtol, c.lsb)
+        bound_ms, bound_by = _bound(_nbytes(c.ins) + _nbytes(got) + c.extra_bytes, c.ops)
         for what, fault in c.faults.items():
-            _must_fail(f"{c.name} {c.what}", what, fault(), want, c.atol, c.rtol)
+            _must_fail(f"{c.name} {c.what}", what, fault(), want, c.atol, c.rtol, c.lsb)
         del got, want
         ms_k = _time_ms(c.kern, reps)
         ms_p = _time_ms(c.plain, max(2, reps // 2))
@@ -831,7 +848,7 @@ def _run_checks(checks, reps: int) -> dict:
                                              if c.library else ""))
         print(f"phase2 {c.name} {c.what}: max_abs_err {max_err:.5g} mean_abs_err "
               f"{mean_err:.5g} int8 max diff {lsb} LSB (tol atol {c.atol} + "
-              f"rtol {c.rtol}, 1 LSB; |want| mean {want_mean:.5g} max "
+              f"rtol {c.rtol}, {c.lsb} LSB; |want| mean {want_mean:.5g} max "
               f"{want_max:.5g}) | kernel {ms_k:.4f} ms | plain "
               f"{ms_p:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}){lib}{extra}",
               flush=True)
@@ -844,13 +861,13 @@ def _run_checks(checks, reps: int) -> dict:
     return results
 
 
-def _must_fail(name, what, bad, want, atol, rtol):
+def _must_fail(name, what, bad, want, atol, rtol, lsb: int = 1):
     """A planted fault: the comparison that passes the kernel must reject
     `bad`, a wrong output of the same shape."""
     import torch
     torch.cuda.synchronize()
     try:
-        _compare(name, bad, want, atol, rtol)
+        _compare(name, bad, want, atol, rtol, lsb)
     except AssertionError as e:
         print(f"phase2 {name} planted fault ({what}): rejected: {e}", flush=True)
         return
@@ -1729,7 +1746,7 @@ def _wide_checks(randn, sdpa):
     lin = dict(lin_kvw=torch.matmul(kv * vcs, proj_w.t()),
                lin_ks_bias=torch.cat([ksum, rn(B, HEADS, 1, DH, dtype=torch.float32,
                                                std=0.1)], dim=2))
-    planes = randn(B, HEADS, LP, DH, std=2.0)
+    planes = _with_half_integer_rows(randn(B, HEADS, LP, DH, std=2.0))
     qn = fn.rms_norm(x, w, 1e-6).reshape(B, L, HEADS, DH)
     scale = DH ** -0.5
     scale_tol = dict(atol=0.0, rtol=SCALE_RTOL)
@@ -1843,6 +1860,13 @@ def _wide_checks(randn, sdpa):
               lambda: sf._subquant_pack_kvt_cuda(Kp["bf16"], k_mean, vi, BK, L, False),
               lambda: sf.subquant_pack_kvt_plain(Kp["bf16"], k_mean, vi, BK, L),
               (Kp["bf16"], k_mean, vi), {"fp32": 4 * n_x}),
+    ] + _k6_linear_checks(Kp["bf16"], k_mean, vi, HEADS) + [
+        Check("K16", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8, rows on "
+              f"half-integers, bit for bit",
+              lambda: sf._unfold_quant_wide_cuda(planes, L),
+              lambda: sf.unfold_quant_wide_plain(planes, L),
+              (planes[:, :, :L],), {"fp32": 3 * n_x}, atol=0.0, rtol=0.0, lsb=0,
+              faults=_k16_faults(planes, L)),
         Check("K7", f"14B int8 sparse ({sel}/{LP // BK} blocks) {BQ}/{BK}, "
               f"{HEADS} heads",
               lambda: si8._sparse_i8_vt_cuda(*i8_args, scale, BQ, BK, L, None, None),
@@ -1857,10 +1881,6 @@ def _wide_checks(randn, sdpa):
                                                        block_k=BK, kv_len=L, **lin),
               i8_args + tuple(lin.values()),
               {"int8": 2 * DH * pairs7, "bf16": 2 * DH * pairs7}),
-        Check("K16", f"planes {HEADS}x{LP}x{DH} -> {L}x{DIM} int8",
-              lambda: sf._unfold_quant_wide_cuda(planes, L),
-              lambda: sf.unfold_quant_wide_plain(planes, L),
-              (planes[:, :, :L],), {"fp32": 3 * n_x}, **scale_tol),
         Check("K17", f"q-norm (K15's RMS) + cross {L}x{TEXT} -> int8, {HEADS} heads",
               lambda: fa._cross_qout_wide_cuda(x, ri_q, kt, vt, w, scale),
               lambda: fa.cross_attention_qout_wide_plain(x, ri_q, kt, vt, w, scale),
@@ -1872,6 +1892,152 @@ def _wide_checks(randn, sdpa):
          + _norm_form_checks(randn, x, w, bias, ms, mb, cosF, sinF, HEADS)
          + _k12_checks(x, ms, mb, w, bias) + _w8a8_checks(randn, x, G14)
          + _block_gemm_checks(_fresh_randn(42), G14))
+
+
+def _kvt_partial_bytes(B: int, H: int, Lp: int, block_k: int) -> int:
+    """Bytes K6's design moves besides its inputs and outputs with the
+    linear branch: each run's partial kv / ksum sums of a head, written
+    once and read once by the reduce."""
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    grid = sf._kvt_grid_on_card(0, B, H, Lp, block_k, True)
+    n = sum(len(p) for p in sf.kvt_partials(B, H, Lp // block_k, grid))
+    return 2 * n * 4 * sf._KVT_SLOT
+
+
+def _k6_kv_exact_check(k_planes, k_mean, vi, model: str):
+    """K6's kv against the float64 sums at rtol 1e-4 / atol 1e-4, the card
+    tests' tolerance (the fp32 plain version, whose sums run in another
+    order, is held to the file's), rejecting kv from phi's fp16 hi half
+    only (a kernel that dropped the lo product) and phi split into bf16 hi
+    + lo (~2^-17 of phi), each with its products summed exactly."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    Bk, H, Lp, D = k_planes.shape
+    valid = (torch.arange(Lp, device=k_planes.device) < L)[:, None]
+
+    def kv_of(split):
+        """float64 phi^T v over the rows < L, phi as `split` leaves it."""
+        phi = torch.where(valid, torch.softmax(k_planes.double(), -1), 0.0)
+        return torch.matmul(split(phi).transpose(-1, -2), vi.double())
+
+    def hi_only(phi):
+        return (phi.float() * 256).half().double() / 256
+
+    def bf16_split(phi):
+        hi = phi.bfloat16().double()
+        return hi + (phi - hi).bfloat16().double()
+
+    return Check("K6", f"{model}linear kv, {H} heads, against float64 sums",
+                 lambda: sf._subquant_pack_kvt_cuda(k_planes, k_mean, vi, BK, L, True)[3],
+                 lambda: kv_of(lambda phi: phi), (k_planes, k_mean, vi),
+                 {"fp32": 4 * k_planes.numel(), "bf16": 2 * 2 * Bk * H * L * D * D},
+                 atol=1e-4, rtol=1e-4, extra_bytes=_kvt_partial_bytes(Bk, H, Lp, BK),
+                 faults={"kv from phi's fp16 hi half only": lambda: kv_of(hi_only),
+                         "phi split into bf16 hi + lo": lambda: kv_of(bf16_split)})
+
+
+def _k6_linear_checks(k_planes, k_mean, vi, heads: int):
+    """K6 with the linear branch at 40 heads (the 14B W8A8 path with a
+    trained proj_l): the whole output at the file's tolerance, rejecting one
+    run's partial left out of a head's kv; ksum alone at atol 5e-4 (the
+    kernel's fp32 sums and the plain version's run in other orders),
+    rejecting a row past kv_len let into phi and ksum summed from phi's
+    fp16 hi half only (a kernel whose ksum rode on the products' hi
+    operand); and kv against float64 sums (`_k6_kv_exact_check`)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+    Bk, H, Lp, D = k_planes.shape
+    nK = Lp // BK
+
+    def kern():
+        return sf._subquant_pack_kvt_cuda(k_planes, k_mean, vi, BK, L, True)
+
+    def plain():
+        return sf.subquant_pack_kvt_plain(k_planes, k_mean, vi, BK, L, linear_kv=True)
+
+    def rows_kv(r0, r1, bh):
+        """phi^T v and sum phi of head bh's rows [r0, r1), float64 -> fp32."""
+        b, h = divmod(bh, H)
+        pk = torch.softmax(k_planes[b, h, r0:r1].double(), -1)
+        return (pk.t() @ vi[b, h, r0:r1].double()).float(), pk.sum(0).float()
+
+    def run_left_out():
+        grid = sf._kvt_grid_on_card(0, Bk, H, Lp, BK, True)
+        a, e = sf.kvt_runs(Bk * H * nK, grid)[1]      # block 1's run, within head 0
+        out = list(kern())
+        kv_r, _ = rows_kv(a * BK, min(e, nK) * BK, 0)
+        out[3] = out[3].clone()
+        out[3][0, 0] -= kv_r
+        return tuple(out)
+
+    def row_past_kv_len():
+        ksum = kern()[4].clone()
+        for bh in range(Bk * H):
+            b, h = divmod(bh, H)
+            ksum[b, h, 0] += rows_kv(L, L + 1, bh)[1]
+        return ksum
+
+    def hi_half_only():
+        valid = (torch.arange(Lp, device=k_planes.device) < L)[:, None]
+        phi = torch.where(valid, torch.softmax(k_planes.float(), -1), 0.0)
+        return ((phi * 256).half().float() / 256).sum(2, keepdim=True)
+
+    ops = {"fp32": 4 * k_planes.numel(), "bf16": 2 * 2 * Bk * H * L * D * D}
+    return [
+        Check("K6", f"14B pack + linear kv sums, {heads} heads", kern, plain,
+              (k_planes, k_mean, vi), ops, extra_bytes=_kvt_partial_bytes(Bk, H, Lp, BK),
+              faults={"one run's partial left out": run_left_out}),
+        Check("K6", f"14B linear ksum, {heads} heads (atol 5e-4)", lambda: kern()[4],
+              lambda: plain()[4], (k_planes, k_mean, vi), ops, atol=5e-4, rtol=0.0,
+              extra_bytes=_kvt_partial_bytes(Bk, H, Lp, BK),
+              faults={"a row past kv_len let into phi": row_past_kv_len,
+                      "ksum from phi's fp16 hi half only": hi_half_only}),
+        _k6_kv_exact_check(k_planes, k_mean, vi, "14B "),
+    ]
+
+
+def _with_half_integer_rows(planes):
+    """K16's planes with their first 8 token rows on half-integers: row i
+    has amax 127 * 2^-i (so scale = 2^-i exactly, 127 * fl(1/127) being 1)
+    and its other values (k + 1/2) 2^-i, k in [-126, 126]: y / scale lands on
+    ties, which round half to even."""
+    import torch
+    Bp, H, Lp, D = planes.shape
+    g = torch.Generator(device=planes.device).manual_seed(16)
+    rows = planes.transpose(1, 2).reshape(Bp, Lp, H * D)
+    for i in range(8):
+        k = torch.randint(-126, 126, (H * D,), generator=g, device=planes.device)
+        vals = (k.float() + 0.5) * 2.0 ** -i
+        vals[0] = 127.0 * 2.0 ** -i
+        rows[:, i] = vals.to(planes.dtype)
+    return rows.reshape(Bp, Lp, H, D).transpose(1, 2).contiguous()
+
+
+def _k16_faults(planes, L: int) -> dict:
+    """K16's planted faults (each a wrong (int8, scales) pair): row 3's scale
+    taken from row 4 and its values quantised with it; the ties of the
+    half-integer rows rounded away from zero (half away from even)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import sla_fused as sf
+
+    def neighbour_scale():
+        q, s = sf._unfold_quant_wide_cuda(planes, L)
+        x = sf.unfold_planes(planes, L).float()
+        s = s.clone()
+        s[:, 3] = s[:, 4]
+        q = q.clone()
+        q[:, 3] = torch.round(x[:, 3] / s[:, 3]).clamp(-127, 127).to(torch.int8)
+        return q, s
+
+    def away_from_even():
+        q, s = sf._unfold_quant_wide_cuda(planes, L)
+        y = sf.unfold_planes(planes, L).float() / s
+        tie = (y - y.floor()) == 0.5
+        away = torch.sign(y) * torch.floor(y.abs() + 0.5)
+        return torch.where(tie, away, q.float()).clamp(-127, 127).to(torch.int8), s
+
+    return {"one row's scale taken from its neighbour": neighbour_scale,
+            "a half-integer rounded away from even": away_from_even}
 
 
 def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
@@ -3469,9 +3635,9 @@ PROFILE_CATEGORIES = [
     ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<1>")),
     ("K4", ("flash_fwd_kernel<0>",)), ("K20", ("flash_fwd_kernel<2>",)),
     ("K20/K30 int8 rows", ("i8qk_quant_kernel",)),
-    ("K5", ("head_planes_rows_kernel",)), ("K6", ("subquant_block_kernel<false>",)),
-    ("K27", ("subquant_block_kernel<true>",)),
-    ("K6/K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
+    ("K5", ("head_planes_rows_kernel",)), ("K6", ("k6::",)),
+    ("K27", ("subquant_block_kernel",)),
+    ("K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
     ("K18", ("subquant_pack_kv_kernel<true>",)),
     ("K29", ("subquant_pack_kv_kernel<false>",)),
     ("K19", ("sparse_i8_planes_kernel<false>", "sparse_i8_vt_kernel<2>")),

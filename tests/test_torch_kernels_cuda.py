@@ -706,11 +706,32 @@ def test_k5_k12_form_functions_agree_with_the_c_entries(dev):
                     lib.tdx_modulated_layer_norm_quant_form(*ptrs, D)), (D, off, opt)
 
 
+def _kv_sums_exact(k, vi, L):
+    """K6's kv and ksum over the rows < L, summed in float64: the exact
+    sums, which no fp32 order of summation favours."""
+    valid = (torch.arange(k.shape[2], device=k.device) < L)[:, None]
+    pk = torch.where(valid, sf._softmax_d(k.double()), 0.0)
+    return torch.matmul(pk.transpose(-1, -2), vi.double()), pk.sum(2, keepdim=True)
+
+
+def _assert_kv_sums(got, plain, exact):
+    """kv and ksum finite, at rtol 1e-4 / atol 1e-4 of the float64 sums, and
+    at rtol 1e-4 of the fp32 plain version with atol 1e-4 plus the plain
+    version's own largest distance from the float64 sums (its fp32 sums
+    run in another order than the kernel's)."""
+    for g_, p_, e_ in zip(got, plain, exact):
+        assert bool(torch.isfinite(g_).all())
+        torch.testing.assert_close(g_.double(), e_, rtol=1e-4, atol=1e-4)
+        own = float((p_.double() - e_).abs().max())
+        torch.testing.assert_close(g_, p_, rtol=1e-4, atol=1e-4 + own)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("linear_kv", [False, True])
 def test_k6_matches_plain(dev, linear_kv):
     """Two linear-kv partial chunks (L = 3000) and a poisoned K tail that must
-    stay out of the last block's statistic."""
+    stay out of the last block's statistic; kv and ksum as
+    `_assert_kv_sums` holds them."""
     L, Lp, bk = 3000, 3072, 256
     k = _randn(dev, 1, HEADS, Lp, DH, seed=22).bfloat16()
     k[:, :, L:] = 1e4
@@ -724,8 +745,72 @@ def test_k6_matches_plain(dev, linear_kv):
     _int8_close(got[0], want[0])
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
-    for g_, w_ in zip(got[3:], want[3:]):
-        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+    if linear_kv:
+        _assert_kv_sums(got[3:], want[3:], _kv_sums_exact(k, vi, L))
+
+
+def _k6_operands(dev, B, heads, L, Lp, seed, tail):
+    """K planes with a non-zero mean, per-channel int8 V and mu over the live
+    rows; rows past L hold `tail` (K5 leaves zeros there; a poison must stay
+    out of the statistic and the linear sums)."""
+    k = (_randn(dev, B, heads, Lp, DH, seed=seed)
+         + _randn(dev, B, heads, 1, DH, seed=seed + 1)).bfloat16()
+    k[:, :, L:] = tail
+    mu = k[:, :, :L].float().mean(2, keepdim=True)
+    vi = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        -127, 128, (B, heads, Lp, DH)).astype(np.int8)).to(dev)
+    return k, mu, vi
+
+
+K6_CASES = {"L 1000 of 1024": (1, 1000, 1024, 0.0), "L 3000, runs": (1, 3000, 3072, 0.0),
+            "NaN past kv_len": (1, 3000, 3072, float("nan")),
+            "batch 2": (2, 1000, 1024, 1e4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_kv", [False, True])
+@pytest.mark.parametrize("bk", [64, 128, 256])
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("heads", [12, 40])
+def test_k6_one_pass_matches_plain(dev, heads, case, bk, linear_kv):
+    """K6's one walk over K and V (`k6::pack_kvt_kernel`, the reduce of its
+    runs' partials with linear_kv) at the path's head counts: int8 K within
+    1 LSB on the live rows (every row where the tail is finite), the V panel
+    and the block scales exact, kv and ksum as `_assert_kv_sums` holds them
+    and bit-equal over two runs; a NaN tail leaves ks, kv and ksum finite."""
+    B, L, Lp, tail = K6_CASES[case]
+    k, mu, vi = _k6_operands(dev, B, heads, L, Lp, 130 + heads + bk, tail)
+    before = sf._subquant_pack_kvt_cuda.launches
+    got = sf.subquant_pack_kvt(k, mu, vi, bk, kv_len=L, linear_kv=linear_kv)
+    assert sf._subquant_pack_kvt_cuda.launches == before + 1
+    want = sf.subquant_pack_kvt_plain(k, mu, vi, bk, L, linear_kv)
+    rows = slice(None) if tail == tail else slice(0, L)   # NaN rows: garbage
+    _int8_close(got[0][:, :, rows], want[0][:, :, rows])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    if linear_kv:
+        _assert_kv_sums(got[3:], want[3:], _kv_sums_exact(k, vi, L))
+        again = sf.subquant_pack_kvt(k, mu, vi, bk, kv_len=L, linear_kv=True)
+        assert torch.equal(again[3], got[3]) and torch.equal(again[4], got[4])
+
+
+@pytest.mark.cuda
+def test_k6_grid_matches_the_c_query(dev):
+    """`sf.kvt_grid` gives the blocks the C query launches with the linear
+    branch (one block an SM: `__launch_bounds__(512, 1)` and ~217 KB of
+    shared memory at block_k 256; as many waves as keep the runs to
+    `_KVT_MAX_RUN` K blocks), and 0 for a shape the entry refuses."""
+    from turbodiffusion_tpu_torch.ops import _build
+    lib = _build.load()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H, Lp, bk in [(1, 12, 32768, 256), (1, 40, 32768, 256), (1, 40, 75776, 256),
+                         (2, 40, 32768, 256), (1, 2, 1024, 256), (1, 12, 3072, 64),
+                         (4, 40, 1024, 128), (1, 12, 32768, 128)]:
+        assert lib.tdx_subquant_pack_kvt_grid(B, H, Lp, bk, 1) == sf.kvt_grid(
+            B, H, Lp, bk, n_sm), (B, H, Lp, bk)
+    for B, H, Lp, bk in [(1, 12, 1024, 320), (1, 12, 1000, 256), (1, 12, 1024, 96),
+                         (0, 12, 1024, 256)]:
+        assert lib.tdx_subquant_pack_kvt_grid(B, H, Lp, bk, 1) == 0
 
 
 def _k7_operands(dev, L, Lp, bq, bk, seed):
@@ -1308,6 +1393,57 @@ def test_k16_matches_plain_bitwise(dev, heads):
     assert sf._unfold_quant_wide_cuda.launches == before + 1
     want_q, want_s = sf.unfold_quant_wide_plain(planes, 1000)
     assert torch.equal(q, want_q) and torch.equal(s, want_s)
+
+
+def _near_half_pairs(n_amax=128):
+    """(amax, [y, ...]) bf16 pairs whose fp32 quotient y / scale lies on a
+    half-integer or within 2 ulps of one (scale = amax * (1/127) in fp32):
+    where y * (1/scale) can round the other way."""
+    u = np.arange(0x3F80, 0x4300, dtype=np.uint32)           # bf16 in [1, 128)
+    vals = (u << 16).view(np.float32)
+    c = np.float32(1) / np.float32(127)
+    out = []
+    # amax = 127 * 2^-e: scale = 2^-e exactly, so (k + 1/2) 2^-e are ties
+    for a in np.concatenate([vals[::max(1, len(vals) // n_amax)],
+                             np.float32(127) / np.float32([1, 2, 4, 8])]):
+        s = np.float32(a * c)
+        ys = vals[(vals <= a) & (vals >= a / 128)]
+        q = (ys / s).astype(np.float32)
+        d = np.abs(q - np.floor(q) - np.float32(0.5))
+        hit = ys[d <= 2 * np.spacing(q)]
+        if len(hit):
+            out.append((float(a), [float(y) for y in hit]))
+    return out
+
+
+@pytest.mark.cuda
+def test_k16_rounds_half_integers_as_the_division(dev):
+    """K16 at 40 heads on rows built so that y / scale lands on and within
+    two ulps of half-integers (each row's amax a bf16 value, its other
+    values the bf16 y with such a quotient, both signs), a row whose amax is
+    0, and random rows: int8 bit for bit and scales exact against the plain
+    version's fp32 division."""
+    L, Lp = 1000, 1024
+    planes = (2 * _randn(dev, 1, WIDE_HEADS, Lp, DH, seed=117)).bfloat16()
+    rows = planes.transpose(1, 2).reshape(1, Lp, WIDE)        # a view of copies
+    pairs = _near_half_pairs()
+    assert len(pairs) > 8
+    built = torch.zeros(len(pairs) + 1, WIDE)
+    for i, (a, ys) in enumerate(pairs):
+        vals = torch.tensor(ys * (WIDE // len(ys) + 1))[:WIDE - 1]
+        sign = torch.from_numpy(np.random.RandomState(i).randint(0, 2, WIDE - 1) * 2 - 1)
+        built[i, 0] = a
+        built[i, 1:] = vals * sign
+    rows = rows.clone()
+    rows[0, :len(pairs) + 1] = built.bfloat16().to(dev)       # the last: all zero
+    planes = rows.reshape(1, Lp, WIDE_HEADS, DH).transpose(1, 2).contiguous()
+    before = sf._unfold_quant_wide_cuda.launches
+    q, s = sf.unfold_quant(planes, L)
+    assert sf._unfold_quant_wide_cuda.launches == before + 1
+    want_q, want_s = sf.unfold_quant_wide_plain(planes, L)
+    assert torch.equal(s, want_s)
+    assert torch.equal(q, want_q), int((q.int() - want_q.int()).abs().max())
+    assert float(s[0, len(pairs), 0]) == float(np.float32(1e-8) * np.float32(1 / 127))
 
 
 @pytest.mark.cuda

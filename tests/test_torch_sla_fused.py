@@ -350,6 +350,146 @@ def test_k6_plain_matches_jax(L, bk, linear_kv):
                                    rtol=1e-5, atol=1e-5)
 
 
+# K6's runs with the linear branch: (B, H, nK, resident blocks) -> the
+# blocks the launch takes; the 1.3B and 14B 480p shapes at 256-row blocks
+# on 132 SMs (the 14B's in two waves of runs of 19-20 K blocks), batch 2,
+# 720p, more heads than resident blocks (a block a head at least), fewer K
+# blocks than resident blocks (a block a K block)
+KVT_GRIDS = [((1, 12, 128, 132), 132), ((1, 40, 128, 132), 264), ((2, 40, 128, 132), 528),
+             ((1, 40, 296, 132), 528), ((4, 40, 8, 132), 160), ((1, 2, 4, 132), 8),
+             ((1, 12, 12, 132), 132), ((1, 12, 48, 0), 24)]
+
+
+@pytest.mark.parametrize("shape,grid", KVT_GRIDS,
+                         ids=[f"{b}x{h}x{n}-{r}" for (b, h, n, r), _ in KVT_GRIDS])
+def test_kvt_runs_by_shape(shape, grid):
+    """K6 takes one block a resident slot (with the linear branch, in as
+    many waves as keep each run to `_KVT_MAX_RUN` K blocks; without it, one
+    wave), at least one a (b, h) and at most one a K block; its runs split
+    the flat (b, h, K block) order evenly (`k6::run_start`: floor(i total /
+    grid)), cover every K block once and span at most two heads; each
+    head's partials are listed in run order, slot 0 for a run's first head,
+    and `k6::run_of` finds a block's run."""
+    B, H, nK, resident = shape
+    assert sf.kvt_grid(B, H, nK * 256, 256, resident) == grid
+    total = B * H * nK
+    assert sf.kvt_grid(B, H, nK * 256, 256, resident, linear_kv=False) == min(
+        total, max(resident, 1, B * H))
+    runs = sf.kvt_runs(total, grid)
+    assert runs[0][0] == 0 and runs[-1][1] == total
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert max(e - a for a, e in runs) - min(e - a for a, e in runs) <= 1
+    assert max(e - a for a, e in runs) <= sf._KVT_MAX_RUN or grid == B * H
+    for i, (a, e) in enumerate(runs):
+        assert (e - 1) // nK - a // nK <= 1
+        for blk in (a, e - 1):
+            assert ((blk + 1) * grid - 1) // total == i          # run_of
+    parts = sf.kvt_partials(B, H, nK, grid)
+    for bh, plist in enumerate(parts):
+        cta = [i for i, _ in plist]
+        assert cta == sorted(cta) and len(set(cta)) == len(cta)
+        rows = sum(min(runs[i][1], (bh + 1) * nK) - max(runs[i][0], bh * nK) for i in cta)
+        assert rows == nK
+        for i, slot in plist:
+            assert slot == (0 if runs[i][0] // nK == bh else 1)
+
+
+def test_kvt_constants_match_the_kernel_source():
+    """The largest block, a partial's floats, the longest run, the grid,
+    the run split and the slot rule the wrapper assumes are the CUDA
+    source's (`k6::`); K16's widest
+    row is 20 vectors of 8 values a lane of a warp."""
+    import re
+    from pathlib import Path
+    src = (Path(sf.__file__).resolve().parent.parent / "csrc" / "sla_fused.cu").read_text()
+    k6 = src[src.index("namespace k6 {"):src.index("}  // namespace k6")]
+    assert int(re.search(r"constexpr int kMaxBlockK = (\d+);", k6).group(1)) == sf._KVT_MAX_BLOCK
+    assert "constexpr int kSlot = (kDh + 1) * kDh;" in k6 and sf._KVT_SLOT == 129 * 128
+    assert "return (int)((long long)i * total / grid);" in k6
+    assert "return (int)(((long long)(blk + 1) * grid - 1) / total);" in k6
+    assert "const int slot = run_start(i, total, grid) / nK == bh ? 0 : 1;" in k6
+    assert int(re.search(r"constexpr int kMaxRun = (\d+);", k6).group(1)) == sf._KVT_MAX_RUN
+    assert ("const int waves = LINEAR ? (total + resident * kMaxRun - 1) / "
+            "(resident * kMaxRun) : 1;") in k6
+    assert "return std::min(total, std::max(resident * waves, B * H));" in k6
+    chunks = int(re.search(r"constexpr int kUqWideChunks = (\d+);", src).group(1))
+    assert chunks * 32 * 8 == sf._UNFOLD_WIDE_MAX
+    assert int(re.search(r"constexpr int kWideRowWarps = (\d+);", src).group(1)) in (1, 2, 4)
+
+
+def _kv_split_emulation(k, vi, L, split):
+    """K6's kv / ksum arithmetic in plain torch (fp32 arithmetic is
+    IEEE's on the CPU, the tensor core's sums are exact here): phi in fp32
+    (zero rows past L), each 32-row step's product from phi's two halves,
+    hi = round(2^8 phi) and lo = round(2^8 phi - hi) in `split` (fp16 as the
+    kernel; bf16 as a plain split would), exact against the int8 V, summed
+    a step at a time in fp32, then times 2^-8."""
+    B, Hh, Lp, D = k.shape
+    valid = (torch.arange(Lp) < L)[:, None]
+    phi = torch.where(valid, sf._softmax_d(k.float()), 0.0) * 256.0
+    hi = phi.to(split).float()
+    lo = (phi - hi).to(split).float()
+    kv = torch.zeros(B, Hh, D, D)
+    for r0 in range(0, Lp, 32):
+        step = torch.matmul(hi[:, :, r0:r0 + 32].double().transpose(-1, -2),
+                            vi[:, :, r0:r0 + 32].double())
+        step += torch.matmul(lo[:, :, r0:r0 + 32].double().transpose(-1, -2),
+                             vi[:, :, r0:r0 + 32].double())
+        kv = kv + step.float()
+    return kv / 256.0, (phi.sum(2, keepdim=True) / 256.0)
+
+
+@pytest.mark.parametrize("L", [1000, 520])
+def test_kv_split_emulation_matches_plain_and_jax(L):
+    """K6's fp16 hi / lo split of 2^8 phi, emulated, lies within the card
+    tests' rtol 1e-4 / atol 1e-4 of the plain version and of JAX's kernel
+    in interpret mode; a bf16 split (~2^-17 of phi) lies farther from the
+    float64 sums."""
+    Lp, bk = 1024, 256
+    k, v = _k_and_v(L, Lp, 17)
+    kj, kt = _bf16(k)
+    mu = (k[:, :, :L].mean(2, keepdims=True)).astype(np.float32)
+    vi_j, _ = quantize_v_jax(jnp.asarray(v, jnp.bfloat16), L)
+    vi = torch.from_numpy(np.array(vi_j))
+    kv16, ks16 = _kv_split_emulation(kt, vi, L, torch.float16)
+    plain = sf.subquant_pack_kvt_plain(kt, torch.from_numpy(mu), vi, bk, L, linear_kv=True)
+    want = sf_jax.subquant_pack_kvt(kj, jnp.asarray(mu), vi_j, bk, kv_len=L,
+                                    linear_kv=True, interpret=True)
+    for ref_kv, ref_ks in ((plain[3], plain[4]),
+                           (torch.from_numpy(np.asarray(want[3])),
+                            torch.from_numpy(np.asarray(want[4])))):
+        torch.testing.assert_close(kv16, ref_kv, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ks16, ref_ks, rtol=1e-4, atol=1e-4)
+    valid = (torch.arange(Lp) < L)[:, None]
+    exact = torch.matmul(torch.where(valid, sf._softmax_d(kt.double()), 0.0)
+                         .transpose(-1, -2), vi.double())
+    kvb, _ = _kv_split_emulation(kt, vi, L, torch.bfloat16)
+    assert (kvb - exact).abs().max() > 4 * (kv16 - exact).abs().max()
+
+
+def test_k16_residual_step_gives_the_ieee_quotient():
+    """K16's division-free rule (`quant8_wide`): t = fl(y / s) taken as
+    fl(y inv) corrected by one FMA residual step, inv = 1/s rounded to
+    nearest, equals the IEEE quotient for every bf16 amax in [1, 2) (other
+    exponents scale exactly) and every bf16 y in [2^-11, amax] (smaller
+    quotients round to 0): the FMAs emulated in float64 (r exact; the last
+    sum checked off every fp32 midpoint)."""
+    amax = (np.arange(0x3F80, 0x4000, dtype=np.uint32) << 16).view(np.float32)
+    ys = (np.arange(0x3A00, 0x4000, dtype=np.uint32) << 16).view(np.float32)
+    c = np.float32(1) / np.float32(127)
+    for a in amax:
+        s = np.float32(a * c)
+        inv = np.float32(1) / s
+        y = ys[ys <= a]
+        t = (y * inv).astype(np.float32)
+        r = (y.astype(np.float64) - t.astype(np.float64) * np.float64(s)).astype(np.float32)
+        z = t.astype(np.float64) + r.astype(np.float64) * np.float64(inv)
+        q = z.astype(np.float32)
+        half_ulp = np.spacing(q).astype(np.float64) / 2
+        assert (np.abs(np.abs(z - q) - half_ulp) > np.abs(z) * 2.0 ** -40).all()
+        np.testing.assert_array_equal(q, (y / s).astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # K7
 # ---------------------------------------------------------------------------

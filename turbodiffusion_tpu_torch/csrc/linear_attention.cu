@@ -1,13 +1,10 @@
-// The SLA linear branch for sm_90a: K6's linear kv sums and K21.
+// The SLA linear branch for sm_90a: K21.
 //
-// tdx_linear_kv is the kv pass of both:
-//    * K6 (int8 V planes; with tdx_subquant_pack_kvt it replaces
-//      turbodiffusion_tpu/ops/sla_fused.py:subquant_pack_kvt with linear_kv,
-//      whose body folds the sums into its K/V walk);
-//    * K21 (bf16 V), the first of its two passes.
-//    kv = sum softmax_D(k)^T v (B, H, 128, 128) and ksum = sum softmax_D(k)
-//    (B, H, 1, 128) over rows < kv_len; rows past kv_len of k and v are never
-//    read, so a NaN there stays out (the TPU kernel's where() on both).
+// tdx_linear_kv is its kv pass: kv = sum softmax_D(k)^T v (B, H, 128, 128)
+//    and ksum = sum softmax_D(k) (B, H, 1, 128) over rows < kv_len of bf16 k
+//    and v; rows past kv_len are never read, so a NaN there stays out (the
+//    TPU kernel's where() on both). K6 folds the same sums for int8 V into
+//    its own walk (csrc/sla_fused.cu k6::pack_kvt_kernel).
 // K21 tdx_linear_apply, after kvw = kv @ W^T (torch.matmul between the
 //    passes, as JAX leaves it to XLA), replaces the apply pass: o = softmax_D(q)
 //    kvw / (1e-5 + softmax_D(q) . ksum) + bias, bf16 out. With the kv pass it
@@ -73,14 +70,7 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
   f[3] = c.y;
 }
 
-// 16 channels of v -> fp32 (int8: 16 bytes; bf16: 32 bytes)
-__device__ __forceinline__ void load16(const int8_t* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const int8_t* q = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int e = 0; e < 16; ++e) f[e] = (float)q[e];
-}
-
+// 16 bf16 channels of v (32 bytes) -> fp32
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -109,9 +99,8 @@ __device__ __forceinline__ void softmax_row(float* f) {
 // Partial sums of softmax_D(k)^T v and softmax_D(k) over rows
 // [chunk * kLinRows, min(kv_len, (chunk + 1) * kLinRows)): part holds, per
 // (b, h, chunk), 128 rows of kv then one row of ksum.
-template <typename VT>
 __global__ void __launch_bounds__(256)
-linear_kv_partial_kernel(const __nv_bfloat16* __restrict__ k, const VT* __restrict__ v,
+linear_kv_partial_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                          float* __restrict__ part, int kv_len, int n_chunks, Strides ks,
                          Strides vs) {
   __shared__ __align__(16) float sphi[kLinSub * kDh];
@@ -123,7 +112,7 @@ linear_kv_partial_kernel(const __nv_bfloat16* __restrict__ k, const VT* __restri
   const int row_begin = chunk * kLinRows;
   const int row_end = min(kv_len, row_begin + kLinRows);
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const VT* vb = v + b * vs.b + h * vs.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
 
   float acc[8][8], ksa[8];
 #pragma unroll
@@ -286,20 +275,15 @@ linear_apply_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict
 }  // namespace
 
 extern "C" int tdx_linear_kv(const void* k, const void* v, void* part, void* kv, void* ksum,
-                             int B, int H, int kv_len, int n_chunks, int v_int8,
-                             long long ksb, long long ksh, long long ksl, long long vsb,
-                             long long vsh, long long vsl, void* stream) {
+                             int B, int H, int kv_len, int n_chunks, long long ksb,
+                             long long ksh, long long ksl, long long vsb, long long vsh,
+                             long long vsl, void* stream) {
   if (kv_len <= 0 || n_chunks != (kv_len + kLinRows - 1) / kLinRows)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n_chunks, H, B);
   const Strides ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl};
-  if (v_int8)
-    linear_kv_partial_kernel<int8_t><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)k, (const int8_t*)v, (float*)part, kv_len, n_chunks, ks, vs);
-  else
-    linear_kv_partial_kernel<__nv_bfloat16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (float*)part, kv_len, n_chunks, ks,
-        vs);
+  linear_kv_partial_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (float*)part, kv_len, n_chunks, ks, vs);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   linear_kv_reduce_kernel<<<B * H, 256, 0, (cudaStream_t)stream>>>(

@@ -13,9 +13,9 @@
 //    _subquant_pack_kvt_kernel): smooth-k subtract + per-block int8 K with one
 //    fp32 scale per block_k rows (rows >= kv_len stay out of the statistic),
 //    and the per-block transposed int8 V panel (B, H, nK, 128, block_k) that
-//    K7 stages without a transpose. With the linear branch on, tdx_linear_kv
-//    (csrc/linear_attention.cu, shared with K21) adds kv = sum softmax_D(k)^T
-//    v_i8 (B, H, 128, 128) and ksum = sum softmax_D(k) over rows < kv_len.
+//    K7 stages without a transpose; with the linear branch on, in the same
+//    walk over K and V, kv = sum softmax_D(k)^T v_i8 (B, H, 128, 128) and
+//    ksum = sum softmax_D(k) over rows < kv_len, as the TPU kernel folds them.
 // K13 tdx_unfold_quant replaces sla_fused.py:unfold_quant, narrow form (body
 //    _unfold_quant_kernel): K7's bf16 planes (B, H, Lp, Dh) -> the int8 feed of
 //    the W8A8 O projection, (B, L, H*Dh) int8 with one fp32 scale per token
@@ -48,7 +48,7 @@
 //
 // What bounds them on an H100: memory. A K5 pass reads the 100.6 MB
 // projection (1.3B, 480p: L = 32,760, H*Dh = 1536) and writes 51-101 MB at
-// a few FLOPs per byte; K6 reads 151 MB of K and V and writes 75 MB. The
+// a few FLOPs per byte; K6 reads 151 MB of K and V and writes 101 MB. The
 // designs move each byte once:
 //   * K5: K2's warp-per-row kernel (warp_rows.cuh): a row takes one warp,
 //     or 4 at the 14B's 5120, 8-warp blocks walk 64-row tiles persistently,
@@ -64,16 +64,33 @@
 //     partial per 64-row tile, and the last tile of each pool window (an
 //     atomic counter) sums that window's partials in order: one launch,
 //     deterministic, no fp32 atomics on the data.
-//   * K6: one 256-thread block per (b, h, K block): the block absmax over
-//     valid rows, a second read of the block (an L2 hit) to quantise, and the
-//     V block transposed through shared memory.
-//   * tdx_linear_kv (csrc/linear_attention.cu) re-reads K and V, where the
-//     TPU kernel folds the sums into its K/V walk; the main path (random
-//     weights, so proj_l = 0) does not run it.
-//   * K27: K6's block (a 256-thread block per (b, h, K block), the
-//     statistic then a second read of the block, an L2 hit), with K written
-//     at a 256-byte row stride and the V rows copied beside it 16 bytes a
-//     thread (1.3B 480p: 100.7 MB of K and 50.3 MB of V in, 100.7 MB out).
+//   * K6 (k6::pack_kvt_kernel): persistent blocks of four warpgroups, one an
+//     SM, each walking a run of K blocks (runs split the flat (b, h, K block)
+//     order evenly, so 12 heads and 40 fill the card alike). A block's K rows
+//     and V rows arrive by two bulk copies (TMA) into one of two stages while
+//     the block before is worked: its statistic from shared memory, the int8
+//     K rows quantised from there (one read of K), V transposed 8 x 16 bytes
+//     a thread with byte permutes. With the linear branch, each 32-row step
+//     writes 2^8 phi (phi = softmax_D(k)) split into fp16 hi + lo (hi =
+//     fp16(2^8 phi), lo = fp16(2^8 phi - hi): ~2^-22 of phi; a bf16 split,
+//     ~2^-17, left kv 5e-4 from its plain version at L = 3,000, past the
+//     1e-4 it is held to) and V as fp16 (exact) into swizzled tiles, and each
+//     warpgroup issues phi^T V for its 64 x 64 quadrant of kv on wgmma (both
+//     operands MN-major, fp32 accumulation) while the threads quantise the
+//     step's K rows; the steps run in lockstep (builder and MMA warpgroups
+//     apart, setmaxnreg 80 / 168, spilled and ran 2.6x slower). A step's products go into a zeroed fragment that is then added
+//     to an fp32 register sum (a chain through the accumulator truncates
+//     step by step); ksum is summed on the CUDA cores.
+//     Rows >= kv_len are zeros in the operand tiles (NaN x 0 is NaN on a
+//     tensor core). Each block writes its run's sums of a head as one fp32
+//     partial; k6::kv_reduce_kernel adds a head's partials in run order:
+//     deterministic, no atomics. Bound: bytes (1.3B 480p: 100.7 MB of K and
+//     50.3 MB of V in, 50.3 MB of kp and of vtp out: 0.075 ms); the two fp16
+//     products are 0.026 ms at the dense peak.
+//   * K27: a 256-thread block per (b, h, K block): the statistic, then a
+//     second read of the block (an L2 hit), K written at a 256-byte row
+//     stride and the V rows copied beside it 16 bytes a thread (1.3B 480p:
+//     100.7 MB of K and 50.3 MB of V in, 100.7 MB out).
 //   * K29: K18's warp-a-row kernel writing the int8 row alone (100.7 MB in,
 //     50.3 MB and 1.6 MB of scales out).
 //   * K18: memory-bound (1.3B 480p: 100.7 MB of K and 50.3 MB of V in,
@@ -97,16 +114,21 @@
 //     bit for bit.
 //   * K15: 335.5 MB in at 14B (0.100 ms). One warp per row, 16-byte loads,
 //     an fp32 sum of squares per lane, one warp reduction.
-//   * K16: K13's warp-a-token kernel with 20 chunks a lane (a 5120-wide row
-//     in registers) and the wide TPU kernel's rule, q = round-half-even(y /
-//     scale) with IEEE division (__fdiv_rn), where K13 keeps the narrow
-//     kernel's y * (1/scale). Each is bit-equal to its own TPU kernel.
-// A first, simple version: no cp.async or TMA.
+//   * K16: a token row on 2 warps (kWideRowWarps), 10 16-byte vectors a
+//     lane, its absmax on packed bf16 pairs exchanged once between the
+//     row's warps, and the wide kernel's rule q = round-half-even(fl(y /
+//     scale)) kept without a division: fl(y / scale) as y * rcp_rn(scale)
+//     corrected by one FMA residual step (quant8_wide), rounded by the
+//     1.5 * 2^23 FADD. Where K13 keeps the narrow kernel's y * (1/scale).
+//     Each is bit-equal to its own TPU kernel.
+// K13, K15, K18, K27 and K29: a first, simple version, no cp.async or TMA.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_rows.cuh"
 
 namespace {
@@ -121,11 +143,9 @@ constexpr int kHpMinBlocks = 2;
 constexpr int kMaxHeads = kMaxVecRow / kDh;   // K5: rows up to 8192 wide, 64 heads
 constexpr float kInvInt8 = 1.0f / 127.0f;
 constexpr int kSqThreads = 256;
-constexpr int kMaxBlockK = 256;
-constexpr int kVTileStride = kDh + 4;          // bytes per row of K6's V tile
 
-// 8 values -> 8 int8: round half to even, saturated to +-127 (K6 / K27: a
-// NaN row past kv_len gives 0, as the plain version's cast)
+// 8 values -> 8 int8: round half to even, saturated to +-127 (K27: a NaN row
+// past kv_len gives 0, as the plain version's cast)
 __device__ __forceinline__ uint2 quant8(const float* f, float inv) {
   uint32_t w[2];
 #pragma unroll
@@ -356,21 +376,404 @@ head_planes_rows_kernel(const __nv_bfloat16* __restrict__ x, const uint4* __rest
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K27
+// K6
 // ---------------------------------------------------------------------------
 
-// One block per (b, h, K block). PACKED (K27): the int8 K rows go into the
-// first half of packed (B, H, Lp, 256) K|V rows and the V rows are copied
-// beside them; else (K6) K goes to kp (B, H, Lp, 128) and V into the
-// per-block transposed panel vtp.
-template <bool PACKED>
+namespace k6 {
+
+constexpr int kThreads = 512;              // four warpgroups: a kv quadrant each
+constexpr int kMaxBlockK = 256;
+constexpr int kSub = 32;                   // rows of one step of the kv product
+constexpr int kSlot = (kDh + 1) * kDh;     // floats of a partial: 128 kv rows, then ksum
+constexpr int kTileA = kSub * 128;         // bytes of a 64-channel fp16 phi tile
+constexpr int kTileB = 2 * kTileA;         // bytes of the fp16 V tile: two 64-channel boxes
+constexpr int kWork = 4 * kTileA + kTileB; // phi hi and lo of both halves, then V
+constexpr int kReduceThreads = 256;
+// the most K blocks a run sums into its fp32 kv accumulators with the
+// linear branch: the rounding of those sums grows with a run's rows, so a
+// longer walk takes further waves of blocks instead
+constexpr int kMaxRun = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLog2eLo = 1.925963033e-8f;   // log2(e) - fl(log2(e))
+constexpr float kLn2 = 0.6931471805599453f;
+// phi enters the products times 2^8, so that lo = fp16(2^8 phi - hi) stays a
+// normal fp16 down to phi ~ 2^-14 (below that its absolute error, 2^-33,
+// is nothing a sum of up to 10^5 terms of 127 can see); the partials undo it
+constexpr float kPhiScale = 256.f, kPhiUnscale = 1.f / 256.f;
+
+// bytes of one stage: a block's K rows (bf16), then its V rows (int8)
+__host__ __device__ __forceinline__ int stage_bytes(int bk) { return bk * 3 * kDh; }
+
+// dynamic shared memory of a launch: two stages, the work tiles with the
+// linear branch, 1 KB to align the swizzled tiles
+inline size_t smem_bytes(int bk, bool linear) {
+  return 1024 + 2 * (size_t)stage_bytes(bk) + (linear ? kWork : 0);
+}
+
+// first flat K block (b, h, K block in order) of block i of `grid`
+__host__ __device__ __forceinline__ int run_start(int i, int total, int grid) {
+  return (int)((long long)i * total / grid);
+}
+
+// the block whose run holds flat K block `blk`
+__host__ __device__ __forceinline__ int run_of(int blk, int total, int grid) {
+  return (int)(((long long)(blk + 1) * grid - 1) / total);
+}
+
+// 4 rows x 4 int8 channels (a word a row) -> 4 channels x 4 rows
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t* t) {
+  const uint32_t x = __byte_perm(a, b, 0x5140), y = __byte_perm(c, d, 0x5140);
+  const uint32_t x2 = __byte_perm(a, b, 0x7362), y2 = __byte_perm(c, d, 0x7362);
+  t[0] = __byte_perm(x, y, 0x5410);
+  t[1] = __byte_perm(x, y, 0x7632);
+  t[2] = __byte_perm(x2, y2, 0x5410);
+  t[3] = __byte_perm(x2, y2, 0x7632);
+}
+
+// 4 int8 (a word) -> 2 words of fp16 pairs, exactly: the byte plus 128 as
+// the low bits of fp16 1024 (0x6400), less 1024 + 128
+__device__ __forceinline__ uint2 i8x4_f16(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  const __half2 off = __float2half2_rn(1152.f);
+  uint32_t a = __byte_perm(x, 0x64646464u, 0x4140), b = __byte_perm(x, 0x64646464u, 0x4342);
+  const __half2 ha = __hsub2(*reinterpret_cast<__half2*>(&a), off);
+  const __half2 hb = __hsub2(*reinterpret_cast<__half2*>(&b), off);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&ha),
+                    *reinterpret_cast<const uint32_t*>(&hb));
+}
+
+// two fp32 as a packed fp16 pair (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_h2(float lo, float hi) {
+  uint32_t u;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+  return u;
+}
+
+// 16-byte chunk q of row r of a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t sw_chunk(uint32_t tile, int r, int q) {
+  return tile + r * 128 + ((q ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// rows r0 + 8 (u / 8) .. + 7 of a block's V rows (`vsm`, 128 bytes each)
+// and channels 16 (u % 8) .. + 15, transposed into the block's panel `vout`
+// (128 rows of block_k) with byte permutes: a quarter warp reads 128 bytes
+// of a row
+__device__ __forceinline__ void transpose_tile(const unsigned char* vsm, int8_t* vout,
+                                               int block_k, int r0, int u) {
+  const int cq = u & 7, r8 = (r0 >> 3) + (u >> 3);
+  uint32_t w[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const uint4 x = *reinterpret_cast<const uint4*>(vsm + (r8 * 8 + r) * kDh + cq * 16);
+    w[r][0] = x.x; w[r][1] = x.y; w[r][2] = x.z; w[r][3] = x.w;
+  }
+#pragma unroll
+  for (int J = 0; J < 4; ++J) {
+    uint32_t lo[4], hi[4];
+    transpose4(w[0][J], w[1][J], w[2][J], w[3][J], lo);
+    transpose4(w[4][J], w[5][J], w[6][J], w[7][J], hi);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      store_vec8(reinterpret_cast<uint2*>(vout + (size_t)(cq * 16 + 4 * J + c) * block_k + r8 * 8),
+                 make_uint2(lo[c], hi[c]));
+  }
+}
+
+// A grid of run_start's runs over the flat K blocks (b, h, kb) of
+// (B, H, Lp, 128) planes, Lp = nK block_k. Per K block: the statistic over
+// its rows < kv_len, ks, the transposed V panel; per 32-row step, its K rows
+// quantised; with LINEAR, first: 2^8 phi of the step's rows (zero rows past
+// kv_len) as fp16 hi and lo into the MN-major A tiles (rows x 64 channels),
+// V as fp16 into the MN-major B tile (rows x 128 channels, two boxes of
+// 64), then warpgroup g takes the quadrant (c half g % 2, d half g / 2):
+// frag = hi^T V + lo^T V on wgmma (a zeroed fragment a step: the tensor
+// core's accumulation truncates) while every thread quantises a K row's
+// 8 channels of the step, and acc += frag in fp32. At the end of each
+// head's part of the run the block writes 2^-8 acc and its ksum as the
+// partial of (block, slot): slot 0 for the run's first head, 1 for a second.
+template <bool LINEAR>
+__global__ void __launch_bounds__(kThreads, 1)
+pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
+                const int8_t* __restrict__ v, int8_t* __restrict__ kp, int8_t* __restrict__ vtp,
+                float* __restrict__ ks, float* __restrict__ part, int nK, int block_k,
+                int kv_len, int total) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  __shared__ float red[kThreads / 32];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sbytes = stage_bytes(block_k), kbytes = block_k * 2 * kDh;
+  const int first = run_start(blockIdx.x, total, gridDim.x);
+  const int last = run_start(blockIdx.x + 1, total, gridDim.x);
+  const uint32_t bar = smem_u32(&full[0]);
+  const uint32_t work = base + 2 * sbytes;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // block blk's K rows and V rows (flat rows blk * block_k on) into stage s
+  auto issue = [&](int blk, int s) {
+    const size_t row0 = (size_t)blk * block_k;
+    mbar_arrive_expect_tx(bar + 8 * s, sbytes);
+    bulk_load(base + s * sbytes, k + row0 * kDh, kbytes, bar + 8 * s);
+    bulk_load(base + s * sbytes + kbytes, v + row0 * kDh, block_k * kDh, bar + 8 * s);
+  };
+  if (tid == 0) issue(first, 0);
+
+  const int c16 = tid & 15;                  // the thread's 8 channels of a K row
+  float m8[8];
+  float acc[LINEAR ? 32 : 1], frag[LINEAR ? 32 : 1], ksl[8];
+  if constexpr (LINEAR) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ksl[i] = 0.f;
+  }
+  int cur_bh = -1;
+  for (int blk = first, j = 0; blk < last; ++blk, ++j) {
+    const int s = j & 1;
+    const int bh = blk / nK, row0 = (blk - bh * nK) * block_k;
+    if (tid == 0 && blk + 1 < last) issue(blk + 1, s ^ 1);
+    if (bh != cur_bh) {
+      const float4* m4 = reinterpret_cast<const float4*>(mu + (size_t)bh * kDh + c16 * 8);
+      *reinterpret_cast<float4*>(m8) = __ldg(m4);
+      *reinterpret_cast<float4*>(m8 + 4) = __ldg(m4 + 1);
+      cur_bh = bh;
+    }
+    mbar_wait(bar + 8 * s, (j >> 1) & 1);
+    const unsigned char* ksm = sm + s * sbytes;       // K rows, 256 bytes each
+    const unsigned char* vsm = ksm + kbytes;          // V rows, 128 bytes each
+    const int live = min(block_k, kv_len - row0);     // rows < kv_len (may be <= 0)
+
+    // the block statistic over rows < kv_len (rows past it may hold NaN)
+    float amax = 0.f;
+    for (int r = tid >> 4; r < live; r += kThreads / 16) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(ksm + r * 2 * kDh + c16 * 16), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(__fsub_rn(f[e], m8[e])));
+    }
+    amax = warp_max(amax);
+    if (lane == 0) red[warp] = amax;
+    __syncthreads();
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) m = fmaxf(m, red[i]);
+    const float scale = __fmul_rn(fmaxf(m, 1e-8f), kInvInt8);
+    const float inv = rcp_rn(scale);
+    if (tid == 0) ks[blk] = scale;
+
+    // the transposed V panel, 8 rows x 16 channels a thread
+    int8_t* vout = vtp + (size_t)blk * kDh * block_k;
+    for (int u = tid; u < block_k; u += kThreads) transpose_tile(vsm, vout, block_k, 0, u);
+    int8_t* kout = kp + ((size_t)blk * block_k) * kDh + c16 * 8;
+    for (int r0 = 0; r0 < block_k; r0 += kSub) {
+      if constexpr (LINEAR) {
+        // 2^8 phi of the step's rows: a half warp a row, 8 channels a lane
+        const int l16 = lane & 15, rr = warp * 2 + (lane >> 4);
+        const bool valid = r0 + rr < live;             // the half warp alike
+        float x[8];
+        unpack8(valid ? *reinterpret_cast<const uint4*>(ksm + (r0 + rr) * 2 * kDh + l16 * 16)
+                      : make_uint4(0u, 0u, 0u, 0u), x);
+        float mx = x[0];
+#pragma unroll
+        for (int e = 1; e < 8; ++e) mx = fmaxf(mx, x[e]);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        // exp(t) = 2^y (1 + r ln 2), t = x - max exact (bf16 values), y =
+        // fl(t log2 e), r = t log2 e - y: only the SFU's 2^y rounds
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float t = __fsub_rn(x[e], mx), y = __fmul_rn(t, kLog2e);
+          const float r = fmaf(t, kLog2eLo, fmaf(t, kLog2e, -y));
+          const float p2 = ex2_approx(y);
+          x[e] = fmaf(p2, r * kLn2, p2);
+          sum += x[e];
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        // 2^8 / sum (a row past kv_len: 0), the SFU's estimate and one
+        // Newton step (within an ulp)
+        float rs;
+        asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(sum));
+        rs = valid ? fmaf(fmaf(-sum, rs, 1.f), rs, rs) * kPhiScale : 0.f;
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float s0 = __fmul_rn(x[2 * e], rs), s1 = __fmul_rn(x[2 * e + 1], rs);
+          ksl[2 * e] += s0;
+          ksl[2 * e + 1] += s1;
+          h[e] = pack_h2(s0, s1);
+          const float2 hf = __half22float2(*reinterpret_cast<const __half2*>(&h[e]));
+          l[e] = pack_h2(__fsub_rn(s0, hf.x), __fsub_rn(s1, hf.y));
+        }
+        const uint32_t ta = work + (l16 >> 3) * kTileA;
+        sts128(sw_chunk(ta, rr, l16 & 7), make_uint4(h[0], h[1], h[2], h[3]));
+        sts128(sw_chunk(ta + 2 * kTileA, rr, l16 & 7), make_uint4(l[0], l[1], l[2], l[3]));
+        // V rows of the step as fp16: thread = (row tid / 8, 16 channels)
+        if (tid < kSub * 8) {
+          const int vr = tid >> 3, cq = tid & 7;
+          const uint4 vx = *reinterpret_cast<const uint4*>(vsm + (r0 + vr) * kDh + cq * 16);
+          const uint2 a = i8x4_f16(vx.x), b = i8x4_f16(vx.y), c = i8x4_f16(vx.z),
+                      d = i8x4_f16(vx.w);
+          const uint32_t tb = work + 4 * kTileA + (cq >> 2) * kTileA;
+          sts128(sw_chunk(tb, vr, (cq & 3) * 2), make_uint4(a.x, a.y, b.x, b.y));
+          sts128(sw_chunk(tb, vr, (cq & 3) * 2 + 1), make_uint4(c.x, c.y, d.x, d.y));
+        }
+        fence_async_shared();
+        __syncthreads();
+        // warpgroup g: phi's channels 64 (g % 2) .. (A, M-major) against V's
+        // 64 (g / 2) .. (B, N-major); a k step of 16 rows is two 1024-byte
+        // groups
+        const int g = warp >> 2;
+        const uint32_t a_hi = work + (g & 1) * kTileA, a_lo = a_hi + 2 * kTileA;
+        const uint32_t b_v = work + 4 * kTileA + (g >> 1) * kTileA;
+        wgmma_fence();
+#pragma unroll
+        for (int ks16 = 0; ks16 < kSub / 16; ++ks16) {
+          const uint64_t db = sw128_desc_mn(b_v + ks16 * 2048, 0);
+          wgmma_f16_ss_mn_n64(frag, sw128_desc_mn(a_hi + ks16 * 2048, 0), db, ks16);
+          wgmma_f16_ss_mn_n64(frag, sw128_desc_mn(a_lo + ks16 * 2048, 0), db, 1);
+        }
+        wgmma_commit();
+      }
+      // the step's K rows, every row, with the block's scale
+#pragma unroll
+      for (int i = 0; i < kSub * 16 / kThreads; ++i) {
+        const int r = r0 + (tid >> 4) + (kThreads / 16) * i;
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(ksm + r * 2 * kDh + c16 * 16), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = __fsub_rn(f[e], m8[e]);
+        store_vec8(reinterpret_cast<uint2*>(kout + (size_t)r * kDh), quant8_rn(f, inv));
+      }
+      if constexpr (LINEAR) {
+        wgmma_wait<0>();
+        reg_fence<32>(frag);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);
+        __syncthreads();                               // the tiles are free
+      }
+    }
+    __syncthreads();                                   // the stage is read
+
+    if constexpr (LINEAR) {
+      if (blk + 1 == last || (blk + 1) % nK == 0) {
+        // this run's part of head bh: its partial
+        float* p = part + ((size_t)blockIdx.x * 2 + (bh == first / nK ? 0 : 1)) * kSlot;
+        const int g = warp >> 2, w4 = warp & 3, gq = lane >> 2, t = lane & 3;
+        const int c0 = (g & 1) * 64 + w4 * 16 + gq;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int d = (g >> 1) * 64 + jn * 8 + 2 * t;
+          *reinterpret_cast<float2*>(p + c0 * kDh + d) =
+              make_float2(acc[4 * jn] * kPhiUnscale, acc[4 * jn + 1] * kPhiUnscale);
+          *reinterpret_cast<float2*>(p + (c0 + 8) * kDh + d) =
+              make_float2(acc[4 * jn + 2] * kPhiUnscale, acc[4 * jn + 3] * kPhiUnscale);
+        }
+        // ksum: the two half warps' rows, then the warps in order, in the
+        // work tiles' shared memory (free after the last step)
+        float* ks_x = reinterpret_cast<float*>(sm + 2 * sbytes);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ksl[i] += __shfl_xor_sync(0xffffffffu, ksl[i], 16);
+        if (lane < 16) {
+          *reinterpret_cast<float4*>(ks_x + warp * kDh + lane * 8) =
+              make_float4(ksl[0], ksl[1], ksl[2], ksl[3]);
+          *reinterpret_cast<float4*>(ks_x + warp * kDh + lane * 8 + 4) =
+              make_float4(ksl[4], ksl[5], ksl[6], ksl[7]);
+        }
+        __syncthreads();
+        if (tid < kDh) {
+          float sk = 0.f;
+#pragma unroll
+          for (int w = 0; w < kThreads / 32; ++w) sk += ks_x[w * kDh + tid];
+          p[kDh * kDh + tid] = sk * kPhiUnscale;
+        }
+        __syncthreads();                               // ks_x read: the tiles are free
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ksl[i] = 0.f;
+      }
+    }
+  }
+}
+
+// kv (B, H, 128, 128) and ksum (B, H, 1, 128): head bh's partials added in
+// run order, 4 floats a thread (grid: (ceil(kSlot / 1024), B H))
+__global__ void __launch_bounds__(kReduceThreads)
+kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
+                 float* __restrict__ ksum, int nK, int total, int grid) {
+  const int bh = blockIdx.y;
+  const int e = (blockIdx.x * kReduceThreads + threadIdx.x) * 4;
+  if (e >= kSlot) return;
+  const int i0 = run_of(bh * nK, total, grid), i1 = run_of(bh * nK + nK - 1, total, grid);
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = i0; i <= i1; ++i) {
+    const int slot = run_start(i, total, grid) / nK == bh ? 0 : 1;
+    const float4 q =
+        __ldcg(reinterpret_cast<const float4*>(part + ((size_t)i * 2 + slot) * kSlot + e));
+    sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;
+  }
+  float* out = e < kDh * kDh ? kv + (size_t)bh * kDh * kDh + e
+                             : ksum + (size_t)bh * kDh + (e - kDh * kDh);
+  *reinterpret_cast<float4*>(out) = sum;
+}
+
+// the planes and blocks the kernel takes
+inline bool shape_ok(int B, int H, int Lp, int block_k) {
+  return B >= 1 && H >= 1 && block_k > 0 && block_k <= kMaxBlockK && block_k % 64 == 0 &&
+         Lp % block_k == 0 && Lp >= block_k && (long long)B * H * Lp < (1LL << 31);
+}
+
+template <bool LINEAR>
+cudaError_t set_smem(size_t smem) {
+  return cudaFuncSetAttribute(pack_kvt_kernel<LINEAR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// blocks of a launch: one a resident slot (with LINEAR, as many waves of
+// them as keep the runs to kMaxRun K blocks), at least one a (b, h) so
+// that no run spans more than two heads, at most one a K block
+template <bool LINEAR>
+int grid_size(int B, int H, int nK, int block_k) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = smem_bytes(block_k, LINEAR);
+  set_smem<LINEAR>(smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pack_kvt_kernel<LINEAR>, kThreads, smem);
+  const int total = B * H * nK, resident = std::max(1, n_sm * per_sm);
+  const int waves = LINEAR ? (total + resident * kMaxRun - 1) / (resident * kMaxRun) : 1;
+  return std::min(total, std::max(resident * waves, B * H));
+}
+
+}  // namespace k6
+
+// ---------------------------------------------------------------------------
+// K27
+// ---------------------------------------------------------------------------
+
+// One block per (b, h, K block): the int8 K rows go into the first half of
+// packed (B, H, Lp, 256) K|V rows and the V rows are copied beside them.
 __global__ void __launch_bounds__(kSqThreads)
 subquant_block_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ mu,
                       const int8_t* __restrict__ v, int8_t* __restrict__ kp,
-                      int8_t* __restrict__ vtp, float* __restrict__ ks, int H, int Lp,
-                      int block_k, int kv_len) {
-  constexpr int kRow = PACKED ? 2 * kDh : kDh;   // bytes between K rows of kp
-  __shared__ __align__(16) int8_t vtile[PACKED ? 16 : kMaxBlockK * kVTileStride];
+                      float* __restrict__ ks, int H, int Lp, int block_k, int kv_len) {
+  constexpr int kRow = 2 * kDh;                  // bytes between K rows of kp
   __shared__ float red[kSqThreads / 32];
   const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nK = Lp / block_k;
@@ -413,38 +816,14 @@ subquant_block_kernel(const __nv_bfloat16* __restrict__ k, const float* __restri
     *reinterpret_cast<uint2*>(kout + (size_t)r * kRow) = quant8(f, inv);
   }
 
+  // V rows beside K: 16-byte copies, neighbouring threads on neighbouring
+  // addresses
   const int8_t* vbase = v + (bh * Lp + row0) * kDh;
-  if constexpr (PACKED) {
-    // V rows beside K: 16-byte copies, neighbouring threads on neighbouring
-    // addresses
-    int8_t* vout = kp + (bh * Lp + row0) * kRow + kDh;
-    for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
-      const int r = u >> 3, c16 = u & 7;
-      *reinterpret_cast<uint4*>(vout + (size_t)r * kRow + c16 * 16) =
-          *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
-    }
-  } else {
-    // V block (block_k, 128) -> (128, block_k) through shared memory
-    for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
-      const int r = u >> 3, c16 = u & 7;
-      const uint4 val = *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(vtile + r * kVTileStride + c16 * 16);
-      dst[0] = val.x;
-      dst[1] = val.y;
-      dst[2] = val.z;
-      dst[3] = val.w;
-    }
-    __syncthreads();
-    int8_t* vout = vtp + (bh * nK + kb) * (size_t)kDh * block_k;
-    const int nq = block_k / 4;
-    for (int u = threadIdx.x; u < kDh * nq; u += kSqThreads) {
-      const int d = u / nq, jq = u % nq;
-      uint32_t word = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        word |= (uint32_t)(uint8_t)vtile[(jq * 4 + i) * kVTileStride + d] << (8 * i);
-      *reinterpret_cast<uint32_t*>(vout + (size_t)d * block_k + jq * 4) = word;
-    }
+  int8_t* vout = kp + (bh * Lp + row0) * kRow + kDh;
+  for (int u = threadIdx.x; u < block_k * 8; u += kSqThreads) {
+    const int r = u >> 3, c16 = u & 7;
+    *reinterpret_cast<uint4*>(vout + (size_t)r * kRow + c16 * 16) =
+        *reinterpret_cast<const uint4*>(vbase + (size_t)r * kDh + c16 * 16);
   }
 }
 
@@ -499,42 +878,27 @@ subquant_pack_kv_kernel(const __nv_bfloat16* __restrict__ k, const float* __rest
 
 constexpr int kUqWarps = 8;
 constexpr int kUqChunks = 16;      // 16-byte chunks a lane holds: K13, rows <= 4096 wide
-constexpr int kUqWideChunks = 20;  // K16, rows <= 5120 wide
+constexpr int kUqWideChunks = 20;  // K16: rows <= 5120 wide on one warp
+// warps a K16 row (1, 2 or 4): 2 hold 10 vectors a lane in 61 registers
+// (4: 5 vectors, 5% slower; 1: 20 vectors in 114 registers, 2 blocks an SM,
+// 32% slower; tools/time_k6_k16.py --design)
+constexpr int kWideRowWarps = 2;
 
-// 8 values -> 8 int8 as the wide TPU kernel rounds them: round-half-even(y /
-// scale) with an IEEE division, saturated to +-127.
-__device__ __forceinline__ uint2 quant8_div(const float* f, float scale) {
-  uint32_t w[2];
-#pragma unroll
-  for (int hw = 0; hw < 2; ++hw) {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int q = __float2int_rn(__fdiv_rn(f[4 * hw + i], scale));
-      q = max(-127, min(127, q));
-      acc |= (uint32_t)(q & 0xff) << (8 * i);
-    }
-    w[hw] = acc;
-  }
-  return make_uint2(w[0], w[1]);
-}
-
-// One warp per token row = b * L + l. Chunk c = lane + 32 i of the row is
-// head c / (Dh / 8), channels (c % (Dh / 8)) * 8 + [0, 8). DIVIDE: K16's rule
-// y / scale, else K13's y * (1 / scale).
-template <int NC, bool DIVIDE>
-__device__ __forceinline__ void unfold_quant_row(const __nv_bfloat16* __restrict__ planes,
-                                                 int8_t* __restrict__ xq, float* __restrict__ rs,
-                                                 int rows, int L, int Lp, int H, int Dh) {
+// One warp per token row = b * L + l (K13). Chunk c = lane + 32 i of the row
+// is head c / (Dh / 8), channels (c % (Dh / 8)) * 8 + [0, 8); K8's rule,
+// y * (1 / scale).
+__global__ void __launch_bounds__(kUqWarps * 32)
+unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
+                    float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kUqWarps + warp;
   if (row >= rows) return;
   const int b = row / L, l = row % L;
   const int cph = Dh / 8, n = H * cph;
-  uint4 u[NC];
+  uint4 u[kUqChunks];
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
+  for (int i = 0; i < kUqChunks; ++i) {
     const int c = lane + 32 * i;
     if (c >= n) break;
     const int h = c / cph;
@@ -550,26 +914,93 @@ __device__ __forceinline__ void unfold_quant_row(const __nv_bfloat16* __restrict
   const float inv = 1.f / scale;
   int8_t* qr = xq + (size_t)row * n * 8;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
+  for (int i = 0; i < kUqChunks; ++i) {
     const int c = lane + 32 * i;
     if (c >= n) break;
     float f[8];
     unpack8(u[i], f);
-    *reinterpret_cast<uint2*>(qr + c * 8) = DIVIDE ? quant8_div(f, scale) : quant8(f, inv);
+    *reinterpret_cast<uint2*>(qr + c * 8) = quant8(f, inv);
   }
   if (lane == 0) rs[row] = scale;
 }
 
-__global__ void __launch_bounds__(kUqWarps * 32)
-unfold_quant_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
-                    float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
-  unfold_quant_row<kUqChunks, false>(planes, xq, rs, rows, L, Lp, H, Dh);
+// 8 bf16 values (a packed vector) -> 8 int8 by the wide TPU kernel's rule,
+// q = round-half-even(fl(y / s)) saturated to +-127, without a division:
+// with inv = rcp_rn(s) (1/s rounded to nearest) and t = fl(y inv) (within an
+// ulp of y / s), r = y - t s is exact (one FMA) and fl(t + r inv) is the
+// quotient rounded to nearest (Markstein's correction step; checked against
+// the IEEE quotient for every bf16 y of |y / s| >= 2^-11 / 127 under every
+// bf16 amax in [1, 2), which covers all amax by scaling with powers of 2:
+// smaller quotients round to 0 either way), then rounded half to even by the
+// 1.5 * 2^23 FADD (warp_rows.cuh quant8_rn). 3 FMA-pipe instructions a value
+// where the division takes a call.
+__device__ __forceinline__ uint2 quant8_wide(const uint4& u, float s, float inv) {
+  uint32_t b[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 y = unpack2(word(u, k));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float yv = h ? y.y : y.x;
+      const float t = __fmul_rn(yv, inv);
+      const float q = fmaf(fmaf(-t, s, yv), inv, t);
+      b[2 * k + h] = __float_as_uint(__fadd_rn(fminf(fmaxf(q, -127.f), 127.f), 12582912.f));
+    }
+  }
+  return make_uint2(
+      __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410),
+      __byte_perm(__byte_perm(b[4], b[5], 0x0040), __byte_perm(b[6], b[7], 0x0040), 0x5410));
 }
 
+// K16: RW warps a token row = b * L + l; vector c = (i RW + wig) 32 + lane of
+// the row (a 32-vector span is two heads of 128) is head c / (Dh / 8),
+// channels (c % (Dh / 8)) * 8 + [0, 8). The absmax on packed bf16 pairs
+// (|y| by the sign bits cleared, exact); a wide row's warps exchange it once.
+template <int NC, int RW>
 __global__ void __launch_bounds__(kUqWarps * 32)
 unfold_quant_wide_kernel(const __nv_bfloat16* __restrict__ planes, int8_t* __restrict__ xq,
                          float* __restrict__ rs, int rows, int L, int Lp, int H, int Dh) {
-  unfold_quant_row<kUqWideChunks, true>(planes, xq, rs, rows, L, Lp, H, Dh);
+  __shared__ float xch[kUqWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp / RW, wig = warp % RW;
+  const int row = blockIdx.x * (kUqWarps / RW) + group;
+  if (row >= rows) return;                     // the row's warps alike
+  const int b = row / L, l = row - b * L;
+  const int cph = Dh / 8, n = H * cph;
+  uint4 u[NC];
+  __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = (i * RW + wig) * 32 + lane;
+    u[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (c < n) {
+      const int h = c / cph;
+      u[i] = load_vec(reinterpret_cast<const uint4*>(
+          planes + (((size_t)b * H + h) * Lp + l) * Dh + (c - h * cph) * 8));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t a = word(u[i], k) & 0x7fff7fffu;
+      m2 = __hmax2(m2, *reinterpret_cast<const __nv_bfloat162*>(&a));
+    }
+  }
+  const float2 mf = __bfloat1622float2(m2);
+  float amax = warp_max_nonneg(fmaxf(mf.x, mf.y));
+  if constexpr (RW > 1) {
+    if (lane == 0) xch[warp] = amax;
+    row_sync(group, RW);
+#pragma unroll
+    for (int r = 0; r < RW; ++r) amax = fmaxf(amax, xch[group * RW + r]);
+  }
+  const float scale = __fmul_rn(fmaxf(amax, 1e-8f), kInvInt8);
+  const float inv = rcp_rn(scale);
+  int8_t* qr = xq + (size_t)row * n * 8;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = (i * RW + wig) * 32 + lane;
+    if (c < n) store_vec8(reinterpret_cast<uint2*>(qr + c * 8), quant8_wide(u[i], scale, inv));
+  }
+  if (wig == 0 && lane == 0) rs[row] = scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -653,12 +1084,12 @@ extern "C" int tdx_unfold_quant(const void* planes, void* xq, void* rs, int B, i
 
 extern "C" int tdx_unfold_quant_wide(const void* planes, void* xq, void* rs, int B, int L,
                                      int Lp, int H, int Dh, void* stream) {
+  constexpr int kNc = kUqWideChunks / kWideRowWarps, kRows = kUqWarps / kWideRowWarps;
   if (Dh % 8 || H * Dh > kUqWideChunks * 32 * 8 || L > Lp) return (int)cudaErrorInvalidValue;
   const int rows = B * L;
-  unfold_quant_wide_kernel<<<(rows + kUqWarps - 1) / kUqWarps, kUqWarps * 32, 0,
-                             (cudaStream_t)stream>>>((const __nv_bfloat16*)planes,
-                                                     (int8_t*)xq, (float*)rs, rows, L, Lp,
-                                                     H, Dh);
+  unfold_quant_wide_kernel<kNc, kWideRowWarps><<<(rows + kRows - 1) / kRows, kUqWarps * 32, 0,
+                                                 (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)planes, (int8_t*)xq, (float*)rs, rows, L, Lp, H, Dh);
   return (int)cudaGetLastError();
 }
 
@@ -698,14 +1129,45 @@ extern "C" int tdx_head_planes(const void* x, const void* w, const void* ri,
                                     (cudaStream_t)stream);
 }
 
-extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* v,
-                                     void* kp, void* vtp, void* ks, int B, int H,
-                                     int Lp, int block_k, int kv_len, void* stream) {
-  if (block_k > kMaxBlockK || block_k % 64) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Lp / block_k, H, B);
-  subquant_block_kernel<false><<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kp,
-      (int8_t*)vtp, (float*)ks, H, Lp, block_k, kv_len);
+// blocks of a K6 launch (the partials' slots are 2 a block), 0 for a shape
+// the kernel refuses
+extern "C" int tdx_subquant_pack_kvt_grid(int B, int H, int Lp, int block_k, int linear_kv) {
+  if (!k6::shape_ok(B, H, Lp, block_k)) return 0;
+  return linear_kv ? k6::grid_size<true>(B, H, Lp / block_k, block_k)
+                   : k6::grid_size<false>(B, H, Lp / block_k, block_k);
+}
+
+// `grid` blocks, as tdx_subquant_pack_kvt_grid gives them (any count from
+// B H to the K blocks is correct; another is refused); part holds 2 x grid
+// partials of (128 + 1) x 128 floats. kv, ksum and part all null: the
+// linear branch is off
+extern "C" int tdx_subquant_pack_kvt(const void* k, const void* mu, const void* v, void* kp,
+                                     void* vtp, void* ks, void* part, void* kv, void* ksum,
+                                     int B, int H, int Lp, int block_k, int kv_len, int grid,
+                                     void* stream) {
+  const bool linear = kv != nullptr;
+  if (!k6::shape_ok(B, H, Lp, block_k) || kv_len <= 0 || kv_len > Lp ||
+      grid < B * H || grid > B * H * (Lp / block_k) || (ksum != nullptr) != linear ||
+      (part != nullptr) != linear)
+    return (int)cudaErrorInvalidValue;
+  const int nK = Lp / block_k, total = B * H * nK;
+  const size_t smem = k6::smem_bytes(block_k, linear);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = linear ? k6::set_smem<true>(smem) : k6::set_smem<false>(smem);
+  if (err) return (int)err;
+  if (linear)
+    k6::pack_kvt_kernel<true><<<grid, k6::kThreads, smem, st>>>(
+        (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kp, (int8_t*)vtp,
+        (float*)ks, (float*)part, nK, block_k, kv_len, total);
+  else
+    k6::pack_kvt_kernel<false><<<grid, k6::kThreads, smem, st>>>(
+        (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kp, (int8_t*)vtp,
+        (float*)ks, nullptr, nK, block_k, kv_len, total);
+  err = cudaGetLastError();
+  if (err || !linear) return (int)err;
+  const dim3 rgrid((k6::kSlot / 4 + k6::kReduceThreads - 1) / k6::kReduceThreads, B * H);
+  k6::kv_reduce_kernel<<<rgrid, k6::kReduceThreads, 0, st>>>(
+      (const float*)part, (float*)kv, (float*)ksum, nK, total, grid);
   return (int)cudaGetLastError();
 }
 
@@ -714,9 +1176,9 @@ extern "C" int tdx_subquant_pack_kv_blocks(const void* k, const void* mu, const 
                                            int block_k, int kv_len, void* stream) {
   if (block_k <= 0 || block_k % 64 || Lp % block_k) return (int)cudaErrorInvalidValue;
   const dim3 grid(Lp / block_k, H, B);
-  subquant_block_kernel<true><<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kvi, nullptr,
-      (float*)ks, H, Lp, block_k, kv_len);
+  subquant_block_kernel<<<grid, kSqThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const float*)mu, (const int8_t*)v, (int8_t*)kvi, (float*)ks, H,
+      Lp, block_k, kv_len);
   return (int)cudaGetLastError();
 }
 

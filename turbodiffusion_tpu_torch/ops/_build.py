@@ -99,17 +99,21 @@ SIGNATURES = {
     "tdx_head_planes_form": [_P] * 7 + [_I64, _I],
     # x, out, x row stride, rows, W, eps, stream
     "tdx_row_rms_inv": [_P, _P, _I64, _I, _I, _F, _P],
-    # k, mu, v, kp, vtp, ks, B, H, Lp, block_k, kv_len, stream
-    "tdx_subquant_pack_kvt": [_P] * 6 + [_I] * 5 + [_P],
+    # k, mu, v, kp, vtp, ks, partials, kv, ksum (the last three null: the
+    # linear branch off), B, H, Lp, block_k, kv_len, blocks (the partials' 2 x
+    # blocks slots), stream
+    "tdx_subquant_pack_kvt": [_P] * 9 + [_I] * 6 + [_P],
+    # blocks of a K6 launch (0: refused): B, H, Lp, block_k, linear_kv
+    "tdx_subquant_pack_kvt_grid": [_I] * 5,
     # k, mu, v, kvi, ks, B*H, Lp, stream
     "tdx_subquant_pack_kv": [_P] * 5 + [_I] * 2 + [_P],
     # k, mu, v, kvi, block scales, B, H, Lp, block_k, kv_len, stream (K27)
     "tdx_subquant_pack_kv_blocks": [_P] * 5 + [_I] * 5 + [_P],
     # planes, mu, int8 planes, row scales, B*H, Lp, stream (K29)
     "tdx_subquant_planes": [_P] * 4 + [_I] * 2 + [_P],
-    # k, v, partials, kv, ksum, B, H, kv_len, n_chunks, v is int8,
+    # k, v, partials, kv, ksum, B, H, kv_len, n_chunks,
     # 6 strides (k, v: batch, head, row), stream
-    "tdx_linear_kv": [_P] * 5 + [_I] * 5 + [_I64] * 6 + [_P],
+    "tdx_linear_kv": [_P] * 5 + [_I] * 4 + [_I64] * 6 + [_P],
     # q, kvw, ksum, bias, out, B, H, Lq, 6 strides (q, out: batch, head,
     # row), stream
     "tdx_linear_apply": [_P] * 5 + [_I] * 3 + [_I64] * 6 + [_P],

@@ -21,9 +21,9 @@ fp32:
   o = phi(q) @ kvw / (1e-5 + phi(q) . ksum) + b.
 Rows of q past the true length are garbage in, garbage out.
 
-The kv pass is K6's linear sums (csrc/linear_attention.cu, templated on
-V's type: bf16 here, int8 for K6): per-2048-row partials, then an ordered
-sum. Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
+The kv pass (csrc/linear_attention.cu): per-2048-row partials, then an
+ordered sum (K6 folds the same sums for int8 V into its own K/V walk).
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. `_linear_projected_cuda.launches` counts the calls
 (two launches each: the kv pass with its reduce, then the apply).
 `linear_attention_projected` is differentiable (an autograd Function whose
@@ -108,17 +108,16 @@ def _check_rows(name: str, *ts):
 
 
 def _linear_kv_sums(k, v, kv_len: int):
-    """The kv pass (K6's linear sums, K21's first pass): (B, H, L, D) bf16 k
-    and bf16 or int8 v views -> (kv (B, H, D, D), ksum (B, H, 1, D)) fp32.
-    Not counted here: its caller's launcher counts."""
+    """K21's kv pass: (B, H, L, D) bf16 k and v views -> (kv (B, H, D, D),
+    ksum (B, H, 1, D)) fp32. Not counted here: its caller's launcher
+    counts."""
     B, H, L, D = k.shape
     dev = k.device
     _require(D == 128 and k.dtype == torch.bfloat16,
              f"the linear kv pass takes bf16 k of head dim 128, got {k.dtype} "
              f"{D}")
-    _require(v.shape == k.shape and v.device == dev
-             and v.dtype in (torch.bfloat16, torch.int8),
-             "the linear kv pass takes bf16 or int8 v shaped like k")
+    _require(v.shape == k.shape and v.device == dev and v.dtype == torch.bfloat16,
+             "the linear kv pass takes bf16 v shaped like k")
     _require(0 < kv_len <= L, f"kv_len {kv_len} out of range")
     _check_rows("the linear kv pass", k, v)
     n_chunks = _cdiv(kv_len, _LIN_ROWS)
@@ -128,8 +127,8 @@ def _linear_kv_sums(k, v, kv_len: int):
     ksum = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
     rc = _build.load().tdx_linear_kv(
         k.data_ptr(), v.data_ptr(), part.data_ptr(), kv.data_ptr(),
-        ksum.data_ptr(), B, H, kv_len, n_chunks, int(v.dtype == torch.int8),
-        *_strides3(k), *_strides3(v), _build.stream_ptr(k))
+        ksum.data_ptr(), B, H, kv_len, n_chunks, *_strides3(k), *_strides3(v),
+        _build.stream_ptr(k))
     _build.check(rc, "tdx_linear_kv")
     return kv, ksum
 

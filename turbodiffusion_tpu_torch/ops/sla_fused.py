@@ -24,7 +24,9 @@ single-chip path that `ops/attention.sla_attention_fused` takes:
     `subquant_pack_kvt` (launch :455, body `_subquant_pack_kvt_kernel`
     :351-409): smooth-k subtract + per-block int8 K, the per-block
     transposed V panel, and (linear_kv) the SLA linear branch's kv / ksum
-    sums (csrc/linear_attention.cu, shared with K21);
+    sums, in one walk over K and V (the kv product on the tensor cores; a
+    block's runs of K blocks are `kvt_runs`, their partials added in run
+    order by a second, small launch);
   * `subquant_pack_kv` — K18 `_subquant_pack_kv_cuda` replaces
     `subquant_pack_kv` in its per-row mode (launch :501, body
     `_subquant_pack_kernel` :313-348 with block_k 0), the `v_quant="row"`
@@ -47,7 +49,9 @@ single-chip path that `ops/attention.sla_attention_fused` takes:
     `unfold_planes`' rows bit for bit); above H*Dh 4096, K16
     `_unfold_quant_wide_cuda` replaces its wide form (launches :608 and
     :619, bodies `_unfold_scale_kernel` / `_unfold_write_kernel` :565-592)
-    in one launch, with that form's rule `y / scale`;
+    in one launch, with that form's rule `y / scale` (kept bit for bit
+    without a division: the product with 1/scale and one FMA residual
+    step);
   * `unfold_planes` (:646-649) — plain torch.
 
 Rows in [L, Lp) of the outputs: the JAX kernels leave them unwritten; here
@@ -62,6 +66,7 @@ kernel (csrc/sla_fused.cu) or raises. Each launcher counts its launches in
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -69,8 +74,7 @@ import torch
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
 from turbodiffusion_tpu_torch.ops.fused_norm import _row_stride
-from turbodiffusion_tpu_torch.ops.linear_attention import (
-    _linear_kv_sums, _softmax_d)
+from turbodiffusion_tpu_torch.ops.linear_attention import _softmax_d
 from turbodiffusion_tpu_torch.ops.quant import quantize_rows_int8_plain
 
 INT8_MAX = 127.0
@@ -80,6 +84,12 @@ _HP_ROWS = 64
 _HP_MAX_HEADS = 64
 # widest row of the narrow unfold_quant (K13); K16 takes up to 5120
 _UNFOLD_NARROW_MAX, _UNFOLD_WIDE_MAX = 4096, 5120
+# K6 (csrc/sla_fused.cu k6::): the largest block_k, the floats of a run's
+# partial sums of one head (128 kv rows of 128, then ksum), the most K
+# blocks a run sums with the linear branch
+_KVT_MAX_BLOCK = 256
+_KVT_SLOT = (128 + 1) * 128
+_KVT_MAX_RUN = 24
 
 
 def _quant_rows(yf):
@@ -375,9 +385,49 @@ def subquant_pack_kvt_plain(k_planes, mu, v_i8, block_k: int,
     return res
 
 
+def kvt_grid(B: int, H: int, Lp: int, block_k: int, resident: int,
+             linear_kv: bool = True) -> int:
+    """Blocks of a K6 launch (csrc/sla_fused.cu `k6::grid_size`): one a
+    resident block (`resident`: SMs x blocks an SM; with linear_kv, as many
+    waves of them as keep each run to `_KVT_MAX_RUN` K blocks), at least
+    one a (b, h), so that no run spans more than two heads, at most one a
+    K block."""
+    total = B * H * (Lp // block_k)
+    resident = max(1, resident)
+    waves = -(-total // (resident * _KVT_MAX_RUN)) if linear_kv else 1
+    return min(total, max(resident * waves, B * H))
+
+
+def kvt_runs(total: int, grid: int) -> list:
+    """[(first, end)) of the flat K blocks (b, h, K block in order) each of
+    K6's `grid` blocks walks (`k6::run_start`): floor(i total / grid)."""
+    return [(i * total // grid, (i + 1) * total // grid) for i in range(grid)]
+
+
+def kvt_partials(B: int, H: int, nK: int, grid: int) -> list:
+    """For each (b, h), the (block, slot) of its partial sums in run order,
+    as `k6::kv_reduce_kernel` adds them: slot 0 for a run's first head, 1
+    for a second."""
+    runs = kvt_runs(B * H * nK, grid)
+    out = [[] for _ in range(B * H)]
+    for i, (a, e) in enumerate(runs):
+        for bh in range(a // nK, (e - 1) // nK + 1):
+            out[bh].append((i, 0 if bh == a // nK else 1))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _kvt_grid_on_card(device: int, B: int, H: int, Lp: int, block_k: int,
+                      linear_kv: bool) -> int:
+    with torch.cuda.device(device):
+        return _build.load().tdx_subquant_pack_kvt_grid(B, H, Lp, block_k,
+                                                         int(linear_kv))
+
+
 def _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k: int, kv_len: int,
                             linear_kv: bool):
-    """Launch K6 (and, with linear_kv, its two-pass kv / ksum sums)."""
+    """Launch K6: one walk over K and V, and with linear_kv the reduce of
+    its runs' partial kv / ksum sums."""
     B, H, Lp, D = k_planes.shape
     dev = k_planes.device
     _require(k_planes.dtype == torch.bfloat16 and k_planes.is_contiguous(),
@@ -386,26 +436,38 @@ def _subquant_pack_kvt_cuda(k_planes, mu, v_i8, block_k: int, kv_len: int,
     _require(v_i8.dtype == torch.int8 and v_i8.is_contiguous()
              and v_i8.shape == k_planes.shape and v_i8.device == dev,
              "K6 takes contiguous int8 V planes shaped like K")
-    _require(block_k % 64 == 0 and 64 <= block_k <= 256 and Lp % block_k == 0,
-             f"K6 takes a block of 64-256 rows dividing Lp, got {block_k}")
+    _require(block_k % 64 == 0 and 64 <= block_k <= _KVT_MAX_BLOCK
+             and Lp % block_k == 0,
+             f"K6 takes a block of 64-{_KVT_MAX_BLOCK} rows dividing Lp, got "
+             f"{block_k}")
     _require(0 < kv_len <= Lp, f"kv_len {kv_len} out of range")
     mu = mu.float().contiguous()
     _require(mu.numel() == B * H * D and mu.device == dev,
              "K6 mu must be (B, H, 1, D) on K's device")
     nK = Lp // block_k
+    grid = _kvt_grid_on_card(dev.index if dev.index is not None
+                             else torch.cuda.current_device(), B, H, Lp, block_k,
+                             linear_kv)
+    _require(grid > 0, f"K6 refuses planes {tuple(k_planes.shape)}")
     kp = torch.empty_like(v_i8)
     vtp = torch.empty((B, H, nK, D, block_k), dtype=torch.int8, device=dev)
     ks = torch.empty((B, H, nK), dtype=torch.float32, device=dev)
+    part = kv = ksum = None
+    if linear_kv:
+        part = torch.empty((2 * grid, _KVT_SLOT), dtype=torch.float32, device=dev)
+        kv = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+        ksum = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = _build.load().tdx_subquant_pack_kvt(
         k_planes.data_ptr(), mu.data_ptr(), v_i8.data_ptr(), kp.data_ptr(),
-        vtp.data_ptr(), ks.data_ptr(), B, H, Lp, block_k, kv_len,
-        _build.stream_ptr(k_planes))
+        vtp.data_ptr(), ks.data_ptr(), ptr(part), ptr(kv), ptr(ksum), B, H, Lp,
+        block_k, kv_len, grid, _build.stream_ptr(k_planes))
     _build.check(rc, "tdx_subquant_pack_kvt")
-    res = (kp, vtp, ks)
-    if linear_kv:
-        res += _linear_kv_sums(k_planes, v_i8, kv_len)
     _subquant_pack_kvt_cuda.launches += 1
-    return res
+    return (kp, vtp, ks) + ((kv, ksum) if linear_kv else ())
 
 
 _subquant_pack_kvt_cuda.launches = 0
