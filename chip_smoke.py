@@ -108,7 +108,8 @@ Phases, each printing one line of its numbers:
      share of the tolerance printed; then K25 / K26,
      forward-mode attention (o and its tangent do), at the training shape:
      K25 self 32,760 x 32,760 and cross 32,760 x 512, K26 at 512/256 with
-     12 of 128 K-blocks (q of std 3, tangents the size of the primals, NaN
+     12 of 128 K-blocks, all three in the wgmma form, and K26 at 64/64 (51
+     of 512 K-blocks) in its mma.sync form (q of std 3, tangents the size of the primals, NaN
      in the rows past each length; atol 0.1 + rtol 2e-2; planted faults: mu left out of do, P dv
      left out, q dk^T left out of dS, K26's last LUT entry dropped; two runs
      bit-equal; no library call: the SDPA forward of the shape beside them);
@@ -150,7 +151,7 @@ Phases, each printing one line of its numbers:
      zero `proj_l`); then one 1.3B `original` and one `sla` block (proj_l !=
      0) in the sCM tangent pass (forward AD, `jvp_mode`), card (K25, K26)
      against CPU: o and do each within 5% relative L2, launches exactly K25
-     2 (dense) or K26 1 + K25 1 (sla);
+     2 (dense) or K26 1 + K25 1 (sla), each in the wgmma form;
   4. the paths: `WanPipeline.create(..., attention_type="sagesla",
      quant_linear=True)` with random weights and two 480p/81f 4-step
      `generate_t2v` requests, then one request each of bf16 `sagesla` and
@@ -594,7 +595,7 @@ def phase1():
 _ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel",
                 "unfold_quant_wide_kernel", "k6::kv_reduce_kernel")
 _WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel",
-                  "k6::pack_kvt_kernel")
+                  "k6::pack_kvt_kernel", "k25::jvp_fwd_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2514,9 +2515,12 @@ def _jvp_checks(randn, sdpa):
     JVP_ATOL + rtol 2e-2. Planted faults each check must reject: mu left out of do (the plain version so
     changed), P dv left out (the kernel with dv = 0), q dk^T left out of dS
     (the kernel with dk = 0) and, for K26, the last LUT entry of every row
-    dropped. No PyTorch call computes an attention JVP: the SDPA forward of
-    the shape stands beside each for scale. Returns (checks, a function of
-    the further check: two runs of each kernel bit-equal)."""
+    dropped. Each check asserts the form its first launch took (the
+    launcher's `.last_form`): K25 and K26 at 512/256 the wgmma kernel; K26 also at blocks 64/64 (51 of 512 K
+    blocks), the mma.sync loop. No PyTorch call computes an attention JVP:
+    the SDPA forward of the shape stands beside each for scale. Returns
+    (checks, a function of the further check: two runs of each kernel
+    bit-equal)."""
     import torch
     from turbodiffusion_tpu_torch.ops import flash_jvp as fj
     from turbodiffusion_tpu_torch.ops.attention import get_block_map
@@ -2560,50 +2564,71 @@ def _jvp_checks(randn, sdpa):
             return fj._flash_jvp_cuda(q, k, v, dq, dk_, dv_, scale, n)
         return kern
 
-    def sparse(dk=None, dv=None, mu=True, lut_=lut):
-        k, v, dk_, dv_ = self_kv
-        dk_ = dk_ if dk is None else torch.zeros_like(dk_)
-        dv_ = dv_ if dv is None else torch.zeros_like(dv_)
-        if not mu:
-            return fj.sparse_flash_attention_jvp_plain(
-                q, k, v, dq, dk_, dv_, lut_, BQ, BK, scale, L)
-        return fj._sparse_flash_jvp_cuda(q, k, v, dq, dk_, dv_, lut_, BQ, BK,
-                                         scale, L)
+    def sparse_at(lut0, bq, bk):
+        def kern(dk=None, dv=None, mu=True, lut_=lut0):
+            k, v, dk_, dv_ = self_kv
+            dk_ = dk_ if dk is None else torch.zeros_like(dk_)
+            dv_ = dv_ if dv is None else torch.zeros_like(dv_)
+            if not mu:
+                return fj.sparse_flash_attention_jvp_plain(
+                    q, k, v, dq, dk_, dv_, lut_, bq, bk, scale, L)
+            return fj._sparse_flash_jvp_cuda(q, k, v, dq, dk_, dv_, lut_, bq,
+                                             bk, scale, L)
+        return kern
 
+    sparse = sparse_at(lut, BQ, BK)
+    lut64 = get_block_map(q, self_kv[0], TOPK, 64, 64)[1]
+    sparse64 = sparse_at(lut64, 64, 64)
     k_self, k_text = dense(self_kv, L), dense(text_kv, TEXT)
+
+    def form_of(kern, launcher, want, what):
+        kern()                        # one launch, for the form it takes
+        return _form(launcher.last_form, want, what)
+
+    form_self = form_of(k_self, fj._flash_jvp_cuda, "wgmma", "K25 self")
+    form_text = form_of(k_text, fj._flash_jvp_cuda, "wgmma", "K25 cross")
+    form26 = form_of(sparse, fj._sparse_flash_jvp_cuda, "wgmma", f"K26 at {BQ}/{BK}")
+    form64 = form_of(sparse64, fj._sparse_flash_jvp_cuda, "mma", "K26 at 64/64")
     ops25 = lambda lk: {"bf16": 12 * B * HEADS * L * lk * DH}   # noqa: E731
     scale_sdpa = lambda kv: {"SDPA forward, for scale": sdpa(q, *kv[:2])}  # noqa: E731
     sel = lut.shape[-1]
     checks = [
-        Check("K25", f"dense self {L}x{L} (o, do), rows past L NaN", k_self,
+        Check("K25", f"dense self {L}x{L} (o, do), rows past L NaN {form_self}", k_self,
               lambda: fj.flash_attention_jvp_plain(q, *self_kv[:2], dq,
                                                    *self_kv[2:], scale, L),
               (q, dq, *self_kv), ops25(L), yardsticks=scale_sdpa(self_kv),
               atol=JVP_ATOL, faults=faults(k_self)),
-        Check("K25", f"cross {L}x{TEXT} (o, do)", k_text,
+        Check("K25", f"cross {L}x{TEXT} (o, do) {form_text}", k_text,
               lambda: fj.flash_attention_jvp_plain(q, *text_kv[:2], dq,
                                                    *text_kv[2:], scale, TEXT),
               (q, dq, *text_kv), ops25(TEXT), yardsticks=scale_sdpa(text_kv),
               atol=JVP_ATOL, faults=faults(k_text)),
-        Check("K26", f"sparse {sel}/{-(-L // BK)} blocks {BQ}/{BK} (o, do)",
+        Check("K26", f"sparse {sel}/{-(-L // BK)} blocks {BQ}/{BK} (o, do) {form26}",
               sparse, lambda: fj.sparse_flash_attention_jvp_plain(
                   q, *self_kv[:2], dq, *self_kv[2:], lut, BQ, BK, scale, L),
               (q, dq, *self_kv, lut), {"bf16": 12 * DH * pairs},
               yardsticks=scale_sdpa(self_kv), atol=JVP_ATOL,
               faults={**faults(sparse), "last LUT entry of every row dropped":
                       lambda: sparse(lut_=lut[..., :-1].contiguous())}),
+        Check("K26", f"sparse {lut64.shape[-1]}/{-(-L // 64)} blocks 64/64 (o, do) {form64}",
+              sparse64, lambda: fj.sparse_flash_attention_jvp_plain(
+                  q, *self_kv[:2], dq, *self_kv[2:], lut64, 64, 64, scale, L),
+              (q, dq, *self_kv, lut64),
+              {"bf16": 12 * DH * _sparse_pairs(lut64, 64, 64, L, L)}, atol=JVP_ATOL,
+              faults={**faults(sparse64), "last LUT entry of every row dropped":
+                      lambda: sparse64(lut_=lut64[..., :-1].contiguous())}),
     ]
 
     def extra():
         for name, kern in (("K25 self", k_self), ("K25 cross", k_text),
-                           ("K26", sparse)):
+                           ("K26", sparse), ("K26 at 64/64", sparse64)):
             a, b = kern(), kern()
             torch.cuda.synchronize()
             if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
                 raise AssertionError(f"{name}: two runs differ")
         print("phase2 K25/K26 stability: two runs of each (self, cross, "
-              "sparse) bit-equal, with NaN in the rows past each length",
-              flush=True)
+              "sparse 512/256 and 64/64) bit-equal, with NaN in the rows past "
+              "each length", flush=True)
     return checks, extra
 
 
@@ -3063,13 +3088,23 @@ def phase3_jvp(attention: str, device: str = "cuda"):
     if counts != expect:
         raise AssertionError(f"phase3 jvp {attention} launches {counts} != "
                              f"{expect}")
+    forms = _jvp_forms(launchers, counts)
     print(f"phase3 {G13.model} {attention} block, sCM tangent pass L={n}"
           f"{' (proj_l != 0)' if sla else ''}: o relative L2 error "
           f"{rel['o']:.4g}, do {rel['do']:.4g} (tol {JVP_REL}; |do| mean "
           f"{float(want[1].float().abs().mean()):.4g}; Q-blocks left out: "
           f"{bad_q}) | card {ms_gpu:.1f} ms, CPU plain {ms_cpu:.1f} ms | "
-          f"launches {counts}", flush=True)
+          f"launches {counts} | forms {forms}", flush=True)
     return counts
+
+
+def _jvp_forms(launchers, counts) -> dict:
+    """The form of K25's and K26's last launch where `counts` has them; each
+    must be the wgmma kernel (every path runs 512/256)."""
+    forms = {n: launchers[n].last_form for n in ("K25", "K26") if counts.get(n)}
+    if any(f != "wgmma" for f in forms.values()):
+        raise AssertionError(f"K25/K26 took {forms}, not the wgmma form")
+    return forms
 
 
 def _write_checkpoint(directory: str, block_scale: bool = True):
@@ -3513,6 +3548,7 @@ def _distill_probe(label: str, launches, profile_iteration=None):
                 raise AssertionError(f"phase6 {label} iteration {it} ({phase}): "
                                      f"launches {counts} != {want}")
             self.counts[phase] = {n: c for n, c in counts.items() if c}
+            forms = _jvp_forms(launchers, counts)
             keys = ("loss_cm", "loss_dmd") if student else ("loss_critic",)
             losses = {k: float(metrics[k]) for k in keys}
             if not all(math.isfinite(v) for v in losses.values()):
@@ -3534,7 +3570,8 @@ def _distill_probe(label: str, launches, profile_iteration=None):
                     + " ".join(f"{k} {v:.6g}" for k, v in losses.items())
                     + f" | grad norm {float(metrics['grad_norm']):.4g} | peak "
                     f"{self.peaks[-1]:.2f} GiB | watched tensors moved "
-                    f"{moved} | launches {self.counts[phase]}")
+                    f"{moved} | launches {self.counts[phase]}"
+                    + (f" | forms {forms}" if forms else ""))
             if self.prof is not None:
                 self.prof.__exit__(None, None, None)
                 line += (f"\nphase6 {label} profile of iteration {it}: "
@@ -3650,7 +3687,9 @@ PROFILE_CATEGORIES = [
     ("K10", ("w8a8_ffn_kernel<1>",)), ("K11", ("w8a8_ffn_kernel<2>",)),
     ("K22", ("block_gemm_kernel",)),
     ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
-    ("K25", ("flash_jvp_kernel<false>",)), ("K26", ("flash_jvp_kernel<true>",)),
+    # K25 and K26 in either form (the wgmma kernel, or K26's mma.sync loop)
+    ("K25", ("jvp_fwd_kernel<false>",)),
+    ("K26", ("jvp_fwd_kernel<true>", "sparse_jvp_mma_kernel")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")),
     ("top-k/sort", ("topk", "sort", "radix")), ("reduce", ("reduce",)),

@@ -162,3 +162,51 @@ def test_jvp_launchers_refuse_what_they_do_not_take():
         fj._sparse_flash_jvp_cuda(*arrs, lut, 32, 64, 0.125, 64)
     with pytest.raises(ValueError, match="no kernel for device"):
         fj.dense_jvp_pair(*(a.to("meta") for a in arrs), 0.125, 64)
+
+
+# the strides (elements) of a launch's q, k, v, dq, dk, dv, o, do by batch,
+# token, head: contiguous (B, 1100, 12, 128) tensors; q, k, v as column views
+# of a fused (B, 1100, 3, 12, 128) buffer; a head stride off 16 bytes (132
+# channels a head); a token stride of 1540 elements (off 16 bytes by 8)
+_CONTIG = [1100 * 1536, 1536, 128]
+_FUSED = [3 * 1100 * 1536, 3 * 1536, 128]
+_STRIDES = {"contiguous": _CONTIG * 8, "fused": _FUSED * 3 + _CONTIG * 5,
+            "head 132": [1100 * 12 * 132, 12 * 132, 132] + _CONTIG * 7,
+            "token 1540": _CONTIG * 3 + [1100 * 1540, 1540, 128] + _CONTIG * 4}
+
+
+@pytest.mark.parametrize("block_q,block_k,kv_len,strides,want", [
+    (0, 0, 32760, "contiguous", "wgmma"),       # K25 self
+    (0, 0, 512, "fused", "wgmma"),              # K25 cross, fused-QKV views
+    (0, 0, 77, "contiguous", "wgmma"),          # a ragged kv_len
+    (512, 256, 32760, "contiguous", "wgmma"),   # K26 as every path runs it
+    (512, 256, 1100, "fused", "wgmma"),
+    (512, 64, 32760, "contiguous", "wgmma"),    # sla at --sla_block 64
+    (128, 64, 300, "contiguous", "wgmma"),
+    (256, 192, 1000, "contiguous", "wgmma"),
+    (64, 64, 32760, "contiguous", "mma"),       # a 128-row tile spans two Q blocks
+    (192, 256, 1100, "fused", "mma"),
+    (320, 64, 77, "contiguous", "mma"),
+    (512, 100, 1100, "contiguous", "multiples of 64"),
+    (96, 64, 1100, "contiguous", "multiples of 64"),
+    (0, 64, 1100, "contiguous", "multiples of 64"),
+    (512, 0, 1100, "contiguous", "multiples of 64"),
+    (-128, 64, 1100, "contiguous", "multiples of 64"),
+    (512, 256, 0, "contiguous", "kv_len > 0"),
+    (0, 0, 0, "contiguous", "kv_len > 0"),
+    (512, 256, 1100, "head 132", "16-byte"),
+    (0, 0, 1100, "token 1540", "16-byte"),
+    (64, 64, 1100, "head 132", "16-byte"),
+])
+def test_jvp_form_names_the_kernel_or_refuses(block_q, block_k, kv_len,
+                                              strides, want):
+    """`jvp_form` (the C entry's `jvp_form` rule, which the card test holds
+    it to): the wgmma kernel for the dense launch and for block_q a multiple
+    of 128, the mma.sync loop for block_q an odd multiple of 64, a refusal
+    for other blocks, no key or a stride off 16 bytes."""
+    st = _STRIDES[strides]
+    if want in ("wgmma", "mma"):
+        assert fj.jvp_form(block_q, block_k, kv_len, *st) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            fj.jvp_form(block_q, block_k, kv_len, *st)

@@ -313,8 +313,9 @@ def test_form_functions_agree_with_the_c_entries(dev):
     over widths, head dims, row strides and pointer offsets (the queries
     read pointers as numbers only); `fa.sparse_flash_form`,
     `fa.sparse_flash_i8qk_form`, `si8.sparse_i8_planes_form` and
-    `si8.sparse_i8_planes_bs_form` the form (or the refusal) of K3's,
-    K20's, K19's and K28's C queries, over blocks, lengths and strides."""
+    `si8.sparse_i8_planes_bs_form` and `fj.jvp_form` the form (or the
+    refusal) of K3's, K20's, K19's, K28's and K25 / K26's C queries, over
+    blocks, lengths and strides."""
     from turbodiffusion_tpu_torch.ops import _build
     lib = _build.load()
     base = 1 << 20
@@ -357,6 +358,18 @@ def test_form_functions_agree_with_the_c_entries(dev):
                     assert py_form(fa.sparse_flash_i8qk_form, bq, bk, kv_len, Lk, *st) == \
                         lib.tdx_sparse_flash_attention_i8qk_form(bq, bk, kv_len, Lk, arr), \
                         (bq, bk, kv_len, Lk, st)
+    # K25 / K26: blocks 0 / 0 are the dense launch
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    contig, fused = [L * 1536, 1536, 128], [3 * L * 1536, 3 * 1536, 128]
+    for bq, bk in ((0, 0), (512, 256), (512, 64), (128, 64), (256, 192), (64, 64),
+                   (192, 256), (320, 64), (96, 64), (512, 100), (0, 256), (512, 0)):
+        for kv_len in (L, 900, 77, 1, 0):
+            for st in (contig * 8, fused * 3 + contig * 5,
+                       [L * 12 * 132, 12 * 132, 132] + contig * 7,
+                       contig * 7 + [L * 1540, 1540, 128]):
+                arr = (ctypes.c_int64 * 24)(*st)
+                assert py_form(fj.jvp_form, bq, bk, kv_len, *st) == \
+                    lib.tdx_flash_attention_jvp_form(bq, bk, kv_len, arr), (bq, bk, kv_len, st)
     LP = 32768
     for bq, bk in ((512, 256), (512, 128), (128, 128), (512, 64), (128, 64), (64, 64),
                    (192, 256), (96, 64), (512, 100)):
@@ -2029,20 +2042,28 @@ def _close_do(got, want):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
-def _jvp_operands(dev, L, Lk, seed):
-    """q, k, v, dq, dk, dv (1, L or Lk, HEADS, 128) bf16 views into buffers
-    whose rows past their length hold NaN."""
+def _jvp_operands(dev, L, Lk, seed, B=1, fused=False):
+    """q, k, v, dq, dk, dv (B, L or Lk, HEADS, 128) bf16 views into buffers
+    whose rows past their length hold NaN; with `fused` (L == Lk) q, k, v are
+    the column groups of one (B, L + 64, 3, HEADS, 128) buffer."""
     out = []
     for i, (n, std) in enumerate(((L, 3.0), (Lk, 1.0), (Lk, 1.0), (L, 1.0),
                                   (Lk, 1.0), (Lk, 1.0))):
-        t = _randn(dev, 1, n + 64, HEADS, DH, seed=seed + i, std=std).bfloat16()
+        t = _randn(dev, B, n + 64, HEADS, DH, seed=seed + i, std=std).bfloat16()
         t[:, n:] = float("nan")
         out.append(t[:, :n])
+    if fused:
+        assert L == Lk
+        qkv = torch.stack([t.float() for t in out[:3]], 2)       # (B, L, 3, H, D)
+        buf = torch.full((B, L + 64, 3, HEADS, DH), float("nan"), device=dev)
+        buf[:, :L] = qkv
+        buf = buf.bfloat16()
+        out[:3] = [buf[:, :L, i] for i in range(3)]
     return out
 
 
 def _mu_hat(q, k, dq, dk, kv_len, lut=None, bq=None, bk=None):
-    """rowsum(softmax(S) dS), (1, L, HEADS, 1) fp32: what do subtracts times
+    """rowsum(softmax(S) dS), (B, L, HEADS, 1) fp32: what do subtracts times
     o. Dense, or over the K-blocks the LUT selects."""
     scale = DH ** -0.5
     qh, kh, dqh, dkh = (t.float().transpose(1, 2) for t in (q, k, dq, dk))
@@ -2065,51 +2086,183 @@ def _rejects(bad, want):
         _close_do(bad, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("L,Lk", [(1100, 1100), (300, 77)])
-def test_k25_matches_plain_and_rejects_planted_faults(dev, L, Lk):
-    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
-    q, k, v, dq, dk, dv = _jvp_operands(dev, L, Lk, 70)
-    scale = DH ** -0.5
-    before = fj._flash_jvp_cuda.launches
-    o, do = fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, Lk)
-    assert fj._flash_jvp_cuda.launches == before + 1
-    o_p, do_p = fj.flash_attention_jvp_plain(q, k, v, dq, dk, dv, scale, Lk)
+def _jvp_case(kern, plain, ops, kv_len, lut=None, bq=None, bk=None, ref_lut=None):
+    """One K25 / K26 case: kern(ops, dk, dv, lut) against plain(ops, lut) on
+    the same operands (q, k, v, dq, dk, dv; `ref_lut`, the LUT the plain
+    version reads, where ids out of range are renamed to a block wholly past
+    kv_len); the planted faults each rejected (mu left out of do, P dv left
+    out, q dk^T left out of dS, K26's last LUT entry dropped); two runs
+    bit-equal. Returns (o, do) and the plain version's."""
+    q, k, v, dq, dk, dv = ops
+    ref_lut = lut if ref_lut is None else ref_lut
+    o, do = kern(ops, dk, dv, lut)
+    o_p, do_p = plain(ops, ref_lut)
     _close(o, o_p)
     _close_do(do, do_p)
     zero = torch.zeros_like
-    _rejects(do.float() + _mu_hat(q, k, dq, dk, Lk) * o.float(), do_p)
-    _rejects(fj._flash_jvp_cuda(q, k, v, dq, dk, zero(dv), scale, Lk)[1], do_p)
-    _rejects(fj._flash_jvp_cuda(q, k, v, dq, zero(dk), dv, scale, Lk)[1], do_p)
-    o2, do2 = fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, Lk)
-    assert torch.equal(o, o2) and torch.equal(do, do2)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (520, 128, 128)])
-def test_k26_matches_plain_and_rejects_planted_faults(dev, L, bq, bk):
-    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
-    q, k, v, dq, dk, dv = _jvp_operands(dev, L, L, 80)
-    lut = _bwd_operands(dev, L, bq, bk, 90)[4]
-    scale = DH ** -0.5
-    before = fj._sparse_flash_jvp_cuda.launches
-    o, do = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut, bq, bk, scale, L)
-    assert fj._sparse_flash_jvp_cuda.launches == before + 1
-    o_p, do_p = fj.sparse_flash_attention_jvp_plain(q, k, v, dq, dk, dv, lut,
-                                                    bq, bk, scale, L)
-    _close(o, o_p)
-    _close_do(do, do_p)
-    zero = torch.zeros_like
-    args = (lut, bq, bk, scale, L)
-    mu = _mu_hat(q, k, dq, dk, L, lut, bq, bk)
+    mu = _mu_hat(q, k, dq, dk, kv_len, ref_lut, bq, bk)
     _rejects(do.float() + mu * o.float(), do_p)
-    _rejects(fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, zero(dv), *args)[1], do_p)
-    _rejects(fj._sparse_flash_jvp_cuda(q, k, v, dq, zero(dk), dv, *args)[1], do_p)
-    dropped = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut[..., :-1],
-                                        *args[1:])
-    _rejects(dropped[0], o_p)
-    o2, do2 = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, *args)
+    _rejects(kern(ops, dk, zero(dv), lut)[1], do_p)
+    _rejects(kern(ops, zero(dk), dv, lut)[1], do_p)
+    if lut is not None:
+        _rejects(kern(ops, dk, dv, lut[..., :-1].contiguous())[0], o_p)
+    o2, do2 = kern(ops, dk, dv, lut)
     assert torch.equal(o, o2) and torch.equal(do, do2)
+    return (o, do), (o_p, do_p)
+
+
+K25_CASES = {
+    "1100-1100": (1100, 1100, 1100, 1, False),     # L, Lk, kv_len, B, fused
+    "300-77": (300, 77, 77, 1, False),
+    "cross 512, batch 2": (1000, 512, 512, 2, False),
+    "qkv view, batch 2": (1000, 1000, 1000, 2, True),
+    "ragged kv_len": (1000, 1100, 900, 1, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K25_CASES))
+def test_k25_matches_plain_and_rejects_planted_faults(dev, case):
+    """K25 (the wgmma form) against its plain version: Lq not a multiple of
+    128 and kv_len not one of 64, the 512-key cross shape, batch 2, q, k, v
+    as column views of a fused QKV buffer, NaN in the rows past each length
+    (past kv_len in k, v and their tangents)."""
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    L, Lk, kv_len, B, fused = K25_CASES[case]
+    ops = _jvp_operands(dev, L, Lk, 70, B, fused)
+    if kv_len < Lk:
+        for t in ops[1:3] + ops[4:]:
+            t[:, kv_len:] = float("nan")
+    scale = DH ** -0.5
+    assert fj.jvp_form(0, 0, kv_len, *fa._strides(*ops)) == "wgmma"
+
+    def kern(ops_, dk, dv, _):
+        q, k, v, dq = ops_[:4]
+        before = fj._flash_jvp_cuda.launches
+        out = fj._flash_jvp_cuda(q, k, v, dq, dk, dv, scale, kv_len)
+        assert fj._flash_jvp_cuda.launches == before + 1
+        return out
+
+    def plain(ops_, _):
+        # the rows past kv_len as zeros: the plain version masks them, but
+        # 0 x NaN would still reach its sums
+        return fj.flash_attention_jvp_plain(*(t.nan_to_num(0.0) for t in ops_), scale,
+                                            kv_len)
+    _jvp_case(kern, plain, ops, kv_len)
+
+
+K26_CASES = ["ragged", "LUT ids out of range, a row with no live chunk", "batch 2",
+             "qkv view", "NaN tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K26_CASES)
+@pytest.mark.parametrize("bq,bk,form", [(512, 256, "wgmma"), (128, 128, "wgmma"),
+                                        (192, 64, "mma")])
+def test_k26_matches_plain_and_rejects_planted_faults(dev, bq, bk, form, case):
+    """K26 in each form against its plain version, Lq 1,100 (1,000 at batch
+    2 and the fused view: ragged last tiles): kv_len 900 of 1,100 keys (not
+    a multiple of 64; the last K block wholly past it), the keys past it
+    finite or, in the NaN tail, NaN in k, v and their tangents; LUT entries
+    -1 and nK + 3 in every row and a row whose only live id names a block
+    past kv_len (zero rows; the plain version reads those ids as that
+    block); batch 2; q, k, v column groups of a fused QKV buffer. Every
+    buffer holds NaN in its rows past L."""
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    B = 2 if case in ("batch 2", "qkv view") else 1
+    L = 1000 if B == 2 else 1100
+    kv_len = L if B == 2 else 900
+    ops = _jvp_operands(dev, L, L, 80, B, case == "qkv view")
+    if case == "NaN tail":
+        for t in ops[1:3] + ops[4:]:
+            t[:, kv_len:] = float("nan")
+    nQ, nK = -(-L // bq), -(-L // bk)
+    sel = nK // 2 + 2
+    r = np.random.RandomState(85)
+    a = np.stack([r.permutation(nK)[:sel] for _ in range(B * HEADS * nQ)]).reshape(
+        B, HEADS, nQ, sel).astype(np.int32)
+    ref = a.copy()
+    if case.startswith("LUT"):
+        assert (nK - 1) * bk >= kv_len
+        a[..., 0], a[..., 1] = -1, nK + 3
+        a[0, 0, 0] = -1
+        a[0, 0, 0, 0] = nK - 1             # starts at or past kv_len: no live chunk
+        ref = np.where((a < 0) | (a >= nK), nK - 1, a)
+    lut, ref_lut = (torch.from_numpy(x).to(dev) for x in (a, ref))
+    scale = DH ** -0.5
+    assert fj.jvp_form(bq, bk, kv_len, *fa._strides(*ops)) == form
+
+    def kern(ops_, dk, dv, lut_):
+        q, k, v, dq = ops_[:4]
+        before = fj._sparse_flash_jvp_cuda.launches
+        out = fj._sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut_, bq, bk, scale, kv_len)
+        assert fj._sparse_flash_jvp_cuda.launches == before + 1
+        return out
+
+    def plain(ops_, lut_):
+        # the rows past kv_len as zeros: the plain version masks them, but
+        # 0 x NaN would still reach its sums
+        q, k, v, dq, dk, dv = (t.nan_to_num(0.0) for t in ops_)
+        return _empty_rows_zero(fj.sparse_flash_attention_jvp_plain(
+            q, k, v, dq, dk, dv, lut_, bq, bk, scale, kv_len), lut_, bq, bk, kv_len)
+    (o, do), _ = _jvp_case(kern, plain, ops, kv_len, lut, bq, bk, ref_lut)
+    if case.startswith("LUT"):
+        for t in (o, do):
+            assert torch.equal(t[0, :bq, 0], torch.zeros_like(t[0, :bq, 0]))
+
+
+def _empty_rows_zero(out, lut, bq, bk, kv_len):
+    """(o, do) with the rows of each Q block whose LUT row names no key
+    before kv_len set to 0, as K26 writes them (ROADMAP, Decided
+    divergences: a walk with no live chunk gives zero rows); the plain
+    version, whose masked logits are finite, averages v over the masked
+    keys there."""
+    o, do = (t.clone() for t in out)
+    empty = ((lut < 0) | (lut.long() * bk >= kv_len)).all(-1)        # (B, H, nQ)
+    for b, h, i in empty.nonzero().tolist():
+        o[b, i * bq:(i + 1) * bq, h] = 0
+        do[b, i * bq:(i + 1) * bq, h] = 0
+    return o, do
+
+
+def _jvp_f64(q, k, v, dq, dk, dv, kv_len, rows):
+    """(o, do) of batch 0 at query rows `rows`, every head, in float64 from
+    the bf16 operands: exact sums, P and P dS unrounded."""
+    scale = DH ** -0.5
+    f = lambda t: t[0].double().transpose(0, 1)                 # noqa: E731
+    qh, dqh = f(q[:, rows]), f(dq[:, rows])
+    kh, vh, dkh, dvh = (f(t[:, :kv_len]) for t in (k, v, dk, dv))
+    s = qh @ kh.transpose(-1, -2) * scale
+    ds = (dqh @ kh.transpose(-1, -2) + qh @ dkh.transpose(-1, -2)) * scale
+    p = torch.softmax(s, -1)
+    mu = (p * ds).sum(-1, keepdim=True)
+    o = p @ vh
+    do = (p * (ds - mu)) @ vh + p @ dvh
+    return o.transpose(0, 1), do.transpose(0, 1)
+
+
+@pytest.mark.cuda
+def test_k25_chained_ds_is_as_close_to_float64_as_the_plain_version(dev):
+    """dS = dq k^T + q dk^T runs as one chain of 16 wgmma k-steps in one
+    accumulator. On the 16 query rows where the kernel's do lies farthest
+    from its plain version's, both are held against float64 (exact sums,
+    unrounded P): the kernel's worst error is at most the plain version's
+    plus one bf16 step of the outputs (2^-8 |o| + 2e-3), so the tensor
+    core's chained accumulation adds nothing the bf16 rounding of P dS,
+    which both share, does not already."""
+    from turbodiffusion_tpu_torch.ops import flash_jvp as fj
+    L = 1100
+    ops = _jvp_operands(dev, L, L, 120)
+    scale = DH ** -0.5
+    o, do = fj._flash_jvp_cuda(*ops, scale, L)
+    o_p, do_p = fj.flash_attention_jvp_plain(*ops, scale, L)
+    worst = (do.float() - do_p.float()).abs().amax((0, 2, 3)).topk(16).indices
+    o64, do64 = _jvp_f64(*ops, L, worst)
+    for got, plain, ref in ((o, o_p, o64), (do, do_p, do64)):
+        e_k = (got[0, worst].double() - ref).abs()
+        e_p = (plain[0, worst].double() - ref).abs()
+        slack = 2.0 ** -8 * ref.abs() + 2e-3
+        assert bool((e_k <= e_p.amax() + slack).all()), (float(e_k.max()), float(e_p.max()))
 
 
 @pytest.mark.cuda

@@ -197,6 +197,7 @@
 #include <stdint.h>
 
 #include "attention_step.cuh"
+#include "chunk_walk.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -419,43 +420,10 @@ struct Params {
   int Lqp, Lkp;
 };
 
-// The chunks one tile attends to, in order; the producer and the tile's
-// consumers each walk the same list. Dense (K4): every chunk of [0,
-// kv_len). Sparse (K3, K20; K7's rule): the LUT entries of the tile's Q
-// block in order, an id outside [0, nK) skipped, and of each K block the
-// chunks that start before kv_len (a chunk's tail past kv_len is masked
-// before the row max).
+// The chunks one tile attends to (chunk_walk.cuh): dense (K4) every chunk
+// of [0, kv_len), sparse (K3, K20) the chunks of the tile's LUT row.
 template <int FORM>
-struct ChunkWalk {
-  static constexpr int kRows = Plan<FORM>::kRows, kKeys = Plan<FORM>::kKeys;
-  const int* ids;   // the tile's LUT row (sparse)
-  int j, kb, off, end;   // next entry; the block, its next chunk's offset, its keys
-
-  __device__ __forceinline__ ChunkWalk(const Params& p, int b, int h, int tile)
-      : ids(nullptr), j(0), kb(0), off(0), end(FORM != kDense ? 0 : p.kv_len) {
-    if (FORM != kDense)
-      ids = p.lut + (((long long)b * p.H + h) * p.nQ + tile * kRows / p.block_q) * p.sel;
-  }
-
-  // the next chunk's first key, or -1 past the last
-  __device__ __forceinline__ int next(const Params& p) {
-    if (FORM != kDense) {
-#pragma unroll 1
-      while (off >= end) {
-        if (j >= p.sel) return -1;
-        kb = __ldg(ids + j++);
-        off = 0;
-        end = kb >= 0 && kb < p.nK ? min(p.block_k, p.kv_len - kb * p.block_k) : 0;
-      }
-      const int key0 = kb * p.block_k + off;
-      off += kKeys;
-      return key0;
-    }
-    if (off >= end) return -1;
-    off += kKeys;
-    return off - kKeys;
-  }
-};
+using Walk = ChunkWalk<FORM != kDense, Plan<FORM>::kRows, Plan<FORM>::kKeys>;
 
 // Grid: persistent blocks, at most one an SM. A tile is kRows query rows of
 // one (b, h) (K3 / K20: inside one Q block, block_q a multiple of kRows);
@@ -463,7 +431,7 @@ struct ChunkWalk {
 // stream s of block x takes tiles kStreams x + s, + kStreams grid, ... (the
 // blocks at work share a head's K and V in L2). The producer thread of
 // stream s (lane 0 of producer warp s) loads each tile's Q into one of two
-// Q buffers and each chunk of its ChunkWalk's K and V (as they lie: keys x
+// Q buffers and each chunk of its Walk's K and V (as they lie: keys x
 // channels) into the stream's ring, running ahead across tiles. Each
 // consumer warpgroup owns 64 rows of its stream's tiles: S = Q K^T on wgmma
 // from shared memory (K4 / K3 bf16; K20 int8 -> exact s32, times the key's
@@ -547,7 +515,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           tma_load_4d(&tm_q, qd, qbar, 0, h, tile * kRows, b);
           tma_load_4d(&tm_q, qd + P::kOBox, qbar, 64, h, tile * kRows, b);
         }
-        ChunkWalk<FORM> walk(p, b, h, tile);
+        Walk<FORM> walk(p, b, h, tile);
 #pragma unroll 1
         for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
           // K and V have barriers of their own: a chunk's K is free once
@@ -625,7 +593,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
     int prev = -1;   // the stage of the chunk whose P V is pending
     mbar_wait(qfull0 + 8 * qb, (n / kQBufs) & 1);
-    ChunkWalk<FORM> walk(p, b, h, tile);
+    Walk<FORM> walk(p, b, h, tile);
 #pragma unroll 1
     for (int key0 = walk.next(p); key0 >= 0; key0 = walk.next(p), ++c) {
       const int s = c % kStages;

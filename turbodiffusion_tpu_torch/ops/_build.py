@@ -165,6 +165,9 @@ SIGNATURES = {
     # the same with the lut after dout and nQ, sel, block_q, block_k after
     # kv_len
     "tdx_sparse_flash_attention_jvp": [_P] * 9 + [_I] * 8 + [_PI64, _F, _P],
+    # the form K25 / K26 take (1 wgmma, 0 mma.sync, -1 refused): block_q,
+    # block_k (both 0: the dense launch), kv_len, int64[24] strides
+    "tdx_flash_attention_jvp_form": [_I, _I, _I, _PI64],
 }
 
 

@@ -38,7 +38,10 @@ Functions is not defined: the tangent pass runs under `torch.no_grad()`.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises (head dim 128 only). Each launcher counts its launches in
-`.launches`.
+`.launches` and the form of its last launch in `.last_form`. The kernel
+takes one of two forms (`jvp_form`): the warp-specialised wgmma + TMA
+kernel for K25 and for K26 at block_q a multiple of 128 (every path's
+512/256), the mma.sync loop for K26 at block_q an odd multiple of 64.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch.autograd.forward_ad as fwAD
 
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import (
-    NEG_INF, _PLAIN_LOGITS_BUDGET, _cdiv, _check_qkv, _require,
+    NEG_INF, _PLAIN_LOGITS_BUDGET, _cdiv, _check_qkv, _require, _strides,
     flash_attention, sparse_flash_attention)
 
 
@@ -156,6 +159,27 @@ def sparse_flash_attention_jvp_plain(q, k, v, dq, dk, dv, lut, block_q: int,
 # CUDA launchers
 # ---------------------------------------------------------------------------
 
+def jvp_form(block_q: int, block_k: int, kv_len: int, *strides: int) -> str:
+    """The kernel a K25 / K26 launch takes (csrc/flash_jvp.cu `jvp_form`):
+    "wgmma", the warp-specialised kernel (`k25::jvp_fwd_kernel`), for the
+    dense launch (block_q = block_k = 0) and for blocks with block_q a
+    multiple of 128 and block_k of 64 (a 128-row tile lies in one Q block, a
+    K block is whole 64-key chunks); "mma", the mma.sync loop
+    (`sparse_jvp_mma_kernel`), for block_q an odd multiple of 64. kv_len and
+    the strides (elements; q, k, v, dq, dk, dv, o, do by batch, token, head)
+    do not change the form; raises where neither form computes: no key, a
+    stride off 16 bytes, other blocks."""
+    _require(kv_len > 0, f"K25 / K26 take kv_len > 0, got {kv_len}")
+    _require(all(s % 8 == 0 for s in strides),
+             "K25 / K26 take strides of 16-byte multiples")
+    if block_q == 0 and block_k == 0:
+        return "wgmma"
+    _require(block_q > 0 and block_k > 0 and block_q % 64 == 0
+             and block_k % 64 == 0,
+             f"K26 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    return "wgmma" if block_q % 128 == 0 else "mma"
+
+
 def _jvp_operands(q, k, v, dq, dk, dv, kv_len, out):
     """Check K25 / K26's operands; returns (o, do) to write."""
     _check_qkv(q, k, v, kv_len)
@@ -171,10 +195,9 @@ def _jvp_operands(q, k, v, dq, dk, dv, kv_len, out):
     return o, torch.empty_like(o)
 
 
-def _stride_array(*ts):
-    """(batch, token, head) strides of each tensor, as the C int64 array."""
-    vals = [s for t in ts for s in t.stride()[:3]]
-    return (ctypes.c_int64 * len(vals))(*vals)
+def _stride_array(st):
+    """The (batch, token, head) strides as the C int64 array."""
+    return (ctypes.c_int64 * len(st))(*st)
 
 
 def _flash_jvp_cuda(q, k, v, dq, dk, dv, scale: float, kv_len: int,
@@ -183,26 +206,30 @@ def _flash_jvp_cuda(q, k, v, dq, dk, dv, scale: float, kv_len: int,
     given."""
     B, L, H, _ = q.shape
     o, do = _jvp_operands(q, k, v, dq, dk, dv, kv_len, out)
+    st = _strides(q, k, v, dq, dk, dv, o, do)
+    form = jvp_form(0, 0, kv_len, *st)
     rc = _build.load().tdx_flash_attention_jvp(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), o.data_ptr(), do.data_ptr(), B, H, L,
-        kv_len, _stride_array(q, k, v, dq, dk, dv, o, do), float(scale),
-        _build.stream_ptr(q))
+        kv_len, _stride_array(st), float(scale), _build.stream_ptr(q))
     _build.check(rc, "tdx_flash_attention_jvp")
     _flash_jvp_cuda.launches += 1
+    _flash_jvp_cuda.last_form = form
     return o, do
 
 
 _flash_jvp_cuda.launches = 0
+_flash_jvp_cuda.last_form = None
 
 
 def _sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut, block_q: int,
                            block_k: int, scale: float, kv_len: int, out=None):
-    """Launch K26: (o, do), (B, L, H, 128) bf16; o written into `out` when
-    given."""
+    """Launch K26 in its form (`jvp_form`): (o, do), (B, L, H, 128) bf16; o
+    written into `out` when given."""
     B, L, H, _ = q.shape
-    _require(block_q % 64 == 0 and block_k % 64 == 0,
-             f"K26 takes blocks that are multiples of 64, got {block_q}/{block_k}")
+    # the blocks are refused before the operands; o and do, contiguous, do
+    # not change the form
+    form = jvp_form(block_q, block_k, kv_len, *_strides(q, k, v, dq, dk, dv))
     nQ = _cdiv(L, block_q)
     _require(lut.dim() == 4 and tuple(lut.shape[:3]) == (B, H, nQ)
              and lut.device == q.device,
@@ -213,14 +240,16 @@ def _sparse_flash_jvp_cuda(q, k, v, dq, dk, dv, lut, block_q: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), o.data_ptr(), do.data_ptr(),
         lut.data_ptr(), B, H, L, kv_len, nQ, lut.shape[-1], block_q, block_k,
-        _stride_array(q, k, v, dq, dk, dv, o, do), float(scale),
+        _stride_array(_strides(q, k, v, dq, dk, dv, o, do)), float(scale),
         _build.stream_ptr(q))
     _build.check(rc, "tdx_sparse_flash_attention_jvp")
     _sparse_flash_jvp_cuda.launches += 1
+    _sparse_flash_jvp_cuda.last_form = form
     return o, do
 
 
 _sparse_flash_jvp_cuda.launches = 0
+_sparse_flash_jvp_cuda.last_form = None
 
 
 # ---------------------------------------------------------------------------
