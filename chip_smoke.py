@@ -98,9 +98,12 @@ Phases, each printing one line of its numbers:
      computes the same function, that call's time (`library`; for the int8
      GEMMs `torch._int_mm`, the product alone, plus bf16 `torch.matmul` of
      the same shape); the port calls neither. Then K23 / K24, the
-     block-sparse backward, at the 1.3B training shape (q of std 3, a
-     K-block no Q-block selects, NaN in the buffers' rows past L; planted
-     faults: an inverse-LUT entry dropped, delta left out of dS, dk without
+     block-sparse backward, at the 1.3B training shape in both forms of
+     their kernel (128-row tiles at 512/256, 64-row tiles at 64/64, each
+     check asserting its form; q of std 3, a K-block no Q-block selects,
+     NaN in the buffers' rows past L; planted faults: K23 acc2's term left
+     out, the last LUT entry of every row dropped, dq without `scale`; K24
+     an inverse-LUT entry dropped, delta left out of dS, dk without
      `scale`; (lse, delta) in fp32, K24 ignoring their rows past L, dk = dv
      = 0 on the unselected block, two runs bit-equal; no library call: the
      dense SDPA backward of the shape beside them for scale), and K24's
@@ -203,9 +206,10 @@ Phases, each printing one line of its numbers:
      --experiment rcm`) from phase 5's teacher checkpoint and 81f shards,
      full width and depth, --remat block_wise: the dense student's
      iteration 0 (sCM + DMD + EMA; launches K1 630, K2 630, K4 420, K25 60)
-     and iteration 1 (the critic's; K1 270, K2 270, K4 180), then one student
-     iteration with `-- model.attention.backend=sla` (K1 630, K2 630, K3
-     210, K4 210, K21 210, K23 60, K24 60, K26 30, K25 30; profiled); per
+     and iteration 1 (the critic's; K1 270, K2 270, K4 180), then with `--
+     model.attention.backend=sla` the student's iteration (K1 630, K2 630, K3
+     210, K4 210, K21 210, K23 60, K24 60, K26 30, K25 30; profiled) and the
+     critic's (K1 270, K2 270, K3 90, K4 90, K21 90, K23 30, K24 30); per
      iteration the wall time and its split, the losses (finite), peak
      memory, exact launches, and the watched weights of what it trains
      moved (student and EMA, or fake score) and of nothing else (the
@@ -595,7 +599,7 @@ def phase1():
 _ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel",
                 "unfold_quant_wide_kernel", "k6::kv_reduce_kernel")
 _WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel",
-                  "k6::pack_kvt_kernel", "k25::jvp_fwd_kernel")
+                  "k6::pack_kvt_kernel", "k25::jvp_fwd_kernel", "kbwd::bwd_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2330,17 +2334,16 @@ def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
     return checks, extra
 
 
-# the K-block phase 2's K23 / K24 LUT never selects
+# the K-block phase 2's K23 / K24 LUTs never select
 ZERO_BLOCK = 5
 
 
-def _without_block(lut, j: int):
+def _without_block(lut, j: int, nK: int = -(-L // BK)):
     """lut with K-block j replaced, in each row that names it, by the
     smallest block id the row does not name: no Q-block selects j."""
     import numpy as np
     import torch
     a = lut.cpu().numpy().copy()
-    nK = -(-L // BK)
     for row in a.reshape(-1, a.shape[-1]):
         if j in row:
             row[row == j] = next(c for c in range(nK) if c != j and c not in row)
@@ -2349,7 +2352,11 @@ def _without_block(lut, j: int):
 
 def _bwd_checks(randn):
     """K23 and K24 at the 1.3B training shape (32,760 tokens, 12 heads,
-    blocks 512/256, topk 0.1) against their plain versions on the card.
+    topk 0.1) against their plain versions on the card, in both forms of
+    `kbwd::bwd_kernel` (each check asserting the one its launch takes):
+    128-row tiles at blocks 512/256 (12 of 128 K blocks; every training
+    path) and 64-row tiles at 64/64 (51 of 512; sagesla's straight-through
+    backward at --sla_block 64).
     Inputs where every term matters: q of std 3, so each row's softmax
     leans on a few keys and its output o on a few rows of v; dO of N(0, 1),
     so delta (= dO . o) is of the order of dp and leaving it out of dS
@@ -2357,12 +2364,15 @@ def _bwd_checks(randn):
     delta acc2) / l, a difference of sums of bf16-rounded terms, is only
     good to ~0.1-0.4 absolute, and beyond atol 2e-2 + rtol 2e-2.) q, k, v, dO are views of
     buffers whose rows past L hold NaN; K-block ZERO_BLOCK is never
-    selected. Planted faults K24's check must reject: one inverse-LUT entry
-    dropped, delta left out of dS, dk without `scale`. Returns (checks, a
-    function of the further checks: lse / delta in fp32, K24 ignoring (lse,
-    delta) rows past L, dk = dv = 0 on the unselected block, two runs of
-    each kernel bit-equal)."""
+    selected. Planted faults K23's check must reject: acc2's term left out
+    of dq (the kernel's dq plus scale delta P k / l, from the plain K3 over
+    k as v), the last LUT entry of every row dropped, dq without `scale`;
+    K24's: one inverse-LUT entry dropped, delta left out of dS, dk without
+    `scale`. Returns (checks, a function of the further checks in each
+    form: lse / delta in fp32, K24 ignoring (lse, delta) rows past L, dk =
+    dv = 0 on the unselected block, two runs of each kernel bit-equal)."""
     import torch
+    from turbodiffusion_tpu_torch.ops import flash_attention as fa
     from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
     from turbodiffusion_tpu_torch.ops.attention import get_block_map
     HEADS = G13.heads
@@ -2372,81 +2382,111 @@ def _bwd_checks(randn):
         return t[:, :L]
 
     q, k, v = (view(randn(B, LP, HEADS, DH, std=sd)) for sd in (3.0, 1.0, 1.0))
-    lut = _without_block(get_block_map(q, k, TOPK, BQ, BK)[1], ZERO_BLOCK)
     scale = DH ** -0.5
     do = view(randn(B, LP, HEADS, DH))
-    nK = -(-L // BK)
-    inv = sb.inverse_lut(lut, nK)
-    pairs = _sparse_pairs(lut, BQ, BK, L, L)
-
-    def k23(lut_=lut):
-        dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut_, BQ, BK, scale, L)
-        return dq, ld[:, :L]
-
-    def k23_plain():
-        dq, ld = sb.sparse_bwd_dq_plain(q, k, v, do, lut, BQ, BK, scale, L)
-        return dq, ld[:, :L]
-
-    ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, BQ, BK, scale, L)[1]
-
-    def k24(inv_=inv, ld_=ld):
-        return sb._sparse_bwd_dkv_cuda(q, k, v, do, ld_, inv_, BQ, BK, scale, L)
-
-    dropped = inv.clone()
-    bh, kb = divmod(int(inv[:, :, 0].argmax()), nK)
-    dropped[bh, kb, 0] -= 1          # the row's last Q-block left out
-    no_delta = ld.clone()
-    no_delta[..., 1] = 0
-
-    def unscaled():
-        dk, dv = k24()
-        return dk.float() / scale, dv
-
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     o_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
     sdpa_bwd = {"dense SDPA backward (dq, dk, dv), for scale":
                 lambda: torch.autograd.grad(o_s, (qs, ks, vs), do.transpose(1, 2),
                                             retain_graph=True)}
-    sel = lut.shape[-1]
-    checks = [
-        Check("K23", f"dq pass + (lse, delta), {sel}/{nK} blocks {BQ}/{BK}, "
-              f"rows {L}..{LP - 1} NaN", k23, k23_plain, (q, k, v, do, lut),
-              {"bf16": 3 * 2 * DH * pairs}, yardsticks=sdpa_bwd),
-        Check("K24", f"inverse-LUT dk/dv pass, block {ZERO_BLOCK} never selected",
-              k24, lambda: sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, BQ, BK,
-                                                   scale, L),
-              (q, k, v, do, ld, inv), {"bf16": 4 * 2 * DH * pairs},
-              faults={"one inverse-LUT entry dropped": lambda: k24(inv_=dropped),
-                      "delta left out of dS": lambda: k24(ld_=no_delta),
-                      "dk without scale": unscaled}),
-    ]
 
-    def extra():
-        dq, ld_k = k23()
-        dq_p, ld_p = k23_plain()
-        torch.cuda.synchronize()
-        ld_err = float((ld_k - ld_p).abs().max())
-        if not torch.allclose(ld_k, ld_p, atol=1e-3, rtol=1e-4):
-            raise AssertionError(f"K23 (lse, delta) off by {ld_err}")
-        poisoned = ld.clone()
-        poisoned[:, L:] = float("nan")
-        dk, dv = k24()
-        dk_p, dv_p = k24(ld_=poisoned)
-        blk = slice(ZERO_BLOCK * BK, (ZERO_BLOCK + 1) * BK)
-        if not (torch.equal(dk, dk_p) and torch.equal(dv, dv_p)):
-            raise AssertionError("K24 read (lse, delta) rows past L")
-        if dk[:, blk].any() or dv[:, blk].any():
-            raise AssertionError(f"K24: block {ZERO_BLOCK} has non-zero dk / dv")
-        dk2, dv2 = k24()
-        if not (torch.equal(dq, k23()[0]) and torch.equal(dk, dk2)
-                and torch.equal(dv, dv2)):
-            raise AssertionError("K23 / K24: two runs differ")
-        print(f"phase2 K23/K24 tail and stability: (lse, delta) max_abs_err "
-              f"{ld_err:.3g} (tol atol 1e-3 + rtol 1e-4, fp32) | K24 with "
-              f"(lse, delta) rows {L}..{LP - 1} NaN: bit-equal | block "
-              f"{ZERO_BLOCK} (never selected): dk = dv = 0 exactly | two runs "
-              f"of each: bit-equal", flush=True)
-    return checks, extra
+    def form(bq, bk):
+        nK = -(-L // bk)
+        lut = _without_block(get_block_map(q, k, TOPK, bq, bk)[1], ZERO_BLOCK, nK)
+        inv = sb.inverse_lut(lut, nK)
+        pairs = _sparse_pairs(lut, bq, bk, L, L)
+
+        def k23(lut_=lut):
+            dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut_, bq, bk, scale, L)
+            return dq, ld[:, :L]
+
+        def k23_plain():
+            dq, ld = sb.sparse_bwd_dq_plain(q, k, v, do, lut, bq, bk, scale, L)
+            return dq, ld[:, :L]
+
+        ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk, scale, L)[1]
+        form23 = _form(f"{sb._sparse_bwd_dq_cuda.last_form}-row",
+                       f"{128 if bq % 128 == 0 else 64}-row", f"K23 at {bq}/{bk}")
+
+        def k24(inv_=inv, ld_=ld):
+            return sb._sparse_bwd_dkv_cuda(q, k, v, do, ld_, inv_, bq, bk, scale, L)
+
+        k24()
+        form24 = _form(f"{sb._sparse_bwd_dkv_cuda.last_form}-row",
+                       f"{128 if bk % 128 == 0 else 64}-row", f"K24 at {bq}/{bk}")
+        dropped = inv.clone()
+        bh, kb = divmod(int(inv[:, :, 0].argmax()), nK)
+        dropped[bh, kb, 0] -= 1          # the row's last Q-block left out
+        no_delta = ld.clone()
+        no_delta[..., 1] = 0
+
+        def unscaled():
+            dk, dv = k24()
+            return dk.float() / scale, dv
+
+        def without_acc2():
+            # dq + scale delta acc2 / l = scale acc1 / l; acc2 / l is the
+            # plain K3 over k in v's place (bf16(P) k / l)
+            dq, ld_ = k23()
+            pk = fa.sparse_flash_attention_plain(q, k, k, lut, bq, bk, scale, L)
+            delta = ld_[..., 1].reshape(B, HEADS, L).transpose(1, 2)[..., None]
+            return dq.float() + scale * delta * pk.float(), ld_
+
+        sel = lut.shape[-1]
+        checks = [
+            Check("K23", f"dq pass + (lse, delta), {sel}/{nK} blocks {bq}/{bk}, "
+                  f"rows {L}..{LP - 1} NaN {form23}", k23, k23_plain, (q, k, v, do, lut),
+                  {"bf16": 3 * 2 * DH * pairs}, yardsticks=sdpa_bwd if bq == BQ else {},
+                  faults={"acc2's term left out of dq": without_acc2,
+                          "the last LUT entry of every row dropped":
+                          lambda: k23(lut_=lut[..., :-1].contiguous()),
+                          "dq without scale":
+                          lambda: (lambda r: (r[0].float() / scale, r[1]))(k23())}),
+            Check("K24", f"inverse-LUT dk/dv pass {bq}/{bk}, block {ZERO_BLOCK} never "
+                  f"selected {form24}",
+                  k24, lambda: sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, bq, bk,
+                                                       scale, L),
+                  (q, k, v, do, ld, inv), {"bf16": 4 * 2 * DH * pairs},
+                  faults={"one inverse-LUT entry dropped": lambda: k24(inv_=dropped),
+                          "delta left out of dS": lambda: k24(ld_=no_delta),
+                          "dk without scale": unscaled}),
+        ]
+
+        def extra():
+            dq, ld_k = k23()
+            dq_p, ld_p = k23_plain()
+            torch.cuda.synchronize()
+            ld_err = float((ld_k - ld_p).abs().max())
+            if not torch.allclose(ld_k, ld_p, atol=1e-3, rtol=1e-4):
+                raise AssertionError(f"K23 at {bq}/{bk}: (lse, delta) off by {ld_err}")
+            poisoned = ld.clone()
+            poisoned[:, L:] = float("nan")
+            dk, dv = k24()
+            dk_p, dv_p = k24(ld_=poisoned)
+            blk = slice(ZERO_BLOCK * bk, (ZERO_BLOCK + 1) * bk)
+            if not (torch.equal(dk, dk_p) and torch.equal(dv, dv_p)):
+                raise AssertionError(f"K24 at {bq}/{bk} read (lse, delta) rows past L")
+            if dk[:, blk].any() or dv[:, blk].any():
+                raise AssertionError(f"K24 at {bq}/{bk}: block {ZERO_BLOCK} has "
+                                     "non-zero dk / dv")
+            dk2, dv2 = k24()
+            if not (torch.equal(dq, k23()[0]) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2)):
+                raise AssertionError(f"K23 / K24 at {bq}/{bk}: two runs differ")
+            print(f"phase2 K23/K24 {bq}/{bk} tail and stability: (lse, delta) "
+                  f"max_abs_err {ld_err:.3g} (tol atol 1e-3 + rtol 1e-4, fp32) | K24 "
+                  f"with (lse, delta) rows {L}..{LP - 1} NaN: bit-equal | block "
+                  f"{ZERO_BLOCK} (never selected): dk = dv = 0 exactly | two runs "
+                  f"of each: bit-equal", flush=True)
+        return checks, extra
+
+    checks, extra = form(BQ, BK)
+    checks64, extra64 = form(64, 64)
+
+    def extras():
+        extra()
+        extra64()
+    return checks + checks64, extras
 
 
 K24_SEEDS = 8
@@ -3588,7 +3628,8 @@ def phase6(tmp: str, ckpt: str, shards: dict):
     `_training_data`'s teacher checkpoint and 81f shards, full width and
     depth, --remat block_wise, lr 1e-5: (1) the dense (`original`) student,
     2 iterations (iteration 0 the student's, 1 the critic's); (2) `--
-    model.attention.backend=sla`, the student's iteration, profiled; each
+    model.attention.backend=sla`, the same 2 iterations, the student's
+    profiled; each
     through `_distill_probe`; (3) the DistillState round trip at 2 layers
     (21f): 1 iteration saved, then a run that resumes from it must start
     from the saved student, fake score, EMA, both AdamW states and
@@ -3601,7 +3642,7 @@ def phase6(tmp: str, ckpt: str, shards: dict):
             ckpt, "--seed", "0", "--lr", "1e-5"]
     counts, peaks = {}, {}
     for label, ovr, iters, prof in (("dense", [], 2, None),
-                                    ("sla", ["model.attention.backend=sla"], 1,
+                                    ("sla", ["model.attention.backend=sla"], 2,
                                      0)):
         probe = _distill_probe(label, DISTILL_LAUNCHES[label], prof)
         t0 = time.perf_counter()
@@ -3686,7 +3727,8 @@ PROFILE_CATEGORIES = [
     ("K8", ("quantize_rows_kernel",)), ("K9", ("postscale_gemm_kernel",)),
     ("K10", ("w8a8_ffn_kernel<1>",)), ("K11", ("w8a8_ffn_kernel<2>",)),
     ("K22", ("block_gemm_kernel",)),
-    ("K23", ("sparse_bwd_dq_kernel",)), ("K24", ("sparse_bwd_dkv_kernel",)),
+    # K23 / K24: kbwd::bwd_kernel<pass, tile rows>, either form
+    ("K23", ("kbwd::bwd_kernel<0",)), ("K24", ("kbwd::bwd_kernel<1",)),
     # K25 and K26 in either form (the wgmma kernel, or K26's mma.sync loop)
     ("K25", ("jvp_fwd_kernel<false>",)),
     ("K26", ("jvp_fwd_kernel<true>", "sparse_jvp_mma_kernel")),

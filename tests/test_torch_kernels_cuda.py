@@ -313,9 +313,9 @@ def test_form_functions_agree_with_the_c_entries(dev):
     over widths, head dims, row strides and pointer offsets (the queries
     read pointers as numbers only); `fa.sparse_flash_form`,
     `fa.sparse_flash_i8qk_form`, `si8.sparse_i8_planes_form` and
-    `si8.sparse_i8_planes_bs_form` and `fj.jvp_form` the form (or the
-    refusal) of K3's, K20's, K19's, K28's and K25 / K26's C queries, over
-    blocks, lengths and strides."""
+    `si8.sparse_i8_planes_bs_form`, `fj.jvp_form` and `sb.bwd_form` the
+    form (or the refusal) of K3's, K20's, K19's, K28's, K25 / K26's and
+    K23 / K24's C queries, over blocks, lengths and strides."""
     from turbodiffusion_tpu_torch.ops import _build
     lib = _build.load()
     base = 1 << 20
@@ -370,6 +370,21 @@ def test_form_functions_agree_with_the_c_entries(dev):
                 arr = (ctypes.c_int64 * 24)(*st)
                 assert py_form(fj.jvp_form, bq, bk, kv_len, *st) == \
                     lib.tdx_flash_attention_jvp_form(bq, bk, kv_len, arr), (bq, bk, kv_len, st)
+    # K23 / K24: the tile rows of each pass (128, 64) or -1 refused
+    from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
+    do_t = [12 * L * 128, 128, L * 128]
+    for bq, bk in ((512, 256), (512, 64), (128, 128), (64, 64), (192, 128), (256, 320),
+                   (96, 64), (512, 32), (0, 256)):
+        for kv_len in (L, 900, 1, 0):
+            for st in (contig * 4, fused * 3 + do_t, [L * 12 * 132, 12 * 132, 132] + contig * 3,
+                       contig * 3 + [L * 1540, 1540, 128]):
+                arr = (ctypes.c_int64 * 12)(*st)
+                try:
+                    want = sb.bwd_form(bq, bk, kv_len, *st)
+                except ValueError:
+                    want = (-1, -1)
+                assert want == tuple(lib.tdx_sparse_attention_bwd_form(pas, bq, bk, kv_len, arr)
+                                     for pas in (0, 1)), (bq, bk, kv_len, st)
     LP = 32768
     for bq, bk in ((512, 256), (512, 128), (128, 128), (512, 64), (128, 64), (64, 64),
                    (192, 256), (96, 64), (512, 100)):
@@ -1926,50 +1941,93 @@ def test_block_linear_on_the_card_matches_plain(dev):
 # order, exp2 against exp); the gradients bf16 (ATOL / RTOL).
 # ---------------------------------------------------------------------------
 
-def _bwd_operands(dev, L, bq, bk, seed):
-    """q, k, v, dO (1, L, HEADS, 128) bf16 views into buffers whose rows past
-    L hold NaN, and a LUT that never selects the last K-block but one."""
+def _bwd_operands(dev, L, bq, bk, seed, B=1, kv_len=None, fused=False, do_t=False):
+    """q, k, v, dO (B, L, HEADS, 128) bf16 views into buffers whose rows past
+    L hold NaN, k and v NaN from kv_len on too; with `fused` q, k, v are the
+    column groups of one (B, L + 64, 3, HEADS, 128) buffer; with `do_t` dO
+    is a (B, HEADS, L, 128) tensor transposed, as autograd hands it over.
+    The LUT never selects the last K-block but one, and its row (0, 0, 0)
+    names the ids -1 and nK + 3 (no key) beside valid ones."""
+    kv_len = L if kv_len is None else kv_len
     bufs = []
     for s in range(4):
-        t = _randn(dev, 1, L + 64, HEADS, DH, seed=seed + s).bfloat16()
+        t = _randn(dev, B, L + 64, HEADS, DH, seed=seed + s).bfloat16()
         t[:, L:] = float("nan")
+        if s in (1, 2):
+            t[:, kv_len:] = float("nan")
         bufs.append(t[:, :L])
+    if fused:
+        buf = torch.full((B, L + 64, 3, HEADS, DH), float("nan"), device=dev,
+                         dtype=torch.bfloat16)
+        for i in range(3):
+            buf[:, :L, i] = bufs[i]
+        bufs[:3] = [buf[:, :L, i] for i in range(3)]
+    if do_t:
+        bufs[3] = _randn(dev, B, HEADS, L, DH, seed=seed + 3).bfloat16().transpose(1, 2)
     nQ, nK = -(-L // bq), -(-L // bk)
     r = np.random.RandomState(seed + 4)
     keep = [j for j in range(nK) if j != nK - 2]
-    sel = max(1, len(keep) // 2)
-    lut = np.stack([r.permutation(keep)[:sel] for _ in range(HEADS * nQ)])
-    lut = torch.from_numpy(lut.reshape(1, HEADS, nQ, sel).astype(np.int32))
-    return (*bufs, lut.to(dev), nQ, nK)
+    sel = max(3, len(keep) // 2)
+    lut = np.stack([r.permutation(keep)[:sel] for _ in range(B * HEADS * nQ)])
+    lut = lut.reshape(B, HEADS, nQ, sel).astype(np.int32)
+    lut[0, 0, 0, :2] = [-1, nK + 3]
+    return (*bufs, torch.from_numpy(lut).to(dev), nQ, nK)
+
+
+# name: L, block_q, block_k, B, kv_len (None: L), fused QKV views, dO as
+# autograd's transpose. The forms: 128-row tiles where the tile side's
+# blocks (K23 block_q, K24 block_k) are multiples of 128, else 64-row.
+_BWD_CASES = {
+    "512/256": (1100, 512, 256, 1, None, False, False),
+    "128/128": (520, 128, 128, 1, None, False, False),
+    "64/64": (1000, 64, 64, 1, None, False, False),
+    "192/128": (1100, 192, 128, 1, None, False, False),
+    "512/64 kv_len 700": (1000, 512, 64, 1, 700, False, False),
+    "512/256 kv_len 900": (1100, 512, 256, 1, 900, False, False),
+    "512/256 B 2": (1100, 512, 256, 2, None, False, False),
+    "64/64 B 2 fused": (1000, 64, 64, 2, None, True, False),
+    "128/128 fused dO^T": (1100, 128, 128, 1, None, True, True),
+    "64/64 kv_len 700 dO^T": (1000, 64, 64, 1, 700, False, True),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,bq,bk", [(1100, 512, 256), (520, 128, 128)])
-def test_k23_k24_match_plain(dev, L, bq, bk):
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_k23_k24_match_plain(dev, case):
+    """Each form against the plain versions: dq, dk, dv at ATOL / RTOL,
+    (lse, delta) at atol 1e-4 + rtol 1e-5; K24 reading no (lse, delta) row
+    past L (NaN there), the never-selected K-block exactly zero, two runs
+    bit-equal."""
     from turbodiffusion_tpu_torch.ops import sparse_attention_bwd as sb
-    q, k, v, do, lut, nQ, nK = _bwd_operands(dev, L, bq, bk, 50)
+    L, bq, bk, B, kv_len, fused, do_t = _BWD_CASES[case]
+    kv_len = L if kv_len is None else kv_len
+    q, k, v, do, lut, nQ, nK = _bwd_operands(dev, L, bq, bk, 50, B, kv_len, fused, do_t)
     scale = DH ** -0.5
     b23, b24 = sb._sparse_bwd_dq_cuda.launches, sb._sparse_bwd_dkv_cuda.launches
-    dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk, scale, L)
-    dq_p, ld_p = sb.sparse_bwd_dq_plain(q, k, v, do, lut, bq, bk, scale, L)
+    dq, ld = sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk, scale, kv_len)
+    assert sb._sparse_bwd_dq_cuda.last_form == (128 if bq % 128 == 0 else 64)
+    dq_p, ld_p = sb.sparse_bwd_dq_plain(q, k, v, do, lut, bq, bk, scale, kv_len)
     _close(dq, dq_p)
     torch.testing.assert_close(ld[:, :L], ld_p[:, :L], atol=1e-4, rtol=1e-5)
     inv = sb.inverse_lut(lut, nK)
     poisoned = ld.clone()
     poisoned[:, L:] = float("nan")           # rows past L are never read
-    dk, dv = sb._sparse_bwd_dkv_cuda(q, k, v, do, poisoned, inv, bq, bk, scale, L)
-    dk_p, dv_p = sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, bq, bk, scale, L)
+    dk, dv = sb._sparse_bwd_dkv_cuda(q, k, v, do, poisoned, inv, bq, bk, scale, kv_len)
+    assert sb._sparse_bwd_dkv_cuda.last_form == (128 if bk % 128 == 0 else 64)
+    dk_p, dv_p = sb.sparse_bwd_dkv_plain(q, k, v, do, ld, inv, bq, bk, scale, kv_len)
     _close(dk, dk_p)
     _close(dv, dv_p)
     assert sb._sparse_bwd_dq_cuda.launches == b23 + 1
     assert sb._sparse_bwd_dkv_cuda.launches == b24 + 1
-    # the never-selected K-block: exactly zero; a second run: the same bits
+    # the never-selected K-block and the key rows past kv_len: exactly zero;
+    # a second run: the same bits
     blk = slice((nK - 2) * bk, (nK - 1) * bk)
     assert not dk[:, blk].any() and not dv[:, blk].any()
-    dk2, dv2 = sb._sparse_bwd_dkv_cuda(q, k, v, do, ld, inv, bq, bk, scale, L)
+    assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+    dk2, dv2 = sb._sparse_bwd_dkv_cuda(q, k, v, do, ld, inv, bq, bk, scale, kv_len)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, sb._sparse_bwd_dq_cuda(q, k, v, do, lut, bq, bk,
-                                                  scale, L)[0])
+                                                  scale, kv_len)[0])
 
 
 @pytest.mark.cuda

@@ -16,6 +16,11 @@
   `linear_attention_projected(interpret=True)`, fp32. Tolerance atol 1e-4
   + rtol 1e-4: fp32 gradients of magnitude ~1 summed over a few hundred
   keys in another order.
+* LUT ids outside [0, nK): `inverse_lut` equal to JAX's `_inverse_lut`
+  on ids >= nK (JAX's scatter wraps a negative id, so none here), and the
+  K3 wrapper's gradients against `_attention_bwd_ref` (its one-hot mask
+  gives such an id, a negative one included, no key) at GRAD_TOL.
+* `bwd_form`, the tile rows the kernels take, and what it refuses.
 """
 
 import jax
@@ -163,3 +168,73 @@ def test_k21_gradients_match_jax_linear_attention_projected():
     want = _grads_j(lambda a, b_, c, w_, bb: linear_projected_jax(
         a, b_, c, w_, bb, interpret=True), (q, k, v, w, b), g)
     _assert_grads(got, want)
+
+
+# ---------------------------------------------------------------------------
+# LUT ids outside [0, nK): no key, in the backward as in the forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lut,nK", [
+    # one id == nK (JAX's _inverse_lut: counts [2, 1, 2])
+    (np.asarray([[[[0, 1], [0, 2], [2, 3]]]], np.int32), 3),
+    # (B 2, H 3, nQ 5, sel 3) with ids nK .. nK + 4 among valid ones
+    (np.stack([np.random.RandomState(s).permutation(9)[:3]
+               for s in range(30)]).reshape(2, 3, 5, 3).astype(np.int32), 5),
+])
+def test_inverse_lut_drops_ids_past_nk_as_jax(lut, nK):
+    assert (lut >= nK).any()
+    got = sb.inverse_lut(torch.from_numpy(lut), nK)
+    B, H, nQ, sel = lut.shape
+    want = np.asarray(fp._inverse_lut(jnp.asarray(lut.reshape(B * H, nQ, sel)),
+                                      nK))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k3_gradients_with_out_of_range_ids_match_jax_reference():
+    """The port's sparse_flash_attention gradients on the CPU (K3's plain
+    forward, K23 / K24's plain versions and `inverse_lut`) against JAX's
+    `_attention_bwd_ref`, which masks with one_hot(lut, nK): ids 5 and 7
+    (>= nK = 5) and -1, -3 name no key. Every row keeps a valid id. fp32."""
+    q, k, v, g, _ = _jax_case()
+    lut = np.asarray([[0, 7], [-1, 1], [0, 5], [2, -3], [4, 2]], np.int32)
+    lut = np.ascontiguousarray(np.broadcast_to(lut, (1, 3, 5, 2)))
+    scale = q.shape[-1] ** -0.5
+    _, got = _grads_t(lambda a, b, c: sparse_flash_attention(
+        a, b, c, torch.from_numpy(lut), 128, 128), (q, k, v), g)
+    want = fp._attention_bwd_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                 jnp.asarray(lut), jnp.asarray(g), scale, 128,
+                                 128)
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0 and np.isfinite(a.numpy()).all()
+        np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL,
+                                   err_msg=f"input {i}")
+
+
+# `bwd_form`: the tile rows (K23, K24) of csrc/sparse_attention_bwd.cu's
+# `bwd_form`, or a refusal
+_S = (32760 * 1536, 1536, 128)          # (batch, token, head) of a (1, L, 12, 128)
+_FUSED = (32760 * 4608, 4608, 128)      # a column group of a fused QKV buffer
+_AUTOGRAD_DO = (12 * 32760 * 128, 128, 32760 * 128)   # (B, H, L, D) transposed
+
+
+@pytest.mark.parametrize("blocks,kv_len,strides,want", [
+    ((512, 256), 32760, _S * 4, (128, 128)),
+    ((128, 128), 520, _S * 4, (128, 128)),
+    ((64, 64), 32760, _S * 4, (64, 64)),
+    ((512, 64), 32760, _S * 4, (128, 64)),
+    ((192, 256), 100, _S * 4, (64, 128)),
+    ((512, 256), 32760, _FUSED * 3 + _AUTOGRAD_DO, (128, 128)),
+    ((256, 32), 32760, _S * 4, "multiples of 64"),
+    ((0, 64), 32760, _S * 4, "multiples of 64"),
+    ((96, 64), 32760, _S * 4, "multiples of 64"),
+    ((512, 256), 0, _S * 4, "kv_len > 0"),
+    ((512, 256), 32760, _S * 3 + (32760 * 1536, 1540, 128), "16-byte"),
+    ((64, 64), 32760, (12,) + _S[1:] + _S * 3, "16-byte"),
+])
+def test_bwd_form_takes_and_refuses(blocks, kv_len, strides, want):
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            sb.bwd_form(*blocks, kv_len, *strides)
+    else:
+        assert sb.bwd_form(*blocks, kv_len, *strides) == want

@@ -26,9 +26,17 @@ measured on that block:
   * `dk_sum`: the float64 reference's rounded dS summed into dk in fp32
     (torch.matmul) against the float64 sum: the error of an fp32 sum over
     the block's inverse-LUT Q-blocks;
-  * S's own sum in the kernel (the mma chain over 128 channels): `--design`
-    runs K24 with S accumulated on the tensor core step after step
-    (`k24-chained-s`, the form before the split) beside this tree's.
+  * S's own sum in the kernel (the wgmma chain over 128 channels):
+    `--design` runs K23 and K24 with S (K24: S^T) chained over 128
+    channels or in 2, 4 or 8 parts, each chained on the tensor core and
+    added to the sum in fp32 (`DESIGNS`), beside this tree's split (K23
+    chained, K24 in two halves).
+Then, over every K-block of every head (`all_blocks`), dk and dv of the
+kernel and of the plain version against the float64 reference: the largest
+share of the tolerance and the mean |error|; and, on the worst element's
+head (`k23_ld_vs_f64`), K23's (lse, delta) from the kernel and from its
+plain version against float64 ones (softmax over each row's selected keys):
+the largest |error| of each.
 `--root DIR` imports the package from the checkout at DIR. `--design` runs
 this script on copies of the package under
 `turbodiffusion_tpu_torch/_build/design/<name>` with K24 patched
@@ -50,13 +58,15 @@ L, LP, HEADS, DH, BQ, BK, TOPK, ZERO_BLOCK = 32760, 32768, 12, 128, 512, 256, 0.
 ATOL = RTOL = 0.02
 
 
-# K24's variants: S accumulated on the tensor core step after step (the
-# form before the split: the running sum carried, and truncated, by every
-# 16-channel mma), in place of each step into a zeroed fragment added in fp32
+# K23 / K24's variants of the kernel's split (K23's S chained over 128
+# channels, K24's S^T in two chained halves added in fp32): both chained
+# (the running sum carried, and truncated, by every k16 step), K24's in 4
+# or 8 parts, K23's in 2, both in 8
 _K24 = "csrc/sparse_attention_bwd.cu"
-DESIGNS = [("k24-chained-s", _K24,
-            [("        two_products<true>(st, dpt, Ks, Qs, Vs, dOs, r0);",
-              "        two_products<false>(st, dpt, Ks, Qs, Vs, dOs, r0);")])]
+_SPLIT = "constexpr int kSplitS23 = 1, kSplitS24 = 2;"
+DESIGNS = [(name, _K24, [(_SPLIT, f"constexpr int kSplitS23 = {a}, kSplitS24 = {b};")])
+           for name, a, b in (("chained", 1, 1), ("split24-s4", 1, 4), ("split24-s8", 1, 8),
+                              ("split23-s2", 2, 2), ("split-s8", 8, 8))]
 
 
 def _share(got, want) -> float:
@@ -131,6 +141,50 @@ def _exact_delta(q, k, v, do, lut, bh: int, rows, scale):
         p = torch.softmax(s, -1)
         out[sel] = (p * (dr @ v[0, keys, bh].double().T)).sum(-1)
     return out
+
+
+def _all_blocks(q, k, v, do, ld, inv, got, plain, scale) -> dict:
+    """dk and dv of every K-block of every head against the float64
+    reference: the largest share of the tolerance and the mean |error|,
+    of the kernel (got) and of the plain version (plain)."""
+    import torch
+    out = {n: {"dk_share": 0.0, "dv_share": 0.0, "dk_mean_abs": 0.0, "dv_mean_abs": 0.0}
+           for n in ("kernel", "plain")}
+    n_el = 0
+    for h in range(HEADS):
+        for kb in range(inv.shape[1]):
+            if int(inv[h, kb, 0]) == 0:
+                continue
+            ks, vs, qg, dog, lse, dl, _ = _block_terms(q, k, v, do, ld, inv, h, kb)
+            dk64, dv64 = _ref(ks, vs, qg, dog, lse, dl, scale)[:2]
+            blk = slice(kb * BK, (kb + 1) * BK)
+            n_el += dk64.numel()
+            for name, (dk, dv) in (("kernel", got), ("plain", plain)):
+                r = out[name]
+                for key, a, w in (("dk", dk[0, blk, h], dk64), ("dv", dv[0, blk, h], dv64)):
+                    r[key + "_share"] = max(r[key + "_share"], _share(a, w))
+                    r[key + "_mean_abs"] += float((a.double() - w).abs().sum())
+    for r in out.values():
+        r["dk_mean_abs"] /= n_el
+        r["dv_mean_abs"] /= n_el
+    return out
+
+
+def _exact_ld(q, k, v, do, lut, h: int, scale):
+    """(lse, delta) of every row of head h in float64: the softmax over each
+    row's selected keys."""
+    import torch
+    lse = torch.empty(L, dtype=torch.float64, device=q.device)
+    dl = torch.empty_like(lse)
+    for i in range(lut.shape[2]):
+        rows = slice(i * BQ, min((i + 1) * BQ, L))
+        keys = torch.cat([torch.arange(j * BK, min((j + 1) * BK, L))
+                          for j in lut[0, h, i].long().tolist()]).to(k.device)
+        s = q[0, rows, h].double() @ k[0, keys, h].double().T * scale
+        lse[rows] = torch.logsumexp(s, -1)
+        p = torch.softmax(s, -1)
+        dl[rows] = (p * (do[0, rows, h].double() @ v[0, keys, h].double().T)).sum(-1)
+    return lse, dl
 
 
 def _design(args) -> int:
@@ -214,6 +268,13 @@ def main(argv=None) -> int:
         # candidate: dk's fp32 sum over the block's Q-blocks
         dk_s = (ds64.bfloat16().float() @ qg.float()).double()
         rec["dk_sum"] = {"dk_share_moved": _share(dk_s, dk64)}
+        rec["all_blocks"] = _all_blocks(q, k, v, do, ld, inv, (dk, dv), (dk_p, dv_p), scale)
+        lse64, dl64 = _exact_ld(q, k, v, do, lut, h, scale)
+        ld_p = sb.sparse_bwd_dq_plain(q, k, v, do, lut, BQ, BK, scale, L)[1]
+        rec["k23_ld_vs_f64"] = {
+            name: {"lse": float((x[h, :L, 0].double() - lse64).abs().max()),
+                   "delta": float((x[h, :L, 1].double() - dl64).abs().max())}
+            for name, x in (("kernel", ld), ("plain", ld_p))}
         print(json.dumps(rec), flush=True)
         del q, k, v, do, ld, dk, dv, dk_p, dv_p
         torch.cuda.empty_cache()

@@ -74,7 +74,7 @@
 //    default path, reached by 64/64 or 192/320 blocks through the
 //    model.attention overrides; a 128-row tile would hold two Q blocks with
 //    two LUT rows)
-//    keeps the first design (row_tiles.cuh, K23's shape): mma.sync m16n8k16,
+//    keeps the first design (row_tiles.cuh, K23's first shape): mma.sync m16n8k16,
 //    one block of 4 warps owning 64 query rows, synchronous loads of K, dK
 //    and V, dV (transposed) in 64-key chunks, two 32-key steps a chunk.
 // Head dim 128 only; strides and bases 16-byte aligned (TMA, 16-byte

@@ -1,5 +1,5 @@
 // What the Hopper kernels share (K3 / K4 / K20, K6, K7 / K19 / K28, K9, K10 /
-// K11, K14 / K17, K22):
+// K11, K14 / K17, K22, K23 / K24, K25 / K26):
 // mbarriers, thread-block clusters and their distributed shared memory, TMA
 // tile copies with 128-byte swizzle and their tensor maps, wgmma descriptors
 // and the wgmma instructions the kernels issue, and the register-level steps
@@ -474,8 +474,14 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+// The encoder checks the address against the calling thread's current
+// context, and a thread that has made no runtime call yet has none (the
+// autograd engine's backward thread, where K23 / K24 run): the first call
+// in each thread binds the device's primary context.
 EncodeTiledFn encode_tiled() {
+  static thread_local const cudaError_t bound = cudaFree(nullptr);
+  (void)bound;
   static EncodeTiledFn fn = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;

@@ -159,6 +159,9 @@ SIGNATURES = {
     # scale, stream
     "tdx_sparse_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_I64] * 18
                                     + [_F, _P],
+    # the tile rows K23 (pass 0) or K24 (pass 1) take (128, 64, -1 refused):
+    # pass, block_q, block_k, kv_len, int64[12] strides (q, k, v, dout)
+    "tdx_sparse_attention_bwd_form": [_I, _I, _I, _I, _PI64],
     # q, k, v, dq, dk, dv, o, dout, B, H, Lq, kv_len, 24 strides (q, k, v,
     # dq, dk, dv, o, dout: batch, token, head), scale, stream
     "tdx_flash_attention_jvp": [_P] * 8 + [_I] * 4 + [_PI64, _F, _P],
