@@ -7,11 +7,13 @@ Phases, each printing one line of its numbers:
   1. device and build: the card's name and power limit (nvidia-smi), the
      time to build the CUDA kernels from `turbodiffusion_tpu_torch/csrc/`
      and each kernel's ptxas registers (K1 / K12, K2, K5 and K16's row
-     kernels and K6's reduce must not spill, nor the wgmma kernels, K14 /
-     K17's `k14::cross_qout_kernel`, K4 / K3 / K20's `k4::flash_fwd_kernel<0>`
-     / `<1>` / `<2>`, K7 / K28 / K19's `k7::sparse_i8_vt_kernel<0>` / `<1>` /
-     `<2>` and K6's `k6::pack_kvt_kernel`, spill or serialize their wgmmas:
-     ptxas C7514);
+     kernels and K6's and K21's reduces must not spill, nor the wgmma
+     kernels, K14 / K17's `k14::cross_qout_kernel`, K4 / K3 / K20's
+     `k4::flash_fwd_kernel<0>` / `<1>` / `<2>`, K7 / K28 / K19's
+     `k7::sparse_i8_vt_kernel<0>` / `<1>` / `<2>`, K6's
+     `k6::pack_kvt_kernel`, K21's `k21::kv_kernel` / `k21::apply_kernel`,
+     K25 / K26's and K23 / K24's, spill or serialize their wgmmas: ptxas
+     C7514);
   2. every kernel of the paths against its plain PyTorch version on the
      card, at the paths' shapes (480p/81f: 32,760 tokens, 512 text tokens,
      heads of 128, sagesla blocks 512/256; Wan2.1-1.3B: 12 heads, dim 1536,
@@ -51,7 +53,13 @@ Phases, each printing one line of its numbers:
      (K19 in its wgmma form, K7's kernel with a K and a V scale a key, at
      512/256), K20 in its wgmma form (K4's kernel on int8 Q and K rows,
      64-key chunks) at blocks 64/64 with 51 of 512 K blocks, each check
-     asserting its form, K21 over the planes and over (B, L, H, D); K6's
+     asserting its form, K21 in its wgmma form over the planes and over
+     (B, L, H, D), its kv / ksum against float64 sums at rtol / atol 1e-4
+     at 12 heads (planes, bf16 V past fp16's range: rejecting V through
+     fp16 and a 64-row chunk left out) and 40 (views, int8-valued V:
+     rejecting phi in two bf16 parts and the chunk left out), and its
+     output's mean |o - float64| at most 1.1x the earlier fp32 kernel's on
+     the same draws (`K21_PARENT_MEAN_ERR`); K6's
      kv against float64 sums as at 40 heads (below); K4 also at batch 2, at a ragged Lq of 1,000, at
      kv_len 500 of 512 with NaN in k and v past it, with q, k and v read in
      place as fused-QKV column groups (q sharp, rejecting the scale
@@ -272,6 +280,13 @@ ATOL, RTOL = 2e-2, 2e-2           # bf16 kernel vs plain version on the card
 # K19-K21: outputs of order 0.03 (K19, K20: near-flat softmax over ~3,000
 # keys) to 1 (K21's inputs); an atol a fifth of ATOL fails each planted fault
 SHARP_ATOL = 4e-3
+# K21's output against the float64 branch on the draws of `k21_f64_inputs`:
+# the mean |o - float64| that K21's earlier fp32 kernel (CUDA cores, before
+# its wgmma design) gave there (`python tools/time_k21.py --smoke --root
+# <that checkout>`, H100 80GB HBM3, 700 W); the check holds the kernel to at
+# most 1.1x of it
+K21_PARENT_MEAN_ERR = {"planes-12-beyond": 15.982605682560513,
+                       "bhld-40-int8": 0.0004563855515251652}
 # K25 / K26's do = acc_t / l - mu o subtracts terms of up to ~25 (q of std
 # 3) whose bf16-rounded P dS the kernel rounds at the running max of the
 # online softmax and the plain version at the row's final max, as the TPU
@@ -597,9 +612,10 @@ def phase1():
 
 
 _ROW_KERNELS = ("mln_rows_kernel", "rmsrope_rows_kernel", "head_planes_rows_kernel",
-                "unfold_quant_wide_kernel", "k6::kv_reduce_kernel")
+                "unfold_quant_wide_kernel", "k6::kv_reduce_kernel", "k21::kv_reduce_kernel")
 _WGMMA_KERNELS = ("k14::cross_qout_kernel", "k4::flash_fwd_kernel", "k7::sparse_i8_vt_kernel",
-                  "k6::pack_kvt_kernel", "k25::jvp_fwd_kernel", "kbwd::bwd_kernel")
+                  "k6::pack_kvt_kernel", "k25::jvp_fwd_kernel", "kbwd::bwd_kernel",
+                  "k21::kv_kernel", "k21::apply_kernel")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -805,14 +821,15 @@ def phase2(reps: int = REPS):
     ] + (_k7_edge_checks(q, k, Qp, Kp, k_mean, vi, vcs) + _w8a8_checks(randn, x, G13)
          + _int8_feed_checks(randn, x, ms, mb, w, bias, kt, vt, sdpa))
     mode_checks, tails = _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v)
+    k21_checks, k21_means = _k21_f64_checks()
     bwd_checks, bwd_extra = _bwd_checks(randn)
     jvp_checks, jvp_extra = _jvp_checks(randn, sdpa)
     last_checks, last_extra = _last_checks(randn, xq, w, cosF, sinF, Kp,
                                            k_mean, Vp, k, v, sdpa)
-    results = _run_checks(checks + mode_checks + _block_gemm_checks(randn)
+    results = _run_checks(checks + mode_checks + k21_checks + _block_gemm_checks(randn)
                           + bwd_checks + jvp_checks + last_checks, reps)
     _poisoned_tail(i8_args, scale)
-    for tail in (*tails, bwd_extra, _k24_seeds, jvp_extra, last_extra):
+    for tail in (*tails, bwd_extra, _k24_seeds, jvp_extra, last_extra, k21_means):
         tail()
     # a kernel this slice's path (the 14B) runs reports its 14B numbers,
     # with the worst error of all its checks
@@ -2045,6 +2062,129 @@ def _k16_faults(planes, L: int) -> dict:
             "a half-integer rounded away from even": away_from_even}
 
 
+def _k21_form(q, k, v, kv_len: int, bhld: bool = False) -> str:
+    """The form K21's launch takes on these views (out laid out as q)."""
+    from turbodiffusion_tpu_torch.ops import linear_attention as la
+    if bhld:
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    views = (q, k, v, q)
+    return la.linear_form(q.shape[0], q.shape[1], q.shape[2], kv_len,
+                          [t.data_ptr() for t in views],
+                          [t.stride(i) for t in views for i in range(3)])
+
+
+def k21_f64_inputs(case: str):
+    """The inputs of K21's float64 checks, from a generator of their own
+    (`tools/time_k21.py --smoke` draws them too): (q, k, v, proj_l weight,
+    bias, layout). `planes-12-beyond`: (1, 12, 32,768, 128) planes with
+    32,760 live rows (NaN past them) and bf16 V past fp16's range (rows 3,
+    19, ... at 2^17 (1 + |N(0, 1)|), rows 7, 23, ... at 2^-20 N(0, 1));
+    `bhld-40-int8`: (1, 32,760, 40, 128) views with V of uniform int8
+    values (|kv| ~ 100, where plain fp32 sums drift)."""
+    import torch
+    randn = _fresh_randn(2100 if case.startswith("planes") else 2140)
+    heads = int(case.split("-")[1])
+    if case.startswith("planes"):
+        shape, rows = (B, heads, LP, DH), 2
+    else:
+        shape, rows = (B, L, heads, DH), 1
+    q, k = randn(*shape, std=2.0), randn(*shape, std=2.0)
+    if case.endswith("beyond"):
+        v = randn(*shape, dtype=torch.float32)
+        big = v.narrow(rows, 3, shape[rows] - 3).unfold(rows, 1, 16)
+        big.copy_(2.0 ** 17 * (1 + big.abs()))
+        v.narrow(rows, 7, shape[rows] - 7).unfold(rows, 1, 16).mul_(2.0 ** -20)
+        v = v.bfloat16()
+    else:
+        v = (randn(*shape, dtype=torch.float32) * 50).round().clamp(-127, 127).bfloat16()
+    if rows == 2:
+        k[:, :, L:], v[:, :, L:] = float("nan"), float("nan")
+    w = randn(DH, DH, dtype=torch.float32, std=DH ** -0.5)
+    b = randn(DH, dtype=torch.float32, std=0.01)
+    return q, k, v, w, b, "planes" if rows == 2 else "bhld"
+
+
+def k21_f64(q, k, v, w, b, layout: str, phi_of=None, v_of=None):
+    """(kv, ksum, o) of the branch in float64 over the live rows L, as
+    (B, H, ...) tensors; phi_of / v_of alter phi (float64) or v (a planted
+    fault)."""
+    import torch
+    if layout == "bhld":
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    k, v = k[:, :, :L], v[:, :, :L]
+    pk = torch.softmax(k.double(), -1)
+    pk = phi_of(pk) if phi_of else pk
+    vd = v_of(v).double() if v_of else v.double()
+    kv = torch.matmul(pk.transpose(-1, -2), vd)
+    ksum = pk.sum(2, keepdim=True)
+    pq = torch.softmax(q[:, :, :L].double(), -1)
+    o = (torch.matmul(pq, torch.matmul(kv, w.double().t()))
+         / (1e-5 + (pq * ksum).sum(-1, keepdim=True)) + b.double())
+    return kv, ksum, o
+
+
+def k21_output(la, q, k, v, w, b, layout: str):
+    """K21's output over the live rows as (B, H, L, 128), launched as the
+    path launches it (`la` the port's linear_attention module)."""
+    if layout == "planes":
+        return la.linear_projected_planes(q, k, v, w, b, L)[:, :, :L]
+    return la.linear_attention_projected(q, k, v, w, b).transpose(1, 2)
+
+
+def _k21_f64_checks():
+    """K21 against float64 (`k21_f64_inputs`): its kv / ksum at rtol / atol
+    1e-4 of the float64 sums at 12 heads (planes, V past fp16's range:
+    rejecting V taken through fp16, and a 64-row chunk left out) and at 40
+    (views, int8-valued V: rejecting phi split into two bf16 parts, as
+    round-to-nearest hi + lo, and the chunk left out); and a tail holding its
+    output's mean |o - float64| to at most 1.1x the earlier fp32 kernel's
+    on the same draws (`K21_PARENT_MEAN_ERR`)."""
+    import torch
+    from turbodiffusion_tpu_torch.ops import linear_attention as la
+    checks, means = [], []
+    for case in K21_PARENT_MEAN_ERR:
+        q, k, v, w, b, layout = k21_f64_inputs(case)
+        H = q.shape[1] if layout == "planes" else q.shape[2]
+        qv, kv_, vv = ((q, k, v) if layout == "planes"
+                       else (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+        kv64, ks64, o64 = k21_f64(q, k, v, w, b, layout)
+
+        def two_bf16(pk):
+            hi = pk.float().bfloat16().double()
+            return hi + (pk.float() - hi.float()).bfloat16().double()
+
+        def chunk_out(kv_=kv_, vv=vv, kv64=kv64, ks64=ks64):
+            pk = torch.softmax(kv_[:, :, 64:128].double(), -1)
+            kv = kv64.clone()
+            kv[:, 0] -= torch.matmul(pk[:, 0].transpose(-1, -2), vv[:, 0, 64:128].double())
+            return kv, ks64
+
+        faults = {"a 64-row chunk of head 0 left out": chunk_out}
+        if case.endswith("beyond"):
+            faults["V taken through fp16"] = (
+                lambda a=(q, k, v, w, b, layout): k21_f64(*a, v_of=lambda t: t.half())[:2])
+        else:
+            faults["phi split into two bf16 parts"] = (
+                lambda a=(q, k, v, w, b, layout): k21_f64(*a, phi_of=two_bf16)[:2])
+        checks.append(Check(
+            "K21", f"kv / ksum against float64 sums, {case} "
+            f"{_form(_k21_form(q, k, v, L, bhld=layout == 'bhld'), 'wgmma', f'K21 {case}')}",
+            lambda kv_=kv_, vv=vv: la._linear_kv_sums(kv_, vv, L), lambda a=(kv64, ks64): a,
+            (kv_[:, :, :L], vv[:, :, :L]), {"bf16": 3 * 2 * B * H * L * DH * DH},
+            atol=1e-4, rtol=1e-4, faults=faults))
+
+        def mean_tail(case=case, args=(q, k, v, w, b, layout), o64=o64):
+            got = float((k21_output(la, *args).double() - o64).abs().mean())
+            parent = K21_PARENT_MEAN_ERR[case]
+            if got > 1.1 * parent:
+                raise AssertionError(f"K21 {case}: mean |o - float64| {got:.6g} against "
+                                     f"1.1x the earlier fp32 kernel's {parent}")
+            print(f"phase2 K21 {case} mean |o - float64| {got:.6g} ({got / parent:.4f}x "
+                  f"the earlier fp32 kernel's {parent:.6g})", flush=True)
+        means.append(mean_tail)
+    return checks, lambda: [m() for m in means]
+
+
 def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
     """Phase-2 checks of K18-K21 at the 1.3B 480p shapes, and their
     poisoned-tail checks (returned to run after the timed checks): K18 and
@@ -2100,7 +2240,9 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
 
     sharp = dict(atol=SHARP_ATOL, rtol=RTOL)
 
-    lin_ops = {"fp32": 2 * B * HEADS * (L + LP) * DH * DH}
+    # K21: three bf16 products a row in each pass (kv over the live rows,
+    # apply over every q row), on the tensor cores
+    lin_ops = {"bf16": 3 * 2 * B * HEADS * (L + LP) * DH * DH}
     checks = [
         Check("K18", f"pack K|V per row {HEADS}x{LP}x{DH}",
               lambda: sf._subquant_pack_kv_cuda(Kp["bf16"], k_mean, Vr["i8"]),
@@ -2130,7 +2272,8 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
               **sharp, faults={"last LUT entry dropped": lambda:
                                fa._sparse_flash_i8qk_cuda(q, ks_, v, lut64[..., :-1],
                                                           bk64, bk64, scale, L)}),
-        Check("K21", f"linear branch over planes {HEADS}x{LP}x{DH}",
+        Check("K21", f"linear branch over planes {HEADS}x{LP}x{DH} "
+              f"{_form(_k21_form(qp, kp, vp, L), 'wgmma', 'K21 over planes')}",
               k21_planes,
               lambda: la.linear_projected_planes_plain(qp, kp, vp, w21, pb, L),
               (qp, kp[:, :, :L], vp[:, :, :L], w21, pb), lin_ops, **sharp,
@@ -2138,10 +2281,11 @@ def _mode_checks(randn, Qp, Kp, k_mean, xv, lut8, q, k, v):
                       lambda: k21_planes(w_=torch.zeros_like(w21)),
                       "v read from k": lambda: k21_planes(v_=kp),
                       "q doubled": lambda: k21_planes(q_=qp * 2)}),
-        Check("K21", f"linear branch over (B, L, H, D) {L}x{HEADS}x{DH}",
+        Check("K21", f"linear branch over (B, L, H, D) {L}x{HEADS}x{DH} "
+              f"{_form(_k21_form(q21, k21, v21, L, bhld=True), 'wgmma', 'K21 over (B, L, H, D)')}",
               lambda: la.linear_attention_projected(q21, k21, v21, w21, pb),
               lambda: la.linear_attention_projected_plain(q21, k21, v21, w21, pb),
-              (q21, k21, v21, w21, pb), {"fp32": 4 * B * HEADS * L * DH * DH},
+              (q21, k21, v21, w21, pb), {"bf16": 3 * 4 * B * HEADS * L * DH * DH},
               **sharp, faults={"proj_l weight zeroed (bias alone)": lambda:
                                la.linear_attention_projected(
                                    q21, k21, v21, torch.zeros_like(w21), pb)}),
@@ -3715,13 +3859,13 @@ PROFILE_CATEGORIES = [
     ("K20/K30 int8 rows", ("i8qk_quant_kernel",)),
     ("K5", ("head_planes_rows_kernel",)), ("K6", ("k6::",)),
     ("K27", ("subquant_block_kernel",)),
-    ("K21 linear kv", ("linear_kv_",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
+    ("K21 kv", ("k21::kv",)), ("K7", ("sparse_i8_vt_kernel<0>",)),
     ("K18", ("subquant_pack_kv_kernel<true>",)),
     ("K29", ("subquant_pack_kv_kernel<false>",)),
     ("K19", ("sparse_i8_planes_kernel<false>", "sparse_i8_vt_kernel<2>")),
     ("K28", ("sparse_i8_planes_kernel<true>", "sparse_i8_vt_kernel<1>")),
     ("K30", ("flash_i8qk_kernel",)),
-    ("K21 apply", ("linear_apply_kernel",)),
+    ("K21 apply", ("k21::apply_kernel",)),
     # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold
     # "gemm"
     ("K8", ("quantize_rows_kernel",)), ("K9", ("postscale_gemm_kernel",)),

@@ -315,7 +315,8 @@ def test_form_functions_agree_with_the_c_entries(dev):
     `fa.sparse_flash_i8qk_form`, `si8.sparse_i8_planes_form` and
     `si8.sparse_i8_planes_bs_form`, `fj.jvp_form` and `sb.bwd_form` the
     form (or the refusal) of K3's, K20's, K19's, K28's, K25 / K26's and
-    K23 / K24's C queries, over blocks, lengths and strides."""
+    K23 / K24's C queries, over blocks, lengths and strides; `la.linear_form`
+    K21's, over lengths, strides and pointer offsets."""
     from turbodiffusion_tpu_torch.ops import _build
     lib = _build.load()
     base = 1 << 20
@@ -396,6 +397,18 @@ def test_form_functions_agree_with_the_c_entries(dev):
                 assert py_form(si8.sparse_i8_planes_form, Lp, Lkp, kv_len, bq, bk) == \
                     lib.tdx_sparse_attention_i8_planes_form(Lp, Lkp, kv_len, bq, bk), \
                     (Lp, Lkp, kv_len, bq, bk)
+    # K21: 1 its wgmma passes, -1 refused
+    bhld, planes = [L * 1536, 128, 1536], [12 * LP * 128, LP * 128, 128]
+    for B, H, Lq, kv_len in ((1, 12, LP, L), (2, 40, L, L), (1, 12, 40, 40), (1, 1, 1, 1),
+                             (1, 12, 0, L), (1, 12, L, 0), (0, 12, L, L)):
+        for st in (bhld * 4, planes * 4, [3 * L * 1536, 128, 3 * 1536] * 3 + bhld,
+                   planes * 3 + [L * 1540, 128, 1540], bhld * 3 + [0, 128, 1536],
+                   [L * 1532, 128, 1532] + bhld * 3):
+            for off in (0, 2, 16):
+                ptrs = [base, base + off, base + 4096, base + 8192]
+                arr = (ctypes.c_int64 * 12)(*st)
+                assert py_form(la.linear_form, B, H, Lq, kv_len, ptrs, st) == \
+                    lib.tdx_linear_form(*ptrs, B, H, Lq, kv_len, arr), (B, H, Lq, kv_len, st, off)
 
 
 @pytest.mark.cuda
@@ -1842,26 +1855,86 @@ def test_k20_wgmma_form_matches_plain(dev, bq, bk, case):
         assert torch.equal(poisoned, got)
 
 
+def _v_beyond_fp16(dev, shape, seed, row_dim):
+    """bf16 V of N(0, 1) whose rows 3, 19, ... lie at 2^17 (1 + |N(0, 1)|),
+    past fp16's 65,504, and rows 7, 23, ... at 2^-20 N(0, 1), below fp16's
+    normal 2^-14 (the large rows share a sign: a kv element that cancels
+    +-2^17 terms to ~0.1 is beyond any fp32 sum)."""
+    v = _randn(dev, *shape, seed=seed)
+    big = v.narrow(row_dim, 3, shape[row_dim] - 3).unfold(row_dim, 1, 16)
+    big.copy_(2.0 ** 17 * (1 + big.abs()))
+    v.narrow(row_dim, 7, shape[row_dim] - 7).unfold(row_dim, 1, 16).mul_(2.0 ** -20)
+    return v.bfloat16()
+
+
+# (layout, B, heads, live rows, rows, V): planes (B, H, rows, 128) with
+# rows past the live ones NaN, or (B, L, H, 128) views; V of N(0, 2^2),
+# uniform int8 values, or past fp16's range
+K21_CASES = {
+    "planes, 2 heads, L 2500": ("planes", 1, HEADS, 2500, 2560, "normal"),
+    "bhld, 2 heads, L 700": ("bhld", 1, HEADS, 700, 700, "normal"),
+    "planes, 40 heads, L 3000": ("planes", 1, 40, 3000, 3072, "normal"),
+    "bhld, 40 heads, L 1000": ("bhld", 1, 40, 1000, 1000, "normal"),
+    "planes, kv_len 40 (under a chunk)": ("planes", 1, 12, 40, 64, "normal"),
+    "planes, kv_len 130 (three chunks)": ("planes", 1, 12, 130, 192, "normal"),
+    "bhld, batch 2, 12 heads": ("bhld", 2, 12, 500, 500, "normal"),
+    "bhld, V past fp16's range": ("bhld", 1, 12, 3000, 3000, "beyond"),
+    "planes, 40 heads, int8-valued V": ("planes", 1, 40, 3000, 3072, "int8"),
+}
+
+
 @pytest.mark.cuda
-def test_k21_matches_plain(dev):
-    """Both forms: planes with NaN rows past the true length (which stay out
-    of kv / ksum) and (B, L, H, D) views read through strides."""
-    L, Lp = 2500, 2560                 # two kv partial chunks
-    qp, kp, vp = (_randn(dev, 1, HEADS, Lp, DH, seed=s, std=2.0).bfloat16()
-                  for s in (38, 39, 40))
+@pytest.mark.parametrize("case", list(K21_CASES))
+def test_k21_matches_plain(dev, case):
+    """K21 in its wgmma form (`la.linear_form`) over planes with NaN rows
+    past the true length (which stay out of kv / ksum) and over (B, L, H, D)
+    views read through strides, at 2, 12 and 40 heads, kv_len under one
+    64-row chunk and across several, batch 2, bf16 V past fp16's range and
+    int8-valued V: the output against the plain version (the file's bf16
+    tolerance; rtol 2^-7, one bf16 step, where |o| reaches hundreds), kv and
+    ksum as `_assert_kv_sums` holds them against float64 sums, and a second
+    launch bit-identical."""
+    layout, B, H, L, rows, vk = K21_CASES[case]
     w = _randn(dev, DH, DH, seed=41, std=0.05)
     b = _randn(dev, DH, seed=42, std=0.1)
-    want = la.linear_projected_planes_plain(qp, kp, vp, w, b, L)
-    kp[:, :, L:], vp[:, :, L:] = float("nan"), float("nan")
+    shape = (B, H, rows, DH) if layout == "planes" else (B, rows, H, DH)
+    q, k = (_randn(dev, *shape, seed=s, std=2.0).bfloat16() for s in (38, 39))
+    if vk == "beyond":
+        v = _v_beyond_fp16(dev, shape, 40, 2 if layout == "planes" else 1)
+    elif vk == "int8":
+        v = torch.from_numpy(np.random.RandomState(40).randint(
+            -127, 128, shape).astype(np.float32)).to(dev).bfloat16()
+    else:
+        v = _randn(dev, *shape, seed=40, std=2.0).bfloat16()
     before = la._linear_projected_cuda.launches
-    got = la.linear_projected_planes(qp, kp, vp, w, b, L)
-    assert la._linear_projected_cuda.launches == before + 1
-    _close(got[:, :, :L], want[:, :, :L])
-    q, k, v = (_randn(dev, 1, 700, HEADS, DH, seed=s, std=2.0).bfloat16()
-               for s in (43, 44, 45))
-    got = la.linear_attention_projected(q, k, v, w, b)
+    if layout == "planes":
+        want = la.linear_projected_planes_plain(q, k, v, w, b, L)
+        k[:, :, L:], v[:, :, L:] = float("nan"), float("nan")
+        got = la.linear_projected_planes(q, k, v, w, b, L)
+        again = la.linear_projected_planes(q, k, v, w, b, L)
+        got, want, again = got[:, :, :L], want[:, :, :L], again[:, :, :L]
+        qv, kv_, vv = q, k, v
+    else:
+        want = la.linear_attention_projected_plain(q, k, v, w, b)
+        got = la.linear_attention_projected(q, k, v, w, b)
+        again = la.linear_attention_projected(q, k, v, w, b)
+        qv, kv_, vv = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     assert la._linear_projected_cuda.launches == before + 2
-    _close(got, la.linear_attention_projected_plain(q, k, v, w, b))
+    assert la.linear_form(B, H, qv.shape[2], L, [t.data_ptr() for t in (qv, kv_, vv, qv)],
+                          [t.stride(i) for t in (qv, kv_, vv, qv) for i in range(3)]) == "wgmma"
+    if vk == "normal":
+        _close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=2.0 ** -7)
+    assert torch.equal(got, again)
+    sums = la._linear_kv_sums(kv_, vv, L)
+    valid = (torch.arange(kv_.shape[2], device=dev) < L)[:, None]
+    pk = torch.where(valid, torch.softmax(kv_.double(), -1), 0.0)
+    exact = (torch.matmul(pk.transpose(-1, -2), torch.where(valid, vv.double(), 0.0)),
+             pk.sum(2, keepdim=True))
+    _assert_kv_sums(sums, la.linear_kv_plain(kv_, vv, L), exact)
+    rerun = la._linear_kv_sums(kv_, vv, L)
+    assert torch.equal(rerun[0], sums[0]) and torch.equal(rerun[1], sums[1])
 
 
 # ---------------------------------------------------------------------------

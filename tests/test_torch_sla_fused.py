@@ -397,17 +397,20 @@ def test_kvt_runs_by_shape(shape, grid):
 def test_kvt_constants_match_the_kernel_source():
     """The largest block, a partial's floats, the longest run, the grid,
     the run split and the slot rule the wrapper assumes are the CUDA
-    source's (`k6::`); K16's widest
+    source's (`k6::` and the `linear_kv.cuh` it shares with K21); K16's widest
     row is 20 vectors of 8 values a lane of a warp."""
     import re
     from pathlib import Path
     src = (Path(sf.__file__).resolve().parent.parent / "csrc" / "sla_fused.cu").read_text()
-    k6 = src[src.index("namespace k6 {"):src.index("}  // namespace k6")]
+    # K6's namespace and what it takes from the header it shares with K21
+    k6 = (src[src.index("namespace k6 {"):src.index("}  // namespace k6")]
+          + (Path(sf.__file__).resolve().parent.parent / "csrc" / "linear_kv.cuh").read_text())
     assert int(re.search(r"constexpr int kMaxBlockK = (\d+);", k6).group(1)) == sf._KVT_MAX_BLOCK
     assert "constexpr int kSlot = (kDh + 1) * kDh;" in k6 and sf._KVT_SLOT == 129 * 128
     assert "return (int)((long long)i * total / grid);" in k6
     assert "return (int)(((long long)(blk + 1) * grid - 1) / total);" in k6
-    assert "const int slot = run_start(i, total, grid) / nK == bh ? 0 : 1;" in k6
+    assert "const int slot = run_start(i, total, grid) / n == bh ? 0 : 1;" in k6
+    assert "linkv::reduce_partials(part, kv, ksum, nK, total, grid);" in k6
     assert int(re.search(r"constexpr int kMaxRun = (\d+);", k6).group(1)) == sf._KVT_MAX_RUN
     assert ("const int waves = LINEAR ? (total + resident * kMaxRun - 1) / "
             "(resident * kMaxRun) : 1;") in k6

@@ -55,7 +55,9 @@ CASES = ("k6-12", "k6-12+kv", "k6-40", "k6-40+kv", "k16-480p", "k16-720p")
 # the design variants: (name, [(file under csrc/, its text, the
 # replacement), ...]). K6's runs with the linear branch at most 8 or 16 K
 # blocks, or any length in one wave (this tree: 24); K16 on 1 or 4 warps a
-# row (this tree: 2, 10 vectors a lane). The "-ablate" variants leave a piece of K6's work out (their
+# row (this tree: 2, 10 vectors a lane); K6's step fragments summed with a
+# Kahan compensation (ROADMAP Queue C 5; its kv_tol_ratio_f64 and its
+# time). The "-ablate" variants leave a piece of K6's work out (their
 # outputs are wrong; their times say what the piece costs): the exp's
 # residual correction, the kv products on the tensor cores, the
 # transposed V panel
@@ -69,7 +71,7 @@ DESIGNS = [
                   "constexpr int kWideRowWarps = 1;")]),
     ("k16-rw4", [("sla_fused.cu", "constexpr int kWideRowWarps = 2;",
                   "constexpr int kWideRowWarps = 4;")]),
-    ("k6-expfix-ablate", [("sla_fused.cu", "x[e] = fmaf(p2, r * kLn2, p2);", "x[e] = p2;")]),
+    ("k6-expfix-ablate", [("linear_kv.cuh", "return fmaf(p2, r * kLn2, p2);", "return p2;")]),
     ("k6-mma-ablate", [
         ("sla_fused.cu",
          "wgmma_f16_ss_mn_n64(frag, sw128_desc_mn(a_hi + ks16 * 2048, 0), db, ks16);", ""),
@@ -77,8 +79,29 @@ DESIGNS = [
          "")]),
     ("k6-fence-ablate", [("sla_fused.cu", "        fence_async_shared();\n        __syncthreads();\n"
                           "        // warpgroup g", "        __syncthreads();\n        // warpgroup g")]),
-    ("k6-phi-ablate", [("sla_fused.cu", "          const float p2 = ex2_approx(y);",
-                        "          const float p2 = y;")]),
+    ("k6-phi-ablate", [("linear_kv.cuh", "  const float p2 = ex2_approx(y);",
+                        "  const float p2 = y;")]),
+    ("k6-kahan", [
+        ("sla_fused.cu", "  float acc[LINEAR ? 32 : 1], frag[LINEAR ? 32 : 1], ksl[8];",
+         "  float acc[LINEAR ? 32 : 1], frag[LINEAR ? 32 : 1], ksl[8], comp[LINEAR ? 32 : 1];"),
+        ("sla_fused.cu", "  if constexpr (LINEAR) {\n#pragma unroll\n"
+         "    for (int i = 0; i < 32; ++i) acc[i] = 0.f;",
+         "  if constexpr (LINEAR) {\n#pragma unroll\n"
+         "    for (int i = 0; i < 32; ++i) acc[i] = comp[i] = 0.f;"),
+        ("sla_fused.cu", "#pragma unroll\n        for (int i = 0; i < 32; ++i) acc[i] = 0.f;",
+         "#pragma unroll\n        for (int i = 0; i < 32; ++i) acc[i] = comp[i] = 0.f;"),
+        ("sla_fused.cu", "for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);",
+         "for (int i = 0; i < 32; ++i) {\n"
+         "          const float y = __fsub_rn(frag[i], comp[i]), t = __fadd_rn(acc[i], y);\n"
+         "          comp[i] = __fsub_rn(__fsub_rn(t, acc[i]), y);\n"
+         "          acc[i] = t;\n        }"),
+        ("sla_fused.cu", "make_float2(acc[4 * jn] * kPhiUnscale, acc[4 * jn + 1] * kPhiUnscale);",
+         "make_float2((acc[4 * jn] - comp[4 * jn]) * kPhiUnscale,\n"
+         "                          (acc[4 * jn + 1] - comp[4 * jn + 1]) * kPhiUnscale);"),
+        ("sla_fused.cu",
+         "make_float2(acc[4 * jn + 2] * kPhiUnscale, acc[4 * jn + 3] * kPhiUnscale);",
+         "make_float2((acc[4 * jn + 2] - comp[4 * jn + 2]) * kPhiUnscale,\n"
+         "                          (acc[4 * jn + 3] - comp[4 * jn + 3]) * kPhiUnscale);")]),
     ("k6-transpose-ablate", [("sla_fused.cu",
                               "  const int cq = u & 7, r8 = (r0 >> 3) + (u >> 3);",
                               "  return;\n  const int cq = u & 7, r8 = (r0 >> 3) + (u >> 3);")]),
@@ -116,7 +139,7 @@ def _ptxas() -> dict:
     out, name = {}, None
     for ln in _build.load().build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w*(pack_kvt_kernel|kv_reduce_kernel|"
-                      r"unfold_quant_wide_kernel|subquant_block_kernel|linear_kv_\w+)\w*)'", ln)
+                      r"unfold_quant_wide_kernel|subquant_block_kernel)\w*)'", ln)
         if m:
             name = m.group(2) + ("<true>" if "ILb1E" in m.group(1) else
                                  "<false>" if "ILb0E" in m.group(1) else "")

@@ -70,7 +70,9 @@
 //     and V rows arrive by two bulk copies (TMA) into one of two stages while
 //     the block before is worked: its statistic from shared memory, the int8
 //     K rows quantised from there (one read of K), V transposed 8 x 16 bytes
-//     a thread with byte permutes. With the linear branch, each 32-row step
+//     a thread with byte permutes. With the linear branch (the run split,
+//     the step's phi and the ordered reduce shared with K21's kv pass through
+//     linear_kv.cuh), each 32-row step
 //     writes 2^8 phi (phi = softmax_D(k)) split into fp16 hi + lo (hi =
 //     fp16(2^8 phi), lo = fp16(2^8 phi - hi): ~2^-22 of phi; a bf16 split,
 //     ~2^-17, left kv 5e-4 from its plain version at L = 3,000, past the
@@ -129,6 +131,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "linear_kv.cuh"
 #include "warp_rows.cuh"
 
 namespace {
@@ -384,18 +387,15 @@ namespace k6 {
 constexpr int kThreads = 512;              // four warpgroups: a kv quadrant each
 constexpr int kMaxBlockK = 256;
 constexpr int kSub = 32;                   // rows of one step of the kv product
-constexpr int kSlot = (kDh + 1) * kDh;     // floats of a partial: 128 kv rows, then ksum
+using linkv::kSlot;                        // floats of a partial: 128 kv rows, then ksum
 constexpr int kTileA = kSub * 128;         // bytes of a 64-channel fp16 phi tile
 constexpr int kTileB = 2 * kTileA;         // bytes of the fp16 V tile: two 64-channel boxes
 constexpr int kWork = 4 * kTileA + kTileB; // phi hi and lo of both halves, then V
-constexpr int kReduceThreads = 256;
+using linkv::kReduceThreads;
 // the most K blocks a run sums into its fp32 kv accumulators with the
 // linear branch: the rounding of those sums grows with a run's rows, so a
 // longer walk takes further waves of blocks instead
 constexpr int kMaxRun = 24;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLog2eLo = 1.925963033e-8f;   // log2(e) - fl(log2(e))
-constexpr float kLn2 = 0.6931471805599453f;
 // phi enters the products times 2^8, so that lo = fp16(2^8 phi - hi) stays a
 // normal fp16 down to phi ~ 2^-14 (below that its absolute error, 2^-33,
 // is nothing a sum of up to 10^5 terms of 127 can see); the partials undo it
@@ -410,15 +410,9 @@ inline size_t smem_bytes(int bk, bool linear) {
   return 1024 + 2 * (size_t)stage_bytes(bk) + (linear ? kWork : 0);
 }
 
-// first flat K block (b, h, K block in order) of block i of `grid`
-__host__ __device__ __forceinline__ int run_start(int i, int total, int grid) {
-  return (int)((long long)i * total / grid);
-}
-
-// the block whose run holds flat K block `blk`
-__host__ __device__ __forceinline__ int run_of(int blk, int total, int grid) {
-  return (int)(((long long)(blk + 1) * grid - 1) / total);
-}
+// the run split of the flat K blocks (b, h, K block in order)
+using linkv::run_of;
+using linkv::run_start;
 
 // 4 rows x 4 int8 channels (a word a row) -> 4 channels x 4 rows
 __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
@@ -450,16 +444,8 @@ __device__ __forceinline__ uint32_t pack_h2(float lo, float hi) {
   return u;
 }
 
-// 16-byte chunk q of row r of a 128-byte-swizzled tile
-__device__ __forceinline__ uint32_t sw_chunk(uint32_t tile, int r, int q) {
-  return tile + r * 128 + ((q ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
+using linkv::sts128;
+using linkv::sw_chunk;
 
 // rows r0 + 8 (u / 8) .. + 7 of a block's V rows (`vsm`, 128 bytes each)
 // and channels 16 (u % 8) .. + 15, transposed into the block's panel `vout`
@@ -587,33 +573,11 @@ pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ m
         float x[8];
         unpack8(valid ? *reinterpret_cast<const uint4*>(ksm + (r0 + rr) * 2 * kDh + l16 * 16)
                       : make_uint4(0u, 0u, 0u, 0u), x);
-        float mx = x[0];
-#pragma unroll
-        for (int e = 1; e < 8; ++e) mx = fmaxf(mx, x[e]);
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        // exp(t) = 2^y (1 + r ln 2), t = x - max exact (bf16 values), y =
-        // fl(t log2 e), r = t log2 e - y: only the SFU's 2^y rounds
-        float sum = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float t = __fsub_rn(x[e], mx), y = __fmul_rn(t, kLog2e);
-          const float r = fmaf(t, kLog2eLo, fmaf(t, kLog2e, -y));
-          const float p2 = ex2_approx(y);
-          x[e] = fmaf(p2, r * kLn2, p2);
-          sum += x[e];
-        }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        // 2^8 / sum (a row past kv_len: 0), the SFU's estimate and one
-        // Newton step (within an ulp)
-        float rs;
-        asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(sum));
-        rs = valid ? fmaf(fmaf(-sum, rs, 1.f), rs, rs) * kPhiScale : 0.f;
+        linkv::phi_row(x, valid, kPhiScale);
         uint32_t h[4], l[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float s0 = __fmul_rn(x[2 * e], rs), s1 = __fmul_rn(x[2 * e + 1], rs);
+          const float s0 = x[2 * e], s1 = x[2 * e + 1];
           ksl[2 * e] += s0;
           ksl[2 * e + 1] += s1;
           h[e] = pack_h2(s0, s1);
@@ -717,20 +681,7 @@ pack_kvt_kernel(const __nv_bfloat16* __restrict__ k, const float* __restrict__ m
 __global__ void __launch_bounds__(kReduceThreads)
 kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
                  float* __restrict__ ksum, int nK, int total, int grid) {
-  const int bh = blockIdx.y;
-  const int e = (blockIdx.x * kReduceThreads + threadIdx.x) * 4;
-  if (e >= kSlot) return;
-  const int i0 = run_of(bh * nK, total, grid), i1 = run_of(bh * nK + nK - 1, total, grid);
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = i0; i <= i1; ++i) {
-    const int slot = run_start(i, total, grid) / nK == bh ? 0 : 1;
-    const float4 q =
-        __ldcg(reinterpret_cast<const float4*>(part + ((size_t)i * 2 + slot) * kSlot + e));
-    sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;
-  }
-  float* out = e < kDh * kDh ? kv + (size_t)bh * kDh * kDh + e
-                             : ksum + (size_t)bh * kDh + (e - kDh * kDh);
-  *reinterpret_cast<float4*>(out) = sum;
+  linkv::reduce_partials(part, kv, ksum, nK, total, grid);
 }
 
 // the planes and blocks the kernel takes

@@ -111,9 +111,14 @@ SIGNATURES = {
     "tdx_subquant_pack_kv_blocks": [_P] * 5 + [_I] * 5 + [_P],
     # planes, mu, int8 planes, row scales, B*H, Lp, stream (K29)
     "tdx_subquant_planes": [_P] * 4 + [_I] * 2 + [_P],
-    # k, v, partials, kv, ksum, B, H, kv_len, n_chunks,
+    # k, v, partials (2 x blocks), kv, ksum, B, H, kv_len, blocks,
     # 6 strides (k, v: batch, head, row), stream
     "tdx_linear_kv": [_P] * 5 + [_I] * 4 + [_I64] * 6 + [_P],
+    # blocks of a K21 kv launch (0: refused): B, H, kv_len
+    "tdx_linear_kv_grid": [_I] * 3,
+    # the form K21 takes (1 wgmma, -1 refused): q, k, v, out, B, H, Lq,
+    # kv_len, int64[12] strides (q, k, v, out: batch, head, row)
+    "tdx_linear_form": [_P] * 4 + [_I] * 4 + [_PI64],
     # q, kvw, ksum, bias, out, B, H, Lq, 6 strides (q, out: batch, head,
     # row), stream
     "tdx_linear_apply": [_P] * 5 + [_I] * 3 + [_I64] * 6 + [_P],

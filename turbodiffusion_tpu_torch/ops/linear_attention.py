@@ -21,11 +21,17 @@ fp32:
   o = phi(q) @ kvw / (1e-5 + phi(q) . ksum) + b.
 Rows of q past the true length are garbage in, garbage out.
 
-The kv pass (csrc/linear_attention.cu): per-2048-row partials, then an
-ordered sum (K6 folds the same sums for int8 V into its own K/V walk).
+The kernels (csrc/linear_attention.cu): the kv pass (`k21::kv_kernel`,
+persistent blocks walking runs of 64-row chunks, phi^T V on wgmma from phi
+split exactly into three bf16 parts against bf16 V, Kahan-compensated fp32
+sums, one partial a run and head, then `k21::kv_reduce_kernel` adding a
+head's partials in run order) and the apply pass (`k21::apply_kernel`,
+phi(q) in registers split into bf16 hi / lo against kvw's hi / lo on
+wgmma). K6 folds the same kv sums for int8 V into its own K/V walk.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises. `_linear_projected_cuda.launches` counts the calls
-(two launches each: the kv pass with its reduce, then the apply).
+the kernels (`linear_form` names the one form) or raises.
+`_linear_projected_cuda.launches` counts the calls (three launches each:
+the kv pass, its reduce, then the apply).
 `linear_attention_projected` is differentiable (an autograd Function whose
 backward recomputes the plain version, JAX's custom VJP); the planes form
 is inference-only, as in JAX.
@@ -33,14 +39,18 @@ is inference-only, as in JAX.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from turbodiffusion_tpu_torch.ops import _build
 from turbodiffusion_tpu_torch.ops.flash_attention import _cdiv, _require
 from turbodiffusion_tpu_torch.ops.fused_norm import recompute_vjp
 
-# rows of one linear-kv partial sum (csrc/linear_attention.cu kLinRows)
-_LIN_ROWS = 2048
+# rows of a kv-pass chunk (csrc/linear_attention.cu k21::kRows) and floats
+# of a partial (linear_kv.cuh linkv::kSlot: 128 kv rows, then ksum)
+_KV_ROWS = 64
+_SLOT = (128 + 1) * 128
 
 
 def _softmax_d(x):
@@ -100,11 +110,34 @@ def _strides3(t):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
-def _check_rows(name: str, *ts):
-    for t in ts:
-        _require(t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-                 and t.data_ptr() % 16 == 0,
-                 f"{name} takes a unit last stride and 16-byte aligned rows")
+def linear_form(B: int, H: int, Lq: int, kv_len: int, ptrs, strides) -> str:
+    """The form a K21 launch takes (csrc/linear_attention.cu
+    `tdx_linear_form`): "wgmma", the TMA-fed wgmma kv and apply passes, for
+    q, k, v and out views with 16-byte aligned pointers (`ptrs`) and
+    positive (batch, head, row) strides of 8-element multiples (`strides`,
+    12: q, k, v, out); raises where no form computes."""
+    _require(B > 0 and H > 0 and Lq > 0 and kv_len > 0,
+             f"K21 takes B, H, Lq, kv_len > 0, got {B}, {H}, {Lq}, {kv_len}")
+    _require(B * H * _cdiv(max(Lq, kv_len), _KV_ROWS) < 2 ** 31,
+             "K21 takes fewer than 2^31 row chunks")
+    _require(all(p % 16 == 0 for p in ptrs), "K21 takes 16-byte aligned views")
+    _require(all(s > 0 and s % 8 == 0 for s in strides),
+             "K21 takes strides of positive 8-element multiples")
+    return "wgmma"
+
+
+def kv_grid(B: int, H: int, kv_len: int, resident: int) -> int:
+    """Blocks of a kv-pass launch (csrc/linear_attention.cu `k21::kv_grid`):
+    one a resident block (`resident`: SMs x blocks an SM), at least one a
+    (b, h) so that no run spans more than two heads, at most one a
+    64-row chunk."""
+    return min(B * H * _cdiv(kv_len, _KV_ROWS), max(max(1, resident), B * H))
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_grid_on_card(device: int, B: int, H: int, kv_len: int) -> int:
+    with torch.cuda.device(device):
+        return _build.load().tdx_linear_kv_grid(B, H, kv_len)
 
 
 def _linear_kv_sums(k, v, kv_len: int):
@@ -119,32 +152,40 @@ def _linear_kv_sums(k, v, kv_len: int):
     _require(v.shape == k.shape and v.device == dev and v.dtype == torch.bfloat16,
              "the linear kv pass takes bf16 v shaped like k")
     _require(0 < kv_len <= L, f"kv_len {kv_len} out of range")
-    _check_rows("the linear kv pass", k, v)
-    n_chunks = _cdiv(kv_len, _LIN_ROWS)
-    part = torch.empty((B, H, n_chunks, D + 1, D), dtype=torch.float32,
-                       device=dev)
+    grid = _kv_grid_on_card(dev.index if dev.index is not None
+                            else torch.cuda.current_device(), B, H, kv_len)
+    _require(grid > 0, "the linear kv pass refused the shape")
+    part = torch.empty((2 * grid, _SLOT), dtype=torch.float32, device=dev)
     kv = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
     ksum = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
     rc = _build.load().tdx_linear_kv(
         k.data_ptr(), v.data_ptr(), part.data_ptr(), kv.data_ptr(),
-        ksum.data_ptr(), B, H, kv_len, n_chunks, *_strides3(k), *_strides3(v),
+        ksum.data_ptr(), B, H, kv_len, grid, *_strides3(k), *_strides3(v),
         _build.stream_ptr(k))
     _build.check(rc, "tdx_linear_kv")
     return kv, ksum
 
 
 def _linear_projected_cuda(q, k, v, weight, bias, kv_len: int, out):
-    """Launch K21 over (B, H, L, D) views: the kv pass, kvw = kv @ W^T,
-    then the apply pass into `out` (a (B, H, Lq, D) bf16 view)."""
+    """Launch K21 over (B, H, L, D) views in its form (`linear_form`): the
+    kv pass, kvw = kv @ W^T, then the apply pass into `out` (a (B, H, Lq, D)
+    bf16 view)."""
     B, H, Lq, D = q.shape
     dev = q.device
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
              "K21 takes bf16 q, k, v")
     _require(q.shape[:2] == k.shape[:2] and q.shape[-1] == D,
              "K21 q (B, H, Lq, D) and k, v (B, H, Lk, D) must agree")
-    _check_rows("K21", q, out)
+    _require(out.shape == q.shape and out.dtype == torch.bfloat16
+             and out.device == dev, "K21 writes a bf16 out shaped like q")
+    _require(all(t.stride(-1) == 1 for t in (q, k, v, out)),
+             "K21 takes views with a unit channel stride")
+    linear_form(B, H, Lq, kv_len, [t.data_ptr() for t in (q, k, v, out)],
+                _strides3(q) + _strides3(k) + _strides3(v) + _strides3(out))
     w = weight.to(device=dev, dtype=torch.float32)
     b = bias.to(device=dev, dtype=torch.float32).contiguous()
+    if b.data_ptr() % 16:
+        b = b.clone()
     _require(w.shape == (D, D) and b.numel() == D,
              f"K21 proj_l must be ({D}, {D}) with {D} biases")
     kv, ksum = _linear_kv_sums(k, v, kv_len)
