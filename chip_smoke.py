@@ -131,8 +131,9 @@ Phases, each printing one line of its numbers:
      topk-0.3 LUT (38 of 128 K blocks; SHARP_ATOL; faults: a LUT entry
      dropped, the scale table shifted a block, vch left out; a poisoned
      tail; K7 on the same LUT beside it), K29 (1 LSB; fault: mu left out),
-     K30 dense int8-QK self 32,760 x 32,760 (faults: one K row's scale
-     doubled, kv_len one chunk short; SDPA beside it), each run twice
+     K30 dense int8-QK self 32,760 x 32,760 (K4's kernel in its dense
+     int8-QK form; faults: one K row's scale doubled, kv_len 64 keys short;
+     SDPA and K4 with bf16 QK on the same tensors beside it), each run twice
      bit-equal;
   3. one full-width `WanAttentionBlock` with seeded random non-zero weights
      at one 480p latent frame (1,560 tokens): at 1.3B `sla`, `sagesla`,
@@ -2354,7 +2355,8 @@ def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
     matters; planted fault: mu left out); K30 on the dense self shape
     32,760 x 32,760 with q of std 3 and smooth-k'd k (planted faults: one
     K row's scale doubled, the row that query 0 leans on most; the kv_len
-    mask one 64-key chunk short; SDPA of the shape timed beside it).
+    mask 64 keys short; SDPA of the shape and K4 with bf16 QK on the same
+    tensors timed beside it).
     Returns (checks, a function of the further checks: K28 with the rows
     past L of K|V poisoned to +127 leaves live rows bit-equal, two runs of
     each kernel bit-equal)."""
@@ -2447,9 +2449,11 @@ def _last_checks(randn, xq, w, cosF, sinF, Kp, k_mean, Vp, k, v, sdpa):
         Check("K30", f"dense int8-QK self {L}x{L}, q of std 3", k30,
               lambda: fa.flash_attention_i8qk_plain(q3, ks_, v, scale, L),
               (q3, ks_, v), {"int8": dense_ops, "bf16": dense_ops},
-              yardsticks={"SDPA of the shape (bf16 QK)": sdpa(q3, ks_, v)},
+              yardsticks={"SDPA of the shape (bf16 QK)": sdpa(q3, ks_, v),
+                          "K4 (bf16 QK) on the same tensors":
+                          lambda: fa._flash_cuda(q3, ks_, v, scale, L)},
               faults={f"K row {j}'s scale doubled": lambda: k30(k_=k_row2),
-                      "kv_len mask one chunk short": lambda: k30(kv_len=L - 64)}),
+                      "kv_len mask 64 keys short": lambda: k30(kv_len=L - 64)}),
     ]
 
     def extra():
@@ -3851,11 +3855,12 @@ PROFILE_CATEGORIES = [
     ("K14", ("cross_qout_kernel<false>",)), ("K15", ("row_rms_inv_kernel",)),
     ("K16", ("unfold_quant_wide_kernel",)), ("K17", ("cross_qout_kernel<true>",)),
     # K3 in either form (K4's kernel with the sparse walk, or the mma.sync
-    # loop), K4, K20 (K4's kernel in its int8-QK form; its first launches,
-    # the int8 rows, apart); K7, K28 and K19 in either form (K7's kernel by
+    # loop), K4, K20 and K30 (K4's kernel in its int8-QK forms; their first
+    # launches, the int8 rows, apart); K7, K28 and K19 in either form (K7's kernel by
     # its source layout, or the mma.sync loop)
     ("K3", ("sparse_flash_fwd_kernel", "flash_fwd_kernel<1>")),
     ("K4", ("flash_fwd_kernel<0>",)), ("K20", ("flash_fwd_kernel<2>",)),
+    ("K30", ("flash_fwd_kernel<3>",)),
     ("K20/K30 int8 rows", ("i8qk_quant_kernel",)),
     ("K5", ("head_planes_rows_kernel",)), ("K6", ("k6::",)),
     ("K27", ("subquant_block_kernel",)),
@@ -3864,7 +3869,6 @@ PROFILE_CATEGORIES = [
     ("K29", ("subquant_pack_kv_kernel<false>",)),
     ("K19", ("sparse_i8_planes_kernel<false>", "sparse_i8_vt_kernel<2>")),
     ("K28", ("sparse_i8_planes_kernel<true>", "sparse_i8_vt_kernel<1>")),
-    ("K30", ("flash_i8qk_kernel",)),
     ("K21 apply", ("k21::apply_kernel",)),
     # K8-K11 and K22 before the library GEMMs: K9's and K22's names hold
     # "gemm"

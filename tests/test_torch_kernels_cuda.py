@@ -1738,16 +1738,73 @@ def test_k29_matches_plain(dev):
     torch.testing.assert_close(sc, sc_p, rtol=1e-5, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("L,kv_len", [(1100, 1100), (300, 250)])
-def test_k30_matches_plain(dev, L, kv_len):
-    q = _randn(dev, 1, L, HEADS, DH, seed=52, std=3.0).bfloat16()
-    k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (53, 54))
-    k = k - k.mean(dim=1, keepdim=True)
+def _k30_run(q, k, v, kv_len):
+    """One K30 launch (exactly one counted), and a second that must be
+    bit-equal to it."""
     before = fa._flash_i8qk_cuda.launches
     got = fa._flash_i8qk_cuda(q, k, v, DH ** -0.5, kv_len)
     assert fa._flash_i8qk_cuda.launches == before + 1
+    assert torch.equal(fa._flash_i8qk_cuda(q, k, v, DH ** -0.5, kv_len), got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,kv_len", [(1100, 1100), (300, 250), (1000, 1000), (1024, 700),
+                                      (1024, 1024), (130, 1)])
+def test_k30_matches_plain(dev, L, kv_len):
+    """K30 (`k4::flash_fwd_kernel<3>`: K4's dense walk of 128-row tiles on
+    int8 Q and K) against its plain version: Lq a multiple of 128 or not,
+    kv_len a multiple of the chunk or not (down to one key); two runs
+    bit-equal, one launch each."""
+    q = _randn(dev, 1, L, HEADS, DH, seed=52, std=3.0).bfloat16()
+    k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (53, 54))
+    k = k - k.mean(dim=1, keepdim=True)
+    got = _k30_run(q, k, v, kv_len)
     _close(got, fa.flash_attention_i8qk_plain(q, k, v, DH ** -0.5, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [512, 500])
+def test_k30_cross_shape_matches_plain(dev, kv_len):
+    """K30 over 512 keys (the text's length) from 1,100 query rows."""
+    q = _randn(dev, 1, 1100, HEADS, DH, seed=55, std=3.0).bfloat16()
+    k, v = (_randn(dev, 1, 512, HEADS, DH, seed=s).bfloat16() for s in (56, 57))
+    k = k - k.mean(dim=1, keepdim=True)
+    got = _k30_run(q, k, v, kv_len)
+    _close(got, fa.flash_attention_i8qk_plain(q, k, v, DH ** -0.5, kv_len))
+
+
+@pytest.mark.cuda
+def test_k30_reads_fused_qkv_views_at_batch_2(dev):
+    """B = 2 with q, k and v strided views of one fused (B, L, 3, H, D)
+    tensor (rows 3 H D apart): read in place, as a contiguous copy reads."""
+    B, L = 2, 700
+    qkv = _randn(dev, B, L, 3, HEADS, DH, seed=58).bfloat16()
+    qkv[:, :, 0] *= 3
+    qkv[:, :, 1] -= qkv[:, :, 1].mean(dim=1, keepdim=True)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride(1) == 3 * HEADS * DH
+    got = _k30_run(q, k, v, L)
+    _close(got, fa.flash_attention_i8qk_plain(q, k, v, DH ** -0.5, L))
+    again = fa._flash_i8qk_cuda(q.contiguous(), k.contiguous(), v.contiguous(), DH ** -0.5, L)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 1e4])
+def test_k30_ignores_poisoned_rows_past_kv_len(dev, poison):
+    """K and V rows past kv_len hold NaN or 1e4: the output is the clean
+    inputs' output bit for bit (no key past kv_len is quantised, loaded or
+    weighed)."""
+    L, kv_len = 1100, 900
+    q = _randn(dev, 1, L, HEADS, DH, seed=59, std=3.0).bfloat16()
+    k, v = (_randn(dev, 1, L, HEADS, DH, seed=s).bfloat16() for s in (60, 61))
+    k = k - k.mean(dim=1, keepdim=True)
+    clean = _k30_run(q, k, v, kv_len)
+    pk, pv = k.clone(), v.clone()
+    pk[:, kv_len:], pv[:, kv_len:] = poison, poison
+    assert torch.equal(_k30_run(q, pk, pv, kv_len), clean)
+    _close(clean, fa.flash_attention_i8qk_plain(q, k, v, DH ** -0.5, kv_len))
 
 
 @pytest.mark.cuda

@@ -356,8 +356,8 @@ def test_k6_plain_matches_jax(L, bk, linear_kv):
 # 720p, more heads than resident blocks (a block a head at least), fewer K
 # blocks than resident blocks (a block a K block)
 KVT_GRIDS = [((1, 12, 128, 132), 132), ((1, 40, 128, 132), 264), ((2, 40, 128, 132), 528),
-             ((1, 40, 296, 132), 528), ((4, 40, 8, 132), 160), ((1, 2, 4, 132), 8),
-             ((1, 12, 12, 132), 132), ((1, 12, 48, 0), 24)]
+             ((1, 40, 296, 132), 528), ((4, 40, 8, 132), 160), ((4, 40, 2, 132), 160),
+             ((1, 2, 4, 132), 8), ((1, 12, 12, 132), 132), ((1, 12, 48, 0), 24)]
 
 
 @pytest.mark.parametrize("shape,grid", KVT_GRIDS,
@@ -392,6 +392,19 @@ def test_kvt_runs_by_shape(shape, grid):
         assert rows == nK
         for i, slot in plist:
             assert slot == (0 if runs[i][0] // nK == bh else 1)
+
+
+@pytest.mark.parametrize("heads", [12, 40])
+def test_kvt_runs_at_480p_stay_within_the_longest_run(heads):
+    """At the 1.3B and 14B 480p shapes (32,768 rows a head, 256-row blocks,
+    132 SMs) every run of K6's walk with the linear branch sums at most
+    `_KVT_MAX_RUN` K blocks (the run length bounds the rounding of its fp32
+    kv sums) and spans at most two heads."""
+    nK = 32768 // 256
+    grid = sf.kvt_grid(1, heads, 32768, 256, 132)
+    runs = sf.kvt_runs(heads * nK, grid)
+    assert max(e - a for a, e in runs) <= sf._KVT_MAX_RUN
+    assert all((e - 1) // nK - a // nK <= 1 for a, e in runs)
 
 
 def test_kvt_constants_match_the_kernel_source():

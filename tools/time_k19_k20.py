@@ -183,7 +183,8 @@ def _k30(args, base, randn, name: str) -> None:
                               2 * 4 * q.numel())}
     _run(args, rec, lambda: fa._flash_i8qk_cuda(q, k, v, scale, L),
          lambda: fa.flash_attention_i8qk_plain(q, k, v, scale, L),
-         ("flash_i8qk_kernel", "i8qk_quant"), ("flash_i8qk_kernel",), atol=2e-2)
+         ("flash_i8qk_kernel", "flash_fwd_kernel", "i8qk_quant"),
+         ("flash_i8qk_kernel", "flash_fwd_kernel"), atol=2e-2)
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,7 @@ without the linear branch's kv sums) and K16 (the wide int8 O feed,
 
 Usage:
   python tools/time_k6_k16.py [--root DIR] [--label NAME] [--cases ...]
-      [--rounds 7] [--reps 20]
+      [--rounds 7] [--reps 20] [--draws 1]
   python tools/time_k6_k16.py --design [--designs NAME,...] [--cases ...]
 
 Launches the port's launchers on seeded random inputs shaped as the fused
@@ -27,7 +27,8 @@ the kv sums also `bound_ms_design`, with the partial sums this tree's
 design writes and reads again) and the share of it the median reaches, the
 largest difference from the plain version on the same inputs (int8 in LSB,
 scales relative; kv and ksum also from float64 sums, and the largest ratio
-of that difference to rtol 1e-4 / atol 1e-4), the form the
+of that difference to rtol 1e-4 / atol 1e-4; with `--draws N` that ratio
+on N - 1 further draws too: `kv_tol_ratio_f64_draws`), the form the
 launch takes where the tree names one (K6's blocks and runs) and the card's
 name and power limit. `--root DIR` imports the package from the checkout at
 DIR (another tree unpacked beside this one), so two trees are timed by one
@@ -53,18 +54,80 @@ DH, L480, L720, BK = 128, 32760, 75600, 256
 CASES = ("k6-12", "k6-12+kv", "k6-40", "k6-40+kv", "k16-480p", "k16-720p")
 
 # the design variants: (name, [(file under csrc/, its text, the
-# replacement), ...]). K6's runs with the linear branch at most 8 or 16 K
-# blocks, or any length in one wave (this tree: 24); K16 on 1 or 4 warps a
+# replacement), ...]). K6's runs with the linear branch at most 8 or 12 K
+# blocks, or any length in one wave (this tree: 24); the repairs of its kv
+# sums' rounding tried for ROADMAP Queue C 5 (the Kahan compensation, kept
+# apart or carried in the fragment, with mu in shared memory or the updates
+# ordered; the runs' partials reduced in float64); K16 on 1 or 4 warps a
 # row (this tree: 2, 10 vectors a lane); K6's step fragments summed with a
 # Kahan compensation (ROADMAP Queue C 5; its kv_tol_ratio_f64 and its
 # time). The "-ablate" variants leave a piece of K6's work out (their
 # outputs are wrong; their times say what the piece costs): the exp's
 # residual correction, the kv products on the tensor cores, the
 # transposed V panel
+# K6's step sums under a Kahan compensation that costs no registers: the
+# fragment starts each step at minus the compensation (the first product
+# accumulates onto it), then t = acc + frag, frag = frag - (t - acc), acc =
+# t; a partial is acc + frag (K21's kv pass sums its fragments so)
+_K6_CARRY = [
+    ("sla_fused.cu",
+     "wgmma_f16_ss_mn_n64(frag, sw128_desc_mn(a_hi + ks16 * 2048, 0), db, ks16);",
+     "wgmma_f16_ss_mn_n64(frag, sw128_desc_mn(a_hi + ks16 * 2048, 0), db, 1);"),
+    ("sla_fused.cu", "for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);",
+     "for (int i = 0; i < 32; ++i) {\n"
+     "          const float t = __fadd_rn(acc[i], frag[i]);\n"
+     "          frag[i] = __fsub_rn(frag[i], __fsub_rn(t, acc[i]));\n"
+     "          acc[i] = t;\n        }"),
+    ("sla_fused.cu", "  if constexpr (LINEAR) {\n#pragma unroll\n"
+     "    for (int i = 0; i < 32; ++i) acc[i] = 0.f;",
+     "  if constexpr (LINEAR) {\n#pragma unroll\n"
+     "    for (int i = 0; i < 32; ++i) acc[i] = frag[i] = 0.f;"),
+    ("sla_fused.cu", "#pragma unroll\n        for (int i = 0; i < 32; ++i) acc[i] = 0.f;",
+     "#pragma unroll\n        for (int i = 0; i < 32; ++i) acc[i] = frag[i] = 0.f;"),
+    ("sla_fused.cu", "make_float2(acc[4 * jn] * kPhiUnscale, acc[4 * jn + 1] * kPhiUnscale);",
+     "make_float2(__fadd_rn(acc[4 * jn], frag[4 * jn]) * kPhiUnscale,\n"
+     "                          __fadd_rn(acc[4 * jn + 1], frag[4 * jn + 1]) * kPhiUnscale);"),
+    ("sla_fused.cu",
+     "make_float2(acc[4 * jn + 2] * kPhiUnscale, acc[4 * jn + 3] * kPhiUnscale);",
+     "make_float2(__fadd_rn(acc[4 * jn + 2], frag[4 * jn + 2]) * kPhiUnscale,\n"
+     "                          __fadd_rn(acc[4 * jn + 3], frag[4 * jn + 3]) * kPhiUnscale);"),
+]
+
+# the same, each element's update ordered before the next's by an empty
+# volatile asm (ptxas scheduled the 32 updates side by side and spilled)
+_K6_CARRY_SEQ = [e if "acc[i] = __fadd_rn(acc[i], frag[i])" not in e[1] else (
+    e[0], e[1], "for (int i = 0; i < 32; ++i) {\n"
+    "          const float t = __fadd_rn(acc[i], frag[i]);\n"
+    "          frag[i] = __fsub_rn(frag[i], __fsub_rn(t, acc[i]));\n"
+    "          acc[i] = t;\n"
+    "          asm volatile(\"\" : \"+f\"(acc[i]), \"+f\"(frag[i]));\n        }") for e in _K6_CARRY]
+
+# the mean mu of the head in shared memory, read at each use, where the
+# thread held its 8 channels in registers (8 registers for the carry)
+_K6_MU_SMEM = [
+    ("sla_fused.cu", "  __shared__ float red[kThreads / 32];\n  const uint32_t raw",
+     "  __shared__ float red[kThreads / 32];\n  __shared__ __align__(16) float mu_s[kDh];\n"
+     "  const uint32_t raw"),
+    ("sla_fused.cu", "  float m8[8];\n  float acc[LINEAR", "  float acc[LINEAR"),
+    ("sla_fused.cu",
+     "      const float4* m4 = reinterpret_cast<const float4*>(mu + (size_t)bh * kDh + c16 * 8);\n"
+     "      *reinterpret_cast<float4*>(m8) = __ldg(m4);\n"
+     "      *reinterpret_cast<float4*>(m8 + 4) = __ldg(m4 + 1);\n",
+     "      if (tid < kDh / 4)\n"
+     "        reinterpret_cast<float4*>(mu_s)[tid] =\n"
+     "            __ldg(reinterpret_cast<const float4*>(mu + (size_t)bh * kDh) + tid);\n"
+     "      __syncthreads();\n"),
+    ("sla_fused.cu",
+     "      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(__fsub_rn(f[e], m8[e])));",
+     "      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(__fsub_rn(f[e], mu_s[c16 * 8 + e])));"),
+    ("sla_fused.cu", "        for (int e = 0; e < 8; ++e) f[e] = __fsub_rn(f[e], m8[e]);",
+     "        for (int e = 0; e < 8; ++e) f[e] = __fsub_rn(f[e], mu_s[c16 * 8 + e]);"),
+]
+
 DESIGNS = [
     ("k6-run8", [("sla_fused.cu", "constexpr int kMaxRun = 24;", "constexpr int kMaxRun = 8;")]),
-    ("k6-run16", [("sla_fused.cu", "constexpr int kMaxRun = 24;",
-                   "constexpr int kMaxRun = 16;")]),
+    ("k6-run12", [("sla_fused.cu", "constexpr int kMaxRun = 24;",
+                   "constexpr int kMaxRun = 12;")]),
     ("k6-run-one-wave", [("sla_fused.cu", "constexpr int kMaxRun = 24;",
                           "constexpr int kMaxRun = 1 << 20;")]),
     ("k16-rw1", [("sla_fused.cu", "constexpr int kWideRowWarps = 2;",
@@ -102,6 +165,21 @@ DESIGNS = [
          "make_float2(acc[4 * jn + 2] * kPhiUnscale, acc[4 * jn + 3] * kPhiUnscale);",
          "make_float2((acc[4 * jn + 2] - comp[4 * jn + 2]) * kPhiUnscale,\n"
          "                          (acc[4 * jn + 3] - comp[4 * jn + 3]) * kPhiUnscale);")]),
+    ("k6-carry", _K6_CARRY),
+    ("k6-carry-run8", _K6_CARRY + [("sla_fused.cu", "constexpr int kMaxRun = 24;",
+                                    "constexpr int kMaxRun = 8;")]),
+    ("k6-carry-run12", _K6_CARRY + [("sla_fused.cu", "constexpr int kMaxRun = 24;",
+                                     "constexpr int kMaxRun = 12;")]),
+    ("k6-carry-mu", _K6_CARRY + _K6_MU_SMEM),
+    ("k6-carry-seq", _K6_CARRY_SEQ),
+    ("k6-reduce-f64-run8", [
+        ("sla_fused.cu", "constexpr int kMaxRun = 24;", "constexpr int kMaxRun = 8;"),
+        ("linear_kv.cuh", "  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);",
+         "  double sx = 0.0, sy = 0.0, sz = 0.0, sw = 0.0;"),
+        ("linear_kv.cuh", "    sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;",
+         "    sx += q.x; sy += q.y; sz += q.z; sw += q.w;"),
+        ("linear_kv.cuh", "  *reinterpret_cast<float4*>(out) = sum;",
+         "  *reinterpret_cast<float4*>(out) = make_float4(sx, sy, sz, sw);")]),
     ("k6-transpose-ablate", [("sla_fused.cu",
                               "  const int cq = u & 7, r8 = (r0 >> 3) + (u >> 3);",
                               "  return;\n  const int cq = u & 7, r8 = (r0 >> 3) + (u >> 3);")]),
@@ -126,7 +204,8 @@ def _design(args) -> int:
                 raise SystemExit(f"time_k6_k16: {name}: text not found once: {old!r}")
             path.write_text(text.replace(old, new))
         cmd = [sys.executable, __file__, "--root", str(dst), "--label", name,
-               "--cases", args.cases, "--rounds", str(args.rounds), "--reps", str(args.reps)]
+               "--cases", args.cases, "--rounds", str(args.rounds), "--reps", str(args.reps),
+               "--draws", str(args.draws)]
         rc |= subprocess.run(cmd).returncode
     return rc
 
@@ -188,9 +267,11 @@ def _copy(args, base: dict, nbytes: int) -> None:
             lambda got: {}, nbytes, 0.0)
 
 
-def _k6(args, card: str, sf, H: int, linear: bool) -> None:
+def _k6_draw(H: int, seed: int):
+    """K planes of N(0, 1) (rows past L zero, as K5 leaves them), their
+    mean, uniform int8 V (rows past L zero)."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(H)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     Lp, L = -(-L480 // 512) * 512, L480
     k = torch.randn((1, H, Lp, DH), generator=g, device="cuda").bfloat16()
     k[:, :, L:] = 0                                  # K5's rows past L
@@ -198,6 +279,23 @@ def _k6(args, card: str, sf, H: int, linear: bool) -> None:
     vi = torch.randint(-127, 128, (1, H, Lp, DH), generator=g, device="cuda",
                        dtype=torch.int8)
     vi[:, :, L:] = 0
+    return k, mu, vi
+
+
+def _kv_tol_ratio(sf, k, mu, vi) -> float:
+    """K6's kv: the worst |err| over rtol / atol 1e-4 of the float64 sums."""
+    import torch
+    L = L480
+    pk = torch.softmax(k[:, :, :L].double(), -1)
+    ref = torch.matmul(pk.transpose(-1, -2), vi[:, :, :L].double())
+    got = sf._subquant_pack_kvt_cuda(k, mu, vi, BK, L, True)[3]
+    return float(((got.double() - ref).abs() / (1e-4 + 1e-4 * ref.abs())).max())
+
+
+def _k6(args, card: str, sf, H: int, linear: bool) -> None:
+    import torch
+    Lp, L = -(-L480 // 512) * 512, L480
+    k, mu, vi = _k6_draw(H, H)
     nK = Lp // BK
     n_in = k.numel() * 2 + vi.numel() + mu.numel() * 4
     n_out = 2 * vi.numel() + 4 * H * nK + (4 * H * DH * (DH + 1) if linear else 0)
@@ -215,6 +313,10 @@ def _k6(args, card: str, sf, H: int, linear: bool) -> None:
             extra["partials"] = n_part
             extra["bound_ms_design"] = max(
                 (n_in + n_out + 2 * n_part * 4 * DH * (DH + 1)) / HBM, ops / PEAK["bf16"]) * 1e3
+    if linear and args.draws > 1:
+        # the kv sums' worst element on further draws (seeds 1000 H + i)
+        extra["kv_tol_ratio_f64_draws"] = [
+            _kv_tol_ratio(sf, *_k6_draw(H, 1000 * H + i)) for i in range(1, args.draws)]
     want = sf.subquant_pack_kvt_plain(k, mu, vi, BK, L, linear)
     ref = None
     if linear:                                      # float64 sums (the plain's own, or not)
@@ -267,6 +369,8 @@ def main(argv=None) -> int:
     p.add_argument("--cases", default=",".join(CASES))
     p.add_argument("--rounds", type=int, default=7)
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--draws", type=int, default=1,
+                   help="K6 +kv: also the kv sums' worst error on this many draws in all")
     p.add_argument("--design", action="store_true",
                    help="time this tree's design variants")
     p.add_argument("--designs", default="",

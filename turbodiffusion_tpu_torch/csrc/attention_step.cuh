@@ -1,6 +1,6 @@
 // What the mma.sync attention kernels share (the mma.sync forms of K3, K19
-// and K28, and K30; the wgmma kernels K4 / K3 / K20, K7 / K19 / K28 and K14
-// / K17 their bf16 packing): the tensor-core wrappers and one 64-key
+// and K28; the wgmma kernels K4 / K3 / K20 / K30, K7 / K19 / K28 and K14 /
+// K17 their bf16 packing): the tensor-core wrappers and one 64-key
 // chunk's online-softmax step with O += P V.
 //
 // The step works on a warp's 16 query rows in the m16n8 accumulator layout:
@@ -48,7 +48,7 @@ __device__ __forceinline__ float step_exp(float x) {
 
 // One chunk of NB * 8 keys for the warp's rows. s holds the chunk's scaled
 // logits, masked columns already at a large negative value, in the log2
-// domain when EXP2 (K3, K28) and the natural one otherwise (K19, K30).
+// domain when EXP2 (K3, K28) and the natural one otherwise (K19).
 // Updates the rows' running max (m0, m1), this lane's share of their sums
 // (l0, l1) and the fp32 output acc (ND tiles of 8 channels), then adds P V:
 // P rounds to bf16 (times the key's V scale vsc[key] before the rounding

@@ -1,8 +1,8 @@
 // The walk over key chunks that the warp-specialised attention kernels share
-// (K3 / K4 / K20 in flash_attention.cu, K25 / K26 in flash_jvp.cu): the
-// chunks one query tile attends to, in order. The producer thread and the
-// tile's consumer warpgroups each walk the same list, so they agree on every
-// chunk without exchanging indices.
+// (K3 / K4 / K20 / K30 in flash_attention.cu, K25 / K26 in flash_jvp.cu):
+// the chunks one query tile attends to, in order. The producer thread and
+// the tile's consumer warpgroups each walk the same list, so they agree on
+// every chunk without exchanging indices.
 
 #pragma once
 

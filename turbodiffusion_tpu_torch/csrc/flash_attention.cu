@@ -184,13 +184,31 @@
 // K30 tdx_flash_attention_i8qk replaces the dense branch of _flash_fwd_impl
 //    with int8 QK (launch :1139, body _attn_kernel with int8_qk=True), which
 //    flash_attention(..., int8_qk=True) without a LUT takes: K20's function
-//    over every key of [0, kv_len) instead of the LUT's blocks (a first
-//    launch quantising each K row once, `i8qk_quant_kernel`). The caller subtracts K's mean first, as
-//    JAX's flash_attention does. Bound by tensor-core math: at the 1.3B
-//    480p dense self shape (12 heads, 32,760 x 32,760) 3.3e12 int8 and
-//    3.3e12 bf16 operations. No path reaches it; it keeps the mma.sync
-//    FlashAttention-2 loop (4 warps of 16 query rows, 64-key chunks staged
-//    synchronously) K20 ran before its redesign.
+//    over every key of [0, kv_len). The caller subtracts K's mean first, as
+//    JAX's flash_attention does. No path reaches it, in JAX either. Two first
+//    launches (`i8qk_quant_kernel`) quantise q's rows and k's rows before
+//    kv_len once, padded with zero rows to 128 and to the chunk; then K4's
+//    kernel in its fourth form, `k4::flash_fwd_kernel<3>`: K4's dense walk
+//    and geometry (one stream of 128-row tiles shared by the two consumer
+//    warpgroups, persistent blocks walking tiles in head order) with K20's
+//    int8 arithmetic: the producer TMA-loads the tile's int8 Q (128 rows x
+//    128 bytes), each chunk's int8 K rows and, by a bulk copy on the same
+//    barrier, their scales, and its bf16 V as it lies (MN-major, the map
+//    ending at kv_len); S on wgmma s8 -> s32 (both operands K-major), each
+//    column times its key's scale in fp32 before the row max, keys >= kv_len
+//    selected to -inf, p = exp2(S * qa scale log2 e - max), P V on wgmma
+//    m64n128k16 bf16 with P in registers; O goes out by TMA through the Q
+//    buffer. The two consumers issue a chunk's products in turns (named
+//    barriers, FlashAttention-3's ping-pong), each handing the turn on once
+//    its QK is done. The chunk (kDenseI8Keys int8 keys), the ring's depth
+//    and the turns were chosen on the card (tools/time_k30.py --design;
+//    PERF.md): 9.5 ms at the shape below on an H100 80GB HBM3, K4's bf16
+//    10.1-10.5 beside it.
+//    What bounds it on an H100: tensor-core math, at the 1.3B 480p dense
+//    self shape (12 heads, 32,760 x 32,760) 3.3e12 int8 operations (1.67 ms
+//    at 1,979 TOP/s) and 3.3e12 bf16 (3.33 ms at 989 TFLOP/s): 5.0 ms; with
+//    int8 QK the softmax's per-score work (the key's scale, the SFU's exp2,
+//    one a score, 1.3e10) sits closer to the products than in K4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -363,6 +381,9 @@ namespace k4 {
 constexpr int kDense = 0;      // K4: every chunk of [0, kv_len)
 constexpr int kSparse = 1;     // K3: the chunks of the tile's LUT row
 constexpr int kSparseI8 = 2;   // K20: K3's walk with int8 QK, 64-row tiles, 64-key chunks
+constexpr int kDenseI8 = 3;    // K30: K4's walk with int8 QK
+// K30's int8 keys a chunk and chunks in flight (tools/time_k30.py --design)
+constexpr int kDenseI8Keys = 128, kDenseI8Stages = 2;
 
 constexpr int kWG = 128;                   // threads of a warpgroup
 constexpr int kQBufs = 2;                  // Q tiles in flight a stream
@@ -374,29 +395,32 @@ static_assert(kProducerRegs * kWG + 2 * kConsumerRegs * kWG <= kRegs * kThreadsK
 constexpr float kMaskedLogit = -__builtin_huge_valf();   // a key >= kv_len: p = 0
 
 // A form's tiles and shared memory. A block runs kStreams streams of
-// tiles, each with its own Q buffers, ring and barriers: K4 / K3 one stream
-// of 128-row tiles that both consumer warpgroups share (64 rows each, one
-// chunk walk), K20 two streams of 64-row tiles, one a consumer (at blocks
-// 64/64 two neighbouring 64-row tiles lie in two Q blocks and walk two LUT
-// rows).
+// tiles, each with its own Q buffers, ring and barriers: K4 / K3 / K30 one
+// stream of 128-row tiles that both consumer warpgroups share (64 rows
+// each, one chunk walk), K20 two streams of 64-row tiles, one a consumer (at
+// blocks 64/64 two neighbouring 64-row tiles lie in two Q blocks and walk
+// two LUT rows).
 template <int FORM>
 struct Plan {
-  static constexpr bool kI8 = FORM == kSparseI8;
-  static constexpr int kStreams = kI8 ? 2 : 1;
+  static constexpr bool kI8 = FORM == kSparseI8 || FORM == kDenseI8;   // int8 Q and K
+  static constexpr bool kLut = FORM == kSparse || FORM == kSparseI8;   // the LUT's walk
+  static constexpr int kStreams = FORM == kSparseI8 ? 2 : 1;
   static constexpr int kCons = 2 / kStreams;         // consumer warpgroups a stream
   static constexpr int kRows = 64 * kCons;           // query rows a tile
-  static constexpr int kKeys = kI8 ? 64 : 128;       // keys a chunk
-  static constexpr int kStages = kI8 ? 3 : 2;        // chunks in flight a stream
+  static constexpr int kKeys =                       // keys a chunk
+      FORM == kSparseI8 ? 64 : FORM == kDenseI8 ? kDenseI8Keys : 128;
+  static constexpr int kStages =                     // chunks in flight a stream
+      FORM == kSparseI8 ? 3 : FORM == kDenseI8 ? kDenseI8Stages : 2;
   static constexpr int kOBox = kRows * 128;          // 64 channels of a tile's rows
-  // a Q buffer: the tile's Q (bf16 in two 64-channel boxes; K20: int8 rows of
-  // 128 bytes), then its bf16 O as the TMA store reads it
+  // a Q buffer: the tile's Q (bf16 in two 64-channel boxes; K20 / K30: int8
+  // rows of 128 bytes), then its bf16 O as the TMA store reads it
   static constexpr int kQTile = 2 * kOBox;
   static constexpr int kQBytes = kI8 ? kRows * 128 : kQTile;
   static constexpr int kKVBox = kKeys * 128;         // 64 channels of a chunk's bf16 K or V
   static constexpr int kKTile = kI8 ? kKeys * 128 : 2 * kKVBox;   // a chunk's K
   static constexpr int kStage = kKTile + 2 * kKVBox;
   static constexpr int kStream = kQBufs * kQTile + kStages * kStage;
-  // K20: each stage's per-key K scales, after the streams
+  // K20 / K30: each stage's per-key K scales, after the streams
   static constexpr int kScaleBytes = kI8 ? kKeys * 4 : 0;
   static constexpr int kBarsAt = kStreams * (kStream + kStages * kScaleBytes);
   // qfull, qempty a Q buffer; kfull, vfull, kempty, vempty a stage
@@ -413,17 +437,17 @@ struct Params {
   // that hold a key before kv_len
   const int* lut;
   int nQ, sel, block_q, block_k, nK;
-  // K20: the int8 rows' scales (absmax / 127) of q (B, H, Lqp) and k (B,
-  // H, Lkp), rows padded to multiples of 64
+  // K20 / K30: the int8 rows' scales (absmax / 127) of q (B, H, Lqp) and k
+  // (B, H, Lkp), rows padded to the tile and the chunk
   const float* qsc;
   const float* ksc;
   int Lqp, Lkp;
 };
 
-// The chunks one tile attends to (chunk_walk.cuh): dense (K4) every chunk
-// of [0, kv_len), sparse (K3, K20) the chunks of the tile's LUT row.
+// The chunks one tile attends to (chunk_walk.cuh): dense (K4, K30) every
+// chunk of [0, kv_len), sparse (K3, K20) the chunks of the tile's LUT row.
 template <int FORM>
-using Walk = ChunkWalk<FORM != kDense, Plan<FORM>::kRows, Plan<FORM>::kKeys>;
+using Walk = ChunkWalk<Plan<FORM>::kLut, Plan<FORM>::kRows, Plan<FORM>::kKeys>;
 
 // Grid: persistent blocks, at most one an SM. A tile is kRows query rows of
 // one (b, h) (K3 / K20: inside one Q block, block_q a multiple of kRows);
@@ -434,8 +458,8 @@ using Walk = ChunkWalk<FORM != kDense, Plan<FORM>::kRows, Plan<FORM>::kKeys>;
 // Q buffers and each chunk of its Walk's K and V (as they lie: keys x
 // channels) into the stream's ring, running ahead across tiles. Each
 // consumer warpgroup owns 64 rows of its stream's tiles: S = Q K^T on wgmma
-// from shared memory (K4 / K3 bf16; K20 int8 -> exact s32, times the key's
-// scale), the online softmax in fp32 registers, O += bf16(P) V on wgmma
+// from shared memory (K4 / K3 bf16; K20 / K30 int8 -> exact s32, times the
+// key's scale), the online softmax in fp32 registers, O += bf16(P) V on wgmma
 // with P in registers and V MN-major (the transpose bit), the next chunk's
 // QK issued with the previous chunk's P V. The epilogue writes o / l as
 // bf16 into the warpgroup's own Q rows (swizzled) and stores them by TMA;
@@ -457,17 +481,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int tid = threadIdx.x;
   const int n_tiles = (p.Lq + kRows - 1) / kRows;
   const int n_items = p.B * p.H * n_tiles;
-  // stream sm: its Q buffers, its stages (K tile, then V tile), K20's scales
-  // of each stage, its barriers
+  // stream sm: its Q buffers, its stages (K tile, then V tile), K20's and
+  // K30's scales of each stage, its barriers
   auto qbuf0 = [&](int sm) { return base + sm * P::kStream; };
   auto stage0 = [&](int sm) { return base + sm * P::kStream + kQBufs * P::kQTile; };
   auto scales0 = [&](int sm) {
     return base + P::kStreams * P::kStream + sm * kStages * P::kScaleBytes;
   };
   auto bars0 = [&](int sm) { return base + P::kBarsAt + sm * P::kBarsA * 8; };
-  // K20: each consumer warp releases a chunk's K (it reads the chunk's
-  // scales itself); K4 / K3: one thread a warpgroup
+  // K20 / K30: each consumer warp releases a chunk's K (it reads the
+  // chunk's scales itself); K4 / K3: one thread a warpgroup
   constexpr int kKArrivals = I8 ? 4 * P::kCons : P::kCons;
+  // K30: the two consumers issue each chunk's products in turns (named
+  // barriers kTurnBar + consumer), so that one's softmax runs under the
+  // other's products (FlashAttention-3's ping-pong: 11.5 -> 9.4 ms on an
+  // H100; no gain for K4, tools/time_k30.py --design)
+  constexpr bool kTurns = FORM == kDenseI8;
+  constexpr int kTurnBar = 3;
 
   if (tid == 0) {
 #pragma unroll 1
@@ -494,8 +524,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   if (tid < kWG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if ((tid & 31) == 0 && tid / 32 < P::kStreams) {
-      // ---- loads; K4's and K3's K and V maps end at kv_len (K20's V map):
-      // rows past it read as zeros ----
+      // ---- loads; K4's and K3's K and V maps end at kv_len (K20's and
+      // K30's V map; their int8 K rows past it are zeros): rows past it
+      // read as zeros ----
       const int sm = tid / 32;
       const uint32_t qfull0 = bars0(sm), qempty0 = qfull0 + 8 * kQBufs;
       const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
@@ -550,7 +581,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int cw = tid / kWG - 1, lt = tid % kWG, warp = lt >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = warp * 16 + g;   // the warpgroup's row of registers with (i & 2) == 0
-  const int sm = I8 ? cw : 0;                    // this consumer's stream
+  const int sm = P::kStreams == 1 ? 0 : cw;      // this consumer's stream (folds to 0)
   const int row_off = (cw % P::kCons) * 64;      // its rows in the stream's tiles
   const uint32_t qfull0 = bars0(sm), qempty0 = qfull0 + 8 * kQBufs;
   const uint32_t kfull0 = qempty0 + 8 * kQBufs, vfull0 = kfull0 + 8 * kStages;
@@ -558,7 +589,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const uint32_t st0 = stage0(sm);
 
   float o[64], sc[kKeys / 2];
-  int si[I8 ? kKeys / 2 : 1];   // K20: S as exact s32
+  int si[I8 ? kKeys / 2 : 1];   // K20 / K30: S as exact s32
   uint32_t pa[kKeys / 4];
 
   // O += bf16(P) V of the chunk in stage s: V's keys are wgmma's K, its
@@ -574,6 +605,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
   int n = 0, c = 0;   // tiles and chunks done: the producer's counts
   int pend = -1;      // the Q buffer whose O store has yet to be read
+  if constexpr (kTurns)
+    if (cw == 1) named_arrive(kTurnBar, 2 * kWG);   // consumer 0 goes first
 #pragma unroll 1
   for (int it = blockIdx.x * P::kStreams + sm; it < n_items;
        it += gridDim.x * P::kStreams, ++n) {
@@ -584,10 +617,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int e = 0; e < 64; ++e) o[e] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     // the logits times log2 e are S times mul (K4 / K3: scale * log2 e;
-    // K20: the row's int8 scale times that, S already times the key's)
+    // K20 / K30: the row's int8 scale times that, S already times the key's)
     float mul0 = p.scale_log2, mul1 = p.scale_log2;
     if constexpr (I8) {
-      const float* qsr = p.qsc + (size_t)bh * p.Lqp + tile * kRows + rl0;
+      const float* qsr = p.qsc + (size_t)bh * p.Lqp + tile * kRows + row_off + rl0;
       mul0 = __ldg(qsr) * p.scale_log2;
       mul1 = __ldg(qsr + 8) * p.scale_log2;
     }
@@ -599,14 +632,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       const int s = c % kStages;
       const uint32_t kb = st0 + s * P::kStage;
       mbar_wait(kfull0 + 8 * s, (c / kStages) & 1);
+      if constexpr (kTurns) named_sync(kTurnBar + cw, 2 * kWG);   // my turn
       // S = Q K^T (64 rows x the chunk's keys); then the previous P V
       reg_fence<64>(o);
       reg_fence<kKeys / 4>(pa);
       wgmma_fence();
-      if constexpr (I8) {
+      if constexpr (I8 && kKeys == 64) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
           wgmma_s8_n64(si, sw128_desc(qa + kk * 32), sw128_desc(kb + kk * 32), kk > 0);
+      } else if constexpr (I8) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8(si, sw128_desc(qa + kk * 32), sw128_desc(kb + kk * 32), kk > 0);
       } else {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
@@ -619,6 +657,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_wait<1>();
       else
         wgmma_wait<0>();
+      // the other consumer's turn, once this one's QK is done (a barrier
+      // inside the products' window made ptxas serialize every wgmma)
+      if constexpr (kTurns) named_arrive(kTurnBar + 1 - cw, 2 * kWG);
       if constexpr (I8) {
         // S = s32 (exact, |s| < 2^22) times the key's scale, in fp32: the
         // row max is taken on these, since each key has a scale of its own
@@ -739,13 +780,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
     pend = qb;
   }
+  if constexpr (kTurns)
+    if (cw == 0) named_sync(kTurnBar, 2 * kWG);   // consumer 1's last turn
   if (lt == 0) tma_store_wait_all();
 }
 
-// K4 (kDense), K3 (kSparse, over the LUT (B, H, ceil(Lq / block_q), sel))
-// or K20 (kSparseI8: the LUT, and q's and k's int8 rows qi (B, H, Lqp, 128)
-// and ki (B, H, Lkp, 128) with their scales, rows padded to multiples of
-// 64; q and k are then read through these, not their maps)
+// K4 (kDense), K3 (kSparse, over the LUT (B, H, ceil(Lq / block_q), sel)),
+// K20 (kSparseI8: the LUT, and q's and k's int8 rows qi (B, H, Lqp, 128)
+// and ki (B, H, Lkp, 128) with their scales, Lqp = Lq and Lkp = kv_len
+// padded to the form's tile rows and chunk keys; q and k are then read
+// through these, not their maps) or K30 (kDenseI8: no LUT, the int8 rows)
 template <int FORM>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
            int kv_len, Strides qs, Strides ks, Strides vs, Strides os, float scale,
@@ -754,8 +798,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
            const float* ksc = nullptr) {
   using P = Plan<FORM>;
   if (B <= 0 || H <= 0 || Lq <= 0 || kv_len <= 0) return (int)cudaErrorInvalidValue;
-  if (FORM != kDense && (block_q <= 0 || block_q % P::kRows || block_k <= 0 ||
-                         block_k % P::kKeys || sel < 0 || !lut))
+  if (P::kLut && (block_q <= 0 || block_q % P::kRows || block_k <= 0 ||
+                  block_k % P::kKeys || sel < 0 || !lut))
     return (int)cudaErrorInvalidValue;
   // TMA: 16-byte aligned bases and strides
   const Strides st[4] = {qs, ks, vs, os};
@@ -794,8 +838,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const long long blocks = (items + P::kStreams - 1) / P::kStreams;
   const int grid = blocks > n_sm ? n_sm : (int)blocks;
   const Params p{B, H, Lq, kv_len, scale * kLog2e, lut,
-                 FORM != kDense ? (Lq + block_q - 1) / block_q : 0, sel, block_q, block_k,
-                 FORM != kDense ? (kv_len + block_k - 1) / block_k : 0,
+                 P::kLut ? (Lq + block_q - 1) / block_q : 0, sel, block_q, block_k,
+                 P::kLut ? (kv_len + block_k - 1) / block_k : 0,
                  qsc, ksc, Lqp, Lkp};
   flash_fwd_kernel<FORM><<<grid, kThreadsK4, P::kSmem, (cudaStream_t)stream>>>(tq, tk, tv, to, p);
   return (int)cudaGetLastError();
@@ -804,10 +848,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 }  // namespace k4
 
 // ---------------------------------------------------------------------------
-// K20 and K30: the int8 rows; K30's loop
+// K20 and K30: the int8 rows
 // ---------------------------------------------------------------------------
-
-constexpr int kI8Stride = kDh + 16;   // bytes per int8 row of Qi / Ki
 
 // One row's channels 4 lane .. 4 lane + 3 (a warp a row) -> their int8
 // values packed in a word, quantised per row as the TPU kernel does:
@@ -832,36 +874,12 @@ __device__ __forceinline__ uint32_t quant_row4_i8(uint2 u, float& scale) {
   return w;
 }
 
-// Rows [row0 + 16 warp, + 16) of src (row stride sl, zero past nrows) ->
-// int8 rows of dst by quant_row4_i8, each row's scale into scale[]. The
-// warp issues its 16 rows' loads before it reduces any, so it waits on
-// memory once a chunk rather than once a row.
-__device__ __forceinline__ void quant_rows_i8(int8_t* dst, float* scale,
-                                              const __nv_bfloat16* src, long long sl,
-                                              int row0, int nrows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint2 u[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = row0 + warp * 16 + i;
-    u[i] = r < nrows ? *reinterpret_cast<const uint2*>(src + (long long)r * sl + lane * 4)
-                     : make_uint2(0, 0);
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    float sc;
-    *reinterpret_cast<uint32_t*>(dst + r * kI8Stride + lane * 4) = quant_row4_i8(u[i], sc);
-    if (lane == 0) scale[r] = sc;
-  }
-}
-
 // K20's and K30's first launches: rows l < Lpad of x (b, l, h), read through
 // strides (rows at or past nrows as zeros), -> int8 xq (B, H, Lpad, 128) and
 // amax / 127 (B, H, Lpad) by quant_row4_i8 (a warp a row), so the kernels
 // read the values the TPU kernel computes for each Q block and each gathered
-// K block (K30: every K row, Lpad = nrows = Lk; K20: q's rows and k's rows
-// before kv_len, padded to multiples of 64 with zero rows).
+// K block: q's rows and k's rows before kv_len, padded with zero rows to the
+// form's tile rows and chunk keys (K20: 64 and 64; K30: 128 and its chunk).
 __global__ void __launch_bounds__(256)
 i8qk_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
                   float* __restrict__ xsc, int nrows, int Lpad, Strides xs) {
@@ -883,114 +901,6 @@ int launch_i8qk_quant(const void* x, void* xq, void* xsc, int B, int H, int nrow
   i8qk_quant_kernel<<<dim3((Lpad + 7) / 8, H, B), 256, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (int8_t*)xq, (float*)xsc, nrows, Lpad, xs);
   return (int)cudaGetLastError();
-}
-
-// K30: every 64-key chunk of [0, kv_len). Grid (ceil(Lq / 64), H, B), 4
-// warps of 16 query rows.
-__global__ void __launch_bounds__(kThreads)
-flash_i8qk_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kq,
-                  const float* __restrict__ ksc, const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk, int kv_len, Strides qs,
-                  Strides vs, Strides os, float scale) {
-  __shared__ __align__(16) int8_t Ki[kBN * kI8Stride];       // Q staging, then K chunks
-  __shared__ __align__(16) __nv_bfloat16 Vt[kDh * kVStride];
-  __shared__ float s_qa[kBM], s_ka[kBN];
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const size_t bh = (size_t)b * H + h;
-  const int8_t* kqb = kq + bh * Lk * kDh;
-  const float* kab = ksc + bh * Lk;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-  // Q rows -> int8 A fragments (m16n8k32), their scales qa / 127
-  quant_rows_i8(Ki, s_qa, qb, qs.l, row0, Lq);
-  __syncthreads();
-  uint32_t qa[kDh / 32][4];
-  {
-    const int8_t* base = Ki + (warp * 16) * kI8Stride;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 32; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(base + g * kI8Stride + kk * 32 + t * 4);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * kI8Stride + kk * 32 + t * 4);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + g * kI8Stride + kk * 32 + 16 + t * 4);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * kI8Stride + kk * 32 + 16 + t * 4);
-    }
-  }
-  const float qa0 = s_qa[warp * 16 + g], qa1 = s_qa[warp * 16 + g + 8];
-
-  float acc[kDh / 8][4];
-#pragma unroll
-  for (int d = 0; d < kDh / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;
-  float l0 = 0.f, l1 = 0.f;
-
-  const int n_chunks = (kv_len + kBN - 1) / kBN;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int key0 = c * kBN;
-    // never taken; without it ptxas schedules the loop otherwise (173
-    // registers, not 178) and K30 ran 4% slower on an H100
-    if (key0 >= kv_len) continue;
-    __syncthreads();  // previous chunk (or the Q fragments' staging) consumed
-    for (int u = threadIdx.x; u < kBN * (kDh / 16); u += kThreads) {
-      const int r = u >> 3, cc = u & 7;
-      *reinterpret_cast<uint4*>(Ki + r * kI8Stride + cc * 16) =
-          key0 + r < kv_len
-              ? *reinterpret_cast<const uint4*>(kqb + (size_t)(key0 + r) * kDh + cc * 16)
-              : make_uint4(0, 0, 0, 0);
-    }
-    if (threadIdx.x < kBN)
-      s_ka[threadIdx.x] = key0 + threadIdx.x < kv_len ? kab[key0 + threadIdx.x] : 0.f;
-    load_v_transposed(Vt, vb, vs, key0, kv_len);
-    __syncthreads();
-
-    // s = ((s32 * qa') * ka') * scale for this warp's 16 rows x 64 keys
-    const int nvalid = kv_len - key0;
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      int si[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int kk = 0; kk < kDh / 32; ++kk) {
-        const int8_t* kq = Ki + (j * 8 + g) * kI8Stride + kk * 32 + t * 4;
-        mma_s8(si, qa[kk], *reinterpret_cast<const uint32_t*>(kq),
-               *reinterpret_cast<const uint32_t*>(kq + 16));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float x = __fmul_rn(__fmul_rn(__fmul_rn((float)si[e], e < 2 ? qa0 : qa1),
-                                            s_ka[col]), scale);
-        s[j][e] = col < nvalid ? x : kNegInf;
-      }
-    }
-    // natural exp; O += P V with P (bf16) from the S accumulators
-    softmax_pv_step<false, kVStride>(s, acc, m0, m1, l0, l1, Vt);
-  }
-
-  // finalize: full row sums over the quad, o = O / max(l, 1e-20), rows < Lq
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  l0 = fmaxf(l0, 1e-20f);
-  l1 = fmaxf(l1, 1e-20f);
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int d = 0; d < kDh / 8; ++d) {
-    const int col = d * 8 + t * 2;
-    if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * os.l + col) =
-          pack_bf16(__fdiv_rn(acc[d][0], l0), __fdiv_rn(acc[d][1], l0));
-    if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * os.l + col) =
-          pack_bf16(__fdiv_rn(acc[d][2], l1), __fdiv_rn(acc[d][3], l1));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1733,6 +1643,17 @@ int k20_form(int block_q, int block_k, int kv_len, int Lk, const long long* stri
   return 1;
 }
 
+// K30's operands (ops/flash_attention.py `_check_qkv` holds them first):
+// kv_len in (0, Lk] and every stride (elements; q, k, v, o by batch,
+// token, head) a 16-byte multiple (the int8 rows' loads, the TMA boxes of v
+// and o)
+bool k30_takes(int B, int H, int Lq, int kv_len, int Lk, const long long* strides) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || kv_len <= 0 || kv_len > Lk) return false;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" int tdx_sparse_flash_attention_form(int block_q, int block_k, int kv_len,
@@ -1794,20 +1715,28 @@ extern "C" int tdx_sparse_flash_attention_i8qk(
                                    (const float*)ksc);
 }
 
+// K30: q's rows and k's rows before kv_len quantised into qi (B, H, Lqp, 128)
+// / qsc and ki (B, H, Lkp, 128) / ksc (Lqp = ceil(Lq / 128) * 128, Lkp =
+// kv_len padded to the chunk, at most ceil(kv_len / 128) * 128; scratch the
+// caller allocates at those sizes), then K4's dense walk on them
 extern "C" int tdx_flash_attention_i8qk(
-    const void* q, const void* k, const void* v, void* o, void* kq, void* ksc, int B, int H,
-    int Lq, int Lk, int kv_len, long long qsb, long long qsl, long long qsh, long long ksb,
-    long long ksl, long long ksh, long long vsb, long long vsl, long long vsh, long long osb,
-    long long osl, long long osh, float scale, void* stream) {
-  if (kv_len <= 0 || kv_len > Lk) return (int)cudaErrorInvalidValue;
-  const int err = launch_i8qk_quant(k, kq, ksc, B, H, Lk, Lk, Strides{ksb, ksl, ksh}, stream);
+    const void* q, const void* k, const void* v, void* o, void* qi, void* qsc, void* ki,
+    void* ksc, int B, int H, int Lq, int Lk, int kv_len, long long qsb, long long qsl,
+    long long qsh, long long ksb, long long ksl, long long ksh, long long vsb, long long vsl,
+    long long vsh, long long osb, long long osl, long long osh, float scale, void* stream) {
+  const long long st[12] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
+  if (!k30_takes(B, H, Lq, kv_len, Lk, st)) return (int)cudaErrorInvalidValue;
+  using P = k4::Plan<k4::kDenseI8>;
+  static_assert(P::kRows == 128 && P::kKeys <= 128, "the caller's scratch sizes");
+  const int Lqp = (Lq + P::kRows - 1) / P::kRows * P::kRows;
+  const int Lkp = (kv_len + P::kKeys - 1) / P::kKeys * P::kKeys;
+  int err = launch_i8qk_quant(k, ki, ksc, B, H, kv_len, Lkp, Strides{ksb, ksl, ksh}, stream);
+  if (!err) err = launch_i8qk_quant(q, qi, qsc, B, H, Lq, Lqp, Strides{qsb, qsl, qsh}, stream);
   if (err) return err;
-  dim3 grid((Lq + kBM - 1) / kBM, H, B);
-  flash_i8qk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ksc, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, H, Lq, Lk, kv_len, Strides{qsb, qsl, qsh}, Strides{vsb, vsl, vsh},
-      Strides{osb, osl, osh}, scale);
-  return (int)cudaGetLastError();
+  return k4::launch<k4::kDenseI8>(q, k, v, o, B, H, Lq, kv_len, Strides{qsb, qsl, qsh},
+                                  Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                                  Strides{osb, osl, osh}, scale, nullptr, 0, 0, 0, stream, qi,
+                                  (const float*)qsc, ki, (const float*)ksc);
 }
 
 extern "C" int tdx_flash_attention(

@@ -74,9 +74,9 @@ SIGNATURES = {
     # q, k, v, o, B, H, Lq, kv_len, 12 strides, scale, stream
     "tdx_flash_attention": [_P, _P, _P, _P] + [_I] * 4 + [_I64] * 12
                            + [_F, _P],
-    # q, k, v, o, int8 K rows, K row scales, B, H, Lq, Lk, kv_len,
-    # 12 strides, scale, stream (K30)
-    "tdx_flash_attention_i8qk": [_P] * 6 + [_I] * 5 + [_I64] * 12 + [_F, _P],
+    # q, k, v, o, int8 Q rows, Q row scales, int8 K rows, K row scales, B,
+    # H, Lq, Lk, kv_len, 12 strides, scale, stream (K30)
+    "tdx_flash_attention_i8qk": [_P] * 8 + [_I] * 5 + [_I64] * 12 + [_F, _P],
     # q, norm_w, k, v, out int8, out scales, q row stride, B, H, heads a
     # block, Lq, kv_len, 6 strides (k, v: batch, token, head), scale, eps,
     # stream

@@ -45,8 +45,9 @@ module replaces with hand-written CUDA (csrc/flash_attention.cu):
   * K30 `_flash_i8qk_cuda` ← the dense branch with int8 QK (launch :1139,
     body `_attn_kernel` with int8_qk :64-121), which `flash_attention(...,
     int8_qk=True)` without a LUT takes: K20's function over every key of
-    [0, kv_len) (the mma.sync loop K20 ran before its redesign, on the same
-    first launch's int8 K rows). No model path reaches it, as in JAX.
+    [0, kv_len): K20's two first launches (q's and k's int8 rows), then K4's
+    wgmma + TMA kernel in its fourth form, K4's dense walk of 128-row tiles
+    on int8 Q and K. No model path reaches it, as in JAX.
 
 Semantics (every kernel and its plain version): logits in fp32 times
 `Dh^-0.5`; columns >= kv_len get -1e30 before the row max; softmax with
@@ -458,18 +459,22 @@ _sparse_flash_i8qk_cuda.launches = 0
 
 
 def _flash_i8qk_cuda(q, k, v, scale: float, kv_len: int):
-    """Launch K30: K's rows quantised once into scratch, then every chunk of
-    [0, kv_len)."""
+    """Launch K30: q's rows and k's rows before kv_len quantised once into
+    scratch (rows padded to multiples of 128: the tile, and at least the
+    kernel's chunk), then every chunk of [0, kv_len) on K4's kernel."""
     B, L, H, D = q.shape
     _check_qkv(q, k, v, kv_len)
     Lk = k.shape[1]
+    Lqp, Lkp = _cdiv(L, 128) * 128, _cdiv(kv_len, 128) * 128
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
-    kq = torch.empty((B, H, Lk, D), dtype=torch.int8, device=q.device)
-    ksc = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device)
+    qi = torch.empty((B, H, Lqp, D), dtype=torch.int8, device=q.device)
+    qsc = torch.empty((B, H, Lqp), dtype=torch.float32, device=q.device)
+    ki = torch.empty((B, H, Lkp, D), dtype=torch.int8, device=q.device)
+    ksc = torch.empty((B, H, Lkp), dtype=torch.float32, device=q.device)
     rc = _build.load().tdx_flash_attention_i8qk(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kq.data_ptr(),
-        ksc.data_ptr(), B, H, L, Lk, kv_len, *_strides(q, k, v, out),
-        float(scale), _build.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qi.data_ptr(),
+        qsc.data_ptr(), ki.data_ptr(), ksc.data_ptr(), B, H, L, Lk, kv_len,
+        *_strides(q, k, v, out), float(scale), _build.stream_ptr(q))
     _build.check(rc, "tdx_flash_attention_i8qk")
     _flash_i8qk_cuda.launches += 1
     return out
